@@ -1,0 +1,51 @@
+"""The port imports torch, never JAX, and nothing of the JAX package.
+
+Checked in a fresh interpreter (this test process has JAX loaded already):
+every module of the port is imported, then none of the forbidden modules
+may be in ``sys.modules``.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = """
+import importlib, pkgutil, sys
+import vqa_transfer_externaldata_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__,
+                                               port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+banned = ("jax", "jaxlib", "flax", "optax", "orbax",
+          "vqa_transfer_externaldata_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(len(names), "modules")
+assert len(names) >= 18, names
+assert not bad, bad
+assert "torch" in sys.modules
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "modules" in out.stdout
+
+
+@pytest.mark.parametrize("name", ["ops.kernels", "ops.gru", "ops.attention"])
+def test_importing_kernel_modules_builds_nothing(name):
+    """Kernels are built on first launch only: importing the modules (as
+    every CPU test does) must not look for nvcc or write a library."""
+    import importlib
+
+    from vqa_transfer_externaldata_torch.ops import kernels
+
+    importlib.import_module(f"vqa_transfer_externaldata_torch.{name}")
+    assert kernels.load.cache_info().currsize == 0

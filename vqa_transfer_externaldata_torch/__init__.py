@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the VQA transfer-learning framework.
+
+The package mirrors the module layout of ``vqa_transfer_externaldata_tpu``
+so each module's counterpart is easy to find, but it imports nothing of it
+(and never JAX): plain tensor code is PyTorch, and each Pallas kernel of the
+reference becomes a hand-written CUDA kernel for Hopper (``csrc/``) with a
+plain PyTorch version of the same math beside it. Entry points run on CUDA
+unless the caller passes ``device="cpu"``.
+
+Ported so far: the serving path of ``vqa_attention`` (eval forward with the
+fused GRU recurrence and the streaming attention forward kernels).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,112 @@
+"""Stage-2 VQA model, ``vqa_attention``: GloVe-embedded GRU question
+encoder -> single-glimpse spatial attention over the 14x14x2048 grid ->
+gated fusion -> answer classifier whose logits are cosine similarities
+against an answer-embedding table (the transfer vehicle), times a learned
+scale, plus a bias.
+
+Input: gathered ``features`` [B, N, C] and ``q_ids`` [B, T] int (<pad>=0).
+This port runs the eval forward (dropout off); training, the resident
+``(store, rows)`` input and more than one glimpse come in later slices.
+Parameter names follow the JAX package's tree (``utils/convert.py`` maps
+one to the other).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from vqa_transfer_externaldata_torch.ops.attention import spatial_attention
+from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder
+from vqa_transfer_externaldata_torch.ops.layers import (
+    Dense, GatedTanh, WordEmbedding, glorot_uniform_, l2_normalize)
+from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID, UNK_ID
+
+RESIDENT_TODO = ("the resident (store, rows) input is not ported yet "
+                 "(ROADMAP.md, section 1, item 3)")
+
+
+class VQAAttentionModel(nn.Module):
+    def __init__(self, vocab_size: int, num_answers: int, *,
+                 feature_dim: int = 2048, word_dim: int = 300,
+                 rnn_dim: int = 512, fusion_dim: int = 1024,
+                 att_hidden: int = 512, answer_dim: int = 300,
+                 dtype: torch.dtype = torch.bfloat16,
+                 word_init: Optional[np.ndarray] = None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        g = generator
+        self.dtype = dtype
+        self.word_emb = WordEmbedding(vocab_size, word_dim,
+                                      init_matrix=word_init, dtype=dtype,
+                                      generator=g)
+        self.gru = GRUEncoder(word_dim, rnn_dim, dtype=dtype, generator=g)
+        self.att_q = Dense(rnn_dim, att_hidden, dtype=dtype, generator=g)
+        self.att_wv = nn.Parameter(torch.empty(feature_dim, att_hidden))
+        self.att_ws = nn.Parameter(torch.empty(att_hidden))
+        self.fuse_q = GatedTanh(rnn_dim, fusion_dim, dtype=dtype,
+                                generator=g)
+        self.fuse_v = GatedTanh(feature_dim, fusion_dim, dtype=dtype,
+                                generator=g)
+        self.ans_proj = Dense(fusion_dim, answer_dim, dtype=dtype,
+                              generator=g)
+        self.answer_embedding = nn.Parameter(
+            torch.empty(num_answers, answer_dim))
+        self.logit_scale = nn.Parameter(torch.tensor(10.0))
+        self.logit_bias = nn.Parameter(torch.zeros(num_answers))
+        with torch.no_grad():
+            glorot_uniform_(self.att_wv, feature_dim, att_hidden, g)
+            nn.init.normal_(self.att_ws, 0.0, 0.05, generator=g)
+            nn.init.normal_(self.answer_embedding, 0.0, 0.01, generator=g)
+
+    def forward(self, features: torch.Tensor, q_ids: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+        """features [B, N, C], q_ids [B, T] -> {"logits" [B, A] f32,
+        "alpha" [B, N] f32}."""
+        if isinstance(features, (tuple, list)):
+            raise NotImplementedError(RESIDENT_TODO)
+        dt = self.dtype
+        mask = (q_ids != PAD_ID).float()
+        # Look up the transposed ids: words are born time-major [T, B, D],
+        # the layout the recurrence consumes.
+        q = self.gru(self.word_emb(q_ids.t()), mask)  # [B, H] dt
+        v = features.to(dt)
+        qh = self.att_q(q)
+        # The per-cell L2 normalization of the grid is fused into the op.
+        v_att, alpha = spatial_attention(v, qh, self.att_wv, self.att_ws,
+                                         normalize=True)
+        fused = self.fuse_q(q) * self.fuse_v(v_att.to(dt))
+        z = l2_normalize(self.ans_proj(fused).float())
+        e = l2_normalize(self.answer_embedding)
+        logits = z @ e.t() * self.logit_scale + self.logit_bias
+        return {"logits": logits, "alpha": alpha}
+
+
+def vqa_loss(outputs: Dict[str, torch.Tensor],
+             batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Softmax CE on the target answer id. Questions whose answer fell out
+    of the answer vocab (<unk>) carry zero weight; ``example_mask`` (0/1
+    per row) also zeroes padded rows. ``weight`` in the metrics is the
+    valid-row count."""
+    logits = outputs["logits"].float()
+    labels = batch["answer_id"].long()
+    weight = (labels != UNK_ID).float()
+    if "example_mask" in batch:
+        weight = weight * batch["example_mask"].float()
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    denom = torch.clamp(weight.sum(), min=1.0)
+    loss = torch.sum(nll * weight) / denom
+    pred = logits.argmax(dim=-1)
+    acc = torch.sum((pred == labels).float() * weight) / denom
+    metrics = {"loss": loss, "accuracy": acc, "weight": weight.sum()}
+    if "answer_scores" in batch:
+        rows = torch.arange(pred.shape[0], device=pred.device)
+        metrics["vqa_accuracy"] = torch.sum(
+            batch["answer_scores"][rows, pred] * weight) / denom
+    return loss, metrics

@@ -1,0 +1,152 @@
+"""GRU question encoder (cuDNN-style gates: the reset gate acts after the
+hidden matmul, so ``b_hn`` sits inside ``r * (...)``):
+
+    r  = sigmoid(x W_r + h U_r + b_r)
+    z  = sigmoid(x W_z + h U_z + b_z)
+    n  = tanh   (x W_n + r * (h U_n + b_hn) + b_n)
+    h' = (1 - z) * n + z * h
+
+The input projection ``x @ W_x + b`` is hoisted out of the recurrence and
+computed once for all timesteps, time-major; only ``h @ U_h`` and the gates
+run per step. Steps at or past a row's length carry the state through
+(prefix mask ``t < lens``), so the final state is each row's state at its
+true length.
+
+``gru_fused`` runs the recurrence: on a CUDA tensor it launches the
+hand-written kernel ``csrc/gru_fwd.cu`` (wrapper :func:`gru_fwd`), on a CPU
+tensor its plain version :func:`gru_reference`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from vqa_transfer_externaldata_torch.ops import kernels
+from vqa_transfer_externaldata_torch.ops.layers import glorot_uniform_
+
+_TILE = 16  # hidden units per block of the step kernel (csrc/gru_fwd.cu)
+
+
+class GRUEncoder(nn.Module):
+    """Masked GRU over a time-major [T, B, D] sequence (mask [B, T]);
+    returns the final state [B, H] in ``dtype``. Parameters keep the JAX
+    package's layout: ``wx`` [D, 3H], ``uh`` [H, 3H], ``b`` [3H],
+    ``bhn`` [H]."""
+
+    def __init__(self, in_dim: int, hidden: int = 512, *,
+                 dtype: torch.dtype = torch.bfloat16, reverse: bool = False,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.hidden = hidden
+        self.dtype = dtype
+        self.reverse = reverse
+        H3 = 3 * hidden
+        self.wx = nn.Parameter(torch.empty(in_dim, H3))
+        self.uh = nn.Parameter(torch.empty(hidden, H3))
+        self.b = nn.Parameter(torch.zeros(H3))
+        self.bhn = nn.Parameter(torch.zeros(hidden))
+        with torch.no_grad():
+            glorot_uniform_(self.wx, in_dim, H3, generator)
+            glorot_uniform_(self.uh, hidden, H3, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        T, B, D = x.shape
+        dt = self.dtype
+        # f32 accumulation of dt products: the upcast operands are exact
+        # copies of the dt values, so this is x@Wx in dt with f32 sums.
+        gx = (x.to(dt).float().reshape(T * B, D)
+              @ self.wx.to(dt).float()) + self.b
+        gx = gx.reshape(T, B, 3 * self.hidden)
+        lens = mask.sum(1).to(torch.int32)
+        hT = gru_fused(gx, lens, self.uh.to(dt), self.bhn,
+                       reverse=self.reverse)
+        return hT.to(dt)
+
+
+def gru_fused(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+              bhn: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
+    """Fused recurrence: gx_t [T, B, 3H] f32 (= x@Wx + b, time-major),
+    lens [B] int32, uh [H, 3H], bhn [H] f32 -> final state [B, H] f32.
+    A CUDA tensor runs the kernel (which takes bf16 ``uh``), a CPU tensor
+    the plain version."""
+    if gx_t.device.type == "cuda":
+        return gru_fwd(gx_t, lens, uh, bhn, reverse=reverse)[0]
+    if gx_t.device.type == "cpu":
+        return gru_reference(gx_t, lens, uh, bhn, reverse=reverse)[0]
+    raise ValueError(f"gru_fused: no path for device {gx_t.device}")
+
+
+def gru_reference(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+                  bhn: torch.Tensor, *, reverse: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, step by step:
+    -> (hT [B, H] f32, hseq [T, B, H] f32), hseq[t] being the state after
+    actual timestep t. ``h`` is rounded to ``uh.dtype`` before the hidden
+    matmul, whose sums run in f32."""
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    uf = uh.float()
+    h = gx_t.new_zeros(B, H)
+    hseq = gx_t.new_empty(T, B, H)
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        gx = gx_t[t]
+        gh = h.to(uh.dtype).float() @ uf
+        r = torch.sigmoid(gx[:, :H] + gh[:, :H])
+        z = torch.sigmoid(gx[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(gx[:, 2 * H:] + r * (gh[:, 2 * H:] + bhn))
+        h_new = (1.0 - z) * n + z * h
+        h = torch.where((t < lens)[:, None], h_new, h)
+        hseq[t] = h
+    return h, hseq
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = kernels.load("gru_fwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
+    lib.gru_fwd.restype = i
+    return lib
+
+
+def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+            bhn: torch.Tensor, *, reverse: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel K1 (``csrc/gru_fwd.cu``) on CUDA tensors:
+    gx_t [T, B, 3H] f32, lens [B] int32, uh [H, 3H] bf16, bhn [H] f32
+    -> (hT [B, H] f32, hseq [T, B, H] f32). Needs H % 16 == 0. One call
+    launches one step kernel per timestep on the current stream and adds
+    the number launched (T) to ``gru_fwd.launches``."""
+    if gx_t.device.type != "cuda" or gx_t.dim() != 3:
+        raise ValueError("gru_fwd takes a 3-D CUDA gx_t")
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
+        raise ValueError(f"gru_fwd needs T, B >= 1 and H % {_TILE} == 0, "
+                         f"got gx_t of shape {tuple(gx_t.shape)}")
+    kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
+    kernels.expect("lens", lens, torch.int32, (B,), dev)
+    kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
+    kernels.expect("bhn", bhn, torch.float32, (H,), dev)
+    hseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    hT = torch.empty(B, H, dtype=torch.float32, device=dev)
+    lib = _lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.gru_fwd(gx_t.data_ptr(), lens.data_ptr(), uh.data_ptr(),
+                         bhn.data_ptr(), hseq.data_ptr(), hT.data_ptr(),
+                         T, B, H, int(reverse),
+                         torch.cuda.current_stream(dev).cuda_stream,
+                         ctypes.addressof(launched))
+    gru_fwd.launches += launched.value
+    kernels.check(lib, rc, "gru_fwd")
+    return hT, hseq
+
+
+gru_fwd.launches = 0

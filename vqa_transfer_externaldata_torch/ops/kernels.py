@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
+use by ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
+``<repo>/build/torch_kernels/``, then opened with ``ctypes``. The library
+name carries a hash of the source, so an edited kernel is rebuilt and a
+stale one is never loaded. Nothing is built when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str]) -> Dict[str, str]:
+    """Compile every missing library in ``names``, one ``nvcc`` each, all
+    started together. Returns ``{name: ptxas report}`` for the ones built
+    here (empty for libraries that were already built)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{text}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+        reports[name] = text
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (building it if needed).
+    Every library exports ``const char* cuda_error_string(int)``."""
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise when a kernel entry returned a CUDA error code (the entries
+    return ``cudaGetLastError()`` right after their launches)."""
+    if rc != 0:
+        msg = lib.cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch ({msg})")
+
+
+def expect(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    """Raise unless ``x`` is a contiguous tensor of ``dtype`` and
+    ``shape`` on ``device`` — what a kernel wrapper checks before it
+    passes a pointer on."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

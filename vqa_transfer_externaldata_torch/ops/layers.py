@@ -1,0 +1,99 @@
+"""Shared building blocks: dtype names, L2 normalization, the word
+embedding table and the gated-tanh unit.
+
+Parameters live in float32; compute runs in the configured dtype
+(bfloat16 by default), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """x / sqrt(sum x^2 + eps) — the eps sits inside the sqrt."""
+    return x / torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's default Dense kernel init: truncated normal (±2 std) with
+    variance 1/fan_in after truncation."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def glorot_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return nn.init.uniform_(w, -limit, limit, generator=generator)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in ``dtype`` (weights stay float32) and
+    starts from flax's Dense init (lecun-normal kernel, zero bias)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+        with torch.no_grad():
+            lecun_normal_(self.weight, in_features, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class WordEmbedding(nn.Module):
+    """Trainable word-embedding table, optionally GloVe-initialized. Row 0
+    is <pad>; callers mask padded positions by id."""
+
+    def __init__(self, vocab_size: int, dim: int = 300, *,
+                 init_matrix: Optional[np.ndarray] = None,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(vocab_size, dim))
+        with torch.no_grad():
+            if init_matrix is not None:
+                self.embedding.copy_(torch.as_tensor(
+                    np.asarray(init_matrix, np.float32)))
+            else:
+                nn.init.normal_(self.embedding, 0.0, 0.01,
+                                generator=generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding).to(self.dtype)
+
+
+class GatedTanh(nn.Module):
+    """tanh(W x) * sigmoid(G x), both projections computed in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.w = Dense(in_features, features, dtype=dtype,
+                       generator=generator)
+        self.g = Dense(in_features, features, dtype=dtype,
+                       generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.w(x)) * torch.sigmoid(self.g(x))
