@@ -5,20 +5,35 @@
 
 Run from the repository root. Phases (any failure exits non-zero):
 
-1. the card's name and power limit; build every CUDA kernel of the serving
-   path from ``vqa_transfer_externaldata_torch/csrc`` with nvcc (one
-   process per source, all started together), timed;
+1. the card's name and power limit; build every CUDA kernel of the port
+   from ``vqa_transfer_externaldata_torch/csrc`` with nvcc (one process per
+   source, all started together), timed;
 2. K1 ``gru_fwd`` against its plain PyTorch version on the card
    (B=64, T=26, H=512, random lengths, forward and reverse);
 3. K2 ``attention_fwd`` against its plain version on the card
    (B=64, N=196, C=2048, H=512, bf16, normalize on and off);
-4. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
+4. K1 ``gru_fwd`` and K3 ``gru_bwd`` against their plain versions at the
+   training shape (B=256, T=26, H=512, lengths 1..26, forward and
+   reverse), both versions of K3 fed K1's hseq;
+5. K4 ``attention_resident_fwd`` and K5 ``attention_resident_bwd`` against
+   their plain versions at the training shape (a 512-image store of
+   200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
+   normalize on and off, K5 fed the same saved h;
+6. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
    host-feature requests, a padded short request, and ids-only requests
    against a staged 256-image store; launch counts of K1 and K2 over that
    run; logits against the plain path on the card;
-5. times: each kernel, its plain version and the PyTorch library call
-   (median of CUDA-event timings after warm-up, L2 flushed between runs),
-   the bound from this run's shapes, and the Predictor's p50 latency.
+7. full-width stage-2 training through ``Trainer.fit_resident`` at batch
+   256 on ``synthetic_vqa_joined`` (4096 questions over 512 images, a
+   0.42 GB bf16 store): the first step's loss and gradients against the
+   plain path on the card, launch counts of K1 and K3-K5 over the run,
+   finite losses, median step time and questions/s, a profiler window
+   over 5 more steps of ``fit_resident``, and the trained
+   ``params_final.pt`` served by ``Predictor``;
+8. times: each kernel, its plain version and the PyTorch library call
+   where there is one (median of CUDA-event timings after warm-up, L2
+   flushed between runs), and the bound from this run's shapes; K1 at
+   the training batch and at the serving batch.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -62,11 +77,48 @@ TOL_VATT_REL = 2.0 ** -10
 #     following layers carry to the logits.
 TOL_LOGITS = 5e-2
 
+# K3 (dgx, dU_h, db_hn), relative to the largest |value| of each plain
+#     output: the step recomputes gh with sums in another order, so a gate
+#     cotangent may round to the other bf16 neighbour (2^-8 of itself)
+#     ahead of the U_h^T product and dU_h, and the carried dh picks such
+#     flips up step after step. A wrong step, gate or mask moves an output
+#     by a large share of the largest value.
+TOL_K3_REL = 2.0 ** -8
+# K4's saved h, relative to max|h|: h is stored in bf16, and where the f32
+#     z differs in its last bits h rounds to the neighbouring bf16 value,
+#     at most 2^-8 of itself. (v_att and alpha as K2's.)
+TOL_K4_H_REL = 2.0 ** -7
+# K5 (dqh, dW_v, dws), relative to the largest |value| of each plain
+#     output, both fed the same saved h and alpha: dalpha differs by the
+#     order of 2048-term sums, and dz * r is rounded to bf16 ahead of the
+#     dW_v product, where a last-bit difference flips one rounding (2^-8 of
+#     one of the 50176 terms of a sum).
+TOL_K5_REL = 2.0 ** -9
+# Training, first step, kernels against the plain path on the card (same
+#     dropout mask): the loss (about ln 2000 = 7.6) to 1e-2 absolute, as
+#     last-bit differences out of the kernels ride through bf16 activations
+#     and average over 256 questions; each parameter's gradient to cosine
+#     0.999 (bf16 rounding flips move single entries by 2^-8 of themselves
+#     and a ReLU unit at 0 may take the other side), the scalar
+#     logit_scale to 1e-2 relative.
+TOL_LOSS = 1e-2
+GRAD_COS = 0.999
+TOL_SCALAR_REL = 1e-2
+
 B, T, H, D = 64, 26, 512, 300
 GRID, C = 14, 2048
 N = GRID * GRID
 STORE_ROWS = 256
 RUNS = 25
+# Training: batch, synthetic corpus, and steps (warm-up, then timed).
+B_TRAIN = 256
+TRAIN_QUESTIONS, TRAIN_IMAGES = 4096, 512
+WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 5, 25, 5
+# Config overrides of the serving and training runs: none, the full width
+# of config.py. (A rehearsal on the CPU shrinks the shapes above and here.)
+MODEL_OVERRIDES: dict = {}
+KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
+           "attention_resident_bwd"]
 
 
 class PhaseError(Exception):
@@ -109,25 +161,56 @@ def bound(nbytes: float, flops: float) -> tuple:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the kernel wrappers to their plain versions (for the reference
-    run of the whole model on the card)."""
-    from vqa_transfer_externaldata_torch.ops import attention, gru
+    runs of the whole model on the card)."""
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar, gru)
 
-    saved = attention.attention_fwd, gru.gru_fwd
+    saved = (attention.attention_fwd, gru.gru_fwd, gru.gru_bwd,
+             ar.attention_resident_fwd, ar.attention_resident_bwd)
     attention.attention_fwd = (
         lambda v, qh, wv, ws, *, normalize:
         attention.attention_fwd_reference(v, qh, wv, ws, normalize))
     gru.gru_fwd = gru.gru_reference
+    gru.gru_bwd = gru.gru_bwd_reference
+    ar.attention_resident_fwd = ar.attention_resident_fwd_reference
+    ar.attention_resident_bwd = ar.attention_resident_bwd_reference
     try:
         yield
     finally:
-        attention.attention_fwd, gru.gru_fwd = saved
+        (attention.attention_fwd, gru.gru_fwd, gru.gru_bwd,
+         ar.attention_resident_fwd, ar.attention_resident_bwd) = saved
+
+
+def launch_counters():
+    """{kernel name: its wrapper}, each wrapper carrying ``.launches``."""
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar, gru)
+
+    return {"gru_fwd": gru.gru_fwd, "attention_fwd": attention.attention_fwd,
+            "gru_bwd": gru.gru_bwd,
+            "attention_resident_fwd": ar.attention_resident_fwd,
+            "attention_resident_bwd": ar.attention_resident_bwd}
+
+
+def reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def rel_err(got, want) -> float:
+    return ((got - want).abs().max().item()
+            / max(want.abs().max().item(), 1e-30))
 
 
 def phase_build(report: dict) -> None:
     from vqa_transfer_externaldata_torch.ops import kernels
 
     t0 = time.perf_counter()
-    ptxas = kernels.build(["gru_fwd", "attention_fwd"])
+    ptxas = kernels.build(KERNELS)
     report["build_s"] = time.perf_counter() - t0
     for name, text in ptxas.items():
         print(f"--- nvcc {name}.cu ---\n{text.strip()}", file=sys.stderr)
@@ -199,6 +282,136 @@ def phase_attention(report: dict, dev, gen) -> dict:
     return {"v": v, "qh": qh, "wv": wv, "ws": ws, "checks": checks}
 
 
+def phase_gru_bwd(report: dict, dev, gen) -> dict:
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    Bt = B_TRAIN
+    gx = torch.randn(T, Bt, 3 * H, generator=gen, device=dev) * 0.5
+    lens = torch.randint(1, T + 1, (Bt,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0], lens[1] = T, 1  # the longest and the shortest question
+    lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
+    uh = ((torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1) * lim
+          ).to(torch.bfloat16)
+    bhn = torch.randn(H, generator=gen, device=dev) * 0.1
+    ghT = torch.randn(Bt, H, generator=gen, device=dev) * 0.05
+    err, checks, hseq_fwd, err1 = 0.0, [], None, 0.0
+    for reverse in (False, True):
+        # K1 at the training batch against its plain version; both K3 and
+        # its plain version then take K1's hseq, as on the training path.
+        hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=reverse)
+        rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+        torch.cuda.synchronize()
+        e1 = max((hT - rT).abs().max().item(),
+                 (hseq - rseq).abs().max().item())
+        print(f"K1 gru_fwd B={Bt} reverse={reverse}: max abs err {e1:.3e} "
+              f"(tol {TOL_GRU})")
+        check(bool(torch.isfinite(hseq).all()), "K1 output not finite")
+        check(e1 <= TOL_GRU, f"K1 B={Bt} reverse={reverse} err {e1} > "
+              f"{TOL_GRU}")
+        err1 = max(err1, e1)
+        got = gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT, reverse=reverse)
+        want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT,
+                                     reverse=reverse)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
+            e, rel = (a - b).abs().max().item(), rel_err(a, b)
+            print(f"K3 gru_bwd reverse={reverse} {name}: max abs err "
+                  f"{e:.3e}, {rel:.3e} of max|{name}| (tol {TOL_K3_REL:.3e})")
+            check(bool(torch.isfinite(a).all()), f"K3 {name} not finite")
+            check(rel <= TOL_K3_REL, f"K3 reverse={reverse} {name} relative "
+                  f"err {rel} > {TOL_K3_REL}")
+            checks.append({"reverse": reverse, "output": name,
+                           "max_abs_err": e, "rel_err": rel,
+                           "rel_tol": TOL_K3_REL})
+            err = max(err, e)
+        if not reverse:
+            hseq_fwd = hseq
+    return {"gx": gx, "hseq": hseq_fwd, "lens": lens, "uh": uh, "bhn": bhn,
+            "ghT": ghT, "err": err, "checks": checks, "k1_err": err1}
+
+
+def phase_resident(report: dict, dev, gen) -> dict:
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+
+    M, Bt, n_valid = TRAIN_IMAGES, B_TRAIN, N
+    Np = n_valid + (-n_valid) % 8
+    # Post-ReLU cells, each scaled by its own factor in [1/4, 4] (a norm
+    # taken from another cell shows), zero past n_valid as the padded store.
+    store = torch.zeros(M, Np, C, dtype=torch.bfloat16, device=dev)
+    for lo in range(0, M, 64):
+        m = min(64, M - lo)
+        scale = torch.exp2(torch.rand(m, n_valid, 1, generator=gen,
+                                      device=dev) * 4 - 2)
+        store[lo:lo + m, :n_valid] = (torch.randn(
+            m, n_valid, C, generator=gen, device=dev).relu_() * scale).to(
+                torch.bfloat16)
+    rows = torch.randint(0, M, (Bt,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rows[1] = rows[2] = rows[0]  # questions that share an image
+    qh = torch.randn(Bt, H, generator=gen, device=dev) * 0.5
+    lim = (6.0 / (C + H)) ** 0.5
+    wv = ((torch.rand(C, H, generator=gen, device=dev) * 2 - 1) * lim
+          ).to(torch.bfloat16)
+    ws = (torch.randn(H, generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    g = torch.randn(Bt, C, generator=gen, device=dev) * 0.01
+    sga = torch.randn(Bt, Np, generator=gen, device=dev) * 0.1
+    checks4, checks5 = [], []
+    for normalize in (True, False):
+        kw = dict(n_valid=n_valid, normalize=normalize)
+        va, al, h = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                              save_h=True, **kw)
+        rv, ra, rh = ar.attention_resident_fwd_reference(
+            store, rows, qh, wv, ws, save_h=True, **kw)
+        torch.cuda.synchronize()
+        ev = (va - rv).abs().max().item()
+        ea = (al - ra).abs().max().item()
+        eh = (h.float() - rh.float()).abs().max().item()
+        rh_err = rel_err(h.float(), rh.float())
+        tol_v = TOL_VATT_REL * rv.abs().max().item()
+        print(f"K4 attention_resident_fwd normalize={normalize}: v_att "
+              f"{ev:.3e} (tol {tol_v:.3e}), alpha {ea:.3e} (tol "
+              f"{TOL_ALPHA}), h {eh:.3e} = {rh_err:.3e} of max|h| (tol "
+              f"{TOL_K4_H_REL:.3e})")
+        check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
+              "K4 output not finite")
+        check(ev <= tol_v, f"K4 normalize={normalize} v_att err {ev}")
+        check(ea <= TOL_ALPHA, f"K4 normalize={normalize} alpha err {ea}")
+        check(rh_err <= TOL_K4_H_REL, f"K4 normalize={normalize} h err "
+              f"{rh_err}")
+        check(al[:, n_valid:].abs().max().item() == 0.0,
+              "K4 gave padded cells weight")
+        checks4.append({"normalize": normalize, "v_att_err": ev,
+                        "v_att_tol": tol_v, "alpha_err": ea,
+                        "alpha_tol": TOL_ALPHA, "h_err": eh,
+                        "h_rel_err": rh_err, "h_rel_tol": TOL_K4_H_REL})
+        # K5 and its plain version from the same saved h and alpha.
+        got = ar.attention_resident_bwd(store, rows, rh, ws, ra, g, sga, **kw)
+        want = ar.attention_resident_bwd_reference(store, rows, rh, ws, ra, g,
+                                                   sga, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dqh", "dwv", "dws"), got, want):
+            e, rel = (a - b).abs().max().item(), rel_err(a, b)
+            print(f"K5 attention_resident_bwd normalize={normalize} {name}: "
+                  f"max abs err {e:.3e}, {rel:.3e} of max|{name}| (tol "
+                  f"{TOL_K5_REL:.3e})")
+            check(bool(torch.isfinite(a).all()), f"K5 {name} not finite")
+            check(rel <= TOL_K5_REL, f"K5 normalize={normalize} {name} "
+                  f"relative err {rel} > {TOL_K5_REL}")
+            checks5.append({"normalize": normalize, "output": name,
+                            "max_abs_err": e, "rel_err": rel,
+                            "rel_tol": TOL_K5_REL})
+    return {"store": store, "rows": rows, "qh": qh, "wv": wv, "ws": ws,
+            "h": rh, "alpha": ra, "g": g, "sga": sga, "n_valid": n_valid,
+            "checks4": checks4, "checks5": checks5,
+            "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
+                        for c in checks4),
+            "err5": max(c["max_abs_err"] for c in checks5)}
+
+
 def write_run(train_dir: str) -> None:
     """A synthetic full-width run: config.json + a seeded random init."""
     import torch
@@ -206,7 +419,7 @@ def write_run(train_dir: str) -> None:
     from vqa_transfer_externaldata_torch.models.zoo import build_model
     from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
 
-    cfg = Config().replace_flat({"data.synthetic": True})
+    cfg = Config().replace_flat({"data.synthetic": True, **MODEL_OVERRIDES})
     with open(os.path.join(train_dir, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
     gen = torch.Generator().manual_seed(123)
@@ -217,7 +430,6 @@ def write_run(train_dir: str) -> None:
 def phase_serving(report: dict, dev) -> dict:
     import numpy as np
     import torch
-    from vqa_transfer_externaldata_torch.ops import attention, gru
     from vqa_transfer_externaldata_torch.serving import Predictor
 
     rng = np.random.default_rng(0)
@@ -236,15 +448,16 @@ def phase_serving(report: dict, dev) -> dict:
     short = 5 * B // 8  # a request shorter than the batch: padded, trimmed
 
     # --- the main path: counts from 0 -----------------------------------
-    gru.gru_fwd.launches = attention.attention_fwd.launches = 0
+    reset_counts()
     ans_host = pred.answer(feats, questions)
     ans_short = pred.answer(feats[:short], questions[:short])
     ans_idx = pred.answer_indexed(idx, questions)
-    launches = {"gru_fwd": gru.gru_fwd.launches,
-                "attention_fwd": attention.attention_fwd.launches}
+    launches = read_counts()
     print(f"serving launches: {launches}")
-    # Three forwards: K1 launches one step kernel per timestep, K2 two.
-    expected = {"gru_fwd": 3 * T, "attention_fwd": 3 * 2}
+    # Three forwards: K1 launches one step kernel per timestep, K2 two; the
+    # training kernels do not run.
+    expected = {"gru_fwd": 3 * T, "attention_fwd": 3 * 2, "gru_bwd": 0,
+                "attention_resident_fwd": 0, "attention_resident_bwd": 0}
     check(launches == expected,
           f"expected launches {expected}, got {launches}")
     check(len(ans_host) == B and len(ans_short) == short
@@ -300,17 +513,158 @@ def phase_serving(report: dict, dev) -> dict:
     print(f"Predictor p50 at batch {B}: {report['predictor_p50_ms']}")
     report["logits_max_abs_err"] = err
     report["profile"] = {
-        "answer_host_features": profile_requests(
+        "answer_host_features": profile_calls(
             lambda: pred.answer(feats, questions)),
-        "answer_indexed": profile_requests(
+        "answer_indexed": profile_calls(
             lambda: pred.answer_indexed(idx, questions)),
     }
     return launches
 
 
-def profile_requests(fn, n: int = 5) -> dict:
-    """Device time by kernel over ``n`` requests (torch.profiler), and the
-    share of the host-clock wall time in which no kernel ran."""
+def phase_training(report: dict, dev) -> dict:
+    """Stage-2 training at full width through Trainer.fit_resident."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.vqa_attention import vqa_loss
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        cfg = Config().replace_flat({
+            "data.synthetic": True, "data.synthetic_layout": "joined",
+            "data.synthetic_size": TRAIN_QUESTIONS,
+            "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+            "train.max_steps": steps, "train.log_every": 1,
+            "train.train_dir": tmp, **MODEL_OVERRIDES})
+        t0 = time.perf_counter()
+        ds = load_dataset(cfg, "train")
+        grid = ds.store.grid
+        check(grid.shape == (TRAIN_IMAGES, N, C) and ds.size ==
+              TRAIN_QUESTIONS, f"corpus {grid.shape}, {ds.size} questions")
+        model = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, model, train_dir=tmp)  # default device: CUDA
+        check(trainer.device.type == dev.type, f"Trainer on {trainer.device}")
+        state = trainer.init_state()
+        out["setup_s"] = time.perf_counter() - t0
+
+        # --- the first step against the plain path (same dropout mask) ---
+        data, make_batch, nbytes = trainer._prepare_resident(ds)
+        out["store_gb"] = data["grid_pad"].numel() * 2 / 1e9
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        names = list(state.params)
+
+        def loss_and_grads():
+            gen = torch.Generator(device=dev).manual_seed(7)
+            outs = model(batch["features"], batch["q_ids"], train=True,
+                         generator=gen)
+            loss, _ = vqa_loss(outs, batch)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+            return loss.item(), dict(zip(names, grads))
+
+        lk, gk = loss_and_grads()
+        with plain_kernels():
+            lp, gp = loss_and_grads()
+        grad_checks = {}
+        for k in names:
+            a, b = gk[k].flatten().float(), gp[k].flatten().float()
+            if a.numel() == 1:
+                rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).item()
+                grad_checks[k] = {"rel_err": rel}
+                check(rel <= TOL_SCALAR_REL, f"grad {k} rel err {rel}")
+            else:
+                cos = torch.nn.functional.cosine_similarity(a, b, 0).item()
+                grad_checks[k] = {"cos": cos}
+                check(cos >= GRAD_COS, f"grad {k} cosine {cos} < {GRAD_COS}")
+        worst = min(v.get("cos", 1.0) for v in grad_checks.values())
+        print(f"first step: loss {lk:.6f} (kernels) vs {lp:.6f} (plain), "
+              f"tol {TOL_LOSS}; lowest gradient cosine {worst:.6f} (bound "
+              f"{GRAD_COS})")
+        check(abs(lk - lp) <= TOL_LOSS, f"loss {lk} vs plain {lp}")
+        out["first_step"] = {"loss_kernels": lk, "loss_plain": lp,
+                             "loss_tol": TOL_LOSS, "grad_cos_bound": GRAD_COS,
+                             "grads": grad_checks}
+        del data, make_batch, batch, gk, gp  # free this copy of the store
+
+        # --- the main path: counts from 0 --------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"training launches over {steps} steps: {launches}")
+        # A step: K1 one launch per timestep, K3 one per timestep plus the
+        # dU_h GEMM and the db_hn sum, K4 two, K5 three; no K2.
+        expected = {"gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+                    "attention_resident_fwd": 2 * steps,
+                    "attention_resident_bwd": 3 * steps, "attention_fwd": 0}
+        check(launches == expected,
+              f"expected launches {expected}, got {launches}")
+        check(state.step == steps, f"trained {state.step} steps")
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        losses = [r["train/loss"] for r in recs]
+        check(len(recs) == steps and all(np.isfinite(losses)),
+              f"{len(recs)} records, losses {losses}")
+        # log_every 1: each record's rate spans the steps since the last
+        # one (one, or two at the final drain), on the host clock between
+        # waits for the device to finish each step.
+        step_ms = [1e3 / r["train/steps_per_sec"] for r in recs
+                   if r["step"] > WARMUP_STEPS and "train/steps_per_sec" in r]
+        check(len(step_ms) >= 20, f"only {len(step_ms)} timed steps")
+        med = statistics.median(step_ms)
+        out.update(launches=launches, losses=losses, timed_steps=len(step_ms),
+                   step_ms_median=med, questions_per_sec=B_TRAIN * 1e3 / med,
+                   step_ms_all=step_ms)
+        print(f"training: median step {med:.3f} ms over {len(step_ms)} steps "
+              f"= {B_TRAIN * 1e3 / med:.1f} questions/s; loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+
+        # --- a profiler window of PROFILE_STEPS more steps ---------------
+        state, out["profile"] = profile_fit(trainer, ds, state,
+                                            PROFILE_STEPS)
+
+        # --- serve the trained run ---------------------------------------
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+        save_params(os.path.join(tmp, PARAMS_FILE), model.state_dict())
+        pred = Predictor(tmp, batch_size=64)
+        check(pred.device.type == dev.type, f"Predictor picked {pred.device}")
+        sel = np.arange(64)
+        qs = [" ".join(pred.word_vocab.tokens[i] for i in row if i)
+              for row in ds.arrays["q_ids"][sel]]
+        pred.stage_store(grid)
+        answers = pred.answer_indexed(ds.arrays["image_index"][sel], qs)
+        check(len(answers) == 64 and all(a in pred.answer_vocab.tokens
+                                         for a in answers),
+              "the trained run's answers are not answer tokens")
+        v = torch.from_numpy(np.asarray(grid[ds.arrays["image_index"][sel]],
+                                        np.float32)).to(dev)
+        q = torch.from_numpy(pred._encode_questions(qs)).to(dev)
+        with torch.inference_mode():
+            served = pred.model(v, q)["logits"]
+            trained = model(v, q)["logits"]
+        e = (served - trained).abs().max().item()
+        print(f"served the trained run: {len(answers)} answers, logits of "
+              f"the served model vs the trainer's {e:.3e}")
+        check(bool(torch.isfinite(served).all()) and e == 0.0,
+              f"served logits differ from the trained model's by {e}")
+        trainer.close()
+    return out
+
+
+def profile_calls(fn, n: int = 5, what: str = "requests") -> dict:
+    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
+    and the share of the host-clock wall time in which no kernel ran."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -319,50 +673,111 @@ def profile_requests(fn, n: int = 5) -> dict:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
+    kernels, host = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            name = e.key.split("(")[0].replace("void ", "")
-            name = name.replace("(anonymous namespace)::", "")[:100]
-            if not name:  # "(anonymous namespace)::kernel(...)"
-                name = e.key.split("::")[1].split("(")[0]
+        if us > 0 and on_device(e):
+            name = kernel_name(e.key)
             kernels[name] = kernels.get(name, 0.0) + us / n
+        elif e.key.startswith("aten::") or e.key.startswith("autograd::"):
+            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / n
+    return summarize(kernels, host, n, wall_us, what)
+
+
+def on_device(e) -> bool:
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def kernel_name(key: str) -> str:
+    return key.replace("void ", "").replace(
+        "(anonymous namespace)::", "").split("(")[0][:100]
+
+
+def summarize(kernels: dict, host: dict, n: int, wall_us: float,
+              what: str) -> dict:
     busy = sum(kernels.values()) * n
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    out = {"requests": n, "wall_ms_per_request": wall_us / n / 1e3,
-           "kernel_ms_per_request": busy / n / 1e3 if busy else None,
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    out = {"calls": n, "wall_ms_per_call": wall_us / n / 1e3,
+           "kernel_ms_per_call": busy / n / 1e3 if busy else None,
            "device_idle_share": 1 - busy / wall_us if busy else None,
-           "top_kernels_us_per_request": dict(top)}
-    print(f"profile of {n} requests: {json.dumps(out)}")
+           "top_kernels_us_per_call": dict(top),
+           "top_host_ops_self_us_per_call": dict(top_host)}
+    print(f"profile of {n} {what}: {json.dumps(out)}")
     return out
 
 
-def phase_times(report: dict, k1: dict, k2: dict, dev) -> dict:
+def profile_fit(trainer, ds, state, steps: int) -> tuple:
+    """Profile ``Trainer.fit_resident`` over ``steps`` more steps. Its
+    upload of the store comes first and is left out: the window opens at
+    the host start of the first step (its first ``index_select``, the batch
+    lookup) and closes at the end of the last device event; the idle share
+    is the part of that window in which nothing ran on the device."""
     import torch
-    from vqa_transfer_externaldata_torch.ops import attention, gru
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state = trainer.fit_resident(ds, state,
+                                     max_steps=state.step + steps)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    starts = [e.time_range.start for e in events
+              if e.name == "aten::index_select" and not on_device(e)]
+    check(bool(starts), "the profile holds no training step")
+    t0 = min(starts)
+    window = [e for e in events if e.time_range.start >= t0]
+    device = [e for e in window if on_device(e)]
+    check(bool(device), "the profile holds no device work")
+    wall_us = max(e.time_range.end for e in device) - t0
+    kernels, host = {}, {}
+    for e in window:
+        if on_device(e):
+            name = kernel_name(e.name)
+            kernels[name] = (kernels.get(name, 0.0)
+                             + e.time_range.elapsed_us() / steps)
+        elif e.name.startswith(("aten::", "autograd::")):
+            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total / steps
+    return state, summarize(kernels, host, steps, wall_us,
+                            "fit_resident steps")
+
+
+def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
+                dev) -> dict:
+    import torch
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar, gru)
 
     buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     times = {}
-    gx, lens, uh, bhn = k1["gx"], k1["lens"], k1["uh"], k1["bhn"]
-    times["gru_fwd"] = {
-        "kernel": time_cuda(lambda: gru.gru_fwd(gx, lens, uh, bhn), buf),
-        "plain": time_cuda(lambda: gru.gru_reference(gx, lens, uh, bhn),
-                           buf),
-    }
-    # Library yardstick: cuDNN GRU over packed sequences. It also does the
-    # input projection x @ W_x, which the kernel receives done.
+    # Library yardstick of K1: cuDNN GRU over packed sequences. It also does
+    # the input projection x @ W_x, which the kernel receives done.
     lib_gru = torch.nn.GRU(D, H).to(dev, torch.bfloat16)
     lib_gru.flatten_parameters()
-    packed = torch.nn.utils.rnn.pack_padded_sequence(
-        torch.randn(T, B, D, device=dev, dtype=torch.bfloat16), lens.cpu(),
-        enforce_sorted=False)
-    with torch.inference_mode():
-        times["gru_fwd"]["library"] = time_cuda(lambda: lib_gru(packed), buf)
-    times["gru_fwd"]["library_call"] = (
-        f"torch.nn.GRU({D}, {H}) in bfloat16 over a packed sequence, input "
-        "projection included")
+
+    def time_k1(k: dict) -> dict:
+        gx, lens, uh, bhn = k["gx"], k["lens"], k["uh"], k["bhn"]
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            torch.randn(T, lens.shape[0], D, device=dev,
+                        dtype=torch.bfloat16), lens.cpu(),
+            enforce_sorted=False)
+        with torch.inference_mode():
+            lib_ms = time_cuda(lambda: lib_gru(packed), buf)
+        return {
+            "kernel": time_cuda(lambda: gru.gru_fwd(gx, lens, uh, bhn), buf),
+            "plain": time_cuda(lambda: gru.gru_reference(gx, lens, uh, bhn),
+                               buf),
+            "library": lib_ms,
+            "library_call": f"torch.nn.GRU({D}, {H}) in bfloat16 over a "
+                            "packed sequence, input projection included",
+        }
+
+    # K1 at the training batch (the path that launches it most), and at the
+    # serving batch.
+    times["gru_fwd"] = time_k1(k3)
+    k1_serving = time_k1(k1)
 
     v, qh, wv, ws = k2["v"], k2["qh"], k2["wv"], k2["ws"]
     times["attention_fwd"] = {
@@ -375,16 +790,94 @@ def phase_times(report: dict, k1: dict, k2: dict, dev) -> dict:
         "library": None,
     }
 
-    nlen = int(lens.sum().item())  # timesteps that do work in this run
-    k1_bytes = (nlen * 3 * H * 4 + B * 4 + H * 3 * H * 2 + H * 4
-                + T * B * H * 4 + B * H * 4)
-    k1_flops = 2 * nlen * H * 3 * H
+    # K3 at the training shape, forward direction.
+    gx3, hseq3, lens3 = k3["gx"], k3["hseq"], k3["lens"]
+    uh3, bhn3, ghT3 = k3["uh"], k3["bhn"], k3["ghT"]
+    times["gru_bwd"] = {
+        "kernel": time_cuda(
+            lambda: gru.gru_bwd(gx3, hseq3, lens3, uh3, bhn3, ghT3), buf),
+        "plain": time_cuda(
+            lambda: gru.gru_bwd_reference(gx3, hseq3, lens3, uh3, bhn3, ghT3),
+            buf),
+    }
+    # Library yardstick: the backward of cuDNN's GRU over the same packed
+    # lengths, which also takes the input projection's gradients (dx,
+    # dW_x, db_x) that K3 leaves to the caller.
+    lib3 = torch.nn.GRU(D, H).to(dev, torch.bfloat16)
+    lib3.flatten_parameters()
+    x3 = torch.randn(T, B_TRAIN, D, device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    _, h_n = lib3(torch.nn.utils.rnn.pack_padded_sequence(
+        x3, lens3.cpu(), enforce_sorted=False))
+    wrt = [x3, *lib3.parameters()]
+    g_n = torch.randn_like(h_n)
+    times["gru_bwd"]["library"] = time_cuda(
+        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+    times["gru_bwd"]["library_call"] = (
+        f"backward of torch.nn.GRU({D}, {H}) in bfloat16 over a packed "
+        "sequence, input-projection gradients included")
+
+    st, rows, nv = k45["store"], k45["rows"], k45["n_valid"]
+    qh4, wv4, ws4 = k45["qh"], k45["wv"], k45["ws"]
+    h5, al5, g5, sga5 = k45["h"], k45["alpha"], k45["g"], k45["sga"]
+    kw = dict(n_valid=nv, normalize=False)  # the main path's mode
+    times["attention_resident_fwd"] = {
+        "kernel": time_cuda(lambda: ar.attention_resident_fwd(
+            st, rows, qh4, wv4, ws4, save_h=True, **kw), buf),
+        "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
+            st, rows, qh4, wv4, ws4, save_h=True, **kw), buf),
+        "library": None,
+    }
+    times["attention_resident_bwd"] = {
+        "kernel": time_cuda(lambda: ar.attention_resident_bwd(
+            st, rows, h5, ws4, al5, g5, sga5, **kw), buf),
+        "plain": time_cuda(lambda: ar.attention_resident_bwd_reference(
+            st, rows, h5, ws4, al5, g5, sga5, **kw), buf),
+        "library": None,
+    }
+
+    def k1_bound(lens) -> tuple:
+        # The row-steps that this run's lengths need read gx once; hseq
+        # [T, B, H] and hT are written once.
+        nlen, nb = int(lens.sum().item()), lens.shape[0]
+        return bound(nlen * 3 * H * 4 + nb * 4 + H * 3 * H * 2 + H * 4
+                     + T * nb * H * 4 + nb * H * 4,
+                     2 * nlen * H * 3 * H), nlen
+
+    times["gru_fwd"]["bound"], nlen = k1_bound(k3["lens"])
+    k1_serving["bound"], nlen_serving = k1_bound(k1["lens"])
+    times["gru_fwd"]["at_serving_batch"] = k1_serving
     k2_bytes = B * N * C * 2 + B * H * 4 + C * H * 2 + H * 4 + B * C * 4 \
         + B * N * 4
     k2_flops = 2 * B * N * C * H + 2 * B * N * C
-    times["gru_fwd"]["bound"] = bound(k1_bytes, k1_flops)
     times["attention_fwd"]["bound"] = bound(k2_bytes, k2_flops)
-    for name, t in times.items():
+    # K3: the live row-steps of this run's lengths read gx and hseq once;
+    # dgx [T, B, 3H] and dU_h are written once. Each live row-step takes
+    # three [H] x [H, 3H] products: the recomputed gh, the U_h^T product
+    # and its share of dU_h.
+    Bt, nl3 = B_TRAIN, int(lens3.sum().item())
+    k3_bytes = (nl3 * 4 * H * 4 + Bt * 4 + H * 3 * H * 2 + H * 4
+                + Bt * H * 4 + T * Bt * 3 * H * 4 + H * 3 * H * 4 + H * 4)
+    k3_flops = 3 * 2 * nl3 * H * 3 * H
+    times["gru_bwd"]["bound"] = bound(k3_bytes, k3_flops)
+    # K4/K5: each store row that the batch names is read once (rows repeat),
+    # and the GEMMs run over the valid cells only.
+    Np = st.shape[1]
+    uniq = int(torch.unique(rows).numel())
+    row_bytes = uniq * Np * C * 2
+    k4_bytes = (row_bytes + Bt * 4 + Bt * H * 4 + C * H * 2 + H * 4
+                + Bt * C * 4 + Bt * Np * 4 + Bt * Np * H * 2)
+    k4_flops = 2 * Bt * nv * C * H + 2 * Bt * nv * H + 2 * Bt * nv * C
+    k5_bytes = (row_bytes + Bt * 4 + Bt * Np * H * 2 + H * 4 + Bt * Np * 4
+                + Bt * C * 4 + Bt * Np * 4 + Bt * H * 4 + C * H * 4 + H * 4)
+    k5_flops = 2 * Bt * nv * C * H + 2 * Bt * nv * C + 4 * Bt * nv * H
+    times["attention_resident_fwd"]["bound"] = bound(k4_bytes, k4_flops)
+    times["attention_resident_bwd"]["bound"] = bound(k5_bytes, k5_flops)
+    report["bound_inputs"] = {"k1_live_steps": nlen,
+                              "k1_live_steps_serving": nlen_serving,
+                              "k3_live_steps": nl3, "k45_unique_rows": uniq}
+    for name, t in [*times.items(), ("gru_fwd at the serving batch",
+                                     k1_serving)]:
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library {t['library']}, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
@@ -442,37 +935,60 @@ def main(argv=None) -> int:
         phase_build(report)
         k1 = phase_gru(report, dev, gen)
         k2 = phase_attention(report, dev, gen)
-        launches = phase_serving(report, dev)
-        times = phase_times(report, k1, k2, dev)
+        k3 = phase_gru_bwd(report, dev, gen)
+        k45 = phase_resident(report, dev, gen)
+        serving = phase_serving(report, dev)
+        report["training"] = training = phase_training(report, dev)
+        times = phase_times(report, k1, k2, k3, k45, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    # max_abs_err: the largest error of the kernel's outputs; K2 also
-    # lists each output in each mode beside its own limit.
+    # max_abs_err: the largest error of the kernel's outputs; each kernel
+    # also lists its checks beside their limits. launches: the count of the
+    # path that runs the kernel (training for K1, K3-K5; serving for K2),
+    # and both paths' counts under launches_by_path. K1's times are at the
+    # training batch, and at the serving batch under at_serving_batch.
+    src = "vqa_transfer_externaldata_torch/csrc/"
+    ref = "vqa_transfer_externaldata_tpu/ops/"
+    k1_serving = times["gru_fwd"].pop("at_serving_batch")
     meta = {
-        "gru_fwd": ("vqa_transfer_externaldata_torch/csrc/gru_fwd.cu",
-                    "vqa_transfer_externaldata_tpu/ops/gru.py:227",
-                    k1["err"], {"tol": TOL_GRU}),
+        "gru_fwd": (ref + "gru.py:227", max(k1["err"], k3["k1_err"]), {
+            "tol": TOL_GRU, "err_by_batch": {str(B): k1["err"],
+                                             str(B_TRAIN): k3["k1_err"]},
+            "at_serving_batch": {
+                "batch": B, "ms": k1_serving["kernel"],
+                "plain_ms": k1_serving["plain"],
+                "bound_ms": k1_serving["bound"][0],
+                "bound_by": k1_serving["bound"][1],
+                "library_ms": k1_serving["library"]}}),
         "attention_fwd": (
-            "vqa_transfer_externaldata_torch/csrc/attention_fwd.cu",
-            "vqa_transfer_externaldata_tpu/ops/attention.py:125",
+            ref + "attention.py:125",
             max(max(c["v_att_err"], c["alpha_err"]) for c in k2["checks"]),
             {"checks": k2["checks"]}),
+        "gru_bwd": (ref + "gru.py:259", k3["err"], {"checks": k3["checks"]}),
+        "attention_resident_fwd": (ref + "attention_resident.py:150",
+                                   k45["err4"], {"checks": k45["checks4"]}),
+        "attention_resident_bwd": (ref + "attention_resident.py:208",
+                                   k45["err5"], {"checks": k45["checks5"]}),
     }
+    paths = {"serving": serving, "training": training["launches"]}
     kernels = []
-    for name, (source, replaces, err, errs) in meta.items():
+    for name, (replaces, err, errs) in meta.items():
         t = times[name]
+        path = "serving" if name == "attention_fwd" else "training"
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err, **errs, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library"],
         })
     report["kernels"] = kernels
-    report["library_calls"] = {"gru_fwd": times["gru_fwd"]["library_call"]}
+    report["library_calls"] = {k: times[k]["library_call"]
+                               for k in ("gru_fwd", "gru_bwd")}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -1,8 +1,8 @@
 """The port imports torch, never JAX, and nothing of the JAX package.
 
 Checked in a fresh interpreter (this test process has JAX loaded already):
-every module of the port is imported, then none of the forbidden modules
-may be in ``sys.modules``.
+every module of the port, and ``chip_smoke.py``, is imported, then none of
+the forbidden modules may be in ``sys.modules``.
 """
 
 import os
@@ -24,22 +24,43 @@ banned = ("jax", "jaxlib", "flax", "optax", "orbax",
           "vqa_transfer_externaldata_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), "modules")
-assert len(names) >= 18, names
+assert len(names) >= 25, names
 assert not bad, bad
 assert "torch" in sys.modules
 """
 
+SMOKE = """
+import sys
+import chip_smoke
+banned = ("jax", "jaxlib", "flax", "optax", "orbax",
+          "vqa_transfer_externaldata_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not bad, bad
+assert callable(chip_smoke.main)
+print("ok")
+"""
 
-def test_port_imports_no_jax():
+
+def _fresh(script: str) -> str:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "modules" in out.stdout
+    return out.stdout
 
 
-@pytest.mark.parametrize("name", ["ops.kernels", "ops.gru", "ops.attention"])
+def test_port_imports_no_jax():
+    assert "modules" in _fresh(SCRIPT)
+
+
+def test_chip_smoke_imports_no_jax():
+    assert "ok" in _fresh(SMOKE)
+
+
+@pytest.mark.parametrize("name", ["ops.kernels", "ops.gru", "ops.attention",
+                                  "ops.attention_resident",
+                                  "parallel.trainer"])
 def test_importing_kernel_modules_builds_nothing(name):
     """Kernels are built on first launch only: importing the modules (as
     every CPU test does) must not look for nvcc or write a library."""

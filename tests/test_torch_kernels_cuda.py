@@ -1,21 +1,29 @@
-"""Kernels K1 (gru_fwd) and K2 (attention_fwd) on the card against their
-plain PyTorch versions. They need an NVIDIA GPU with nvcc (the kernels
-have no CPU mode) and skip without one; on a GPU machine run
+"""Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
+(attention_resident_fwd) and K5 (attention_resident_bwd) on the card
+against their plain PyTorch versions. They need an NVIDIA GPU with nvcc
+(the kernels have no CPU mode) and skip without one; on a GPU machine run
 
-    python -m pytest -m cuda tests/test_torch_kernels_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances (max abs error), as in chip_smoke.py: h 2e-3 (sums in another
 order; a last-bit difference of the state can flip its bf16 rounding ahead
 of the hidden matmul), alpha 1e-5, v_att 2^-10 * max|v_att| in each
 normalize mode (a bf16 weight p*r that rounds the other way moves its term
 by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
-(bf16 activations between layers).
+(bf16 activations between layers). K3-K5 are held relative to the largest
+value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
+saved h 2^-7, K5 2^-9.
 """
 
 import pytest
 import torch
 
-from vqa_transfer_externaldata_torch.ops import attention, gru
+from vqa_transfer_externaldata_torch.ops import (
+    attention, attention_resident as ar, gru)
+
+TOL_K3 = 2.0 ** -8
+TOL_K4_H = 2.0 ** -7
+TOL_K5 = 2.0 ** -9
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +100,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="H % 128"):
         attention.attention_fwd(v.to(torch.bfloat16), qh[:, :96], wv[:, :96],
                                 ws[:96], normalize=True)
+    gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 32)
+    _, hseq = gru.gru_reference(gx, lens, uh, bhn)
+    with pytest.raises(ValueError, match="H % 64"):
+        gru.gru_bwd(gx, hseq, lens, uh, bhn, torch.zeros(4, 32, device=dev))
+    store, rows, qh, wv, ws = _resident_inputs(dev, 3, 9, 64, 128, 2)
+    with pytest.raises(TypeError, match="store must be"):
+        ar.attention_resident_fwd(store.float(), rows, qh, wv, ws, n_valid=9,
+                                  normalize=False)
+    with pytest.raises(ValueError, match="n_valid"):
+        ar.attention_resident_fwd(store, rows, qh, wv, ws, n_valid=17,
+                                  normalize=False)
+    h = torch.zeros(2, 16, 128, device=dev, dtype=torch.bfloat16)
+    al, sga = torch.zeros(2, 16, device=dev), torch.zeros(2, 16, device=dev)
+    with pytest.raises(ValueError, match="C % 128"):
+        ar.attention_resident_bwd(store, rows, h, ws, al,
+                                  torch.zeros(2, 64, device=dev), sga,
+                                  n_valid=9, normalize=False)
 
 
 def test_model_forward_goes_through_both_kernels(dev, monkeypatch):
@@ -121,3 +146,103 @@ def test_model_forward_goes_through_both_kernels(dev, monkeypatch):
         ref = model(feats, q)["logits"]
     assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 5e-2
+
+
+def _rel_err(got, want):
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-30)
+
+
+@pytest.mark.parametrize("shape", [(7, 20, 64), (26, 256, 512)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bwd_matches_plain(dev, shape, reverse):
+    T, B, H = shape
+    gx, lens, uh, bhn = _gru_inputs(dev, T, B, H, seed=3)
+    lens[0], lens[1] = T, 1  # the longest and the shortest question
+    _, hseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    ghT = torch.randn(B, H, generator=torch.Generator(device=dev)
+                      .manual_seed(4), device=dev)
+    before = gru.gru_bwd.launches
+    got = gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT, reverse=reverse)
+    want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT,
+                                 reverse=reverse)
+    torch.cuda.synchronize()
+    assert gru.gru_bwd.launches == before + T + 2
+    for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= TOL_K3, (name, _rel_err(a, b))
+
+
+def _resident_inputs(dev, M, n_valid, C, H, B, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Np = n_valid + (-n_valid) % 8
+    scale = torch.exp2(torch.rand(M, n_valid, 1, generator=g, device=dev)
+                       * 4 - 2)
+    store = torch.zeros(M, Np, C, device=dev, dtype=torch.bfloat16)
+    store[:, :n_valid] = (torch.randn(M, n_valid, C, generator=g, device=dev)
+                          .relu() * scale).to(torch.bfloat16)
+    rows = torch.randint(0, M, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[1] = rows[0]  # two questions about one image
+    qh = torch.randn(B, H, generator=g, device=dev) * 0.5
+    wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1)
+          * (6.0 / (C + H)) ** 0.5).to(torch.bfloat16)
+    ws = (torch.randn(H, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    return store, rows, qh, wv, ws
+
+
+@pytest.mark.parametrize("shape", [(5, 13, 128, 128, 6),
+                                   (64, 196, 2048, 512, 256)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_resident_fwd_bwd_match_plain(dev, shape, normalize):
+    M, n_valid, C, H, B = shape
+    store, rows, qh, wv, ws = _resident_inputs(dev, M, n_valid, C, H, B)
+    kw = dict(n_valid=n_valid, normalize=normalize)
+    before = ar.attention_resident_fwd.launches
+    va, al, h = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                          save_h=True, **kw)
+    rv, ra, rh = ar.attention_resident_fwd_reference(store, rows, qh, wv, ws,
+                                                     save_h=True, **kw)
+    torch.cuda.synchronize()
+    assert ar.attention_resident_fwd.launches == before + 2
+    assert (va - rv).abs().max().item() <= 2.0 ** -10 * rv.abs().max().item()
+    assert (al - ra).abs().max().item() <= 1e-5
+    assert al[:, n_valid:].abs().max().item() == 0.0
+    assert _rel_err(h.float(), rh.float()) <= TOL_K4_H
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    gv = torch.randn(B, C, generator=g, device=dev)
+    sga = torch.randn(B, al.shape[1], generator=g, device=dev)
+    before = ar.attention_resident_bwd.launches
+    got = ar.attention_resident_bwd(store, rows, rh, ws, ra, gv, sga, **kw)
+    want = ar.attention_resident_bwd_reference(store, rows, rh, ws, ra, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert ar.attention_resident_bwd.launches == before + 3
+    for name, a, b in zip(("dqh", "dwv", "dws"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= TOL_K5, (name, _rel_err(a, b))
+
+
+def test_resident_op_grads_go_through_k4_k5(dev):
+    """The autograd op on the card launches K4 forward and K5 backward and
+    its grads agree with the op run on the CPU plain path."""
+    store, rows, qh, wv, ws = _resident_inputs(dev, 5, 13, 128, 128, 8)
+    ins = [t.clone().requires_grad_() for t in (qh, wv.float(), ws)]
+    counts = (ar.attention_resident_fwd.launches,
+              ar.attention_resident_bwd.launches)
+    va, al = ar.spatial_attention_resident(store, rows, *ins, n_valid=13,
+                                           normalize=True)
+    (va.square().sum() + al[:, 0].sum()).backward()
+    assert (ar.attention_resident_fwd.launches,
+            ar.attention_resident_bwd.launches) == (counts[0] + 2,
+                                                    counts[1] + 3)
+    cpu = [t.detach().cpu().requires_grad_() for t in (qh, wv.float(), ws)]
+    rv, ra = ar.spatial_attention_resident(store.cpu(), rows.cpu(), *cpu,
+                                           n_valid=13, normalize=True)
+    (rv.square().sum() + ra[:, 0].sum()).backward()
+    for a, b in zip(ins, cpu):
+        cos = torch.nn.functional.cosine_similarity(
+            a.grad.flatten().cpu(), b.grad.flatten(), dim=0).item()
+        assert cos >= 0.999, cos

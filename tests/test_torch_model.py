@@ -1,6 +1,7 @@
 """Port parity: models/vqa_attention.py and the registry against the JAX
 package, through the weight bridge, with dropout off. The JAX eval forward
-runs both Pallas kernels (B1, B5) in interpret mode on the CPU.
+runs its Pallas kernels (B1, B5, or B3 for the resident input) in interpret
+mode on the CPU, and its training gradients B2 and B4.
 
 float32; tolerance 1e-5 on logits of magnitude ~10 (the same forward in
 f32, sums in another order).
@@ -110,9 +111,130 @@ def test_unported_configs_name_their_roadmap_item(overrides, item):
         build_model(Config().replace_flat(overrides))
 
 
-def test_resident_input_is_not_ported_yet():
+def _resident_inputs(rng, n_valid=N, M=4):
+    """A padded [M, Np, C] store (zeros past n_valid), rows that repeat an
+    image, and padded questions."""
+    Np = n_valid + (-n_valid) % 8
+    store = np.zeros((M, Np, C), np.float32)
+    store[:, :n_valid] = np.abs(rng.normal(size=(M, n_valid, C)))
+    rows = np.array([0, 0, 3, 1, 2, 3, 1, 0], np.int32)
+    q = rng.integers(4, V, size=(8, T)).astype(np.int32)
+    for i, n in enumerate([6, 1, 3, 0, 5, 2, 6, 4]):
+        q[i, n:] = 0
+    return store, rows, q
+
+
+@pytest.mark.parametrize("prenormalized", [False, True])
+def test_resident_forward_matches_jax(prenormalized):
+    """The (store, rows) input against the JAX model's, whose attention is
+    the Pallas B3 kernel in interpret mode; with ``store_prenormalized``
+    the op skips the per-cell norm (the store is given normalized)."""
+    rng = np.random.default_rng(4)
+    store, rows, q = _resident_inputs(rng)
+    if prenormalized:
+        store /= np.sqrt((store ** 2).sum(-1, keepdims=True) + 1e-12)
+    mod = JaxModel(vocab_size=V, num_answers=A, dtype=jnp.float32,
+                   dropout=0.0, n_cells=N,
+                   store_prenormalized=prenormalized, **DIMS)
+    _, tree = _random_tree(rng)
+    want = mod.apply({"params": tree},
+                     (jnp.asarray(store), jnp.asarray(rows)), jnp.asarray(q),
+                     train=False)
+    model = VQAAttentionModel(V, A, feature_dim=C, dtype=torch.float32,
+                              n_cells=N, store_prenormalized=prenormalized,
+                              **DIMS)
+    model.load_state_dict(params_from_flax(tree))
+    with torch.inference_mode():
+        got = model((torch.from_numpy(store), torch.from_numpy(rows)),
+                    torch.from_numpy(q))
+    assert got["alpha"].shape == (8, N)
+    np.testing.assert_allclose(got["logits"].numpy(),
+                               np.asarray(want["logits"]),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["alpha"].numpy(),
+                               np.asarray(want["alpha"]),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_resident_training_grads_match_jax():
+    """Every parameter's gradient of the training loss (dropout 0) against
+    jax.grad through the bridge: the GRU backward is B2 and the attention
+    backward B4, both interpreted. Whole-model gradients are compared by
+    cosine (>= 0.99999) and mean abs error (<= 1e-5 of the mean magnitude):
+    a ReLU unit at z = 0 may take the other side in the other
+    implementation and move single elements, which a max would report."""
+    rng = np.random.default_rng(5)
+    store, rows, q = _resident_inputs(rng)
+    labels = rng.integers(4, A, size=8).astype(np.int32)
+    mod = JaxModel(vocab_size=V, num_answers=A, dtype=jnp.float32,
+                   dropout=0.0, n_cells=N, **DIMS)
+    _, tree = _random_tree(rng)
+    batch = {"answer_id": jnp.asarray(labels)}
+
+    def jloss(params):
+        out = mod.apply({"params": params},
+                        (jnp.asarray(store), jnp.asarray(rows)),
+                        jnp.asarray(q), train=True,
+                        rngs={"dropout": jax.random.PRNGKey(0)})
+        return jax_vqa_loss(out, batch)[0]
+
+    want = params_from_flax(jax.device_get(jax.grad(jloss)(tree)))
+    model = VQAAttentionModel(V, A, feature_dim=C, dtype=torch.float32,
+                              n_cells=N, dropout=0.0, **DIMS)
+    model.load_state_dict(params_from_flax(tree))
+    out = model((torch.from_numpy(store), torch.from_numpy(rows)),
+                torch.from_numpy(q), train=True)
+    vqa_loss(out, {"answer_id": torch.from_numpy(labels)})[0].backward()
+    for name, p in model.named_parameters():
+        a, b = p.grad.flatten(), want[name].flatten()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        mean_err = (a - b).abs().mean().item()
+        assert cos >= 0.99999, (name, cos)
+        assert mean_err <= 1e-5 * b.abs().mean().item() + 1e-12, (
+            name, mean_err)
+
+
+def test_dropout_is_seeded_scaled_and_off_at_eval():
+    """Dropout on the fused vector: keeps each unit with probability
+    1 - rate and scales it by 1 / (1 - rate); the mask comes from the given
+    generator (same seed, same logits) and eval mode draws none."""
+    rng = np.random.default_rng(6)
+    store, rows, q = _resident_inputs(rng)
+    model = VQAAttentionModel(V, A, feature_dim=C, dtype=torch.float32,
+                              n_cells=N, dropout=0.25, **DIMS,
+                              generator=torch.Generator().manual_seed(0))
+    feats = (torch.from_numpy(store), torch.from_numpy(rows))
+    qt = torch.from_numpy(q)
+
+    def run(seed, train=True):
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            return model(feats, qt, train=train, generator=g)["logits"]
+
+    torch.testing.assert_close(run(1), run(1), rtol=0, atol=0)
+    assert not torch.equal(run(1), run(2))
+    torch.testing.assert_close(run(1, False), run(2, False), rtol=0, atol=0)
+    # The fused vector as ans_proj receives it, with and without dropout:
+    # each unit is either 0 or its eval value / (1 - rate), and over 40
+    # draws of 7 x 16 live units the kept share is 0.75 (0.75 +- 0.04 is
+    # about 6 sigma).
+    seen = []
+    hook = model.ans_proj.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].clone()))
+    kept = []
+    for seed in range(40):
+        run(seed, False), run(seed)
+        ref, drop = seen[-2], seen[-1]
+        on, live = drop != 0, ref != 0  # the empty question's row is all 0
+        torch.testing.assert_close(drop[on], ref[on] / 0.75)
+        kept.append(on[live].float().mean().item())
+    hook.remove()
+    assert abs(np.mean(kept) - 0.75) < 0.04
+
+
+def test_gathered_training_is_not_ported():
     model = VQAAttentionModel(V, A, feature_dim=C, dtype=torch.float32,
                               **DIMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model((torch.zeros(2, N, C), torch.zeros(B, dtype=torch.int32)),
-              torch.ones(B, T, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        model(torch.zeros(B, N, C), torch.ones(B, T, dtype=torch.int64),
+              train=True)

@@ -1,0 +1,188 @@
+"""Port parity: parallel/trainer.py ``fit_resident``, the datasets and the
+train CLI against the JAX package.
+
+``fit_resident`` runs 6 steps on the CPU in float32 with dropout 0 from
+the same (bridged) parameters as JAX ``Trainer.fit_resident`` on one CPU
+device, whose attention is the Pallas B3/B4 pair and whose GRU is B1/B2 in
+interpret mode. Tolerance: params rtol 2e-4 / atol 2e-5 (the JAX package's
+own bound for two implementations of the resident step: Adam divides by
+sqrt(nu), so a gradient entry near zero turns f32 summation-order noise
+into an update difference of up to lr), logged losses rtol 1e-5.
+"""
+
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vqa_transfer_externaldata_tpu.config import Config as JaxConfig
+from vqa_transfer_externaldata_tpu.data import datasets as jds
+from vqa_transfer_externaldata_tpu.models.zoo import build_model as jax_build
+from vqa_transfer_externaldata_tpu.parallel.mesh import create_mesh
+from vqa_transfer_externaldata_tpu.parallel.trainer import Trainer as JaxTrainer
+from vqa_transfer_externaldata_torch.cli import train as train_cli
+from vqa_transfer_externaldata_torch.config import Config
+from vqa_transfer_externaldata_torch.data import datasets as tds
+from vqa_transfer_externaldata_torch.models.zoo import build_model
+from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+from vqa_transfer_externaldata_torch.serving import Predictor
+from vqa_transfer_externaldata_torch.utils.convert import params_from_flax
+
+torch.set_num_threads(2)  # xdist runs several workers on the same cores
+
+TINY = {
+    "data.synthetic": True, "data.synthetic_layout": "joined",
+    "data.synthetic_size": 128, "data.vocab_size": 64,
+    "data.num_answers": 16, "data.grid_h": 3, "data.grid_w": 3,
+    "data.feature_dim": 16, "data.pool5_dim": 16,
+    "data.max_question_len": 6, "model.word_dim": 8, "model.rnn_dim": 8,
+    "model.fusion_dim": 16, "model.att_hidden": 8, "model.answer_dim": 8,
+    "model.dtype": "float32", "model.dropout": 0.0,
+    "train.batch_size": 16, "train.device_data_cache": True,
+    "train.log_every": 2, "train.warmup_steps": 2,
+    "train.learning_rate": 3e-3,
+}
+
+
+def _losses(train_dir):
+    with open(os.path.join(train_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    return {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+
+
+def test_fit_resident_matches_jax(tmp_path):
+    jcfg = JaxConfig().replace_flat(TINY)
+    spec = jax_build(jcfg)
+    jtr = JaxTrainer(jcfg, spec, mesh=create_mesh(
+        jcfg, devices=jax.devices()[:1]), train_dir=str(tmp_path / "jax"))
+    jds_train = jds.load_dataset(jcfg, "train")
+    js = jtr.init_state(next(jds_train.batches(1, epochs=1, shuffle=False)))
+    params = params_from_flax(jax.device_get(js.params))
+    js = jtr.fit_resident(jds_train, js, max_steps=6)
+    want = params_from_flax(jax.device_get(js.params))
+    jtr.close()
+
+    cfg = Config().replace_flat(TINY)
+    tr = Trainer(cfg, build_model(cfg), train_dir=str(tmp_path / "torch"),
+                 device="cpu")
+    assert tr.model.store_prenormalized
+    s = tr.init_state(params)
+    s = tr.fit_resident(tds.load_dataset(cfg, "train"), s, max_steps=6)
+    tr.close()
+    assert s.step == 6
+    got = tr.model.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=2e-4, atol=2e-5, err_msg=k)
+    lj, lt = _losses(tmp_path / "jax"), _losses(tmp_path / "torch")
+    assert sorted(lt) == sorted(lj) == [2, 4, 6]
+    for step in lj:
+        np.testing.assert_allclose(lt[step], lj[step], rtol=1e-5)
+
+
+def test_segment_restaging_keeps_the_index_stream(tmp_path, monkeypatch):
+    """fit_resident stages its index table in segments; re-staging every
+    2 steps trains exactly as one segment does."""
+    cfg = Config().replace_flat(TINY)
+    runs = []
+    for seg in (2048, 2):
+        monkeypatch.setattr(Trainer, "resident_segment_steps", seg)
+        model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        tr = Trainer(cfg, model, train_dir=str(tmp_path / str(seg)),
+                     device="cpu")
+        tr.fit_resident(tds.load_dataset(cfg, "train"), tr.init_state(),
+                        max_steps=5)
+        tr.close()
+        runs.append(model.state_dict())
+    for k in runs[0]:
+        torch.testing.assert_close(runs[1][k], runs[0][k], rtol=0, atol=0)
+
+
+def test_trainer_defaults_to_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config().replace_flat(TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, build_model(cfg), train_dir=str(tmp_path))
+
+
+def test_synthetic_joined_arrays_and_index_stream_equal_jax():
+    over = dict(TINY, **{"data.synthetic_size": 96})
+    want = jds.load_dataset(JaxConfig().replace_flat(over), "val")
+    got = tds.load_dataset(Config().replace_flat(over), "val")
+    assert type(got).__name__ == "JoinedDataset"
+    assert sorted(got.arrays) == sorted(want.arrays)
+    for k in want.arrays:
+        np.testing.assert_array_equal(got.arrays[k], want.arrays[k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(got.store.grid, want.store.grid)
+    np.testing.assert_array_equal(got.store.pool5, want.store.pool5)
+    # 96 rows in batches of 16 over 3 epochs: epoch boundaries included.
+    sj = want.index_batches(16, seed=7)
+    st = got.index_batches(16, seed=7)
+    for _ in range(18):
+        a, b = next(st), next(sj)
+        assert b.dtype == a.dtype == np.int32
+        np.testing.assert_array_equal(a, b)
+    bt = next(got.batches(5, seed=3))
+    bj = next(want.batches(5, seed=3))
+    for k in bj:
+        np.testing.assert_array_equal(bt[k], bj[k], err_msg=k)
+
+
+def test_train_cli_run_is_served_by_predictor(tmp_path):
+    argv = ["--device", "cpu", "--train.max_steps", "4",
+            "--train.train_dir", str(tmp_path / "run")]
+    for k, v in TINY.items():
+        argv += [f"--{k}", str(v).lower() if isinstance(v, bool) else str(v)]
+    train_dir = train_cli.main(argv)
+    for name in ("config.json", "metrics.jsonl", "params_final.pt"):
+        assert os.path.exists(os.path.join(train_dir, name)), name
+    losses = _losses(train_dir)
+    assert sorted(losses) == [2, 4] and all(np.isfinite(list(losses.values())))
+    pred = Predictor(train_dir, batch_size=4, device="cpu")
+    rng = np.random.default_rng(0)
+    feats = np.abs(rng.normal(size=(3, 9, 16))).astype(np.float32)
+    answers = pred.answer(feats, ["w1 w2", "w3", "w4 w5 w6"])
+    assert len(answers) == 3
+    assert all(a in pred.answer_vocab.tokens for a in answers)
+
+
+@pytest.mark.parametrize("over,item", [
+    ({"train.store_sharded": True}, "item 12"),
+    ({"train.store_quantize": "int8"}, "item 14"),
+    ({"train.steps_per_call": 2}, "item 15"),
+    ({"train.sort_batch_by_image": True}, "item 14"),
+    ({"train.profile_steps": 3}, "item 14"),
+    ({"train.remat": True}, "item 14"),
+])
+def test_unported_trainer_options_name_their_roadmap_item(over, item,
+                                                          tmp_path):
+    cfg = Config().replace_flat(dict(TINY, **over))
+    with pytest.raises(NotImplementedError, match=item):
+        Trainer(cfg, build_model(cfg), train_dir=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("over,item", [
+    ({"train.pretrained_param_path": "x"}, "item 8"),
+    ({"train.device_data_cache": False}, "item 9"),
+    ({"data.synthetic_layout": "flat"}, "item 9"),
+    ({"data.synthetic": False}, "item 14"),
+])
+def test_unported_cli_paths_name_their_roadmap_item(over, item, tmp_path):
+    argv = ["--device", "cpu", "--train.train_dir", str(tmp_path)]
+    for k, v in dict(TINY, **over).items():
+        argv += [f"--{k}", str(v).lower() if isinstance(v, bool) else str(v)]
+    with pytest.raises(NotImplementedError, match=item):
+        train_cli.main(argv)
+
+
+def test_in_loop_eval_is_not_ported(tmp_path):
+    cfg = Config().replace_flat(TINY)
+    tr = Trainer(cfg, build_model(cfg), train_dir=str(tmp_path), device="cpu")
+    ds = tds.load_dataset(cfg, "train")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tr.fit_resident(ds, tr.init_state(), max_steps=1, eval_ds=ds)

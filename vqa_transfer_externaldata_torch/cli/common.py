@@ -1,10 +1,13 @@
-"""Shared CLI assembly: config -> vocabs -> init matrices -> model."""
+"""Shared CLI assembly: config -> vocabs -> init matrices -> model, and the
+run directory's name."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import synthetic_vocabs
@@ -46,10 +49,21 @@ def load_word_init(cfg: Config,
     return mat
 
 
-def build_spec(cfg: Config) -> Tuple[VQAAttentionModel, Optional[Vocab],
-                                     Optional[Vocab]]:
-    """(model, word_vocab, answer_vocab) of the configured run."""
+def build_spec(cfg: Config, generator: Optional[torch.Generator] = None
+               ) -> Tuple[VQAAttentionModel, Optional[Vocab],
+                          Optional[Vocab]]:
+    """(model, word_vocab, answer_vocab) of the configured run, the model
+    initialized from ``generator``."""
     word_vocab, answer_vocab = load_vocabs(cfg)
     word_init = load_word_init(cfg, word_vocab)
-    model = build_model(cfg, word_init=word_init)
+    model = build_model(cfg, word_init=word_init, generator=generator)
     return model, word_vocab, answer_vocab
+
+
+def resolve_train_dir(cfg: Config, stage: str) -> str:
+    """``train.train_dir``, or a run directory inside it named after the
+    hyperparameters when it is the default ``train_dir``."""
+    base = cfg.train.train_dir
+    if os.path.basename(base.rstrip("/")) in ("train_dir", ""):
+        return os.path.join(base, cfg.run_name(stage))
+    return base

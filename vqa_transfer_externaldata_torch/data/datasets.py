@@ -1,12 +1,152 @@
-"""Dataset helpers of the port. Only the synthetic vocabularies are here so
-far: they are all a synthetic run needs to serve."""
+"""Datasets of the port: a dict-of-arrays dataset with the JAX package's
+seeded index stream, the synthetic deduplicated corpus that stage-2
+training runs against, ``load_dataset`` for it, and the synthetic
+vocabularies. Arrays are numpy; the trainer moves them to the device.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
 
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.utils.vocab import SPECIALS, Vocab
+
+
+class ArrayDataset:
+    """Dict-of-arrays dataset with seeded shuffling + drop-last batching.
+    The index stream is the JAX package's, draw for draw."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray]) -> None:
+        sizes = {k: v.shape[0] for k, v in arrays.items()}
+        if len(set(sizes.values())) != 1:
+            raise ValueError(f"ragged arrays: {sizes}")
+        self.arrays = arrays
+        self.size = next(iter(sizes.values()))
+
+    def __len__(self) -> int:
+        return self.size
+
+    def take(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """The rows at ``idx`` as a batch dict (subclasses with lazy
+        columns override this)."""
+        return {k: v[idx] for k, v in self.arrays.items()}
+
+    def batches(self, batch_size: int, *, shuffle: bool = True,
+                seed: int = 0, epochs: Optional[int] = None,
+                drop_last: bool = True
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Fixed-shape batches; infinite if ``epochs`` is None."""
+        for idx in self.index_batches(batch_size, shuffle=shuffle, seed=seed,
+                                      epochs=epochs, drop_last=drop_last):
+            yield self.take(idx)
+
+    def index_batches(self, batch_size: int, *, shuffle: bool = True,
+                      seed: int = 0, epochs: Optional[int] = None,
+                      drop_last: bool = True) -> Iterator[np.ndarray]:
+        """The index stream behind :meth:`batches`: epoch ``e`` is the
+        permutation of ``default_rng(SeedSequence([seed, e]))``, cut into
+        int32 batches. The resident trainer consumes it directly."""
+        if drop_last and self.size < batch_size:
+            raise ValueError(
+                f"dataset has {self.size} rows < batch_size {batch_size} "
+                f"with drop_last: no batch can ever be produced")
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            if shuffle:
+                order = np.random.default_rng(
+                    np.random.SeedSequence([seed, epoch])).permutation(
+                        self.size)
+            else:
+                order = np.arange(self.size)
+            limit = (order.size // batch_size) * batch_size if drop_last \
+                else order.size
+            for start in range(0, limit, batch_size):
+                yield order[start:start + batch_size].astype(np.int32)
+            epoch += 1
+
+
+def synthetic_vqa_joined(cfg: Config, *, n_questions: int = 4096,
+                         n_images: int = 512, seed: int = 0,
+                         with_scores: bool = False):
+    """Deduplicated synthetic corpus in the production layout: a feature
+    store of ``n_images`` grids (f16, like extraction output) plus a
+    question table that references it by ``image_index``. The answer is a
+    fixed projection of the image's pool5, so the loss can be driven below
+    chance. Given the same config and seed, the arrays equal the JAX
+    package's. Returns a :class:`~.features.JoinedDataset`; nothing is
+    cached on disk."""
+    from vqa_transfer_externaldata_torch.data.features import (
+        InMemoryFeatureStore, JoinedDataset)
+
+    d = cfg.data
+    rng = np.random.default_rng(seed)
+    N = d.grid_h * d.grid_w
+    pool5 = rng.standard_normal((n_images, d.pool5_dim), dtype=np.float32)
+    # Low-rank grid expansion: a thin random factor times a fixed mixing
+    # matrix gives full-size grids in one BLAS call per chunk of images.
+    rank = 32
+    mix = np.random.default_rng(99).standard_normal(
+        (rank, d.feature_dim), dtype=np.float32) / np.float32(np.sqrt(rank))
+    grid = np.empty((n_images, N, d.feature_dim), np.float16)
+    for lo in range(0, n_images, 256):
+        hi = min(lo + 256, n_images)
+        thin = rng.standard_normal(((hi - lo) * N, rank), dtype=np.float32)
+        chunk = (thin @ mix).reshape(hi - lo, N, d.feature_dim)
+        chunk += pool5[lo:hi, None, : d.feature_dim]
+        grid[lo:hi] = chunk
+
+    q_len = rng.integers(3, d.max_question_len + 1, size=n_questions)
+    q_ids = np.zeros((n_questions, d.max_question_len), np.int32)
+    for i, L in enumerate(q_len):
+        q_ids[i, :L] = rng.integers(4, d.vocab_size, size=L)
+    image_index = rng.integers(0, n_images,
+                               size=n_questions).astype(np.int32)
+    proj = np.random.default_rng(1234).standard_normal(
+        (d.pool5_dim, d.num_answers), dtype=np.float32)
+    answer = 4 + (np.argmax(pool5[image_index] @ proj, axis=1)
+                  % (d.num_answers - 4))
+    rows = {"q_ids": q_ids, "image_index": image_index,
+            "answer_id": answer.astype(np.int32)}
+    if with_scores:
+        scores = np.zeros((n_questions, d.num_answers), np.float32)
+        scores[np.arange(n_questions), answer] = 1.0
+        rows["answer_scores"] = scores
+    return JoinedDataset(rows, InMemoryFeatureStore(grid, pool5),
+                         index_key="image_index",
+                         feature_keys=("features", "pool5"))
+
+
+def load_dataset(cfg: Config, split: str, stage: str = "vqa"
+                 ) -> ArrayDataset:
+    """The dataset of ``split``. Ported: the synthetic joined layout of
+    stage 2 (``--data.synthetic true --data.synthetic_layout joined``),
+    ``data.synthetic_size`` questions over a store of 1/8 as many images,
+    seeded by the split as in the JAX package. Every other source raises
+    ``NotImplementedError`` naming its ROADMAP item."""
+    d = cfg.data
+    if not d.synthetic:
+        raise NotImplementedError(
+            "preprocessed dataset artifacts are not ported yet (ROADMAP.md, "
+            "section 1, item 14); use --data.synthetic true")
+    if d.synthetic_layout not in ("flat", "joined"):
+        raise ValueError(f"data.synthetic_layout={d.synthetic_layout!r}: "
+                         "expected 'flat' or 'joined'")
+    if stage != "vqa":
+        raise NotImplementedError(
+            f"stage-1 ({stage}) datasets are not ported yet (ROADMAP.md, "
+            "section 1, item 10)")
+    if d.synthetic_layout == "flat":
+        raise NotImplementedError(
+            "the flat synthetic layout (gathered features) is not ported "
+            "yet (ROADMAP.md, section 1, item 9); use "
+            "--data.synthetic_layout joined")
+    seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
+    n_q = d.synthetic_size
+    return synthetic_vqa_joined(cfg, n_questions=n_q,
+                                n_images=max(1, n_q // 8), seed=seed,
+                                with_scores=(split != "train"))
 
 
 def synthetic_vocabs(cfg: Config) -> Tuple[Vocab, Vocab]:

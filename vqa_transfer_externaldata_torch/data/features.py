@@ -1,4 +1,5 @@
-"""Precomputed image-feature stores ([M, g, g, C] grids + [M, C] pool5).
+"""Precomputed image-feature stores ([M, g, g, C] grids + [M, C] pool5)
+and the question table joined to one (``JoinedDataset``).
 
 ``FeatureStore`` reads the three layouts the extractor writes: an HDF5 file
 (``grid``/``pool5``/``image_ids`` datasets), an ``.npz`` with the same keys,
@@ -10,9 +11,11 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from vqa_transfer_externaldata_torch.data.datasets import ArrayDataset
 
 
 class FeatureStore:
@@ -82,3 +85,24 @@ class InMemoryFeatureStore(FeatureStore):
         self.image_ids = (image_ids if image_ids is not None
                           else np.arange(grid.shape[0], dtype=np.int64))
         self.index_of = {int(i): k for k, i in enumerate(self.image_ids)}
+
+
+class JoinedDataset(ArrayDataset):
+    """Question/region table + lazy feature join by ``index_key``: the
+    store stays deduplicated, and :meth:`take` gathers the rows' features.
+    The resident trainer uploads the table and the store once instead."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], store: FeatureStore,
+                 index_key: str = "image_index",
+                 feature_keys: Sequence[str] = ("features", "pool5")) -> None:
+        super().__init__(arrays)
+        self.store = store
+        self.index_key = index_key
+        self.feature_keys = tuple(feature_keys)
+
+    def take(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        batch = super().take(idx)
+        feats = self.store.gather(batch[self.index_key])
+        for key in self.feature_keys:
+            batch[key] = feats[key]
+        return batch

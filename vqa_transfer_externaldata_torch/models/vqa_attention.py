@@ -4,11 +4,15 @@ gated fusion -> answer classifier whose logits are cosine similarities
 against an answer-embedding table (the transfer vehicle), times a learned
 scale, plus a bias.
 
-Input: gathered ``features`` [B, N, C] and ``q_ids`` [B, T] int (<pad>=0).
-This port runs the eval forward (dropout off); training, the resident
-``(store, rows)`` input and more than one glimpse come in later slices.
-Parameter names follow the JAX package's tree (``utils/convert.py`` maps
-one to the other).
+Input: ``q_ids`` [B, T] int (<pad>=0) and either gathered ``features``
+[B, N, C] (the eval forward of serving) or a tuple ``(store [M, Np, C],
+rows [B] int32)``: the gather-free resident path, where the attention reads
+each question's grid straight out of a store held in device memory
+(``ops/attention_resident``). ``train=True`` turns dropout on, drawn from
+an explicit ``torch.Generator``; training takes the resident input only
+(gathered-feature training and more than one glimpse come in later
+slices). Parameter names follow the JAX package's tree
+(``utils/convert.py`` maps one to the other).
 """
 
 from __future__ import annotations
@@ -21,13 +25,16 @@ from torch import nn
 import torch.nn.functional as F
 
 from vqa_transfer_externaldata_torch.ops.attention import spatial_attention
+from vqa_transfer_externaldata_torch.ops.attention_resident import (
+    spatial_attention_resident)
 from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder
 from vqa_transfer_externaldata_torch.ops.layers import (
     Dense, GatedTanh, WordEmbedding, glorot_uniform_, l2_normalize)
 from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID, UNK_ID
 
-RESIDENT_TODO = ("the resident (store, rows) input is not ported yet "
-                 "(ROADMAP.md, section 1, item 3)")
+GATHERED_TRAIN_TODO = (
+    "training on gathered features is not ported yet (ROADMAP.md, "
+    "section 1, item 9): train on the resident (store, rows) input")
 
 
 class VQAAttentionModel(nn.Module):
@@ -35,12 +42,22 @@ class VQAAttentionModel(nn.Module):
                  feature_dim: int = 2048, word_dim: int = 300,
                  rnn_dim: int = 512, fusion_dim: int = 1024,
                  att_hidden: int = 512, answer_dim: int = 300,
+                 dropout: float = 0.5,
+                 n_cells: Optional[int] = None,
+                 store_prenormalized: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  word_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         g = generator
         self.dtype = dtype
+        self.dropout = dropout
+        # True grid-cell count of a (store, rows) input, whose cell axis is
+        # padded (None: every cell of the store is valid).
+        self.n_cells = n_cells
+        # Set by the Trainer when it L2-normalizes the resident store once
+        # at upload: the (store, rows) path then skips the per-cell norm.
+        self.store_prenormalized = store_prenormalized
         self.word_emb = WordEmbedding(vocab_size, word_dim,
                                       init_matrix=word_init, dtype=dtype,
                                       generator=g)
@@ -63,23 +80,38 @@ class VQAAttentionModel(nn.Module):
             nn.init.normal_(self.att_ws, 0.0, 0.05, generator=g)
             nn.init.normal_(self.answer_embedding, 0.0, 0.01, generator=g)
 
-    def forward(self, features: torch.Tensor, q_ids: torch.Tensor
+    def forward(self, features, q_ids: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """features [B, N, C], q_ids [B, T] -> {"logits" [B, A] f32,
-        "alpha" [B, N] f32}."""
-        if isinstance(features, (tuple, list)):
-            raise NotImplementedError(RESIDENT_TODO)
+        """features [B, N, C] or (store [M, Np, C], rows [B]), q_ids [B, T]
+        -> {"logits" [B, A] f32, "alpha" [B, cells] f32}. ``train`` turns
+        dropout on, drawn from ``generator``."""
         dt = self.dtype
+        resident = isinstance(features, (tuple, list))
+        if train and not resident:
+            raise NotImplementedError(GATHERED_TRAIN_TODO)
         mask = (q_ids != PAD_ID).float()
         # Look up the transposed ids: words are born time-major [T, B, D],
         # the layout the recurrence consumes.
         q = self.gru(self.word_emb(q_ids.t()), mask)  # [B, H] dt
-        v = features.to(dt)
         qh = self.att_q(q)
-        # The per-cell L2 normalization of the grid is fused into the op.
-        v_att, alpha = spatial_attention(v, qh, self.att_wv, self.att_ws,
-                                         normalize=True)
+        if resident:
+            store, rows = features
+            v_att, alpha = spatial_attention_resident(
+                store.to(dt), rows, qh, self.att_wv, self.att_ws,
+                n_valid=self.n_cells or store.shape[1],
+                normalize=not self.store_prenormalized)
+        else:
+            # The per-cell L2 normalization of the grid is fused into the op.
+            v_att, alpha = spatial_attention(
+                features.to(dt), qh, self.att_wv, self.att_ws, normalize=True)
         fused = self.fuse_q(q) * self.fuse_v(v_att.to(dt))
+        if train and self.dropout > 0.0:
+            keep_prob = 1.0 - self.dropout
+            keep = torch.rand(fused.shape, generator=generator,
+                              device=fused.device) < keep_prob
+            fused = torch.where(keep, fused / keep_prob,
+                                torch.zeros_like(fused))
         z = l2_normalize(self.ans_proj(fused).float())
         e = l2_normalize(self.answer_embedding)
         logits = z @ e.t() * self.logit_scale + self.logit_bias

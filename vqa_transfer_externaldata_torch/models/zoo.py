@@ -53,5 +53,6 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
     return VQAAttentionModel(
         d.vocab_size, d.num_answers, feature_dim=d.feature_dim,
         word_dim=m.word_dim, rnn_dim=m.rnn_dim, fusion_dim=m.fusion_dim,
-        att_hidden=m.att_hidden, answer_dim=m.answer_dim,
-        dtype=dtype_of(m.dtype), word_init=word_init, generator=generator)
+        att_hidden=m.att_hidden, answer_dim=m.answer_dim, dropout=m.dropout,
+        n_cells=d.grid_h * d.grid_w, dtype=dtype_of(m.dtype),
+        word_init=word_init, generator=generator)

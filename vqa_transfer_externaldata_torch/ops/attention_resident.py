@@ -1,0 +1,389 @@
+"""Gather-free spatial attention over a feature store resident in device
+memory (one glimpse):
+
+    v      = store[rows[b]]                     [Np, C] (Np padded cells)
+    r      = rsqrt(|v|^2 + 1e-12) per cell      (1 unless ``normalize``)
+    h      = relu((v @ Wv) * r + qh[b])         [Np, H]
+    alpha  = softmax over the n_valid cells of h @ w_s (padded cells: 0)
+    v_att  = sum_n (alpha_n r_n) v_n            [C]
+
+Each question's grid is read straight out of the [M, Np, C] store through
+its row index, so no [B, Np, C] batch is ever built. The training forward
+saves the post-ReLU ``h`` (store dtype) and the backward works from it:
+dqh, dWv and dws, while the store and the rows get no gradient (the store
+is data).
+
+:func:`spatial_attention_resident` is the entry point. On CUDA tensors its
+forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
+:func:`attention_resident_fwd`) and its backward kernel K5
+(``csrc/attention_resident_bwd.cu``, wrapper :func:`attention_resident_bwd`);
+on CPU tensors their plain versions :func:`attention_resident_fwd_reference`
+and :func:`attention_resident_bwd_reference`. The rounding follows the
+kernels: f32 sums of store-dtype products, squares, ``alpha * r``, the v_att
+cotangent and ``dz * r`` rounded to the store dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from vqa_transfer_externaldata_torch.ops import kernels
+
+_NEG_INF = -1e30
+_FWD_TILE_H = 128  # hidden columns per score tile (csrc/attention_resident_fwd.cu)
+_FWD_TILE_C = 32  # channels per k-step
+_BWD_TILE = 128  # dW_v tile edge (csrc/attention_resident_bwd.cu)
+_BWD_TILE_K = 32  # cells per k-step of the dW_v GEMM
+_SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
+
+
+def pad_store_rows(grid: np.ndarray, multiple: int = 8) -> np.ndarray:
+    """Pad the cell axis of an [M, N, C] float store to a multiple of
+    ``multiple`` with zero rows (masked out by ``n_valid``)."""
+    M, N, C = grid.shape
+    if grid.dtype == np.int8:
+        raise NotImplementedError(
+            "int8 stores are not ported yet (ROADMAP.md, section 1, item 14)")
+    pad = (-N) % multiple
+    if pad == 0:
+        return grid
+    return np.concatenate([grid, np.zeros((M, pad, C), grid.dtype)], axis=1)
+
+
+def prenormalize_store(grid: np.ndarray,
+                       out_dtype: Optional[torch.dtype] = None,
+                       chunk_bytes: int = 1 << 28,
+                       device: Optional[torch.device] = None
+                       ) -> Tuple[torch.Tensor, float]:
+    """L2-normalize each cell of an [M, N, C] float store and pad the cell
+    axis to a multiple of 8, in one chunked pass: each chunk is normalized
+    in float32 on the host (``x / sqrt(sum x^2 + 1e-12)``), cast to
+    ``out_dtype`` (default: the store's own) and written into the padded
+    output tensor on ``device`` (default: the CPU), so neither a full-size
+    float32 copy nor a second host copy of the store is made. The source is
+    never modified. Returns ``(padded store, scale)``, the scale being 1.0
+    (the JAX package's is the dequantization scale of an int8 store, which
+    is not ported: ROADMAP.md section 1 item 14)."""
+    M, N, C = grid.shape
+    if out_dtype is None:
+        out_dtype = torch.from_numpy(np.zeros(0, grid.dtype)).dtype
+    Np = N + (-N) % 8
+    out = torch.zeros((M, Np, C), dtype=out_dtype, device=device)
+    rows = max(1, chunk_bytes // max(N * C * 4, 1))
+    for lo in range(0, M, rows):
+        g32 = grid[lo:lo + rows].astype(np.float32)
+        ssq = np.sum(np.square(g32), axis=-1, keepdims=True)
+        g32 *= 1.0 / np.sqrt(ssq + 1e-12)
+        out[lo:lo + rows, :N] = torch.from_numpy(g32).to(out.device,
+                                                          out_dtype)
+    return out, 1.0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _gather(store: torch.Tensor, rows: torch.Tensor, normalize: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v [B, Np, C] f32 copies of the store rows, r [B, Np] f32)."""
+    v = store[rows.long()]
+    r = (torch.rsqrt((v * v).float().sum(-1) + 1e-12) if normalize
+         else torch.ones(v.shape[:2], dtype=torch.float32, device=v.device))
+    return v.float(), r
+
+
+def attention_resident_fwd_reference(
+        store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
+        wv: torch.Tensor, ws: torch.Tensor, *, n_valid: int,
+        normalize: bool, save_h: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of kernel K4: store [M, Np, C] (dt), rows [B]
+    int, qh [B, H] f32, wv [C, H] (dt), ws [H] f32 -> (v_att [B, C] f32,
+    alpha [B, Np] f32 (0 at padded cells), h [B, Np, H] in dt or None)."""
+    dt = store.dtype
+    vf, r = _gather(store, rows, normalize)
+    z = vf @ wv.float()
+    h = torch.relu(z * r[:, :, None] + qh[:, None, :])
+    s = h @ ws
+    cell = torch.arange(s.shape[1], device=s.device)
+    s = torch.where(cell < n_valid, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - s.amax(dim=1, keepdim=True))
+    alpha = p / p.sum(dim=1, keepdim=True)
+    v_att = torch.einsum("bn,bnc->bc", (alpha * r).to(dt).float(), vf)
+    return v_att, alpha, (h.to(dt) if save_h else None)
+
+
+def attention_resident_bwd_reference(
+        store: torch.Tensor, rows: torch.Tensor, h: torch.Tensor,
+        ws: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
+        sga: torch.Tensor, *, n_valid: int, normalize: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel K5, from the saved ``h`` [B, Np, H]:
+    ws [H] f32, alpha and sga (= ga - S) [B, Np] f32, g [B, C] f32 (the
+    v_att cotangent) -> (dqh [B, H], dwv [C, H], dws [H]), all f32. The
+    padded cells (alpha 0) add nothing, so ``n_valid`` is not needed."""
+    del n_valid
+    dt = store.dtype
+    vf, r = _gather(store, rows, normalize)
+    dalpha = torch.einsum("bc,bnc->bn", g.to(dt).float(), vf) * r
+    ds = alpha * (dalpha + sga)
+    hf = h.float()
+    dz = torch.where(hf > 0, ds[:, :, None] * ws, torch.zeros_like(hf))
+    dws = torch.einsum("bn,bnh->h", ds, hf)
+    dqh = dz.sum(1)
+    dwv = torch.einsum("bnc,bnh->ch", vf,
+                       (dz * r[:, :, None]).to(dt).float())
+    return dqh, dwv, dws
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_lib() -> ctypes.CDLL:
+    lib = kernels.load("attention_resident_fwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 6 + [p, p]
+    lib.attention_resident_fwd.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = kernels.load("attention_resident_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 7 + [p, p]
+    lib.attention_resident_bwd.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_store(store: torch.Tensor, rows: torch.Tensor, n_valid: int,
+                 what: str) -> Tuple[int, int, int, int]:
+    if store.device.type != "cuda" or store.dim() != 3:
+        raise ValueError(f"{what} takes a 3-D CUDA store")
+    M, Np, C = store.shape
+    B = rows.shape[0] if rows.dim() == 1 else -1
+    kernels.expect("store", store, torch.bfloat16, (M, Np, C), store.device)
+    kernels.expect("rows", rows, torch.int32, (B,), store.device)
+    if B < 1 or not 1 <= n_valid <= Np:
+        raise ValueError(f"{what} needs B >= 1 and 1 <= n_valid <= Np, got "
+                         f"B={B}, n_valid={n_valid}, Np={Np}")
+    if store.data_ptr() % 16:
+        raise ValueError(f"{what} reads the store in 16-byte vectors: it "
+                         "must start 16-byte aligned")
+    return M, Np, C, B
+
+
+def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
+                           qh: torch.Tensor, wv: torch.Tensor,
+                           ws: torch.Tensor, *, n_valid: int,
+                           normalize: bool, save_h: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      Optional[torch.Tensor]]:
+    """Launch kernel K4 on CUDA tensors: store [M, Np, C] bf16, rows [B]
+    int32 (each < M, which the caller guarantees), qh [B, H] f32, wv
+    [C, H] bf16, ws [H] f32 -> (v_att [B, C] f32, alpha [B, Np] f32,
+    h [B, Np, H] bf16 when ``save_h`` else None). Needs C % 32 == 0 and
+    H % 128 == 0. One call makes the kernel's two launches on the current
+    stream and adds the number launched (2) to
+    ``attention_resident_fwd.launches``."""
+    M, Np, C, B = _check_store(store, rows, n_valid, "attention_resident_fwd")
+    H = qh.shape[-1]
+    dev = store.device
+    if C % _FWD_TILE_C or H % _FWD_TILE_H:
+        raise ValueError(f"attention_resident_fwd needs C % {_FWD_TILE_C} "
+                         f"== 0 and H % {_FWD_TILE_H} == 0, got C={C}, "
+                         f"H={H}")
+    if 2 * Np * 4 > _SMEM_LIMIT:
+        raise ValueError(f"attention_resident_fwd: Np={Np} cells exceed the "
+                         "softmax's shared memory")
+    kernels.expect("qh", qh, torch.float32, (B, H), dev)
+    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect("ws", ws, torch.float32, (H,), dev)
+    if wv.data_ptr() % 16:
+        raise ValueError("attention_resident_fwd reads wv in 16-byte "
+                         "vectors: it must start 16-byte aligned")
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty(H // _FWD_TILE_H, B * Np, **f32)
+    rnorm = torch.empty(B * Np, **f32)
+    v_att = torch.empty(B, C, **f32)
+    alpha = torch.empty(B, Np, **f32)
+    h = (torch.empty(B, Np, H, dtype=torch.bfloat16, device=dev)
+         if save_h else None)
+    lib = _fwd_lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_resident_fwd(
+            store.data_ptr(), rows.data_ptr(), wv.data_ptr(), qh.data_ptr(),
+            ws.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
+            h.data_ptr() if save_h else None, v_att.data_ptr(),
+            alpha.data_ptr(), B, Np, n_valid, C, H, int(normalize),
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_resident_fwd.launches += launched.value
+    kernels.check(lib, rc, "attention_resident_fwd")
+    return v_att, alpha, h
+
+
+attention_resident_fwd.launches = 0
+
+
+def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
+                           h: torch.Tensor, ws: torch.Tensor,
+                           alpha: torch.Tensor, g: torch.Tensor,
+                           sga: torch.Tensor, *, n_valid: int,
+                           normalize: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Launch kernel K5 on CUDA tensors: store [M, Np, C] bf16, rows [B]
+    int32, h [B, Np, H] bf16 (K4's residual), ws [H] f32, alpha and sga
+    [B, Np] f32, g [B, C] f32 -> (dqh [B, H], dwv [C, H], dws [H]), all
+    f32. Needs C % 128 == 0 and H % 128 == 0. One call makes the kernel's
+    three launches on the current stream and adds the number launched (3)
+    to ``attention_resident_bwd.launches``."""
+    M, Np, C, B = _check_store(store, rows, n_valid, "attention_resident_bwd")
+    H = h.shape[-1]
+    dev = store.device
+    if C % _BWD_TILE or H % _BWD_TILE:
+        raise ValueError(f"attention_resident_bwd needs C % {_BWD_TILE} == 0 "
+                         f"and H % {_BWD_TILE} == 0, got C={C}, H={H}")
+    if (C + 2 * Np) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"attention_resident_bwd: C={C} channels and "
+                         f"Np={Np} cells exceed its shared memory")
+    kernels.expect("h", h, torch.bfloat16, (B, Np, H), dev)
+    kernels.expect("ws", ws, torch.float32, (H,), dev)
+    kernels.expect("alpha", alpha, torch.float32, (B, Np), dev)
+    kernels.expect("g", g, torch.float32, (B, C), dev)
+    kernels.expect("sga", sga, torch.float32, (B, Np), dev)
+    K = B * n_valid
+    tiles = (C // _BWD_TILE) * (H // _BWD_TILE)
+    # Split the cells over enough blocks for two waves on the card, while
+    # every split keeps at least 8 k-steps.
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    splits = max(1, min(-(-2 * sms // tiles), K // (8 * _BWD_TILE_K)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
+    dws_part = torch.empty(B, H, **f32)
+    part = torch.empty(splits, C, H, **f32)
+    dqh = torch.empty(B, H, **f32)
+    dwv = torch.empty(C, H, **f32)
+    dws = torch.empty(H, **f32)
+    lib = _bwd_lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_resident_bwd(
+            store.data_ptr(), rows.data_ptr(), h.data_ptr(), ws.data_ptr(),
+            alpha.data_ptr(), g.data_ptr(), sga.data_ptr(), dzr.data_ptr(),
+            dws_part.data_ptr(), part.data_ptr(), dqh.data_ptr(),
+            dwv.data_ptr(), dws.data_ptr(), B, Np, n_valid, C, H,
+            int(normalize), splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_resident_bwd.launches += launched.value
+    kernels.check(lib, rc, "attention_resident_bwd")
+    return dqh, dwv, dws
+
+
+attention_resident_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The differentiable op
+# ---------------------------------------------------------------------------
+
+
+class _ResidentAttention(torch.autograd.Function):
+    """Forward K4 (saving h only when a gradient is wanted), backward K5.
+    The softmax backward's per-question scalar S = g . v_att + alpha . ga
+    is packed outside the kernel into sga = ga - S."""
+
+    @staticmethod
+    def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize):
+        dt = store.dtype
+        wv_c = wv.to(dt).contiguous()
+        ws_c = ws.to(dt).float().contiguous()
+        save_h = any(ctx.needs_input_grad[2:5])
+        fwd = (attention_resident_fwd if store.device.type == "cuda"
+               else attention_resident_fwd_reference)
+        v_att, alpha, h = fwd(store, rows, qh.float().contiguous(), wv_c,
+                              ws_c, n_valid=n_valid, normalize=normalize,
+                              save_h=save_h)
+        if save_h:
+            ctx.save_for_backward(store, rows, h, ws_c, alpha, v_att)
+        ctx.meta = (n_valid, normalize, qh.dtype, wv.dtype, ws.dtype)
+        return v_att, alpha
+
+    @staticmethod
+    def backward(ctx, g, ga):
+        store, rows, h, ws_c, alpha, v_att = ctx.saved_tensors
+        n_valid, normalize, qh_dt, wv_dt, ws_dt = ctx.meta
+        g = torch.zeros_like(v_att) if g is None else g.float()
+        ga = torch.zeros_like(alpha) if ga is None else ga.float()
+        s = (g * v_att).sum(-1) + (alpha * ga).sum(-1)
+        sga = (ga - s[:, None]).contiguous()
+        bwd = (attention_resident_bwd if store.device.type == "cuda"
+               else attention_resident_bwd_reference)
+        dqh, dwv, dws = bwd(store, rows, h, ws_c, alpha, g.contiguous(), sga,
+                            n_valid=n_valid, normalize=normalize)
+        return (None, None, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt),
+                None, None)
+
+
+def spatial_attention_resident(
+    store: torch.Tensor,  # [M, Np, C] resident feature store (padded)
+    rows: torch.Tensor,  # [B] int32 store row per question
+    qh: torch.Tensor,  # [B, H] projected question
+    wv: torch.Tensor,  # [C, H]
+    w_score: torch.Tensor,  # [H]
+    *,
+    n_valid: int,  # true cell count (<= Np; the rest is masked)
+    normalize: bool = False,
+    store_scale: float = 1.0,
+    mesh=None,
+    data_axis: Optional[str] = None,
+    store_sharded: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather-free attention: (v_att [B, C] f32, alpha [B, n_valid] f32),
+    differentiable in ``qh``, ``wv`` and ``w_score``. ``wv`` and
+    ``w_score`` are rounded to the store's dtype inside. A CUDA store runs
+    kernels K4/K5 (bf16 store), a CPU store their plain versions.
+
+    Not ported yet, each raising ``NotImplementedError``: an int8 store
+    with its ``store_scale`` (ROADMAP.md section 1 item 14), a 2-D
+    ``w_score`` of the G-glimpse variant (item 11), and ``mesh``/
+    ``data_axis``/``store_sharded`` (item 12)."""
+    if not store.is_floating_point() or store_scale != 1.0:
+        raise NotImplementedError(
+            "int8 stores are not ported yet (ROADMAP.md, section 1, item 14)")
+    if w_score.dim() != 1:
+        raise NotImplementedError(
+            "the G-glimpse resident attention is not ported yet (ROADMAP.md, "
+            "section 1, item 11)")
+    if mesh is not None or data_axis is not None or store_sharded:
+        raise NotImplementedError(
+            "multi-device resident attention is not ported yet (ROADMAP.md, "
+            "section 1, item 12)")
+    if store.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"spatial_attention_resident: no path for device "
+                         f"{store.device}")
+    v_att, alpha = _ResidentAttention.apply(
+        store, rows.to(torch.int32).contiguous(), qh, wv, w_score, n_valid,
+        normalize)
+    # The padded cells are sliced off outside the Function: their
+    # cotangent arrives as the zeros that match their zero alpha.
+    return v_att, alpha[:, :n_valid]

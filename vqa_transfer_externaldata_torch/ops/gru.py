@@ -12,9 +12,12 @@ run per step. Steps at or past a row's length carry the state through
 (prefix mask ``t < lens``), so the final state is each row's state at its
 true length.
 
-``gru_fused`` runs the recurrence: on a CUDA tensor it launches the
-hand-written kernel ``csrc/gru_fwd.cu`` (wrapper :func:`gru_fwd`), on a CPU
-tensor its plain version :func:`gru_reference`.
+``gru_fused`` runs the recurrence and is differentiable in ``gx_t``, ``uh``
+and ``bhn``: on a CUDA tensor its forward launches the hand-written kernel
+``csrc/gru_fwd.cu`` (K1, wrapper :func:`gru_fwd`) and its backward the BPTT
+kernel ``csrc/gru_bwd.cu`` (K3, wrapper :func:`gru_bwd`); on a CPU tensor
+their plain versions :func:`gru_reference` and :func:`gru_bwd_reference`.
+The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 """
 
 from __future__ import annotations
@@ -71,14 +74,37 @@ class GRUEncoder(nn.Module):
 def gru_fused(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
               bhn: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
     """Fused recurrence: gx_t [T, B, 3H] f32 (= x@Wx + b, time-major),
-    lens [B] int32, uh [H, 3H], bhn [H] f32 -> final state [B, H] f32.
-    A CUDA tensor runs the kernel (which takes bf16 ``uh``), a CPU tensor
-    the plain version."""
-    if gx_t.device.type == "cuda":
-        return gru_fwd(gx_t, lens, uh, bhn, reverse=reverse)[0]
-    if gx_t.device.type == "cpu":
-        return gru_reference(gx_t, lens, uh, bhn, reverse=reverse)[0]
-    raise ValueError(f"gru_fused: no path for device {gx_t.device}")
+    lens [B] int32, uh [H, 3H], bhn [H] f32 -> final state [B, H] f32,
+    differentiable in gx_t, uh and bhn. A CUDA tensor runs the kernels
+    (which take bf16 ``uh``), a CPU tensor the plain versions."""
+    if gx_t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"gru_fused: no path for device {gx_t.device}")
+    return _GRUFused.apply(gx_t.contiguous(), lens.to(torch.int32),
+                           uh.contiguous(), bhn.contiguous(), reverse)
+
+
+class _GRUFused(torch.autograd.Function):
+    """The recurrence with its BPTT as the backward (JAX's ``custom_vjp``
+    of ``gru_fused``): the residuals are the forward's inputs and the state
+    sequence ``hseq`` that K1 writes anyway."""
+
+    @staticmethod
+    def forward(ctx, gx_t, lens, uh, bhn, reverse):
+        fwd = gru_fwd if gx_t.device.type == "cuda" else gru_reference
+        hT, hseq = fwd(gx_t, lens, uh, bhn, reverse=reverse)
+        ctx.save_for_backward(gx_t, hseq, lens, uh, bhn)
+        ctx.reverse = reverse
+        return hT
+
+    @staticmethod
+    def backward(ctx, ghT):
+        gx_t, hseq, lens, uh, bhn = ctx.saved_tensors
+        bwd = gru_bwd if gx_t.device.type == "cuda" else gru_bwd_reference
+        dgx, duh, dbhn = bwd(gx_t, hseq, lens, uh, bhn,
+                             ghT.float().contiguous(), reverse=ctx.reverse)
+        # uh arrives in the compute dtype: its cotangent is rounded to it,
+        # as JAX's ``duh.astype(uh.dtype)``.
+        return dgx, None, duh.to(uh.dtype), dbhn.to(bhn.dtype), None
 
 
 def gru_reference(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
@@ -103,6 +129,55 @@ def gru_reference(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
         h = torch.where((t < lens)[:, None], h_new, h)
         hseq[t] = h
     return h, hseq
+
+
+def gru_bwd_reference(gx_t: torch.Tensor, hseq: torch.Tensor,
+                      lens: torch.Tensor, uh: torch.Tensor, bhn: torch.Tensor,
+                      ghT: torch.Tensor, *, reverse: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel K3, the BPTT of
+    :func:`gru_reference`, step by step as JAX's ``_gru_cell_bwd``:
+    -> (dgx_t [T, B, 3H], duh [H, 3H], dbhn [H]), all f32. The gates are
+    recomputed from gx_t and the pre-step state; h_prev and the gate
+    cotangents are rounded to ``uh.dtype`` ahead of their products, whose
+    sums run in f32."""
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dt = uh.dtype
+    uf = uh.float()
+    dh = ghT.float()
+    dgx = gx_t.new_empty(T, B, H3)
+    duh = gx_t.new_zeros(H, H3)
+    dbhn = gx_t.new_zeros(H)
+    zero = gx_t.new_zeros(B, H)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        first = t == (T - 1 if reverse else 0)
+        h_prev = zero if first else hseq[t + 1 if reverse else t - 1]
+        gx = gx_t[t]
+        gh = h_prev.to(dt).float() @ uf
+        ghn_b = gh[:, 2 * H:] + bhn
+        r = torch.sigmoid(gx[:, :H] + gh[:, :H])
+        z = torch.sigmoid(gx[:, H:2 * H] + gh[:, H:2 * H])
+        n = torch.tanh(gx[:, 2 * H:] + r * ghn_b)
+        m = (t < lens)[:, None].float()
+        dh_new = m * dh
+        dh_prev = (1.0 - m) * dh + dh_new * z
+        dz = dh_new * (h_prev - n)
+        dn = dh_new * (1.0 - z)
+        da_n = dn * (1.0 - n * n)
+        dgh_n = da_n * r
+        da_r = da_n * ghn_b * r * (1.0 - r)
+        da_z = dz * z * (1.0 - z)
+        dgx[t] = torch.cat([da_r, da_z, da_n], dim=1)
+        hp = h_prev.to(dt).float()
+        for g, (lo, hi) in zip((da_r, da_z, dgh_n),
+                               ((0, H), (H, 2 * H), (2 * H, H3))):
+            gq = g.to(dt).float()
+            dh_prev = dh_prev + gq @ uf[:, lo:hi].t()
+            duh[:, lo:hi] += hp.t() @ gq
+        dbhn += dgh_n.sum(0)
+        dh = dh_prev
+    return dgx, duh, dbhn
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,3 +225,62 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
 
 
 gru_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = kernels.load("gru_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gru_bwd.argtypes = [p] * 11 + [i, i, i, i, p, p]
+    lib.gru_bwd.restype = i
+    return lib
+
+
+def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
+            uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor, *,
+            reverse: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K3 (``csrc/gru_bwd.cu``) on CUDA tensors: gx_t
+    [T, B, 3H] f32, hseq [T, B, H] f32 (K1's residual), lens [B] int32,
+    uh [H, 3H] bf16, bhn [H] f32, ghT [B, H] f32 -> (dgx_t [T, B, 3H],
+    duh [H, 3H], dbhn [H]), all f32. Needs H % 64 == 0. One call launches
+    one step kernel per timestep, the dU_h GEMM and the db_hn sum on the
+    current stream and adds the number launched (T + 2) to
+    ``gru_bwd.launches``."""
+    if gx_t.device.type != "cuda" or gx_t.dim() != 3:
+        raise ValueError("gru_bwd takes a 3-D CUDA gx_t")
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
+        raise ValueError(f"gru_bwd needs T, B >= 1 and H % 64 == 0, got "
+                         f"gx_t of shape {tuple(gx_t.shape)}")
+    kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
+    kernels.expect("hseq", hseq, torch.float32, (T, B, H), dev)
+    kernels.expect("lens", lens, torch.int32, (B,), dev)
+    kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
+    kernels.expect("bhn", bhn, torch.float32, (H,), dev)
+    kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dhe = ghT.clone()  # the carried cotangent, overwritten step by step
+    g = torch.empty(T, B, 3 * H, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(T, -(-B // _TILE), H, **f32)
+    dgx = torch.empty(T, B, 3 * H, **f32)
+    duh = torch.empty(H, 3 * H, **f32)
+    dbhn = torch.empty(H, **f32)
+    lib = _bwd_lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.gru_bwd(gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
+                         uh.data_ptr(), bhn.data_ptr(), dhe.data_ptr(),
+                         dgx.data_ptr(), g.data_ptr(), part.data_ptr(),
+                         duh.data_ptr(), dbhn.data_ptr(), T, B, H,
+                         int(reverse),
+                         torch.cuda.current_stream(dev).cuda_stream,
+                         ctypes.addressof(launched))
+    gru_bwd.launches += launched.value
+    kernels.check(lib, rc, "gru_bwd")
+    return dgx, duh, dbhn
+
+
+gru_bwd.launches = 0

@@ -1,10 +1,15 @@
-"""The port's logger: ``log.info`` / ``log.warning`` / ``log.error`` on
-stderr, colored when ``colorlog`` is installed."""
+"""The port's logger (``log.info`` / ``log.warning`` / ``log.error`` on
+stderr, colored when ``colorlog`` is installed), a wall-clock timer, and the
+JSONL metric stream (``metrics.jsonl``) that training writes."""
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import sys
+import time
+from typing import Dict, Optional
 
 
 def _build_logger() -> logging.Logger:
@@ -33,3 +38,38 @@ def _build_logger() -> logging.Logger:
 
 
 log = _build_logger()
+
+
+class Timer:
+    """Wall-clock interval timer."""
+
+    def __init__(self) -> None:
+        self._start = time.perf_counter()
+
+    def reset(self) -> float:
+        """Return seconds since last reset/start and restart the clock."""
+        now = time.perf_counter()
+        out = now - self._start
+        self._start = now
+        return out
+
+
+class MetricWriter:
+    """Appends one JSON object per record to ``<train_dir>/metrics.jsonl``:
+    ``{"step": n, "<prefix>/<name>": value, ...}``, the JAX package's keys
+    (``train/loss``, ``train/questions_per_sec``, ...)."""
+
+    def __init__(self, train_dir: str) -> None:
+        os.makedirs(train_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(train_dir, "metrics.jsonl"), "a")
+
+    def write(self, step: int, metrics: Dict[str, float],
+              prefix: Optional[str] = None) -> None:
+        record = {"step": int(step)}
+        for k, v in metrics.items():
+            record[f"{prefix}/{k}" if prefix else k] = float(v)
+        self._jsonl.write(json.dumps(record) + "\n")
+        self._jsonl.flush()
+
+    def close(self) -> None:
+        self._jsonl.close()
