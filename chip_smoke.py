@@ -19,18 +19,34 @@ Run from the repository root. Phases (any failure exits non-zero):
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
    normalize on and off, K5 fed the same saved h;
-6. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
+6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
+   the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
+   K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs);
+7. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
    host-feature requests, a padded short request, and ids-only requests
    against a staged 256-image store; launch counts of K1 and K2 over that
    run; logits against the plain path on the card;
-7. full-width stage-2 training through ``Trainer.fit_resident`` at batch
+8. full-width stage-2 training through ``Trainer.fit_resident`` at batch
    256 on ``synthetic_vqa_joined`` (4096 questions over 512 images, a
    0.42 GB bf16 store): the first step's loss and gradients against the
    plain path on the card, launch counts of K1 and K3-K5 over the run,
    finite losses, median step time and questions/s, a profiler window
    over 5 more steps of ``fit_resident``, and the trained
    ``params_final.pt`` served by ``Predictor``;
-8. times: each kernel, its plain version and the PyTorch library call
+9. full-width stage-1 training of ``vlmap_description`` with the
+   bidirectional phrase encoder through ``Trainer.fit_resident`` at batch
+   256 on ``synthetic_vlmap_desc`` (4096 regions, 512 candidates): the
+   first step's loss and gradients against the plain path on the card,
+   launch counts of K6 and K7 (and none of K1/K3) over the run, finite
+   losses, median step time and regions/s and a profiler window over 5
+   more steps; then 10 steps with the dense candidate loss (finite
+   losses, first-step loss against the plain path, launch counts);
+10. the transfer: stage 1's ``params_final.pt`` through ``cli.train
+   --train.pretrained_param_path`` into full-width stage-2 training of
+   ``vqa_attention`` (1024 questions, 10 steps, the transferred tables
+   frozen): the word table arrives bit for bit and every answer row is
+   its word's row; finite losses; launch counts of K1 and K3-K5;
+11. times: each kernel, its plain version and the PyTorch library call
    where there is one (median of CUDA-event timings after warm-up, L2
    flushed between runs), and the bound from this run's shapes; K1 at
    the training batch and at the serving batch.
@@ -50,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -114,11 +131,17 @@ RUNS = 25
 B_TRAIN = 256
 TRAIN_QUESTIONS, TRAIN_IMAGES = 4096, 512
 WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 5, 25, 5
+# Stage 1: regions of synthetic_vlmap_desc (bench_all.py's size), steps of
+# the dense-loss run; the transfer's stage-2 run: questions and steps.
+STAGE1_REGIONS, DENSE_STEPS = 4096, 10
+TRANSFER_QUESTIONS, TRANSFER_STEPS = 1024, 10
 # Config overrides of the serving and training runs: none, the full width
 # of config.py. (A rehearsal on the CPU shrinks the shapes above and here.)
 MODEL_OVERRIDES: dict = {}
+STAGE1_MODEL = {"model.model": "vlmap_description",
+                "model.bidirectional_desc": True}
 KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
-           "attention_resident_bwd"]
+           "attention_resident_bwd", "bigru_fwd", "bigru_bwd"]
 
 
 class PhaseError(Exception):
@@ -166,7 +189,8 @@ def plain_kernels():
         attention, attention_resident as ar, gru)
 
     saved = (attention.attention_fwd, gru.gru_fwd, gru.gru_bwd,
-             ar.attention_resident_fwd, ar.attention_resident_bwd)
+             ar.attention_resident_fwd, ar.attention_resident_bwd,
+             gru.bigru_fwd, gru.bigru_bwd)
     attention.attention_fwd = (
         lambda v, qh, wv, ws, *, normalize:
         attention.attention_fwd_reference(v, qh, wv, ws, normalize))
@@ -174,11 +198,14 @@ def plain_kernels():
     gru.gru_bwd = gru.gru_bwd_reference
     ar.attention_resident_fwd = ar.attention_resident_fwd_reference
     ar.attention_resident_bwd = ar.attention_resident_bwd_reference
+    gru.bigru_fwd = gru.bigru_reference
+    gru.bigru_bwd = gru.bigru_bwd_reference
     try:
         yield
     finally:
         (attention.attention_fwd, gru.gru_fwd, gru.gru_bwd,
-         ar.attention_resident_fwd, ar.attention_resident_bwd) = saved
+         ar.attention_resident_fwd, ar.attention_resident_bwd,
+         gru.bigru_fwd, gru.bigru_bwd) = saved
 
 
 def launch_counters():
@@ -189,7 +216,8 @@ def launch_counters():
     return {"gru_fwd": gru.gru_fwd, "attention_fwd": attention.attention_fwd,
             "gru_bwd": gru.gru_bwd,
             "attention_resident_fwd": ar.attention_resident_fwd,
-            "attention_resident_bwd": ar.attention_resident_bwd}
+            "attention_resident_bwd": ar.attention_resident_bwd,
+            "bigru_fwd": gru.bigru_fwd, "bigru_bwd": gru.bigru_bwd}
 
 
 def reset_counts() -> None:
@@ -199,6 +227,15 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def check_launches(launches: dict, expected: dict, what: str) -> None:
+    """``expected`` lists the kernels that ``what`` must launch, with their
+    counts; every other kernel must not have launched."""
+    want = {name: expected.get(name, 0) for name in launches}
+    print(f"{what} launches: {launches}")
+    check(launches == want, f"{what}: expected launches {want}, got "
+          f"{launches}")
 
 
 def rel_err(got, want) -> float:
@@ -412,6 +449,73 @@ def phase_resident(report: dict, dev, gen) -> dict:
             "err5": max(c["max_abs_err"] for c in checks5)}
 
 
+def phase_bigru(report: dict, dev, gen) -> dict:
+    """K6 and K7 against their plain versions at the stage-1 shape, and
+    against K1 and K3 run once per direction on the same inputs: the same
+    step kernels with a direction axis, so the same bits."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    Bt = B_TRAIN
+    lens = torch.randint(1, T + 1, (Bt,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lens[0], lens[1] = T, 1  # the longest and the shortest phrase
+    lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
+    gx, uh, bhn, ghT = [], [], [], []
+    for _ in range(2):  # forward chain, then backward chain
+        gx.append(torch.randn(T, Bt, 3 * H, generator=gen, device=dev) * 0.5)
+        uh.append(((torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1)
+                   * lim).to(torch.bfloat16))
+        bhn.append(torch.randn(H, generator=gen, device=dev) * 0.1)
+        ghT.append(torch.randn(Bt, H, generator=gen, device=dev) * 0.05)
+    args = (gx[0], gx[1], lens, uh[0], uh[1], bhn[0], bhn[1])
+    got = gru.bigru_fwd(*args)
+    want = gru.bigru_reference(*args)
+    (hTf, hsf), (hTb, hsb) = (gru.gru_fwd(gx[0], lens, uh[0], bhn[0]),
+                              gru.gru_fwd(gx[1], lens, uh[1], bhn[1],
+                                          reverse=True))
+    torch.cuda.synchronize()
+    names6 = ("hTf", "hTb", "hseqf", "hseqb")
+    err6 = max((a - b).abs().max().item() for a, b in zip(got, want))
+    diff6 = max((a - b).abs().max().item()
+                for a, b in zip(got, (hTf, hTb, hsf, hsb)))
+    print(f"K6 bigru_fwd B={Bt}: max abs err {err6:.3e} (tol {TOL_GRU}) "
+          f"over {names6}; against two K1 calls {diff6:.3e} (must be 0)")
+    check(all(bool(torch.isfinite(a).all()) for a in got),
+          "K6 output not finite")
+    check(err6 <= TOL_GRU, f"K6 err {err6} > {TOL_GRU}")
+    check(diff6 == 0.0, f"K6 differs from two K1 calls by {diff6}")
+
+    # K7 and its plain version, both fed K6's state sequences.
+    hseqf, hseqb = got[2], got[3]
+    bargs = (gx[0], gx[1], hseqf, hseqb, lens, uh[0], uh[1], bhn[0], bhn[1],
+             ghT[0], ghT[1])
+    got7 = gru.bigru_bwd(*bargs)
+    want7 = gru.bigru_bwd_reference(*bargs)
+    one_f = gru.gru_bwd(gx[0], hseqf, lens, uh[0], bhn[0], ghT[0])
+    one_b = gru.gru_bwd(gx[1], hseqb, lens, uh[1], bhn[1], ghT[1],
+                        reverse=True)
+    torch.cuda.synchronize()
+    ones = (one_f[0], one_b[0], one_f[1], one_b[1], one_f[2], one_b[2])
+    checks, err7, diff7 = [], 0.0, 0.0
+    for name, a, b, c in zip(("dgxf", "dgxb", "duhf", "duhb", "dbhnf",
+                              "dbhnb"), got7, want7, ones):
+        e, rel = (a - b).abs().max().item(), rel_err(a, b)
+        d = (a - c).abs().max().item()
+        print(f"K7 bigru_bwd {name}: max abs err {e:.3e}, {rel:.3e} of "
+              f"max|{name}| (tol {TOL_K3_REL:.3e}); against K3 {d:.3e} "
+              "(must be 0)")
+        check(bool(torch.isfinite(a).all()), f"K7 {name} not finite")
+        check(rel <= TOL_K3_REL, f"K7 {name} relative err {rel} > "
+              f"{TOL_K3_REL}")
+        check(d == 0.0, f"K7 {name} differs from K3 by {d}")
+        checks.append({"output": name, "max_abs_err": e, "rel_err": rel,
+                       "rel_tol": TOL_K3_REL, "diff_vs_k3": d})
+        err7, diff7 = max(err7, e), max(diff7, d)
+    return {"args": args, "bargs": bargs, "err6": err6, "diff6": diff6,
+            "err7": err7, "diff7": diff7, "checks7": checks}
+
+
 def write_run(train_dir: str) -> None:
     """A synthetic full-width run: config.json + a seeded random init."""
     import torch
@@ -424,7 +528,7 @@ def write_run(train_dir: str) -> None:
         fh.write(cfg.to_json())
     gen = torch.Generator().manual_seed(123)
     save_params(os.path.join(train_dir, "params_final.pt"),
-                build_model(cfg, generator=gen).state_dict())
+                build_model(cfg, generator=gen).module.state_dict())
 
 
 def phase_serving(report: dict, dev) -> dict:
@@ -453,13 +557,10 @@ def phase_serving(report: dict, dev) -> dict:
     ans_short = pred.answer(feats[:short], questions[:short])
     ans_idx = pred.answer_indexed(idx, questions)
     launches = read_counts()
-    print(f"serving launches: {launches}")
     # Three forwards: K1 launches one step kernel per timestep, K2 two; the
     # training kernels do not run.
-    expected = {"gru_fwd": 3 * T, "attention_fwd": 3 * 2, "gru_bwd": 0,
-                "attention_resident_fwd": 0, "attention_resident_bwd": 0}
-    check(launches == expected,
-          f"expected launches {expected}, got {launches}")
+    check_launches(launches, {"gru_fwd": 3 * T, "attention_fwd": 3 * 2},
+                   "serving")
     check(len(ans_host) == B and len(ans_short) == short
           and len(ans_idx) == B, "wrong number of answers")
     check(ans_short == ans_host[:short], "padding changed the answers")
@@ -521,13 +622,79 @@ def phase_serving(report: dict, dev) -> dict:
     return launches
 
 
+def check_first_step(spec, state, batch, dev, what: str) -> dict:
+    """The first training step of ``spec``'s model on ``batch`` with the
+    kernels and with their plain versions on the card, under one dropout
+    mask: the loss to TOL_LOSS, each gradient to cosine GRAD_COS (a scalar
+    to TOL_SCALAR_REL relative)."""
+    import torch
+
+    names = list(state.params)
+
+    def loss_and_grads():
+        gen = torch.Generator(device=dev).manual_seed(7)
+        outs = spec.module(*spec.inputs(batch), train=True, generator=gen)
+        loss, _ = spec.loss(outs, batch)
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        return loss.item(), dict(zip(names, grads))
+
+    lk, gk = loss_and_grads()
+    with plain_kernels():
+        lp, gp = loss_and_grads()
+    grad_checks = {}
+    for k in names:
+        a, b = gk[k].flatten().float(), gp[k].flatten().float()
+        if a.numel() == 1:
+            rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).item()
+            grad_checks[k] = {"rel_err": rel}
+            check(rel <= TOL_SCALAR_REL, f"{what}: grad {k} rel err {rel}")
+        else:
+            cos = torch.nn.functional.cosine_similarity(a, b, 0).item()
+            grad_checks[k] = {"cos": cos}
+            check(cos >= GRAD_COS, f"{what}: grad {k} cosine {cos} < "
+                  f"{GRAD_COS}")
+    worst = min(v.get("cos", 1.0) for v in grad_checks.values())
+    print(f"{what} first step: loss {lk:.6f} (kernels) vs {lp:.6f} "
+          f"(plain), tol {TOL_LOSS}; lowest gradient cosine {worst:.6f} "
+          f"(bound {GRAD_COS})")
+    check(abs(lk - lp) <= TOL_LOSS, f"{what}: loss {lk} vs plain {lp}")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_tol": TOL_LOSS,
+            "grad_cos_bound": GRAD_COS, "grads": grad_checks}
+
+
+def read_steps(train_dir: str, steps: int, what: str, unit: str,
+               warmup: Optional[int] = None) -> dict:
+    """Losses (all finite) and step times of a run logged every step: each
+    record's rate spans the steps since the last one (one, or two at the
+    final drain), on the host clock between waits for the device to
+    finish each step. The median over the steps after ``warmup``."""
+    import numpy as np
+
+    warmup = WARMUP_STEPS if warmup is None else warmup
+    with open(os.path.join(train_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    losses = [r["train/loss"] for r in recs]
+    check(len(recs) == steps and all(np.isfinite(losses)),
+          f"{what}: {len(recs)} records, losses {losses}")
+    step_ms = [1e3 / r["train/steps_per_sec"] for r in recs
+               if r["step"] > warmup and "train/steps_per_sec" in r]
+    check(len(step_ms) >= (steps - warmup) * 4 // 5,
+          f"{what}: only {len(step_ms)} timed steps")
+    med = statistics.median(step_ms)
+    print(f"{what}: median step {med:.3f} ms over {len(step_ms)} steps = "
+          f"{B_TRAIN * 1e3 / med:.1f} {unit}/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    return {"losses": losses, "timed_steps": len(step_ms),
+            "step_ms_median": med, f"{unit}_per_sec": B_TRAIN * 1e3 / med,
+            "step_ms_all": step_ms}
+
+
 def phase_training(report: dict, dev) -> dict:
     """Stage-2 training at full width through Trainer.fit_resident."""
     import numpy as np
     import torch
     from vqa_transfer_externaldata_torch.config import Config
     from vqa_transfer_externaldata_torch.data.datasets import load_dataset
-    from vqa_transfer_externaldata_torch.models.vqa_attention import vqa_loss
     from vqa_transfer_externaldata_torch.models.zoo import build_model
     from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
     from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
@@ -547,9 +714,10 @@ def phase_training(report: dict, dev) -> dict:
         grid = ds.store.grid
         check(grid.shape == (TRAIN_IMAGES, N, C) and ds.size ==
               TRAIN_QUESTIONS, f"corpus {grid.shape}, {ds.size} questions")
-        model = build_model(cfg, generator=torch.Generator().manual_seed(
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
             cfg.train.seed))
-        trainer = Trainer(cfg, model, train_dir=tmp)  # default device: CUDA
+        model = spec.module
+        trainer = Trainer(cfg, spec, train_dir=tmp)  # default device: CUDA
         check(trainer.device.type == dev.type, f"Trainer on {trainer.device}")
         state = trainer.init_state()
         out["setup_s"] = time.perf_counter() - t0
@@ -559,39 +727,9 @@ def phase_training(report: dict, dev) -> dict:
         out["store_gb"] = data["grid_pad"].numel() * 2 / 1e9
         idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
         batch = make_batch(torch.from_numpy(idx0).to(dev))
-        names = list(state.params)
-
-        def loss_and_grads():
-            gen = torch.Generator(device=dev).manual_seed(7)
-            outs = model(batch["features"], batch["q_ids"], train=True,
-                         generator=gen)
-            loss, _ = vqa_loss(outs, batch)
-            grads = torch.autograd.grad(loss, [state.params[k] for k in names])
-            return loss.item(), dict(zip(names, grads))
-
-        lk, gk = loss_and_grads()
-        with plain_kernels():
-            lp, gp = loss_and_grads()
-        grad_checks = {}
-        for k in names:
-            a, b = gk[k].flatten().float(), gp[k].flatten().float()
-            if a.numel() == 1:
-                rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).item()
-                grad_checks[k] = {"rel_err": rel}
-                check(rel <= TOL_SCALAR_REL, f"grad {k} rel err {rel}")
-            else:
-                cos = torch.nn.functional.cosine_similarity(a, b, 0).item()
-                grad_checks[k] = {"cos": cos}
-                check(cos >= GRAD_COS, f"grad {k} cosine {cos} < {GRAD_COS}")
-        worst = min(v.get("cos", 1.0) for v in grad_checks.values())
-        print(f"first step: loss {lk:.6f} (kernels) vs {lp:.6f} (plain), "
-              f"tol {TOL_LOSS}; lowest gradient cosine {worst:.6f} (bound "
-              f"{GRAD_COS})")
-        check(abs(lk - lp) <= TOL_LOSS, f"loss {lk} vs plain {lp}")
-        out["first_step"] = {"loss_kernels": lk, "loss_plain": lp,
-                             "loss_tol": TOL_LOSS, "grad_cos_bound": GRAD_COS,
-                             "grads": grad_checks}
-        del data, make_batch, batch, gk, gp  # free this copy of the store
+        out["first_step"] = check_first_step(spec, state, batch, dev,
+                                             "stage 2")
+        del data, make_batch, batch  # free this copy of the store
 
         # --- the main path: counts from 0 --------------------------------
         reset_counts()
@@ -600,33 +738,16 @@ def phase_training(report: dict, dev) -> dict:
         torch.cuda.synchronize()
         out["fit_s"] = time.perf_counter() - t0
         launches = read_counts()
-        print(f"training launches over {steps} steps: {launches}")
         # A step: K1 one launch per timestep, K3 one per timestep plus the
-        # dU_h GEMM and the db_hn sum, K4 two, K5 three; no K2.
-        expected = {"gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
-                    "attention_resident_fwd": 2 * steps,
-                    "attention_resident_bwd": 3 * steps, "attention_fwd": 0}
-        check(launches == expected,
-              f"expected launches {expected}, got {launches}")
+        # dU_h GEMM and the db_hn sum, K4 two, K5 three.
+        check_launches(launches, {
+            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "attention_resident_fwd": 2 * steps,
+            "attention_resident_bwd": 3 * steps},
+            f"stage-2 training over {steps} steps")
         check(state.step == steps, f"trained {state.step} steps")
-        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
-            recs = [json.loads(line) for line in fh]
-        losses = [r["train/loss"] for r in recs]
-        check(len(recs) == steps and all(np.isfinite(losses)),
-              f"{len(recs)} records, losses {losses}")
-        # log_every 1: each record's rate spans the steps since the last
-        # one (one, or two at the final drain), on the host clock between
-        # waits for the device to finish each step.
-        step_ms = [1e3 / r["train/steps_per_sec"] for r in recs
-                   if r["step"] > WARMUP_STEPS and "train/steps_per_sec" in r]
-        check(len(step_ms) >= 20, f"only {len(step_ms)} timed steps")
-        med = statistics.median(step_ms)
-        out.update(launches=launches, losses=losses, timed_steps=len(step_ms),
-                   step_ms_median=med, questions_per_sec=B_TRAIN * 1e3 / med,
-                   step_ms_all=step_ms)
-        print(f"training: median step {med:.3f} ms over {len(step_ms)} steps "
-              f"= {B_TRAIN * 1e3 / med:.1f} questions/s; loss "
-              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        out.update(launches=launches,
+                   **read_steps(tmp, steps, "stage-2 training", "questions"))
 
         # --- a profiler window of PROFILE_STEPS more steps ---------------
         state, out["profile"] = profile_fit(trainer, ds, state,
@@ -658,6 +779,143 @@ def phase_training(report: dict, dev) -> dict:
         check(bool(torch.isfinite(served).all()) and e == 0.0,
               f"served logits differ from the trained model's by {e}")
         trainer.close()
+    return out
+
+
+def stage1_config(train_dir: str, steps: int, dense: bool = False):
+    from vqa_transfer_externaldata_torch.config import Config
+
+    return Config().replace_flat({
+        **STAGE1_MODEL, "model.dense_candidate_loss": dense,
+        "data.synthetic": True, "data.synthetic_size": STAGE1_REGIONS,
+        "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+        "train.max_steps": steps, "train.log_every": 1,
+        "train.train_dir": train_dir, **MODEL_OVERRIDES})
+
+
+def phase_stage1(report: dict, dev, root: str) -> dict:
+    """Stage-1 training of vlmap_description (bidirectional encoder, K6/K7)
+    at full width through Trainer.fit_resident, then with the dense
+    candidate loss. The first run's parameters are saved under ``root`` for
+    the transfer phase."""
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
+    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    for tag, dense, n_steps in (("gathered", False, steps),
+                                ("dense", True, DENSE_STEPS)):
+        run_dir = os.path.join(root, tag)
+        cfg = stage1_config(run_dir, n_steps, dense)
+        t0 = time.perf_counter()
+        ds = load_dataset(cfg, "train", stage="vlmap_desc")
+        out[f"data_s_{tag}"] = time.perf_counter() - t0
+        check(ds.size == STAGE1_REGIONS and
+              ds.arrays["candidates"].shape[1] == cfg.model.num_candidates,
+              f"stage-1 corpus: {ds.size} regions")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=run_dir)  # default: CUDA
+        check(trainer.device.type == dev.type, f"Trainer on {trainer.device}")
+        state = trainer.init_state()
+        data, make_batch, nbytes = trainer._prepare_resident(ds)
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        run = {"uploaded_gb": nbytes / 1e9, "first_step": check_first_step(
+            spec, state, batch, dev, f"stage 1 ({tag})")}
+        del data, make_batch, batch
+
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        run["fit_s"] = time.perf_counter() - t0
+        launches = read_counts()
+        # K6: one launch a timestep for both chains; K7: one a timestep
+        # plus the dU_h GEMM and the db_hn sum.
+        check_launches(launches, {"bigru_fwd": T * n_steps,
+                                  "bigru_bwd": (T + 2) * n_steps},
+                       f"stage-1 training ({tag}) over {n_steps} steps")
+        check(state.step == n_steps, f"stage 1 ({tag}): {state.step} steps")
+        run["launches"] = launches
+        run.update(read_steps(run_dir, n_steps, f"stage-1 training ({tag})",
+                              "regions", warmup=2 if dense else None))
+        if not dense:
+            state, run["profile"] = profile_fit(trainer, ds, state,
+                                                PROFILE_STEPS)
+            out["params_path"] = os.path.join(run_dir, PARAMS_FILE)
+            save_params(out["params_path"], spec.module.state_dict())
+        trainer.close()
+        out[tag] = run
+    return out
+
+
+def phase_transfer(report: dict, dev, stage1_params: str) -> dict:
+    """Stage 1's parameters through ``cli.train --train.pretrained_param_path``
+    into full-width stage-2 training, the transferred tables frozen so that
+    the run's final parameters show what arrived."""
+    import torch
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import synthetic_vocabs
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
+    from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
+    from vqa_transfer_externaldata_torch.utils.vocab import tokenize
+
+    steps = TRANSFER_STEPS
+    flags = {"data.synthetic": True, "data.synthetic_layout": "joined",
+             "data.synthetic_size": TRANSFER_QUESTIONS,
+             "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+             "train.max_steps": steps, "train.log_every": 1,
+             "train.freeze_params": "word_emb,answer_embedding",
+             "train.pretrained_param_path": stage1_params, **MODEL_OVERRIDES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_transfer_") as tmp:
+        argv = ["--train.train_dir", tmp]
+        for k, v in flags.items():
+            argv += [f"--{k}", str(v).lower() if isinstance(v, bool)
+                     else str(v)]
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        train_dir = train_cli.main(argv)  # default device: CUDA
+        torch.cuda.synchronize()
+        out = {"cli_s": time.perf_counter() - t0}
+        launches = read_counts()
+        check_launches(launches, {
+            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "attention_resident_fwd": 2 * steps,
+            "attention_resident_bwd": 3 * steps},
+            f"stage-2 training after the transfer over {steps} steps")
+        out["launches"] = launches
+        out.update(read_steps(train_dir, steps, "stage-2 training after the "
+                              "transfer", "questions", warmup=2))
+        s1 = load_params(stage1_params)
+        s2 = load_params(os.path.join(train_dir, PARAMS_FILE))
+    words, ans = s1["word_emb.embedding"], s2["answer_embedding"]
+    check(torch.equal(s2["word_emb.embedding"], words),
+          "the word table did not arrive bit for bit")
+    cfg = Config().replace_flat(flags)
+    wv, av = synthetic_vocabs(cfg)
+    seeded = 0
+    for a, answer in enumerate(av.tokens):
+        ids = [wv.token_to_id[t] for t in tokenize(answer)
+               if t in wv.token_to_id]
+        if ids:
+            row = words[ids].mean(dim=0)
+            check(torch.equal(ans[a], row),
+                  f"answer row {a} ({answer!r}) is not its words' mean")
+            seeded += 1
+    print(f"transfer: word table {tuple(words.shape)} arrived bit for bit; "
+          f"{seeded} of {len(av)} answer rows equal their words' mean (the "
+          f"rest are specials with no word)")
+    check(seeded >= len(av) - 4, f"only {seeded} answer rows seeded")
+    out.update(word_table_exact=True, answer_rows_seeded=seeded,
+               answer_rows=len(av))
     return out
 
 
@@ -745,7 +1003,7 @@ def profile_fit(trainer, ds, state, steps: int) -> tuple:
 
 
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
-                dev) -> dict:
+                k67: dict, dev) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.ops import (
         attention, attention_resident as ar, gru)
@@ -873,9 +1131,57 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     k5_flops = 2 * Bt * nv * C * H + 2 * Bt * nv * C + 4 * Bt * nv * H
     times["attention_resident_fwd"]["bound"] = bound(k4_bytes, k4_flops)
     times["attention_resident_bwd"]["bound"] = bound(k5_bytes, k5_flops)
+
+    # K6/K7 at the stage-1 shape. Library yardstick: cuDNN's bidirectional
+    # GRU over the same packed lengths, forward, and the backward with the
+    # input projection's gradients, which the kernels leave to the caller.
+    args, bargs = k67["args"], k67["bargs"]
+    lens6 = args[2]
+    lib6 = torch.nn.GRU(D, H, bidirectional=True).to(dev, torch.bfloat16)
+    lib6.flatten_parameters()
+    x6 = torch.randn(T, B_TRAIN, D, device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    packed6 = torch.nn.utils.rnn.pack_padded_sequence(
+        x6, lens6.cpu(), enforce_sorted=False)
+    with torch.inference_mode():
+        lib6_ms = time_cuda(lambda: lib6(packed6), buf)
+    _, h6 = lib6(packed6)
+    wrt6 = [x6, *lib6.parameters()]
+    g6 = torch.randn_like(h6)
+    times["bigru_fwd"] = {
+        "kernel": time_cuda(lambda: gru.bigru_fwd(*args), buf),
+        "plain": time_cuda(lambda: gru.bigru_reference(*args), buf),
+        "library": lib6_ms,
+        "library_call": f"torch.nn.GRU({D}, {H}, bidirectional=True) in "
+                        "bfloat16 over a packed sequence, input projection "
+                        "included",
+    }
+    times["bigru_bwd"] = {
+        "kernel": time_cuda(lambda: gru.bigru_bwd(*bargs), buf),
+        "plain": time_cuda(lambda: gru.bigru_bwd_reference(*bargs), buf),
+        "library": time_cuda(lambda: torch.autograd.grad(
+            h6, wrt6, g6, retain_graph=True), buf),
+        "library_call": f"backward of torch.nn.GRU({D}, {H}, "
+                        "bidirectional=True) in bfloat16 over a packed "
+                        "sequence, input-projection gradients included",
+    }
+    # Both chains: each reads its live rows of gx and U_h, b_hn once and
+    # writes its hseq and hT (K6), or reads gx and hseq over its live rows
+    # and writes dgx, dU_h and db_hn (K7); lens is read once. Operations as
+    # K1's and K3's for each direction.
+    Bt, nl6 = B_TRAIN, int(lens6.sum().item())
+    k6_bytes = Bt * 4 + 2 * (nl6 * 3 * H * 4 + H * 3 * H * 2 + H * 4
+                             + T * Bt * H * 4 + Bt * H * 4)
+    k7_bytes = Bt * 4 + 2 * (nl6 * 4 * H * 4 + H * 3 * H * 2 + H * 4
+                             + Bt * H * 4 + T * Bt * 3 * H * 4
+                             + H * 3 * H * 4 + H * 4)
+    times["bigru_fwd"]["bound"] = bound(k6_bytes, 2 * 2 * nl6 * H * 3 * H)
+    times["bigru_bwd"]["bound"] = bound(k7_bytes,
+                                        2 * 3 * 2 * nl6 * H * 3 * H)
     report["bound_inputs"] = {"k1_live_steps": nlen,
                               "k1_live_steps_serving": nlen_serving,
-                              "k3_live_steps": nl3, "k45_unique_rows": uniq}
+                              "k3_live_steps": nl3, "k45_unique_rows": uniq,
+                              "k67_live_steps_per_direction": nl6}
     for name, t in [*times.items(), ("gru_fwd at the serving batch",
                                      k1_serving)]:
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
@@ -937,19 +1243,26 @@ def main(argv=None) -> int:
         k2 = phase_attention(report, dev, gen)
         k3 = phase_gru_bwd(report, dev, gen)
         k45 = phase_resident(report, dev, gen)
+        k67 = phase_bigru(report, dev, gen)
         serving = phase_serving(report, dev)
         report["training"] = training = phase_training(report, dev)
-        times = phase_times(report, k1, k2, k3, k45, dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_stage1_") as root:
+            report["stage1"] = stage1 = phase_stage1(report, dev, root)
+            report["transfer"] = transfer = phase_transfer(
+                report, dev, stage1["params_path"])
+        times = phase_times(report, k1, k2, k3, k45, k67, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    # max_abs_err: the largest error of the kernel's outputs; each kernel
-    # also lists its checks beside their limits. launches: the count of the
-    # path that runs the kernel (training for K1, K3-K5; serving for K2),
-    # and both paths' counts under launches_by_path. K1's times are at the
-    # training batch, and at the serving batch under at_serving_batch.
+    # max_abs_err: the largest error of the kernel's outputs against its
+    # plain version; each kernel also lists its checks beside their limits.
+    # launches: the count of the path that runs the kernel (stage-2
+    # training for K1, K3-K5; serving for K2; stage-1 training for K6 and
+    # K7), and every path's count under launches_by_path. K1's times
+    # are at the training batch, and at the serving batch under
+    # at_serving_batch.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -972,12 +1285,22 @@ def main(argv=None) -> int:
                                    k45["err4"], {"checks": k45["checks4"]}),
         "attention_resident_bwd": (ref + "attention_resident.py:208",
                                    k45["err5"], {"checks": k45["checks5"]}),
+        "bigru_fwd": (ref + "gru.py:474", k67["err6"], {
+            "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"]}),
+        "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
+            "checks": k67["checks7"],
+            "diff_vs_two_k3_calls": k67["diff7"]}),
     }
-    paths = {"serving": serving, "training": training["launches"]}
+    paths = {"serving": serving, "training": training["launches"],
+             "stage1": stage1["gathered"]["launches"],
+             "stage1_dense": stage1["dense"]["launches"],
+             "transfer": transfer["launches"]}
+    main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
+                 "bigru_bwd": "stage1"}
     kernels = []
     for name, (replaces, err, errs) in meta.items():
         t = times[name]
-        path = "serving" if name == "attention_fwd" else "training"
+        path = main_path.get(name, "training")
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": replaces, "launches": paths[path][name],
@@ -988,7 +1311,8 @@ def main(argv=None) -> int:
         })
     report["kernels"] = kernels
     report["library_calls"] = {k: times[k]["library_call"]
-                               for k in ("gru_fwd", "gru_bwd")}
+                               for k in ("gru_fwd", "gru_bwd", "bigru_fwd",
+                                         "bigru_bwd")}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

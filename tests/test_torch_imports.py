@@ -60,7 +60,7 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("name", ["ops.kernels", "ops.gru", "ops.attention",
                                   "ops.attention_resident",
-                                  "parallel.trainer"])
+                                  "parallel.trainer", "models.vlmap"])
 def test_importing_kernel_modules_builds_nothing(name):
     """Kernels are built on first launch only: importing the modules (as
     every CPU test does) must not look for nvcc or write a library."""

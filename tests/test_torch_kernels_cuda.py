@@ -1,6 +1,6 @@
 """Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
-(attention_resident_fwd) and K5 (attention_resident_bwd) on the card
-against their plain PyTorch versions. They need an NVIDIA GPU with nvcc
+(attention_resident_fwd), K5 (attention_resident_bwd), K6 (bigru_fwd) and
+K7 (bigru_bwd) on the card against their plain PyTorch versions. They need an NVIDIA GPU with nvcc
 (the kernels have no CPU mode) and skip without one; on a GPU machine run
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -12,7 +12,9 @@ normalize mode (a bf16 weight p*r that rounds the other way moves its term
 by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
 (bf16 activations between layers). K3-K5 are held relative to the largest
 value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
-saved h 2^-7, K5 2^-9.
+saved h 2^-7, K5 2^-9. K6 and K7 run K1's and K3's step kernels with a
+direction axis: h as K1's, K7 as K3's, and each equals two K1 (K3) calls
+on the same inputs bit for bit.
 """
 
 import pytest
@@ -246,3 +248,96 @@ def test_resident_op_grads_go_through_k4_k5(dev):
         cos = torch.nn.functional.cosine_similarity(
             a.grad.flatten().cpu(), b.grad.flatten(), dim=0).item()
         assert cos >= 0.999, cos
+
+
+def _bigru_inputs(dev, T, B, H, seed=7):
+    gxf, lens, uhf, bhnf = _gru_inputs(dev, T, B, H, seed)
+    gxb, _, uhb, bhnb = _gru_inputs(dev, T, B, H, seed + 1)
+    lens[0], lens[1] = T, 1  # the longest and the shortest question
+    return gxf, gxb, lens, uhf, uhb, bhnf, bhnb
+
+
+@pytest.mark.parametrize("shape", [(7, 20, 64), (26, 256, 512)])
+def test_bigru_fwd_bwd_match_plain_and_one_direction_kernels(dev, shape):
+    T, B, H = shape
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, T, B, H)
+    before = gru.bigru_fwd.launches
+    got = gru.bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    want = gru.bigru_reference(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    (hTf, hseqf), (hTb, hseqb) = (gru.gru_fwd(gxf, lens, uhf, bhnf),
+                                  gru.gru_fwd(gxb, lens, uhb, bhnb,
+                                              reverse=True))
+    torch.cuda.synchronize()
+    assert gru.bigru_fwd.launches == before + T  # one per step, both chains
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-3
+    for a, b in zip(got, (hTf, hTb, hseqf, hseqb)):
+        assert torch.equal(a, b)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    ghTf = torch.randn(B, H, generator=g, device=dev)
+    ghTb = torch.randn(B, H, generator=g, device=dev)
+    hsf, hsb = got[2], got[3]
+    before = gru.bigru_bwd.launches
+    got = gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb,
+                        ghTf, ghTb)
+    want = gru.bigru_bwd_reference(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf,
+                                   bhnb, ghTf, ghTb)
+    one_f = gru.gru_bwd(gxf, hsf, lens, uhf, bhnf, ghTf)
+    one_b = gru.gru_bwd(gxb, hsb, lens, uhb, bhnb, ghTb, reverse=True)
+    torch.cuda.synchronize()
+    assert gru.bigru_bwd.launches == before + T + 2
+    names = ("dgxf", "dgxb", "duhf", "duhb", "dbhnf", "dbhnb")
+    ones = (one_f[0], one_b[0], one_f[1], one_b[1], one_f[2], one_b[2])
+    for name, a, b, c in zip(names, got, want, ones):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= TOL_K3, (name, _rel_err(a, b))
+        assert torch.equal(a, c), name
+
+
+def test_bigru_wrappers_reject_what_the_kernels_do_not_take(dev):
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 3, 4, 32)
+    with pytest.raises(TypeError, match="uhb"):
+        gru.bigru_fwd(gxf, gxb, lens, uhf, uhb.float(), bhnf, bhnb)
+    with pytest.raises(ValueError, match="gxb"):
+        gru.bigru_fwd(gxf, gxb[:2], lens, uhf, uhb, bhnf, bhnb)
+    _, _, hsf, hsb = gru.bigru_reference(gxf, gxb, lens, uhf, uhb, bhnf,
+                                         bhnb)
+    ghT = torch.zeros(4, 32, device=dev)
+    with pytest.raises(ValueError, match="H % 64"):
+        gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghT,
+                      ghT)
+
+
+def test_fused_bigru_encoder_goes_through_k6_k7(dev):
+    """The BiGRU encoder on the card launches K6 forward and K7 backward
+    and no K1/K3, and its output and gradients agree with the
+    per-direction encoders (K1/K3) on the same weights."""
+    g = torch.Generator().manual_seed(9)
+    enc = gru.BiGRUEncoder(32, 64, generator=g).to(dev)
+    x = torch.randn(6, 10, 32, generator=g).to(dev)
+    mask = (torch.arange(6)[None, :] <
+            torch.tensor([6, 1, 3, 0, 5, 2, 6, 4, 1, 3])[:, None]).float()
+    mask = mask.to(dev)
+
+    def two_encoders(x, mask):
+        return torch.cat([enc.fwd(x, mask), enc.bwd(x, mask)], dim=-1)
+
+    res = []
+    for fn, want in ((enc, [6, 8, 0, 0]), (two_encoders, [0, 0, 12, 16])):
+        enc.zero_grad()
+        counts = [getattr(gru, n).launches for n in
+                  ("bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")]
+        out = fn(x, mask)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        delta = [getattr(gru, n).launches - c for n, c in zip(
+            ("bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd"), counts)]
+        assert delta == want
+        res.append((out.float(), {k: p.grad.clone()
+                                  for k, p in enc.named_parameters()}))
+    assert (res[0][0] - res[1][0]).abs().max().item() <= 2e-2
+    for k, a in res[0][1].items():
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), res[1][1][k].flatten(), dim=0).item()
+        assert cos >= 0.999, (k, cos)

@@ -105,3 +105,52 @@ def test_bridge_loads_strictly_into_the_port_model():
     sd = params_from_flax(_jax_vqa_tree())
     model.load_state_dict(sd)  # strict: same keys, same shapes
     assert set(model.state_dict()) == set(sd)
+
+
+@pytest.mark.parametrize("shape,axis", [((4, 5, 3), 1), ((4, 5), 1),
+                                        ((3, 6, 2), 0)])
+def test_masked_mean_matches_flax(shape, axis):
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=shape).astype(np.float32)
+    mask = rng.integers(0, 2, size=shape[:2]).astype(np.float32)
+    mask[1] = 0.0  # an all-false row (axis 1) / a zero slice (axis 0)
+    want = np.asarray(jl.masked_mean(jnp.asarray(x), jnp.asarray(mask),
+                                     axis=axis))
+    got = tl.masked_mean(torch.from_numpy(x), torch.from_numpy(mask),
+                         dim=axis).numpy()
+    np.testing.assert_allclose(got, want, **F32)
+
+
+@pytest.mark.parametrize("features", [[7, 4], [9, 7, 4]])
+def test_mlp_matches_flax(features):
+    """fc0, fc1, ... with ReLU between and nothing after the last; dropout
+    off at eval."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(5, 6)).astype(np.float32)
+    mod = jl.MLP(features, dropout=0.5, dtype=jnp.float32)
+    tree = jax.device_get(mod.init(jax.random.PRNGKey(0),
+                                   jnp.asarray(x))["params"])
+    tree = jax.tree_util.tree_map(
+        lambda a: rng.normal(size=np.shape(a)).astype(np.float32), tree)
+    want = np.asarray(mod.apply({"params": tree}, jnp.asarray(x)))
+    mlp = tl.MLP(6, features, dropout=0.5, dtype=torch.float32)
+    mlp.load_state_dict(params_from_flax(tree))
+    got = mlp(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (got < 0).any()  # no ReLU after the last layer
+
+
+def test_mlp_dropout_keeps_and_scales_from_the_generator():
+    """Training draws the mask from the generator: kept hidden units are
+    scaled by 1 / (1 - rate), dropped ones are 0, and the same seed draws
+    the same mask."""
+    mlp = tl.MLP(6, [64, 3], dropout=0.25, dtype=torch.float32,
+                 generator=torch.Generator().manual_seed(0))
+    x = torch.randn(8, 6, generator=torch.Generator().manual_seed(1))
+    hidden = torch.relu(mlp.fc0(x))
+    drop = tl.dropout(hidden, 0.25, torch.Generator().manual_seed(2))
+    kept = drop != 0
+    torch.testing.assert_close(drop[kept], hidden[kept] / 0.75)
+    assert 0.5 < kept[hidden > 0].float().mean().item() < 0.95
+    a = mlp(x, train=True, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(a, mlp.fc1(drop))

@@ -87,8 +87,10 @@ def test_build_model_full_width_defaults():
     """The registry builds vqa_attention at the config's full width, with
     f32 parameters and bf16 compute, from an explicit generator."""
     cfg = Config()
-    a = build_model(cfg, generator=torch.Generator().manual_seed(7))
-    b = build_model(cfg, generator=torch.Generator().manual_seed(7))
+    spec = build_model(cfg, generator=torch.Generator().manual_seed(7))
+    assert spec.stage == "vqa"
+    a = spec.module
+    b = build_model(cfg, generator=torch.Generator().manual_seed(7)).module
     sd = a.state_dict()
     assert sd["att_wv"].shape == (2048, 512)
     assert sd["gru.uh"].shape == (512, 1536)
@@ -102,7 +104,7 @@ def test_build_model_full_width_defaults():
 @pytest.mark.parametrize("overrides,item", [
     ({"model.model": "vqa_attention2"}, "item 11"),
     ({"model.glimpses": 2}, "item 11"),
-    ({"model.model": "vlmap"}, "item 10"),
+    ({"model.model": "vqa_baseline"}, "item 11"),
     ({"model.model": "vqa_end2end"}, "item 13"),
     ({"model.fidelity_mode": True}, "item 14"),
 ])

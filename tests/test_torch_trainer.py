@@ -91,13 +91,13 @@ def test_segment_restaging_keeps_the_index_stream(tmp_path, monkeypatch):
     runs = []
     for seg in (2048, 2):
         monkeypatch.setattr(Trainer, "resident_segment_steps", seg)
-        model = build_model(cfg, generator=torch.Generator().manual_seed(0))
-        tr = Trainer(cfg, model, train_dir=str(tmp_path / str(seg)),
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(0))
+        tr = Trainer(cfg, spec, train_dir=str(tmp_path / str(seg)),
                      device="cpu")
         tr.fit_resident(tds.load_dataset(cfg, "train"), tr.init_state(),
                         max_steps=5)
         tr.close()
-        runs.append(model.state_dict())
+        runs.append(spec.module.state_dict())
     for k in runs[0]:
         torch.testing.assert_close(runs[1][k], runs[0][k], rtol=0, atol=0)
 
@@ -167,7 +167,7 @@ def test_unported_trainer_options_name_their_roadmap_item(over, item,
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"train.pretrained_param_path": "x"}, "item 8"),
+    ({"data.input_pipeline": "grain"}, "item 14"),
     ({"train.device_data_cache": False}, "item 9"),
     ({"data.synthetic_layout": "flat"}, "item 9"),
     ({"data.synthetic": False}, "item 14"),

@@ -1,5 +1,5 @@
-"""Shared CLI assembly: config -> vocabs -> init matrices -> model, and the
-run directory's name."""
+"""Shared CLI assembly: config -> vocabs -> init matrices -> model spec, and
+the run directory's name."""
 
 from __future__ import annotations
 
@@ -11,9 +11,7 @@ import torch
 
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import synthetic_vocabs
-from vqa_transfer_externaldata_torch.models.vqa_attention import (
-    VQAAttentionModel)
-from vqa_transfer_externaldata_torch.models.zoo import build_model
+from vqa_transfer_externaldata_torch.models.zoo import ModelSpec, build_model
 from vqa_transfer_externaldata_torch.utils.logging import log
 from vqa_transfer_externaldata_torch.utils.vocab import (
     Vocab, glove_matrix, load_glove_txt, load_matrix)
@@ -50,19 +48,19 @@ def load_word_init(cfg: Config,
 
 
 def build_spec(cfg: Config, generator: Optional[torch.Generator] = None
-               ) -> Tuple[VQAAttentionModel, Optional[Vocab],
-                          Optional[Vocab]]:
-    """(model, word_vocab, answer_vocab) of the configured run, the model
+               ) -> Tuple[ModelSpec, Optional[Vocab], Optional[Vocab]]:
+    """(spec, word_vocab, answer_vocab) of the configured run, the model
     initialized from ``generator``."""
     word_vocab, answer_vocab = load_vocabs(cfg)
     word_init = load_word_init(cfg, word_vocab)
-    model = build_model(cfg, word_init=word_init, generator=generator)
-    return model, word_vocab, answer_vocab
+    spec = build_model(cfg, word_init=word_init, generator=generator)
+    return spec, word_vocab, answer_vocab
 
 
 def resolve_train_dir(cfg: Config, stage: str) -> str:
     """``train.train_dir``, or a run directory inside it named after the
-    hyperparameters when it is the default ``train_dir``."""
+    stage (``ModelSpec.stage``) and the hyperparameters when it is the
+    default ``train_dir``."""
     base = cfg.train.train_dir
     if os.path.basename(base.rstrip("/")) in ("train_dir", ""):
         return os.path.join(base, cfg.run_name(stage))

@@ -1,16 +1,24 @@
-"""Training CLI of the port: stage-2 ``vqa_attention`` on the device-resident
-synthetic corpus.
+"""Training CLI of the port, for both stages (dispatched by
+``--model.model``), on the device-resident synthetic corpora:
 
+    # stage 1 (visual-word pretraining)
+    python -m vqa_transfer_externaldata_torch.cli.train \
+        --model.model vlmap_description --model.bidirectional_desc true \
+        --data.synthetic true --train.device_data_cache true \
+        --train.train_dir runs/vlmap
+    # stage 2 (VQA), transfer-initialized from stage 1's parameters
     python -m vqa_transfer_externaldata_torch.cli.train \
         --data.synthetic true --data.synthetic_layout joined \
-        --train.device_data_cache true --train.train_dir runs/vqa
+        --train.device_data_cache true --train.train_dir runs/vqa \
+        --train.pretrained_param_path runs/vlmap/params_final.pt
 
-Writes ``config.json``, ``metrics.jsonl`` and ``params_final.pt`` (served by
-``serving.Predictor``) into the run directory and returns its path. Runs on
-CUDA unless ``--device cpu``. Not ported yet, each raising
-``NotImplementedError`` with its ROADMAP item: transfer init from stage-1
-parameters (item 8), the grain input pipeline (item 14) and streamed
-(not device-resident) training (item 9).
+Writes ``config.json``, ``metrics.jsonl`` and ``params_final.pt`` (served
+by ``serving.Predictor`` for a stage-2 run) into the run directory and
+returns its path. Runs on CUDA unless ``--device cpu``. Not ported yet,
+each raising ``NotImplementedError`` with its ROADMAP item: the grain input
+pipeline (item 14) and streamed (not device-resident) training (item 9).
+Periodic checkpoints and resume (item 8) are not written: the run saves its
+final parameters only.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import load_dataset
 from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
-from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+from vqa_transfer_externaldata_torch.utils.checkpoint import (
+    load_params, save_params, transfer_init)
 from vqa_transfer_externaldata_torch.utils.logging import log
 
 
@@ -41,8 +50,6 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     cfg = Config.from_args(rest)
     t = cfg.train
     for on, what, item in (
-            (bool(t.pretrained_param_path),
-             "transfer init (--train.pretrained_param_path)", "item 8"),
             (cfg.data.input_pipeline == "grain", "the grain input pipeline",
              "item 14"),
             (not t.device_data_cache,
@@ -51,19 +58,33 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP.md, section 1, {item})")
-    model, _, _ = build_spec(
+    spec, word_vocab, answer_vocab = build_spec(
         cfg, generator=torch.Generator().manual_seed(t.seed))
-    train_dir = resolve_train_dir(cfg, "vqa")
-    trainer = Trainer(cfg, model, train_dir=train_dir, device=args.device)
+    if t.pretrained_param_path and spec.stage != "vqa":
+        raise ValueError("--train.pretrained_param_path only applies to "
+                         "stage-2 (vqa) models")
+    train_dir = resolve_train_dir(cfg, spec.stage)
+    trainer = Trainer(cfg, spec, train_dir=train_dir, device=args.device)
     log.info("train_dir: %s  device: %s", train_dir, trainer.device)
     os.makedirs(train_dir, exist_ok=True)
     with open(os.path.join(train_dir, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
-    train_ds = load_dataset(cfg, "train")
-    state = trainer.init_state()
+    train_ds = load_dataset(cfg, "train", stage=spec.stage)
+    params = None
+    if t.pretrained_param_path:
+        # Cross-stage transfer: stage 1's word table, and answer rows
+        # seeded from it, into the freshly initialized stage-2 model.
+        if word_vocab is None or answer_vocab is None:
+            raise ValueError("transfer init needs the word and answer vocabs")
+        params = transfer_init(spec.module.state_dict(),
+                               load_params(t.pretrained_param_path),
+                               word_vocab, answer_vocab)
+        log.info("answer-embedding transfer init applied from %s",
+                 t.pretrained_param_path)
+    state = trainer.init_state(params)
     state = trainer.fit_resident(train_ds, state)
     final = os.path.join(train_dir, PARAMS_FILE)
-    save_params(final, model.state_dict())
+    save_params(final, spec.module.state_dict())
     log.info("final params saved to %s", final)
     trainer.close()
     print(json.dumps({"train_dir": train_dir, "steps": state.step}))

@@ -1,7 +1,9 @@
 """Datasets of the port: a dict-of-arrays dataset with the JAX package's
-seeded index stream, the synthetic deduplicated corpus that stage-2
-training runs against, ``load_dataset`` for it, and the synthetic
-vocabularies. Arrays are numpy; the trainer moves them to the device.
+seeded index stream, the synthetic corpora of stage 1 (region-word and
+description blank fill) and stage 2 (the deduplicated store), the dense
+candidate counts, ``load_dataset`` for them, and the synthetic
+vocabularies. Arrays are numpy, equal to the JAX package's for the same
+config and seed; the trainer moves them to the device.
 """
 
 from __future__ import annotations
@@ -67,6 +69,84 @@ class ArrayDataset:
             epoch += 1
 
 
+def attach_candidate_counts(arrays: Dict[str, np.ndarray],
+                            vocab_size: int) -> Dict[str, np.ndarray]:
+    """Inputs of the dense candidate loss (``model.dense_candidate_loss``):
+    each row's candidate multiset as counts ``cand_counts`` [N, V] (uint8
+    when K < 256, else uint16: K bounds every count), and the positive
+    ``word`` column (= candidates[label]) unless present. Counts carry
+    duplicate candidates, so the count-weighted dense CE is exactly the
+    K-candidate CE (``models/vlmap._vlmap_dense_loss``)."""
+    cand = np.asarray(arrays["candidates"])
+    n, K = cand.shape
+    if K > np.iinfo(np.uint16).max:
+        raise ValueError(f"num_candidates={K} overflows uint16 counts")
+    dtype = np.uint8 if K < 256 else np.uint16
+    counts = np.zeros((n, vocab_size), dtype)
+    # bincount over row-offset ids, in chunks whose int64 bins stay ~64 MB.
+    chunk = max(1, (1 << 23) // max(vocab_size, 1))
+    for i in range(0, n, chunk):
+        c = cand[i:i + chunk]
+        flat = c.astype(np.int64) + \
+            np.arange(c.shape[0], dtype=np.int64)[:, None] * vocab_size
+        counts[i:i + chunk] = np.bincount(
+            flat.ravel(), minlength=c.shape[0] * vocab_size
+        ).reshape(c.shape[0], vocab_size).astype(dtype)
+    out = dict(arrays)
+    out["cand_counts"] = counts
+    if "word" not in out:
+        out["word"] = cand[np.arange(n), np.asarray(arrays["label"])] \
+            .astype(np.int32)
+    return out
+
+
+def synthetic_vlmap(cfg: Config, *, size: Optional[int] = None,
+                    seed: int = 0) -> ArrayDataset:
+    """Synthetic stage-1 data: the region feature determines the positive
+    word through a fixed projection; the candidates are random words with
+    the positive planted at a random index. With the dense candidate loss
+    the rows carry their candidate counts."""
+    d, m = cfg.data, cfg.model
+    n = size or d.synthetic_size
+    K = m.num_candidates
+    rng = np.random.default_rng(seed)
+    feature = rng.standard_normal((n, d.pool5_dim), dtype=np.float32)
+    task = rng.integers(0, m.num_tasks, size=n).astype(np.int32)
+    proj = np.random.default_rng(42).standard_normal(
+        (d.pool5_dim, d.vocab_size), dtype=np.float32)
+    positive = 4 + (np.argmax(feature @ proj, axis=1) % (d.vocab_size - 4))
+    candidates = rng.integers(4, d.vocab_size, size=(n, K)).astype(np.int32)
+    label = rng.integers(0, K, size=n).astype(np.int32)
+    candidates[np.arange(n), label] = positive
+    arrays = {"feature": feature, "task": task,
+              "candidates": candidates, "label": label.astype(np.int32)}
+    if m.dense_candidate_loss:
+        arrays = attach_candidate_counts(arrays, d.vocab_size)
+    return ArrayDataset(arrays)
+
+
+def synthetic_vlmap_desc(cfg: Config, *, size: Optional[int] = None,
+                         seed: int = 0) -> ArrayDataset:
+    """Synthetic description blank fill: :func:`synthetic_vlmap` plus a
+    phrase ``desc_ids`` [n, T] whose token after the blank (wrapping) is
+    the positive word, a sequential cue for the description encoder."""
+    base = synthetic_vlmap(cfg, size=size, seed=seed)
+    d = cfg.data
+    n = base.size
+    rng = np.random.default_rng(seed + 7)
+    T = d.max_question_len
+    desc = rng.integers(4, d.vocab_size, size=(n, T)).astype(np.int32)
+    blank_pos = rng.integers(0, T, size=n).astype(np.int32)
+    word = base.arrays["word"] if "word" in base.arrays else \
+        base.arrays["candidates"][np.arange(n), base.arrays["label"]]
+    desc[np.arange(n), (blank_pos + 1) % T] = word
+    desc[np.arange(n), blank_pos] = 1  # <unk> blank
+    arrays = dict(base.arrays)
+    arrays["desc_ids"] = desc
+    arrays["blank_pos"] = blank_pos
+    return ArrayDataset(arrays)
+
+
 def synthetic_vqa_joined(cfg: Config, *, n_questions: int = 4096,
                          n_images: int = 512, seed: int = 0,
                          with_scores: bool = False):
@@ -120,11 +200,13 @@ def synthetic_vqa_joined(cfg: Config, *, n_questions: int = 4096,
 
 def load_dataset(cfg: Config, split: str, stage: str = "vqa"
                  ) -> ArrayDataset:
-    """The dataset of ``split``. Ported: the synthetic joined layout of
-    stage 2 (``--data.synthetic true --data.synthetic_layout joined``),
-    ``data.synthetic_size`` questions over a store of 1/8 as many images,
-    seeded by the split as in the JAX package. Every other source raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    """The dataset of ``split`` for ``stage``, seeded by the split as in
+    the JAX package. Ported: the synthetic stage-1 corpora (``stage``
+    "vlmap" or "vlmap_desc", ``data.synthetic_size`` rows) and the
+    synthetic joined layout of stage 2 (``--data.synthetic_layout
+    joined``: ``data.synthetic_size`` questions over a store of 1/8 as
+    many images). Every other source raises ``NotImplementedError`` naming
+    its ROADMAP item."""
     d = cfg.data
     if not d.synthetic:
         raise NotImplementedError(
@@ -133,16 +215,19 @@ def load_dataset(cfg: Config, split: str, stage: str = "vqa"
     if d.synthetic_layout not in ("flat", "joined"):
         raise ValueError(f"data.synthetic_layout={d.synthetic_layout!r}: "
                          "expected 'flat' or 'joined'")
+    seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
+    if stage == "vlmap":
+        return synthetic_vlmap(cfg, seed=seed)
+    if stage == "vlmap_desc":
+        return synthetic_vlmap_desc(cfg, seed=seed)
     if stage != "vqa":
-        raise NotImplementedError(
-            f"stage-1 ({stage}) datasets are not ported yet (ROADMAP.md, "
-            "section 1, item 10)")
+        raise ValueError(f"unknown stage {stage!r}: expected 'vqa', "
+                         "'vlmap' or 'vlmap_desc'")
     if d.synthetic_layout == "flat":
         raise NotImplementedError(
             "the flat synthetic layout (gathered features) is not ported "
             "yet (ROADMAP.md, section 1, item 9); use "
             "--data.synthetic_layout joined")
-    seed = {"train": 0, "val": 1, "test": 2}.get(split, 3)
     n_q = d.synthetic_size
     return synthetic_vqa_joined(cfg, n_questions=n_q,
                                 n_images=max(1, n_q // 8), seed=seed,

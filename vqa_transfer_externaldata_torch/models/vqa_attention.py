@@ -29,7 +29,7 @@ from vqa_transfer_externaldata_torch.ops.attention_resident import (
     spatial_attention_resident)
 from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder
 from vqa_transfer_externaldata_torch.ops.layers import (
-    Dense, GatedTanh, WordEmbedding, glorot_uniform_, l2_normalize)
+    Dense, GatedTanh, WordEmbedding, dropout, glorot_uniform_, l2_normalize)
 from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID, UNK_ID
 
 GATHERED_TRAIN_TODO = (
@@ -107,11 +107,7 @@ class VQAAttentionModel(nn.Module):
                 features.to(dt), qh, self.att_wv, self.att_ws, normalize=True)
         fused = self.fuse_q(q) * self.fuse_v(v_att.to(dt))
         if train and self.dropout > 0.0:
-            keep_prob = 1.0 - self.dropout
-            keep = torch.rand(fused.shape, generator=generator,
-                              device=fused.device) < keep_prob
-            fused = torch.where(keep, fused / keep_prob,
-                                torch.zeros_like(fused))
+            fused = dropout(fused, self.dropout, generator)
         z = l2_normalize(self.ans_proj(fused).float())
         e = l2_normalize(self.answer_embedding)
         logits = z @ e.t() * self.logit_scale + self.logit_bias

@@ -18,6 +18,17 @@ and ``bhn``: on a CUDA tensor its forward launches the hand-written kernel
 kernel ``csrc/gru_bwd.cu`` (K3, wrapper :func:`gru_bwd`); on a CPU tensor
 their plain versions :func:`gru_reference` and :func:`gru_bwd_reference`.
 The input projection's gradients (dx, dW_x, db) are autograd matmuls.
+
+:class:`BiGRUEncoder` concatenates a forward and a reverse encoder's final
+states. It projects each direction as :class:`GRUEncoder` does and runs both
+recurrences through ``bigru_fused``: on a CUDA tensor kernel
+``csrc/bigru_fwd.cu`` (K6, wrapper :func:`bigru_fwd`) advances both chains
+in each launch and ``csrc/bigru_bwd.cu`` (K7, wrapper :func:`bigru_bwd`)
+walks both BPTTs; on a CPU tensor their plain versions
+:func:`bigru_reference` and :func:`bigru_bwd_reference`. The JAX package
+keeps this fused path behind ``fuse_directions`` (off); its outputs and
+gradients equal the two per-direction encoders', and here it is the only
+path.
 """
 
 from __future__ import annotations
@@ -57,18 +68,48 @@ class GRUEncoder(nn.Module):
             glorot_uniform_(self.wx, in_dim, H3, generator)
             glorot_uniform_(self.uh, hidden, H3, generator)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The input projection x@Wx + b of a time-major [T, B, D] x:
+        [T, B, 3H] f32, hoisted out of the recurrence."""
         T, B, D = x.shape
         dt = self.dtype
         # f32 accumulation of dt products: the upcast operands are exact
         # copies of the dt values, so this is x@Wx in dt with f32 sums.
         gx = (x.to(dt).float().reshape(T * B, D)
               @ self.wx.to(dt).float()) + self.b
-        gx = gx.reshape(T, B, 3 * self.hidden)
+        return gx.reshape(T, B, 3 * self.hidden)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         lens = mask.sum(1).to(torch.int32)
-        hT = gru_fused(gx, lens, self.uh.to(dt), self.bhn,
-                       reverse=self.reverse)
-        return hT.to(dt)
+        hT = gru_fused(self.project(x), lens, self.uh.to(self.dtype),
+                       self.bhn, reverse=self.reverse)
+        return hT.to(self.dtype)
+
+
+class BiGRUEncoder(nn.Module):
+    """Bidirectional GRU over a time-major [T, B, D] sequence (mask
+    [B, T]): the forward and reverse final states concatenated, [B, 2H] in
+    ``dtype``. Parameters sit under ``fwd.*`` and ``bwd.*`` in
+    :class:`GRUEncoder`'s layout; each direction is projected by its own
+    encoder and both recurrences run through :func:`bigru_fused` (kernels
+    K6/K7 on CUDA)."""
+
+    def __init__(self, in_dim: int, hidden: int = 512, *,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.fwd = GRUEncoder(in_dim, hidden, dtype=dtype,
+                              generator=generator)
+        self.bwd = GRUEncoder(in_dim, hidden, dtype=dtype, reverse=True,
+                              generator=generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        f, b, dt = self.fwd, self.bwd, self.dtype
+        lens = mask.sum(1).to(torch.int32)
+        hTf, hTb = bigru_fused(f.project(x), b.project(x), lens,
+                               f.uh.to(dt), b.uh.to(dt), f.bhn, b.bhn)
+        return torch.cat([hTf, hTb], dim=-1).to(dt)
 
 
 def gru_fused(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
@@ -284,3 +325,191 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
 
 
 gru_bwd.launches = 0
+
+
+def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+                uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+                bhnb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both recurrences of a bidirectional GRU: gxf, gxb [T, B, 3H] f32
+    (each direction's x@Wx + b, time-major), lens [B] int32, uhf, uhb
+    [H, 3H], bhnf, bhnb [H] f32 -> (hT_fwd, hT_bwd) [B, H] f32, the
+    backward chain reversed over each row's valid prefix as
+    ``gru_fused(reverse=True)``. Differentiable in gx*, uh* and bhn*. A
+    CUDA tensor runs kernels K6/K7 (which take bf16 ``uh*``), a CPU tensor
+    the plain versions."""
+    if gxf.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"bigru_fused: no path for device {gxf.device}")
+    return _BiGRUFused.apply(gxf.contiguous(), gxb.contiguous(),
+                             lens.to(torch.int32), uhf.contiguous(),
+                             uhb.contiguous(), bhnf.contiguous(),
+                             bhnb.contiguous())
+
+
+class _BiGRUFused(torch.autograd.Function):
+    """Both recurrences with their joint BPTT as the backward (JAX's
+    ``custom_vjp`` of ``bigru_fused``); the residuals are the inputs and
+    the two state sequences that K6 writes anyway."""
+
+    @staticmethod
+    def forward(ctx, gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
+        fwd = bigru_fwd if gxf.device.type == "cuda" else bigru_reference
+        hTf, hTb, hseqf, hseqb = fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+        ctx.save_for_backward(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf,
+                              bhnb)
+        return hTf, hTb
+
+    @staticmethod
+    def backward(ctx, ghTf, ghTb):
+        gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb = ctx.saved_tensors
+        bwd = bigru_bwd if gxf.device.type == "cuda" else bigru_bwd_reference
+        dgxf, dgxb, duhf, duhb, dbhnf, dbhnb = bwd(
+            gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb,
+            ghTf.float().contiguous(), ghTb.float().contiguous())
+        return (dgxf, dgxb, None, duhf.to(uhf.dtype), duhb.to(uhb.dtype),
+                dbhnf.to(bhnf.dtype), dbhnb.to(bhnb.dtype))
+
+
+def bigru_reference(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+                    uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+                    bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of kernel K6: the two chains are independent,
+    so it is :func:`gru_reference` forward on the first and reversed on the
+    second -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), all f32."""
+    hTf, hseqf = gru_reference(gxf, lens, uhf, bhnf)
+    hTb, hseqb = gru_reference(gxb, lens, uhb, bhnb, reverse=True)
+    return hTf, hTb, hseqf, hseqb
+
+
+def bigru_bwd_reference(gxf: torch.Tensor, gxb: torch.Tensor,
+                        hseqf: torch.Tensor, hseqb: torch.Tensor,
+                        lens: torch.Tensor, uhf: torch.Tensor,
+                        uhb: torch.Tensor, bhnf: torch.Tensor,
+                        bhnb: torch.Tensor, ghTf: torch.Tensor,
+                        ghTb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of kernel K7, the BPTT of
+    :func:`bigru_reference`: :func:`gru_bwd_reference` on each chain ->
+    (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), all
+    f32."""
+    dgxf, duhf, dbhnf = gru_bwd_reference(gxf, hseqf, lens, uhf, bhnf, ghTf)
+    dgxb, duhb, dbhnb = gru_bwd_reference(gxb, hseqb, lens, uhb, bhnb, ghTb,
+                                          reverse=True)
+    return dgxf, dgxb, duhf, duhb, dbhnf, dbhnb
+
+
+def _expect_pair(T: int, B: int, H: int, dev: torch.device, **pairs) -> None:
+    """``kernels.expect`` on both tensors of each direction pair."""
+    shapes = {"gx": ((T, B, 3 * H), torch.float32),
+              "hseq": ((T, B, H), torch.float32),
+              "uh": ((H, 3 * H), torch.bfloat16),
+              "bhn": ((H,), torch.float32), "ghT": ((B, H), torch.float32)}
+    for name, (f, b) in pairs.items():
+        shape, dtype = shapes[name]
+        kernels.expect(f"{name}f", f, dtype, shape, dev)
+        kernels.expect(f"{name}b", b, dtype, shape, dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _bigru_lib() -> ctypes.CDLL:
+    lib = kernels.load("bigru_fwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bigru_fwd.argtypes = [p] * 9 + [i, i, i, p, p]
+    lib.bigru_fwd.restype = i
+    return lib
+
+
+def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+              uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+              bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel K6 (``csrc/bigru_fwd.cu``) on CUDA tensors: gxf, gxb
+    [T, B, 3H] f32, lens [B] int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H]
+    f32 -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), all f32. Needs
+    H % 16 == 0. One call launches one step kernel per timestep, each
+    advancing both chains, on the current stream and adds the number
+    launched (T) to ``bigru_fwd.launches``."""
+    if gxf.device.type != "cuda" or gxf.dim() != 3:
+        raise ValueError("bigru_fwd takes 3-D CUDA gx tensors")
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    dev = gxf.device
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
+        raise ValueError(f"bigru_fwd needs T, B >= 1 and H % {_TILE} == 0, "
+                         f"got gxf of shape {tuple(gxf.shape)}")
+    _expect_pair(T, B, H, dev, gx=(gxf, gxb), uh=(uhf, uhb),
+                 bhn=(bhnf, bhnb))
+    kernels.expect("lens", lens, torch.int32, (B,), dev)
+    hseq = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
+    hT = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+    lib = _bigru_lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.bigru_fwd(gxf.data_ptr(), gxb.data_ptr(), lens.data_ptr(),
+                           uhf.data_ptr(), uhb.data_ptr(), bhnf.data_ptr(),
+                           bhnb.data_ptr(), hseq.data_ptr(), hT.data_ptr(),
+                           T, B, H,
+                           torch.cuda.current_stream(dev).cuda_stream,
+                           ctypes.addressof(launched))
+    bigru_fwd.launches += launched.value
+    kernels.check(lib, rc, "bigru_fwd")
+    return hT[0], hT[1], hseq[0], hseq[1]
+
+
+bigru_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bigru_bwd_lib() -> ctypes.CDLL:
+    lib = kernels.load("bigru_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bigru_bwd.argtypes = [p] * 15 + [i, i, i, p, p]
+    lib.bigru_bwd.restype = i
+    return lib
+
+
+def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
+              hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
+              uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
+              ghTf: torch.Tensor, ghTb: torch.Tensor
+              ) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel K7 (``csrc/bigru_bwd.cu``) on CUDA tensors: gxf, gxb
+    [T, B, 3H] f32, hseqf, hseqb [T, B, H] f32 (K6's residuals), lens [B]
+    int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H] f32, ghTf, ghTb [B, H] f32
+    -> (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), all
+    f32. Needs H % 64 == 0. One call launches one step kernel per timestep
+    (both chains), the dU_h GEMM and the db_hn sum of both directions on
+    the current stream and adds the number launched (T + 2) to
+    ``bigru_bwd.launches``."""
+    if gxf.device.type != "cuda" or gxf.dim() != 3:
+        raise ValueError("bigru_bwd takes 3-D CUDA gx tensors")
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    dev = gxf.device
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
+        raise ValueError(f"bigru_bwd needs T, B >= 1 and H % 64 == 0, got "
+                         f"gxf of shape {tuple(gxf.shape)}")
+    _expect_pair(T, B, H, dev, gx=(gxf, gxb), hseq=(hseqf, hseqb),
+                 uh=(uhf, uhb), bhn=(bhnf, bhnb), ghT=(ghTf, ghTb))
+    kernels.expect("lens", lens, torch.int32, (B,), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dhe = torch.stack([ghTf, ghTb])  # the carried cotangents, overwritten
+    g = torch.empty(2, T, B, 3 * H, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(2, T, -(-B // _TILE), H, **f32)
+    dgx = torch.empty(2, T, B, 3 * H, **f32)
+    duh = torch.empty(2, H, 3 * H, **f32)
+    dbhn = torch.empty(2, H, **f32)
+    lib = _bigru_bwd_lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.bigru_bwd(gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
+                           hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(),
+                           uhb.data_ptr(), bhnf.data_ptr(), bhnb.data_ptr(),
+                           dhe.data_ptr(), dgx.data_ptr(), g.data_ptr(),
+                           part.data_ptr(), duh.data_ptr(), dbhn.data_ptr(),
+                           T, B, H,
+                           torch.cuda.current_stream(dev).cuda_stream,
+                           ctypes.addressof(launched))
+    bigru_bwd.launches += launched.value
+    kernels.check(lib, rc, "bigru_bwd")
+    return dgx[0], dgx[1], duh[0], duh[1], dbhn[0], dbhn[1]
+
+
+bigru_bwd.launches = 0

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``<repo>/build/torch_kernels/``, then opened with ``ctypes``. The library
-name carries a hash of the source, so an edited kernel is rebuilt and a
-stale one is never loaded. Nothing is built when the module is imported.
+name carries a hash of the source and of every header it includes from
+``csrc/`` (step kernels that two libraries share live in such headers), so
+an edited kernel or header is rebuilt and a stale library is never loaded.
+Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -38,10 +41,31 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file it includes with ``#include
+    "..."`` that exists beside its includer, recursively, each once."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep.resolve())
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

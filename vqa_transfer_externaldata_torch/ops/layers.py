@@ -1,5 +1,5 @@
-"""Shared building blocks: dtype names, L2 normalization, the word
-embedding table and the gated-tanh unit.
+"""Shared building blocks: dtype names, L2 normalization, the masked mean,
+the word embedding table, the gated-tanh unit, the MLP and dropout.
 
 Parameters live in float32; compute runs in the configured dtype
 (bfloat16 by default), as in the JAX package.
@@ -8,7 +8,7 @@ Parameters live in float32; compute runs in the configured dtype
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,6 +25,27 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """x / sqrt(sum x^2 + eps) — the eps sits inside the sqrt."""
     return x / torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                dim: int = 1) -> torch.Tensor:
+    """Mean over ``dim`` of the entries where ``mask`` (broadcastable from
+    the left) is true; an all-false row gives 0."""
+    mask = mask.to(x.dtype)
+    while mask.dim() < x.dim():
+        mask = mask[..., None]
+    count = torch.clamp(torch.sum(mask, dim=dim), min=1.0)
+    return torch.sum(x * mask, dim=dim) / count
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator``: kept entries
+    are scaled by 1 / (1 - rate), as flax's ``nn.Dropout``."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,
@@ -97,3 +118,30 @@ class GatedTanh(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.w(x)) * torch.sigmoid(self.g(x))
+
+
+class MLP(nn.Module):
+    """A stack of :class:`Dense` layers ``fc0``, ``fc1``, ... with ReLU and
+    then dropout (when training) between layers and nothing after the
+    last."""
+
+    def __init__(self, in_features: int, features: Sequence[int], *,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.dropout = dropout
+        dims = [in_features, *features]
+        for i in range(len(features)):
+            self.add_module(f"fc{i}", Dense(dims[i], dims[i + 1], dtype=dtype,
+                                            generator=generator))
+        self.n_layers = len(features)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"fc{i}")(x)
+            if i < self.n_layers - 1:
+                x = torch.relu(x)
+                if train and self.dropout > 0.0:
+                    x = dropout(x, self.dropout, generator)
+        return x

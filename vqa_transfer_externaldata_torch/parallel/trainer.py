@@ -1,12 +1,15 @@
-"""Single-device trainer of the port: the device-resident stage-2 path of
-the JAX package's ``parallel/trainer.py``.
+"""Single-device trainer of the port: the device-resident path of the JAX
+package's ``parallel/trainer.py``, for any :class:`~..models.zoo.ModelSpec`
+(stage 1 and stage 2).
 
-The question table and the deduplicated feature store are uploaded once
-(the store L2-normalized and padded to a multiple of 8 cells), the seeded
-index stream is staged on the device in segments, and each step takes its
-batch by index and hands the model ``(store, rows)``, so the attention
-kernels read the grids straight out of the store. One step is: forward
-with dropout, ``vqa_loss``, backward, then the optax chain of the JAX
+The dataset is uploaded once and the seeded index stream is staged on the
+device in segments; each step takes its batch by index. A stage-2
+``JoinedDataset`` uploads its question table and its deduplicated feature
+store (L2-normalized and padded to a multiple of 8 cells), and the model
+gets ``(store, rows)``, so the attention kernels read the grids straight
+out of the store. A stage-1 ``ArrayDataset`` uploads its rows, float
+features cast to the compute dtype on the host. One step is: forward with
+dropout, the spec's loss, backward, then the optax chain of the JAX
 package (frozen leaves zeroed, global-norm clip, AdamW with warmup and a
 staircase decay), written here as a few tensor operations with optax's
 exact semantics (:class:`AdamW`).
@@ -21,8 +24,7 @@ import numpy as np
 import torch
 
 from vqa_transfer_externaldata_torch.config import Config
-from vqa_transfer_externaldata_torch.models.vqa_attention import (
-    VQAAttentionModel, vqa_loss)
+from vqa_transfer_externaldata_torch.models.zoo import ModelSpec
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     pad_store_rows, prenormalize_store)
 from vqa_transfer_externaldata_torch.ops.layers import dtype_of
@@ -188,7 +190,8 @@ def _todo(what: str, item: str) -> NotImplementedError:
 
 
 class Trainer:
-    """Build once, then :meth:`init_state` and :meth:`fit_resident`.
+    """Build once from a :class:`ModelSpec`, then :meth:`init_state` and
+    :meth:`fit_resident`.
 
     Runs on CUDA unless ``device`` says otherwise (the tests pass "cpu");
     without a card and without ``device`` it raises. Not ported, and
@@ -205,7 +208,7 @@ class Trainer:
     # steps; shrink in tests to exercise re-staging.
     resident_segment_steps = 2048
 
-    def __init__(self, cfg: Config, model: VQAAttentionModel,
+    def __init__(self, cfg: Config, spec: ModelSpec,
                  train_dir: Optional[str] = None,
                  device: Optional[str] = None) -> None:
         t = cfg.train
@@ -222,10 +225,11 @@ class Trainer:
             if on:
                 raise _todo(what, item)
         self.cfg = cfg
+        self.spec = spec
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = model = spec.module.to(self.device)
         if (t.resident_fused_attention and t.device_data_cache
-                and not model.store_prenormalized):
+                and getattr(model, "store_prenormalized", None) is False):
             # The store is L2-normalized once at upload (_prepare_resident),
             # so the (store, rows) path skips the per-cell norm.
             model.store_prenormalized = True
@@ -250,9 +254,9 @@ class Trainer:
         """One optimizer step on a device batch; returns the new state and
         the step's metrics as device tensors (no host synchronization)."""
         names = list(state.params)
-        outputs = self.model(batch["features"], batch["q_ids"], train=True,
+        outputs = self.model(*self.spec.inputs(batch), train=True,
                              generator=state.rng)
-        loss, metrics = vqa_loss(outputs, batch)
+        loss, metrics = self.spec.loss(outputs, batch)
         grads = dict(zip(names, torch.autograd.grad(
             loss, [state.params[k] for k in names])))
         metrics.pop("weight", None)  # eval-weighting aid, not a metric
@@ -274,10 +278,10 @@ class Trainer:
     def fit_resident(self, ds, state: TrainState,
                      max_steps: Optional[int] = None,
                      eval_ds=None) -> TrainState:
-        """Device-resident training over a ``JoinedDataset``: the question
-        table and the deduplicated store are uploaded once, and each step's
-        only input is a [batch] slice of the index table staged on the
-        device. Metrics are logged every ``log_every`` steps one window
+        """Device-resident training over a ``JoinedDataset`` (stage 2) or
+        an ``ArrayDataset`` (stage 1): the dataset is uploaded once, and
+        each step's only input is a [batch] slice of the index table staged
+        on the device. Metrics are logged every ``log_every`` steps one window
         late (a window's values are copied to the host asynchronously and
         read at the next boundary, so logging never drains the device's
         queue); each record's ``questions_per_sec`` spans the steps since
@@ -287,8 +291,9 @@ class Trainer:
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         rows, make_batch, nbytes = self._prepare_resident(ds)
-        log.info("device-resident dataset: %d rows + %d-row feature store, "
-                 "%.2f GB uploaded once", ds.size, rows["grid_pad"].shape[0],
+        log.info("device-resident dataset: %d rows%s, %.2f GB uploaded once",
+                 ds.size, (f" + {rows['grid_pad'].shape[0]}-row feature "
+                           "store" if "grid_pad" in rows else ""),
                  nbytes / 1e9)
         indices = ds.index_batches(t.batch_size, seed=t.seed)
         timer = Timer()
@@ -359,22 +364,31 @@ class Trainer:
 
     def _prepare_resident(self, ds) -> Tuple[Dict[str, torch.Tensor],
                                              Callable, int]:
-        """Upload a ``JoinedDataset`` for the gather-free path: the row
-        arrays, and the store as ``grid_pad`` [M, Np, C] (L2-normalized at
-        upload when the model skips the per-cell norm). Returns
-        ``(device tensors, make_batch, bytes uploaded)``; ``make_batch(idx)``
-        takes a batch by index and hands the model ``(grid_pad, rows)``.
-        The store's pool5 is left on the host: no ported model reads it."""
+        """Upload ``ds`` for resident training. Returns ``(device tensors,
+        make_batch, bytes uploaded)``; ``make_batch(idx)`` takes a batch by
+        index on the device. The row arrays upload as they are, float
+        features cast to the compute dtype on the host first (as the JAX
+        package's ``_cast_features_host``: the same values, half the
+        bytes). A ``JoinedDataset`` also uploads its store as ``grid_pad``
+        [M, Np, C] (L2-normalized at upload when the model skips the
+        per-cell norm), and ``make_batch`` hands the model ``(grid_pad,
+        rows)``; the store's pool5 is left on the host: no ported model
+        reads it."""
         from vqa_transfer_externaldata_torch.data.features import (
             JoinedDataset)
 
+        dt = self.model.dtype
+        data = {k: self._upload_rows(k, v) for k, v in ds.arrays.items()}
         if not isinstance(ds, JoinedDataset):
-            raise _todo(f"resident training of a {type(ds).__name__} "
-                        "(gathered features)", "item 9")
+            def make_rows(idx: torch.Tensor) -> Dict[str, object]:
+                return {k: v.index_select(0, idx) for k, v in data.items()}
+
+            nbytes = sum(v.numel() * v.element_size() for v in data.values())
+            return data, make_rows, nbytes
         if not self.cfg.train.resident_fused_attention:
             raise _todo("the gathered resident path "
                         "(train.resident_fused_attention false)", "item 9")
-        if not self.model.n_cells:
+        if not getattr(self.model, "n_cells", None):
             raise ValueError("the gather-free path needs the model's n_cells")
         grid = np.asarray(ds.store.grid)
         if grid.ndim == 4:  # [M, g, g, C] -> [M, N, C]
@@ -383,7 +397,6 @@ class Trainer:
         index = np.asarray(ds.arrays[ds.index_key])
         if index.size and (index.min() < 0 or index.max() >= M):
             raise IndexError(f"{ds.index_key} outside the {M}-row store")
-        dt = self.model.dtype
         # The JAX package casts float stores to bf16 when it computes in
         # bf16 (f32 sources before they are normalized) and keeps their
         # own dtype otherwise; the same values arrive here.
@@ -397,8 +410,6 @@ class Trainer:
         else:
             grid_pad = torch.from_numpy(pad_store_rows(grid)).to(
                 self.device, store_dt)
-        data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in ds.arrays.items()}
         key = ds.index_key
 
         def make_batch(idx: torch.Tensor) -> Dict[str, object]:
@@ -409,6 +420,21 @@ class Trainer:
         nbytes = grid_pad.numel() * grid_pad.element_size() + sum(
             v.numel() * v.element_size() for v in data.values())
         return dict(data, grid_pad=grid_pad), make_batch, nbytes
+
+    def _upload_rows(self, key: str, v: np.ndarray) -> torch.Tensor:
+        """One row array on the device. Float32 region features
+        (``feature``, stage 1) travel in the compute dtype. uint16 (the
+        candidate counts, each at most num_candidates) travels as int16,
+        which torch's kernels take: uint16 has few of them."""
+        v = np.ascontiguousarray(v)
+        if v.dtype == np.uint16:
+            if v.size and int(v.max()) > np.iinfo(np.int16).max:
+                raise ValueError(f"{key}: uint16 values past the int16 range")
+            v = v.astype(np.int16)
+        t = torch.from_numpy(v)
+        if key == "feature" and t.dtype == torch.float32:
+            t = t.to(self.model.dtype)
+        return t.to(self.device)
 
     def close(self) -> None:
         self.metrics.close()

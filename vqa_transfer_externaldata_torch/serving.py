@@ -52,7 +52,12 @@ class Predictor:
                 for k, v in sec.items()}
         self.cfg: Config = Config().replace_flat(flat)
         self.batch_size = batch_size
-        self.model, self.word_vocab, self.answer_vocab = build_spec(self.cfg)
+        spec, self.word_vocab, self.answer_vocab = build_spec(self.cfg)
+        if spec.stage != "vqa":
+            raise ValueError(
+                f"{train_dir} holds a stage-1 run ({self.cfg.model.model}); "
+                "the Predictor serves stage-2 VQA models")
+        self.model = spec.module
         if self.word_vocab is None or self.answer_vocab is None:
             raise ValueError(
                 "run config has no vocab paths (and is not synthetic); "
