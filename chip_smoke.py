@@ -22,18 +22,34 @@ Run from the repository root. Phases (any failure exits non-zero):
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
    K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs);
-7. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
+7. K8 ``attention_bwd`` against its plain version at the gathered
+   training shape (B=256, N=196, C=2048, H=512, bf16, normalize on and
+   off, both fed the same ds and K2's r), and the gathered op's gradients
+   under K8 against the explicit backward;
+8. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
    host-feature requests, a padded short request, and ids-only requests
    against a staged 256-image store; launch counts of K1 and K2 over that
    run; logits against the plain path on the card;
-8. full-width stage-2 training through ``Trainer.fit_resident`` at batch
+9. full-width stage-2 training through ``Trainer.fit_resident`` at batch
    256 on ``synthetic_vqa_joined`` (4096 questions over 512 images, a
-   0.42 GB bf16 store): the first step's loss and gradients against the
-   plain path on the card, launch counts of K1 and K3-K5 over the run,
-   finite losses, median step time and questions/s, a profiler window
-   over 5 more steps of ``fit_resident``, and the trained
+   0.42 GB bf16 store) with the lagged in-loop evaluation of a
+   1024-question val split every 10 steps and a checkpoint every 10 (2
+   kept): the first step's loss and gradients against the plain path on
+   the card, launch counts of K1 and K3-K5 over the run, finite losses,
+   median step time and questions/s, the val records, the checkpoints
+   kept, a profiler window over 5 more steps of ``fit_resident``; then the
+   resident evaluator (K4) against the streamed ``evaluate`` (K2),
+   ``cli.eval`` on the run directory (its ``results_val.json`` and its
+   ``vqa_accuracy`` against ``evaluate_split``), and the trained
    ``params_final.pt`` served by ``Predictor``;
-9. full-width stage-1 training of ``vlmap_description`` with the
+10. the same training on the gathered resident path
+   (``train.resident_fused_attention`` false: K1, K2, K3, K8): first step
+   against the plain path, launch counts, step times, a profiler window,
+   then 10 steps with the explicit backward and 10 with K8 (the A/B);
+11. streamed training through ``cli.train`` (``train.device_data_cache``
+   false, the flat layout, 1024 questions of float32 grids, 10 steps):
+   finite losses, launch counts, step times;
+12. full-width stage-1 training of ``vlmap_description`` with the
    bidirectional phrase encoder through ``Trainer.fit_resident`` at batch
    256 on ``synthetic_vlmap_desc`` (4096 regions, 512 candidates): the
    first step's loss and gradients against the plain path on the card,
@@ -41,15 +57,16 @@ Run from the repository root. Phases (any failure exits non-zero):
    losses, median step time and regions/s and a profiler window over 5
    more steps; then 10 steps with the dense candidate loss (finite
    losses, first-step loss against the plain path, launch counts);
-10. the transfer: stage 1's ``params_final.pt`` through ``cli.train
+13. the transfer: stage 1's ``params_final.pt`` through ``cli.train
    --train.pretrained_param_path`` into full-width stage-2 training of
    ``vqa_attention`` (1024 questions, 10 steps, the transferred tables
    frozen): the word table arrives bit for bit and every answer row is
    its word's row; finite losses; launch counts of K1 and K3-K5;
-11. times: each kernel, its plain version and the PyTorch library call
+14. times: each kernel, its plain version and the PyTorch library call
    where there is one (median of CUDA-event timings after warm-up, L2
    flushed between runs), and the bound from this run's shapes; K1 at
-   the training batch and at the serving batch.
+   the training batch and at the serving batch; the gathered op's whole
+   backward with K8 and with the explicit math.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -89,6 +106,9 @@ TOL_ALPHA = 1e-5
 #     term w*v/d by one bf16 ulp, at most 2^-7 of the term. As v >= 0 every
 #     term is at most v_att; the limit lets flipped terms carry 1/8 of it.
 TOL_VATT_REL = 2.0 ** -10
+# K2's per-cell norm r (the residual K8 reuses), relative to max|r|: the
+#     same bf16 squares summed in f32 in another order.
+TOL_R_REL = 1e-6
 # Logits (cos * 10 + bias): activations are bf16 between layers, so a last-
 #     bit difference out of a kernel can flip a bf16 rounding (2^-8) that the
 #     following layers carry to the logits.
@@ -111,6 +131,12 @@ TOL_K4_H_REL = 2.0 ** -7
 #     dW_v product, where a last-bit difference flips one rounding (2^-8 of
 #     one of the 50176 terms of a sum).
 TOL_K5_REL = 2.0 ** -9
+# K8 (dqh, dW_v, dws) against its plain version, fed the same ds and r:
+#     K5's 2^-9 of each output's largest value, plus, entry by entry, what
+#     units whose recomputed z lies within rounding of 0 can move it (each
+#     version may put such a unit on the other side of the ReLU:
+#     k8_allowance).
+TOL_K8_REL = 2.0 ** -9
 # Training, first step, kernels against the plain path on the card (same
 #     dropout mask): the loss (about ln 2000 = 7.6) to 1e-2 absolute, as
 #     last-bit differences out of the kernels ride through bf16 activations
@@ -135,13 +161,20 @@ WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = 5, 25, 5
 # the dense-loss run; the transfer's stage-2 run: questions and steps.
 STAGE1_REGIONS, DENSE_STEPS = 4096, 10
 TRANSFER_QUESTIONS, TRANSFER_STEPS = 1024, 10
+# Stage-2 evaluation: the val split, the in-loop cadence and the checkpoints
+# kept; the gathered path's backward A/B (steps each way); streamed
+# training (questions of the flat layout, ~1.6 GB of float32 grids, steps).
+VAL_QUESTIONS, EVAL_EVERY, KEEP_CHECKPOINTS = 1024, 10, 2
+AB_STEPS = 10
+STREAM_QUESTIONS, STREAM_STEPS = 1024, 10
 # Config overrides of the serving and training runs: none, the full width
 # of config.py. (A rehearsal on the CPU shrinks the shapes above and here.)
 MODEL_OVERRIDES: dict = {}
 STAGE1_MODEL = {"model.model": "vlmap_description",
                 "model.bidirectional_desc": True}
 KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
-           "attention_resident_bwd", "bigru_fwd", "bigru_bwd"]
+           "attention_resident_bwd", "bigru_fwd", "bigru_bwd",
+           "attention_bwd"]
 
 
 class PhaseError(Exception):
@@ -190,10 +223,11 @@ def plain_kernels():
 
     saved = (attention.attention_fwd, gru.gru_fwd, gru.gru_bwd,
              ar.attention_resident_fwd, ar.attention_resident_bwd,
-             gru.bigru_fwd, gru.bigru_bwd)
+             gru.bigru_fwd, gru.bigru_bwd, attention.attention_bwd)
     attention.attention_fwd = (
         lambda v, qh, wv, ws, *, normalize:
         attention.attention_fwd_reference(v, qh, wv, ws, normalize))
+    attention.attention_bwd = attention.attention_bwd_reference
     gru.gru_fwd = gru.gru_reference
     gru.gru_bwd = gru.gru_bwd_reference
     ar.attention_resident_fwd = ar.attention_resident_fwd_reference
@@ -205,7 +239,7 @@ def plain_kernels():
     finally:
         (attention.attention_fwd, gru.gru_fwd, gru.gru_bwd,
          ar.attention_resident_fwd, ar.attention_resident_bwd,
-         gru.bigru_fwd, gru.bigru_bwd) = saved
+         gru.bigru_fwd, gru.bigru_bwd, attention.attention_bwd) = saved
 
 
 def launch_counters():
@@ -217,7 +251,8 @@ def launch_counters():
             "gru_bwd": gru.gru_bwd,
             "attention_resident_fwd": ar.attention_resident_fwd,
             "attention_resident_bwd": ar.attention_resident_bwd,
-            "bigru_fwd": gru.bigru_fwd, "bigru_bwd": gru.bigru_bwd}
+            "bigru_fwd": gru.bigru_fwd, "bigru_bwd": gru.bigru_bwd,
+            "attention_bwd": attention.attention_bwd}
 
 
 def reset_counts() -> None:
@@ -298,15 +333,20 @@ def phase_attention(report: dict, dev, gen) -> dict:
         torch.bfloat16).float()
     checks = []
     for normalize in (True, False):
-        va, al = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
-        rv, ra = attention.attention_fwd_reference(v, qh, wv, ws, normalize)
+        va, al, r = attention.attention_fwd(v, qh, wv, ws,
+                                             normalize=normalize)
+        rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
+                                                       normalize)
         torch.cuda.synchronize()
         ev = (va - rv).abs().max().item()
         ea = (al - ra).abs().max().item()
+        er = rel_err(r, rr)
         tol_v = TOL_VATT_REL * rv.abs().max().item()
         print(f"K2 attention_fwd normalize={normalize}: max abs err v_att "
               f"{ev:.3e} (tol {tol_v:.3e} = 2^-10 * max|v_att|), alpha "
-              f"{ea:.3e} (tol {TOL_ALPHA})")
+              f"{ea:.3e} (tol {TOL_ALPHA}), r {er:.3e} of max|r| (tol "
+              f"{TOL_R_REL:.0e})")
+        check(er <= TOL_R_REL, f"K2 normalize={normalize} r err {er}")
         check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
               "K2 output not finite")
         check(ev <= tol_v, f"K2 normalize={normalize} v_att err {ev} > "
@@ -315,7 +355,8 @@ def phase_attention(report: dict, dev, gen) -> dict:
               f"{TOL_ALPHA}")
         checks.append({"normalize": normalize, "v_att_err": ev,
                        "v_att_tol": tol_v, "alpha_err": ea,
-                       "alpha_tol": TOL_ALPHA})
+                       "alpha_tol": TOL_ALPHA, "r_rel_err": er,
+                       "r_rel_tol": TOL_R_REL})
     return {"v": v, "qh": qh, "wv": wv, "ws": ws, "checks": checks}
 
 
@@ -447,6 +488,106 @@ def phase_resident(report: dict, dev, gen) -> dict:
             "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
                         for c in checks4),
             "err5": max(c["max_abs_err"] for c in checks5)}
+
+
+def k8_allowance(v, qh, wv, ws, ds, r, normalize: bool) -> tuple:
+    """What ReLU flips may move K8's outputs against its plain version, per
+    entry. Both recompute z = (v . W_v) r + qh with f32 sums of the same
+    exact bf16 products in another order, which differ by less than 2^-12
+    of the sum of the terms' magnitudes (C u <= 2^-13 for each order, at
+    C=2048). A unit whose plain |z| is within that may take the other side
+    of the ReLU in one version: it moves dqh_bk by at most |ds_n ws_k| and
+    dW_v[:, k] by |v_n| |ds_n ws_k| r_n, and dws not at all (relu(z) is
+    ~0 there). Returns (dqh allowance [B, H], dW_v allowance [C, H],
+    number of such units)."""
+    import torch
+
+    vf = v.float()
+    z = vf @ wv.float()
+    mag = vf.abs() @ wv.float().abs()
+    if normalize:
+        z, mag = z * r[:, :, None], mag * r[:, :, None]
+    z = z + qh[:, None, :]
+    unsure = (z.abs() <= 2.0 ** -12 * (mag + qh.abs()[:, None, :])).float()
+    del z, mag
+    flip = unsure * (ds[:, :, None] * ws).abs()
+    rr = r if normalize else torch.ones_like(r)
+    return (flip.sum(1),
+            torch.einsum("bnc,bnh->ch", vf.abs(), flip * rr[:, :, None]),
+            int(unsure.sum().item()))
+
+
+def phase_attention_bwd(report: dict, dev, gen) -> dict:
+    """K8 against its plain version at the gathered training shape, fed
+    the same ds and K2's r; then the op's parameter gradients under K8
+    against those under the explicit backward (bwd_kernel=False)."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention
+
+    Bt = B_TRAIN
+    scale = torch.exp2(torch.rand(Bt, N, 1, generator=gen, device=dev) * 4
+                       - 2)
+    v = (torch.randn(Bt, N, C, generator=gen, device=dev).relu_() * scale
+         ).to(torch.bfloat16)
+    del scale
+    qh = torch.randn(Bt, H, generator=gen, device=dev) * 0.5
+    lim = (6.0 / (C + H)) ** 0.5
+    wv = ((torch.rand(C, H, generator=gen, device=dev) * 2 - 1) * lim
+          ).to(torch.bfloat16)
+    ws = (torch.randn(H, generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    checks, err, keep = [], 0.0, {}
+    for normalize in (True, False):
+        va, al, r = attention.attention_fwd(v, qh, wv, ws,
+                                            normalize=normalize)
+        ds = (torch.randn(Bt, N, generator=gen, device=dev) * al
+              ).contiguous()
+        got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
+        want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r,
+                                                 normalize)
+        torch.cuda.synchronize()
+        a_dqh, a_dwv, unsure = k8_allowance(v, qh, wv, ws, ds, r, normalize)
+        for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                     (a_dqh, a_dwv, 0.0)):
+            e, rel = (a - b).abs().max().item(), rel_err(a, b)
+            limit = TOL_K8_REL * b.abs().max().item() + allow
+            worst = ((a - b).abs() / limit).max().item()
+            print(f"K8 attention_bwd normalize={normalize} {name}: max abs "
+                  f"err {e:.3e} ({rel:.3e} of max|{name}|); worst entry at "
+                  f"{worst:.3f} of its limit (2^-9 of max|{name}| + what "
+                  f"{unsure} units near z=0 can move it)")
+            check(bool(torch.isfinite(a).all()), f"K8 {name} not finite")
+            check(worst <= 1.0, f"K8 normalize={normalize} {name}: an "
+                  f"entry at {worst} of its limit")
+            checks.append({"normalize": normalize, "output": name,
+                           "max_abs_err": e, "rel_err": rel,
+                           "rel_tol": TOL_K8_REL, "units_near_zero": unsure,
+                           "worst_share_of_limit": worst})
+            err = max(err, e)
+        if normalize:  # the main path's mode, kept for the times
+            keep = {"v_att": va, "alpha": al, "r": r, "ds": ds}
+    # The op's gradients, K8 against the explicit backward, under a loss
+    # that drives v_att and alpha along random directions.
+    wa = torch.randn(Bt, C, generator=gen, device=dev)
+    wb = torch.randn(Bt, N, generator=gen, device=dev)
+    grads = []
+    for bwd_kernel in (True, False):
+        ins = [t.clone().requires_grad_() for t in (qh, wv.float(), ws)]
+        o, a2 = attention.spatial_attention(v, *ins, normalize=True,
+                                            bwd_kernel=bwd_kernel,
+                                            feature_grad=False)
+        ((o * wa).sum() + (a2 * wb).sum()).backward()
+        grads.append([t.grad for t in ins])
+    cos = {name: torch.nn.functional.cosine_similarity(
+        a.flatten(), b.flatten(), 0).item()
+        for name, a, b in zip(("dqh", "dwv", "dws"), *grads)}
+    print(f"gathered op grads, K8 vs the explicit backward: cosines {cos} "
+          f"(bound {GRAD_COS})")
+    check(min(cos.values()) >= GRAD_COS, f"op grads K8 vs explicit {cos}")
+    g = (wa * 0.01).contiguous()
+    ga = (wb * 0.01).contiguous()
+    return {"v": v, "qh": qh, "wv": wv, "ws": ws, **keep, "g": g, "ga": ga,
+            "checks": checks, "err": err, "op_grad_cos": cos}
 
 
 def phase_bigru(report: dict, dev, gen) -> dict:
@@ -663,21 +804,23 @@ def check_first_step(spec, state, batch, dev, what: str) -> dict:
 
 
 def read_steps(train_dir: str, steps: int, what: str, unit: str,
-               warmup: Optional[int] = None) -> dict:
+               warmup: Optional[int] = None, first: int = 0) -> dict:
     """Losses (all finite) and step times of a run logged every step: each
     record's rate spans the steps since the last one (one, or two at the
     final drain), on the host clock between waits for the device to
-    finish each step. The median over the steps after ``warmup``."""
+    finish each step. The median over the steps after ``warmup`` (counted
+    from ``first``, the step the run started from)."""
     import numpy as np
 
     warmup = WARMUP_STEPS if warmup is None else warmup
     with open(os.path.join(train_dir, "metrics.jsonl")) as fh:
-        recs = [json.loads(line) for line in fh]
+        recs = [r for r in map(json.loads, fh)
+                if "train/loss" in r and r["step"] > first]
     losses = [r["train/loss"] for r in recs]
     check(len(recs) == steps and all(np.isfinite(losses)),
           f"{what}: {len(recs)} records, losses {losses}")
     step_ms = [1e3 / r["train/steps_per_sec"] for r in recs
-               if r["step"] > warmup and "train/steps_per_sec" in r]
+               if r["step"] > first + warmup and "train/steps_per_sec" in r]
     check(len(step_ms) >= (steps - warmup) * 4 // 5,
           f"{what}: only {len(step_ms)} timed steps")
     med = statistics.median(step_ms)
@@ -689,11 +832,24 @@ def read_steps(train_dir: str, steps: int, what: str, unit: str,
             "step_ms_all": step_ms}
 
 
+def stage2_config(train_dir: str, steps: int, **over):
+    from vqa_transfer_externaldata_torch.config import Config
+
+    return Config().replace_flat({
+        "data.synthetic": True, "data.synthetic_layout": "joined",
+        "data.synthetic_size": TRAIN_QUESTIONS,
+        "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+        "train.max_steps": steps, "train.log_every": 1,
+        "train.train_dir": train_dir, **over, **MODEL_OVERRIDES})
+
+
 def phase_training(report: dict, dev) -> dict:
-    """Stage-2 training at full width through Trainer.fit_resident."""
+    """Stage-2 training at full width through Trainer.fit_resident on the
+    gather-free store, with the lagged in-loop evaluation of a 1024-question
+    val split every EVAL_EVERY steps and periodic checkpoints; then the
+    evaluators and cli.eval on the run."""
     import numpy as np
     import torch
-    from vqa_transfer_externaldata_torch.config import Config
     from vqa_transfer_externaldata_torch.data.datasets import load_dataset
     from vqa_transfer_externaldata_torch.models.zoo import build_model
     from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
@@ -703,17 +859,18 @@ def phase_training(report: dict, dev) -> dict:
     steps = WARMUP_STEPS + TIMED_STEPS
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        cfg = Config().replace_flat({
-            "data.synthetic": True, "data.synthetic_layout": "joined",
-            "data.synthetic_size": TRAIN_QUESTIONS,
-            "train.device_data_cache": True, "train.batch_size": B_TRAIN,
-            "train.max_steps": steps, "train.log_every": 1,
-            "train.train_dir": tmp, **MODEL_OVERRIDES})
+        cfg = stage2_config(tmp, steps, **{
+            "train.eval_every": EVAL_EVERY,
+            "train.checkpoint_every": EVAL_EVERY,
+            "train.keep_checkpoints": KEEP_CHECKPOINTS})
         t0 = time.perf_counter()
         ds = load_dataset(cfg, "train")
+        val_cfg = cfg.replace_flat({"data.synthetic_size": VAL_QUESTIONS})
+        val = load_dataset(val_cfg, "val")
         grid = ds.store.grid
         check(grid.shape == (TRAIN_IMAGES, N, C) and ds.size ==
-              TRAIN_QUESTIONS, f"corpus {grid.shape}, {ds.size} questions")
+              TRAIN_QUESTIONS and val.size == VAL_QUESTIONS,
+              f"corpus {grid.shape}, {ds.size} questions, val {val.size}")
         spec = build_model(cfg, generator=torch.Generator().manual_seed(
             cfg.train.seed))
         model = spec.module
@@ -724,7 +881,7 @@ def phase_training(report: dict, dev) -> dict:
 
         # --- the first step against the plain path (same dropout mask) ---
         data, make_batch, nbytes = trainer._prepare_resident(ds)
-        out["store_gb"] = data["grid_pad"].numel() * 2 / 1e9
+        out["store_gb"] = data["grid"].numel() * 2 / 1e9
         idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
         batch = make_batch(torch.from_numpy(idx0).to(dev))
         out["first_step"] = check_first_step(spec, state, batch, dev,
@@ -734,28 +891,51 @@ def phase_training(report: dict, dev) -> dict:
         # --- the main path: counts from 0 --------------------------------
         reset_counts()
         t0 = time.perf_counter()
-        state = trainer.fit_resident(ds, state)
+        state = trainer.fit_resident(ds, state, eval_ds=val)
         torch.cuda.synchronize()
         out["fit_s"] = time.perf_counter() - t0
         launches = read_counts()
         # A step: K1 one launch per timestep, K3 one per timestep plus the
-        # dU_h GEMM and the db_hn sum, K4 two, K5 three.
+        # dU_h GEMM and the db_hn sum, K4 two, K5 three. An evaluation: K1
+        # and K4 over each of the val split's batches.
+        evals = steps // EVAL_EVERY
+        eval_batches = evals * -(-VAL_QUESTIONS // B_TRAIN)
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
-            "attention_resident_fwd": 2 * steps,
+            "gru_fwd": T * (steps + eval_batches),
+            "gru_bwd": (T + 2) * steps,
+            "attention_resident_fwd": 2 * (steps + eval_batches),
             "attention_resident_bwd": 3 * steps},
-            f"stage-2 training over {steps} steps")
+            f"stage-2 training over {steps} steps with {evals} evaluations")
         check(state.step == steps, f"trained {state.step} steps")
         out.update(launches=launches,
                    **read_steps(tmp, steps, "stage-2 training", "questions"))
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            val_recs = [r for r in map(json.loads, fh) if "val/loss" in r]
+        check([r["step"] for r in val_recs] ==
+              list(range(EVAL_EVERY, steps + 1, EVAL_EVERY)) and
+              all(np.isfinite(r["val/loss"]) for r in val_recs),
+              f"in-loop evaluations: {val_recs}")
+        print(f"in-loop evaluations (lagged): {val_recs}")
+        out["val_records"] = val_recs
+        kept = trainer.ckpt.all_steps()
+        print(f"checkpoints kept: {kept} (every {EVAL_EVERY} steps, keep "
+              f"{KEEP_CHECKPOINTS})")
+        check(kept == [steps - EVAL_EVERY, steps],
+              f"checkpoints kept {kept}")
+        out["checkpoints_kept"] = kept
 
         # --- a profiler window of PROFILE_STEPS more steps ---------------
         state, out["profile"] = profile_fit(trainer, ds, state,
                                             PROFILE_STEPS)
 
-        # --- serve the trained run ---------------------------------------
+        # --- evaluation: the evaluators and the eval CLI (which restores
+        # the latest checkpoint: this state's) -----------------------------
+        trainer.ckpt.save(state.step, state, force=True)
         with open(os.path.join(tmp, "config.json"), "w") as fh:
             fh.write(cfg.to_json())
+        out["evaluation"] = check_evaluation(trainer, state, val, tmp, dev)
+
+        # --- serve the trained run ---------------------------------------
         save_params(os.path.join(tmp, PARAMS_FILE), model.state_dict())
         pred = Predictor(tmp, batch_size=64)
         check(pred.device.type == dev.type, f"Predictor picked {pred.device}")
@@ -779,6 +959,242 @@ def phase_training(report: dict, dev) -> dict:
         check(bool(torch.isfinite(served).all()) and e == 0.0,
               f"served logits differ from the trained model's by {e}")
         trainer.close()
+    return out
+
+
+def check_evaluation(trainer, state, val, run_dir: str, dev) -> dict:
+    """On the trained run: the resident evaluator (K4) against the streamed
+    evaluate() (K2 over host batches) on the same parameters, and cli.eval
+    on the run directory against evaluate_split. The two evaluators' logits
+    differ in their last bits (K4 reads the store normalized at upload, K2
+    normalizes in the op), so predictions must agree wherever the top two
+    logits are more than TOL_LOGITS apart, and the accuracies may differ by
+    the share of rows where they are not."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.parallel.evaler import (
+        evaluate_split, padded_batches)
+
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    m_res, p_res = trainer.evaluate_resident(state, val)
+    out["resident_s"] = time.perf_counter() - t0
+    res_launches = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    m_str, p_str = trainer.evaluate(state,
+                                    padded_batches(val, B_TRAIN)[0])
+    out["streamed_s"] = time.perf_counter() - t0
+    str_launches = read_counts()
+    n_batches = -(-VAL_QUESTIONS // B_TRAIN)
+    check_launches(res_launches, {"gru_fwd": T * n_batches,
+                                  "attention_resident_fwd": 2 * n_batches},
+                   "resident evaluation")
+    check_launches(str_launches, {"gru_fwd": T * n_batches,
+                                  "attention_fwd": 2 * n_batches},
+                   "streamed evaluation")
+    p_str = p_str[:VAL_QUESTIONS]
+    t0 = time.perf_counter()
+    val.take(np.arange(B_TRAIN))  # one host batch: store rows to float32
+    out["streamed_take_ms_per_batch"] = (time.perf_counter() - t0) * 1e3
+    # Margins of the top two logits, from the resident path.
+    data, make_batch, _ = trainer._prepare_resident(val)
+    margins = []
+    with torch.no_grad():
+        for lo in range(0, VAL_QUESTIONS, B_TRAIN):
+            idx = torch.arange(lo, min(lo + B_TRAIN, VAL_QUESTIONS),
+                               device=dev)
+            b = make_batch(idx)
+            top2 = trainer.model(*trainer.spec.inputs(b))["logits"].topk(
+                2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+    del data, make_batch
+    margin = torch.cat(margins).numpy()
+    differ = p_res != p_str
+    undecided = int((margin <= TOL_LOGITS).sum())
+    print(f"evaluators: resident {m_res} vs streamed {m_str}; "
+          f"{int(differ.sum())} of {VAL_QUESTIONS} predictions differ, "
+          f"{undecided} rows have top-2 logits within {TOL_LOGITS}")
+    check(bool((margin[differ] <= TOL_LOGITS).all()),
+          "the evaluators disagree on a decided row")
+    check(abs(m_res["loss"] - m_str["loss"]) <= TOL_LOSS,
+          f"eval loss {m_res['loss']} vs {m_str['loss']}")
+    for k in ("accuracy", "vqa_accuracy"):
+        check(abs(m_res[k] - m_str[k]) <= undecided / VAL_QUESTIONS + 1e-9,
+              f"eval {k} {m_res[k]} vs {m_str[k]}")
+    out.update(resident=m_res, streamed=m_str, preds_differ=int(
+        differ.sum()), undecided_rows=undecided,
+        resident_launches=res_launches, streamed_launches=str_launches)
+
+    # --- cli.eval on the run directory ----------------------------------
+    want, _ = evaluate_split(trainer, state, val)
+    t0 = time.perf_counter()
+    got = eval_cli.main(["--train.train_dir", run_dir,
+                         "--data.synthetic_size", str(VAL_QUESTIONS)])
+    out["cli_eval_s"] = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "results_val.json")) as fh:
+        rows = json.load(fh)
+    print(f"cli.eval: {got}; results_val.json holds {len(rows)} rows; "
+          f"evaluate_split's vqa_accuracy {want['vqa_accuracy']}")
+    check(len(rows) == VAL_QUESTIONS, f"results_val.json: {len(rows)} rows")
+    check(got["vqa_accuracy"] == want["vqa_accuracy"],
+          f"cli.eval vqa_accuracy {got['vqa_accuracy']} vs evaluate_split "
+          f"{want['vqa_accuracy']}")
+    out.update(cli_eval=got, evaluate_split=want, results_rows=len(rows))
+    return out
+
+
+def phase_gathered(report: dict, dev) -> dict:
+    """Stage-2 training on the gathered resident path
+    (``train.resident_fused_attention`` false): the store is kept as it is
+    and each step gathers its [B, N, C] grid, so the attention runs K2
+    forward and K8 backward. First step against the plain path, launch
+    counts, step times, a profiler window; then the step with the explicit
+    backward in place of K8 (bwd_kernel=False) and with K8 again."""
+    import functools
+
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models import vqa_attention
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.ops import attention
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gathered_") as tmp:
+        cfg = stage2_config(tmp, steps,
+                            **{"train.resident_fused_attention": False})
+        ds = load_dataset(cfg, "train")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=tmp)  # default device: CUDA
+        check(not spec.module.store_prenormalized, "gathered store changed")
+        state = trainer.init_state()
+        data, make_batch, nbytes = trainer._prepare_resident(ds)
+        check(tuple(data["grid"].shape) == (TRAIN_IMAGES, N, C) and
+              data["grid"].dtype == torch.bfloat16,
+              f"gathered store {tuple(data['grid'].shape)}")
+        out["store_gb"] = data["grid"].numel() * 2 / 1e9
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        check(tuple(batch["features"].shape) == (B_TRAIN, N, C),
+              "gathered batch shape")
+        out["first_step"] = check_first_step(spec, state, batch, dev,
+                                             "stage 2 (gathered)")
+        del data, make_batch, batch
+
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # A step: K1 and K3 as on the main path, K2 two launches, K8 three.
+        check_launches(launches, {
+            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
+            f"gathered stage-2 training over {steps} steps")
+        out.update(launches=launches,
+                   **read_steps(tmp, steps, "gathered stage-2 training",
+                                "questions"))
+        state, out["profile"] = profile_fit(trainer, ds, state,
+                                            PROFILE_STEPS)
+
+        # --- the backward A/B: explicit math, then K8 --------------------
+        ab = {}
+        for tag, bwd_kernel in (("explicit", False), ("k8", True)):
+            first = state.step
+            saved = vqa_attention.spatial_attention
+            vqa_attention.spatial_attention = functools.partial(
+                attention.spatial_attention, bwd_kernel=bwd_kernel)
+            try:
+                before = attention.attention_bwd.launches
+                state = trainer.fit_resident(ds, state,
+                                             max_steps=first + AB_STEPS)
+                torch.cuda.synchronize()
+                k8 = attention.attention_bwd.launches - before
+            finally:
+                vqa_attention.spatial_attention = saved
+            check(k8 == (3 * AB_STEPS if bwd_kernel else 0),
+                  f"A/B {tag}: {k8} K8 launches")
+            ab[tag] = read_steps(tmp, AB_STEPS, f"gathered step, {tag} "
+                                 "backward", "questions", warmup=2,
+                                 first=first)
+        out["ab"] = ab
+        trainer.close()
+    return out
+
+
+def phase_streamed(report: dict, dev) -> dict:
+    """Stage-2 training through cli.train on streamed host batches
+    (``train.device_data_cache`` false, the flat layout: a float32 grid per
+    question): each step's [B, N, C] batch is cast to bf16 into a pinned
+    buffer and copied to the card; the attention runs K2 and K8."""
+    import torch
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+
+    steps = STREAM_STEPS
+    flags = {"data.synthetic": True, "data.synthetic_layout": "flat",
+             "data.synthetic_size": STREAM_QUESTIONS,
+             "train.device_data_cache": False, "train.batch_size": B_TRAIN,
+             "train.max_steps": steps, "train.log_every": 1,
+             **MODEL_OVERRIDES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_streamed_") as tmp:
+        argv = ["--train.train_dir", tmp]
+        for k, v in flags.items():
+            argv += [f"--{k}", str(v).lower() if isinstance(v, bool)
+                     else str(v)]
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        train_dir = train_cli.main(argv)  # default device: CUDA
+        torch.cuda.synchronize()
+        out = {"cli_s": time.perf_counter() - t0}
+        launches = read_counts()
+        check_launches(launches, {
+            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
+            f"streamed stage-2 training over {steps} steps")
+        out["launches"] = launches
+        out.update(read_steps(train_dir, steps, "streamed stage-2 training",
+                              "questions", warmup=2))
+        out["batch_mb_to_device"] = B_TRAIN * N * C * 2 / 1e6
+    out["host_breakdown_ms"] = streamed_breakdown(flags, dev)
+    return out
+
+
+def streamed_breakdown(flags: dict, dev) -> dict:
+    """Where a streamed step's host time goes, one batch at a time (medians
+    of 3 after one warm-up batch): the dataset's gather of the batch rows
+    (numpy, a fresh float32 array), the bf16 cast into the pinned staging
+    buffer with the copy to the card enqueued, and the wait for that copy
+    to finish."""
+    import torch
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.parallel.trainer import _Uploader
+
+    ds = load_dataset(Config().replace_flat(flags), "train")
+    upload = _Uploader(dev, torch.bfloat16)
+    batches = ds.index_batches(B_TRAIN, seed=1)
+    parts = {"take": [], "cast_and_enqueue": [], "copy_wait": []}
+    for i in range(4):
+        idx = next(batches)
+        t0 = time.perf_counter()
+        batch = ds.take(idx)
+        t1 = time.perf_counter()
+        upload(batch)
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i:
+            for k, a, b in (("take", t0, t1), ("cast_and_enqueue", t1, t2),
+                            ("copy_wait", t2, t3)):
+                parts[k].append((b - a) * 1e3)
+    out = {k: statistics.median(v) for k, v in parts.items()}
+    print(f"streamed batch on the host, ms: {out}")
     return out
 
 
@@ -972,15 +1388,21 @@ def profile_fit(trainer, ds, state, steps: int) -> tuple:
     upload of the store comes first and is left out: the window opens at
     the host start of the first step (its first ``index_select``, the batch
     lookup) and closes at the end of the last device event; the idle share
-    is the part of that window in which nothing ran on the device."""
+    is the part of that window in which nothing ran on the device. The
+    run's closing checkpoint write is left out (not a step's work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state = trainer.fit_resident(ds, state,
-                                     max_steps=state.step + steps)
-        torch.cuda.synchronize()
+    save = trainer.ckpt.save
+    trainer.ckpt.save = lambda *a, **kw: False
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state = trainer.fit_resident(ds, state,
+                                         max_steps=state.step + steps)
+            torch.cuda.synchronize()
+    finally:
+        trainer.ckpt.save = save
     events = list(prof.events())
     starts = [e.time_range.start for e in events
               if e.name == "aten::index_select" and not on_device(e)]
@@ -1003,7 +1425,7 @@ def profile_fit(trainer, ds, state, steps: int) -> tuple:
 
 
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
-                k67: dict, dev) -> dict:
+                k67: dict, k8: dict, dev) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.ops import (
         attention, attention_resident as ar, gru)
@@ -1178,6 +1600,39 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     times["bigru_fwd"]["bound"] = bound(k6_bytes, 2 * 2 * nl6 * H * 3 * H)
     times["bigru_bwd"]["bound"] = bound(k7_bytes,
                                         2 * 3 * 2 * nl6 * H * 3 * H)
+    # K8 at the gathered training shape (normalize on, the main path's
+    # mode). Beside it: the op's whole backward with K8 (the score
+    # cotangent from one bf16 batched GEMV, then K8) and with the explicit
+    # math instead (bwd_kernel=False): the H100 A/B of the default.
+    v8, qh8, wv8, ws8 = k8["v"], k8["qh"], k8["wv"], k8["ws"]
+    ds8, r8, al8, va8 = k8["ds"], k8["r"], k8["alpha"], k8["v_att"]
+    g8, ga8 = k8["g"], k8["ga"]
+
+    def k8_backward():
+        dalpha = attention._score_dot(v8, g8) * r8
+        s8 = (g8 * va8).sum(-1) + (al8 * ga8).sum(-1)
+        ds = (al8 * (dalpha + ga8 - s8[:, None])).contiguous()
+        return attention.attention_bwd(v8, qh8, wv8, ws8, ds, r8, True)
+
+    times["attention_bwd"] = {
+        "kernel": time_cuda(lambda: attention.attention_bwd(
+            v8, qh8, wv8, ws8, ds8, r8, True), buf),
+        "plain": time_cuda(lambda: attention.attention_bwd_reference(
+            v8, qh8, wv8, ws8, ds8, r8, True), buf),
+        "op_backward_with_kernel": time_cuda(k8_backward, buf),
+        "explicit_backward": time_cuda(lambda: attention.attention_bwd_math(
+            v8, qh8, wv8, ws8, al8, va8, g8, ga8, normalize=True,
+            feature_grad=False), buf),
+        "library": None,
+    }
+    # Each input read once (v, qh, W_v, ws, ds, r), each output written
+    # once; z recomputed and the dW_v GEMM, 2 B N C H operations each, plus
+    # the elementwise dz, dqh and dws (a few per unit).
+    Bt = B_TRAIN
+    k8_bytes = (Bt * N * C * 2 + Bt * H * 4 + C * H * 2 + H * 4
+                + 2 * Bt * N * 4 + Bt * H * 4 + C * H * 4 + H * 4)
+    k8_flops = 2 * 2 * Bt * N * C * H + 6 * Bt * N * H
+    times["attention_bwd"]["bound"] = bound(k8_bytes, k8_flops)
     report["bound_inputs"] = {"k1_live_steps": nlen,
                               "k1_live_steps_serving": nlen_serving,
                               "k3_live_steps": nl3, "k45_unique_rows": uniq,
@@ -1187,6 +1642,9 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library {t['library']}, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    print(f"gathered backward A/B: with K8 "
+          f"{times['attention_bwd']['op_backward_with_kernel']:.4f} ms, "
+          f"explicit {times['attention_bwd']['explicit_backward']:.4f} ms")
     return times
 
 
@@ -1244,13 +1702,16 @@ def main(argv=None) -> int:
         k3 = phase_gru_bwd(report, dev, gen)
         k45 = phase_resident(report, dev, gen)
         k67 = phase_bigru(report, dev, gen)
+        k8 = phase_attention_bwd(report, dev, gen)
         serving = phase_serving(report, dev)
         report["training"] = training = phase_training(report, dev)
+        report["gathered"] = gathered = phase_gathered(report, dev)
+        report["streamed"] = streamed = phase_streamed(report, dev)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_stage1_") as root:
             report["stage1"] = stage1 = phase_stage1(report, dev, root)
             report["transfer"] = transfer = phase_transfer(
                 report, dev, stage1["params_path"])
-        times = phase_times(report, k1, k2, k3, k45, k67, dev)
+        times = phase_times(report, k1, k2, k3, k45, k67, k8, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -1260,7 +1721,8 @@ def main(argv=None) -> int:
     # plain version; each kernel also lists its checks beside their limits.
     # launches: the count of the path that runs the kernel (stage-2
     # training for K1, K3-K5; serving for K2; stage-1 training for K6 and
-    # K7), and every path's count under launches_by_path. K1's times
+    # K7; gathered stage-2 training for K8), and every path's count under
+    # launches_by_path. K1's times
     # are at the training batch, and at the serving batch under
     # at_serving_batch.
     src = "vqa_transfer_externaldata_torch/csrc/"
@@ -1290,13 +1752,22 @@ def main(argv=None) -> int:
         "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
             "checks": k67["checks7"],
             "diff_vs_two_k3_calls": k67["diff7"]}),
+        "attention_bwd": (ref + "attention.py:267", k8["err"], {
+            "checks": k8["checks"], "op_grad_cos_vs_explicit":
+            k8["op_grad_cos"],
+            "op_backward_with_kernel_ms":
+            times["attention_bwd"]["op_backward_with_kernel"],
+            "explicit_backward_ms":
+            times["attention_bwd"]["explicit_backward"]}),
     }
     paths = {"serving": serving, "training": training["launches"],
+             "gathered": gathered["launches"],
+             "streamed": streamed["launches"],
              "stage1": stage1["gathered"]["launches"],
              "stage1_dense": stage1["dense"]["launches"],
              "transfer": transfer["launches"]}
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
-                 "bigru_bwd": "stage1"}
+                 "bigru_bwd": "stage1", "attention_bwd": "gathered"}
     kernels = []
     for name, (replaces, err, errs) in meta.items():
         t = times[name]

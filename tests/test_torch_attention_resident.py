@@ -102,6 +102,26 @@ def test_no_grad_forward_saves_nothing_and_store_gets_no_grad():
     assert st.grad is None and w.grad is not None
 
 
+def test_evaluation_saves_no_h_with_trainable_params(monkeypatch):
+    """Under no_grad the forward saves no h ([B, Np, H], 52 MB a batch at
+    full width) even though the parameters require gradients, as in the
+    resident evaluator: the Function's needs_input_grad follows the inputs'
+    requires_grad, not the grad mode, so the op decides from the grad mode
+    before it applies the Function."""
+    store, rows, qh, wv, ws, _, _ = _inputs(3)
+    seen = []
+    plain = tar.attention_resident_fwd_reference
+    monkeypatch.setattr(tar, "attention_resident_fwd_reference",
+                        lambda *a, **kw: seen.append(kw["save_h"])
+                        or plain(*a, **kw))
+    params = [torch.from_numpy(x).requires_grad_() for x in (qh, wv, ws)]
+    args = (torch.from_numpy(store), torch.from_numpy(rows), *params)
+    with torch.no_grad():
+        tar.spatial_attention_resident(*args, n_valid=N)
+    tar.spatial_attention_resident(*args, n_valid=N)
+    assert seen == [False, True]
+
+
 def test_pad_and_prenormalize_are_bit_equal_to_jax():
     rng = np.random.default_rng(3)
     grid = (rng.normal(size=(5, N, C)) * 3).astype(np.float16)

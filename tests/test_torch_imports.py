@@ -24,7 +24,7 @@ banned = ("jax", "jaxlib", "flax", "optax", "orbax",
           "vqa_transfer_externaldata_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), "modules")
-assert len(names) >= 25, names
+assert len(names) >= 29, names
 assert not bad, bad
 assert "torch" in sys.modules
 """
@@ -60,7 +60,9 @@ def test_chip_smoke_imports_no_jax():
 
 @pytest.mark.parametrize("name", ["ops.kernels", "ops.gru", "ops.attention",
                                   "ops.attention_resident",
-                                  "parallel.trainer", "models.vlmap"])
+                                  "parallel.trainer", "models.vlmap",
+                                  "parallel.evaler", "cli.eval",
+                                  "utils.checkpoint", "utils.metrics"])
 def test_importing_kernel_modules_builds_nothing(name):
     """Kernels are built on first launch only: importing the modules (as
     every CPU test does) must not look for nvcc or write a library."""

@@ -1,7 +1,8 @@
 """Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
-(attention_resident_fwd), K5 (attention_resident_bwd), K6 (bigru_fwd) and
-K7 (bigru_bwd) on the card against their plain PyTorch versions. They need an NVIDIA GPU with nvcc
-(the kernels have no CPU mode) and skip without one; on a GPU machine run
+(attention_resident_fwd), K5 (attention_resident_bwd), K6 (bigru_fwd), K7
+(bigru_bwd) and K8 (attention_bwd) on the card against their plain PyTorch
+versions. They need an NVIDIA GPU with nvcc (the kernels have no CPU mode)
+and skip without one; on a GPU machine run
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -14,7 +15,10 @@ by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
 value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
 saved h 2^-7, K5 2^-9. K6 and K7 run K1's and K3's step kernels with a
 direction axis: h as K1's, K7 as K3's, and each equals two K1 (K3) calls
-on the same inputs bit for bit.
+on the same inputs bit for bit. K8 recomputes z, so a unit whose z lies
+within rounding of 0 may take the other side of the ReLU in one version:
+each output is held to 2^-9 of its largest value plus, per entry, what such
+units can move it (``_k8_allowance``, the reasoning of chip_smoke.py).
 """
 
 import pytest
@@ -79,10 +83,11 @@ def test_attention_fwd_matches_plain(dev, n, normalize):
     ws = (torch.randn(H, generator=g, device=dev) * 0.1).to(
         torch.bfloat16).float()
     before = attention.attention_fwd.launches
-    va, al = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
-    rv, ra = attention.attention_fwd_reference(v, qh, wv, ws, normalize)
+    va, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+    rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws, normalize)
     torch.cuda.synchronize()
     assert attention.attention_fwd.launches == before + 2
+    assert (r - rr).abs().max().item() <= 1e-6 * rr.abs().max().item()
     assert (va - rv).abs().max().item() <= 2.0 ** -10 * rv.abs().max().item()
     assert (al - ra).abs().max().item() <= 1e-5
 
@@ -341,3 +346,84 @@ def test_fused_bigru_encoder_goes_through_k6_k7(dev):
         cos = torch.nn.functional.cosine_similarity(
             a.flatten(), res[1][1][k].flatten(), dim=0).item()
         assert cos >= 0.999, (k, cos)
+
+
+def _k8_allowance(v, qh, wv, ws, ds, r, normalize):
+    """Per-entry bound on what ReLU flips can move K8's outputs against its
+    plain version: units whose plain z is within 2^-12 of the sum of the
+    magnitudes of its terms (two orders of f32 sums over C products differ
+    by less) may flip, each moving dqh_bk by |ds_n ws_k| and dW_v[:, k] by
+    |v_n| |ds_n ws_k| r_n."""
+    vf = v.float()
+    z = vf @ wv.float()
+    mag = vf.abs() @ wv.float().abs()
+    if normalize:
+        z, mag = z * r[:, :, None], mag * r[:, :, None]
+    z = z + qh[:, None, :]
+    unsure = (z.abs() <= 2.0 ** -12 * (mag + qh.abs()[:, None, :])).float()
+    flip = unsure * (ds[:, :, None] * ws).abs()
+    rr = r if normalize else torch.ones_like(r)
+    return (flip.sum(1), torch.einsum("bnc,bnh->ch", vf.abs(),
+                                      flip * rr[:, :, None]),
+            int(unsure.sum().item()))
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 128, 128), (256, 196, 2048, 512)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_bwd_matches_plain(dev, shape, normalize):
+    B, N, C, H = shape
+    g = torch.Generator(device=dev).manual_seed(10)
+    scale = torch.exp2(torch.rand(B, N, 1, generator=g, device=dev) * 4 - 2)
+    v = (torch.randn(B, N, C, generator=g, device=dev).relu() * scale).to(
+        torch.bfloat16)
+    qh = torch.randn(B, H, generator=g, device=dev) * 0.5
+    wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1)
+          * (6.0 / (C + H)) ** 0.5).to(torch.bfloat16)
+    ws = (torch.randn(H, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    _, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+    ds = (torch.randn(B, N, generator=g, device=dev) * al).contiguous()
+    before = attention.attention_bwd.launches
+    got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
+    want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, normalize)
+    torch.cuda.synchronize()
+    assert attention.attention_bwd.launches == before + 3
+    a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, normalize)
+    for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                 (a_dqh, a_dwv, 0.0)):
+        assert torch.isfinite(a).all(), name
+        limit = TOL_K5 * b.abs().max().item() + allow
+        assert ((a - b).abs() <= limit).all(), (name, _rel_err(a, b))
+
+
+def test_gathered_op_grads_go_through_k2_k8(dev):
+    """The autograd op on the card launches K2 forward and K8 backward, and
+    its parameter gradients agree with the explicit backward's
+    (bwd_kernel=False) to cosine 0.999, under a loss that drives v_att and
+    alpha along random directions."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, N, C, H = 16, 49, 256, 128
+    v = torch.randn(B, N, C, generator=g, device=dev).relu().to(
+        torch.bfloat16)
+    params = [torch.randn(B, H, generator=g, device=dev) * 0.5,
+              torch.randn(C, H, generator=g, device=dev) * 0.05,
+              torch.randn(H, generator=g, device=dev) * 0.05]
+    wa = torch.randn(B, C, generator=g, device=dev)
+    wb = torch.randn(B, N, generator=g, device=dev)
+    grads = []
+    for bwd_kernel in (True, False):
+        ins = [p.clone().requires_grad_() for p in params]
+        counts = (attention.attention_fwd.launches,
+                  attention.attention_bwd.launches)
+        va, al = attention.spatial_attention(v, *ins, normalize=True,
+                                             bwd_kernel=bwd_kernel,
+                                             feature_grad=False)
+        ((va * wa).sum() + (al * wb).sum()).backward()
+        assert (attention.attention_fwd.launches - counts[0],
+                attention.attention_bwd.launches - counts[1]) == (
+                    2, 3 if bwd_kernel else 0)
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+        assert cos >= 0.999, cos

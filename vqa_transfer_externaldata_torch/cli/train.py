@@ -1,7 +1,7 @@
 """Training CLI of the port, for both stages (dispatched by
-``--model.model``), on the device-resident synthetic corpora:
+``--model.model``), on the synthetic corpora:
 
-    # stage 1 (visual-word pretraining)
+    # stage 1 (visual-word pretraining), device-resident
     python -m vqa_transfer_externaldata_torch.cli.train \
         --model.model vlmap_description --model.bidirectional_desc true \
         --data.synthetic true --train.device_data_cache true \
@@ -11,14 +11,20 @@
         --data.synthetic true --data.synthetic_layout joined \
         --train.device_data_cache true --train.train_dir runs/vqa \
         --train.pretrained_param_path runs/vlmap/params_final.pt
+    # stage 2 on streamed host batches (the config's default)
+    python -m vqa_transfer_externaldata_torch.cli.train \
+        --data.synthetic true --train.train_dir runs/vqa_streamed
 
-Writes ``config.json``, ``metrics.jsonl`` and ``params_final.pt`` (served
-by ``serving.Predictor`` for a stage-2 run) into the run directory and
-returns its path. Runs on CUDA unless ``--device cpu``. Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: the grain input
-pipeline (item 14) and streamed (not device-resident) training (item 9).
-Periodic checkpoints and resume (item 8) are not written: the run saves its
-final parameters only.
+``--train.device_data_cache true`` trains with ``Trainer.fit_resident``
+(the split uploaded once), otherwise ``Trainer.fit`` streams host batches.
+The val split is evaluated every ``train.eval_every`` steps. Writes
+``config.json``, ``metrics.jsonl``, checkpoints under ``ckpt/`` and
+``params_final.pt`` (served by ``serving.Predictor`` for a stage-2 run)
+into the run directory and returns its path; a run directory that holds a
+checkpoint is resumed from its latest one unless ``--train.resume false``.
+Runs on CUDA unless ``--device cpu``. Not ported yet, raising
+``NotImplementedError`` with its ROADMAP item: the grain input pipeline
+(item 14).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from vqa_transfer_externaldata_torch.cli.common import (
     build_spec, resolve_train_dir)
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+from vqa_transfer_externaldata_torch.parallel.evaler import padded_batches
 from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
 from vqa_transfer_externaldata_torch.utils.checkpoint import (
@@ -49,15 +56,9 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     args, rest = p.parse_known_args(argv)
     cfg = Config.from_args(rest)
     t = cfg.train
-    for on, what, item in (
-            (cfg.data.input_pipeline == "grain", "the grain input pipeline",
-             "item 14"),
-            (not t.device_data_cache,
-             "streamed training (--train.device_data_cache false)",
-             "item 9")):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md, section 1, {item})")
+    if cfg.data.input_pipeline == "grain":
+        raise NotImplementedError("the grain input pipeline is not ported "
+                                  "yet (ROADMAP.md, section 1, item 14)")
     spec, word_vocab, answer_vocab = build_spec(
         cfg, generator=torch.Generator().manual_seed(t.seed))
     if t.pretrained_param_path and spec.stage != "vqa":
@@ -70,6 +71,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     with open(os.path.join(train_dir, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
     train_ds = load_dataset(cfg, "train", stage=spec.stage)
+    val_ds = load_dataset(cfg, "val", stage=spec.stage)
     params = None
     if t.pretrained_param_path:
         # Cross-stage transfer: stage 1's word table, and answer rows
@@ -82,7 +84,16 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         log.info("answer-embedding transfer init applied from %s",
                  t.pretrained_param_path)
     state = trainer.init_state(params)
-    state = trainer.fit_resident(train_ds, state)
+    # Resume after the transfer: a resumed run keeps its trained values.
+    if t.resume and trainer.ckpt.latest_step() is not None:
+        state = trainer.restore(state)
+        log.info("resumed from step %d", state.step)
+    if t.device_data_cache:
+        state = trainer.fit_resident(train_ds, state, eval_ds=val_ds)
+    else:
+        state = trainer.fit(
+            train_ds.batches(t.batch_size, seed=t.seed), state,
+            eval_batches_fn=lambda: padded_batches(val_ds, t.batch_size)[0])
     final = os.path.join(train_dir, PARAMS_FILE)
     save_params(final, spec.module.state_dict())
     log.info("final params saved to %s", final)

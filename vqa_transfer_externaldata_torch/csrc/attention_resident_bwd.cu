@@ -30,33 +30,25 @@
 //     (and the sum of squares when normalizing); then each thread takes
 //     hidden units and walks the cells in order for dqh, its question's dws
 //     partial and bf16(dz * r), written compactly as [B * n_valid, H].
-//  2. attn_res_dwv_kernel: the dW_v GEMM, [C, B*n_valid] x [B*n_valid, H],
-//     with the store rows looked up per cell as in K4. Blocks own 128 x 128
-//     tiles of dW_v and a fixed slice of the cells (split over K, so that
-//     the 64 tiles fill the card); bf16 WMMA with the next k-step's tiles
-//     loaded into registers during the MMAs. Each block writes its own
-//     partial tile.
-//  3. attn_res_reduce_kernel sums the dW_v partials over the splits and the
-//     dws partials over the questions, both in a fixed order: the result
-//     does not depend on the schedule.
+//  2. the dW_v GEMM, [C, B*n_valid] x [B*n_valid, H], with the store rows
+//     looked up per cell as in K4 (attention_dwv.cuh, shared with K8):
+//     blocks own 128 x 128 tiles of dW_v and a fixed slice of the cells
+//     (split over K, so that the 64 tiles fill the card), bf16 WMMA, one
+//     partial tile per block;
+//  3. a reduction that sums the dW_v partials over the splits and the dws
+//     partials over the questions, both in a fixed order: the result does
+//     not depend on the schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
+#include "attention_dwv.cuh"
+
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kRowThreads = 256;
-constexpr int kTM = 128;  // dW_v rows (channels) per block
-constexpr int kTN = 128;  // dW_v columns (hidden units) per block
-constexpr int kTK = 32;   // cells per k-step
-constexpr int kLd = kTM + 8;
-constexpr int kGemmThreads = 256;  // 8 warps: 4 (channels) x 2 (hidden)
-constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -132,112 +124,6 @@ attn_res_bwd_rows_kernel(const __nv_bfloat16* __restrict__ store,  // [M,Np,C]
   }
 }
 
-// part[s] = sum over cells kk in split s of v(kk)^T dzr[kk], one 128 x 128
-// tile of [C, H] per block.
-__global__ void __launch_bounds__(kGemmThreads)
-attn_res_dwv_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
-                    const int* __restrict__ rows,             // [B]
-                    const __nv_bfloat16* __restrict__ dzr,  // [K, H]
-                    float* __restrict__ part,               // [S, C, H]
-                    int K, int n_valid, int Np, int C, int H,
-                    int per_split) {
-  __shared__ __align__(128) __nv_bfloat16 As[kTK * kLd];  // [cell][c]
-  __shared__ __align__(128) __nv_bfloat16 Bs[kTK * kLd];  // [cell][h]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;  // channels wr*32 .. +32
-  const int wc = warp & 1;   // hidden units wc*64 .. +64
-  const int c0 = blockIdx.x * kTM;
-  const int h0 = blockIdx.y * kTN;
-  const int k_begin = blockIdx.z * per_split;
-  const int k_end = min(K, k_begin + per_split);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // Each thread stages rows lr and lr + 16 of both tiles, 8 values each.
-  const int lr = tid >> 4;
-  const int lc = (tid & 15) * 8;
-  uint4 a4[2], b4[2];
-  auto load = [&](int kbase) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int kk = kbase + lr + 16 * i;
-      a4[i] = make_uint4(0u, 0u, 0u, 0u);
-      b4[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (kk < k_end) {
-        const int b = kk / n_valid;
-        const int n = kk - b * n_valid;
-        a4[i] = *reinterpret_cast<const uint4*>(
-            store + (static_cast<size_t>(rows[b]) * Np + n) * C + c0 + lc);
-        b4[i] = *reinterpret_cast<const uint4*>(
-            dzr + static_cast<size_t>(kk) * H + h0 + lc);
-      }
-    }
-  };
-
-  if (k_begin < k_end) load(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += kTK) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(&As[(lr + 16 * i) * kLd + lc]) = a4[i];
-      *reinterpret_cast<uint4*>(&Bs[(lr + 16 * i) * kLd + lc]) = b4[i];
-    }
-    __syncthreads();
-    if (k0 + kTK < k_end) load(k0 + kTK);  // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < kTK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> af[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(af[i], &As[kk * kLd + wr * 32 + i * 16], kLd);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, &Bs[kk * kLd + wc * 64 + j * 16], kLd);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bf,
-                                                   acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + static_cast<size_t>(blockIdx.z) * C * H;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(
-          out + static_cast<size_t>(c0 + wr * 32 + i * 16) * H + h0 +
-              wc * 64 + j * 16,
-          acc[i][j], H, wmma::mem_row_major);
-}
-
-__global__ void __launch_bounds__(kReduceThreads)
-attn_res_reduce_kernel(const float* __restrict__ part,      // [S, C*H]
-                       const float* __restrict__ dws_part,  // [B, H]
-                       float* __restrict__ dwv,             // [C*H]
-                       float* __restrict__ dws,             // [H]
-                       int splits, int CH, int B, int H) {
-  const int i = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (i < CH) {
-    float s = 0.0f;
-    for (int p = 0; p < splits; ++p) s += part[static_cast<size_t>(p) * CH + i];
-    dwv[i] = s;
-  } else if (i < CH + H) {
-    const int k = i - CH;
-    float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += dws_part[static_cast<size_t>(b) * H + k];
-    dws[k] = s;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -273,23 +159,17 @@ int attention_resident_bwd(const void* store, const void* rows,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
-  const int K = B * n_valid;
-  const int per_split = ((K + splits - 1) / splits + kTK - 1) / kTK * kTK;
-  const dim3 g2(C / kTM, H / kTN, splits);
-  attn_res_dwv_kernel<<<g2, kGemmThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(store),
-      static_cast<const int*>(rows),
-      static_cast<const __nv_bfloat16*>(dzr), static_cast<float*>(part), K,
-      n_valid, Np, C, H, per_split);
-  e = cudaGetLastError();
+  e = attn_dwv::launch_dwv(
+      attn_dwv::StoreCells{static_cast<const __nv_bfloat16*>(store),
+                           static_cast<const int*>(rows), n_valid, Np, C},
+      static_cast<const __nv_bfloat16*>(dzr), static_cast<float*>(part),
+      B * n_valid, C, H, splits, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
-  const int CH = C * H;
-  attn_res_reduce_kernel<<<(CH + H + kReduceThreads - 1) / kReduceThreads,
-                           kReduceThreads, 0, st>>>(
-      static_cast<const float*>(part), static_cast<const float*>(dws_part),
-      static_cast<float*>(dwv), static_cast<float*>(dws), splits, CH, B, H);
-  e = cudaGetLastError();
+  e = attn_dwv::launch_reduce(static_cast<const float*>(part),
+                              static_cast<const float*>(dws_part),
+                              static_cast<float*>(dwv),
+                              static_cast<float*>(dws), splits, C, H, B, st);
   if (e == cudaSuccess) ++*launched;
   return static_cast<int>(e);
 }

@@ -1,13 +1,16 @@
 """Datasets of the port: a dict-of-arrays dataset with the JAX package's
 seeded index stream, the synthetic corpora of stage 1 (region-word and
-description blank fill) and stage 2 (the deduplicated store), the dense
-candidate counts, ``load_dataset`` for them, and the synthetic
-vocabularies. Arrays are numpy, equal to the JAX package's for the same
-config and seed; the trainer moves them to the device.
+description blank fill) and stage 2 (flat, and the deduplicated store), the
+dense candidate counts, ``load_dataset`` for them, a prefetching batch
+iterator, and the synthetic vocabularies. Arrays are numpy, equal to the
+JAX package's for the same config and seed; the trainer moves them to the
+device.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -147,6 +150,44 @@ def synthetic_vlmap_desc(cfg: Config, *, size: Optional[int] = None,
     return ArrayDataset(arrays)
 
 
+def synthetic_vqa(cfg: Config, *, size: Optional[int] = None,
+                  seed: int = 0, with_scores: bool = False) -> ArrayDataset:
+    """Synthetic stage-2 data in the flat layout: every question carries
+    its own [N, C] float32 grid (``features``) and ``pool5``; the answer is
+    a fixed projection of pool5, so the loss can be driven below chance.
+    Given the same config and seed, the arrays equal the JAX package's
+    (whose cache under ``~/.cache/vqa_synth`` is never read here: nothing is
+    cached on disk)."""
+    d = cfg.data
+    n = size or d.synthetic_size
+    rng = np.random.default_rng(seed)
+    N = d.grid_h * d.grid_w
+    q_len = rng.integers(3, d.max_question_len + 1, size=n)
+    q_ids = np.zeros((n, d.max_question_len), np.int32)
+    for i, L in enumerate(q_len):
+        q_ids[i, :L] = rng.integers(4, d.vocab_size, size=L)
+    pool5 = rng.standard_normal((n, d.pool5_dim), dtype=np.float32)
+    # Low-rank grid expansion: a thin random factor times a fixed mixing
+    # matrix gives full-size grids in one BLAS call.
+    rank = 32
+    thin = rng.standard_normal((n * N, rank), dtype=np.float32)
+    mix = np.random.default_rng(99).standard_normal(
+        (rank, d.feature_dim), dtype=np.float32)
+    mix /= np.float32(np.sqrt(rank))
+    grid = (thin @ mix).reshape(n, N, d.feature_dim)
+    grid += pool5[:, None, : d.feature_dim]
+    proj = np.random.default_rng(1234).standard_normal(
+        (d.pool5_dim, d.num_answers), dtype=np.float32)
+    answer = 4 + (np.argmax(pool5 @ proj, axis=1) % (d.num_answers - 4))
+    arrays = {"q_ids": q_ids, "pool5": pool5, "features": grid,
+              "answer_id": answer.astype(np.int32)}
+    if with_scores:
+        scores = np.zeros((n, d.num_answers), np.float32)
+        scores[np.arange(n), answer] = 1.0
+        arrays["answer_scores"] = scores
+    return ArrayDataset(arrays)
+
+
 def synthetic_vqa_joined(cfg: Config, *, n_questions: int = 4096,
                          n_images: int = 512, seed: int = 0,
                          with_scores: bool = False):
@@ -202,9 +243,9 @@ def load_dataset(cfg: Config, split: str, stage: str = "vqa"
                  ) -> ArrayDataset:
     """The dataset of ``split`` for ``stage``, seeded by the split as in
     the JAX package. Ported: the synthetic stage-1 corpora (``stage``
-    "vlmap" or "vlmap_desc", ``data.synthetic_size`` rows) and the
-    synthetic joined layout of stage 2 (``--data.synthetic_layout
-    joined``: ``data.synthetic_size`` questions over a store of 1/8 as
+    "vlmap" or "vlmap_desc", ``data.synthetic_size`` rows) and both
+    synthetic layouts of stage 2: ``flat`` (a grid per question) and
+    ``joined`` (``data.synthetic_size`` questions over a store of 1/8 as
     many images). Every other source raises ``NotImplementedError`` naming
     its ROADMAP item."""
     d = cfg.data
@@ -224,14 +265,48 @@ def load_dataset(cfg: Config, split: str, stage: str = "vqa"
         raise ValueError(f"unknown stage {stage!r}: expected 'vqa', "
                          "'vlmap' or 'vlmap_desc'")
     if d.synthetic_layout == "flat":
-        raise NotImplementedError(
-            "the flat synthetic layout (gathered features) is not ported "
-            "yet (ROADMAP.md, section 1, item 9); use "
-            "--data.synthetic_layout joined")
+        return synthetic_vqa(cfg, seed=seed, with_scores=(split != "train"))
     n_q = d.synthetic_size
     return synthetic_vqa_joined(cfg, n_questions=n_q,
                                 n_images=max(1, n_q // 8), seed=seed,
                                 with_scores=(split != "train"))
+
+
+class PrefetchIterator:
+    """Background-thread prefetch over a batch iterator: a worker thread
+    prepares the next ``depth`` batches (feature gathers, file reads) while
+    the device runs the current step. An exception in the worker is raised
+    to the consumer at the batch where it happened."""
+
+    def __init__(self, it: Iterator[Dict[str, np.ndarray]],
+                 depth: int = 2) -> None:
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, depth))
+        self._done = object()
+        self._exc: Optional[BaseException] = None
+
+        def worker() -> None:
+            try:
+                for item in it:
+                    self._q.put(item)
+            except BaseException as e:  # handed to the consumer below
+                self._exc = e
+            finally:
+                self._q.put(self._done)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def __iter__(self) -> "PrefetchIterator":
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        item = self._q.get()
+        if item is self._done:
+            self._q.put(self._done)  # later calls stop too
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return item
 
 
 def synthetic_vocabs(cfg: Config) -> Tuple[Vocab, Vocab]:

@@ -8,11 +8,10 @@ Input: ``q_ids`` [B, T] int (<pad>=0) and either gathered ``features``
 [B, N, C] (the eval forward of serving) or a tuple ``(store [M, Np, C],
 rows [B] int32)``: the gather-free resident path, where the attention reads
 each question's grid straight out of a store held in device memory
-(``ops/attention_resident``). ``train=True`` turns dropout on, drawn from
-an explicit ``torch.Generator``; training takes the resident input only
-(gathered-feature training and more than one glimpse come in later
-slices). Parameter names follow the JAX package's tree
-(``utils/convert.py`` maps one to the other).
+(``ops/attention_resident``). Both inputs train: ``train=True`` turns
+dropout on, drawn from an explicit ``torch.Generator``. More than one
+glimpse comes in a later slice. Parameter names follow the JAX package's
+tree (``utils/convert.py`` maps one to the other).
 """
 
 from __future__ import annotations
@@ -32,11 +31,6 @@ from vqa_transfer_externaldata_torch.ops.layers import (
     Dense, GatedTanh, WordEmbedding, dropout, glorot_uniform_, l2_normalize)
 from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID, UNK_ID
 
-GATHERED_TRAIN_TODO = (
-    "training on gathered features is not ported yet (ROADMAP.md, "
-    "section 1, item 9): train on the resident (store, rows) input")
-
-
 class VQAAttentionModel(nn.Module):
     def __init__(self, vocab_size: int, num_answers: int, *,
                  feature_dim: int = 2048, word_dim: int = 300,
@@ -45,6 +39,7 @@ class VQAAttentionModel(nn.Module):
                  dropout: float = 0.5,
                  n_cells: Optional[int] = None,
                  store_prenormalized: bool = False,
+                 feature_grad: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
                  word_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None) -> None:
@@ -58,6 +53,9 @@ class VQAAttentionModel(nn.Module):
         # Set by the Trainer when it L2-normalizes the resident store once
         # at upload: the (store, rows) path then skips the per-cell norm.
         self.store_prenormalized = store_prenormalized
+        # True only when the gathered grid needs a gradient (features that
+        # are not data); False lets the attention backward skip dv.
+        self.feature_grad = feature_grad
         self.word_emb = WordEmbedding(vocab_size, word_dim,
                                       init_matrix=word_init, dtype=dtype,
                                       generator=g)
@@ -88,8 +86,6 @@ class VQAAttentionModel(nn.Module):
         dropout on, drawn from ``generator``."""
         dt = self.dtype
         resident = isinstance(features, (tuple, list))
-        if train and not resident:
-            raise NotImplementedError(GATHERED_TRAIN_TODO)
         mask = (q_ids != PAD_ID).float()
         # Look up the transposed ids: words are born time-major [T, B, D],
         # the layout the recurrence consumes.
@@ -104,7 +100,8 @@ class VQAAttentionModel(nn.Module):
         else:
             # The per-cell L2 normalization of the grid is fused into the op.
             v_att, alpha = spatial_attention(
-                features.to(dt), qh, self.att_wv, self.att_ws, normalize=True)
+                features.to(dt), qh, self.att_wv, self.att_ws, normalize=True,
+                feature_grad=self.feature_grad)
         fused = self.fuse_q(q) * self.fuse_v(v_att.to(dt))
         if train and self.dropout > 0.0:
             fused = dropout(fused, self.dropout, generator)

@@ -38,13 +38,16 @@ _NOT_PORTED = {
 class ModelSpec:
     """module: the model; inputs: batch -> positional arguments of its
     forward; loss: (outputs, batch) -> (scalar, metrics); stage: "vqa"
-    (stage 2) or a stage-1 dataset prefix ("vlmap", "vlmap_desc")."""
+    (stage 2) or a stage-1 dataset prefix ("vlmap", "vlmap_desc");
+    label_key: the batch column the loss needs (an evaluation split
+    without it gets predictions only)."""
 
     module: nn.Module
     inputs: Callable[[Dict[str, Any]], Tuple]
     loss: Callable[[Dict[str, torch.Tensor], Dict[str, Any]],
                    Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     stage: str
+    label_key: str
 
 
 def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
@@ -72,7 +75,7 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
             generator=generator)
         return ModelSpec(module,
                          lambda b: (b["feature"], b["task"], b["candidates"]),
-                         vlmap_loss, "vlmap")
+                         vlmap_loss, "vlmap", "label")
     if name == "vlmap_description":
         module = VLMapDescriptionModel(
             d.vocab_size, num_tasks=m.num_tasks, feature_dim=d.pool5_dim,
@@ -83,7 +86,7 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
         return ModelSpec(module,
                          lambda b: (b["feature"], b["desc_ids"], b["task"],
                                     b["candidates"]),
-                         vlmap_loss, "vlmap_desc")
+                         vlmap_loss, "vlmap_desc", "label")
     if m.fidelity_mode or m.rnn_variant != "cudnn":
         raise NotImplementedError(
             "the TF1-exact GRU (model.rnn_variant tf, model.fidelity_mode) "
@@ -99,4 +102,4 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
         n_cells=d.grid_h * d.grid_w, dtype=dt, word_init=word_init,
         generator=generator)
     return ModelSpec(module, lambda b: (b["features"], b["q_ids"]), vqa_loss,
-                     "vqa")
+                     "vqa", "answer_id")

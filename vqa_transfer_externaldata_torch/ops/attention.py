@@ -9,11 +9,14 @@ With ``normalize`` the per-cell L2 norm of ``v`` is fused in by scaling
 after the matmul: h = relu((v @ Wv) * r + qh), v_att = sum (alpha r) v,
 r = rsqrt(|v|^2 + 1e-12).
 
-:func:`spatial_attention` is the forward entry point: on CUDA tensors it
-launches the hand-written kernel ``csrc/attention_fwd.cu`` (wrapper
-:func:`attention_fwd`), on CPU tensors its plain version
-:func:`attention_fwd_reference`. :func:`spatial_attention_reference` and
-:func:`_reference_postscaled` are the JAX package's oracles, in PyTorch.
+:func:`spatial_attention` is the entry point, differentiable: on CUDA
+tensors its forward launches the hand-written kernel ``csrc/attention_fwd.cu``
+(K2, wrapper :func:`attention_fwd`) and its backward
+``csrc/attention_bwd.cu`` (K8, wrapper :func:`attention_bwd`), or the
+explicit backward :func:`attention_bwd_math`; on CPU tensors the plain
+versions :func:`attention_fwd_reference` and :func:`attention_bwd_reference`.
+:func:`spatial_attention_reference` and :func:`_reference_postscaled` are
+the JAX package's oracles, in PyTorch.
 
 Products of ``dt`` (bf16) values are taken as float32 matmuls of upcast
 operands: the upcast copies are exact, so this is a ``dt`` matmul with
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +35,8 @@ from vqa_transfer_externaldata_torch.ops import kernels
 
 _SCORE_TILE_H = 128  # hidden columns per score tile (csrc/attention_fwd.cu)
 _SCORE_TILE_C = 32  # channels per k-step
+_DWV_TILE = 128  # dW_v tile edge (csrc/attention_dwv.cuh)
+_DWV_TILE_K = 32  # cells per k-step of the dW_v GEMM
 
 
 def spatial_attention_reference(
@@ -71,14 +76,18 @@ def _reference_postscaled(
     return v_att, alpha
 
 
+
+
 def attention_fwd_reference(v: torch.Tensor, qh: torch.Tensor,
                             wv: torch.Tensor, ws: torch.Tensor,
                             normalize: bool
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
     """Plain PyTorch version of kernel K2, in the kernel's rounding:
     v [B, N, C] (dt), qh [B, H] f32, wv [C, H] (dt), ws [H] f32
-    -> (v_att [B, C] f32, alpha [B, N] f32). h stays f32 for the score,
-    squares and the weights p * r are rounded to dt."""
+    -> (v_att [B, C] f32, alpha [B, N] f32, r [B, N] f32, the per-cell
+    norm: ones unless ``normalize``). h stays f32 for the score, squares
+    and the weights p * r are rounded to dt."""
     vf = v.float()
     z = vf @ wv.float()
     if normalize:
@@ -91,25 +100,171 @@ def attention_fwd_reference(v: torch.Tensor, qh: torch.Tensor,
     d = p.sum(dim=1, keepdim=True)
     w = (p * r).to(v.dtype).float()
     v_att = torch.einsum("bn,bnc->bc", w, vf) / d
-    return v_att, p / d
+    return v_att, p / d, r
+
+
+def attention_bwd_reference(v: torch.Tensor, qh: torch.Tensor,
+                            wv: torch.Tensor, ws: torch.Tensor,
+                            ds: torch.Tensor, r: torch.Tensor,
+                            normalize: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain PyTorch version of kernel K8 (the Pallas backward body without
+    its padding): v [B, N, C] (dt), qh [B, H] f32, wv [C, H] (dt), ws [H]
+    f32, the score cotangent ds [B, N] f32 and the forward's per-cell norm
+    r [B, N] f32 (read only when ``normalize``) -> (dqh [B, H], dwv [C, H],
+    dws [H]), all f32. z is recomputed from v; dz * r is rounded to dt
+    ahead of the dW_v product."""
+    vf = v.float()
+    z = vf @ wv.float()
+    if normalize:
+        z = z * r[:, :, None]
+    z = z + qh[:, None, :]
+    dz = torch.where(z > 0, ds[:, :, None] * ws, torch.zeros_like(z))
+    dws = torch.einsum("bn,bnh->h", ds, torch.relu(z))
+    dqh = dz.sum(1)
+    dzr = dz * r[:, :, None] if normalize else dz
+    dwv = torch.einsum("bnc,bnh->ch", vf, dzr.to(v.dtype).float())
+    return dqh, dwv, dws
+
+
+def attention_bwd_math(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                       ws: torch.Tensor, alpha: torch.Tensor,
+                       vatt: torch.Tensor, g: torch.Tensor, ga: torch.Tensor,
+                       *, normalize: bool, feature_grad: bool
+                       ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    """The explicit backward of the JAX package (``_attention_bwd_math``),
+    from the saved (alpha, v_att): only z is recomputed, and the softmax's
+    S = g . v_att + alpha . g_alpha uses sum_n alpha_n (g . v_n) = g . v_att.
+    ``ws`` is the unrounded score vector (as JAX's backward reads it), ``wv``
+    is rounded to v's dtype. Returns (dv or None without ``feature_grad``,
+    dqh, dwv, dws) in float32."""
+    dt = v.dtype
+    g, ga, alpha = g.float(), ga.float(), alpha.float()
+    v_raw = v
+    if normalize:
+        r = torch.rsqrt(v.float().square().sum(-1, keepdim=True) + 1e-12)
+        v = (v.float() * r).to(dt)
+    vf = v.float()
+    dalpha = torch.einsum("bc,bnc->bn", g.to(dt).float(), vf) + ga
+    s = (g * vatt.float()).sum(-1) + (alpha * ga).sum(1)
+    ds = alpha * (dalpha - s[:, None])
+    wvf = wv.to(dt).float()
+    # Scale after the matmul, as every forward path does, so the ReLU mask
+    # matches the primal's.
+    z = (v_raw.float() @ wvf) * r if normalize else vf @ wvf
+    z = z + qh[:, None, :].float()
+    dz = torch.where(z > 0, ds[:, :, None] * ws.float(), torch.zeros_like(z))
+    dws = torch.einsum("bn,bnh->h", ds, torch.relu(z))
+    dz_c = dz.to(dt).float()  # the one rounding of dz, as in JAX
+    dqh = dz_c.sum(1)
+    dwv = torch.einsum("bnc,bnh->ch", vf, dz_c)
+    if not feature_grad:
+        return None, dqh, dwv, dws
+    dv = alpha[:, :, None] * g[:, None, :] + dz_c @ wvf.t()
+    if normalize:
+        # Through v_hat = v r: dv_raw = r (dv_hat - v_hat (v_hat . dv_hat)).
+        inner = (dv * vf).sum(-1, keepdim=True)
+        dv = r * (dv - vf * inner)
+    return dv, dqh, dwv, dws
+
+
+def _score_dot(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g . v_n for every cell: v [B, N, C] (dt), g [B, C] f32 -> [B, N]
+    f32, from products of dt values (g rounded to dt) summed in f32. On the
+    card one batched GEMV reads the bf16 grid once and returns f32 (no f32
+    copy of the grid); on the CPU the operands are upcast."""
+    gc = g.to(v.dtype)
+    if v.device.type == "cuda":
+        return torch.bmm(v, gc[:, :, None], out_dtype=torch.float32)[:, :, 0]
+    return torch.einsum("bnc,bc->bn", v.float(), gc.float())
+
+
+class _GatheredAttention(torch.autograd.Function):
+    """Forward K2 (its plain version on the CPU), saving the per-cell norm
+    r that K2 computed. Backward: K8 from the score cotangent formed here
+    (its plain version on the CPU); with ``feature_grad`` or without
+    ``bwd_kernel``, the explicit math of :func:`attention_bwd_math`."""
+
+    @staticmethod
+    def forward(ctx, v, qh, wv, ws, normalize, bwd_kernel, feature_grad):
+        wv_c = wv.to(v.dtype).contiguous()
+        ws_c = ws.to(v.dtype).float().contiguous()
+        qh_c = qh.float().contiguous()
+        if v.device.type == "cuda":
+            v_att, alpha, r = attention_fwd(v, qh_c, wv_c, ws_c,
+                                            normalize=normalize)
+        else:
+            v_att, alpha, r = attention_fwd_reference(v, qh_c, wv_c, ws_c,
+                                                      normalize)
+        ctx.save_for_backward(v, qh_c, wv_c, ws, ws_c, alpha, v_att, r)
+        ctx.meta = (normalize, bwd_kernel, feature_grad, qh.dtype, wv.dtype,
+                    ws.dtype)
+        return v_att, alpha
+
+    @staticmethod
+    def backward(ctx, g, ga):
+        v, qh_c, wv_c, ws, ws_c, alpha, v_att, r = ctx.saved_tensors
+        normalize, bwd_kernel, feature_grad, qh_dt, wv_dt, ws_dt = ctx.meta
+        g = torch.zeros_like(v_att) if g is None else g.float()
+        ga = torch.zeros_like(alpha) if ga is None else ga.float()
+        dv = None
+        if feature_grad or not bwd_kernel:
+            dv, dqh, dwv, dws = attention_bwd_math(
+                v, qh_c, wv_c, ws, alpha, v_att, g, ga, normalize=normalize,
+                feature_grad=feature_grad)
+            dv = dv.to(v.dtype) if dv is not None else None
+        else:
+            dalpha = _score_dot(v, g)
+            if normalize:
+                dalpha = dalpha * r
+            s = (g * v_att).sum(-1) + (alpha * ga).sum(-1)
+            ds = (alpha * (dalpha + ga - s[:, None])).contiguous()
+            bwd = (attention_bwd if v.device.type == "cuda"
+                   else attention_bwd_reference)
+            dqh, dwv, dws = bwd(v, qh_c, wv_c, ws_c, ds, r, normalize)
+        return (dv, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt), None, None,
+                None)
 
 
 def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
-                      w_score: torch.Tensor, *, normalize: bool = False
+                      w_score: torch.Tensor, *, normalize: bool = False,
+                      bwd_kernel: bool = True, feature_grad: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward-only attention: v [B, N, C] in the compute dtype, qh [B, H],
-    wv [C, H], w_score [H] -> (v_att [B, C] f32, alpha [B, N] f32).
-    ``wv`` and ``w_score`` are rounded to ``v.dtype`` as the reference
-    kernel's caller does. A CUDA tensor runs kernel K2 (which takes bf16
-    ``v``), a CPU tensor the plain version."""
-    wv = wv.to(v.dtype).contiguous()
-    ws = w_score.to(v.dtype).float()
-    qh = qh.float().contiguous()
-    if v.device.type == "cuda":
-        return attention_fwd(v, qh, wv, ws, normalize=normalize)
-    if v.device.type == "cpu":
-        return attention_fwd_reference(v, qh, wv, ws, normalize)
-    raise ValueError(f"spatial_attention: no path for device {v.device}")
+    """Attention over a gathered grid: v [B, N, C] in the compute dtype, qh
+    [B, H], wv [C, H], w_score [H] -> (v_att [B, C] f32, alpha [B, N] f32),
+    differentiable in all four. ``wv`` and ``w_score`` are rounded to
+    ``v.dtype``. On CUDA tensors the forward is kernel K2 (bf16 ``v``), in
+    training too, and the backward kernel K8 unless ``bwd_kernel`` is False
+    or ``feature_grad`` asks for dv, when the explicit backward runs; on
+    CPU tensors each path takes its plain version. ``feature_grad=False``
+    gives the grid no gradient: only for features that are data.
+
+    A 2-D ``w_score`` (the G-glimpse variant) is not ported yet
+    (ROADMAP.md, section 1, item 11)."""
+    if w_score.dim() != 1:
+        raise NotImplementedError(
+            "the G-glimpse gathered attention is not ported yet (ROADMAP.md, "
+            "section 1, item 11)")
+    if v.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"spatial_attention: no path for device {v.device}")
+    return _GatheredAttention.apply(v, qh, wv, w_score, normalize,
+                                    bwd_kernel, feature_grad)
+
+
+def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
+    if v.device.type != "cuda" or v.dim() != 3:
+        raise ValueError(f"{what} takes a 3-D CUDA v")
+    B, N, C = v.shape
+    if C % _SCORE_TILE_C or H % _SCORE_TILE_H or B < 1 or N < 1:
+        raise ValueError(f"{what} needs C % {_SCORE_TILE_C} == 0 and "
+                         f"H % {_SCORE_TILE_H} == 0, got C={C}, H={H}")
+    kernels.expect("v", v, torch.bfloat16, (B, N, C), v.device)
+    if v.data_ptr() % 16:
+        raise ValueError(f"{what} reads v in 16-byte vectors: it must start "
+                         "16-byte aligned")
+    return B, N, C
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,33 +279,28 @@ def _lib() -> ctypes.CDLL:
 
 def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
                   ws: torch.Tensor, *, normalize: bool
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch kernel K2 (``csrc/attention_fwd.cu``) on CUDA tensors:
     v [B, N, C] bf16, qh [B, H] f32, wv [C, H] bf16, ws [H] f32
-    -> (v_att [B, C] f32, alpha [B, N] f32). Needs C % 32 == 0 and
+    -> (v_att [B, C] f32, alpha [B, N] f32, r [B, N] f32, the per-cell norm
+    the kernel used: ones unless ``normalize``). Needs C % 32 == 0 and
     H % 128 == 0. One call makes the kernel's two launches on the current
     stream and adds the number launched (2) to ``attention_fwd.launches``."""
-    if v.device.type != "cuda" or v.dim() != 3:
-        raise ValueError("attention_fwd takes a 3-D CUDA v")
-    B, N, C = v.shape
     H = qh.shape[-1]
+    B, N, C = _check_grid(v, H, "attention_fwd")
     dev = v.device
-    if C % _SCORE_TILE_C or H % _SCORE_TILE_H or B < 1 or N < 1:
-        raise ValueError(f"attention_fwd needs C % {_SCORE_TILE_C} == 0 and "
-                         f"H % {_SCORE_TILE_H} == 0, got C={C}, H={H}")
     if 2 * N * 4 > 48 * 1024:
         raise ValueError(f"attention_fwd: N={N} cells exceed the softmax's "
                          "shared memory")
-    kernels.expect("v", v, torch.bfloat16, (B, N, C), dev)
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
-    if v.data_ptr() % 16 or wv.data_ptr() % 16:
-        raise ValueError("attention_fwd reads v and wv in 16-byte vectors: "
-                         "both must start 16-byte aligned")
+    if wv.data_ptr() % 16:
+        raise ValueError("attention_fwd reads wv in 16-byte vectors: it "
+                         "must start 16-byte aligned")
     f32 = dict(dtype=torch.float32, device=dev)
     part = torch.empty(H // _SCORE_TILE_H, B * N, **f32)
-    rnorm = torch.empty(B * N, **f32)
+    rnorm = torch.empty(B, N, **f32)
     v_att = torch.empty(B, C, **f32)
     alpha = torch.empty(B, N, **f32)
     lib = _lib()
@@ -164,7 +314,71 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
             ctypes.addressof(launched))
     attention_fwd.launches += launched.value
     kernels.check(lib, rc, "attention_fwd")
-    return v_att, alpha
+    return v_att, alpha, rnorm
 
 
 attention_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = kernels.load("attention_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attention_bwd.argtypes = [p] * 12 + [i] * 6 + [p, p]
+    lib.attention_bwd.restype = i
+    return lib
+
+
+def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                  ws: torch.Tensor, ds: torch.Tensor, r: torch.Tensor,
+                  normalize: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K8 (``csrc/attention_bwd.cu``) on CUDA tensors: v
+    [B, N, C] bf16, qh [B, H] f32, wv [C, H] bf16, ws [H] f32, ds and r
+    [B, N] f32 -> (dqh [B, H], dwv [C, H], dws [H]), all f32. Needs
+    C % 128 == 0 and H % 128 == 0. One call makes the kernel's three
+    launches on the current stream and adds the number launched (3) to
+    ``attention_bwd.launches``."""
+    H = qh.shape[-1]
+    B, N, C = _check_grid(v, H, "attention_bwd")
+    dev = v.device
+    if C % _DWV_TILE or H % _DWV_TILE:
+        raise ValueError(f"attention_bwd needs C % {_DWV_TILE} == 0 and "
+                         f"H % {_DWV_TILE} == 0, got C={C}, H={H}")
+    kernels.expect("qh", qh, torch.float32, (B, H), dev)
+    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect("ws", ws, torch.float32, (H,), dev)
+    kernels.expect("ds", ds, torch.float32, (B, N), dev)
+    kernels.expect("r", r, torch.float32, (B, N), dev)
+    if wv.data_ptr() % 16:
+        raise ValueError("attention_bwd reads wv in 16-byte vectors: it "
+                         "must start 16-byte aligned")
+    K = B * N
+    tiles = (C // _DWV_TILE) * (H // _DWV_TILE)
+    # Split the cells over enough blocks for two waves on the card, while
+    # every split keeps at least 8 k-steps (as K5 does).
+    sms = kernels.sm_count(dev)
+    splits = max(1, min(-(-2 * sms // tiles), K // (8 * _DWV_TILE_K)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
+    dws_part = torch.empty(B, H, **f32)
+    part = torch.empty(splits, C, H, **f32)
+    dqh = torch.empty(B, H, **f32)
+    dwv = torch.empty(C, H, **f32)
+    dws = torch.empty(H, **f32)
+    lib = _bwd_lib()
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_bwd(
+            v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
+            ds.data_ptr(), r.data_ptr(), dzr.data_ptr(), dws_part.data_ptr(),
+            part.data_ptr(), dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(),
+            B, N, C, H, int(normalize), splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_bwd.launches += launched.value
+    kernels.check(lib, rc, "attention_bwd")
+    return dqh, dwv, dws
+
+
+attention_bwd.launches = 0

@@ -165,12 +165,6 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_store(store: torch.Tensor, rows: torch.Tensor, n_valid: int,
                  what: str) -> Tuple[int, int, int, int]:
     if store.device.type != "cuda" or store.dim() != 3:
@@ -273,8 +267,7 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     tiles = (C // _BWD_TILE) * (H // _BWD_TILE)
     # Split the cells over enough blocks for two waves on the card, while
     # every split keeps at least 8 k-steps.
-    sms = _sm_count(dev.index if dev.index is not None
-                    else torch.cuda.current_device())
+    sms = kernels.sm_count(dev)
     splits = max(1, min(-(-2 * sms // tiles), K // (8 * _BWD_TILE_K)))
     f32 = dict(dtype=torch.float32, device=dev)
     dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
@@ -313,11 +306,10 @@ class _ResidentAttention(torch.autograd.Function):
     is packed outside the kernel into sga = ga - S."""
 
     @staticmethod
-    def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize):
+    def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize, save_h):
         dt = store.dtype
         wv_c = wv.to(dt).contiguous()
         ws_c = ws.to(dt).float().contiguous()
-        save_h = any(ctx.needs_input_grad[2:5])
         fwd = (attention_resident_fwd if store.device.type == "cuda"
                else attention_resident_fwd_reference)
         v_att, alpha, h = fwd(store, rows, qh.float().contiguous(), wv_c,
@@ -341,7 +333,7 @@ class _ResidentAttention(torch.autograd.Function):
         dqh, dwv, dws = bwd(store, rows, h, ws_c, alpha, g.contiguous(), sga,
                             n_valid=n_valid, normalize=normalize)
         return (None, None, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt),
-                None, None)
+                None, None, None)
 
 
 def spatial_attention_resident(
@@ -381,9 +373,14 @@ def spatial_attention_resident(
     if store.device.type not in ("cuda", "cpu"):
         raise ValueError(f"spatial_attention_resident: no path for device "
                          f"{store.device}")
+    # Save h only when a gradient will be taken. Inside the Function the
+    # grad mode reads off and needs_input_grad follows requires_grad alone,
+    # so under no_grad (evaluation) it would still ask for h.
+    save_h = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (qh, wv, w_score))
     v_att, alpha = _ResidentAttention.apply(
         store, rows.to(torch.int32).contiguous(), qh, wv, w_score, n_valid,
-        normalize)
+        normalize, save_h)
     # The padded cells are sliced off outside the Function: their
     # cotangent arrives as the zeros that match their zero alpha.
     return v_att, alpha[:, :n_valid]

@@ -107,6 +107,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA ``device``."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a kernel entry returned a CUDA error code (the entries
     return ``cudaGetLastError()`` right after their launches)."""

@@ -1,34 +1,45 @@
-"""Single-device trainer of the port: the device-resident path of the JAX
-package's ``parallel/trainer.py``, for any :class:`~..models.zoo.ModelSpec`
-(stage 1 and stage 2).
+"""Single-device trainer of the port, for any
+:class:`~..models.zoo.ModelSpec` (stage 1 and stage 2): the JAX package's
+``parallel/trainer.py`` on one card.
 
-The dataset is uploaded once and the seeded index stream is staged on the
-device in segments; each step takes its batch by index. A stage-2
-``JoinedDataset`` uploads its question table and its deduplicated feature
-store (L2-normalized and padded to a multiple of 8 cells), and the model
-gets ``(store, rows)``, so the attention kernels read the grids straight
-out of the store. A stage-1 ``ArrayDataset`` uploads its rows, float
-features cast to the compute dtype on the host. One step is: forward with
-dropout, the spec's loss, backward, then the optax chain of the JAX
-package (frozen leaves zeroed, global-norm clip, AdamW with warmup and a
-staircase decay), written here as a few tensor operations with optax's
-exact semantics (:class:`AdamW`).
+Two loops. :meth:`Trainer.fit_resident` uploads the dataset once and stages
+the seeded index stream on the device in segments; each step takes its
+batch by index. A stage-2 ``JoinedDataset`` uploads its question table and
+its deduplicated feature store: by default L2-normalized and padded to a
+multiple of 8 cells, and the model gets ``(store, rows)`` so the attention
+kernels read the grids straight out of the store; with
+``train.resident_fused_attention`` false the store stays as it is and each
+step gathers its [B, N, C] grid on the device (the gathered attention).
+:meth:`Trainer.fit` streams host batches instead, through pinned staging
+buffers. One step is: forward with dropout, the spec's loss, backward, then
+the optax chain of the JAX package (frozen leaves zeroed, global-norm clip,
+AdamW with warmup and a staircase decay), written here as a few tensor
+operations with optax's exact semantics (:class:`AdamW`).
+
+Evaluation: :meth:`Trainer.evaluate` over host batches, and the resident
+evaluator (:meth:`Trainer.evaluate_resident`), which uploads a split once
+and runs its padded index epoch without a host round trip per batch; both
+loops evaluate in the loop every ``eval_every`` steps, ``fit_resident``
+one log window late. Both loops write periodic checkpoints
+(``utils/checkpoint.py::CheckpointManager``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vqa_transfer_externaldata_torch.config import Config
+from vqa_transfer_externaldata_torch.data.datasets import PrefetchIterator
 from vqa_transfer_externaldata_torch.models.zoo import ModelSpec
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     pad_store_rows, prenormalize_store)
 from vqa_transfer_externaldata_torch.ops.layers import dtype_of
 from vqa_transfer_externaldata_torch.serving import resolve_device
+from vqa_transfer_externaldata_torch.utils.checkpoint import CheckpointManager
 from vqa_transfer_externaldata_torch.utils.logging import (
     MetricWriter, Timer, log)
 
@@ -49,6 +60,90 @@ def make_lr_schedule(cfg: Config) -> Callable[[int], float]:
         return float(f32(t.learning_rate) * warm * decay)
 
     return schedule
+
+
+def _next_multiple(step: int, every: int) -> int:
+    """Smallest multiple of ``every`` strictly greater than ``step``."""
+    every = max(1, every)
+    return (step // every + 1) * every
+
+
+def _eval_metrics(spec: ModelSpec, outputs: Tensors,
+                  batch: Dict[str, Any]) -> Tensors:
+    """An evaluation batch's metrics: the spec's loss metrics when the batch
+    carries its target column (``spec.label_key``), else only the weight
+    (valid rows) of a predictions-only pass. Shared by the streamed and the
+    resident evaluators."""
+    if spec.label_key in batch:
+        _, metrics = spec.loss(outputs, batch)
+        return metrics
+    mask = batch.get("example_mask")
+    if mask is not None:
+        return {"weight": mask.float().sum()}
+    b = outputs["logits"].shape[0]
+    return {"weight": torch.full((), float(b),
+                                 device=outputs["logits"].device)}
+
+
+# Float feature columns that travel in the compute dtype (the JAX package's
+# _cast_features_host): the same values the model casts to, half the bytes.
+_FEATURE_KEYS = ("features", "feature", "pool5")
+
+
+def _host_tensor(key: str, v: np.ndarray, dt: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.dtype]:
+    """A host column as a CPU tensor and the dtype it travels in. uint16
+    (the candidate counts, each at most num_candidates) becomes int16,
+    which torch's kernels take: uint16 has few of them."""
+    v = np.ascontiguousarray(v)
+    if v.dtype == np.uint16:
+        if v.size and int(v.max()) > np.iinfo(np.int16).max:
+            raise ValueError(f"{key}: uint16 values past the int16 range")
+        v = v.astype(np.int16)
+    t = torch.from_numpy(v)
+    if key in _FEATURE_KEYS and t.dtype == torch.float32:
+        return t, dt
+    return t, t.dtype
+
+
+class _Uploader:
+    """Host batches (dicts of numpy arrays) to the device. On CUDA a batch
+    passes through one of two sets of pinned staging buffers: float
+    features are cast to the compute dtype as they are copied in, then the
+    copy to the card is asynchronous; a set is refilled only once its last
+    copy has finished (an event per set), so a step's copy overlaps the
+    previous step's work."""
+
+    def __init__(self, device: torch.device, dtype: torch.dtype) -> None:
+        self.device, self.dtype = device, dtype
+        self._slots: List[Tuple[Dict[str, torch.Tensor], Any]] = [
+            ({}, None), ({}, None)]
+        self._turn = 0
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        if self.device.type != "cuda":
+            out = {}
+            for k, v in batch.items():
+                t, dt = _host_tensor(k, v, self.dtype)
+                out[k] = t.to(self.device, dt)
+            return out
+        bufs, done = self._slots[self._turn]
+        if done is not None:
+            done.synchronize()
+        out = {}
+        for k, v in batch.items():
+            t, dt = _host_tensor(k, v, self.dtype)
+            buf = bufs.get(k)
+            if buf is None or buf.shape != t.shape or buf.dtype != dt:
+                buf = bufs[k] = torch.empty(t.shape, dtype=dt,
+                                            pin_memory=True)
+            buf.copy_(t)
+            out[k] = buf.to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._slots[self._turn] = (bufs, done)
+        self._turn ^= 1
+        return out
 
 
 def _freeze_mask_fn(names_csv: str) -> Callable[[str], bool]:
@@ -190,19 +285,16 @@ def _todo(what: str, item: str) -> NotImplementedError:
 
 
 class Trainer:
-    """Build once from a :class:`ModelSpec`, then :meth:`init_state` and
-    :meth:`fit_resident`.
+    """Build once from a :class:`ModelSpec`, then :meth:`init_state` (and
+    :meth:`restore`), :meth:`fit_resident` or :meth:`fit`, :meth:`evaluate`
+    or :meth:`evaluate_resident`.
 
     Runs on CUDA unless ``device`` says otherwise (the tests pass "cpu");
     without a card and without ``device`` it raises. Not ported, and
     raising ``NotImplementedError`` with their ROADMAP item when asked for:
-    in-loop evaluation (item 7), the profiler window (item 14),
-    ``steps_per_call > 1`` (item 15), ``store_sharded`` (item 12), an int8
-    store (item 14), ``sort_batch_by_image`` (item 14), ``remat`` (item 14),
-    and training on gathered features (item 9). Periodic checkpoints and
-    resume (item 8) are not written: ``checkpoint_every``, ``resume`` and
-    ``keep_checkpoints`` are ignored, and the CLI saves the final
-    parameters."""
+    the profiler window (item 14), ``steps_per_call > 1`` (item 15),
+    ``store_sharded`` (item 12), an int8 store (item 14),
+    ``sort_batch_by_image`` (item 14) and ``remat`` (item 14)."""
 
     # fit_resident stages its seeded index table in segments of this many
     # steps; shrink in tests to exercise re-staging.
@@ -235,6 +327,9 @@ class Trainer:
             model.store_prenormalized = True
         self.tx, self.lr_fn = make_optimizer(cfg)
         self.train_dir = train_dir or t.train_dir
+        self.ckpt = CheckpointManager(self.train_dir,
+                                      keep=t.keep_checkpoints,
+                                      save_every=t.checkpoint_every)
         self.metrics = MetricWriter(self.train_dir)
 
     # -- state ---------------------------------------------------------------
@@ -248,6 +343,12 @@ class Trainer:
         rng = torch.Generator(device=self.device)
         rng.manual_seed(self.cfg.train.seed + 1)
         return TrainState(0, live, self.tx.init(live), rng)
+
+    def restore(self, state: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """``state`` with the checkpoint of ``step`` (default: the latest)
+        of this run directory loaded into it."""
+        return self.ckpt.restore(state, step)
 
     def train_step(self, state: TrainState, batch: Dict[str, object]
                    ) -> Tuple[TrainState, Tensors]:
@@ -273,28 +374,94 @@ class Trainer:
         return (TrainState(state.step + 1, state.params, opt_state,
                            state.rng), metrics)
 
+    def _eval_step(self, batch: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, Tensors]:
+        """Predictions [B] and metrics of an evaluation forward (no
+        dropout, no gradient) on a device batch."""
+        with torch.no_grad():
+            outputs = self.model(*self.spec.inputs(batch), train=False)
+            preds = outputs["logits"].float().argmax(-1)
+            return preds, _eval_metrics(self.spec, outputs, batch)
+
+    def _uploader(self) -> _Uploader:
+        return _Uploader(self.device, self.model.dtype)
+
+    # -- the streamed loop ---------------------------------------------------
+
+    def fit(self, train_batches: Iterator[Dict[str, np.ndarray]],
+            state: TrainState,
+            eval_batches_fn: Optional[Callable[[], Iterator]] = None,
+            max_steps: Optional[int] = None) -> TrainState:
+        """Training on host batches (dicts of numpy arrays): a background
+        thread prepares the next ``prefetch_batches`` of them, each goes to
+        the card through a pinned staging buffer, and the metrics are read
+        at every ``log_every``-th step. Every ``eval_every`` steps the split
+        of ``eval_batches_fn()`` is evaluated (:meth:`evaluate`); the
+        checkpoint policy runs after every step and the last step is always
+        saved."""
+        t = self.cfg.train
+        max_steps = max_steps if max_steps is not None else t.max_steps
+        if t.prefetch_batches > 0:
+            train_batches = PrefetchIterator(train_batches,
+                                             depth=t.prefetch_batches)
+        upload = self._uploader()
+        timer = Timer()
+        step = last_log = state.step
+        next_log = _next_multiple(step, t.log_every)
+        next_eval = _next_multiple(step, t.eval_every)
+        log.info("training (streamed) from step %d to %d on %s", step,
+                 max_steps, self.device)
+        while step < max_steps:
+            state, pending = self.train_step(state,
+                                             upload(next(train_batches)))
+            step = state.step
+            if step >= next_log or step >= max_steps:
+                next_log = _next_multiple(step, t.log_every)
+                m = self._fetch_later(pending)()
+                dt = timer.reset()
+                m["steps_per_sec"] = (step - last_log) / max(dt, 1e-9)
+                m["questions_per_sec"] = m["steps_per_sec"] * t.batch_size
+                last_log = step
+                self.metrics.write(step, m, prefix="train")
+                log.info("step %6d  loss %.4f  acc %.4f  %.1f q/s", step,
+                         m.get("loss", float("nan")),
+                         m.get("accuracy", float("nan")),
+                         m["questions_per_sec"])
+            if eval_batches_fn is not None and step >= next_eval:
+                next_eval = _next_multiple(step, t.eval_every)
+                eval_metrics, _ = self.evaluate(state, eval_batches_fn())
+                self._write_eval(step, eval_metrics)
+            self.ckpt.save(step, state)
+        if self.ckpt.latest_step() != state.step:
+            self.ckpt.save(state.step, state, force=True)
+        return state
+
     # -- the resident loop -----------------------------------------------------
 
     def fit_resident(self, ds, state: TrainState,
                      max_steps: Optional[int] = None,
                      eval_ds=None) -> TrainState:
         """Device-resident training over a ``JoinedDataset`` (stage 2) or
-        an ``ArrayDataset`` (stage 1): the dataset is uploaded once, and
-        each step's only input is a [batch] slice of the index table staged
-        on the device. Metrics are logged every ``log_every`` steps one window
-        late (a window's values are copied to the host asynchronously and
-        read at the next boundary, so logging never drains the device's
-        queue); each record's ``questions_per_sec`` spans the steps since
-        the previous record."""
-        if eval_ds is not None:
-            raise _todo("in-loop evaluation", "item 7")
+        an ``ArrayDataset`` (either stage): the dataset is uploaded once,
+        and each step's only input is a [batch] slice of the index table
+        staged on the device. Metrics are logged every ``log_every`` steps
+        one window late (a window's values are copied to the host
+        asynchronously and read at the next boundary, so logging never
+        drains the device's queue); each record's ``questions_per_sec``
+        spans the steps since the previous record.
+
+        With ``eval_ds`` the resident evaluator runs every ``eval_every``
+        steps, lagged the same way: it is dispatched at its boundary on the
+        training stream, so it reads that boundary's parameters before the
+        next step updates them in place, and its values are collected one
+        log window later. The checkpoint policy runs after every step and
+        the last step is always saved."""
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         rows, make_batch, nbytes = self._prepare_resident(ds)
         log.info("device-resident dataset: %d rows%s, %.2f GB uploaded once",
-                 ds.size, (f" + {rows['grid_pad'].shape[0]}-row feature "
-                           "store" if "grid_pad" in rows else ""),
-                 nbytes / 1e9)
+                 ds.size, (f" + {rows['grid'].shape[0]}-row feature store"
+                           if "grid" in rows else ""), nbytes / 1e9)
         indices = ds.index_batches(t.batch_size, seed=t.seed)
         timer = Timer()
         stepno = state.step
@@ -323,11 +490,20 @@ class Trainer:
                 self.metrics.write(at, m, prefix="train")
             last_log = drain[-1][0]
 
+        # The evaluator uploads its split at the first eval boundary.
+        evaluator: list = []
+        pending_eval: list = []  # [(boundary step, dispatch handle)]
+
+        def collect_eval() -> None:
+            at, handle = pending_eval.pop(0)
+            self._write_eval(at, evaluator[0].collect(handle)[0])
+
         log.info("training (device-resident) from step %d to %d on %s",
                  stepno, max_steps, self.device)
         seg_steps = max(1, self.resident_segment_steps)
         seg, seg_off = None, seg_steps
-        next_log = (stepno // max(1, t.log_every) + 1) * max(1, t.log_every)
+        next_log = _next_multiple(stepno, t.log_every)
+        next_eval = _next_multiple(stepno, t.eval_every)
         while stepno < max_steps:
             if seg_off >= seg_steps:
                 # One host->device copy of the next index-table segment.
@@ -339,10 +515,30 @@ class Trainer:
             seg_off += 1
             stepno += 1
             if stepno >= next_log or stepno >= max_steps:
-                next_log = (stepno // max(1, t.log_every) + 1) * max(
-                    1, t.log_every)
+                next_log = _next_multiple(stepno, t.log_every)
                 log_window(pending, final=stepno >= max_steps)
+            if eval_ds is not None and stepno >= next_eval:
+                next_eval = _next_multiple(stepno, t.eval_every)
+                if not evaluator:
+                    evaluator.append(self._make_resident_evaluator(eval_ds))
+                if pending_eval:  # at most one in flight, in order
+                    collect_eval()
+                pending_eval.append((stepno,
+                                     evaluator[0].dispatch(state)))
+            if pending_eval and (stepno >= pending_eval[0][0] + t.log_every
+                                 or stepno >= max_steps):
+                collect_eval()
+            self.ckpt.save(stepno, state)
+        while pending_eval:
+            collect_eval()
+        if self.ckpt.latest_step() != state.step:
+            self.ckpt.save(state.step, state, force=True)
         return state
+
+    def _write_eval(self, step: int, metrics: Dict[str, float]) -> None:
+        self.metrics.write(step, metrics, prefix="val")
+        log.info("eval @ %d: %s", step,
+                 {k: round(v, 4) for k, v in metrics.items()})
 
     def _fetch_later(self, metrics: Tensors) -> Callable[[], Dict[str, float]]:
         """Start copying ``metrics`` to the host without waiting; the
@@ -362,33 +558,40 @@ class Trainer:
 
         return fetch
 
-    def _prepare_resident(self, ds) -> Tuple[Dict[str, torch.Tensor],
-                                             Callable, int]:
-        """Upload ``ds`` for resident training. Returns ``(device tensors,
-        make_batch, bytes uploaded)``; ``make_batch(idx)`` takes a batch by
-        index on the device. The row arrays upload as they are, float
-        features cast to the compute dtype on the host first (as the JAX
-        package's ``_cast_features_host``: the same values, half the
-        bytes). A ``JoinedDataset`` also uploads its store as ``grid_pad``
-        [M, Np, C] (L2-normalized at upload when the model skips the
-        per-cell norm), and ``make_batch`` hands the model ``(grid_pad,
-        rows)``; the store's pool5 is left on the host: no ported model
-        reads it."""
+    def _prepare_resident(self, ds, drop_keys: Tuple[str, ...] = ()
+                          ) -> Tuple[Dict[str, torch.Tensor], Callable, int]:
+        """Upload ``ds`` for resident training or evaluation, leaving the
+        row arrays named in ``drop_keys`` on the host. Returns ``(device
+        tensors, make_batch, bytes uploaded)``; ``make_batch(idx)`` takes a
+        batch by index on the device. The row arrays upload as they are,
+        float features cast to the compute dtype on the host first (as the
+        JAX package's ``_cast_features_host``: the same values, half the
+        bytes). A ``JoinedDataset`` also uploads its store as ``grid``, and
+        the store's pool5 is left on the host (no ported model reads it):
+
+        - with ``train.resident_fused_attention`` (the default), padded to
+          a multiple of 8 cells and L2-normalized at upload when the model
+          skips the per-cell norm; ``make_batch`` hands the model ``(grid,
+          rows)`` for the gather-free attention;
+        - without it, [M, N, C] as it is (no padding, no normalization,
+          bf16 for a bf16 model), and ``make_batch`` gathers the batch's
+          [B, N, C] grid on the device for the gathered attention. (The JAX
+          package splits this store into planes of at most 1024 channels
+          for its TPU gather; one index_select needs no such split.)"""
         from vqa_transfer_externaldata_torch.data.features import (
             JoinedDataset)
 
         dt = self.model.dtype
-        data = {k: self._upload_rows(k, v) for k, v in ds.arrays.items()}
+        data = {k: self._upload_rows(k, v) for k, v in ds.arrays.items()
+                if k not in drop_keys}
         if not isinstance(ds, JoinedDataset):
             def make_rows(idx: torch.Tensor) -> Dict[str, object]:
                 return {k: v.index_select(0, idx) for k, v in data.items()}
 
             nbytes = sum(v.numel() * v.element_size() for v in data.values())
             return data, make_rows, nbytes
-        if not self.cfg.train.resident_fused_attention:
-            raise _todo("the gathered resident path "
-                        "(train.resident_fused_attention false)", "item 9")
-        if not getattr(self.model, "n_cells", None):
+        fused = self.cfg.train.resident_fused_attention
+        if fused and not getattr(self.model, "n_cells", None):
             raise ValueError("the gather-free path needs the model's n_cells")
         grid = np.asarray(ds.store.grid)
         if grid.ndim == 4:  # [M, g, g, C] -> [M, N, C]
@@ -398,43 +601,154 @@ class Trainer:
         if index.size and (index.min() < 0 or index.max() >= M):
             raise IndexError(f"{ds.index_key} outside the {M}-row store")
         # The JAX package casts float stores to bf16 when it computes in
-        # bf16 (f32 sources before they are normalized) and keeps their
-        # own dtype otherwise; the same values arrive here.
-        if dt == torch.bfloat16 and grid.dtype == np.float32:
-            grid = torch.from_numpy(grid).to(dt).float().numpy()
+        # bf16 and keeps their own dtype otherwise; the same values arrive
+        # here.
         store_dt = (torch.bfloat16 if dt == torch.bfloat16
                     else torch.from_numpy(grid[:0]).dtype)
-        if self.model.store_prenormalized:
-            grid_pad, _ = prenormalize_store(grid, out_dtype=store_dt,
-                                             device=self.device)
-        else:
-            grid_pad = torch.from_numpy(pad_store_rows(grid)).to(
-                self.device, store_dt)
         key = ds.index_key
+        if not fused:
+            store = torch.from_numpy(np.ascontiguousarray(grid)).to(
+                self.device).to(store_dt)
 
-        def make_batch(idx: torch.Tensor) -> Dict[str, object]:
-            batch = {k: v.index_select(0, idx) for k, v in data.items()}
-            batch["features"] = (grid_pad, batch[key])
-            return batch
+            def make_batch(idx: torch.Tensor) -> Dict[str, object]:
+                batch = {k: v.index_select(0, idx) for k, v in data.items()}
+                batch["features"] = store.index_select(0,
+                                                       batch[key].long())
+                return batch
+        else:
+            if dt == torch.bfloat16 and grid.dtype == np.float32:
+                # f32 sources are rounded to bf16 before they are normalized
+                grid = torch.from_numpy(grid).to(dt).float().numpy()
+            if self.model.store_prenormalized:
+                store, _ = prenormalize_store(grid, out_dtype=store_dt,
+                                              device=self.device)
+            else:
+                store = torch.from_numpy(pad_store_rows(grid)).to(
+                    self.device, store_dt)
 
-        nbytes = grid_pad.numel() * grid_pad.element_size() + sum(
+            def make_batch(idx: torch.Tensor) -> Dict[str, object]:
+                batch = {k: v.index_select(0, idx) for k, v in data.items()}
+                batch["features"] = (store, batch[key])
+                return batch
+
+        nbytes = store.numel() * store.element_size() + sum(
             v.numel() * v.element_size() for v in data.values())
-        return dict(data, grid_pad=grid_pad), make_batch, nbytes
+        return dict(data, grid=store), make_batch, nbytes
 
     def _upload_rows(self, key: str, v: np.ndarray) -> torch.Tensor:
-        """One row array on the device. Float32 region features
-        (``feature``, stage 1) travel in the compute dtype. uint16 (the
-        candidate counts, each at most num_candidates) travels as int16,
-        which torch's kernels take: uint16 has few of them."""
-        v = np.ascontiguousarray(v)
-        if v.dtype == np.uint16:
-            if v.size and int(v.max()) > np.iinfo(np.int16).max:
-                raise ValueError(f"{key}: uint16 values past the int16 range")
-            v = v.astype(np.int16)
-        t = torch.from_numpy(v)
-        if key == "feature" and t.dtype == torch.float32:
-            t = t.to(self.model.dtype)
-        return t.to(self.device)
+        """One row array on the device, float feature columns in the
+        compute dtype (``_host_tensor``)."""
+        t, dt = _host_tensor(key, v, self.model.dtype)
+        return t.to(dt).to(self.device)
+
+    # -- evaluation ------------------------------------------------------------
+
+    def evaluate(self, state: TrainState,
+                 batches: Iterator[Dict[str, np.ndarray]]
+                 ) -> Tuple[Dict[str, float], np.ndarray]:
+        """Evaluation over host batches (``parallel/evaler.padded_batches``):
+        valid-row-weighted mean metrics and the concatenated predicted ids.
+        Each batch's means are weighted by its valid-row count (the loss's
+        ``weight``), so a padded final batch cannot dilute them. ``state``
+        names the parameters, which are the model's own."""
+        del state
+        upload = self._uploader()
+        sums: Dict[str, float] = {}
+        total_w = 0.0
+        preds = []
+        for batch in batches:
+            p, m = self._eval_step(upload(batch))
+            m = self._fetch_later(m)()  # one wait for the batch
+            preds.append(p.cpu().numpy())
+            w = m.pop("weight", 1.0)
+            total_w += w
+            for k, v in m.items():
+                sums[k] = sums.get(k, 0.0) + v * w
+        means = {k: v / max(total_w, 1e-9) for k, v in sums.items()}
+        return means, (np.concatenate(preds) if preds
+                       else np.zeros((0,), np.int64))
+
+    def _make_resident_evaluator(self, ds):
+        """Resident evaluator over ``ds``: the split uploads once (its
+        ``answer_scores`` and ``cand_counts`` stay on the host) and the
+        whole padded index epoch is enqueued with no host round trip.
+        Returns ``run(state) -> (metrics, preds)`` with ``run.dispatch``
+        (enqueue, returns a handle) and ``run.collect`` (wait for the
+        handle, finish on the host: weighted means, and ``vqa_accuracy``
+        from the host's score table)."""
+        data, make_batch, nbytes = self._prepare_resident(
+            ds, drop_keys=("answer_scores", "cand_counts"))
+        log.info("device-resident eval split: %d rows, %.2f GB uploaded once",
+                 ds.size, nbytes / 1e9)
+        B = self.cfg.train.batch_size
+        n = len(ds)
+        starts = list(range(0, n, B))
+        idxs = np.zeros((len(starts), B), np.int32)
+        masks = np.zeros((len(starts), B), np.float32)
+        for r, start in enumerate(starts):
+            stop = min(start + B, n)
+            idxs[r, :stop - start] = np.arange(start, stop)
+            masks[r, :stop - start] = 1.0
+        dev_idxs = torch.from_numpy(idxs).to(self.device)
+        dev_masks = torch.from_numpy(masks).to(self.device)
+        scores_host = (np.asarray(ds.arrays["answer_scores"], np.float64)
+                       if "answer_scores" in ds.arrays else None)
+        labels_host = (np.asarray(ds.arrays["answer_id"])
+                       if "answer_id" in ds.arrays else None)
+
+        def dispatch(state: TrainState):
+            """Enqueue the whole split on the current stream; the handle's
+            copies to the host are in flight when it returns."""
+            del state  # the parameters are the model's own
+            preds, ms = [], []
+            for r in range(len(starts)):
+                batch = make_batch(dev_idxs[r])
+                batch["example_mask"] = dev_masks[r]
+                p, m = self._eval_step(batch)
+                preds.append(p)
+                ms.append(m)
+            keys = sorted(ms[0])
+            vals = torch.stack([torch.stack([m[k].float() for k in keys])
+                                for m in ms])  # [n_batches, len(keys)]
+            both = torch.cat([torch.stack(preds).float(), vals], dim=1)
+            if self.device.type != "cuda":
+                return keys, both, None
+            host = both.to("cpu", non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return keys, host, done
+
+        def collect(handle) -> Tuple[Dict[str, float], np.ndarray]:
+            keys, both, done = handle
+            if done is not None:
+                done.synchronize()
+            both = both.double().numpy()
+            p, vals = both[:, :B], both[:, B:]
+            m = {k: vals[:, i] for i, k in enumerate(keys)}
+            w = m.pop("weight", np.ones(len(starts)))
+            total_w = max(float(w.sum()), 1e-9)
+            means = {k: float((v * w).sum() / total_w) for k, v in m.items()}
+            preds = p.reshape(-1)[:n].astype(np.int64)
+            if scores_host is not None and labels_host is not None:
+                from vqa_transfer_externaldata_torch.utils.vocab import UNK_ID
+
+                wv = (labels_host[:n] != UNK_ID).astype(np.float64)
+                means["vqa_accuracy"] = float(
+                    (scores_host[np.arange(n), preds] * wv).sum()
+                    / max(wv.sum(), 1e-9))
+            return means, preds
+
+        def run(state: TrainState) -> Tuple[Dict[str, float], np.ndarray]:
+            return collect(dispatch(state))
+
+        run.dispatch = dispatch
+        run.collect = collect
+        return run
+
+    def evaluate_resident(self, state: TrainState, ds
+                          ) -> Tuple[Dict[str, float], np.ndarray]:
+        """One-shot :meth:`_make_resident_evaluator` (upload + run)."""
+        return self._make_resident_evaluator(ds)(state)
 
     def close(self) -> None:
         self.metrics.close()

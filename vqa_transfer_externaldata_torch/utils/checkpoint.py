@@ -1,24 +1,111 @@
-"""Parameter files of the port (a ``state_dict`` saved with ``torch.save``)
-and the cross-stage transfer: a stage-1 word table into a stage-2 model's
-word table and answer classifier.
+"""Training checkpoints of the port (``CheckpointManager``, torch files in
+the run directory), its parameter files (a ``state_dict`` saved with
+``torch.save``) and the cross-stage transfer: a stage-1 word table into a
+stage-2 model's word table and answer classifier.
 
-A JAX run's ``params_final/`` is an Orbax checkpoint directory, which
-cannot be read without JAX. Bring one over by loading it with the JAX
-package's own ``utils.checkpoint.load_params`` and passing its ``params``
-through :func:`vqa_transfer_externaldata_torch.utils.convert.params_from_flax`,
+A JAX run's ``params_final/`` and ``ckpt/`` are Orbax checkpoint
+directories, which cannot be read without JAX. Bring parameters over by
+loading them with the JAX package's own ``utils.checkpoint.load_params`` and
+passing its ``params`` through
+:func:`vqa_transfer_externaldata_torch.utils.convert.params_from_flax`,
 then :func:`save_params`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict
+import re
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from vqa_transfer_externaldata_torch.utils.logging import log
 from vqa_transfer_externaldata_torch.utils.vocab import Vocab, tokenize
+
+
+class CheckpointManager:
+    """Periodic checkpoints of a training run, ``<train_dir>/ckpt/
+    ckpt_<step>.pt``, with the JAX package's policy (Orbax's): a run's first
+    save call writes, later ones every ``save_every`` steps, ``force``
+    always; the newest ``keep`` stay. Each file is written atomically (a
+    temporary file, then a rename) and holds what a resumed run needs to
+    continue bit for bit: the parameters, the AdamW state (count, mu, nu),
+    the step and the dropout generator's state. Saves are synchronous."""
+
+    _NAME = re.compile(r"ckpt_(\d+)\.pt")
+
+    def __init__(self, train_dir: str, *, keep: int = 5,
+                 save_every: int = 1000) -> None:
+        self.directory = os.path.abspath(os.path.join(train_dir, "ckpt"))
+        os.makedirs(self.directory, exist_ok=True)
+        self.keep = max(1, keep)
+        self.save_every = max(1, save_every)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.pt")
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(
+            self._NAME.fullmatch, os.listdir(self.directory)) if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, *, force: bool = False) -> bool:
+        """Write ``state`` (a trainer ``TrainState``) as step ``step`` when
+        the policy says so; returns whether it wrote."""
+        latest = self.latest_step()
+        if not force and latest is not None and (
+                latest >= step or step % self.save_every):
+            return False
+        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+        opt = state.opt_state
+        payload = {"step": int(step), "params": cpu(state.params),
+                   "opt": {"count": int(opt.count), "mu": cpu(opt.mu),
+                           "nu": cpu(opt.nu)},
+                   "rng": state.rng.get_state()}
+        path = self._path(step)
+        tmp = f"{path}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in self.all_steps()[:-self.keep]:
+            os.remove(self._path(old))
+        return True
+
+    def restore(self, state, step: Optional[int] = None):
+        """``state`` with the checkpoint of ``step`` (default: the latest)
+        copied in: the parameters in place (they are the model's own), the
+        optimizer moments on their devices, the generator's state."""
+        step = self.latest_step() if step is None else step
+        if step is None or not os.path.exists(self._path(step)):
+            raise FileNotFoundError(
+                f"no checkpoint{'' if step is None else f' of step {step}'} "
+                f"under {self.directory}")
+        ck = torch.load(self._path(step), map_location="cpu",
+                        weights_only=True)
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(ck["params"][k])
+        opt = state.opt_state
+        moved = lambda d, like: {k: v.to(like[k].device) for k, v in d.items()}
+        opt = dataclasses.replace(opt, count=ck["opt"]["count"],
+                                  mu=moved(ck["opt"]["mu"], opt.mu),
+                                  nu=moved(ck["opt"]["nu"], opt.nu))
+        state.rng.set_state(ck["rng"])
+        return dataclasses.replace(state, step=ck["step"], opt_state=opt)
+
+    def save_data_iter(self, step: int, state: Dict) -> None:
+        raise NotImplementedError(
+            "input-iterator state (the grain pipeline) is not ported yet "
+            "(ROADMAP.md, section 1, item 14)")
+
+    def restore_data_iter(self, step: Optional[int] = None) -> Optional[Dict]:
+        raise NotImplementedError(
+            "input-iterator state (the grain pipeline) is not ported yet "
+            "(ROADMAP.md, section 1, item 14)")
 
 
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
