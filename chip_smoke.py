@@ -18,7 +18,8 @@ Run from the repository root. Phases (any failure exits non-zero):
 5. K4 ``attention_resident_fwd`` and K5 ``attention_resident_bwd`` against
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
-   normalize on and off, K5 fed the same saved h;
+   normalize on and off, K5 fed the same saved h; then both at G=2 and
+   G=8 glimpses on the same store;
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
    K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs);
@@ -62,11 +63,26 @@ Run from the repository root. Phases (any failure exits non-zero):
    ``vqa_attention`` (1024 questions, 10 steps, the transferred tables
    frozen): the word table arrives bit for bit and every answer row is
    its word's row; finite losses; launch counts of K1 and K3-K5;
-14. times: each kernel, its plain version and the PyTorch library call
+14. ``vqa_attention2`` (two glimpses) at full width through
+   ``Trainer.fit_resident`` at batch 256 on the gather-free store (K1, K3,
+   K4 and K5 at G=2), 30 steps: the first step against the plain path,
+   launch counts, finite losses, step times, a profiler window over 5
+   more steps; the resident evaluator (K4 at G=2) against the gathered one
+   (``spatial_attention_multi``) on the 1024-question val split; requests
+   served through ``Predictor``;
+15. ``vqa_baseline`` through ``cli.train`` (resident, pool5 on the device,
+   no grid; 1024 questions, 10 steps) transfer-initialized from stage 1's
+   parameters with the word table frozen: the table arrives bit for bit
+   and the warning that the answer-space half does not apply is logged;
+   no kernel launches; a profiler window over 5 steps of
+   ``fit_resident``; ``cli.eval`` on the run; requests served with pool5
+   through ``cli.predict`` from a feature store file;
+16. times: each kernel, its plain version and the PyTorch library call
    where there is one (median of CUDA-event timings after warm-up, L2
    flushed between runs), and the bound from this run's shapes; K1 at
-   the training batch and at the serving batch; the gathered op's whole
-   backward with K8 and with the explicit math.
+   the training batch and at the serving batch; K4 and K5 at G=1 and
+   G=2; the gathered op's whole backward with K8 and with the explicit
+   math.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -131,6 +147,16 @@ TOL_K4_H_REL = 2.0 ** -7
 #     dW_v product, where a last-bit difference flips one rounding (2^-8 of
 #     one of the 50176 terms of a sum).
 TOL_K5_REL = 2.0 ** -9
+# K4/K5 with G glimpses. Each glimpse's softmax and weighted sum is the
+#     single glimpse's computation with its own score column, and h does not
+#     depend on G: alpha, h and each glimpse's v_att (relative to its own
+#     max|v_att_g|) keep K4's limits, and each column of dws K5's 2^-9. dz
+#     sums G glimpse terms before dqh and the one bf16(dz * r) ahead of
+#     dW_v: each term may carry its own last-bit differences while the
+#     largest value grows more slowly than their sum, so dqh and dW_v get G
+#     times K5's limit (2^-6 at G=8; a wrong glimpse moves them by a large
+#     share of their largest value).
+GLIMPSE_CHECKS = (2, 8)
 # K8 (dqh, dW_v, dws) against its plain version, fed the same ds and r:
 #     K5's 2^-9 of each output's largest value, plus, entry by entry, what
 #     units whose recomputed z lies within rounding of 0 can move it (each
@@ -167,6 +193,9 @@ TRANSFER_QUESTIONS, TRANSFER_STEPS = 1024, 10
 VAL_QUESTIONS, EVAL_EVERY, KEEP_CHECKPOINTS = 1024, 10, 2
 AB_STEPS = 10
 STREAM_QUESTIONS, STREAM_STEPS = 1024, 10
+# vqa_baseline: questions of its corpus, its steps, and the images of the
+# feature store file cli.predict reads.
+BASELINE_QUESTIONS, BASELINE_STEPS, PREDICT_IMAGES = 1024, 10, 8
 # Config overrides of the serving and training runs: none, the full width
 # of config.py. (A rehearsal on the CPU shrinks the shapes above and here.)
 MODEL_OVERRIDES: dict = {}
@@ -485,6 +514,90 @@ def phase_resident(report: dict, dev, gen) -> dict:
     return {"store": store, "rows": rows, "qh": qh, "wv": wv, "ws": ws,
             "h": rh, "alpha": ra, "g": g, "sga": sga, "n_valid": n_valid,
             "checks4": checks4, "checks5": checks5,
+            "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
+                        for c in checks4),
+            "err5": max(c["max_abs_err"] for c in checks5)}
+
+
+def phase_resident_multi(report: dict, dev, gen, k45: dict) -> dict:
+    """K4 and K5 at G glimpses (GLIMPSE_CHECKS) against their plain
+    versions on phase_resident's store and rows, normalize on and off, K5
+    fed the plain version's saved h and alpha."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+
+    store, rows, qh, wv = k45["store"], k45["rows"], k45["qh"], k45["wv"]
+    n_valid = k45["n_valid"]
+    Bt, Np = rows.shape[0], store.shape[1]
+    checks4, checks5, keep = [], [], {}
+    for G in GLIMPSE_CHECKS:
+        ws = (torch.randn(H, G, generator=gen, device=dev) * 0.05).to(
+            torch.bfloat16).float()
+        g = torch.randn(Bt, G * C, generator=gen, device=dev) * 0.01
+        sga = torch.randn(Bt, Np, G, generator=gen, device=dev) * 0.1
+        for normalize in (True, False):
+            kw = dict(n_valid=n_valid, normalize=normalize)
+            va, al, h = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                                  save_h=True, **kw)
+            rv, ra, rh = ar.attention_resident_fwd_reference(
+                store, rows, qh, wv, ws, save_h=True, **kw)
+            torch.cuda.synchronize()
+            check(tuple(va.shape) == (Bt, G * C) and tuple(al.shape) ==
+                  (Bt, Np, G), f"K4 G={G} shapes {va.shape}, {al.shape}")
+            # Each glimpse's v_att against its own largest value.
+            d3 = (va - rv).abs().reshape(Bt, G, C).amax(dim=(0, 2))
+            m3 = rv.abs().reshape(Bt, G, C).amax(dim=(0, 2))
+            v_share = (d3 / (TOL_VATT_REL * m3)).max().item()
+            ev = (va - rv).abs().max().item()
+            ea = (al - ra).abs().max().item()
+            eh = (h.float() - rh.float()).abs().max().item()
+            rh_err = rel_err(h.float(), rh.float())
+            print(f"K4 attention_resident_fwd G={G} normalize={normalize}: "
+                  f"v_att {ev:.3e} (worst glimpse at {v_share:.3f} of 2^-10 "
+                  f"* its max|v_att_g|), alpha {ea:.3e} (tol {TOL_ALPHA}), "
+                  f"h {rh_err:.3e} of max|h| (tol {TOL_K4_H_REL:.3e})")
+            check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
+                  f"K4 G={G} output not finite")
+            check(v_share <= 1.0, f"K4 G={G} normalize={normalize} v_att "
+                  f"at {v_share} of its limit")
+            check(ea <= TOL_ALPHA, f"K4 G={G} normalize={normalize} alpha "
+                  f"err {ea}")
+            check(rh_err <= TOL_K4_H_REL, f"K4 G={G} normalize={normalize} "
+                  f"h err {rh_err}")
+            check(al[:, n_valid:].abs().max().item() == 0.0,
+                  f"K4 G={G} gave padded cells weight")
+            checks4.append({"glimpses": G, "normalize": normalize,
+                            "v_att_err": ev, "v_att_share_of_limit": v_share,
+                            "alpha_err": ea, "alpha_tol": TOL_ALPHA,
+                            "h_err": eh, "h_rel_err": rh_err,
+                            "h_rel_tol": TOL_K4_H_REL})
+            got = ar.attention_resident_bwd(store, rows, rh, ws, ra, g, sga,
+                                            **kw)
+            want = ar.attention_resident_bwd_reference(store, rows, rh, ws,
+                                                       ra, g, sga, **kw)
+            torch.cuda.synchronize()
+            check(tuple(got[2].shape) == (H, G), f"K5 G={G} dws shape")
+            for name, a, b in zip(("dqh", "dwv", "dws"), got, want):
+                if name == "dws":  # each glimpse's column on its own
+                    rel = ((a - b).abs().amax(0) / b.abs().amax(0).clamp_min(
+                        1e-30)).max().item()
+                    tol = TOL_K5_REL
+                else:
+                    rel, tol = rel_err(a, b), G * TOL_K5_REL
+                e = (a - b).abs().max().item()
+                print(f"K5 attention_resident_bwd G={G} normalize="
+                      f"{normalize} {name}: max abs err {e:.3e}, {rel:.3e} "
+                      f"of max|{name}| (tol {tol:.3e})")
+                check(bool(torch.isfinite(a).all()), f"K5 G={G} {name} not "
+                      "finite")
+                check(rel <= tol, f"K5 G={G} normalize={normalize} {name} "
+                      f"relative err {rel} > {tol}")
+                checks5.append({"glimpses": G, "normalize": normalize,
+                                "output": name, "max_abs_err": e,
+                                "rel_err": rel, "rel_tol": tol})
+        if G == 2:  # the glimpses2 path's count, kept for the times
+            keep = {"ws": ws, "h": rh, "alpha": ra, "g": g, "sga": sga}
+    return {**keep, "checks4": checks4, "checks5": checks5,
             "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
                         for c in checks4),
             "err5": max(c["max_abs_err"] for c in checks5)}
@@ -962,14 +1075,16 @@ def phase_training(report: dict, dev) -> dict:
     return out
 
 
-def check_evaluation(trainer, state, val, run_dir: str, dev) -> dict:
+def check_evaluation(trainer, state, val, run_dir: Optional[str], dev,
+                     streamed_kernels: Optional[dict] = None) -> dict:
     """On the trained run: the resident evaluator (K4) against the streamed
-    evaluate() (K2 over host batches) on the same parameters, and cli.eval
-    on the run directory against evaluate_split. The two evaluators' logits
-    differ in their last bits (K4 reads the store normalized at upload, K2
-    normalizes in the op), so predictions must agree wherever the top two
-    logits are more than TOL_LOGITS apart, and the accuracies may differ by
-    the share of rows where they are not."""
+    evaluate() (K2 over host batches, or ``streamed_kernels`` a batch) on
+    the same parameters, and, given ``run_dir``, cli.eval on the run
+    directory against evaluate_split. The two evaluators' logits differ in
+    their last bits (K4 reads the store normalized at upload, the gathered
+    attention normalizes the grid itself), so predictions must agree
+    wherever the top two logits are more than TOL_LOGITS apart, and the
+    accuracies may differ by the share of rows where they are not."""
     import numpy as np
     import torch
     from vqa_transfer_externaldata_torch.cli import eval as eval_cli
@@ -992,8 +1107,9 @@ def check_evaluation(trainer, state, val, run_dir: str, dev) -> dict:
     check_launches(res_launches, {"gru_fwd": T * n_batches,
                                   "attention_resident_fwd": 2 * n_batches},
                    "resident evaluation")
-    check_launches(str_launches, {"gru_fwd": T * n_batches,
-                                  "attention_fwd": 2 * n_batches},
+    per_batch = streamed_kernels or {"gru_fwd": T, "attention_fwd": 2}
+    check_launches(str_launches, {k: n * n_batches
+                                  for k, n in per_batch.items()},
                    "streamed evaluation")
     p_str = p_str[:VAL_QUESTIONS]
     t0 = time.perf_counter()
@@ -1027,6 +1143,8 @@ def check_evaluation(trainer, state, val, run_dir: str, dev) -> dict:
     out.update(resident=m_res, streamed=m_str, preds_differ=int(
         differ.sum()), undecided_rows=undecided,
         resident_launches=res_launches, streamed_launches=str_launches)
+    if run_dir is None:
+        return out
 
     # --- cli.eval on the run directory ----------------------------------
     want, _ = evaluate_split(trainer, state, val)
@@ -1335,6 +1453,216 @@ def phase_transfer(report: dict, dev, stage1_params: str) -> dict:
     return out
 
 
+def phase_glimpses2(report: dict, dev) -> dict:
+    """vqa_attention2 (two glimpses) at full width through fit_resident on
+    the gather-free store: K4 and K5 at G=2. First step against the plain
+    path, launch counts, step times; the resident evaluator against the
+    gathered one; requests served through Predictor (the gathered
+    spatial_attention_multi, as in the JAX package)."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
+    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_g2_") as tmp:
+        cfg = stage2_config(tmp, steps, **{"model.model": "vqa_attention2"})
+        ds = load_dataset(cfg, "train")
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        model = spec.module
+        check(model.glimpses == 2 and tuple(model.att_ws.shape) == (H, 2),
+              f"vqa_attention2 att_ws {tuple(model.att_ws.shape)}")
+        trainer = Trainer(cfg, spec, train_dir=tmp)  # default device: CUDA
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        check(isinstance(batch["features"], tuple), "vqa_attention2 did not "
+              "take the gather-free path")
+        out["first_step"] = check_first_step(spec, state, batch, dev,
+                                             "vqa_attention2")
+        del data, make_batch, batch
+
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # A step: K1 and K3 as on the main path, K4 two launches and K5
+        # three, each covering both glimpses.
+        check_launches(launches, {
+            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "attention_resident_fwd": 2 * steps,
+            "attention_resident_bwd": 3 * steps},
+            f"vqa_attention2 training over {steps} steps")
+        out.update(launches=launches,
+                   **read_steps(tmp, steps, "vqa_attention2 training",
+                                "questions"))
+        state, out["profile"] = profile_fit(trainer, ds, state,
+                                            PROFILE_STEPS)
+        # The gathered evaluator: K1, then spatial_attention_multi.
+        out["evaluation"] = check_evaluation(
+            trainer, state, val, None, dev, streamed_kernels={"gru_fwd": T})
+
+        # --- requests served through Predictor ---------------------------
+        save_params(os.path.join(tmp, PARAMS_FILE), model.state_dict())
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+        pred = Predictor(tmp, batch_size=B)  # the serving batch
+        sel = np.arange(B)
+        qs = [" ".join(pred.word_vocab.tokens[i] for i in row if i)
+              for row in val.arrays["q_ids"][sel]]
+        feats = np.asarray(val.store.grid[val.arrays["image_index"][sel]],
+                           np.float32).reshape(B, N, C)
+        reset_counts()
+        answers = pred.answer(feats, qs)
+        check_launches(read_counts(), {"gru_fwd": T}, "vqa_attention2 serving")
+        v = torch.from_numpy(feats).to(dev)
+        q = torch.from_numpy(pred._encode_questions(qs)).to(dev)
+        with torch.inference_mode():
+            served = pred.model(v, q)["logits"]
+            trained = model(v, q)["logits"]
+        e = (served - trained).abs().max().item()
+        check(len(answers) == B and all(a in pred.answer_vocab.tokens
+                                         for a in answers)
+              and bool(torch.isfinite(served).all()) and e == 0.0,
+              f"vqa_attention2 served: {len(answers)} answers, logits "
+              f"{e} from the trainer's")
+        print(f"vqa_attention2 served {len(answers)} answers; logits equal "
+              "the trained model's")
+        out["served_answers"] = len(answers)
+        trainer.close()
+    return out
+
+
+@contextlib.contextmanager
+def port_log_records():
+    """(level name, message) of everything the port's logger says inside
+    the block."""
+    import logging
+
+    seen = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda r: seen.append((r.levelname, r.getMessage()))
+    logger = logging.getLogger("vqa_torch")
+    logger.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
+
+
+def phase_baseline(report: dict, dev, stage1_params: str) -> dict:
+    """vqa_baseline (no attention, no kernel) through cli.train on the
+    resident store, transfer-initialized from stage 1 with the word table
+    frozen, then cli.eval on the run and cli.predict on pool5."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.cli import predict as predict_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
+    from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
+
+    steps = BASELINE_STEPS
+    flags = {"model.model": "vqa_baseline", "data.synthetic": True,
+             "data.synthetic_layout": "joined",
+             "data.synthetic_size": BASELINE_QUESTIONS,
+             "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+             "train.max_steps": steps, "train.log_every": 1,
+             "train.freeze_params": "word_emb",
+             "train.pretrained_param_path": stage1_params, **MODEL_OVERRIDES}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_baseline_") as tmp:
+        # What the resident upload holds: pool5 on the card, no grid.
+        cfg = Config().replace_flat({**flags, "train.train_dir": tmp})
+        trainer = Trainer(cfg, build_model(cfg), train_dir=tmp)
+        ds = load_dataset(cfg, "train")
+        data, make_batch, nbytes = trainer._prepare_resident(ds)
+        batch = make_batch(torch.arange(B_TRAIN, device=dev))
+        check("grid" not in data and data["store_pool5"].is_cuda
+              and tuple(batch["pool5"].shape) == (B_TRAIN, C)
+              and "features" not in batch,
+              f"vqa_baseline's resident data: {sorted(data)}")
+        out["uploaded_mb"] = nbytes / 1e6
+        del data, make_batch, batch
+        # A profiler window of PROFILE_STEPS steps from a fresh init.
+        _, out["profile"] = profile_fit(trainer, ds, trainer.init_state(),
+                                        PROFILE_STEPS)
+        trainer.close()
+
+        argv = ["--train.train_dir", os.path.join(tmp, "run")]
+        for k, v in flags.items():
+            argv += [f"--{k}", str(v).lower() if isinstance(v, bool)
+                     else str(v)]
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        with port_log_records() as seen:
+            t0 = time.perf_counter()
+            train_dir = train_cli.main(argv)  # default device: CUDA
+            torch.cuda.synchronize()
+            out["cli_s"] = time.perf_counter() - t0
+        check_launches(read_counts(), {}, "vqa_baseline training")
+        warned = [m for lv, m in seen if lv == "WARNING"
+                  and "no 'answer_embedding'" in m]
+        check(len(warned) == 1, "the transfer into vqa_baseline did not warn")
+        out.update(read_steps(train_dir, steps, "vqa_baseline training",
+                              "questions", warmup=2))
+        words = load_params(stage1_params)["word_emb.embedding"]
+        trained = load_params(os.path.join(train_dir, PARAMS_FILE))
+        check(torch.equal(trained["word_emb.embedding"], words),
+              "the word table did not arrive bit for bit")
+        print(f"vqa_baseline transfer: word table {tuple(words.shape)} "
+              f"arrived bit for bit; warned: {warned[0]!r}")
+
+        # --- cli.eval on the run -----------------------------------------
+        t0 = time.perf_counter()
+        got = eval_cli.main(["--train.train_dir", train_dir])
+        out["cli_eval_s"] = time.perf_counter() - t0
+        with open(os.path.join(train_dir, "results_val.json")) as fh:
+            rows = json.load(fh)
+        check(len(rows) == BASELINE_QUESTIONS and
+              0.0 <= got["vqa_accuracy"] <= 1.0,
+              f"cli.eval: {got}, {len(rows)} result rows")
+        print(f"vqa_baseline cli.eval: {got}")
+
+        # --- requests served with pool5 through cli.predict --------------
+        rng = np.random.default_rng(3)
+        store_path = os.path.join(tmp, "store.npz")
+        ids = np.arange(100, 100 + PREDICT_IMAGES)
+        pool5 = rng.standard_normal((PREDICT_IMAGES, C), np.float32)
+        np.savez(store_path, image_ids=ids, pool5=pool5,
+                 grid=np.zeros((PREDICT_IMAGES, GRID, GRID, C), np.float16))
+        qs = ["w5 w6 w7", "w8", "w9 w10", "w11 w12 w13 w14"]
+        pick = [3, 0, 7, 3]
+        argv = ["--train_dir", train_dir, "--feature_path", store_path]
+        for i, q in zip(pick, qs):
+            argv += ["--image_id", str(ids[i]), "--question", q]
+        reset_counts()
+        answers = predict_cli.main(argv)
+        check_launches(read_counts(), {}, "vqa_baseline serving")
+        pred = Predictor(train_dir)
+        direct = pred.answer(pool5[pick], qs)
+        check(answers == direct and all(a in pred.answer_vocab.tokens
+                                        for a in answers),
+              f"cli.predict answers {answers} vs Predictor {direct}")
+        print(f"vqa_baseline cli.predict on pool5: {answers}")
+        out.update(cli_eval=got, predict_answers=answers,
+                   word_table_exact=True, transfer_warning=warned[0])
+    return out
+
+
 def profile_calls(fn, n: int = 5, what: str = "requests") -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
     and the share of the host-clock wall time in which no kernel ran."""
@@ -1425,7 +1753,7 @@ def profile_fit(trainer, ds, state, steps: int) -> tuple:
 
 
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
-                k67: dict, k8: dict, dev) -> dict:
+                k45g: dict, k67: dict, k8: dict, dev) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.ops import (
         attention, attention_resident as ar, gru)
@@ -1516,6 +1844,24 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         "library": None,
     }
 
+    # K4/K5 at G=2 (the glimpses2 path) on the same store and rows.
+    ws2, h2, al2, g2, sga2 = (k45g[k] for k in ("ws", "h", "alpha", "g",
+                                                "sga"))
+    g2_times = {
+        "attention_resident_fwd": {
+            "kernel": time_cuda(lambda: ar.attention_resident_fwd(
+                st, rows, qh4, wv4, ws2, save_h=True, **kw), buf),
+            "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
+                st, rows, qh4, wv4, ws2, save_h=True, **kw), buf),
+            "library": None},
+        "attention_resident_bwd": {
+            "kernel": time_cuda(lambda: ar.attention_resident_bwd(
+                st, rows, h2, ws2, al2, g2, sga2, **kw), buf),
+            "plain": time_cuda(lambda: ar.attention_resident_bwd_reference(
+                st, rows, h2, ws2, al2, g2, sga2, **kw), buf),
+            "library": None},
+    }
+
     def k1_bound(lens) -> tuple:
         # The row-steps that this run's lengths need read gx once; hseq
         # [T, B, H] and hT are written once.
@@ -1540,19 +1886,30 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 + Bt * H * 4 + T * Bt * 3 * H * 4 + H * 3 * H * 4 + H * 4)
     k3_flops = 3 * 2 * nl3 * H * 3 * H
     times["gru_bwd"]["bound"] = bound(k3_bytes, k3_flops)
-    # K4/K5: each store row that the batch names is read once (rows repeat),
-    # and the GEMMs run over the valid cells only.
+    # K4/K5 with G glimpses: each store row that the batch names is read
+    # once (rows repeat), and the GEMMs run over the valid cells only: the
+    # score GEMM (or dW_v) once, 2 B n C H, then per glimpse the weighted
+    # sum (or dalpha), 2 B n C, and the score (or dz and dws), 2 (4) B n H.
     Np = st.shape[1]
     uniq = int(torch.unique(rows).numel())
     row_bytes = uniq * Np * C * 2
-    k4_bytes = (row_bytes + Bt * 4 + Bt * H * 4 + C * H * 2 + H * 4
-                + Bt * C * 4 + Bt * Np * 4 + Bt * Np * H * 2)
-    k4_flops = 2 * Bt * nv * C * H + 2 * Bt * nv * H + 2 * Bt * nv * C
-    k5_bytes = (row_bytes + Bt * 4 + Bt * Np * H * 2 + H * 4 + Bt * Np * 4
-                + Bt * C * 4 + Bt * Np * 4 + Bt * H * 4 + C * H * 4 + H * 4)
-    k5_flops = 2 * Bt * nv * C * H + 2 * Bt * nv * C + 4 * Bt * nv * H
-    times["attention_resident_fwd"]["bound"] = bound(k4_bytes, k4_flops)
-    times["attention_resident_bwd"]["bound"] = bound(k5_bytes, k5_flops)
+
+    def k45_bounds(G: int) -> tuple:
+        k4_bytes = (row_bytes + Bt * 4 + Bt * H * 4 + C * H * 2 + G * H * 4
+                    + Bt * G * C * 4 + Bt * Np * G * 4 + Bt * Np * H * 2)
+        k4_flops = 2 * Bt * nv * C * (H + G) + 2 * G * Bt * nv * H
+        k5_bytes = (row_bytes + Bt * 4 + Bt * Np * H * 2 + G * H * 4
+                    + 2 * Bt * Np * G * 4 + Bt * G * C * 4 + Bt * H * 4
+                    + C * H * 4 + G * H * 4)
+        k5_flops = 2 * Bt * nv * C * (H + G) + 4 * G * Bt * nv * H
+        return bound(k4_bytes, k4_flops), bound(k5_bytes, k5_flops)
+
+    (times["attention_resident_fwd"]["bound"],
+     times["attention_resident_bwd"]["bound"]) = k45_bounds(1)
+    (g2_times["attention_resident_fwd"]["bound"],
+     g2_times["attention_resident_bwd"]["bound"]) = k45_bounds(2)
+    for name, t in g2_times.items():
+        times[name]["at_g2"] = t
 
     # K6/K7 at the stage-1 shape. Library yardstick: cuDNN's bidirectional
     # GRU over the same packed lengths, forward, and the backward with the
@@ -1638,7 +1995,8 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                               "k3_live_steps": nl3, "k45_unique_rows": uniq,
                               "k67_live_steps_per_direction": nl6}
     for name, t in [*times.items(), ("gru_fwd at the serving batch",
-                                     k1_serving)]:
+                                     k1_serving),
+                    *((f"{k} at G=2", t) for k, t in g2_times.items())]:
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library {t['library']}, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
@@ -1701,6 +2059,7 @@ def main(argv=None) -> int:
         k2 = phase_attention(report, dev, gen)
         k3 = phase_gru_bwd(report, dev, gen)
         k45 = phase_resident(report, dev, gen)
+        k45g = phase_resident_multi(report, dev, gen, k45)
         k67 = phase_bigru(report, dev, gen)
         k8 = phase_attention_bwd(report, dev, gen)
         serving = phase_serving(report, dev)
@@ -1711,7 +2070,10 @@ def main(argv=None) -> int:
             report["stage1"] = stage1 = phase_stage1(report, dev, root)
             report["transfer"] = transfer = phase_transfer(
                 report, dev, stage1["params_path"])
-        times = phase_times(report, k1, k2, k3, k45, k67, k8, dev)
+            report["baseline"] = phase_baseline(report, dev,
+                                                stage1["params_path"])
+        report["glimpses2"] = glimpses2 = phase_glimpses2(report, dev)
+        times = phase_times(report, k1, k2, k3, k45, k45g, k67, k8, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -1720,11 +2082,12 @@ def main(argv=None) -> int:
     # max_abs_err: the largest error of the kernel's outputs against its
     # plain version; each kernel also lists its checks beside their limits.
     # launches: the count of the path that runs the kernel (stage-2
-    # training for K1, K3-K5; serving for K2; stage-1 training for K6 and
-    # K7; gathered stage-2 training for K8), and every path's count under
-    # launches_by_path. K1's times
-    # are at the training batch, and at the serving batch under
-    # at_serving_batch.
+    # training for K1 and K3; glimpses2 training, at G=2, for K4 and K5;
+    # serving for K2; stage-1 training for K6 and K7; gathered stage-2
+    # training for K8), and every path's count under launches_by_path. K1's
+    # times are at the training batch, and at the serving batch under
+    # at_serving_batch. K4's and K5's times and bounds are at G=2, and at
+    # G=1 under at_g1.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -1743,10 +2106,12 @@ def main(argv=None) -> int:
             max(max(c["v_att_err"], c["alpha_err"]) for c in k2["checks"]),
             {"checks": k2["checks"]}),
         "gru_bwd": (ref + "gru.py:259", k3["err"], {"checks": k3["checks"]}),
-        "attention_resident_fwd": (ref + "attention_resident.py:150",
-                                   k45["err4"], {"checks": k45["checks4"]}),
-        "attention_resident_bwd": (ref + "attention_resident.py:208",
-                                   k45["err5"], {"checks": k45["checks5"]}),
+        "attention_resident_fwd": (
+            ref + "attention_resident.py:150", max(k45["err4"], k45g["err4"]),
+            {"glimpses": "1-8", "checks": k45["checks4"] + k45g["checks4"]}),
+        "attention_resident_bwd": (
+            ref + "attention_resident.py:208", max(k45["err5"], k45g["err5"]),
+            {"glimpses": "1-8", "checks": k45["checks5"] + k45g["checks5"]}),
         "bigru_fwd": (ref + "gru.py:474", k67["err6"], {
             "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"]}),
         "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
@@ -1765,9 +2130,19 @@ def main(argv=None) -> int:
              "streamed": streamed["launches"],
              "stage1": stage1["gathered"]["launches"],
              "stage1_dense": stage1["dense"]["launches"],
-             "transfer": transfer["launches"]}
+             "transfer": transfer["launches"],
+             "glimpses2": glimpses2["launches"]}
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
-                 "bigru_bwd": "stage1", "attention_bwd": "gathered"}
+                 "bigru_bwd": "stage1", "attention_bwd": "gathered",
+                 "attention_resident_fwd": "glimpses2",
+                 "attention_resident_bwd": "glimpses2"}
+    for name in ("attention_resident_fwd", "attention_resident_bwd"):
+        g1, g2 = times[name], times[name].pop("at_g2")
+        meta[name][2]["at_g1"] = {
+            "launches": paths["training"][name], "ms": g1["kernel"],
+            "plain_ms": g1["plain"], "bound_ms": g1["bound"][0],
+            "bound_by": g1["bound"][1], "library_ms": g1["library"]}
+        times[name] = g2
     kernels = []
     for name, (replaces, err, errs) in meta.items():
         t = times[name]

@@ -155,11 +155,6 @@ def test_unported_options_name_their_roadmap_item(kwargs, item):
             torch.from_numpy(store), torch.from_numpy(rows),
             torch.from_numpy(qh), torch.from_numpy(wv), torch.from_numpy(ws),
             n_valid=N, **kwargs)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tar.spatial_attention_resident(
-            torch.from_numpy(store), torch.from_numpy(rows),
-            torch.from_numpy(qh), torch.from_numpy(wv),
-            torch.from_numpy(np.stack([ws, ws], 1)), n_valid=N)
     with pytest.raises(NotImplementedError, match="item 14"):
         tar.pad_store_rows(np.zeros((1, N, C), np.int8))
 

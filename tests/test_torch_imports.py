@@ -24,7 +24,7 @@ banned = ("jax", "jaxlib", "flax", "optax", "orbax",
           "vqa_transfer_externaldata_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), "modules")
-assert len(names) >= 29, names
+assert len(names) >= 30, names
 assert not bad, bad
 assert "torch" in sys.modules
 """

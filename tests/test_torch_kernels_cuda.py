@@ -1,5 +1,6 @@
 """Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
-(attention_resident_fwd), K5 (attention_resident_bwd), K6 (bigru_fwd), K7
+(attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
+glimpses, K6 (bigru_fwd), K7
 (bigru_bwd) and K8 (attention_bwd) on the card against their plain PyTorch
 versions. They need an NVIDIA GPU with nvcc (the kernels have no CPU mode)
 and skip without one; on a GPU machine run
@@ -18,7 +19,10 @@ direction axis: h as K1's, K7 as K3's, and each equals two K1 (K3) calls
 on the same inputs bit for bit. K8 recomputes z, so a unit whose z lies
 within rounding of 0 may take the other side of the ReLU in one version:
 each output is held to 2^-9 of its largest value plus, per entry, what such
-units can move it (``_k8_allowance``, the reasoning of chip_smoke.py).
+units can move it (``_k8_allowance``, the reasoning of chip_smoke.py). K4
+and K5 with G glimpses keep those limits for alpha, h, each glimpse's v_att
+and each column of dws; dqh and dW_v, whose dz sums G glimpse terms, get G
+times K5's.
 """
 
 import pytest
@@ -232,6 +236,50 @@ def test_attention_resident_fwd_bwd_match_plain(dev, shape, normalize):
         assert _rel_err(a, b) <= TOL_K5, (name, _rel_err(a, b))
 
 
+@pytest.mark.parametrize("glimpses", [2, 8])
+@pytest.mark.parametrize("shape", [(5, 13, 128, 128, 6),
+                                   (64, 196, 2048, 512, 256)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_resident_glimpses_match_plain(dev, glimpses, shape,
+                                                 normalize):
+    M, n_valid, C, H, B = shape
+    G = glimpses
+    store, rows, qh, wv, _ = _resident_inputs(dev, M, n_valid, C, H, B)
+    g = torch.Generator(device=dev).manual_seed(7)
+    ws = (torch.randn(H, G, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    kw = dict(n_valid=n_valid, normalize=normalize)
+    before = ar.attention_resident_fwd.launches
+    va, al, h = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                          save_h=True, **kw)
+    rv, ra, rh = ar.attention_resident_fwd_reference(store, rows, qh, wv, ws,
+                                                     save_h=True, **kw)
+    torch.cuda.synchronize()
+    assert ar.attention_resident_fwd.launches == before + 2
+    assert va.shape == (B, G * C) and al.shape == (B, rh.shape[1], G)
+    for k in range(G):  # each glimpse against its own largest value
+        a, b = va[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]
+        assert (a - b).abs().max().item() <= 2.0 ** -10 * b.abs().max().item()
+    assert (al - ra).abs().max().item() <= 1e-5
+    assert al[:, n_valid:].abs().max().item() == 0.0
+    assert _rel_err(h.float(), rh.float()) <= TOL_K4_H
+
+    gv = torch.randn(B, G * C, generator=g, device=dev)
+    sga = torch.randn(B, ra.shape[1], G, generator=g, device=dev)
+    before = ar.attention_resident_bwd.launches
+    got = ar.attention_resident_bwd(store, rows, rh, ws, ra, gv, sga, **kw)
+    want = ar.attention_resident_bwd_reference(store, rows, rh, ws, ra, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert ar.attention_resident_bwd.launches == before + 3
+    assert got[2].shape == (H, G)
+    for name, a, b in zip(("dqh", "dwv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= G * TOL_K5, (name, _rel_err(a, b))
+    for k in range(G):
+        assert _rel_err(got[2][:, k], want[2][:, k]) <= TOL_K5, k
+
+
 def test_resident_op_grads_go_through_k4_k5(dev):
     """The autograd op on the card launches K4 forward and K5 backward and
     its grads agree with the op run on the CPU plain path."""
@@ -246,6 +294,31 @@ def test_resident_op_grads_go_through_k4_k5(dev):
             ar.attention_resident_bwd.launches) == (counts[0] + 2,
                                                     counts[1] + 3)
     cpu = [t.detach().cpu().requires_grad_() for t in (qh, wv.float(), ws)]
+    rv, ra = ar.spatial_attention_resident(store.cpu(), rows.cpu(), *cpu,
+                                           n_valid=13, normalize=True)
+    (rv.square().sum() + ra[:, 0].sum()).backward()
+    for a, b in zip(ins, cpu):
+        cos = torch.nn.functional.cosine_similarity(
+            a.grad.flatten().cpu(), b.grad.flatten(), dim=0).item()
+        assert cos >= 0.999, cos
+
+
+def test_two_glimpse_op_grads_go_through_k4_k5(dev):
+    """The op with a [H, 2] score matrix launches K4 and K5 once each and
+    its grads agree with the op run on the CPU plain path."""
+    store, rows, qh, wv, ws = _resident_inputs(dev, 5, 13, 128, 128, 8)
+    ws2 = torch.stack([ws, ws.flip(0)], 1)
+    ins = [t.clone().requires_grad_() for t in (qh, wv.float(), ws2)]
+    counts = (ar.attention_resident_fwd.launches,
+              ar.attention_resident_bwd.launches)
+    va, al = ar.spatial_attention_resident(store, rows, *ins, n_valid=13,
+                                           normalize=True)
+    assert va.shape == (8, 256) and al.shape == (8, 13, 2)
+    (va.square().sum() + al[:, 0].sum()).backward()
+    assert (ar.attention_resident_fwd.launches,
+            ar.attention_resident_bwd.launches) == (counts[0] + 2,
+                                                    counts[1] + 3)
+    cpu = [t.detach().cpu().requires_grad_() for t in (qh, wv.float(), ws2)]
     rv, ra = ar.spatial_attention_resident(store.cpu(), rows.cpu(), *cpu,
                                            n_valid=13, normalize=True)
     (rv.square().sum() + ra[:, 0].sum()).backward()

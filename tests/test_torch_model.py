@@ -102,15 +102,33 @@ def test_build_model_full_width_defaults():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"model.model": "vqa_attention2"}, "item 11"),
-    ({"model.glimpses": 2}, "item 11"),
-    ({"model.model": "vqa_baseline"}, "item 11"),
     ({"model.model": "vqa_end2end"}, "item 13"),
     ({"model.fidelity_mode": True}, "item 14"),
 ])
 def test_unported_configs_name_their_roadmap_item(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(Config().replace_flat(overrides))
+
+
+@pytest.mark.parametrize("overrides,glimpses,visual", [
+    ({"model.model": "vqa_attention2"}, 2, "features"),
+    ({"model.glimpses": 2}, 2, "features"),
+    ({"model.model": "vqa_baseline"}, None, "pool5"),
+])
+def test_build_model_builds_every_stage2_family(overrides, glimpses, visual):
+    """The stage-2 families at the config's full width: two glimpses give a
+    [512, 2] score matrix and a fusion over both weighted sums; the
+    baseline reads pool5 and has no attention."""
+    spec = build_model(Config().replace_flat(overrides))
+    sd = spec.module.state_dict()
+    assert spec.stage == "vqa" and spec.visual_key == visual
+    if glimpses is None:
+        assert "att_ws" not in sd and "answer_embedding" not in sd
+        assert sd["mlp.fc0.weight"].shape == (1024, 2048 + 300)
+        assert sd["classifier.weight"].shape == (2000, 1024)
+    else:
+        assert sd["att_ws"].shape == (512, glimpses)
+        assert sd["fuse_v.w.weight"].shape == (1024, glimpses * 2048)
 
 
 def _resident_inputs(rng, n_valid=N, M=4):
@@ -234,16 +252,30 @@ def test_dropout_is_seeded_scaled_and_off_at_eval():
     assert abs(np.mean(kept) - 0.75) < 0.04
 
 
-def test_gathered_training_is_not_ported():
-    """Gathered-feature training is ported for one glimpse; the G-glimpse
-    gathered attention (a 2-D score matrix) still raises, naming its
-    item."""
+def test_gathered_model_with_two_glimpses_runs_the_multi_op(monkeypatch):
+    """On gathered features a G=2 model normalizes the grid and runs
+    spatial_attention_multi (the single-glimpse op refuses a 2-D score
+    matrix, pointing to it)."""
+    from vqa_transfer_externaldata_torch.models import vqa_attention
     from vqa_transfer_externaldata_torch.ops.attention import (
-        spatial_attention)
+        spatial_attention, spatial_attention_multi)
 
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="spatial_attention_multi"):
         spatial_attention(torch.zeros(B, N, C), torch.zeros(B, 8),
                           torch.zeros(C, 8), torch.zeros(8, 2))
+    seen = []
+    monkeypatch.setattr(vqa_attention, "spatial_attention_multi",
+                        lambda v, *a: seen.append(v) or
+                        spatial_attention_multi(v, *a))
+    model = VQAAttentionModel(V, A, feature_dim=C, dtype=torch.float32,
+                              glimpses=2, **DIMS)
+    rng = np.random.default_rng(8)
+    feats = torch.from_numpy(np.abs(rng.normal(size=(B, N, C))).astype(
+        np.float32))
+    out = model(feats, torch.from_numpy(
+        rng.integers(4, V, size=(B, T)).astype(np.int32)))
+    assert out["alpha"].shape == (B, N, 2)
+    torch.testing.assert_close(seen[0].norm(dim=-1), torch.ones(B, N))
 
 
 def test_gathered_training_grads_match_jax():

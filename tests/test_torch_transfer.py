@@ -5,7 +5,9 @@ CLI end to end on the CPU: stage 1, then stage 2 initialized from stage
 1's ``params_final.pt``, then ``Predictor(device="cpu")`` on the result.
 """
 
+import contextlib
 import json
+import logging
 import os
 
 import jax
@@ -122,8 +124,8 @@ def test_transfer_init_error_cases():
 
 def test_transfer_init_nested_and_without_answer_table():
     """Tables are found by name wherever they are nested, and the inputs
-    are left as they were; a stage-2 model without an answer table is
-    refused, as one without a word table is."""
+    are left as they were; a stage-2 model without an answer table gets the
+    word table and a warning, as in the JAX package."""
     wv, av = synthetic_vocabs(Config().replace_flat(TINY))
     vq, vl = _torch_params("vqa_attention"), _torch_params("vlmap")
     vl["word_emb.embedding"] = torch.randn(
@@ -139,9 +141,25 @@ def test_transfer_init_nested_and_without_answer_table():
     assert torch.equal(out["head.answer_embedding"][av.token_to_id["w3"]],
                        vl["word_emb.embedding"][wv.token_to_id["w3"]])
     bare = {k: v for k, v in vq.items() if k != "answer_embedding"}
-    with pytest.raises(ValueError, match="no 'answer_embedding' in the "
-                                         "stage-2 parameters"):
-        tck.transfer_init(bare, vl, wv, av)
+    with _warnings() as seen:
+        out = tck.transfer_init(bare, vl, wv, av)
+    assert set(out) == set(bare)
+    assert torch.equal(out["word_emb.embedding"], vl["word_emb.embedding"])
+    assert any("no 'answer_embedding'" in m for m in seen)
+
+
+@contextlib.contextmanager
+def _warnings():
+    """The messages the port's logger warns with inside the block."""
+    seen = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logger = logging.getLogger("vqa_torch")
+    logger.addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
 
 
 def _argv(over):

@@ -5,7 +5,8 @@
         --image_id 123 --question "what color is the dog?"
 
 Multiple --question flags batch together; output is one JSON line
-``{"answers": [...]}``. Runs on CUDA unless ``--device cpu``.
+``{"answers": [...]}``. The attention models read the images' grids,
+``vqa_baseline`` their pool5 vectors. Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     p.add_argument("--train_dir", required=True)
     p.add_argument("--question", action="append", required=True)
     p.add_argument("--feature_path", default=None,
-                   help="feature store (hdf5/npz/raw dir) for grid models")
+                   help="feature store (hdf5/npz/raw dir)")
     p.add_argument("--image_id", type=int, action="append", default=None,
                    help="image id per question (single id broadcasts)")
     p.add_argument("--image", action="append", default=None,
@@ -41,7 +42,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
             "raw-image requests (vqa_end2end) are not ported yet "
             "(ROADMAP.md, section 1, item 13)")
     if not (args.feature_path and args.image_id):
-        p.error("grid models need --feature_path and --image_id")
+        p.error("feature-store models need --feature_path and --image_id")
     n = len(args.question)
     ids = args.image_id
     if len(ids) == 1:
@@ -54,7 +55,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     store = FeatureStore(args.feature_path)
     try:
         rows = np.asarray([store.index_of[i] for i in ids], np.int64)
-        visual = store.gather(rows)["features"]
+        visual = store.gather(rows)[predictor.visual_key]
     finally:
         store.close()
 

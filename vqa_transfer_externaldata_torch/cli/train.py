@@ -75,14 +75,14 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     params = None
     if t.pretrained_param_path:
         # Cross-stage transfer: stage 1's word table, and answer rows
-        # seeded from it, into the freshly initialized stage-2 model.
+        # seeded from it where the model has an answer table, into the
+        # freshly initialized stage-2 model.
         if word_vocab is None or answer_vocab is None:
             raise ValueError("transfer init needs the word and answer vocabs")
         params = transfer_init(spec.module.state_dict(),
                                load_params(t.pretrained_param_path),
                                word_vocab, answer_vocab)
-        log.info("answer-embedding transfer init applied from %s",
-                 t.pretrained_param_path)
+        log.info("transfer init applied from %s", t.pretrained_param_path)
     state = trainer.init_state(params)
     # Resume after the transfer: a resumed run keeps its trained values.
     if t.resume and trainer.ckpt.latest_step() is not None:

@@ -213,7 +213,8 @@ int attention_bwd(const void* v, const void* wv, const void* qh,
   e = attn_dwv::launch_reduce(static_cast<const float*>(part),
                               static_cast<const float*>(dws_part),
                               static_cast<float*>(dwv),
-                              static_cast<float*>(dws), splits, C, H, B, st);
+                              static_cast<float*>(dws), splits, C, H, B, H,
+                              st);
   if (e == cudaSuccess) ++*launched;
   return static_cast<int>(e);
 }

@@ -12,9 +12,10 @@
 // cells (split over K, so that the 64 tiles of C=2048, H=512 fill the
 // card); bf16 WMMA with the next k-step's tiles loaded into registers during
 // the MMAs. Each block writes its own partial tile. reduce_kernel then sums
-// the partials over the splits and the per-question dws partials over the
-// questions, both in a fixed order: no atomics, so the result does not
-// depend on the schedule.
+// the partials over the splits and the per-question dws partials (one row
+// of W values each: H, or G * H for K5's G glimpses) over the questions,
+// both in a fixed order: no atomics, so the result does not depend on the
+// schedule.
 
 #pragma once
 
@@ -142,19 +143,19 @@ dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
 
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_kernel(const float* __restrict__ part,      // [S, C*H]
-              const float* __restrict__ dws_part,  // [B, H]
+              const float* __restrict__ dws_part,  // [B, W]
               float* __restrict__ dwv,             // [C*H]
-              float* __restrict__ dws,             // [H]
-              int splits, int CH, int B, int H) {
+              float* __restrict__ dws,             // [W]
+              int splits, int CH, int B, int W) {
   const int i = blockIdx.x * kReduceThreads + threadIdx.x;
   if (i < CH) {
     float s = 0.0f;
     for (int p = 0; p < splits; ++p) s += part[static_cast<size_t>(p) * CH + i];
     dwv[i] = s;
-  } else if (i < CH + H) {
+  } else if (i < CH + W) {
     const int k = i - CH;
     float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += dws_part[static_cast<size_t>(b) * H + k];
+    for (int b = 0; b < B; ++b) s += dws_part[static_cast<size_t>(b) * W + k];
     dws[k] = s;
   }
 }
@@ -170,15 +171,15 @@ cudaError_t launch_dwv(Cells cells, const __nv_bfloat16* dzr, float* part,
   return cudaGetLastError();
 }
 
-// dwv = sum of the split partials, dws = sum of the B question partials;
-// returns the launch error.
+// dwv = sum of the split partials, dws [W] = sum of the B question
+// partials [B, W]; returns the launch error.
 inline cudaError_t launch_reduce(const float* part, const float* dws_part,
                                  float* dwv, float* dws, int splits, int C,
-                                 int H, int B, cudaStream_t st) {
+                                 int H, int B, int W, cudaStream_t st) {
   const int CH = C * H;
-  reduce_kernel<<<(CH + H + kReduceThreads - 1) / kReduceThreads,
+  reduce_kernel<<<(CH + W + kReduceThreads - 1) / kReduceThreads,
                   kReduceThreads, 0, st>>>(part, dws_part, dwv, dws, splits,
-                                           CH, B, H);
+                                           CH, B, W);
   return cudaGetLastError();
 }
 

@@ -1,24 +1,27 @@
-// K4 `attention_resident_fwd`: gather-free single-glimpse attention forward
-// over a feature store resident in device memory, for Hopper (sm_90a).
+// K4 `attention_resident_fwd`: gather-free attention forward with G glimpses
+// (1 <= G <= 8) over a feature store resident in device memory, for Hopper
+// (sm_90a).
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/attention_resident.py::
-// _make_fwd_kernel_multi (G=1; the Pallas body launched by
-// _resident_fwd_multi). Question b reads its grid straight out of the store
-// row rows[b]; no [B, Np, C] batch is ever built:
+// _make_fwd_kernel_multi (the Pallas body launched by _resident_fwd_multi).
+// Question b reads its grid straight out of the store row rows[b]; no
+// [B, Np, C] batch is ever built. The G glimpses share the one score GEMM:
 //
-//   v     = store[rows[b]]                       [Np, C] (Np padded cells)
-//   r     = rsqrt(sum_c bf16(v^2) + 1e-12)       (1 when !normalize)
-//   h     = relu((v @ W_v) * r + qh[b])          [Np, H] f32; saved in bf16
-//   s     = h . ws, masked to -1e30 at cells >= n_valid
-//   alpha = softmax_Np(s)
-//   v_att = sum_n bf16(alpha_n r_n) v_n
+//   v       = store[rows[b]]                     [Np, C] (Np padded cells)
+//   r       = rsqrt(sum_c bf16(v^2) + 1e-12)     (1 when !normalize)
+//   h       = relu((v @ W_v) * r + qh[b])        [Np, H] f32; saved in bf16
+//   s_g     = h . ws_g, masked to -1e30 at cells >= n_valid   (each glimpse)
+//   alpha_g = softmax_Np(s_g)
+//   v_att_g = sum_n bf16(alpha_gn r_n) v_n       (concatenated in g order)
 //
 // The rounding follows the Pallas kernel: f32 sums of bf16 products, h in
-// f32 for the score, alpha * r rounded to bf16 before the weighted sum.
+// f32 for the scores, each glimpse's alpha * r rounded to bf16 before its
+// weighted sum.
 //
 // What bounds it on an H100: at B=256, n_valid=196, C=2048, H=512 the score
-// GEMM is 105 GFLOP of bf16 (106 us at 989 TFLOP/s) against 205 MB of grid
-// reads and 51 MB of saved h (77 us at 3.35 TB/s): the tensor cores.
+// GEMM is 105 GFLOP of bf16 (106 us at 989 TFLOP/s; each glimpse adds a
+// 0.2 GFLOP weighted sum) against 205 MB of grid reads and 51 MB of saved h
+// (77 us at 3.35 TB/s): the tensor cores.
 //
 // Design: the TPU kernel runs one program per question with the row index
 // prefetched into scalar memory. Here the structure of K2
@@ -31,12 +34,17 @@
 //     the scalar prefetch. Blocks own 64-cell x 128-column tiles on bf16
 //     WMMA; the next k-step's tiles are loaded into registers while the
 //     tensor cores work on the current one. The epilogue forms h, writes it
-//     in bf16 on the grad path, and reduces it against ws into one partial
-//     score per cell and column tile.
+//     in bf16 on the grad path, and reduces it against the G columns of ws
+//     into G partial scores per cell and column tile. The GEMM runs once
+//     whatever G is, as on the TPU.
 //  2. attn_res_wsum_kernel: one block per (question, 512-channel chunk) sums
-//     the partial scores in a fixed order (deterministic), takes the masked
-//     softmax in shared memory and the weighted sum of the store row with
-//     coalesced bf16x2 loads.
+//     the partial scores in a fixed order (deterministic), takes the G
+//     masked softmaxes in shared memory, then forms all G weighted sums in
+//     ONE pass over the store row (coalesced bf16x2 loads, G accumulator
+//     pairs per thread): the row is read once, not G times.
+//
+// G is a template parameter instantiated for 1..8 (the TPU kernel's limit,
+// its ws sublane window), so the G=1 code is the single-glimpse kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,13 +72,14 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+template <int G>
 __global__ void __launch_bounds__(kScoreThreads)
 attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
                       const int* __restrict__ rows,             // [B]
                       const __nv_bfloat16* __restrict__ wv,     // [C, H]
                       const float* __restrict__ qh,             // [B, H]
-                      const float* __restrict__ ws,             // [H]
-                      float* __restrict__ part,          // [H/kBN, B*Np]
+                      const float* __restrict__ ws,             // [G, H]
+                      float* __restrict__ part,       // [H/kBN, G, B*Np]
                       float* __restrict__ rnorm,         // [B*Np]
                       __nv_bfloat16* __restrict__ hsave,  // [B*Np, H] / null
                       int cells, int Np, int C, int H, int normalize) {
@@ -165,11 +174,13 @@ attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
   }
   __syncthreads();
 
-  // Epilogue: four threads per cell, 32 columns each.
+  // Epilogue: four threads per cell, 32 columns each, G scores.
   const int er = tid >> 2;
   const int eq = tid & 3;
   const int cell = row0 + er;
-  float s = 0.0f;
+  float s[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = 0.0f;
   if (cell < cells) {
     const float r = rs[er];
     const int c0 = col0 + eq * 32;
@@ -182,7 +193,8 @@ attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
       // (z * r) + qh rounded as two operations, as the reference does.
       const float h = fmaxf(__fadd_rn(__fmul_rn(z[c], r), q[c]), 0.0f);
       hb[c] = __float2bfloat16(h);
-      s = fmaf(h, w[c], s);
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = fmaf(h, w[g * H + c], s[g]);
     }
     if (hsave != nullptr) {
       uint4* dst = reinterpret_cast<uint4*>(
@@ -191,10 +203,13 @@ attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
       for (int i = 0; i < 4; ++i) dst[i] = reinterpret_cast<uint4*>(hb)[i];
     }
   }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  if (eq == 0 && cell < cells) {
-    part[static_cast<size_t>(blockIdx.y) * cells + cell] = s;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
+    s[g] += __shfl_xor_sync(0xffffffffu, s[g], 2);
+    if (eq == 0 && cell < cells) {
+      part[(static_cast<size_t>(blockIdx.y) * G + g) * cells + cell] = s[g];
+    }
   }
 }
 
@@ -216,59 +231,105 @@ __device__ float block_reduce(float x, float* red) {
   return x;
 }
 
+template <int G>
 __global__ void __launch_bounds__(kWsumThreads)
 attn_res_wsum_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
                      const int* __restrict__ rows,             // [B]
-                     const float* __restrict__ part,   // [n_part, B*Np]
+                     const float* __restrict__ part,  // [n_part, G, B*Np]
                      const float* __restrict__ rnorm,  // [B*Np]
-                     float* __restrict__ vatt,         // [B, C]
-                     float* __restrict__ alpha,        // [B, Np]
+                     float* __restrict__ vatt,         // [B, G, C]
+                     float* __restrict__ alpha,        // [B, Np, G]
                      int B, int Np, int n_valid, int C, int n_part) {
-  extern __shared__ float sh[];  // p[Np], then the bf16 weights w[Np]
+  extern __shared__ float sh[];  // p [G][Np], then the bf16 weights w [G][Np]
   __shared__ float red[32];
   float* p = sh;
-  float* w = sh + Np;
+  float* w = sh + G * Np;
   const int b = blockIdx.x;
   const size_t cells = static_cast<size_t>(B) * Np;
   const size_t base = static_cast<size_t>(b) * Np;
 
-  float m = -INFINITY;
-  for (int n = threadIdx.x; n < Np; n += blockDim.x) {
-    float s = 0.0f;
-    for (int i = 0; i < n_part; ++i) s += part[i * cells + base + n];
-    if (n >= n_valid) s = kNegInf;
-    p[n] = s;
-    m = fmaxf(m, s);
-  }
-  m = block_reduce<true>(m, red);
-  float d = 0.0f;
-  for (int n = threadIdx.x; n < Np; n += blockDim.x) {
-    const float e = expf(p[n] - m);
-    p[n] = e;
-    d += e;
-  }
-  d = block_reduce<false>(d, red);  // its barriers also publish p
-  for (int n = threadIdx.x; n < Np; n += blockDim.x) {
-    const float a = p[n] / d;
-    if (blockIdx.y == 0) alpha[base + n] = a;
-    w[n] = round_bf16(a * rnorm[base + n]);
+  for (int g = 0; g < G; ++g) {  // one masked softmax per glimpse
+    float* pg = p + g * Np;
+    float m = -INFINITY;
+    for (int n = threadIdx.x; n < Np; n += blockDim.x) {
+      float s = 0.0f;
+      for (int i = 0; i < n_part; ++i) {
+        s += part[(static_cast<size_t>(i) * G + g) * cells + base + n];
+      }
+      if (n >= n_valid) s = kNegInf;
+      pg[n] = s;
+      m = fmaxf(m, s);
+    }
+    m = block_reduce<true>(m, red);
+    float d = 0.0f;
+    for (int n = threadIdx.x; n < Np; n += blockDim.x) {
+      const float e = expf(pg[n] - m);
+      pg[n] = e;
+      d += e;
+    }
+    d = block_reduce<false>(d, red);  // its barriers also publish pg
+    for (int n = threadIdx.x; n < Np; n += blockDim.x) {
+      const float a = pg[n] / d;
+      if (blockIdx.y == 0) alpha[(base + n) * G + g] = a;
+      w[g * Np + n] = round_bf16(a * rnorm[base + n]);
+    }
   }
   __syncthreads();
 
+  // All G weighted sums from one pass over the store row.
   const int c = blockIdx.y * kWsumChannels + 2 * threadIdx.x;
   if (c < C) {
     const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(
         store + static_cast<size_t>(rows[b]) * Np * C + c);
     const size_t stride = static_cast<size_t>(C) / 2;
-    float a0 = 0.0f, a1 = 0.0f;
+    float a0[G], a1[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) a0[g] = a1[g] = 0.0f;
     for (int n = 0; n < n_valid; ++n) {  // masked cells weigh exactly 0
       const float2 x = __bfloat1622float2(src[n * stride]);
-      a0 = fmaf(w[n], x.x, a0);
-      a1 = fmaf(w[n], x.y, a1);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float wn = w[g * Np + n];
+        a0[g] = fmaf(wn, x.x, a0[g]);
+        a1[g] = fmaf(wn, x.y, a1[g]);
+      }
     }
-    vatt[static_cast<size_t>(b) * C + c] = a0;
-    vatt[static_cast<size_t>(b) * C + c + 1] = a1;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float* out = vatt + (static_cast<size_t>(b) * G + g) * C + c;
+      out[0] = a0[g];
+      out[1] = a1[g];
+    }
   }
+}
+
+template <int G>
+int launch_fwd(const void* store, const void* rows, const void* wv,
+               const void* qh, const void* ws, void* part, void* rnorm,
+               void* hsave, void* vatt, void* alpha, int B, int Np,
+               int n_valid, int C, int H, int normalize, cudaStream_t st,
+               int* launched) {
+  const int cells = B * Np;
+  const dim3 g1((cells + kBM - 1) / kBM, H / kBN);
+  attn_res_score_kernel<G><<<g1, kScoreThreads, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(store),
+      static_cast<const int*>(rows), static_cast<const __nv_bfloat16*>(wv),
+      static_cast<const float*>(qh), static_cast<const float*>(ws),
+      static_cast<float*>(part), static_cast<float*>(rnorm),
+      static_cast<__nv_bfloat16*>(hsave), cells, Np, C, H, normalize);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ++*launched;
+  const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
+  const size_t smem = 2 * static_cast<size_t>(G) * Np * sizeof(float);
+  attn_res_wsum_kernel<G><<<g2, kWsumThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(store),
+      static_cast<const int*>(rows), static_cast<const float*>(part),
+      static_cast<const float*>(rnorm), static_cast<float*>(vatt),
+      static_cast<float*>(alpha), B, Np, n_valid, C, H / kBN);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -280,41 +341,32 @@ const char* cuda_error_string(int code) {
 }
 
 // store [M, Np, C] bf16, rows [B] i32 (< M, checked by the caller),
-// wv [C, H] bf16, qh [B, H] f32, ws [H] f32 -> vatt [B, C] f32,
-// alpha [B, Np] f32 (0 at cells >= n_valid), and h [B, Np, H] bf16 when
-// hsave is not null. Scratch: part [H/128, B*Np] f32, rnorm [B*Np] f32.
-// Needs C % 32 == 0 and H % 128 == 0 (checked by the caller). Two launches
-// on `stream`, counting in *launched those that launched; returns the
-// first launch error.
+// wv [C, H] bf16, qh [B, H] f32, ws [G, H] f32 (1 <= G <= 8) -> vatt
+// [B, G, C] f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and h
+// [B, Np, H] bf16 when hsave is not null. Scratch: part [H/128, G, B*Np]
+// f32, rnorm [B*Np] f32. Needs C % 32 == 0 and H % 128 == 0 (checked by the
+// caller). Two launches on `stream`, counting in *launched those that
+// launched; returns the first launch error.
 int attention_resident_fwd(const void* store, const void* rows,
                            const void* wv, const void* qh, const void* ws,
                            void* part, void* rnorm, void* hsave, void* vatt,
                            void* alpha, int B, int Np, int n_valid, int C,
-                           int H, int normalize, void* stream,
+                           int H, int G, int normalize, void* stream,
                            int* launched) {
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cells = B * Np;
-  const dim3 g1((cells + kBM - 1) / kBM, H / kBN);
-  attn_res_score_kernel<<<g1, kScoreThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(store),
-      static_cast<const int*>(rows), static_cast<const __nv_bfloat16*>(wv),
-      static_cast<const float*>(qh), static_cast<const float*>(ws),
-      static_cast<float*>(part), static_cast<float*>(rnorm),
-      static_cast<__nv_bfloat16*>(hsave), cells, Np, C, H, normalize);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ++*launched;
-  const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
-  const size_t smem = 2 * static_cast<size_t>(Np) * sizeof(float);
-  attn_res_wsum_kernel<<<g2, kWsumThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(store),
-      static_cast<const int*>(rows), static_cast<const float*>(part),
-      static_cast<const float*>(rnorm), static_cast<float*>(vatt),
-      static_cast<float*>(alpha), B, Np, n_valid, C, H / kBN);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++*launched;
-  return static_cast<int>(e);
+#define K4_CASE(g)                                                         \
+  case g:                                                                  \
+    return launch_fwd<g>(store, rows, wv, qh, ws, part, rnorm, hsave,      \
+                         vatt, alpha, B, Np, n_valid, C, H, normalize, st, \
+                         launched);
+  switch (G) {
+    K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4)
+    K4_CASE(5) K4_CASE(6) K4_CASE(7) K4_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef K4_CASE
 }
 
 }  // extern "C"

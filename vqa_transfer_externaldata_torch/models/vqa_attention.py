@@ -1,17 +1,20 @@
-"""Stage-2 VQA model, ``vqa_attention``: GloVe-embedded GRU question
-encoder -> single-glimpse spatial attention over the 14x14x2048 grid ->
-gated fusion -> answer classifier whose logits are cosine similarities
-against an answer-embedding table (the transfer vehicle), times a learned
-scale, plus a bias.
+"""Stage-2 VQA model, ``vqa_attention`` (``vqa_attention2``: two
+glimpses): GloVe-embedded GRU question encoder -> spatial attention over
+the 14x14x2048 grid with G glimpses -> gated fusion -> answer classifier
+whose logits are cosine similarities against an answer-embedding table
+(the transfer vehicle), times a learned scale, plus a bias.
 
 Input: ``q_ids`` [B, T] int (<pad>=0) and either gathered ``features``
 [B, N, C] (the eval forward of serving) or a tuple ``(store [M, Np, C],
 rows [B] int32)``: the gather-free resident path, where the attention reads
 each question's grid straight out of a store held in device memory
 (``ops/attention_resident``). Both inputs train: ``train=True`` turns
-dropout on, drawn from an explicit ``torch.Generator``. More than one
-glimpse comes in a later slice. Parameter names follow the JAX package's
-tree (``utils/convert.py`` maps one to the other).
+dropout on, drawn from an explicit ``torch.Generator``. With
+``glimpses`` G > 1 the score vector ``att_ws`` is a matrix [H, G] and
+``fuse_v`` takes the G concatenated weighted sums; the resident input runs
+the same op with its G-glimpse kernels, the gathered input normalizes the
+grid and runs ``spatial_attention_multi``. Parameter names follow the JAX
+package's tree (``utils/convert.py`` maps one to the other).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from vqa_transfer_externaldata_torch.ops.attention import spatial_attention
+from vqa_transfer_externaldata_torch.ops.attention import (
+    spatial_attention, spatial_attention_multi)
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     spatial_attention_resident)
 from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder
@@ -36,7 +40,7 @@ class VQAAttentionModel(nn.Module):
                  feature_dim: int = 2048, word_dim: int = 300,
                  rnn_dim: int = 512, fusion_dim: int = 1024,
                  att_hidden: int = 512, answer_dim: int = 300,
-                 dropout: float = 0.5,
+                 dropout: float = 0.5, glimpses: int = 1,
                  n_cells: Optional[int] = None,
                  store_prenormalized: bool = False,
                  feature_grad: bool = False,
@@ -47,6 +51,7 @@ class VQAAttentionModel(nn.Module):
         g = generator
         self.dtype = dtype
         self.dropout = dropout
+        self.glimpses = glimpses
         # True grid-cell count of a (store, rows) input, whose cell axis is
         # padded (None: every cell of the store is valid).
         self.n_cells = n_cells
@@ -62,11 +67,12 @@ class VQAAttentionModel(nn.Module):
         self.gru = GRUEncoder(word_dim, rnn_dim, dtype=dtype, generator=g)
         self.att_q = Dense(rnn_dim, att_hidden, dtype=dtype, generator=g)
         self.att_wv = nn.Parameter(torch.empty(feature_dim, att_hidden))
-        self.att_ws = nn.Parameter(torch.empty(att_hidden))
+        self.att_ws = nn.Parameter(torch.empty(
+            (att_hidden, glimpses) if glimpses > 1 else (att_hidden,)))
         self.fuse_q = GatedTanh(rnn_dim, fusion_dim, dtype=dtype,
                                 generator=g)
-        self.fuse_v = GatedTanh(feature_dim, fusion_dim, dtype=dtype,
-                                generator=g)
+        self.fuse_v = GatedTanh(glimpses * feature_dim, fusion_dim,
+                                dtype=dtype, generator=g)
         self.ans_proj = Dense(fusion_dim, answer_dim, dtype=dtype,
                               generator=g)
         self.answer_embedding = nn.Parameter(
@@ -82,8 +88,9 @@ class VQAAttentionModel(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """features [B, N, C] or (store [M, Np, C], rows [B]), q_ids [B, T]
-        -> {"logits" [B, A] f32, "alpha" [B, cells] f32}. ``train`` turns
-        dropout on, drawn from ``generator``."""
+        -> {"logits" [B, A] f32, "alpha" [B, cells] f32 ([B, cells, G] with
+        G > 1 glimpses)}. ``train`` turns dropout on, drawn from
+        ``generator``."""
         dt = self.dtype
         resident = isinstance(features, (tuple, list))
         mask = (q_ids != PAD_ID).float()
@@ -97,6 +104,11 @@ class VQAAttentionModel(nn.Module):
                 store.to(dt), rows, qh, self.att_wv, self.att_ws,
                 n_valid=self.n_cells or store.shape[1],
                 normalize=not self.store_prenormalized)
+        elif self.glimpses > 1:
+            # The grid is normalized before the score product here, in
+            # training and at evaluation, as in the JAX package.
+            v_att, alpha = spatial_attention_multi(
+                l2_normalize(features.to(dt)), qh, self.att_wv, self.att_ws)
         else:
             # The per-cell L2 normalization of the grid is fused into the op.
             v_att, alpha = spatial_attention(

@@ -2,8 +2,9 @@
 module with its batch adapter, its loss and its stage, so the trainer and
 the CLI serve every ported family the same way.
 
-Ported: ``vqa_attention`` (one glimpse, stage 2) and the stage-1 families
-``vlmap`` and ``vlmap_description``; every other family raises
+Ported: the stage-2 families ``vqa_attention`` (``model.glimpses``
+glimpses), ``vqa_attention2`` (two) and ``vqa_baseline``, and the stage-1
+families ``vlmap`` and ``vlmap_description``; ``vqa_end2end`` raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -21,17 +22,15 @@ from vqa_transfer_externaldata_torch.models.vlmap import (
     VLMapDescriptionModel, VLMapModel, vlmap_loss)
 from vqa_transfer_externaldata_torch.models.vqa_attention import (
     VQAAttentionModel, vqa_loss)
+from vqa_transfer_externaldata_torch.models.vqa_baseline import (
+    VQABaselineModel)
 from vqa_transfer_externaldata_torch.ops.layers import dtype_of
 
 MODELS = ("vqa_attention", "vqa_attention2", "vqa_baseline", "vlmap",
           "vlmap_description", "vqa_end2end")
 
 # Where each family not yet ported stands in ROADMAP.md, section 1.
-_NOT_PORTED = {
-    "vqa_attention2": "item 11 (two glimpses)",
-    "vqa_baseline": "item 11",
-    "vqa_end2end": "item 13",
-}
+_NOT_PORTED = {"vqa_end2end": "item 13"}
 
 
 @dataclass(frozen=True)
@@ -40,7 +39,9 @@ class ModelSpec:
     forward; loss: (outputs, batch) -> (scalar, metrics); stage: "vqa"
     (stage 2) or a stage-1 dataset prefix ("vlmap", "vlmap_desc");
     label_key: the batch column the loss needs (an evaluation split
-    without it gets predictions only)."""
+    without it gets predictions only); visual_key: the batch column of the
+    image features the model reads ("features" for a grid, "pool5" or
+    "feature" for a vector)."""
 
     module: nn.Module
     inputs: Callable[[Dict[str, Any]], Tuple]
@@ -48,6 +49,7 @@ class ModelSpec:
                    Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     stage: str
     label_key: str
+    visual_key: str
 
 
 def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
@@ -75,7 +77,7 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
             generator=generator)
         return ModelSpec(module,
                          lambda b: (b["feature"], b["task"], b["candidates"]),
-                         vlmap_loss, "vlmap", "label")
+                         vlmap_loss, "vlmap", "label", "feature")
     if name == "vlmap_description":
         module = VLMapDescriptionModel(
             d.vocab_size, num_tasks=m.num_tasks, feature_dim=d.pool5_dim,
@@ -86,20 +88,24 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
         return ModelSpec(module,
                          lambda b: (b["feature"], b["desc_ids"], b["task"],
                                     b["candidates"]),
-                         vlmap_loss, "vlmap_desc", "label")
+                         vlmap_loss, "vlmap_desc", "label", "feature")
+    if name == "vqa_baseline":
+        module = VQABaselineModel(
+            d.vocab_size, d.num_answers, feature_dim=d.pool5_dim,
+            word_dim=m.word_dim, fusion_dim=m.fusion_dim, dropout=m.dropout,
+            dtype=dt, word_init=word_init, generator=generator)
+        return ModelSpec(module, lambda b: (b["pool5"], b["q_ids"]),
+                         vqa_loss, "vqa", "answer_id", "pool5")
     if m.fidelity_mode or m.rnn_variant != "cudnn":
         raise NotImplementedError(
             "the TF1-exact GRU (model.rnn_variant tf, model.fidelity_mode) "
             "is not ported yet (ROADMAP.md, section 1, item 14)")
-    if m.glimpses > 1:
-        raise NotImplementedError(
-            "model.glimpses > 1 is not ported yet (ROADMAP.md, section 1, "
-            f"{_NOT_PORTED['vqa_attention2']})")
+    glimpses = 2 if name == "vqa_attention2" else max(1, m.glimpses)
     module = VQAAttentionModel(
         d.vocab_size, d.num_answers, feature_dim=d.feature_dim,
         word_dim=m.word_dim, rnn_dim=m.rnn_dim, fusion_dim=m.fusion_dim,
         att_hidden=m.att_hidden, answer_dim=m.answer_dim, dropout=m.dropout,
-        n_cells=d.grid_h * d.grid_w, dtype=dt, word_init=word_init,
-        generator=generator)
+        glimpses=glimpses, n_cells=d.grid_h * d.grid_w, dtype=dt,
+        word_init=word_init, generator=generator)
     return ModelSpec(module, lambda b: (b["features"], b["q_ids"]), vqa_loss,
-                     "vqa", "answer_id")
+                     "vqa", "answer_id", "features")

@@ -1,4 +1,4 @@
-"""Single-glimpse spatial attention over the image feature grid:
+"""Spatial attention over the image feature grid, single glimpse:
 
     h      = relu(v @ Wv + qh)          # [B, N, H], qh = q @ Wq + bq
     score  = h @ w_s                    # [B, N]
@@ -16,7 +16,9 @@ tensors its forward launches the hand-written kernel ``csrc/attention_fwd.cu``
 explicit backward :func:`attention_bwd_math`; on CPU tensors the plain
 versions :func:`attention_fwd_reference` and :func:`attention_bwd_reference`.
 :func:`spatial_attention_reference` and :func:`_reference_postscaled` are
-the JAX package's oracles, in PyTorch.
+the JAX package's oracles, in PyTorch. :func:`spatial_attention_multi` is
+the G-glimpse variant on a gathered grid, plain PyTorch differentiated by
+autograd (the JAX package computes it in XLA, with no Pallas kernel).
 
 Products of ``dt`` (bf16) values are taken as float32 matmuls of upcast
 operands: the upcast copies are exact, so this is a ``dt`` matmul with
@@ -76,6 +78,24 @@ def _reference_postscaled(
     return v_att, alpha
 
 
+def spatial_attention_multi(
+    v: torch.Tensor,  # [B, N, C] grid features (normalized by the caller)
+    qh: torch.Tensor,  # [B, H] projected question
+    wv: torch.Tensor,  # [C, H]
+    w_score: torch.Tensor,  # [H, G]: one score vector per glimpse
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G independent softmaxes over the grid sharing h = relu(v @ Wv + qh):
+    (v_att [B, G*C] f32, concatenated in glimpse order, alpha [B, N, G]
+    f32), differentiable in all four. ``wv`` and ``w_score`` are rounded
+    to ``v.dtype``; products of ``v.dtype`` values are summed in f32, as
+    ``preferred_element_type=float32`` is in the JAX package."""
+    dt = v.dtype
+    vf = v.float()
+    h = torch.relu(vf @ wv.to(dt).float() + qh[:, None, :].float())
+    score = h.to(dt).float() @ w_score.to(dt).float()  # [B, N, G]
+    alpha = torch.softmax(score, dim=1)
+    v_att = torch.einsum("bng,bnc->bgc", alpha.to(dt).float(), vf)
+    return v_att.reshape(v.shape[0], -1), alpha
 
 
 def attention_fwd_reference(v: torch.Tensor, qh: torch.Tensor,
@@ -241,12 +261,13 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     CPU tensors each path takes its plain version. ``feature_grad=False``
     gives the grid no gradient: only for features that are data.
 
-    A 2-D ``w_score`` (the G-glimpse variant) is not ported yet
-    (ROADMAP.md, section 1, item 11)."""
+    One glimpse only, as in the JAX package: a 2-D ``w_score`` raises
+    ``ValueError`` (:func:`spatial_attention_multi` takes G glimpses)."""
     if w_score.dim() != 1:
-        raise NotImplementedError(
-            "the G-glimpse gathered attention is not ported yet (ROADMAP.md, "
-            "section 1, item 11)")
+        raise ValueError(
+            f"spatial_attention takes a 1-D w_score, got "
+            f"{tuple(w_score.shape)}; use spatial_attention_multi for G "
+            "glimpses")
     if v.device.type not in ("cuda", "cpu"):
         raise ValueError(f"spatial_attention: no path for device {v.device}")
     return _GatheredAttention.apply(v, qh, wv, w_score, normalize,

@@ -1,17 +1,18 @@
 """Gather-free spatial attention over a feature store resident in device
-memory (one glimpse):
+memory, with G glimpses (1 <= G <= 8) that share the one v @ Wv product:
 
-    v      = store[rows[b]]                     [Np, C] (Np padded cells)
-    r      = rsqrt(|v|^2 + 1e-12) per cell      (1 unless ``normalize``)
-    h      = relu((v @ Wv) * r + qh[b])         [Np, H]
-    alpha  = softmax over the n_valid cells of h @ w_s (padded cells: 0)
-    v_att  = sum_n (alpha_n r_n) v_n            [C]
+    v        = store[rows[b]]                   [Np, C] (Np padded cells)
+    r        = rsqrt(|v|^2 + 1e-12) per cell    (1 unless ``normalize``)
+    h        = relu((v @ Wv) * r + qh[b])       [Np, H]
+    alpha_g  = softmax over the n_valid cells of h @ w_s[:, g] (padded: 0)
+    v_att_g  = sum_n (alpha_gn r_n) v_n         [C], concatenated in g order
 
 Each question's grid is read straight out of the [M, Np, C] store through
 its row index, so no [B, Np, C] batch is ever built. The training forward
 saves the post-ReLU ``h`` (store dtype) and the backward works from it:
 dqh, dWv and dws, while the store and the rows get no gradient (the store
-is data).
+is data). A 1-D ``w_score`` [H] is the single glimpse, with outputs
+without the glimpse axis.
 
 :func:`spatial_attention_resident` is the entry point. On CUDA tensors its
 forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
@@ -19,8 +20,9 @@ forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
 (``csrc/attention_resident_bwd.cu``, wrapper :func:`attention_resident_bwd`);
 on CPU tensors their plain versions :func:`attention_resident_fwd_reference`
 and :func:`attention_resident_bwd_reference`. The rounding follows the
-kernels: f32 sums of store-dtype products, squares, ``alpha * r``, the v_att
-cotangent and ``dz * r`` rounded to the store dtype.
+kernels: f32 sums of store-dtype products, squares, each glimpse's
+``alpha * r``, the v_att cotangents and ``dz * r`` (dz summed over the
+glimpses in f32 first) rounded to the store dtype.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ _FWD_TILE_C = 32  # channels per k-step
 _BWD_TILE = 128  # dW_v tile edge (csrc/attention_resident_bwd.cu)
 _BWD_TILE_K = 32  # cells per k-step of the dW_v GEMM
 _SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
+_SMEM_OPTIN = 227 * 1024  # dynamic shared memory a block may opt in to
+MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
 
 
 def pad_store_rows(grid: np.ndarray, multiple: int = 8) -> np.ndarray:
@@ -98,24 +102,38 @@ def _gather(store: torch.Tensor, rows: torch.Tensor, normalize: bool
     return v.float(), r
 
 
+def _glimpses(ws: torch.Tensor, what: str) -> int:
+    """G of a score matrix ``ws`` [H, G] (1 for a single-glimpse [H])."""
+    G = 1 if ws.dim() == 1 else ws.shape[1]
+    if ws.dim() not in (1, 2) or not 1 <= G <= MAX_GLIMPSES:
+        raise ValueError(f"{what} takes w_score [H] or [H, G] with 1 <= G <= "
+                         f"{MAX_GLIMPSES}, got {tuple(ws.shape)}")
+    return G
+
+
 def attention_resident_fwd_reference(
         store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
         wv: torch.Tensor, ws: torch.Tensor, *, n_valid: int,
         normalize: bool, save_h: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Plain PyTorch version of kernel K4: store [M, Np, C] (dt), rows [B]
-    int, qh [B, H] f32, wv [C, H] (dt), ws [H] f32 -> (v_att [B, C] f32,
-    alpha [B, Np] f32 (0 at padded cells), h [B, Np, H] in dt or None)."""
+    int, qh [B, H] f32, wv [C, H] (dt), ws [H, G] f32 -> (v_att [B, G*C]
+    f32, alpha [B, Np, G] f32 (0 at padded cells), h [B, Np, H] in dt or
+    None). A 1-D ws [H] gives v_att [B, C] and alpha [B, Np]."""
     dt = store.dtype
+    G = _glimpses(ws, "attention_resident_fwd_reference")
     vf, r = _gather(store, rows, normalize)
     z = vf @ wv.float()
     h = torch.relu(z * r[:, :, None] + qh[:, None, :])
-    s = h @ ws
-    cell = torch.arange(s.shape[1], device=s.device)
+    s = h @ ws.reshape(ws.shape[0], G)  # [B, Np, G]
+    cell = torch.arange(s.shape[1], device=s.device)[:, None]
     s = torch.where(cell < n_valid, s, torch.full_like(s, _NEG_INF))
     p = torch.exp(s - s.amax(dim=1, keepdim=True))
     alpha = p / p.sum(dim=1, keepdim=True)
-    v_att = torch.einsum("bn,bnc->bc", (alpha * r).to(dt).float(), vf)
+    w = (alpha * r[:, :, None]).to(dt).float()  # each glimpse's weights
+    v_att = torch.einsum("bng,bnc->bgc", w, vf).reshape(vf.shape[0], -1)
+    if ws.dim() == 1:
+        alpha = alpha[:, :, 0]
     return v_att, alpha, (h.to(dt) if save_h else None)
 
 
@@ -125,17 +143,28 @@ def attention_resident_bwd_reference(
         sga: torch.Tensor, *, n_valid: int, normalize: bool
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel K5, from the saved ``h`` [B, Np, H]:
-    ws [H] f32, alpha and sga (= ga - S) [B, Np] f32, g [B, C] f32 (the
-    v_att cotangent) -> (dqh [B, H], dwv [C, H], dws [H]), all f32. The
-    padded cells (alpha 0) add nothing, so ``n_valid`` is not needed."""
+    ws [H, G] f32, alpha and sga (= ga - S per glimpse) [B, Np, G] f32,
+    g [B, G*C] f32 (the v_att cotangent) -> (dqh [B, H], dwv [C, H],
+    dws [H, G]), all f32; a 1-D ws [H] takes alpha and sga [B, Np] and
+    gives dws [H]. The glimpses' dz are summed in f32 before the one
+    ``dz * r`` rounding. The padded cells (alpha 0) add nothing, so
+    ``n_valid`` is not needed."""
     del n_valid
     dt = store.dtype
+    G = _glimpses(ws, "attention_resident_bwd_reference")
+    B, Np = alpha.shape[:2]
+    ws2 = ws.reshape(-1, G)
     vf, r = _gather(store, rows, normalize)
-    dalpha = torch.einsum("bc,bnc->bn", g.to(dt).float(), vf) * r
-    ds = alpha * (dalpha + sga)
+    g3 = g.reshape(B, G, -1).to(dt).float()
+    dalpha = torch.einsum("bgc,bnc->bng", g3, vf) * r[:, :, None]
+    ds = alpha.reshape(B, Np, G) * (dalpha + sga.reshape(B, Np, G))
     hf = h.float()
-    dz = torch.where(hf > 0, ds[:, :, None] * ws, torch.zeros_like(hf))
-    dws = torch.einsum("bn,bnh->h", ds, hf)
+    live = hf > 0
+    dz = torch.zeros_like(hf)
+    for k in range(G):  # in glimpse order, as the kernels sum
+        dz = dz + torch.where(live, ds[:, :, k, None] * ws2[:, k],
+                              torch.zeros_like(hf))
+    dws = torch.einsum("bng,bnh->hg", ds, hf).reshape(ws.shape)
     dqh = dz.sum(1)
     dwv = torch.einsum("bnc,bnh->ch", vf,
                        (dz * r[:, :, None]).to(dt).float())
@@ -151,7 +180,7 @@ def attention_resident_bwd_reference(
 def _fwd_lib() -> ctypes.CDLL:
     lib = kernels.load("attention_resident_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 6 + [p, p]
+    lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 7 + [p, p]
     lib.attention_resident_fwd.restype = i
     return lib
 
@@ -160,7 +189,7 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = kernels.load("attention_resident_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 7 + [p, p]
+    lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 8 + [p, p]
     lib.attention_resident_bwd.restype = i
     return lib
 
@@ -190,32 +219,36 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
                                       Optional[torch.Tensor]]:
     """Launch kernel K4 on CUDA tensors: store [M, Np, C] bf16, rows [B]
     int32 (each < M, which the caller guarantees), qh [B, H] f32, wv
-    [C, H] bf16, ws [H] f32 -> (v_att [B, C] f32, alpha [B, Np] f32,
-    h [B, Np, H] bf16 when ``save_h`` else None). Needs C % 32 == 0 and
+    [C, H] bf16, ws [H, G] f32 with 1 <= G <= 8 -> (v_att [B, G*C] f32,
+    alpha [B, Np, G] f32, h [B, Np, H] bf16 when ``save_h`` else None); a
+    1-D ws [H] gives v_att [B, C] and alpha [B, Np]. Needs C % 32 == 0 and
     H % 128 == 0. One call makes the kernel's two launches on the current
     stream and adds the number launched (2) to
     ``attention_resident_fwd.launches``."""
     M, Np, C, B = _check_store(store, rows, n_valid, "attention_resident_fwd")
     H = qh.shape[-1]
     dev = store.device
+    G = _glimpses(ws, "attention_resident_fwd")
     if C % _FWD_TILE_C or H % _FWD_TILE_H:
         raise ValueError(f"attention_resident_fwd needs C % {_FWD_TILE_C} "
                          f"== 0 and H % {_FWD_TILE_H} == 0, got C={C}, "
                          f"H={H}")
-    if 2 * Np * 4 > _SMEM_LIMIT:
-        raise ValueError(f"attention_resident_fwd: Np={Np} cells exceed the "
-                         "softmax's shared memory")
+    if 2 * G * Np * 4 > _SMEM_LIMIT:
+        raise ValueError(f"attention_resident_fwd: Np={Np} cells of G={G} "
+                         "glimpses exceed the softmax's shared memory")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
-    kernels.expect("ws", ws, torch.float32, (H,), dev)
+    kernels.expect("ws", ws, torch.float32,
+                   (H, G) if ws.dim() == 2 else (H,), dev)
     if wv.data_ptr() % 16:
         raise ValueError("attention_resident_fwd reads wv in 16-byte "
                          "vectors: it must start 16-byte aligned")
+    ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(H // _FWD_TILE_H, B * Np, **f32)
+    part = torch.empty(H // _FWD_TILE_H, G, B * Np, **f32)
     rnorm = torch.empty(B * Np, **f32)
-    v_att = torch.empty(B, C, **f32)
-    alpha = torch.empty(B, Np, **f32)
+    v_att = torch.empty(B, G * C, **f32)
+    alpha = torch.empty(B, Np, G, **f32)
     h = (torch.empty(B, Np, H, dtype=torch.bfloat16, device=dev)
          if save_h else None)
     lib = _fwd_lib()
@@ -223,14 +256,14 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     with torch.cuda.device(dev):
         rc = lib.attention_resident_fwd(
             store.data_ptr(), rows.data_ptr(), wv.data_ptr(), qh.data_ptr(),
-            ws.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
+            ws_gh.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
             h.data_ptr() if save_h else None, v_att.data_ptr(),
-            alpha.data_ptr(), B, Np, n_valid, C, H, int(normalize),
+            alpha.data_ptr(), B, Np, n_valid, C, H, G, int(normalize),
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_resident_fwd.launches += launched.value
     kernels.check(lib, rc, "attention_resident_fwd")
-    return v_att, alpha, h
+    return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h
 
 
 attention_resident_fwd.launches = 0
@@ -244,25 +277,30 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Launch kernel K5 on CUDA tensors: store [M, Np, C] bf16, rows [B]
-    int32, h [B, Np, H] bf16 (K4's residual), ws [H] f32, alpha and sga
-    [B, Np] f32, g [B, C] f32 -> (dqh [B, H], dwv [C, H], dws [H]), all
-    f32. Needs C % 128 == 0 and H % 128 == 0. One call makes the kernel's
-    three launches on the current stream and adds the number launched (3)
-    to ``attention_resident_bwd.launches``."""
+    int32, h [B, Np, H] bf16 (K4's residual), ws [H, G] f32 with
+    1 <= G <= 8, alpha and sga [B, Np, G] f32, g [B, G*C] f32 -> (dqh
+    [B, H], dwv [C, H], dws [H, G]), all f32; a 1-D ws [H] takes alpha and
+    sga [B, Np] and gives dws [H]. Needs C % 128 == 0 and H % 128 == 0.
+    One call makes the kernel's three launches on the current stream and
+    adds the number launched (3) to ``attention_resident_bwd.launches``."""
     M, Np, C, B = _check_store(store, rows, n_valid, "attention_resident_bwd")
     H = h.shape[-1]
     dev = store.device
+    G = _glimpses(ws, "attention_resident_bwd")
     if C % _BWD_TILE or H % _BWD_TILE:
         raise ValueError(f"attention_resident_bwd needs C % {_BWD_TILE} == 0 "
                          f"and H % {_BWD_TILE} == 0, got C={C}, H={H}")
-    if (C + 2 * Np) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"attention_resident_bwd: C={C} channels and "
-                         f"Np={Np} cells exceed its shared memory")
+    # The G cotangent rows in bf16, then ds per glimpse and r in f32.
+    if G * C * 2 + (G + 1) * Np * 4 > _SMEM_OPTIN:
+        raise ValueError(f"attention_resident_bwd: C={C} channels, Np={Np} "
+                         f"cells and G={G} glimpses exceed its shared memory")
+    per_cell = (B, Np) + ((G,) if ws.dim() == 2 else ())
     kernels.expect("h", h, torch.bfloat16, (B, Np, H), dev)
-    kernels.expect("ws", ws, torch.float32, (H,), dev)
-    kernels.expect("alpha", alpha, torch.float32, (B, Np), dev)
-    kernels.expect("g", g, torch.float32, (B, C), dev)
-    kernels.expect("sga", sga, torch.float32, (B, Np), dev)
+    kernels.expect("ws", ws, torch.float32, (H,) + per_cell[2:], dev)
+    kernels.expect("alpha", alpha, torch.float32, per_cell, dev)
+    kernels.expect("g", g, torch.float32, (B, G * C), dev)
+    kernels.expect("sga", sga, torch.float32, per_cell, dev)
+    ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     K = B * n_valid
     tiles = (C // _BWD_TILE) * (H // _BWD_TILE)
     # Split the cells over enough blocks for two waves on the card, while
@@ -271,25 +309,25 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     splits = max(1, min(-(-2 * sms // tiles), K // (8 * _BWD_TILE_K)))
     f32 = dict(dtype=torch.float32, device=dev)
     dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
-    dws_part = torch.empty(B, H, **f32)
+    dws_part = torch.empty(B, G, H, **f32)
     part = torch.empty(splits, C, H, **f32)
     dqh = torch.empty(B, H, **f32)
     dwv = torch.empty(C, H, **f32)
-    dws = torch.empty(H, **f32)
+    dws = torch.empty(G, H, **f32)
     lib = _bwd_lib()
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_resident_bwd(
-            store.data_ptr(), rows.data_ptr(), h.data_ptr(), ws.data_ptr(),
-            alpha.data_ptr(), g.data_ptr(), sga.data_ptr(), dzr.data_ptr(),
-            dws_part.data_ptr(), part.data_ptr(), dqh.data_ptr(),
-            dwv.data_ptr(), dws.data_ptr(), B, Np, n_valid, C, H,
-            int(normalize), splits,
+            store.data_ptr(), rows.data_ptr(), h.data_ptr(),
+            ws_gh.data_ptr(), alpha.data_ptr(), g.data_ptr(), sga.data_ptr(),
+            dzr.data_ptr(), dws_part.data_ptr(), part.data_ptr(),
+            dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(), B, Np, n_valid,
+            C, H, G, int(normalize), splits,
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_resident_bwd.launches += launched.value
     kernels.check(lib, rc, "attention_resident_bwd")
-    return dqh, dwv, dws
+    return dqh, dwv, dws.t().contiguous().reshape(ws.shape)
 
 
 attention_resident_bwd.launches = 0
@@ -302,8 +340,9 @@ attention_resident_bwd.launches = 0
 
 class _ResidentAttention(torch.autograd.Function):
     """Forward K4 (saving h only when a gradient is wanted), backward K5.
-    The softmax backward's per-question scalar S = g . v_att + alpha . ga
-    is packed outside the kernel into sga = ga - S."""
+    The softmax backward's per-question, per-glimpse scalar S_g = g_g .
+    v_att_g + alpha_g . ga_g is packed outside the kernel into
+    sga = ga - S."""
 
     @staticmethod
     def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize, save_h):
@@ -326,8 +365,11 @@ class _ResidentAttention(torch.autograd.Function):
         n_valid, normalize, qh_dt, wv_dt, ws_dt = ctx.meta
         g = torch.zeros_like(v_att) if g is None else g.float()
         ga = torch.zeros_like(alpha) if ga is None else ga.float()
-        s = (g * v_att).sum(-1) + (alpha * ga).sum(-1)
-        sga = (ga - s[:, None]).contiguous()
+        B, G = alpha.shape[0], 1 if ws_c.dim() == 1 else ws_c.shape[1]
+        a3, ga3 = alpha.reshape(B, -1, G), ga.reshape(B, -1, G)
+        s = ((g.reshape(B, G, -1) * v_att.reshape(B, G, -1)).sum(-1)
+             + (a3 * ga3).sum(1))  # [B, G]
+        sga = (ga3 - s[:, None, :]).reshape(alpha.shape).contiguous()
         bwd = (attention_resident_bwd if store.device.type == "cuda"
                else attention_resident_bwd_reference)
         dqh, dwv, dws = bwd(store, rows, h, ws_c, alpha, g.contiguous(), sga,
@@ -341,7 +383,7 @@ def spatial_attention_resident(
     rows: torch.Tensor,  # [B] int32 store row per question
     qh: torch.Tensor,  # [B, H] projected question
     wv: torch.Tensor,  # [C, H]
-    w_score: torch.Tensor,  # [H]
+    w_score: torch.Tensor,  # [H], or [H, G] for G glimpses
     *,
     n_valid: int,  # true cell count (<= Np; the rest is masked)
     normalize: bool = False,
@@ -351,21 +393,20 @@ def spatial_attention_resident(
     store_sharded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather-free attention: (v_att [B, C] f32, alpha [B, n_valid] f32),
-    differentiable in ``qh``, ``wv`` and ``w_score``. ``wv`` and
-    ``w_score`` are rounded to the store's dtype inside. A CUDA store runs
-    kernels K4/K5 (bf16 store), a CPU store their plain versions.
+    or with a 2-D ``w_score`` [H, G] (1 <= G <= 8, else ``ValueError``) the
+    G-glimpse variant, G softmaxes sharing the one v @ Wv product: (v_att
+    [B, G*C] f32, concatenated in glimpse order, alpha [B, n_valid, G]
+    f32). Differentiable in ``qh``, ``wv`` and ``w_score``, which are
+    rounded to the store's dtype inside. A CUDA store runs kernels K4/K5
+    (bf16 store), a CPU store their plain versions.
 
     Not ported yet, each raising ``NotImplementedError``: an int8 store
-    with its ``store_scale`` (ROADMAP.md section 1 item 14), a 2-D
-    ``w_score`` of the G-glimpse variant (item 11), and ``mesh``/
+    with its ``store_scale`` (ROADMAP.md section 1 item 14) and ``mesh``/
     ``data_axis``/``store_sharded`` (item 12)."""
     if not store.is_floating_point() or store_scale != 1.0:
         raise NotImplementedError(
             "int8 stores are not ported yet (ROADMAP.md, section 1, item 14)")
-    if w_score.dim() != 1:
-        raise NotImplementedError(
-            "the G-glimpse resident attention is not ported yet (ROADMAP.md, "
-            "section 1, item 11)")
+    _glimpses(w_score, "spatial_attention_resident")
     if mesh is not None or data_axis is not None or store_sharded:
         raise NotImplementedError(
             "multi-device resident attention is not ported yet (ROADMAP.md, "

@@ -122,14 +122,16 @@ class GatedTanh(nn.Module):
 
 class MLP(nn.Module):
     """A stack of :class:`Dense` layers ``fc0``, ``fc1``, ... with ReLU and
-    then dropout (when training) between layers and nothing after the
-    last."""
+    then dropout (when training) after every layer but the last, and after
+    the last too with ``final_activation``."""
 
     def __init__(self, in_features: int, features: Sequence[int], *,
                  dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 final_activation: bool = False,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.dropout = dropout
+        self.final_activation = final_activation
         dims = [in_features, *features]
         for i in range(len(features)):
             self.add_module(f"fc{i}", Dense(dims[i], dims[i + 1], dtype=dtype,
@@ -140,7 +142,7 @@ class MLP(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
             x = getattr(self, f"fc{i}")(x)
-            if i < self.n_layers - 1:
+            if i < self.n_layers - 1 or self.final_activation:
                 x = torch.relu(x)
                 if train and self.dropout > 0.0:
                     x = dropout(x, self.dropout, generator)

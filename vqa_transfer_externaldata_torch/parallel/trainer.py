@@ -459,9 +459,11 @@ class Trainer:
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         rows, make_batch, nbytes = self._prepare_resident(ds)
+        store_rows = next((rows[k].shape[0] for k in ("grid", "store_pool5")
+                           if k in rows), None)
         log.info("device-resident dataset: %d rows%s, %.2f GB uploaded once",
-                 ds.size, (f" + {rows['grid'].shape[0]}-row feature store"
-                           if "grid" in rows else ""), nbytes / 1e9)
+                 ds.size, (f" + {store_rows}-row feature store"
+                           if store_rows is not None else ""), nbytes / 1e9)
         indices = ds.index_batches(t.batch_size, seed=t.seed)
         timer = Timer()
         stepno = state.step
@@ -566,22 +568,28 @@ class Trainer:
         batch by index on the device. The row arrays upload as they are,
         float features cast to the compute dtype on the host first (as the
         JAX package's ``_cast_features_host``: the same values, half the
-        bytes). A ``JoinedDataset`` also uploads its store as ``grid``, and
-        the store's pool5 is left on the host (no ported model reads it):
+        bytes). A ``JoinedDataset`` also uploads its store: its pool5 as
+        ``store_pool5`` when its ``feature_keys`` hold it (``make_batch``
+        takes each question's row into ``pool5``), and its grid as ``grid``
+        when the model reads one (``spec.visual_key`` "features"; a model
+        that reads pool5 only gets no grid on the device):
 
-        - with ``train.resident_fused_attention`` (the default), padded to
-          a multiple of 8 cells and L2-normalized at upload when the model
-          skips the per-cell norm; ``make_batch`` hands the model ``(grid,
-          rows)`` for the gather-free attention;
-        - without it, [M, N, C] as it is (no padding, no normalization,
-          bf16 for a bf16 model), and ``make_batch`` gathers the batch's
-          [B, N, C] grid on the device for the gathered attention. (The JAX
-          package splits this store into planes of at most 1024 channels
-          for its TPU gather; one index_select needs no such split.)"""
+        - on the gather-free path, padded to a multiple of 8 cells and
+          L2-normalized at upload when the model skips the per-cell norm;
+          ``make_batch`` hands the model ``(grid, rows)``. It is taken when
+          ``train.resident_fused_attention`` is on (the default) and the
+          model has a grid (``n_cells``), at most 8 glimpses and a batch
+          that is a multiple of 8, as in the JAX package; otherwise, with
+          the flag on, the gathered path below runs and says so in the log
+          (a warning for a grid model, info for one without a grid);
+        - on the gathered path, [M, N, C] as it is (no padding, no
+          normalization, bf16 for a bf16 model), and ``make_batch`` gathers
+          the batch's [B, N, C] grid on the device. (The JAX package splits
+          this store into planes of at most 1024 channels for its TPU
+          gather; one index_select needs no such split.)"""
         from vqa_transfer_externaldata_torch.data.features import (
             JoinedDataset)
 
-        dt = self.model.dtype
         data = {k: self._upload_rows(k, v) for k, v in ds.arrays.items()
                 if k not in drop_keys}
         if not isinstance(ds, JoinedDataset):
@@ -590,50 +598,67 @@ class Trainer:
 
             nbytes = sum(v.numel() * v.element_size() for v in data.values())
             return data, make_rows, nbytes
-        fused = self.cfg.train.resident_fused_attention
-        if fused and not getattr(self.model, "n_cells", None):
-            raise ValueError("the gather-free path needs the model's n_cells")
-        grid = np.asarray(ds.store.grid)
+        wanted = self.cfg.train.resident_fused_attention
+        model_ok = bool(getattr(self.model, "n_cells", None))
+        fused = (wanted and model_ok
+                 and getattr(self.model, "glimpses", 1) <= 8
+                 and self.cfg.train.batch_size % 8 == 0)
+        if wanted and not fused:
+            (log.warning if model_ok else log.info)(
+                "resident_fused_attention unavailable (needs a spatial-"
+                "attention model with glimpses <= 8 and batch % 8 == 0): "
+                "using the gathered resident path")
+        key = ds.index_key
+        M = ds.store.pool5.shape[0]
+        index = np.asarray(ds.arrays[key])
+        if index.size and (index.min() < 0 or index.max() >= M):
+            raise IndexError(f"{key} outside the {M}-row store")
+        store: Dict[str, torch.Tensor] = {}
+        if "pool5" in ds.feature_keys:
+            store["store_pool5"] = self._upload_rows(
+                "pool5", np.asarray(ds.store.pool5, np.float32))
+        if self.spec.visual_key == "features":
+            store["grid"] = self._upload_grid(ds.store.grid, fused)
+        pool5, grid = store.get("store_pool5"), store.get("grid")
+
+        def make_batch(idx: torch.Tensor) -> Dict[str, object]:
+            batch = {k: v.index_select(0, idx) for k, v in data.items()}
+            rows = batch[key]
+            if pool5 is not None:
+                batch["pool5"] = pool5.index_select(0, rows.long())
+            if grid is not None:
+                batch["features"] = ((grid, rows) if fused
+                                     else grid.index_select(0, rows.long()))
+            return batch
+
+        nbytes = sum(v.numel() * v.element_size()
+                     for v in (*data.values(), *store.values()))
+        return dict(data, **store), make_batch, nbytes
+
+    def _upload_grid(self, grid, fused: bool) -> torch.Tensor:
+        """A store's grids on the device: padded to a multiple of 8 cells
+        (L2-normalized when the model skips the per-cell norm) for the
+        gather-free path, else [M, N, C] as they are."""
+        dt = self.model.dtype
+        grid = np.asarray(grid)
         if grid.ndim == 4:  # [M, g, g, C] -> [M, N, C]
             grid = grid.reshape(grid.shape[0], -1, grid.shape[-1])
-        M = grid.shape[0]
-        index = np.asarray(ds.arrays[ds.index_key])
-        if index.size and (index.min() < 0 or index.max() >= M):
-            raise IndexError(f"{ds.index_key} outside the {M}-row store")
         # The JAX package casts float stores to bf16 when it computes in
         # bf16 and keeps their own dtype otherwise; the same values arrive
         # here.
         store_dt = (torch.bfloat16 if dt == torch.bfloat16
                     else torch.from_numpy(grid[:0]).dtype)
-        key = ds.index_key
         if not fused:
-            store = torch.from_numpy(np.ascontiguousarray(grid)).to(
+            return torch.from_numpy(np.ascontiguousarray(grid)).to(
                 self.device).to(store_dt)
-
-            def make_batch(idx: torch.Tensor) -> Dict[str, object]:
-                batch = {k: v.index_select(0, idx) for k, v in data.items()}
-                batch["features"] = store.index_select(0,
-                                                       batch[key].long())
-                return batch
-        else:
-            if dt == torch.bfloat16 and grid.dtype == np.float32:
-                # f32 sources are rounded to bf16 before they are normalized
-                grid = torch.from_numpy(grid).to(dt).float().numpy()
-            if self.model.store_prenormalized:
-                store, _ = prenormalize_store(grid, out_dtype=store_dt,
-                                              device=self.device)
-            else:
-                store = torch.from_numpy(pad_store_rows(grid)).to(
-                    self.device, store_dt)
-
-            def make_batch(idx: torch.Tensor) -> Dict[str, object]:
-                batch = {k: v.index_select(0, idx) for k, v in data.items()}
-                batch["features"] = (store, batch[key])
-                return batch
-
-        nbytes = store.numel() * store.element_size() + sum(
-            v.numel() * v.element_size() for v in data.values())
-        return dict(data, grid=store), make_batch, nbytes
+        if dt == torch.bfloat16 and grid.dtype == np.float32:
+            # f32 sources are rounded to bf16 before they are normalized
+            grid = torch.from_numpy(grid).to(dt).float().numpy()
+        if self.model.store_prenormalized:
+            return prenormalize_store(grid, out_dtype=store_dt,
+                                      device=self.device)[0]
+        return torch.from_numpy(pad_store_rows(grid)).to(self.device,
+                                                         store_dt)
 
     def _upload_rows(self, key: str, v: np.ndarray) -> torch.Tensor:
         """One row array on the device, float feature columns in the

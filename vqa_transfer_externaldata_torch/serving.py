@@ -3,6 +3,8 @@
     predictor = Predictor("runs/vqa")               # on CUDA
     answers = predictor.answer(features, ["what color is the dog?", ...])
 
+``features`` are [N, cells, C] grids for the attention models and [N, C]
+pool5 vectors for ``vqa_baseline`` (``Predictor.visual_key`` names which).
 The eval forward runs the fused GRU and attention kernels on CUDA, at a
 fixed batch size (short requests are padded with copies of their first row
 and trimmed), and decodes answers through the run's answer vocab.
@@ -58,6 +60,7 @@ class Predictor:
                 f"{train_dir} holds a stage-1 run ({self.cfg.model.model}); "
                 "the Predictor serves stage-2 VQA models")
         self.model = spec.module
+        self.visual_key = spec.visual_key  # the store column it reads
         if self.word_vocab is None or self.answer_vocab is None:
             raise ValueError(
                 "run config has no vocab paths (and is not synthetic); "
@@ -78,9 +81,10 @@ class Predictor:
                  self.cfg.model.model, batch_size, self.device)
 
     def stage_store(self, grid: np.ndarray) -> None:
-        """Upload a feature store's grids once ([M, cells, C] or
-        [M, g, g, C], f16/f32); :meth:`answer_indexed` then serves
-        requests that name rows of it, shipping only the row ids."""
+        """Upload a feature store's visuals once (grids [M, cells, C] or
+        [M, g, g, C], or pool5 [M, C] for ``vqa_baseline``; f16/f32);
+        :meth:`answer_indexed` then serves requests that name rows of it,
+        shipping only the row ids."""
         g = np.asarray(grid)
         if g.ndim == 4:
             g = g.reshape(g.shape[0], -1, g.shape[-1])
@@ -164,6 +168,7 @@ class Predictor:
         return [self.answer_vocab.tokens[int(p)] for p in preds]
 
     def answer(self, visual: Visual, questions: Sequence[str]) -> List[str]:
-        """``visual``: [N, grid_cells, C] features, host numpy or a
-        ``torch.Tensor`` (one already on the device skips the upload)."""
+        """``visual``: [N, grid_cells, C] features (the attention models) or
+        [N, C] pool5 (``vqa_baseline``), host numpy or a ``torch.Tensor``
+        (one already on the device skips the upload)."""
         return self.result(self.submit(visual, questions))

@@ -144,10 +144,13 @@ def answer_embedding_from_words(word_table: np.ndarray, word_vocab: Vocab,
 
 
 def _resolve_unique(state: Dict[str, torch.Tensor], name: str, *,
-                    who: str) -> str:
+                    who: str, required: bool = True) -> Optional[str]:
     """The one key of ``state`` whose dotted path ends in ``name`` (a
-    suffix of whole components)."""
+    suffix of whole components); None when there is none and it is not
+    ``required``."""
     keys = [k for k in state if k == name or k.endswith("." + name)]
+    if not keys and not required:
+        return None
     if not keys:
         tops = sorted({k.split(".")[0] for k in state})
         raise ValueError(
@@ -173,17 +176,27 @@ def transfer_init(vqa_params: Dict[str, torch.Tensor],
       keeping their fresh rows.
 
     Everything else keeps its fresh value. Both tables are found by name,
-    wherever they are nested, and both must be there."""
+    wherever they are nested. A model without an ``answer_embedding``
+    (``vqa_baseline``) gets the word table only, with a warning that the
+    answer-space half of the transfer does not apply."""
     src_key = _resolve_unique(vlmap_params, "word_emb.embedding",
                               who="stage-1")
     tgt_key = _resolve_unique(vqa_params, "word_emb.embedding",
                               who="stage-2")
-    ans_key = _resolve_unique(vqa_params, "answer_embedding", who="stage-2")
     src = vlmap_params[src_key].detach().cpu()
     tgt = vqa_params[tgt_key]
     if tuple(src.shape) != tuple(tgt.shape):
         raise ValueError(f"word table shape mismatch: vlmap "
                          f"{tuple(src.shape)} vs vqa {tuple(tgt.shape)}")
+    out = dict(vqa_params)
+    out[tgt_key] = src.to(tgt.dtype).clone()
+    ans_key = _resolve_unique(vqa_params, "answer_embedding", who="stage-2",
+                              required=False)
+    if ans_key is None:
+        log.warning("transfer_init: model has no 'answer_embedding' table "
+                    "(e.g. vqa_baseline): word table transferred, "
+                    "answer-space init skipped")
+        return out
     tgt_ans = vqa_params[ans_key].detach().cpu().float().numpy()
     if src.shape[1] != tgt_ans.shape[1]:
         raise ValueError(
@@ -192,8 +205,6 @@ def transfer_init(vqa_params: Dict[str, torch.Tensor],
             "for transfer)")
     ans = answer_embedding_from_words(src.float().numpy(), word_vocab,
                                       answer_vocab, fallback=tgt_ans)
-    out = dict(vqa_params)
-    out[tgt_key] = src.to(tgt.dtype).clone()
     out[ans_key] = torch.from_numpy(ans).to(vqa_params[ans_key].dtype)
     log.info("transfer_init: word table %s copied, %d answer rows seeded",
              tuple(src.shape), min(len(answer_vocab), len(ans)))
