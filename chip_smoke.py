@@ -77,12 +77,27 @@ Run from the repository root. Phases (any failure exits non-zero):
    no kernel launches; a profiler window over 5 steps of
    ``fit_resident``; ``cli.eval`` on the run; requests served with pool5
    through ``cli.predict`` from a feature store file;
-16. times: each kernel, its plain version and the PyTorch library call
+16. K4 and K5 on int8 rows (the codes of phase 5's store, normalized
+   per cell and quantized with one global scale) at G=1, 2 and 8 against
+   their plain versions on the same codes, and the op on the int8 store
+   against the op on the bf16 store of the same normalized grid (v_att's
+   relative quantization error);
+17. stage-2 training with ``train.store_quantize int8`` at full width
+   through ``Trainer.fit_resident`` (the main path's corpus, steps and
+   lagged in-loop evaluation): the first step against the plain path on
+   the same int8 store, launch counts of K1, K3 and the int8 K4/K5,
+   finite losses, step times, a profiler window over 5 more steps, the
+   uploaded store's bytes against the bf16 store's; then the resident
+   evaluator on the int8 val store against the one on a bf16 store;
+18. the H100 probes P1 (``tools.probe_mxu_rows``, Q = 1..4) and P2
+   (``tools.probe_bwd_ceiling``) through their ``run()`` entries: each
+   against its plain version, its time, TFLOP/s and cuBLAS's time;
+19. times: each kernel, its plain version and the PyTorch library call
    where there is one (median of CUDA-event timings after warm-up, L2
    flushed between runs), and the bound from this run's shapes; K1 at
    the training batch and at the serving batch; K4 and K5 at G=1 and
-   G=2; the gathered op's whole backward with K8 and with the explicit
-   math.
+   G=2 on bf16 rows and at G=1 on int8 rows; the gathered op's whole
+   backward with K8 and with the explicit math.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -193,6 +208,8 @@ TRANSFER_QUESTIONS, TRANSFER_STEPS = 1024, 10
 VAL_QUESTIONS, EVAL_EVERY, KEEP_CHECKPOINTS = 1024, 10, 2
 AB_STEPS = 10
 STREAM_QUESTIONS, STREAM_STEPS = 1024, 10
+# The probes' timed launches (the TPU probes' count).
+PROBE_ITERS = 96
 # vqa_baseline: questions of its corpus, its steps, and the images of the
 # feature store file cli.predict reads.
 BASELINE_QUESTIONS, BASELINE_STEPS, PREDICT_IMAGES = 1024, 10, 8
@@ -203,7 +220,14 @@ STAGE1_MODEL = {"model.model": "vlmap_description",
                 "model.bidirectional_desc": True}
 KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
            "attention_resident_bwd", "bigru_fwd", "bigru_bwd",
-           "attention_bwd"]
+           "attention_bwd", "probe_mxu_rows", "probe_bwd_ceiling"]
+# K4 and K5 on int8 rows: the glimpse counts checked against the plain
+# versions (the limits are the bf16 rows', as the codes widen exactly to
+# bf16), and the bound on v_att's relative quantization error against the
+# bf16 store of the same grid (JAX's tests hold it under 1%; its config
+# expects about 0.4%).
+INT8_GLIMPSES = (1, 2, 8)
+INT8_VATT_REL = 1e-2
 
 
 class PhaseError(Exception):
@@ -272,25 +296,35 @@ def plain_kernels():
 
 
 def launch_counters():
-    """{kernel name: its wrapper}, each wrapper carrying ``.launches``."""
+    """{kernel name: (its wrapper, the wrapper's count attribute)}. K4 and
+    K5 count their launches on int8 rows apart."""
     from vqa_transfer_externaldata_torch.ops import (
         attention, attention_resident as ar, gru)
+    from vqa_transfer_externaldata_torch.tools import (
+        probe_bwd_ceiling as p2, probe_mxu_rows as p1)
 
-    return {"gru_fwd": gru.gru_fwd, "attention_fwd": attention.attention_fwd,
-            "gru_bwd": gru.gru_bwd,
-            "attention_resident_fwd": ar.attention_resident_fwd,
-            "attention_resident_bwd": ar.attention_resident_bwd,
-            "bigru_fwd": gru.bigru_fwd, "bigru_bwd": gru.bigru_bwd,
-            "attention_bwd": attention.attention_bwd}
+    plain = {"gru_fwd": gru.gru_fwd, "attention_fwd": attention.attention_fwd,
+             "gru_bwd": gru.gru_bwd,
+             "attention_resident_fwd": ar.attention_resident_fwd,
+             "attention_resident_bwd": ar.attention_resident_bwd,
+             "bigru_fwd": gru.bigru_fwd, "bigru_bwd": gru.bigru_bwd,
+             "attention_bwd": attention.attention_bwd,
+             "probe_mxu_rows": p1.probe_mxu_rows,
+             "probe_bwd_ceiling": p2.probe_bwd_ceiling}
+    out = {name: (fn, "launches") for name, fn in plain.items()}
+    for name in ("attention_resident_fwd", "attention_resident_bwd"):
+        out[f"{name}[int8]"] = (plain[name], "launches_int8")
+    return out
 
 
 def reset_counts() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in launch_counters().items()}
 
 
 def check_launches(launches: dict, expected: dict, what: str) -> None:
@@ -598,6 +632,124 @@ def phase_resident_multi(report: dict, dev, gen, k45: dict) -> dict:
         if G == 2:  # the glimpses2 path's count, kept for the times
             keep = {"ws": ws, "h": rh, "alpha": ra, "g": g, "sga": sga}
     return {**keep, "checks4": checks4, "checks5": checks5,
+            "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
+                        for c in checks4),
+            "err5": max(c["max_abs_err"] for c in checks5)}
+
+
+def int8_codes(store):
+    """The int8 codes of ``store`` normalized per cell with one global
+    scale, as ``prenormalize_store(quantize="int8")`` makes them (here on
+    the card): (codes, scale, the bf16 store of the same normalized
+    grid)."""
+    import torch
+
+    f = store.float()
+    f = f * (1.0 / torch.sqrt((f * f).sum(-1, keepdim=True) + 1e-12))
+    scale = (f.abs().max().item() or 1.0) / 127.0
+    codes = torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8)
+    return codes, scale, f.to(store.dtype)
+
+
+def phase_resident_int8(report: dict, dev, gen, k45: dict) -> dict:
+    """K4 and K5 on int8 rows at G in INT8_GLIMPSES against their plain
+    versions on the same codes (normalize off: an int8 store is
+    prenormalized), under the bf16 rows' limits; then the op on the int8
+    store with its scale against the op on the bf16 store of the same
+    normalized grid."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+
+    rows, qh, n_valid = k45["rows"], k45["qh"], k45["n_valid"]
+    codes, scale, normed = int8_codes(k45["store"])
+    # The op hands the kernels W_v with the store's scale folded in
+    # (bf16(W_v * scale)), so z has the normalized store's size.
+    wv = (k45["wv"].float() * scale).to(torch.bfloat16)
+    Bt, Np = rows.shape[0], codes.shape[1]
+    kw = dict(n_valid=n_valid, normalize=False)
+    checks4, checks5, keep = [], [], {}
+    for G in INT8_GLIMPSES:
+        ws = (torch.randn(H, G, generator=gen, device=dev) * 0.05).to(
+            torch.bfloat16).float()
+        if G == 1:
+            ws = ws[:, 0].contiguous()
+        g = torch.randn(Bt, G * C, generator=gen, device=dev) * 0.01
+        sga = torch.randn(Bt, Np, G, generator=gen, device=dev) * 0.1
+        if G == 1:
+            sga = sga[:, :, 0].contiguous()
+        va, al, h = ar.attention_resident_fwd(codes, rows, qh, wv, ws,
+                                              save_h=True, **kw)
+        rv, ra, rh = ar.attention_resident_fwd_reference(
+            codes, rows, qh, wv, ws, save_h=True, **kw)
+        torch.cuda.synchronize()
+        d3 = (va - rv).abs().reshape(Bt, G, C).amax(dim=(0, 2))
+        m3 = rv.abs().reshape(Bt, G, C).amax(dim=(0, 2))
+        v_share = (d3 / (TOL_VATT_REL * m3)).max().item()
+        ev = (va - rv).abs().max().item()
+        ea = (al - ra).abs().max().item()
+        eh = (h.float() - rh.float()).abs().max().item()
+        rh_err = rel_err(h.float(), rh.float())
+        print(f"K4[int8] attention_resident_fwd G={G}: v_att {ev:.3e} (worst "
+              f"glimpse at {v_share:.3f} of 2^-10 * its max|v_att_g|), alpha "
+              f"{ea:.3e} (tol {TOL_ALPHA}), h {rh_err:.3e} of max|h| (tol "
+              f"{TOL_K4_H_REL:.3e})")
+        check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
+              f"K4[int8] G={G} output not finite")
+        check(v_share <= 1.0, f"K4[int8] G={G} v_att at {v_share} of its "
+              "limit")
+        check(ea <= TOL_ALPHA, f"K4[int8] G={G} alpha err {ea}")
+        check(rh_err <= TOL_K4_H_REL, f"K4[int8] G={G} h err {rh_err}")
+        check(al[:, n_valid:].abs().max().item() == 0.0,
+              f"K4[int8] G={G} gave padded cells weight")
+        checks4.append({"glimpses": G, "v_att_err": ev,
+                        "v_att_share_of_limit": v_share, "alpha_err": ea,
+                        "alpha_tol": TOL_ALPHA, "h_err": eh,
+                        "h_rel_err": rh_err, "h_rel_tol": TOL_K4_H_REL})
+        got = ar.attention_resident_bwd(codes, rows, rh, ws, ra, g, sga, **kw)
+        want = ar.attention_resident_bwd_reference(codes, rows, rh, ws, ra, g,
+                                                   sga, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dqh", "dwv", "dws"), got, want):
+            if name == "dws":  # each glimpse's column on its own
+                a2, b2 = a.reshape(H, G), b.reshape(H, G)
+                rel = ((a2 - b2).abs().amax(0) / b2.abs().amax(0).clamp_min(
+                    1e-30)).max().item()
+                tol = TOL_K5_REL
+            else:
+                rel, tol = rel_err(a, b), G * TOL_K5_REL
+            e = (a - b).abs().max().item()
+            print(f"K5[int8] attention_resident_bwd G={G} {name}: max abs "
+                  f"err {e:.3e}, {rel:.3e} of max|{name}| (tol {tol:.3e})")
+            check(bool(torch.isfinite(a).all()), f"K5[int8] G={G} {name} not "
+                  "finite")
+            check(rel <= tol, f"K5[int8] G={G} {name} relative err {rel} > "
+                  f"{tol}")
+            checks5.append({"glimpses": G, "output": name, "max_abs_err": e,
+                            "rel_err": rel, "rel_tol": tol})
+        if G == 1:  # the int8 training path's count, kept for the times
+            keep = {"ws": ws, "h": rh, "alpha": ra, "g": g, "sga": sga}
+    # The op on the codes with their scale against the op on the bf16
+    # store of the same normalized grid, from the same parameters.
+    wvf = k45["wv"].float()
+    ws1 = keep["ws"]
+    with torch.no_grad():
+        va_q, _ = ar.spatial_attention_resident(
+            codes, rows, qh.to(torch.bfloat16), wvf, ws1, n_valid=n_valid,
+            store_scale=scale)
+        va_f, _ = ar.spatial_attention_resident(
+            normed, rows, qh.to(torch.bfloat16), wvf, ws1, n_valid=n_valid)
+    quant = (torch.linalg.vector_norm(va_q - va_f)
+             / torch.linalg.vector_norm(va_f)).item()
+    row_mb = {"int8": codes.numel() / 1e6, "bf16": normed.numel() * 2 / 1e6}
+    print(f"int8 store (scale {scale:.6g}): v_att against the bf16 store of "
+          f"the same grid, relative error {quant:.4%} (bound "
+          f"{INT8_VATT_REL:.0%}); store {row_mb['int8']:.1f} MB against "
+          f"{row_mb['bf16']:.1f} MB in bf16")
+    check(quant <= INT8_VATT_REL, f"int8 v_att quantization error {quant}")
+    return {**keep, "codes": codes, "scale": scale, "wv": wv,
+            "checks4": checks4,
+            "checks5": checks5, "vatt_quant_rel_err": quant,
+            "store_mb": row_mb,
             "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
                         for c in checks4),
             "err5": max(c["max_abs_err"] for c in checks5)}
@@ -1542,6 +1694,111 @@ def phase_glimpses2(report: dict, dev) -> dict:
     return out
 
 
+def phase_training_int8(report: dict, dev) -> dict:
+    """The main path with ``train.store_quantize int8``: stage-2 training at
+    full width through fit_resident on the int8 store (K1, K3, and K4/K5 on
+    int8 rows), with the lagged in-loop evaluation of the val split, which
+    reads its own int8 store. First step against the plain path on the same
+    int8 store, launch counts, step times, a profiler window, the stores'
+    bytes; then the resident evaluator on the int8 val store against the
+    one on a bf16 store, on the same parameters."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        cfg = stage2_config(tmp, steps, **{
+            "train.store_quantize": "int8", "train.eval_every": EVAL_EVERY,
+            "train.checkpoint_every": 10 * steps})
+        ds = load_dataset(cfg, "train")
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=tmp)  # default device: CUDA
+        state = trainer.init_state()
+        t0 = time.perf_counter()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        out["upload_s"] = time.perf_counter() - t0
+        store = data["grid"]
+        Np = store.shape[1]
+        check(store.dtype == torch.int8 and tuple(store.shape) ==
+              (TRAIN_IMAGES, Np, C), f"int8 store {store.dtype} "
+              f"{tuple(store.shape)}")
+        out["store_bytes"] = {"int8": store.numel(),
+                              "bf16": store.numel() * 2}
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        check(len(batch["features"]) == 3, "the int8 batch carries no scale")
+        out["scale"] = scale = batch["features"][2]
+        print(f"int8 store uploaded in {out['upload_s']:.2f} s: "
+              f"{out['store_bytes']['int8'] / 1e6:.1f} MB (bf16: "
+              f"{out['store_bytes']['bf16'] / 1e6:.1f} MB), scale {scale:.6g}")
+        check(0.0 < scale < 1.0, f"int8 scale {scale}")
+        out["first_step"] = check_first_step(spec, state, batch, dev,
+                                             "stage 2 (int8 store)")
+        del data, make_batch, batch, store
+
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state, eval_ds=val)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        evals = steps // EVAL_EVERY
+        n_batches = -(-VAL_QUESTIONS // B_TRAIN)
+        check_launches(launches, {
+            "gru_fwd": T * (steps + evals * n_batches),
+            "gru_bwd": (T + 2) * steps,
+            "attention_resident_fwd[int8]": 2 * (steps + evals * n_batches),
+            "attention_resident_bwd[int8]": 3 * steps},
+            f"int8-store training over {steps} steps with {evals} "
+            "evaluations")
+        out.update(launches=launches,
+                   **read_steps(tmp, steps, "int8-store training",
+                                "questions"))
+        with open(os.path.join(tmp, "metrics.jsonl")) as fh:
+            val_recs = [r for r in map(json.loads, fh) if "val/loss" in r]
+        check(len(val_recs) == evals and all(np.isfinite(r["val/loss"])
+                                             for r in val_recs),
+              f"int8 in-loop evaluations: {val_recs}")
+        out["val_records"] = val_recs
+        state, out["profile"] = profile_fit(trainer, ds, state,
+                                            PROFILE_STEPS)
+
+        # --- the resident evaluator: int8 val store, then a bf16 one -----
+        reset_counts()
+        t0 = time.perf_counter()
+        m_q, p_q = trainer.evaluate_resident(state, val)
+        out["eval_int8_s"] = time.perf_counter() - t0
+        check_launches(read_counts(), {
+            "gru_fwd": T * n_batches,
+            "attention_resident_fwd[int8]": 2 * n_batches},
+            "int8 resident evaluation")
+        bf16 = Trainer(cfg.replace_flat({"train.store_quantize": ""}), spec,
+                       train_dir=os.path.join(tmp, "bf16_eval"))
+        reset_counts()
+        m_f, p_f = bf16.evaluate_resident(state, val)
+        check_launches(read_counts(), {
+            "gru_fwd": T * n_batches,
+            "attention_resident_fwd": 2 * n_batches},
+            "bf16 resident evaluation")
+        bf16.close()
+        agree = float((p_q == p_f).mean())
+        print(f"resident evaluation, int8 val store {m_q} vs bf16 {m_f}: "
+              f"{agree:.4f} of the predictions agree")
+        check(np.isfinite(m_q["loss"]) and abs(m_q["loss"] - m_f["loss"])
+              <= 0.05 * abs(m_f["loss"]), f"int8 eval loss {m_q['loss']} vs "
+              f"bf16 {m_f['loss']}")
+        out["evaluation"] = {"int8": m_q, "bf16": m_f,
+                             "predictions_agree": agree}
+        trainer.close()
+    return out
+
+
 @contextlib.contextmanager
 def port_log_records():
     """(level name, message) of everything the port's logger says inside
@@ -1663,6 +1920,40 @@ def phase_baseline(report: dict, dev, stage1_params: str) -> dict:
     return out
 
 
+def phase_probes(report: dict, dev) -> dict:
+    """The H100 probes through their entries: P1 at Q = 1..4 and P2, each
+    checked against its plain version inside ``run()`` (which raises on a
+    disagreement), timed over PROBE_ITERS launches, with cuBLAS beside."""
+    from vqa_transfer_externaldata_torch.tools import (
+        probe_bwd_ceiling as p2, probe_mxu_rows as p1)
+
+    reset_counts()
+    try:
+        r1 = p1.run(PROBE_ITERS)
+        r2 = p2.run(PROBE_ITERS)
+    except RuntimeError as e:
+        raise PhaseError(str(e)) from e
+    # Each Q of P1: its check, one warm-up and PROBE_ITERS timed launches;
+    # P2 the same calls, three launches each.
+    check_launches(read_counts(), {
+        "probe_mxu_rows": len(p1.QS) * (PROBE_ITERS + 2),
+        "probe_bwd_ceiling": 3 * (PROBE_ITERS + 2)}, "the probes")
+    for q, t in r1["by_q"].items():
+        print(f"P1 probe_mxu_rows Q={q}: {t['ms']:.4f} ms a call, "
+              f"{t['us_per_question']:.3f} us/question, {t['tflops']:.1f} "
+              f"TFLOP/s, {t['tiles_per_group']} tiles a group "
+              f"({t['useful_rows']:.0%} useful rows)")
+    print(f"P1 plain {r1['plain_ms']:.4f} ms; cuBLAS {r1['cublas_ms']:.4f} ms "
+          f"+ gather {r1['cublas_gather_ms']:.4f} ms; Q=1 vs plain "
+          f"{r1['rel_err_vs_plain']:.3e} of max|out|")
+    print(f"P2 probe_bwd_ceiling: {r2['ms']:.4f} ms a call, "
+          f"{r2['tflops']:.1f} TFLOP/s; plain {r2['plain_ms']:.4f} ms; "
+          f"cuBLAS {r2['cublas_ms']:.4f} ms; dW_v {r2['dwv_rel_err']:.3e}, "
+          f"dal {r2['dal_rel_err']:.3e} of their max")
+    return {"probe_mxu_rows": r1, "probe_bwd_ceiling": r2,
+            "launches": read_counts()}
+
+
 def profile_calls(fn, n: int = 5, what: str = "requests") -> dict:
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
     and the share of the host-clock wall time in which no kernel ran."""
@@ -1753,7 +2044,7 @@ def profile_fit(trainer, ds, state, steps: int) -> tuple:
 
 
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
-                k45g: dict, k67: dict, k8: dict, dev) -> dict:
+                k45g: dict, k45q: dict, k67: dict, k8: dict, dev) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.ops import (
         attention, attention_resident as ar, gru)
@@ -1894,7 +2185,26 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     uniq = int(torch.unique(rows).numel())
     row_bytes = uniq * Np * C * 2
 
-    def k45_bounds(G: int) -> tuple:
+    # K4/K5 at G=1 on int8 rows: the codes of the same store, same rows.
+    cq, wvq = k45q["codes"], k45q["wv"]
+    wsq, hq, alq, gq, sgaq = (k45q[k] for k in ("ws", "h", "alpha", "g",
+                                                "sga"))
+    q_times = {
+        "attention_resident_fwd": {
+            "kernel": time_cuda(lambda: ar.attention_resident_fwd(
+                cq, rows, qh4, wvq, wsq, save_h=True, **kw), buf),
+            "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
+                cq, rows, qh4, wvq, wsq, save_h=True, **kw), buf),
+            "library": None},
+        "attention_resident_bwd": {
+            "kernel": time_cuda(lambda: ar.attention_resident_bwd(
+                cq, rows, hq, wsq, alq, gq, sgaq, **kw), buf),
+            "plain": time_cuda(lambda: ar.attention_resident_bwd_reference(
+                cq, rows, hq, wsq, alq, gq, sgaq, **kw), buf),
+            "library": None},
+    }
+
+    def k45_bounds(G: int, row_bytes: int = row_bytes) -> tuple:
         k4_bytes = (row_bytes + Bt * 4 + Bt * H * 4 + C * H * 2 + G * H * 4
                     + Bt * G * C * 4 + Bt * Np * G * 4 + Bt * Np * H * 2)
         k4_flops = 2 * Bt * nv * C * (H + G) + 2 * G * Bt * nv * H
@@ -1908,8 +2218,12 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
      times["attention_resident_bwd"]["bound"]) = k45_bounds(1)
     (g2_times["attention_resident_fwd"]["bound"],
      g2_times["attention_resident_bwd"]["bound"]) = k45_bounds(2)
+    (q_times["attention_resident_fwd"]["bound"],
+     q_times["attention_resident_bwd"]["bound"]) = k45_bounds(
+         1, row_bytes=uniq * Np * C)  # one byte a code
     for name, t in g2_times.items():
         times[name]["at_g2"] = t
+        times[f"{name}[int8]"] = q_times[name]
 
     # K6/K7 at the stage-1 shape. Library yardstick: cuDNN's bidirectional
     # GRU over the same packed lengths, forward, and the backward with the
@@ -2060,6 +2374,7 @@ def main(argv=None) -> int:
         k3 = phase_gru_bwd(report, dev, gen)
         k45 = phase_resident(report, dev, gen)
         k45g = phase_resident_multi(report, dev, gen, k45)
+        k45q = phase_resident_int8(report, dev, gen, k45)
         k67 = phase_bigru(report, dev, gen)
         k8 = phase_attention_bwd(report, dev, gen)
         serving = phase_serving(report, dev)
@@ -2073,7 +2388,11 @@ def main(argv=None) -> int:
             report["baseline"] = phase_baseline(report, dev,
                                                 stage1["params_path"])
         report["glimpses2"] = glimpses2 = phase_glimpses2(report, dev)
-        times = phase_times(report, k1, k2, k3, k45, k45g, k67, k8, dev)
+        report["training_int8"] = training_int8 = phase_training_int8(
+            report, dev)
+        report["probes"] = probes = phase_probes(report, dev)
+        times = phase_times(report, k1, k2, k3, k45, k45g, k45q, k67, k8,
+                            dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -2084,10 +2403,13 @@ def main(argv=None) -> int:
     # launches: the count of the path that runs the kernel (stage-2
     # training for K1 and K3; glimpses2 training, at G=2, for K4 and K5;
     # serving for K2; stage-1 training for K6 and K7; gathered stage-2
-    # training for K8), and every path's count under launches_by_path. K1's
-    # times are at the training batch, and at the serving batch under
-    # at_serving_batch. K4's and K5's times and bounds are at G=2, and at
-    # G=1 under at_g1.
+    # training for K8; int8-store training for K4 and K5 on int8 rows; the
+    # probes' entries for P1 and P2), and every path's count under
+    # launches_by_path. K1's times are at the training batch, and at the
+    # serving batch under at_serving_batch. K4's and K5's times and bounds
+    # are at G=2, and at G=1 under at_g1; on int8 rows at G=1. P1's time is
+    # at Q=1, with every Q under by_q; its library call is cuBLAS on the
+    # gathered rows, the gather timed apart.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -2124,6 +2446,14 @@ def main(argv=None) -> int:
             times["attention_bwd"]["op_backward_with_kernel"],
             "explicit_backward_ms":
             times["attention_bwd"]["explicit_backward"]}),
+        "attention_resident_fwd[int8]": (
+            ref + "attention_resident.py:174", k45q["err4"], {
+                "glimpses": "1-8", "checks": k45q["checks4"],
+                "vatt_quant_rel_err_vs_bf16_store":
+                k45q["vatt_quant_rel_err"]}),
+        "attention_resident_bwd[int8]": (
+            ref + "attention_resident.py:235", k45q["err5"], {
+                "glimpses": "1-8", "checks": k45q["checks5"]}),
     }
     paths = {"serving": serving, "training": training["launches"],
              "gathered": gathered["launches"],
@@ -2131,11 +2461,15 @@ def main(argv=None) -> int:
              "stage1": stage1["gathered"]["launches"],
              "stage1_dense": stage1["dense"]["launches"],
              "transfer": transfer["launches"],
-             "glimpses2": glimpses2["launches"]}
+             "glimpses2": glimpses2["launches"],
+             "training_int8": training_int8["launches"],
+             "probes": probes["launches"]}
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",
-                 "attention_resident_bwd": "glimpses2"}
+                 "attention_resident_bwd": "glimpses2",
+                 "attention_resident_fwd[int8]": "training_int8",
+                 "attention_resident_bwd[int8]": "training_int8"}
     for name in ("attention_resident_fwd", "attention_resident_bwd"):
         g1, g2 = times[name], times[name].pop("at_g2")
         meta[name][2]["at_g1"] = {
@@ -2148,13 +2482,34 @@ def main(argv=None) -> int:
         t = times[name]
         path = main_path.get(name, "training")
         kernels.append({
-            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"{src}{name.split('[')[0]}.cu",
             "replaces": replaces, "launches": paths[path][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err, **errs, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library"],
         })
+    # The probes: their runs' own checks, times and bounds.
+    p1, p2 = probes["probe_mxu_rows"], probes["probe_bwd_ceiling"]
+    for name, r, replaces, ms, extra in (
+            ("probe_mxu_rows", p1, "tools/probe_mxu_rows.py:34",
+             p1["by_q"][1]["ms"], {"by_q": p1["by_q"],
+                                   "rel_err_vs_plain": p1["rel_err_vs_plain"],
+                                   "library_gather_ms":
+                                   p1["cublas_gather_ms"]}),
+            ("probe_bwd_ceiling", p2, "tools/probe_bwd_ceiling.py:36",
+             p2["ms"], {"tflops": p2["tflops"],
+                        "dwv_rel_err": p2["dwv_rel_err"],
+                        "dal_rel_err": p2["dal_rel_err"]})):
+        b_ms, b_by = bound(r["bound"]["bytes"], r["bound"]["flops"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": replaces, "launches": paths["probes"][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": r["max_abs_err"], **extra, "ms": ms,
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r["cublas_ms"], "library_call": r["cublas_call"]})
     report["kernels"] = kernels
     report["library_calls"] = {k: times[k]["library_call"]
                                for k in ("gru_fwd", "gru_bwd", "bigru_fwd",

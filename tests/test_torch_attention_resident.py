@@ -144,7 +144,6 @@ def test_pad_and_prenormalize_are_bit_equal_to_jax():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"store_scale": 0.5}, "item 14"),
     ({"mesh": object()}, "item 12"),
     ({"store_sharded": True}, "item 12"),
 ])
@@ -155,8 +154,6 @@ def test_unported_options_name_their_roadmap_item(kwargs, item):
             torch.from_numpy(store), torch.from_numpy(rows),
             torch.from_numpy(qh), torch.from_numpy(wv), torch.from_numpy(ws),
             n_valid=N, **kwargs)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tar.pad_store_rows(np.zeros((1, N, C), np.int8))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

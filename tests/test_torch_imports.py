@@ -62,7 +62,9 @@ def test_chip_smoke_imports_no_jax():
                                   "ops.attention_resident",
                                   "parallel.trainer", "models.vlmap",
                                   "parallel.evaler", "cli.eval",
-                                  "utils.checkpoint", "utils.metrics"])
+                                  "utils.checkpoint", "utils.metrics",
+                                  "tools.probe_mxu_rows",
+                                  "tools.probe_bwd_ceiling"])
 def test_importing_kernel_modules_builds_nothing(name):
     """Kernels are built on first launch only: importing the modules (as
     every CPU test does) must not look for nvcc or write a library."""

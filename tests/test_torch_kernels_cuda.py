@@ -1,7 +1,8 @@
 """Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
 (attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
-glimpses, K6 (bigru_fwd), K7
-(bigru_bwd) and K8 (attention_bwd) on the card against their plain PyTorch
+glimpses on bf16 rows and on int8 codes, K6 (bigru_fwd), K7
+(bigru_bwd) and K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
+P2 (probe_bwd_ceiling) on the card against their plain PyTorch
 versions. They need an NVIDIA GPU with nvcc (the kernels have no CPU mode)
 and skip without one; on a GPU machine run
 
@@ -22,7 +23,9 @@ each output is held to 2^-9 of its largest value plus, per entry, what such
 units can move it (``_k8_allowance``, the reasoning of chip_smoke.py). K4
 and K5 with G glimpses keep those limits for alpha, h, each glimpse's v_att
 and each column of dws; dqh and dW_v, whose dz sums G glimpse terms, get G
-times K5's.
+times K5's. On int8 codes K4 and K5 widen each code to bf16 exactly, so the
+limits are the bf16 rows'. The probes sum the same exact products in
+another order: 2^-14 of each output's largest value (``tools.TOL_REL``).
 """
 
 import pytest
@@ -30,6 +33,8 @@ import torch
 
 from vqa_transfer_externaldata_torch.ops import (
     attention, attention_resident as ar, gru)
+from vqa_transfer_externaldata_torch.tools import (
+    TOL_REL, probe_bwd_ceiling as p2, probe_mxu_rows as p1)
 
 TOL_K3 = 2.0 ** -8
 TOL_K4_H = 2.0 ** -7
@@ -278,6 +283,144 @@ def test_attention_resident_glimpses_match_plain(dev, glimpses, shape,
         assert _rel_err(a, b) <= G * TOL_K5, (name, _rel_err(a, b))
     for k in range(G):
         assert _rel_err(got[2][:, k], want[2][:, k]) <= TOL_K5, k
+
+
+def _int8_codes(store):
+    """The int8 codes and scale of ``store`` normalized per cell, as
+    ``prenormalize_store(quantize="int8")`` makes them (on the card)."""
+    f = store.float()
+    f = f * torch.rsqrt((f * f).sum(-1, keepdim=True) + 1e-12)
+    scale = f.abs().max().item() / 127.0
+    return torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8), scale
+
+
+@pytest.mark.parametrize("glimpses", [1, 2, 8])
+@pytest.mark.parametrize("shape", [(5, 13, 128, 128, 6),
+                                   (64, 196, 2048, 512, 256)])
+def test_attention_resident_int8_matches_plain(dev, glimpses, shape):
+    """K4/K5 on int8 rows against their plain versions on the same codes,
+    under the bf16 rows' limits; the launches count as int8 ones."""
+    M, n_valid, C, H, B = shape
+    G = glimpses
+    store, rows, qh, wv, _ = _resident_inputs(dev, M, n_valid, C, H, B)
+    codes, scale = _int8_codes(store)
+    # The op hands the kernels W_v with the store's scale folded in, so z
+    # has the normalized store's size.
+    wv = (wv.float() * scale).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(8)
+    ws = (torch.randn(H, G, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    if G == 1:
+        ws = ws[:, 0].contiguous()
+    kw = dict(n_valid=n_valid, normalize=False)
+    before = (ar.attention_resident_fwd.launches,
+              ar.attention_resident_fwd.launches_int8)
+    va, al, h = ar.attention_resident_fwd(codes, rows, qh, wv, ws,
+                                          save_h=True, **kw)
+    rv, ra, rh = ar.attention_resident_fwd_reference(codes, rows, qh, wv, ws,
+                                                     save_h=True, **kw)
+    torch.cuda.synchronize()
+    assert (ar.attention_resident_fwd.launches,
+            ar.attention_resident_fwd.launches_int8) == (before[0],
+                                                         before[1] + 2)
+    for k in range(G):  # each glimpse against its own largest value
+        a, b = va[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]
+        assert (a - b).abs().max().item() <= 2.0 ** -10 * b.abs().max().item()
+    assert (al - ra).abs().max().item() <= 1e-5
+    assert _rel_err(h.float(), rh.float()) <= TOL_K4_H
+
+    gv = torch.randn(B, G * C, generator=g, device=dev)
+    sga = torch.randn(ra.shape, generator=g, device=dev)
+    before = (ar.attention_resident_bwd.launches,
+              ar.attention_resident_bwd.launches_int8)
+    got = ar.attention_resident_bwd(codes, rows, rh, ws, ra, gv, sga, **kw)
+    want = ar.attention_resident_bwd_reference(codes, rows, rh, ws, ra, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert (ar.attention_resident_bwd.launches,
+            ar.attention_resident_bwd.launches_int8) == (before[0],
+                                                         before[1] + 3)
+    for name, a, b in zip(("dqh", "dwv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= G * TOL_K5, (name, _rel_err(a, b))
+    dws, dws_ref = got[2].reshape(H, G), want[2].reshape(H, G)
+    for k in range(G):
+        assert _rel_err(dws[:, k], dws_ref[:, k]) <= TOL_K5, k
+    with pytest.raises(ValueError, match="normalize"):
+        ar.attention_resident_fwd(codes, rows, qh, wv, ws, n_valid=n_valid,
+                                  normalize=True)
+
+
+def test_int8_op_grads_go_through_k4_k5(dev):
+    """The op on an int8 store with its scale launches the int8 K4 and K5
+    and agrees with the op run on the CPU plain path."""
+    store, rows, qh, wv, ws = _resident_inputs(dev, 5, 13, 128, 128, 8)
+    codes, scale = _int8_codes(store)
+    # An int8 store computes in qh's dtype: bf16, as the model's.
+    ins = [t.clone().requires_grad_()
+           for t in (qh.to(torch.bfloat16), wv.float(), ws)]
+    counts = (ar.attention_resident_fwd.launches_int8,
+              ar.attention_resident_bwd.launches_int8)
+    va, al = ar.spatial_attention_resident(codes, rows, *ins, n_valid=13,
+                                           store_scale=scale)
+    (va.square().sum() + al[:, 0].sum()).backward()
+    assert (ar.attention_resident_fwd.launches_int8,
+            ar.attention_resident_bwd.launches_int8) == (counts[0] + 2,
+                                                         counts[1] + 3)
+    cpu = [t.detach().cpu().requires_grad_() for t in ins]
+    rv, ra = ar.spatial_attention_resident(codes.cpu(), rows.cpu(), *cpu,
+                                           n_valid=13, store_scale=scale)
+    (rv.square().sum() + ra[:, 0].sum()).backward()
+    assert _rel_err(va.detach().cpu(), rv.detach()) <= 2.0 ** -8
+    for a, b in zip(ins, cpu):
+        cos = torch.nn.functional.cosine_similarity(
+            a.grad.flatten().cpu(), b.grad.flatten(), dim=0).item()
+        assert cos >= 0.999, cos
+
+
+@pytest.mark.parametrize("q", [1, 2, 3, 4])
+def test_probe_mxu_rows_matches_plain(dev, q):
+    g = torch.Generator(device=dev).manual_seed(9)
+    store = torch.randn(5, 24, 64, generator=g, device=dev).to(torch.bfloat16)
+    wv = (torch.randn(64, 128, generator=g, device=dev) * 0.1).to(
+        torch.bfloat16)
+    rows = torch.randint(0, 5, (12,), generator=g, device=dev,
+                         dtype=torch.int32)
+    before = p1.probe_mxu_rows.launches
+    got = p1.probe_mxu_rows(store, rows, wv, q)
+    want = p1.probe_mxu_rows_reference(store, rows, wv, q)
+    torch.cuda.synchronize()
+    assert p1.probe_mxu_rows.launches == before + 1
+    assert got.shape == (12 // q, q * 24, 128)
+    assert _rel_err(got, want) <= TOL_REL
+
+
+def test_probe_bwd_ceiling_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(10)
+    store = torch.randn(5, 24, 128, generator=g, device=dev).to(
+        torch.bfloat16)
+    h = torch.randn(6, 24, 128, generator=g, device=dev).to(torch.bfloat16)
+    gv = torch.randn(6, 128, generator=g, device=dev).to(torch.bfloat16)
+    rows = torch.randint(0, 5, (6,), generator=g, device=dev,
+                         dtype=torch.int32)
+    before = p2.probe_bwd_ceiling.launches
+    got = p2.probe_bwd_ceiling(store, rows, h, gv)
+    want = p2.probe_bwd_ceiling_reference(store, rows, h, gv)
+    torch.cuda.synchronize()
+    assert p2.probe_bwd_ceiling.launches == before + 3
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) <= TOL_REL
+
+
+def test_probes_run_at_full_size(dev):
+    """Both probes' entries at the TPU probes' sizes, with two timed
+    launches (their checks raise when a kernel disagrees)."""
+    r1 = p1.run(iters=2)
+    assert set(r1["by_q"]) == {1, 2, 3, 4}
+    assert all(v["ms"] > 0 for v in r1["by_q"].values())
+    r2 = p2.run(iters=2)
+    assert r2["ms"] > 0 and r2["dwv_rel_err"] <= TOL_REL
 
 
 def test_resident_op_grads_go_through_k4_k5(dev):

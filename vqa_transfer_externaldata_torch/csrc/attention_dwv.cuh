@@ -4,9 +4,10 @@
 //   dW_v = sum over cells kk of v(kk)^T dzr[kk]      [C, H], f32
 //
 // where dzr [K, H] holds bf16(dz * r) of each cell, written compactly by the
-// kernel's first stage, and v(kk) is the cell's [C] bf16 feature row: a row
-// of the resident store looked up per cell (K5, StoreCells) or a row of the
-// gathered grid (K8, DenseCells).
+// kernel's first stage, and v(kk) is the cell's [C] feature row: a row of
+// the resident store looked up per cell (K5, StoreCells: bf16 values or
+// int8 codes, widened to bf16 as they are staged into shared memory) or a
+// row of the gathered bf16 grid (K8, DenseCells).
 //
 // dwv_kernel: blocks own 128 x 128 tiles of dW_v and a fixed slice of the
 // cells (split over K, so that the 64 tiles of C=2048, H=512 fill the
@@ -25,6 +26,8 @@
 
 #include <cstdint>
 
+#include "store_rows.cuh"
+
 namespace {
 
 namespace attn_dwv {
@@ -38,12 +41,15 @@ constexpr int kLd = kTM + 8;
 constexpr int kGemmThreads = 256;  // 8 warps: 4 (channels) x 2 (hidden)
 constexpr int kReduceThreads = 256;
 
-// Cell kk = b * n_valid + n is cell n of store row rows[b] ([M, Np, C]).
+// Cell kk = b * n_valid + n is cell n of store row rows[b] ([M, Np, C] of
+// T: bf16, or int8 codes).
+template <class T>
 struct StoreCells {
-  const __nv_bfloat16* store;
+  using value_type = T;
+  const T* store;
   const int* rows;
   int n_valid, Np, C;
-  __device__ const __nv_bfloat16* operator()(int kk) const {
+  __device__ const T* operator()(int kk) const {
     const int b = kk / n_valid;
     const int n = kk - b * n_valid;
     return store + (static_cast<size_t>(rows[b]) * Np + n) * C;
@@ -52,6 +58,7 @@ struct StoreCells {
 
 // Cell kk is row kk of a gathered [K, C] grid.
 struct DenseCells {
+  using value_type = __nv_bfloat16;
   const __nv_bfloat16* v;
   int C;
   __device__ const __nv_bfloat16* operator()(int kk) const {
@@ -83,18 +90,20 @@ dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
 #pragma unroll
     for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
-  // Each thread stages rows lr and lr + 16 of both tiles, 8 values each.
+  // Each thread stages rows lr and lr + 16 of both tiles, 8 values each,
+  // the cells' values held as loaded until they are stored.
   const int lr = tid >> 4;
   const int lc = (tid & 15) * 8;
-  uint4 a4[2], b4[2];
+  store_rows::raw8_t<typename Cells::value_type> a4[2];
+  uint4 b4[2];
   auto load = [&](int kbase) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int kk = kbase + lr + 16 * i;
-      a4[i] = make_uint4(0u, 0u, 0u, 0u);
+      a4[i] = {};
       b4[i] = make_uint4(0u, 0u, 0u, 0u);
       if (kk < k_end) {
-        a4[i] = *reinterpret_cast<const uint4*>(cells(kk) + c0 + lc);
+        a4[i] = store_rows::load_raw8(cells(kk) + c0 + lc);
         b4[i] = *reinterpret_cast<const uint4*>(
             dzr + static_cast<size_t>(kk) * H + h0 + lc);
       }
@@ -105,7 +114,8 @@ dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
   for (int k0 = k_begin; k0 < k_end; k0 += kTK) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      *reinterpret_cast<uint4*>(&As[(lr + 16 * i) * kLd + lc]) = a4[i];
+      *reinterpret_cast<uint4*>(&As[(lr + 16 * i) * kLd + lc]) =
+          store_rows::widen8(a4[i]);
       *reinterpret_cast<uint4*>(&Bs[(lr + 16 * i) * kLd + lc]) = b4[i];
     }
     __syncthreads();

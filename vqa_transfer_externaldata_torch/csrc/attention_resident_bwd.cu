@@ -16,9 +16,16 @@
 // The store gets no gradient (it is data). The rounding points are the
 // Pallas kernel's: g and dz * r in bf16, every sum in f32.
 //
+// The store rows are bf16, or the int8 codes of an L2-prenormalized store
+// (the Pallas kernel's int8 branch): both stages widen the codes to bf16 as
+// they load them, exactly (store_rows.cuh), and the rest runs as on bf16
+// rows. The store's scale is applied outside (to g before, to dW_v after),
+// and an int8 store is never normalized here.
+//
 // What bounds it on an H100: dW_v over the B * n_valid = 50176 live cells
 // of a batch of 256 is 105 GFLOP of bf16 (106 us at 989 TFLOP/s) whatever
-// G is; the bytes (205 MB of grid, 51 MB of h) take 77 us: the tensor cores.
+// G is; the bytes (205 MB of grid or 102 MB of int8 codes, 51 MB of h) take
+// 77 us at most: the tensor cores.
 //
 // Design: the TPU kernel runs the questions on a sequential grid and
 // accumulates dW_v and dws in resident output blocks. Hopper blocks run in
@@ -43,7 +50,8 @@
 //     not depend on the schedule.
 //
 // G is a template parameter instantiated for 1..8, so the G=1 code is the
-// single-glimpse kernel.
+// single-glimpse kernel; the row type T (bf16 or int8) is the second,
+// picked by a flag in the C entry.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +69,9 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <int G>
+template <int G, class T>
 __global__ void __launch_bounds__(kRowThreads)
-attn_res_bwd_rows_kernel(const __nv_bfloat16* __restrict__ store,  // [M,Np,C]
+attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
                          const int* __restrict__ rows,             // [B]
                          const __nv_bfloat16* __restrict__ h,  // [B, Np, H]
                          const float* __restrict__ ws,         // [G, H]
@@ -90,21 +98,21 @@ attn_res_bwd_rows_kernel(const __nv_bfloat16* __restrict__ store,  // [M,Np,C]
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const __nv_bfloat16* v = store + static_cast<size_t>(rows[b]) * Np * C;
+  const T* v = store + static_cast<size_t>(rows[b]) * Np * C;
   for (int n = warp; n < n_valid; n += kRowThreads / 32) {
-    const __nv_bfloat16* row = v + static_cast<size_t>(n) * C;
+    const T* row = v + static_cast<size_t>(n) * C;
     float dot[G];
 #pragma unroll
     for (int k = 0; k < G; ++k) dot[k] = 0.0f;
     float sq = 0.0f;
     for (int c = lane * 8; c < C; c += 256) {
-      const uint4 x4 = *reinterpret_cast<const uint4*>(row + c);
+      const uint4 x4 = store_rows::load8(row + c);
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x4);
       float x[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         x[i] = __bfloat162float(e[i]);
-        sq += round_bf16(x[i] * x[i]);
+        if constexpr (!store_rows::kInt8<T>) sq += round_bf16(x[i] * x[i]);
       }
 #pragma unroll
       for (int k = 0; k < G; ++k) {  // every glimpse from this one read
@@ -166,7 +174,7 @@ attn_res_bwd_rows_kernel(const __nv_bfloat16* __restrict__ store,  // [M,Np,C]
   }
 }
 
-template <int G>
+template <int G, class T>
 int launch_bwd(const void* store, const void* rows, const void* h,
                const void* ws, const void* alpha, const void* g,
                const void* sga, void* dzr, void* dws_part, void* part,
@@ -177,13 +185,13 @@ int launch_bwd(const void* store, const void* rows, const void* h,
                       sizeof(float) * (G + 1) * static_cast<size_t>(Np);
   cudaError_t e = cudaSuccess;
   if (smem > kDefaultSmem) {
-    e = cudaFuncSetAttribute(attn_res_bwd_rows_kernel<G>,
+    e = cudaFuncSetAttribute(attn_res_bwd_rows_kernel<G, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  attn_res_bwd_rows_kernel<G><<<B, kRowThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(store),
+  attn_res_bwd_rows_kernel<G, T><<<B, kRowThreads, smem, st>>>(
+      static_cast<const T*>(store),
       static_cast<const int*>(rows), static_cast<const __nv_bfloat16*>(h),
       static_cast<const float*>(ws), static_cast<const float*>(alpha),
       static_cast<const float*>(g), static_cast<const float*>(sga),
@@ -193,8 +201,8 @@ int launch_bwd(const void* store, const void* rows, const void* h,
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   e = attn_dwv::launch_dwv(
-      attn_dwv::StoreCells{static_cast<const __nv_bfloat16*>(store),
-                           static_cast<const int*>(rows), n_valid, Np, C},
+      attn_dwv::StoreCells<T>{static_cast<const T*>(store),
+                              static_cast<const int*>(rows), n_valid, Np, C},
       static_cast<const __nv_bfloat16*>(dzr), static_cast<float*>(part),
       B * n_valid, C, H, splits, st);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -216,7 +224,8 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// store [M, Np, C] bf16, rows [B] i32, h [B, Np, H] bf16 (K4's residual),
+// store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must
+// be 0), rows [B] i32, h [B, Np, H] bf16 (K4's residual),
 // ws [G, H] f32 (1 <= G <= 8), alpha [B, Np, G] f32, g [B, G, C] f32, sga
 // [B, Np, G] f32 -> dqh [B, H], dwv [C, H], dws [G, H], all f32. Scratch:
 // dzr [B*n_valid, H] bf16, dws_part [B, G, H] f32, part [splits, C, H] f32.
@@ -229,15 +238,21 @@ int attention_resident_bwd(const void* store, const void* rows,
                            const void* g, const void* sga, void* dzr,
                            void* dws_part, void* part, void* dqh, void* dwv,
                            void* dws, int B, int Np, int n_valid, int C,
-                           int H, int G, int normalize, int splits,
-                           void* stream, int* launched) {
+                           int H, int G, int normalize, int int8,
+                           int splits, void* stream, int* launched) {
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K5_CASE(k)                                                          \
-  case k:                                                                   \
-    return launch_bwd<k>(store, rows, h, ws, alpha, g, sga, dzr, dws_part,  \
-                         part, dqh, dwv, dws, B, Np, n_valid, C, H,         \
-                         normalize, splits, st, launched);
+  if (int8 && normalize) return static_cast<int>(cudaErrorInvalidValue);
+#define K5_CASE(k)                                                           \
+  case k:                                                                    \
+    return int8 ? launch_bwd<k, int8_t>(store, rows, h, ws, alpha, g, sga,   \
+                                        dzr, dws_part, part, dqh, dwv, dws,  \
+                                        B, Np, n_valid, C, H, 0, splits, st, \
+                                        launched)                            \
+                : launch_bwd<k, __nv_bfloat16>(                              \
+                      store, rows, h, ws, alpha, g, sga, dzr, dws_part, part, \
+                      dqh, dwv, dws, B, Np, n_valid, C, H, normalize, splits, \
+                      st, launched);
   switch (G) {
     K5_CASE(1) K5_CASE(2) K5_CASE(3) K5_CASE(4)
     K5_CASE(5) K5_CASE(6) K5_CASE(7) K5_CASE(8)

@@ -18,10 +18,17 @@
 // f32 for the scores, each glimpse's alpha * r rounded to bf16 before its
 // weighted sum.
 //
+// The store rows are bf16, or the int8 codes of an L2-prenormalized store
+// (the Pallas kernel's int8 branch, which casts the codes in VMEM): the
+// loads widen them to bf16, exactly (store_rows.cuh), and the rest runs as
+// on bf16 rows. The store's scale is applied outside the kernel (folded
+// into W_v, and to v_att afterwards), and an int8 store is never
+// normalized here: it was normalized before it was quantized.
+//
 // What bounds it on an H100: at B=256, n_valid=196, C=2048, H=512 the score
 // GEMM is 105 GFLOP of bf16 (106 us at 989 TFLOP/s; each glimpse adds a
-// 0.2 GFLOP weighted sum) against 205 MB of grid reads and 51 MB of saved h
-// (77 us at 3.35 TB/s): the tensor cores.
+// 0.2 GFLOP weighted sum) against 205 MB of grid reads (102 MB of int8
+// codes) and 51 MB of saved h (77 us at 3.35 TB/s): the tensor cores.
 //
 // Design: the TPU kernel runs one program per question with the row index
 // prefetched into scalar memory. Here the structure of K2
@@ -44,7 +51,8 @@
 //     pairs per thread): the row is read once, not G times.
 //
 // G is a template parameter instantiated for 1..8 (the TPU kernel's limit,
-// its ws sublane window), so the G=1 code is the single-glimpse kernel.
+// its ws sublane window), so the G=1 code is the single-glimpse kernel; the
+// row type T (bf16 or int8) is the second, picked by a flag in the C entry.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,6 +60,8 @@
 
 #include <cmath>
 #include <cstdint>
+
+#include "store_rows.cuh"
 
 namespace {
 
@@ -72,9 +82,9 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <int G>
+template <int G, class T>
 __global__ void __launch_bounds__(kScoreThreads)
-attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
+attn_res_score_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
                       const int* __restrict__ rows,             // [B]
                       const __nv_bfloat16* __restrict__ wv,     // [C, H]
                       const float* __restrict__ qh,             // [B, H]
@@ -99,13 +109,14 @@ attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
 #pragma unroll
   for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
 
-  // A tile: 64 cells x 32 channels = 256 x 16-byte loads, one per thread,
-  // each from the store row of its cell's question.
+  // A tile: 64 cells x 32 channels, eight channels a thread (one 16-byte
+  // load of bf16, or one 8-byte load of codes widened to bf16), each from
+  // the store row of its cell's question.
   const int a_r = tid >> 2;
   const int a_c = (tid & 3) * 8;
   const int a_cell = row0 + a_r;
   const bool a_ok = a_cell < cells;
-  const __nv_bfloat16* a_src = store;
+  const T* a_src = store;
   if (a_ok) {
     const int b = a_cell / Np;
     const int n = a_cell - b * Np;
@@ -118,28 +129,31 @@ attn_res_score_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
       wv + static_cast<size_t>(b_r) * H + col0 + b_c;
   const size_t b_half = static_cast<size_t>(16) * H;
 
-  uint4 a4 = make_uint4(0u, 0u, 0u, 0u);
-  if (a_ok) a4 = *reinterpret_cast<const uint4*>(a_src);
+  store_rows::raw8_t<T> a_raw{};
+  if (a_ok) a_raw = store_rows::load_raw8(a_src);
   uint4 b4a = *reinterpret_cast<const uint4*>(b_src);
   uint4 b4b = *reinterpret_cast<const uint4*>(b_src + b_half);
   float sq = 0.0f;
 
   for (int k0 = 0; k0 < C; k0 += kBK) {
+    const uint4 a4 = store_rows::widen8(a_raw);
     *reinterpret_cast<uint4*>(&As[a_r * kALd + a_c]) = a4;
     *reinterpret_cast<uint4*>(&Bs[b_r * kBLd + b_c]) = b4a;
     *reinterpret_cast<uint4*>(&Bs[(b_r + 16) * kBLd + b_c]) = b4b;
-    if (normalize) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&a4);
+    if constexpr (!store_rows::kInt8<T>) {  // int8 stores: prenormalized
+      if (normalize) {
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&a4);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float x = __bfloat162float(e[i]);
-        sq += round_bf16(x * x);
+        for (int i = 0; i < 8; ++i) {
+          const float x = __bfloat162float(e[i]);
+          sq += round_bf16(x * x);
+        }
       }
     }
     __syncthreads();
     if (k0 + kBK < C) {  // next k-step's tiles in flight during the MMAs
       const size_t kn = k0 + kBK;
-      if (a_ok) a4 = *reinterpret_cast<const uint4*>(a_src + kn);
+      if (a_ok) a_raw = store_rows::load_raw8(a_src + kn);
       b4a = *reinterpret_cast<const uint4*>(b_src + kn * H);
       b4b = *reinterpret_cast<const uint4*>(b_src + kn * H + b_half);
     }
@@ -231,9 +245,9 @@ __device__ float block_reduce(float x, float* red) {
   return x;
 }
 
-template <int G>
+template <int G, class T>
 __global__ void __launch_bounds__(kWsumThreads)
-attn_res_wsum_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
+attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
                      const int* __restrict__ rows,             // [B]
                      const float* __restrict__ part,  // [n_part, G, B*Np]
                      const float* __restrict__ rnorm,  // [B*Np]
@@ -276,17 +290,16 @@ attn_res_wsum_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
   }
   __syncthreads();
 
-  // All G weighted sums from one pass over the store row.
+  // All G weighted sums from one pass over the store row, two channels a
+  // thread (a bf16x2 or a char2 load).
   const int c = blockIdx.y * kWsumChannels + 2 * threadIdx.x;
   if (c < C) {
-    const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(
-        store + static_cast<size_t>(rows[b]) * Np * C + c);
-    const size_t stride = static_cast<size_t>(C) / 2;
+    const T* src = store + static_cast<size_t>(rows[b]) * Np * C + c;
     float a0[G], a1[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) a0[g] = a1[g] = 0.0f;
     for (int n = 0; n < n_valid; ++n) {  // masked cells weigh exactly 0
-      const float2 x = __bfloat1622float2(src[n * stride]);
+      const float2 x = store_rows::load2(src + static_cast<size_t>(n) * C);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float wn = w[g * Np + n];
@@ -303,7 +316,7 @@ attn_res_wsum_kernel(const __nv_bfloat16* __restrict__ store,  // [M, Np, C]
   }
 }
 
-template <int G>
+template <int G, class T>
 int launch_fwd(const void* store, const void* rows, const void* wv,
                const void* qh, const void* ws, void* part, void* rnorm,
                void* hsave, void* vatt, void* alpha, int B, int Np,
@@ -311,8 +324,8 @@ int launch_fwd(const void* store, const void* rows, const void* wv,
                int* launched) {
   const int cells = B * Np;
   const dim3 g1((cells + kBM - 1) / kBM, H / kBN);
-  attn_res_score_kernel<G><<<g1, kScoreThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(store),
+  attn_res_score_kernel<G, T><<<g1, kScoreThreads, 0, st>>>(
+      static_cast<const T*>(store),
       static_cast<const int*>(rows), static_cast<const __nv_bfloat16*>(wv),
       static_cast<const float*>(qh), static_cast<const float*>(ws),
       static_cast<float*>(part), static_cast<float*>(rnorm),
@@ -322,8 +335,8 @@ int launch_fwd(const void* store, const void* rows, const void* wv,
   ++*launched;
   const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
   const size_t smem = 2 * static_cast<size_t>(G) * Np * sizeof(float);
-  attn_res_wsum_kernel<G><<<g2, kWsumThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(store),
+  attn_res_wsum_kernel<G, T><<<g2, kWsumThreads, smem, st>>>(
+      static_cast<const T*>(store),
       static_cast<const int*>(rows), static_cast<const float*>(part),
       static_cast<const float*>(rnorm), static_cast<float*>(vatt),
       static_cast<float*>(alpha), B, Np, n_valid, C, H / kBN);
@@ -340,7 +353,8 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// store [M, Np, C] bf16, rows [B] i32 (< M, checked by the caller),
+// store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must
+// be 0), rows [B] i32 (< M, checked by the caller),
 // wv [C, H] bf16, qh [B, H] f32, ws [G, H] f32 (1 <= G <= 8) -> vatt
 // [B, G, C] f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and h
 // [B, Np, H] bf16 when hsave is not null. Scratch: part [H/128, G, B*Np]
@@ -351,15 +365,19 @@ int attention_resident_fwd(const void* store, const void* rows,
                            const void* wv, const void* qh, const void* ws,
                            void* part, void* rnorm, void* hsave, void* vatt,
                            void* alpha, int B, int Np, int n_valid, int C,
-                           int H, int G, int normalize, void* stream,
-                           int* launched) {
+                           int H, int G, int normalize, int int8,
+                           void* stream, int* launched) {
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_CASE(g)                                                         \
-  case g:                                                                  \
-    return launch_fwd<g>(store, rows, wv, qh, ws, part, rnorm, hsave,      \
-                         vatt, alpha, B, Np, n_valid, C, H, normalize, st, \
-                         launched);
+  if (int8 && normalize) return static_cast<int>(cudaErrorInvalidValue);
+#define K4_CASE(g)                                                          \
+  case g:                                                                   \
+    return int8 ? launch_fwd<g, int8_t>(store, rows, wv, qh, ws, part,      \
+                                        rnorm, hsave, vatt, alpha, B, Np,   \
+                                        n_valid, C, H, 0, st, launched)     \
+                : launch_fwd<g, __nv_bfloat16>(                             \
+                      store, rows, wv, qh, ws, part, rnorm, hsave, vatt,    \
+                      alpha, B, Np, n_valid, C, H, normalize, st, launched);
   switch (G) {
     K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4)
     K4_CASE(5) K4_CASE(6) K4_CASE(7) K4_CASE(8)

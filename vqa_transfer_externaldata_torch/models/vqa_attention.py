@@ -8,8 +8,12 @@ Input: ``q_ids`` [B, T] int (<pad>=0) and either gathered ``features``
 [B, N, C] (the eval forward of serving) or a tuple ``(store [M, Np, C],
 rows [B] int32)``: the gather-free resident path, where the attention reads
 each question's grid straight out of a store held in device memory
-(``ops/attention_resident``). Both inputs train: ``train=True`` turns
-dropout on, drawn from an explicit ``torch.Generator``. With
+(``ops/attention_resident``). An int8 store (the codes of a prenormalized
+store, ``train.store_quantize int8``) comes with its dequantization scale
+as the triple ``(store, rows, scale)``; as a pair its codes are the values
+(scale 1, the JAX model's default ``store_scale``). Both inputs train:
+``train=True`` turns dropout on, drawn from an explicit
+``torch.Generator``. With
 ``glimpses`` G > 1 the score vector ``att_ws`` is a matrix [H, G] and
 ``fuse_v`` takes the G concatenated weighted sums; the resident input runs
 the same op with its G-glimpse kernels, the gathered input normalizes the
@@ -87,10 +91,10 @@ class VQAAttentionModel(nn.Module):
     def forward(self, features, q_ids: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """features [B, N, C] or (store [M, Np, C], rows [B]), q_ids [B, T]
-        -> {"logits" [B, A] f32, "alpha" [B, cells] f32 ([B, cells, G] with
-        G > 1 glimpses)}. ``train`` turns dropout on, drawn from
-        ``generator``."""
+        """features [B, N, C], (store [M, Np, C], rows [B]) or (int8 store,
+        rows, scale), q_ids [B, T] -> {"logits" [B, A] f32, "alpha"
+        [B, cells] f32 ([B, cells, G] with G > 1 glimpses)}. ``train``
+        turns dropout on, drawn from ``generator``."""
         dt = self.dtype
         resident = isinstance(features, (tuple, list))
         mask = (q_ids != PAD_ID).float()
@@ -99,11 +103,17 @@ class VQAAttentionModel(nn.Module):
         q = self.gru(self.word_emb(q_ids.t()), mask)  # [B, H] dt
         qh = self.att_q(q)
         if resident:
-            store, rows = features
+            store, rows = features[:2]
+            # int8 codes go to the op as they are, with their scale (each
+            # store its own: the Trainer's train and val stores differ);
+            # an int8 store is prenormalized by construction.
+            quant = store.dtype == torch.int8
+            scale = features[2] if len(features) > 2 else 1.0
             v_att, alpha = spatial_attention_resident(
-                store.to(dt), rows, qh, self.att_wv, self.att_ws,
-                n_valid=self.n_cells or store.shape[1],
-                normalize=not self.store_prenormalized)
+                store if quant else store.to(dt), rows, qh, self.att_wv,
+                self.att_ws, n_valid=self.n_cells or store.shape[1],
+                normalize=not (self.store_prenormalized or quant),
+                store_scale=scale if quant else 1.0)
         elif self.glimpses > 1:
             # The grid is normalized before the score product here, in
             # training and at evaluation, as in the JAX package.

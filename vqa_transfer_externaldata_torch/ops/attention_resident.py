@@ -9,10 +9,17 @@ memory, with G glimpses (1 <= G <= 8) that share the one v @ Wv product:
 
 Each question's grid is read straight out of the [M, Np, C] store through
 its row index, so no [B, Np, C] batch is ever built. The training forward
-saves the post-ReLU ``h`` (store dtype) and the backward works from it:
+saves the post-ReLU ``h`` (compute dtype) and the backward works from it:
 dqh, dWv and dws, while the store and the rows get no gradient (the store
 is data). A 1-D ``w_score`` [H] is the single glimpse, with outputs
 without the glimpse axis.
+
+The store is bf16 (f32 on the CPU) or int8 codes of an L2-prenormalized
+store with one global dequantization scale (:func:`quantize_store`,
+:func:`prenormalize_store` with ``quantize="int8"``): the kernels widen the
+codes to the compute dtype as they load them (exact: |code| <= 127), and
+the scale stays outside them, folded into Wv, applied to v_att after the
+forward, to the v_att cotangent before the backward and to dWv after it.
 
 :func:`spatial_attention_resident` is the entry point. On CUDA tensors its
 forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
@@ -20,9 +27,9 @@ forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
 (``csrc/attention_resident_bwd.cu``, wrapper :func:`attention_resident_bwd`);
 on CPU tensors their plain versions :func:`attention_resident_fwd_reference`
 and :func:`attention_resident_bwd_reference`. The rounding follows the
-kernels: f32 sums of store-dtype products, squares, each glimpse's
+kernels: f32 sums of compute-dtype products, squares, each glimpse's
 ``alpha * r``, the v_att cotangents and ``dz * r`` (dz summed over the
-glimpses in f32 first) rounded to the store dtype.
+glimpses in f32 first) rounded to the compute dtype.
 """
 
 from __future__ import annotations
@@ -47,45 +54,79 @@ MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
 
 
 def pad_store_rows(grid: np.ndarray, multiple: int = 8) -> np.ndarray:
-    """Pad the cell axis of an [M, N, C] float store to a multiple of
-    ``multiple`` with zero rows (masked out by ``n_valid``)."""
+    """Pad the cell axis of an [M, N, C] store (float, or int8 codes) to a
+    multiple of ``multiple`` with zero rows (masked out by ``n_valid``).
+    int8 stores pad to 8 as float ones do: the JAX package pads them to 32,
+    Mosaic's int8 sublane tile, which the H100 kernels do not have."""
     M, N, C = grid.shape
-    if grid.dtype == np.int8:
-        raise NotImplementedError(
-            "int8 stores are not ported yet (ROADMAP.md, section 1, item 14)")
     pad = (-N) % multiple
     if pad == 0:
         return grid
     return np.concatenate([grid, np.zeros((M, pad, C), grid.dtype)], axis=1)
 
 
+def _normalized(chunk: np.ndarray) -> np.ndarray:
+    """A float32 copy of ``chunk`` with each cell L2-normalized, the
+    kernels' ``x / sqrt(sum x^2 + 1e-12)`` (the source is never aliased)."""
+    g32 = chunk.astype(np.float32)
+    ssq = np.sum(np.square(g32), axis=-1, keepdims=True)
+    g32 *= 1.0 / np.sqrt(ssq + 1e-12)
+    return g32
+
+
+def _codes(g32: np.ndarray, scale: float) -> np.ndarray:
+    return np.clip(np.rint(g32 / scale), -127, 127).astype(np.int8)
+
+
+def quantize_store(grid: np.ndarray) -> Tuple[np.ndarray, float]:
+    """Symmetric int8 quantization of an L2-prenormalized [M, N, C] store
+    with one global scale ``g = (max|x| or 1) / 127`` (after the per-cell
+    normalization every cell has norm 1, so one scale serves them all).
+    Returns ``(codes, g)`` with ``codes * g ~= x``."""
+    g32 = np.asarray(grid, np.float32)
+    scale = (float(np.max(np.abs(g32))) or 1.0) / 127.0
+    return _codes(g32, scale), scale
+
+
 def prenormalize_store(grid: np.ndarray,
                        out_dtype: Optional[torch.dtype] = None,
+                       quantize: str = "",
                        chunk_bytes: int = 1 << 28,
                        device: Optional[torch.device] = None
                        ) -> Tuple[torch.Tensor, float]:
     """L2-normalize each cell of an [M, N, C] float store and pad the cell
-    axis to a multiple of 8, in one chunked pass: each chunk is normalized
-    in float32 on the host (``x / sqrt(sum x^2 + 1e-12)``), cast to
-    ``out_dtype`` (default: the store's own) and written into the padded
-    output tensor on ``device`` (default: the CPU), so neither a full-size
-    float32 copy nor a second host copy of the store is made. The source is
-    never modified. Returns ``(padded store, scale)``, the scale being 1.0
-    (the JAX package's is the dequantization scale of an int8 store, which
-    is not ported: ROADMAP.md section 1 item 14)."""
+    axis to a multiple of 8, chunk by chunk: each chunk is normalized in
+    float32 on the host, cast to ``out_dtype`` (default: the store's own)
+    and written into the padded output tensor on ``device`` (default: the
+    CPU), so neither a full-size float32 copy nor a second host copy of the
+    store is made. The source is never modified. Returns ``(padded store,
+    scale)`` with scale 1.0.
+
+    ``quantize="int8"``: two chunked passes, the global absmax of the
+    normalized values, then the codes; the result is int8 with the
+    dequantization scale, the codes equal to :func:`quantize_store` of the
+    whole normalized store (``out_dtype`` is not used)."""
+    if quantize not in ("", "int8"):
+        raise ValueError(f"quantize={quantize!r}: only 'int8' or ''")
     M, N, C = grid.shape
-    if out_dtype is None:
-        out_dtype = torch.from_numpy(np.zeros(0, grid.dtype)).dtype
     Np = N + (-N) % 8
-    out = torch.zeros((M, Np, C), dtype=out_dtype, device=device)
     rows = max(1, chunk_bytes // max(N * C * 4, 1))
+    scale = 1.0
+    if quantize:
+        gmax = 0.0
+        for lo in range(0, M, rows):
+            gmax = max(gmax, float(np.max(np.abs(
+                _normalized(grid[lo:lo + rows])))))
+        scale = (gmax or 1.0) / 127.0
+        out_dtype = torch.int8
+    elif out_dtype is None:
+        out_dtype = torch.from_numpy(np.zeros(0, grid.dtype)).dtype
+    out = torch.zeros((M, Np, C), dtype=out_dtype, device=device)
     for lo in range(0, M, rows):
-        g32 = grid[lo:lo + rows].astype(np.float32)
-        ssq = np.sum(np.square(g32), axis=-1, keepdims=True)
-        g32 *= 1.0 / np.sqrt(ssq + 1e-12)
-        out[lo:lo + rows, :N] = torch.from_numpy(g32).to(out.device,
-                                                          out_dtype)
-    return out, 1.0
+        g32 = _normalized(grid[lo:lo + rows])
+        chunk = torch.from_numpy(_codes(g32, scale) if quantize else g32)
+        out[lo:lo + rows, :N] = chunk.to(out.device, out_dtype)
+    return out, scale
 
 
 # ---------------------------------------------------------------------------
@@ -93,10 +134,12 @@ def prenormalize_store(grid: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def _gather(store: torch.Tensor, rows: torch.Tensor, normalize: bool
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(v [B, Np, C] f32 copies of the store rows, r [B, Np] f32)."""
-    v = store[rows.long()]
+def _gather(store: torch.Tensor, rows: torch.Tensor, normalize: bool,
+            dt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v [B, Np, C] f32 copies of the store rows, r [B, Np] f32). int8
+    codes are cast to the compute dtype ``dt`` first, as the kernels
+    widen them (exactly)."""
+    v = store[rows.long()].to(dt)
     r = (torch.rsqrt((v * v).float().sum(-1) + 1e-12) if normalize
          else torch.ones(v.shape[:2], dtype=torch.float32, device=v.device))
     return v.float(), r
@@ -116,13 +159,15 @@ def attention_resident_fwd_reference(
         wv: torch.Tensor, ws: torch.Tensor, *, n_valid: int,
         normalize: bool, save_h: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Plain PyTorch version of kernel K4: store [M, Np, C] (dt), rows [B]
-    int, qh [B, H] f32, wv [C, H] (dt), ws [H, G] f32 -> (v_att [B, G*C]
-    f32, alpha [B, Np, G] f32 (0 at padded cells), h [B, Np, H] in dt or
-    None). A 1-D ws [H] gives v_att [B, C] and alpha [B, Np]."""
-    dt = store.dtype
+    """Plain PyTorch version of kernel K4: store [M, Np, C] (dt, or int8
+    codes), rows [B] int, qh [B, H] f32, wv [C, H] (dt: the compute dtype),
+    ws [H, G] f32 -> (v_att [B, G*C] f32, alpha [B, Np, G] f32 (0 at
+    padded cells), h [B, Np, H] in dt or None). A 1-D ws [H] gives v_att
+    [B, C] and alpha [B, Np]. The outputs are in the codes' units (the
+    caller applies an int8 store's scale)."""
+    dt = wv.dtype if store.dtype == torch.int8 else store.dtype
     G = _glimpses(ws, "attention_resident_fwd_reference")
-    vf, r = _gather(store, rows, normalize)
+    vf, r = _gather(store, rows, normalize, dt)
     z = vf @ wv.float()
     h = torch.relu(z * r[:, :, None] + qh[:, None, :])
     s = h @ ws.reshape(ws.shape[0], G)  # [B, Np, G]
@@ -148,13 +193,14 @@ def attention_resident_bwd_reference(
     dws [H, G]), all f32; a 1-D ws [H] takes alpha and sga [B, Np] and
     gives dws [H]. The glimpses' dz are summed in f32 before the one
     ``dz * r`` rounding. The padded cells (alpha 0) add nothing, so
-    ``n_valid`` is not needed."""
+    ``n_valid`` is not needed. The compute dtype is the store's, or h's
+    for int8 codes (whose scale the caller applies to g and dwv)."""
     del n_valid
-    dt = store.dtype
+    dt = h.dtype if store.dtype == torch.int8 else store.dtype
     G = _glimpses(ws, "attention_resident_bwd_reference")
     B, Np = alpha.shape[:2]
     ws2 = ws.reshape(-1, G)
-    vf, r = _gather(store, rows, normalize)
+    vf, r = _gather(store, rows, normalize, dt)
     g3 = g.reshape(B, G, -1).to(dt).float()
     dalpha = torch.einsum("bgc,bnc->bng", g3, vf) * r[:, :, None]
     ds = alpha.reshape(B, Np, G) * (dalpha + sga.reshape(B, Np, G))
@@ -180,7 +226,7 @@ def attention_resident_bwd_reference(
 def _fwd_lib() -> ctypes.CDLL:
     lib = kernels.load("attention_resident_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 7 + [p, p]
+    lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 8 + [p, p]
     lib.attention_resident_fwd.restype = i
     return lib
 
@@ -189,18 +235,26 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = kernels.load("attention_resident_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 8 + [p, p]
+    lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 9 + [p, p]
     lib.attention_resident_bwd.restype = i
     return lib
 
 
 def _check_store(store: torch.Tensor, rows: torch.Tensor, n_valid: int,
-                 what: str) -> Tuple[int, int, int, int]:
+                 normalize: bool, what: str) -> Tuple[int, int, int, int]:
+    """Shapes (M, Np, C, B) of a CUDA store of bf16 rows or int8 codes and
+    its int32 row indices."""
     if store.device.type != "cuda" or store.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA store")
     M, Np, C = store.shape
     B = rows.shape[0] if rows.dim() == 1 else -1
-    kernels.expect("store", store, torch.bfloat16, (M, Np, C), store.device)
+    if store.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"{what}: store must be bf16 or int8, got "
+                        f"{store.dtype}")
+    if store.dtype == torch.int8 and normalize:
+        raise ValueError(f"{what}: an int8 store is normalized before it is "
+                         "quantized, so normalize must be off")
+    kernels.expect("store", store, store.dtype, (M, Np, C), store.device)
     kernels.expect("rows", rows, torch.int32, (B,), store.device)
     if B < 1 or not 1 <= n_valid <= Np:
         raise ValueError(f"{what} needs B >= 1 and 1 <= n_valid <= Np, got "
@@ -217,15 +271,18 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
                            normalize: bool, save_h: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       Optional[torch.Tensor]]:
-    """Launch kernel K4 on CUDA tensors: store [M, Np, C] bf16, rows [B]
-    int32 (each < M, which the caller guarantees), qh [B, H] f32, wv
-    [C, H] bf16, ws [H, G] f32 with 1 <= G <= 8 -> (v_att [B, G*C] f32,
-    alpha [B, Np, G] f32, h [B, Np, H] bf16 when ``save_h`` else None); a
-    1-D ws [H] gives v_att [B, C] and alpha [B, Np]. Needs C % 32 == 0 and
-    H % 128 == 0. One call makes the kernel's two launches on the current
-    stream and adds the number launched (2) to
-    ``attention_resident_fwd.launches``."""
-    M, Np, C, B = _check_store(store, rows, n_valid, "attention_resident_fwd")
+    """Launch kernel K4 on CUDA tensors: store [M, Np, C] bf16 or int8
+    codes (normalize off), rows [B] int32 (each < M, which the caller
+    guarantees), qh [B, H] f32, wv [C, H] bf16, ws [H, G] f32 with
+    1 <= G <= 8 -> (v_att [B, G*C] f32, alpha [B, Np, G] f32, h [B, Np, H]
+    bf16 when ``save_h`` else None); a 1-D ws [H] gives v_att [B, C] and
+    alpha [B, Np]. Needs C % 32 == 0 and H % 128 == 0. One call makes the
+    kernel's two launches on the current stream and adds the number
+    launched (2) to ``attention_resident_fwd.launches`` (bf16 rows) or
+    ``attention_resident_fwd.launches_int8`` (int8 rows)."""
+    M, Np, C, B = _check_store(store, rows, n_valid, normalize,
+                               "attention_resident_fwd")
+    int8 = store.dtype == torch.int8
     H = qh.shape[-1]
     dev = store.device
     G = _glimpses(ws, "attention_resident_fwd")
@@ -259,14 +316,18 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
             ws_gh.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
             h.data_ptr() if save_h else None, v_att.data_ptr(),
             alpha.data_ptr(), B, Np, n_valid, C, H, G, int(normalize),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(int8), torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
-    attention_resident_fwd.launches += launched.value
+    if int8:
+        attention_resident_fwd.launches_int8 += launched.value
+    else:
+        attention_resident_fwd.launches += launched.value
     kernels.check(lib, rc, "attention_resident_fwd")
     return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h
 
 
 attention_resident_fwd.launches = 0
+attention_resident_fwd.launches_int8 = 0
 
 
 def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
@@ -276,14 +337,18 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
                            normalize: bool
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    """Launch kernel K5 on CUDA tensors: store [M, Np, C] bf16, rows [B]
-    int32, h [B, Np, H] bf16 (K4's residual), ws [H, G] f32 with
-    1 <= G <= 8, alpha and sga [B, Np, G] f32, g [B, G*C] f32 -> (dqh
-    [B, H], dwv [C, H], dws [H, G]), all f32; a 1-D ws [H] takes alpha and
-    sga [B, Np] and gives dws [H]. Needs C % 128 == 0 and H % 128 == 0.
-    One call makes the kernel's three launches on the current stream and
-    adds the number launched (3) to ``attention_resident_bwd.launches``."""
-    M, Np, C, B = _check_store(store, rows, n_valid, "attention_resident_bwd")
+    """Launch kernel K5 on CUDA tensors: store [M, Np, C] bf16 or int8
+    codes (normalize off), rows [B] int32, h [B, Np, H] bf16 (K4's
+    residual), ws [H, G] f32 with 1 <= G <= 8, alpha and sga [B, Np, G]
+    f32, g [B, G*C] f32 -> (dqh [B, H], dwv [C, H], dws [H, G]), all f32; a
+    1-D ws [H] takes alpha and sga [B, Np] and gives dws [H]. Needs
+    C % 128 == 0 and H % 128 == 0. One call makes the kernel's three
+    launches on the current stream and adds the number launched (3) to
+    ``attention_resident_bwd.launches`` (bf16 rows) or
+    ``attention_resident_bwd.launches_int8`` (int8 rows)."""
+    M, Np, C, B = _check_store(store, rows, n_valid, normalize,
+                               "attention_resident_bwd")
+    int8 = store.dtype == torch.int8
     H = h.shape[-1]
     dev = store.device
     G = _glimpses(ws, "attention_resident_bwd")
@@ -322,15 +387,19 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
             ws_gh.data_ptr(), alpha.data_ptr(), g.data_ptr(), sga.data_ptr(),
             dzr.data_ptr(), dws_part.data_ptr(), part.data_ptr(),
             dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(), B, Np, n_valid,
-            C, H, G, int(normalize), splits,
+            C, H, G, int(normalize), int(int8), splits,
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
-    attention_resident_bwd.launches += launched.value
+    if int8:
+        attention_resident_bwd.launches_int8 += launched.value
+    else:
+        attention_resident_bwd.launches += launched.value
     kernels.check(lib, rc, "attention_resident_bwd")
     return dqh, dwv, dws.t().contiguous().reshape(ws.shape)
 
 
 attention_resident_bwd.launches = 0
+attention_resident_bwd.launches_int8 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -342,27 +411,33 @@ class _ResidentAttention(torch.autograd.Function):
     """Forward K4 (saving h only when a gradient is wanted), backward K5.
     The softmax backward's per-question, per-glimpse scalar S_g = g_g .
     v_att_g + alpha_g . ga_g is packed outside the kernel into
-    sga = ga - S."""
+    sga = ga - S. An int8 store computes in qh's dtype, and its scale is
+    applied here, never in a kernel: folded into wv, to v_att after the
+    forward, to g ahead of K5 (its dalpha dots read the codes) and to dwv
+    after it; S takes the scaled v_att and the unscaled g."""
 
     @staticmethod
-    def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize, save_h):
-        dt = store.dtype
-        wv_c = wv.to(dt).contiguous()
+    def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize, save_h,
+                scale):
+        dt = qh.dtype if store.dtype == torch.int8 else store.dtype
+        wv_c = (wv * scale if scale != 1.0 else wv).to(dt).contiguous()
         ws_c = ws.to(dt).float().contiguous()
         fwd = (attention_resident_fwd if store.device.type == "cuda"
                else attention_resident_fwd_reference)
         v_att, alpha, h = fwd(store, rows, qh.float().contiguous(), wv_c,
                               ws_c, n_valid=n_valid, normalize=normalize,
                               save_h=save_h)
+        if scale != 1.0:
+            v_att = v_att * scale
         if save_h:
             ctx.save_for_backward(store, rows, h, ws_c, alpha, v_att)
-        ctx.meta = (n_valid, normalize, qh.dtype, wv.dtype, ws.dtype)
+        ctx.meta = (n_valid, normalize, scale, qh.dtype, wv.dtype, ws.dtype)
         return v_att, alpha
 
     @staticmethod
     def backward(ctx, g, ga):
         store, rows, h, ws_c, alpha, v_att = ctx.saved_tensors
-        n_valid, normalize, qh_dt, wv_dt, ws_dt = ctx.meta
+        n_valid, normalize, scale, qh_dt, wv_dt, ws_dt = ctx.meta
         g = torch.zeros_like(v_att) if g is None else g.float()
         ga = torch.zeros_like(alpha) if ga is None else ga.float()
         B, G = alpha.shape[0], 1 if ws_c.dim() == 1 else ws_c.shape[1]
@@ -370,12 +445,16 @@ class _ResidentAttention(torch.autograd.Function):
         s = ((g.reshape(B, G, -1) * v_att.reshape(B, G, -1)).sum(-1)
              + (a3 * ga3).sum(1))  # [B, G]
         sga = (ga3 - s[:, None, :]).reshape(alpha.shape).contiguous()
+        if scale != 1.0:
+            g = g * scale
         bwd = (attention_resident_bwd if store.device.type == "cuda"
                else attention_resident_bwd_reference)
         dqh, dwv, dws = bwd(store, rows, h, ws_c, alpha, g.contiguous(), sga,
                             n_valid=n_valid, normalize=normalize)
+        if scale != 1.0:
+            dwv = dwv * scale
         return (None, None, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt),
-                None, None, None)
+                None, None, None, None)
 
 
 def spatial_attention_resident(
@@ -397,15 +476,25 @@ def spatial_attention_resident(
     G-glimpse variant, G softmaxes sharing the one v @ Wv product: (v_att
     [B, G*C] f32, concatenated in glimpse order, alpha [B, n_valid, G]
     f32). Differentiable in ``qh``, ``wv`` and ``w_score``, which are
-    rounded to the store's dtype inside. A CUDA store runs kernels K4/K5
-    (bf16 store), a CPU store their plain versions.
+    rounded to the compute dtype inside: the store's, or ``qh``'s for an
+    int8 store. A CUDA store runs kernels K4/K5 (bf16 rows or int8 codes),
+    a CPU store their plain versions.
 
-    Not ported yet, each raising ``NotImplementedError``: an int8 store
-    with its ``store_scale`` (ROADMAP.md section 1 item 14) and ``mesh``/
-    ``data_axis``/``store_sharded`` (item 12)."""
-    if not store.is_floating_point() or store_scale != 1.0:
-        raise NotImplementedError(
-            "int8 stores are not ported yet (ROADMAP.md, section 1, item 14)")
+    ``store`` may hold the int8 codes of an L2-prenormalized store
+    (:func:`prenormalize_store` with ``quantize="int8"``) with their
+    ``store_scale``, which is applied outside the kernels; such a store
+    needs ``normalize=False`` (``ValueError`` otherwise).
+
+    Not ported yet, raising ``NotImplementedError``: ``mesh``/
+    ``data_axis``/``store_sharded`` (ROADMAP.md section 1 item 12)."""
+    int8 = store.dtype == torch.int8
+    if not (store.is_floating_point() or int8):
+        raise TypeError(f"spatial_attention_resident takes a float or int8 "
+                        f"store, got {store.dtype}")
+    if int8 and normalize:
+        raise ValueError("spatial_attention_resident: an int8 store is "
+                         "L2-normalized before it is quantized, so "
+                         "normalize must be off")
     _glimpses(w_score, "spatial_attention_resident")
     if mesh is not None or data_axis is not None or store_sharded:
         raise NotImplementedError(
@@ -421,7 +510,7 @@ def spatial_attention_resident(
         t.requires_grad for t in (qh, wv, w_score))
     v_att, alpha = _ResidentAttention.apply(
         store, rows.to(torch.int32).contiguous(), qh, wv, w_score, n_valid,
-        normalize, save_h)
+        normalize, save_h, float(store_scale))
     # The padded cells are sliced off outside the Function: their
     # cotangent arrives as the zeros that match their zero alpha.
     return v_att, alpha[:, :n_valid]

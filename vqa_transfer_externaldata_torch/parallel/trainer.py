@@ -293,8 +293,8 @@ class Trainer:
     without a card and without ``device`` it raises. Not ported, and
     raising ``NotImplementedError`` with their ROADMAP item when asked for:
     the profiler window (item 14), ``steps_per_call > 1`` (item 15),
-    ``store_sharded`` (item 12), an int8 store (item 14),
-    ``sort_batch_by_image`` (item 14) and ``remat`` (item 14)."""
+    ``store_sharded`` (item 12), ``sort_batch_by_image`` (item 14) and
+    ``remat`` (item 14)."""
 
     # fit_resident stages its seeded index table in segments of this many
     # steps; shrink in tests to exercise re-staging.
@@ -306,7 +306,6 @@ class Trainer:
         t = cfg.train
         for on, what, item in (
                 (t.store_sharded, "train.store_sharded", "item 12"),
-                (bool(t.store_quantize), "train.store_quantize", "item 14"),
                 (t.steps_per_call > 1, "train.steps_per_call > 1",
                  "item 15"),
                 (t.sort_batch_by_image, "train.sort_batch_by_image",
@@ -575,8 +574,11 @@ class Trainer:
         that reads pool5 only gets no grid on the device):
 
         - on the gather-free path, padded to a multiple of 8 cells and
-          L2-normalized at upload when the model skips the per-cell norm;
-          ``make_batch`` hands the model ``(grid, rows)``. It is taken when
+          L2-normalized at upload when the model skips the per-cell norm
+          (with ``train.store_quantize`` int8: then quantized to int8 codes
+          with one global scale); ``make_batch`` hands the model ``(grid,
+          rows)``, or ``(grid, rows, scale)`` for int8 codes. It is taken
+          when
           ``train.resident_fused_attention`` is on (the default) and the
           model has a grid (``n_cells``), at most 8 glimpses and a batch
           that is a multiple of 8, as in the JAX package; otherwise, with
@@ -617,9 +619,13 @@ class Trainer:
         if "pool5" in ds.feature_keys:
             store["store_pool5"] = self._upload_rows(
                 "pool5", np.asarray(ds.store.pool5, np.float32))
+        scale = 1.0
         if self.spec.visual_key == "features":
-            store["grid"] = self._upload_grid(ds.store.grid, fused)
+            store["grid"], scale = self._upload_grid(ds.store.grid, fused)
         pool5, grid = store.get("store_pool5"), store.get("grid")
+        # int8 codes travel with their own scale (a val store's differs).
+        codes_scale = ((scale,) if grid is not None
+                       and grid.dtype == torch.int8 else ())
 
         def make_batch(idx: torch.Tensor) -> Dict[str, object]:
             batch = {k: v.index_select(0, idx) for k, v in data.items()}
@@ -627,7 +633,7 @@ class Trainer:
             if pool5 is not None:
                 batch["pool5"] = pool5.index_select(0, rows.long())
             if grid is not None:
-                batch["features"] = ((grid, rows) if fused
+                batch["features"] = ((grid, rows, *codes_scale) if fused
                                      else grid.index_select(0, rows.long()))
             return batch
 
@@ -635,10 +641,22 @@ class Trainer:
                      for v in (*data.values(), *store.values()))
         return dict(data, **store), make_batch, nbytes
 
-    def _upload_grid(self, grid, fused: bool) -> torch.Tensor:
-        """A store's grids on the device: padded to a multiple of 8 cells
-        (L2-normalized when the model skips the per-cell norm) for the
-        gather-free path, else [M, N, C] as they are."""
+    def _upload_grid(self, grid, fused: bool) -> Tuple[torch.Tensor, float]:
+        """A store's grids on the device and their dequantization scale
+        (1.0 unless int8): padded to a multiple of 8 cells (L2-normalized
+        when the model skips the per-cell norm, and then quantized to int8
+        under ``train.store_quantize`` int8) for the gather-free path, else
+        [M, N, C] as they are. ``train.store_quantize`` other than "" or
+        "int8" raises ``ValueError``; int8 where the store is not
+        prenormalized logs a warning and keeps the float store, as the JAX
+        package does."""
+        quantize = self.cfg.train.store_quantize
+        if quantize not in ("", "int8"):
+            # A float store measured under a quantized run's name would
+            # corrupt any comparison of the two.
+            raise ValueError(f"train.store_quantize={quantize!r}: only "
+                             "'int8' is supported (or '' for the float "
+                             "store)")
         dt = self.model.dtype
         grid = np.asarray(grid)
         if grid.ndim == 4:  # [M, g, g, C] -> [M, N, C]
@@ -648,17 +666,23 @@ class Trainer:
         # here.
         store_dt = (torch.bfloat16 if dt == torch.bfloat16
                     else torch.from_numpy(grid[:0]).dtype)
+        if quantize and not (fused and self.model.store_prenormalized):
+            log.warning("train.store_quantize=%r needs the prenormalized "
+                        "gather-free resident path (device_data_cache and "
+                        "resident_fused_attention): keeping the float store",
+                        quantize)
+            quantize = ""
         if not fused:
             return torch.from_numpy(np.ascontiguousarray(grid)).to(
-                self.device).to(store_dt)
+                self.device).to(store_dt), 1.0
         if dt == torch.bfloat16 and grid.dtype == np.float32:
             # f32 sources are rounded to bf16 before they are normalized
             grid = torch.from_numpy(grid).to(dt).float().numpy()
         if self.model.store_prenormalized:
             return prenormalize_store(grid, out_dtype=store_dt,
-                                      device=self.device)[0]
+                                      quantize=quantize, device=self.device)
         return torch.from_numpy(pad_store_rows(grid)).to(self.device,
-                                                         store_dt)
+                                                         store_dt), 1.0
 
     def _upload_rows(self, key: str, v: np.ndarray) -> torch.Tensor:
         """One row array on the device, float feature columns in the
