@@ -14,7 +14,8 @@ Run from the repository root. Phases (any failure exits non-zero):
    (B=64, N=196, C=2048, H=512, bf16, normalize on and off);
 4. K1 ``gru_fwd`` and K3 ``gru_bwd`` against their plain versions at the
    training shape (B=256, T=26, H=512, lengths 1..26, forward and
-   reverse), both versions of K3 fed K1's hseq;
+   reverse), both versions of K3 fed K1's hseq; the grid, resident blocks
+   per SM and shared memory of K3's persistent step launch;
 5. K4 ``attention_resident_fwd`` and K5 ``attention_resident_bwd`` against
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
@@ -97,7 +98,10 @@ Run from the repository root. Phases (any failure exits non-zero):
    flushed between runs), and the bound from this run's shapes; K1 at
    the training batch and at the serving batch; K4 and K5 at G=1 and
    G=2 on bf16 rows and at G=1 on int8 rows; the gathered op's whole
-   backward with K8 and with the explicit math.
+   backward with K8 and with the explicit math; K3's persistent design
+   against the per-step design in one call (two K3 calls against K7,
+   which walks both directions with one step launch a timestep, on
+   phase 6's inputs).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -469,8 +473,15 @@ def phase_gru_bwd(report: dict, dev, gen) -> dict:
             err = max(err, e)
         if not reverse:
             hseq_fwd = hseq
+    launch = gru.gru_bwd_launch_config(Bt, H, dev)
+    print(f"K3 persistent step launch at B={Bt}, H={H}: grid "
+          f"{launch['grid'][0]} x {launch['grid'][1]} blocks of 256 threads, "
+          f"{launch['blocks_per_sm']} resident per SM, "
+          f"{launch['smem_bytes']} B of dynamic shared memory")
+    report["gru_bwd_launch"] = launch
     return {"gx": gx, "hseq": hseq_fwd, "lens": lens, "uh": uh, "bhn": bhn,
-            "ghT": ghT, "err": err, "checks": checks, "k1_err": err1}
+            "ghT": ghT, "err": err, "checks": checks, "k1_err": err1,
+            "launch": launch}
 
 
 def phase_resident(report: dict, dev, gen) -> dict:
@@ -1160,14 +1171,14 @@ def phase_training(report: dict, dev) -> dict:
         torch.cuda.synchronize()
         out["fit_s"] = time.perf_counter() - t0
         launches = read_counts()
-        # A step: K1 one launch per timestep, K3 one per timestep plus the
-        # dU_h GEMM and the db_hn sum, K4 two, K5 three. An evaluation: K1
-        # and K4 over each of the val split's batches.
+        # A step: K1 one launch per timestep, K3 three (the persistent
+        # step kernel, the dU_h GEMM, the db_hn sum), K4 two, K5 three. An
+        # evaluation: K1 and K4 over each of the val split's batches.
         evals = steps // EVAL_EVERY
         eval_batches = evals * -(-VAL_QUESTIONS // B_TRAIN)
         check_launches(launches, {
             "gru_fwd": T * (steps + eval_batches),
-            "gru_bwd": (T + 2) * steps,
+            "gru_bwd": 3 * steps,
             "attention_resident_fwd": 2 * (steps + eval_batches),
             "attention_resident_bwd": 3 * steps},
             f"stage-2 training over {steps} steps with {evals} evaluations")
@@ -1363,7 +1374,7 @@ def phase_gathered(report: dict, dev) -> dict:
         launches = read_counts()
         # A step: K1 and K3 as on the main path, K2 two launches, K8 three.
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
             "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
             f"gathered stage-2 training over {steps} steps")
         out.update(launches=launches,
@@ -1424,7 +1435,7 @@ def phase_streamed(report: dict, dev) -> dict:
         out = {"cli_s": time.perf_counter() - t0}
         launches = read_counts()
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
             "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
             f"streamed stage-2 training over {steps} steps")
         out["launches"] = launches
@@ -1573,7 +1584,7 @@ def phase_transfer(report: dict, dev, stage1_params: str) -> dict:
         out = {"cli_s": time.perf_counter() - t0}
         launches = read_counts()
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
             "attention_resident_fwd": 2 * steps,
             "attention_resident_bwd": 3 * steps},
             f"stage-2 training after the transfer over {steps} steps")
@@ -1650,7 +1661,7 @@ def phase_glimpses2(report: dict, dev) -> dict:
         # A step: K1 and K3 as on the main path, K4 two launches and K5
         # three, each covering both glimpses.
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": (T + 2) * steps,
+            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
             "attention_resident_fwd": 2 * steps,
             "attention_resident_bwd": 3 * steps},
             f"vqa_attention2 training over {steps} steps")
@@ -1752,7 +1763,7 @@ def phase_training_int8(report: dict, dev) -> dict:
         n_batches = -(-VAL_QUESTIONS // B_TRAIN)
         check_launches(launches, {
             "gru_fwd": T * (steps + evals * n_batches),
-            "gru_bwd": (T + 2) * steps,
+            "gru_bwd": 3 * steps,
             "attention_resident_fwd[int8]": 2 * (steps + evals * n_batches),
             "attention_resident_bwd[int8]": 3 * steps},
             f"int8-store training over {steps} steps with {evals} "
@@ -1991,7 +2002,7 @@ def kernel_name(key: str) -> str:
 def summarize(kernels: dict, host: dict, n: int, wall_us: float,
               what: str) -> dict:
     busy = sum(kernels.values()) * n
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     out = {"calls": n, "wall_ms_per_call": wall_us / n / 1e3,
            "kernel_ms_per_call": busy / n / 1e3 if busy else None,
@@ -2115,6 +2126,24 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     times["gru_bwd"]["library_call"] = (
         f"backward of torch.nn.GRU({D}, {H}) in bfloat16 over a packed "
         "sequence, input-projection gradients included")
+    # K3's persistent design against the per-step one, in one call and in
+    # turns (old, new, new, old): K7 walks both directions of phase 6's
+    # inputs with one step launch a timestep, two K3 calls walk them with
+    # one persistent launch each; the outputs are the same bits.
+    (gxf, gxb, hsf, hsb, lens7, uhf, uhb, bhnf, bhnb, ghTf,
+     ghTb) = k67["bargs"]
+
+    def old_pair():
+        gru.bigru_bwd(*k67["bargs"])
+
+    def new_pair():
+        gru.gru_bwd(gxf, hsf, lens7, uhf, bhnf, ghTf)
+        gru.gru_bwd(gxb, hsb, lens7, uhb, bhnb, ghTb, reverse=True)
+
+    pair = [time_cuda(f, buf) for f in (old_pair, new_pair, new_pair,
+                                        old_pair)]
+    times["gru_bwd"]["old_design_pair"] = (pair[0] + pair[3]) / 2
+    times["gru_bwd"]["new_design_pair"] = (pair[1] + pair[2]) / 2
 
     st, rows, nv = k45["store"], k45["rows"], k45["n_valid"]
     qh4, wv4, ws4 = k45["qh"], k45["wv"], k45["ws"]
@@ -2314,6 +2343,9 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library {t['library']}, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    print(f"K3 design pair (both directions): per-step (K7) "
+          f"{times['gru_bwd']['old_design_pair']:.4f} ms, persistent (two "
+          f"K3 calls) {times['gru_bwd']['new_design_pair']:.4f} ms")
     print(f"gathered backward A/B: with K8 "
           f"{times['attention_bwd']['op_backward_with_kernel']:.4f} ms, "
           f"explicit {times['attention_bwd']['explicit_backward']:.4f} ms")
@@ -2409,7 +2441,9 @@ def main(argv=None) -> int:
     # serving batch under at_serving_batch. K4's and K5's times and bounds
     # are at G=2, and at G=1 under at_g1; on int8 rows at G=1. P1's time is
     # at Q=1, with every Q under by_q; its library call is cuBLAS on the
-    # gathered rows, the gather timed apart.
+    # gathered rows, the gather timed apart. K3's old_design_pair_ms is K7
+    # on phase 6's inputs (one step launch a timestep for both directions),
+    # its new_design_pair_ms two K3 calls on the same inputs, in one call.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -2427,7 +2461,10 @@ def main(argv=None) -> int:
             ref + "attention.py:125",
             max(max(c["v_att_err"], c["alpha_err"]) for c in k2["checks"]),
             {"checks": k2["checks"]}),
-        "gru_bwd": (ref + "gru.py:259", k3["err"], {"checks": k3["checks"]}),
+        "gru_bwd": (ref + "gru.py:259", k3["err"], {
+            "checks": k3["checks"], "persistent_launch": k3["launch"],
+            "old_design_pair_ms": times["gru_bwd"]["old_design_pair"],
+            "new_design_pair_ms": times["gru_bwd"]["new_design_pair"]}),
         "attention_resident_fwd": (
             ref + "attention_resident.py:150", max(k45["err4"], k45g["err4"]),
             {"glimpses": "1-8", "checks": k45["checks4"] + k45g["checks4"]}),

@@ -15,9 +15,11 @@ normalize mode (a bf16 weight p*r that rounds the other way moves its term
 by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
 (bf16 activations between layers). K3-K5 are held relative to the largest
 value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
-saved h 2^-7, K5 2^-9. K6 and K7 run K1's and K3's step kernels with a
-direction axis: h as K1's, K7 as K3's, and each equals two K1 (K3) calls
-on the same inputs bit for bit. K8 recomputes z, so a unit whose z lies
+saved h 2^-7, K5 2^-9. K6 runs K1's step kernel with a direction axis,
+K7 one BPTT step launch a timestep for both directions, and K3's
+persistent launch the same products in the same order: h as K1's, K7 as
+K3's, and each equals two K1 (K3) calls on the same inputs bit for bit.
+K8 recomputes z, so a unit whose z lies
 within rounding of 0 may take the other side of the ReLU in one version:
 each output is held to 2^-9 of its largest value plus, per entry, what such
 units can move it (``_k8_allowance``, the reasoning of chip_smoke.py). K4
@@ -183,10 +185,70 @@ def test_gru_bwd_matches_plain(dev, shape, reverse):
     want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT,
                                  reverse=reverse)
     torch.cuda.synchronize()
-    assert gru.gru_bwd.launches == before + T + 2
+    assert gru.gru_bwd.launches == before + 3  # steps, dU_h, db_hn
     for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
         assert torch.isfinite(a).all(), name
         assert _rel_err(a, b) <= TOL_K3, (name, _rel_err(a, b))
+
+
+def _k3_k7_inputs(dev, T, B, H, reverse, seed=11):
+    """One direction's BPTT inputs, its hseq from the plain forward."""
+    gx, lens, uh, bhn = _gru_inputs(dev, T, B, H, seed)
+    lens[0], lens[1] = T, 1  # the longest and the shortest question
+    _, hseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    ghT = torch.randn(B, H, generator=torch.Generator(device=dev)
+                      .manual_seed(seed + 1), device=dev)
+    return gx, hseq, lens, uh, bhn, ghT
+
+
+@pytest.mark.parametrize("B", [17, 256, 1024])
+@pytest.mark.parametrize("T", [1, 26])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_bwd_equals_k7_direction_bit_for_bit(dev, B, T, reverse):
+    """K3's persistent launch moves data differently from the per-step
+    launches that K7 still makes, with the same products in the same
+    order: its outputs equal K7's matching direction bit for bit (B=17 a
+    ragged b-tile, B=1024 more b-tiles than resident blocks)."""
+    H = 512
+    mine = _k3_k7_inputs(dev, T, B, H, reverse)
+    other = _k3_k7_inputs(dev, T, B, H, not reverse, seed=13)
+    other = (other[0], other[1], mine[2], *other[3:])  # one lens for both
+    fwd, bwd = (other, mine) if reverse else (mine, other)
+    got = gru.gru_bwd(*mine, reverse=reverse)
+    k7 = gru.bigru_bwd(fwd[0], bwd[0], fwd[1], bwd[1], mine[2], fwd[3],
+                       bwd[3], fwd[4], bwd[4], fwd[5], bwd[5])
+    torch.cuda.synchronize()
+    d = int(reverse)
+    for name, a, b in zip(("dgx", "duh", "dbhn"), got,
+                          (k7[d], k7[2 + d], k7[4 + d])):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), (name, (a - b).abs().max().item())
+
+
+@pytest.mark.parametrize("B", [256, 1024])
+def test_gru_bwd_is_deterministic(dev, B):
+    """Two calls on the same inputs give the same bits: the grid barrier
+    orders every exchange between blocks, and no result takes atomics."""
+    ins = _k3_k7_inputs(dev, 26, B, 512, False, seed=17)
+    first = gru.gru_bwd(*ins)
+    second = gru.gru_bwd(*ins)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_gru_bwd_launch_shape_and_limit(dev):
+    """At the training shape the step kernel runs 32 j-tiles x 4 b-tile
+    rows of blocks, one a SM; a width whose U_h slices do not fit in shared
+    memory raises instead of falling back."""
+    cfg = gru.gru_bwd_launch_config(256, 512, dev)
+    assert cfg["grid"] == [32, 4]
+    assert cfg["blocks_per_sm"] >= 1
+    assert cfg["smem_bytes"] <= 232448
+    assert gru.gru_bwd_launch_config(1024, 512, dev)["grid"][0] == 32
+    gx, hseq, lens, uh, bhn, ghT = _k3_k7_inputs(dev, 2, 4, 640, False)
+    with pytest.raises(RuntimeError, match="gru_bwd"):
+        gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT)
 
 
 def _resident_inputs(dev, M, n_valid, C, H, B, seed=5):
@@ -545,7 +607,7 @@ def test_fused_bigru_encoder_goes_through_k6_k7(dev):
         return torch.cat([enc.fwd(x, mask), enc.bwd(x, mask)], dim=-1)
 
     res = []
-    for fn, want in ((enc, [6, 8, 0, 0]), (two_encoders, [0, 0, 12, 16])):
+    for fn, want in ((enc, [6, 8, 0, 0]), (two_encoders, [0, 0, 12, 6])):
         enc.zero_grad()
         counts = [getattr(gru, n).launches for n in
                   ("bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")]

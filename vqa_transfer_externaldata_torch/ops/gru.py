@@ -272,8 +272,10 @@ gru_fwd.launches = 0
 def _bwd_lib() -> ctypes.CDLL:
     lib = kernels.load("gru_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gru_bwd.argtypes = [p] * 11 + [i, i, i, i, p, p]
+    lib.gru_bwd.argtypes = [p] * 12 + [i, i, i, i, p, p]
     lib.gru_bwd.restype = i
+    lib.gru_bwd_config.argtypes = [i, i, p, p, p, p]
+    lib.gru_bwd_config.restype = i
     return lib
 
 
@@ -284,10 +286,12 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     """Launch kernel K3 (``csrc/gru_bwd.cu``) on CUDA tensors: gx_t
     [T, B, 3H] f32, hseq [T, B, H] f32 (K1's residual), lens [B] int32,
     uh [H, 3H] bf16, bhn [H] f32, ghT [B, H] f32 -> (dgx_t [T, B, 3H],
-    duh [H, 3H], dbhn [H]), all f32. Needs H % 64 == 0. One call launches
-    one step kernel per timestep, the dU_h GEMM and the db_hn sum on the
-    current stream and adds the number launched (T + 2) to
-    ``gru_bwd.launches``."""
+    duh [H, 3H], dbhn [H]), all f32. Needs H % 64 == 0 and U_h's slices to
+    fit in shared memory (H <= 576). One call launches the persistent step
+    kernel (one cooperative launch for all T steps), the dU_h GEMM and the
+    db_hn sum on the current stream and adds the number launched (3) to
+    ``gru_bwd.launches``; it raises when the step kernel's grid cannot be
+    resident on the card at once."""
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_bwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -309,14 +313,15 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     dgx = torch.empty(T, B, 3 * H, **f32)
     duh = torch.empty(H, 3 * H, **f32)
     dbhn = torch.empty(H, **f32)
+    hbf = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
     lib = _bwd_lib()
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.gru_bwd(gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
                          uh.data_ptr(), bhn.data_ptr(), dhe.data_ptr(),
                          dgx.data_ptr(), g.data_ptr(), part.data_ptr(),
-                         duh.data_ptr(), dbhn.data_ptr(), T, B, H,
-                         int(reverse),
+                         duh.data_ptr(), dbhn.data_ptr(), hbf.data_ptr(),
+                         T, B, H, int(reverse),
                          torch.cuda.current_stream(dev).cuda_stream,
                          ctypes.addressof(launched))
     gru_bwd.launches += launched.value
@@ -325,6 +330,24 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
 
 
 gru_bwd.launches = 0
+
+
+def gru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
+    """The shape of K3's persistent step launch at batch ``B`` and width
+    ``H`` on CUDA ``device``: its grid (16-unit j-tiles x rows of 64-row
+    b-tile blocks), the blocks resident per SM and its dynamic shared
+    memory in bytes. Raises where :func:`gru_bwd` would."""
+    lib = _bwd_lib()
+    gx, gy, per_sm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    smem = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = lib.gru_bwd_config(B, H, ctypes.addressof(gx),
+                                ctypes.addressof(gy),
+                                ctypes.addressof(per_sm),
+                                ctypes.addressof(smem))
+    kernels.check(lib, rc, "gru_bwd")
+    return {"grid": [gx.value, gy.value], "blocks_per_sm": per_sm.value,
+            "smem_bytes": smem.value}
 
 
 def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
