@@ -7,7 +7,7 @@ Run from the repository root. Phases (any failure exits non-zero):
 
 1. the card's name and power limit; build every CUDA kernel of the port
    from ``vqa_transfer_externaldata_torch/csrc`` with nvcc (one process per
-   source, all started together), timed;
+   source, all started together), timed, with each nvcc's own time;
 2. K1 ``gru_fwd`` against its plain PyTorch version on the card
    (B=64, T=26, H=512, random lengths, forward and reverse);
 3. K2 ``attention_fwd`` against its plain version on the card
@@ -19,8 +19,9 @@ Run from the repository root. Phases (any failure exits non-zero):
 5. K4 ``attention_resident_fwd`` and K5 ``attention_resident_bwd`` against
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
-   normalize on and off, K5 fed the same saved h; then both at G=2 and
-   G=8 glimpses on the same store;
+   normalize on and off, K5 fed the same saved h; the shape of K4's score
+   launch (tile, ring stages, shared memory, grid) and its nvcc time; then
+   both at G=2 and G=8 glimpses on the same store;
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
    K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs);
@@ -97,11 +98,12 @@ Run from the repository root. Phases (any failure exits non-zero):
    where there is one (median of CUDA-event timings after warm-up, L2
    flushed between runs), and the bound from this run's shapes; K1 at
    the training batch and at the serving batch; K4 and K5 at G=1 and
-   G=2 on bf16 rows and at G=1 on int8 rows; the gathered op's whole
-   backward with K8 and with the explicit math; K3's persistent design
-   against the per-step design in one call (two K3 calls against K7,
-   which walks both directions with one step launch a timestep, on
-   phase 6's inputs).
+   G=2 on bf16 rows and at G=1 on int8 rows, and K4's score launch alone
+   at G=1 (its device time from the profiler) with its TFLOP/s; the
+   gathered op's whole backward with K8 and with the explicit math; K3's
+   persistent design against the per-step design in one call (two K3
+   calls against K7, which walks both directions with one step launch a
+   timestep, on phase 6's inputs).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -349,12 +351,16 @@ def phase_build(report: dict) -> None:
     from vqa_transfer_externaldata_torch.ops import kernels
 
     t0 = time.perf_counter()
-    ptxas = kernels.build(KERNELS)
+    built = kernels.build(KERNELS)
     report["build_s"] = time.perf_counter() - t0
-    for name, text in ptxas.items():
+    for name, (text, _) in built.items():
         print(f"--- nvcc {name}.cu ---\n{text.strip()}", file=sys.stderr)
-    report["ptxas"] = ptxas
-    print(f"built kernels in {report['build_s']:.1f} s")
+    report["ptxas"] = {name: text for name, (text, _) in built.items()}
+    report["nvcc_s"] = {name: s for name, (_, s) in built.items()}
+    print(f"built kernels in {report['build_s']:.1f} s (nvcc per source, "
+          "all started together: " + ", ".join(
+              f"{name} {s:.1f} s" for name, s in report["nvcc_s"].items())
+          + ")")
 
 
 def phase_gru(report: dict, dev, gen) -> dict:
@@ -556,6 +562,23 @@ def phase_resident(report: dict, dev, gen) -> dict:
             checks5.append({"normalize": normalize, "output": name,
                             "max_abs_err": e, "rel_err": rel,
                             "rel_tol": TOL_K5_REL})
+    # The score launch's shape at this batch (bf16 rows; int8 codes add a
+    # slot of raw codes to each ring stage).
+    cells = Bt * Np
+    launch = ar.score_launch_config(cells, H, False)
+    smem8 = ar.score_launch_config(cells, H, True)["smem_bytes"]
+    launch["smem_bytes_int8"] = smem8
+    launch["nvcc_s"] = report.get("nvcc_s", {}).get("attention_resident_fwd")
+    nvcc = launch["nvcc_s"]
+    print(f"K4 score launch at B={Bt}, Np={Np}, C={C}, H={H}: tiles of "
+          f"{launch['tile'][0]} cells x {launch['tile'][1]} columns (BN "
+          f"{launch['tile'][1]}), 256 threads, a ring of {launch['stages']} "
+          f"stages of 64 channels, {launch['smem_bytes']} B of dynamic shared "
+          f"memory ({smem8} B on int8 rows), grid {launch['grid'][0]} x "
+          f"{launch['grid'][1]} (column tiles fastest); nvcc "
+          f"attention_resident_fwd.cu "
+          + ("already built" if nvcc is None else f"{nvcc:.1f} s"))
+    report["score_launch"] = launch
     return {"store": store, "rows": rows, "qh": qh, "wv": wv, "ws": ws,
             "h": rh, "alpha": ra, "g": g, "sga": sga, "n_valid": n_valid,
             "checks4": checks4, "checks5": checks5,
@@ -2013,6 +2036,29 @@ def summarize(kernels: dict, host: dict, n: int, wall_us: float,
     return out
 
 
+def kernel_device_ms(fn, prefix: str, buf, runs: int = RUNS) -> float:
+    """Device ms a call of ``fn`` spends in the kernels whose name starts
+    with ``prefix`` (torch.profiler), L2 flushed before each of ``runs``
+    calls, after warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush_l2(buf)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0
+             for e in prof.key_averages()
+             if on_device(e) and kernel_name(e.key).startswith(prefix))
+    check(us > 0, f"the profile shows no {prefix} launch")
+    return us / runs / 1e3
+
+
 def profile_fit(trainer, ds, state, steps: int) -> tuple:
     """Profile ``Trainer.fit_resident`` over ``steps`` more steps. Its
     upload of the store comes first and is left out: the window opens at
@@ -2156,6 +2202,11 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
             st, rows, qh4, wv4, ws4, save_h=True, **kw), buf),
         "library": None,
     }
+    # The score launch alone, from the profiler over the same calls.
+    times["attention_resident_fwd"]["score"] = kernel_device_ms(
+        lambda: ar.attention_resident_fwd(st, rows, qh4, wv4, ws4,
+                                          save_h=True, **kw),
+        "attn_res_score_kernel", buf)
     times["attention_resident_bwd"] = {
         "kernel": time_cuda(lambda: ar.attention_resident_bwd(
             st, rows, h5, ws4, al5, g5, sga5, **kw), buf),
@@ -2224,6 +2275,9 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 cq, rows, qh4, wvq, wsq, save_h=True, **kw), buf),
             "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
                 cq, rows, qh4, wvq, wsq, save_h=True, **kw), buf),
+            "score": kernel_device_ms(lambda: ar.attention_resident_fwd(
+                cq, rows, qh4, wvq, wsq, save_h=True, **kw),
+                "attn_res_score_kernel", buf),
             "library": None},
         "attention_resident_bwd": {
             "kernel": time_cuda(lambda: ar.attention_resident_bwd(
@@ -2253,6 +2307,13 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     for name, t in g2_times.items():
         times[name]["at_g2"] = t
         times[f"{name}[int8]"] = q_times[name]
+    # The score GEMM's rate: 2 B n C H operations over the valid cells.
+    score_flops = 2 * Bt * nv * C * H
+    for name in ("attention_resident_fwd", "attention_resident_fwd[int8]"):
+        times[name]["score_tflops"] = (
+            score_flops / (times[name]["score"] * 1e-3) / 1e12)
+        print(f"{name} score launch at G=1: {times[name]['score']:.4f} ms, "
+              f"{times[name]['score_tflops']:.1f} TFLOP/s")
 
     # K6/K7 at the stage-1 shape. Library yardstick: cuDNN's bidirectional
     # GRU over the same packed lengths, forward, and the backward with the
@@ -2439,7 +2500,8 @@ def main(argv=None) -> int:
     # probes' entries for P1 and P2), and every path's count under
     # launches_by_path. K1's times are at the training batch, and at the
     # serving batch under at_serving_batch. K4's and K5's times and bounds
-    # are at G=2, and at G=1 under at_g1; on int8 rows at G=1. P1's time is
+    # are at G=2, and at G=1 under at_g1; on int8 rows at G=1; K4's score
+    # launch alone at G=1 under score_ms_g1 and score_tflops_g1. P1's time is
     # at Q=1, with every Q under by_q; its library call is cuBLAS on the
     # gathered rows, the gather timed apart. K3's old_design_pair_ms is K7
     # on phase 6's inputs (one step launch a timestep for both directions),
@@ -2467,7 +2529,11 @@ def main(argv=None) -> int:
             "new_design_pair_ms": times["gru_bwd"]["new_design_pair"]}),
         "attention_resident_fwd": (
             ref + "attention_resident.py:150", max(k45["err4"], k45g["err4"]),
-            {"glimpses": "1-8", "checks": k45["checks4"] + k45g["checks4"]}),
+            {"glimpses": "1-8", "checks": k45["checks4"] + k45g["checks4"],
+             "score_ms_g1": times["attention_resident_fwd"]["score"],
+             "score_tflops_g1":
+             times["attention_resident_fwd"]["score_tflops"],
+             "score_launch": report["score_launch"]}),
         "attention_resident_bwd": (
             ref + "attention_resident.py:208", max(k45["err5"], k45g["err5"]),
             {"glimpses": "1-8", "checks": k45["checks5"] + k45g["checks5"]}),
@@ -2486,6 +2552,9 @@ def main(argv=None) -> int:
         "attention_resident_fwd[int8]": (
             ref + "attention_resident.py:174", k45q["err4"], {
                 "glimpses": "1-8", "checks": k45q["checks4"],
+                "score_ms_g1": times["attention_resident_fwd[int8]"]["score"],
+                "score_tflops_g1":
+                times["attention_resident_fwd[int8]"]["score_tflops"],
                 "vatt_quant_rel_err_vs_bf16_store":
                 k45q["vatt_quant_rel_err"]}),
         "attention_resident_bwd[int8]": (

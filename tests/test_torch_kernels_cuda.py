@@ -1,6 +1,7 @@
 """Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
 (attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
-glimpses on bf16 rows and on int8 codes, K6 (bigru_fwd), K7
+glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
+tiles, and two calls bit-equal), K6 (bigru_fwd), K7
 (bigru_bwd) and K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
 P2 (probe_bwd_ceiling) on the card against their plain PyTorch
 versions. They need an NVIDIA GPU with nvcc (the kernels have no CPU mode)
@@ -411,6 +412,87 @@ def test_attention_resident_int8_matches_plain(dev, glimpses, shape):
     with pytest.raises(ValueError, match="normalize"):
         ar.attention_resident_fwd(codes, rows, qh, wv, ws, n_valid=n_valid,
                                   normalize=True)
+
+
+# K4's score GEMM at the edges of its tiles: cells that are not a multiple
+# of the 128-row tile (B=6 of Np=16: 96 cells; B=5 of Np=200: 1000),
+# C % 64 == 32 (the last 64-channel chunk half zero-filled), the 128-column
+# tile (H = 128, 384) and the 256-column one (H = 512), G = 1, 2 and 8, bf16
+# rows with normalize on and off and int8 codes (normalize off: the store is
+# prenormalized). The limits are the other K4 cases'.
+K4_EDGE_SHAPES = [(5, 13, 96, 128, 6), (5, 13, 96, 384, 6),
+                  (5, 13, 96, 512, 6), (9, 196, 224, 384, 5)]
+
+
+@pytest.mark.parametrize("row_type,normalize", [("bf16", True),
+                                                ("bf16", False),
+                                                ("int8", False)])
+@pytest.mark.parametrize("glimpses", [1, 2, 8])
+@pytest.mark.parametrize("shape", K4_EDGE_SHAPES)
+def test_attention_resident_fwd_tile_edges_match_plain(dev, shape, glimpses,
+                                                       row_type, normalize):
+    M, n_valid, C, H, B = shape
+    G = glimpses
+    store, rows, qh, wv, _ = _resident_inputs(dev, M, n_valid, C, H, B)
+    count = "launches"
+    if row_type == "int8":
+        store, scale = _int8_codes(store)
+        wv = (wv.float() * scale).to(torch.bfloat16)
+        count = "launches_int8"
+    g = torch.Generator(device=dev).manual_seed(12)
+    ws = (torch.randn(H, G, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    if G == 1:
+        ws = ws[:, 0].contiguous()
+    kw = dict(n_valid=n_valid, normalize=normalize)
+    before = getattr(ar.attention_resident_fwd, count)
+    va, al, h = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                          save_h=True, **kw)
+    rv, ra, rh = ar.attention_resident_fwd_reference(store, rows, qh, wv, ws,
+                                                     save_h=True, **kw)
+    torch.cuda.synchronize()
+    assert getattr(ar.attention_resident_fwd, count) == before + 2
+    assert va.shape == (B, G * C) and h.shape == rh.shape
+    for k in range(G):  # each glimpse against its own largest value
+        a, b = va[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]
+        assert (a - b).abs().max().item() <= 2.0 ** -10 * b.abs().max().item()
+    assert (al - ra).abs().max().item() <= 1e-5
+    assert al[:, n_valid:].abs().max().item() == 0.0
+    assert _rel_err(h.float(), rh.float()) <= TOL_K4_H
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_attention_resident_fwd_is_deterministic(dev, int8):
+    """Two K4 calls on the same inputs at the training shape give the same
+    bits: no atomics, no split-K, partial scores summed in a fixed order."""
+    store, rows, qh, wv, _ = _resident_inputs(dev, 64, 196, 2048, 512, 256)
+    if int8:
+        store, scale = _int8_codes(store)
+        wv = (wv.float() * scale).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(13)
+    ws = (torch.randn(512, 2, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    kw = dict(n_valid=196, normalize=not int8, save_h=True)
+    first = ar.attention_resident_fwd(store, rows, qh, wv, ws, **kw)
+    second = ar.attention_resident_fwd(store, rows, qh, wv, ws, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_resident_score_launch_shape(dev):
+    """K4's score launch: 128 x 256 tiles at H=512 (the column tiles of a
+    cell tile side by side in the grid), 128 x 128 where 256 does not
+    divide H, and dynamic shared memory above the default 48 KB that a
+    block of the card may still take."""
+    main = ar.score_launch_config(256 * 200, 512, False)
+    assert main["tile"] == [128, 256] and main["grid"] == [2, 400]
+    assert ar.score_launch_config(96, 384, True)["tile"] == [128, 128]
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for H in (384, 512):
+        for int8 in (False, True):
+            smem = ar.score_launch_config(96, H, int8)["smem_bytes"]
+            assert 48 * 1024 < smem <= limit, (H, int8, smem)
 
 
 def test_int8_op_grads_go_through_k4_k5(dev):

@@ -108,3 +108,25 @@ def test_probe_shapes_are_the_tpu_probes():
                                                         256, 96)
     assert p1.FLOPS == 2 * 252 * 200 * 2048 * 512  # 105.7 GFLOP
     assert p2.FLOPS == 2 * 256 * 200 * 2048 * 513  # 107.6 GFLOP
+
+
+@pytest.mark.parametrize("q,tiles", [(1, 2), (2, 4), (3, 5), (4, 7)])
+def test_probe_mxu_rows_tile_accounting(q, tiles):
+    """P1's groups of q questions of 200 rows in 128-row tiles, the last
+    tile of a group padded with zero rows: the tiles a group takes and the
+    share of the rows computed that are useful (what ``run()`` reports)."""
+    assert p1.TILE_ROWS == 128
+    got_tiles, useful = p1.tile_accounting(q)
+    assert got_tiles == tiles
+    assert useful == pytest.approx(q * 200 / (tiles * 128))
+    assert (tiles - 1) * 128 < q * 200 <= tiles * 128
+
+
+def test_score_mainloop_is_one_header_of_k4_and_p1():
+    """K4's score kernel and P1 include the one wgmma mainloop, so the build
+    hash of both libraries covers it (and the int8 widening it calls)."""
+    from vqa_transfer_externaldata_torch.ops import kernels
+
+    for name in ("attention_resident_fwd", "probe_mxu_rows"):
+        assert [p.name for p in kernels.sources(name)] == [
+            f"{name}.cu", "score_gemm.cuh", "store_rows.cuh"]

@@ -20,10 +20,11 @@
 //
 // The store rows are bf16, or the int8 codes of an L2-prenormalized store
 // (the Pallas kernel's int8 branch, which casts the codes in VMEM): the
-// loads widen them to bf16, exactly (store_rows.cuh), and the rest runs as
-// on bf16 rows. The store's scale is applied outside the kernel (folded
-// into W_v, and to v_att afterwards), and an int8 store is never
-// normalized here: it was normalized before it was quantized.
+// score GEMM copies the codes raw and widens them to bf16 in shared memory,
+// the weighted sum as it loads them, both exactly (store_rows.cuh), and the
+// rest runs as on bf16 rows. The store's scale is applied outside the
+// kernel (folded into W_v, and to v_att afterwards), and an int8 store is
+// never normalized here: it was normalized before it was quantized.
 //
 // What bounds it on an H100: at B=256, n_valid=196, C=2048, H=512 the score
 // GEMM is 105 GFLOP of bf16 (106 us at 989 TFLOP/s; each glimpse adds a
@@ -31,49 +32,44 @@
 // codes) and 51 MB of saved h (77 us at 3.35 TB/s): the tensor cores.
 //
 // Design: the TPU kernel runs one program per question with the row index
-// prefetched into scalar memory. Here the structure of K2
-// (csrc/attention_fwd.cu) carries over, with the row lookup moved into the
-// loads:
+// prefetched into scalar memory. Here two launches cover the batch:
 //
 //  1. attn_res_score_kernel: the [B*Np, C] x [C, H] score GEMM over all
-//     cells of all questions at once. Each thread computes the base pointer
-//     of the cell it stages (store + (rows[b] * Np + n) * C) in place of
-//     the scalar prefetch. Blocks own 64-cell x 128-column tiles on bf16
-//     WMMA; the next k-step's tiles are loaded into registers while the
-//     tensor cores work on the current one. The epilogue forms h, writes it
-//     in bf16 on the grad path, and reduces it against the G columns of ws
-//     into G partial scores per cell and column tile. The GEMM runs once
-//     whatever G is, as on the TPU.
+//     cells of all questions at once, on the wgmma mainloop of
+//     score_gemm.cuh (shared with the probe P1): 128-cell x BN-column tiles
+//     (BN 256 where it divides H, else 128), a cp.async ring of 64-channel
+//     chunks, the row lookup in the copies (cell i reads
+//     store + (rows[i / Np] * Np + i % Np) * C in place of the scalar
+//     prefetch), int8 codes widened in shared memory. The grid runs the
+//     column tiles of one cell tile side by side (blockIdx.x), so they
+//     share its rows through L2. The epilogue works from the accumulator
+//     registers: h, saved in bf16 on the grad path through shared memory
+//     (16-byte stores), and G partial scores per cell and column tile
+//     against the G columns of ws. The GEMM runs once whatever G is, as on
+//     the TPU, and G is a runtime count of the epilogue: the kernel is
+//     instantiated over the row type and BN only.
 //  2. attn_res_wsum_kernel: one block per (question, 512-channel chunk) sums
 //     the partial scores in a fixed order (deterministic), takes the G
 //     masked softmaxes in shared memory, then forms all G weighted sums in
 //     ONE pass over the store row (coalesced bf16x2 loads, G accumulator
-//     pairs per thread): the row is read once, not G times.
+//     pairs per thread): the row is read once, not G times. G is a template
+//     parameter here, 1..8 (the TPU kernel's limit, its ws sublane window).
 //
-// G is a template parameter instantiated for 1..8 (the TPU kernel's limit,
-// its ws sublane window), so the G=1 code is the single-glimpse kernel; the
-// row type T (bf16 or int8) is the second, picked by a flag in the C entry.
+// No atomics and no split-K: two calls on the same inputs give the same
+// bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "score_gemm.cuh"
 #include "store_rows.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kBM = 64;    // cells per score tile
-constexpr int kBN = 128;   // hidden columns per score tile
-constexpr int kBK = 32;    // channels per k-step
-constexpr int kALd = kBK + 8;
-constexpr int kBLd = kBN + 8;
-constexpr int kCLd = kBN + 4;
-constexpr int kScoreThreads = 256;  // 8 warps: 4 row x 2 column groups
+using score_gemm::kBM;
 constexpr int kWsumThreads = 256;
 constexpr int kWsumChannels = 2 * kWsumThreads;
 constexpr float kNegInf = -1e30f;
@@ -82,147 +78,130 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-template <int G, class T>
-__global__ void __launch_bounds__(kScoreThreads)
+// Tile row r is cell row0 + r: cell n of question b's store row rows[b].
+template <class T>
+struct CellRows {
+  const T* store;
+  const int* rows;
+  int Np, C, cells, row0;
+  __device__ const T* operator()(int r) const {
+    const int cell = row0 + r;
+    if (cell >= cells) return nullptr;
+    const int b = cell / Np;
+    return store + (static_cast<size_t>(rows[b]) * Np + (cell - b * Np)) * C;
+  }
+};
+
+template <class T, int BN>
+__global__ void __launch_bounds__(score_gemm::kThreads, 1)
 attn_res_score_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
                       const int* __restrict__ rows,             // [B]
-                      const __nv_bfloat16* __restrict__ wv,     // [C, H]
+                      const __nv_bfloat16* __restrict__ wvt,    // [H, C]
                       const float* __restrict__ qh,             // [B, H]
                       const float* __restrict__ ws,             // [G, H]
-                      float* __restrict__ part,       // [H/kBN, G, B*Np]
+                      float* __restrict__ part,       // [H/BN, G, B*Np]
                       float* __restrict__ rnorm,         // [B*Np]
                       __nv_bfloat16* __restrict__ hsave,  // [B*Np, H] / null
-                      int cells, int Np, int C, int H, int normalize) {
-  __shared__ __align__(128) __nv_bfloat16 As[kBM * kALd];
-  __shared__ __align__(128) __nv_bfloat16 Bs[kBK * kBLd];
-  __shared__ __align__(128) float Cs[kBM * kCLd];
-  __shared__ float rs[kBM];
+                      int cells, int Np, int C, int H, int G,
+                      int normalize) {
+  using P = score_gemm::Plan<T, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = score_gemm::align1024(smem_raw);
+  float* rs = reinterpret_cast<float*>(ring + P::kRingBytes);
+  const int t = threadIdx.x;
+  const int col0 = blockIdx.x * BN;
+  const int row0 = blockIdx.y * kBM;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;  // rows wr*16 .. +16 of the tile
-  const int wc = warp & 1;   // columns wc*64 .. +64 of the tile
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
+  float acc[BN / 2];
+  float sq[4];
+  score_gemm::mainloop<T, BN>(CellRows<T>{store, rows, Np, C, cells, row0},
+                              wvt, C, col0, ring, acc, sq, normalize != 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+  // r per cell: the 8 threads that copied a row's channel chunks hold its
+  // squares (bf16 rows; an int8 store is never normalized here).
+  if (!P::kInt8 && normalize) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  // A tile: 64 cells x 32 channels, eight channels a thread (one 16-byte
-  // load of bf16, or one 8-byte load of codes widened to bf16), each from
-  // the store row of its cell's question.
-  const int a_r = tid >> 2;
-  const int a_c = (tid & 3) * 8;
-  const int a_cell = row0 + a_r;
-  const bool a_ok = a_cell < cells;
-  const T* a_src = store;
-  if (a_ok) {
-    const int b = a_cell / Np;
-    const int n = a_cell - b * Np;
-    a_src = store + (static_cast<size_t>(rows[b]) * Np + n) * C + a_c;
-  }
-  // B tile: 32 rows x 128 columns = 512 x 16-byte loads, two per thread.
-  const int b_r = tid >> 4;
-  const int b_c = (tid & 15) * 8;
-  const __nv_bfloat16* b_src =
-      wv + static_cast<size_t>(b_r) * H + col0 + b_c;
-  const size_t b_half = static_cast<size_t>(16) * H;
-
-  store_rows::raw8_t<T> a_raw{};
-  if (a_ok) a_raw = store_rows::load_raw8(a_src);
-  uint4 b4a = *reinterpret_cast<const uint4*>(b_src);
-  uint4 b4b = *reinterpret_cast<const uint4*>(b_src + b_half);
-  float sq = 0.0f;
-
-  for (int k0 = 0; k0 < C; k0 += kBK) {
-    const uint4 a4 = store_rows::widen8(a_raw);
-    *reinterpret_cast<uint4*>(&As[a_r * kALd + a_c]) = a4;
-    *reinterpret_cast<uint4*>(&Bs[b_r * kBLd + b_c]) = b4a;
-    *reinterpret_cast<uint4*>(&Bs[(b_r + 16) * kBLd + b_c]) = b4b;
-    if constexpr (!store_rows::kInt8<T>) {  // int8 stores: prenormalized
-      if (normalize) {
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&a4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float x = __bfloat162float(e[i]);
-          sq += round_bf16(x * x);
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], 1);
+      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], 2);
+      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], 4);
+      if ((t & 7) == 0) rs[score_gemm::sq_row(t, j)] = rsqrtf(sq[j] + 1e-12f);
     }
-    __syncthreads();
-    if (k0 + kBK < C) {  // next k-step's tiles in flight during the MMAs
-      const size_t kn = k0 + kBK;
-      if (a_ok) a_raw = store_rows::load_raw8(a_src + kn);
-      b4a = *reinterpret_cast<const uint4*>(b_src + kn * H);
-      b4b = *reinterpret_cast<const uint4*>(b_src + kn * H + b_half);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> af;
-      wmma::load_matrix_sync(af, &As[(wr * 16) * kALd + kk], kALd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, &Bs[kk * kBLd + wc * 64 + j * 16], kBLd);
-        wmma::mma_sync(acc[j], af, bf, acc[j]);
-      }
-    }
-    __syncthreads();
+  } else if (t < kBM) {
+    rs[t] = 1.0f;
   }
+  __syncthreads();  // rs is written, and the ring is free
+  if (blockIdx.x == 0 && t < kBM && row0 + t < cells) rnorm[row0 + t] = rs[t];
 
+  // h = relu(z * r + qh) in place of z, for this thread's two rows.
+  const int fr = score_gemm::frag_row(t);
+  const int fc = score_gemm::frag_col(t);
+  int cell[2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::store_matrix_sync(&Cs[(wr * 16) * kCLd + wc * 64 + j * 16], acc[j],
-                            kCLd, wmma::mem_row_major);
-  }
-  // The four threads that loaded a cell's channels hold its sum of squares.
-  sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-  sq += __shfl_xor_sync(0xffffffffu, sq, 2);
-  if ((tid & 3) == 0) {
-    const float r = normalize ? rsqrtf(sq + 1e-12f) : 1.0f;
-    rs[a_r] = r;
-    if (blockIdx.y == 0 && a_ok) rnorm[a_cell] = r;
-  }
-  __syncthreads();
-
-  // Epilogue: four threads per cell, 32 columns each, G scores.
-  const int er = tid >> 2;
-  const int eq = tid & 3;
-  const int cell = row0 + er;
-  float s[G];
+  for (int hf = 0; hf < 2; ++hf) {
+    cell[hf] = row0 + fr + 8 * hf;
+    const float r = rs[fr + 8 * hf];
+    const int b = cell[hf] < cells ? cell[hf] / Np : 0;
+    const float* q = qh + static_cast<size_t>(b) * H + col0 + fc;
 #pragma unroll
-  for (int g = 0; g < G; ++g) s[g] = 0.0f;
-  if (cell < cells) {
-    const float r = rs[er];
-    const int c0 = col0 + eq * 32;
-    const float* q = qh + static_cast<size_t>(cell / Np) * H + c0;
-    const float* w = ws + c0;
-    const float* z = Cs + er * kCLd + eq * 32;
-    __align__(16) __nv_bfloat16 hb[32];
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 qv = *reinterpret_cast<const float2*>(q + 8 * j);
+      float* z = acc + 4 * j + 2 * hf;
       // (z * r) + qh rounded as two operations, as the reference does.
-      const float h = fmaxf(__fadd_rn(__fmul_rn(z[c], r), q[c]), 0.0f);
-      hb[c] = __float2bfloat16(h);
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = fmaf(h, w[g * H + c], s[g]);
-    }
-    if (hsave != nullptr) {
-      uint4* dst = reinterpret_cast<uint4*>(
-          hsave + static_cast<size_t>(cell) * H + c0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dst[i] = reinterpret_cast<uint4*>(hb)[i];
+      z[0] = fmaxf(__fadd_rn(__fmul_rn(z[0], r), qv.x), 0.0f);
+      z[1] = fmaxf(__fadd_rn(__fmul_rn(z[1], r), qv.y), 0.0f);
     }
   }
-#pragma unroll
+
+  // G partial scores per cell over the tile's columns: this thread's
+  // columns in order, then the quad that shares its rows.
+#pragma unroll 1
   for (int g = 0; g < G; ++g) {
-    s[g] += __shfl_xor_sync(0xffffffffu, s[g], 1);
-    s[g] += __shfl_xor_sync(0xffffffffu, s[g], 2);
-    if (eq == 0 && cell < cells) {
-      part[(static_cast<size_t>(blockIdx.y) * G + g) * cells + cell] = s[g];
+    const float* w = ws + static_cast<size_t>(g) * H + col0 + fc;
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 wv2 = *reinterpret_cast<const float2*>(w + 8 * j);
+      s0 = fmaf(acc[4 * j], wv2.x, s0);
+      s0 = fmaf(acc[4 * j + 1], wv2.y, s0);
+      s1 = fmaf(acc[4 * j + 2], wv2.x, s1);
+      s1 = fmaf(acc[4 * j + 3], wv2.y, s1);
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if ((t & 3) == 0) {
+      float* out = part + (static_cast<size_t>(blockIdx.x) * G + g) * cells;
+      if (cell[0] < cells) out[cell[0]] = s0;
+      if (cell[1] < cells) out[cell[1]] = s1;
+    }
+  }
+
+  // Saved h in bf16, staged through the ring's shared memory so that each
+  // row goes out in 16-byte stores.
+  if (hsave != nullptr) {
+    constexpr int kLd = BN + 8;  // bf16 a staged row (16 B of padding)
+    __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(ring);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      __nv_bfloat16* dst = stg + (fr + 8 * hf) * kLd + fc;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+      }
+    }
+    __syncthreads();
+    constexpr int kChunks = BN / 8;  // 16-byte chunks a row
+    for (int i = t; i < kBM * kChunks; i += score_gemm::kThreads) {
+      const int r = i / kChunks;
+      const int c = i - r * kChunks;
+      if (row0 + r < cells) {
+        *reinterpret_cast<uint4*>(hsave + static_cast<size_t>(row0 + r) * H +
+                                  col0 + c * 8) =
+            *reinterpret_cast<const uint4*>(stg + r * kLd + c * 8);
+      }
     }
   }
 }
@@ -316,21 +295,55 @@ attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
   }
 }
 
+// The score launch for rows of type T at BN columns a tile, its dynamic
+// shared memory raised past the default 48 KB first.
+template <class T, int BN>
+cudaError_t launch_score(const void* store, const void* rows, const void* wvt,
+                         const void* qh, const void* ws, void* part,
+                         void* rnorm, void* hsave, int cells, int Np, int C,
+                         int H, int G, int normalize, cudaStream_t st) {
+  constexpr int smem = score_gemm::Plan<T, BN>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_res_score_kernel<T, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return e;
+  }
+  const dim3 grid(H / BN, (cells + kBM - 1) / kBM);
+  attn_res_score_kernel<T, BN><<<grid, score_gemm::kThreads, smem, st>>>(
+      static_cast<const T*>(store), static_cast<const int*>(rows),
+      static_cast<const __nv_bfloat16*>(wvt), static_cast<const float*>(qh),
+      static_cast<const float*>(ws), static_cast<float*>(part),
+      static_cast<float*>(rnorm), static_cast<__nv_bfloat16*>(hsave), cells,
+      Np, C, H, G, normalize);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_score_bn(int BN, const void* store, const void* rows,
+                            const void* wvt, const void* qh, const void* ws,
+                            void* part, void* rnorm, void* hsave, int cells,
+                            int Np, int C, int H, int G, int normalize,
+                            cudaStream_t st) {
+  return BN == 256
+             ? launch_score<T, 256>(store, rows, wvt, qh, ws, part, rnorm,
+                                    hsave, cells, Np, C, H, G, normalize, st)
+             : launch_score<T, 128>(store, rows, wvt, qh, ws, part, rnorm,
+                                    hsave, cells, Np, C, H, G, normalize, st);
+}
+
 template <int G, class T>
-int launch_fwd(const void* store, const void* rows, const void* wv,
+int launch_fwd(const void* store, const void* rows, const void* wvt,
                const void* qh, const void* ws, void* part, void* rnorm,
                void* hsave, void* vatt, void* alpha, int B, int Np,
                int n_valid, int C, int H, int normalize, cudaStream_t st,
                int* launched) {
   const int cells = B * Np;
-  const dim3 g1((cells + kBM - 1) / kBM, H / kBN);
-  attn_res_score_kernel<G, T><<<g1, kScoreThreads, 0, st>>>(
-      static_cast<const T*>(store),
-      static_cast<const int*>(rows), static_cast<const __nv_bfloat16*>(wv),
-      static_cast<const float*>(qh), static_cast<const float*>(ws),
-      static_cast<float*>(part), static_cast<float*>(rnorm),
-      static_cast<__nv_bfloat16*>(hsave), cells, Np, C, H, normalize);
-  cudaError_t e = cudaGetLastError();
+  const int BN = score_gemm::tile_n(H);
+  cudaError_t e = launch_score_bn<T>(BN, store, rows, wvt, qh, ws, part,
+                                     rnorm, hsave, cells, Np, C, H, G,
+                                     normalize, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
@@ -339,7 +352,7 @@ int launch_fwd(const void* store, const void* rows, const void* wv,
       static_cast<const T*>(store),
       static_cast<const int*>(rows), static_cast<const float*>(part),
       static_cast<const float*>(rnorm), static_cast<float*>(vatt),
-      static_cast<float*>(alpha), B, Np, n_valid, C, H / kBN);
+      static_cast<float*>(alpha), B, Np, n_valid, C, H / BN);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return static_cast<int>(e);
@@ -353,16 +366,40 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The score launch's shape for `cells` cells at width H: rows and columns
+// of a tile, ring stages, dynamic shared memory in bytes and grid.
+int attention_resident_score_config(int cells, int H, int int8, int* tile_m,
+                                    int* tile_n, int* stages, int* smem_bytes,
+                                    int* grid_x, int* grid_y) {
+  const int BN = score_gemm::tile_n(H);
+  *tile_m = kBM;
+  *tile_n = BN;
+  if (BN == 256) {
+    *stages = score_gemm::Plan<__nv_bfloat16, 256>::kStages;
+    *smem_bytes = int8 ? score_gemm::Plan<int8_t, 256>::kSmemBytes
+                       : score_gemm::Plan<__nv_bfloat16, 256>::kSmemBytes;
+  } else {
+    *stages = score_gemm::Plan<__nv_bfloat16, 128>::kStages;
+    *smem_bytes = int8 ? score_gemm::Plan<int8_t, 128>::kSmemBytes
+                       : score_gemm::Plan<__nv_bfloat16, 128>::kSmemBytes;
+  }
+  *grid_x = H / BN;
+  *grid_y = (cells + kBM - 1) / kBM;
+  return 0;
+}
+
 // store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must
-// be 0), rows [B] i32 (< M, checked by the caller),
-// wv [C, H] bf16, qh [B, H] f32, ws [G, H] f32 (1 <= G <= 8) -> vatt
+// be 0), rows [B] i32 (< M, checked by the caller), wvt [H, C] bf16 (W_v
+// transposed, K-major), qh [B, H] f32, ws [G, H] f32 (1 <= G <= 8) -> vatt
 // [B, G, C] f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and h
 // [B, Np, H] bf16 when hsave is not null. Scratch: part [H/128, G, B*Np]
-// f32, rnorm [B*Np] f32. Needs C % 32 == 0 and H % 128 == 0 (checked by the
-// caller). Two launches on `stream`, counting in *launched those that
-// launched; returns the first launch error.
+// f32 (the score kernel fills the first H/BN slices, BN = 256 when
+// H % 256 == 0, else 128), rnorm [B*Np] f32. Needs
+// C % 32 == 0 and H % 128 == 0 (checked by the caller). Two launches on
+// `stream`, counting in *launched those that launched; returns the first
+// launch error.
 int attention_resident_fwd(const void* store, const void* rows,
-                           const void* wv, const void* qh, const void* ws,
+                           const void* wvt, const void* qh, const void* ws,
                            void* part, void* rnorm, void* hsave, void* vatt,
                            void* alpha, int B, int Np, int n_valid, int C,
                            int H, int G, int normalize, int int8,
@@ -372,11 +409,11 @@ int attention_resident_fwd(const void* store, const void* rows,
   if (int8 && normalize) return static_cast<int>(cudaErrorInvalidValue);
 #define K4_CASE(g)                                                          \
   case g:                                                                   \
-    return int8 ? launch_fwd<g, int8_t>(store, rows, wv, qh, ws, part,      \
+    return int8 ? launch_fwd<g, int8_t>(store, rows, wvt, qh, ws, part,     \
                                         rnorm, hsave, vatt, alpha, B, Np,   \
                                         n_valid, C, H, 0, st, launched)     \
                 : launch_fwd<g, __nv_bfloat16>(                             \
-                      store, rows, wv, qh, ws, part, rnorm, hsave, vatt,    \
+                      store, rows, wvt, qh, ws, part, rnorm, hsave, vatt,   \
                       alpha, B, Np, n_valid, C, H, normalize, st, launched);
   switch (G) {
     K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4)

@@ -44,8 +44,8 @@ import torch
 from vqa_transfer_externaldata_torch.ops import kernels
 
 _NEG_INF = -1e30
-_FWD_TILE_H = 128  # hidden columns per score tile (csrc/attention_resident_fwd.cu)
-_FWD_TILE_C = 32  # channels per k-step
+_FWD_TILE_H = 128  # H's multiple: the score tile's 128 or 256 columns
+_FWD_TILE_C = 32  # C's multiple (the score GEMM zero-fills half a chunk)
 _BWD_TILE = 128  # dW_v tile edge (csrc/attention_resident_bwd.cu)
 _BWD_TILE_K = 32  # cells per k-step of the dW_v GEMM
 _SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
@@ -228,7 +228,23 @@ def _fwd_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 8 + [p, p]
     lib.attention_resident_fwd.restype = i
+    lib.attention_resident_score_config.argtypes = [i] * 3 + [p] * 6
+    lib.attention_resident_score_config.restype = i
     return lib
+
+
+def score_launch_config(cells: int, H: int, int8: bool) -> dict:
+    """The shape of K4's score launch over ``cells`` cells at width ``H``
+    on bf16 rows or int8 codes: its tile (rows x columns), ring stages,
+    dynamic shared memory in bytes and grid (column tiles fastest)."""
+    lib = _fwd_lib()
+    out = [ctypes.c_int(0) for _ in range(6)]
+    rc = lib.attention_resident_score_config(
+        cells, H, int(int8), *(ctypes.addressof(o) for o in out))
+    kernels.check(lib, rc, "attention_resident_score_config")
+    tm, tn, stages, smem, gx, gy = (o.value for o in out)
+    return {"tile": [tm, tn], "stages": stages, "smem_bytes": smem,
+            "grid": [gx, gy]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,9 +292,11 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     guarantees), qh [B, H] f32, wv [C, H] bf16, ws [H, G] f32 with
     1 <= G <= 8 -> (v_att [B, G*C] f32, alpha [B, Np, G] f32, h [B, Np, H]
     bf16 when ``save_h`` else None); a 1-D ws [H] gives v_att [B, C] and
-    alpha [B, Np]. Needs C % 32 == 0 and H % 128 == 0. One call makes the
-    kernel's two launches on the current stream and adds the number
-    launched (2) to ``attention_resident_fwd.launches`` (bf16 rows) or
+    alpha [B, Np]. Needs C % 32 == 0 and H % 128 == 0. The score GEMM
+    reads W_v as its K-major copy ``wv.t()`` [H, C], made here (2 MB at
+    C=2048, H=512). One call makes the kernel's two launches on the current
+    stream and adds the number launched (2) to
+    ``attention_resident_fwd.launches`` (bf16 rows) or
     ``attention_resident_fwd.launches_int8`` (int8 rows)."""
     M, Np, C, B = _check_store(store, rows, n_valid, normalize,
                                "attention_resident_fwd")
@@ -297,11 +315,11 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
     kernels.expect("ws", ws, torch.float32,
                    (H, G) if ws.dim() == 2 else (H,), dev)
-    if wv.data_ptr() % 16:
-        raise ValueError("attention_resident_fwd reads wv in 16-byte "
-                         "vectors: it must start 16-byte aligned")
+    wvt = wv.t().contiguous()  # [H, C]: K-major, as the score GEMM reads it
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     f32 = dict(dtype=torch.float32, device=dev)
+    # One partial score per cell and column tile: H / 128 slices, of which
+    # the kernel fills H / 256 where its tile is 256 columns wide.
     part = torch.empty(H // _FWD_TILE_H, G, B * Np, **f32)
     rnorm = torch.empty(B * Np, **f32)
     v_att = torch.empty(B, G * C, **f32)
@@ -312,7 +330,7 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_resident_fwd(
-            store.data_ptr(), rows.data_ptr(), wv.data_ptr(), qh.data_ptr(),
+            store.data_ptr(), rows.data_ptr(), wvt.data_ptr(), qh.data_ptr(),
             ws_gh.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
             h.data_ptr() if save_h else None, v_att.data_ptr(),
             alpha.data_ptr(), B, Np, n_valid, C, H, G, int(normalize),

@@ -18,8 +18,10 @@ import os
 import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -68,29 +70,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names: Sequence[str]) -> Dict[str, str]:
+def _nvcc_run(cmd: List[str]) -> Tuple[int, str, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def build(names: Sequence[str]) -> Dict[str, Tuple[str, float]]:
     """Compile every missing library in ``names``, one ``nvcc`` each, all
-    started together. Returns ``{name: ptxas report}`` for the ones built
-    here (empty for libraries that were already built)."""
+    started together. Returns ``{name: (ptxas report, nvcc's wall
+    seconds)}`` for the ones built here (empty for libraries that were
+    already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        if not out.exists():
+            jobs[name] = (out.with_suffix(f".{os.getpid()}.tmp"), out)
+    if not jobs:
+        return {}
+    nvcc = _nvcc()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        runs = {name: pool.submit(_nvcc_run, [
+            nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")])
+            for name, (tmp, _) in jobs.items()}
     reports, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
+    for name, run in runs.items():
+        rc, text, seconds = run.result()
+        if rc != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{text}")
             continue
+        tmp, out = jobs[name]
         os.replace(tmp, out)  # atomic: a concurrent build never sees half
-        reports[name] = text
+        reports[name] = (text, seconds)
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports

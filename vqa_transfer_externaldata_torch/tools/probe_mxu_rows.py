@@ -6,10 +6,11 @@ bf16, B=252 row indices (divisible by 1..4), W_v [2048, 512] bf16. For
 Q in 1..4, each group of Q questions computes one [Q*200, 2048] x
 [2048, 512] product of its store rows, looked up by index in the loads as
 kernel K4 does, into out [B/Q, Q*200, 512] f32: the same 105.7 GFLOP a call
-at every Q. On the H100 the question is the 64-row tensor-core tiles inside
-a group: 200 rows take 4 tiles (78% of the rows useful), 400 take 7 (89%),
-600 take 10 (94%), 800 take 13 (96%). The kernel
-(``csrc/probe_mxu_rows.cu``) is K4's score mainloop without its epilogue.
+at every Q. On the H100 the question is the 128-row tensor-core tiles inside
+a group (:func:`tile_accounting`): 200 rows take 2 tiles (78% of the rows
+useful), 400 take 4 (78%), 600 take 5 (94%), 800 take 7 (89%). The kernel
+(``csrc/probe_mxu_rows.cu``) is K4's score mainloop (``csrc/score_gemm.cuh``:
+wgmma fed by a cp.async ring) without its epilogue.
 
 Checks: Q = 1 against the plain version (``TOL_REL`` of the largest value),
 Q > 1 against Q = 1 (rtol 1e-5, as the TPU probe). Times: ms per call over
@@ -42,7 +43,16 @@ B = 252  # divisible by 1, 2, 3, 4
 QS = (1, 2, 3, 4)
 ITERS = 96
 FLOPS = 2 * B * Np * C * H  # 105.7 GFLOP a call, at every Q
-_TILE_H, _TILE_C = 128, 32  # columns per tile, channels per k-step
+_TILE_H, _TILE_C = 128, 32  # H's and C's multiples
+TILE_ROWS = 128  # rows of a tile (csrc/score_gemm.cuh)
+
+
+def tile_accounting(q: int, np_: int = Np) -> tuple:
+    """(tiles, useful share of the rows computed) of one group of ``q``
+    questions of ``np_`` rows each: its q * np_ rows in TILE_ROWS-row
+    tiles, the last one padded with zero rows."""
+    tiles = -(-q * np_ // TILE_ROWS)
+    return tiles, q * np_ / (tiles * TILE_ROWS)
 
 
 def make_inputs(device, seed: int = 0) -> Dict[str, torch.Tensor]:
@@ -78,8 +88,10 @@ def probe_mxu_rows(store: torch.Tensor, rows: torch.Tensor, wv: torch.Tensor,
                    q: int) -> torch.Tensor:
     """Launch the probe kernel on CUDA tensors: store [M, Np, C] bf16, rows
     [B] int32 (each < M, which the caller guarantees), W_v [C, H] bf16 ->
-    [B/q, q*Np, H] f32. Needs B % q == 0, C % 32 == 0, H % 128 == 0. Adds
-    the number launched (1) to ``probe_mxu_rows.launches``."""
+    [B/q, q*Np, H] f32. Needs B % q == 0, C % 32 == 0, H % 128 == 0. The
+    kernel reads W_v as its K-major copy ``wv.t()`` [H, C], made here, as
+    K4's wrapper makes it. Adds the number launched (1) to
+    ``probe_mxu_rows.launches``."""
     if store.device.type != "cuda" or store.dim() != 3:
         raise ValueError("probe_mxu_rows takes a 3-D CUDA store")
     Ms, Nps, Cs = store.shape
@@ -92,15 +104,16 @@ def probe_mxu_rows(store: torch.Tensor, rows: torch.Tensor, wv: torch.Tensor,
         raise ValueError(f"probe_mxu_rows needs B % q == 0, C % {_TILE_C} "
                          f"== 0 and H % {_TILE_H} == 0, got B={Bq}, q={q}, "
                          f"C={Cs}, H={Hs}")
-    if store.data_ptr() % 16 or wv.data_ptr() % 16:
-        raise ValueError("probe_mxu_rows reads in 16-byte vectors: store "
-                         "and wv must start 16-byte aligned")
+    if store.data_ptr() % 16:
+        raise ValueError("probe_mxu_rows reads in 16-byte vectors: the "
+                         "store must start 16-byte aligned")
+    wvt = wv.t().contiguous()
     out = torch.empty(Bq // q, q * Nps, Hs, dtype=torch.float32, device=dev)
     lib = _lib()
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.probe_mxu_rows(
-            store.data_ptr(), rows.data_ptr(), wv.data_ptr(), out.data_ptr(),
+            store.data_ptr(), rows.data_ptr(), wvt.data_ptr(), out.data_ptr(),
             Bq, q, Nps, Cs, Hs, torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     probe_mxu_rows.launches += launched.value
@@ -142,11 +155,11 @@ def run(iters: int = ITERS) -> dict:
                                    f"by {diff.max().item()} (rtol 1e-5)")
         ms = loop_ms(lambda r, q=q: probe_mxu_rows(store, r, wv, q), rows,
                      iters)
-        tiles = -(-q * Np // 64)
+        tiles, useful = tile_accounting(q)
         out["by_q"][q] = {
             "ms": ms, "us_per_question": ms * 1e3 / B,
             "tflops": FLOPS / (ms * 1e-3) / 1e12,
-            "tiles_per_group": tiles, "useful_rows": q * Np / (tiles * 64),
+            "tiles_per_group": tiles, "useful_rows": useful,
             "max_diff_vs_q1": 0.0 if q == 1 else (flat - ref).abs().max(
             ).item()}
     out["plain_ms"] = loop_ms(
