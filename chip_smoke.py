@@ -20,7 +20,9 @@ Run from the repository root. Phases (any failure exits non-zero):
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
    normalize on and off, K5 fed the same saved h; the shape of K4's score
-   launch (tile, ring stages, shared memory, grid) and its nvcc time; then
+   launch (tile, ring stages, shared memory, grid) and its nvcc time, and
+   of K5's dW_v launch (the same, and the split) against
+   ``kernels.dwv_plan``; then
    both at G=2 and G=8 glimpses on the same store;
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
@@ -99,7 +101,10 @@ Run from the repository root. Phases (any failure exits non-zero):
    flushed between runs), and the bound from this run's shapes; K1 at
    the training batch and at the serving batch; K4 and K5 at G=1 and
    G=2 on bf16 rows and at G=1 on int8 rows, and K4's score launch alone
-   at G=1 (its device time from the profiler) with its TFLOP/s; the
+   at G=1 (its device time from the profiler) with its TFLOP/s; the dW_v
+   launch alone (``attention_dwv.cuh``) inside K5 at G=1 on bf16 and int8
+   rows and inside K8, with its TFLOP/s, beside cuBLAS on the same product
+   (the rows gathered apart, the gather timed); the
    gathered op's whole backward with K8 and with the explicit math; K3's
    persistent design against the per-step design in one call (two K3
    calls against K7, which walks both directions with one step launch a
@@ -492,7 +497,8 @@ def phase_gru_bwd(report: dict, dev, gen) -> dict:
 
 def phase_resident(report: dict, dev, gen) -> dict:
     import torch
-    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+    from vqa_transfer_externaldata_torch.ops import (
+        attention_resident as ar, kernels)
 
     M, Bt, n_valid = TRAIN_IMAGES, B_TRAIN, N
     Np = n_valid + (-n_valid) % 8
@@ -579,6 +585,21 @@ def phase_resident(report: dict, dev, gen) -> dict:
           f"attention_resident_fwd.cu "
           + ("already built" if nvcc is None else f"{nvcc:.1f} s"))
     report["score_launch"] = launch
+    # K5's dW_v launch at this batch as the C side sets it, held against
+    # the split that the wrappers take from kernels.dwv_plan.
+    K = Bt * n_valid
+    plan = kernels.dwv_plan(K, C, H, kernels.sm_count(dev))
+    dwv = ar.dwv_launch_config(K, C, H, False, plan["splits"])
+    check(dwv == plan, f"K5's dW_v launch {dwv} is not dwv_plan's {plan}")
+    dwv["smem_bytes_int8"] = ar.dwv_launch_config(
+        K, C, H, True, plan["splits"])["smem_bytes"]
+    print(f"K5 dW_v launch over {K} cells, C={C}, H={H}: tiles of "
+          f"{dwv['tile'][0]} channels x {dwv['tile'][1]} units, a ring of "
+          f"{dwv['stages']} stages of 64 cells, {dwv['smem_bytes']} B of "
+          f"dynamic shared memory ({dwv['smem_bytes_int8']} B on int8 rows), "
+          f"{dwv['splits']} splits of {dwv['chunks_per_split']} chunks, grid "
+          f"{' x '.join(map(str, dwv['grid']))}")
+    report["dwv_launch"] = dwv
     return {"store": store, "rows": rows, "qh": qh, "wv": wv, "ws": ws,
             "h": rh, "alpha": ra, "g": g, "sga": sga, "n_valid": n_valid,
             "checks4": checks4, "checks5": checks5,
@@ -2394,6 +2415,40 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 + 2 * Bt * N * 4 + Bt * H * 4 + C * H * 4 + H * 4)
     k8_flops = 2 * 2 * Bt * N * C * H + 6 * Bt * N * H
     times["attention_bwd"]["bound"] = bound(k8_bytes, k8_flops)
+    # The dW_v launch alone (attention_dwv.cuh, shared by K5, K8 and P2),
+    # from the profiler over whole calls, L2 flushed before each: K5 at G=1
+    # on bf16 rows and on int8 codes, K8. Beside it cuBLAS on the same
+    # product, v^T dzr over the valid cells: torch.matmul of the gathered
+    # rows (transposed view) and a bf16 [K, H], the gather timed apart.
+    dwv_flops = 2 * Bt * nv * C * H
+    dwv = {}
+    for key, fn in (
+            ("attention_resident_bwd", lambda: ar.attention_resident_bwd(
+                st, rows, h5, ws4, al5, g5, sga5, **kw)),
+            ("attention_resident_bwd[int8]",
+             lambda: ar.attention_resident_bwd(cq, rows, hq, wsq, alq, gq,
+                                               sgaq, **kw)),
+            ("attention_bwd", lambda: attention.attention_bwd(
+                v8, qh8, wv8, ws8, ds8, r8, True))):
+        ms = kernel_device_ms(fn, "attn_dwv::dwv_kernel", buf)
+        dwv[key] = {"ms": ms, "tflops": dwv_flops / (ms * 1e-3) / 1e12}
+    rows_l = rows.long()
+    v_all = st[rows_l, :nv].reshape(Bt * nv, C)
+    dz_all = h5[:, :nv].reshape(Bt * nv, H)
+    lib_dwv = {
+        "library_ms": time_cuda(lambda: torch.matmul(v_all.t(), dz_all),
+                                buf),
+        "library_gather_ms": time_cuda(
+            lambda: st[rows_l, :nv].reshape(Bt * nv, C), buf),
+        "library_call": f"torch.matmul([{C}, {Bt * nv}] bf16 (the gathered "
+                        f"rows, transposed), [{Bt * nv}, {H}] bf16) -> bf16",
+    }
+    for key, t in dwv.items():
+        t.update(lib_dwv)
+        times[key]["dwv_stage"] = t
+        print(f"{key} dW_v launch at G=1: {t['ms']:.4f} ms, "
+              f"{t['tflops']:.1f} TFLOP/s; cuBLAS {t['library_ms']:.4f} ms "
+              f"+ gather {t['library_gather_ms']:.4f} ms")
     report["bound_inputs"] = {"k1_live_steps": nlen,
                               "k1_live_steps_serving": nlen_serving,
                               "k3_live_steps": nl3, "k45_unique_rows": uniq,
@@ -2501,11 +2556,15 @@ def main(argv=None) -> int:
     # launches_by_path. K1's times are at the training batch, and at the
     # serving batch under at_serving_batch. K4's and K5's times and bounds
     # are at G=2, and at G=1 under at_g1; on int8 rows at G=1; K4's score
-    # launch alone at G=1 under score_ms_g1 and score_tflops_g1. P1's time is
-    # at Q=1, with every Q under by_q; its library call is cuBLAS on the
-    # gathered rows, the gather timed apart. K3's old_design_pair_ms is K7
-    # on phase 6's inputs (one step launch a timestep for both directions),
-    # its new_design_pair_ms two K3 calls on the same inputs, in one call.
+    # launch alone at G=1 under score_ms_g1 and score_tflops_g1; the dW_v
+    # launch alone of K5 at G=1 (bf16 and int8 rows) and of K8 under
+    # dwv_stage_g1 / dwv_stage, with cuBLAS on the same product (library_ms
+    # of the whole kernel stays null: no one PyTorch call computes it).
+    # P1's time is at Q=1, with every Q under by_q; its library call is
+    # cuBLAS on the gathered rows, the gather timed apart. K3's
+    # old_design_pair_ms is K7 on phase 6's inputs (one step launch a
+    # timestep for both directions), its new_design_pair_ms two K3 calls on
+    # the same inputs, in one call.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -2536,7 +2595,9 @@ def main(argv=None) -> int:
              "score_launch": report["score_launch"]}),
         "attention_resident_bwd": (
             ref + "attention_resident.py:208", max(k45["err5"], k45g["err5"]),
-            {"glimpses": "1-8", "checks": k45["checks5"] + k45g["checks5"]}),
+            {"glimpses": "1-8", "checks": k45["checks5"] + k45g["checks5"],
+             "dwv_stage_g1": times["attention_resident_bwd"]["dwv_stage"],
+             "dwv_launch": report["dwv_launch"]}),
         "bigru_fwd": (ref + "gru.py:474", k67["err6"], {
             "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"]}),
         "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
@@ -2548,7 +2609,8 @@ def main(argv=None) -> int:
             "op_backward_with_kernel_ms":
             times["attention_bwd"]["op_backward_with_kernel"],
             "explicit_backward_ms":
-            times["attention_bwd"]["explicit_backward"]}),
+            times["attention_bwd"]["explicit_backward"],
+            "dwv_stage": times["attention_bwd"]["dwv_stage"]}),
         "attention_resident_fwd[int8]": (
             ref + "attention_resident.py:174", k45q["err4"], {
                 "glimpses": "1-8", "checks": k45q["checks4"],
@@ -2559,7 +2621,9 @@ def main(argv=None) -> int:
                 k45q["vatt_quant_rel_err"]}),
         "attention_resident_bwd[int8]": (
             ref + "attention_resident.py:235", k45q["err5"], {
-                "glimpses": "1-8", "checks": k45q["checks5"]}),
+                "glimpses": "1-8", "checks": k45q["checks5"],
+                "dwv_stage_g1":
+                times["attention_resident_bwd[int8]"]["dwv_stage"]}),
     }
     paths = {"serving": serving, "training": training["launches"],
              "gathered": gathered["launches"],

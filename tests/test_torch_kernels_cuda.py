@@ -4,8 +4,10 @@ glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
 tiles, and two calls bit-equal), K6 (bigru_fwd), K7
 (bigru_bwd) and K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
 P2 (probe_bwd_ceiling) on the card against their plain PyTorch
-versions. They need an NVIDIA GPU with nvcc (the kernels have no CPU mode)
-and skip without one; on a GPU machine run
+versions; K5 and K8 also at the edges of the dW_v GEMM's tiles that they
+share with P2 (csrc/attention_dwv.cuh), its launch shape, and two calls of
+each bit-equal. They need an NVIDIA GPU with nvcc (the kernels have no
+CPU mode) and skip without one; on a GPU machine run
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -787,3 +789,156 @@ def test_gathered_op_grads_go_through_k2_k8(dev):
         cos = torch.nn.functional.cosine_similarity(
             a.flatten(), b.flatten(), dim=0).item()
         assert cos >= 0.999, cos
+
+
+# The dW_v GEMM shared by K5, K8 and P2 (csrc/attention_dwv.cuh) at the
+# edges of its tiles: cells that are not a multiple of the 64-cell chunk
+# (B=5 of n_valid=13: 65 cells; B=9 of 196: 1764 in 7 splits, the last one
+# short; B=5 of 196: 980 in 4), C = 128, 256 and 2048 (one, two and sixteen
+# channel tiles), H = 128, 384 (128-unit tiles) and 512 (256-unit tiles).
+DWV_EDGE_SHAPES = [(5, 13, 128, 128, 5), (5, 13, 256, 384, 5),
+                   (5, 13, 2048, 512, 5), (9, 196, 256, 384, 9),
+                   (9, 196, 2048, 512, 5)]
+
+
+def _k5_inputs(dev, shape, glimpses, row_type, seed=14):
+    """K5's inputs at ``shape``: the store (bf16, or its int8 codes with W_v
+    scaled as the op scales it), the saved h and alpha of the plain
+    forward, and random cotangents."""
+    M, n_valid, C, H, B = shape
+    G = glimpses
+    store, rows, qh, wv, _ = _resident_inputs(dev, M, n_valid, C, H, B)
+    if row_type == "int8":
+        store, scale = _int8_codes(store)
+        wv = (wv.float() * scale).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ws = (torch.randn(H, G, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    if G == 1:
+        ws = ws[:, 0].contiguous()
+    _, al, h = ar.attention_resident_fwd_reference(
+        store, rows, qh, wv, ws, n_valid=n_valid, normalize=False,
+        save_h=True)
+    gv = torch.randn(B, G * C, generator=g, device=dev)
+    sga = torch.randn(al.shape, generator=g, device=dev)
+    return store, rows, h, ws, al, gv, sga
+
+
+@pytest.mark.parametrize("row_type,normalize", [("bf16", True),
+                                                ("bf16", False),
+                                                ("int8", False)])
+@pytest.mark.parametrize("glimpses", [1, 2, 8])
+@pytest.mark.parametrize("shape", DWV_EDGE_SHAPES)
+def test_attention_resident_bwd_dwv_tile_edges_match_plain(
+        dev, shape, glimpses, row_type, normalize):
+    """K5 at the dW_v GEMM's tile edges against its plain version, at the
+    limits of the other K5 cases (G * 2^-9 for dqh and dW_v, 2^-9 for each
+    glimpse's dws)."""
+    G, H = glimpses, shape[3]
+    store, rows, h, ws, al, gv, sga = _k5_inputs(dev, shape, G, row_type)
+    kw = dict(n_valid=shape[1], normalize=normalize)
+    count = "launches_int8" if row_type == "int8" else "launches"
+    before = getattr(ar.attention_resident_bwd, count)
+    got = ar.attention_resident_bwd(store, rows, h, ws, al, gv, sga, **kw)
+    want = ar.attention_resident_bwd_reference(store, rows, h, ws, al, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert getattr(ar.attention_resident_bwd, count) == before + 3
+    for name, a, b in zip(("dqh", "dwv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= G * TOL_K5, (name, _rel_err(a, b))
+    dws, dws_ref = got[2].reshape(H, G), want[2].reshape(H, G)
+    for k in range(G):
+        assert _rel_err(dws[:, k], dws_ref[:, k]) <= TOL_K5, k
+
+
+def _k8_inputs(dev, B, N, C, H, normalize, seed=10):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.exp2(torch.rand(B, N, 1, generator=g, device=dev) * 4 - 2)
+    v = (torch.randn(B, N, C, generator=g, device=dev).relu() * scale).to(
+        torch.bfloat16)
+    qh = torch.randn(B, H, generator=g, device=dev) * 0.5
+    wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1)
+          * (6.0 / (C + H)) ** 0.5).to(torch.bfloat16)
+    ws = (torch.randn(H, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    _, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+    ds = (torch.randn(B, N, generator=g, device=dev) * al).contiguous()
+    return v, qh, wv, ws, ds, r
+
+
+@pytest.mark.parametrize("shape", [s[1:] for s in DWV_EDGE_SHAPES])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_bwd_dwv_tile_edges_match_plain(dev, shape, normalize):
+    """K8 at the dW_v GEMM's tile edges (B questions of N cells, C, H as
+    K5's), at test_attention_bwd_matches_plain's limits."""
+    N, C, H, B = shape
+    v, qh, wv, ws, ds, r = _k8_inputs(dev, B, N, C, H, normalize)
+    before = attention.attention_bwd.launches
+    got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
+    want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, normalize)
+    torch.cuda.synchronize()
+    assert attention.attention_bwd.launches == before + 3
+    a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, normalize)
+    for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                 (a_dqh, a_dwv, 0.0)):
+        assert torch.isfinite(a).all(), name
+        limit = TOL_K5 * b.abs().max().item() + allow
+        assert ((a - b).abs() <= limit).all(), (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k5_int8", "k8", "p2"])
+def test_dwv_kernels_are_deterministic(dev, kernel):
+    """Two calls of K5 (bf16 rows at G=2, int8 codes at G=1), K8 and P2 on
+    the same inputs at the main shape give the same bits: every split's
+    partial is summed in a fixed order, with no atomics."""
+    if kernel.startswith("k5"):
+        row_type = "int8" if kernel == "k5_int8" else "bf16"
+        args = _k5_inputs(dev, (64, 196, 2048, 512, 256),
+                          1 if row_type == "int8" else 2, row_type)
+
+        def call():
+            return ar.attention_resident_bwd(*args, n_valid=196,
+                                             normalize=row_type == "bf16")
+    elif kernel == "k8":
+        args = _k8_inputs(dev, 256, 196, 2048, 512, True)
+
+        def call():
+            return attention.attention_bwd(*args, True)
+    else:
+        x = p2.make_inputs(dev)
+
+        def call():
+            return p2.probe_bwd_ceiling(x["store"], x["rows"], x["h"],
+                                        x["g"])
+    first = call()
+    second = call()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_dwv_launch_shape(dev):
+    """The dW_v launch at the main shapes (K5 and K8 over 256 x 196 cells,
+    P2 over 256 x 200): 128 x 256 tiles, 4 stages, 4 splits of whole
+    64-cell chunks, one wave on the card, and dynamic shared memory above
+    the default 48 KB that a block of the card may still take; the C side
+    agrees with kernels.dwv_plan there and at a 128-unit tile."""
+    from vqa_transfer_externaldata_torch.ops import kernels
+
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    sms = props.multi_processor_count
+    for K, C, H, int8 in [(256 * 196, 2048, 512, False),
+                          (256 * 196, 2048, 512, True),
+                          (256 * 200, 2048, 512, False),
+                          (65, 256, 384, False), (1764, 256, 384, True)]:
+        plan = kernels.dwv_plan(K, C, H, sms, int8)
+        assert ar.dwv_launch_config(K, C, H, int8, plan["splits"]) == plan
+        assert 48 * 1024 < plan["smem_bytes"] <= limit, plan
+        gx, gy, gz = plan["grid"]
+        per = plan["chunks_per_split"] * kernels.DWV_CHUNK
+        assert (gz - 1) * per < K <= gz * per
+        if K > 256 * 100:
+            assert plan["tile"] == [128, 256] and plan["stages"] == 4
+            assert plan["splits"] == 4 and gx * gy * gz <= sms

@@ -34,7 +34,8 @@
 //     dz, writes bf16(dz * r) compactly as [B*N, H], and sums dqh and the
 //     question's dws partial per unit in a fixed order;
 //  2. the dW_v GEMM [C, B*N] x [B*N, H] of attention_dwv.cuh (shared with
-//     K5), split over the cells, one partial tile per block;
+//     K5 and P2: wgmma on transposed operands from a cp.async ring), split
+//     over the cells, one partial tile per block;
 //  3. the fixed-order reduction of the dW_v partials and of the dws
 //     partials over the questions.
 

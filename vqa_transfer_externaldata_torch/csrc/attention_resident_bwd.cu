@@ -41,10 +41,12 @@
 //     question's G dws partials and bf16(dz * r) of the summed dz, written
 //     compactly as [B * n_valid, H].
 //  2. the dW_v GEMM, [C, B*n_valid] x [B*n_valid, H], with the store rows
-//     looked up per cell as in K4 (attention_dwv.cuh, shared with K8):
-//     blocks own 128 x 128 tiles of dW_v and a fixed slice of the cells
-//     (split over K, so that the 64 tiles fill the card), bf16 WMMA, one
-//     partial tile per block. It runs once for all glimpses, as on the TPU.
+//     looked up per cell as in K4 (attention_dwv.cuh, shared with K8 and
+//     P2): wgmma on transposed operands from a cp.async ring, blocks own
+//     128 x 256 tiles of dW_v (128 x 128 where 256 does not divide H) and
+//     a fixed slice of the cells (split over K so that the grid is one wave
+//     of the card), one partial tile per block. It runs once for all
+//     glimpses, as on the TPU.
 //  3. a reduction that sums the dW_v partials over the splits and the dws
 //     partials over the questions, both in a fixed order: the result does
 //     not depend on the schedule.
@@ -222,6 +224,19 @@ extern "C" {
 
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The dW_v launch's shape over K cells split `splits` ways at C x H on
+// bf16 rows or int8 codes: tile (channels x units), ring stages, dynamic
+// shared memory in bytes, chunks of 64 cells a split and grid (unit tiles,
+// channel tiles, splits).
+int attention_resident_bwd_dwv_config(int K, int C, int H, int int8,
+                                      int splits, int* out) {
+  const attn_dwv::Shape s = attn_dwv::plan(K, C, H, int8 != 0, splits);
+  const int v[8] = {s.tile_m, s.tile_n, s.stages, s.smem_bytes,
+                    s.chunks_per_split, s.grid_x, s.grid_y, s.grid_z};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 
 // store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must

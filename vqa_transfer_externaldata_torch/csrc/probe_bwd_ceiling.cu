@@ -16,9 +16,10 @@
 // same lookup: a per-question pass (one block per question: each warp takes
 // cells and forms dal from 16-byte loads of the row against g staged in
 // shared memory, then the block writes the bf16 cotangent compactly as
-// [B*Np, H]); the split-K dW_v GEMM of attention_dwv.cuh with the store
-// rows looked up per cell (StoreCells); its fixed-order reduction over the
-// splits. No atomics.
+// [B*Np, H]); the split-K dW_v GEMM of attention_dwv.cuh (wgmma on
+// transposed operands from a cp.async ring) with the store rows looked up
+// per cell (StoreCells); its fixed-order reduction over the splits. No
+// atomics.
 //
 // What bounds it on an H100: at B=256, Np=200, C=2048, H=512 the products
 // are 107.6 GFLOP of bf16 (109 us at 989 TFLOP/s) against 52 MB of store

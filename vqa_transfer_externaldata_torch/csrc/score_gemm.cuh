@@ -4,7 +4,9 @@
 //   acc = A @ W_v      A [rows, C]: store rows looked up one by one,
 //                      W_v [C, H] bf16, f32 sums of bf16 products
 //
-// on Hopper's warpgroup MMA (wgmma, sm_90a).
+// on Hopper's warpgroup MMA (wgmma, sm_90a). Its primitives (the copies,
+// fences, swizzle and wgmma wrappers) also serve the dW_v GEMM of
+// attention_dwv.cuh.
 //
 // What bounds it on an H100: at K4's training shape (51,200 rows x 2048 x
 // 512) the product is 105 GFLOP, 0.106 ms at the bf16 peak, against 205 MB
@@ -141,10 +143,15 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N] for the warpgroup, A and B from shared
-// memory through their descriptors, bf16 in, f32 accumulators.
+// memory through their descriptors, bf16 in, f32 accumulators. kTnsp 0:
+// both operands K-major (this mainloop); 1: both MN-major (the dW_v GEMM of
+// attention_dwv.cuh, whose reduction runs along the rows of both).
+// scale_d 0 ignores D's old value (D = A B), which starts a sum without
+// any other instruction writing the accumulator registers.
+template <int kTnsp = 0>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
-                                                 uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -160,7 +167,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
       "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
       "%121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -187,12 +194,13 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnsp));
 }
 
+template <int kTnsp = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
-                                                 uint64_t da,
-                                                 uint64_t db) {
+                                                 uint64_t da, uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -202,7 +210,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
       "%55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -216,16 +224,16 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnsp));
 }
 
-template <int BN>
+template <int BN, int kTnsp = 0>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a,
-                                    uint64_t b) {
+                                    uint64_t b, int scale_d = 1) {
   if constexpr (BN == 256) {
-    wgmma_m64n256k16(d, a, b);
+    wgmma_m64n256k16<kTnsp>(d, a, b, scale_d);
   } else {
-    wgmma_m64n128k16(d, a, b);
+    wgmma_m64n128k16<kTnsp>(d, a, b, scale_d);
   }
 }
 

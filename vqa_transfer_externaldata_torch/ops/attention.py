@@ -37,8 +37,6 @@ from vqa_transfer_externaldata_torch.ops import kernels
 
 _SCORE_TILE_H = 128  # hidden columns per score tile (csrc/attention_fwd.cu)
 _SCORE_TILE_C = 32  # channels per k-step
-_DWV_TILE = 128  # dW_v tile edge (csrc/attention_dwv.cuh)
-_DWV_TILE_K = 32  # cells per k-step of the dW_v GEMM
 
 
 def spatial_attention_reference(
@@ -363,9 +361,10 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     H = qh.shape[-1]
     B, N, C = _check_grid(v, H, "attention_bwd")
     dev = v.device
-    if C % _DWV_TILE or H % _DWV_TILE:
-        raise ValueError(f"attention_bwd needs C % {_DWV_TILE} == 0 and "
-                         f"H % {_DWV_TILE} == 0, got C={C}, H={H}")
+    tile = kernels.DWV_TILE
+    if C % tile or H % tile:
+        raise ValueError(f"attention_bwd needs C % {tile} == 0 and "
+                         f"H % {tile} == 0, got C={C}, H={H}")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
@@ -375,11 +374,7 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
         raise ValueError("attention_bwd reads wv in 16-byte vectors: it "
                          "must start 16-byte aligned")
     K = B * N
-    tiles = (C // _DWV_TILE) * (H // _DWV_TILE)
-    # Split the cells over enough blocks for two waves on the card, while
-    # every split keeps at least 8 k-steps (as K5 does).
-    sms = kernels.sm_count(dev)
-    splits = max(1, min(-(-2 * sms // tiles), K // (8 * _DWV_TILE_K)))
+    splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev))["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
     dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
     dws_part = torch.empty(B, H, **f32)

@@ -46,8 +46,6 @@ from vqa_transfer_externaldata_torch.ops import kernels
 _NEG_INF = -1e30
 _FWD_TILE_H = 128  # H's multiple: the score tile's 128 or 256 columns
 _FWD_TILE_C = 32  # C's multiple (the score GEMM zero-fills half a chunk)
-_BWD_TILE = 128  # dW_v tile edge (csrc/attention_resident_bwd.cu)
-_BWD_TILE_K = 32  # cells per k-step of the dW_v GEMM
 _SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
 _SMEM_OPTIN = 227 * 1024  # dynamic shared memory a block may opt in to
 MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
@@ -253,7 +251,25 @@ def _bwd_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 9 + [p, p]
     lib.attention_resident_bwd.restype = i
+    lib.attention_resident_bwd_dwv_config.argtypes = [i] * 5 + [p]
+    lib.attention_resident_bwd_dwv_config.restype = i
     return lib
+
+
+def dwv_launch_config(K: int, C: int, H: int, int8: bool,
+                      splits: int) -> dict:
+    """The shape of K5's dW_v launch as the C side sets it (the same
+    header serves K8 and P2) over ``K`` cells at ``C`` x ``H`` split
+    ``splits`` ways, in :func:`kernels.dwv_plan`'s keys (``splits`` as
+    given)."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 8)()
+    rc = lib.attention_resident_bwd_dwv_config(K, C, H, int(int8), splits,
+                                                ctypes.addressof(out))
+    kernels.check(lib, rc, "attention_resident_bwd_dwv_config")
+    tm, tn, stages, smem, per, gx, gy, gz = out
+    return {"tile": [tm, tn], "stages": stages, "smem_bytes": smem,
+            "splits": splits, "chunks_per_split": per, "grid": [gx, gy, gz]}
 
 
 def _check_store(store: torch.Tensor, rows: torch.Tensor, n_valid: int,
@@ -370,9 +386,10 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     H = h.shape[-1]
     dev = store.device
     G = _glimpses(ws, "attention_resident_bwd")
-    if C % _BWD_TILE or H % _BWD_TILE:
-        raise ValueError(f"attention_resident_bwd needs C % {_BWD_TILE} == 0 "
-                         f"and H % {_BWD_TILE} == 0, got C={C}, H={H}")
+    tile = kernels.DWV_TILE
+    if C % tile or H % tile:
+        raise ValueError(f"attention_resident_bwd needs C % {tile} == 0 "
+                         f"and H % {tile} == 0, got C={C}, H={H}")
     # The G cotangent rows in bf16, then ds per glimpse and r in f32.
     if G * C * 2 + (G + 1) * Np * 4 > _SMEM_OPTIN:
         raise ValueError(f"attention_resident_bwd: C={C} channels, Np={Np} "
@@ -385,11 +402,7 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     kernels.expect("sga", sga, torch.float32, per_cell, dev)
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     K = B * n_valid
-    tiles = (C // _BWD_TILE) * (H // _BWD_TILE)
-    # Split the cells over enough blocks for two waves on the card, while
-    # every split keeps at least 8 k-steps.
-    sms = kernels.sm_count(dev)
-    splits = max(1, min(-(-2 * sms // tiles), K // (8 * _BWD_TILE_K)))
+    splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev), int8)["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
     dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
     dws_part = torch.empty(B, G, H, **f32)

@@ -131,6 +131,40 @@ def sm_count(device: torch.device) -> int:
                      else torch.cuda.current_device())
 
 
+DWV_TILE = 128  # channels of a dW_v tile; C and H are its multiples
+DWV_CHUNK = 64  # cells of a chunk of the dW_v GEMM's ring
+DWV_MIN_CHUNKS = 4  # the fewest chunks a split of the cells takes
+
+
+def dwv_plan(K: int, C: int, H: int, sms: int, int8: bool = False) -> dict:
+    """The launch of the dW_v GEMM of ``csrc/attention_dwv.cuh`` (K5, K8
+    and P2) over ``K`` cells at ``C`` x ``H`` (multiples of 128) on a card
+    of ``sms`` SMs, bf16 rows or int8 codes: its tile (channels x units:
+    256 units where 256 divides H, else 128), ring stages, dynamic shared
+    memory in bytes, the split of the cells, the chunks of 64 cells a split
+    and the grid (unit tiles, channel tiles, splits). The cells are split
+    so that the grid fills one wave of the SMs, a split keeping at least
+    ``DWV_MIN_CHUNKS`` chunks; every split but the last is a whole number of
+    chunks and none is empty. The C side (``attn_dwv::plan``) derives the
+    same tile, stages, memory and chunks from the splits passed to it."""
+    if K < 1 or C < DWV_TILE or H < DWV_TILE or C % DWV_TILE or H % DWV_TILE:
+        raise ValueError(f"dwv_plan needs K >= 1 and C, H positive multiples "
+                         f"of {DWV_TILE}, got K={K}, C={C}, H={H}")
+    bn = 256 if H % 256 == 0 else 128
+    stages = 4 if bn == 256 else 5
+    # A (128 channels), dzr (bn units) and the raw int8 codes of a chunk.
+    stage = 2 * DWV_CHUNK * (DWV_TILE + bn) + (DWV_CHUNK * DWV_TILE
+                                               if int8 else 0)
+    tiles = (C // DWV_TILE) * (H // bn)
+    chunks = -(-K // DWV_CHUNK)
+    want = max(1, min(sms // tiles, chunks // DWV_MIN_CHUNKS))
+    splits = -(-chunks // -(-chunks // want))  # no split left empty
+    return {"tile": [DWV_TILE, bn], "stages": stages,
+            "smem_bytes": 1024 + stages * stage, "splits": splits,
+            "chunks_per_split": -(-chunks // splits),
+            "grid": [H // bn, C // DWV_TILE, splits]}
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a kernel entry returned a CUDA error code (the entries
     return ``cudaGetLastError()`` right after their launches)."""

@@ -43,8 +43,6 @@ M, Np, C, H = 64, 200, 2048, 512
 B = 256
 ITERS = 96
 FLOPS = 2 * B * Np * C * (H + 1)  # 107.6 GFLOP a call
-_TILE = 128  # dW_v tile edge (csrc/attention_dwv.cuh)
-_TILE_K = 32  # cells per k-step of the dW_v GEMM
 
 
 def make_inputs(device, seed: int = 0) -> Dict[str, torch.Tensor]:
@@ -100,18 +98,15 @@ def probe_bwd_ceiling(store: torch.Tensor, rows: torch.Tensor,
     kernels.expect("rows", rows, torch.int32, (Bq,), dev)
     kernels.expect("h", h, torch.bfloat16, (Bq, Nps, Hs), dev)
     kernels.expect("g", g, torch.bfloat16, (Bq, Cs), dev)
-    if Cs % _TILE or Hs % _TILE:
-        raise ValueError(f"probe_bwd_ceiling needs C % {_TILE} == 0 and "
-                         f"H % {_TILE} == 0, got C={Cs}, H={Hs}")
+    tile = kernels.DWV_TILE
+    if Cs % tile or Hs % tile:
+        raise ValueError(f"probe_bwd_ceiling needs C % {tile} == 0 and "
+                         f"H % {tile} == 0, got C={Cs}, H={Hs}")
     if any(t.data_ptr() % 16 for t in (store, h, g)):
         raise ValueError("probe_bwd_ceiling reads in 16-byte vectors: "
                          "store, h and g must start 16-byte aligned")
     K = Bq * Nps
-    # K5's split of the cells: two waves of the card's SMs, at least 8
-    # k-steps a split.
-    tiles = (Cs // _TILE) * (Hs // _TILE)
-    splits = max(1, min(-(-2 * kernels.sm_count(dev) // tiles),
-                        K // (8 * _TILE_K)))
+    splits = kernels.dwv_plan(K, Cs, Hs, kernels.sm_count(dev))["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
     dal = torch.empty(Bq, Nps, **f32)
     dz = torch.empty(K, Hs, dtype=torch.bfloat16, device=dev)
