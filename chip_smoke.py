@@ -15,7 +15,10 @@ Run from the repository root. Phases (any failure exits non-zero):
 4. K1 ``gru_fwd`` and K3 ``gru_bwd`` against their plain versions at the
    training shape (B=256, T=26, H=512, lengths 1..26, forward and
    reverse), both versions of K3 fed K1's hseq; the grid, resident blocks
-   per SM and shared memory of K3's persistent step launch;
+   per SM and shared memory of K3's persistent step launch, and K1's
+   persistent launch at the training and the serving batch (the grid that
+   the C side derives from the plan's rows against
+   ``kernels.gru_fwd_plan``'s);
 5. K4 ``attention_resident_fwd`` and K5 ``attention_resident_bwd`` against
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
@@ -99,16 +102,19 @@ Run from the repository root. Phases (any failure exits non-zero):
 19. times: each kernel, its plain version and the PyTorch library call
    where there is one (median of CUDA-event timings after warm-up, L2
    flushed between runs), and the bound from this run's shapes; K1 at
-   the training batch and at the serving batch; K4 and K5 at G=1 and
+   the training batch and at the serving batch, each also at T=1 for its
+   time a step, and K1's two tilings (16 and 64 rows a block) against each
+   other at B = 1, 8, 64 and 256 (bit-equal); K4 and K5 at G=1 and
    G=2 on bf16 rows and at G=1 on int8 rows, and K4's score launch alone
    at G=1 (its device time from the profiler) with its TFLOP/s; the dW_v
    launch alone (``attention_dwv.cuh``) inside K5 at G=1 on bf16 and int8
    rows and inside K8, with its TFLOP/s, beside cuBLAS on the same product
    (the rows gathered apart, the gather timed); the
-   gathered op's whole backward with K8 and with the explicit math; K3's
-   persistent design against the per-step design in one call (two K3
-   calls against K7, which walks both directions with one step launch a
-   timestep, on phase 6's inputs).
+   gathered op's whole backward with K8 and with the explicit math; K1's
+   and K3's persistent designs against the per-step designs in one call
+   (two K1 calls against K6 and two K3 calls against K7, which walk both
+   directions with one step launch a timestep, on phase 6's inputs; two K1
+   calls must be the faster).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -440,7 +446,7 @@ def phase_attention(report: dict, dev, gen) -> dict:
 
 def phase_gru_bwd(report: dict, dev, gen) -> dict:
     import torch
-    from vqa_transfer_externaldata_torch.ops import gru
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
 
     Bt = B_TRAIN
     gx = torch.randn(T, Bt, 3 * H, generator=gen, device=dev) * 0.5
@@ -490,9 +496,26 @@ def phase_gru_bwd(report: dict, dev, gen) -> dict:
           f"{launch['blocks_per_sm']} resident per SM, "
           f"{launch['smem_bytes']} B of dynamic shared memory")
     report["gru_bwd_launch"] = launch
+    # K1's persistent launch at the training and the serving batch: the
+    # grid that the C side derives from the plan's rows and its occupancy
+    # query, against the plan's on the same blocks per SM.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k1_launch = {}
+    for batch in (Bt, B):
+        lk = gru.gru_fwd_launch_config(batch, H, dev)
+        plan = kernels.gru_fwd_plan(batch, H, sms, lk["per_sm_by_rows"])
+        print(f"K1 persistent launch at B={batch}, H={H}: 16 units x "
+              f"{lk['rows']} rows a block, grid {lk['grid'][0]} x "
+              f"{lk['grid'][1]} blocks of 256 threads, "
+              f"{lk['blocks_per_sm']} resident per SM, "
+              f"{lk['smem_bytes']} B of dynamic shared memory")
+        check(lk["rows"] == plan["rows"] and lk["grid"] == plan["grid"],
+              f"K1 launch {lk} differs from kernels.gru_fwd_plan {plan}")
+        k1_launch[str(batch)] = lk
+    report["gru_fwd_launch"] = k1_launch
     return {"gx": gx, "hseq": hseq_fwd, "lens": lens, "uh": uh, "bhn": bhn,
             "ghT": ghT, "err": err, "checks": checks, "k1_err": err1,
-            "launch": launch}
+            "launch": launch, "k1_launch": k1_launch}
 
 
 def phase_resident(report: dict, dev, gen) -> dict:
@@ -1018,9 +1041,9 @@ def phase_serving(report: dict, dev) -> dict:
     ans_short = pred.answer(feats[:short], questions[:short])
     ans_idx = pred.answer_indexed(idx, questions)
     launches = read_counts()
-    # Three forwards: K1 launches one step kernel per timestep, K2 two; the
-    # training kernels do not run.
-    check_launches(launches, {"gru_fwd": 3 * T, "attention_fwd": 3 * 2},
+    # Three forwards: K1 one persistent launch each, K2 two; the training
+    # kernels do not run.
+    check_launches(launches, {"gru_fwd": 3, "attention_fwd": 3 * 2},
                    "serving")
     check(len(ans_host) == B and len(ans_short) == short
           and len(ans_idx) == B, "wrong number of answers")
@@ -1215,13 +1238,13 @@ def phase_training(report: dict, dev) -> dict:
         torch.cuda.synchronize()
         out["fit_s"] = time.perf_counter() - t0
         launches = read_counts()
-        # A step: K1 one launch per timestep, K3 three (the persistent
+        # A step: K1 one persistent launch, K3 three (the persistent
         # step kernel, the dU_h GEMM, the db_hn sum), K4 two, K5 three. An
         # evaluation: K1 and K4 over each of the val split's batches.
         evals = steps // EVAL_EVERY
         eval_batches = evals * -(-VAL_QUESTIONS // B_TRAIN)
         check_launches(launches, {
-            "gru_fwd": T * (steps + eval_batches),
+            "gru_fwd": steps + eval_batches,
             "gru_bwd": 3 * steps,
             "attention_resident_fwd": 2 * (steps + eval_batches),
             "attention_resident_bwd": 3 * steps},
@@ -1311,10 +1334,10 @@ def check_evaluation(trainer, state, val, run_dir: Optional[str], dev,
     out["streamed_s"] = time.perf_counter() - t0
     str_launches = read_counts()
     n_batches = -(-VAL_QUESTIONS // B_TRAIN)
-    check_launches(res_launches, {"gru_fwd": T * n_batches,
+    check_launches(res_launches, {"gru_fwd": n_batches,
                                   "attention_resident_fwd": 2 * n_batches},
                    "resident evaluation")
-    per_batch = streamed_kernels or {"gru_fwd": T, "attention_fwd": 2}
+    per_batch = streamed_kernels or {"gru_fwd": 1, "attention_fwd": 2}
     check_launches(str_launches, {k: n * n_batches
                                   for k, n in per_batch.items()},
                    "streamed evaluation")
@@ -1418,7 +1441,7 @@ def phase_gathered(report: dict, dev) -> dict:
         launches = read_counts()
         # A step: K1 and K3 as on the main path, K2 two launches, K8 three.
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
+            "gru_fwd": steps, "gru_bwd": 3 * steps,
             "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
             f"gathered stage-2 training over {steps} steps")
         out.update(launches=launches,
@@ -1479,7 +1502,7 @@ def phase_streamed(report: dict, dev) -> dict:
         out = {"cli_s": time.perf_counter() - t0}
         launches = read_counts()
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
+            "gru_fwd": steps, "gru_bwd": 3 * steps,
             "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
             f"streamed stage-2 training over {steps} steps")
         out["launches"] = launches
@@ -1628,7 +1651,7 @@ def phase_transfer(report: dict, dev, stage1_params: str) -> dict:
         out = {"cli_s": time.perf_counter() - t0}
         launches = read_counts()
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
+            "gru_fwd": steps, "gru_bwd": 3 * steps,
             "attention_resident_fwd": 2 * steps,
             "attention_resident_bwd": 3 * steps},
             f"stage-2 training after the transfer over {steps} steps")
@@ -1705,7 +1728,7 @@ def phase_glimpses2(report: dict, dev) -> dict:
         # A step: K1 and K3 as on the main path, K4 two launches and K5
         # three, each covering both glimpses.
         check_launches(launches, {
-            "gru_fwd": T * steps, "gru_bwd": 3 * steps,
+            "gru_fwd": steps, "gru_bwd": 3 * steps,
             "attention_resident_fwd": 2 * steps,
             "attention_resident_bwd": 3 * steps},
             f"vqa_attention2 training over {steps} steps")
@@ -1716,7 +1739,7 @@ def phase_glimpses2(report: dict, dev) -> dict:
                                             PROFILE_STEPS)
         # The gathered evaluator: K1, then spatial_attention_multi.
         out["evaluation"] = check_evaluation(
-            trainer, state, val, None, dev, streamed_kernels={"gru_fwd": T})
+            trainer, state, val, None, dev, streamed_kernels={"gru_fwd": 1})
 
         # --- requests served through Predictor ---------------------------
         save_params(os.path.join(tmp, PARAMS_FILE), model.state_dict())
@@ -1730,7 +1753,7 @@ def phase_glimpses2(report: dict, dev) -> dict:
                            np.float32).reshape(B, N, C)
         reset_counts()
         answers = pred.answer(feats, qs)
-        check_launches(read_counts(), {"gru_fwd": T}, "vqa_attention2 serving")
+        check_launches(read_counts(), {"gru_fwd": 1}, "vqa_attention2 serving")
         v = torch.from_numpy(feats).to(dev)
         q = torch.from_numpy(pred._encode_questions(qs)).to(dev)
         with torch.inference_mode():
@@ -1806,7 +1829,7 @@ def phase_training_int8(report: dict, dev) -> dict:
         evals = steps // EVAL_EVERY
         n_batches = -(-VAL_QUESTIONS // B_TRAIN)
         check_launches(launches, {
-            "gru_fwd": T * (steps + evals * n_batches),
+            "gru_fwd": steps + evals * n_batches,
             "gru_bwd": 3 * steps,
             "attention_resident_fwd[int8]": 2 * (steps + evals * n_batches),
             "attention_resident_bwd[int8]": 3 * steps},
@@ -1830,7 +1853,7 @@ def phase_training_int8(report: dict, dev) -> dict:
         m_q, p_q = trainer.evaluate_resident(state, val)
         out["eval_int8_s"] = time.perf_counter() - t0
         check_launches(read_counts(), {
-            "gru_fwd": T * n_batches,
+            "gru_fwd": n_batches,
             "attention_resident_fwd[int8]": 2 * n_batches},
             "int8 resident evaluation")
         bf16 = Trainer(cfg.replace_flat({"train.store_quantize": ""}), spec,
@@ -1838,7 +1861,7 @@ def phase_training_int8(report: dict, dev) -> dict:
         reset_counts()
         m_f, p_f = bf16.evaluate_resident(state, val)
         check_launches(read_counts(), {
-            "gru_fwd": T * n_batches,
+            "gru_fwd": n_batches,
             "attention_resident_fwd": 2 * n_batches},
             "bf16 resident evaluation")
         bf16.close()
@@ -2125,7 +2148,7 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 k45g: dict, k45q: dict, k67: dict, k8: dict, dev) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.ops import (
-        attention, attention_resident as ar, gru)
+        attention, attention_resident as ar, gru, kernels)
 
     buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     times = {}
@@ -2142,8 +2165,13 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
             enforce_sorted=False)
         with torch.inference_mode():
             lib_ms = time_cuda(lambda: lib_gru(packed), buf)
+        # One step alone (the launch, U_h's load, one step): what the other
+        # T - 1 steps add is the time of a step.
+        ms = time_cuda(lambda: gru.gru_fwd(gx, lens, uh, bhn), buf)
+        ms1 = time_cuda(lambda: gru.gru_fwd(gx[:1], lens, uh, bhn), buf)
         return {
-            "kernel": time_cuda(lambda: gru.gru_fwd(gx, lens, uh, bhn), buf),
+            "kernel": ms, "one_step_ms": ms1,
+            "step_us": (ms - ms1) / (T - 1) * 1e3,
             "plain": time_cuda(lambda: gru.gru_reference(gx, lens, uh, bhn),
                                buf),
             "library": lib_ms,
@@ -2155,6 +2183,29 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     # serving batch.
     times["gru_fwd"] = time_k1(k3)
     k1_serving = time_k1(k1)
+    # K1's two tilings at a single request, cli.predict's batch, the
+    # serving and the training batch: the plan's rows against the other's,
+    # which must give the same bits.
+    tilings = {}
+    for batch in (1, 8, B, B_TRAIN):
+        gxb = torch.randn(T, batch, 3 * H, device=dev) * 0.5
+        lensb = torch.randint(1, T + 1, (batch,), device=dev,
+                              dtype=torch.int32)
+        plan = gru.gru_fwd_launch_config(batch, H, dev)
+        row = {"plan_rows": plan["rows"]}
+        outs = {}
+        for rows in kernels.GRU_FWD_ROWS:
+            if plan["per_sm_by_rows"][rows] < 1:
+                continue
+            outs[rows] = gru._launch_fwd(gxb, lensb, k3["uh"], k3["bhn"],
+                                         False, rows)[1]
+            row[str(rows)] = time_cuda(
+                lambda: gru._launch_fwd(gxb, lensb, k3["uh"], k3["bhn"],
+                                        False, rows), buf)
+        check(all(torch.equal(o, outs[plan["rows"]]) for o in outs.values()),
+              f"K1's tilings disagree at B={batch}")
+        tilings[str(batch)] = row
+    times["gru_fwd"]["tilings_ms"] = tilings
 
     v, qh, wv, ws = k2["v"], k2["qh"], k2["wv"], k2["ws"]
     times["attention_fwd"] = {
@@ -2211,6 +2262,27 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                                         old_pair)]
     times["gru_bwd"]["old_design_pair"] = (pair[0] + pair[3]) / 2
     times["gru_bwd"]["new_design_pair"] = (pair[1] + pair[2]) / 2
+    # The same for K1: K6 walks both directions of phase 6's inputs with
+    # one step launch a timestep, two K1 calls walk them with one persistent
+    # launch each, to the same bits.
+    gxf6, gxb6, lens6, uhf6, uhb6, bhnf6, bhnb6 = k67["args"]
+
+    def old_fwd_pair():
+        gru.bigru_fwd(*k67["args"])
+
+    def new_fwd_pair():
+        gru.gru_fwd(gxf6, lens6, uhf6, bhnf6)
+        gru.gru_fwd(gxb6, lens6, uhb6, bhnb6, reverse=True)
+
+    pair = [time_cuda(f, buf) for f in (old_fwd_pair, new_fwd_pair,
+                                        new_fwd_pair, old_fwd_pair)]
+    times["gru_fwd"]["old_design_pair"] = (pair[0] + pair[3]) / 2
+    times["gru_fwd"]["new_design_pair"] = (pair[1] + pair[2]) / 2
+    check(times["gru_fwd"]["new_design_pair"] <
+          times["gru_fwd"]["old_design_pair"],
+          f"two K1 calls ({times['gru_fwd']['new_design_pair']:.4f} ms) are "
+          f"not faster than one K6 call "
+          f"({times['gru_fwd']['old_design_pair']:.4f} ms)")
 
     st, rows, nv = k45["store"], k45["rows"], k45["n_valid"]
     qh4, wv4, ws4 = k45["qh"], k45["wv"], k45["ws"]
@@ -2459,6 +2531,16 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library {t['library']}, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    for batch, t in ((B_TRAIN, times["gru_fwd"]), (B, k1_serving)):
+        print(f"K1 at B={batch}: T={T} {t['kernel']:.4f} ms, T=1 "
+              f"{t['one_step_ms']:.4f} ms, {t['step_us']:.2f} us a step")
+    for batch, row in times["gru_fwd"]["tilings_ms"].items():
+        print(f"K1 tilings at B={batch}, T={T}: " + ", ".join(
+            f"{r} rows {row[str(r)]:.4f} ms" for r in (16, 64)
+            if str(r) in row) + f" (the plan takes {row['plan_rows']})")
+    print(f"K1 design pair (both directions): per-step (K6) "
+          f"{times['gru_fwd']['old_design_pair']:.4f} ms, persistent (two "
+          f"K1 calls) {times['gru_fwd']['new_design_pair']:.4f} ms")
     print(f"K3 design pair (both directions): per-step (K7) "
           f"{times['gru_bwd']['old_design_pair']:.4f} ms, persistent (two "
           f"K3 calls) {times['gru_bwd']['new_design_pair']:.4f} ms")
@@ -2564,7 +2646,9 @@ def main(argv=None) -> int:
     # cuBLAS on the gathered rows, the gather timed apart. K3's
     # old_design_pair_ms is K7 on phase 6's inputs (one step launch a
     # timestep for both directions), its new_design_pair_ms two K3 calls on
-    # the same inputs, in one call.
+    # the same inputs, in one call; K1's the same with K6. K1 lists its
+    # persistent launch at both batches, its time a step (T=26 against T=1)
+    # and the warnings of its nvcc log.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -2572,8 +2656,20 @@ def main(argv=None) -> int:
         "gru_fwd": (ref + "gru.py:227", max(k1["err"], k3["k1_err"]), {
             "tol": TOL_GRU, "err_by_batch": {str(B): k1["err"],
                                              str(B_TRAIN): k3["k1_err"]},
+            "persistent_launch": k3["k1_launch"],
+            "old_design_pair_ms": times["gru_fwd"]["old_design_pair"],
+            "new_design_pair_ms": times["gru_fwd"]["new_design_pair"],
+            "nvcc_warnings": [
+                line for line in report["ptxas"].get("gru_fwd",
+                                                     "").splitlines()
+                if "warning" in line.lower()],
+            "step_us": times["gru_fwd"]["step_us"],
+            "one_step_ms": times["gru_fwd"]["one_step_ms"],
+            "tilings_ms": times["gru_fwd"]["tilings_ms"],
             "at_serving_batch": {
                 "batch": B, "ms": k1_serving["kernel"],
+                "step_us": k1_serving["step_us"],
+                "one_step_ms": k1_serving["one_step_ms"],
                 "plain_ms": k1_serving["plain"],
                 "bound_ms": k1_serving["bound"][0],
                 "bound_by": k1_serving["bound"][1],

@@ -231,11 +231,12 @@ def test_bigru_wrappers_refuse_cpu_tensors():
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """A kernel library's name changes when a csrc header that its source
     includes changes, so an edited shared step kernel is rebuilt; the
-    libraries of K1/K6 and K3/K7 name their shared headers."""
+    libraries of K1/K6 and K3/K7 name their shared headers, and K1 and K3
+    the mma.sync primitives they share."""
     assert [p.name for p in kernels.sources("bigru_fwd")] == [
         "bigru_fwd.cu", "gru_fwd_step.cuh"]
     assert [p.name for p in kernels.sources("gru_bwd")] == [
-        "gru_bwd.cu", "gru_bwd_step.cuh"]
+        "gru_bwd.cu", "gru_bwd_step.cuh", "mma_sync.cuh"]
     (tmp_path / "k.cu").write_text('#include "step.cuh"\nint f();\n')
     (tmp_path / "step.cuh").write_text("// v1\n")
     monkeypatch.setattr(kernels, "CSRC", tmp_path)

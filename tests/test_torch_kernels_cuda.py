@@ -1,4 +1,6 @@
-"""Kernels K1 (gru_fwd), K2 (attention_fwd), K3 (gru_bwd), K4
+"""Kernels K1 (gru_fwd; also at both tilings of its launch plan and past
+the 64-row tile, its launch shape against kernels.gru_fwd_plan, under CUDA
+graph capture, and two calls bit-equal), K2 (attention_fwd), K3 (gru_bwd), K4
 (attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
 glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
 tiles, and two calls bit-equal), K6 (bigru_fwd), K7
@@ -18,10 +20,11 @@ normalize mode (a bf16 weight p*r that rounds the other way moves its term
 by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
 (bf16 activations between layers). K3-K5 are held relative to the largest
 value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
-saved h 2^-7, K5 2^-9. K6 runs K1's step kernel with a direction axis,
-K7 one BPTT step launch a timestep for both directions, and K3's
-persistent launch the same products in the same order: h as K1's, K7 as
-K3's, and each equals two K1 (K3) calls on the same inputs bit for bit.
+saved h 2^-7, K5 2^-9. K6 launches the forward step kernel once a
+timestep for both directions, K7 one BPTT step launch a timestep, and the
+persistent launches of K1 and K3 take the same products in the same
+order: h as K1's, K7 as K3's, and each of K6 and K7 equals two K1 (K3)
+calls on the same inputs bit for bit.
 K8 recomputes z, so a unit whose z lies
 within rounding of 0 may take the other side of the ReLU in one version:
 each output is held to 2^-9 of its largest value plus, per entry, what such
@@ -67,18 +70,116 @@ def _gru_inputs(dev, T, B, H, seed=0):
     return gx, lens, uh, bhn
 
 
-@pytest.mark.parametrize("shape", [(7, 20, 64), (26, 64, 512)])
+@pytest.mark.parametrize("B", [1, 17, 64, 65, 256, 1024])
+@pytest.mark.parametrize("T", [1, 7, 26])
+@pytest.mark.parametrize("H", [16, 64, 512])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_gru_fwd_matches_plain(dev, shape, reverse):
-    gx, lens, uh, bhn = _gru_inputs(dev, *shape)
+def test_gru_fwd_matches_plain(dev, B, T, H, reverse):
+    """K1's persistent launch against its plain version (2e-3) and against
+    the per-step kernel that K6 still launches once a timestep, bit for
+    bit (K6's chains on the same inputs), over both tilings of
+    kernels.gru_fwd_plan: B=1, 17, 64 and 65 take 16-row blocks, 256
+    64-row ones, 1024 walks b-tiles; lengths hold 0 and T."""
+    gx, lens, uh, bhn = _gru_inputs(dev, T, B, H)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
     before = gru.gru_fwd.launches
     hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=reverse)
+    after = gru.gru_fwd.launches
     rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    k6 = gru.bigru_fwd(gx, gx, lens, uh, uh, bhn, bhn)
     torch.cuda.synchronize()
-    assert gru.gru_fwd.launches == before + shape[0]  # one per timestep
+    assert after == before + 1  # one persistent launch for all T steps
+    assert torch.isfinite(hseq).all()
     assert (hseq - rseq).abs().max().item() <= 2e-3
     assert (hT - rT).abs().max().item() <= 2e-3
     assert torch.equal(hT, hseq[0 if reverse else -1])
+    d = int(reverse)
+    assert torch.equal(hT, k6[d]), (hT - k6[d]).abs().max().item()
+    assert torch.equal(hseq, k6[2 + d]), (hseq - k6[2 + d]).abs().max().item()
+
+
+@pytest.mark.parametrize("B", [64, 256, 1024])
+def test_gru_fwd_is_deterministic(dev, B):
+    """Two calls on the same inputs give the same bits: the grid barrier
+    orders every exchange of the state between blocks."""
+    gx, lens, uh, bhn = _gru_inputs(dev, 26, B, 512, seed=3)
+    first = gru.gru_fwd(gx, lens, uh, bhn)
+    second = gru.gru_fwd(gx, lens, uh, bhn)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B", [1, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_fwd_past_the_64_row_tile_matches_plain(dev, B, reverse):
+    """At H = 880 a 64-row block's shared memory does not fit, so every
+    batch takes 16-row blocks (B=256 walking b-tiles), still within 2e-3
+    of the plain version and bit-equal to K6's matching direction."""
+    gx, lens, uh, bhn = _gru_inputs(dev, 26, B, 880, seed=6)
+    lens[0] = 26
+    cfg = gru.gru_fwd_launch_config(B, 880, dev)
+    assert cfg["rows"] == 16 and cfg["per_sm_by_rows"][64] == 0
+    hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=reverse)
+    rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    k6 = gru.bigru_fwd(gx, gx, lens, uh, uh, bhn, bhn)
+    torch.cuda.synchronize()
+    assert (hseq - rseq).abs().max().item() <= 2e-3
+    assert (hT - rT).abs().max().item() <= 2e-3
+    d = int(reverse)
+    assert torch.equal(hT, k6[d]) and torch.equal(hseq, k6[2 + d])
+
+
+def test_gru_fwd_launch_shape_and_limit(dev):
+    """The C side derives the grid from the batch rows that
+    kernels.gru_fwd_plan takes and from its own occupancy query, and it
+    equals the plan's on the same blocks per SM: at the training shape 32
+    j-tiles x 4 rows of 64-row blocks, one an SM; at the serving batch
+    more than 32 blocks. A width at which not even a 16-row block's
+    shared memory fits raises instead of falling back."""
+    from vqa_transfer_externaldata_torch.ops import kernels
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, H in [(256, 512), (64, 512), (1, 512), (128, 512), (1024, 512),
+                 (64, 64), (1, 880), (256, 1568)]:
+        cfg = gru.gru_fwd_launch_config(B, H, dev)
+        plan = kernels.gru_fwd_plan(B, H, sms, cfg["per_sm_by_rows"])
+        assert cfg["rows"] == plan["rows"]
+        assert cfg["blocks_per_sm"] == cfg["per_sm_by_rows"][cfg["rows"]] >= 1
+        assert cfg["grid"] == plan["grid"]
+        assert 0 < cfg["smem_bytes"] <= 232448
+    train = gru.gru_fwd_launch_config(256, 512, dev)
+    assert train["grid"] == [32, 4] and train["rows"] == 64
+    serve = gru.gru_fwd_launch_config(64, 512, dev)
+    assert serve["grid"][0] * serve["grid"][1] > 32
+    gx, lens, uh, bhn = _gru_inputs(dev, 2, 4, 1584)
+    with pytest.raises(ValueError, match="gru_fwd_plan"):
+        gru.gru_fwd(gx, lens, uh, bhn)
+
+
+def test_gru_fwd_captures_in_a_cuda_graph(dev):
+    """The cooperative launch is accepted under stream capture, and the
+    graph's replay on new inputs equals an eager call on them."""
+    gx, lens, uh, bhn = _gru_inputs(dev, 26, 256, 512, seed=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gru.gru_fwd(gx, lens, uh, bhn)  # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = gru.gru_fwd.launches
+    with torch.cuda.graph(graph):
+        hT, hseq = gru.gru_fwd(gx, lens, uh, bhn)
+    assert gru.gru_fwd.launches == before + 1
+    gx2, lens2, _, _ = _gru_inputs(dev, 26, 256, 512, seed=5)
+    gx.copy_(gx2)
+    lens.copy_(lens2)
+    graph.replay()
+    want = gru.gru_fwd(gx, lens, uh, bhn)
+    torch.cuda.synchronize()
+    assert torch.equal(hT, want[0]) and torch.equal(hseq, want[1])
 
 
 @pytest.mark.parametrize("n", [9, 196])
@@ -157,7 +258,7 @@ def test_model_forward_goes_through_both_kernels(dev, monkeypatch):
     with torch.inference_mode():
         out = model(feats, q)["logits"]
     assert (gru.gru_fwd.launches, attention.attention_fwd.launches) == (
-        counts[0] + q.shape[1], counts[1] + 2)
+        counts[0] + 1, counts[1] + 2)
     monkeypatch.setattr(gru, "gru_fwd", gru.gru_reference)
     monkeypatch.setattr(
         attention, "attention_fwd",
@@ -691,7 +792,7 @@ def test_fused_bigru_encoder_goes_through_k6_k7(dev):
         return torch.cat([enc.fwd(x, mask), enc.bwd(x, mask)], dim=-1)
 
     res = []
-    for fn, want in ((enc, [6, 8, 0, 0]), (two_encoders, [0, 0, 12, 6])):
+    for fn, want in ((enc, [6, 8, 0, 0]), (two_encoders, [0, 0, 2, 6])):
         enc.zero_grad()
         counts = [getattr(gru, n).launches for n in
                   ("bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")]

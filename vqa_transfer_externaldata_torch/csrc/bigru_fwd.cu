@@ -6,8 +6,9 @@
 // forward chain at t = k and the backward chain at t = T-1-k, both under the
 // prefix mask t < lens[b], so the backward chain walks each row's padded
 // tail first and carries the zero state through it (as K1 with `reverse`).
-// The cell math is _gru_cell, in the step kernel of gru_fwd_step.cuh, which
-// K1 runs too: each direction's outputs equal a K1 call on its gx half.
+// The cell math is _gru_cell, gru_cell in gru_fwd_step.cuh, which K1's
+// persistent kernel applies too: each direction's outputs equal a K1 call
+// on its gx half, bit for bit.
 //
 // What bounds it on an H100: at B=256, T=26, H=512 the two chains do about
 // 2 x 2 x sum(lens) x H x 3H operations (~11 GFLOP, 11 us at the bf16
@@ -15,11 +16,12 @@
 // 35 MB, ~21 us at 3.35 TB/s): the bytes bound it. The real limit is, as for K1, the latency
 // of 26 dependent steps, each too small to fill the card alone.
 //
-// Design: K1's step launch with a direction axis in the grid (blockIdx.z).
-// Launch k holds the forward chain's tiles at t = k and the backward
-// chain's at t = T-1-k, twice the blocks of a K1 step, so the card is
-// fuller and one sequence takes T launches where two K1 calls take 2T. The
-// state of each chain lives in its hseq slab, as in K1.
+// Design: the step kernel of gru_fwd_step.cuh, one launch per timestep,
+// with a direction axis in the grid (blockIdx.z). Launch k holds the
+// forward chain's tiles at t = k and the backward chain's at t = T-1-k, so
+// one sequence takes T launches. The state of each chain lives in its hseq
+// slab (the slot of the previous step). K1's design, one persistent launch
+// with U_h's slices resident in shared memory, is not applied here yet.
 
 #include "gru_fwd_step.cuh"
 

@@ -1,6 +1,7 @@
-// The GRU forward step kernel, shared by K1 `gru_fwd` (csrc/gru_fwd.cu, one
-// direction) and K6 `bigru_fwd` (csrc/bigru_fwd.cu, both directions of a
-// bidirectional GRU in each launch). The step math is
+// The GRU forward cell (gru_cell), which K1 `gru_fwd` (csrc/gru_fwd.cu, one
+// persistent launch for all timesteps) and K6 `bigru_fwd`
+// (csrc/bigru_fwd.cu) both apply, and the step kernel that K6 launches once
+// per timestep. The step math is
 // vqa_transfer_externaldata_tpu/ops/gru.py::_gru_cell:
 //
 //   gh = bf16(h) @ U_h                      (f32 accumulation)
@@ -8,9 +9,11 @@
 //   n  = tanh(gx_n + r * (gh_n + b_hn))
 //   h' = (1 - z) * n + z * h                applied only where t < lens[b]
 //
-// A block owns a 16-row x 16-unit tile of h' and so the 48 columns j, H+j,
-// 2H+j of U_h that its three gates need. It stages that U_h slice and its 16
-// rows of h_prev (rounded to bf16, as the reference rounds before its
+// gru_cell holds the elementwise part; both kernels call it, so their gate
+// math is one set of expressions. The step kernel (one launch per timestep,
+// K6): a block owns a 16-row x 16-unit tile of h' and so the 48 columns j,
+// H+j, 2H+j of U_h that its three gates need. It stages that U_h slice and
+// its 16 rows of h_prev (rounded to bf16, as the reference rounds before its
 // matmul) in shared memory with 16-byte loads that are all in flight at
 // once, then three warps take gh for the r, z and n gates on the tensor
 // cores (bf16 WMMA 16x16x16, f32 accumulation), so gh never reaches device
@@ -38,15 +41,31 @@ constexpr int kCLd = kCols + 4;      // tiles (32-byte aligned fragments)
 
 __host__ __device__ constexpr int a_ld(int H) { return H + 8; }
 
+__host__ __device__ constexpr size_t align128(size_t x) {
+  return (x + 127) / 128 * 128;
+}
+
 __host__ __device__ constexpr size_t smem_bytes(int H) {
   // As [16][H+8] bf16 | Bs [H][56] bf16 | Cs [16][52] f32, 128-aligned.
-  return ((static_cast<size_t>(kTile) * a_ld(H) * 2 + 127) / 128) * 128 +
-         ((static_cast<size_t>(H) * kBLd * 2 + 127) / 128) * 128 +
+  return align128(static_cast<size_t>(kTile) * a_ld(H) * 2) +
+         align128(static_cast<size_t>(H) * kBLd * 2) +
          static_cast<size_t>(kTile) * kCLd * 4;
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// One element of the step: x* = gx of the gates, gh* = bf16(h_prev) @ U_h
+// of the gates, hp = the f32 state before the step, live = t < lens[b].
+__device__ __forceinline__ float gru_cell(float xr, float xz, float xn,
+                                          float ghr, float ghz, float ghn,
+                                          float bhn, float hp, bool live) {
+  const float r = sigmoid(xr + ghr);
+  const float z = sigmoid(xz + ghz);
+  const float n = tanhf(xn + r * (ghn + bhn));
+  const float h_new = (1.0f - z) * n + z * hp;
+  return live ? h_new : hp;
 }
 
 // One direction's timestep. h_prev == nullptr means the zero initial state.
@@ -132,13 +151,10 @@ gru_step_kernel(FwdStep d0, FwdStep d1, const int* __restrict__ lens, int B,
   if (b >= B) return;
   const float* gh = Cs + bl * kCLd + jl;
   const float* g = s.gx + b * H3;
-  const float r = sigmoid(g[j] + gh[0]);
-  const float z = sigmoid(g[H + j] + gh[kTile]);
-  const float n = tanhf(g[2 * H + j] + r * (gh[2 * kTile] + s.bhn[j]));
   const size_t o = static_cast<size_t>(b) * H + j;
   const float hp = h_prev != nullptr ? h_prev[o] : 0.0f;
-  const float h_new = (1.0f - z) * n + z * hp;
-  const float h = s.t < lens[b] ? h_new : hp;
+  const float h = gru_cell(g[j], g[H + j], g[2 * H + j], gh[0], gh[kTile],
+                           gh[2 * kTile], s.bhn[j], hp, s.t < lens[b]);
   s.h_out[o] = h;
   if (s.h_final != nullptr) s.h_final[o] = h;
 }

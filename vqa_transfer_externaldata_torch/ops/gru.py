@@ -14,9 +14,10 @@ true length.
 
 ``gru_fused`` runs the recurrence and is differentiable in ``gx_t``, ``uh``
 and ``bhn``: on a CUDA tensor its forward launches the hand-written kernel
-``csrc/gru_fwd.cu`` (K1, wrapper :func:`gru_fwd`) and its backward the BPTT
-kernel ``csrc/gru_bwd.cu`` (K3, wrapper :func:`gru_bwd`); on a CPU tensor
-their plain versions :func:`gru_reference` and :func:`gru_bwd_reference`.
+``csrc/gru_fwd.cu`` (K1, wrapper :func:`gru_fwd`: one persistent launch for
+all timesteps) and its backward the BPTT kernel ``csrc/gru_bwd.cu`` (K3,
+wrapper :func:`gru_bwd`); on a CPU tensor their plain versions
+:func:`gru_reference` and :func:`gru_bwd_reference`.
 The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 
 :class:`BiGRUEncoder` concatenates a forward and a reverse encoder's final
@@ -43,7 +44,7 @@ from torch import nn
 from vqa_transfer_externaldata_torch.ops import kernels
 from vqa_transfer_externaldata_torch.ops.layers import glorot_uniform_
 
-_TILE = 16  # hidden units per block of the step kernel (csrc/gru_fwd.cu)
+_TILE = 16  # hidden units per block of the step kernels (csrc/*_step.cuh)
 
 
 class GRUEncoder(nn.Module):
@@ -225,9 +226,48 @@ def gru_bwd_reference(gx_t: torch.Tensor, hseq: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("gru_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gru_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
+    lib.gru_fwd.argtypes = [p] * 7 + [i] * 5 + [p, p]
     lib.gru_fwd.restype = i
+    lib.gru_fwd_config.argtypes = [i, i, i, p, p, p, p]
+    lib.gru_fwd_config.restype = i
     return lib
+
+
+def _fwd_config(B: int, H: int, rows: int, device: torch.device) -> dict:
+    """The C side's launch of K1 at batch ``B`` and width ``H`` with
+    ``rows`` batch rows a block on CUDA ``device``: its grid ([0, 0] where
+    a row of j-tiles cannot be resident at once), blocks resident per SM
+    (0 where the block's shared memory does not fit) and dynamic shared
+    memory in bytes."""
+    lib = _lib()
+    gx, gy, per_sm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    smem = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = lib.gru_fwd_config(B, H, rows, ctypes.addressof(gx),
+                                ctypes.addressof(gy), ctypes.addressof(per_sm),
+                                ctypes.addressof(smem))
+    kernels.check(lib, rc, "gru_fwd")
+    return {"grid": [gx.value, gy.value], "blocks_per_sm": per_sm.value,
+            "smem_bytes": smem.value}
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_blocks_per_sm(index: int, H: int) -> dict:
+    """K1's blocks resident per SM of card ``index`` at width ``H``, by
+    the batch rows of each of its tilings (``kernels.GRU_FWD_ROWS``)."""
+    dev = torch.device("cuda", index)
+    return {rows: _fwd_config(1, H, rows, dev)["blocks_per_sm"]
+            for rows in kernels.GRU_FWD_ROWS}
+
+
+def _fwd_plan(B: int, H: int, device: torch.device) -> Tuple[dict, dict]:
+    """K1's plan at (B, H) on CUDA ``device``, and the blocks per SM it
+    was given."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    per_sm = _fwd_blocks_per_sm(index, H)
+    plan = kernels.gru_fwd_plan(B, H, kernels.sm_count(device), per_sm)
+    return plan, per_sm
 
 
 def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
@@ -235,9 +275,13 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel K1 (``csrc/gru_fwd.cu``) on CUDA tensors:
     gx_t [T, B, 3H] f32, lens [B] int32, uh [H, 3H] bf16, bhn [H] f32
-    -> (hT [B, H] f32, hseq [T, B, H] f32). Needs H % 16 == 0. One call
-    launches one step kernel per timestep on the current stream and adds
-    the number launched (T) to ``gru_fwd.launches``."""
+    -> (hT [B, H] f32, hseq [T, B, H] f32). Needs H % 16 == 0 and a
+    block's U_h slice and 16-row b-tile to fit in shared memory
+    (H <= 1568). One call makes one cooperative launch of the persistent
+    kernel for all T steps, with the batch rows a block of
+    ``kernels.gru_fwd_plan``, on the current stream and adds it (1) to
+    ``gru_fwd.launches``; it raises when no tiling's grid can be resident
+    on the card at once."""
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_fwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -250,14 +294,31 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
+    plan, _ = _fwd_plan(B, H, dev)
+    return _launch_fwd(gx_t, lens, uh, bhn, reverse, plan["rows"])
+
+
+gru_fwd.launches = 0
+
+
+def _launch_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+                bhn: torch.Tensor, reverse: bool, rows: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch with ``rows`` batch rows a block on inputs that
+    :func:`gru_fwd` has checked (chip_smoke.py also times the tiling that
+    the plan does not take through it)."""
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
     hseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     hT = torch.empty(B, H, dtype=torch.float32, device=dev)
+    hbf = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)
     lib = _lib()
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.gru_fwd(gx_t.data_ptr(), lens.data_ptr(), uh.data_ptr(),
                          bhn.data_ptr(), hseq.data_ptr(), hT.data_ptr(),
-                         T, B, H, int(reverse),
+                         hbf.data_ptr(), T, B, H, int(reverse), rows,
                          torch.cuda.current_stream(dev).cuda_stream,
                          ctypes.addressof(launched))
     gru_fwd.launches += launched.value
@@ -265,7 +326,16 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     return hT, hseq
 
 
-gru_fwd.launches = 0
+def gru_fwd_launch_config(B: int, H: int, device: torch.device) -> dict:
+    """The shape of K1's persistent launch at batch ``B`` and width ``H``
+    on CUDA ``device``: the batch ``rows`` a block that the plan takes,
+    the C side's grid (j-tiles, rows of blocks), blocks resident per SM
+    and dynamic shared memory in bytes at those rows, and the blocks per
+    SM of every tiling that the plan was given (``per_sm_by_rows``).
+    Raises where :func:`gru_fwd` would."""
+    plan, per_sm = _fwd_plan(B, H, device)
+    cfg = _fwd_config(B, H, plan["rows"], device)
+    return {"rows": plan["rows"], **cfg, "per_sm_by_rows": dict(per_sm)}
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,7 +21,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
@@ -163,6 +163,42 @@ def dwv_plan(K: int, C: int, H: int, sms: int, int8: bool = False) -> dict:
             "smem_bytes": 1024 + stages * stage, "splits": splits,
             "chunks_per_split": -(-chunks // splits),
             "grid": [H // bn, C // DWV_TILE, splits]}
+
+
+GRU_FWD_UNITS = 16  # hidden units a block of K1 owns
+GRU_FWD_ROWS = (16, 64)  # batch rows a block of K1 takes, fewest first
+
+
+def gru_fwd_plan(B: int, H: int, sms: int, per_sm: Mapping[int, int]
+                 ) -> dict:
+    """The launch of K1's persistent kernel (``csrc/gru_fwd.cu``) at batch
+    ``B`` and width ``H`` (a multiple of 16) on a card of ``sms`` SMs,
+    where ``per_sm[rows]`` of its blocks of each tiling of
+    ``GRU_FWD_ROWS`` are resident per SM (0 where the block's shared memory
+    does not fit): the batch ``rows`` a block takes, the b-tiles and the
+    grid (H / 16 j-tiles, rows of blocks). 16 rows where every b-tile is
+    resident at once, since a step is shorter the fewer rows of h_prev a
+    block reads; else 64 rows, where a row of j-tiles fits, with as many
+    rows of blocks as fit, each walking b-tiles by, by + grid_y, ... in
+    every step; else 16 rows the same way. The grid is cooperative, so it
+    never exceeds sms x per_sm[rows]; where no tiling has a row of j-tiles
+    resident it raises. The C side (``seq_grid``) derives the same grid
+    from the rows passed to it."""
+    if B < 1 or H < 16 or H % 16 or sms < 1:
+        raise ValueError(f"gru_fwd_plan needs B >= 1, H a positive multiple "
+                         f"of 16 and sms >= 1, got B={B}, H={H}, sms={sms}")
+    jt = H // GRU_FWD_UNITS
+    resident = {r: per_sm.get(r, 0) * sms // jt for r in GRU_FWD_ROWS}
+    fits = [r for r in GRU_FWD_ROWS if resident[r] >= 1]
+    if not fits:
+        raise ValueError(f"gru_fwd_plan: no tiling has a row of {jt} "
+                         f"j-tiles resident at once at H={H} on {sms} SMs "
+                         f"(blocks per SM by rows: {dict(per_sm)})")
+    small = GRU_FWD_ROWS[0]
+    rows = small if resident[small] >= -(-B // small) else fits[-1]
+    tiles = -(-B // rows)
+    return {"rows": rows, "b_tiles": tiles,
+            "grid": [jt, min(tiles, resident[rows])]}
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
