@@ -15,7 +15,8 @@ Run from the repository root. Phases (any failure exits non-zero):
 4. K1 ``gru_fwd`` and K3 ``gru_bwd`` against their plain versions at the
    training shape (B=256, T=26, H=512, lengths 1..26, forward and
    reverse), both versions of K3 fed K1's hseq; the grid, resident blocks
-   per SM and shared memory of K3's persistent step launch, and K1's
+   per SM and shared memory of K3's persistent step launch (against
+   ``kernels.gru_bwd_plan``'s), and K1's
    persistent launch at the training and the serving batch (the grid that
    the C side derives from the plan's rows against
    ``kernels.gru_fwd_plan``'s);
@@ -29,7 +30,10 @@ Run from the repository root. Phases (any failure exits non-zero):
    both at G=2 and G=8 glimpses on the same store;
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
-   K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs);
+   K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs); K7's
+   persistent launch (grid, resident blocks per SM, shared memory) against
+   ``kernels.gru_bwd_plan``'s, and what ptxas reports for the persistent
+   step kernel of K3's and K7's builds (registers, spills, warnings);
 7. K8 ``attention_bwd`` against its plain version at the gathered
    training shape (B=256, N=196, C=2048, H=512, bf16, normalize on and
    off, both fed the same ds and K2's r), and the gathered op's gradients
@@ -111,10 +115,11 @@ Run from the repository root. Phases (any failure exits non-zero):
    rows and inside K8, with its TFLOP/s, beside cuBLAS on the same product
    (the rows gathered apart, the gather timed); the
    gathered op's whole backward with K8 and with the explicit math; K1's
-   and K3's persistent designs against the per-step designs in one call
-   (two K1 calls against K6 and two K3 calls against K7, which walk both
-   directions with one step launch a timestep, on phase 6's inputs; two K1
-   calls must be the faster).
+   persistent design against the per-step one in one call (two K1 calls
+   against K6, which walks both directions with one step launch a
+   timestep, on phase 6's inputs; two K1 calls must be the faster); K7
+   against two K3 calls on phase 6's inputs, in turns in one call (both
+   run the persistent BPTT body, K7 both chains in one launch).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -374,6 +379,32 @@ def phase_build(report: dict) -> None:
           + ")")
 
 
+def bptt_launch(config, batch: int, dev, what: str) -> dict:
+    """The persistent BPTT step launch of K3 or K7 at ``batch`` x H
+    (``kernels.gru_bwd_plan`` on the blocks per SM that the C side
+    reports), printed."""
+    launch = config(batch, H, dev)
+    print(f"{what} persistent step launch at B={batch}, H={H}: grid "
+          + " x ".join(map(str, launch["grid"])) + " blocks of 256 threads "
+          f"(j-tiles x rows x directions) over {launch['b_tiles']} b-tiles, "
+          f"{launch['blocks_per_sm']} resident per SM, "
+          f"{launch['smem_bytes']} B of dynamic shared memory, H <= "
+          f"{launch['max_width']}")
+    return launch
+
+
+def ptxas_entry(text: str, kernel: str) -> list:
+    """The lines of an ``nvcc -Xptxas -v`` report about the entry function
+    whose mangled name holds ``kernel`` (registers, spills, warnings)."""
+    out, inside = [], False
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        if inside or (kernel in line and "warning" in line.lower()):
+            out.append(line.strip())
+    return out
+
+
 def phase_gru(report: dict, dev, gen) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.ops import gru
@@ -490,11 +521,7 @@ def phase_gru_bwd(report: dict, dev, gen) -> dict:
             err = max(err, e)
         if not reverse:
             hseq_fwd = hseq
-    launch = gru.gru_bwd_launch_config(Bt, H, dev)
-    print(f"K3 persistent step launch at B={Bt}, H={H}: grid "
-          f"{launch['grid'][0]} x {launch['grid'][1]} blocks of 256 threads, "
-          f"{launch['blocks_per_sm']} resident per SM, "
-          f"{launch['smem_bytes']} B of dynamic shared memory")
+    launch = bptt_launch(gru.gru_bwd_launch_config, Bt, dev, "K3")
     report["gru_bwd_launch"] = launch
     # K1's persistent launch at the training and the serving batch: the
     # grid that the C side derives from the plan's rows and its occupancy
@@ -996,8 +1023,17 @@ def phase_bigru(report: dict, dev, gen) -> dict:
         checks.append({"output": name, "max_abs_err": e, "rel_err": rel,
                        "rel_tol": TOL_K3_REL, "diff_vs_k3": d})
         err7, diff7 = max(err7, e), max(diff7, d)
+    launch = bptt_launch(gru.bigru_bwd_launch_config, Bt, dev, "K7")
+    # What ptxas says of the persistent step kernel in each build: K7's
+    # instance picks its direction's arguments at run time.
+    ptxas = {name: ptxas_entry(report["ptxas"].get(name, ""),
+                               "gru_bptt_kernel")
+             for name in ("gru_bwd", "bigru_bwd")}
+    for name, lines in ptxas.items():
+        print(f"ptxas on gru_bptt_kernel in {name}.cu: " + " | ".join(lines))
     return {"args": args, "bargs": bargs, "err6": err6, "diff6": diff6,
-            "err7": err7, "diff7": diff7, "checks7": checks}
+            "err7": err7, "diff7": diff7, "checks7": checks,
+            "launch7": launch, "ptxas_bptt": ptxas}
 
 
 def write_run(train_dir: str) -> None:
@@ -1600,10 +1636,10 @@ def phase_stage1(report: dict, dev, root: str) -> dict:
         torch.cuda.synchronize()
         run["fit_s"] = time.perf_counter() - t0
         launches = read_counts()
-        # K6: one launch a timestep for both chains; K7: one a timestep
-        # plus the dU_h GEMM and the db_hn sum.
+        # K6: one launch a timestep for both chains; K7: the persistent
+        # step kernel, the dU_h GEMM and the db_hn sum, both chains each.
         check_launches(launches, {"bigru_fwd": T * n_steps,
-                                  "bigru_bwd": (T + 2) * n_steps},
+                                  "bigru_bwd": 3 * n_steps},
                        f"stage-1 training ({tag}) over {n_steps} steps")
         check(state.step == n_steps, f"stage 1 ({tag}): {state.step} steps")
         run["launches"] = launches
@@ -2244,27 +2280,10 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     times["gru_bwd"]["library_call"] = (
         f"backward of torch.nn.GRU({D}, {H}) in bfloat16 over a packed "
         "sequence, input-projection gradients included")
-    # K3's persistent design against the per-step one, in one call and in
-    # turns (old, new, new, old): K7 walks both directions of phase 6's
-    # inputs with one step launch a timestep, two K3 calls walk them with
-    # one persistent launch each; the outputs are the same bits.
-    (gxf, gxb, hsf, hsb, lens7, uhf, uhb, bhnf, bhnb, ghTf,
-     ghTb) = k67["bargs"]
-
-    def old_pair():
-        gru.bigru_bwd(*k67["bargs"])
-
-    def new_pair():
-        gru.gru_bwd(gxf, hsf, lens7, uhf, bhnf, ghTf)
-        gru.gru_bwd(gxb, hsb, lens7, uhb, bhnb, ghTb, reverse=True)
-
-    pair = [time_cuda(f, buf) for f in (old_pair, new_pair, new_pair,
-                                        old_pair)]
-    times["gru_bwd"]["old_design_pair"] = (pair[0] + pair[3]) / 2
-    times["gru_bwd"]["new_design_pair"] = (pair[1] + pair[2]) / 2
-    # The same for K1: K6 walks both directions of phase 6's inputs with
-    # one step launch a timestep, two K1 calls walk them with one persistent
-    # launch each, to the same bits.
+    # K1's persistent design against the per-step one, in one call and in
+    # turns (old, new, new, old): K6 walks both directions of phase 6's
+    # inputs with one step launch a timestep, two K1 calls walk them with
+    # one persistent launch each, to the same bits.
     gxf6, gxb6, lens6, uhf6, uhb6, bhnf6, bhnb6 = k67["args"]
 
     def old_fwd_pair():
@@ -2432,8 +2451,22 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                         "bfloat16 over a packed sequence, input projection "
                         "included",
     }
+    # K7 beside two K3 calls on the same inputs, in turns (K7, two K3, two
+    # K3, K7): both run the persistent BPTT body, K7 both chains in one
+    # launch of 2 b-tiles a block, K3 one chain a launch of 1.
+    (gxf, gxb, hsf, hsb, lens7, uhf, uhb, bhnf, bhnb, ghTf, ghTb) = bargs
+
+    def k7_call():
+        gru.bigru_bwd(*bargs)
+
+    def two_k3():
+        gru.gru_bwd(gxf, hsf, lens7, uhf, bhnf, ghTf)
+        gru.gru_bwd(gxb, hsb, lens7, uhb, bhnb, ghTb, reverse=True)
+
+    turns = [time_cuda(f, buf) for f in (k7_call, two_k3, two_k3, k7_call)]
     times["bigru_bwd"] = {
-        "kernel": time_cuda(lambda: gru.bigru_bwd(*bargs), buf),
+        "kernel": (turns[0] + turns[3]) / 2,
+        "two_k3": (turns[1] + turns[2]) / 2,
         "plain": time_cuda(lambda: gru.bigru_bwd_reference(*bargs), buf),
         "library": time_cuda(lambda: torch.autograd.grad(
             h6, wrt6, g6, retain_graph=True), buf),
@@ -2541,9 +2574,9 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     print(f"K1 design pair (both directions): per-step (K6) "
           f"{times['gru_fwd']['old_design_pair']:.4f} ms, persistent (two "
           f"K1 calls) {times['gru_fwd']['new_design_pair']:.4f} ms")
-    print(f"K3 design pair (both directions): per-step (K7) "
-          f"{times['gru_bwd']['old_design_pair']:.4f} ms, persistent (two "
-          f"K3 calls) {times['gru_bwd']['new_design_pair']:.4f} ms")
+    print(f"K7 against two K3 calls in turns (both directions): K7 "
+          f"{times['bigru_bwd']['kernel']:.4f} ms, two K3 calls "
+          f"{times['bigru_bwd']['two_k3']:.4f} ms")
     print(f"gathered backward A/B: with K8 "
           f"{times['attention_bwd']['op_backward_with_kernel']:.4f} ms, "
           f"explicit {times['attention_bwd']['explicit_backward']:.4f} ms")
@@ -2643,10 +2676,12 @@ def main(argv=None) -> int:
     # dwv_stage_g1 / dwv_stage, with cuBLAS on the same product (library_ms
     # of the whole kernel stays null: no one PyTorch call computes it).
     # P1's time is at Q=1, with every Q under by_q; its library call is
-    # cuBLAS on the gathered rows, the gather timed apart. K3's
-    # old_design_pair_ms is K7 on phase 6's inputs (one step launch a
-    # timestep for both directions), its new_design_pair_ms two K3 calls on
-    # the same inputs, in one call; K1's the same with K6. K1 lists its
+    # cuBLAS on the gathered rows, the gather timed apart. K1's
+    # old_design_pair_ms is K6 on phase 6's inputs (one step launch a
+    # timestep for both directions), its new_design_pair_ms two K1 calls on
+    # the same inputs, in one call. K7's time is taken in turns with two K3
+    # calls on its inputs (two_k3_ms); it lists its persistent launch and
+    # what ptxas reports for the persistent step kernel. K1 lists its
     # persistent launch at both batches, its time a step (T=26 against T=1)
     # and the warnings of its nvcc log.
     src = "vqa_transfer_externaldata_torch/csrc/"
@@ -2679,9 +2714,7 @@ def main(argv=None) -> int:
             max(max(c["v_att_err"], c["alpha_err"]) for c in k2["checks"]),
             {"checks": k2["checks"]}),
         "gru_bwd": (ref + "gru.py:259", k3["err"], {
-            "checks": k3["checks"], "persistent_launch": k3["launch"],
-            "old_design_pair_ms": times["gru_bwd"]["old_design_pair"],
-            "new_design_pair_ms": times["gru_bwd"]["new_design_pair"]}),
+            "checks": k3["checks"], "persistent_launch": k3["launch"]}),
         "attention_resident_fwd": (
             ref + "attention_resident.py:150", max(k45["err4"], k45g["err4"]),
             {"glimpses": "1-8", "checks": k45["checks4"] + k45g["checks4"],
@@ -2698,7 +2731,10 @@ def main(argv=None) -> int:
             "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"]}),
         "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
             "checks": k67["checks7"],
-            "diff_vs_two_k3_calls": k67["diff7"]}),
+            "diff_vs_two_k3_calls": k67["diff7"],
+            "persistent_launch": k67["launch7"],
+            "ptxas_gru_bptt_kernel": k67["ptxas_bptt"],
+            "two_k3_ms": times["bigru_bwd"]["two_k3"]}),
         "attention_bwd": (ref + "attention.py:267", k8["err"], {
             "checks": k8["checks"], "op_grad_cos_vs_explicit":
             k8["op_grad_cos"],

@@ -3,8 +3,9 @@ the 64-row tile, its launch shape against kernels.gru_fwd_plan, under CUDA
 graph capture, and two calls bit-equal), K2 (attention_fwd), K3 (gru_bwd), K4
 (attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
 glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
-tiles, and two calls bit-equal), K6 (bigru_fwd), K7
-(bigru_bwd) and K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
+tiles, and two calls bit-equal), K6 (bigru_fwd), K7 (bigru_bwd; also
+its launch shape, under CUDA graph capture, and two calls bit-equal) and
+K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
 P2 (probe_bwd_ceiling) on the card against their plain PyTorch
 versions; K5 and K8 also at the edges of the dW_v GEMM's tiles that they
 share with P2 (csrc/attention_dwv.cuh), its launch shape, and two calls of
@@ -21,10 +22,11 @@ by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
 (bf16 activations between layers). K3-K5 are held relative to the largest
 value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
 saved h 2^-7, K5 2^-9. K6 launches the forward step kernel once a
-timestep for both directions, K7 one BPTT step launch a timestep, and the
-persistent launches of K1 and K3 take the same products in the same
-order: h as K1's, K7 as K3's, and each of K6 and K7 equals two K1 (K3)
-calls on the same inputs bit for bit.
+timestep for both directions, and K1's persistent launch takes the same
+products in the same order, so h is K1's; K7 runs K3's persistent kernels
+with a direction axis (one cooperative launch for all steps of both
+chains). Each of K6 and K7 equals two K1 (K3) calls on the same inputs bit
+for bit.
 K8 recomputes z, so a unit whose z lies
 within rounding of 0 may take the other side of the ReLU in one version:
 each output is held to 2^-9 of its largest value plus, per entry, what such
@@ -309,10 +311,14 @@ def _k3_k7_inputs(dev, T, B, H, reverse, seed=11):
 @pytest.mark.parametrize("T", [1, 26])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_bwd_equals_k7_direction_bit_for_bit(dev, B, T, reverse):
-    """K3's persistent launch moves data differently from the per-step
-    launches that K7 still makes, with the same products in the same
-    order: its outputs equal K7's matching direction bit for bit (B=17 a
-    ragged b-tile, B=1024 more b-tiles than resident blocks)."""
+    """K3 and K7 run one persistent body (gru_bwd_step.cuh): K3 one
+    direction on 4 rows of blocks at H=512, K7 both on 2 rows each, so each
+    of K7's blocks walks twice the b-tiles. Each block's products, their
+    order and its partial slots are those of a K3 call with the same
+    `reverse`, and every direction's bf16 copy of the states is written by
+    that direction's blocks: K3's outputs equal K7's matching direction bit
+    for bit (B=17 a ragged b-tile, B=1024 more b-tiles than resident
+    blocks, T=1 no step with a pre-step state)."""
     H = 512
     mine = _k3_k7_inputs(dev, T, B, H, reverse)
     other = _k3_k7_inputs(dev, T, B, H, not reverse, seed=13)
@@ -346,12 +352,13 @@ def test_gru_bwd_launch_shape_and_limit(dev):
     rows of blocks, one a SM; a width whose U_h slices do not fit in shared
     memory raises instead of falling back."""
     cfg = gru.gru_bwd_launch_config(256, 512, dev)
-    assert cfg["grid"] == [32, 4]
+    assert cfg["grid"] == [32, 4, 1]
     assert cfg["blocks_per_sm"] >= 1
     assert cfg["smem_bytes"] <= 232448
+    assert cfg["max_width"] == 576
     assert gru.gru_bwd_launch_config(1024, 512, dev)["grid"][0] == 32
     gx, hseq, lens, uh, bhn, ghT = _k3_k7_inputs(dev, 2, 4, 640, False)
-    with pytest.raises(RuntimeError, match="gru_bwd"):
+    with pytest.raises(RuntimeError, match="gru_bwd.*H <= 576"):
         gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT)
 
 
@@ -754,7 +761,7 @@ def test_bigru_fwd_bwd_match_plain_and_one_direction_kernels(dev, shape):
     one_f = gru.gru_bwd(gxf, hsf, lens, uhf, bhnf, ghTf)
     one_b = gru.gru_bwd(gxb, hsb, lens, uhb, bhnb, ghTb, reverse=True)
     torch.cuda.synchronize()
-    assert gru.bigru_bwd.launches == before + T + 2
+    assert gru.bigru_bwd.launches == before + 3  # steps, dU_h, db_hn
     names = ("dgxf", "dgxb", "duhf", "duhb", "dbhnf", "dbhnb")
     ones = (one_f[0], one_b[0], one_f[1], one_b[1], one_f[2], one_b[2])
     for name, a, b, c in zip(names, got, want, ones):
@@ -775,6 +782,78 @@ def test_bigru_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="H % 64"):
         gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghT,
                       ghT)
+    # Past H = 576 U_h's slices do not fit in a block's shared memory: it
+    # raises, as K3 does, naming the limit.
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 2, 4, 640)
+    hs = torch.zeros(2, 4, 640, device=dev)
+    ghT = torch.zeros(4, 640, device=dev)
+    before = gru.bigru_bwd.launches
+    with pytest.raises(RuntimeError, match="bigru_bwd.*H <= 576"):
+        gru.bigru_bwd(gxf, gxb, hs, hs, lens, uhf, uhb, bhnf, bhnb, ghT,
+                      ghT)
+    assert gru.bigru_bwd.launches == before
+
+
+def _k7_args(dev, T, B, H, seed):
+    """K7's inputs, its hseqs from the plain forward."""
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, T, B, H, seed)
+    _, _, hsf, hsb = gru.bigru_reference(gxf, gxb, lens, uhf, uhb, bhnf,
+                                         bhnb)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    ghTf = torch.randn(B, H, generator=g, device=dev)
+    ghTb = torch.randn(B, H, generator=g, device=dev)
+    return gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb
+
+
+@pytest.mark.parametrize("B", [256, 1024])
+def test_bigru_bwd_is_deterministic(dev, B):
+    """Two K7 calls on the same inputs give the same bits: the grid barrier
+    orders every exchange between blocks of both chains, and no result
+    takes atomics."""
+    args = _k7_args(dev, 26, B, 512, seed=21)
+    first = gru.bigru_bwd(*args)
+    second = gru.bigru_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bigru_bwd_captures_in_a_cuda_graph(dev):
+    """K7's cooperative launch and the two launches after it are accepted
+    under stream capture, and the graph's replay on new inputs equals an
+    eager call on them."""
+    args = _k7_args(dev, 26, 256, 512, seed=23)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gru.bigru_bwd(*args)  # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = gru.bigru_bwd.launches
+    with torch.cuda.graph(graph):
+        got = gru.bigru_bwd(*args)
+    assert gru.bigru_bwd.launches == before + 3
+    for a, b in zip(args, _k7_args(dev, 26, 256, 512, seed=25)):
+        a.copy_(b)
+    graph.replay()
+    want = gru.bigru_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_bigru_bwd_launch_shape(dev):
+    """At the stage-1 shape K7's step kernel runs 32 j-tiles x 2 rows x 2
+    directions, one block an SM: both chains' 128 blocks resident at once,
+    each walking 2 of the 4 b-tiles a step (B=1024: 8 each); a single
+    b-tile takes one row."""
+    cfg = gru.bigru_bwd_launch_config(256, 512, dev)
+    assert cfg["grid"] == [32, 2, 2] and cfg["b_tiles"] == 4
+    assert cfg["blocks_per_sm"] == 1 and cfg["max_width"] == 576
+    assert cfg["smem_bytes"] == gru.gru_bwd_launch_config(
+        256, 512, dev)["smem_bytes"] <= 232448
+    assert gru.bigru_bwd_launch_config(17, 512, dev)["grid"] == [32, 1, 2]
+    assert gru.bigru_bwd_launch_config(1024, 512, dev)["grid"] == [32, 2, 2]
 
 
 def test_fused_bigru_encoder_goes_through_k6_k7(dev):
@@ -792,7 +871,7 @@ def test_fused_bigru_encoder_goes_through_k6_k7(dev):
         return torch.cat([enc.fwd(x, mask), enc.bwd(x, mask)], dim=-1)
 
     res = []
-    for fn, want in ((enc, [6, 8, 0, 0]), (two_encoders, [0, 0, 2, 6])):
+    for fn, want in ((enc, [6, 3, 0, 0]), (two_encoders, [0, 0, 2, 6])):
         enc.zero_grad()
         counts = [getattr(gru, n).launches for n in
                   ("bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")]

@@ -3,8 +3,10 @@
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_gru_bwd_kernel (the
 // Pallas body launched by _gru_pallas_bwd_call); the step math is that
-// file's _gru_cell_bwd, written out in gru_bwd_step.cuh (whose kernels K7
-// runs; K3 takes only its db_hn sum from there).
+// file's _gru_cell_bwd. The kernels and their launch are gru_bwd_step.cuh's,
+// which K7 (csrc/bigru_bwd.cu) runs on both directions of a bidirectional
+// GRU: here on one direction, so each of K7's directions equals a K3 call
+// bit for bit.
 //
 // What bounds it on an H100: at B=256, T=26, H=512 the three products of a
 // live row-step (gh, the U_h^T product, dU_h) are 6 * H * 3H operations
@@ -14,526 +16,13 @@
 // dependent steps, each of which needs every block's gate cotangents of the
 // step before.
 //
-// Design: the TPU kernel walks a sequential grid of T steps with dh in VMEM
-// and dU_h in a resident output block. Here:
-//
-//  1. gru_bptt_kernel, ONE cooperative launch for all T steps. Block
-//     (jt, bb) owns the 16 hidden units j0 = 16 jt.. for the whole call and
-//     keeps two slices of U_h in shared memory throughout: its 48 columns
-//     {j0, H+j0, 2H+j0} + 0..15 (the B operand of gh) and its rows
-//     j0..j0+15 (the B operand of the U_h^T product). It first writes the
-//     bf16 copy of the pre-step states that the steps and the dU_h GEMM
-//     read (rounded as the step kernels of gru_bwd_step.cuh round h_prev),
-//     then walks the steps, separated by grid-wide barriers; within a step
-//     it walks its 64-row b-tiles (bb, bb + gridDim.y, ...). A b-tile
-//     streams bf16(h_prev) and the previous step's bf16 gate cotangents
-//     G_prev through a 3-stage ring of cp.async copies, 64 columns of each
-//     gate a stage; warp pair rb (16 rows) splits into a warp that
-//     accumulates gh for the 3 gates and one that accumulates the 3 gate
-//     chunks of G_prev U_h^T. The elementwise BPTT, its operands loaded into
-//     registers ahead of the mainloop, then writes dgx, G_t, the carried dh
-//     (`dhe`, read and written by the same thread) and the per-16-row dgh_n
-//     partials. G_t is the only state that blocks exchange.
-//  2. gru_duh_pipe_kernel: dU_h = sum_t bf16(h_prev_t)^T G_t over the
-//     (T-1) B rows of the sequence, 128 x 64 tiles, 8 warps of 32 x 32, a
-//     4-stage cp.async ring of 128-row K slices of the bf16 copy and of G
-//     (both k-major, so their fragments load through ldmatrix's transpose).
-//  3. gru_dbhn_kernel (gru_bwd_step.cuh): db_hn as a fixed-order sum of the
-//     per-step partials.
-//
-// The copy, ldmatrix and mma.sync primitives are mma_sync.cuh's, which K1's
-// persistent kernel (gru_fwd.cu) runs too.
-//
-// Bit-equal to the step kernels of gru_bwd_step.cuh (K7 runs them): every
-// 16x16 fragment of gh, of each U_h^T chunk and of dU_h is one chain of
-// 16x16x16 bf16 products (the two HMMA.16816 that their WMMA compiles to)
-// in ascending 16-steps of k over the same k-steps, dh is
-// ((dhe + P0) + P1) + P2, the elementwise math is the same, and db_hn sums
-// the same partials in the same order. No atomics: the result is
-// deterministic.
-
-#include <cooperative_groups.h>
+// Design (gru_bwd_step.cuh): one cooperative launch of the persistent step
+// kernel for all T steps, 32 j-tiles x 4 rows of 64-row b-tile blocks at
+// B=256, H=512, one block an SM with U_h's slices resident in shared
+// memory; then the pipelined dU_h GEMM and the fixed-order db_hn sum: 3
+// launches a call. No atomics: the result is deterministic.
 
 #include "gru_bwd_step.cuh"
-#include "mma_sync.cuh"
-
-namespace {
-
-namespace cgrp = cooperative_groups;
-
-constexpr int kRows = 64;            // batch rows of a b-tile
-constexpr int kKc = 64;              // columns of each gate in a ring stage
-constexpr int kStages = 3;           // depth of the step's cp.async ring
-constexpr int kHLd = kKc + 8;        // h_prev stage [64][72] bf16
-constexpr int kGsLd = 3 * kKc + 8;   // G_prev stage [64][200] bf16
-constexpr size_t kStageBytes =
-    static_cast<size_t>(kRows) * (kHLd + kGsLd) * 2;
-constexpr size_t kCsBytes = static_cast<size_t>(kRows) * kCLd * 4;
-constexpr size_t kPsBytes = 3 * static_cast<size_t>(kRows) * kPLd * 4;
-static_assert(kCsBytes + kPsBytes <= kStages * kStageBytes,
-              "gh and the U_h^T chunks reuse the ring after the mainloop");
-static_assert(kRows * kKc / 8 % kThreads == 0, "whole copies a thread");
-
-// Uc [H][56] bf16 | Ur [16][3H+8] bf16 | ring [3][64][72 + 200] bf16,
-// which after a tile's mainloop holds Cs [64][52] f32 and Ps [3][64][20]
-// f32 | Rs [64][16] f32
-__host__ __device__ constexpr size_t p_off_ur(int H) {
-  return align128(static_cast<size_t>(H) * kBLd * 2);
-}
-__host__ __device__ constexpr size_t p_off_ring(int H) {
-  return p_off_ur(H) + align128(static_cast<size_t>(kTile) * g_ld(H) * 2);
-}
-__host__ __device__ constexpr size_t p_off_cs(int H) { return p_off_ring(H); }
-__host__ __device__ constexpr size_t p_off_ps(int H) {
-  return p_off_cs(H) + kCsBytes;
-}
-__host__ __device__ constexpr size_t p_off_rs(int H) {
-  return p_off_ring(H) + kStages * kStageBytes;
-}
-__host__ __device__ constexpr size_t bptt_smem_bytes(int H) {
-  return p_off_rs(H) + static_cast<size_t>(kRows) * kTile * 4;
-}
-
-struct Bptt {
-  const float* gx;               // [T, B, 3H]
-  const float* hseq;             // [T, B, H] f32 (K1's residual)
-  __nv_bfloat16* hbf;            // [T, B, H] bf16 copy (pre-step slices)
-  const int* lens;               // [B]
-  const __nv_bfloat16* uh;       // [H, 3H]
-  const float* bhn;              // [H]
-  float* dhe;                    // [B, H] in/out
-  float* dgx;                    // [T, B, 3H]
-  __nv_bfloat16* g;              // [T, B, 3H]
-  float* part;                   // [T, ceil(B/16), H]
-  int T, B, H, reverse;
-};
-
-__global__ void __launch_bounds__(kThreads, 1)
-gru_bptt_kernel(Bptt p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int H = p.H;
-  const int B = p.B;
-  const int T = p.T;
-  const size_t H3 = 3 * static_cast<size_t>(H);
-  const size_t step_h = static_cast<size_t>(B) * H;
-  const size_t step_gx = static_cast<size_t>(B) * H3;
-  const int ldr = g_ld(H);
-  __nv_bfloat16* Uc = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ur = reinterpret_cast<__nv_bfloat16*>(smem + p_off_ur(H));
-  unsigned char* ring = smem + p_off_ring(H);
-  float* Cs = reinterpret_cast<float*>(smem + p_off_cs(H));
-  float* Ps = reinterpret_cast<float*>(smem + p_off_ps(H));
-  float* Rs = reinterpret_cast<float*>(smem + p_off_rs(H));
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int j0 = blockIdx.x * kTile;
-
-  // U_h columns j0.., H+j0.., 2H+j0.. of every row, and rows j0..j0+15.
-  for (int i = tid; i < H * 6; i += kThreads) {
-    const int k = i / 6;
-    const int sl = i - k * 6;
-    const int g = sl >> 1;
-    const int half = (sl & 1) * 8;
-    cp_async16(Uc + k * kBLd + g * kTile + half,
-               p.uh + k * H3 + g * H + j0 + half, true);
-  }
-  const int v8 = static_cast<int>(H3 / 8);
-  for (int i = tid; i < kTile * v8; i += kThreads) {
-    const int row = i / v8;
-    const int c = (i - row * v8) * 8;
-    cp_async16(Ur + row * ldr + c, p.uh + (j0 + row) * H3 + c, true);
-  }
-  cp_async_commit();
-
-  // bf16 copy of the pre-step states: hseq[0..T-2] (forward) or
-  // hseq[1..T-1] (reverse), four floats a thread and load, 8 loads in
-  // flight a pass.
-  if (T > 1) {
-    constexpr int kBatch = 8;
-    const size_t off = p.reverse ? step_h : 0;
-    const float4* src = reinterpret_cast<const float4*>(p.hseq + off);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.hbf + off);
-    const size_t n4 = (T - 1) * step_h / 4;
-    const size_t nthreads =
-        static_cast<size_t>(gridDim.x) * gridDim.y * kThreads;
-    for (size_t i0 = (static_cast<size_t>(blockIdx.y) * gridDim.x +
-                      blockIdx.x) * kThreads + tid;
-         i0 < n4; i0 += kBatch * nthreads) {
-      float4 h[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const size_t i = i0 + u * nthreads;
-        if (i < n4) h[u] = __ldg(src + i);
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const size_t i = i0 + u * nthreads;
-        if (i < n4) {
-          dst[2 * i] = __floats2bfloat162_rn(h[u].x, h[u].y);
-          dst[2 * i + 1] = __floats2bfloat162_rn(h[u].z, h[u].w);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  cgrp::grid_group grid = cgrp::this_grid();
-  grid.sync();
-
-  const int nbt = (B + kTile - 1) / kTile;
-  const int ntiles = (B + kRows - 1) / kRows;
-  const int nchunk = H / kKc;
-  const int rb = warp >> 1;            // the warp's 16 rows of the b-tile
-  const bool gate_warp = (warp & 1) == 0;
-  const int jl = tid & (kTile - 1);
-  const int j = j0 + jl;
-  const float bhn_j = __ldg(p.bhn + j);
-
-  for (int k = 0; k < T; ++k) {
-    const int t = p.reverse ? k : T - 1 - k;
-    const bool first = p.reverse ? t == T - 1 : t == 0;
-    const size_t tp = static_cast<size_t>(p.reverse ? t + 1 : t - 1);
-    // h_prev == null: the zero initial state (its bf16 tile is zero-filled
-    // and gh still runs, as in the step kernels). g_prev == null: the
-    // first BPTT step, whose dh is `dhe` as given.
-    const __nv_bfloat16* hb = first ? nullptr : p.hbf + tp * step_h;
-    const float* hf = first ? nullptr : p.hseq + tp * step_h;
-    const __nv_bfloat16* gp =
-        k == 0 ? nullptr : p.g + (p.reverse ? t - 1 : t + 1) * step_gx;
-    const float* gxt = p.gx + t * step_gx;
-    float* dgxt = p.dgx + t * step_gx;
-    __nv_bfloat16* gt = p.g + t * step_gx;
-    float* part = p.part + static_cast<size_t>(k) * nbt * H;
-
-    for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y) {
-      const int b0 = bt * kRows;
-      // Stage c: columns c*64.. of bf16(h_prev), and of each gate of G_prev,
-      // 16 bytes a copy.
-      auto load_stage = [&](int c, int slot) {
-        constexpr int kV = kKc / 8;
-        __nv_bfloat16* Ah =
-            reinterpret_cast<__nv_bfloat16*>(ring + slot * kStageBytes);
-        __nv_bfloat16* Ag = Ah + kRows * kHLd;
-#pragma unroll
-        for (int u = 0; u < kRows * kV / kThreads; ++u) {
-          const int i = tid + u * kThreads;
-          const int row = i / kV;
-          const int q = (i - row * kV) * 8;
-          const int b = b0 + row;
-          const bool ok = hb != nullptr && b < B;
-          cp_async16(Ah + row * kHLd + q,
-                     ok ? hb + static_cast<size_t>(b) * H + c * kKc + q
-                        : p.hbf,
-                     ok);
-        }
-        if (gp != nullptr) {
-#pragma unroll
-          for (int u = 0; u < kRows * 3 * kV / kThreads; ++u) {
-            const int i = tid + u * kThreads;
-            const int row = i / (3 * kV);
-            const int r = i - row * 3 * kV;
-            const int g = r / kV;
-            const int q = (r - g * kV) * 8;
-            const int b = b0 + row;
-            const bool ok = b < B;
-            cp_async16(Ag + row * kGsLd + g * kKc + q,
-                       ok ? gp + b * H3 + g * H + c * kKc + q : gp, ok);
-          }
-        }
-      };
-
-      // The elementwise operands of the thread's 4 rows, loaded ahead of
-      // the mainloop so that it hides their latency. Only `dhe` changes
-      // during the call, and only this thread writes its entries.
-      float xr[4], xz[4], xn[4], hpv[4], dhv[4];
-      int lenv[4];
-#pragma unroll
-      for (int q = 0; q < kRows / 16; ++q) {
-        const int b = b0 + (tid >> 4) + 16 * q;
-        xr[q] = xz[q] = xn[q] = hpv[q] = dhv[q] = 0.0f;
-        lenv[q] = 0;
-        if (b < B) {
-          const size_t o = static_cast<size_t>(b) * H + j;
-          const float* g = gxt + b * H3;
-          xr[q] = __ldg(g + j);
-          xz[q] = __ldg(g + H + j);
-          xn[q] = __ldg(g + 2 * H + j);
-          hpv[q] = hf != nullptr ? __ldg(hf + o) : 0.0f;
-          dhv[q] = p.dhe[o];
-          lenv[q] = __ldg(p.lens + b);
-        }
-      }
-
-      float acc[3][8];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[g][e] = 0.0f;
-#pragma unroll
-      for (int s = 0; s < kStages - 1; ++s) {
-        if (s < nchunk) load_stage(s, s);
-        cp_async_commit();
-      }
-      for (int c = 0; c < nchunk; ++c) {
-        cp_async_wait<kStages - 2>();
-        __syncthreads();
-        const int nx = c + kStages - 1;
-        if (nx < nchunk) load_stage(nx, nx % kStages);
-        cp_async_commit();
-        const __nv_bfloat16* Ah = reinterpret_cast<const __nv_bfloat16*>(
-            ring + (c % kStages) * kStageBytes);
-        const __nv_bfloat16* Ag = Ah + kRows * kHLd;
-        if (gate_warp) {
-          // gh = bf16(h_prev) U_h for the 3 gates of rows rb*16..; U_h's
-          // columns sit k-major in Uc.
-#pragma unroll
-          for (int ks = 0; ks < kKc; ks += 16) {
-            unsigned af[4];
-            load_a(af, Ah + rb * 16 * kHLd + ks, kHLd, lane);
-#pragma unroll
-            for (int g = 0; g < 3; ++g) {
-              unsigned bf[4];
-              load_b_kmajor(bf, Uc + (c * kKc + ks) * kBLd + g * kTile,
-                            kBLd, lane);
-              mma16(acc[g], af, bf);
-            }
-          }
-        } else if (gp != nullptr) {
-          // gate chunk g of G_prev U_h^T; U_h's rows are the columns of
-          // U_h^T, so Ur holds that B operand n-major.
-#pragma unroll
-          for (int g = 0; g < 3; ++g) {
-#pragma unroll
-            for (int ks = 0; ks < kKc; ks += 16) {
-              unsigned af[4], bf[4];
-              load_a(af, Ag + rb * 16 * kGsLd + g * kKc + ks, kGsLd, lane);
-              load_b_nmajor(bf, Ur + g * H + c * kKc + ks, ldr, lane);
-              mma16(acc[g], af, bf);
-            }
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();  // Cs and Ps overwrite the ring
-      if (gate_warp) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-          store_acc(Cs + rb * 16 * kCLd + g * kTile, kCLd, acc[g], lane);
-      } else if (gp != nullptr) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-          store_acc(Ps + (g * kRows + rb * 16) * kPLd, kPLd, acc[g], lane);
-      }
-      __syncthreads();
-
-      // The elementwise step of gru_bwd_step.cuh, 4 rows a thread.
-#pragma unroll
-      for (int q = 0; q < kRows / 16; ++q) {
-        const int bl = (tid >> 4) + 16 * q;
-        const int b = b0 + bl;
-        float dgh_n = 0.0f;
-        if (b < B) {
-          const size_t o = static_cast<size_t>(b) * H + j;
-          float dh = dhv[q];
-          if (gp != nullptr) {
-            const int pi = bl * kPLd + jl;
-            dh = ((dh + Ps[pi]) + Ps[kRows * kPLd + pi]) +
-                 Ps[2 * kRows * kPLd + pi];
-          }
-          const float* gh = Cs + bl * kCLd + jl;
-          const float ghn_b = gh[2 * kTile] + bhn_j;
-          const float r = sigmoid(xr[q] + gh[0]);
-          const float z = sigmoid(xz[q] + gh[kTile]);
-          const float n = tanhf(xn[q] + r * ghn_b);
-          const float hp = hpv[q];
-          const float m = t < lenv[q] ? 1.0f : 0.0f;
-          const float dh_new = m * dh;
-          const float dhp = (1.0f - m) * dh + dh_new * z;
-          const float dz = dh_new * (hp - n);
-          const float dn = dh_new * (1.0f - z);
-          const float da_n = dn * (1.0f - n * n);
-          const float dr = da_n * ghn_b;
-          dgh_n = da_n * r;
-          const float da_r = dr * r * (1.0f - r);
-          const float da_z = dz * z * (1.0f - z);
-          float* dg = dgxt + b * H3;
-          dg[j] = da_r;
-          dg[H + j] = da_z;
-          dg[2 * H + j] = da_n;
-          __nv_bfloat16* go = gt + b * H3;
-          go[j] = __float2bfloat16(da_r);
-          go[H + j] = __float2bfloat16(da_z);
-          go[2 * H + j] = __float2bfloat16(dgh_n);
-          p.dhe[o] = dhp;
-        }
-        Rs[bl * kTile + jl] = dgh_n;
-      }
-      __syncthreads();
-      if (tid < kRows) {  // dgh_n summed over each 16-row group, in order
-        const int grp = tid >> 4;
-        const int bt16 = b0 / kTile + grp;
-        float sum = 0.0f;
-        for (int i = 0; i < kTile; ++i) {
-          sum += Rs[(grp * kTile + i) * kTile + jl];
-        }
-        if (bt16 < nbt) part[static_cast<size_t>(bt16) * H + j] = sum;
-      }
-    }
-    if (k + 1 < T) grid.sync();
-  }
-}
-
-constexpr int kDM = 128;  // dU_h rows (hidden units i) per block
-constexpr int kDN = 64;   // dU_h columns (gate outputs) per block
-constexpr int kDK = 128;  // rows of K per ring stage
-constexpr int kDStages = 4;
-constexpr int kDALd = kDM + 8;
-constexpr int kDBLd = kDN + 8;
-constexpr size_t kDStageBytes =
-    static_cast<size_t>(kDK) * (kDALd + kDBLd) * 2;
-constexpr size_t kDuhSmem = kDStages * kDStageBytes;
-
-// dU_h [H, 3H] = sum_k hp[k, :]^T g[k, :] over K rows, hp the bf16 copy.
-struct DuhPipe {
-  const __nv_bfloat16* hp;     // [K, H]
-  const __nv_bfloat16* g;      // [K, 3H]
-  float* duh;                  // [H, 3H]
-  int K, H;
-};
-
-__global__ void __launch_bounds__(kThreads, 1)
-gru_duh_pipe_kernel(DuhPipe d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wr = warp >> 1;  // 4 x 2 warps of 32 x 32
-  const int wc = warp & 1;
-  const int i0 = blockIdx.y * kDM;
-  const int n0 = blockIdx.x * kDN;
-  const int H = d.H;
-  const int K = d.K;
-  const size_t H3 = 3 * static_cast<size_t>(H);
-  const bool live = i0 + wr * 32 < H;  // H % 64 == 0: whole warp rows
-  // The k-steps of the step kernels' dU_h GEMM: K rounded up to 32.
-  const int kend = (K + 31) / 32 * 32;
-
-  auto load_stage = [&](int c, int slot) {
-    __nv_bfloat16* As =
-        reinterpret_cast<__nv_bfloat16*>(smem + slot * kDStageBytes);
-    __nv_bfloat16* Bs = As + kDK * kDALd;
-    const int k0 = c * kDK;
-    for (int i = tid; i < kDK * kDM / 8; i += kThreads) {
-      const int r = i >> 4;
-      const int q = (i & 15) * 8;
-      const bool ok = k0 + r < K && i0 + q < H;
-      cp_async16(As + r * kDALd + q,
-                 ok ? d.hp + static_cast<size_t>(k0 + r) * H + i0 + q : d.hp,
-                 ok);
-    }
-    for (int i = tid; i < kDK * kDN / 8; i += kThreads) {
-      const int r = i >> 3;
-      const int q = (i & 7) * 8;
-      const bool ok = k0 + r < K;
-      cp_async16(Bs + r * kDBLd + q,
-                 ok ? d.g + static_cast<size_t>(k0 + r) * H3 + n0 + q : d.g,
-                 ok);
-    }
-  };
-
-  float acc[2][2][8];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[a][c][e] = 0.0f;
-
-  const int nk = (K + kDK - 1) / kDK;
-#pragma unroll
-  for (int s = 0; s < kDStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nk; ++c) {
-    cp_async_wait<kDStages - 2>();
-    __syncthreads();
-    const int nx = c + kDStages - 1;
-    if (nx < nk) load_stage(nx, nx % kDStages);
-    cp_async_commit();
-    const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(
-        smem + (c % kDStages) * kDStageBytes);
-    const __nv_bfloat16* Bs = As + kDK * kDALd;
-    if (!live) continue;
-    const int nkk = kend - c * kDK;  // the stage's k-steps, 16 rows each
-#pragma unroll
-    for (int kk = 0; kk < kDK; kk += 16) {
-      if (kk >= nkk) break;
-      // A = bf16(h_prev)^T, held k-major ([k][i]) as G.
-      unsigned af[2][4], bf[2][4];
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        load_a_kmajor(af[a], As + kk * kDALd + wr * 32 + a * 16, kDALd,
-                      lane);
-        load_b_kmajor(bf[a], Bs + kk * kDBLd + wc * 32 + a * 16, kDBLd,
-                      lane);
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int c2 = 0; c2 < 2; ++c2) mma16(acc[a][c2], af[a], bf[c2]);
-    }
-  }
-  cp_async_wait<0>();
-  if (!live) return;
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      store_acc(d.duh + static_cast<size_t>(i0 + wr * 32 + a * 16) * H3 +
-                    n0 + wc * 32 + c * 16,
-                H3, acc[a][c], lane);
-}
-
-// The persistent launch's shape: 16-unit j-tiles by as many b-tile rows of
-// blocks as fit on the card at once (at most one per 64-row b-tile).
-cudaError_t plan_bptt_or_fail(int B, int H, dim3* grid, int* per_sm,
-                              size_t* smem) {
-  *smem = bptt_smem_bytes(H);
-  cudaError_t e = cudaFuncSetAttribute(
-      gru_bptt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(*smem));
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, coop = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                  dev)) != cudaSuccess)
-    return e;
-  if (!coop) return cudaErrorNotSupported;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           per_sm, gru_bptt_kernel, kThreads, *smem)) != cudaSuccess)
-    return e;
-  const int nj = H / kTile;
-  const int rows_fit = *per_sm * sms / nj;
-  if (rows_fit < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int ntiles = (B + kRows - 1) / kRows;
-  *grid = dim3(nj, ntiles < rows_fit ? ntiles : rows_fit, 1);
-  return cudaSuccess;
-}
-
-// As plan_bptt_or_fail, clearing the runtime's last error on failure so that
-// later launch checks of other kernels do not report it again.
-cudaError_t plan_bptt(int B, int H, dim3* grid, int* per_sm, size_t* smem) {
-  const cudaError_t e = plan_bptt_or_fail(B, H, grid, per_sm, smem);
-  if (e != cudaSuccess) cudaGetLastError();
-  return e;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -541,15 +30,15 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The persistent step kernel's grid, resident blocks per SM and dynamic
-// shared memory at (B, H) on the current device; returns the CUDA error.
-int gru_bwd_config(int B, int H, int* grid_x, int* grid_y, int* per_sm,
-                   long long* smem_bytes) {
-  dim3 grid;
+// The persistent step kernel's resident blocks per SM at width H (0 where
+// its shared memory does not fit), its dynamic shared memory in bytes and
+// the widest H that fits, on the current device. Returns the CUDA error of
+// the queries, clearing it from the runtime.
+int gru_bwd_config(int H, int* per_sm, long long* smem_bytes,
+                   int* max_width) {
   size_t smem = 0;
-  const cudaError_t e = plan_bptt(B, H, &grid, per_sm, &smem);
-  *grid_x = static_cast<int>(grid.x);
-  *grid_y = static_cast<int>(grid.y);
+  const cudaError_t e = bptt_occupancy(H, per_sm, &smem, max_width);
+  if (e != cudaSuccess) cudaGetLastError();
   *smem_bytes = static_cast<long long>(smem);
   return static_cast<int>(e);
 }
@@ -558,67 +47,30 @@ int gru_bwd_config(int B, int H, int* grid_x, int* grid_y, int* per_sm,
 // uh [H, 3H] bf16, bhn [H] f32; dhe [B, H] f32 holds the cotangent of the
 // final state on entry and is clobbered. Scratch: g [T, B, 3H] bf16,
 // part [T, ceil(B/16), H] f32, hbf [T, B, H] bf16. Outputs: dgx
-// [T, B, 3H], duh [H, 3H], dbhn [H], all f32. Needs H % 64 == 0 (checked
-// by the caller). Launches the persistent step kernel (cooperatively), the
+// [T, B, 3H], duh [H, 3H], dbhn [H], all f32. `rows` rows of blocks, as
+// ops/kernels.py::gru_bwd_plan chooses them. Needs H % 64 == 0 (checked by
+// the caller). Launches the persistent step kernel (cooperatively), the
 // dU_h GEMM and the db_hn sum on `stream` (3), counting in *launched those
-// that launched; returns the first error, among them
-// cudaErrorCooperativeLaunchTooLarge when the j-tiles of one b-tile row of
-// blocks cannot all be resident at once.
+// that launched; returns the first error (bptt_run).
 int gru_bwd(const void* gx_t, const void* hseq, const void* lens,
             const void* uh, const void* bhn, void* dhe, void* dgx, void* g,
             void* part, void* duh, void* dbhn, void* hbf, int T, int B,
-            int H, int reverse, void* stream, int* launched) {
-  *launched = 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid;
-  int per_sm = 0;
-  size_t smem = 0;
-  cudaError_t e = plan_bptt(B, H, &grid, &per_sm, &smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  Bptt p{static_cast<const float*>(gx_t),
-         static_cast<const float*>(hseq),
-         static_cast<__nv_bfloat16*>(hbf),
-         static_cast<const int*>(lens),
-         static_cast<const __nv_bfloat16*>(uh),
-         static_cast<const float*>(bhn),
-         static_cast<float*>(dhe),
-         static_cast<float*>(dgx),
-         static_cast<__nv_bfloat16*>(g),
-         static_cast<float*>(part),
-         T, B, H, reverse};
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((void*)gru_bptt_kernel, grid,
-                                  dim3(kThreads), args, smem, st);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  ++*launched;
-  // h_prev of step t is hseq[t-1] (forward) or hseq[t+1] (reverse); the
-  // first processed step's zero state adds nothing and is left out.
-  e = cudaFuncSetAttribute(gru_duh_pipe_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kDuhSmem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const size_t step_h = static_cast<size_t>(B) * H;
-  const size_t step_gx = 3 * step_h;
-  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
-  const DuhPipe d{static_cast<const __nv_bfloat16*>(hbf) +
-                      (reverse ? step_h : 0),
-                  gb + (reverse ? 0 : step_gx), static_cast<float*>(duh),
-                  (T - 1) * B, H};
-  gru_duh_pipe_kernel<<<dim3(3 * H / kDN, (H + kDM - 1) / kDM, 1), kThreads,
-                        kDuhSmem, st>>>(d);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ++*launched;
-  const int nbt = (B + kTile - 1) / kTile;
-  const DbhnSum s{static_cast<const float*>(part), static_cast<float*>(dbhn)};
-  gru_dbhn_kernel<<<dim3((H + 255) / 256, 1), 256, 0, st>>>(s, s, T * nbt,
-                                                              H);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++*launched;
-  return static_cast<int>(e);
+            int H, int reverse, int rows, void* stream, int* launched) {
+  const Bptt p{static_cast<const float*>(gx_t),
+               static_cast<const float*>(hseq),
+               static_cast<__nv_bfloat16*>(hbf),
+               static_cast<const int*>(lens),
+               static_cast<const __nv_bfloat16*>(uh),
+               static_cast<const float*>(bhn),
+               static_cast<float*>(dhe),
+               static_cast<float*>(dgx),
+               static_cast<__nv_bfloat16*>(g),
+               static_cast<float*>(part),
+               T, B, H, reverse};
+  float* const du = static_cast<float*>(duh);
+  float* const db = static_cast<float*>(dbhn);
+  return bptt_run({p, p}, {du, du}, {db, db}, 1, rows,
+                  static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // extern "C"

@@ -342,11 +342,48 @@ def gru_fwd_launch_config(B: int, H: int, device: torch.device) -> dict:
 def _bwd_lib() -> ctypes.CDLL:
     lib = kernels.load("gru_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gru_bwd.argtypes = [p] * 12 + [i, i, i, i, p, p]
+    lib.gru_bwd.argtypes = [p] * 12 + [i] * 5 + [p, p]
     lib.gru_bwd.restype = i
-    lib.gru_bwd_config.argtypes = [i, i, p, p, p, p]
+    lib.gru_bwd_config.argtypes = [i, p, p, p]
     lib.gru_bwd_config.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bptt_occupancy(kernel: str, index: int, H: int) -> dict:
+    """The persistent BPTT step kernel of K3 (``kernel`` "gru_bwd") or K7
+    ("bigru_bwd") at width ``H`` on card ``index``, as the C side reports
+    it: blocks resident per SM (0 where a block's shared memory does not
+    fit), dynamic shared memory in bytes and the widest H that fits."""
+    lib = _bwd_lib() if kernel == "gru_bwd" else _bigru_bwd_lib()
+    per_sm, max_width = ctypes.c_int(0), ctypes.c_int(0)
+    smem = ctypes.c_longlong(0)
+    with torch.cuda.device(index):
+        rc = getattr(lib, f"{kernel}_config")(
+            H, ctypes.addressof(per_sm), ctypes.addressof(smem),
+            ctypes.addressof(max_width))
+    kernels.check(lib, rc, kernel)
+    return {"blocks_per_sm": per_sm.value, "smem_bytes": smem.value,
+            "max_width": max_width.value}
+
+
+def _bptt_plan(kernel: str, B: int, H: int, device: torch.device,
+               directions: int) -> dict:
+    """``kernels.gru_bwd_plan`` for K3 or K7 at (B, H) on CUDA ``device``,
+    with the C side's occupancy beside it. Raises where U_h's slices do
+    not fit in a block's shared memory, naming the widest H that does."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    occ = _bptt_occupancy(kernel, index, H)
+    if occ["blocks_per_sm"] < 1:
+        raise RuntimeError(
+            f"{kernel}: U_h's slices and the step's ring take "
+            f"{occ['smem_bytes']} bytes of shared memory a block at H={H}, "
+            f"more than a block may have on this card; it takes "
+            f"H <= {occ['max_width']}")
+    plan = kernels.gru_bwd_plan(B, H, kernels.sm_count(device),
+                                occ["blocks_per_sm"], directions)
+    return {**plan, **occ}
 
 
 def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
@@ -358,10 +395,11 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     uh [H, 3H] bf16, bhn [H] f32, ghT [B, H] f32 -> (dgx_t [T, B, 3H],
     duh [H, 3H], dbhn [H]), all f32. Needs H % 64 == 0 and U_h's slices to
     fit in shared memory (H <= 576). One call launches the persistent step
-    kernel (one cooperative launch for all T steps), the dU_h GEMM and the
-    db_hn sum on the current stream and adds the number launched (3) to
-    ``gru_bwd.launches``; it raises when the step kernel's grid cannot be
-    resident on the card at once."""
+    kernel (one cooperative launch for all T steps, on the grid of
+    ``kernels.gru_bwd_plan``), the dU_h GEMM and the db_hn sum on the
+    current stream and adds the number launched (3) to
+    ``gru_bwd.launches``; it raises when U_h's slices do not fit or the
+    step kernel's grid cannot be resident on the card at once."""
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_bwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -376,6 +414,7 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
     kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
+    plan = _bptt_plan("gru_bwd", B, H, dev, 1)
     f32 = dict(dtype=torch.float32, device=dev)
     dhe = ghT.clone()  # the carried cotangent, overwritten step by step
     g = torch.empty(T, B, 3 * H, dtype=torch.bfloat16, device=dev)
@@ -391,7 +430,7 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
                          uh.data_ptr(), bhn.data_ptr(), dhe.data_ptr(),
                          dgx.data_ptr(), g.data_ptr(), part.data_ptr(),
                          duh.data_ptr(), dbhn.data_ptr(), hbf.data_ptr(),
-                         T, B, H, int(reverse),
+                         T, B, H, int(reverse), plan["grid"][1],
                          torch.cuda.current_stream(dev).cuda_stream,
                          ctypes.addressof(launched))
     gru_bwd.launches += launched.value
@@ -404,20 +443,12 @@ gru_bwd.launches = 0
 
 def gru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
     """The shape of K3's persistent step launch at batch ``B`` and width
-    ``H`` on CUDA ``device``: its grid (16-unit j-tiles x rows of 64-row
-    b-tile blocks), the blocks resident per SM and its dynamic shared
-    memory in bytes. Raises where :func:`gru_bwd` would."""
-    lib = _bwd_lib()
-    gx, gy, per_sm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    smem = ctypes.c_longlong(0)
-    with torch.cuda.device(device):
-        rc = lib.gru_bwd_config(B, H, ctypes.addressof(gx),
-                                ctypes.addressof(gy),
-                                ctypes.addressof(per_sm),
-                                ctypes.addressof(smem))
-    kernels.check(lib, rc, "gru_bwd")
-    return {"grid": [gx.value, gy.value], "blocks_per_sm": per_sm.value,
-            "smem_bytes": smem.value}
+    ``H`` on CUDA ``device``: ``kernels.gru_bwd_plan``'s b-tiles and grid
+    (16-unit j-tiles, rows of 64-row b-tile blocks, 1 direction), the
+    blocks resident per SM, its dynamic shared memory in bytes and the
+    widest H whose shared memory fits. Raises where :func:`gru_bwd`
+    would."""
+    return _bptt_plan("gru_bwd", B, H, device, 1)
 
 
 def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
@@ -553,8 +584,10 @@ bigru_fwd.launches = 0
 def _bigru_bwd_lib() -> ctypes.CDLL:
     lib = kernels.load("bigru_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bigru_bwd.argtypes = [p] * 15 + [i, i, i, p, p]
+    lib.bigru_bwd.argtypes = [p] * 16 + [i] * 4 + [p, p]
     lib.bigru_bwd.restype = i
+    lib.bigru_bwd_config.argtypes = [i, p, p, p]
+    lib.bigru_bwd_config.restype = i
     return lib
 
 
@@ -567,10 +600,15 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     [T, B, 3H] f32, hseqf, hseqb [T, B, H] f32 (K6's residuals), lens [B]
     int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H] f32, ghTf, ghTb [B, H] f32
     -> (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), all
-    f32. Needs H % 64 == 0. One call launches one step kernel per timestep
-    (both chains), the dU_h GEMM and the db_hn sum of both directions on
-    the current stream and adds the number launched (T + 2) to
-    ``bigru_bwd.launches``."""
+    f32, each direction bit-equal to a :func:`gru_bwd` call on its inputs.
+    Needs H % 64 == 0 and U_h's slices to fit in shared memory (H <= 576,
+    as :func:`gru_bwd`). One call launches the persistent step kernel (one
+    cooperative launch for all T steps of both chains, on the grid of
+    ``kernels.gru_bwd_plan`` with two directions), the dU_h GEMM and the
+    db_hn sum of both directions on the current stream and adds the number
+    launched (3) to ``bigru_bwd.launches``; it raises when U_h's slices do
+    not fit or the step kernel's grid cannot be resident on the card at
+    once."""
     if gxf.device.type != "cuda" or gxf.dim() != 3:
         raise ValueError("bigru_bwd takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
@@ -582,9 +620,11 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     _expect_pair(T, B, H, dev, gx=(gxf, gxb), hseq=(hseqf, hseqb),
                  uh=(uhf, uhb), bhn=(bhnf, bhnb), ghT=(ghTf, ghTb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
+    plan = _bptt_plan("bigru_bwd", B, H, dev, 2)
     f32 = dict(dtype=torch.float32, device=dev)
     dhe = torch.stack([ghTf, ghTb])  # the carried cotangents, overwritten
     g = torch.empty(2, T, B, 3 * H, dtype=torch.bfloat16, device=dev)
+    hbf = torch.empty(2, T, B, H, dtype=torch.bfloat16, device=dev)
     part = torch.empty(2, T, -(-B // _TILE), H, **f32)
     dgx = torch.empty(2, T, B, 3 * H, **f32)
     duh = torch.empty(2, H, 3 * H, **f32)
@@ -597,7 +637,7 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
                            uhb.data_ptr(), bhnf.data_ptr(), bhnb.data_ptr(),
                            dhe.data_ptr(), dgx.data_ptr(), g.data_ptr(),
                            part.data_ptr(), duh.data_ptr(), dbhn.data_ptr(),
-                           T, B, H,
+                           hbf.data_ptr(), T, B, H, plan["grid"][1],
                            torch.cuda.current_stream(dev).cuda_stream,
                            ctypes.addressof(launched))
     bigru_bwd.launches += launched.value
@@ -606,3 +646,11 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
 
 
 bigru_bwd.launches = 0
+
+
+def bigru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
+    """The shape of K7's persistent step launch at batch ``B`` and width
+    ``H`` on CUDA ``device``, as :func:`gru_bwd_launch_config` gives K3's:
+    the grid is (16-unit j-tiles, rows of 64-row b-tile blocks, 2
+    directions). Raises where :func:`bigru_bwd` would."""
+    return _bptt_plan("bigru_bwd", B, H, device, 2)

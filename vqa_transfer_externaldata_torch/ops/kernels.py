@@ -201,6 +201,40 @@ def gru_fwd_plan(B: int, H: int, sms: int, per_sm: Mapping[int, int]
             "grid": [jt, min(tiles, resident[rows])]}
 
 
+GRU_BWD_UNITS = 16  # hidden units a block of K3/K7's step kernel owns
+GRU_BWD_ROWS = 64  # batch rows of a b-tile of K3/K7's step kernel
+
+
+def gru_bwd_plan(B: int, H: int, sms: int, per_sm: int,
+                 directions: int = 1) -> dict:
+    """The launch of the persistent BPTT step kernel of
+    ``csrc/gru_bwd_step.cuh`` (K3 with one direction, K7 with two) at
+    batch ``B`` and width ``H`` (a multiple of 64) on a card of ``sms``
+    SMs, ``per_sm`` of its blocks resident per SM: the 64-row b-tiles and
+    the grid (H / 16 j-tiles, rows of blocks, directions). Every
+    direction's j-tiles take as many rows of blocks as are resident beside
+    each other, at most one per b-tile; block (jx, by, d) walks b-tiles by,
+    by + rows, ... of direction d in every step. The grid is cooperative,
+    so it never exceeds sms x per_sm blocks; where not even one row of
+    every direction's j-tiles is resident at once it raises. The C side
+    (``bptt_run``) derives the same grid from the rows passed to it."""
+    if (B < 1 or H < 64 or H % 64 or sms < 1 or per_sm < 0
+            or directions not in (1, 2)):
+        raise ValueError(f"gru_bwd_plan needs B >= 1, H a positive multiple "
+                         f"of 64, sms >= 1, per_sm >= 0 and 1 or 2 "
+                         f"directions, got B={B}, H={H}, sms={sms}, "
+                         f"per_sm={per_sm}, directions={directions}")
+    jt = H // GRU_BWD_UNITS
+    resident = per_sm * sms // (directions * jt)
+    if resident < 1:
+        raise ValueError(f"gru_bwd_plan: {directions} x {jt} j-tiles cannot "
+                         f"be resident at once at H={H} on {sms} SMs with "
+                         f"{per_sm} blocks per SM")
+    tiles = -(-B // GRU_BWD_ROWS)
+    return {"b_tiles": tiles,
+            "grid": [jt, min(tiles, resident), directions]}
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a kernel entry returned a CUDA error code (the entries
     return ``cudaGetLastError()`` right after their launches)."""
