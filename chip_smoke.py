@@ -24,9 +24,11 @@ Run from the repository root. Phases (any failure exits non-zero):
    their plain versions at the training shape (a 512-image store of
    200x2048 bf16 cells, 196 valid, B=256 with repeated rows, H=512),
    normalize on and off, K5 fed the same saved h; the shape of K4's score
-   launch (tile, ring stages, shared memory, grid) and its nvcc time, and
-   of K5's dW_v launch (the same, and the split) against
-   ``kernels.dwv_plan``; then
+   launch (tile, ring stages, shared memory, grid) and its nvcc time, of
+   K5's dW_v launch (the same, and the split) against
+   ``kernels.dwv_plan``, and of K5's rows launch (grid, threads, shared
+   memory, the second pass's lanes at G=1 and G=8) against
+   ``kernels.rows_plan``; then
    both at G=2 and G=8 glimpses on the same store;
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
@@ -113,7 +115,9 @@ Run from the repository root. Phases (any failure exits non-zero):
    at G=1 (its device time from the profiler) with its TFLOP/s; the dW_v
    launch alone (``attention_dwv.cuh``) inside K5 at G=1 on bf16 and int8
    rows and inside K8, with its TFLOP/s, beside cuBLAS on the same product
-   (the rows gathered apart, the gather timed); the
+   (the rows gathered apart, the gather timed); the rows launch alone
+   (``attention_rows.cuh``) inside K5 at G=1, 2 and 8 on bf16 rows and at
+   G=1 on int8 rows and inside P2, each beside its bytes bound; the
    gathered op's whole backward with K8 and with the explicit math; K1's
    persistent design against the per-step one in one call (two K1 calls
    against K6, which walks both directions with one step launch a
@@ -650,6 +654,21 @@ def phase_resident(report: dict, dev, gen) -> dict:
           f"{dwv['splits']} splits of {dwv['chunks_per_split']} chunks, grid "
           f"{' x '.join(map(str, dwv['grid']))}")
     report["dwv_launch"] = dwv
+    # K5's rows launch (the per-question pass) as the C side sets it,
+    # held against kernels.rows_plan.
+    rows_launch = {}
+    for G in (1, 8):
+        plan = kernels.rows_plan(Bt, n_valid, G, C, H)
+        got = ar.rows_launch_config(Bt, n_valid, G, C, H)
+        check(got == plan, f"K5's rows launch at G={G} {got} is not "
+              f"rows_plan's {plan}")
+        print(f"K5 rows launch at B={Bt}, {n_valid} cells, G={G}: one "
+              f"block a question, grid {plan['grid'][0]} x "
+              f"{plan['threads']} threads, {plan['smem_bytes']} B of dynamic "
+              f"shared memory, {plan['cell_lanes']} cell lanes, "
+              f"{plan['unit_passes']} unit pass(es)")
+        rows_launch[f"g{G}"] = plan
+    report["rows_launch"] = rows_launch
     return {"store": store, "rows": rows, "qh": qh, "wv": wv, "ws": ws,
             "h": rh, "alpha": ra, "g": g, "sga": sga, "n_valid": n_valid,
             "checks4": checks4, "checks5": checks5,
@@ -735,7 +754,9 @@ def phase_resident_multi(report: dict, dev, gen, k45: dict) -> dict:
                                 "output": name, "max_abs_err": e,
                                 "rel_err": rel, "rel_tol": tol})
         if G == 2:  # the glimpses2 path's count, kept for the times
-            keep = {"ws": ws, "h": rh, "alpha": ra, "g": g, "sga": sga}
+            keep.update(ws=ws, h=rh, alpha=ra, g=g, sga=sga)
+        else:  # kept for the rows launch's time at G=8
+            keep["g8"] = {"ws": ws, "h": rh, "alpha": ra, "g": g, "sga": sga}
     return {**keep, "checks4": checks4, "checks5": checks5,
             "err4": max(max(c["v_att_err"], c["alpha_err"], c["h_err"])
                         for c in checks4),
@@ -2554,6 +2575,7 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         print(f"{key} dW_v launch at G=1: {t['ms']:.4f} ms, "
               f"{t['tflops']:.1f} TFLOP/s; cuBLAS {t['library_ms']:.4f} ms "
               f"+ gather {t['library_gather_ms']:.4f} ms")
+    report["rows_stage"] = rows_stage_times(k45, k45g, k45q, buf)
     report["bound_inputs"] = {"k1_live_steps": nlen,
                               "k1_live_steps_serving": nlen_serving,
                               "k3_live_steps": nl3, "k45_unique_rows": uniq,
@@ -2581,6 +2603,56 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
           f"{times['attention_bwd']['op_backward_with_kernel']:.4f} ms, "
           f"explicit {times['attention_bwd']['explicit_backward']:.4f} ms")
     return times
+
+
+def rows_stage_times(k45: dict, k45g: dict, k45q: dict, buf) -> dict:
+    """The rows launch alone (``attention_rows.cuh``), from the profiler
+    over whole calls, L2 flushed before each: K5 at G=1, 2 and 8 on bf16
+    rows and at G=1 on int8 codes (the main path's mode, normalize off),
+    and P2's; each beside its bytes bound: every distinct store row's valid
+    cells read once, h once, the cotangent dzr written once, and the small
+    inputs (g, alpha, sga, rows) and outputs (dqh, dws partials; P2's dal)
+    once."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+    from vqa_transfer_externaldata_torch.tools import probe_bwd_ceiling as p2
+
+    st, rows, nv = k45["store"], k45["rows"], k45["n_valid"]
+    Bt = rows.shape[0]
+    uniq = int(torch.unique(rows).numel())
+    kw = dict(n_valid=nv, normalize=False)
+    out = {}
+    for key, store, k, G, row_bytes in (
+            ("k5_g1", st, k45, 1, 2), ("k5_g2", st, k45g, 2, 2),
+            ("k5_g8", st, k45g["g8"], 8, 2),
+            ("k5_int8_g1", k45q["codes"], k45q, 1, 1)):
+        args = (store, rows, k["h"], k["ws"], k["alpha"], k["g"], k["sga"])
+        ms = kernel_device_ms(lambda: ar.attention_resident_bwd(*args, **kw),
+                              "attn_res_bwd_rows_kernel", buf)
+        nbytes = (uniq * nv * C * row_bytes + Bt * 4 + 2 * Bt * nv * H * 2
+                  + G * H * 4 + Bt * G * C * 4 + 2 * Bt * nv * G * 4
+                  + Bt * H * 4 + Bt * G * H * 4)
+        flops = 2 * G * Bt * nv * C + 4 * G * Bt * nv * H
+        b_ms, b_by = bound(nbytes, flops)
+        out[key] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "bytes": nbytes, "share_of_bound": b_ms / ms}
+    # P2 at its own sizes (p2.B questions of all p2.Np cells): dal and
+    # bf16(h * 0.5).
+    x = p2.make_inputs(torch.device("cuda", 0))
+    ms = kernel_device_ms(lambda: p2.probe_bwd_ceiling(
+        x["store"], x["rows"], x["h"], x["g"]), "probe_bwd_rows_kernel", buf)
+    uniq2 = int(torch.unique(x["rows"]).numel())
+    cells = p2.B * p2.Np
+    nbytes = (uniq2 * p2.Np * p2.C * 2 + p2.B * 4 + 2 * cells * p2.H * 2
+              + p2.B * p2.C * 2 + cells * 4)
+    b_ms, b_by = bound(nbytes, 2 * cells * p2.C + cells * p2.H)
+    out["p2"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "bytes": nbytes, "share_of_bound": b_ms / ms}
+    for key, t in out.items():
+        print(f"{key} rows launch alone: {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['bytes']} B), "
+              f"{t['share_of_bound']:.1%} of it")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2674,7 +2746,10 @@ def main(argv=None) -> int:
     # launch alone at G=1 under score_ms_g1 and score_tflops_g1; the dW_v
     # launch alone of K5 at G=1 (bf16 and int8 rows) and of K8 under
     # dwv_stage_g1 / dwv_stage, with cuBLAS on the same product (library_ms
-    # of the whole kernel stays null: no one PyTorch call computes it).
+    # of the whole kernel stays null: no one PyTorch call computes it); the
+    # rows launch alone of K5 (rows_stage_g1/g2/g8, int8 rows_stage_g1, the
+    # launch's shape under rows_launch) and of P2 (rows_stage), each beside
+    # its bytes bound.
     # P1's time is at Q=1, with every Q under by_q; its library call is
     # cuBLAS on the gathered rows, the gather timed apart. K1's
     # old_design_pair_ms is K6 on phase 6's inputs (one step launch a
@@ -2726,7 +2801,11 @@ def main(argv=None) -> int:
             ref + "attention_resident.py:208", max(k45["err5"], k45g["err5"]),
             {"glimpses": "1-8", "checks": k45["checks5"] + k45g["checks5"],
              "dwv_stage_g1": times["attention_resident_bwd"]["dwv_stage"],
-             "dwv_launch": report["dwv_launch"]}),
+             "dwv_launch": report["dwv_launch"],
+             "rows_stage_g1": report["rows_stage"]["k5_g1"],
+             "rows_stage_g2": report["rows_stage"]["k5_g2"],
+             "rows_stage_g8": report["rows_stage"]["k5_g8"],
+             "rows_launch": report["rows_launch"]}),
         "bigru_fwd": (ref + "gru.py:474", k67["err6"], {
             "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"]}),
         "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
@@ -2755,7 +2834,8 @@ def main(argv=None) -> int:
             ref + "attention_resident.py:235", k45q["err5"], {
                 "glimpses": "1-8", "checks": k45q["checks5"],
                 "dwv_stage_g1":
-                times["attention_resident_bwd[int8]"]["dwv_stage"]}),
+                times["attention_resident_bwd[int8]"]["dwv_stage"],
+                "rows_stage_g1": report["rows_stage"]["k5_int8_g1"]}),
     }
     paths = {"serving": serving, "training": training["launches"],
              "gathered": gathered["launches"],
@@ -2803,7 +2883,8 @@ def main(argv=None) -> int:
             ("probe_bwd_ceiling", p2, "tools/probe_bwd_ceiling.py:36",
              p2["ms"], {"tflops": p2["tflops"],
                         "dwv_rel_err": p2["dwv_rel_err"],
-                        "dal_rel_err": p2["dal_rel_err"]})):
+                        "dal_rel_err": p2["dal_rel_err"],
+                        "rows_stage": report["rows_stage"]["p2"]})):
         b_ms, b_by = bound(r["bound"]["bytes"], r["bound"]["flops"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",

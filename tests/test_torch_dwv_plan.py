@@ -82,11 +82,13 @@ def test_dwv_plan_refuses_shapes_the_gemm_does_not_take():
 
 def test_dwv_gemm_is_one_header_of_k5_k8_and_p2():
     """K5, K8 and P2 include the one dW_v GEMM, so the build hash of each
-    library covers it (and score_gemm.cuh's primitives that it runs)."""
+    library covers it (and score_gemm.cuh's primitives that it runs); K5
+    and P2 also include their shared rows stage, attention_rows.cuh."""
     for name in ("attention_resident_bwd", "attention_bwd",
                  "probe_bwd_ceiling"):
+        rows = [] if name == "attention_bwd" else ["attention_rows.cuh"]
         assert [p.name for p in kernels.sources(name)] == [
-            f"{name}.cu", "attention_dwv.cuh", "score_gemm.cuh",
+            f"{name}.cu", "attention_dwv.cuh", *rows, "score_gemm.cuh",
             "store_rows.cuh"]
 
 

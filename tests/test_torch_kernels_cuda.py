@@ -9,7 +9,9 @@ K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
 P2 (probe_bwd_ceiling) on the card against their plain PyTorch
 versions; K5 and K8 also at the edges of the dW_v GEMM's tiles that they
 share with P2 (csrc/attention_dwv.cuh), its launch shape, and two calls of
-each bit-equal. They need an NVIDIA GPU with nvcc (the kernels have no
+each bit-equal; K5's rows stage (csrc/attention_rows.cuh) at ragged
+batches and cell counts, its launch shape against kernels.rows_plan, two
+calls bit-equal and under CUDA graph capture. They need an NVIDIA GPU with nvcc (the kernels have no
 CPU mode) and skip without one; on a GPU machine run
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -372,7 +374,8 @@ def _resident_inputs(dev, M, n_valid, C, H, B, seed=5):
                           .relu() * scale).to(torch.bfloat16)
     rows = torch.randint(0, M, (B,), generator=g, device=dev,
                          dtype=torch.int32)
-    rows[1] = rows[0]  # two questions about one image
+    if B > 1:
+        rows[1] = rows[0]  # two questions about one image
     qh = torch.randn(B, H, generator=g, device=dev) * 0.5
     wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1)
           * (6.0 / (C + H)) ** 0.5).to(torch.bfloat16)
@@ -1122,3 +1125,108 @@ def test_dwv_launch_shape(dev):
         if K > 256 * 100:
             assert plan["tile"] == [128, 256] and plan["stages"] == 4
             assert plan["splits"] == 4 and gx * gy * gz <= sms
+
+
+# K5's rows stage (csrc/attention_rows.cuh), one block a question, at
+# C=2048, H=512.
+@pytest.mark.parametrize("row_type,normalize", [("bf16", True),
+                                                ("bf16", False),
+                                                ("int8", False)])
+@pytest.mark.parametrize("glimpses", [1, 2, 8])
+@pytest.mark.parametrize("n_valid", [1, 7, 196])
+@pytest.mark.parametrize("B", [1, 17, 256, 1024])
+def test_attention_resident_bwd_rows_matches_plain(
+        dev, B, n_valid, glimpses, row_type, normalize):
+    """K5 at ragged batches and cell counts against its plain version, at
+    the limits of the other K5 cases (G * 2^-9 for dqh and dW_v, 2^-9 for
+    each glimpse's dws)."""
+    G = glimpses
+    shape = (min(64, B + 3), n_valid, 2048, 512, B)
+    store, rows, h, ws, al, gv, sga = _k5_inputs(dev, shape, G, row_type)
+    kw = dict(n_valid=n_valid, normalize=normalize)
+    count = "launches_int8" if row_type == "int8" else "launches"
+    before = getattr(ar.attention_resident_bwd, count)
+    got = ar.attention_resident_bwd(store, rows, h, ws, al, gv, sga, **kw)
+    want = ar.attention_resident_bwd_reference(store, rows, h, ws, al, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert getattr(ar.attention_resident_bwd, count) == before + 3
+    for name, a, b in zip(("dqh", "dwv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= G * TOL_K5, (name, _rel_err(a, b))
+    dws, dws_ref = got[2].reshape(512, G), want[2].reshape(512, G)
+    for k in range(G):
+        assert _rel_err(dws[:, k], dws_ref[:, k]) <= TOL_K5, k
+
+
+@pytest.mark.parametrize("B,glimpses,row_type", [(1, 8, "bf16"),
+                                                 (17, 8, "bf16"),
+                                                 (256, 1, "bf16"),
+                                                 (256, 1, "int8"),
+                                                 (1024, 2, "bf16")])
+def test_attention_resident_bwd_rows_is_deterministic(
+        dev, B, glimpses, row_type):
+    """Two K5 calls give the same bits: the sums over a question's cells
+    meet in a fixed order."""
+    args = _k5_inputs(dev, (min(64, B + 3), 196, 2048, 512, B), glimpses,
+                      row_type)
+    kw = dict(n_valid=196, normalize=row_type == "bf16")
+    first = ar.attention_resident_bwd(*args, **kw)
+    second = ar.attention_resident_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_resident_bwd_captures_in_a_cuda_graph(dev):
+    """K5's three launches are accepted under stream capture, and the
+    graph's replay on new cotangents equals an eager call on them."""
+    store, rows, h, ws, al, gv, sga = _k5_inputs(
+        dev, (64, 196, 2048, 512, 17), 2, "bf16")
+    kw = dict(n_valid=196, normalize=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ar.attention_resident_bwd(store, rows, h, ws, al, gv, sga, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ar.attention_resident_bwd.launches
+    with torch.cuda.graph(graph):
+        got = ar.attention_resident_bwd(store, rows, h, ws, al, gv, sga, **kw)
+    assert ar.attention_resident_bwd.launches == before + 3
+    *_, gv2, sga2 = _k5_inputs(dev, (64, 196, 2048, 512, 17), 2, "bf16",
+                               seed=15)
+    gv.copy_(gv2)
+    sga.copy_(sga2)
+    graph.replay()
+    want = ar.attention_resident_bwd(store, rows, h, ws, al, gv, sga, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_attention_resident_bwd_rows_launch_shape(dev):
+    """The C side's rows launch equals kernels.rows_plan's at the main
+    shapes and at narrow, ragged and wide ones, within the card's shared
+    memory, and K5 refuses an h that is not 16-byte aligned."""
+    from vqa_transfer_externaldata_torch.ops import kernels
+
+    props = torch.cuda.get_device_properties(dev)
+    limit = props.shared_memory_per_block_optin
+    for B, n_valid, G, C, H in [(256, 196, 1, 2048, 512),
+                                (256, 196, 2, 2048, 512),
+                                (17, 196, 8, 2048, 512),
+                                (1024, 196, 1, 2048, 512),
+                                (5, 13, 2, 256, 384), (3, 9, 1, 128, 2304),
+                                (1, 1, 8, 128, 128)]:
+        plan = kernels.rows_plan(B, n_valid, G, C, H)
+        assert ar.rows_launch_config(B, n_valid, G, C, H) == plan
+        assert plan["smem_bytes"] <= limit
+    store, rows, h, ws, al, gv, sga = _k5_inputs(
+        dev, (64, 196, 2048, 512, 17), 1, "bf16")
+    shifted = torch.empty(h.numel() + 8, dtype=h.dtype, device=dev)
+    h_off = shifted[1:1 + h.numel()].view(h.shape)
+    h_off.copy_(h)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ar.attention_resident_bwd(store, rows, h_off, ws, al, gv, sga,
+                                  n_valid=196, normalize=True)

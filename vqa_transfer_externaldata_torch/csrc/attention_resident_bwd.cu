@@ -32,14 +32,16 @@
 // parallel with nothing carried between them, and float atomics would make
 // the sums depend on the schedule, so the work is split in three launches:
 //
-//  1. attn_res_bwd_rows_kernel, one block per question: each warp takes
-//     cells and reads the store row ONCE with 16-byte loads for all G
-//     dalphas (and the sum of squares when normalizing), against the G
-//     cotangent rows staged in shared memory in bf16, the type they are
-//     rounded to (G * C * 2 bytes: 32 KB at G=8, C=2048); then each thread
-//     takes hidden units and walks the cells in order for dqh, its
-//     question's G dws partials and bf16(dz * r) of the summed dz, written
-//     compactly as [B * n_valid, H].
+//  1. attn_res_bwd_rows_kernel, the per-question pass on attention_rows.cuh:
+//     one block a question stages the G cotangent rows in bf16 (G * C * 2
+//     bytes: 32 KB at G=8, C=2048) and its cells' alpha; each warp takes
+//     cells and reads each store row ONCE, a whole row's 16-byte loads in
+//     flight, for all G dalphas (and the sum of squares when normalizing);
+//     then each thread takes 8 hidden units of 4 cells at a time (16-byte
+//     loads of h and stores of bf16(dz * r) of the summed dz, written
+//     compactly as [B * n_valid, H]) and keeps its units' dqh and G dws
+//     partials in registers, summed over the threads that share its units
+//     in a fixed xor tree inside their warp. No atomics.
 //  2. the dW_v GEMM, [C, B*n_valid] x [B*n_valid, H], with the store rows
 //     looked up per cell as in K4 (attention_dwv.cuh, shared with K8 and
 //     P2): wgmma on transposed operands from a cp.async ring, blocks own
@@ -53,7 +55,8 @@
 //
 // G is a template parameter instantiated for 1..8, so the G=1 code is the
 // single-glimpse kernel; the row type T (bf16 or int8) is the second,
-// picked by a flag in the C entry.
+// picked by a flag in the C entry, and the rows kernel on bf16 rows takes
+// normalize as a third (no squares are summed where they are not used).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,17 +64,15 @@
 #include <cstdint>
 
 #include "attention_dwv.cuh"
+#include "attention_rows.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr size_t kDefaultSmem = 48 * 1024;  // above it: opt in per kernel
+constexpr int kRowThreads = attn_rows::kThreads;
+constexpr int kUnits = attn_rows::kUnits;
+constexpr int kDefaultSmem = 48 * 1024;  // above it: opt in per kernel
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <int G, class T>
+template <int G, class T, bool kNorm>
 __global__ void __launch_bounds__(kRowThreads)
 attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
                          const int* __restrict__ rows,             // [B]
@@ -83,97 +84,158 @@ attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
                          float* __restrict__ dqh,              // [B, H]
                          float* __restrict__ dws_part,         // [B, G, H]
                          __nv_bfloat16* __restrict__ dzr,  // [B*n_valid, H]
-                         int Np, int n_valid, int C, int H, int normalize) {
-  // bf16(g) [G][C], then ds [G][Np] and r [Np] in f32 (G * C * 2 bytes is
-  // a multiple of 16: C % 128 == 0).
+                         int Np, int n_valid, int C, int H) {
+  // bf16(g) [G][C], then alpha -> ds [n_valid][G] and r [n_valid] in f32
+  // (G * C * 2 bytes is a multiple of 16: C % 128 == 0).
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
   float* ds = reinterpret_cast<float*>(smem + sizeof(__nv_bfloat16) * G * C);
-  float* rs = ds + G * Np;
+  float* rs = ds + n_valid * G;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const float* gb = g + static_cast<size_t>(b) * G * C;
   for (int i = tid; i < G * C; i += kRowThreads) {
     gs[i] = __float2bfloat16(gb[i]);
   }
+  const size_t o0 = static_cast<size_t>(b) * Np * G;
+  for (int i = tid; i < n_valid * G; i += kRowThreads) ds[i] = alpha[o0 + i];
   __syncthreads();
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const T* v = store + static_cast<size_t>(rows[b]) * Np * C;
-  for (int n = warp; n < n_valid; n += kRowThreads / 32) {
-    const T* row = v + static_cast<size_t>(n) * C;
-    float dot[G];
-#pragma unroll
-    for (int k = 0; k < G; ++k) dot[k] = 0.0f;
-    float sq = 0.0f;
-    for (int c = lane * 8; c < C; c += 256) {
-      const uint4 x4 = store_rows::load8(row + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x4);
-      float x[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        x[i] = __bfloat162float(e[i]);
-        if constexpr (!store_rows::kInt8<T>) sq += round_bf16(x[i] * x[i]);
-      }
-#pragma unroll
-      for (int k = 0; k < G; ++k) {  // every glimpse from this one read
-        const uint4 g4 = *reinterpret_cast<const uint4*>(gs + k * C + c);
-        const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&g4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          dot[k] = fmaf(__bfloat162float(ge[i]), x[i], dot[k]);
-        }
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-      for (int k = 0; k < G; ++k) {
-        dot[k] += __shfl_xor_sync(0xffffffffu, dot[k], o);
-      }
-      sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    }
+  for (int n = warp; n < n_valid; n += attn_rows::kWarps) {
+    float dot[G], sq;
+    attn_rows::cell_dots<G, kNorm>(v + static_cast<size_t>(n) * C, gs, C,
+                                   lane, dot, sq);
     if (lane == 0) {
-      const float r = normalize ? rsqrtf(sq + 1e-12f) : 1.0f;
-      const size_t o = (static_cast<size_t>(b) * Np + n) * G;
+      const float r = kNorm ? rsqrtf(sq + 1e-12f) : 1.0f;
 #pragma unroll
       for (int k = 0; k < G; ++k) {
-        ds[k * Np + n] = alpha[o + k] * (dot[k] * r + sga[o + k]);
+        const int i = n * G + k;
+        ds[i] = ds[i] * (dot[k] * r + sga[o0 + i]);
       }
       rs[n] = r;
     }
   }
   __syncthreads();
 
-  for (int k = tid; k < H; k += kRowThreads) {
-    float wk[G], dw[G];
+  // Thread (lu, cl) takes units 8 lu .. 8 lu + 7 of a pass of W units and
+  // the cells cl, cl + P, ...; the P threads of a group are neighbours in
+  // one warp.
+  const int P = attn_rows::cell_lanes(H);
+  const int W = attn_rows::unit_lanes(H) * kUnits;
+  const int cl = tid % P, lu = tid / P;
+  const __nv_bfloat16* hb = h + static_cast<size_t>(b) * Np * H;
+  __nv_bfloat16* ob = dzr + static_cast<size_t>(b) * n_valid * H;
+  for (int u_base = 0; u_base < H; u_base += W) {
+    const int u0 = u_base + lu * kUnits;
+    const bool active = lu * kUnits < W && u0 < H;
+    float wk[G][kUnits], dw[G][kUnits], dq[kUnits];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      wk[j] = ws[static_cast<size_t>(j) * H + k];
-      dw[j] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        wk[j][i] = active ? ws[static_cast<size_t>(j) * H + u0 + i] : 0.0f;
+        dw[j][i] = 0.0f;
+      }
     }
-    const __nv_bfloat16* hk = h + static_cast<size_t>(b) * Np * H + k;
-    __nv_bfloat16* out = dzr + static_cast<size_t>(b) * n_valid * H + k;
-    float dq = 0.0f;
-    for (int n = 0; n < n_valid; ++n) {
-      const float hv = __bfloat162float(hk[static_cast<size_t>(n) * H]);
-      float dz = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kUnits; ++i) dq[i] = 0.0f;
+    if (active) {
+      for (int nb = cl; nb < n_valid; nb += P * attn_rows::kCellsInFlight) {
+        uint4 hx[attn_rows::kCellsInFlight];
+#pragma unroll
+        for (int f = 0; f < attn_rows::kCellsInFlight; ++f) {
+          const int n = nb + f * P;
+          if (n < n_valid) {
+            hx[f] = *reinterpret_cast<const uint4*>(
+                hb + static_cast<size_t>(n) * H + u0);
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < attn_rows::kCellsInFlight; ++f) {
+          const int n = nb + f * P;
+          if (n < n_valid) {
+            const __nv_bfloat16* he =
+                reinterpret_cast<const __nv_bfloat16*>(&hx[f]);
+            float d[G];
+#pragma unroll
+            for (int j = 0; j < G; ++j) d[j] = ds[n * G + j];
+            const float r = rs[n];
+            uint4 out;
+            __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+            for (int i = 0; i < kUnits; ++i) {
+              const float hv = __bfloat162float(he[i]);
+              float dz = 0.0f;
+#pragma unroll
+              for (int j = 0; j < G; ++j) {
+                // The product rounded on its own, as the reference's
+                // where(...).
+                if (hv > 0.0f) dz += __fmul_rn(d[j], wk[j][i]);
+                dw[j][i] = fmaf(d[j], hv, dw[j][i]);
+              }
+              dq[i] += dz;
+              oe[i] = __float2bfloat16(dz * r);
+            }
+            *reinterpret_cast<uint4*>(ob + static_cast<size_t>(n) * H + u0) =
+                out;
+          }
+        }
+      }
+    }
+    // The question's sums over its cells: the group's P partials meet in
+    // a fixed xor tree, and its first thread writes dqh and dws_part.
+    for (int o = P / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < kUnits; ++i) {
+        dq[i] += __shfl_xor_sync(0xffffffffu, dq[i], o);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          dw[j][i] += __shfl_xor_sync(0xffffffffu, dw[j][i], o);
+        }
+      }
+    }
+    if (active && cl == 0) {
+      auto put = [&](float* dst, const float (&x)[kUnits]) {
+        float4* d4 = reinterpret_cast<float4*>(dst + u0);
+        d4[0] = make_float4(x[0], x[1], x[2], x[3]);
+        d4[1] = make_float4(x[4], x[5], x[6], x[7]);
+      };
+      put(dqh + static_cast<size_t>(b) * H, dq);
 #pragma unroll
       for (int j = 0; j < G; ++j) {
-        const float d = ds[j * Np + n];
-        // The product rounded on its own, as the reference's where(...).
-        if (hv > 0.0f) dz += __fmul_rn(d, wk[j]);
-        dw[j] = fmaf(d, hv, dw[j]);
+        put(dws_part + (static_cast<size_t>(b) * G + j) * H, dw[j]);
       }
-      dq += dz;
-      out[static_cast<size_t>(n) * H] = __float2bfloat16(dz * rs[n]);
-    }
-    dqh[static_cast<size_t>(b) * H + k] = dq;
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      dws_part[(static_cast<size_t>(b) * G + j) * H + k] = dw[j];
     }
   }
+}
+
+template <int G, class T, bool kNorm>
+cudaError_t launch_rows(const void* store, const void* rows, const void* h,
+                        const void* ws, const void* alpha, const void* g,
+                        const void* sga, void* dqh, void* dws_part, void* dzr,
+                        int B, int Np, int n_valid, int C, int H,
+                        cudaStream_t st) {
+  const attn_rows::Shape s = attn_rows::plan(B, n_valid, G, C, H);
+  auto kernel = attn_res_bwd_rows_kernel<G, T, kNorm>;
+  if (s.smem_bytes > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+  }
+  kernel<<<s.grid_x, s.threads, s.smem_bytes, st>>>(
+      static_cast<const T*>(store), static_cast<const int*>(rows),
+      static_cast<const __nv_bfloat16*>(h), static_cast<const float*>(ws),
+      static_cast<const float*>(alpha), static_cast<const float*>(g),
+      static_cast<const float*>(sga), static_cast<float*>(dqh),
+      static_cast<float*>(dws_part), static_cast<__nv_bfloat16*>(dzr), Np,
+      n_valid, C, H);
+  return cudaGetLastError();
 }
 
 template <int G, class T>
@@ -183,23 +245,16 @@ int launch_bwd(const void* store, const void* rows, const void* h,
                void* dqh, void* dwv, void* dws, int B, int Np, int n_valid,
                int C, int H, int normalize, int splits, cudaStream_t st,
                int* launched) {
-  const size_t smem = sizeof(__nv_bfloat16) * G * static_cast<size_t>(C) +
-                      sizeof(float) * (G + 1) * static_cast<size_t>(Np);
-  cudaError_t e = cudaSuccess;
-  if (smem > kDefaultSmem) {
-    e = cudaFuncSetAttribute(attn_res_bwd_rows_kernel<G, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  attn_res_bwd_rows_kernel<G, T><<<B, kRowThreads, smem, st>>>(
-      static_cast<const T*>(store),
-      static_cast<const int*>(rows), static_cast<const __nv_bfloat16*>(h),
-      static_cast<const float*>(ws), static_cast<const float*>(alpha),
-      static_cast<const float*>(g), static_cast<const float*>(sga),
-      static_cast<float*>(dqh), static_cast<float*>(dws_part),
-      static_cast<__nv_bfloat16*>(dzr), Np, n_valid, C, H, normalize);
-  e = cudaGetLastError();
+  // An int8 store is never normalized here: no kernel of codes that sums
+  // squares.
+  const bool norm = !store_rows::kInt8<T> && normalize;
+  cudaError_t e =
+      norm ? launch_rows<G, T, !store_rows::kInt8<T>>(
+                 store, rows, h, ws, alpha, g, sga, dqh, dws_part, dzr, B, Np,
+                 n_valid, C, H, st)
+           : launch_rows<G, T, false>(store, rows, h, ws, alpha, g, sga, dqh,
+                                      dws_part, dzr, B, Np, n_valid, C, H,
+                                      st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   e = attn_dwv::launch_dwv(
@@ -239,32 +294,42 @@ int attention_resident_bwd_dwv_config(int K, int C, int H, int int8,
   return 0;
 }
 
+// The rows launch's shape: grid, threads, dynamic shared memory in bytes,
+// cell lanes and unit passes.
+int attention_resident_bwd_rows_config(int B, int n_valid, int G, int C,
+                                       int H, int* out) {
+  const attn_rows::Shape s = attn_rows::plan(B, n_valid, G, C, H);
+  const int v[5] = {s.grid_x, s.threads, s.smem_bytes, s.cell_lanes,
+                    s.unit_passes};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
 // store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must
-// be 0), rows [B] i32, h [B, Np, H] bf16 (K4's residual),
+// be 0), rows [B] i32, h [B, Np, H] bf16 (K4's residual, 16-byte aligned),
 // ws [G, H] f32 (1 <= G <= 8), alpha [B, Np, G] f32, g [B, G, C] f32, sga
 // [B, Np, G] f32 -> dqh [B, H], dwv [C, H], dws [G, H], all f32. Scratch:
 // dzr [B*n_valid, H] bf16, dws_part [B, G, H] f32, part [splits, C, H] f32.
-// Needs C % 128 == 0 and H % 128 == 0, and G * C * 2 + (G + 1) * Np * 4
-// bytes of shared memory at most 227 KB (checked by the caller). Three
-// launches on `stream`, counting in *launched those that launched; returns
-// the first launch error.
+// Needs C % 128 == 0 and H % 128 == 0 and the rows launch's shared memory
+// (attn_rows::plan) at most 227 KB (checked by the caller). Three launches on `stream`, counting in *launched those that
+// launched; returns the first launch error.
 int attention_resident_bwd(const void* store, const void* rows,
                            const void* h, const void* ws, const void* alpha,
                            const void* g, const void* sga, void* dzr,
                            void* dws_part, void* part, void* dqh, void* dwv,
                            void* dws, int B, int Np, int n_valid, int C,
-                           int H, int G, int normalize, int int8,
-                           int splits, void* stream, int* launched) {
+                           int H, int G, int normalize, int int8, int splits,
+                           void* stream, int* launched) {
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int8 && normalize) return static_cast<int>(cudaErrorInvalidValue);
-#define K5_CASE(k)                                                           \
-  case k:                                                                    \
-    return int8 ? launch_bwd<k, int8_t>(store, rows, h, ws, alpha, g, sga,   \
-                                        dzr, dws_part, part, dqh, dwv, dws,  \
-                                        B, Np, n_valid, C, H, 0, splits, st, \
-                                        launched)                            \
-                : launch_bwd<k, __nv_bfloat16>(                              \
+#define K5_CASE(k)                                                            \
+  case k:                                                                     \
+    return int8 ? launch_bwd<k, int8_t>(store, rows, h, ws, alpha, g, sga,    \
+                                        dzr, dws_part, part, dqh, dwv, dws,   \
+                                        B, Np, n_valid, C, H, 0, splits, st,  \
+                                        launched)                             \
+                : launch_bwd<k, __nv_bfloat16>(                               \
                       store, rows, h, ws, alpha, g, sga, dzr, dws_part, part, \
                       dqh, dwv, dws, B, Np, n_valid, C, H, normalize, splits, \
                       st, launched);

@@ -13,10 +13,11 @@
 //
 // Design: K5's structure (attention_resident_bwd.cu) with its softmax
 // backward taken out, so the probe isolates K5's own dW_v GEMM under the
-// same lookup: a per-question pass (one block per question: each warp takes
-// cells and forms dal from 16-byte loads of the row against g staged in
-// shared memory, then the block writes the bf16 cotangent compactly as
-// [B*Np, H]); the split-K dW_v GEMM of attention_dwv.cuh (wgmma on
+// same lookup: the rows stage of attention_rows.cuh (one block a question:
+// a warp a cell with the whole row's 16-byte loads in flight forms dal
+// against g staged in shared memory, then the block writes the bf16
+// cotangent compactly as [B*Np, H], kCellsInFlight 16-byte vectors a
+// thread at a time); the split-K dW_v GEMM of attention_dwv.cuh (wgmma on
 // transposed operands from a cp.async ring) with the store rows looked up
 // per cell (StoreCells); its fixed-order reduction over the splits. No
 // atomics.
@@ -32,10 +33,11 @@
 #include <cstdint>
 
 #include "attention_dwv.cuh"
+#include "attention_rows.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;
+constexpr int kRowThreads = attn_rows::kThreads;
 
 __global__ void __launch_bounds__(kRowThreads)
 probe_bwd_rows_kernel(const __nv_bfloat16* __restrict__ store,  // [M,Np,C]
@@ -59,36 +61,37 @@ probe_bwd_rows_kernel(const __nv_bfloat16* __restrict__ store,  // [M,Np,C]
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const __nv_bfloat16* v = store + static_cast<size_t>(rows[b]) * Np * C;
-  for (int n = warp; n < Np; n += kRowThreads / 32) {
-    const __nv_bfloat16* row = v + static_cast<size_t>(n) * C;
-    float dot = 0.0f;
-    for (int c = lane * 8; c < C; c += 256) {
-      const uint4 x4 = *reinterpret_cast<const uint4*>(row + c);
-      const uint4 g4 = *reinterpret_cast<const uint4*>(gs + c);
-      const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&x4);
-      const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&g4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        dot = fmaf(__bfloat162float(ge[i]), __bfloat162float(xe[i]), dot);
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    }
-    if (lane == 0) dal[static_cast<size_t>(b) * Np + n] = dot;
+  for (int n = warp; n < Np; n += attn_rows::kWarps) {
+    float dot[1], sq;
+    attn_rows::cell_dots<1, false>(v + static_cast<size_t>(n) * C, gs, C,
+                                   lane, dot, sq);
+    if (lane == 0) dal[static_cast<size_t>(b) * Np + n] = dot[0];
   }
 
-  // The question's cotangent rows, eight units a thread per 16-byte access.
+  // The question's cotangent rows, eight units a thread per 16-byte
+  // access, kCellsInFlight accesses a thread at a time.
   const size_t base = static_cast<size_t>(b) * Np * H;
   const size_t units = static_cast<size_t>(Np) * H;
   const __nv_bfloat162 half = __floats2bfloat162_rn(0.5f, 0.5f);
-  for (size_t i = static_cast<size_t>(tid) * 8; i < units;
-       i += kRowThreads * 8) {
-    uint4 x4 = *reinterpret_cast<const uint4*>(h + base + i);
-    __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&x4);
+  constexpr int kStep = kRowThreads * attn_rows::kUnits;
+  for (size_t i0 = static_cast<size_t>(tid) * attn_rows::kUnits; i0 < units;
+       i0 += kStep * attn_rows::kCellsInFlight) {
+    uint4 x4[attn_rows::kCellsInFlight];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) x2[j] = __hmul2(x2[j], half);
-    *reinterpret_cast<uint4*>(dz + base + i) = x4;
+    for (int f = 0; f < attn_rows::kCellsInFlight; ++f) {
+      const size_t i = i0 + static_cast<size_t>(f) * kStep;
+      if (i < units) x4[f] = *reinterpret_cast<const uint4*>(h + base + i);
+    }
+#pragma unroll
+    for (int f = 0; f < attn_rows::kCellsInFlight; ++f) {
+      const size_t i = i0 + static_cast<size_t>(f) * kStep;
+      if (i < units) {
+        __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&x4[f]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x2[j] = __hmul2(x2[j], half);
+        *reinterpret_cast<uint4*>(dz + base + i) = x4[f];
+      }
+    }
   }
 }
 

@@ -47,7 +47,6 @@ _NEG_INF = -1e30
 _FWD_TILE_H = 128  # H's multiple: the score tile's 128 or 256 columns
 _FWD_TILE_C = 32  # C's multiple (the score GEMM zero-fills half a chunk)
 _SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
-_SMEM_OPTIN = 227 * 1024  # dynamic shared memory a block may opt in to
 MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
 
 
@@ -253,7 +252,24 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.attention_resident_bwd.restype = i
     lib.attention_resident_bwd_dwv_config.argtypes = [i] * 5 + [p]
     lib.attention_resident_bwd_dwv_config.restype = i
+    lib.attention_resident_bwd_rows_config.argtypes = [i] * 5 + [p]
+    lib.attention_resident_bwd_rows_config.restype = i
     return lib
+
+
+def rows_launch_config(B: int, n_valid: int, G: int, C: int,
+                       H: int) -> dict:
+    """The shape of K5's rows launch as the C side sets it for ``B``
+    questions of ``n_valid`` cells at G glimpses, C x H, in
+    :func:`kernels.rows_plan`'s keys."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 5)()
+    rc = lib.attention_resident_bwd_rows_config(B, n_valid, G, C, H,
+                                                 ctypes.addressof(out))
+    kernels.check(lib, rc, "attention_resident_bwd_rows_config")
+    gx, threads, smem, lanes, passes = out
+    return {"grid": [gx], "threads": threads, "smem_bytes": smem,
+            "cell_lanes": lanes, "unit_passes": passes}
 
 
 def dwv_launch_config(K: int, C: int, H: int, int8: bool,
@@ -376,8 +392,10 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     residual), ws [H, G] f32 with 1 <= G <= 8, alpha and sga [B, Np, G]
     f32, g [B, G*C] f32 -> (dqh [B, H], dwv [C, H], dws [H, G]), all f32; a
     1-D ws [H] takes alpha and sga [B, Np] and gives dws [H]. Needs
-    C % 128 == 0 and H % 128 == 0. One call makes the kernel's three
-    launches on the current stream and adds the number launched (3) to
+    C % 128 == 0 and H % 128 == 0, h 16-byte aligned, and the rows
+    launch's shared memory within a block's (:func:`kernels.rows_plan`).
+    One call makes the kernel's three launches on the current stream and
+    adds the number launched (3) to
     ``attention_resident_bwd.launches`` (bf16 rows) or
     ``attention_resident_bwd.launches_int8`` (int8 rows)."""
     M, Np, C, B = _check_store(store, rows, n_valid, normalize,
@@ -390,10 +408,7 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     if C % tile or H % tile:
         raise ValueError(f"attention_resident_bwd needs C % {tile} == 0 "
                          f"and H % {tile} == 0, got C={C}, H={H}")
-    # The G cotangent rows in bf16, then ds per glimpse and r in f32.
-    if G * C * 2 + (G + 1) * Np * 4 > _SMEM_OPTIN:
-        raise ValueError(f"attention_resident_bwd: C={C} channels, Np={Np} "
-                         f"cells and G={G} glimpses exceed its shared memory")
+    kernels.rows_plan(B, n_valid, G, C, H)  # raises where it cannot launch
     per_cell = (B, Np) + ((G,) if ws.dim() == 2 else ())
     kernels.expect("h", h, torch.bfloat16, (B, Np, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,) + per_cell[2:], dev)
@@ -401,6 +416,9 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     kernels.expect("g", g, torch.float32, (B, G * C), dev)
     kernels.expect("sga", sga, torch.float32, per_cell, dev)
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
+    if h.data_ptr() % 16:
+        raise ValueError("attention_resident_bwd reads h in 16-byte vectors: "
+                         "h must start 16-byte aligned")
     K = B * n_valid
     splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev), int8)["splits"]
     f32 = dict(dtype=torch.float32, device=dev)

@@ -165,6 +165,42 @@ def dwv_plan(K: int, C: int, H: int, sms: int, int8: bool = False) -> dict:
             "grid": [H // bn, C // DWV_TILE, splits]}
 
 
+ROWS_THREADS = 256  # threads of a block of the rows stage (K5, P2)
+ROWS_UNITS = 8  # hidden units a thread of it takes (16 bytes of bf16)
+SMEM_OPTIN = 232448  # dynamic shared memory a block of an H100 may take
+
+
+def rows_plan(B: int, n_valid: int, G: int, C: int, H: int) -> dict:
+    """The launch of K5's rows stage (``csrc/attention_rows.cuh``, the
+    per-question pass; P2 takes its grid and threads) for ``B`` questions
+    of ``n_valid`` cells, ``G`` glimpses (1..8), ``C`` channels and ``H``
+    hidden units (multiples of ``DWV_TILE``, as K5 and P2 need): one block
+    of ``ROWS_THREADS`` a question, whose dynamic shared memory holds the G
+    bf16 cotangent rows [G, C], then ds [n_valid, G] and r [n_valid] in
+    f32 (``ValueError`` above ``SMEM_OPTIN``); and the second pass's
+    threads: ``cell_lanes`` neighbours of a warp (a power of two) take cells
+    side by side for each ``ROWS_UNITS`` units, and ``unit_passes`` passes
+    of at most ``ROWS_THREADS`` such groups cover H. The C side
+    (``attn_rows::plan``) derives the same launch."""
+    if (B < 1 or n_valid < 1 or not 1 <= G <= 8 or C < DWV_TILE
+            or H < DWV_TILE or C % DWV_TILE or H % DWV_TILE):
+        raise ValueError(f"rows_plan needs B, n_valid >= 1, 1 <= G <= 8 "
+                         f"and C, H positive multiples of {DWV_TILE}, got "
+                         f"B={B}, n_valid={n_valid}, G={G}, C={C}, H={H}")
+    smem = 2 * G * C + 4 * (G + 1) * n_valid
+    if smem > SMEM_OPTIN:
+        raise ValueError(
+            f"rows_plan: {n_valid} cells of G={G} glimpses at C={C} need "
+            f"{smem} B of shared memory, over a block's {SMEM_OPTIN} B")
+    lanes = min(H // ROWS_UNITS, ROWS_THREADS)
+    cell_lanes = 1
+    while 2 * cell_lanes * lanes <= ROWS_THREADS:
+        cell_lanes *= 2
+    return {"grid": [B], "threads": ROWS_THREADS, "smem_bytes": smem,
+            "cell_lanes": cell_lanes,
+            "unit_passes": -(-(H // ROWS_UNITS) // lanes)}
+
+
 GRU_FWD_UNITS = 16  # hidden units a block of K1 owns
 GRU_FWD_ROWS = (16, 64)  # batch rows a block of K1 takes, fewest first
 

@@ -10,10 +10,11 @@ row g [B, C] bf16:
     dW_v   = sum_b store[rows[b]]^T bf16(h[b] * 0.5)  [C, H] f32
 
 107.6 GFLOP a call. The kernel (``csrc/probe_bwd_ceiling.cu``) is K5's
-structure without its softmax backward: a per-question pass forms dal and
-the bf16 cotangent, then K5's own split-K dW_v GEMM with the store rows
-looked up per cell (``csrc/attention_dwv.cuh``) and its fixed-order
-reduction, so the probe times K5's GEMM under the same lookup.
+structure without its softmax backward: K5's per-question pass
+(``csrc/attention_rows.cuh``, one block a question) forms dal and the bf16
+cotangent, then K5's own split-K dW_v GEMM with the store rows looked up
+per cell (``csrc/attention_dwv.cuh``) and its fixed-order reduction, so the
+probe times K5's GEMM under the same lookup.
 
 Checks: dW_v and dal against the plain version (``TOL_REL`` of each
 output's largest value). Times: ms per call over ``ITERS`` calls (CUDA
