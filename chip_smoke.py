@@ -115,7 +115,11 @@ Run from the repository root. Phases (any failure exits non-zero):
    at G=1 (its device time from the profiler) with its TFLOP/s; the dW_v
    launch alone (``attention_dwv.cuh``) inside K5 at G=1 on bf16 and int8
    rows and inside K8, with its TFLOP/s, beside cuBLAS on the same product
-   (the rows gathered apart, the gather timed); the rows launch alone
+   (the rows gathered apart, the gather timed); K8's dz launch alone (the
+   recomputed score GEMM on ``score_gemm.cuh``'s mainloop with a dense row
+   source) with its TFLOP/s and bound, beside cuBLAS on the same [B*N, C]
+   x [C, H] product; K2 at the training batch on phase 7's inputs, with
+   its bound and its score launch alone; the rows launch alone
    (``attention_rows.cuh``) inside K5 at G=1, 2 and 8 on bf16 rows and at
    G=1 on int8 rows and inside P2, each beside its bytes bound; the
    gathered op's whole backward with K8 and with the explicit math; K1's
@@ -1464,7 +1468,7 @@ def phase_gathered(report: dict, dev) -> dict:
     from vqa_transfer_externaldata_torch.data.datasets import load_dataset
     from vqa_transfer_externaldata_torch.models import vqa_attention
     from vqa_transfer_externaldata_torch.models.zoo import build_model
-    from vqa_transfer_externaldata_torch.ops import attention
+    from vqa_transfer_externaldata_torch.ops import attention, kernels
     from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 
     steps = WARMUP_STEPS + TIMED_STEPS
@@ -1496,10 +1500,12 @@ def phase_gathered(report: dict, dev) -> dict:
         state = trainer.fit_resident(ds, state)
         torch.cuda.synchronize()
         launches = read_counts()
-        # A step: K1 and K3 as on the main path, K2 two launches, K8 three.
+        # A step: K1 and K3 as on the main path, K2 two launches, K8 its
+        # four (kernels.ATTENTION_BWD_LAUNCHES).
         check_launches(launches, {
             "gru_fwd": steps, "gru_bwd": 3 * steps,
-            "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
+            "attention_fwd": 2 * steps,
+            "attention_bwd": kernels.ATTENTION_BWD_LAUNCHES * steps},
             f"gathered stage-2 training over {steps} steps")
         out.update(launches=launches,
                    **read_steps(tmp, steps, "gathered stage-2 training",
@@ -1522,7 +1528,8 @@ def phase_gathered(report: dict, dev) -> dict:
                 k8 = attention.attention_bwd.launches - before
             finally:
                 vqa_attention.spatial_attention = saved
-            check(k8 == (3 * AB_STEPS if bwd_kernel else 0),
+            check(k8 == (kernels.ATTENTION_BWD_LAUNCHES * AB_STEPS
+                         if bwd_kernel else 0),
                   f"A/B {tag}: {k8} K8 launches")
             ab[tag] = read_steps(tmp, AB_STEPS, f"gathered step, {tag} "
                                  "backward", "questions", warmup=2,
@@ -1539,6 +1546,7 @@ def phase_streamed(report: dict, dev) -> dict:
     buffer and copied to the card; the attention runs K2 and K8."""
     import torch
     from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.ops import kernels
 
     steps = STREAM_STEPS
     flags = {"data.synthetic": True, "data.synthetic_layout": "flat",
@@ -1560,7 +1568,8 @@ def phase_streamed(report: dict, dev) -> dict:
         launches = read_counts()
         check_launches(launches, {
             "gru_fwd": steps, "gru_bwd": 3 * steps,
-            "attention_fwd": 2 * steps, "attention_bwd": 3 * steps},
+            "attention_fwd": 2 * steps,
+            "attention_bwd": kernels.ATTENTION_BWD_LAUNCHES * steps},
             f"streamed stage-2 training over {steps} steps")
         out["launches"] = launches
         out.update(read_steps(train_dir, steps, "streamed stage-2 training",
@@ -2377,10 +2386,15 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     times["gru_fwd"]["bound"], nlen = k1_bound(k3["lens"])
     k1_serving["bound"], nlen_serving = k1_bound(k1["lens"])
     times["gru_fwd"]["at_serving_batch"] = k1_serving
-    k2_bytes = B * N * C * 2 + B * H * 4 + C * H * 2 + H * 4 + B * C * 4 \
-        + B * N * 4
-    k2_flops = 2 * B * N * C * H + 2 * B * N * C
-    times["attention_fwd"]["bound"] = bound(k2_bytes, k2_flops)
+
+    def k2_bound(batch: int) -> tuple:
+        # v, qh, W_v and ws read once, v_att and alpha written once; the
+        # score GEMM and the weighted sum.
+        return bound(batch * N * C * 2 + batch * H * 4 + C * H * 2 + H * 4
+                     + batch * C * 4 + batch * N * 4,
+                     2 * batch * N * C * H + 2 * batch * N * C)
+
+    times["attention_fwd"]["bound"] = k2_bound(B)
     # K3: the live row-steps of this run's lengths read gx and hseq once;
     # dgx [T, B, 3H] and dU_h are written once. Each live row-step takes
     # three [H] x [H, 3H] products: the recomputed gh, the U_h^T product
@@ -2541,6 +2555,42 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 + 2 * Bt * N * 4 + Bt * H * 4 + C * H * 4 + H * 4)
     k8_flops = 2 * 2 * Bt * N * C * H + 6 * Bt * N * H
     times["attention_bwd"]["bound"] = bound(k8_bytes, k8_flops)
+    # K8's dz launch alone (the recomputed score GEMM on score_gemm.cuh's
+    # mainloop and its epilogue), from the profiler over whole calls, L2
+    # flushed before each, with its TFLOP/s and its bound: 2 B N C H
+    # operations against the grid and W_v read once and dzr and the
+    # partials written once. Beside it cuBLAS on the same product,
+    # v [B N, C] @ W_v [C, H] in bf16.
+    dz_plan = kernels.dz_plan(Bt, N, C, H)
+    dz_flops = 2 * Bt * N * C * H  # K2's score GEMM at Bt does the same
+    dz_ms = kernel_device_ms(lambda: attention.attention_bwd(
+        v8, qh8, wv8, ws8, ds8, r8, True), "attn_bwd_dz_kernel", buf)
+    v8_rows = v8.view(Bt * N, C)
+    dz_bound = bound(Bt * N * C * 2 + C * H * 2 + Bt * H * 4 + H * 4
+                     + 2 * Bt * N * 4 + Bt * N * H * 2
+                     + 2 * 4 * dz_plan["partials"][0]
+                     * dz_plan["partials"][1] * H, dz_flops)
+    times["attention_bwd"]["dz_stage"] = {
+        "ms": dz_ms, "tflops": dz_flops / (dz_ms * 1e-3) / 1e12,
+        "bound_ms": dz_bound[0], "bound_by": dz_bound[1],
+        "launch": {k: dz_plan[k] for k in ("tile", "stages", "smem_bytes",
+                                            "grid", "slots")},
+        "library_ms": time_cuda(lambda: torch.matmul(v8_rows, wv8), buf),
+        "library_call": f"torch.matmul([{Bt * N}, {C}] bf16, [{C}, {H}] "
+                        "bf16) -> bf16"}
+    # K2 at the gathered training batch on phase 7's inputs (normalize on):
+    # the whole call, its plain version, its bound and its score launch
+    # alone.
+    k2t = {
+        "kernel": time_cuda(lambda: attention.attention_fwd(
+            v8, qh8, wv8, ws8, normalize=True), buf),
+        "plain": time_cuda(lambda: attention.attention_fwd_reference(
+            v8, qh8, wv8, ws8, True), buf),
+        "score_ms": kernel_device_ms(lambda: attention.attention_fwd(
+            v8, qh8, wv8, ws8, normalize=True), "attn_score_kernel", buf),
+        "bound": k2_bound(Bt)}
+    k2t["score_tflops"] = dz_flops / (k2t["score_ms"] * 1e-3) / 1e12
+    times["attention_fwd"]["at_training_batch"] = k2t
     # The dW_v launch alone (attention_dwv.cuh, shared by K5, K8 and P2),
     # from the profiler over whole calls, L2 flushed before each: K5 at G=1
     # on bf16 rows and on int8 codes, K8. Beside it cuBLAS on the same
@@ -2599,6 +2649,15 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     print(f"K7 against two K3 calls in turns (both directions): K7 "
           f"{times['bigru_bwd']['kernel']:.4f} ms, two K3 calls "
           f"{times['bigru_bwd']['two_k3']:.4f} ms")
+    t = times["attention_bwd"]["dz_stage"]
+    print(f"K8 dz launch at B={Bt}, N={N}: {t['ms']:.4f} ms, "
+          f"{t['tflops']:.1f} TFLOP/s, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); cuBLAS on the same product "
+          f"{t['library_ms']:.4f} ms")
+    print(f"K2 at B={Bt}: {k2t['kernel']:.4f} ms (plain {k2t['plain']:.4f}), "
+          f"its score launch {k2t['score_ms']:.4f} ms, "
+          f"{k2t['score_tflops']:.1f} TFLOP/s, bound {k2t['bound'][0]:.4f} "
+          f"ms ({k2t['bound'][1]})")
     print(f"gathered backward A/B: with K8 "
           f"{times['attention_bwd']['op_backward_with_kernel']:.4f} ms, "
           f"explicit {times['attention_bwd']['explicit_backward']:.4f} ms")
@@ -2746,7 +2805,9 @@ def main(argv=None) -> int:
     # launch alone at G=1 under score_ms_g1 and score_tflops_g1; the dW_v
     # launch alone of K5 at G=1 (bf16 and int8 rows) and of K8 under
     # dwv_stage_g1 / dwv_stage, with cuBLAS on the same product (library_ms
-    # of the whole kernel stays null: no one PyTorch call computes it); the
+    # of the whole kernel stays null: no one PyTorch call computes it); K8's
+    # dz launch alone under dz_stage, with cuBLAS on its product; K2 at the
+    # training batch (its score launch alone too) under at_training_batch; the
     # rows launch alone of K5 (rows_stage_g1/g2/g8, int8 rows_stage_g1, the
     # launch's shape under rows_launch) and of P2 (rows_stage), each beside
     # its bytes bound.
@@ -2762,6 +2823,7 @@ def main(argv=None) -> int:
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
+    k2t = times["attention_fwd"].pop("at_training_batch")
     meta = {
         "gru_fwd": (ref + "gru.py:227", max(k1["err"], k3["k1_err"]), {
             "tol": TOL_GRU, "err_by_batch": {str(B): k1["err"],
@@ -2787,7 +2849,11 @@ def main(argv=None) -> int:
         "attention_fwd": (
             ref + "attention.py:125",
             max(max(c["v_att_err"], c["alpha_err"]) for c in k2["checks"]),
-            {"checks": k2["checks"]}),
+            {"checks": k2["checks"], "at_training_batch": {
+                "batch": B_TRAIN, "ms": k2t["kernel"],
+                "plain_ms": k2t["plain"], "score_ms": k2t["score_ms"],
+                "score_tflops": k2t["score_tflops"],
+                "bound_ms": k2t["bound"][0], "bound_by": k2t["bound"][1]}}),
         "gru_bwd": (ref + "gru.py:259", k3["err"], {
             "checks": k3["checks"], "persistent_launch": k3["launch"]}),
         "attention_resident_fwd": (
@@ -2821,7 +2887,8 @@ def main(argv=None) -> int:
             times["attention_bwd"]["op_backward_with_kernel"],
             "explicit_backward_ms":
             times["attention_bwd"]["explicit_backward"],
-            "dwv_stage": times["attention_bwd"]["dwv_stage"]}),
+            "dwv_stage": times["attention_bwd"]["dwv_stage"],
+            "dz_stage": times["attention_bwd"]["dz_stage"]}),
         "attention_resident_fwd[int8]": (
             ref + "attention_resident.py:174", k45q["err4"], {
                 "glimpses": "1-8", "checks": k45q["checks4"],

@@ -5,7 +5,9 @@ graph capture, and two calls bit-equal), K2 (attention_fwd), K3 (gru_bwd), K4
 glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
 tiles, and two calls bit-equal), K6 (bigru_fwd), K7 (bigru_bwd; also
 its launch shape, under CUDA graph capture, and two calls bit-equal) and
-K8 (attention_bwd), and the probes P1 (probe_mxu_rows) and
+K8 (attention_bwd; also at the edges of its dz stage's 128-cell tiles,
+its launch shape against kernels.dz_plan, and two calls bit-equal), and
+the probes P1 (probe_mxu_rows) and
 P2 (probe_bwd_ceiling) on the card against their plain PyTorch
 versions; K5 and K8 also at the edges of the dW_v GEMM's tiles that they
 share with P2 (csrc/attention_dwv.cuh), its launch shape, and two calls of
@@ -44,7 +46,7 @@ import pytest
 import torch
 
 from vqa_transfer_externaldata_torch.ops import (
-    attention, attention_resident as ar, gru)
+    attention, attention_resident as ar, gru, kernels)
 from vqa_transfer_externaldata_torch.tools import (
     TOL_REL, probe_bwd_ceiling as p2, probe_mxu_rows as p1)
 
@@ -913,32 +915,59 @@ def _k8_allowance(v, qh, wv, ws, ds, r, normalize):
             int(unsure.sum().item()))
 
 
-@pytest.mark.parametrize("shape", [(3, 13, 128, 128), (256, 196, 2048, 512)])
+# K8 at the edges of its dz stage's 128-cell tiles: one cell, a tile
+# spanning 3 questions, questions of 127 and 129 cells (one tile boundary
+# inside a question, either side) at 128-unit tiles, questions longer than
+# two tiles, the training shape, and 128 questions a tile (N=7 at B=1024:
+# 20 slots, every tile ragged against its questions).
+K8_SHAPES = [(1, 1, 128, 128), (3, 13, 128, 128), (2, 127, 256, 384),
+             (2, 129, 256, 384), (3, 300, 128, 128), (256, 196, 2048, 512),
+             (1024, 7, 2048, 512)]
+
+
+@pytest.mark.parametrize("shape", K8_SHAPES)
 @pytest.mark.parametrize("normalize", [True, False])
 def test_attention_bwd_matches_plain(dev, shape, normalize):
     B, N, C, H = shape
-    g = torch.Generator(device=dev).manual_seed(10)
-    scale = torch.exp2(torch.rand(B, N, 1, generator=g, device=dev) * 4 - 2)
-    v = (torch.randn(B, N, C, generator=g, device=dev).relu() * scale).to(
-        torch.bfloat16)
-    qh = torch.randn(B, H, generator=g, device=dev) * 0.5
-    wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1)
-          * (6.0 / (C + H)) ** 0.5).to(torch.bfloat16)
-    ws = (torch.randn(H, generator=g, device=dev) * 0.05).to(
-        torch.bfloat16).float()
-    _, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
-    ds = (torch.randn(B, N, generator=g, device=dev) * al).contiguous()
+    v, qh, wv, ws, ds, r = _k8_inputs(dev, B, N, C, H, normalize)
     before = attention.attention_bwd.launches
     got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
     want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, normalize)
     torch.cuda.synchronize()
-    assert attention.attention_bwd.launches == before + 3
+    assert attention.attention_bwd.launches == (
+        before + kernels.ATTENTION_BWD_LAUNCHES)
     a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, normalize)
     for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
                                  (a_dqh, a_dwv, 0.0)):
         assert torch.isfinite(a).all(), name
         limit = TOL_K5 * b.abs().max().item() + allow
         assert ((a - b).abs() <= limit).all(), (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("shape", [(3, 300, 128, 128), (1024, 7, 2048, 512),
+                                   (2, 129, 256, 384)])
+def test_attention_bwd_dz_stage_is_deterministic(dev, shape):
+    """Two K8 calls give the same bits where a question spans several
+    tiles and where a tile spans many questions: each question's partials
+    are folded in tile order, with no atomics."""
+    args = _k8_inputs(dev, *shape, True)
+    first = attention.attention_bwd(*args, True)
+    second = attention.attention_bwd(*args, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_attention_bwd_dz_launch_shape(dev):
+    """K8's dz launch as the C side sets it equals kernels.dz_plan (but the
+    partials' shape, which only the wrapper allocates) at the training
+    shape and at the card-test shapes, within a block's shared memory."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for B, N, C, H in K8_SHAPES + [(1, 7, 128, 2304)]:
+        plan = kernels.dz_plan(B, N, C, H)
+        del plan["partials"]
+        assert attention.dz_launch_config(B, N, H) == plan, (B, N, H)
+        assert plan["smem_bytes"] <= limit
 
 
 def test_gathered_op_grads_go_through_k2_k8(dev):
@@ -966,7 +995,7 @@ def test_gathered_op_grads_go_through_k2_k8(dev):
         ((va * wa).sum() + (al * wb).sum()).backward()
         assert (attention.attention_fwd.launches - counts[0],
                 attention.attention_bwd.launches - counts[1]) == (
-                    2, 3 if bwd_kernel else 0)
+                    2, kernels.ATTENTION_BWD_LAUNCHES if bwd_kernel else 0)
         grads.append([t.grad for t in ins])
     for a, b in zip(*grads):
         cos = torch.nn.functional.cosine_similarity(
@@ -1061,7 +1090,8 @@ def test_attention_bwd_dwv_tile_edges_match_plain(dev, shape, normalize):
     got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
     want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, normalize)
     torch.cuda.synchronize()
-    assert attention.attention_bwd.launches == before + 3
+    assert attention.attention_bwd.launches == (
+        before + kernels.ATTENTION_BWD_LAUNCHES)
     a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, normalize)
     for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
                                  (a_dqh, a_dwv, 0.0)):

@@ -1,7 +1,9 @@
-// The score mainloop shared by K4's score kernel (attention_resident_fwd.cu)
-// and the probe P1 (probe_mxu_rows.cu): one 128-row x BN-column tile of
+// The score mainloop shared by K4's score kernel (attention_resident_fwd.cu),
+// K8's dz stage (attention_bwd.cu) and the probe P1 (probe_mxu_rows.cu): one
+// 128-row x BN-column tile of
 //
-//   acc = A @ W_v      A [rows, C]: store rows looked up one by one,
+//   acc = A @ W_v      A [rows, C]: store rows looked up one by one, or the
+//                      rows of a dense matrix (DenseRows),
 //                      W_v [C, H] bf16, f32 sums of bf16 products
 //
 // on Hopper's warpgroup MMA (wgmma, sm_90a). Its primitives (the copies,
@@ -36,8 +38,9 @@
 //    squares (normalize) of the thread's own copies; fence.proxy.async
 //    (cp.async and the widening write through the generic proxy, wgmma
 //    reads through the async proxy); the block barrier; four m64nBNk16
-//    wgmmas a warpgroup, the descriptors 32 B further along K each; commit;
-//    wgmma.wait_group 1. The chunk before may then still be in flight, so
+//    wgmmas a warpgroup, the descriptors 32 B further along K each (the
+//    very first with scale_d 0, which starts the sums: the accumulators
+//    are never zeroed by other instructions); commit; wgmma.wait_group 1. The chunk before may then still be in flight, so
 //    the copies run kStages - 2 chunks ahead: the stage they overwrite held
 //    the chunk before that one, which both warpgroups had finished when
 //    they passed this chunk's barrier.
@@ -257,10 +260,21 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// Tile row r is row row0 + r of a dense [rows, C] bf16 matrix (K8's
+// gathered grid, [B*N, C]), or null past its last row.
+struct DenseRows {
+  const __nv_bfloat16* x;
+  int C, rows, row0;
+  __device__ const __nv_bfloat16* operator()(int r) const {
+    const int row = row0 + r;
+    return row < rows ? x + static_cast<size_t>(row) * C : nullptr;
+  }
+};
+
 // acc = rows(0 .. kBM-1) @ W_v[:, col0 .. col0 + BN) for this thread's part
 // of the tile (frag_row / frag_col). `rows(r)` gives a const T* to tile row
-// r's first channel, or nullptr past the end; wvt is W_v^T [H, C] bf16; C %
-// 32 == 0. `ring` is the 1024-byte-aligned ring of Plan<T, BN>. Ends with
+// r's first channel, or nullptr past the end; wvt is W_v^T [H, C] bf16; C >
+// 0 and C % 32 == 0. `ring` is the 1024-byte-aligned ring of Plan<T, BN>. Ends with
 // every copy landed and every MMA done, but without a barrier: the caller
 // syncs before it reuses the ring.
 template <class T, int BN, class Rows>
@@ -290,8 +304,8 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
       wvt + static_cast<size_t>(col0 + br) * C + bc * 8;
   const uint32_t ring_s = smem_u32(ring);
 
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  // acc is not zeroed: the first wgmma writes it with scale_d 0 (zeroed
+  // registers make ptxas serialize the wgmmas, its warning C7515).
 #pragma unroll
   for (int j = 0; j < 4; ++j) sq[j] = 0.0f;
 
@@ -365,7 +379,7 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      mma<BN>(acc, desc(a + kk * 32), desc(b + kk * 32));
+      mma<BN>(acc, desc(a + kk * 32), desc(b + kk * 32), (kc | kk) != 0);
     }
     wgmma_commit();
     fence_acc(acc);

@@ -343,9 +343,24 @@ attention_fwd.launches = 0
 def _bwd_lib() -> ctypes.CDLL:
     lib = kernels.load("attention_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_bwd.argtypes = [p] * 12 + [i] * 6 + [p, p]
+    lib.attention_bwd.argtypes = [p] * 14 + [i] * 7 + [p, p]
     lib.attention_bwd.restype = i
+    lib.attention_bwd_dz_config.argtypes = [i] * 3 + [p]
+    lib.attention_bwd_dz_config.restype = i
     return lib
+
+
+def dz_launch_config(B: int, N: int, H: int) -> dict:
+    """The shape of K8's dz launch as the C side sets it for ``B``
+    questions of ``N`` cells at width ``H``, in :func:`kernels.dz_plan`'s
+    keys but ``partials``."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * 8)()
+    rc = lib.attention_bwd_dz_config(B, N, H, ctypes.addressof(out))
+    kernels.check(lib, rc, "attention_bwd_dz_config")
+    tm, tn, stages, smem, epi, gx, gy, slots = out
+    return {"tile": [tm, tn], "stages": stages, "smem_bytes": smem,
+            "epilogue_bytes": epi, "grid": [gx, gy], "slots": slots}
 
 
 def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
@@ -355,8 +370,10 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     """Launch kernel K8 (``csrc/attention_bwd.cu``) on CUDA tensors: v
     [B, N, C] bf16, qh [B, H] f32, wv [C, H] bf16, ws [H] f32, ds and r
     [B, N] f32 -> (dqh [B, H], dwv [C, H], dws [H]), all f32. Needs
-    C % 128 == 0 and H % 128 == 0. One call makes the kernel's three
-    launches on the current stream and adds the number launched (3) to
+    C % 128 == 0 and H % 128 == 0. One call makes the kernel's
+    ``kernels.ATTENTION_BWD_LAUNCHES`` (4) launches on the current stream,
+    its dz stage as :func:`kernels.dz_plan` and its dW_v GEMM as
+    :func:`kernels.dwv_plan` plan them, and adds the number launched to
     ``attention_bwd.launches``."""
     H = qh.shape[-1]
     B, N, C = _check_grid(v, H, "attention_bwd")
@@ -374,9 +391,13 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
         raise ValueError("attention_bwd reads wv in 16-byte vectors: it "
                          "must start 16-byte aligned")
     K = B * N
+    dz = kernels.dz_plan(B, N, C, H)
     splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev))["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
+    wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
     dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
+    qpart = torch.empty(dz["partials"], **f32)
+    wpart = torch.empty(dz["partials"], **f32)
     dws_part = torch.empty(B, H, **f32)
     part = torch.empty(splits, C, H, **f32)
     dqh = torch.empty(B, H, **f32)
@@ -386,10 +407,11 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_bwd(
-            v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
-            ds.data_ptr(), r.data_ptr(), dzr.data_ptr(), dws_part.data_ptr(),
-            part.data_ptr(), dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(),
-            B, N, C, H, int(normalize), splits,
+            v.data_ptr(), wvt.data_ptr(), qh.data_ptr(), ws.data_ptr(),
+            ds.data_ptr(), r.data_ptr(), dzr.data_ptr(), qpart.data_ptr(),
+            wpart.data_ptr(), dws_part.data_ptr(), part.data_ptr(),
+            dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(),
+            B, N, C, H, int(normalize), dz["slots"], splits,
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_bwd.launches += launched.value

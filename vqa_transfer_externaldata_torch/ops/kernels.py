@@ -165,6 +165,42 @@ def dwv_plan(K: int, C: int, H: int, sms: int, int8: bool = False) -> dict:
             "grid": [H // bn, C // DWV_TILE, splits]}
 
 
+DZ_TILE = 128  # cells of a tile of K8's dz stage (score_gemm.cuh's rows)
+ATTENTION_BWD_LAUNCHES = 4  # K8 a call: dz, fold, dW_v GEMM, reduce
+
+
+def dz_plan(B: int, N: int, C: int, H: int) -> dict:
+    """The launch of K8's dz stage (``csrc/attention_bwd.cu``: the
+    recomputed score GEMM on ``score_gemm.cuh``'s mainloop and its
+    epilogue) for ``B`` questions of ``N`` cells at ``C`` x ``H``
+    (multiples of 128): ``DZ_TILE``-cell x BN-unit tiles over all B*N cells
+    (BN 256 where it divides H, else 128), the ring's stages, the dynamic
+    shared memory in bytes (the ring, 1024 B to align it and 4 B a tile
+    row), the epilogue's bytes inside the ring (the tile's f32 products,
+    rows padded by 8 floats, then ds and r a cell), the grid (unit tiles,
+    cell tiles) and the slots a tile: the most questions that one tile's
+    cells can span, ceil(127 / N) + 1, at most B. Tile t's slot s holds the
+    dqh and dws partials of question t * DZ_TILE // N + s; ``partials`` is
+    the shape [tiles, slots, H] of each of the two partial buffers, which
+    the fold sums per question in tile order. The C side (``dz_shape``)
+    derives the same launch and refuses other slots."""
+    if (B < 1 or N < 1 or C < DWV_TILE or H < DWV_TILE or C % DWV_TILE
+            or H % DWV_TILE):
+        raise ValueError(f"dz_plan needs B, N >= 1 and C, H positive "
+                         f"multiples of {DWV_TILE}, got B={B}, N={N}, C={C}, "
+                         f"H={H}")
+    bn = 256 if H % 256 == 0 else 128
+    stages = 4 if bn == 256 else 5
+    tiles = -(-(B * N) // DZ_TILE)
+    slots = min(B, -(-(DZ_TILE - 1) // N) + 1)
+    return {"tile": [DZ_TILE, bn], "stages": stages,
+            "smem_bytes": 1024 + stages * 2 * 64 * (DZ_TILE + bn)
+            + 4 * DZ_TILE,
+            "epilogue_bytes": 4 * (DZ_TILE * (bn + 8) + 2 * DZ_TILE),
+            "grid": [H // bn, tiles], "slots": slots,
+            "partials": [tiles, slots, H]}
+
+
 ROWS_THREADS = 256  # threads of a block of the rows stage (K5, P2)
 ROWS_UNITS = 8  # hidden units a thread of it takes (16 bytes of bf16)
 SMEM_OPTIN = 232448  # dynamic shared memory a block of an H100 may take
