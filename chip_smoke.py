@@ -11,7 +11,10 @@ Run from the repository root. Phases (any failure exits non-zero):
 2. K1 ``gru_fwd`` against its plain PyTorch version on the card
    (B=64, T=26, H=512, random lengths, forward and reverse);
 3. K2 ``attention_fwd`` against its plain version on the card
-   (B=64, N=196, C=2048, H=512, bf16, normalize on and off);
+   (B=64, N=196, C=2048, H=512, bf16, normalize on and off), two calls
+   bit-equal, and its alpha and r bit-equal to K4's on the identity store
+   (store v, rows 0..B-1: the same score tile of ``score_tile.cuh`` on the
+   same rows);
 4. K1 ``gru_fwd`` and K3 ``gru_bwd`` against their plain versions at the
    training shape (B=256, T=26, H=512, lengths 1..26, forward and
    reverse), both versions of K3 fed K1's hseq; the grid, resident blocks
@@ -36,10 +39,10 @@ Run from the repository root. Phases (any failure exits non-zero):
    persistent launch (grid, resident blocks per SM, shared memory) against
    ``kernels.gru_bwd_plan``'s, and what ptxas reports for the persistent
    step kernel of K3's and K7's builds (registers, spills, warnings);
-7. K8 ``attention_bwd`` against its plain version at the gathered
-   training shape (B=256, N=196, C=2048, H=512, bf16, normalize on and
-   off, both fed the same ds and K2's r), and the gathered op's gradients
-   under K8 against the explicit backward;
+7. K2's checks of phase 3 at the gathered training shape (B=256, N=196,
+   C=2048, H=512); K8 ``attention_bwd`` against its plain version there
+   (normalize on and off, both fed the same ds and K2's r), and the
+   gathered op's gradients under K8 against the explicit backward;
 8. full-width ``vqa_attention`` serving through ``Predictor`` at batch 64:
    host-feature requests, a padded short request, and ids-only requests
    against a staged 256-image store; launch counts of K1 and K2 over that
@@ -118,8 +121,11 @@ Run from the repository root. Phases (any failure exits non-zero):
    (the rows gathered apart, the gather timed); K8's dz launch alone (the
    recomputed score GEMM on ``score_gemm.cuh``'s mainloop with a dense row
    source) with its TFLOP/s and bound, beside cuBLAS on the same [B*N, C]
-   x [C, H] product; K2 at the training batch on phase 7's inputs, with
-   its bound and its score launch alone; the rows launch alone
+   x [C, H] product; K2 at B=8 (the Predictor's default batch), 64 and
+   256 (phase 7's inputs), with its bound, its score launch alone (the
+   score tile of ``score_tile.cuh``) at each batch, and at B=256 its
+   TFLOP/s and bound beside cuBLAS on the same product (the dz launch's)
+   and its wsum launch alone beside its bytes bound; the rows launch alone
    (``attention_rows.cuh``) inside K5 at G=1, 2 and 8 on bf16 rows and at
    G=1 on int8 rows and inside P2, each beside its bytes bound; the
    gathered op's whole backward with K8 and with the explicit math; K1's
@@ -258,6 +264,11 @@ KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
 # expects about 0.4%).
 INT8_GLIMPSES = (1, 2, 8)
 INT8_VATT_REL = 1e-2
+# The profiler's name of the score tile of score_tile.cuh: K2's score
+# launch and K4's.
+SCORE_KERNEL = "score_tile::kernel"
+# K2's whole call is also timed at the Predictor's default batch.
+B_PREDICT = 8
 
 
 class PhaseError(Exception):
@@ -438,9 +449,61 @@ def phase_gru(report: dict, dev, gen) -> dict:
     return {"gx": gx, "lens": lens, "uh": uh, "bhn": bhn, "err": err}
 
 
+def k2_checks(v, qh, wv, ws) -> list:
+    """K2 against its plain version on v [B, N, C], normalize on and off;
+    a second call bit-equal to the first; and K4 on the identity store
+    (store v, rows 0..B-1, every cell valid, one glimpse), which runs the
+    same score tile of score_tile.cuh on the same rows in the same order,
+    giving K2's alpha and r bit for bit."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar)
+
+    Bq, Nq = v.shape[:2]
+    rows = torch.arange(Bq, dtype=torch.int32, device=v.device)
+    checks = []
+    for normalize in (True, False):
+        va, al, r = attention.attention_fwd(v, qh, wv, ws,
+                                            normalize=normalize)
+        again = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+        _, al4, _, r4 = ar._launch_fwd(v, rows, qh, wv, ws, Nq, normalize,
+                                       False)
+        rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
+                                                       normalize)
+        torch.cuda.synchronize()
+        ev = (va - rv).abs().max().item()
+        ea = (al - ra).abs().max().item()
+        er = rel_err(r, rr)
+        tol_v = TOL_VATT_REL * rv.abs().max().item()
+        same = all(torch.equal(a, b) for a, b in zip((va, al, r), again))
+        k4_alpha, k4_r = torch.equal(al, al4), torch.equal(r.reshape(-1), r4)
+        print(f"K2 attention_fwd B={Bq} normalize={normalize}: max abs err "
+              f"v_att {ev:.3e} (tol {tol_v:.3e} = 2^-10 * max|v_att|), "
+              f"alpha {ea:.3e} (tol {TOL_ALPHA}), r {er:.3e} of max|r| (tol "
+              f"{TOL_R_REL:.0e}); two calls bit-equal {same}; alpha and r "
+              f"bit-equal to K4's on the identity store {k4_alpha} {k4_r}")
+        check(er <= TOL_R_REL, f"K2 normalize={normalize} r err {er}")
+        check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
+              "K2 output not finite")
+        check(ev <= tol_v, f"K2 normalize={normalize} v_att err {ev} > "
+              f"{tol_v}")
+        check(ea <= TOL_ALPHA, f"K2 normalize={normalize} alpha err {ea} > "
+              f"{TOL_ALPHA}")
+        check(same, f"K2 B={Bq} normalize={normalize}: two calls differ")
+        check(k4_alpha and k4_r, f"K2 B={Bq} normalize={normalize}: alpha "
+              f"({k4_alpha}) or r ({k4_r}) differs from K4's on the "
+              "identity store")
+        checks.append({"batch": Bq, "normalize": normalize, "v_att_err": ev,
+                       "v_att_tol": tol_v, "alpha_err": ea,
+                       "alpha_tol": TOL_ALPHA, "r_rel_err": er,
+                       "r_rel_tol": TOL_R_REL, "two_calls_bit_equal": same,
+                       "k4_identity_store_alpha_bit_equal": k4_alpha,
+                       "k4_identity_store_r_bit_equal": k4_r})
+    return checks
+
+
 def phase_attention(report: dict, dev, gen) -> dict:
     import torch
-    from vqa_transfer_externaldata_torch.ops import attention
 
     # Post-ReLU grid features, each cell scaled by its own factor in
     # [1/4, 4], so that the cells' norms differ as real ones do and a
@@ -454,32 +517,7 @@ def phase_attention(report: dict, dev, gen) -> dict:
           ).to(torch.bfloat16)
     ws = (torch.randn(H, generator=gen, device=dev) * 0.05).to(
         torch.bfloat16).float()
-    checks = []
-    for normalize in (True, False):
-        va, al, r = attention.attention_fwd(v, qh, wv, ws,
-                                             normalize=normalize)
-        rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
-                                                       normalize)
-        torch.cuda.synchronize()
-        ev = (va - rv).abs().max().item()
-        ea = (al - ra).abs().max().item()
-        er = rel_err(r, rr)
-        tol_v = TOL_VATT_REL * rv.abs().max().item()
-        print(f"K2 attention_fwd normalize={normalize}: max abs err v_att "
-              f"{ev:.3e} (tol {tol_v:.3e} = 2^-10 * max|v_att|), alpha "
-              f"{ea:.3e} (tol {TOL_ALPHA}), r {er:.3e} of max|r| (tol "
-              f"{TOL_R_REL:.0e})")
-        check(er <= TOL_R_REL, f"K2 normalize={normalize} r err {er}")
-        check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
-              "K2 output not finite")
-        check(ev <= tol_v, f"K2 normalize={normalize} v_att err {ev} > "
-              f"{tol_v}")
-        check(ea <= TOL_ALPHA, f"K2 normalize={normalize} alpha err {ea} > "
-              f"{TOL_ALPHA}")
-        checks.append({"normalize": normalize, "v_att_err": ev,
-                       "v_att_tol": tol_v, "alpha_err": ea,
-                       "alpha_tol": TOL_ALPHA, "r_rel_err": er,
-                       "r_rel_tol": TOL_R_REL})
+    checks = k2_checks(v, qh, wv, ws)
     return {"v": v, "qh": qh, "wv": wv, "ws": ws, "checks": checks}
 
 
@@ -913,9 +951,10 @@ def k8_allowance(v, qh, wv, ws, ds, r, normalize: bool) -> tuple:
 
 
 def phase_attention_bwd(report: dict, dev, gen) -> dict:
-    """K8 against its plain version at the gathered training shape, fed
-    the same ds and K2's r; then the op's parameter gradients under K8
-    against those under the explicit backward (bwd_kernel=False)."""
+    """K2's checks (``k2_checks``) at the gathered training shape; K8
+    against its plain version there, fed the same ds and K2's r; then the
+    op's parameter gradients under K8 against those under the explicit
+    backward (bwd_kernel=False)."""
     import torch
     from vqa_transfer_externaldata_torch.ops import attention
 
@@ -931,6 +970,7 @@ def phase_attention_bwd(report: dict, dev, gen) -> dict:
           ).to(torch.bfloat16)
     ws = (torch.randn(H, generator=gen, device=dev) * 0.05).to(
         torch.bfloat16).float()
+    k2 = k2_checks(v, qh, wv, ws)  # K2 at the training batch, which K8 reads
     checks, err, keep = [], 0.0, {}
     for normalize in (True, False):
         va, al, r = attention.attention_fwd(v, qh, wv, ws,
@@ -982,7 +1022,8 @@ def phase_attention_bwd(report: dict, dev, gen) -> dict:
     g = (wa * 0.01).contiguous()
     ga = (wb * 0.01).contiguous()
     return {"v": v, "qh": qh, "wv": wv, "ws": ws, **keep, "g": g, "ga": ga,
-            "checks": checks, "err": err, "op_grad_cos": cos}
+            "checks": checks, "err": err, "op_grad_cos": cos,
+            "k2_checks": k2}
 
 
 def phase_bigru(report: dict, dev, gen) -> dict:
@@ -2282,7 +2323,18 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
             lambda: attention.attention_fwd_reference(v, qh, wv, ws, True),
             buf),
         "library": None,
+        "score_ms": kernel_device_ms(lambda: attention.attention_fwd(
+            v, qh, wv, ws, normalize=True), SCORE_KERNEL, buf),
     }
+    # K2 at the Predictor's default batch: the first questions of the same
+    # inputs.
+    v1, qh1 = v[:B_PREDICT].contiguous(), qh[:B_PREDICT].contiguous()
+    times["attention_fwd"]["at_predict_batch"] = {
+        "batch": B_PREDICT,
+        "ms": time_cuda(lambda: attention.attention_fwd(
+            v1, qh1, wv, ws, normalize=True), buf),
+        "score_ms": kernel_device_ms(lambda: attention.attention_fwd(
+            v1, qh1, wv, ws, normalize=True), SCORE_KERNEL, buf)}
 
     # K3 at the training shape, forward direction.
     gx3, hseq3, lens3 = k3["gx"], k3["hseq"], k3["lens"]
@@ -2348,7 +2400,7 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     times["attention_resident_fwd"]["score"] = kernel_device_ms(
         lambda: ar.attention_resident_fwd(st, rows, qh4, wv4, ws4,
                                           save_h=True, **kw),
-        "attn_res_score_kernel", buf)
+        SCORE_KERNEL, buf)
     times["attention_resident_bwd"] = {
         "kernel": time_cuda(lambda: ar.attention_resident_bwd(
             st, rows, h5, ws4, al5, g5, sga5, **kw), buf),
@@ -2424,7 +2476,7 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 cq, rows, qh4, wvq, wsq, save_h=True, **kw), buf),
             "score": kernel_device_ms(lambda: ar.attention_resident_fwd(
                 cq, rows, qh4, wvq, wsq, save_h=True, **kw),
-                "attn_res_score_kernel", buf),
+                SCORE_KERNEL, buf),
             "library": None},
         "attention_resident_bwd": {
             "kernel": time_cuda(lambda: ar.attention_resident_bwd(
@@ -2579,15 +2631,30 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         "library_call": f"torch.matmul([{Bt * N}, {C}] bf16, [{C}, {H}] "
                         "bf16) -> bf16"}
     # K2 at the gathered training batch on phase 7's inputs (normalize on):
-    # the whole call, its plain version, its bound and its score launch
-    # alone.
+    # the whole call, its plain version, its bound; its score launch alone
+    # (the profiler over whole calls, L2 flushed before each) with its
+    # TFLOP/s and its bound (the same product as K8's dz launch: the grid,
+    # W_v, qh and ws read once, the partial scores and r written once), and
+    # cuBLAS on that product (dz_stage's); its wsum launch alone beside its
+    # bytes bound: v, the partial scores and r read once, v_att and alpha
+    # written once.
+    k2_plan = kernels.score_plan(Bt, N, C, H)
     k2t = {
         "kernel": time_cuda(lambda: attention.attention_fwd(
             v8, qh8, wv8, ws8, normalize=True), buf),
         "plain": time_cuda(lambda: attention.attention_fwd_reference(
             v8, qh8, wv8, ws8, True), buf),
         "score_ms": kernel_device_ms(lambda: attention.attention_fwd(
-            v8, qh8, wv8, ws8, normalize=True), "attn_score_kernel", buf),
+            v8, qh8, wv8, ws8, normalize=True), SCORE_KERNEL, buf),
+        "score_bound": bound(Bt * N * C * 2 + C * H * 2 + Bt * H * 4 + H * 4
+                             + (k2_plan["n_part"] + 1) * Bt * N * 4,
+                             dz_flops),
+        "score_library_ms": times["attention_bwd"]["dz_stage"]["library_ms"],
+        "score_launch": k2_plan,
+        "wsum_ms": kernel_device_ms(lambda: attention.attention_fwd(
+            v8, qh8, wv8, ws8, normalize=True), "attn_wsum_kernel", buf),
+        "wsum_bound": bound(Bt * N * C * 2 + (k2_plan["n_part"] + 2) * Bt * N
+                            * 4 + Bt * C * 4, 2 * Bt * N * C),
         "bound": k2_bound(Bt)}
     k2t["score_tflops"] = dz_flops / (k2t["score_ms"] * 1e-3) / 1e12
     times["attention_fwd"]["at_training_batch"] = k2t
@@ -2655,9 +2722,20 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
           f"({t['bound_by']}); cuBLAS on the same product "
           f"{t['library_ms']:.4f} ms")
     print(f"K2 at B={Bt}: {k2t['kernel']:.4f} ms (plain {k2t['plain']:.4f}), "
-          f"its score launch {k2t['score_ms']:.4f} ms, "
-          f"{k2t['score_tflops']:.1f} TFLOP/s, bound {k2t['bound'][0]:.4f} "
-          f"ms ({k2t['bound'][1]})")
+          f"bound {k2t['bound'][0]:.4f} ms ({k2t['bound'][1]}); its score "
+          f"launch {k2t['score_ms']:.4f} ms, {k2t['score_tflops']:.1f} "
+          f"TFLOP/s, bound {k2t['score_bound'][0]:.4f} ms "
+          f"({k2t['score_bound'][1]}), cuBLAS on the same product "
+          f"{k2t['score_library_ms']:.4f} ms; its wsum launch "
+          f"{k2t['wsum_ms']:.4f} ms, bound {k2t['wsum_bound'][0]:.4f} ms "
+          f"({k2t['wsum_bound'][1]})")
+    k2b = times["attention_fwd"]
+    print(f"K2 by batch: B={B_PREDICT} "
+          f"{k2b['at_predict_batch']['ms']:.4f} ms (score launch "
+          f"{k2b['at_predict_batch']['score_ms']:.4f}), B={B} "
+          f"{k2b['kernel']:.4f} ms (score launch {k2b['score_ms']:.4f}), "
+          f"B={Bt} {k2t['kernel']:.4f} ms (score launch "
+          f"{k2t['score_ms']:.4f})")
     print(f"gathered backward A/B: with K8 "
           f"{times['attention_bwd']['op_backward_with_kernel']:.4f} ms, "
           f"explicit {times['attention_bwd']['explicit_backward']:.4f} ms")
@@ -2806,8 +2884,12 @@ def main(argv=None) -> int:
     # launch alone of K5 at G=1 (bf16 and int8 rows) and of K8 under
     # dwv_stage_g1 / dwv_stage, with cuBLAS on the same product (library_ms
     # of the whole kernel stays null: no one PyTorch call computes it); K8's
-    # dz launch alone under dz_stage, with cuBLAS on its product; K2 at the
-    # training batch (its score launch alone too) under at_training_batch; the
+    # dz launch alone under dz_stage, with cuBLAS on its product; K2's score
+    # launch alone at the serving batch under score_ms, K2 at the
+    # Predictor's default batch under at_predict_batch, and at the training
+    # batch (its score launch alone with its bound and cuBLAS on its
+    # product, its wsum launch alone with its bound) under
+    # at_training_batch; the
     # rows launch alone of K5 (rows_stage_g1/g2/g8, int8 rows_stage_g1, the
     # launch's shape under rows_launch) and of P2 (rows_stage), each beside
     # its bytes bound.
@@ -2848,12 +2930,25 @@ def main(argv=None) -> int:
                 "library_ms": k1_serving["library"]}}),
         "attention_fwd": (
             ref + "attention.py:125",
-            max(max(c["v_att_err"], c["alpha_err"]) for c in k2["checks"]),
-            {"checks": k2["checks"], "at_training_batch": {
-                "batch": B_TRAIN, "ms": k2t["kernel"],
-                "plain_ms": k2t["plain"], "score_ms": k2t["score_ms"],
-                "score_tflops": k2t["score_tflops"],
-                "bound_ms": k2t["bound"][0], "bound_by": k2t["bound"][1]}}),
+            max(max(c["v_att_err"], c["alpha_err"])
+                for c in k2["checks"] + k8["k2_checks"]),
+            {"checks": k2["checks"] + k8["k2_checks"],
+             "score_ms": times["attention_fwd"]["score_ms"],
+             "at_predict_batch": times["attention_fwd"]["at_predict_batch"],
+             "at_training_batch": {
+                 "batch": B_TRAIN, "ms": k2t["kernel"],
+                 "plain_ms": k2t["plain"], "score_ms": k2t["score_ms"],
+                 "score_tflops": k2t["score_tflops"],
+                 "score_bound_ms": k2t["score_bound"][0],
+                 "score_bound_by": k2t["score_bound"][1],
+                 "score_library_ms": k2t["score_library_ms"],
+                 "score_library_call": times["attention_bwd"]["dz_stage"][
+                     "library_call"],
+                 "score_launch": k2t["score_launch"],
+                 "wsum_ms": k2t["wsum_ms"],
+                 "wsum_bound_ms": k2t["wsum_bound"][0],
+                 "wsum_bound_by": k2t["wsum_bound"][1],
+                 "bound_ms": k2t["bound"][0], "bound_by": k2t["bound"][1]}}),
         "gru_bwd": (ref + "gru.py:259", k3["err"], {
             "checks": k3["checks"], "persistent_launch": k3["launch"]}),
         "attention_resident_fwd": (

@@ -1,6 +1,9 @@
 """Kernels K1 (gru_fwd; also at both tilings of its launch plan and past
 the 64-row tile, its launch shape against kernels.gru_fwd_plan, under CUDA
-graph capture, and two calls bit-equal), K2 (attention_fwd), K3 (gru_bwd), K4
+graph capture, and two calls bit-equal), K2 (attention_fwd; also at the
+edges of its score tiles, its launch shape against kernels.score_plan, two
+calls bit-equal, and its alpha and r bit-equal to K4's on the identity
+store), K3 (gru_bwd), K4
 (attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
 glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
 tiles, and two calls bit-equal), K6 (bigru_fwd), K7 (bigru_bwd; also
@@ -188,21 +191,32 @@ def test_gru_fwd_captures_in_a_cuda_graph(dev):
     assert torch.equal(hT, want[0]) and torch.equal(hseq, want[1])
 
 
-@pytest.mark.parametrize("n", [9, 196])
-@pytest.mark.parametrize("normalize", [True, False])
-def test_attention_fwd_matches_plain(dev, n, normalize):
-    g = torch.Generator(device=dev).manual_seed(1)
-    B, C, H = 3, 64, 128
+def _k2_inputs(dev, B, N, C, H, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
     # Cells scaled by factors in [1/4, 4]: their norms differ, so a weight
     # taken with another cell's norm shows in v_att.
-    scale = torch.exp2(torch.rand(B, n, 1, generator=g, device=dev) * 4 - 2)
-    v = (torch.randn(B, n, C, generator=g, device=dev).relu() * scale).to(
+    scale = torch.exp2(torch.rand(B, N, 1, generator=g, device=dev) * 4 - 2)
+    v = (torch.randn(B, N, C, generator=g, device=dev).relu() * scale).to(
         torch.bfloat16)
     qh = torch.randn(B, H, generator=g, device=dev) * 0.5
     wv = (torch.randn(C, H, generator=g, device=dev) * 0.1).to(
         torch.bfloat16)
     ws = (torch.randn(H, generator=g, device=dev) * 0.1).to(
         torch.bfloat16).float()
+    return v, qh, wv, ws
+
+
+# K2's score tiles at their edges: one question and past the 128-cell tile
+# (B * N from 1 to 1568 cells; N=129 puts a tile boundary inside a
+# question), C % 64 == 32 (the last 64-channel chunk half zero-filled), the
+# 128-unit tile (H = 128, 384) and the 256-unit one (H = 256).
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("n", [1, 9, 129, 196])
+@pytest.mark.parametrize("C", [64, 96])
+@pytest.mark.parametrize("H", [128, 256, 384])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_fwd_matches_plain(dev, B, n, C, H, normalize):
+    v, qh, wv, ws = _k2_inputs(dev, B, n, C, H)
     before = attention.attention_fwd.launches
     va, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
     rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws, normalize)
@@ -211,6 +225,53 @@ def test_attention_fwd_matches_plain(dev, n, normalize):
     assert (r - rr).abs().max().item() <= 1e-6 * rr.abs().max().item()
     assert (va - rv).abs().max().item() <= 2.0 ** -10 * rv.abs().max().item()
     assert (al - ra).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(8, 196, 2048, 512), (256, 196, 2048, 512),
+                                   (3, 129, 96, 384)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_fwd_is_deterministic(dev, shape, normalize):
+    """Two K2 calls on the same inputs give the same bits: no atomics, no
+    split-K, the partial scores summed in unit-tile order."""
+    args = _k2_inputs(dev, *shape)
+    first = attention.attention_fwd(*args, normalize=normalize)
+    second = attention.attention_fwd(*args, normalize=normalize)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 64, 128), (3, 129, 96, 384),
+                                   (8, 196, 2048, 512), (256, 196, 2048, 512)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_fwd_equals_k4_on_the_identity_store(dev, shape, normalize):
+    """K2 and K4 run one score tile (score_tile.cuh) on the same rows in the
+    same order: K4 on the store v [B, N, C] with rows 0..B-1, every cell
+    valid, one glimpse, gives K2's alpha and r bit for bit. (v_att is not
+    compared: K2 rounds the weights p * r to bf16, K4 alpha * r.)"""
+    B, N, C, H = shape
+    v, qh, wv, ws = _k2_inputs(dev, B, N, C, H)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    _, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+    _, al4, _, r4 = ar._launch_fwd(v, rows, qh, wv, ws, N, normalize, False)
+    torch.cuda.synchronize()
+    assert torch.equal(al, al4)
+    assert torch.equal(r.reshape(-1), r4)
+
+
+def test_attention_fwd_score_launch_shape(dev):
+    """K2's score launch as the C side sets it equals kernels.score_plan,
+    within a block's shared memory; K4's score launch on bf16 rows takes
+    the same tile, stages, shared memory and grid over the same cells."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for B, N, C, H in [(1, 1, 64, 128), (8, 196, 2048, 512),
+                       (64, 196, 2048, 512), (256, 196, 2048, 512),
+                       (3, 129, 96, 384), (17, 9, 2048, 2304)]:
+        plan = kernels.score_plan(B, N, C, H)
+        assert attention.score_launch_config(B, N, H) == plan, (B, N, H)
+        assert plan["smem_bytes"] <= limit
+        del plan["n_part"]
+        assert ar.score_launch_config(B * N, H, False) == plan, (B, N, H)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

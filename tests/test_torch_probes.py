@@ -124,9 +124,11 @@ def test_probe_mxu_rows_tile_accounting(q, tiles):
 
 def test_score_mainloop_is_one_header_of_k4_and_p1():
     """K4's score kernel and P1 include the one wgmma mainloop, so the build
-    hash of both libraries covers it (and the int8 widening it calls)."""
+    hash of both libraries covers it (and the int8 widening it calls); K4
+    also includes the score tile around it that it shares with K2."""
     from vqa_transfer_externaldata_torch.ops import kernels
 
-    for name in ("attention_resident_fwd", "probe_mxu_rows"):
+    for name, tile in (("attention_resident_fwd", ["score_tile.cuh"]),
+                       ("probe_mxu_rows", [])):
         assert [p.name for p in kernels.sources(name)] == [
-            f"{name}.cu", "score_gemm.cuh", "store_rows.cuh"]
+            f"{name}.cu", "score_gemm.cuh", *tile, "store_rows.cuh"]

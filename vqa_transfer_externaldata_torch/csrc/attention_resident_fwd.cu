@@ -34,20 +34,20 @@
 // Design: the TPU kernel runs one program per question with the row index
 // prefetched into scalar memory. Here two launches cover the batch:
 //
-//  1. attn_res_score_kernel: the [B*Np, C] x [C, H] score GEMM over all
-//     cells of all questions at once, on the wgmma mainloop of
-//     score_gemm.cuh (shared with the probe P1): 128-cell x BN-column tiles
-//     (BN 256 where it divides H, else 128), a cp.async ring of 64-channel
-//     chunks, the row lookup in the copies (cell i reads
-//     store + (rows[i / Np] * Np + i % Np) * C in place of the scalar
-//     prefetch), int8 codes widened in shared memory. The grid runs the
-//     column tiles of one cell tile side by side (blockIdx.x), so they
-//     share its rows through L2. The epilogue works from the accumulator
-//     registers: h, saved in bf16 on the grad path through shared memory
-//     (16-byte stores), and G partial scores per cell and column tile
-//     against the G columns of ws. The GEMM runs once whatever G is, as on
-//     the TPU, and G is a runtime count of the epilogue: the kernel is
-//     instantiated over the row type and BN only.
+//  1. the score tile of score_tile.cuh (shared with K2's score launch):
+//     the [B*Np, C] x [C, H] score GEMM over all cells of all questions at
+//     once, on the wgmma mainloop of score_gemm.cuh (shared with the probe
+//     P1): 128-cell x BN-column tiles (BN 256 where it divides H, else 128),
+//     a cp.async ring of 64-channel chunks, the row lookup in the copies
+//     (CellRows: cell i reads store + (rows[i / Np] * Np + i % Np) * C in
+//     place of the scalar prefetch), int8 codes widened in shared memory.
+//     The grid runs the column tiles of one cell tile side by side
+//     (blockIdx.x), so they share its rows through L2. The epilogue works
+//     from the accumulator registers: h, saved in bf16 on the grad path
+//     through shared memory (16-byte stores), and G partial scores per cell
+//     and column tile against the G columns of ws. The GEMM runs once
+//     whatever G is, as on the TPU, and G is a runtime count of the
+//     epilogue: the kernel is instantiated over the row type and BN only.
 //  2. attn_res_wsum_kernel: one block per (question, 512-channel chunk) sums
 //     the partial scores in a fixed order (deterministic), takes the G
 //     masked softmaxes in shared memory, then forms all G weighted sums in
@@ -65,11 +65,11 @@
 #include <cstdint>
 
 #include "score_gemm.cuh"
+#include "score_tile.cuh"
 #include "store_rows.cuh"
 
 namespace {
 
-using score_gemm::kBM;
 constexpr int kWsumThreads = 256;
 constexpr int kWsumChannels = 2 * kWsumThreads;
 constexpr float kNegInf = -1e30f;
@@ -91,120 +91,6 @@ struct CellRows {
     return store + (static_cast<size_t>(rows[b]) * Np + (cell - b * Np)) * C;
   }
 };
-
-template <class T, int BN>
-__global__ void __launch_bounds__(score_gemm::kThreads, 1)
-attn_res_score_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
-                      const int* __restrict__ rows,             // [B]
-                      const __nv_bfloat16* __restrict__ wvt,    // [H, C]
-                      const float* __restrict__ qh,             // [B, H]
-                      const float* __restrict__ ws,             // [G, H]
-                      float* __restrict__ part,       // [H/BN, G, B*Np]
-                      float* __restrict__ rnorm,         // [B*Np]
-                      __nv_bfloat16* __restrict__ hsave,  // [B*Np, H] / null
-                      int cells, int Np, int C, int H, int G,
-                      int normalize) {
-  using P = score_gemm::Plan<T, BN>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = score_gemm::align1024(smem_raw);
-  float* rs = reinterpret_cast<float*>(ring + P::kRingBytes);
-  const int t = threadIdx.x;
-  const int col0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * kBM;
-
-  float acc[BN / 2];
-  float sq[4];
-  score_gemm::mainloop<T, BN>(CellRows<T>{store, rows, Np, C, cells, row0},
-                              wvt, C, col0, ring, acc, sq, normalize != 0);
-
-  // r per cell: the 8 threads that copied a row's channel chunks hold its
-  // squares (bf16 rows; an int8 store is never normalized here).
-  if (!P::kInt8 && normalize) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], 1);
-      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], 2);
-      sq[j] += __shfl_xor_sync(0xffffffffu, sq[j], 4);
-      if ((t & 7) == 0) rs[score_gemm::sq_row(t, j)] = rsqrtf(sq[j] + 1e-12f);
-    }
-  } else if (t < kBM) {
-    rs[t] = 1.0f;
-  }
-  __syncthreads();  // rs is written, and the ring is free
-  if (blockIdx.x == 0 && t < kBM && row0 + t < cells) rnorm[row0 + t] = rs[t];
-
-  // h = relu(z * r + qh) in place of z, for this thread's two rows.
-  const int fr = score_gemm::frag_row(t);
-  const int fc = score_gemm::frag_col(t);
-  int cell[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    cell[hf] = row0 + fr + 8 * hf;
-    const float r = rs[fr + 8 * hf];
-    const int b = cell[hf] < cells ? cell[hf] / Np : 0;
-    const float* q = qh + static_cast<size_t>(b) * H + col0 + fc;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 qv = *reinterpret_cast<const float2*>(q + 8 * j);
-      float* z = acc + 4 * j + 2 * hf;
-      // (z * r) + qh rounded as two operations, as the reference does.
-      z[0] = fmaxf(__fadd_rn(__fmul_rn(z[0], r), qv.x), 0.0f);
-      z[1] = fmaxf(__fadd_rn(__fmul_rn(z[1], r), qv.y), 0.0f);
-    }
-  }
-
-  // G partial scores per cell over the tile's columns: this thread's
-  // columns in order, then the quad that shares its rows.
-#pragma unroll 1
-  for (int g = 0; g < G; ++g) {
-    const float* w = ws + static_cast<size_t>(g) * H + col0 + fc;
-    float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 wv2 = *reinterpret_cast<const float2*>(w + 8 * j);
-      s0 = fmaf(acc[4 * j], wv2.x, s0);
-      s0 = fmaf(acc[4 * j + 1], wv2.y, s0);
-      s1 = fmaf(acc[4 * j + 2], wv2.x, s1);
-      s1 = fmaf(acc[4 * j + 3], wv2.y, s1);
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    if ((t & 3) == 0) {
-      float* out = part + (static_cast<size_t>(blockIdx.x) * G + g) * cells;
-      if (cell[0] < cells) out[cell[0]] = s0;
-      if (cell[1] < cells) out[cell[1]] = s1;
-    }
-  }
-
-  // Saved h in bf16, staged through the ring's shared memory so that each
-  // row goes out in 16-byte stores.
-  if (hsave != nullptr) {
-    constexpr int kLd = BN + 8;  // bf16 a staged row (16 B of padding)
-    __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(ring);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      __nv_bfloat16* dst = stg + (fr + 8 * hf) * kLd + fc;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
-      }
-    }
-    __syncthreads();
-    constexpr int kChunks = BN / 8;  // 16-byte chunks a row
-    for (int i = t; i < kBM * kChunks; i += score_gemm::kThreads) {
-      const int r = i / kChunks;
-      const int c = i - r * kChunks;
-      if (row0 + r < cells) {
-        *reinterpret_cast<uint4*>(hsave + static_cast<size_t>(row0 + r) * H +
-                                  col0 + c * 8) =
-            *reinterpret_cast<const uint4*>(stg + r * kLd + c * 8);
-      }
-    }
-  }
-}
 
 template <bool kMax>
 __device__ float block_reduce(float x, float* red) {
@@ -295,44 +181,6 @@ attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
   }
 }
 
-// The score launch for rows of type T at BN columns a tile, its dynamic
-// shared memory raised past the default 48 KB first.
-template <class T, int BN>
-cudaError_t launch_score(const void* store, const void* rows, const void* wvt,
-                         const void* qh, const void* ws, void* part,
-                         void* rnorm, void* hsave, int cells, int Np, int C,
-                         int H, int G, int normalize, cudaStream_t st) {
-  constexpr int smem = score_gemm::Plan<T, BN>::kSmemBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_res_score_kernel<T, BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return e;
-  }
-  const dim3 grid(H / BN, (cells + kBM - 1) / kBM);
-  attn_res_score_kernel<T, BN><<<grid, score_gemm::kThreads, smem, st>>>(
-      static_cast<const T*>(store), static_cast<const int*>(rows),
-      static_cast<const __nv_bfloat16*>(wvt), static_cast<const float*>(qh),
-      static_cast<const float*>(ws), static_cast<float*>(part),
-      static_cast<float*>(rnorm), static_cast<__nv_bfloat16*>(hsave), cells,
-      Np, C, H, G, normalize);
-  return cudaGetLastError();
-}
-
-template <class T>
-cudaError_t launch_score_bn(int BN, const void* store, const void* rows,
-                            const void* wvt, const void* qh, const void* ws,
-                            void* part, void* rnorm, void* hsave, int cells,
-                            int Np, int C, int H, int G, int normalize,
-                            cudaStream_t st) {
-  return BN == 256
-             ? launch_score<T, 256>(store, rows, wvt, qh, ws, part, rnorm,
-                                    hsave, cells, Np, C, H, G, normalize, st)
-             : launch_score<T, 128>(store, rows, wvt, qh, ws, part, rnorm,
-                                    hsave, cells, Np, C, H, G, normalize, st);
-}
-
 template <int G, class T>
 int launch_fwd(const void* store, const void* rows, const void* wvt,
                const void* qh, const void* ws, void* part, void* rnorm,
@@ -341,9 +189,10 @@ int launch_fwd(const void* store, const void* rows, const void* wvt,
                int* launched) {
   const int cells = B * Np;
   const int BN = score_gemm::tile_n(H);
-  cudaError_t e = launch_score_bn<T>(BN, store, rows, wvt, qh, ws, part,
-                                     rnorm, hsave, cells, Np, C, H, G,
-                                     normalize, st);
+  cudaError_t e = score_tile::launch<T>(
+      CellRows<T>{static_cast<const T*>(store),
+                  static_cast<const int*>(rows), Np, C, cells, 0},
+      wvt, qh, ws, part, rnorm, hsave, cells, Np, C, H, G, normalize, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
@@ -371,20 +220,15 @@ const char* cuda_error_string(int code) {
 int attention_resident_score_config(int cells, int H, int int8, int* tile_m,
                                     int* tile_n, int* stages, int* smem_bytes,
                                     int* grid_x, int* grid_y) {
-  const int BN = score_gemm::tile_n(H);
-  *tile_m = kBM;
-  *tile_n = BN;
-  if (BN == 256) {
-    *stages = score_gemm::Plan<__nv_bfloat16, 256>::kStages;
-    *smem_bytes = int8 ? score_gemm::Plan<int8_t, 256>::kSmemBytes
-                       : score_gemm::Plan<__nv_bfloat16, 256>::kSmemBytes;
-  } else {
-    *stages = score_gemm::Plan<__nv_bfloat16, 128>::kStages;
-    *smem_bytes = int8 ? score_gemm::Plan<int8_t, 128>::kSmemBytes
-                       : score_gemm::Plan<__nv_bfloat16, 128>::kSmemBytes;
-  }
-  *grid_x = H / BN;
-  *grid_y = (cells + kBM - 1) / kBM;
+  const score_tile::Shape s =
+      int8 ? score_tile::shape<int8_t>(cells, H)
+           : score_tile::shape<__nv_bfloat16>(cells, H);
+  *tile_m = s.tile_m;
+  *tile_n = s.tile_n;
+  *stages = s.stages;
+  *smem_bytes = s.smem_bytes;
+  *grid_x = s.grid_x;
+  *grid_y = s.grid_y;
   return 0;
 }
 

@@ -35,8 +35,8 @@ import torch
 
 from vqa_transfer_externaldata_torch.ops import kernels
 
-_SCORE_TILE_H = 128  # hidden columns per score tile (csrc/attention_fwd.cu)
-_SCORE_TILE_C = 32  # channels per k-step
+_SCORE_TILE_H = kernels.SCORE_UNITS  # H's multiple: a score tile's units
+_SCORE_TILE_C = kernels.SCORE_CHANNELS  # C's multiple: half a chunk
 
 
 def spatial_attention_reference(
@@ -290,10 +290,24 @@ def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("attention_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_fwd.argtypes = [p, p, p, p, p, p, p, p,
-                                  i, i, i, i, i, p, p]
+    lib.attention_fwd.argtypes = [p] * 8 + [i] * 6 + [p, p]
     lib.attention_fwd.restype = i
+    lib.attention_fwd_score_config.argtypes = [i] * 3 + [p]
+    lib.attention_fwd_score_config.restype = i
     return lib
+
+
+def score_launch_config(B: int, N: int, H: int) -> dict:
+    """The shape of K2's score launch as the C side sets it for ``B``
+    questions of ``N`` cells at width ``H``, in :func:`kernels.score_plan`'s
+    keys."""
+    lib = _lib()
+    out = (ctypes.c_int * 7)()
+    rc = lib.attention_fwd_score_config(B, N, H, ctypes.addressof(out))
+    kernels.check(lib, rc, "attention_fwd_score_config")
+    tm, tn, stages, smem, gx, gy, n_part = out
+    return {"tile": [tm, tn], "stages": stages, "smem_bytes": smem,
+            "grid": [gx, gy], "n_part": n_part}
 
 
 def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
@@ -303,8 +317,10 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     v [B, N, C] bf16, qh [B, H] f32, wv [C, H] bf16, ws [H] f32
     -> (v_att [B, C] f32, alpha [B, N] f32, r [B, N] f32, the per-cell norm
     the kernel used: ones unless ``normalize``). Needs C % 32 == 0 and
-    H % 128 == 0. One call makes the kernel's two launches on the current
-    stream and adds the number launched (2) to ``attention_fwd.launches``."""
+    H % 128 == 0. The score launch reads W_v as its K-major copy ``wv.t()``
+    [H, C], made here, and runs as :func:`kernels.score_plan` plans it. One
+    call makes the kernel's two launches on the current stream and adds the
+    number launched (2) to ``attention_fwd.launches``."""
     H = qh.shape[-1]
     B, N, C = _check_grid(v, H, "attention_fwd")
     dev = v.device
@@ -314,11 +330,10 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
-    if wv.data_ptr() % 16:
-        raise ValueError("attention_fwd reads wv in 16-byte vectors: it "
-                         "must start 16-byte aligned")
+    n_part = kernels.score_plan(B, N, C, H)["n_part"]
+    wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(H // _SCORE_TILE_H, B * N, **f32)
+    part = torch.empty(n_part, B * N, **f32)
     rnorm = torch.empty(B, N, **f32)
     v_att = torch.empty(B, C, **f32)
     alpha = torch.empty(B, N, **f32)
@@ -326,9 +341,9 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_fwd(
-            v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
+            v.data_ptr(), wvt.data_ptr(), qh.data_ptr(), ws.data_ptr(),
             part.data_ptr(), rnorm.data_ptr(), v_att.data_ptr(),
-            alpha.data_ptr(), B, N, C, H, int(normalize),
+            alpha.data_ptr(), B, N, C, H, n_part, int(normalize),
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_fwd.launches += launched.value

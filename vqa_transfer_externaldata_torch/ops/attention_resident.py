@@ -330,6 +330,19 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     stream and adds the number launched (2) to
     ``attention_resident_fwd.launches`` (bf16 rows) or
     ``attention_resident_fwd.launches_int8`` (int8 rows)."""
+    v_att, alpha, h, _ = _launch_fwd(store, rows, qh, wv, ws, n_valid,
+                                     normalize, save_h)
+    return v_att, alpha, h
+
+
+def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
+                wv: torch.Tensor, ws: torch.Tensor, n_valid: int,
+                normalize: bool, save_h: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor,
+                           Optional[torch.Tensor], torch.Tensor]:
+    """:func:`attention_resident_fwd`'s launch, also returning the per-cell
+    norm r [B*Np] f32 that its score launch wrote (ones unless
+    ``normalize``)."""
     M, Np, C, B = _check_store(store, rows, n_valid, normalize,
                                "attention_resident_fwd")
     int8 = store.dtype == torch.int8
@@ -373,7 +386,7 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     else:
         attention_resident_fwd.launches += launched.value
     kernels.check(lib, rc, "attention_resident_fwd")
-    return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h
+    return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h, rnorm
 
 
 attention_resident_fwd.launches = 0

@@ -165,7 +165,37 @@ def dwv_plan(K: int, C: int, H: int, sms: int, int8: bool = False) -> dict:
             "grid": [H // bn, C // DWV_TILE, splits]}
 
 
-DZ_TILE = 128  # cells of a tile of K8's dz stage (score_gemm.cuh's rows)
+SCORE_TILE = 128  # cells of a tile of score_gemm.cuh's mainloop (its rows)
+SCORE_CHANNELS = 32  # C's multiple: half a 64-channel chunk is zero-filled
+SCORE_UNITS = 128  # H's multiple: a tile's 128 or 256 units
+
+
+def score_plan(B: int, N: int, C: int, H: int) -> dict:
+    """The launch of the score tile of ``csrc/score_tile.cuh`` (K2's score
+    launch; K4's score launch and K8's dz stage take the same tiles) for
+    ``B`` questions of ``N`` cells at ``C`` channels (a multiple of
+    ``SCORE_CHANNELS``) x ``H`` units (a multiple of ``SCORE_UNITS``):
+    ``SCORE_TILE``-cell x BN-unit tiles over all B*N cells (BN 256 where it
+    divides H, else 128), the ring's stages, the dynamic shared memory in
+    bytes (the ring of 64-channel chunks of the rows and of W_v^T, 1024 B to
+    align it and 4 B a tile row), the grid (unit tiles, fastest, then cell
+    tiles) and ``n_part``, the partial scores a cell: one a unit tile,
+    summed in order by the wsum launch. The C side
+    (``attention_fwd_score_config``) derives the same launch and refuses
+    another ``n_part``."""
+    if (B < 1 or N < 1 or C < SCORE_CHANNELS or H < SCORE_UNITS
+            or C % SCORE_CHANNELS or H % SCORE_UNITS):
+        raise ValueError(f"score_plan needs B, N >= 1, C a positive multiple "
+                         f"of {SCORE_CHANNELS} and H of {SCORE_UNITS}, got "
+                         f"B={B}, N={N}, C={C}, H={H}")
+    bn = 256 if H % 256 == 0 else 128
+    stages = 4 if bn == 256 else 5
+    return {"tile": [SCORE_TILE, bn], "stages": stages,
+            "smem_bytes": 1024 + stages * 2 * 64 * (SCORE_TILE + bn)
+            + 4 * SCORE_TILE,
+            "grid": [H // bn, -(-(B * N) // SCORE_TILE)], "n_part": H // bn}
+
+
 ATTENTION_BWD_LAUNCHES = 4  # K8 a call: dz, fold, dW_v GEMM, reduce
 
 
@@ -173,32 +203,28 @@ def dz_plan(B: int, N: int, C: int, H: int) -> dict:
     """The launch of K8's dz stage (``csrc/attention_bwd.cu``: the
     recomputed score GEMM on ``score_gemm.cuh``'s mainloop and its
     epilogue) for ``B`` questions of ``N`` cells at ``C`` x ``H``
-    (multiples of 128): ``DZ_TILE``-cell x BN-unit tiles over all B*N cells
-    (BN 256 where it divides H, else 128), the ring's stages, the dynamic
-    shared memory in bytes (the ring, 1024 B to align it and 4 B a tile
-    row), the epilogue's bytes inside the ring (the tile's f32 products,
-    rows padded by 8 floats, then ds and r a cell), the grid (unit tiles,
-    cell tiles) and the slots a tile: the most questions that one tile's
-    cells can span, ceil(127 / N) + 1, at most B. Tile t's slot s holds the
-    dqh and dws partials of question t * DZ_TILE // N + s; ``partials`` is
-    the shape [tiles, slots, H] of each of the two partial buffers, which
-    the fold sums per question in tile order. The C side (``dz_shape``)
-    derives the same launch and refuses other slots."""
+    (multiples of 128): :func:`score_plan`'s tile, stages, dynamic shared
+    memory and grid, then the epilogue's bytes inside the ring (the tile's
+    f32 products, rows padded by 8 floats, then ds and r a cell) and the
+    slots a tile: the most questions that one tile's cells can span,
+    ceil(127 / N) + 1, at most B. Tile t's slot s holds the dqh and dws
+    partials of question t * SCORE_TILE // N + s; ``partials`` is the shape
+    [tiles, slots, H] of each of the two partial buffers, which the fold
+    sums per question in tile order. The C side (``dz_shape``) derives the
+    same launch and refuses other slots."""
     if (B < 1 or N < 1 or C < DWV_TILE or H < DWV_TILE or C % DWV_TILE
             or H % DWV_TILE):
         raise ValueError(f"dz_plan needs B, N >= 1 and C, H positive "
                          f"multiples of {DWV_TILE}, got B={B}, N={N}, C={C}, "
                          f"H={H}")
-    bn = 256 if H % 256 == 0 else 128
-    stages = 4 if bn == 256 else 5
-    tiles = -(-(B * N) // DZ_TILE)
-    slots = min(B, -(-(DZ_TILE - 1) // N) + 1)
-    return {"tile": [DZ_TILE, bn], "stages": stages,
-            "smem_bytes": 1024 + stages * 2 * 64 * (DZ_TILE + bn)
-            + 4 * DZ_TILE,
-            "epilogue_bytes": 4 * (DZ_TILE * (bn + 8) + 2 * DZ_TILE),
-            "grid": [H // bn, tiles], "slots": slots,
-            "partials": [tiles, slots, H]}
+    plan = score_plan(B, N, C, H)
+    del plan["n_part"]
+    bn = plan["tile"][1]
+    tiles = plan["grid"][1]
+    slots = min(B, -(-(SCORE_TILE - 1) // N) + 1)
+    return {**plan,
+            "epilogue_bytes": 4 * (SCORE_TILE * (bn + 8) + 2 * SCORE_TILE),
+            "slots": slots, "partials": [tiles, slots, H]}
 
 
 ROWS_THREADS = 256  # threads of a block of the rows stage (K5, P2)
