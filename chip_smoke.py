@@ -35,10 +35,12 @@ Run from the repository root. Phases (any failure exits non-zero):
    both at G=2 and G=8 glimpses on the same store;
 6. K6 ``bigru_fwd`` and K7 ``bigru_bwd`` against their plain versions at
    the stage-1 shape (B=256, T=26, H=512, lengths 1..26), and against two
-   K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs); K7's
-   persistent launch (grid, resident blocks per SM, shared memory) against
-   ``kernels.gru_bwd_plan``'s, and what ptxas reports for the persistent
-   step kernel of K3's and K7's builds (registers, spills, warnings);
+   K1 calls and two K3 calls on the same inputs (K7 fed K6's hseqs); K6's
+   persistent launch (grid, launches, resident blocks per SM, shared
+   memory) against ``kernels.gru_fwd_plan``'s with two directions, and
+   K7's against ``kernels.gru_bwd_plan``'s; what ptxas reports for the
+   persistent forward kernel of K1's and K6's builds and for the
+   persistent step kernel of K3's and K7's (registers, spills, warnings);
 7. K2's checks of phase 3 at the gathered training shape (B=256, N=196,
    C=2048, H=512); K8 ``attention_bwd`` against its plain version there
    (normalize on and off, both fed the same ds and K2's r), and the
@@ -70,7 +72,8 @@ Run from the repository root. Phases (any failure exits non-zero):
    bidirectional phrase encoder through ``Trainer.fit_resident`` at batch
    256 on ``synthetic_vlmap_desc`` (4096 regions, 512 candidates): the
    first step's loss and gradients against the plain path on the card,
-   launch counts of K6 and K7 (and none of K1/K3) over the run, finite
+   launch counts of K6 (one a step) and K7 (and none of K1/K3) over the
+   run, finite
    losses, median step time and regions/s and a profiler window over 5
    more steps; then 10 steps with the dense candidate loss (finite
    losses, first-step loss against the plain path, launch counts);
@@ -113,7 +116,8 @@ Run from the repository root. Phases (any failure exits non-zero):
    flushed between runs), and the bound from this run's shapes; K1 at
    the training batch and at the serving batch, each also at T=1 for its
    time a step, and K1's two tilings (16 and 64 rows a block) against each
-   other at B = 1, 8, 64 and 256 (bit-equal); K4 and K5 at G=1 and
+   other at B = 1, 8, 64 and 256 (bit-equal), and K6's at B = 8, 64 and
+   256 (bit-equal); K4 and K5 at G=1 and
    G=2 on bf16 rows and at G=1 on int8 rows, and K4's score launch alone
    at G=1 (its device time from the profiler) with its TFLOP/s; the dW_v
    launch alone (``attention_dwv.cuh``) inside K5 at G=1 on bf16 and int8
@@ -128,12 +132,10 @@ Run from the repository root. Phases (any failure exits non-zero):
    and its wsum launch alone beside its bytes bound; the rows launch alone
    (``attention_rows.cuh``) inside K5 at G=1, 2 and 8 on bf16 rows and at
    G=1 on int8 rows and inside P2, each beside its bytes bound; the
-   gathered op's whole backward with K8 and with the explicit math; K1's
-   persistent design against the per-step one in one call (two K1 calls
-   against K6, which walks both directions with one step launch a
-   timestep, on phase 6's inputs; two K1 calls must be the faster); K7
-   against two K3 calls on phase 6's inputs, in turns in one call (both
-   run the persistent BPTT body, K7 both chains in one launch).
+   gathered op's whole backward with K8 and with the explicit math; K6
+   against two K1 calls and K7 against two K3 calls on phase 6's inputs,
+   each in turns in one call (each pair runs one persistent body, K6 and
+   K7 both chains in one launch).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1029,9 +1031,9 @@ def phase_attention_bwd(report: dict, dev, gen) -> dict:
 def phase_bigru(report: dict, dev, gen) -> dict:
     """K6 and K7 against their plain versions at the stage-1 shape, and
     against K1 and K3 run once per direction on the same inputs: the same
-    step kernels with a direction axis, so the same bits."""
+    persistent kernels with a direction axis, so the same bits."""
     import torch
-    from vqa_transfer_externaldata_torch.ops import gru
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
 
     Bt = B_TRAIN
     lens = torch.randint(1, T + 1, (Bt,), generator=gen, device=dev,
@@ -1062,6 +1064,21 @@ def phase_bigru(report: dict, dev, gen) -> dict:
           "K6 output not finite")
     check(err6 <= TOL_GRU, f"K6 err {err6} > {TOL_GRU}")
     check(diff6 == 0.0, f"K6 differs from two K1 calls by {diff6}")
+    # K6's persistent launch: the grid and launches that the C side derives
+    # from the plan's rows and its own instance's occupancy, against the
+    # plan's with two directions on the same blocks per SM.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    launch6 = gru.bigru_fwd_launch_config(Bt, H, dev)
+    plan6 = kernels.gru_fwd_plan(Bt, H, sms, launch6["per_sm_by_rows"], 2)
+    print(f"K6 persistent launch at B={Bt}, H={H}: 16 units x "
+          f"{launch6['rows']} rows a block, grid "
+          + " x ".join(map(str, launch6["grid"])) + " blocks of 256 threads "
+          f"(j-tiles x rows x directions), {launch6['launches']} launch(es) "
+          f"a call over {launch6['b_tiles']} b-tiles, "
+          f"{launch6['blocks_per_sm']} resident per SM, "
+          f"{launch6['smem_bytes']} B of dynamic shared memory")
+    check(all(launch6[k] == plan6[k] for k in ("rows", "grid", "launches")),
+          f"K6 launch {launch6} differs from kernels.gru_fwd_plan {plan6}")
 
     # K7 and its plain version, both fed K6's state sequences.
     hseqf, hseqb = got[2], got[3]
@@ -1090,16 +1107,22 @@ def phase_bigru(report: dict, dev, gen) -> dict:
                        "rel_tol": TOL_K3_REL, "diff_vs_k3": d})
         err7, diff7 = max(err7, e), max(diff7, d)
     launch = bptt_launch(gru.bigru_bwd_launch_config, Bt, dev, "K7")
-    # What ptxas says of the persistent step kernel in each build: K7's
+    # What ptxas says of the persistent kernels in each build: every
     # instance picks its direction's arguments at run time.
-    ptxas = {name: ptxas_entry(report["ptxas"].get(name, ""),
-                               "gru_bptt_kernel")
-             for name in ("gru_bwd", "bigru_bwd")}
-    for name, lines in ptxas.items():
-        print(f"ptxas on gru_bptt_kernel in {name}.cu: " + " | ".join(lines))
+    ptxas = {kernel: {name: ptxas_entry(report["ptxas"].get(name, ""),
+                                        kernel) for name in names}
+             for kernel, names in (("gru_seq_kernel", ("gru_fwd",
+                                                       "bigru_fwd")),
+                                   ("gru_bptt_kernel", ("gru_bwd",
+                                                        "bigru_bwd")))}
+    for kernel, by_name in ptxas.items():
+        for name, lines in by_name.items():
+            print(f"ptxas on {kernel} in {name}.cu: " + " | ".join(lines))
     return {"args": args, "bargs": bargs, "err6": err6, "diff6": diff6,
             "err7": err7, "diff7": diff7, "checks7": checks,
-            "launch7": launch, "ptxas_bptt": ptxas}
+            "launch6": launch6, "launch7": launch,
+            "ptxas_seq": ptxas["gru_seq_kernel"],
+            "ptxas_bptt": ptxas["gru_bptt_kernel"]}
 
 
 def write_run(train_dir: str) -> None:
@@ -1707,9 +1730,10 @@ def phase_stage1(report: dict, dev, root: str) -> dict:
         torch.cuda.synchronize()
         run["fit_s"] = time.perf_counter() - t0
         launches = read_counts()
-        # K6: one launch a timestep for both chains; K7: the persistent
-        # step kernel, the dU_h GEMM and the db_hn sum, both chains each.
-        check_launches(launches, {"bigru_fwd": T * n_steps,
+        # K6: one persistent launch for all timesteps of both chains; K7:
+        # the persistent step kernel, the dU_h GEMM and the db_hn sum, both
+        # chains each.
+        check_launches(launches, {"bigru_fwd": n_steps,
                                   "bigru_bwd": 3 * n_steps},
                        f"stage-1 training ({tag}) over {n_steps} steps")
         check(state.step == n_steps, f"stage 1 ({tag}): {state.step} steps")
@@ -2362,29 +2386,6 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     times["gru_bwd"]["library_call"] = (
         f"backward of torch.nn.GRU({D}, {H}) in bfloat16 over a packed "
         "sequence, input-projection gradients included")
-    # K1's persistent design against the per-step one, in one call and in
-    # turns (old, new, new, old): K6 walks both directions of phase 6's
-    # inputs with one step launch a timestep, two K1 calls walk them with
-    # one persistent launch each, to the same bits.
-    gxf6, gxb6, lens6, uhf6, uhb6, bhnf6, bhnb6 = k67["args"]
-
-    def old_fwd_pair():
-        gru.bigru_fwd(*k67["args"])
-
-    def new_fwd_pair():
-        gru.gru_fwd(gxf6, lens6, uhf6, bhnf6)
-        gru.gru_fwd(gxb6, lens6, uhb6, bhnb6, reverse=True)
-
-    pair = [time_cuda(f, buf) for f in (old_fwd_pair, new_fwd_pair,
-                                        new_fwd_pair, old_fwd_pair)]
-    times["gru_fwd"]["old_design_pair"] = (pair[0] + pair[3]) / 2
-    times["gru_fwd"]["new_design_pair"] = (pair[1] + pair[2]) / 2
-    check(times["gru_fwd"]["new_design_pair"] <
-          times["gru_fwd"]["old_design_pair"],
-          f"two K1 calls ({times['gru_fwd']['new_design_pair']:.4f} ms) are "
-          f"not faster than one K6 call "
-          f"({times['gru_fwd']['old_design_pair']:.4f} ms)")
-
     st, rows, nv = k45["store"], k45["rows"], k45["n_valid"]
     qh4, wv4, ws4 = k45["qh"], k45["wv"], k45["ws"]
     h5, al5, g5, sga5 = k45["h"], k45["alpha"], k45["g"], k45["sga"]
@@ -2530,8 +2531,46 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     _, h6 = lib6(packed6)
     wrt6 = [x6, *lib6.parameters()]
     g6 = torch.randn_like(h6)
+    # K6 beside two K1 calls on the same inputs, in turns (K6, two K1, two
+    # K1, K6): both run the persistent forward body, K6 both chains in one
+    # launch of 2 b-tiles a block, K1 one chain a launch of 1.
+    gxf6, gxb6, _, uhf6, uhb6, bhnf6, bhnb6 = args
+
+    def k6_call():
+        gru.bigru_fwd(*args)
+
+    def two_k1():
+        gru.gru_fwd(gxf6, lens6, uhf6, bhnf6)
+        gru.gru_fwd(gxb6, lens6, uhb6, bhnb6, reverse=True)
+
+    turns6 = [time_cuda(f, buf) for f in (k6_call, two_k1, two_k1, k6_call)]
+    # K6's two tilings at cli.predict's batch, the serving and the stage-1
+    # batch: the plan's rows against the other's, which must give the same
+    # bits.
+    tilings6 = {}
+    for batch in (8, B, B_TRAIN):
+        bargs6 = [torch.randn(T, batch, 3 * H, device=dev) * 0.5
+                  for _ in range(2)]
+        lensb = torch.randint(1, T + 1, (batch,), device=dev,
+                              dtype=torch.int32)
+        args_b = (bargs6[0], bargs6[1], lensb, uhf6, uhb6, bhnf6, bhnb6)
+        plan = gru.bigru_fwd_launch_config(batch, H, dev)
+        row = {"plan_rows": plan["rows"]}
+        outs = {}
+        for tiling in kernels.GRU_FWD_ROWS:
+            if plan["per_sm_by_rows"][tiling] < 1:
+                continue
+            outs[tiling] = gru._launch_bigru_fwd(*args_b, tiling)
+            row[str(tiling)] = time_cuda(
+                lambda: gru._launch_bigru_fwd(*args_b, tiling), buf)
+        check(all(torch.equal(a, b) for o in outs.values()
+                  for a, b in zip(o, outs[plan["rows"]])),
+              f"K6's tilings disagree at B={batch}")
+        tilings6[str(batch)] = row
     times["bigru_fwd"] = {
-        "kernel": time_cuda(lambda: gru.bigru_fwd(*args), buf),
+        "kernel": (turns6[0] + turns6[3]) / 2,
+        "two_k1": (turns6[1] + turns6[2]) / 2,
+        "tilings_ms": tilings6,
         "plain": time_cuda(lambda: gru.bigru_reference(*args), buf),
         "library": lib6_ms,
         "library_call": f"torch.nn.GRU({D}, {H}, bidirectional=True) in "
@@ -2710,9 +2749,13 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         print(f"K1 tilings at B={batch}, T={T}: " + ", ".join(
             f"{r} rows {row[str(r)]:.4f} ms" for r in (16, 64)
             if str(r) in row) + f" (the plan takes {row['plan_rows']})")
-    print(f"K1 design pair (both directions): per-step (K6) "
-          f"{times['gru_fwd']['old_design_pair']:.4f} ms, persistent (two "
-          f"K1 calls) {times['gru_fwd']['new_design_pair']:.4f} ms")
+    print(f"K6 against two K1 calls in turns (both directions): K6 "
+          f"{times['bigru_fwd']['kernel']:.4f} ms, two K1 calls "
+          f"{times['bigru_fwd']['two_k1']:.4f} ms")
+    for batch, row in times["bigru_fwd"]["tilings_ms"].items():
+        print(f"K6 tilings at B={batch}, T={T}: " + ", ".join(
+            f"{r} rows {row[str(r)]:.4f} ms" for r in (16, 64)
+            if str(r) in row) + f" (the plan takes {row['plan_rows']})")
     print(f"K7 against two K3 calls in turns (both directions): K7 "
           f"{times['bigru_bwd']['kernel']:.4f} ms, two K3 calls "
           f"{times['bigru_bwd']['two_k3']:.4f} ms")
@@ -2894,14 +2937,13 @@ def main(argv=None) -> int:
     # launch's shape under rows_launch) and of P2 (rows_stage), each beside
     # its bytes bound.
     # P1's time is at Q=1, with every Q under by_q; its library call is
-    # cuBLAS on the gathered rows, the gather timed apart. K1's
-    # old_design_pair_ms is K6 on phase 6's inputs (one step launch a
-    # timestep for both directions), its new_design_pair_ms two K1 calls on
-    # the same inputs, in one call. K7's time is taken in turns with two K3
-    # calls on its inputs (two_k3_ms); it lists its persistent launch and
-    # what ptxas reports for the persistent step kernel. K1 lists its
-    # persistent launch at both batches, its time a step (T=26 against T=1)
-    # and the warnings of its nvcc log.
+    # cuBLAS on the gathered rows, the gather timed apart. K6's time is
+    # taken in turns with two K1 calls on its inputs (two_k1_ms), K7's with
+    # two K3 calls (two_k3_ms); each lists its persistent launch and what
+    # ptxas reports for its persistent kernel in both builds that run it,
+    # and K6 its two tilings' times. K1 lists its persistent launch at both
+    # batches, its time a step (T=26 against T=1) and the warnings of its
+    # nvcc log.
     src = "vqa_transfer_externaldata_torch/csrc/"
     ref = "vqa_transfer_externaldata_tpu/ops/"
     k1_serving = times["gru_fwd"].pop("at_serving_batch")
@@ -2911,8 +2953,6 @@ def main(argv=None) -> int:
             "tol": TOL_GRU, "err_by_batch": {str(B): k1["err"],
                                              str(B_TRAIN): k3["k1_err"]},
             "persistent_launch": k3["k1_launch"],
-            "old_design_pair_ms": times["gru_fwd"]["old_design_pair"],
-            "new_design_pair_ms": times["gru_fwd"]["new_design_pair"],
             "nvcc_warnings": [
                 line for line in report["ptxas"].get("gru_fwd",
                                                      "").splitlines()
@@ -2968,7 +3008,11 @@ def main(argv=None) -> int:
              "rows_stage_g8": report["rows_stage"]["k5_g8"],
              "rows_launch": report["rows_launch"]}),
         "bigru_fwd": (ref + "gru.py:474", k67["err6"], {
-            "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"]}),
+            "tol": TOL_GRU, "diff_vs_two_k1_calls": k67["diff6"],
+            "persistent_launch": k67["launch6"],
+            "ptxas_gru_seq_kernel": k67["ptxas_seq"],
+            "two_k1_ms": times["bigru_fwd"]["two_k1"],
+            "tilings_ms": times["bigru_fwd"]["tilings_ms"]}),
         "bigru_bwd": (ref + "gru.py:561", k67["err7"], {
             "checks": k67["checks7"],
             "diff_vs_two_k3_calls": k67["diff7"],

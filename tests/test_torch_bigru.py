@@ -231,10 +231,13 @@ def test_bigru_wrappers_refuse_cpu_tensors():
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """A kernel library's name changes when a csrc header that its source
     includes changes, so an edited shared step kernel is rebuilt; the
-    libraries of K1/K6 and K3/K7 name their shared headers, and K1 and K3
-    the mma.sync primitives they share."""
+    libraries of K1/K6 and K3/K7 name their shared headers, and K1, K6 and
+    K3 the mma.sync primitives they share; the per-step kernel and WMMA
+    are gone from K1/K6's header."""
     assert [p.name for p in kernels.sources("bigru_fwd")] == [
-        "bigru_fwd.cu", "gru_fwd_step.cuh"]
+        "bigru_fwd.cu", "gru_fwd_step.cuh", "mma_sync.cuh"]
+    header = (kernels.CSRC / "gru_fwd_step.cuh").read_text()
+    assert "gru_step_kernel" not in header and "wmma" not in header
     assert [p.name for p in kernels.sources("gru_bwd")] == [
         "gru_bwd.cu", "gru_bwd_step.cuh", "mma_sync.cuh"]
     (tmp_path / "k.cu").write_text('#include "step.cuh"\nint f();\n')

@@ -1,7 +1,8 @@
-"""The launch plan of K1's persistent kernel (``csrc/gru_fwd.cu``), chosen
-in one place, ``ops/kernels.py::gru_fwd_plan``, from which the wrapper takes
-the batch rows a block; the C side derives the grid from them. Pure
-arithmetic on shapes: it runs here on the CPU; the card tests
+"""The launch plan of the persistent GRU forward kernel
+(``csrc/gru_fwd_step.cuh``: K1 with one direction, K6 with two), chosen in
+one place, ``ops/kernels.py::gru_fwd_plan``, from which the wrappers take
+the batch rows a block; the C side derives the grid and the launches from
+them. Pure arithmetic on shapes: it runs here on the CPU; the card tests
 (``tests/test_torch_kernels_cuda.py``) hold the C side to it."""
 
 import numpy as np
@@ -18,18 +19,22 @@ NARROW = {16: 1, 64: 1}
 WIDE = {16: 1, 64: 0}
 
 
-def _coverage(plan: dict, B: int, H: int) -> np.ndarray:
-    """How often the kernel's blocks write each (row, unit) of [B, H] in a
-    step: block (jx, by) owns units 16 jx.. and walks b-tiles by,
+def _coverage(plan: dict, B: int, H: int, directions: int) -> np.ndarray:
+    """How often the kernel's blocks write each (direction, row, unit) of
+    [directions, B, H] in a step: launch l of block (jx, by, z) takes
+    direction l * grid_z + z, owns units 16 jx.. and walks b-tiles by,
     by + grid_y, ... of ``rows`` rows, dropping rows past B."""
     units, rows = kernels.GRU_FWD_UNITS, plan["rows"]
-    nj, gy = plan["grid"]
-    seen = np.zeros((B, H), np.int64)
-    for jx in range(nj):
-        for by in range(gy):
-            for bt in range(by, plan["b_tiles"], gy):
-                seen[bt * rows:(bt + 1) * rows, jx * units:(jx + 1) * units] \
-                    += 1
+    nj, gy, gz = plan["grid"]
+    seen = np.zeros((directions, B, H), np.int64)
+    for launch in range(plan["launches"]):
+        for z in range(gz):
+            d = launch * gz + z
+            for jx in range(nj):
+                for by in range(gy):
+                    for bt in range(by, plan["b_tiles"], gy):
+                        seen[d, bt * rows:(bt + 1) * rows,
+                             jx * units:(jx + 1) * units] += 1
     return seen
 
 
@@ -38,20 +43,23 @@ def _coverage(plan: dict, B: int, H: int) -> np.ndarray:
 @pytest.mark.parametrize("H", [16, 64, 512, 848])
 @pytest.mark.parametrize("per_sm", [NARROW, H100_512, WIDE],
                          ids=["narrow", "h100", "wide"])
-def test_gru_fwd_plan_covers_every_tile_once(B, H, per_sm):
-    """Across the b-tile loop every (row, unit) of the state is one block's
-    exactly once a step; the grid is resident at once (at most sms x
-    per_sm[rows] blocks) with its j-tiles spanning H; b-tiles past one wave
-    are walked, never refused."""
-    plan = kernels.gru_fwd_plan(B, H, SMS, per_sm)
-    nj, gy = plan["grid"]
+@pytest.mark.parametrize("directions", [1, 2])
+def test_gru_fwd_plan_covers_every_tile_once(B, H, per_sm, directions):
+    """Across the b-tile loop every (direction, row, unit) of the state is
+    one block's exactly once a step; each launch's grid is resident at once
+    (at most sms x per_sm[rows] blocks) with its j-tiles spanning H; b-tiles
+    past one wave are walked, never refused; every launch together takes
+    every direction once."""
+    plan = kernels.gru_fwd_plan(B, H, SMS, per_sm, directions)
+    nj, gy, gz = plan["grid"]
     assert plan["rows"] in kernels.GRU_FWD_ROWS
     assert per_sm[plan["rows"]] >= 1
     assert nj * kernels.GRU_FWD_UNITS == H
     assert plan["b_tiles"] == -(-B // plan["rows"])
     assert 1 <= gy <= plan["b_tiles"]
-    assert nj * gy <= SMS * per_sm[plan["rows"]]
-    assert (_coverage(plan, B, H) == 1).all()
+    assert gz * plan["launches"] == directions
+    assert nj * gy * gz <= SMS * per_sm[plan["rows"]]
+    assert (_coverage(plan, B, H, directions) == 1).all()
 
 
 def test_gru_fwd_plan_at_the_main_shapes():
@@ -62,17 +70,19 @@ def test_gru_fwd_plan_at_the_main_shapes():
     takes 16 rows (256 blocks, two an SM); B=1024 walks 16 b-tiles on 4
     rows of blocks."""
     train = kernels.gru_fwd_plan(256, 512, SMS, H100_512)
-    assert (train["rows"], train["grid"]) == (64, [32, 4])
+    assert (train["rows"], train["grid"]) == (64, [32, 4, 1])
     serve = kernels.gru_fwd_plan(64, 512, SMS, H100_512)
-    assert (serve["rows"], serve["grid"]) == (16, [32, 4])
+    assert (serve["rows"], serve["grid"]) == (16, [32, 4, 1])
     assert serve["grid"][0] * serve["grid"][1] == 128 > 32
     for B in (1, 8):
         small = kernels.gru_fwd_plan(B, 512, SMS, H100_512)
-        assert (small["rows"], small["grid"]) == (16, [32, 1])
+        assert (small["rows"], small["grid"]) == (16, [32, 1, 1])
     mid = kernels.gru_fwd_plan(128, 512, SMS, H100_512)
-    assert (mid["rows"], mid["grid"]) == (16, [32, 8])
+    assert (mid["rows"], mid["grid"]) == (16, [32, 8, 1])
     big = kernels.gru_fwd_plan(1024, 512, SMS, H100_512)
-    assert big["grid"] == [32, 4] and big["b_tiles"] == 16
+    assert big["grid"] == [32, 4, 1] and big["b_tiles"] == 16
+    for plan in (train, serve, small, mid, big):
+        assert plan["launches"] == 1
 
 
 @pytest.mark.parametrize("per_sm", [NARROW, H100_512],
@@ -96,8 +106,8 @@ def test_gru_fwd_plan_past_the_64_row_tile(H):
         plan = kernels.gru_fwd_plan(B, H, SMS, WIDE)
         rows_resident = SMS // (H // 16)
         assert plan["rows"] == 16
-        assert plan["grid"] == [H // 16, min(-(-B // 16), rows_resident)]
-        assert (_coverage(plan, B, H) == 1).all()
+        assert plan["grid"] == [H // 16, min(-(-B // 16), rows_resident), 1]
+        assert (_coverage(plan, B, H, 1) == 1).all()
 
 
 @pytest.mark.parametrize("B,H,sms,per_sm", [(0, 512, SMS, H100_512),
@@ -107,24 +117,100 @@ def test_gru_fwd_plan_past_the_64_row_tile(H):
                                             (4, 512, SMS, {16: 0, 64: 0}),
                                             (4, 512, 16, NARROW),
                                             (4, 1584, SMS, {16: 0, 64: 0})])
+@pytest.mark.parametrize("directions", [1, 2])
 def test_gru_fwd_plan_refuses_what_the_kernel_does_not_take(B, H, sms,
-                                                            per_sm):
+                                                            per_sm,
+                                                            directions):
     """Bad shapes raise, and so does a card on which no tiling has a row of
-    j-tiles (H / 16 blocks) resident at once, as at H = 1584, where not
-    even a 16-row block's shared memory fits."""
+    one direction's j-tiles (H / 16 blocks) resident at once, as at
+    H = 1584, where not even a 16-row block's shared memory fits: with two
+    directions as with one."""
     with pytest.raises(ValueError, match="gru_fwd_plan"):
-        kernels.gru_fwd_plan(B, H, sms, per_sm)
+        kernels.gru_fwd_plan(B, H, sms, per_sm, directions)
+
+
+@pytest.mark.parametrize("directions", [0, 3])
+def test_gru_fwd_plan_takes_one_or_two_directions(directions):
+    with pytest.raises(ValueError, match="directions"):
+        kernels.gru_fwd_plan(4, 512, SMS, H100_512, directions)
+
+
+def test_bigru_fwd_plan_at_the_stage1_shapes():
+    """K6 at the stage-1 shape (B=256, H=512): both chains' 32 j-tiles x 2
+    rows of 64-row blocks, 128 blocks on 132 SMs (one an SM), each walking
+    2 of the 4 b-tiles a step, in one launch. At B=64 every 16-row b-tile
+    of both directions is resident at once ([32, 4, 2], two blocks an SM);
+    B=1024 walks 8 b-tiles a block."""
+    stage1 = kernels.gru_fwd_plan(256, 512, SMS, H100_512, 2)
+    assert stage1 == {"rows": 64, "b_tiles": 4, "grid": [32, 2, 2],
+                      "launches": 1}
+    b64 = kernels.gru_fwd_plan(64, 512, SMS, H100_512, 2)
+    assert (b64["rows"], b64["grid"], b64["launches"]) == (16, [32, 4, 2], 1)
+    big = kernels.gru_fwd_plan(1024, 512, SMS, H100_512, 2)
+    assert big["grid"] == [32, 2, 2] and big["b_tiles"] == 16
+
+
+@pytest.mark.parametrize("per_sm", [NARROW, H100_512],
+                         ids=["narrow", "h100"])
+def test_bigru_fwd_plan_counts_both_directions_for_16_rows(per_sm):
+    """With two directions the 16-row rule counts every b-tile of both:
+    16 rows while 2 x 32 j-tiles x every 16-row b-tile fit at once, 64
+    past that."""
+    for B in range(1, 1100, 7):
+        plan = kernels.gru_fwd_plan(B, 512, SMS, per_sm, 2)
+        all_resident = 2 * 32 * -(-B // 16) <= SMS * per_sm[16]
+        assert plan["rows"] == (16 if all_resident else 64)
+        assert plan["launches"] == 1 and plan["grid"][2] == 2
+
+
+@pytest.mark.parametrize("H", [1072, 1248, 1408, 1568])
+@pytest.mark.parametrize("B", [1, 64, 256, 1024])
+def test_bigru_fwd_plan_launches_once_a_chain_at_wide_widths(B, H):
+    """Past H = 1056 both directions' H / 16 j-tiles of 16-row blocks
+    (one an SM) do not fit on 132 SMs, but one direction's do: the plan
+    takes one direction a launch (grid z 1) and 2 launches of the same
+    kernel, rather than refusing a width the one-direction kernel takes;
+    each launch's grid is resident at once."""
+    plan = kernels.gru_fwd_plan(B, H, SMS, WIDE, 2)
+    jt = H // 16
+    assert 2 * jt > SMS >= jt
+    assert plan["launches"] == 2 and plan["rows"] == 16
+    assert plan["grid"] == [jt, min(-(-B // 16), SMS // jt), 1]
+    assert plan["grid"] == kernels.gru_fwd_plan(B, H, SMS, WIDE)["grid"]
+    assert (_coverage(plan, B, H, 2) == 1).all()
+
+
+@pytest.mark.parametrize("H", [864, 1024, 1056])
+def test_bigru_fwd_plan_keeps_one_launch_while_both_directions_fit(H):
+    """Up to H = 1056 (2 x 66 j-tiles on 132 SMs) both chains stay in one
+    launch, even where that leaves one row of blocks walking every b-tile
+    of the batch."""
+    for B in (1, 64, 256, 1024):
+        plan = kernels.gru_fwd_plan(B, H, SMS, WIDE, 2)
+        jt = H // 16
+        assert plan["launches"] == 1
+        assert plan["grid"] == [jt, min(-(-B // 16), SMS // (2 * jt)), 2]
+        assert (_coverage(plan, B, H, 2) == 1).all()
 
 
 def test_gru_fwd_is_one_persistent_launch_on_mma_sync():
-    """K1's library holds its kernel, the shared cell of gru_fwd_step.cuh
-    and the mma.sync primitives it shares with K3; it launches only the
-    persistent kernel, cooperatively, never the per-step kernel (which
-    stays in the header for K6), and has one instance of it."""
-    assert [p.name for p in kernels.sources("gru_fwd")] == [
-        "gru_fwd.cu", "gru_fwd_step.cuh", "mma_sync.cuh"]
-    text = (kernels.CSRC / "gru_fwd.cu").read_text()
-    assert "cudaLaunchCooperativeKernel" in text
-    assert "gru_step_kernel" not in text and "wmma" not in text
-    assert text.count("<<<") == 0
-    assert "template" not in text
+    """K1's and K6's libraries hold the persistent kernel of
+    gru_fwd_step.cuh and the mma.sync primitives it shares with K3/K7;
+    the header launches only that kernel, cooperatively (seq_run), and
+    has one instance of it; the per-step kernel and WMMA are gone, and
+    neither C interface launches a kernel of its own."""
+    for name in ("gru_fwd", "bigru_fwd"):
+        assert [p.name for p in kernels.sources(name)] == [
+            f"{name}.cu", "gru_fwd_step.cuh", "mma_sync.cuh"]
+        text = (kernels.CSRC / f"{name}.cu").read_text()
+        assert "seq_run(" in text and "seq_config(" in text
+        assert "cudaLaunch" not in text and text.count("<<<") == 0
+        assert "gru_step_kernel" not in text and "wmma" not in text
+        assert "template" not in text
+    header = (kernels.CSRC / "gru_fwd_step.cuh").read_text()
+    assert header.count("cudaLaunchCooperativeKernel(") == 1
+    assert header.count("__global__") == 1 and "<<<" not in header
+    assert "gru_step_kernel" not in header and "wmma" not in header
+    assert "mma.h" not in header and "template" not in header
+    assert not any("gru_step_kernel" in p.read_text()
+                   for p in kernels.CSRC.iterdir())

@@ -6,8 +6,11 @@ calls bit-equal, and its alpha and r bit-equal to K4's on the identity
 store), K3 (gru_bwd), K4
 (attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
 glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
-tiles, and two calls bit-equal), K6 (bigru_fwd), K7 (bigru_bwd; also
-its launch shape, under CUDA graph capture, and two calls bit-equal) and
+tiles, and two calls bit-equal), K6 (bigru_fwd; also at both tilings
+and past the point where both directions' j-tiles are resident at once,
+its launch shape against kernels.gru_fwd_plan with two directions, under
+CUDA graph capture, and two calls bit-equal), K7 (bigru_bwd; also its
+launch shape, under CUDA graph capture, and two calls bit-equal) and
 K8 (attention_bwd; also at the edges of its dz stage's 128-cell tiles,
 its launch shape against kernels.dz_plan, and two calls bit-equal), and
 the probes P1 (probe_mxu_rows) and
@@ -28,12 +31,10 @@ normalize mode (a bf16 weight p*r that rounds the other way moves its term
 by at most 2^-7 of it; flipped terms may carry 1/8 of v_att), logits 5e-2
 (bf16 activations between layers). K3-K5 are held relative to the largest
 value of each output (see chip_smoke.py for the reasons): K3 2^-8, K4's
-saved h 2^-7, K5 2^-9. K6 launches the forward step kernel once a
-timestep for both directions, and K1's persistent launch takes the same
-products in the same order, so h is K1's; K7 runs K3's persistent kernels
+saved h 2^-7, K5 2^-9. K6 runs K1's persistent kernel and K7 K3's, each
 with a direction axis (one cooperative launch for all steps of both
-chains). Each of K6 and K7 equals two K1 (K3) calls on the same inputs bit
-for bit.
+chains), so each of K6 and K7 equals two K1 (K3) calls on the same inputs
+bit for bit.
 K8 recomputes z, so a unit whose z lies
 within rounding of 0 may take the other side of the ReLU in one version:
 each output is held to 2^-9 of its largest value plus, per entry, what such
@@ -84,9 +85,10 @@ def _gru_inputs(dev, T, B, H, seed=0):
 @pytest.mark.parametrize("H", [16, 64, 512])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_fwd_matches_plain(dev, B, T, H, reverse):
-    """K1's persistent launch against its plain version (2e-3) and against
-    the per-step kernel that K6 still launches once a timestep, bit for
-    bit (K6's chains on the same inputs), over both tilings of
+    """K1's persistent launch against its plain version (2e-3) and
+    against K6's matching direction on the same inputs, bit for bit: two
+    launches of one kernel body (gru_seq_kernel of gru_fwd_step.cuh), K1's
+    with one direction, K6's with both chains. Over both tilings of
     kernels.gru_fwd_plan: B=1, 17, 64 and 65 take 16-row blocks, 256
     64-row ones, 1024 walks b-tiles; lengths hold 0 and T."""
     gx, lens, uh, bhn = _gru_inputs(dev, T, B, H)
@@ -126,7 +128,8 @@ def test_gru_fwd_is_deterministic(dev, B):
 def test_gru_fwd_past_the_64_row_tile_matches_plain(dev, B, reverse):
     """At H = 880 a 64-row block's shared memory does not fit, so every
     batch takes 16-row blocks (B=256 walking b-tiles), still within 2e-3
-    of the plain version and bit-equal to K6's matching direction."""
+    of the plain version and bit-equal to K6's matching direction (two
+    launches of one kernel body, K6's with both chains)."""
     gx, lens, uh, bhn = _gru_inputs(dev, 26, B, 880, seed=6)
     lens[0] = 26
     cfg = gru.gru_fwd_launch_config(B, 880, dev)
@@ -148,8 +151,6 @@ def test_gru_fwd_launch_shape_and_limit(dev):
     j-tiles x 4 rows of 64-row blocks, one an SM; at the serving batch
     more than 32 blocks. A width at which not even a 16-row block's
     shared memory fits raises instead of falling back."""
-    from vqa_transfer_externaldata_torch.ops import kernels
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, H in [(256, 512), (64, 512), (1, 512), (128, 512), (1024, 512),
                  (64, 64), (1, 880), (256, 1568)]:
@@ -158,9 +159,10 @@ def test_gru_fwd_launch_shape_and_limit(dev):
         assert cfg["rows"] == plan["rows"]
         assert cfg["blocks_per_sm"] == cfg["per_sm_by_rows"][cfg["rows"]] >= 1
         assert cfg["grid"] == plan["grid"]
+        assert cfg["launches"] == plan["launches"] == 1
         assert 0 < cfg["smem_bytes"] <= 232448
     train = gru.gru_fwd_launch_config(256, 512, dev)
-    assert train["grid"] == [32, 4] and train["rows"] == 64
+    assert train["grid"] == [32, 4, 1] and train["rows"] == 64
     serve = gru.gru_fwd_launch_config(64, 512, dev)
     assert serve["grid"][0] * serve["grid"][1] > 32
     gx, lens, uh, bhn = _gru_inputs(dev, 2, 4, 1584)
@@ -809,7 +811,7 @@ def test_bigru_fwd_bwd_match_plain_and_one_direction_kernels(dev, shape):
                                   gru.gru_fwd(gxb, lens, uhb, bhnb,
                                               reverse=True))
     torch.cuda.synchronize()
-    assert gru.bigru_fwd.launches == before + T  # one per step, both chains
+    assert gru.bigru_fwd.launches == before + 1  # all steps, both chains
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 2e-3
     for a, b in zip(got, (hTf, hTb, hseqf, hseqb)):
@@ -858,6 +860,131 @@ def test_bigru_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru.bigru_bwd(gxf, gxb, hs, hs, lens, uhf, uhb, bhnf, bhnb, ghT,
                       ghT)
     assert gru.bigru_bwd.launches == before
+
+
+def _two_k1(gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
+    """K1 on each chain, in K6's output order (hTf, hTb, hseqf, hseqb)."""
+    (hTf, hsf), (hTb, hsb) = (gru.gru_fwd(gxf, lens, uhf, bhnf),
+                              gru.gru_fwd(gxb, lens, uhb, bhnb, reverse=True))
+    return hTf, hTb, hsf, hsb
+
+
+@pytest.mark.parametrize("B", [1, 17, 64, 256, 1024])
+@pytest.mark.parametrize("T", [1, 7, 26])
+@pytest.mark.parametrize("rows", kernels.GRU_FWD_ROWS)
+def test_bigru_fwd_tilings_equal_two_k1_calls(dev, B, T, rows):
+    """K6 at both tilings (16 and 64 rows a block, whichever the plan
+    takes) equals two K1 calls bit for bit, in one cooperative launch for
+    both chains, and stays within 2e-3 of its plain version; lengths hold
+    0 and T."""
+    gxf, lens, uhf, bhnf = _gru_inputs(dev, T, B, 512, seed=11)
+    gxb, _, uhb, bhnb = _gru_inputs(dev, T, B, 512, seed=12)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    before = gru.bigru_fwd.launches
+    got = gru._launch_bigru_fwd(*args, rows)
+    after = gru.bigru_fwd.launches
+    ones = _two_k1(*args)
+    want = gru.bigru_reference(*args)
+    torch.cuda.synchronize()
+    assert after == before + 1
+    for a, b, c in zip(got, ones, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b), (a - b).abs().max().item()
+        assert (a - c).abs().max().item() <= 2e-3
+
+
+def test_bigru_fwd_two_launches_past_both_directions_resident(dev):
+    """At H = 1568 one direction's 98 j-tiles of 16-row blocks fit on the
+    card but not both directions' 196: the plan takes one launch a chain
+    of the same kernel (grid [98, rows, 1], 2 launches), both counted, and
+    the chains still equal two K1 calls bit for bit."""
+    cfg = gru.bigru_fwd_launch_config(256, 1568, dev)
+    assert cfg["launches"] == 2 and cfg["grid"][2] == 1
+    assert cfg["rows"] == 16 and cfg["grid"][0] == 98
+    args = _bigru_inputs(dev, 26, 256, 1568, seed=13)
+    before = gru.bigru_fwd.launches
+    got = gru.bigru_fwd(*args)
+    after = gru.bigru_fwd.launches
+    ones = _two_k1(*args)
+    want = gru.bigru_reference(*args)
+    torch.cuda.synchronize()
+    assert after == before + 2
+    for a, b, c in zip(got, ones, want):
+        assert torch.equal(a, b), (a - b).abs().max().item()
+        assert (a - c).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("B", [64, 256, 1024])
+def test_bigru_fwd_is_deterministic(dev, B):
+    """Two K6 calls on the same inputs give the same bits: the grid barrier
+    orders every exchange of both chains' states between blocks."""
+    args = _bigru_inputs(dev, 26, B, 512, seed=15)
+    first = gru.bigru_fwd(*args)
+    second = gru.bigru_fwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bigru_fwd_captures_in_a_cuda_graph(dev):
+    """K6's cooperative launch is accepted under stream capture, and the
+    graph's replay on new inputs equals an eager call on them."""
+    args = _bigru_inputs(dev, 26, 256, 512, seed=17)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gru.bigru_fwd(*args)  # warm up off the capture stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = gru.bigru_fwd.launches
+    with torch.cuda.graph(graph):
+        got = gru.bigru_fwd(*args)
+    assert gru.bigru_fwd.launches == before + 1
+    for a, b in zip(args, _bigru_inputs(dev, 26, 256, 512, seed=19)):
+        a.copy_(b)
+    graph.replay()
+    want = gru.bigru_fwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_bigru_fwd_launch_shape(dev):
+    """The C side derives K6's grid from the plan's rows and from its own
+    instance's occupancy, and it equals kernels.gru_fwd_plan's with two
+    directions on the same blocks per SM: at the stage-1 shape 32 j-tiles
+    x 2 rows x 2 directions of 64-row blocks, one an SM, each walking 2 of
+    the 4 b-tiles a step; one launch wherever both directions' j-tiles are
+    resident at once, two past that; a width at which not even a 16-row
+    block fits raises."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B, H in [(256, 512), (64, 512), (1, 512), (17, 512), (1024, 512),
+                 (64, 64), (1, 880), (256, 1056), (256, 1072),
+                 (256, 1568)]:
+        cfg = gru.bigru_fwd_launch_config(B, H, dev)
+        plan = kernels.gru_fwd_plan(B, H, sms, cfg["per_sm_by_rows"], 2)
+        assert cfg["rows"] == plan["rows"]
+        assert cfg["blocks_per_sm"] == cfg["per_sm_by_rows"][cfg["rows"]] >= 1
+        assert cfg["grid"] == plan["grid"]
+        assert cfg["launches"] == plan["launches"]
+        assert cfg["grid"][2] * cfg["launches"] == 2
+        assert 0 < cfg["smem_bytes"] <= 232448
+        assert cfg["smem_bytes"] == gru._fwd_config(
+            "gru_fwd", B, H, cfg["rows"], dev)["smem_bytes"]
+    train = gru.bigru_fwd_launch_config(256, 512, dev)
+    if train["rows"] == 64:
+        assert train["grid"] == [32, 2, 2] and train["b_tiles"] == 4
+    assert train["launches"] == 1
+    assert gru.bigru_fwd_launch_config(256, 1056, dev)["launches"] == 1
+    assert gru.bigru_fwd_launch_config(256, 1072, dev)["launches"] == 2
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 2, 4, 1584)
+    before = gru.bigru_fwd.launches
+    with pytest.raises(ValueError, match="gru_fwd_plan"):
+        gru.bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    assert gru.bigru_fwd.launches == before
 
 
 def _k7_args(dev, T, B, H, seed):
@@ -937,7 +1064,7 @@ def test_fused_bigru_encoder_goes_through_k6_k7(dev):
         return torch.cat([enc.fwd(x, mask), enc.bwd(x, mask)], dim=-1)
 
     res = []
-    for fn, want in ((enc, [6, 3, 0, 0]), (two_encoders, [0, 0, 2, 6])):
+    for fn, want in ((enc, [1, 3, 0, 0]), (two_encoders, [0, 0, 2, 6])):
         enc.zero_grad()
         counts = [getattr(gru, n).launches for n in
                   ("bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")]

@@ -2,11 +2,7 @@
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_gru_fwd_kernel (the
 // Pallas body launched by _gru_pallas_fwd_call); the step math is that
-// file's _gru_cell, written out as gru_cell in gru_fwd_step.cuh (which K6
-// applies too). gx = x @ W_x + b is computed once for all steps outside (a
-// plain GEMM). `reverse` walks t from T-1 down to 0 under the same prefix
-// mask, so the padded tail is processed first and carries the zero state
-// through.
+// file's _gru_cell, written out as gru_cell in gru_fwd_step.cuh.
 //
 // What bounds it on an H100: at B=256, T=26, H=512 the recurrence must read
 // the live rows of gx (~3500 row-steps of 6 KB) and write hseq (14 MB),
@@ -14,335 +10,14 @@
 // at the bf16 peak. The real limit is latency: 26 dependent steps, each a
 // [B, H] x [H, 3H] product for which every block needs all of h_prev.
 //
-// Design: the TPU kernel keeps h in VMEM across a sequential grid and U_h
-// (1.5 MB of bf16) resident beside it. Here gru_seq_kernel is ONE
-// cooperative launch for all T steps, separated by grid-wide barriers.
-// Block (jx, by) owns 16 hidden units j0 = 16 * jx.. for the whole call
-// and loads its 48 columns {j0, H+j0, 2H+j0} + 0..15 of U_h into shared
-// memory once. Within a step it walks its b-tiles of `rows` rows (by,
-// by + gridDim.y, ...). The state that blocks exchange is a bf16 copy of
-// h_t, rounded as the step kernel rounds h_prev, in a ping-pong pair
-// [2, B, H]: step k reads slot (k+1) % 2 and writes slot k % 2, so one
-// barrier a step suffices (no block writes a slot before every block has
-// finished reading it). A b-tile's rows of that copy come in through
-// cp.async.cg (L2 only: other blocks wrote them before the barrier), every
-// column in flight at once, 64 columns a commit group, so the products
-// start on the first group while the rest arrive. Warp w takes rows
-// 16 (w / 2).. and the n8 half w % 2 of all three gates: three chains of
-// mma.sync m16n8k16 fed by ldmatrix (mma_sync.cuh), k ascending from a zero
-// accumulator, which are the chains of the step kernel's WMMA fragments.
-// Each lane applies gru_cell to its 4 elements straight from the
-// accumulators; the f32 h_prev it needs is its own element of the step
-// before, which it wrote to hseq itself. gx does not depend on the
-// recurrence, so the next work item's [rows, 48] slice is copied with
-// cp.async into the other of two buffers during the current item.
-//
-// Two tilings: 16 rows a block where every b-tile of the batch is resident
-// at once (B <= 128 at H = 512: 8 b-tiles x 32 j-tiles on 132 SMs, two
-// blocks an SM), since a block's step is shorter the fewer rows of h_prev it
-// reads; else 64 rows, the rows of blocks walking b-tiles (B = 256: 32 x 4
-// blocks, one an SM). A 64-row block fits up to H = 848 and a 16-row one up
-// to H = 1568 (the per-step kernel takes H <= 1584); wider, the wrapper
-// raises. ops/kernels.py::gru_fwd_plan picks the rows; seq_grid derives the
-// grid from them and from the occupancy query, as the plan does, so that
-// the grid is resident at once, and the cooperative launch refuses one
-// that cannot be.
-//
-// Bit-equal to the step kernel of gru_fwd_step.cuh (K6 launches it once a
-// timestep): the same products in the same order, the same rounding of
-// h_prev, the same gru_cell. No atomics: the result is deterministic.
-
-#include <cooperative_groups.h>
-
-#include <algorithm>
+// Design: the persistent kernel of gru_fwd_step.cuh (gru_seq_kernel), one
+// cooperative launch for all T steps with one direction (gridDim.z = 1);
+// each block's U_h columns stay resident in shared memory, the state is
+// exchanged as a bf16 ping-pong copy [2, B, H]. K6 (csrc/bigru_fwd.cu)
+// launches the same kernel with two directions: each of its chains equals a
+// K1 call bit for bit.
 
 #include "gru_fwd_step.cuh"
-#include "mma_sync.cuh"
-
-namespace {
-
-namespace cgrp = cooperative_groups;
-
-constexpr int kSeqThreads = 256;  // 8 warps, one (16-row, n8-half) task each
-constexpr int kUnits = 16;        // hidden units a block owns
-constexpr int kHalves = kUnits / 8;  // n8 halves of a gate's units
-constexpr int kChunk = 64;        // h_prev columns in one cp.async group
-// Leading dimension of the U_h slice [H][48] bf16: a row is 7 (an odd
-// number of) 16-byte units, so ldmatrix's 8 rows hit distinct banks.
-constexpr int kULd = 3 * kUnits + 8;
-constexpr int kXLd = 3 * kUnits;  // floats of a row of a gx slice
-
-// Us [H][kULd] bf16 | Hs [rows][H+8] bf16 | Xs [2][rows][48] f32
-__host__ __device__ constexpr size_t seq_off_h(int H) {
-  return align128(static_cast<size_t>(H) * kULd * 2);
-}
-__host__ __device__ constexpr size_t seq_off_x(int H, int rows) {
-  return seq_off_h(H) + align128(static_cast<size_t>(rows) * a_ld(H) * 2);
-}
-__host__ __device__ constexpr size_t seq_smem_bytes(int H, int rows) {
-  return seq_off_x(H, rows) + 2 * static_cast<size_t>(rows) * kXLd * 4;
-}
-
-// Waits until at most n of this thread's cp.async groups are pending
-// (waiting for more is always safe, so n above 7 waits as for 7).
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    default: cp_async_wait<7>(); break;
-  }
-}
-
-struct FwdSeq {
-  const float* gx;             // [T, B, 3H]
-  const int* lens;             // [B]
-  const __nv_bfloat16* uh;     // [H, 3H]
-  const float* bhn;            // [H]
-  float* hseq;                 // [T, B, H]
-  float* hT;                   // [B, H]
-  __nv_bfloat16* hbf;          // [2, B, H] bf16 copies of the state
-  int T, B, H, rows, reverse;
-};
-
-__global__ void __launch_bounds__(kSeqThreads)
-gru_seq_kernel(FwdSeq p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int U = kUnits;
-  const int H = p.H;
-  const int B = p.B;
-  const int T = p.T;
-  const int rows = p.rows;
-  const size_t H3 = 3 * static_cast<size_t>(H);
-  const size_t step_h = static_cast<size_t>(B) * H;
-  const size_t step_gx = static_cast<size_t>(B) * H3;
-  const int lda = a_ld(H);
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Hs =
-      reinterpret_cast<__nv_bfloat16*>(smem + seq_off_h(H));
-  float* Xs = reinterpret_cast<float*>(smem + seq_off_x(H, rows));
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int j0 = blockIdx.x * U;
-  const int ntiles = (B + rows - 1) / rows;
-  const int nchunk = (H + kChunk - 1) / kChunk;
-
-  // The gx slice of work item (step k, b-tile bt) into buffer `buf`, as one
-  // commit group; rows past B are zero-filled.
-  auto load_gx = [&](int k, int bt, int buf) {
-    constexpr int kQ = U / 4;  // 16-byte copies a gate and row
-    const float* src = p.gx + (p.reverse ? T - 1 - k : k) * step_gx;
-    float* dst = Xs + buf * rows * kXLd;
-    const int b0 = bt * rows;
-    for (int i = tid; i < rows * 3 * kQ; i += kSeqThreads) {
-      const int r = i / (3 * kQ);
-      const int s = i - r * 3 * kQ;
-      const int g = s / kQ;
-      const int q = (s - g * kQ) * 4;
-      const int b = b0 + r;
-      const bool ok = b < B;
-      cp_async16(dst + r * kXLd + g * U + q,
-                 ok ? src + b * H3 + g * H + j0 + q : src, ok);
-    }
-    cp_async_commit();
-  };
-
-  // U_h columns j0.., H+j0.., 2H+j0.. of every row, in the first group with
-  // the first item's gx.
-  for (int i = tid; i < H * 3 * kHalves; i += kSeqThreads) {
-    const int k = i / (3 * kHalves);
-    const int s = i - k * 3 * kHalves;
-    const int g = s / kHalves;
-    const int q = (s - g * kHalves) * 8;
-    cp_async16(Us + k * kULd + g * U + q, p.uh + k * H3 + g * H + j0 + q,
-               true);
-  }
-  load_gx(0, blockIdx.y, 0);
-
-  // The warp's task: rows rg*16.. of a b-tile, units half*8.. of the block.
-  // Its lane's elements: rows er and er + 8, units j and j + 1.
-  const bool mma_warp = warp < rows / 16 * kHalves;
-  const int rg = warp / kHalves;
-  const int half = warp % kHalves;
-  const int er = rg * 16 + (lane >> 2);
-  const int j = j0 + half * 8 + 2 * (lane & 3);
-  const float bhn0 = mma_warp ? __ldg(p.bhn + j) : 0.0f;
-  const float bhn1 = mma_warp ? __ldg(p.bhn + j + 1) : 0.0f;
-
-  cgrp::grid_group grid = cgrp::this_grid();
-  int item = 0;  // the block's work items so far: parity picks the gx buffer
-  for (int k = 0; k < T; ++k) {
-    const int t = p.reverse ? T - 1 - k : k;
-    // null at the first step: the zero initial state (its bf16 tile is
-    // zero-filled and the products still run, as in the step kernel).
-    const __nv_bfloat16* hb =
-        k == 0 ? nullptr : p.hbf + ((k + 1) & 1) * step_h;
-    const float* hf =
-        k == 0 ? nullptr : p.hseq + (p.reverse ? t + 1 : t - 1) * step_h;
-    float* ho = p.hseq + t * step_h;
-    __nv_bfloat16* hbo = p.hbf + (k & 1) * step_h;
-    float* hTo = k == T - 1 ? p.hT : nullptr;
-
-    for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y, ++item) {
-      const int b0 = bt * rows;
-      // bf16(h_prev) of the tile's rows, 64 columns a commit group.
-      for (int c = 0; c < nchunk; ++c) {
-        const int cw = min(kChunk, H - c * kChunk) / 8;
-        for (int i = tid; i < rows * cw; i += kSeqThreads) {
-          // A whole chunk's row is 8 copies: a shift, not a division by a
-          // runtime count, on the path every step takes.
-          const int r = cw == kChunk / 8 ? i >> 3 : i / cw;
-          const int q = c * kChunk + (i - r * cw) * 8;
-          const int b = b0 + r;
-          const bool ok = hb != nullptr && b < B;
-          cp_async16(Hs + r * lda + q,
-                     ok ? hb + static_cast<size_t>(b) * H + q : p.hbf, ok);
-        }
-        cp_async_commit();
-      }
-      // The elementwise operands that come from device memory, loaded ahead
-      // of the products: the lane's own f32 h_prev and the rows' lengths.
-      float2 hp[2] = {make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f)};
-      bool live[2] = {false, false};
-      if (mma_warp) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int b = b0 + er + 8 * e;
-          if (b < B) {
-            if (hf != nullptr) {
-              hp[e] = *reinterpret_cast<const float2*>(
-                  hf + static_cast<size_t>(b) * H + j);
-            }
-            live[e] = t < __ldg(p.lens + b);
-          }
-        }
-      }
-      int next_k = k;
-      int next_bt = bt + gridDim.y;
-      if (next_bt >= ntiles) {
-        next_k = k + 1;
-        next_bt = blockIdx.y;
-      }
-      const bool has_next = next_k < T;
-
-      float acc[3][4];
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[g][e] = 0.0f;
-      for (int c = 0; c < nchunk; ++c) {
-        // Chunk c and everything committed before this item's chunks (U_h
-        // and this item's gx slice at c = 0) have landed; the next item's
-        // gx, committed at c = 0, may stay in flight.
-        cp_async_wait_upto(nchunk - 1 - c + (c > 0 && has_next ? 1 : 0));
-        __syncthreads();
-        // Every thread is past the item before, which read the other gx
-        // buffer: refill it for the next item.
-        if (c == 0 && has_next) load_gx(next_k, next_bt, (item + 1) & 1);
-        if (mma_warp) {
-          const int kend = min(H, (c + 1) * kChunk);
-          for (int kk = c * kChunk; kk < kend; kk += 16) {
-            unsigned a[4];
-            load_a(a, Hs + rg * 16 * lda + kk, lda, lane);
-#pragma unroll
-            for (int g = 0; g < 3; ++g) {
-              unsigned b[2];
-              load_b_half_kmajor(b, Us + kk * kULd + g * U + half * 8,
-                                 kULd, lane);
-              mma16816(acc[g], a, b[0], b[1]);
-            }
-          }
-        }
-      }
-      __syncthreads();  // Hs is free for the next item
-
-      if (mma_warp) {
-        const float* X = Xs + (item & 1) * rows * kXLd;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int rl = er + 8 * e;
-          const int b = b0 + rl;
-          if (b >= B) continue;
-          const float* x = X + rl * kXLd + (j - j0);
-          const float2 xr = *reinterpret_cast<const float2*>(x);
-          const float2 xz = *reinterpret_cast<const float2*>(x + U);
-          const float2 xn = *reinterpret_cast<const float2*>(x + 2 * U);
-          float2 h;
-          h.x = gru_cell(xr.x, xz.x, xn.x, acc[0][2 * e], acc[1][2 * e],
-                         acc[2][2 * e], bhn0, hp[e].x, live[e]);
-          h.y = gru_cell(xr.y, xz.y, xn.y, acc[0][2 * e + 1],
-                         acc[1][2 * e + 1], acc[2][2 * e + 1], bhn1, hp[e].y,
-                         live[e]);
-          const size_t o = static_cast<size_t>(b) * H + j;
-          *reinterpret_cast<float2*>(ho + o) = h;
-          if (hTo != nullptr) *reinterpret_cast<float2*>(hTo + o) = h;
-          *reinterpret_cast<__nv_bfloat162*>(hbo + o) =
-              __floats2bfloat162_rn(h.x, h.y);
-        }
-      }
-    }
-    if (k + 1 < T) grid.sync();
-  }
-}
-
-// The dynamic shared memory of a block of `rows` (16 or 64) batch rows at
-// width H, granted to the kernel, and the blocks of it resident per SM (0
-// where that memory exceeds what a block may have).
-cudaError_t seq_occupancy(int H, int rows, int* per_sm, size_t* smem) {
-  *per_sm = 0;
-  *smem = 0;
-  if (H < 16 || H % 16 != 0 || (rows != 16 && rows != 64))
-    return cudaErrorInvalidValue;
-  *smem = seq_smem_bytes(H, rows);
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess || *smem > static_cast<size_t>(optin)) return e;
-  e = cudaFuncSetAttribute(gru_seq_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(*smem));
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gru_seq_kernel,
-                                                       kSeqThreads, *smem);
-}
-
-// The grid at batch B: H / 16 j-tiles x as many rows of blocks as there are
-// b-tiles of `rows` rows, but no more than are resident beside each other
-// (each then walks b-tiles by, by + grid_y, ...); 0 x 0 where not even one
-// row of j-tiles can be resident at once. ops/kernels.py::gru_fwd_plan
-// computes the same grid from the same blocks per SM.
-cudaError_t seq_grid(int B, int H, int rows, int* grid_x, int* grid_y,
-                     int* per_sm, size_t* smem) {
-  *grid_x = 0;
-  *grid_y = 0;
-  cudaError_t e = seq_occupancy(H, rows, per_sm, smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, coop = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                  dev)) != cudaSuccess)
-    return e;
-  if (!coop) return cudaErrorNotSupported;
-  const int rows_resident = *per_sm * sms / (H / kUnits);
-  if (B >= 1 && rows_resident >= 1) {
-    *grid_x = H / kUnits;
-    *grid_y = std::min((B + rows - 1) / rows, rows_resident);
-  }
-  return cudaSuccess;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -351,24 +26,21 @@ const char* cuda_error_string(int code) {
 }
 
 // The launch at batch B and width H with b-tiles of `rows` (16 or 64) rows
-// on the current device: its grid (0 x 0 where a row of H / 16 j-tiles
-// cannot be resident at once), the blocks resident per SM (0 where the
-// shared memory exceeds a block's) and the dynamic shared memory. Returns
-// the CUDA error of the queries, clearing it from the runtime so that later
-// launch checks of other kernels do not report it again.
-int gru_fwd_config(int B, int H, int rows, int* grid_x, int* grid_y,
+// on the current device: its grid[3] (j-tiles, rows of blocks, 1; 0 x 0 x 0
+// where a row of H / 16 j-tiles cannot be resident at once), the launches
+// it takes (1, or 0 with a zero grid), the blocks resident per SM (0 where
+// the shared memory exceeds a block's) and the dynamic shared memory.
+// Returns the CUDA error of the queries, clearing it from the runtime so
+// that later launch checks of other kernels do not report it again.
+int gru_fwd_config(int B, int H, int rows, int* grid, int* launches,
                    int* per_sm, long long* smem_bytes) {
-  size_t smem = 0;
-  const cudaError_t e = seq_grid(B, H, rows, grid_x, grid_y, per_sm, &smem);
-  if (e != cudaSuccess) cudaGetLastError();
-  *smem_bytes = static_cast<long long>(smem);
-  return static_cast<int>(e);
+  return seq_config(B, H, rows, 1, grid, launches, per_sm, smem_bytes);
 }
 
 // gx_t [T, B, 3H] f32, lens [B] i32, uh [H, 3H] bf16, bhn [H] f32
 // -> hseq [T, B, H] f32 (post-step state of actual timestep t), hT [B, H];
 // scratch hbf [2, B, H] bf16. `rows` (16 or 64) batch rows a block, as
-// ops/kernels.py::gru_fwd_plan chooses them; the grid is derived here
+// ops/kernels.py::gru_fwd_plan chooses them; the grid is derived from them
 // (seq_grid). Needs H % 16 == 0 (checked by the caller). Launches the
 // persistent kernel cooperatively on `stream` (1), counting in *launched
 // whether it launched; returns the CUDA error, among them
@@ -376,35 +48,16 @@ int gru_fwd_config(int B, int H, int rows, int* grid_x, int* grid_y,
 int gru_fwd(const void* gx_t, const void* lens, const void* uh,
             const void* bhn, void* hseq, void* hT, void* hbf, int T, int B,
             int H, int reverse, int rows, void* stream, int* launched) {
-  *launched = 0;
-  int grid_x = 0, grid_y = 0, per_sm = 0;
-  size_t smem = 0;
-  cudaError_t e = seq_grid(B, H, rows, &grid_x, &grid_y, &per_sm, &smem);
-  if (e == cudaSuccess && (T < 1 || B < 1)) e = cudaErrorInvalidValue;
-  if (e == cudaSuccess && grid_y == 0)
-    e = cudaErrorCooperativeLaunchTooLarge;
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  FwdSeq p{static_cast<const float*>(gx_t),
-           static_cast<const int*>(lens),
-           static_cast<const __nv_bfloat16*>(uh),
-           static_cast<const float*>(bhn),
-           static_cast<float*>(hseq),
-           static_cast<float*>(hT),
-           static_cast<__nv_bfloat16*>(hbf),
-           T, B, H, rows, reverse};
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(gru_seq_kernel), dim3(grid_x, grid_y),
-      dim3(kSeqThreads), args, smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(e);
-  }
-  ++*launched;
-  return 0;
+  const FwdSeq p{static_cast<const float*>(gx_t),
+                 static_cast<const int*>(lens),
+                 static_cast<const __nv_bfloat16*>(uh),
+                 static_cast<const float*>(bhn),
+                 static_cast<float*>(hseq),
+                 static_cast<float*>(hT),
+                 static_cast<__nv_bfloat16*>(hbf),
+                 T, B, H, rows, reverse};
+  return seq_run({p, p}, 1, rows, static_cast<cudaStream_t>(stream),
+                 launched);
 }
 
 }  // extern "C"

@@ -1,17 +1,16 @@
-// The warp-level tensor-core primitives of the persistent GRU kernels, K1
-// (csrc/gru_fwd.cu) and the BPTT of K3 and K7 (csrc/gru_bwd_step.cuh):
-// asynchronous 16-byte copies into shared memory, ldmatrix loads and
-// mma.sync m16n8k16 bf16 products with f32 sums.
+// The warp-level tensor-core primitives of the persistent GRU kernels, the
+// forward of K1 and K6 (csrc/gru_fwd_step.cuh) and the BPTT of K3 and K7
+// (csrc/gru_bwd_step.cuh): asynchronous 16-byte copies into shared memory,
+// ldmatrix loads and mma.sync m16n8k16 bf16 products with f32 sums.
 //
 // WMMA's 16x16x16 bf16 product compiles on sm_90a to two
 // HMMA.16816.F32.BF16, one for columns 0..7 and one for 8..15 of the same A
 // fragment. These kernels issue that instruction themselves (mma.sync
 // m16n8k16), with their operands loaded by ldmatrix, so each 16x16 fragment
-// is the same chain of the same products as a WMMA fragment of the per-step
-// kernel that K6 launches (gru_fwd_step.cuh), and each m16n8 half of it
-// the same chain on its own. A 16x16 accumulator is two m16n8 halves,
-// f[0..3] and f[4..7]: lane l holds rows l/4 and l/4 + 8, columns 2(l%4)
-// and 2(l%4) + 1 of each half.
+// is the same chain of the same products as a WMMA fragment, and each
+// m16n8 half of it the same chain on its own. A 16x16 accumulator is two
+// m16n8 halves, f[0..3] and f[4..7]: lane l holds rows l/4 and l/4 + 8,
+// columns 2(l%4) and 2(l%4) + 1 of each half.
 
 #pragma once
 

@@ -23,9 +23,10 @@ The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 :class:`BiGRUEncoder` concatenates a forward and a reverse encoder's final
 states. It projects each direction as :class:`GRUEncoder` does and runs both
 recurrences through ``bigru_fused``: on a CUDA tensor kernel
-``csrc/bigru_fwd.cu`` (K6, wrapper :func:`bigru_fwd`) advances both chains
-in each launch and ``csrc/bigru_bwd.cu`` (K7, wrapper :func:`bigru_bwd`)
-walks both BPTTs; on a CPU tensor their plain versions
+``csrc/bigru_fwd.cu`` (K6, wrapper :func:`bigru_fwd`: K1's persistent
+kernel, both chains in one launch) advances both chains and
+``csrc/bigru_bwd.cu`` (K7, wrapper :func:`bigru_bwd`) walks both BPTTs;
+on a CPU tensor their plain versions
 :func:`bigru_reference` and :func:`bigru_bwd_reference`. The JAX package
 keeps this fused path behind ``fuse_directions`` (off); its outputs and
 gradients equal the two per-direction encoders', and here it is the only
@@ -233,41 +234,56 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _fwd_config(B: int, H: int, rows: int, device: torch.device) -> dict:
-    """The C side's launch of K1 at batch ``B`` and width ``H`` with
-    ``rows`` batch rows a block on CUDA ``device``: its grid ([0, 0] where
-    a row of j-tiles cannot be resident at once), blocks resident per SM
-    (0 where the block's shared memory does not fit) and dynamic shared
-    memory in bytes."""
-    lib = _lib()
-    gx, gy, per_sm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+def _fwd_config(kernel: str, B: int, H: int, rows: int,
+                device: torch.device) -> dict:
+    """The C side's launch of K1 (``kernel`` "gru_fwd") or K6
+    ("bigru_fwd") at batch ``B`` and width ``H`` with ``rows`` batch rows
+    a block on CUDA ``device``: its grid (j-tiles, rows of blocks,
+    directions a launch; [0, 0, 0] where not even one direction's row of
+    j-tiles can be resident at once), the launches a call takes, blocks
+    resident per SM (0 where the block's shared memory does not fit) and
+    dynamic shared memory in bytes."""
+    lib = _lib() if kernel == "gru_fwd" else _bigru_lib()
+    grid = (ctypes.c_int * 3)()
+    launches, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        rc = lib.gru_fwd_config(B, H, rows, ctypes.addressof(gx),
-                                ctypes.addressof(gy), ctypes.addressof(per_sm),
-                                ctypes.addressof(smem))
-    kernels.check(lib, rc, "gru_fwd")
-    return {"grid": [gx.value, gy.value], "blocks_per_sm": per_sm.value,
-            "smem_bytes": smem.value}
+        rc = getattr(lib, f"{kernel}_config")(
+            B, H, rows, ctypes.addressof(grid), ctypes.addressof(launches),
+            ctypes.addressof(per_sm), ctypes.addressof(smem))
+    kernels.check(lib, rc, kernel)
+    return {"grid": list(grid), "launches": launches.value,
+            "blocks_per_sm": per_sm.value, "smem_bytes": smem.value}
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_blocks_per_sm(index: int, H: int) -> dict:
-    """K1's blocks resident per SM of card ``index`` at width ``H``, by
-    the batch rows of each of its tilings (``kernels.GRU_FWD_ROWS``)."""
+def _fwd_blocks_per_sm(kernel: str, index: int, H: int) -> dict:
+    """K1's or K6's blocks resident per SM of card ``index`` at width
+    ``H``, by the batch rows of each of its tilings
+    (``kernels.GRU_FWD_ROWS``), from its own library's instance."""
     dev = torch.device("cuda", index)
-    return {rows: _fwd_config(1, H, rows, dev)["blocks_per_sm"]
+    return {rows: _fwd_config(kernel, 1, H, rows, dev)["blocks_per_sm"]
             for rows in kernels.GRU_FWD_ROWS}
 
 
-def _fwd_plan(B: int, H: int, device: torch.device) -> Tuple[dict, dict]:
-    """K1's plan at (B, H) on CUDA ``device``, and the blocks per SM it
-    was given."""
+def _fwd_plan(kernel: str, B: int, H: int, device: torch.device
+              ) -> Tuple[dict, dict]:
+    """``kernels.gru_fwd_plan`` for K1 (one direction) or K6 (two) at
+    (B, H) on CUDA ``device``, and the blocks per SM it was given."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    per_sm = _fwd_blocks_per_sm(index, H)
-    plan = kernels.gru_fwd_plan(B, H, kernels.sm_count(device), per_sm)
+    per_sm = _fwd_blocks_per_sm(kernel, index, H)
+    plan = kernels.gru_fwd_plan(B, H, kernels.sm_count(device), per_sm,
+                                1 if kernel == "gru_fwd" else 2)
     return plan, per_sm
+
+
+def _fwd_launch_config(kernel: str, B: int, H: int,
+                       device: torch.device) -> dict:
+    plan, per_sm = _fwd_plan(kernel, B, H, device)
+    cfg = _fwd_config(kernel, B, H, plan["rows"], device)
+    return {"rows": plan["rows"], "b_tiles": plan["b_tiles"], **cfg,
+            "per_sm_by_rows": dict(per_sm)}
 
 
 def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
@@ -294,7 +310,7 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
-    plan, _ = _fwd_plan(B, H, dev)
+    plan, _ = _fwd_plan("gru_fwd", B, H, dev)
     return _launch_fwd(gx_t, lens, uh, bhn, reverse, plan["rows"])
 
 
@@ -328,14 +344,13 @@ def _launch_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
 
 def gru_fwd_launch_config(B: int, H: int, device: torch.device) -> dict:
     """The shape of K1's persistent launch at batch ``B`` and width ``H``
-    on CUDA ``device``: the batch ``rows`` a block that the plan takes,
-    the C side's grid (j-tiles, rows of blocks), blocks resident per SM
-    and dynamic shared memory in bytes at those rows, and the blocks per
-    SM of every tiling that the plan was given (``per_sm_by_rows``).
-    Raises where :func:`gru_fwd` would."""
-    plan, per_sm = _fwd_plan(B, H, device)
-    cfg = _fwd_config(B, H, plan["rows"], device)
-    return {"rows": plan["rows"], **cfg, "per_sm_by_rows": dict(per_sm)}
+    on CUDA ``device``: the batch ``rows`` a block and the b-tiles that
+    the plan takes, the C side's grid (j-tiles, rows of blocks, 1) and
+    launches (1), blocks resident per SM and dynamic shared memory in
+    bytes at those rows, and the blocks per SM of every tiling that the
+    plan was given (``per_sm_by_rows``). Raises where :func:`gru_fwd`
+    would."""
+    return _fwd_launch_config("gru_fwd", B, H, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -536,8 +551,10 @@ def _expect_pair(T: int, B: int, H: int, dev: torch.device, **pairs) -> None:
 def _bigru_lib() -> ctypes.CDLL:
     lib = kernels.load("bigru_fwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bigru_fwd.argtypes = [p] * 9 + [i, i, i, p, p]
+    lib.bigru_fwd.argtypes = [p] * 10 + [i] * 4 + [p, p]
     lib.bigru_fwd.restype = i
+    lib.bigru_fwd_config.argtypes = [i, i, i, p, p, p, p]
+    lib.bigru_fwd_config.restype = i
     return lib
 
 
@@ -546,10 +563,16 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
               bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Launch kernel K6 (``csrc/bigru_fwd.cu``) on CUDA tensors: gxf, gxb
     [T, B, 3H] f32, lens [B] int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H]
-    f32 -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), all f32. Needs
-    H % 16 == 0. One call launches one step kernel per timestep, each
-    advancing both chains, on the current stream and adds the number
-    launched (T) to ``bigru_fwd.launches``."""
+    f32 -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), all f32, each
+    direction bit-equal to a :func:`gru_fwd` call on its inputs. Needs
+    H % 16 == 0 and a block's U_h slice and 16-row b-tile to fit in shared
+    memory (H <= 1568, as :func:`gru_fwd`). One call makes one cooperative
+    launch of K1's persistent kernel for all T steps of both chains, with
+    the batch rows a block of ``kernels.gru_fwd_plan`` with two directions
+    (or, where the plan says that both directions' j-tiles cannot be
+    resident at once, one launch a chain), on the current stream and adds
+    the number launched (1, or 2) to ``bigru_fwd.launches``; it raises
+    where the plan raises."""
     if gxf.device.type != "cuda" or gxf.dim() != 3:
         raise ValueError("bigru_fwd takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
@@ -561,15 +584,35 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     _expect_pair(T, B, H, dev, gx=(gxf, gxb), uh=(uhf, uhb),
                  bhn=(bhnf, bhnb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
+    plan, _ = _fwd_plan("bigru_fwd", B, H, dev)
+    return _launch_bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb,
+                             plan["rows"])
+
+
+bigru_fwd.launches = 0
+
+
+def _launch_bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor,
+                      lens: torch.Tensor, uhf: torch.Tensor,
+                      uhb: torch.Tensor, bhnf: torch.Tensor,
+                      bhnb: torch.Tensor, rows: int
+                      ) -> Tuple[torch.Tensor, ...]:
+    """K6's launch with ``rows`` batch rows a block on inputs that
+    :func:`bigru_fwd` has checked (chip_smoke.py also times the tiling
+    that the plan does not take through it)."""
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    dev = gxf.device
     hseq = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
     hT = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+    hbf = torch.empty(2, 2, B, H, dtype=torch.bfloat16, device=dev)
     lib = _bigru_lib()
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.bigru_fwd(gxf.data_ptr(), gxb.data_ptr(), lens.data_ptr(),
                            uhf.data_ptr(), uhb.data_ptr(), bhnf.data_ptr(),
                            bhnb.data_ptr(), hseq.data_ptr(), hT.data_ptr(),
-                           T, B, H,
+                           hbf.data_ptr(), T, B, H, rows,
                            torch.cuda.current_stream(dev).cuda_stream,
                            ctypes.addressof(launched))
     bigru_fwd.launches += launched.value
@@ -577,7 +620,14 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     return hT[0], hT[1], hseq[0], hseq[1]
 
 
-bigru_fwd.launches = 0
+def bigru_fwd_launch_config(B: int, H: int, device: torch.device) -> dict:
+    """The shape of K6's persistent launch at batch ``B`` and width ``H``
+    on CUDA ``device``, as :func:`gru_fwd_launch_config` gives K1's, from
+    K6's own instance of the kernel: the grid is (j-tiles, rows of blocks,
+    2 directions), or (j-tiles, rows of blocks, 1) with ``launches`` 2
+    where both directions' j-tiles cannot be resident at once. Raises
+    where :func:`bigru_fwd` would."""
+    return _fwd_launch_config("bigru_fwd", B, H, device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -263,32 +263,43 @@ def rows_plan(B: int, n_valid: int, G: int, C: int, H: int) -> dict:
             "unit_passes": -(-(H // ROWS_UNITS) // lanes)}
 
 
-GRU_FWD_UNITS = 16  # hidden units a block of K1 owns
-GRU_FWD_ROWS = (16, 64)  # batch rows a block of K1 takes, fewest first
+GRU_FWD_UNITS = 16  # hidden units a block of K1/K6 owns
+GRU_FWD_ROWS = (16, 64)  # batch rows a block of K1/K6 takes, fewest first
 
 
-def gru_fwd_plan(B: int, H: int, sms: int, per_sm: Mapping[int, int]
-                 ) -> dict:
-    """The launch of K1's persistent kernel (``csrc/gru_fwd.cu``) at batch
-    ``B`` and width ``H`` (a multiple of 16) on a card of ``sms`` SMs,
-    where ``per_sm[rows]`` of its blocks of each tiling of
-    ``GRU_FWD_ROWS`` are resident per SM (0 where the block's shared memory
-    does not fit): the batch ``rows`` a block takes, the b-tiles and the
-    grid (H / 16 j-tiles, rows of blocks). 16 rows where every b-tile is
-    resident at once, since a step is shorter the fewer rows of h_prev a
-    block reads; else 64 rows, where a row of j-tiles fits, with as many
-    rows of blocks as fit, each walking b-tiles by, by + grid_y, ... in
-    every step; else 16 rows the same way. The grid is cooperative, so it
-    never exceeds sms x per_sm[rows]; where no tiling has a row of j-tiles
-    resident it raises. The C side (``seq_grid``) derives the same grid
-    from the rows passed to it."""
-    if B < 1 or H < 16 or H % 16 or sms < 1:
+def gru_fwd_plan(B: int, H: int, sms: int, per_sm: Mapping[int, int],
+                 directions: int = 1) -> dict:
+    """The launch of the persistent kernel of ``csrc/gru_fwd_step.cuh``
+    (K1 with one direction, K6 with two) at batch ``B`` and width ``H`` (a
+    multiple of 16) on a card of ``sms`` SMs, where ``per_sm[rows]`` of its
+    blocks of each tiling of ``GRU_FWD_ROWS`` are resident per SM (0 where
+    the block's shared memory does not fit): the batch ``rows`` a block
+    takes, the b-tiles, the grid (H / 16 j-tiles, rows of blocks,
+    directions a launch) and the ``launches`` a call. 16 rows where every
+    b-tile of every direction is resident at once, since a step is shorter
+    the fewer rows of h_prev a block reads; else 64 rows, where a row of
+    every direction's j-tiles fits, with as many rows of blocks as fit
+    beside each other, each walking b-tiles by, by + grid_y, ... in every
+    step; else 16 rows the same way. Block (jx, by, d) takes direction d.
+    Where no tiling has a row of both directions' j-tiles resident at once
+    but one has a row of one direction's, the plan takes one direction a
+    launch (grid z 1) and 2 launches, one a chain, of the same kernel.
+    The grid is cooperative, so it never exceeds sms x per_sm[rows];
+    where no tiling has even one direction's row of j-tiles resident it
+    raises. The C side (``seq_grid``) derives the same grid from the rows
+    passed to it."""
+    if B < 1 or H < 16 or H % 16 or sms < 1 or directions not in (1, 2):
         raise ValueError(f"gru_fwd_plan needs B >= 1, H a positive multiple "
-                         f"of 16 and sms >= 1, got B={B}, H={H}, sms={sms}")
+                         f"of 16, sms >= 1 and 1 or 2 directions, got B={B}, "
+                         f"H={H}, sms={sms}, directions={directions}")
     jt = H // GRU_FWD_UNITS
-    resident = {r: per_sm.get(r, 0) * sms // jt for r in GRU_FWD_ROWS}
-    fits = [r for r in GRU_FWD_ROWS if resident[r] >= 1]
-    if not fits:
+    for z in range(directions, 0, -1):
+        resident = {r: per_sm.get(r, 0) * sms // (z * jt)
+                    for r in GRU_FWD_ROWS}
+        fits = [r for r in GRU_FWD_ROWS if resident[r] >= 1]
+        if fits:
+            break
+    else:
         raise ValueError(f"gru_fwd_plan: no tiling has a row of {jt} "
                          f"j-tiles resident at once at H={H} on {sms} SMs "
                          f"(blocks per SM by rows: {dict(per_sm)})")
@@ -296,7 +307,8 @@ def gru_fwd_plan(B: int, H: int, sms: int, per_sm: Mapping[int, int]
     rows = small if resident[small] >= -(-B // small) else fits[-1]
     tiles = -(-B // rows)
     return {"rows": rows, "b_tiles": tiles,
-            "grid": [jt, min(tiles, resident[rows])]}
+            "grid": [jt, min(tiles, resident[rows]), z],
+            "launches": directions // z}
 
 
 GRU_BWD_UNITS = 16  # hidden units a block of K3/K7's step kernel owns
