@@ -135,7 +135,27 @@ Run from the repository root. Phases (any failure exits non-zero):
    gathered op's whole backward with K8 and with the explicit math; K6
    against two K1 calls and K7 against two K3 calls on phase 6's inputs,
    each in turns in one call (each pair runs one persistent body, K6 and
-   K7 both chains in one launch).
+   K7 both chains in one launch);
+20. the real-data path at full width through the port's entry points:
+   official-schema VQA v2 JSON (4096 train and 1024 val questions over
+   512 COCO-like image ids, more than 2000 distinct answers, 10% of the
+   answer table held out of training), Visual Genome region descriptions
+   (4096 regions over the same images), a 300-d GloVe text file for every
+   other word, and two raw feature stores (512 images of 14x14x2048 f16
+   grids; 4096 regions, pool5 with a 1x1 grid), all written from a seed;
+   the three ``cli.preprocess`` subcommands (timed); ``cli.train`` stage 1
+   (``vlmap_description``, bidirectional, streamed with resampled
+   negatives: K6/K7) and stage 2 transfer-initialized from it (gather-free
+   resident with its lagged in-loop evaluation: K1/K3/K4/K5), each with
+   its first step against the plain path, launch counts and median step;
+   ``cli.eval`` on host batches (K1/K2: ``results_val.json`` answers every
+   val question, the per-type and OOV accuracies, the types' weighted mix
+   equal to the overall accuracy) and ``cli.predict`` on three val
+   questions by image id (K1/K2) against ``Predictor``;
+21. the paper's OOV-answer claim (the CPU test's protocol) at the
+   smallest widths every kernel takes in bf16: stage 1 ``vlmap``, the
+   transfer, stage 2 from the transferred and from a fresh answer table
+   (frozen; K1/K3/K2/K8), launch counts, JAX's thresholds.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -271,6 +291,29 @@ INT8_VATT_REL = 1e-2
 SCORE_KERNEL = "score_tile::kernel"
 # K2's whole call is also timed at the Predictor's default batch.
 B_PREDICT = 8
+# The real-data phase: VQA v2 questions (train, val) over COCO-like image
+# ids, Visual Genome regions over the same images, the words the fixtures
+# draw from and the distinct "other" answers of the train split (with
+# yes/no and 0-10, more than REAL_TOP_K, so the answer table fills), the
+# answers held out of training, each stage's steps, the in-loop cadence of
+# stage 2 and the questions cli.predict answers.
+REAL_TRAIN_QUESTIONS, REAL_VAL_QUESTIONS = 4096, 1024
+REAL_IMAGES, REAL_REGIONS = 512, 4096
+REAL_WORDS, REAL_OTHER_ANSWERS = 2400, 2300
+REAL_TOP_K, REAL_HOLDOUT = 2000, 0.1
+REAL_STAGE1_STEPS, REAL_STAGE2_STEPS, REAL_EVAL_EVERY = 10, 20, 10
+REAL_PREDICT = 3
+# The OOV phase: tools/oov_claim.py's protocol (the JAX tests' tiny config,
+# 200 steps at batch 64 a stage) at the smallest widths every kernel
+# wrapper takes in bf16: GRU 64 (K3: H % 64), attention hidden 128 and
+# channels 128 (K2: H % 128, C % 32; K8: both % 128). The corpus is drawn
+# at the tiny config's 32 channels and zero-padded: drawn at 128, its 21
+# in-vocabulary concepts span a sixth of the space, and no map learned
+# from them reaches the held-out answers (PERF.md §6).
+OOV_WIDTHS = {"data.feature_dim": 128, "data.pool5_dim": 128,
+              "model.rnn_dim": 64, "model.att_hidden": 128,
+              "model.dtype": "bfloat16"}
+OOV_CONCEPT_DIM = 32
 
 
 class PhaseError(Exception):
@@ -1619,10 +1662,7 @@ def phase_streamed(report: dict, dev) -> dict:
              "train.max_steps": steps, "train.log_every": 1,
              **MODEL_OVERRIDES}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_streamed_") as tmp:
-        argv = ["--train.train_dir", tmp]
-        for k, v in flags.items():
-            argv += [f"--{k}", str(v).lower() if isinstance(v, bool)
-                     else str(v)]
+        argv = ["--train.train_dir", tmp] + cli_argv(flags)
         # --- this run's path: counts from 0 ------------------------------
         reset_counts()
         t0 = time.perf_counter()
@@ -1770,10 +1810,7 @@ def phase_transfer(report: dict, dev, stage1_params: str) -> dict:
              "train.freeze_params": "word_emb,answer_embedding",
              "train.pretrained_param_path": stage1_params, **MODEL_OVERRIDES}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_transfer_") as tmp:
-        argv = ["--train.train_dir", tmp]
-        for k, v in flags.items():
-            argv += [f"--{k}", str(v).lower() if isinstance(v, bool)
-                     else str(v)]
+        argv = ["--train.train_dir", tmp] + cli_argv(flags)
         # --- this run's path: counts from 0 ------------------------------
         reset_counts()
         t0 = time.perf_counter()
@@ -2008,6 +2045,448 @@ def phase_training_int8(report: dict, dev) -> dict:
     return out
 
 
+def cli_argv(flags: dict) -> list:
+    """``--section.field value`` for each of ``flags``."""
+    argv = []
+    for k, v in flags.items():
+        argv += [f"--{k}", str(v).lower() if isinstance(v, bool) else str(v)]
+    return argv
+
+
+def real_data_words(n: int) -> list:
+    """``n`` distinct two-syllable words (a seeded permutation of the 4900
+    pairs of 70 syllables), each its own normalized answer."""
+    import numpy as np
+    from vqa_transfer_externaldata_torch.utils.metrics import normalize_answer
+
+    syllables = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    pairs = [a + b for a in syllables for b in syllables]
+    order = np.random.default_rng(17).permutation(len(pairs))
+    words = [pairs[i] for i in order if normalize_answer(pairs[i])
+             == pairs[i]]
+    check(len(words) >= n, f"only {len(words)} words for {n}")
+    return words[:n]
+
+
+def write_real_data(root: str, word_dim: int) -> dict:
+    """The real-data fixtures, written from a seed in the official schemas:
+    VQA v2 questions and annotations (train and val) over REAL_IMAGES
+    COCO-like image ids, with yes/no, number and other answers, the train
+    split cycling through REAL_OTHER_ANSWERS other answers; Visual Genome
+    region descriptions over the same images, whose words are the
+    questions' and the answers'; a GloVe text file of ``word_dim``
+    vectors for every other word. Returns their paths and the image ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    words = real_data_words(REAL_WORDS)
+    answers = words[:REAL_OTHER_ANSWERS]
+    image_ids = 100000 + 37 * np.arange(REAL_IMAGES, dtype=np.int64)
+
+    def word() -> str:
+        return words[int(rng.integers(len(words)))]
+
+    def split(n: int, qid0: int, cycle: bool) -> tuple:
+        questions, annotations, other = [], [], 0
+        for i in range(n):
+            a, b = word(), word()
+            kind = i % 8
+            if kind == 0:
+                q, qt, at = f"is the {a} {b}?", "is the", "yes/no"
+                ans, alt = ("yes", "no")[::1 if rng.integers(2) else -1]
+            elif kind == 1:
+                q, qt, at = (f"how many {a} are there near the {b}?",
+                             "how many", "number")
+                ans, alt = (str(k) for k in rng.integers(0, 11, 2))
+            else:
+                q, qt = ((f"what color is the {a}?", "what color is the")
+                         if kind == 2 else
+                         (f"what is the {a} near the {b}?", "what is the"))
+                at = "other"
+                ans = answers[other % len(answers) if cycle
+                              else int(rng.integers(len(answers)))]
+                alt = answers[int(rng.integers(len(answers)))]
+                other += 1
+            qid = qid0 + i
+            image = int(image_ids[rng.integers(REAL_IMAGES)])
+            questions.append({"question_id": qid, "image_id": image,
+                              "question": q})
+            annotations.append({
+                "question_id": qid, "image_id": image,
+                "multiple_choice_answer": ans, "question_type": qt,
+                "answer_type": at,
+                "answers": [{"answer": ans}] * 7 + [{"answer": alt}] * 3})
+        return {"questions": questions}, {"annotations": annotations}
+
+    paths = {}
+    for name, n, qid0, cycle in (("train", REAL_TRAIN_QUESTIONS, 1, True),
+                                 ("val", REAL_VAL_QUESTIONS, 10 ** 7, False)):
+        qs, anns = split(n, qid0, cycle)
+        for kind, obj in (("questions", qs), ("annotations", anns)):
+            paths[f"{name}_{kind}"] = os.path.join(root, f"{name}_{kind}.json")
+            with open(paths[f"{name}_{kind}"], "w") as fh:
+                json.dump(obj, fh)
+    by_image: dict = {}
+    for r in range(REAL_REGIONS):
+        a, b, c = word(), word(), word()
+        phrase = (f"a {a} {b}", f"{a} {b} on the {c}",
+                  f"the {a} near a {b}")[r % 3]
+        x, y, w, h = (int(v) for v in rng.integers(1, 300, 4))
+        by_image.setdefault(int(image_ids[r % REAL_IMAGES]), []).append(
+            {"region_id": r, "phrase": phrase, "x": x, "y": y, "width": w,
+             "height": h})
+    paths["regions"] = os.path.join(root, "region_descriptions.json")
+    with open(paths["regions"], "w") as fh:
+        json.dump([{"id": i, "regions": regs}
+                   for i, regs in by_image.items()], fh)
+    paths["glove"] = os.path.join(root, "glove.txt")
+    glove_words = words[::2] + ["what", "is", "the", "color", "how", "many"]
+    vectors = rng.normal(0.0, 0.4, (len(glove_words), word_dim))
+    with open(paths["glove"], "w") as fh:
+        for w, vec in zip(glove_words, vectors):
+            fh.write(w + " " + " ".join(f"{x:.5f}" for x in vec) + "\n")
+    paths["image_ids"] = image_ids
+    return paths
+
+
+def write_raw_store(path: str, ids, grid_hw: int, channels: int,
+                    seed: int) -> None:
+    """A feature store as the extractor's raw directory (``meta.json``,
+    f16 [M, g, g, C] ``grid.f16.bin``, f32 [M, C] ``pool5.f32.bin``,
+    ``image_ids.npy``), filled from a seed in chunks of 64 rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m = len(ids)
+    os.makedirs(path)
+    grid = np.memmap(os.path.join(path, "grid.f16.bin"), dtype=np.float16,
+                     mode="w+", shape=(m, grid_hw, grid_hw, channels))
+    pool5 = np.memmap(os.path.join(path, "pool5.f32.bin"), dtype=np.float32,
+                      mode="w+", shape=(m, channels))
+    for lo in range(0, m, 64):
+        hi = min(m, lo + 64)
+        grid[lo:hi] = np.maximum(rng.standard_normal(
+            (hi - lo, grid_hw, grid_hw, channels), np.float32), 0)
+        pool5[lo:hi] = rng.standard_normal((hi - lo, channels), np.float32)
+    grid.flush()
+    pool5.flush()
+    del grid, pool5
+    np.save(os.path.join(path, "image_ids.npy"), np.asarray(ids, np.int64))
+    with open(os.path.join(path, "meta.json"), "w") as fh:
+        json.dump({"grid_shape": [m, grid_hw, grid_hw, channels],
+                   "pool5_dim": channels}, fh)
+
+
+def phase_real_data(report: dict, dev) -> dict:
+    """The real-data path at the full width of config.py, through the
+    port's entry points: fixtures in the official schemas and two raw
+    feature stores written from a seed, the three ``cli.preprocess``
+    subcommands, ``cli.train`` stage 1 (``vlmap_description``,
+    bidirectional, on the region store with resampled negatives: streamed,
+    K6/K7), ``cli.train`` stage 2 transfer-initialized from it (gather-free
+    resident, K1/K3/K4/K5, with the lagged in-loop evaluation), ``cli.eval``
+    on host batches (the lazy join, K1/K2) and ``cli.predict`` by image id
+    (K1/K2). Each stage's first step is held against the plain path."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.cli import predict as predict_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.cli.common import build_spec
+    from vqa_transfer_externaldata_torch.cli.preprocess import (
+        main as preprocess)
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.data.features import (
+        FeatureStore, JoinedDataset)
+    from vqa_transfer_externaldata_torch.data.visualgenome import (
+        CandidateResampler)
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
+    from vqa_transfer_externaldata_torch.utils.vocab import Vocab
+
+    widths = Config().replace_flat(MODEL_OVERRIDES)
+    d, m = widths.data, widths.model
+    device = ["--device", str(dev)]
+    out: dict = {"sizes": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as root:
+        t0 = time.perf_counter()
+        fx = write_real_data(root, m.word_dim)
+        out["fixtures_s"] = time.perf_counter() - t0
+        images = os.path.join(root, "image_store")
+        regions = os.path.join(root, "region_store")
+        rng = np.random.default_rng(29)
+        t0 = time.perf_counter()
+        write_raw_store(images, rng.permutation(fx["image_ids"]), d.grid_h,
+                        d.feature_dim, seed=31)
+        write_raw_store(regions, np.arange(REAL_REGIONS), 1, d.pool5_dim,
+                        seed=37)
+        out["store_write_s"] = time.perf_counter() - t0
+        out["sizes"]["store_bytes"] = {
+            name: sum(os.path.getsize(os.path.join(p, f))
+                      for f in os.listdir(p))
+            for name, p in (("images", images), ("regions", regions))}
+
+        # --- the three preprocessing subcommands -------------------------
+        pre, vg = os.path.join(root, "vqa_v2"), os.path.join(root, "vg")
+        glove = os.path.join(root, "glove_vocab.npz")
+        vocab_json = os.path.join(pre, "vocab.json")
+        secs = {}
+        for tool, argv in (
+                ("vqa_v2", ["--out_dir", pre,
+                            "--train_questions", fx["train_questions"],
+                            "--train_annotations", fx["train_annotations"],
+                            "--val_questions", fx["val_questions"],
+                            "--val_annotations", fx["val_annotations"],
+                            "--top_k", str(REAL_TOP_K),
+                            "--vocab_pad_to", str(d.vocab_size),
+                            "--max_question_len", str(d.max_question_len),
+                            "--answer_holdout_fraction", str(REAL_HOLDOUT),
+                            "--feature_path", images]),
+                ("visualgenome", ["--out_dir", vg, "--region_descriptions",
+                                  fx["regions"], "--vocab", vocab_json,
+                                  "--num_tasks", str(m.num_tasks),
+                                  "--num_candidates", str(m.num_candidates),
+                                  "--min_word_count", "2",
+                                  "--max_desc_len", str(d.max_question_len)]),
+                ("glove", ["--out", glove, "--glove_txt", fx["glove"],
+                           "--vocab", vocab_json, "--dim", str(m.word_dim),
+                           "--pad_to", str(d.vocab_size)])):
+            t0 = time.perf_counter()
+            preprocess([tool] + argv)
+            secs[tool] = time.perf_counter() - t0
+        out["preprocess_s"] = secs
+        print("real data: preprocessing " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in secs.items())
+            + f"; fixtures {out['fixtures_s']:.2f} s, feature stores "
+            f"{out['store_write_s']:.2f} s ({out['sizes']['store_bytes']} "
+            "bytes)")
+        answer_vocab = Vocab.load(os.path.join(pre, "answer_vocab.json"))
+        word_vocab = Vocab.load(vocab_json)
+        num_answers = len(answer_vocab)
+        with open(os.path.join(pre, "oov_split.json")) as fh:
+            oov_ids = json.load(fh)["oov_ids"]
+        with open(os.path.join(vg, "vlmap_desc_meta.json")) as fh:
+            vg_meta = json.load(fh)
+        with open(fx["val_questions"]) as fh:
+            val_questions = json.load(fh)["questions"]
+        store = FeatureStore(images)
+        val_arrays = np.load(os.path.join(pre, "vqa_val.npz"))
+        check(num_answers == REAL_TOP_K + 4
+              and len(word_vocab) <= d.vocab_size and len(oov_ids) ==
+              round(REAL_HOLDOUT * REAL_TOP_K) and np.array_equal(
+                  val_arrays["image_index"],
+                  [store.index_of[q["image_id"]] for q in val_questions]),
+              f"artifacts: {num_answers} answers, {len(word_vocab)} words, "
+              f"{len(oov_ids)} held out")
+        held = np.isin(val_arrays["answer_id"], oov_ids)
+        out["sizes"].update(
+            train_questions=REAL_TRAIN_QUESTIONS,
+            val_questions=REAL_VAL_QUESTIONS, images=REAL_IMAGES,
+            regions=REAL_REGIONS, words=len(word_vocab),
+            answers=num_answers, held_out_answers=len(oov_ids),
+            val_questions_held_out=int(held.sum()),
+            blanks=vg_meta["num_examples"],
+            visual_words=vg_meta["num_words"],
+            tasks=vg_meta["task_names"][:2] + ["..."])
+        print(f"real data: {out['sizes']}")
+
+        # --- stage 1: vlmap_description on the region store --------------
+        steps1 = REAL_STAGE1_STEPS
+        s1 = {**MODEL_OVERRIDES, **STAGE1_MODEL,
+              "data.dataset_dir": vg, "data.feature_path": regions,
+              "data.vocab_path": vocab_json, "data.glove_path": glove,
+              "train.batch_size": B_TRAIN, "train.max_steps": steps1,
+              "train.log_every": 1, "train.eval_every": steps1,
+              "train.checkpoint_every": steps1}
+        cfg1 = Config().replace_flat(s1)
+        ds1 = load_dataset(cfg1, "train", stage="vlmap_desc")
+        val1 = load_dataset(cfg1, "val", stage="vlmap_desc")
+        check(isinstance(ds1, CandidateResampler)
+              and isinstance(ds1.base, JoinedDataset),
+              f"stage-1 split {type(ds1).__name__}")
+        spec, _, _ = build_spec(cfg1, generator=torch.Generator().manual_seed(
+            cfg1.train.seed))
+        trainer = Trainer(cfg1, spec, train_dir=os.path.join(root, "chk1"),
+                          device=str(dev))
+        state = trainer.init_state()
+        batch = trainer._uploader()(next(ds1.batches(
+            B_TRAIN, seed=cfg1.train.seed)))
+        check(tuple(batch["feature"].shape) == (B_TRAIN, d.pool5_dim),
+              f"stage-1 feature {tuple(batch['feature'].shape)}")
+        out["stage1_first_step"] = check_first_step(
+            spec, state, batch, dev, "real-data stage 1")
+        trainer.close()
+        del trainer, state, batch, spec
+
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        s1_dir = train_cli.main(device + cli_argv(s1) + [
+            "--train.train_dir", os.path.join(root, "stage1")])
+        torch.cuda.synchronize()
+        out["stage1_cli_s"] = time.perf_counter() - t0
+        eval1 = -(-len(val1) // B_TRAIN)
+        out["stage1_launches"] = launches = read_counts()
+        # K6 one launch a step and one an evaluation batch; K7 three a step.
+        check_launches(launches, {"bigru_fwd": steps1 + eval1,
+                                  "bigru_bwd": 3 * steps1},
+                       f"real-data stage 1 over {steps1} steps and "
+                       f"{eval1} evaluation batches")
+        out["stage1"] = read_steps(s1_dir, steps1, "real-data stage 1 "
+                                   "(streamed, resampled)", "regions",
+                                   warmup=2)
+
+        # --- stage 2: vqa_attention, transferred, gather-free ------------
+        steps2, every = REAL_STAGE2_STEPS, REAL_EVAL_EVERY
+        s2 = {**MODEL_OVERRIDES, "data.dataset_dir": pre,
+              "data.feature_path": images, "data.vocab_path": vocab_json,
+              "data.answer_vocab_path": os.path.join(pre, "answer_vocab.json"),
+              "data.num_answers": num_answers,
+              "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+              "train.max_steps": steps2, "train.log_every": 1,
+              "train.eval_every": every, "train.checkpoint_every": steps2}
+        cfg2 = Config().replace_flat(s2)
+        ds2 = load_dataset(cfg2, "train")
+        check(isinstance(ds2, JoinedDataset) and ds2.size ==
+              REAL_TRAIN_QUESTIONS and ds2.store.grid.shape[0] ==
+              REAL_IMAGES, f"stage-2 split {type(ds2).__name__}")
+        spec, _, _ = build_spec(cfg2, generator=torch.Generator().manual_seed(
+            cfg2.train.seed))
+        trainer = Trainer(cfg2, spec, train_dir=os.path.join(root, "chk2"),
+                          device=str(dev))
+        state = trainer.init_state()
+        _, make_batch, nbytes = trainer._prepare_resident(ds2)
+        out["stage2_uploaded_gb"] = nbytes / 1e9
+        idx0 = next(ds2.index_batches(B_TRAIN, seed=cfg2.train.seed))
+        out["stage2_first_step"] = check_first_step(
+            spec, state, make_batch(torch.from_numpy(idx0).to(dev)), dev,
+            "real-data stage 2")
+        trainer.close()
+        del trainer, state, make_batch, spec
+
+        reset_counts()
+        t0 = time.perf_counter()
+        s2_dir = train_cli.main(device + cli_argv(s2) + [
+            "--train.pretrained_param_path",
+            os.path.join(s1_dir, PARAMS_FILE),
+            "--train.train_dir", os.path.join(root, "stage2")])
+        torch.cuda.synchronize()
+        out["stage2_cli_s"] = time.perf_counter() - t0
+        eval2 = (steps2 // every) * -(-REAL_VAL_QUESTIONS // B_TRAIN)
+        out["stage2_launches"] = launches = read_counts()
+        check_launches(launches, {
+            "gru_fwd": steps2 + eval2, "gru_bwd": 3 * steps2,
+            "attention_resident_fwd": 2 * (steps2 + eval2),
+            "attention_resident_bwd": 3 * steps2},
+            f"real-data stage 2 over {steps2} steps and {eval2} evaluation "
+            "batches")
+        out["stage2"] = read_steps(s2_dir, steps2, "real-data stage 2 "
+                                   "(gather-free, transferred)", "questions")
+        with open(os.path.join(s2_dir, "metrics.jsonl")) as fh:
+            recs = [r for r in map(json.loads, fh) if "val/loss" in r]
+        check([r["step"] for r in recs] == list(range(every, steps2 + 1,
+                                                      every))
+              and all(np.isfinite(r["val/vqa_accuracy"]) for r in recs),
+              f"in-loop evaluations: {recs}")
+
+        # --- cli.eval on host batches: the lazy join, K1/K2 ---------------
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = eval_cli.main(device + ["--train.train_dir", s2_dir,
+                                          "--train.device_data_cache",
+                                          "false"])
+        out["eval_cli_s"] = time.perf_counter() - t0
+        batches = -(-REAL_VAL_QUESTIONS // B_TRAIN)
+        out["eval_launches"] = launches = read_counts()
+        check_launches(launches, {"gru_fwd": batches,
+                                  "attention_fwd": 2 * batches},
+                       f"real-data cli.eval over {batches} batches")
+        with open(os.path.join(s2_dir, "results_val.json")) as fh:
+            results = json.load(fh)
+        check(sorted(r["question_id"] for r in results) == sorted(
+            q["question_id"] for q in val_questions)
+              and all(r["answer"] in answer_vocab.token_to_id
+                      for r in results),
+              f"results_val.json: {len(results)} rows")
+        types = json.load(open(os.path.join(pre, "types.json")))
+        counts = np.bincount(val_arrays["answer_type_id"],
+                             minlength=len(types["answer_types"]))
+        mix = sum(int(counts[t]) * metrics[
+            "vqa_accuracy_answer_type/" + name.replace("/", "_")]
+            for t, name in enumerate(types["answer_types"]) if counts[t])
+        check({"vqa_accuracy_answer_type/yes_no",
+               "vqa_accuracy_answer_type/number",
+               "vqa_accuracy_answer_type/other",
+               "vqa_accuracy_oov_answers",
+               "vqa_accuracy_in_vocab_answers"} <= set(metrics)
+              and abs(mix / counts.sum() - metrics["vqa_accuracy"]) < 1e-6
+              and all(np.isfinite(v) for v in metrics.values()),
+              f"cli.eval metrics: {metrics}")
+        out["eval_metrics"] = metrics
+        print(f"real-data cli.eval: {len(results)} results; {metrics}")
+
+        # --- cli.predict by image id --------------------------------------
+        picked = val_questions[:REAL_PREDICT]
+        argv = device + ["--train_dir", s2_dir, "--feature_path", images]
+        for q in picked:
+            argv += ["--image_id", str(q["image_id"]), "--question",
+                     q["question"]]
+        reset_counts()
+        answers = predict_cli.main(argv)
+        out["predict_launches"] = launches = read_counts()
+        check_launches(launches, {"gru_fwd": 1, "attention_fwd": 2},
+                       "real-data cli.predict")
+        pred = Predictor(s2_dir, device=str(dev))
+        rows = np.asarray([store.index_of[q["image_id"]] for q in picked])
+        direct = pred.answer(store.gather(rows)["features"],
+                             [q["question"] for q in picked])
+        check(answers == direct and len(answers) == REAL_PREDICT,
+              f"cli.predict answers {answers} vs Predictor {direct}")
+        print(f"real-data cli.predict: {answers}")
+        out["predict_answers"] = answers
+        store.close()
+    return out
+
+
+def phase_oov(report: dict, dev) -> dict:
+    """The paper's claim on the card: ``tools/oov_claim.py``'s protocol
+    (the CPU test's, the JAX package's ``test_transfer_beats_scratch_on_
+    oov_answers``) at OOV_WIDTHS, the smallest widths every kernel wrapper
+    takes in bf16, the corpus drawn at OOV_CONCEPT_DIM channels and
+    zero-padded: stage 1 ``vlmap`` (no kernel), the transfer, stage 2 from
+    the transferred and from a fresh answer table (frozen; K1/K3, K2/K8 on
+    streamed batches, K1/K2 in the evaluations); JAX's thresholds."""
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.tools import oov_claim
+
+    cfg = Config().replace_flat({**oov_claim.TINY, **OOV_WIDTHS})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oov_") as tmp:
+        # --- this run's path: counts from 0 ------------------------------
+        reset_counts()
+        out = oov_claim.run(cfg, device=dev, train_dir=tmp,
+                            concept_dim=OOV_CONCEPT_DIM)
+        out["launches"] = launches = read_counts()
+    steps, B = cfg.train.max_steps, cfg.train.batch_size
+    evals = 2 * -(-oov_claim.CORPUS["n_val"] // B)
+    check_launches(launches, {
+        "gru_fwd": 2 * steps + evals, "gru_bwd": 6 * steps,
+        "attention_fwd": 2 * (2 * steps + evals),
+        "attention_bwd": 8 * steps},
+        f"the OOV claim: stage 1, then two stage-2 runs of {steps} steps "
+        "and their evaluations")
+    out["widths"] = OOV_WIDTHS
+    print(f"OOV claim on the card: OOV answers transfer "
+          f"{out['oov_transfer']:.4f}, scratch {out['oov_scratch']:.4f}; "
+          f"in-vocabulary transfer {out['in_vocab_transfer']:.4f}, scratch "
+          f"{out['in_vocab_scratch']:.4f} (thresholds: in-vocab > 0.5, OOV "
+          f"transfer > 0.3 and > 3 x max(scratch, "
+          f"1/{cfg.data.num_answers})); seconds {out['seconds']}")
+    check(out["meets_thresholds"],
+          f"the OOV claim misses JAX's thresholds: {out}")
+    return out
+
+
 @contextlib.contextmanager
 def port_log_records():
     """(level name, message) of everything the port's logger says inside
@@ -2068,10 +2547,8 @@ def phase_baseline(report: dict, dev, stage1_params: str) -> dict:
                                         PROFILE_STEPS)
         trainer.close()
 
-        argv = ["--train.train_dir", os.path.join(tmp, "run")]
-        for k, v in flags.items():
-            argv += [f"--{k}", str(v).lower() if isinstance(v, bool)
-                     else str(v)]
+        argv = ["--train.train_dir", os.path.join(tmp, "run")] + \
+            cli_argv(flags)
         # --- this run's path: counts from 0 ------------------------------
         reset_counts()
         with port_log_records() as seen:
@@ -2908,6 +3385,8 @@ def main(argv=None) -> int:
         report["probes"] = probes = phase_probes(report, dev)
         times = phase_times(report, k1, k2, k3, k45, k45g, k45q, k67, k8,
                             dev)
+        report["real_data"] = real_data = phase_real_data(report, dev)
+        report["oov"] = oov = phase_oov(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -3051,7 +3530,12 @@ def main(argv=None) -> int:
              "transfer": transfer["launches"],
              "glimpses2": glimpses2["launches"],
              "training_int8": training_int8["launches"],
-             "probes": probes["launches"]}
+             "probes": probes["launches"],
+             "real_data_stage1": real_data["stage1_launches"],
+             "real_data_stage2": real_data["stage2_launches"],
+             "real_data_eval": real_data["eval_launches"],
+             "real_data_predict": real_data["predict_launches"],
+             "oov": oov["launches"]}
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",

@@ -50,6 +50,29 @@ def _fresh(script: str) -> str:
     return out.stdout
 
 
+NEW_MODULE = """
+import importlib, sys
+importlib.import_module("vqa_transfer_externaldata_torch.{name}")
+banned = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "nltk",
+          "vqa_transfer_externaldata_tpu") + {extra}
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("name,extra", [
+    ("data.vqa_v2", ("torch",)), ("data.visualgenome", ("torch",)),
+    ("cli.preprocess", ("torch",)), ("utils.vocab", ("torch",)),
+    ("data.datasets", ("torch",)), ("data.features", ("torch",)),
+    ("cli.train", ()), ("cli.eval", ())])
+def test_real_data_modules_import_no_jax_h5py_or_nltk(name, extra):
+    """The real-data modules import neither JAX nor the optional h5py and
+    nltk (imported only where an hdf5 file or WordNet is used); the
+    preprocessing modules need no torch either."""
+    assert "ok" in _fresh(NEW_MODULE.format(name=name, extra=repr(extra)))
+
+
 def test_port_imports_no_jax():
     assert "modules" in _fresh(SCRIPT)
 

@@ -167,7 +167,8 @@ def test_unported_trainer_options_name_their_roadmap_item(over, item,
 
 @pytest.mark.parametrize("over,item", [
     ({"data.input_pipeline": "grain"}, "item 14"),
-    ({"data.synthetic": False}, "item 14"),
+    ({"data.synthetic": False, "model.model": "vqa_end2end",
+      "data.image_dir": "images"}, "item 13"),
 ])
 def test_unported_cli_paths_name_their_roadmap_item(over, item, tmp_path):
     argv = ["--device", "cpu", "--train.train_dir", str(tmp_path)]

@@ -7,8 +7,10 @@ reference becomes a hand-written CUDA kernel for Hopper (``csrc/``) with a
 plain PyTorch version of the same math beside it. Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 
-Ported so far: the serving path of ``vqa_attention`` (eval forward with the
-fused GRU recurrence and the streaming attention forward kernels).
+Ported: serving, both training stages and the transfer, evaluation,
+checkpoints, every stage-2 family but the raw-image one, the int8 store,
+the H100 probes, and the real-data preprocessing (``cli.preprocess``);
+``ROADMAP.md`` lists what is left.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,9 @@
 """Training CLI of the port, for both stages (dispatched by
-``--model.model``), on the synthetic corpora:
+``--model.model``), on the synthetic corpora or on the preprocessed
+artifacts of ``cli.preprocess`` (``--data.dataset_dir``, joined with a
+feature store by ``--data.feature_path``; the vocabs from
+``--data.vocab_path`` and ``--data.answer_vocab_path``, GloVe rows from
+``--data.glove_path``):
 
     # stage 1 (visual-word pretraining), device-resident
     python -m vqa_transfer_externaldata_torch.cli.train \
@@ -16,8 +20,10 @@
         --data.synthetic true --train.train_dir runs/vqa_streamed
 
 ``--train.device_data_cache true`` trains with ``Trainer.fit_resident``
-(the split uploaded once), otherwise ``Trainer.fit`` streams host batches.
-The val split is evaluated every ``train.eval_every`` steps. Writes
+(the split uploaded once), otherwise ``Trainer.fit`` streams host batches,
+as it does for a stage-1 split with resampled negatives (with a warning
+when the cache was asked for). The val split, where there is one, is
+evaluated every ``train.eval_every`` steps. Writes
 ``config.json``, ``metrics.jsonl``, checkpoints under ``ckpt/`` and
 ``params_final.pt`` (served by ``serving.Predictor`` for a stage-2 run)
 into the run directory and returns its path; a run directory that holds a
@@ -40,7 +46,9 @@ import torch
 from vqa_transfer_externaldata_torch.cli.common import (
     build_spec, resolve_train_dir)
 from vqa_transfer_externaldata_torch.config import Config
-from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+from vqa_transfer_externaldata_torch.data.datasets import (
+    ArrayDataset, load_dataset)
+from vqa_transfer_externaldata_torch.data.features import JoinedDataset
 from vqa_transfer_externaldata_torch.parallel.evaler import padded_batches
 from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
@@ -71,7 +79,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     with open(os.path.join(train_dir, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
     train_ds = load_dataset(cfg, "train", stage=spec.stage)
-    val_ds = load_dataset(cfg, "val", stage=spec.stage)
+    try:
+        val_ds = load_dataset(cfg, "val", stage=spec.stage)
+    except FileNotFoundError:  # artifacts without a val split
+        val_ds = None
     params = None
     if t.pretrained_param_path:
         # Cross-stage transfer: stage 1's word table, and answer rows
@@ -88,12 +99,20 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if t.resume and trainer.ckpt.latest_step() is not None:
         state = trainer.restore(state)
         log.info("resumed from step %d", state.step)
-    if t.device_data_cache:
+    # A CandidateResampler's fresh negatives exist only as host batches.
+    resident = isinstance(train_ds, JoinedDataset) or \
+        type(train_ds) is ArrayDataset
+    if t.device_data_cache and not resident:
+        log.warning("device_data_cache requires an ArrayDataset or "
+                    "JoinedDataset (got %s); streaming batches instead",
+                    type(train_ds).__name__)
+    if t.device_data_cache and resident:
         state = trainer.fit_resident(train_ds, state, eval_ds=val_ds)
     else:
         state = trainer.fit(
             train_ds.batches(t.batch_size, seed=t.seed), state,
-            eval_batches_fn=lambda: padded_batches(val_ds, t.batch_size)[0])
+            eval_batches_fn=None if val_ds is None else
+            lambda: padded_batches(val_ds, t.batch_size)[0])
     final = os.path.join(train_dir, PARAMS_FILE)
     save_params(final, spec.module.state_dict())
     log.info("final params saved to %s", final)

@@ -1,14 +1,17 @@
 """Datasets of the port: a dict-of-arrays dataset with the JAX package's
 seeded index stream, the synthetic corpora of stage 1 (region-word and
-description blank fill) and stage 2 (flat, and the deduplicated store), the
-dense candidate counts, ``load_dataset`` for them, a prefetching batch
-iterator, and the synthetic vocabularies. Arrays are numpy, equal to the
-JAX package's for the same config and seed; the trainer moves them to the
-device.
+description blank fill) and stage 2 (flat, and the deduplicated store),
+the synthetic two-stage transfer corpus, the dense candidate counts,
+``load_dataset`` for the synthetic corpora and for the preprocessed
+artifacts (``cli/preprocess.py``), a prefetching batch iterator, and the
+synthetic vocabularies. Arrays are numpy, equal to the JAX package's for
+the same config, seed and artifacts; the trainer moves them to the device.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 from typing import Dict, Iterator, Optional, Tuple
@@ -70,6 +73,21 @@ class ArrayDataset:
             for start in range(0, limit, batch_size):
                 yield order[start:start + batch_size].astype(np.int32)
             epoch += 1
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(path, **self.arrays)
+
+    @classmethod
+    def load(cls, path: str) -> "ArrayDataset":
+        """The arrays of an ``.npz`` file, or of an ``.h5``/``.hdf5`` file's
+        top-level datasets (``h5py`` is imported only then)."""
+        if path.endswith((".h5", ".hdf5")):
+            import h5py
+
+            with h5py.File(path, "r") as f:
+                return cls({k: np.asarray(f[k]) for k in f.keys()})
+        with np.load(path) as f:
+            return cls({k: f[k] for k in f.files})
 
 
 def attach_candidate_counts(arrays: Dict[str, np.ndarray],
@@ -239,20 +257,99 @@ def synthetic_vqa_joined(cfg: Config, *, n_questions: int = 4096,
                          feature_keys=("features", "pool5"))
 
 
+def synthetic_transfer_corpus(cfg: Config, *, n_vlmap: int = 4096,
+                              n_train: int = 4096, n_val: int = 1024,
+                              oov_fraction: float = 0.25,
+                              noise: float = 0.3, seed: int = 0):
+    """The synthetic two-stage corpus of the paper's claim: answers never
+    seen as stage-2 targets are answered through the transferred word
+    space. Every answer word ``a`` owns a unit concept vector ``c_a``.
+    Stage-1 (``vlmap``) rows cover ALL answer words, pairing noisy
+    features ``c_a + eps`` with the word; stage-2 train rows use only the
+    in-vocabulary answers, the val rows all of them. Equal to the JAX
+    package's arrays for the same config and seed.
+
+    Needs ``data.feature_dim == data.pool5_dim`` (one concept space for
+    both stages). Returns ``(vlmap_ds, vqa_train_ds, vqa_val_ds,
+    oov_answer_ids)``."""
+    d, m = cfg.data, cfg.model
+    if d.feature_dim != d.pool5_dim:
+        raise ValueError(
+            "synthetic_transfer_corpus shares one concept space: set "
+            f"feature_dim == pool5_dim (got {d.feature_dim} vs "
+            f"{d.pool5_dim})")
+    A, D = d.num_answers, d.pool5_dim
+    rng = np.random.default_rng(seed)
+    answer_ids = np.arange(4, A, dtype=np.int32)  # skip specials
+    n_oov = max(1, int(round(answer_ids.size * oov_fraction)))
+    oov_ids = np.sort(rng.choice(answer_ids, size=n_oov, replace=False))
+    in_ids = np.setdiff1d(answer_ids, oov_ids)
+
+    concept = np.zeros((A, D), np.float32)
+    concept[4:] = rng.standard_normal((A - 4, D)).astype(np.float32)
+    concept /= np.maximum(
+        np.linalg.norm(concept, axis=1, keepdims=True), 1e-6)
+
+    # Stage 1: the external data covers every answer word.
+    K = m.num_candidates
+    w = rng.choice(answer_ids, size=n_vlmap).astype(np.int32)
+    feature = (concept[w] + noise * rng.standard_normal(
+        (n_vlmap, D)).astype(np.float32))
+    task = ((w - 4) % m.num_tasks).astype(np.int32)
+    candidates = rng.choice(answer_ids, size=(n_vlmap, K)).astype(np.int32)
+    label = rng.integers(0, K, size=n_vlmap).astype(np.int32)
+    candidates[np.arange(n_vlmap), label] = w
+    vlmap_ds = ArrayDataset({"feature": feature, "task": task,
+                             "candidates": candidates, "label": label})
+
+    N = d.grid_h * d.grid_w
+    T = d.max_question_len
+
+    def vqa_rows(n: int, ids: np.ndarray) -> ArrayDataset:
+        a = rng.choice(ids, size=n).astype(np.int32)
+        grid = (concept[a][:, None, :] + noise * rng.standard_normal(
+            (n, N, D)).astype(np.float32))
+        # The questions are filler: the image determines the answer.
+        q_ids = rng.integers(4, d.vocab_size, size=(n, T)).astype(np.int32)
+        scores = np.zeros((n, A), np.float32)
+        scores[np.arange(n), a] = 1.0
+        return ArrayDataset({"features": grid, "q_ids": q_ids,
+                             "answer_id": a, "answer_scores": scores})
+
+    return vlmap_ds, vqa_rows(n_train, in_ids), vqa_rows(n_val, answer_ids), \
+        oov_ids
+
+
 def load_dataset(cfg: Config, split: str, stage: str = "vqa"
                  ) -> ArrayDataset:
-    """The dataset of ``split`` for ``stage``, seeded by the split as in
-    the JAX package. Ported: the synthetic stage-1 corpora (``stage``
-    "vlmap" or "vlmap_desc", ``data.synthetic_size`` rows) and both
-    synthetic layouts of stage 2: ``flat`` (a grid per question) and
-    ``joined`` (``data.synthetic_size`` questions over a store of 1/8 as
-    many images). Every other source raises ``NotImplementedError`` naming
-    its ROADMAP item."""
+    """The dataset of ``split`` for ``stage`` ("vqa", "vlmap" or
+    "vlmap_desc").
+
+    With ``data.synthetic``: the synthetic stage-1 corpora
+    (``data.synthetic_size`` rows) or either stage-2 layout, ``flat`` (a
+    grid per question) or ``joined`` (``data.synthetic_size`` questions
+    over a store of 1/8 as many images), seeded by the split as in the
+    JAX package.
+
+    Otherwise the artifact ``<stage>_<split>.npz`` (or ``.hdf5``) of
+    ``data.dataset_dir``, as the JAX package loads it:
+
+    - a stage-1 train split with ``data.resample_negatives`` and a
+      ``<stage>_meta.json`` is wrapped in a
+      :class:`~.visualgenome.CandidateResampler` over its task pools;
+    - with ``model.dense_candidate_loss`` a stage-1 train split gets its
+      stored candidate counts where the stored candidate sets are what
+      trains (device-resident, or no resampler), refused past 16 GB;
+    - with ``data.feature_path`` the table is joined lazily against that
+      feature store: stage 1 by ``region_index`` into ``feature`` (the
+      region's pool5), stage 2 by ``image_index`` into ``features`` and
+      ``pool5``.
+
+    The raw-image inputs of ``vqa_end2end`` (``data.image_dir``) raise
+    ``NotImplementedError`` naming their ROADMAP item."""
     d = cfg.data
     if not d.synthetic:
-        raise NotImplementedError(
-            "preprocessed dataset artifacts are not ported yet (ROADMAP.md, "
-            "section 1, item 14); use --data.synthetic true")
+        return _load_artifacts(cfg, split, stage)
     if d.synthetic_layout not in ("flat", "joined"):
         raise ValueError(f"data.synthetic_layout={d.synthetic_layout!r}: "
                          "expected 'flat' or 'joined'")
@@ -270,6 +367,71 @@ def load_dataset(cfg: Config, split: str, stage: str = "vqa"
     return synthetic_vqa_joined(cfg, n_questions=n_q,
                                 n_images=max(1, n_q // 8), seed=seed,
                                 with_scores=(split != "train"))
+
+
+def _load_artifacts(cfg: Config, split: str, stage: str):
+    """The artifact branch of :func:`load_dataset`."""
+    d, m = cfg.data, cfg.model
+    path = os.path.join(d.dataset_dir, f"{stage}_{split}.npz")
+    if not os.path.exists(path):
+        path_h5 = os.path.join(d.dataset_dir, f"{stage}_{split}.hdf5")
+        if not os.path.exists(path_h5):
+            raise FileNotFoundError(
+                f"no preprocessed {stage}/{split} artifact under "
+                f"{d.dataset_dir}; run cli.preprocess or set "
+                "--data.synthetic true")
+        path = path_h5
+    if stage == "vqa" and m.model == "vqa_end2end" and d.image_dir:
+        raise NotImplementedError(
+            "raw-image inputs (vqa_end2end with data.image_dir) are not "
+            "ported yet (ROADMAP.md, section 1, item 13)")
+    ds = ArrayDataset.load(path)
+    stage1_train = stage.startswith("vlmap") and split == "train"
+    # Whether a CandidateResampler wraps this split is decided first: it
+    # decides whether the stored candidate counts are needed.
+    task_words = None
+    if stage1_train and d.resample_negatives:
+        meta_path = os.path.join(d.dataset_dir, f"{stage}_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as fh:
+                task_words = json.load(fh).get("task_words")
+    if (stage1_train and m.dense_candidate_loss
+            and "candidates" in ds.arrays
+            and (cfg.train.device_data_cache or task_words is None)):
+        # The stored candidate sets train here (resident, or streamed with
+        # no resampler); a streamed resampler counts each fresh draw.
+        itemsize = 1 if m.num_candidates < 256 else 2
+        gb = ds.size * d.vocab_size * itemsize / 2 ** 30
+        if gb > 16:
+            raise ValueError(
+                f"model.dense_candidate_loss needs a [N={ds.size}, "
+                f"V={d.vocab_size}] candidate-count array ({gb:.1f} GB "
+                "host-side) for stored candidate sets — beyond the "
+                "supported scale. Use the gathered CE (drop the flag), or "
+                "stream with resampled negatives (data.resample_negatives "
+                "+ vlmap_meta.json), where counts are built per batch "
+                "instead.")
+        ds = ArrayDataset(attach_candidate_counts(ds.arrays, d.vocab_size))
+    if d.feature_path:
+        from vqa_transfer_externaldata_torch.data.features import (
+            FeatureStore, JoinedDataset)
+
+        store = FeatureStore(d.feature_path)
+        if stage.startswith("vlmap"):
+            ds = JoinedDataset(ds.arrays, store, index_key="region_index",
+                               feature_keys=("feature",))
+        else:
+            ds = JoinedDataset(ds.arrays, store, index_key="image_index",
+                               feature_keys=("features", "pool5"))
+    if task_words is not None:
+        from vqa_transfer_externaldata_torch.data.visualgenome import (
+            CandidateResampler)
+
+        ds = CandidateResampler(
+            ds, {int(t): ids for t, ids in task_words.items()},
+            num_candidates=m.num_candidates,
+            count_vocab_size=d.vocab_size if m.dense_candidate_loss else 0)
+    return ds
 
 
 class PrefetchIterator:

@@ -18,6 +18,11 @@ import numpy as np
 from vqa_transfer_externaldata_torch.data.datasets import ArrayDataset
 
 
+# Batch keys a store row's pool5 fills: stage 2's "pool5", and stage 1's
+# "feature" (the region's pool5).
+POOL5_KEYS = ("pool5", "feature")
+
+
 class FeatureStore:
     """Random-access [M, ...] feature arrays, gathered by row."""
 
@@ -89,8 +94,10 @@ class InMemoryFeatureStore(FeatureStore):
 
 class JoinedDataset(ArrayDataset):
     """Question/region table + lazy feature join by ``index_key``: the
-    store stays deduplicated, and :meth:`take` gathers the rows' features.
-    The resident trainer uploads the table and the store once instead."""
+    store stays deduplicated, and :meth:`take` gathers the rows' features
+    under ``feature_keys`` ("features" the grid, "pool5" the pooled
+    vector, and for stage 1 "feature", the region's pool5). The resident
+    trainer uploads the table and the store once instead."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], store: FeatureStore,
                  index_key: str = "image_index",
@@ -104,5 +111,5 @@ class JoinedDataset(ArrayDataset):
         batch = super().take(idx)
         feats = self.store.gather(batch[self.index_key])
         for key in self.feature_keys:
-            batch[key] = feats[key]
+            batch[key] = feats["pool5" if key in POOL5_KEYS else key]
         return batch

@@ -568,8 +568,9 @@ class Trainer:
         float features cast to the compute dtype on the host first (as the
         JAX package's ``_cast_features_host``: the same values, half the
         bytes). A ``JoinedDataset`` also uploads its store: its pool5 as
-        ``store_pool5`` when its ``feature_keys`` hold it (``make_batch``
-        takes each question's row into ``pool5``), and its grid as ``grid``
+        ``store_pool5`` when its ``feature_keys`` hold "pool5" or stage 1's
+        "feature" (``make_batch`` takes each row's store row into that
+        key), and its grid as ``grid``
         when the model reads one (``spec.visual_key`` "features"; a model
         that reads pool5 only gets no grid on the device):
 
@@ -590,7 +591,7 @@ class Trainer:
           this store into planes of at most 1024 channels for its TPU
           gather; one index_select needs no such split.)"""
         from vqa_transfer_externaldata_torch.data.features import (
-            JoinedDataset)
+            POOL5_KEYS, JoinedDataset)
 
         data = {k: self._upload_rows(k, v) for k, v in ds.arrays.items()
                 if k not in drop_keys}
@@ -616,7 +617,8 @@ class Trainer:
         if index.size and (index.min() < 0 or index.max() >= M):
             raise IndexError(f"{key} outside the {M}-row store")
         store: Dict[str, torch.Tensor] = {}
-        if "pool5" in ds.feature_keys:
+        pool5_keys = [k for k in ds.feature_keys if k in POOL5_KEYS]
+        if pool5_keys:
             store["store_pool5"] = self._upload_rows(
                 "pool5", np.asarray(ds.store.pool5, np.float32))
         scale = 1.0
@@ -630,8 +632,8 @@ class Trainer:
         def make_batch(idx: torch.Tensor) -> Dict[str, object]:
             batch = {k: v.index_select(0, idx) for k, v in data.items()}
             rows = batch[key]
-            if pool5 is not None:
-                batch["pool5"] = pool5.index_select(0, rows.long())
+            for k in pool5_keys:
+                batch[k] = pool5.index_select(0, rows.long())
             if grid is not None:
                 batch["features"] = ((grid, rows, *codes_scale) if fused
                                      else grid.index_select(0, rows.long()))

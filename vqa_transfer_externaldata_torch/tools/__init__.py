@@ -3,7 +3,8 @@ probes in the repository's ``tools/`` (Pallas kernels that measured the
 matrix unit's ceiling for the attention GEMMs). Each probe is a CUDA kernel
 in ``csrc/`` with a plain PyTorch version beside it and a ``main()`` that
 runs on the card (``python -m vqa_transfer_externaldata_torch.tools.<probe>``)
-and raises without one."""
+and raises without one. Beside them ``oov_claim`` runs the paper's
+out-of-vocabulary answer protocol on the port (card or CPU)."""
 
 from __future__ import annotations
 

@@ -1,4 +1,6 @@
-"""Vocabulary, tokenization and GloVe tooling (the port's own copy).
+"""Vocabulary, tokenization and GloVe tooling (the port's own copy): the
+question-word vocab, the top-K answer vocab over normalized answers, and
+GloVe vectors filtered to a vocab as an embedding matrix.
 
 Tokenizer: lowercase, punctuation to spaces, split on whitespace —
 deterministic, so ids match the JAX package's bit for bit.
@@ -13,6 +15,8 @@ from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from vqa_transfer_externaldata_torch.utils.metrics import normalize_answer
 
 # Special tokens. <pad>=0 so padded positions embed row 0 and can be masked
 # by comparing ids against PAD_ID with no extra length plumbing.
@@ -83,6 +87,20 @@ class Vocab:
             return cls.from_tokens(json.load(fh)["tokens"])
 
 
+def build_answer_vocab(answers: Iterable[str], top_k: int) -> Vocab:
+    """Top-K answer vocab over *normalized* answers, after the same
+    specials as the word vocab (so <unk> absorbs the answers outside it),
+    ordered by count, then lexicographically."""
+    counts: Counter = Counter()
+    for a in answers:
+        norm = normalize_answer(a)
+        if norm:
+            counts[norm] += 1
+    items = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))
+    tokens = SPECIALS + [a for a, _ in items[:top_k]]
+    return Vocab(tokens, {t: i for i, t in enumerate(tokens)})
+
+
 # --- GloVe ------------------------------------------------------------------
 
 
@@ -117,6 +135,10 @@ def glove_matrix(vocab: Vocab, vectors: Dict[str, np.ndarray],
     mat[PAD_ID] = 0.0
     mat[len(vocab):] = 0.0  # padded rows are never valid ids
     return mat
+
+
+def save_matrix(path: str, matrix: np.ndarray) -> None:
+    np.savez_compressed(path, embedding=matrix)
 
 
 def load_matrix(path: str) -> np.ndarray:
