@@ -155,7 +155,22 @@ Run from the repository root. Phases (any failure exits non-zero):
 21. the paper's OOV-answer claim (the CPU test's protocol) at the
    smallest widths every kernel takes in bf16: stage 1 ``vlmap``, the
    transfer, stage 2 from the transferred and from a fresh answer table
-   (frozen; K1/K3/K2/K8), launch counts, JAX's thresholds.
+   (frozen; K1/K3/K2/K8), launch counts, JAX's thresholds;
+22. the raw-image model ``vqa_end2end`` at full width (ResNet-101 at 448
+   pixels, bf16, config.py's head), its weights from a seeded
+   torchvision-format checkpoint the phase writes: the backbone alone at
+   batch 32 against the same weights in float32 on the card, its time,
+   images/s, conv MACs and bound; ``cli.train`` on 512 synthetic uint8
+   images held on the card (``train.device_data_cache``, batch 32, 10
+   steps; the checkpoint grafted by ``load_resnet_backbone``) with its
+   first step against the plain path, launch counts (K1, K3, K2, K8), the
+   backbone's parameters and BatchNorm statistics unchanged, a profiler
+   window over 5 steps; ``cli.eval`` on the run (the resident evaluator:
+   K1/K2) and ``Predictor`` on 8 uint8 images (K1/K2, logits against the
+   plain path, p50); then, where PIL imports, seeded JPEGs through
+   ``cli.extract`` (whole images and ``--regions`` crops, read back with
+   ``FeatureStore``), ``cli.train`` streamed through
+   ``ImageQuestionDataset`` and ``cli.predict --image``.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -314,6 +329,26 @@ OOV_WIDTHS = {"data.feature_dim": 128, "data.pool5_dim": 128,
               "model.rnn_dim": 64, "model.att_hidden": 128,
               "model.dtype": "bfloat16"}
 OOV_CONCEPT_DIM = 32
+# The raw-image phase (vqa_end2end): ResNet-101 (stages, stem width) at 448
+# pixels in bf16 (a 14x14x2048 grid), the backbone's batch and its seed;
+# the synthetic corpus (one uint8 image a question: 512 x 448 x 448 x 3 =
+# 308 MB on the card), the training batch and steps, the serving batch;
+# and the JPEG fixtures (if PIL imports on the card): images, region
+# crops, streamed training steps.
+E2E_STAGES, E2E_WIDTH, E2E_SIZE = "3,4,23,3", 64, 448
+E2E_BATCH, E2E_IMAGES, E2E_STEPS, E2E_PREDICT = 32, 512, 10, 8
+E2E_JPEGS, E2E_REGIONS, E2E_JPEG_STEPS = 64, 96, 4
+# The backbone's bf16 grid and pool5 against the same weights in float32
+#     on the card (TF32 off). Each of the 104 convolutions rounds its
+#     output to bf16 (an error up to 2^-9 of a value, either sign), and the
+#     residual chain carries these like a random walk: about sqrt(104) x
+#     2^-9 / sqrt(3) = 1.2% of a value (measured on the CPU at 128 pixels:
+#     0.85% in the mean, 1.1% of the largest entry, cosine 0.99996). The
+#     limits are twice that and more: the mean |error| 2^-5 of the mean
+#     |value|, the largest 2^-4 of the largest |value|, cosine 0.999. A
+#     wrong layer (a dropped BatchNorm, a stride, a stem tap) moves the grid
+#     by a large share of itself.
+TOL_BACKBONE_MEAN, TOL_BACKBONE_MAX, BACKBONE_COS = 2.0 ** -5, 2.0 ** -4, 0.999
 
 
 class PhaseError(Exception):
@@ -1274,11 +1309,13 @@ def phase_serving(report: dict, dev) -> dict:
     return launches
 
 
-def check_first_step(spec, state, batch, dev, what: str) -> dict:
+def check_first_step(spec, state, batch, dev, what: str,
+                     frozen=lambda name: False) -> dict:
     """The first training step of ``spec``'s model on ``batch`` with the
     kernels and with their plain versions on the card, under one dropout
     mask: the loss to TOL_LOSS, each gradient to cosine GRAD_COS (a scalar
-    to TOL_SCALAR_REL relative)."""
+    to TOL_SCALAR_REL relative). Only a parameter that ``frozen`` names
+    may go without a gradient, and then on both paths."""
     import torch
 
     names = list(state.params)
@@ -1287,7 +1324,10 @@ def check_first_step(spec, state, batch, dev, what: str) -> dict:
         gen = torch.Generator(device=dev).manual_seed(7)
         outs = spec.module(*spec.inputs(batch), train=True, generator=gen)
         loss, _ = spec.loss(outs, batch)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        # A frozen backbone run under no_grad gets no gradient; the
+        # others are checked below.
+        grads = torch.autograd.grad(loss, [state.params[k] for k in names],
+                                    allow_unused=True)
         return loss.item(), dict(zip(names, grads))
 
     lk, gk = loss_and_grads()
@@ -1295,6 +1335,12 @@ def check_first_step(spec, state, batch, dev, what: str) -> dict:
         lp, gp = loss_and_grads()
     grad_checks = {}
     for k in names:
+        if gk[k] is None or gp[k] is None:
+            check(frozen(k), f"{what}: the loss does not reach the live "
+                  f"parameter {k}")
+            check(gk[k] is None and gp[k] is None,
+                  f"{what}: grad {k} reaches the loss on one path only")
+            continue
         a, b = gk[k].flatten().float(), gp[k].flatten().float()
         if a.numel() == 1:
             rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).item()
@@ -1306,21 +1352,27 @@ def check_first_step(spec, state, batch, dev, what: str) -> dict:
             check(cos >= GRAD_COS, f"{what}: grad {k} cosine {cos} < "
                   f"{GRAD_COS}")
     worst = min(v.get("cos", 1.0) for v in grad_checks.values())
+    frozen = len(names) - len(grad_checks)
     print(f"{what} first step: loss {lk:.6f} (kernels) vs {lp:.6f} "
           f"(plain), tol {TOL_LOSS}; lowest gradient cosine {worst:.6f} "
-          f"(bound {GRAD_COS})")
+          f"(bound {GRAD_COS})"
+          + (f"; {frozen} frozen parameters get no gradient" if frozen
+             else ""))
     check(abs(lk - lp) <= TOL_LOSS, f"{what}: loss {lk} vs plain {lp}")
     return {"loss_kernels": lk, "loss_plain": lp, "loss_tol": TOL_LOSS,
-            "grad_cos_bound": GRAD_COS, "grads": grad_checks}
+            "grad_cos_bound": GRAD_COS, "grads": grad_checks,
+            "params_without_grad": frozen}
 
 
 def read_steps(train_dir: str, steps: int, what: str, unit: str,
-               warmup: Optional[int] = None, first: int = 0) -> dict:
+               warmup: Optional[int] = None, first: int = 0,
+               batch: int = B_TRAIN) -> dict:
     """Losses (all finite) and step times of a run logged every step: each
     record's rate spans the steps since the last one (one, or two at the
     final drain), on the host clock between waits for the device to
     finish each step. The median over the steps after ``warmup`` (counted
-    from ``first``, the step the run started from)."""
+    from ``first``, the step the run started from); ``batch`` rows a
+    step."""
     import numpy as np
 
     warmup = WARMUP_STEPS if warmup is None else warmup
@@ -1336,10 +1388,10 @@ def read_steps(train_dir: str, steps: int, what: str, unit: str,
           f"{what}: only {len(step_ms)} timed steps")
     med = statistics.median(step_ms)
     print(f"{what}: median step {med:.3f} ms over {len(step_ms)} steps = "
-          f"{B_TRAIN * 1e3 / med:.1f} {unit}/s; loss {losses[0]:.4f} -> "
+          f"{batch * 1e3 / med:.1f} {unit}/s; loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}")
     return {"losses": losses, "timed_steps": len(step_ms),
-            "step_ms_median": med, f"{unit}_per_sec": B_TRAIN * 1e3 / med,
+            "step_ms_median": med, f"{unit}_per_sec": batch * 1e3 / med,
             "step_ms_all": step_ms}
 
 
@@ -2487,6 +2539,469 @@ def phase_oov(report: dict, dev) -> dict:
     return out
 
 
+def e2e_grid_errors(got, want) -> dict:
+    """Mean and largest |error| of ``got`` against ``want`` (float32),
+    relative to the mean and the largest |value| of ``want``, and the
+    cosine of the flattened tensors."""
+    import torch
+
+    a, b = got.float().flatten(), want.float().flatten()
+    d = (a - b).abs()
+    return {"mean_rel": (d.mean() / b.abs().mean()).item(),
+            "max_rel": (d.max() / b.abs().max()).item(),
+            "cos": torch.nn.functional.cosine_similarity(a, b, 0).item()}
+
+
+def write_jpegs(root: str, n: int, seed: int) -> tuple:
+    """``n`` seeded COCO-named JPEGs (train2014) of 480 x 640 pixels (the
+    decoder resizes them) and the ids in their names."""
+    import numpy as np
+    from PIL import Image
+    from vqa_transfer_externaldata_torch.data.ingest import coco_image_path
+
+    rng = np.random.default_rng(seed)
+    image_dir = os.path.join(root, "coco")
+    os.makedirs(image_dir, exist_ok=True)
+    ids = np.sort(rng.choice(np.arange(1, 600000), n, replace=False))
+    # Smooth images (a coarse field upsampled), as photographs are: JPEG
+    # keeps them close to what was drawn.
+    for i in ids:
+        coarse = rng.integers(0, 256, (15, 20, 3)).astype(np.uint8)
+        Image.fromarray(coarse).resize((640, 480), Image.BILINEAR).save(
+            coco_image_path(image_dir, "train2014", int(i)), quality=90)
+    return image_dir, ids
+
+
+def e2e_head_kernels(v, dev, buf) -> dict:
+    """The end2end head's K2 and K8 on the backbone's bf16 grid ``v`` [B,
+    196, 2048] (a view of its channels_last activations) at the training
+    batch and at the serving one (its first E2E_PREDICT rows): K2's checks
+    (``k2_checks``), K8 against its plain version in the path's mode
+    (normalize on; K8's limits), and both times beside their plain
+    versions' and their bounds."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention
+
+    gen = torch.Generator(device=dev).manual_seed(67)
+    Cv = v.shape[-1]
+    qh_all = torch.randn(v.shape[0], H, generator=gen, device=dev) * 0.5
+    lim = (6.0 / (Cv + H)) ** 0.5
+    wv = ((torch.rand(Cv, H, generator=gen, device=dev) * 2 - 1) * lim
+          ).to(torch.bfloat16)
+    ws = (torch.randn(H, generator=gen, device=dev) * 0.05).to(
+        torch.bfloat16).float()
+    out = {}
+    for Bq in (v.shape[0], E2E_PREDICT):
+        vb, qh = v[:Bq], qh_all[:Bq]
+        Nq = vb.shape[1]
+        k2 = k2_checks(vb, qh, wv, ws)
+        va, al, r = attention.attention_fwd(vb, qh, wv, ws, normalize=True)
+        ds = (torch.randn(Bq, Nq, generator=gen, device=dev) * al
+              ).contiguous()
+        got = attention.attention_bwd(vb, qh, wv, ws, ds, r, True)
+        want = attention.attention_bwd_reference(vb, qh, wv, ws, ds, r, True)
+        torch.cuda.synchronize()
+        a_dqh, a_dwv, unsure = k8_allowance(vb, qh, wv, ws, ds, r, True)
+        k8 = []
+        for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                     (a_dqh, a_dwv, 0.0)):
+            limit = TOL_K8_REL * b.abs().max().item() + allow
+            worst = ((a - b).abs() / limit).max().item()
+            check(bool(torch.isfinite(a).all()) and worst <= 1.0,
+                  f"K8 on the ResNet grid B={Bq} {name}: an entry at "
+                  f"{worst} of its limit")
+            k8.append({"output": name,
+                       "max_abs_err": (a - b).abs().max().item(),
+                       "rel_err": rel_err(a, b), "units_near_zero": unsure,
+                       "worst_share_of_limit": worst})
+        # The bounds: the grid once and W_v once; K2 its score GEMM and
+        # weighted sum, K8 its two [B*N, C] x [C, H] GEMMs.
+        nbytes = vb.numel() * 2 + wv.numel() * 2
+        gemm = 2.0 * Bq * Nq * Cv * H
+        b2, b8 = bound(nbytes, gemm + 2.0 * Bq * Nq * Cv), bound(nbytes,
+                                                                  2 * gemm)
+        t = {"k2": time_cuda(lambda: attention.attention_fwd(
+                 vb, qh, wv, ws, normalize=True), buf),
+             "k2_plain": time_cuda(lambda: attention.attention_fwd_reference(
+                 vb, qh, wv, ws, True), buf),
+             "k8": time_cuda(lambda: attention.attention_bwd(
+                 vb, qh, wv, ws, ds, r, True), buf),
+             "k8_plain": time_cuda(lambda: attention.attention_bwd_reference(
+                 vb, qh, wv, ws, ds, r, True), buf)}
+        out[Bq] = {"k2_checks": k2, "k8_checks": k8,
+                   "k2": {"ms": t["k2"], "plain_ms": t["k2_plain"],
+                          "bound_ms": b2[0], "bound_by": b2[1]},
+                   "k8": {"ms": t["k8"], "plain_ms": t["k8_plain"],
+                          "bound_ms": b8[0], "bound_by": b8[1]}}
+        print(f"end2end head on the ResNet grid at B={Bq}: K2 {t['k2']:.4f} "
+              f"ms (plain {t['k2_plain']:.4f}, bound {b2[0]:.4f}), K8 "
+              f"{t['k8']:.4f} ms (plain {t['k8_plain']:.4f}, bound "
+              f"{b8[0]:.4f}); K8's worst entry at "
+              f"{max(c['worst_share_of_limit'] for c in k8):.3f} of its "
+              "limit")
+    return out
+
+
+def phase_end2end(report: dict, dev) -> dict:
+    """The raw-image model at the full width of config.py (phase 22; see
+    the module docstring)."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.cli.common import (
+        build_spec, load_resnet_backbone)
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.end2end import (
+        VQAEnd2EndModel)
+    from vqa_transfer_externaldata_torch.ops import resnet
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
+    from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
+
+    t_phase = time.perf_counter()
+    device = ["--device", str(dev)]
+    stages = tuple(int(x) for x in E2E_STAGES.split(","))
+    out: dict = {"sizes": {"batch": E2E_BATCH, "image_size": E2E_SIZE,
+                           "images": E2E_IMAGES, "stages": E2E_STAGES,
+                           "width": E2E_WIDTH}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as root:
+        # --- a seeded torchvision-format checkpoint ------------------------
+        pth = os.path.join(root, "resnet101.pth")
+        src = resnet.ResNetV1(stages, E2E_WIDTH, dtype=torch.float32,
+                              stem="conv",
+                              generator=torch.Generator().manual_seed(41))
+        g = torch.Generator().manual_seed(43)
+        with torch.no_grad():
+            for m in src.modules():
+                if isinstance(m, resnet.BatchNorm):
+                    m.mean.normal_(0.0, 0.5, generator=g)
+                    m.var.uniform_(0.5, 1.5, generator=g)
+        torch.save(resnet.torchvision_state_dict(src), pth)
+        del src
+        flags = {**MODEL_OVERRIDES, "model.model": "vqa_end2end",
+                 "model.resnet_checkpoint": pth,
+                 "model.resnet_stages": E2E_STAGES,
+                 "model.resnet_width": E2E_WIDTH,
+                 "data.image_size": E2E_SIZE, "data.synthetic": True,
+                 "data.synthetic_size": E2E_IMAGES,
+                 "train.device_data_cache": True,
+                 "train.batch_size": E2E_BATCH,
+                 "train.max_steps": E2E_STEPS, "train.log_every": 1,
+                 "train.eval_every": 10 ** 6,
+                 "train.checkpoint_every": E2E_STEPS}
+        cfg = Config().replace_flat(flags)
+        backbone = load_resnet_backbone(cfg)
+
+        # --- 1. the backbone alone: bf16 against float32 on the card ------
+        nets = {}
+        for dt in (torch.bfloat16, torch.float32):
+            with torch.device("meta"):
+                net = resnet.ResNetV1(stages, E2E_WIDTH, dtype=dt,
+                                      stem=VQAEnd2EndModel.stem)
+            net.load_state_dict(backbone, assign=True)
+            nets[dt] = net.to(dev).eval()
+        gen = torch.Generator(device=dev).manual_seed(47)
+        images = torch.randint(0, 256, (E2E_BATCH, E2E_SIZE, E2E_SIZE, 3),
+                               generator=gen, device=dev, dtype=torch.uint8)
+        with torch.inference_mode():
+            x = resnet.preprocess_images(images, E2E_SIZE)
+            ob, of = nets[torch.bfloat16](x), nets[torch.float32](x)
+        check(tuple(ob["grid"].shape) == (E2E_BATCH, E2E_SIZE // 32,
+                                          E2E_SIZE // 32, 32 * E2E_WIDTH)
+              and ob["grid"].dtype == torch.bfloat16
+              and ob["grid"].is_contiguous(),
+              f"backbone grid {tuple(ob['grid'].shape)} {ob['grid'].dtype}")
+        errs = {k: e2e_grid_errors(ob[k], of[k]) for k in ("grid", "pool5")}
+        out["backbone_vs_f32"] = errs
+        print(f"end2end backbone at B={E2E_BATCH}, {E2E_SIZE}px: bf16 vs "
+              f"float32 on the card {errs} (limits: mean "
+              f"{TOL_BACKBONE_MEAN}, max {TOL_BACKBONE_MAX}, cosine "
+              f"{BACKBONE_COS})")
+        for k, e in errs.items():
+            check(e["mean_rel"] <= TOL_BACKBONE_MEAN
+                  and e["max_rel"] <= TOL_BACKBONE_MAX
+                  and e["cos"] >= BACKBONE_COS
+                  and bool(torch.isfinite(ob[k]).all()),
+                  f"backbone {k} vs float32: {e}")
+        buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+        v = ob["grid"].reshape(E2E_BATCH, -1, ob["grid"].shape[-1])
+        check(v.is_contiguous() and v.data_ptr() == ob["grid"].data_ptr(),
+              "the backbone's grid rows are not a view of its activations")
+        out["head_kernels"] = e2e_head_kernels(v, dev, buf)
+        del v
+        macs = resnet.conv_macs(nets[torch.bfloat16], E2E_SIZE)
+        with torch.inference_mode():
+            ms = time_cuda(lambda: nets[torch.bfloat16](x), buf)
+            ms_f32 = time_cuda(lambda: nets[torch.float32](x), buf)
+            model_ms = time_cuda(
+                lambda: nets[torch.bfloat16](resnet.preprocess_images(
+                    images, E2E_SIZE)), buf)
+        bound_ms = 2 * macs * E2E_BATCH / PEAK_BF16_FLOPS * 1e3
+        out["backbone"] = {
+            "ms": ms, "images_per_s": E2E_BATCH * 1e3 / ms,
+            "with_preprocess_ms": model_ms, "f32_ms": ms_f32,
+            "conv_gmac_per_image": macs / 1e9, "bound_ms": bound_ms,
+            "bound_by": "operations",
+            "tflops": 2 * macs * E2E_BATCH / ms / 1e9}
+        print(f"end2end backbone bf16 at B={E2E_BATCH}: {ms:.3f} ms "
+              f"({E2E_BATCH * 1e3 / ms:.1f} images/s; with the uint8 "
+              f"resize/normalize {model_ms:.3f} ms; float32 {ms_f32:.3f} ms);"
+              f" conv MACs {macs / 1e9:.2f} G an image; bound at "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 {bound_ms:.3f} ms "
+              f"= {out['backbone']['tflops']:.1f} TFLOP/s achieved")
+        del nets, ob, of, x, buf
+
+        # --- 2. cli.train on synthetic pixels held on the card -----------
+        spec, _, _ = build_spec(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        spec.module.resnet.load_state_dict(backbone)
+        trainer = Trainer(cfg, spec, train_dir=os.path.join(root, "chk"),
+                          device=str(dev))
+        state = trainer.init_state()
+        check(not any(k.startswith("resnet.") for k in state.opt_state.mu),
+              "the frozen backbone carries Adam moments")
+        ds = load_dataset(cfg, "train")
+        check(ds.arrays["images"].shape == (E2E_IMAGES, E2E_SIZE, E2E_SIZE,
+                                            3)
+              and ds.arrays["images"].dtype == np.uint8,
+              f"synthetic images {ds.arrays['images'].shape}")
+        _, make_batch, nbytes = trainer._prepare_resident(ds)
+        out["uploaded_gb"] = nbytes / 1e9
+        idx0 = next(ds.index_batches(E2E_BATCH, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        check(batch["images"].dtype == torch.uint8,
+              f"resident images {batch['images'].dtype}")
+        out["first_step"] = check_first_step(spec, state, batch, dev,
+                                             "end2end", trainer.tx.frozen)
+        del batch, make_batch
+
+        reset_counts()
+        t0 = time.perf_counter()
+        run_dir = train_cli.main(device + cli_argv(flags) + [
+            "--train.train_dir", os.path.join(root, "run")])
+        torch.cuda.synchronize()
+        out["train_cli_s"] = time.perf_counter() - t0
+        out["train_launches"] = launches = read_counts()
+        # A step: K1 1, K3 3 (its launches a call), K2 2, K8 4.
+        check_launches(launches, {
+            "gru_fwd": E2E_STEPS, "gru_bwd": 3 * E2E_STEPS,
+            "attention_fwd": 2 * E2E_STEPS,
+            "attention_bwd": 4 * E2E_STEPS},
+            f"end2end cli.train over {E2E_STEPS} steps")
+        out["train"] = read_steps(run_dir, E2E_STEPS, "end2end cli.train "
+                                  "(resident synthetic images)", "images",
+                                  warmup=2, batch=E2E_BATCH)
+        final = load_params(os.path.join(run_dir, PARAMS_FILE))
+        same = all(torch.equal(final[f"resnet.{k}"], v)
+                   for k, v in backbone.items())
+        check(same and len(backbone) == sum(k.startswith("resnet.")
+                                            for k in final),
+              "the backbone's parameters or statistics changed in training")
+        print(f"end2end: the backbone's {len(backbone)} parameters and "
+              "BatchNorm statistics are bit-equal after training")
+        state, out["profile"] = profile_fit(trainer, ds, state,
+                                            PROFILE_STEPS)
+        trainer.close()
+        del trainer, state, ds, spec
+
+        # --- 3. cli.eval, then Predictor on uint8 images -----------------
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = eval_cli.main(device + ["--train.train_dir", run_dir])
+        torch.cuda.synchronize()
+        out["eval_cli_s"] = time.perf_counter() - t0
+        batches = -(-E2E_IMAGES // E2E_BATCH)
+        out["eval_launches"] = launches = read_counts()
+        check_launches(launches, {"gru_fwd": batches,
+                                  "attention_fwd": 2 * batches},
+                       f"end2end cli.eval over {batches} batches")
+        check(all(np.isfinite(v) for v in metrics.values())
+              and 0.0 <= metrics["vqa_accuracy"] <= 1.0,
+              f"end2end cli.eval metrics {metrics}")
+        out["eval_metrics"] = metrics
+        print(f"end2end cli.eval of {E2E_IMAGES} images in "
+              f"{out['eval_cli_s']:.2f} s: {metrics}")
+
+        pred = Predictor(run_dir, batch_size=E2E_PREDICT, device=str(dev))
+        check(pred.visual_key == "images", f"Predictor reads "
+              f"{pred.visual_key}")
+        rng = np.random.default_rng(53)
+        pix = rng.integers(0, 256, (E2E_PREDICT, E2E_SIZE, E2E_SIZE, 3)
+                           ).astype(np.uint8)
+        words = len(pred.word_vocab) - 4
+        questions = [" ".join(f"w{w}" for w in rng.integers(0, words, n))
+                     for n in rng.integers(1, T + 1, E2E_PREDICT)]
+        reset_counts()
+        answers = pred.answer(pix, questions)
+        out["predict_launches"] = launches = read_counts()
+        check_launches(launches, {"gru_fwd": 1, "attention_fwd": 2},
+                       f"end2end Predictor at batch {E2E_PREDICT}")
+        v = torch.from_numpy(pix).to(dev)
+        q = torch.from_numpy(pred._encode_questions(questions)).to(dev)
+        with torch.inference_mode():
+            lk = pred.model(v, q)["logits"]
+            with plain_kernels():
+                lr = pred.model(v, q)["logits"]
+        err = (lk - lr).abs().max().item()
+        top2 = lr.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > TOL_LOGITS
+        plain = [pred.answer_vocab.tokens[int(i)] for i in lr.argmax(-1)]
+        check(err <= TOL_LOGITS and all(
+            a == p for a, p, d in zip(answers, plain, decided.tolist())
+            if d), f"end2end serving logits err {err}, answers {answers} "
+            f"vs plain {plain}")
+        ts = []
+        for i in range(3 + RUNS):
+            t0 = time.perf_counter()
+            pred.answer(pix, questions)  # ends in a device->host copy
+            if i >= 3:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        out["predict_p50_ms"] = statistics.median(ts)
+        out["predict_logits_err"] = err
+        print(f"end2end Predictor: {E2E_PREDICT} uint8 images p50 "
+              f"{out['predict_p50_ms']:.3f} ms; logits vs plain {err:.3e} "
+              f"(tol {TOL_LOGITS}); {answers}")
+        del pred
+
+        # --- 4. JPEGs: host decode through PIL, where it imports ---------
+        try:
+            import PIL  # noqa: F401
+            out["pil"] = True
+        except ImportError:
+            out["pil"] = False
+        if not out["pil"]:
+            print("end2end JPEG steps: PIL does not import on this machine; "
+                  "cli.extract, ImageQuestionDataset and cli.predict --image "
+                  "stay CPU-tested (tests/test_torch_extract.py, "
+                  "tests/test_torch_end2end.py)")
+        else:
+            out.update(e2e_jpeg_steps(root, dev, flags, device))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"end2end phase: {out['seconds']:.1f} s")
+    return out
+
+
+def e2e_jpeg_steps(root: str, dev, flags: dict, device: list) -> dict:
+    """Phase 22's host-decode steps on seeded JPEGs: ``cli.extract`` of
+    whole images and of region crops, ``cli.train`` streamed through
+    ``ImageQuestionDataset``, ``cli.predict --image``."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import extract as extract_cli
+    from vqa_transfer_externaldata_torch.cli import predict as predict_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import (
+        synthetic_vocabs)
+    from vqa_transfer_externaldata_torch.data.features import FeatureStore
+    from vqa_transfer_externaldata_torch.data.ingest import (
+        _decode_pil, coco_image_path)
+    from vqa_transfer_externaldata_torch.serving import Predictor
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    image_dir, ids = write_jpegs(root, E2E_JPEGS, seed=59)
+    out["jpegs_write_s"] = time.perf_counter() - t0
+    pth = flags["model.resnet_checkpoint"]
+    g = E2E_SIZE // 32
+
+    # --- cli.extract: whole images, then region crops ------------------
+    rng = np.random.default_rng(61)
+    regions = os.path.join(root, "region_meta.npz")
+    xy = rng.integers(0, 400, (E2E_REGIONS, 2))
+    wh = rng.integers(0, 240, (E2E_REGIONS, 2))
+    np.savez(regions, image_id=rng.choice(ids, E2E_REGIONS).astype(np.int64),
+             bbox=np.concatenate([xy, wh], 1).astype(np.int32))
+    secs = {}
+    for tag, extra, rows, want_ids in (
+            ("images", [], E2E_JPEGS, ids),
+            ("regions", ["--regions", regions], E2E_REGIONS,
+             np.arange(E2E_REGIONS))):
+        reset_counts()
+        t0 = time.perf_counter()
+        path = extract_cli.main(device + [
+            "--image_dir", image_dir, "--out", os.path.join(root, tag),
+            "--format", "raw", "--image_size", str(E2E_SIZE),
+            "--batch_size", str(E2E_BATCH), "--torch_checkpoint", pth]
+            + extra)
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        check_launches(read_counts(), {}, f"end2end cli.extract ({tag})")
+        store = FeatureStore(path)
+        check(np.array_equal(store.image_ids, want_ids)
+              and store.grid.shape == (rows, g, g, 32 * E2E_WIDTH)
+              and store.pool5.shape == (rows, 32 * E2E_WIDTH)
+              and np.isfinite(np.asarray(store.pool5)).all()
+              and np.isfinite(store.gather(np.arange(min(rows, 8)))[
+                  "features"]).all(),
+              f"cli.extract {tag}: ids {store.image_ids[:4]}..., grid "
+              f"{store.grid.shape}")
+        store.close()
+    out["extract_s"] = secs
+    print(f"end2end cli.extract: {E2E_JPEGS} JPEGs {secs['images']:.2f} s, "
+          f"{E2E_REGIONS} region crops {secs['regions']:.2f} s (raw stores "
+          f"read back through FeatureStore)")
+
+    # --- cli.train streamed through ImageQuestionDataset ---------------
+    data_dir = os.path.join(root, "pre")
+    os.makedirs(data_dir)
+    cfg = Config().replace_flat(flags)
+    words, answers = synthetic_vocabs(cfg)
+    words.save(os.path.join(data_dir, "vocab.json"))
+    answers.save(os.path.join(data_dir, "answer_vocab.json"))
+    np.save(os.path.join(data_dir, "image_ids.npy"), ids.astype(np.int64))
+    n_q, T_q = 4 * E2E_JPEGS, cfg.data.max_question_len
+    q_ids = rng.integers(4, cfg.data.vocab_size, (n_q, T_q)).astype(np.int32)
+    q_ids[:, 8:] = 0
+    np.savez(os.path.join(data_dir, "vqa_train.npz"), q_ids=q_ids,
+             image_index=rng.integers(0, E2E_JPEGS, n_q).astype(np.int32),
+             answer_id=rng.integers(4, cfg.data.num_answers, n_q).astype(
+                 np.int32))
+    jflags = {**flags, "data.synthetic": False, "data.dataset_dir": data_dir,
+              "data.image_dir": image_dir,
+              "data.vocab_path": os.path.join(data_dir, "vocab.json"),
+              "data.answer_vocab_path": os.path.join(data_dir,
+                                                     "answer_vocab.json"),
+              "train.max_steps": E2E_JPEG_STEPS,
+              "train.checkpoint_every": E2E_JPEG_STEPS}
+    reset_counts()
+    t0 = time.perf_counter()
+    run_dir = train_cli.main(device + cli_argv(jflags) + [
+        "--train.train_dir", os.path.join(root, "jpeg_run")])
+    torch.cuda.synchronize()
+    out["jpeg_train_cli_s"] = time.perf_counter() - t0
+    out["jpeg_train_launches"] = launches = read_counts()
+    check_launches(launches, {
+        "gru_fwd": E2E_JPEG_STEPS, "gru_bwd": 3 * E2E_JPEG_STEPS,
+        "attention_fwd": 2 * E2E_JPEG_STEPS,
+        "attention_bwd": 4 * E2E_JPEG_STEPS},
+        f"end2end cli.train on JPEGs over {E2E_JPEG_STEPS} steps")
+    out["jpeg_train"] = read_steps(run_dir, E2E_JPEG_STEPS, "end2end "
+                                   "cli.train (streamed JPEGs)", "images",
+                                   warmup=1, batch=E2E_BATCH)
+
+    # --- cli.predict --image ---------------------------------------------
+    paths = [coco_image_path(image_dir, "train2014", int(i)) for i in ids[:3]]
+    argv = device + ["--train_dir", run_dir]
+    for p in paths:
+        argv += ["--image", p, "--question", "w5 w6 w7"]
+    reset_counts()
+    got = predict_cli.main(argv)
+    out["jpeg_predict_launches"] = launches = read_counts()
+    check_launches(launches, {"gru_fwd": 1, "attention_fwd": 2},
+                   "end2end cli.predict --image")
+    direct = Predictor(run_dir, batch_size=8, device=str(dev)).answer(
+        np.stack([_decode_pil(p, E2E_SIZE) for p in paths]),
+        ["w5 w6 w7"] * 3)
+    check(got == direct and len(got) == 3,
+          f"cli.predict --image {got} vs Predictor {direct}")
+    print(f"end2end cli.predict --image: {got}")
+    out["jpeg_predict_answers"] = got
+    return out
+
+
 @contextlib.contextmanager
 def port_log_records():
     """(level name, message) of everything the port's logger says inside
@@ -3387,6 +3902,7 @@ def main(argv=None) -> int:
                             dev)
         report["real_data"] = real_data = phase_real_data(report, dev)
         report["oov"] = oov = phase_oov(report, dev)
+        report["end2end"] = end2end = phase_end2end(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -3535,7 +4051,13 @@ def main(argv=None) -> int:
              "real_data_stage2": real_data["stage2_launches"],
              "real_data_eval": real_data["eval_launches"],
              "real_data_predict": real_data["predict_launches"],
-             "oov": oov["launches"]}
+             "oov": oov["launches"],
+             "end2end_train": end2end["train_launches"],
+             "end2end_eval": end2end["eval_launches"],
+             "end2end_predict": end2end["predict_launches"]}
+    if end2end["pil"]:
+        paths.update(end2end_jpeg_train=end2end["jpeg_train_launches"],
+                     end2end_jpeg_predict=end2end["jpeg_predict_launches"])
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",
@@ -3549,6 +4071,11 @@ def main(argv=None) -> int:
             "plain_ms": g1["plain"], "bound_ms": g1["bound"][0],
             "bound_by": g1["bound"][1], "library_ms": g1["library"]}
         times[name] = g2
+    # K2 and K8 on the backbone's grid at phase 22's batches.
+    for name, key in (("attention_fwd", "k2"), ("attention_bwd", "k8")):
+        meta[name][2]["at_end2end_batches"] = {
+            str(bq): {**hk[key], "checks": hk[f"{key}_checks"]}
+            for bq, hk in end2end["head_kernels"].items()}
     kernels = []
     for name, (replaces, err, errs) in meta.items():
         t = times[name]

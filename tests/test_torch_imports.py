@@ -73,6 +73,17 @@ def test_real_data_modules_import_no_jax_h5py_or_nltk(name, extra):
     assert "ok" in _fresh(NEW_MODULE.format(name=name, extra=repr(extra)))
 
 
+@pytest.mark.parametrize("name,extra", [
+    ("ops.resnet", ("PIL",)), ("models.end2end", ("PIL",)),
+    ("data.ingest", ("PIL", "torch")), ("cli.extract", ("PIL", "torch")),
+    ("cli.predict", ("PIL",)), ("serving", ("PIL",))])
+def test_raw_image_modules_import_no_jax_pil_or_h5py(name, extra):
+    """The raw-image modules import neither JAX nor PIL and h5py (PIL only
+    where a file is decoded, h5py where an hdf5 store is written); the
+    JPEG ingest and the extraction CLI need no torch at import either."""
+    assert "ok" in _fresh(NEW_MODULE.format(name=name, extra=repr(extra)))
+
+
 def test_port_imports_no_jax():
     assert "modules" in _fresh(SCRIPT)
 

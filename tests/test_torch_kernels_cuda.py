@@ -12,7 +12,10 @@ its launch shape against kernels.gru_fwd_plan with two directions, under
 CUDA graph capture, and two calls bit-equal), K7 (bigru_bwd; also its
 launch shape, under CUDA graph capture, and two calls bit-equal) and
 K8 (attention_bwd; also at the edges of its dz stage's 128-cell tiles,
-its launch shape against kernels.dz_plan, and two calls bit-equal), and
+its launch shape against kernels.dz_plan, and two calls bit-equal; K2 and
+K8 also on the bf16 grid of the raw-image model's ResNet-101 at its
+batches 8 and 32, and both refusing a grid view that is not contiguous),
+and
 the probes P1 (probe_mxu_rows) and
 P2 (probe_bwd_ceiling) on the card against their plain PyTorch
 versions; K5 and K8 also at the edges of the dW_v GEMM's tiles that they
@@ -1448,3 +1451,92 @@ def test_attention_resident_bwd_rows_launch_shape(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         ar.attention_resident_bwd(store, rows, h_off, ws, al, gv, sga,
                                   n_valid=196, normalize=True)
+
+
+@pytest.fixture(scope="module")
+def end2end_model():
+    """The raw-image model at full width (ResNet-101 at 448 pixels, the
+    head at config.py's widths, bf16) from seeded random weights, on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from vqa_transfer_externaldata_torch.models.end2end import (
+        VQAEnd2EndModel)
+
+    model = VQAEnd2EndModel(8192, 2000,
+                            generator=torch.Generator().manual_seed(3))
+    return model.to("cuda").eval()
+
+
+def _resnet_grid(model, B, seed=21):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randint(0, 256, (B, 448, 448, 3), generator=g,
+                           device="cuda", dtype=torch.uint8)
+    with torch.no_grad():
+        return model.features(images)
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_attention_on_a_resnet_grid_matches_plain(dev, end2end_model, B):
+    """The end2end head's K2 and K8 at its serving (8) and training (32)
+    batches on the bf16 grid the backbone produces, a contiguous view of
+    its channels_last activations, against their plain versions (the
+    limits of the tests above)."""
+    v = _resnet_grid(end2end_model, B)
+    assert v.shape == (B, 196, 2048) and v.dtype == torch.bfloat16
+    assert v.is_contiguous()
+    head = end2end_model.head
+    g = torch.Generator(device=dev).manual_seed(B)
+    qh = torch.randn(B, 512, generator=g, device=dev) * 0.5
+    wv = head.att_wv.detach().to(torch.bfloat16).contiguous()
+    ws = head.att_ws.detach().to(torch.bfloat16).float()
+    va, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=True)
+    rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(va).all()
+    assert (r - rr).abs().max().item() <= 1e-6 * rr.abs().max().item()
+    assert (va - rv).abs().max().item() <= 2.0 ** -10 * rv.abs().max().item()
+    assert (al - ra).abs().max().item() <= 1e-5
+    ds = (torch.randn(B, 196, generator=g, device=dev) * al).contiguous()
+    got = attention.attention_bwd(v, qh, wv, ws, ds, r, True)
+    want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, True)
+    torch.cuda.synchronize()
+    a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, True)
+    for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                 (a_dqh, a_dwv, 0.0)):
+        assert torch.isfinite(a).all(), name
+        limit = TOL_K5 * b.abs().max().item() + allow
+        assert ((a - b).abs() <= limit).all(), (name, _rel_err(a, b))
+
+
+def test_attention_refuses_a_non_contiguous_grid(dev, end2end_model):
+    """The grid the head reads is a view of the backbone's channels_last
+    activations (no copy). A grid view that is not contiguous (NCHW
+    activations seen as [B, h*w, C], a slice of wider channels) is refused
+    by K2 and K8, and the op passes it on as it is: it is never read with
+    the wrong strides."""
+    from vqa_transfer_externaldata_torch.ops.resnet import (
+        preprocess_images)
+
+    images = torch.zeros(2, 448, 448, 3, dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        grid = end2end_model.resnet(preprocess_images(images, 448))["grid"]
+        flat = end2end_model.features(images)
+    assert grid.is_contiguous()
+    assert grid.reshape(2, 196, 2048).data_ptr() == grid.data_ptr()
+    torch.testing.assert_close(flat, grid.reshape(2, 196, 2048),
+                               rtol=0, atol=0)
+    v, qh, wv, ws = _k2_inputs(dev, 2, 196, 2048, 512)
+    nchw = v.transpose(1, 2).contiguous().view(2, 2048, 14, 14)
+    wide = torch.zeros(2, 196, 4096, dtype=torch.bfloat16, device=dev)
+    wide[..., :2048] = v
+    ds = torch.zeros(2, 196, device=dev)
+    r = torch.ones(2, 196, device=dev)
+    for bad in (nchw.flatten(2).transpose(1, 2), wide[..., :2048]):
+        assert not bad.is_contiguous() and torch.equal(bad, v)
+        with pytest.raises(ValueError, match="contiguous"):
+            attention.attention_fwd(bad, qh, wv, ws, normalize=True)
+        with pytest.raises(ValueError, match="contiguous"):
+            attention.spatial_attention(bad, qh, wv, ws, normalize=True)
+        with pytest.raises(ValueError, match="contiguous"):
+            attention.attention_bwd(bad, qh, wv, ws, ds, r, True)

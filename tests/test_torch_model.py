@@ -102,12 +102,37 @@ def test_build_model_full_width_defaults():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"model.model": "vqa_end2end"}, "item 13"),
     ({"model.fidelity_mode": True}, "item 14"),
 ])
 def test_unported_configs_name_their_roadmap_item(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         build_model(Config().replace_flat(overrides))
+
+
+def test_build_model_builds_vqa_end2end():
+    """The registry builds the raw-image model: a ResNet backbone (frozen,
+    the space-to-depth stem) under the attention head, fed uint8 images;
+    its forward gives one logit row an image, the loss is vqa_loss."""
+    cfg = Config().replace_flat({
+        "model.model": "vqa_end2end", "model.resnet_stages": "1,1,1,1",
+        "model.resnet_width": 8, "data.image_size": 64,
+        "data.vocab_size": V, "data.num_answers": A,
+        "data.max_question_len": T, "model.dtype": "float32",
+        **{f"model.{k}": v for k, v in DIMS.items()}})
+    spec = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    m = spec.module
+    assert spec.stage == "vqa" and spec.visual_key == "images"
+    assert spec.label_key == "answer_id" and spec.loss is vqa_loss
+    assert m.freeze_backbone and not m.head.feature_grad
+    assert m.resnet.stem == "space_to_depth" and m.resnet.out_channels == 256
+    assert m.state_dict()["head.att_wv"].shape == (256, 8)
+    rng = np.random.default_rng(0)
+    batch = {"images": torch.from_numpy(
+        rng.integers(0, 256, (3, 64, 64, 3)).astype(np.uint8)),
+        "q_ids": torch.from_numpy(rng.integers(4, V, (3, T)))}
+    out = m(*spec.inputs(batch))
+    assert out["logits"].shape == (3, A) and out["alpha"].shape == (3, 4)
+    assert torch.isfinite(out["logits"]).all()
 
 
 @pytest.mark.parametrize("overrides,glimpses,visual", [

@@ -273,13 +273,50 @@ def test_dense_counts_follow_the_consumer(tmp_path):
             load(cfg, "train", stage="vlmap")
 
 
-def test_raw_image_inputs_name_their_roadmap_item(tmp_path):
-    out, _ = vqa_artifacts(str(tmp_path))
-    cfg = Config().replace_flat({"data.dataset_dir": out,
-                                 "model.model": "vqa_end2end",
-                                 "data.image_dir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tds.load_dataset(cfg, "train")
+def test_raw_image_inputs_load_as_in_jax(tmp_path):
+    """The raw-image branch on ``cli.preprocess vqa_v2``'s artifacts: the
+    store's ``image_ids`` saved as ``image_ids.npy`` beside them, one JPEG
+    per id under the split's COCO name; the port's ImageQuestionDataset
+    has JAX's table, paths and batches (pixels within one 8-bit step of
+    JAX's native decoder, bit-equal to its PIL one)."""
+    from PIL import Image
+
+    from vqa_transfer_externaldata_tpu.data import ingest as jingest
+    from vqa_transfer_externaldata_torch.data import ingest
+
+    out, store = vqa_artifacts(str(tmp_path))
+    ids = tfeatures.FeatureStore(store).image_ids
+    np.save(os.path.join(out, "image_ids.npy"), ids)
+    images = tmp_path / "coco"
+    images.mkdir()
+    rng = np.random.default_rng(0)
+    for i in ids:
+        for split in ("train2014", "val2014"):
+            Image.fromarray(rng.integers(0, 256, (40, 52, 3)).astype(
+                np.uint8)).save(ingest.coco_image_path(str(images), split,
+                                                       int(i)), quality=90)
+    over = {"data.dataset_dir": out, "model.model": "vqa_end2end",
+            "data.image_dir": str(images), "data.image_size": 32,
+            "data.feature_path": store}
+    for split in ("train", "val"):
+        ours = tds.load_dataset(Config().replace_flat(over), split)
+        theirs = jds.load_dataset(JaxConfig().replace_flat(over), split)
+        assert isinstance(ours, ingest.ImageQuestionDataset)
+        assert ours.image_paths == theirs.image_paths
+        assert sorted(ours.arrays) == sorted(theirs.arrays)
+        a, b = next(ours.batches(2, seed=1)), next(theirs.batches(2, seed=1))
+        for k in b:
+            if k == "images":
+                assert a[k].shape == (2, 32, 32, 3) and a[k].dtype == np.uint8
+                assert np.abs(a[k].astype(int) - b[k].astype(int)).max() <= 1
+                for row, idx in zip(a[k], a["image_index"]):
+                    np.testing.assert_array_equal(row, jingest._decode_pil(
+                        ours.image_paths[idx], 32))
+            else:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        ours.close()
+        theirs.close()
+    cfg = Config().replace_flat(over)
     with pytest.raises(FileNotFoundError, match="no preprocessed"):
         tds.load_dataset(cfg.replace_flat(
             {"data.dataset_dir": str(tmp_path / "none")}), "train")

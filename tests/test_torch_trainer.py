@@ -167,8 +167,6 @@ def test_unported_trainer_options_name_their_roadmap_item(over, item,
 
 @pytest.mark.parametrize("over,item", [
     ({"data.input_pipeline": "grain"}, "item 14"),
-    ({"data.synthetic": False, "model.model": "vqa_end2end",
-      "data.image_dir": "images"}, "item 13"),
 ])
 def test_unported_cli_paths_name_their_roadmap_item(over, item, tmp_path):
     argv = ["--device", "cpu", "--train.train_dir", str(tmp_path)]
@@ -176,6 +174,46 @@ def test_unported_cli_paths_name_their_roadmap_item(over, item, tmp_path):
         argv += [f"--{k}", str(v).lower() if isinstance(v, bool) else str(v)]
     with pytest.raises(NotImplementedError, match=item):
         train_cli.main(argv)
+
+
+def test_train_cli_streams_raw_images(tmp_path):
+    """``cli.train`` of ``vqa_end2end`` on JPEG artifacts
+    (``data.image_dir``): the ImageQuestionDataset streams through
+    ``Trainer.fit`` even with ``train.device_data_cache`` (it is not an
+    ArrayDataset, as in the JAX package's CLI); the frozen backbone comes
+    out of training unchanged, and the run serves decoded images."""
+    from test_torch_end2end import TINY_E2E, argv_of, write_jpeg_artifacts
+    from vqa_transfer_externaldata_torch.data.ingest import (
+        _decode_pil, coco_image_path)
+    from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
+
+    fx = write_jpeg_artifacts(str(tmp_path))
+    flat = dict(TINY_E2E, **{
+        "data.synthetic": False, "data.dataset_dir": fx["data_dir"],
+        "data.image_dir": fx["image_dir"], "train.max_steps": 3,
+        "data.vocab_path": os.path.join(fx["data_dir"], "vocab.json"),
+        "data.answer_vocab_path": os.path.join(fx["data_dir"],
+                                               "answer_vocab.json")})
+    cfg = Config().replace_flat(flat)
+    start = build_model(
+        cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
+    ).module.state_dict()
+    train_dir = train_cli.main(["--device", "cpu", "--train.train_dir",
+                                str(tmp_path / "run")] + argv_of(flat))
+    losses = _losses(train_dir)
+    assert sorted(losses) == [1, 2, 3]
+    assert all(np.isfinite(list(losses.values())))
+    final = load_params(os.path.join(train_dir, "params_final.pt"))
+    assert set(final) == set(start)
+    for k, v in start.items():
+        if k.startswith("resnet."):
+            torch.testing.assert_close(final[k], v, rtol=0, atol=0, msg=k)
+    assert not torch.equal(final["head.att_wv"], start["head.att_wv"])
+    pred = Predictor(train_dir, batch_size=2, device="cpu")
+    image = _decode_pil(coco_image_path(fx["image_dir"], "val2014",
+                                    int(fx["ids"][0])), 64)
+    assert len(pred.answer(image[None].repeat(3, 0), ["w4", "w5", "w6"])) \
+        == 3
 
 
 def test_in_loop_eval_is_not_ported(tmp_path):

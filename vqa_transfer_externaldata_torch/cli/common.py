@@ -1,10 +1,10 @@
-"""Shared CLI assembly: config -> vocabs -> init matrices -> model spec, and
-the run directory's name."""
+"""Shared CLI assembly: config -> vocabs -> init matrices -> model spec, the
+raw-image model's pretrained backbone, and the run directory's name."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +55,39 @@ def build_spec(cfg: Config, generator: Optional[torch.Generator] = None
     word_init = load_word_init(cfg, word_vocab)
     spec = build_model(cfg, word_init=word_init, generator=generator)
     return spec, word_vocab, answer_vocab
+
+
+def load_resnet_backbone(cfg: Config) -> Optional[Dict[str, torch.Tensor]]:
+    """The raw-image model's backbone weights and BatchNorm statistics (the
+    ``state_dict`` of its ``resnet``) from the torchvision-format resnet101
+    state dict of ``model.resnet_checkpoint``; None when no checkpoint is
+    configured. Without one the backbone stays random (synthetic runs,
+    tests)."""
+    path = cfg.model.resnet_checkpoint
+    if not path:
+        return None
+    if cfg.model.model != "vqa_end2end":
+        raise ValueError("--model.resnet_checkpoint only applies to the "
+                         "raw-image model (vqa_end2end); use cli.extract "
+                         "--torch_checkpoint for offline extraction")
+    from vqa_transfer_externaldata_torch.models.end2end import (
+        VQAEnd2EndModel)
+    from vqa_transfer_externaldata_torch.models.zoo import resnet_stage_sizes
+    from vqa_transfer_externaldata_torch.ops.resnet import (
+        convert_torch_state_dict)
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    try:
+        converted = convert_torch_state_dict(
+            sd, stage_sizes=resnet_stage_sizes(cfg),
+            stem=VQAEnd2EndModel.stem)
+    except KeyError as e:
+        raise ValueError(
+            f"resnet checkpoint {path} does not match "
+            f"model.resnet_stages={cfg.model.resnet_stages} "
+            f"(missing key {e})") from e
+    log.info("pretrained ResNet backbone loaded from %s", path)
+    return converted
 
 
 def resolve_train_dir(cfg: Config, stage: str) -> str:

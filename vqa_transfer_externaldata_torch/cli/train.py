@@ -28,7 +28,10 @@ evaluated every ``train.eval_every`` steps. Writes
 ``params_final.pt`` (served by ``serving.Predictor`` for a stage-2 run)
 into the run directory and returns its path; a run directory that holds a
 checkpoint is resumed from its latest one unless ``--train.resume false``.
-Runs on CUDA unless ``--device cpu``. Not ported yet, raising
+``vqa_end2end`` trains on raw images (``--data.image_dir`` with the
+artifacts, or synthetic pixels), its backbone converted from
+``--model.resnet_checkpoint`` (a torchvision resnet101 state dict) when
+given. Runs on CUDA unless ``--device cpu``. Not ported yet, raising
 ``NotImplementedError`` with its ROADMAP item: the grain input pipeline
 (item 14).
 """
@@ -44,7 +47,7 @@ from typing import Optional, Sequence
 import torch
 
 from vqa_transfer_externaldata_torch.cli.common import (
-    build_spec, resolve_train_dir)
+    build_spec, load_resnet_backbone, resolve_train_dir)
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import (
     ArrayDataset, load_dataset)
@@ -83,6 +86,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         val_ds = load_dataset(cfg, "val", stage=spec.stage)
     except FileNotFoundError:  # artifacts without a val split
         val_ds = None
+    # The raw-image model's pretrained backbone (weights and BatchNorm
+    # statistics) replaces its random one before any transfer or resume.
+    backbone = load_resnet_backbone(cfg)
+    if backbone is not None:
+        spec.module.resnet.load_state_dict(backbone)
     params = None
     if t.pretrained_param_path:
         # Cross-stage transfer: stage 1's word table, and answer rows

@@ -171,7 +171,8 @@ def synthetic_vlmap_desc(cfg: Config, *, size: Optional[int] = None,
 def synthetic_vqa(cfg: Config, *, size: Optional[int] = None,
                   seed: int = 0, with_scores: bool = False) -> ArrayDataset:
     """Synthetic stage-2 data in the flat layout: every question carries
-    its own [N, C] float32 grid (``features``) and ``pool5``; the answer is
+    its own [N, C] float32 grid (``features``), or for ``vqa_end2end`` its
+    own uint8 image (``images`` [S, S, 3]), and ``pool5``; the answer is
     a fixed projection of pool5, so the loss can be driven below chance.
     Given the same config and seed, the arrays equal the JAX package's
     (whose cache under ``~/.cache/vqa_synth`` is never read here: nothing is
@@ -185,20 +186,27 @@ def synthetic_vqa(cfg: Config, *, size: Optional[int] = None,
     for i, L in enumerate(q_len):
         q_ids[i, :L] = rng.integers(4, d.vocab_size, size=L)
     pool5 = rng.standard_normal((n, d.pool5_dim), dtype=np.float32)
-    # Low-rank grid expansion: a thin random factor times a fixed mixing
-    # matrix gives full-size grids in one BLAS call.
-    rank = 32
-    thin = rng.standard_normal((n * N, rank), dtype=np.float32)
-    mix = np.random.default_rng(99).standard_normal(
-        (rank, d.feature_dim), dtype=np.float32)
-    mix /= np.float32(np.sqrt(rank))
-    grid = (thin @ mix).reshape(n, N, d.feature_dim)
-    grid += pool5[:, None, : d.feature_dim]
+    arrays = {"q_ids": q_ids, "pool5": pool5}
+    if cfg.model.model == "vqa_end2end":
+        # Raw pixels in place of the grid, drawn where the JAX package
+        # draws them, so the stream stays JAX's.
+        arrays["images"] = rng.integers(
+            0, 256, size=(n, d.image_size, d.image_size, 3)).astype(np.uint8)
+    else:
+        # Low-rank grid expansion: a thin random factor times a fixed
+        # mixing matrix gives full-size grids in one BLAS call.
+        rank = 32
+        thin = rng.standard_normal((n * N, rank), dtype=np.float32)
+        mix = np.random.default_rng(99).standard_normal(
+            (rank, d.feature_dim), dtype=np.float32)
+        mix /= np.float32(np.sqrt(rank))
+        grid = (thin @ mix).reshape(n, N, d.feature_dim)
+        grid += pool5[:, None, : d.feature_dim]
+        arrays["features"] = grid
     proj = np.random.default_rng(1234).standard_normal(
         (d.pool5_dim, d.num_answers), dtype=np.float32)
     answer = 4 + (np.argmax(pool5 @ proj, axis=1) % (d.num_answers - 4))
-    arrays = {"q_ids": q_ids, "pool5": pool5, "features": grid,
-              "answer_id": answer.astype(np.int32)}
+    arrays["answer_id"] = answer.astype(np.int32)
     if with_scores:
         scores = np.zeros((n, d.num_answers), np.float32)
         scores[np.arange(n), answer] = 1.0
@@ -345,8 +353,12 @@ def load_dataset(cfg: Config, split: str, stage: str = "vqa"
       region's pool5), stage 2 by ``image_index`` into ``features`` and
       ``pool5``.
 
-    The raw-image inputs of ``vqa_end2end`` (``data.image_dir``) raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    - ``vqa_end2end`` with ``data.image_dir`` joins the table against
+      raw COCO JPEGs instead (:class:`~.ingest.ImageQuestionDataset`):
+      row k of ``image_ids.npy`` in ``data.dataset_dir`` is the image of
+      ``image_index`` k, named for the split's COCO split
+      (``data.coco_split``, or train2014 / val2014 / test2015 from
+      ``split``)."""
     d = cfg.data
     if not d.synthetic:
         return _load_artifacts(cfg, split, stage)
@@ -381,10 +393,6 @@ def _load_artifacts(cfg: Config, split: str, stage: str):
                 f"{d.dataset_dir}; run cli.preprocess or set "
                 "--data.synthetic true")
         path = path_h5
-    if stage == "vqa" and m.model == "vqa_end2end" and d.image_dir:
-        raise NotImplementedError(
-            "raw-image inputs (vqa_end2end with data.image_dir) are not "
-            "ported yet (ROADMAP.md, section 1, item 13)")
     ds = ArrayDataset.load(path)
     stage1_train = stage.startswith("vlmap") and split == "train"
     # Whether a CandidateResampler wraps this split is decided first: it
@@ -412,6 +420,8 @@ def _load_artifacts(cfg: Config, split: str, stage: str):
                 "+ vlmap_meta.json), where counts are built per batch "
                 "instead.")
         ds = ArrayDataset(attach_candidate_counts(ds.arrays, d.vocab_size))
+    if stage == "vqa" and m.model == "vqa_end2end" and d.image_dir:
+        return _image_question_dataset(cfg, split, ds)
     if d.feature_path:
         from vqa_transfer_externaldata_torch.data.features import (
             FeatureStore, JoinedDataset)
@@ -432,6 +442,30 @@ def _load_artifacts(cfg: Config, split: str, stage: str):
             num_candidates=m.num_candidates,
             count_vocab_size=d.vocab_size if m.dense_candidate_loss else 0)
     return ds
+
+
+def _image_question_dataset(cfg: Config, split: str, ds: ArrayDataset):
+    """The raw-image branch of :func:`_load_artifacts`: ``ds``'s table
+    joined by ``image_index`` with the JPEGs of ``data.image_dir``."""
+    from vqa_transfer_externaldata_torch.data.ingest import (
+        ImageQuestionDataset, coco_image_path)
+
+    d = cfg.data
+    ids_path = os.path.join(d.dataset_dir, "image_ids.npy")
+    if not os.path.exists(ids_path):
+        raise FileNotFoundError(
+            f"end2end with data.image_dir needs {ids_path} (store row -> "
+            "COCO image id, written by the extraction tool)")
+    image_ids = np.load(ids_path)
+    # Official COCO names embed the split (COCO_val2014_... for VQA v2 val
+    # questions): derived from the dataset split unless set.
+    coco_split = d.coco_split or {
+        "train": "train2014", "val": "val2014", "test": "test2015",
+        "test-dev": "test2015"}.get(split, split)
+    paths = [coco_image_path(d.image_dir, coco_split, int(i))
+             for i in image_ids]
+    return ImageQuestionDataset(dict(ds.arrays), paths,
+                                image_size=d.image_size)
 
 
 class PrefetchIterator:

@@ -254,29 +254,37 @@ class AdamW:
         return updates, AdamState(count, mu, nu)
 
 
-def make_optimizer(cfg: Config) -> Tuple[AdamW, Callable[[int], float]]:
-    """The configured :class:`AdamW` and its learning-rate schedule."""
+def make_optimizer(cfg: Config, extra_frozen: str = ""
+                   ) -> Tuple[AdamW, Callable[[int], float]]:
+    """The configured :class:`AdamW` and its learning-rate schedule.
+    ``extra_frozen``: names the model freezes itself, added to
+    ``train.freeze_params`` (the Trainer adds ``resnet`` for a model that
+    declares ``freeze_backbone``: a ResNet-101 carries no Adam moments)."""
     t = cfg.train
     if t.adam_mu_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"train.adam_mu_dtype={t.adam_mu_dtype!r}: "
                          "'float32' or 'bfloat16'")
     lr = make_lr_schedule(cfg)
+    frozen_csv = ",".join(s for s in (t.freeze_params, extra_frozen) if s)
     return AdamW(lr, b1=t.adam_beta1, b2=t.adam_beta2, eps=t.adam_eps,
                  weight_decay=t.weight_decay,
                  mu_dtype=dtype_of(t.adam_mu_dtype),
                  max_norm=t.grad_clip_norm,
-                 frozen=_freeze_mask_fn(t.freeze_params)), lr
+                 frozen=_freeze_mask_fn(frozen_csv)), lr
 
 
 @dataclasses.dataclass
 class TrainState:
     """``params`` are the model's own parameters, updated in place;
-    ``rng`` draws the dropout masks."""
+    ``rng`` draws the dropout masks; ``buffers`` are the model's own
+    buffers (a backbone's BatchNorm statistics), which no step changes
+    and checkpoints carry."""
 
     step: int
     params: Dict[str, torch.nn.Parameter]
     opt_state: AdamState
     rng: torch.Generator
+    buffers: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -324,7 +332,9 @@ class Trainer:
             # The store is L2-normalized once at upload (_prepare_resident),
             # so the (store, rows) path skips the per-cell norm.
             model.store_prenormalized = True
-        self.tx, self.lr_fn = make_optimizer(cfg)
+        self.tx, self.lr_fn = make_optimizer(
+            cfg, extra_frozen=("resnet" if getattr(
+                model, "freeze_backbone", False) else ""))
         self.train_dir = train_dir or t.train_dir
         self.ckpt = CheckpointManager(self.train_dir,
                                       keep=t.keep_checkpoints,
@@ -341,7 +351,8 @@ class Trainer:
         live = dict(self.model.named_parameters())
         rng = torch.Generator(device=self.device)
         rng.manual_seed(self.cfg.train.seed + 1)
-        return TrainState(0, live, self.tx.init(live), rng)
+        return TrainState(0, live, self.tx.init(live), rng,
+                          dict(self.model.named_buffers()))
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:
@@ -353,12 +364,23 @@ class Trainer:
                    ) -> Tuple[TrainState, Tensors]:
         """One optimizer step on a device batch; returns the new state and
         the step's metrics as device tensors (no host synchronization)."""
-        names = list(state.params)
         outputs = self.model(*self.spec.inputs(batch), train=True,
                              generator=state.rng)
         loss, metrics = self.spec.loss(outputs, batch)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [state.params[k] for k in names])))
+        # A frozen parameter the loss cannot reach (a backbone run under
+        # no_grad) gets no gradient and no update, as its zeroed one would
+        # give; it adds nothing to the clip norm. A live one the loss
+        # cannot reach is a fault of the model, and raises.
+        every = list(state.params)
+        raw = torch.autograd.grad(loss, [state.params[k] for k in every],
+                                  allow_unused=True)
+        unreached = [k for k, g in zip(every, raw)
+                     if g is None and not self.tx.frozen(k)]
+        if unreached:
+            raise RuntimeError(
+                f"the loss does not reach the live parameters {unreached}")
+        grads = {k: g for k, g in zip(every, raw) if g is not None}
+        names = list(grads)
         metrics.pop("weight", None)  # eval-weighting aid, not a metric
         metrics["grad_norm"] = global_norm(list(grads.values()))
         # Filled on the device: a host scalar copied up would wait for the
@@ -370,8 +392,8 @@ class Trainer:
                                                 state.params)
             torch._foreach_add_([state.params[k] for k in names],
                                 [updates[k] for k in names])
-        return (TrainState(state.step + 1, state.params, opt_state,
-                           state.rng), metrics)
+        return (dataclasses.replace(state, step=state.step + 1,
+                                    opt_state=opt_state), metrics)
 
     def _eval_step(self, batch: Dict[str, Any]
                    ) -> Tuple[torch.Tensor, Tensors]:

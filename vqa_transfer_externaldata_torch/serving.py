@@ -3,8 +3,10 @@
     predictor = Predictor("runs/vqa")               # on CUDA
     answers = predictor.answer(features, ["what color is the dog?", ...])
 
-``features`` are [N, cells, C] grids for the attention models and [N, C]
-pool5 vectors for ``vqa_baseline`` (``Predictor.visual_key`` names which).
+``features`` are [N, cells, C] grids for the attention models, [N, C]
+pool5 vectors for ``vqa_baseline`` and [N, S, S, 3] uint8 images for
+``vqa_end2end`` (``Predictor.visual_key`` names which; uint8 travels as
+uint8).
 The eval forward runs the fused GRU and attention kernels on CUDA, at a
 fixed batch size (short requests are padded with copies of their first row
 and trimmed), and decodes answers through the run's answer vocab.
@@ -168,7 +170,8 @@ class Predictor:
         return [self.answer_vocab.tokens[int(p)] for p in preds]
 
     def answer(self, visual: Visual, questions: Sequence[str]) -> List[str]:
-        """``visual``: [N, grid_cells, C] features (the attention models) or
-        [N, C] pool5 (``vqa_baseline``), host numpy or a ``torch.Tensor``
+        """``visual``: [N, grid_cells, C] features (the attention models),
+        [N, C] pool5 (``vqa_baseline``) or [N, S, S, 3] uint8 images
+        (``vqa_end2end``), host numpy or a ``torch.Tensor``
         (one already on the device skips the upload)."""
         return self.result(self.submit(visual, questions))

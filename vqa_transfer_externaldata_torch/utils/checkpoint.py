@@ -31,8 +31,9 @@ class CheckpointManager:
     save call writes, later ones every ``save_every`` steps, ``force``
     always; the newest ``keep`` stay. Each file is written atomically (a
     temporary file, then a rename) and holds what a resumed run needs to
-    continue bit for bit: the parameters, the AdamW state (count, mu, nu),
-    the step and the dropout generator's state. Saves are synchronous."""
+    continue bit for bit: the parameters, the model's buffers (BatchNorm
+    statistics, where it has any), the AdamW state (count, mu, nu), the
+    step and the dropout generator's state. Saves are synchronous."""
 
     _NAME = re.compile(r"ckpt_(\d+)\.pt")
 
@@ -67,6 +68,9 @@ class CheckpointManager:
                    "opt": {"count": int(opt.count), "mu": cpu(opt.mu),
                            "nu": cpu(opt.nu)},
                    "rng": state.rng.get_state()}
+        buffers = getattr(state, "buffers", None)
+        if buffers:
+            payload["buffers"] = cpu(buffers)
         path = self._path(step)
         tmp = f"{path}.tmp"
         torch.save(payload, tmp)
@@ -77,8 +81,9 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """``state`` with the checkpoint of ``step`` (default: the latest)
-        copied in: the parameters in place (they are the model's own), the
-        optimizer moments on their devices, the generator's state."""
+        copied in: the parameters and buffers in place (they are the
+        model's own), the optimizer moments on their devices, the
+        generator's state."""
         step = self.latest_step() if step is None else step
         if step is None or not os.path.exists(self._path(step)):
             raise FileNotFoundError(
@@ -89,6 +94,8 @@ class CheckpointManager:
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(ck["params"][k])
+            for k, b in ck.get("buffers", {}).items():
+                state.buffers[k].copy_(b)
         opt = state.opt_state
         moved = lambda d, like: {k: v.to(like[k].device) for k, v in d.items()}
         opt = dataclasses.replace(opt, count=ck["opt"]["count"],
