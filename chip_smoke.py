@@ -170,7 +170,34 @@ Run from the repository root. Phases (any failure exits non-zero):
    plain path, p50); then, where PIL imports, seeded JPEGs through
    ``cli.extract`` (whole images and ``--regions`` crops, read back with
    ``FeatureStore``), ``cli.train`` streamed through
-   ``ImageQuestionDataset`` and ``cli.predict --image``.
+   ``ImageQuestionDataset`` and ``cli.predict --image``; and the model at
+   ``train.steps_per_call`` 2 against eager (the backbone in the captured
+   steps), 8 steps each from one initialization, dropout 0: parameters,
+   wall ms a step, a profiler window over 2 more steps;
+23. ``train.steps_per_call``: k training steps captured in one CUDA graph
+   and replayed once a call, at full width on the main corpus. The main
+   path (gather-free, K1/K3/K4/K5) eager (k = 1) and at k = 4 and 8 from
+   one initialization, dropout 0, 32 steps each: the graphed runs'
+   parameters against the eager run's (bit-equal, or within 2^-9 of the
+   largest change), the wall ms a step on CUDA events over steps 8-24,
+   and the Trainer's own profiler window over steps 24-32 read by
+   ``tools/trace_summary`` (device busy and idle share, checked against
+   CUDA events); dropout on at k = 4: 16 steps with a checkpoint at step 8,
+   resumed from it, bit-equal to the unbroken run, and at learning rate 0
+   two replays on one batch give different losses (equal at dropout 0);
+   stage 1 (K6/K7), the gathered path (K1/K2/K3/K8) and the streamed loop
+   (``Trainer.fit`` on host batches of the flat layout's float32 grids,
+   K1/K2/K3/K8) at k = 4 against eager, 12 timed steps and a profiler
+   window over 8 more; ``train.remat`` on against off (dropout on, the
+   peak device memory of each) and ``train.sort_batch_by_image`` on
+   against off (losses within 1e-2, parameter changes at cosine 0.999).
+   Launches are counted at each graph's warm-up and capture (k steps'
+   worth each); every profiler window (eager and graphed) must hold each
+   of its path's kernels' device records launches-a-step times its steps,
+   and the launches a graphed path ran are the warm-up's plus, each
+   replay, a replay's records in its trace. A window that lost device
+   records (``tools/trace_summary``'s check) is taken again once, then
+   fails the phase.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -349,6 +376,53 @@ E2E_JPEGS, E2E_REGIONS, E2E_JPEG_STEPS = 64, 96, 4
 #     wrong layer (a dropped BatchNorm, a stride, a stem tap) moves the grid
 #     by a large share of itself.
 TOL_BACKBONE_MEAN, TOL_BACKBONE_MAX, BACKBONE_COS = 2.0 ** -5, 2.0 ** -4, 0.999
+# Phase 23, train.steps_per_call: the graphed step (a CUDA graph of k steps,
+# replayed once a call) at each k of SPC_KS against the eager step (k = 1)
+# on the main path, SPC_STEPS steps a run, the wall time a step on CUDA
+# events between the call boundaries SPC_TIMED (past the capture) and a
+# profiler window over the SPC_PROFILE_STEPS after them; stage 1, the
+# gathered path, remat and sort_batch_by_image over SPC_SIDE_STEPS steps
+# (timed between SPC_SIDE_TIMED); a dropout run of SPC_RESUME_STEPS with
+# a checkpoint at SPC_RESUME_AT, resumed from it.
+SPC_KS = (4, 8)
+SPC_STEPS, SPC_TIMED, SPC_PROFILE_STEPS = 32, (8, 24), 8
+SPC_SIDE_STEPS, SPC_SIDE_TIMED = 12, (4, 12)
+SPC_RESUME_STEPS, SPC_RESUME_AT = 16, 8
+# The raw-image model at k = E2E_SPC_K against eager (phase 22):
+# E2E_SPC_STEPS steps, timed between E2E_SPC_TIMED, then a profiler window
+# over 2 more.
+E2E_SPC_K, E2E_SPC_STEPS, E2E_SPC_TIMED = 2, 8, (2, 6)
+# The port's kernels in a profiler trace by the wrapper whose counter
+# counts their launches: the prefixes of their names as
+# tools/trace_summary.py::kernel_name gives them. No two wrappers of one
+# training path share a kernel.
+TRACE_KERNELS = {
+    "gru_fwd": ("gru_seq_kernel",), "bigru_fwd": ("gru_seq_kernel",),
+    "gru_bwd": ("gru_bptt_kernel", "gru_duh_pipe_kernel", "gru_dbhn_kernel"),
+    "bigru_bwd": ("gru_bptt_kernel", "gru_duh_pipe_kernel",
+                  "gru_dbhn_kernel"),
+    "attention_fwd": ("score_tile::kernel", "attn_wsum_kernel"),
+    "attention_bwd": ("attn_bwd_dz_kernel", "attn_bwd_fold_kernel",
+                      "attn_dwv::"),
+    "attention_resident_fwd": ("score_tile::kernel", "attn_res_wsum_kernel"),
+    "attention_resident_bwd": ("attn_res_bwd_rows_kernel", "attn_dwv::"),
+}
+# Graphed against eager parameters (and remat against none): expected bit
+#     for bit, the same deterministic kernels in the same order on the same
+#     inputs. Should cuBLAS take another algorithm on the capture stream,
+#     a GEMM's sums change order, and a last-bit difference flips a bf16
+#     rounding (2^-8 of a value) ahead of later layers; Adam turns that
+#     into update differences well below a step's size, so the largest
+#     parameter difference is held to 2^-9 of the largest parameter change
+#     of the run (a wrong step, batch or mask moves a parameter by a whole
+#     update).
+SPC_PARAM_REL = 2.0 ** -9
+# sort_batch_by_image permutes each batch: every reduction over it is the
+#     same sum in another order, so the runs differ by rounding that Adam
+#     amplifies where a gradient entry is near zero. The logged losses are
+#     held to TOL_LOSS and the runs' parameter changes (every parameter as
+#     one vector) to cosine GRAD_COS; a batch trained on other questions
+#     moves them far apart.
 
 
 class PhaseError(Exception):
@@ -2804,7 +2878,38 @@ def phase_end2end(report: dict, dev) -> dict:
         state, out["profile"] = profile_fit(trainer, ds, state,
                                             PROFILE_STEPS)
         trainer.close()
-        del trainer, state, ds, spec
+        del trainer, state
+
+        # --- 2b. train.steps_per_call: graphed against eager --------------
+        # The backbone runs in the captured steps: preprocess_images, the
+        # 104 convolutions (cuDNN) and BatchNorm/ReLU passes under no_grad.
+        def e2e_spec(c):
+            sp, _, _ = build_spec(c, generator=torch.Generator().manual_seed(
+                c.train.seed))
+            sp.module.resnet.load_state_dict(backbone)
+            return sp
+
+        e2e_step = {"gru_fwd": 1, "gru_bwd": 3, "attention_fwd": 2,
+                    "attention_bwd": 4}
+        pair = {k: spc_run(cfg.replace_flat({
+            "model.dropout": 0.0, "train.steps_per_call": k,
+            "train.train_dir": os.path.join(root, f"spc_k{k}"),
+            "train.max_steps": E2E_SPC_STEPS + 2,
+            "train.log_every": E2E_SPC_K,
+            "train.profile_start": E2E_SPC_STEPS,
+            "train.profile_steps": 2}), ds, "end2end", e2e_step,
+            timed=E2E_SPC_TIMED, build=e2e_spec) for k in (1, E2E_SPC_K)}
+        out["steps_per_call"] = {
+            "k": E2E_SPC_K,
+            "wall_ms_per_step": {k: r["wall_ms_per_step"]
+                                 for k, r in pair.items()},
+            "launches": {k: r["launches"] for k, r in pair.items()},
+            "window_records": {k: r["window_records"]
+                               for k, r in pair.items()},
+            "against_eager": spc_compare(pair[1], pair[E2E_SPC_K],
+                                         f"end2end k={E2E_SPC_K} against "
+                                         "eager")}
+        del pair, ds, spec
 
         # --- 3. cli.eval, then Predictor on uint8 images -----------------
         reset_counts()
@@ -3155,116 +3260,519 @@ def phase_probes(report: dict, dev) -> dict:
             "launches": read_counts()}
 
 
-def profile_calls(fn, n: int = 5, what: str = "requests") -> dict:
-    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler),
-    and the share of the host-clock wall time in which no kernel ran."""
+def trace_launches(res: dict, per_step: dict) -> dict:
+    """The device records, in a profiler window's summary (all its
+    kernels: ``top=None``), of the kernels each wrapper of ``per_step``
+    launches (TRACE_KERNELS)."""
+    return {op: sum(c for name, c in res["kernel_records"].items()
+                    if name.startswith(TRACE_KERNELS[op]))
+            for op in per_step}
+
+
+def spc_run(cfg, ds, what: str, per_step: dict, timed=None,
+            ckpt: bool = False, restore_at: Optional[int] = None,
+            streamed: bool = False, build=None) -> dict:
+    """One run of ``cfg`` (``train.steps_per_call`` k) from its model's
+    seeded initialization (``build(cfg)`` gives the spec; default
+    ``build_model``): ``Trainer.fit_resident`` on ``ds``, or with
+    ``streamed`` ``Trainer.fit`` on its host batches; the launch counts
+    from 0. At k = 1 every step is eager and counts ``per_step``; at k > 1
+    the run's calls are whole graphs of k steps: the graph's warm-up and
+    its capture each count k steps' launches, and each replay runs them
+    uncounted. Where the config has a profiler window, the window's trace
+    must hold every kernel of ``per_step`` ``per_step`` times a step (at
+    k > 1 that is what the replays in it ran), and the launches the path
+    ran are the warm-up's plus, for each replay, the records a replay has
+    in the trace; a window that lost device records takes the run again,
+    once. Returns the initial and final parameters (host copies), the
+    logged losses, the counts, the launches, the replays, the wall ms a
+    step between the call boundaries ``timed`` (CUDA events recorded after
+    each call), the peak device memory of the run and, from the first call
+    boundary on, what the steps allocate above what stays allocated
+    between them (``step_peak_gb``: the dataset's upload and the first
+    capture come before it), and the window's summary. ``ckpt`` keeps the
+    checkpoint policy (else no checkpoint is written); ``restore_at``
+    restores that step's checkpoint of the run directory first."""
+    for last_try in (False, True):
+        out = spc_attempt(cfg, ds, what, per_step, timed, ckpt, restore_at,
+                          streamed, build, last_try)
+        if out is not None:
+            return out
+
+
+def spc_attempt(cfg, ds, what, per_step, timed, ckpt, restore_at, streamed,
+                build, last_try) -> Optional[dict]:
+    """One try of :func:`spc_run`; None when its window lost records."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.tools import trace_summary
 
+    t = cfg.train
+    k = max(1, t.steps_per_call)
+    spec = (build(cfg) if build is not None else build_model(
+        cfg, generator=torch.Generator().manual_seed(t.seed)))
+    trainer = Trainer(cfg, spec, train_dir=t.train_dir)
+    state = trainer.init_state()
+    if restore_at is not None:
+        state = trainer.restore(state, restore_at)
+    host = lambda: {n: v.detach().cpu().clone()
+                    for n, v in spec.module.state_dict().items()}
+    out = {"k": k, "init": host()}
+    marks, save = {}, trainer.ckpt.save
+
+    def mark(step, st, force=False):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if not marks:
+            torch.cuda.synchronize()
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        marks[step] = ev
+        return save(step, st, force=force) if ckpt else False
+
+    trainer.ckpt.save = mark
+    start = state.step
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if streamed:
+        state = trainer.fit(ds.batches(t.batch_size, seed=t.seed), state)
+    else:
+        state = trainer.fit_resident(ds, state)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out["peak_gb"] = max(out["peak_gb"], peak)
+    out["step_peak_gb"] = peak - out["resident_gb"]
+    counts = read_counts()
+    steps = state.step - start
+    check(state.step == t.max_steps and steps % k == 0,
+          f"{what}: trained to step {state.step}")
+    label = (f"{what}, k={k}: " + ("eager steps" if k == 1 else
+                                   "the graph's warm-up and capture"))
+    check_launches(counts, {n: c * (steps if k == 1 else 2 * k)
+                            for n, c in per_step.items()}, label)
+    replays = trainer.graph_replays[k]
+    check((k == 1 and not trainer.graph_replays) or (
+        dict(trainer.graph_captures) == {k: 1} and replays == steps // k),
+        f"{what}: {dict(trainer.graph_captures)} captures, "
+        f"{dict(trainer.graph_replays)} replays")
+    out["counted"] = counts
+    out["replays"] = replays
+    out["launches"] = counts if k == 1 else None
+    if t.profile_steps:
+        n = t.profile_steps
+        res = trace_summary.summarize(os.path.join(t.train_dir, "profile"),
+                                      top=None)
+        if not window_ok(res, n, f"{what}, k={k}", last_try):
+            trainer.close()
+            return None
+        out["profile"] = summarize(res, n, f"{what} steps (k={k})")
+        records = trace_launches(res, per_step)
+        want = {op: c * n for op, c in per_step.items()}
+        port = {name: c for name, c in res["kernel_records"].items()
+                if name.startswith(tuple(
+                    p for ps in TRACE_KERNELS.values() for p in ps))}
+        print(f"{what}, k={k}: the profiler window over {n} steps holds "
+              f"{records} records of the path's kernels (expected {want})")
+        check(records == want and n % k == 0,
+              f"{what}, k={k}: the window's records {records}, expected "
+              f"{want}; the port's kernels in it: {port}")
+        out["window_records"] = records
+        if k > 1:
+            # The warm-up ran k steps' launches (half of those counted);
+            # each replay ran what a replay has in the trace.
+            out["launches"] = {op: counts[op] // 2 + replays * (
+                records.get(op, 0) * k // n) for op in counts}
+    if timed is not None:
+        a, b = timed
+        out["wall_ms_per_step"] = marks[a].elapsed_time(marks[b]) / (b - a)
+    with open(os.path.join(t.train_dir, "metrics.jsonl")) as fh:
+        out["losses"] = {r["step"]: r["train/loss"] for r in map(json.loads, fh)
+                         if "train/loss" in r}
+    check(all(np.isfinite(list(out["losses"].values()))),
+          f"{what}: losses {out['losses']}")
+    out["params"] = host()
+    print(f"{what}, k={k}: {steps} steps in {out['seconds']:.2f} s, "
+          f"{replays} replays, wall "
+          + (f"{out['wall_ms_per_step']:.3f} ms a step over steps "
+             f"{timed[0]}-{timed[1]}" if timed else "not timed")
+          + f", peak {out['peak_gb']:.2f} GB, steps' own peak "
+          f"{out['step_peak_gb']:.3f} GB; losses {out['losses']}")
+    trainer.close()
+    return out
+
+
+def spc_compare(a: dict, b: dict, what: str) -> dict:
+    """The parameters of two runs from one initialization: bit-equal, or
+    the largest difference within SPC_PARAM_REL of the largest change of
+    ``a``'s run."""
+    import torch
+
+    pa, pb, p0 = a["params"], b["params"], a["init"]
+    equal = all(torch.equal(pa[n], pb[n]) for n in pa)
+    diff = max((pa[n].float() - pb[n].float()).abs().max().item()
+               for n in pa)
+    change = max((pa[n].float() - p0[n].float()).abs().max().item()
+                 for n in pa)
+    out = {"bit_equal": equal, "max_abs_diff": diff, "max_change": change,
+           "limit": SPC_PARAM_REL * change}
+    print(f"{what}: parameters {'bit-equal' if equal else 'differ'}; "
+          f"largest difference {diff:.3e}, largest change {change:.3e}, "
+          f"limit {out['limit']:.3e}")
+    check(equal or diff <= out["limit"], f"{what}: {out}")
+    return out
+
+
+def phase_steps_per_call(report: dict, dev) -> dict:
+    """``train.steps_per_call``: k training steps captured in one CUDA
+    graph and replayed once a call, at full width. The main path (the
+    gather-free store, K1/K3/K4/K5) eager and at each k of SPC_KS from one
+    initialization, dropout 0: parameters against the eager run's, wall
+    ms a step on CUDA events, a profiler window (device busy and idle
+    share, checked against CUDA events); dropout on at k = 4: a checkpoint
+    resumed equals the unbroken run bit for bit, and with the learning rate
+    at 0 two replays on one batch give different losses (fresh masks),
+    equal ones with dropout 0; ``train.remat`` on against off (dropout on,
+    peak memory of each) and ``train.sort_batch_by_image`` on against off;
+    stage 1 (K6/K7), the gathered path (K2/K3/K8) and the streamed loop
+    (``Trainer.fit``, K1/K2/K3/K8) at k = 4 against eager, each with a
+    profiler window. Launches are counted at each graph's warm-up and
+    capture; a replay's launches are read from the window's trace
+    (:func:`spc_run`)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+
+    main_step = {"gru_fwd": 1, "gru_bwd": 3, "attention_resident_fwd": 2,
+                 "attention_resident_bwd": 3}
+    out = {}
+    rate = Config().model.dropout
+    k4 = SPC_KS[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spc_") as tmp:
+        def cfg_of(tag, steps, **over):
+            return stage2_config(os.path.join(tmp, tag), steps, **{
+                "model.dropout": 0.0, "train.log_every": 4, **over})
+
+        ds = load_dataset(cfg_of("data", SPC_STEPS), "train")
+
+        # --- the main path: eager and graphed ------------------------------
+        main = {}
+        for k in (1, *SPC_KS):
+            main[k] = spc_run(cfg_of(f"main_k{k}", SPC_STEPS, **{
+                "train.steps_per_call": k,
+                "train.profile_start": SPC_TIMED[1],
+                "train.profile_steps": SPC_PROFILE_STEPS}), ds,
+                "main path", main_step, timed=SPC_TIMED)
+        out["main"] = {}
+        for k, run in main.items():
+            out["main"][k] = {key: run[key] for key in (
+                "wall_ms_per_step", "launches", "counted", "replays",
+                "losses", "profile", "peak_gb", "step_peak_gb", "seconds")}
+            if k > 1:
+                out["main"][k]["against_eager"] = spc_compare(
+                    main[1], run, f"main path k={k} against eager")
+        del main
+
+        # --- dropout on, k = 4: resume across a graphed checkpoint ---------
+        drop = {"train.steps_per_call": k4, "model.dropout": rate,
+                "train.checkpoint_every": SPC_RESUME_AT}
+        full = spc_run(cfg_of("dropout", SPC_RESUME_STEPS, **drop), ds,
+                       "dropout", main_step, ckpt=True)
+        resumed_dir = os.path.join(tmp, "dropout_resumed")
+        os.makedirs(os.path.join(resumed_dir, "ckpt"))
+        name = f"ckpt_{SPC_RESUME_AT}.pt"
+        with open(os.path.join(tmp, "dropout", "ckpt", name), "rb") as src, \
+                open(os.path.join(resumed_dir, "ckpt", name), "wb") as dst:
+            dst.write(src.read())
+        stream = ds.index_batches
+        ds.index_batches = lambda *a, **kw: itertools.islice(
+            stream(*a, **kw), SPC_RESUME_AT, None)
+        try:
+            resumed = spc_run(cfg_of("dropout_resumed", SPC_RESUME_STEPS,
+                                     **drop), ds, "dropout, resumed",
+                              main_step, ckpt=True, restore_at=SPC_RESUME_AT)
+        finally:
+            del ds.index_batches
+        same = all(torch.equal(full["params"][n], resumed["params"][n])
+                   for n in full["params"])
+        later = {s: v for s, v in full["losses"].items() if s > SPC_RESUME_AT}
+        print(f"dropout {rate}, k={k4}: resumed from step {SPC_RESUME_AT}, "
+              f"parameters {'bit-equal' if same else 'DIFFER'} to the "
+              f"unbroken run; losses {resumed['losses']} against {later}")
+        check(same and resumed["losses"] == later,
+              "a run resumed from a graphed checkpoint differs from the "
+              "unbroken run")
+        out["dropout_resume"] = {"bit_equal": True, "losses": full["losses"],
+                                 "resumed_losses": resumed["losses"],
+                                 "counted": full["counted"]}
+        del full, resumed
+
+        # --- fresh masks a replay: one batch, learning rate 0 --------------
+        one = next(stream(B_TRAIN, seed=Config().train.seed))
+        ds.index_batches = lambda *a, **kw: itertools.repeat(one)
+        masks = {}
+        try:
+            for r in (rate, 0.0):
+                run = spc_run(cfg_of(f"masks_{r}", 2 * k4, **{
+                    "train.steps_per_call": k4, "model.dropout": r,
+                    "train.learning_rate": 0.0}), ds,
+                    f"one batch at lr 0, dropout {r}", main_step)
+                masks[r] = [run["losses"][k4], run["losses"][2 * k4]]
+        finally:
+            del ds.index_batches
+        print(f"two replays on one batch at lr 0: losses {masks[rate]} with "
+              f"dropout {rate}, {masks[0.0]} without")
+        check(masks[rate][0] != masks[rate][1]
+              and masks[0.0][0] == masks[0.0][1],
+              f"replays do not draw fresh masks: {masks}")
+        out["replay_masks"] = {str(r): v for r, v in masks.items()}
+
+        # --- remat on against off, k = 1, dropout on -----------------------
+        remat = {}
+        for on in (False, True):
+            # The recompute in the backward pass launches the forward's
+            # kernels (K1, K4) a second time.
+            remat[on] = spc_run(cfg_of(f"remat_{on}", SPC_SIDE_STEPS, **{
+                "model.dropout": rate, "train.remat": on}), ds,
+                f"remat {on}", dict(main_step, **({
+                    "gru_fwd": 2, "attention_resident_fwd": 4} if on
+                    else {})), timed=SPC_SIDE_TIMED)
+        out["remat"] = {
+            "peak_gb": {str(on): remat[on]["peak_gb"] for on in remat},
+            "step_peak_gb": {str(on): remat[on]["step_peak_gb"]
+                             for on in remat},
+            "wall_ms_per_step": {str(on): remat[on]["wall_ms_per_step"]
+                                 for on in remat},
+            "against_off": spc_compare(remat[False], remat[True],
+                                       "remat on against off")}
+        print(f"remat: peak device memory {remat[True]['peak_gb']:.3f} GB "
+              f"on, {remat[False]['peak_gb']:.3f} GB off (the upload's); "
+              f"the steps' own peak {remat[True]['step_peak_gb']:.3f} GB "
+              f"on, {remat[False]['step_peak_gb']:.3f} GB off")
+        del remat
+
+        # --- sort_batch_by_image on against off, dropout 0 -----------------
+        runs = {}
+        for on in (False, True):
+            runs[on] = spc_run(cfg_of(f"sort_{on}", SPC_SIDE_STEPS, **{
+                "train.sort_batch_by_image": on}), ds,
+                f"sort_batch_by_image {on}", main_step,
+                timed=SPC_SIDE_TIMED)
+        loss_diff = max(abs(runs[True]["losses"][s] - runs[False]["losses"][s])
+                        for s in runs[False]["losses"])
+        delta = [torch.cat([(r["params"][n] - r["init"][n]).double()
+                            .flatten() for n in sorted(r["params"])])
+                 for r in (runs[False], runs[True])]
+        cos = torch.nn.functional.cosine_similarity(delta[0], delta[1],
+                                                    0).item()
+        print(f"sort_batch_by_image: losses within {loss_diff:.3e} (limit "
+              f"{TOL_LOSS}), parameter changes at cosine {cos:.6f} (bound "
+              f"{GRAD_COS})")
+        check(loss_diff <= TOL_LOSS and cos >= GRAD_COS,
+              "sort_batch_by_image changes training")
+        out["sort_batch_by_image"] = {
+            "loss_max_abs_diff": loss_diff, "change_cos": cos,
+            "wall_ms_per_step": {str(on): runs[on]["wall_ms_per_step"]
+                                 for on in runs}}
+        del runs
+
+        # --- stage 1, the gathered path and the streamed loop at k = 4 ----
+        # Each run: SPC_SIDE_STEPS steps (timed between SPC_SIDE_TIMED),
+        # then a profiler window over SPC_PROFILE_STEPS more.
+        side = {"model.dropout": 0.0, "train.log_every": 4,
+                "train.max_steps": SPC_SIDE_STEPS + SPC_PROFILE_STEPS,
+                "train.profile_start": SPC_SIDE_STEPS,
+                "train.profile_steps": SPC_PROFILE_STEPS}
+        gathered_step = {"gru_fwd": 1, "attention_fwd": 2, "gru_bwd": 3,
+                         "attention_bwd": 4}
+        for tag, per_step, make, streamed in (
+                ("stage1", {"bigru_fwd": 1, "bigru_bwd": 3},
+                 lambda k: stage1_config(os.path.join(tmp, f"s1_k{k}"),
+                                         1).replace_flat({
+                     **side, "train.steps_per_call": k}), False),
+                ("gathered", gathered_step,
+                 lambda k: cfg_of(f"gathered_k{k}", 1, **{
+                     **side, "train.resident_fused_attention": False,
+                     "train.steps_per_call": k}), False),
+                # Trainer.fit on host batches of the flat layout (a
+                # float32 grid a question, cast to bf16 as it is staged):
+                # the stacked batches go into the graph's static inputs.
+                ("streamed", gathered_step,
+                 lambda k: cfg_of(f"streamed_k{k}", 1, **{
+                     **side, "data.synthetic_layout": "flat",
+                     "data.synthetic_size": STREAM_QUESTIONS,
+                     "train.device_data_cache": False,
+                     "train.steps_per_call": k}), True)):
+            side_ds = (load_dataset(make(1), "train", stage="vlmap_desc")
+                       if tag == "stage1" else
+                       load_dataset(make(1), "train") if streamed else ds)
+            pair = {k: spc_run(make(k), side_ds, tag, per_step,
+                               timed=SPC_SIDE_TIMED, streamed=streamed)
+                    for k in (1, k4)}
+            out[tag] = {
+                "wall_ms_per_step": {k: r["wall_ms_per_step"]
+                                     for k, r in pair.items()},
+                "launches": {k: r["launches"] for k, r in pair.items()},
+                "window_records": {k: r["window_records"]
+                                   for k, r in pair.items()},
+                "profile": {k: r["profile"] for k, r in pair.items()},
+                "replays": {k: r["replays"] for k, r in pair.items()},
+                "against_eager": spc_compare(pair[1], pair[k4],
+                                             f"{tag} k={k4} against eager")}
+            del pair, side_ds
+    return out
+
+
+def profiled(fn, runs: int, top: Optional[int] = 20) -> dict:
+    """``fn()`` (``runs`` calls' worth of work) in a
+    ``utils.tracing.TraceWindow`` (torch.profiler, CUDA events around it):
+    its trace written to a temporary directory and read by the port's
+    ``tools/trace_summary`` (the one reader of traces), with the events'
+    time for its check of lost device records."""
+    import torch
+    from vqa_transfer_externaldata_torch.tools import trace_summary
+    from vqa_transfer_externaldata_torch.utils import tracing
+
+    window = tracing.TraceWindow(
+        torch.device("cuda", torch.cuda.current_device()))
+    window.open()
     fn()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, host = {}, {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and on_device(e):
-            name = kernel_name(e.key)
-            kernels[name] = kernels.get(name, 0.0) + us / n
-        elif e.key.startswith("aten::") or e.key.startswith("autograd::"):
-            host[e.key] = host.get(e.key, 0.0) + e.self_cpu_time_total / n
-    return summarize(kernels, host, n, wall_us, what)
+    event_ms = window.close()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = tracing.write_trace(window.prof, tmp, "calls")
+        return trace_summary.summarize(path, steps=runs, top=top,
+                                       cuda_event_ms=event_ms)
 
 
-def on_device(e) -> bool:
-    return str(getattr(e, "device_type", "")).endswith("CUDA")
-
-
-def kernel_name(key: str) -> str:
-    return key.replace("void ", "").replace(
-        "(anonymous namespace)::", "").split("(")[0][:100]
-
-
-def summarize(kernels: dict, host: dict, n: int, wall_us: float,
-              what: str) -> dict:
-    busy = sum(kernels.values()) * n
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
-    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
-    out = {"calls": n, "wall_ms_per_call": wall_us / n / 1e3,
-           "kernel_ms_per_call": busy / n / 1e3 if busy else None,
-           "device_idle_share": 1 - busy / wall_us if busy else None,
-           "top_kernels_us_per_call": dict(top),
-           "top_host_ops_self_us_per_call": dict(top_host)}
+def summarize(res: dict, n: int, what: str) -> dict:
+    """A trace summary (``tools/trace_summary``) of ``n`` calls or steps a
+    call at a time: wall (the trace's window), device busy and idle share,
+    the top kernels and host ops by self time, and the check of lost
+    device events against CUDA events."""
+    lost = res["lost_events"]
+    busy = res["device_busy_ms"]
+    out = {"calls": n, "wall_ms_per_call": res["window_ms"] / n,
+           "kernel_ms_per_call": None if busy is None else busy / n,
+           "device_idle_share": res["device_idle_share"],
+           "top_kernels_us_per_call": {
+               k: v * 1e3 / n for k, v in list(res["kernels_ms"].items())[:20]},
+           "top_host_ops_self_us_per_call": {
+               k: v * 1e3 / n
+               for k, v in list(res["host_ops_self_ms"].items())[:8]},
+           "cuda_event_ms_per_call": (None if res["cuda_event_ms"] is None
+                                      else res["cuda_event_ms"] / n),
+           "lost_events": lost,
+           "unmatched_launches": res["unmatched_by_op"],
+           "unmatched_at_ms": res["unmatched_at_ms"]}
     print(f"profile of {n} {what}: {json.dumps(out)}")
     return out
 
 
+def profile_calls(fn, n: int = 5, what: str = "requests") -> dict:
+    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler,
+    read by ``tools/trace_summary``), and the share of the window in which
+    no kernel ran; a window that lost device records is taken again,
+    once."""
+    fn()
+
+    def calls():
+        for _ in range(n):
+            fn()
+
+    for last_try in (False, True):
+        res = profiled(calls, n)
+        if window_ok(res, n, what, last_try):
+            break
+    return summarize(res, n, what)
+
+
 def kernel_device_ms(fn, prefix: str, buf, runs: int = RUNS) -> float:
     """Device ms a call of ``fn`` spends in the kernels whose name starts
-    with ``prefix`` (torch.profiler), L2 flushed before each of ``runs``
-    calls, after warm-up."""
+    with ``prefix`` (torch.profiler, read by ``tools/trace_summary``), L2
+    flushed before each of ``runs`` calls, after warm-up."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(runs):
             flush_l2(buf)
             fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or 0
-             for e in prof.key_averages()
-             if on_device(e) and kernel_name(e.key).startswith(prefix))
-    check(us > 0, f"the profile shows no {prefix} launch")
-    return us / runs / 1e3
+
+    for last_try in (False, True):
+        res = profiled(calls, runs, top=None)
+        names = [k for k in res["kernels_ms"] if k.startswith(prefix)]
+        records = sum(res["kernel_records"][k] for k in names)
+        # Each call's launches of the kernel have their records: the same
+        # number a call (a lost record elsewhere in the window does not
+        # touch this sum; one of its own does). A window that lost some
+        # is taken again, once.
+        msg = (f"the profile of {prefix} holds {records} records over "
+               f"{runs} calls (lost: {res['unmatched_by_op']})")
+        if records and records % runs == 0:
+            break
+        print(msg + ("" if last_try else "; profiling again"))
+        check(not last_try, msg + ", twice")
+    return sum(res["kernels_ms"][k] for k in names) / runs
+
+
+def window_ok(res: dict, steps: int, what: str, last_try: bool) -> bool:
+    """Whether a profiler window's summary holds ``steps`` steps of device
+    work with no lost device record. A window that lost records is
+    reported, and fails the phase on its last try."""
+    check(res["steps"] == steps and (res["lost_events"]
+                                     or res["device_busy_ms"] is not None),
+          f"{what}: the profile holds {res['steps']} steps and no device "
+          f"work: {res}")
+    if not res["lost_events"]:
+        return True
+    print(f"{what}: the profiler window lost device records "
+          f"({res['unmatched_launches']} launches without one, "
+          f"{res['unmatched_by_op']}; window {res['window_ms']:.3f} ms "
+          f"against {res['cuda_event_ms']} ms on CUDA events)"
+          + ("" if last_try else "; profiling again"))
+    check(not last_try, f"{what}: the profiler window lost device records "
+          "twice")
+    return False
 
 
 def profile_fit(trainer, ds, state, steps: int) -> tuple:
-    """Profile ``Trainer.fit_resident`` over ``steps`` more steps. Its
-    upload of the store comes first and is left out: the window opens at
-    the host start of the first step (its first ``index_select``, the batch
-    lookup) and closes at the end of the last device event; the idle share
-    is the part of that window in which nothing ran on the device. The
-    run's closing checkpoint write is left out (not a step's work)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Profile ``Trainer.fit_resident`` over ``steps`` more steps through
+    its own profiler window (``train.profile_start`` at the run's first
+    step, ``train.profile_steps`` = ``steps``), read by
+    ``tools/trace_summary`` with its check against CUDA events. The upload
+    of the store comes first and is left out: the window opens at the
+    first step's dispatch boundary, after the device has drained, and
+    closes when the last step's work is done. The run's closing
+    checkpoint write is left out (not a step's work). A window that lost
+    device records is taken again over the next ``steps`` steps, once."""
+    from vqa_transfer_externaldata_torch.tools import trace_summary
 
-    save = trainer.ckpt.save
+    cfg, save = trainer.cfg, trainer.ckpt.save
     trainer.ckpt.save = lambda *a, **kw: False
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        for last_try in (False, True):
+            trainer.cfg = cfg.replace_flat({
+                "train.profile_start": state.step,
+                "train.profile_steps": steps})
             state = trainer.fit_resident(ds, state,
                                          max_steps=state.step + steps)
-            torch.cuda.synchronize()
+            res = trace_summary.summarize(
+                os.path.join(trainer.train_dir, "profile"), top=None)
+            if window_ok(res, steps, "fit_resident steps", last_try):
+                break
     finally:
-        trainer.ckpt.save = save
-    events = list(prof.events())
-    starts = [e.time_range.start for e in events
-              if e.name == "aten::index_select" and not on_device(e)]
-    check(bool(starts), "the profile holds no training step")
-    t0 = min(starts)
-    window = [e for e in events if e.time_range.start >= t0]
-    device = [e for e in window if on_device(e)]
-    check(bool(device), "the profile holds no device work")
-    wall_us = max(e.time_range.end for e in device) - t0
-    kernels, host = {}, {}
-    for e in window:
-        if on_device(e):
-            name = kernel_name(e.name)
-            kernels[name] = (kernels.get(name, 0.0)
-                             + e.time_range.elapsed_us() / steps)
-        elif e.name.startswith(("aten::", "autograd::")):
-            host[e.name] = host.get(e.name, 0.0) + e.self_cpu_time_total / steps
-    return state, summarize(kernels, host, steps, wall_us,
-                            "fit_resident steps")
+        trainer.cfg, trainer.ckpt.save = cfg, save
+    return state, summarize(res, steps, "fit_resident steps")
 
 
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
@@ -3903,6 +4411,7 @@ def main(argv=None) -> int:
         report["real_data"] = real_data = phase_real_data(report, dev)
         report["oov"] = oov = phase_oov(report, dev)
         report["end2end"] = end2end = phase_end2end(report, dev)
+        report["steps_per_call"] = spc = phase_steps_per_call(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -3931,6 +4440,9 @@ def main(argv=None) -> int:
     # rows launch alone of K5 (rows_stage_g1/g2/g8, int8 rows_stage_g1, the
     # launch's shape under rows_launch) and of P2 (rows_stage), each beside
     # its bytes bound.
+    # The graphed runs of phases 22 and 23 are under steps_per_call_* in
+    # launches_by_path: the launches each ran (the graph's warm-up as
+    # counted, each replay as its records in the run's profiler trace).
     # P1's time is at Q=1, with every Q under by_q; its library call is
     # cuBLAS on the gathered rows, the gather timed apart. K6's time is
     # taken in turns with two K1 calls on its inputs (two_k1_ms), K7's with
@@ -4058,6 +4570,16 @@ def main(argv=None) -> int:
     if end2end["pil"]:
         paths.update(end2end_jpeg_train=end2end["jpeg_train_launches"],
                      end2end_jpeg_predict=end2end["jpeg_predict_launches"])
+    # The graphed runs of phases 22 and 23: the launches each ran, the
+    # graph's warm-up as counted and each replay as the records a replay
+    # has in the run's profiler window.
+    for k in SPC_KS:
+        paths[f"steps_per_call_main_k{k}"] = spc["main"][k]["launches"]
+    for tag in ("stage1", "gathered", "streamed"):
+        paths[f"steps_per_call_{tag}_k{SPC_KS[0]}"] = spc[tag]["launches"][
+            SPC_KS[0]]
+    paths[f"steps_per_call_end2end_k{E2E_SPC_K}"] = end2end[
+        "steps_per_call"]["launches"][E2E_SPC_K]
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",

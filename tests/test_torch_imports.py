@@ -84,6 +84,14 @@ def test_raw_image_modules_import_no_jax_pil_or_h5py(name, extra):
     assert "ok" in _fresh(NEW_MODULE.format(name=name, extra=repr(extra)))
 
 
+@pytest.mark.parametrize("name", ["tools.trace_summary", "tools.profile_step",
+                                  "utils.tracing"])
+def test_profiling_tools_import_no_jax(name):
+    """The trace reader, the profiling tool and the profiler window import
+    no JAX, h5py or nltk."""
+    assert "ok" in _fresh(NEW_MODULE.format(name=name, extra="()"))
+
+
 def test_port_imports_no_jax():
     assert "modules" in _fresh(SCRIPT)
 
@@ -98,7 +106,9 @@ def test_chip_smoke_imports_no_jax():
                                   "parallel.evaler", "cli.eval",
                                   "utils.checkpoint", "utils.metrics",
                                   "tools.probe_mxu_rows",
-                                  "tools.probe_bwd_ceiling"])
+                                  "tools.probe_bwd_ceiling",
+                                  "tools.trace_summary",
+                                  "tools.profile_step", "utils.tracing"])
 def test_importing_kernel_modules_builds_nothing(name):
     """Kernels are built on first launch only: importing the modules (as
     every CPU test does) must not look for nvcc or write a library."""

@@ -4,7 +4,8 @@ graph capture, and two calls bit-equal), K2 (attention_fwd; also at the
 edges of its score tiles, its launch shape against kernels.score_plan, two
 calls bit-equal, and its alpha and r bit-equal to K4's on the identity
 store), K3 (gru_bwd), K4
-(attention_resident_fwd) and K5 (attention_resident_bwd) at 1, 2 and 8
+(attention_resident_fwd; K2, K3, K4 on bf16 and int8 rows, and K8 also
+under CUDA graph capture) and K5 (attention_resident_bwd) at 1, 2 and 8
 glimpses on bf16 rows and on int8 codes (K4 also at the edges of its score
 tiles, and two calls bit-equal), K6 (bigru_fwd; also at both tilings
 and past the point where both directions' j-tiles are resident at once,
@@ -1424,6 +1425,85 @@ def test_attention_resident_bwd_captures_in_a_cuda_graph(dev):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _replays_like_eager(fn, args, fresh, counter, launches):
+    """``fn(*args)`` under stream capture (warmed up on a side stream
+    first): the wrapper counts its ``launches`` once, at capture, and the
+    graph's replay after ``fresh`` is copied into ``args`` equals an eager
+    call on them, bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = getattr(*counter)
+    with torch.cuda.graph(graph):
+        got = fn(*args)
+    assert getattr(*counter) == before + launches
+    for a, b in zip(args, fresh):
+        a.copy_(b)
+    graph.replay()
+    want = fn(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_attention_fwd_captures_in_a_cuda_graph(dev):
+    """K2's score and wsum launches are accepted under stream capture at
+    the gathered training shape, and replay like an eager call."""
+    shape = (256, 196, 2048, 512)
+    _replays_like_eager(
+        lambda *a: attention.attention_fwd(*a, normalize=True),
+        _k2_inputs(dev, *shape), _k2_inputs(dev, *shape, seed=2),
+        (attention.attention_fwd, "launches"), 2)
+
+
+def test_gru_bwd_captures_in_a_cuda_graph(dev):
+    """K3's cooperative launch and the two launches after it are accepted
+    under stream capture, and replay like an eager call."""
+    _replays_like_eager(
+        gru.gru_bwd, _k3_k7_inputs(dev, 26, 256, 512, False, seed=21),
+        _k3_k7_inputs(dev, 26, 256, 512, False, seed=27),
+        (gru.gru_bwd, "launches"), 3)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_attention_resident_fwd_captures_in_a_cuda_graph(dev, int8):
+    """K4's score and wsum launches on bf16 rows and on int8 codes are
+    accepted under stream capture at the training shape (its saved h
+    too), and replay like an eager call on new store rows, rows, qh and
+    W_v."""
+    def inputs(seed):
+        store, rows, qh, wv, _ = _resident_inputs(dev, 64, 196, 2048, 512,
+                                                  256, seed=seed)
+        if int8:
+            store, scale = _int8_codes(store)
+            wv = (wv.float() * scale).to(torch.bfloat16)
+        ws = (torch.randn(512, 1, generator=torch.Generator(device=dev)
+                          .manual_seed(seed), device=dev) * 0.05).to(
+            torch.bfloat16).float()
+        return store, rows, qh, wv, ws
+
+    _replays_like_eager(
+        lambda *a: ar.attention_resident_fwd(
+            *a, n_valid=196, normalize=not int8, save_h=True),
+        inputs(5), inputs(6),
+        (ar.attention_resident_fwd, "launches_int8" if int8 else "launches"),
+        2)
+
+
+def test_attention_bwd_captures_in_a_cuda_graph(dev):
+    """K8's four launches are accepted under stream capture at the
+    gathered training shape, and replay like an eager call."""
+    shape = (256, 196, 2048, 512)
+    _replays_like_eager(
+        lambda *a: attention.attention_bwd(*a, True),
+        _k8_inputs(dev, *shape, True), _k8_inputs(dev, *shape, True, seed=12),
+        (attention.attention_bwd, "launches"),
+        kernels.ATTENTION_BWD_LAUNCHES)
 
 
 def test_attention_resident_bwd_rows_launch_shape(dev):

@@ -75,7 +75,8 @@ def test_optimizer_matches_optax(clip, mu_dtype, frozen, wd):
                              sj, pj)
         pj = jax.tree_util.tree_map(lambda p, u: p + u, pj, uj)
         ut, st = tx_t.update({k: torch.from_numpy(v) for k, v in g.items()},
-                             st, pt)
+                             st, pt, torch.from_numpy(
+                                 tx_t.scalars(st.count, 1)[0]))
         pt = {k: pt[k] + ut[k] for k in pt}
         want = _flat(jax.device_get(uj))
         for k in SHAPES:
@@ -108,8 +109,122 @@ def test_clip_uses_no_epsilon():
     tx, _ = tt.make_optimizer(cfg)
     p = {"w": torch.zeros(2)}
     g = {"w": torch.tensor([3.0, 4.0])}  # norm exactly 5
-    u1, _ = tx.update(g, tx.init(p), p)
-    u2, _ = tx.update({"w": g["w"] * 2}, tx.init(p), p)
+    row = torch.from_numpy(tx.scalars(0, 1)[0])
+    u1, _ = tx.update(g, tx.init(p), p, row)
+    u2, _ = tx.update({"w": g["w"] * 2}, tx.init(p), p, row)
     # Adam normalizes the first step: a clipped (scaled) gradient and an
     # unclipped one give the same update when the scale is exactly 1.
     torch.testing.assert_close(u1["w"], u2["w"], rtol=0, atol=0)
+
+
+def _adamw_as_before(tx, grads, state, params):
+    """The update as the port computed it before its steps could be
+    captured: the host numbers as Python floats, new moment tensors."""
+    names = list(grads)
+    g = [torch.zeros_like(grads[k]) if tx.frozen(k) else grads[k]
+         for k in names]
+    g_norm = tt.global_norm(g)
+    trigger = g_norm < tx.max_norm
+    d = torch.where(trigger, torch.ones_like(g_norm), g_norm)
+    scale = torch.where(trigger, torch.ones_like(g_norm),
+                        torch.full_like(g_norm, tx.max_norm))
+    g = torch._foreach_div(g, d)
+    torch._foreach_mul_(g, scale)
+    count = state.count + 1
+    f32 = np.float32
+    bc1 = float(f32(1.0) - f32(tx.b1) ** np.int32(count))
+    bc2 = float(f32(1.0) - f32(tx.b2) ** np.int32(count))
+    lr = tx.lr_fn(state.count)
+    live = [i for i, k in enumerate(names) if k in state.mu]
+    gl = [g[i] for i in live]
+    m = torch._foreach_mul(gl, 1.0 - tx.b1)
+    torch._foreach_add_(m, torch._foreach_mul(
+        [state.mu[names[i]] for i in live], tx._b1_mu))
+    v = torch._foreach_mul(gl, gl)
+    torch._foreach_mul_(v, 1.0 - tx.b2)
+    torch._foreach_add_(v, torch._foreach_mul(
+        [state.nu[names[i]] for i in live], tx.b2))
+    u = torch._foreach_div(m, bc1)
+    den = torch._foreach_div(v, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, tx.eps)
+    torch._foreach_div_(u, den)
+    if tx.weight_decay:
+        torch._foreach_add_(u, torch._foreach_mul(
+            [params[names[i]] for i in live], tx.weight_decay))
+    torch._foreach_mul_(u, -lr)
+    updates = dict(zip(names, g))
+    mu, nu = {}, {}
+    for i, ui, mi, vi in zip(live, u, m, v):
+        updates[names[i]] = ui
+        mu[names[i]], nu[names[i]] = mi.to(tx.mu_dtype), vi
+    return updates, tt.AdamState(count, mu, nu)
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("table", ["per_step", "whole_run"])
+def test_device_scalar_adamw_is_bit_equal_to_host_float_form(mu_dtype,
+                                                             table):
+    """50 updates through warmup (5 steps) and three staircase decays (every
+    12): AdamW reading its host numbers as 0-d tensors (a row of
+    ``AdamW.scalars``, as a captured step reads them) and writing the
+    moments in place gives the bits of the host-float form with new
+    moment tensors, for a float32 and a bf16 first moment, with a frozen
+    leaf, the clip active and weight decay. The rows are taken one update
+    at a time or from one [50, 3] table, as k steps of a call take theirs."""
+    over = {"train.grad_clip_norm": 1.0, "train.adam_mu_dtype": mu_dtype,
+            "train.freeze_params": "answer_embedding",
+            "train.weight_decay": 1e-2, "train.warmup_steps": 5,
+            "train.lr_decay_steps": 12, "train.lr_decay_rate": 0.5,
+            "train.learning_rate": 0.01}
+    tx, _ = tt.make_optimizer(Config().replace_flat(over))
+    rng = np.random.default_rng(1)
+    p0 = {k: np.asarray(rng.normal(size=s), np.float32)
+          for k, s in SHAPES.items()}
+    pa = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    pb = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    sa, sb = tx.init(pa), tx.init(pb)
+    mu_ids = {k: id(v) for k, v in sb.mu.items()}
+    rows = torch.from_numpy(tx.scalars(0, 50))
+    for step in range(50):
+        g = {k: torch.from_numpy(np.asarray(rng.normal(size=s) * 3,
+                                            np.float32))
+             for k, s in SHAPES.items()}
+        ua, sa = _adamw_as_before(tx, g, sa, pa)
+        row = (rows[step] if table == "whole_run"
+               else torch.from_numpy(tx.scalars(sb.count, 1)[0]))
+        ub, sb = tx.update(g, sb, pb, row)
+        for k in SHAPES:
+            assert torch.equal(ua[k], ub[k]), (step, k)
+            pa[k] = pa[k] + ua[k]
+            pb[k] += ub[k]
+        assert sa.count == sb.count == step + 1
+    assert {k: id(v) for k, v in sb.mu.items()} == mu_ids
+    for k in sa.mu:
+        assert sb.mu[k].dtype == tt.dtype_of(mu_dtype)
+        assert torch.equal(sa.mu[k], sb.mu[k]), k
+        assert torch.equal(sa.nu[k], sb.nu[k]), k
+    for k in SHAPES:
+        assert torch.equal(pa[k], pb[k]), k
+    np.testing.assert_array_equal(pb["answer_embedding"].numpy(),
+                                  p0["answer_embedding"])
+
+
+def test_scalars_are_the_host_floats_of_each_count():
+    """``AdamW.scalars(count, n)``: row i is (1 - b1**c, 1 - b2**c,
+    lr_fn(c - 1)) for c = count + 1 + i, as the host computed them for
+    each update, rounded to float32 (as the kernels took them), so a table
+    for k steps equals k one-row tables."""
+    cfg = Config().replace_flat({"train.warmup_steps": 3,
+                                 "train.lr_decay_steps": 4,
+                                 "train.lr_decay_rate": 0.5})
+    tx, lr = tt.make_optimizer(cfg)
+    table = tx.scalars(7, 9)
+    assert table.shape == (9, 3) and table.dtype == np.float32
+    for i in range(9):
+        c = 8 + i
+        np.testing.assert_array_equal(table[i], tx.scalars(7 + i, 1)[0])
+        f32 = np.float32
+        assert table[i, 0] == f32(f32(1) - f32(0.9) ** np.int32(c))
+        assert table[i, 1] == f32(f32(1) - f32(0.999) ** np.int32(c))
+        assert table[i, 2] == f32(lr(c - 1))

@@ -153,10 +153,6 @@ def test_train_cli_run_is_served_by_predictor(tmp_path):
 
 @pytest.mark.parametrize("over,item", [
     ({"train.store_sharded": True}, "item 12"),
-    ({"train.steps_per_call": 2}, "item 15"),
-    ({"train.sort_batch_by_image": True}, "item 14"),
-    ({"train.profile_steps": 3}, "item 14"),
-    ({"train.remat": True}, "item 14"),
 ])
 def test_unported_trainer_options_name_their_roadmap_item(over, item,
                                                           tmp_path):

@@ -38,13 +38,47 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
     return torch.sum(x * mask, dim=dim) / count
 
 
+class DropoutTape:
+    """The dropout masks of a rematerialized forward: passed where a model
+    takes its dropout ``generator``, it draws each mask from ``generator``
+    as :func:`dropout` would and records it; after :meth:`rewind` the same
+    forward, run again in the backward pass, gets the recorded masks in
+    order. The recompute so draws nothing: its masks are the first pass's
+    and the generator ends where a step without remat leaves it. (Reading
+    and resetting the generator's state instead would not work inside a
+    CUDA graph's capture.)"""
+
+    def __init__(self, generator: Optional[torch.Generator]) -> None:
+        self.generator = generator
+        self._masks: list = []
+        self._next: Optional[int] = None  # None: drawing
+
+    def rewind(self) -> None:
+        self._next = 0
+
+    def keep(self, shape, device: torch.device,
+             keep_prob: float) -> torch.Tensor:
+        if self._next is None:
+            mask = torch.rand(shape, generator=self.generator,
+                              device=device) < keep_prob
+            self._masks.append(mask)
+            return mask
+        mask = self._masks[self._next]
+        self._next += 1
+        return mask
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``generator``: kept entries
-    are scaled by 1 / (1 - rate), as flax's ``nn.Dropout``."""
+    """Inverted dropout with a mask drawn from ``generator`` (or replayed
+    from a :class:`DropoutTape`): kept entries are scaled by
+    1 / (1 - rate), as flax's ``nn.Dropout``."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep_prob
+    if isinstance(generator, DropoutTape):
+        keep = generator.keep(x.shape, x.device, keep_prob)
+    else:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

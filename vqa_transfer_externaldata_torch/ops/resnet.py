@@ -292,7 +292,10 @@ def preprocess_images(images: torch.Tensor, size: int = 448) -> torch.Tensor:
         x = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
                           mode="bilinear", antialias=True,
                           align_corners=False).permute(0, 2, 3, 1)
-    return x - torch.tensor(RGB_MEAN, dtype=torch.float32, device=x.device)
+    # Filled on the device: a host list copied up would be a pageable copy,
+    # which waits for the queue and cannot be captured in a CUDA graph.
+    return x - torch.stack([torch.full((), m, dtype=torch.float32,
+                                       device=x.device) for m in RGB_MEAN])
 
 
 def conv_macs(model: ResNetV1, image_size: int) -> int:

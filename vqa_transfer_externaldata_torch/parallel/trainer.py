@@ -14,7 +14,11 @@ step gathers its [B, N, C] grid on the device (the gathered attention).
 buffers. One step is: forward with dropout, the spec's loss, backward, then
 the optax chain of the JAX package (frozen leaves zeroed, global-norm clip,
 AdamW with warmup and a staircase decay), written here as a few tensor
-operations with optax's exact semantics (:class:`AdamW`).
+operations with optax's exact semantics (:class:`AdamW`). With
+``train.steps_per_call`` k > 1 both loops run k steps a call, as the JAX
+package's ``lax.scan`` does in one dispatch: on CUDA one replay of a CUDA
+graph that captured the k steps (:class:`_StepGraph`), on the CPU the same
+k steps eagerly.
 
 Evaluation: :meth:`Trainer.evaluate` over host batches, and the resident
 evaluator (:meth:`Trainer.evaluate_resident`), which uploads a split once
@@ -26,22 +30,27 @@ one log window late. Both loops write periodic checkpoints
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import PrefetchIterator
 from vqa_transfer_externaldata_torch.models.zoo import ModelSpec
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     pad_store_rows, prenormalize_store)
-from vqa_transfer_externaldata_torch.ops.layers import dtype_of
+from vqa_transfer_externaldata_torch.ops.layers import DropoutTape, dtype_of
 from vqa_transfer_externaldata_torch.serving import resolve_device
 from vqa_transfer_externaldata_torch.utils.checkpoint import CheckpointManager
 from vqa_transfer_externaldata_torch.utils.logging import (
     MetricWriter, Timer, log)
+from vqa_transfer_externaldata_torch.utils.tracing import (
+    TraceWindow, write_trace)
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -106,13 +115,31 @@ def _host_tensor(key: str, v: np.ndarray, dt: torch.dtype
     return t, t.dtype
 
 
+def _on_device(a: np.ndarray, device: torch.device,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A small host array on ``device`` (copied into ``out`` when given)
+    without waiting for the device: on CUDA through pinned memory and an
+    asynchronous copy (a pageable copy waits for the queue to drain, and
+    cannot be captured). The pinned block is not reused before its copy
+    has run."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    if out is None:
+        return t.to(device, non_blocking=True)
+    return out.copy_(t, non_blocking=True)
+
+
 class _Uploader:
-    """Host batches (dicts of numpy arrays) to the device. On CUDA a batch
+    """Host batches (dicts of numpy arrays) to the device: one batch, or a
+    list of k batches stacked on a new leading axis. On CUDA a batch
     passes through one of two sets of pinned staging buffers: float
-    features are cast to the compute dtype as they are copied in, then the
-    copy to the card is asynchronous; a set is refilled only once its last
-    copy has finished (an event per set), so a step's copy overlaps the
-    previous step's work."""
+    features are cast to the compute dtype as they are copied in (a list's
+    batches row by row, never stacked on the host), then the copy to the
+    card is asynchronous; a set is refilled only once its last copy has
+    finished (an event per set), so a step's copy overlaps the previous
+    step's work. With ``out`` (device tensors by key: a captured graph's
+    static inputs) the batch is copied into those."""
 
     def __init__(self, device: torch.device, dtype: torch.dtype) -> None:
         self.device, self.dtype = device, dtype
@@ -120,30 +147,46 @@ class _Uploader:
             ({}, None), ({}, None)]
         self._turn = 0
 
-    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    def __call__(self, batch: Any,
+                 out: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, Any]:
+        group = isinstance(batch, list)
+        rows = batch if group else [batch]
         if self.device.type != "cuda":
             out = {}
-            for k, v in batch.items():
-                t, dt = _host_tensor(k, v, self.dtype)
-                out[k] = t.to(self.device, dt)
+            for k in rows[0]:
+                ts = [_host_tensor(k, r[k], self.dtype) for r in rows]
+                t = torch.stack([t for t, _ in ts]) if group else ts[0][0]
+                out[k] = t.to(self.device, ts[0][1])
             return out
         bufs, done = self._slots[self._turn]
         if done is not None:
             done.synchronize()
-        out = {}
-        for k, v in batch.items():
-            t, dt = _host_tensor(k, v, self.dtype)
+        dst = {} if out is None else out
+        for k in rows[0]:
+            ts = [_host_tensor(k, r[k], self.dtype) for r in rows]
+            dt = ts[0][1]
+            shape = (len(rows),) * group + tuple(ts[0][0].shape)
             buf = bufs.get(k)
-            if buf is None or buf.shape != t.shape or buf.dtype != dt:
-                buf = bufs[k] = torch.empty(t.shape, dtype=dt,
+            if buf is None or tuple(buf.shape) != shape or buf.dtype != dt:
+                buf = bufs[k] = torch.empty(shape, dtype=dt,
                                             pin_memory=True)
-            buf.copy_(t)
-            out[k] = buf.to(self.device, non_blocking=True)
+            for i, (t, _) in enumerate(ts):
+                (buf[i] if group else buf).copy_(t)
+            if out is None:
+                dst[k] = buf.to(self.device, non_blocking=True)
+            else:
+                dst[k].copy_(buf, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         self._slots[self._turn] = (bufs, done)
         self._turn ^= 1
-        return out
+        return dst
+
+
+def _row(inputs: Dict[str, torch.Tensor], i: int) -> Dict[str, Any]:
+    """Step i's batch of [k, ...]-stacked device batches."""
+    return {name: v[i] for name, v in inputs.items()}
 
 
 def _freeze_mask_fn(names_csv: str) -> Callable[[str], bool]:
@@ -205,9 +248,31 @@ class AdamW:
                 for k in live},
             {k: torch.zeros_like(params[k]) for k in live})
 
-    def update(self, grads: Tensors, state: AdamState, params: Tensors
-               ) -> Tuple[Tensors, AdamState]:
+    def scalars(self, count: int, n: int) -> np.ndarray:
+        """The host numbers of the ``n`` updates that start at optax's
+        count ``count``: rows (1 - b1**c, 1 - b2**c, lr_fn(c - 1)) for c =
+        count + 1, ..., count + n, [n, 3] float32: the powers of the
+        float32 b, as optax takes them (1 - 0.999 is 1.3e-5 away from
+        1 - float32(0.999)), rounded to float32 as the update's float32
+        operations take them. A step reads its row as device scalars, so a
+        captured step reads each replay's row."""
+        f32 = np.float32
+        out = np.empty((n, 3), f32)
+        for i in range(n):
+            c = count + 1 + i
+            out[i] = (f32(1.0) - f32(self.b1) ** np.int32(c),
+                      f32(1.0) - f32(self.b2) ** np.int32(c),
+                      self.lr_fn(c - 1))
+        return out
+
+    def update(self, grads: Tensors, state: AdamState, params: Tensors,
+               scalars: torch.Tensor) -> Tuple[Tensors, AdamState]:
+        """The updates of ``grads``; ``state``'s moments are written in
+        place and the returned state's count is one more. ``scalars``: this
+        update's row of :meth:`scalars` (a [3] tensor on the parameters'
+        device)."""
         names = list(grads)
+        bc1, bc2, lr = scalars[0], scalars[1], scalars[2]
         g = [torch.zeros_like(grads[k]) if self.frozen(k) else grads[k]
              for k in names]
         g_norm = global_norm(g)
@@ -219,22 +284,15 @@ class AdamW:
                             torch.full_like(g_norm, self.max_norm))
         g = torch._foreach_div(g, d)
         torch._foreach_mul_(g, scale)
-        count = state.count + 1
-        # 1 - b**count in float32 from the float32 b, as optax computes it
-        # (1 - 0.999 is 1.3e-5 away from 1 - float32(0.999)).
-        f32 = np.float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** np.int32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** np.int32(count))
-        lr = self.lr_fn(state.count)
         live = [i for i, k in enumerate(names) if k in state.mu]
         gl = [g[i] for i in live]
+        mu = [state.mu[names[i]] for i in live]
+        nu = [state.nu[names[i]] for i in live]
         m = torch._foreach_mul(gl, 1.0 - self.b1)
-        torch._foreach_add_(m, torch._foreach_mul(
-            [state.mu[names[i]] for i in live], self._b1_mu))
+        torch._foreach_add_(m, torch._foreach_mul(mu, self._b1_mu))
         v = torch._foreach_mul(gl, gl)
         torch._foreach_mul_(v, 1.0 - self.b2)
-        torch._foreach_add_(v, torch._foreach_mul(
-            [state.nu[names[i]] for i in live], self.b2))
+        torch._foreach_add_(v, torch._foreach_mul(nu, self.b2))
         u = torch._foreach_div(m, bc1)
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
@@ -243,15 +301,16 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(u, torch._foreach_mul(
                 [params[names[i]] for i in live], self.weight_decay))
-        torch._foreach_mul_(u, -lr)
+        torch._foreach_mul_(u, torch.neg(lr))
+        # In place, so that a captured step writes where the next replay
+        # reads; mu is rounded to mu_dtype after the update used it.
+        torch._foreach_copy_(mu, m)
+        torch._foreach_copy_(nu, v)
         # Frozen leaves keep their (zeroed) clipped gradient as the update.
         updates = dict(zip(names, g))
-        mu, nu = {}, {}
-        for i, ui, mi, vi in zip(live, u, m, v):
-            k = names[i]
-            updates[k] = ui
-            mu[k], nu[k] = mi.to(self.mu_dtype), vi
-        return updates, AdamState(count, mu, nu)
+        for i, ui in zip(live, u):
+            updates[names[i]] = ui
+        return updates, dataclasses.replace(state, count=state.count + 1)
 
 
 def make_optimizer(cfg: Config, extra_frozen: str = ""
@@ -292,37 +351,189 @@ def _todo(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md, section 1, {item})")
 
 
+def _advance(state: TrainState, n: int) -> TrainState:
+    """``state`` after ``n`` steps ran on the device: the host counters
+    (the step and AdamW's count) move on by ``n``."""
+    opt = state.opt_state
+    return dataclasses.replace(
+        state, step=state.step + n,
+        opt_state=dataclasses.replace(opt, count=opt.count + n))
+
+
+def _state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """The tensors a step writes: the parameters and AdamW's moments."""
+    opt = state.opt_state
+    return [*state.params.values(), *opt.mu.values(), *opt.nu.values()]
+
+
+class _StepGraph:
+    """``k`` training steps captured in one CUDA graph and replayed once a
+    call: the card's counterpart of the JAX package's ``lax.scan`` over k
+    steps in one dispatch.
+
+    The graph's inputs are the state's tensors, its static ``inputs``
+    (device tensors of ``shapes``, name -> (shape, dtype), that the caller
+    fills before each call; ``batch_of
+    (inputs, i)`` makes step i's batch from them inside the graph) and a
+    [k, 3] table of AdamW's host numbers, uploaded before each replay. The
+    first call warms up on a side stream (the kernels are built and their
+    attributes set, cuBLAS gets its workspace) by running the k steps
+    eagerly, puts back the parameters, the moments and the generator's
+    state, captures the same steps on that stream with the dropout
+    generator registered, and replays: the warm-up is undone and the
+    capture runs nothing, so the first k steps are the first replay's.
+    Each replay draws fresh dropout masks and moves the generator on as k
+    eager steps do. The metrics returned are the last step's, in the
+    graph's memory: the next replay overwrites them, so the caller copies
+    them before its next call, on the same stream. A capture or a replay
+    that fails raises; nothing falls back to eager steps."""
+
+    def __init__(self, trainer: "Trainer", k: int,
+                 shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                 batch_of: Callable[[Dict[str, torch.Tensor], int], Any]
+                 ) -> None:
+        dev = trainer.device
+        self.trainer, self.k = trainer, k
+        self.inputs = {name: torch.empty(shape, dtype=dt, device=dev)
+                       for name, (shape, dt) in shapes.items()}
+        self._batch_of = batch_of
+        self._table = torch.empty(k, 3, dtype=torch.float32, device=dev)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._metrics: Tensors = {}
+
+    def _body(self, state: TrainState) -> Tensors:
+        return self.trainer._steps(
+            state, lambda i: self._batch_of(self.inputs, i), self._table)
+
+    def _capture(self, state: TrainState) -> None:
+        tensors = _state_tensors(state)
+        side = torch.cuda.Stream(self.trainer.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            saved = [t.detach().clone() for t in tensors]
+            rng = state.rng.get_state()
+            self._body(state)
+            with torch.no_grad():
+                torch._foreach_copy_(tensors, saved)
+            state.rng.set_state(rng)
+        torch.cuda.current_stream().wait_stream(side)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.rng)
+        with torch.cuda.graph(graph, stream=side):
+            self._metrics = self._body(state)
+        self._graph = graph
+        self.trainer.graph_captures[self.k] += 1
+
+    def __call__(self, state: TrainState) -> Tensors:
+        """The k steps from ``state`` (its counters not yet advanced) on
+        the inputs as the caller filled them; the last step's metrics."""
+        self.trainer._table(state, self.k, out=self._table)
+        if self._graph is None:
+            self._capture(state)
+        self._graph.replay()
+        self.trainer.graph_replays[self.k] += 1
+        return self._metrics
+
+
+class _GraphCache:
+    """The captured k-step graphs of a loop, by (k, the static inputs'
+    shapes and dtypes), as jit keeps a compiled step per k. They belong to
+    one set of state tensors: when the parameters, the moments or the
+    generator are other tensors (``init_state``, ``restore``), every graph
+    is dropped and the next call captures anew."""
+
+    def __init__(self) -> None:
+        self._graphs: Dict[Any, _StepGraph] = {}
+        self._owner: List[Tuple[Any, int]] = []
+
+    def get(self, state: TrainState, key: Any,
+            build: Callable[[], _StepGraph]) -> _StepGraph:
+        owner = [(state.rng, 0)] + [(t, t.data_ptr())
+                                    for t in _state_tensors(state)]
+        if len(owner) != len(self._owner) or any(
+                a is not b or p != q
+                for (a, p), (b, q) in zip(owner, self._owner)):
+            self._graphs.clear()
+            self._owner = owner
+        if key not in self._graphs:
+            self._graphs[key] = build()
+        return self._graphs[key]
+
+
+class _ProfilerWindow:
+    """``train.profile_start`` / ``train.profile_steps`` in a training
+    loop: a ``utils.tracing.TraceWindow`` (host ops and, on CUDA, the
+    card's kernels and copies, the device drained before it opens, CUDA
+    events around it) opened at the first dispatch boundary at or past
+    ``profile_start`` (a start between two k-step boundaries still
+    traces), open for at least one dispatch, closed at the first boundary
+    at or past its end after the device has finished, or at the end of
+    training when the window runs past it; it never opens twice in a run.
+    Writes ``<train_dir>/profile/trace_<first>_<last>.pt.trace.json.gz``
+    (a gzip'd Chrome trace) and ``trace_<first>_<last>.window.json`` (the
+    steps it spans and its CUDA-event ms), which ``tools/trace_summary``
+    reads."""
+
+    def __init__(self, trainer: "Trainer") -> None:
+        t = trainer.cfg.train
+        self.trainer = trainer
+        self.start = t.profile_start
+        self.until = (t.profile_start + t.profile_steps
+                      if t.profile_steps > 0 else -1)
+        self.first = -1
+        self._window = None
+
+    def open_at(self, step: int) -> None:
+        if self._window is not None or self.until < 0 or step < self.start:
+            return
+        self._window = TraceWindow(self.trainer.device)
+        self._window.open()
+        self.first = step
+        self.until = max(self.until, step + 1)
+        log.info("profiler trace started (steps %d..%d)", step, self.until)
+
+    def close_at(self, step: int, final: bool = False) -> None:
+        if self._window is None or (step < self.until and not final):
+            return
+        event_ms = self._window.close()
+        truncated = step < self.until
+        path = write_trace(self._window.prof, os.path.join(
+            self.trainer.train_dir, "profile"), f"trace_{self.first}_{step}",
+            {"first_step": self.first, "last_step": step,
+             "steps": step - self.first, "cuda_event_ms": event_ms})
+        self._window = None
+        self.until = -1  # latched: never again in this run
+        log.info("profiler trace%s written to %s",
+                 " (truncated at the last step)" if truncated else "", path)
+
+
 class Trainer:
     """Build once from a :class:`ModelSpec`, then :meth:`init_state` (and
     :meth:`restore`), :meth:`fit_resident` or :meth:`fit`, :meth:`evaluate`
     or :meth:`evaluate_resident`.
 
     Runs on CUDA unless ``device`` says otherwise (the tests pass "cpu");
-    without a card and without ``device`` it raises. Not ported, and
-    raising ``NotImplementedError`` with their ROADMAP item when asked for:
-    the profiler window (item 14), ``steps_per_call > 1`` (item 15),
-    ``store_sharded`` (item 12), ``sort_batch_by_image`` (item 14) and
-    ``remat`` (item 14)."""
+    without a card and without ``device`` it raises. The JAX Trainer's
+    single-device options are ported: ``train.steps_per_call`` (k steps a
+    dispatch: a captured CUDA graph of the k steps on the card, the same
+    k steps eagerly on the CPU), the profiler window
+    (``train.profile_start`` / ``train.profile_steps``), ``train.remat``
+    and ``train.sort_batch_by_image``. ``train.store_sharded`` (a
+    multi-device option) is not, and raises ``NotImplementedError`` naming
+    its ROADMAP item (item 12)."""
 
     # fit_resident stages its seeded index table in segments of this many
-    # steps; shrink in tests to exercise re-staging.
+    # steps (rounded down to whole k-step calls); shrink in tests to
+    # exercise re-staging.
     resident_segment_steps = 2048
 
     def __init__(self, cfg: Config, spec: ModelSpec,
                  train_dir: Optional[str] = None,
                  device: Optional[str] = None) -> None:
         t = cfg.train
-        for on, what, item in (
-                (t.store_sharded, "train.store_sharded", "item 12"),
-                (t.steps_per_call > 1, "train.steps_per_call > 1",
-                 "item 15"),
-                (t.sort_batch_by_image, "train.sort_batch_by_image",
-                 "item 14"),
-                (t.remat, "train.remat", "item 14"),
-                (t.profile_steps > 0, "the profiler window "
-                 "(train.profile_steps)", "item 14")):
-            if on:
-                raise _todo(what, item)
+        if t.store_sharded:
+            raise _todo("train.store_sharded", "item 12")
         self.cfg = cfg
         self.spec = spec
         self.device = resolve_device(device)
@@ -340,6 +551,12 @@ class Trainer:
                                       keep=t.keep_checkpoints,
                                       save_every=t.checkpoint_every)
         self.metrics = MetricWriter(self.train_dir)
+        # The streamed loop's graphs (fit_resident keeps its own for a
+        # run: they read that run's uploaded dataset), and how many graphs
+        # were captured and replays run, by k.
+        self._fit_graphs = _GraphCache()
+        self.graph_captures: collections.Counter = collections.Counter()
+        self.graph_replays: collections.Counter = collections.Counter()
 
     # -- state ---------------------------------------------------------------
 
@@ -360,17 +577,45 @@ class Trainer:
         of this run directory loaded into it."""
         return self.ckpt.restore(state, step)
 
-    def train_step(self, state: TrainState, batch: Dict[str, object]
-                   ) -> Tuple[TrainState, Tensors]:
-        """One optimizer step on a device batch; returns the new state and
-        the step's metrics as device tensors (no host synchronization)."""
-        outputs = self.model(*self.spec.inputs(batch), train=True,
-                             generator=state.rng)
+    # -- the step ------------------------------------------------------------
+
+    def _forward(self, batch: Dict[str, object],
+                 rng: torch.Generator) -> Tensors:
+        """The model's training forward on ``batch``, dropout drawn from
+        ``rng``. Under ``train.remat`` (the JAX package's
+        ``jax.checkpoint``) it is rematerialized with
+        ``torch.utils.checkpoint``: its activations are recomputed in the
+        backward pass instead of kept, and the recompute replays the first
+        pass's dropout masks (:class:`DropoutTape`), so the gradients and
+        the generator are those of a step without remat."""
+        inputs = self.spec.inputs(batch)
+        if not self.cfg.train.remat:
+            return self.model(*inputs, train=True, generator=rng)
+        tape = DropoutTape(rng)
+        passes: List[None] = []
+
+        def run(*args):
+            if passes:
+                tape.rewind()
+            passes.append(None)
+            return self.model(*args, train=True, generator=tape)
+
+        return torch.utils.checkpoint.checkpoint(
+            run, *inputs, use_reentrant=False, preserve_rng_state=False)
+
+    def _step(self, state: TrainState, batch: Dict[str, object],
+              scalars: torch.Tensor) -> Tensors:
+        """One optimizer step on a device batch with its row of
+        :meth:`AdamW.scalars`: forward with dropout, the spec's loss, the
+        gradients, AdamW. Writes the parameters and moments in place and
+        moves no host counter; returns the metrics as device tensors."""
+        outputs = self._forward(batch, state.rng)
         loss, metrics = self.spec.loss(outputs, batch)
         # A frozen parameter the loss cannot reach (a backbone run under
         # no_grad) gets no gradient and no update, as its zeroed one would
         # give; it adds nothing to the clip norm. A live one the loss
-        # cannot reach is a fault of the model, and raises.
+        # cannot reach is a fault of the model, and raises (in a graph's
+        # warm-up, before its capture).
         every = list(state.params)
         raw = torch.autograd.grad(loss, [state.params[k] for k in every],
                                   allow_unused=True)
@@ -383,17 +628,65 @@ class Trainer:
         names = list(grads)
         metrics.pop("weight", None)  # eval-weighting aid, not a metric
         metrics["grad_norm"] = global_norm(list(grads.values()))
-        # Filled on the device: a host scalar copied up would wait for the
-        # queue to drain (pageable copies synchronize the stream).
-        metrics["lr"] = torch.full((), self.lr_fn(state.step),
-                                   device=loss.device)
+        # The step's learning rate from its row (state.step is AdamW's
+        # count): a host number would be baked into a captured graph.
+        metrics["lr"] = scalars[2].clone()
         with torch.no_grad():
-            updates, opt_state = self.tx.update(grads, state.opt_state,
-                                                state.params)
+            updates, _ = self.tx.update(grads, state.opt_state, state.params,
+                                        scalars)
             torch._foreach_add_([state.params[k] for k in names],
                                 [updates[k] for k in names])
-        return (dataclasses.replace(state, step=state.step + 1,
-                                    opt_state=opt_state), metrics)
+        return metrics
+
+    def _steps(self, state: TrainState,
+               batch_of: Callable[[int], Dict[str, object]],
+               table: torch.Tensor) -> Tensors:
+        """``len(table)`` steps in a row, step i on ``batch_of(i)`` with
+        row i of ``table`` (:meth:`AdamW.scalars`); the last step's
+        metrics. It runs eagerly for one step and on the CPU, and is what
+        a :class:`_StepGraph` captures on CUDA."""
+        for i in range(table.shape[0]):
+            metrics = self._step(state, batch_of(i), table[i])
+        return metrics
+
+    def _table(self, state: TrainState, n: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The [n, 3] :meth:`AdamW.scalars` of the next ``n`` steps on the
+        device (in ``out`` when given), one pinned upload."""
+        return _on_device(self.tx.scalars(state.opt_state.count, n),
+                          self.device, out)
+
+    def train_step(self, state: TrainState, batch: Dict[str, object]
+                   ) -> Tuple[TrainState, Tensors]:
+        """One optimizer step on a device batch, eagerly; returns the new
+        state and the step's metrics as device tensors (no host
+        synchronization)."""
+        metrics = self._steps(state, lambda i: batch, self._table(state, 1))
+        return _advance(state, 1), metrics
+
+    def _run(self, graphs: _GraphCache, state: TrainState, k: int,
+             shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+             fill: Callable[[Optional[Dict[str, torch.Tensor]]],
+                            Dict[str, torch.Tensor]],
+             batch_of: Callable[[Dict[str, torch.Tensor], int], Any]
+             ) -> Tuple[TrainState, Tensors]:
+        """One call of both loops: ``k`` steps from ``state``, step i on
+        ``batch_of(inputs, i)``. ``inputs`` are device tensors of
+        ``shapes`` (name -> (shape, dtype)) that ``fill(dst)`` gives:
+        copied into ``dst`` when it is given, else new. Eager on the CPU
+        and for one step; on CUDA at k > 1 ``fill`` fills the static
+        inputs of the graph for this k and these shapes, which is replayed
+        once."""
+        if self.device.type != "cuda" or k == 1:
+            inputs = fill(None)
+            return _advance(state, k), self._steps(
+                state, lambda i: batch_of(inputs, i), self._table(state, k))
+        key = (k, tuple(sorted((n, s, str(dt))
+                               for n, (s, dt) in shapes.items())))
+        graph = graphs.get(state, key,
+                           lambda: _StepGraph(self, k, shapes, batch_of))
+        fill(graph.inputs)
+        return _advance(state, k), graph(state)
 
     def _eval_step(self, batch: Dict[str, Any]
                    ) -> Tuple[torch.Tensor, Tensors]:
@@ -416,10 +709,16 @@ class Trainer:
         """Training on host batches (dicts of numpy arrays): a background
         thread prepares the next ``prefetch_batches`` of them, each goes to
         the card through a pinned staging buffer, and the metrics are read
-        at every ``log_every``-th step. Every ``eval_every`` steps the split
-        of ``eval_batches_fn()`` is evaluated (:meth:`evaluate`); the
-        checkpoint policy runs after every step and the last step is always
-        saved."""
+        at every ``log_every``-th step. With ``train.steps_per_call`` k > 1
+        each call takes k batches, staged row by row into [k, ...] inputs
+        (on CUDA the static inputs of a captured graph, replayed once), and
+        runs k steps; the last call is cut to the steps left
+        (a second graph at most), and logging, evaluation and checkpoints
+        fire at the first call boundary at or past their multiples. Every
+        ``eval_every`` steps the split of ``eval_batches_fn()`` is
+        evaluated (:meth:`evaluate`); the checkpoint policy runs after
+        every call and the last step is always saved. The profiler window
+        (``train.profile_steps``) is :class:`_ProfilerWindow`'s."""
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         if t.prefetch_batches > 0:
@@ -427,15 +726,24 @@ class Trainer:
                                              depth=t.prefetch_batches)
         upload = self._uploader()
         timer = Timer()
+        window = _ProfilerWindow(self)
         step = last_log = state.step
         next_log = _next_multiple(step, t.log_every)
         next_eval = _next_multiple(step, t.eval_every)
         log.info("training (streamed) from step %d to %d on %s", step,
                  max_steps, self.device)
         while step < max_steps:
-            state, pending = self.train_step(state,
-                                             upload(next(train_batches)))
+            window.open_at(step)
+            k = min(max(1, t.steps_per_call), max_steps - step)
+            group = [next(train_batches) for _ in range(k)]
+            shapes = {key: ((k, *np.shape(v)), _host_tensor(
+                key, np.asarray(v)[:0], self.model.dtype)[1])
+                for key, v in group[0].items()}
+            state, pending = self._run(
+                self._fit_graphs, state, k, shapes,
+                lambda dst: upload(group, out=dst), _row)
             step = state.step
+            window.close_at(step)
             if step >= next_log or step >= max_steps:
                 next_log = _next_multiple(step, t.log_every)
                 m = self._fetch_later(pending)()
@@ -453,6 +761,7 @@ class Trainer:
                 eval_metrics, _ = self.evaluate(state, eval_batches_fn())
                 self._write_eval(step, eval_metrics)
             self.ckpt.save(step, state)
+        window.close_at(step, final=True)
         if self.ckpt.latest_step() != state.step:
             self.ckpt.save(state.step, state, force=True)
         return state
@@ -475,8 +784,22 @@ class Trainer:
         steps, lagged the same way: it is dispatched at its boundary on the
         training stream, so it reads that boundary's parameters before the
         next step updates them in place, and its values are collected one
-        log window later. The checkpoint policy runs after every step and
-        the last step is always saved."""
+        log window later. The checkpoint policy runs after every call and
+        the last step is always saved.
+
+        With ``train.steps_per_call`` k > 1 a call runs k steps (one replay
+        of a captured graph on CUDA, whose steps take their batches from a
+        static [k, B] index buffer that k rows of the segment are copied
+        into on the device); a segment is whole calls, the last one the
+        steps left, and the last call is cut to them.
+        ``train.sort_batch_by_image`` orders each staged batch of a
+        ``JoinedDataset`` by its store row (a stable sort on the host):
+        every reduction over a batch is order-invariant, so training is
+        the same up to float summation order. The profiler window is
+        :class:`_ProfilerWindow`'s."""
+        from vqa_transfer_externaldata_torch.data.features import (
+            JoinedDataset)
+
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         rows, make_batch, nbytes = self._prepare_resident(ds)
@@ -523,20 +846,38 @@ class Trainer:
 
         log.info("training (device-resident) from step %d to %d on %s",
                  stepno, max_steps, self.device)
-        seg_steps = max(1, self.resident_segment_steps)
+        sort_rows = (np.asarray(ds.arrays[ds.index_key])
+                     if t.sort_batch_by_image and isinstance(ds, JoinedDataset)
+                     else None)
+        k = max(1, t.steps_per_call)
+        seg_steps = max(k, (self.resident_segment_steps // k) * k)
         seg, seg_off = None, seg_steps
+        graphs = _GraphCache()  # this run's: they read its uploaded data
+        window = _ProfilerWindow(self)
         next_log = _next_multiple(stepno, t.log_every)
         next_eval = _next_multiple(stepno, t.eval_every)
         while stepno < max_steps:
             if seg_off >= seg_steps:
-                # One host->device copy of the next index-table segment.
-                n = min(seg_steps, max_steps - stepno)
-                seg = torch.from_numpy(np.stack(
-                    [next(indices) for _ in range(n)])).to(self.device)
+                # One host->device copy of the next index-table segment:
+                # whole k-step calls, then the steps left.
+                part = [next(indices) for _ in range(
+                    min(seg_steps, max_steps - stepno))]
+                if sort_rows is not None:
+                    part = [r[np.argsort(sort_rows[r], kind="stable")]
+                            for r in part]
+                seg = torch.from_numpy(np.stack(part)).to(self.device)
                 seg_off = 0
-            state, pending = self.train_step(state, make_batch(seg[seg_off]))
-            seg_off += 1
-            stepno += 1
+            window.open_at(stepno)
+            kk = min(k, max_steps - stepno)
+            idx = seg[seg_off:seg_off + kk]
+            state, pending = self._run(
+                graphs, state, kk, {"idx": (tuple(idx.shape), idx.dtype)},
+                lambda dst: ({"idx": idx} if dst is None
+                             else dst["idx"].copy_(idx)),
+                lambda inputs, i: make_batch(inputs["idx"][i]))
+            seg_off += kk
+            stepno += kk
+            window.close_at(stepno)
             if stepno >= next_log or stepno >= max_steps:
                 next_log = _next_multiple(stepno, t.log_every)
                 log_window(pending, final=stepno >= max_steps)
@@ -552,6 +893,7 @@ class Trainer:
                                  or stepno >= max_steps):
                 collect_eval()
             self.ckpt.save(stepno, state)
+        window.close_at(stepno, final=True)
         while pending_eval:
             collect_eval()
         if self.ckpt.latest_step() != state.step:
@@ -824,4 +1166,5 @@ class Trainer:
         return self._make_resident_evaluator(ds)(state)
 
     def close(self) -> None:
+        self._fit_graphs = _GraphCache()  # their memory goes with them
         self.metrics.close()
