@@ -197,7 +197,27 @@ Run from the repository root. Phases (any failure exits non-zero):
    and the launches a graphed path ran are the warm-up's plus, each
    replay, a replay's records in its trace. A window that lost device
    records (``tools/trace_summary``'s check) is taken again once, then
-   fails the phase.
+   fails the phase;
+24. multi-device training on the one card (``parallel/mesh.py``), the
+   main path at full width, dropout 0: (a) this process in a one-rank
+   NCCL group (every collective of the distributed step runs) against
+   the same runs without a group, 12 steps eagerly and at k = 4 (the
+   graph holds the NCCL all-reduce): parameters bit-equal, the wall ms a
+   step on CUDA events over steps 4-8 and a profiler window over 8-12
+   (its NCCL kernels' device time); (b) two ranks spawned on the card
+   (gloo: NCCL refuses two ranks on one card), 6 steps each on data
+   whose <unk> answers fall unevenly between the ranks, for the
+   replicated store against one process, ``train.store_sharded`` against
+   one process's replicated store fed the same per-shard stream, and a
+   1x2 tensor-parallel mesh (``shard_params answer_embedding,word_emb``)
+   against the 2x1 replicated run: logged losses within MD_TOL_LOSS and
+   parameter changes at cosine MD_GRAD_COS, each rank's K1/K3/K4/K5
+   launches launches-a-step x steps and its evaluation's, its wall ms a
+   step (two processes on one card's SMs: no scaling figure), the
+   resident evaluator's predictions equal to one process's on the same
+   parameters at a rank's batch, and steps_per_call 2 under gloo on
+   CUDA raising. A rank that fails or outlives its join timeout fails
+   the phase, and the rest are killed.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -406,6 +426,32 @@ TRACE_KERNELS = {
                       "attn_dwv::"),
     "attention_resident_fwd": ("score_tile::kernel", "attn_res_wsum_kernel"),
     "attention_resident_bwd": ("attn_res_bwd_rows_kernel", "attn_dwv::"),
+}
+# Phase 24, multi-device on the one card. (a) World 1 under NCCL against no
+# group: MD_STEPS steps eagerly and at k = MD_K, the wall time a step on
+# CUDA events between MD_TIMED and a profiler window over MD_PROFILE. (b)
+# MD_WORLD gloo ranks spawned on the card, MD_RANK_STEPS steps each (timed
+# between MD_RANK_TIMED), each run joined within MD_JOIN_S seconds, on
+# data whose <unk> answers fall unevenly between the ranks (md_dataset).
+# Its comparisons of two runs hold the logged losses to MD_TOL_LOSS and
+#     the parameter changes (one vector) to cosine MD_GRAD_COS: the ranks'
+#     halves of a batch are summed in f32 after their bf16 products, in
+#     another order than one process's sums, and Adam turns that rounding
+#     into update differences where a gradient entry is near zero. On an
+#     H100 the sound runs read at most 4.85e-4 and at least 0.99984; runs
+#     with a fault planted (the sharded store's global row for row // n,
+#     the gradient bucket or the step's weight not summed, the row
+#     product's cotangent not summed over the model group) read at least
+#     0.0396 and at most 0.808 (PERF.md, PR 20). Each limit sits about 6x
+#     from the sound runs' worst and far from the faults' nearest.
+MD_TOL_LOSS, MD_GRAD_COS = 3e-3, 0.999
+MD_K, MD_STEPS, MD_TIMED, MD_PROFILE = 4, 12, (4, 8), (8, 12)
+MD_WORLD, MD_RANK_STEPS, MD_RANK_TIMED, MD_JOIN_S = 2, 6, (2, 6), 420
+MD_CASES = {
+    "replicated": {},
+    "sharded": {"train.store_sharded": True},
+    "tp": {"mesh.num_model": 2,
+           "mesh.shard_params": "answer_embedding,word_emb"},
 }
 # Graphed against eager parameters (and remat against none): expected bit
 #     for bit, the same deterministic kernels in the same order on the same
@@ -3371,6 +3417,9 @@ def spc_attempt(cfg, ds, what, per_step, timed, ckpt, restore_at, streamed,
             trainer.close()
             return None
         out["profile"] = summarize(res, n, f"{what} steps (k={k})")
+        out["kernels_ms"] = res["kernels_ms"]
+        out["kernel_records"] = res["kernel_records"]
+        out["profile_by_kind"] = res["device_ms_by_kind"]
         records = trace_launches(res, per_step)
         want = {op: c * n for op, c in per_step.items()}
         port = {name: c for name, c in res["kernel_records"].items()
@@ -3627,6 +3676,421 @@ def phase_steps_per_call(report: dict, dev) -> dict:
                 "against_eager": spc_compare(pair[1], pair[k4],
                                              f"{tag} k={k4} against eager")}
             del pair, side_ds
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def md_config(tag: str, root: str, **over):
+    """The main path's config for phase 24: dropout 0, the val split's
+    evaluation outside the loop, a metric record every 2 steps."""
+    return stage2_config(os.path.join(root, tag), MD_RANK_STEPS, **{
+        "model.dropout": 0.0, "train.log_every": 2, **over})
+
+
+def md_dataset(cfg, case: str):
+    """Phase 24's training split with its <unk> answers (weight 0 in the
+    loss) put unevenly between the data ranks, so that a mean of the
+    ranks' means is not the global batch's mean: for the replicated and
+    tensor-parallel runs on 3/4 of rank 0's half of each of the run's
+    batches and on none of rank 1's half; for the sharded store on 70% of
+    the questions whose image shard 0 holds (owner = row % MD_WORLD) and
+    on none of the others."""
+    import numpy as np
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.utils.vocab import UNK_ID
+
+    ds = load_dataset(cfg, "train")
+    ans = np.array(ds.arrays["answer_id"])
+    known = UNK_ID + 4  # an answer in the vocabulary
+    if case == "sharded":
+        owner = np.asarray(ds.arrays[ds.index_key]) % MD_WORLD
+        rng = np.random.default_rng(cfg.train.seed)
+        ans = np.where(ans == UNK_ID, known, ans)
+        ans[(owner == 0) & (rng.random(ans.size) < 0.7)] = UNK_ID
+    else:
+        batches = ds.index_batches(cfg.train.batch_size, seed=cfg.train.seed)
+        half = cfg.train.batch_size // MD_WORLD
+        for _ in range(MD_RANK_STEPS):
+            b = next(batches)
+            ans[b[:3 * half // 4]] = UNK_ID
+            ans[b[half:]] = np.where(ans[b[half:]] == UNK_ID, known,
+                                     ans[b[half:]])
+    ds.arrays["answer_id"] = ans
+    return ds
+
+
+def md_fit(cfg, ds, val, device=None, index_batches=None) -> dict:
+    """``Trainer.fit_resident`` of ``cfg`` from its seeded model on this
+    process's mesh (a rank's, or one card's without a group), then the
+    resident evaluator on ``val``: the launches of each (counts from 0),
+    the wall ms a step between steps MD_RANK_TIMED (CUDA events), the
+    losses, the whole tables' parameters, the predictions and metrics."""
+    import torch
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    t = cfg.train
+    spec = build_model(cfg, generator=torch.Generator().manual_seed(t.seed))
+    trainer = Trainer(cfg, spec, train_dir=t.train_dir, device=device)
+    state = trainer.init_state()
+    init = {n: v.detach().cpu().clone()
+            for n, v in trainer.full_state_dict().items()}
+    marks = {}
+
+    def mark(step, st, force=False):
+        if trainer.device.type == "cuda":
+            marks[step] = torch.cuda.Event(enable_timing=True)
+            marks[step].record()
+        return False
+
+    trainer.ckpt.save = mark
+    if index_batches is not None:
+        ds.index_batches = index_batches
+    reset_counts()
+    try:
+        state = trainer.fit_resident(ds, state)
+    finally:
+        if index_batches is not None:
+            del ds.index_batches
+    if trainer.device.type == "cuda":
+        torch.cuda.synchronize()
+    out = {"launches": read_counts(), "mesh": str(trainer.mesh),
+           "steps": state.step, "init": init}
+    a, b = MD_RANK_TIMED
+    out["ms_per_step"] = (marks[a].elapsed_time(marks[b]) / (b - a)
+                          if marks else None)
+    reset_counts()
+    out["eval_metrics"], out["preds"] = trainer.evaluate_resident(state, val)
+    out["eval_launches"] = read_counts()
+    out["params"] = {n: v.detach().cpu().clone()
+                     for n, v in trainer.full_state_dict().items()}
+    if trainer.mesh.is_writer:
+        with open(os.path.join(t.train_dir, "metrics.jsonl")) as fh:
+            out["losses"] = {r["step"]: r["train/loss"]
+                             for r in map(json.loads, fh)
+                             if "train/loss" in r}
+    trainer.close()
+    return out
+
+
+def md_rank(rank: int, world: int, port: int, case: str, device: str,
+            root: str, settings: dict) -> None:
+    """One rank of a phase-24 run, in a process of its own (spawned): it
+    joins the gloo group on the card it shares with the other rank, runs
+    ``case`` (``MD_CASES``) through :func:`md_fit` and writes its result
+    under ``root``. The replicated case then checks that steps_per_call 2
+    with gloo on CUDA raises ValueError naming the backend."""
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.parallel.mesh import (
+        maybe_initialize_distributed)
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    globals().update(settings)  # a rehearsal's sizes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_initialize_distributed("on", f"localhost:{port}", world, rank,
+                                 backend="gloo")
+    try:
+        cfg = md_config(case, root, **MD_CASES[case])
+        ds = md_dataset(cfg, case)
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        res = md_fit(cfg, ds, val, device=device)
+        res["preds"] = res["preds"].tolist()
+        if case == "replicated" and torch.device(device).type == "cuda":
+            from vqa_transfer_externaldata_torch.models.zoo import (
+                build_model)
+
+            k2 = cfg.replace_flat({"train.steps_per_call": 2,
+                                   "train.max_steps": 2})
+            trainer = Trainer(k2, build_model(k2), device=device,
+                              train_dir=os.path.join(root, "k2"))
+            try:
+                trainer.fit_resident(ds, trainer.init_state())
+                res["gloo_k2"] = "ran"
+            except ValueError as e:
+                res["gloo_k2"] = str(e)
+            trainer.close()
+        torch.save(res, os.path.join(root, f"{case}_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def md_spawn(case: str, device: str, root: str) -> list:
+    """Run ``case`` on MD_WORLD ranks (``torch.multiprocessing``, spawn);
+    a rank that exits non-zero or outlives MD_JOIN_S fails the phase, and
+    every rank still running is killed. Returns each rank's result."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    settings = {name: globals()[name] for name in (
+        "B_TRAIN", "TRAIN_QUESTIONS", "VAL_QUESTIONS", "MODEL_OVERRIDES",
+        "MD_RANK_STEPS", "MD_RANK_TIMED")}
+    procs = [ctx.Process(target=md_rank, args=(
+        r, MD_WORLD, port, case, device, root, settings))
+        for r in range(MD_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MD_JOIN_S
+    failed = None
+    try:
+        while failed is None:
+            codes = [p.exitcode for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
+            elif time.monotonic() > deadline:
+                failed = f"ranks still running after {MD_JOIN_S} s"
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    check(failed is None, f"multi-device {case}: {failed}")
+    return [torch.load(os.path.join(root, f"{case}_rank{r}.pt"))
+            for r in range(MD_WORLD)]
+
+
+def md_agree(got: dict, want: dict, what: str) -> dict:
+    """Two runs of one initialization on the same batches whose sums ran in
+    another order: their logged losses within MD_TOL_LOSS and their
+    parameter changes (all parameters as one vector) at cosine MD_GRAD_COS
+    or more."""
+    import torch
+
+    loss_diff = max(abs(got["losses"][s] - want["losses"][s])
+                    for s in want["losses"])
+    delta = [torch.cat([(r["params"][n] - r["init"][n]).double().flatten()
+                        for n in sorted(r["params"])]) for r in (got, want)]
+    cos = torch.nn.functional.cosine_similarity(delta[0], delta[1], 0).item()
+    diff = max((got["params"][n].float() - want["params"][n].float())
+               .abs().max().item() for n in want["params"])
+    print(f"{what}: losses within {loss_diff:.3e} (limit {MD_TOL_LOSS}), "
+          f"parameter changes at cosine {cos:.6f} (bound {MD_GRAD_COS}), "
+          f"largest parameter difference {diff:.3e}")
+    check(sorted(got["losses"]) == sorted(want["losses"])
+          and loss_diff <= MD_TOL_LOSS and cos >= MD_GRAD_COS,
+          f"{what}: the runs disagree")
+    return {"loss_max_abs_diff": loss_diff, "change_cos": cos,
+            "param_max_abs_diff": diff}
+
+
+def md_eval_reference(params: dict, val, root: str, tag: str,
+                      batch: int, device) -> list:
+    """The resident evaluator of one process (no group) on ``params`` at
+    ``batch`` questions a batch: a data rank's shapes, so each question's
+    forward is the same computation as on the ranks."""
+    import torch
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    cfg = md_config(tag, root, **{"train.batch_size": batch})
+    trainer = Trainer(cfg, build_model(cfg), train_dir=cfg.train.train_dir,
+                      device=device)
+    state = trainer.init_state(params)
+    _, preds = trainer.evaluate_resident(state, val)
+    trainer.close()
+    return preds.tolist()
+
+
+def phase_multi_device(report: dict, dev) -> dict:
+    """Multi-device training on the one card (ROADMAP item 12), at full
+    width on the main corpus (batch 256, the gather-free path: K1, K3, K4,
+    K5), dropout 0.
+
+    (a) World 1 under NCCL: this process joins a one-rank group, so every
+    collective of the distributed path runs (the weight and gradient
+    all-reduces, the broadcast); ``fit_resident`` eagerly and at
+    ``steps_per_call`` MD_K (the graph holds the NCCL all-reduce), each
+    against the same run without a group: parameters bit-equal; the wall
+    ms a step and a profiler window whose records are checked and whose
+    NCCL kernels give the all-reduce's device time a step.
+
+    (b) World 2 sharing the card under gloo (NCCL refuses two ranks on one
+    card): two spawned ranks on it, MD_RANK_STEPS steps at k = 1, for the
+    replicated store (against one process), ``train.store_sharded``
+    (against one process's replicated store fed the same per-shard index
+    stream) and a 1x2 tensor-parallel mesh with ``shard_params
+    answer_embedding,word_emb`` (against the 2x1 replicated run): losses
+    and parameter changes as :func:`md_agree`, each rank's launches
+    launches-a-step x steps (and its evaluation's), its wall ms a step
+    (two processes on one card's SMs: no scaling figure), and the resident
+    evaluator's predictions equal to one process's on the same parameters
+    at a rank's batch shape. steps_per_call 2 with gloo on CUDA raises."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as tmp:
+        out = {"world1": md_world1(tmp), "world2": md_world2(tmp, dev)}
+    out["launches"] = {
+        f"multi_device_world1_k{k}": out["world1"][f"k{k}"]["launches"]
+        for k in (1, MD_K)}
+    for case in MD_CASES:
+        for r, counts in enumerate(out["world2"][case]["launches"]):
+            out["launches"][f"multi_device_{case}_rank{r}"] = counts
+    return out
+
+
+MD_MAIN_STEP = {"gru_fwd": 1, "gru_bwd": 3, "attention_resident_fwd": 2,
+                "attention_resident_bwd": 3}
+
+
+def md_world1(tmp: str) -> dict:
+    """Phase 24 (a): the main path in a one-rank NCCL group against the
+    same runs without a group, eagerly and at k = MD_K."""
+    import torch
+    import torch.distributed as dist
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.parallel.mesh import (
+        maybe_initialize_distributed)
+
+    out = {}
+
+    def w1_cfg(tag, k):
+        return stage2_config(os.path.join(tmp, tag), MD_STEPS, **{
+            "model.dropout": 0.0, "train.log_every": 4,
+            "train.steps_per_call": k,
+            "train.profile_start": MD_PROFILE[0],
+            "train.profile_steps": MD_PROFILE[1] - MD_PROFILE[0]})
+
+    ds = load_dataset(w1_cfg("data", 1), "train")
+    runs = {}
+    for group in (False, True):
+        if group:
+            check(maybe_initialize_distributed(
+                "on", f"localhost:{free_port()}", 1, 0, backend="nccl"),
+                "the NCCL group did not start")
+        for k in (1, MD_K):
+            what = f"world 1, {'NCCL group' if group else 'no group'}"
+            runs[group, k] = spc_run(w1_cfg(f"w1_{group}_{k}", k), ds,
+                                     what, MD_MAIN_STEP, timed=MD_TIMED)
+    dist.destroy_process_group()
+    for k in (1, MD_K):
+        a, b = runs[False, k], runs[True, k]
+        equal = all(torch.equal(a["params"][n], b["params"][n])
+                    for n in a["params"])
+        nccl = {n: ms for n, ms in b["kernels_ms"].items()
+                if "nccl" in n.lower()}
+        n_win = MD_PROFILE[1] - MD_PROFILE[0]
+        res = {"bit_equal": equal,
+               "wall_ms_per_step": {"no_group": a["wall_ms_per_step"],
+                                    "nccl_world1": b["wall_ms_per_step"]},
+               "allreduce_device_ms_per_step": sum(nccl.values()) / n_win,
+               "nccl_kernels_ms": nccl,
+               "device_ms_by_kind": b["profile_by_kind"],
+               "nccl_records": {n: c for n, c in
+                                b["kernel_records"].items()
+                                if "nccl" in n.lower()},
+               "profile": {"no_group": a["profile"],
+                           "nccl_world1": b["profile"]},
+               "launches": b["launches"], "losses": b["losses"]}
+        print(f"world 1, k={k}: NCCL group against none: parameters "
+              f"{'bit-equal' if equal else 'DIFFER'}; wall "
+              f"{b['wall_ms_per_step']:.3f} ms a step against "
+              f"{a['wall_ms_per_step']:.3f}; all-reduce device time "
+              f"{res['allreduce_device_ms_per_step']:.4f} ms a step "
+              f"({nccl})")
+        check(equal and b["losses"] == a["losses"],
+              f"world 1 under NCCL, k={k}: parameters or losses differ "
+              "from the run without a group")
+        out[f"k{k}"] = res
+    return out
+
+
+def md_world2(tmp: str, dev) -> dict:
+    """Phase 24 (b): the replicated, sharded and tensor-parallel runs on
+    MD_WORLD gloo ranks sharing the card, each against its one-process
+    reference."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.parallel.trainer import (
+        sharded_index_batches)
+
+    out = {}
+    device = str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)
+    ref_cfg = md_config("ref_data", tmp)
+    ds, ds_sh = md_dataset(ref_cfg, "replicated"), md_dataset(ref_cfg,
+                                                               "sharded")
+    val = load_dataset(ref_cfg.replace_flat(
+        {"data.synthetic_size": VAL_QUESTIONS}), "val")
+    owner = np.asarray(ds_sh.arrays[ds_sh.index_key]) % MD_WORLD
+    eval_batches = {
+        "replicated": -(-VAL_QUESTIONS // B_TRAIN),
+        "tp": -(-VAL_QUESTIONS // B_TRAIN),
+        "sharded": max(-(-int((np.asarray(val.arrays[val.index_key])
+                               % MD_WORLD == d).sum())
+                         // (B_TRAIN // MD_WORLD))
+                       for d in range(MD_WORLD))}
+    results = {}
+    for case in MD_CASES:
+        ranks = md_spawn(case, device, tmp)
+        results[case] = ranks[0]
+        for r, res in enumerate(ranks):
+            want = {op: c * MD_RANK_STEPS for op, c in MD_MAIN_STEP.items()}
+            check_launches(res["launches"], want,
+                           f"{case}, rank {r} of {MD_WORLD}")
+            check_launches(res["eval_launches"], {
+                "gru_fwd": eval_batches[case],
+                "attention_resident_fwd": 2 * eval_batches[case]},
+                f"{case} evaluation, rank {r}")
+            check(res["preds"] == ranks[0]["preds"],
+                  f"{case}: the ranks' predictions differ")
+        out[case] = {
+            "mesh": [res["mesh"] for res in ranks],
+            "ms_per_step": [res["ms_per_step"] for res in ranks],
+            "launches": [res["launches"] for res in ranks],
+            "eval_launches": [res["eval_launches"] for res in ranks],
+            "losses": ranks[0]["losses"],
+            "eval_metrics": ranks[0]["eval_metrics"]}
+        print(f"{case} on {MD_WORLD} ranks sharing the card: "
+              f"{[res['mesh'] for res in ranks]}, wall ms a step "
+              f"{[res['ms_per_step'] for res in ranks]}, losses "
+              f"{ranks[0]['losses']}")
+        if case == "replicated" and dev.type == "cuda":
+            msg = ranks[0]["gloo_k2"]
+            print(f"steps_per_call 2 under gloo on CUDA: {msg}")
+            check("gloo" in msg and msg != "ran",
+                  f"steps_per_call 2 under gloo on CUDA: {msg}")
+            out["gloo_k2_raises"] = msg
+    # One process: the replicated run, and the replicated store fed
+    # the sharded run's per-shard stream.
+    one = md_fit(md_config("one", tmp), ds, val, device=dev)
+    fed = md_fit(md_config("one_fed", tmp), ds_sh, val, device=dev,
+                 index_batches=lambda bs, seed=0, **kw:
+                 sharded_index_batches(owner, MD_WORLD, bs // MD_WORLD,
+                                       seed))
+    for case, ref, what in (
+            ("replicated", one, "one process"),
+            ("sharded", fed, "one process's replicated store fed the "
+             "same per-shard stream"),
+            ("tp", results["replicated"], "the 2x1 replicated run")):
+        got = results[case]
+        out[case]["against"] = what
+        out[case].update(md_agree(
+            got, ref, f"{case} on {MD_WORLD} ranks against {what}"))
+        batch = B_TRAIN if case == "tp" else B_TRAIN // MD_WORLD
+        want = md_eval_reference(got["params"], val, tmp,
+                                 f"eval_{case}", batch, dev)
+        same = got["preds"] == want
+        print(f"{case}: the resident evaluator's predictions "
+              f"{'equal' if same else 'DIFFER from'} one process's on "
+              f"the same parameters at batch {batch} "
+              f"({sum(a != b for a, b in zip(got['preds'], want))} of "
+              f"{len(want)} differ)")
+        check(same, f"{case}: resident evaluation differs")
+        out[case]["preds_equal"] = same
+    out["one_process_ms_per_step"] = one["ms_per_step"]
     return out
 
 
@@ -4412,6 +4876,7 @@ def main(argv=None) -> int:
         report["oov"] = oov = phase_oov(report, dev)
         report["end2end"] = end2end = phase_end2end(report, dev)
         report["steps_per_call"] = spc = phase_steps_per_call(report, dev)
+        report["multi_device"] = md = phase_multi_device(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -4443,6 +4908,9 @@ def main(argv=None) -> int:
     # The graphed runs of phases 22 and 23 are under steps_per_call_* in
     # launches_by_path: the launches each ran (the graph's warm-up as
     # counted, each replay as its records in the run's profiler trace).
+    # Phase 24's are under multi_device_*: the one-rank NCCL runs (k = 1
+    # and k = 4, counted the same way) and each rank of the two-rank runs
+    # sharing the card.
     # P1's time is at Q=1, with every Q under by_q; its library call is
     # cuBLAS on the gathered rows, the gather timed apart. K6's time is
     # taken in turns with two K1 calls on its inputs (two_k1_ms), K7's with
@@ -4580,6 +5048,9 @@ def main(argv=None) -> int:
             SPC_KS[0]]
     paths[f"steps_per_call_end2end_k{E2E_SPC_K}"] = end2end[
         "steps_per_call"]["launches"][E2E_SPC_K]
+    # Phase 24: the world-1 NCCL runs (graphed launches as phase 23's) and
+    # each rank of the two-rank runs sharing the card.
+    paths.update(md["launches"])
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",

@@ -143,19 +143,6 @@ def test_pad_and_prenormalize_are_bit_equal_to_jax():
     assert grid.dtype == np.float16  # the source is left as it was
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "item 12"),
-    ({"store_sharded": True}, "item 12"),
-])
-def test_unported_options_name_their_roadmap_item(kwargs, item):
-    store, rows, qh, wv, ws, _, _ = _inputs()
-    with pytest.raises(NotImplementedError, match=item):
-        tar.spatial_attention_resident(
-            torch.from_numpy(store), torch.from_numpy(rows),
-            torch.from_numpy(qh), torch.from_numpy(wv), torch.from_numpy(ws),
-            n_valid=N, **kwargs)
-
-
 def test_kernel_wrappers_refuse_cpu_tensors():
     store, rows, qh, wv, ws, g, _ = _inputs()
     before = (tar.attention_resident_fwd.launches,

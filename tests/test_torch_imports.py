@@ -92,6 +92,35 @@ def test_profiling_tools_import_no_jax(name):
     assert "ok" in _fresh(NEW_MODULE.format(name=name, extra="()"))
 
 
+@pytest.mark.parametrize("name", ["parallel.mesh", "parallel.trainer"])
+def test_multi_device_modules_import_no_jax(name):
+    """The mesh and the trainer that runs on it import no JAX, h5py or
+    nltk."""
+    assert "ok" in _fresh(NEW_MODULE.format(name=name, extra="()"))
+
+
+WORKER = """
+import sys
+sys.path.insert(0, "tests")
+import {name}
+banned = ("jax", "jaxlib", "flax", "optax", "orbax",
+          "vqa_transfer_externaldata_tpu")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("name", ["test_torch_distributed_resident",
+                                  "test_torch_distributed_cli",
+                                  "test_torch_distributed_tp"])
+def test_multi_rank_workers_import_no_jax(name):
+    """Each multi-rank test file is also its ranks' worker: imported as
+    the ranks import it, it loads no JAX (its JAX imports sit inside the
+    test functions)."""
+    assert "ok" in _fresh(WORKER.format(name=name))
+
+
 def test_port_imports_no_jax():
     assert "modules" in _fresh(SCRIPT)
 
@@ -118,3 +147,9 @@ def test_importing_kernel_modules_builds_nothing(name):
 
     importlib.import_module(f"vqa_transfer_externaldata_torch.{name}")
     assert kernels.load.cache_info().currsize == 0
+
+
+def test_md_fault_check_imports_no_jax():
+    """The fault check of chip_smoke's phase 24 imports no JAX either."""
+    assert "ok" in _fresh(WORKER.replace('sys.path.insert(0, "tests")\n', "")
+                          .format(name="md_fault_check"))

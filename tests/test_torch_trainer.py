@@ -152,16 +152,6 @@ def test_train_cli_run_is_served_by_predictor(tmp_path):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"train.store_sharded": True}, "item 12"),
-])
-def test_unported_trainer_options_name_their_roadmap_item(over, item,
-                                                          tmp_path):
-    cfg = Config().replace_flat(dict(TINY, **over))
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cfg, build_model(cfg), train_dir=str(tmp_path), device="cpu")
-
-
-@pytest.mark.parametrize("over,item", [
     ({"data.input_pipeline": "grain"}, "item 14"),
 ])
 def test_unported_cli_paths_name_their_roadmap_item(over, item, tmp_path):

@@ -1,5 +1,6 @@
 """Shared CLI assembly: config -> vocabs -> init matrices -> model spec, the
-raw-image model's pretrained backbone, and the run directory's name."""
+raw-image model's pretrained backbone, the run directory's name and this
+rank's device."""
 
 from __future__ import annotations
 
@@ -88,6 +89,18 @@ def load_resnet_backbone(cfg: Config) -> Optional[Dict[str, torch.Tensor]]:
             f"(missing key {e})") from e
     log.info("pretrained ResNet backbone loaded from %s", path)
     return converted
+
+
+def rank_device(device: Optional[str]) -> torch.device:
+    """The device of this process: ``device``, else ``cuda:<LOCAL_RANK>``
+    (``serving.resolve_device``), made the current card so that NCCL and
+    every unindexed CUDA tensor use it."""
+    from vqa_transfer_externaldata_torch.serving import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def resolve_train_dir(cfg: Config, stage: str) -> str:

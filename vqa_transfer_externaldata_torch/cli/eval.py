@@ -10,7 +10,10 @@ The run's ``config.json`` is adopted, and the ``--section.field`` flags on
 the command line still win over it. ``oov_split.json`` and ``types.json``
 in ``data.dataset_dir`` add the in-/out-of-vocabulary and per-type
 accuracy breakdowns when they exist. A stage-1 run reports its loss
-metrics. Runs on CUDA unless ``--device cpu``.
+metrics. Runs on CUDA unless ``--device cpu``. Under
+``torch.distributed.run`` each rank evaluates its rows of every batch
+(``Trainer.evaluate`` and the resident evaluator), every rank gets the
+split's numbers, and rank 0 writes the result JSON and prints.
 """
 
 from __future__ import annotations
@@ -22,11 +25,15 @@ import sys
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-from vqa_transfer_externaldata_torch.cli.common import build_spec
+from vqa_transfer_externaldata_torch.cli.common import (
+    build_spec, rank_device)
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import load_dataset
 from vqa_transfer_externaldata_torch.parallel.evaler import evaluate_split
+from vqa_transfer_externaldata_torch.parallel.mesh import (
+    create_mesh, initialize_distributed_from)
 from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 from vqa_transfer_externaldata_torch.utils.logging import log
 
@@ -51,9 +58,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cfg = _apply_explicit(Config().replace_flat(flat), rest)
         cfg = cfg.replace_flat({"train.train_dir": train_dir})
 
+    started = initialize_distributed_from(
+        cfg, backend="gloo" if eargs.device == "cpu" else None)
+    mesh = create_mesh(cfg, rank_device(eargs.device))
     spec, _, answer_vocab = build_spec(cfg)
     ds = load_dataset(cfg, eargs.eval_split, stage=spec.stage)
-    trainer = Trainer(cfg, spec, train_dir=train_dir, device=eargs.device)
+    trainer = Trainer(cfg, spec, mesh=mesh, train_dir=train_dir)
     state = trainer.restore(trainer.init_state(), step=eargs.checkpoint_step)
     log.info("evaluating %s/%s at step %d (%d examples) on %s", spec.stage,
              eargs.eval_split, state.step, len(ds), trainer.device)
@@ -77,9 +87,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         answer_vocab=answer_vocab if spec.stage == "vqa" else None,
         results_path=results_path, oov_answer_ids=oov_ids,
         type_tables=type_tables)
-    print(json.dumps({"split": eargs.eval_split, "step": state.step,
-                      **{k: round(float(v), 6) for k, v in metrics.items()}}))
+    if mesh.is_writer:
+        print(json.dumps({"split": eargs.eval_split, "step": state.step,
+                          **{k: round(float(v), 6)
+                             for k, v in metrics.items()}}))
     trainer.close()
+    if started:
+        torch.distributed.destroy_process_group()
     return metrics
 
 

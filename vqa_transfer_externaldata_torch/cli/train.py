@@ -34,6 +34,20 @@ artifacts, or synthetic pixels), its backbone converted from
 given. Runs on CUDA unless ``--device cpu``. Not ported yet, raising
 ``NotImplementedError`` with its ROADMAP item: the grain input pipeline
 (item 14).
+
+Multi-device (one process per card; ``--mesh.num_model`` and
+``--mesh.shard_params`` for tensor-parallel tables):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m vqa_transfer_externaldata_torch.cli.train ... \
+        [--mesh.num_model 2 --mesh.shard_params answer_embedding,word_emb]
+
+The process group starts before the first device query
+(``parallel.mesh.initialize_distributed_from``: NCCL on the cards, gloo
+with ``--device cpu``); each rank runs on ``cuda:<LOCAL_RANK>``, streamed
+training reads its shard of every global batch, and rank 0 writes
+``config.json``, ``metrics.jsonl``, the checkpoints and
+``params_final.pt`` (the tables whole).
 """
 
 from __future__ import annotations
@@ -47,12 +61,14 @@ from typing import Optional, Sequence
 import torch
 
 from vqa_transfer_externaldata_torch.cli.common import (
-    build_spec, load_resnet_backbone, resolve_train_dir)
+    build_spec, load_resnet_backbone, rank_device, resolve_train_dir)
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import (
     ArrayDataset, load_dataset)
 from vqa_transfer_externaldata_torch.data.features import JoinedDataset
 from vqa_transfer_externaldata_torch.parallel.evaler import padded_batches
+from vqa_transfer_externaldata_torch.parallel.mesh import (
+    create_mesh, initialize_distributed_from)
 from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
 from vqa_transfer_externaldata_torch.utils.checkpoint import (
@@ -70,17 +86,22 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if cfg.data.input_pipeline == "grain":
         raise NotImplementedError("the grain input pipeline is not ported "
                                   "yet (ROADMAP.md, section 1, item 14)")
+    started = initialize_distributed_from(
+        cfg, backend="gloo" if args.device == "cpu" else None)
+    mesh = create_mesh(cfg, rank_device(args.device))
     spec, word_vocab, answer_vocab = build_spec(
         cfg, generator=torch.Generator().manual_seed(t.seed))
     if t.pretrained_param_path and spec.stage != "vqa":
         raise ValueError("--train.pretrained_param_path only applies to "
                          "stage-2 (vqa) models")
     train_dir = resolve_train_dir(cfg, spec.stage)
-    trainer = Trainer(cfg, spec, train_dir=train_dir, device=args.device)
-    log.info("train_dir: %s  device: %s", train_dir, trainer.device)
+    trainer = Trainer(cfg, spec, mesh=mesh, train_dir=train_dir)
+    log.info("train_dir: %s  device: %s  %s", train_dir, trainer.device,
+             mesh)
     os.makedirs(train_dir, exist_ok=True)
-    with open(os.path.join(train_dir, "config.json"), "w") as fh:
-        fh.write(cfg.to_json())
+    if mesh.is_writer:
+        with open(os.path.join(train_dir, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
     train_ds = load_dataset(cfg, "train", stage=spec.stage)
     try:
         val_ds = load_dataset(cfg, "val", stage=spec.stage)
@@ -117,15 +138,23 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     if t.device_data_cache and resident:
         state = trainer.fit_resident(train_ds, state, eval_ds=val_ds)
     else:
+        # Each data rank streams its shard of every global batch.
+        shard = ((mesh.data_index, mesh.num_data) if mesh.num_data > 1
+                 else None)
         state = trainer.fit(
-            train_ds.batches(t.batch_size, seed=t.seed), state,
+            train_ds.batches(t.batch_size, seed=t.seed, shard=shard), state,
             eval_batches_fn=None if val_ds is None else
             lambda: padded_batches(val_ds, t.batch_size)[0])
     final = os.path.join(train_dir, PARAMS_FILE)
-    save_params(final, spec.module.state_dict())
-    log.info("final params saved to %s", final)
+    params = trainer.full_state_dict()
+    if mesh.is_writer:
+        save_params(final, params)
+        log.info("final params saved to %s", final)
     trainer.close()
-    print(json.dumps({"train_dir": train_dir, "steps": state.step}))
+    if mesh.is_writer:
+        print(json.dumps({"train_dir": train_dir, "steps": state.step}))
+    if started:
+        torch.distributed.destroy_process_group()
     return train_dir
 
 

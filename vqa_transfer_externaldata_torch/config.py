@@ -3,7 +3,7 @@
 A typed dataclass tree with a flat ``--section.field`` argparse overlay, so
 one config object serves every entrypoint and a run's ``config.json`` from
 either package loads into it unchanged. Fields that only the JAX package
-reads (mesh, Pallas and TPU options) are kept so such files still parse.
+reads (Pallas and TPU options) are kept so such files still parse.
 """
 
 from __future__ import annotations
@@ -108,7 +108,10 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """Device-mesh layout (the JAX package's multi-device runs)."""
+    """Device-mesh layout of a multi-process run (``parallel/mesh.py``):
+    the process group's start and coordinator, the (data, model) grid, and
+    the tables row-sharded over the model axis. The axis names are the JAX
+    package's and name nothing in the port."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -43,23 +43,42 @@ class ArrayDataset:
 
     def batches(self, batch_size: int, *, shuffle: bool = True,
                 seed: int = 0, epochs: Optional[int] = None,
-                drop_last: bool = True
+                drop_last: bool = True,
+                shard: Optional[Tuple[int, int]] = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
-        """Fixed-shape batches; infinite if ``epochs`` is None."""
+        """Fixed-shape batches; infinite if ``epochs`` is None. With
+        ``shard=(k, n)`` (data parallelism over n ranks) rank k's
+        ``batch_size / n`` rows of each global batch
+        (:meth:`index_batches`)."""
         for idx in self.index_batches(batch_size, shuffle=shuffle, seed=seed,
-                                      epochs=epochs, drop_last=drop_last):
+                                      epochs=epochs, drop_last=drop_last,
+                                      shard=shard):
             yield self.take(idx)
 
     def index_batches(self, batch_size: int, *, shuffle: bool = True,
                       seed: int = 0, epochs: Optional[int] = None,
-                      drop_last: bool = True) -> Iterator[np.ndarray]:
+                      drop_last: bool = True,
+                      shard: Optional[Tuple[int, int]] = None
+                      ) -> Iterator[np.ndarray]:
         """The index stream behind :meth:`batches`: epoch ``e`` is the
         permutation of ``default_rng(SeedSequence([seed, e]))``, cut into
-        int32 batches. The resident trainer consumes it directly."""
+        int32 batches. The resident trainer consumes it directly.
+
+        ``shard=(k, n)``: each epoch's permutation is trimmed to a multiple
+        of n (so that every rank sees as many batches) and rank k takes
+        every n-th entry from the k-th, in batches of ``batch_size / n``;
+        ``batch_size`` stays the global batch (``ValueError`` unless n
+        divides it)."""
         if drop_last and self.size < batch_size:
             raise ValueError(
                 f"dataset has {self.size} rows < batch_size {batch_size} "
                 f"with drop_last: no batch can ever be produced")
+        local_bs = batch_size
+        if shard is not None and shard[1] > 1:
+            if batch_size % shard[1]:
+                raise ValueError(f"global batch {batch_size} not divisible "
+                                 f"by process count {shard[1]}")
+            local_bs = batch_size // shard[1]
         epoch = 0
         while epochs is None or epoch < epochs:
             if shuffle:
@@ -68,10 +87,13 @@ class ArrayDataset:
                         self.size)
             else:
                 order = np.arange(self.size)
-            limit = (order.size // batch_size) * batch_size if drop_last \
+            if shard is not None and shard[1] > 1:
+                k, n = shard
+                order = order[:(order.size // n) * n][k::n]
+            limit = (order.size // local_bs) * local_bs if drop_last \
                 else order.size
-            for start in range(0, limit, batch_size):
-                yield order[start:start + batch_size].astype(np.int32)
+            for start in range(0, limit, local_bs):
+                yield order[start:start + local_bs].astype(np.int32)
             epoch += 1
 
     def save(self, path: str) -> None:

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from vqa_transfer_externaldata_torch.ops.gru import BiGRUEncoder, GRUEncoder
 from vqa_transfer_externaldata_torch.ops.layers import (
-    MLP, WordEmbedding, l2_normalize)
+    MLP, WordEmbedding, l2_normalize, row_product)
 from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID
 
 Tensors = Dict[str, torch.Tensor]
@@ -69,10 +69,12 @@ class _VLMapHead(nn.Module):
         z = self.visual_proj(x, train=train, generator=generator)
         proj = l2_normalize(z.float())
         table, scale = self.word_emb.embedding, self.logit_scale
+        shard = self.word_emb.row_shards.get("embedding")
         if self.dense_loss and train:
-            return {"logits_vocab": _score_vocab(z, table, scale),
+            return {"logits_vocab": _score_vocab(z, table, scale, shard),
                     "projection": proj}
-        return {"logits": _score_candidates(z, table, candidates, scale),
+        return {"logits": _score_candidates(z, table, candidates, scale,
+                                            shard),
                 "projection": proj}
 
 
@@ -140,21 +142,23 @@ class VLMapDescriptionModel(_VLMapHead):
 
 
 def _score_vocab(z: torch.Tensor, word_emb: torch.Tensor,
-                 scale: torch.Tensor) -> torch.Tensor:
+                 scale: torch.Tensor, shard=None) -> torch.Tensor:
     """Scaled cosine of the projection ``z`` [B, D] against every word row
-    -> [B, V] f32. The candidates' logits are columns of it."""
+    -> [B, V] f32. The candidates' logits are columns of it. With a
+    ``RowShard`` ``word_emb`` holds this rank's rows of the table, and the
+    product is the model group's (``layers.row_product``)."""
     zn = l2_normalize(z.float())
     en = l2_normalize(word_emb.float())
-    return (zn @ en.t()) * scale
+    return row_product(zn, en, shard) * scale
 
 
 def _score_candidates(z: torch.Tensor, word_emb: torch.Tensor,
-                      candidates: torch.Tensor,
-                      scale: torch.Tensor) -> torch.Tensor:
+                      candidates: torch.Tensor, scale: torch.Tensor,
+                      shard=None) -> torch.Tensor:
     """The candidate columns [B, K] of :func:`_score_vocab`: one dense
     product against the whole table, then a gather, so no [B, K, D] copy of
     the candidates' rows is ever made."""
-    return torch.gather(_score_vocab(z, word_emb, scale), 1,
+    return torch.gather(_score_vocab(z, word_emb, scale, shard), 1,
                         candidates.long())
 
 

@@ -36,10 +36,15 @@ from vqa_transfer_externaldata_torch.ops.attention_resident import (
     spatial_attention_resident)
 from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder
 from vqa_transfer_externaldata_torch.ops.layers import (
-    Dense, GatedTanh, WordEmbedding, dropout, glorot_uniform_, l2_normalize)
+    Dense, GatedTanh, WordEmbedding, dropout, glorot_uniform_, l2_normalize,
+    row_product)
 from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID, UNK_ID
 
 class VQAAttentionModel(nn.Module):
+    # Tables the trainer may row-shard under mesh.shard_params (the answer
+    # logits are a row product; the word table is WordEmbedding's).
+    ROW_SHARDABLE = ("answer_embedding",)
+
     def __init__(self, vocab_size: int, num_answers: int, *,
                  feature_dim: int = 2048, word_dim: int = 300,
                  rnn_dim: int = 512, fusion_dim: int = 1024,
@@ -65,6 +70,7 @@ class VQAAttentionModel(nn.Module):
         # True only when the gathered grid needs a gradient (features that
         # are not data); False lets the attention backward skip dv.
         self.feature_grad = feature_grad
+        self.row_shards: dict = {}
         self.word_emb = WordEmbedding(vocab_size, word_dim,
                                       init_matrix=word_init, dtype=dtype,
                                       generator=g)
@@ -129,7 +135,8 @@ class VQAAttentionModel(nn.Module):
             fused = dropout(fused, self.dropout, generator)
         z = l2_normalize(self.ans_proj(fused).float())
         e = l2_normalize(self.answer_embedding)
-        logits = z @ e.t() * self.logit_scale + self.logit_bias
+        logits = (row_product(z, e, self.row_shards.get("answer_embedding"))
+                  * self.logit_scale + self.logit_bias)
         return {"logits": logits, "alpha": alpha}
 
 

@@ -89,7 +89,8 @@ def prenormalize_store(grid: np.ndarray,
                        out_dtype: Optional[torch.dtype] = None,
                        quantize: str = "",
                        chunk_bytes: int = 1 << 28,
-                       device: Optional[torch.device] = None
+                       device: Optional[torch.device] = None,
+                       shard: Optional[Tuple[int, int]] = None
                        ) -> Tuple[torch.Tensor, float]:
     """L2-normalize each cell of an [M, N, C] float store and pad the cell
     axis to a multiple of 8, chunk by chunk: each chunk is normalized in
@@ -102,7 +103,11 @@ def prenormalize_store(grid: np.ndarray,
     ``quantize="int8"``: two chunked passes, the global absmax of the
     normalized values, then the codes; the result is int8 with the
     dequantization scale, the codes equal to :func:`quantize_store` of the
-    whole normalized store (``out_dtype`` is not used)."""
+    whole normalized store (``out_dtype`` is not used).
+
+    ``shard=(d, n)`` (``train.store_sharded``): only the rows d, d + n,
+    d + 2n, ... are written, as the rows of a [ceil(M / n), Np, C] store
+    whose tail rows stay zero; an int8 scale is still the whole store's."""
     if quantize not in ("", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' or ''")
     M, N, C = grid.shape
@@ -118,11 +123,14 @@ def prenormalize_store(grid: np.ndarray,
         out_dtype = torch.int8
     elif out_dtype is None:
         out_dtype = torch.from_numpy(np.zeros(0, grid.dtype)).dtype
-    out = torch.zeros((M, Np, C), dtype=out_dtype, device=device)
-    for lo in range(0, M, rows):
-        g32 = _normalized(grid[lo:lo + rows])
+    src, M_out = grid, M
+    if shard is not None:
+        src, M_out = grid[shard[0]::shard[1]], -(-M // shard[1])
+    out = torch.zeros((M_out, Np, C), dtype=out_dtype, device=device)
+    for lo in range(0, src.shape[0], rows):
+        g32 = _normalized(src[lo:lo + rows])
         chunk = torch.from_numpy(_codes(g32, scale) if quantize else g32)
-        out[lo:lo + rows, :N] = chunk.to(out.device, out_dtype)
+        out[lo:lo + chunk.shape[0], :N] = chunk.to(out.device, out_dtype)
     return out, scale
 
 
@@ -529,9 +537,6 @@ def spatial_attention_resident(
     n_valid: int,  # true cell count (<= Np; the rest is masked)
     normalize: bool = False,
     store_scale: float = 1.0,
-    mesh=None,
-    data_axis: Optional[str] = None,
-    store_sharded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather-free attention: (v_att [B, C] f32, alpha [B, n_valid] f32),
     or with a 2-D ``w_score`` [H, G] (1 <= G <= 8, else ``ValueError``) the
@@ -547,8 +552,12 @@ def spatial_attention_resident(
     ``store_scale``, which is applied outside the kernels; such a store
     needs ``normalize=False`` (``ValueError`` otherwise).
 
-    Not ported yet, raising ``NotImplementedError``: ``mesh``/
-    ``data_axis``/``store_sharded`` (ROADMAP.md section 1 item 12)."""
+    Data parallelism needs nothing of the op: each rank runs it on its own
+    questions against its store (the whole store, or its row shard under
+    ``train.store_sharded`` with ``rows`` local to it), with no collective;
+    the trainer's gradient all-reduce sums the ranks' partial dW_v and
+    dws, as the transpose of the JAX package's ``shard_map`` does. K4 and
+    K5 take any batch of at least one question."""
     int8 = store.dtype == torch.int8
     if not (store.is_floating_point() or int8):
         raise TypeError(f"spatial_attention_resident takes a float or int8 "
@@ -558,10 +567,6 @@ def spatial_attention_resident(
                          "L2-normalized before it is quantized, so "
                          "normalize must be off")
     _glimpses(w_score, "spatial_attention_resident")
-    if mesh is not None or data_axis is not None or store_sharded:
-        raise NotImplementedError(
-            "multi-device resident attention is not ported yet (ROADMAP.md, "
-            "section 1, item 12)")
     if store.device.type not in ("cuda", "cpu"):
         raise ValueError(f"spatial_attention_resident: no path for device "
                          f"{store.device}")

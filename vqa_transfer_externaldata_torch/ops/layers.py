@@ -15,6 +15,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vqa_transfer_externaldata_torch.ops.row_shard import (
+    sharded_lookup, sharded_row_product)
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -38,6 +41,16 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor,
     return torch.sum(x * mask, dim=dim) / count
 
 
+def _keep_mask(generator, shape, device: torch.device,
+               keep_prob: float) -> torch.Tensor:
+    """A dropout keep mask: from ``generator``'s own ``keep`` where it has
+    one (:class:`DropoutTape`, :class:`DataShardDropout`), else drawn
+    uniformly from the ``torch.Generator``."""
+    if hasattr(generator, "keep"):
+        return generator.keep(shape, device, keep_prob)
+    return torch.rand(shape, generator=generator, device=device) < keep_prob
+
+
 class DropoutTape:
     """The dropout masks of a rematerialized forward: passed where a model
     takes its dropout ``generator``, it draws each mask from ``generator``
@@ -48,7 +61,7 @@ class DropoutTape:
     and resetting the generator's state instead would not work inside a
     CUDA graph's capture.)"""
 
-    def __init__(self, generator: Optional[torch.Generator]) -> None:
+    def __init__(self, generator) -> None:
         self.generator = generator
         self._masks: list = []
         self._next: Optional[int] = None  # None: drawing
@@ -59,8 +72,7 @@ class DropoutTape:
     def keep(self, shape, device: torch.device,
              keep_prob: float) -> torch.Tensor:
         if self._next is None:
-            mask = torch.rand(shape, generator=self.generator,
-                              device=device) < keep_prob
+            mask = _keep_mask(self.generator, shape, device, keep_prob)
             self._masks.append(mask)
             return mask
         mask = self._masks[self._next]
@@ -68,17 +80,34 @@ class DropoutTape:
         return mask
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``generator`` (or replayed
-    from a :class:`DropoutTape`): kept entries are scaled by
+class DataShardDropout:
+    """The dropout masks of rank ``index`` of ``n`` data-parallel ranks:
+    each mask is drawn for the global batch (``n`` times the local rows
+    on the batch axis, axis 0 of every dropout the port's models apply:
+    they act on [B, F] activations) from ``generator``, which every rank
+    holds at the same state, and the rank keeps its own rows. The masks
+    so do not depend on how the batch is split, as the JAX package's one
+    global key gives."""
+
+    def __init__(self, generator: torch.Generator, index: int,
+                 n: int) -> None:
+        self.generator, self.index, self.n = generator, index, n
+
+    def keep(self, shape, device: torch.device,
+             keep_prob: float) -> torch.Tensor:
+        b = shape[0]
+        mask = torch.rand((b * self.n, *shape[1:]),
+                          generator=self.generator, device=device) < keep_prob
+        return mask[self.index * b:(self.index + 1) * b]
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator`` (a
+    ``torch.Generator``, or a :class:`DropoutTape` /
+    :class:`DataShardDropout` over one): kept entries are scaled by
     1 / (1 - rate), as flax's ``nn.Dropout``."""
     keep_prob = 1.0 - rate
-    if isinstance(generator, DropoutTape):
-        keep = generator.keep(x.shape, x.device, keep_prob)
-    else:
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < keep_prob
+    keep = _keep_mask(generator, x.shape, x.device, keep_prob)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -117,7 +146,12 @@ class Dense(nn.Linear):
 
 class WordEmbedding(nn.Module):
     """Trainable word-embedding table, optionally GloVe-initialized. Row 0
-    is <pad>; callers mask padded positions by id."""
+    is <pad>; callers mask padded positions by id. Under ``mesh.shard_params``
+    the trainer may leave this rank only rows of the table
+    (``row_shards["embedding"]``, an ``ops.row_shard.RowShard``): the
+    lookup is then the model group's ``ops.row_shard.sharded_lookup``."""
+
+    ROW_SHARDABLE = ("embedding",)
 
     def __init__(self, vocab_size: int, dim: int = 300, *,
                  init_matrix: Optional[np.ndarray] = None,
@@ -125,6 +159,7 @@ class WordEmbedding(nn.Module):
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.row_shards: dict = {}
         self.embedding = nn.Parameter(torch.empty(vocab_size, dim))
         with torch.no_grad():
             if init_matrix is not None:
@@ -135,7 +170,20 @@ class WordEmbedding(nn.Module):
                                 generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embedding).to(self.dtype)
+        shard = self.row_shards.get("embedding")
+        if shard is None:
+            return F.embedding(ids, self.embedding).to(self.dtype)
+        return sharded_lookup(ids, self.embedding, shard).to(self.dtype)
+
+
+def row_product(z: torch.Tensor, table: torch.Tensor,
+                shard=None) -> torch.Tensor:
+    """``z @ table.T``: the logits of z against every row of a table, or,
+    with an ``ops.row_shard.RowShard``, against the whole table from this
+    rank's rows (``ops.row_shard.sharded_row_product``)."""
+    if shard is None:
+        return z @ table.t()
+    return sharded_row_product(z, table, shard)
 
 
 class GatedTanh(nn.Module):

@@ -65,7 +65,9 @@ def evaluate_split(trainer: Trainer, state: TrainState, ds: ArrayDataset,
     <unk> answer are in neither); ``type_tables`` (``types.json``) adds the
     accuracy per answer type and per question type when the split carries
     ``answer_type_id``/``question_type_id``. ``results_path`` receives the
-    official result JSON, decoded through ``answer_vocab``."""
+    official result JSON, decoded through ``answer_vocab``: under a
+    process group every rank returns the split's numbers and rank 0 alone
+    writes the file."""
     n = len(ds)
     if trainer.cfg.train.device_data_cache:
         metrics, preds = trainer.evaluate_resident(state, ds)
@@ -102,7 +104,7 @@ def evaluate_split(trainer: Trainer, state: TrainState, ds: ArrayDataset,
                         slug = name.replace(" ", "_").replace("/", "_")
                         metrics[f"{prefix}/{slug}"] = float(
                             per_q[sel].mean())
-    if results_path is not None:
+    if results_path is not None and trainer.mesh.is_writer:
         if answer_vocab is None:
             raise ValueError("answer_vocab required to decode results")
         qids = (question_ids if question_ids is not None

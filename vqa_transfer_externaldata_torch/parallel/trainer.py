@@ -1,6 +1,6 @@
-"""Single-device trainer of the port, for any
-:class:`~..models.zoo.ModelSpec` (stage 1 and stage 2): the JAX package's
-``parallel/trainer.py`` on one card.
+"""Trainer of the port, for any :class:`~..models.zoo.ModelSpec` (stage 1
+and stage 2): the JAX package's ``parallel/trainer.py``, on one card or on
+a ``parallel.mesh.Mesh`` of one process per card.
 
 Two loops. :meth:`Trainer.fit_resident` uploads the dataset once and stages
 the seeded index stream on the device in segments; each step takes its
@@ -26,6 +26,23 @@ and runs its padded index epoch without a host round trip per batch; both
 loops evaluate in the loop every ``eval_every`` steps, ``fit_resident``
 one log window late. Both loops write periodic checkpoints
 (``utils/checkpoint.py::CheckpointManager``).
+
+On a mesh with a process group (data parallelism over ``num_data`` ranks,
+``mesh.shard_params`` tables over ``num_model``): each rank trains on its
+``batch_size / num_data`` rows of the global batch (its contiguous columns
+of the resident index stream, or, with ``train.store_sharded``, its slot
+of :func:`sharded_index_batches` against its row shard of the store; its
+shard of the host stream in ``fit``). The loss is the global batch's
+weighted mean: the step's weight is summed over the data group and each
+rank backpropagates ``loss_r * max(W_r, 1) / max(W, 1)``; the gradients and
+those scaled metrics are then summed over the data group in one flat
+bucket before the clip, so every rank applies the same update and reports
+the global metrics. Dropout masks are drawn for the global batch from a
+generator every rank holds alike (``ops.layers.DataShardDropout``). Both
+evaluators split each batch the same way, sum the metrics over the data
+group and gather the predictions back into split order. Rank 0 writes the
+checkpoints and ``metrics.jsonl``. Without a process group (the one-rank
+mesh) none of this runs and no collective is called.
 """
 
 from __future__ import annotations
@@ -44,7 +61,10 @@ from vqa_transfer_externaldata_torch.data.datasets import PrefetchIterator
 from vqa_transfer_externaldata_torch.models.zoo import ModelSpec
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     pad_store_rows, prenormalize_store)
-from vqa_transfer_externaldata_torch.ops.layers import DropoutTape, dtype_of
+from vqa_transfer_externaldata_torch.ops.layers import (
+    DataShardDropout, DropoutTape, dtype_of)
+from vqa_transfer_externaldata_torch.parallel.mesh import (
+    Mesh, RowShard, all_gather_cat, all_reduce_sum, broadcast_, create_mesh)
 from vqa_transfer_externaldata_torch.serving import resolve_device
 from vqa_transfer_externaldata_torch.utils.checkpoint import CheckpointManager
 from vqa_transfer_externaldata_torch.utils.logging import (
@@ -92,6 +112,53 @@ def _eval_metrics(spec: ModelSpec, outputs: Tensors,
     b = outputs["logits"].shape[0]
     return {"weight": torch.full((), float(b),
                                  device=outputs["logits"].device)}
+
+
+def sharded_index_batches(owner: np.ndarray, n_shards: int,
+                          per_shard: int, seed: int) -> Iterator[np.ndarray]:
+    """The seeded index stream of ``train.store_sharded``, the JAX
+    package's draw for draw. ``owner[i]`` is the store shard (0..n_shards-1)
+    holding row i's image. Yields [n_shards * per_shard] int64 batches
+    whose slot d (positions ``d*per_shard:(d+1)*per_shard``) holds only
+    rows that shard d owns: data rank d trains on slot d against its own
+    rows of the store. Each shard walks its own seeded permutation epochs
+    (``SeedSequence([seed, 0x5A7D, d])``) at its own rate. A shard that
+    owns no row raises ``ValueError``; one that owns fewer rows than a
+    slot logs a warning (its questions repeat within a batch)."""
+    lists = [np.flatnonzero(owner == d) for d in range(n_shards)]
+    empty = [d for d, rows in enumerate(lists) if rows.size == 0]
+    if empty:
+        raise ValueError(
+            f"store_sharded: store shard(s) {empty} own no dataset rows — "
+            "every shard needs at least one question (rebalance the store "
+            "or reduce the data-axis size)")
+    smallest = min(rows.size for rows in lists)
+    if smallest < per_shard:
+        log.warning(
+            "store_sharded: smallest shard owns %d questions < per-shard "
+            "batch %d — its questions are ~%.1fx oversampled every step",
+            smallest, per_shard, per_shard / smallest)
+    rngs = [np.random.default_rng(
+        np.random.SeedSequence([seed, 0x5A7D, d])) for d in range(n_shards)]
+    pools = [rng.permutation(rows) for rng, rows in zip(rngs, lists)]
+    offs = [0] * n_shards
+    while True:
+        parts = []
+        for d in range(n_shards):
+            take = []
+            need = per_shard
+            while need:
+                avail = pools[d][offs[d]:offs[d] + need]
+                if avail.size == 0:  # epoch exhausted: reshuffle
+                    pools[d] = rngs[d].permutation(lists[d])
+                    offs[d] = 0
+                    continue
+                take.append(avail)
+                offs[d] += avail.size
+                need -= avail.size
+            parts.append(np.concatenate(take) if len(take) > 1
+                         else take[0])
+        yield np.concatenate(parts)
 
 
 # Float feature columns that travel in the compute dtype (the JAX package's
@@ -202,6 +269,21 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def sharded_global_norm(replicated: List[torch.Tensor],
+                        sharded: List[torch.Tensor], mesh: Mesh
+                        ) -> torch.Tensor:
+    """The 2-norm over whole tensors of which ``sharded`` are this rank's
+    rows of tables row-sharded over ``mesh``'s model group: their squared
+    sums are summed over the group, each replicated tensor counted once."""
+    sq = lambda ts: torch.stack(torch._foreach_norm(ts)).square().sum()
+    total = (sq(sharded) if sharded else
+             torch.zeros((), device=replicated[0].device))
+    total = all_reduce_sum(total, mesh.model_group)
+    if replicated:
+        total = total + sq(replicated)
+    return torch.sqrt(total)
+
+
 @dataclasses.dataclass
 class AdamState:
     count: int  # optax's step counter: the schedule reads it, then += 1
@@ -225,12 +307,17 @@ class AdamW:
       before its increment.
 
     No step synchronizes with the device: every reduction stays a tensor.
+    ``norm(tensors, names)`` is the clip's global norm: :func:`global_norm`
+    unless given (the trainer's, when it row-shards tables, sums their
+    rows' squared sums over the model group).
     """
 
     def __init__(self, lr_fn: Callable[[int], float], *, b1: float,
                  b2: float, eps: float, weight_decay: float,
                  mu_dtype: torch.dtype, max_norm: float,
-                 frozen: Callable[[str], bool]) -> None:
+                 frozen: Callable[[str], bool],
+                 norm: Optional[Callable[[List[torch.Tensor], List[str]],
+                                         torch.Tensor]] = None) -> None:
         self.lr_fn = lr_fn
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
@@ -240,6 +327,7 @@ class AdamW:
         self._b1_mu = torch.tensor(b1, dtype=mu_dtype).item()
         self.max_norm = max_norm
         self.frozen = frozen
+        self.norm = norm or (lambda tensors, names: global_norm(tensors))
 
     def init(self, params: Tensors) -> AdamState:
         live = [k for k in params if not self.frozen(k)]
@@ -275,7 +363,7 @@ class AdamW:
         bc1, bc2, lr = scalars[0], scalars[1], scalars[2]
         g = [torch.zeros_like(grads[k]) if self.frozen(k) else grads[k]
              for k in names]
-        g_norm = global_norm(g)
+        g_norm = self.norm(g, names)
         # g if g_norm < max_norm else (g / g_norm) * max_norm, as t / d * s
         # with d = s = 1 in the first case: the same roundings, no branch.
         trigger = g_norm < self.max_norm
@@ -313,12 +401,13 @@ class AdamW:
         return updates, dataclasses.replace(state, count=state.count + 1)
 
 
-def make_optimizer(cfg: Config, extra_frozen: str = ""
+def make_optimizer(cfg: Config, extra_frozen: str = "", norm=None
                    ) -> Tuple[AdamW, Callable[[int], float]]:
     """The configured :class:`AdamW` and its learning-rate schedule.
     ``extra_frozen``: names the model freezes itself, added to
     ``train.freeze_params`` (the Trainer adds ``resnet`` for a model that
-    declares ``freeze_backbone``: a ResNet-101 carries no Adam moments)."""
+    declares ``freeze_backbone``: a ResNet-101 carries no Adam moments).
+    ``norm``: the clip's global norm (:class:`AdamW`)."""
     t = cfg.train
     if t.adam_mu_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"train.adam_mu_dtype={t.adam_mu_dtype!r}: "
@@ -329,7 +418,7 @@ def make_optimizer(cfg: Config, extra_frozen: str = ""
                  weight_decay=t.weight_decay,
                  mu_dtype=dtype_of(t.adam_mu_dtype),
                  max_norm=t.grad_clip_norm,
-                 frozen=_freeze_mask_fn(frozen_csv)), lr
+                 frozen=_freeze_mask_fn(frozen_csv), norm=norm), lr
 
 
 @dataclasses.dataclass
@@ -344,11 +433,6 @@ class TrainState:
     opt_state: AdamState
     rng: torch.Generator
     buffers: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, section 1, {item})")
 
 
 def _advance(state: TrainState, n: int) -> TrainState:
@@ -513,15 +597,23 @@ class Trainer:
     :meth:`restore`), :meth:`fit_resident` or :meth:`fit`, :meth:`evaluate`
     or :meth:`evaluate_resident`.
 
-    Runs on CUDA unless ``device`` says otherwise (the tests pass "cpu");
-    without a card and without ``device`` it raises. The JAX Trainer's
-    single-device options are ported: ``train.steps_per_call`` (k steps a
-    dispatch: a captured CUDA graph of the k steps on the card, the same
-    k steps eagerly on the CPU), the profiler window
-    (``train.profile_start`` / ``train.profile_steps``), ``train.remat``
-    and ``train.sort_batch_by_image``. ``train.store_sharded`` (a
-    multi-device option) is not, and raises ``NotImplementedError`` naming
-    its ROADMAP item (item 12)."""
+    Runs on ``mesh``'s device, by default the one-rank mesh of ``device``
+    (CUDA unless ``device`` says otherwise: the tests pass "cpu"; without a
+    card and without ``device`` it raises), or of this rank where a process
+    group is running (``parallel.mesh.create_mesh``). Every option of the
+    JAX Trainer is ported: ``train.steps_per_call`` (k steps a dispatch: a
+    captured CUDA graph of the k steps on the card, the same k steps
+    eagerly on the CPU; on CUDA under a process group only with NCCL,
+    whose collectives a graph captures), the profiler window
+    (``train.profile_start`` / ``train.profile_steps``), ``train.remat``,
+    ``train.sort_batch_by_image``, ``train.store_sharded`` and
+    ``mesh.shard_params``.
+
+    A global batch that the data axis does not divide raises
+    ``ValueError``, as does ``train.store_sharded`` without
+    ``train.device_data_cache`` and a ``mesh.shard_params`` rule that
+    matches a parameter neither row-sharded read takes (the word tables'
+    lookup and the answer / word row products)."""
 
     # fit_resident stages its seeded index table in segments of this many
     # steps (rounded down to whole k-step calls); shrink in tests to
@@ -529,28 +621,45 @@ class Trainer:
     resident_segment_steps = 2048
 
     def __init__(self, cfg: Config, spec: ModelSpec,
+                 mesh: Optional[Mesh] = None,
                  train_dir: Optional[str] = None,
                  device: Optional[str] = None) -> None:
         t = cfg.train
-        if t.store_sharded:
-            raise _todo("train.store_sharded", "item 12")
+        if mesh is None:
+            mesh = create_mesh(cfg, resolve_device(device))
+        elif device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh
+        if t.batch_size % mesh.num_data:
+            raise ValueError(
+                f"global batch_size={t.batch_size} must be divisible by the "
+                f"data-axis size {mesh.num_data} of {mesh}")
+        if t.store_sharded and not t.device_data_cache:
+            raise ValueError(
+                "train.store_sharded needs train.device_data_cache — the "
+                "feature store only exists device-resident")
         self.cfg = cfg
         self.spec = spec
-        self.device = resolve_device(device)
+        self.device = mesh.device
         self.model = model = spec.module.to(self.device)
         if (t.resident_fused_attention and t.device_data_cache
                 and getattr(model, "store_prenormalized", None) is False):
             # The store is L2-normalized once at upload (_prepare_resident),
             # so the (store, rows) path skips the per-cell norm.
             model.store_prenormalized = True
+        self._row_shards = self._plan_row_shards()
+        self._tables_sharded = False
         self.tx, self.lr_fn = make_optimizer(
             cfg, extra_frozen=("resnet" if getattr(
-                model, "freeze_backbone", False) else ""))
+                model, "freeze_backbone", False) else ""), norm=self._norm)
         self.train_dir = train_dir or t.train_dir
         self.ckpt = CheckpointManager(self.train_dir,
                                       keep=t.keep_checkpoints,
-                                      save_every=t.checkpoint_every)
-        self.metrics = MetricWriter(self.train_dir)
+                                      save_every=t.checkpoint_every,
+                                      mesh=mesh, full=self._full_rows,
+                                      local=self._local_rows)
+        self.metrics = MetricWriter(self.train_dir, enabled=mesh.is_writer)
         # The streamed loop's graphs (fit_resident keeps its own for a
         # run: they read that run's uploaded dataset), and how many graphs
         # were captured and replays run, by k.
@@ -558,18 +667,114 @@ class Trainer:
         self.graph_captures: collections.Counter = collections.Counter()
         self.graph_replays: collections.Counter = collections.Counter()
 
+    # -- tensor-parallel tables ------------------------------------------------
+
+    def _plan_row_shards(self) -> Dict[str, Tuple[torch.nn.Module, str,
+                                                  RowShard]]:
+        """The parameters that ``mesh.shard_params`` row-shards over the
+        model axis, by name: (owning module, attribute, this rank's
+        :class:`RowShard`). A parameter is matched as the JAX package's
+        ``_tree_shardings`` matches a leaf: its name contains a rule, it
+        has rows, at least ``num_model`` of them, and ``num_model`` divides
+        them. A matched parameter that its module does not read through
+        the row-sharded lookup or row product (``ROW_SHARDABLE``) raises
+        ``ValueError``; on a one-rank model axis nothing is sharded."""
+        rules = [r.strip() for r in self.cfg.mesh.shard_params.split(",")
+                 if r.strip()]
+        m = self.mesh.num_model
+        plan = {}
+        for name, p in self.model.named_parameters():
+            if not (any(r in name for r in rules) and p.dim() >= 1
+                    and p.shape[0] >= m and p.shape[0] % m == 0):
+                continue
+            owner, _, attr = name.rpartition(".")
+            module = self.model.get_submodule(owner)
+            if attr not in getattr(module, "ROW_SHARDABLE", ()):
+                raise ValueError(
+                    f"mesh.shard_params={self.cfg.mesh.shard_params!r} "
+                    f"matches {name}, which is read by neither row-sharded "
+                    "read of the port (the word tables' lookup, the answer "
+                    "and word row products)")
+            if m > 1:
+                rows = p.shape[0] // m
+                plan[name] = (module, attr, RowShard(
+                    self.mesh.model_group, self.mesh.model_index * rows,
+                    rows))
+        return plan
+
+    def _shard_tables(self) -> None:
+        """Replace each planned table by this rank's rows (once)."""
+        if self._tables_sharded:
+            return
+        for module, attr, shard in self._row_shards.values():
+            full = getattr(module, attr)
+            setattr(module, attr, torch.nn.Parameter(
+                full.detach()[shard.start:shard.start + shard.rows].clone()))
+            module.row_shards[attr] = shard
+        self._tables_sharded = bool(self._row_shards)
+
+    def _local_rows(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole table ``t`` (a parameter or one of
+        its moments) when ``name`` is row-sharded, else ``t``."""
+        if name not in self._row_shards or not self._tables_sharded:
+            return t
+        shard = self._row_shards[name][2]
+        return t[shard.start:shard.start + shard.rows]
+
+    def _full_rows(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole table of this rank's rows ``t`` when ``name`` is
+        row-sharded (gathered over the model group), else ``t``."""
+        if name not in self._row_shards or not self._tables_sharded:
+            return t
+        return all_gather_cat(t.detach(), self.mesh.model_group, dim=0)
+
+    def _norm(self, tensors: List[torch.Tensor],
+              names: List[str]) -> torch.Tensor:
+        """The global norm of whole tensors, tables row-sharded or not."""
+        if not self._tables_sharded:
+            return global_norm(tensors)
+        shd = [t for t, n in zip(tensors, names) if n in self._row_shards]
+        rep = [t for t, n in zip(tensors, names) if n not in self._row_shards]
+        return sharded_global_norm(rep, shd, self.mesh)
+
+    def full_state_dict(self) -> Tensors:
+        """The model's ``state_dict`` with every row-sharded table whole
+        (collective: every rank calls it)."""
+        return {k: self._full_rows(k, v)
+                for k, v in self.model.state_dict().items()}
+
     # -- state ---------------------------------------------------------------
 
     def init_state(self, params: Optional[Tensors] = None) -> TrainState:
-        """Adopt ``params`` (a ``state_dict``) if given, else keep the
-        model's initialization; fresh optimizer state and dropout stream."""
+        """Adopt ``params`` (a ``state_dict``, tables whole) if given, else
+        keep the model's initialization; fresh optimizer state and dropout
+        stream. Under a process group every rank then holds rank 0's
+        parameters and buffers (broadcast), and under ``mesh.shard_params``
+        only its rows of the sharded tables."""
         if params is not None:
-            self.model.load_state_dict(params)
+            self.model.load_state_dict(
+                {k: self._local_rows(k, v) for k, v in params.items()})
+        if self.mesh.distributed:
+            self._broadcast_params()
+        self._shard_tables()
         live = dict(self.model.named_parameters())
         rng = torch.Generator(device=self.device)
         rng.manual_seed(self.cfg.train.seed + 1)
         return TrainState(0, live, self.tx.init(live), rng,
                           dict(self.model.named_buffers()))
+
+    def _broadcast_params(self) -> None:
+        """Rank 0's parameters and buffers on every rank; a sharded
+        table's rows from the data group's first rank (rank = model
+        index)."""
+        with torch.no_grad():
+            for name, t in [*self.model.named_parameters(),
+                            *self.model.named_buffers()]:
+                if self._tables_sharded and name in self._row_shards:
+                    broadcast_(t, src=self.mesh.model_index,
+                               group=self.mesh.data_group)
+                else:
+                    broadcast_(t, src=0)
 
     def restore(self, state: TrainState,
                 step: Optional[int] = None) -> TrainState:
@@ -587,11 +792,17 @@ class Trainer:
         ``torch.utils.checkpoint``: its activations are recomputed in the
         backward pass instead of kept, and the recompute replays the first
         pass's dropout masks (:class:`DropoutTape`), so the gradients and
-        the generator are those of a step without remat."""
+        the generator are those of a step without remat. On a data axis of
+        n > 1 ranks each mask is drawn for the global batch and the rank
+        keeps its rows (:class:`DataShardDropout`)."""
         inputs = self.spec.inputs(batch)
+        gen = rng
+        if self.mesh.num_data > 1:
+            gen = DataShardDropout(rng, self.mesh.data_index,
+                                   self.mesh.num_data)
         if not self.cfg.train.remat:
-            return self.model(*inputs, train=True, generator=rng)
-        tape = DropoutTape(rng)
+            return self.model(*inputs, train=True, generator=gen)
+        tape = DropoutTape(gen)
         passes: List[None] = []
 
         def run(*args):
@@ -608,9 +819,21 @@ class Trainer:
         """One optimizer step on a device batch with its row of
         :meth:`AdamW.scalars`: forward with dropout, the spec's loss, the
         gradients, AdamW. Writes the parameters and moments in place and
-        moves no host counter; returns the metrics as device tensors."""
+        moves no host counter; returns the metrics as device tensors.
+
+        Under a process group the loss and metrics are the global batch's
+        (the class docstring): the weight is summed over the data group
+        first, then the gradients and the scaled metrics
+        (:meth:`_sum_over_data`)."""
         outputs = self._forward(batch, state.rng)
         loss, metrics = self.spec.loss(outputs, batch)
+        if self.mesh.distributed:
+            w = metrics.pop("weight").detach().float()
+            total = all_reduce_sum(w.clone(), self.mesh.data_group)
+            # 1.0 exactly on one rank: its numbers are those of no group.
+            c = w.clamp(min=1.0) / total.clamp(min=1.0)
+            loss = loss * c
+            metrics = {k: v.detach().float() * c for k, v in metrics.items()}
         # A frozen parameter the loss cannot reach (a backbone run under
         # no_grad) gets no gradient and no update, as its zeroed one would
         # give; it adds nothing to the clip norm. A live one the loss
@@ -626,8 +849,10 @@ class Trainer:
                 f"the loss does not reach the live parameters {unreached}")
         grads = {k: g for k, g in zip(every, raw) if g is not None}
         names = list(grads)
+        if self.mesh.distributed:
+            grads, metrics = self._sum_over_data(grads, metrics)
         metrics.pop("weight", None)  # eval-weighting aid, not a metric
-        metrics["grad_norm"] = global_norm(list(grads.values()))
+        metrics["grad_norm"] = self._norm(list(grads.values()), names)
         # The step's learning rate from its row (state.step is AdamW's
         # count): a host number would be baked into a captured graph.
         metrics["lr"] = scalars[2].clone()
@@ -637,6 +862,22 @@ class Trainer:
             torch._foreach_add_([state.params[k] for k in names],
                                 [updates[k] for k in names])
         return metrics
+
+    def _sum_over_data(self, grads: Tensors, metrics: Tensors
+                       ) -> Tuple[Tensors, Tensors]:
+        """The gradients and metrics summed over the data group in one flat
+        bucket (one all-reduce a step). The sums are copied back into the
+        gradients' own tensors, so what follows reads the same tensors as
+        a step without a group (a view into the bucket may be misaligned
+        for a vectorized kernel, which would sum in another order)."""
+        keys = sorted(metrics)
+        g = list(grads.values())
+        flat = torch.cat([t.reshape(-1) for t in g]
+                         + [torch.stack([metrics[k] for k in keys])])
+        all_reduce_sum(flat, self.mesh.data_group)
+        parts = torch.split(flat, [t.numel() for t in g] + [len(keys)])
+        torch._foreach_copy_(g, [p.view_as(t) for t, p in zip(g, parts)])
+        return grads, dict(zip(keys, parts[-1].unbind()))
 
     def _steps(self, state: TrainState,
                batch_of: Callable[[int], Dict[str, object]],
@@ -676,7 +917,16 @@ class Trainer:
         copied into ``dst`` when it is given, else new. Eager on the CPU
         and for one step; on CUDA at k > 1 ``fill`` fills the static
         inputs of the graph for this k and these shapes, which is replayed
-        once."""
+        once. Under a process group the graph holds the step's
+        collectives, which only NCCL's can join: with another backend on
+        CUDA, k > 1 raises ``ValueError``."""
+        if (k > 1 and self.device.type == "cuda" and self.mesh.distributed
+                and self.mesh.backend != "nccl"):
+            raise ValueError(
+                f"train.steps_per_call={k} on CUDA captures the step's "
+                f"collectives in a CUDA graph, which the "
+                f"{self.mesh.backend!r} backend cannot join: use the NCCL "
+                "backend (one process per card) or train.steps_per_call 1")
         if self.device.type != "cuda" or k == 1:
             inputs = fill(None)
             return _advance(state, k), self._steps(
@@ -718,7 +968,12 @@ class Trainer:
         ``eval_every`` steps the split of ``eval_batches_fn()`` is
         evaluated (:meth:`evaluate`); the checkpoint policy runs after
         every call and the last step is always saved. The profiler window
-        (``train.profile_steps``) is :class:`_ProfilerWindow`'s."""
+        (``train.profile_steps``) is :class:`_ProfilerWindow`'s. On a data
+        axis of n ranks ``train_batches`` are this rank's
+        ``batch_size / n`` rows of each global batch
+        (``ArrayDataset.batches(shard=(data index, n))``), and
+        ``eval_batches_fn`` gives global batches, which :meth:`evaluate`
+        splits."""
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         if t.prefetch_batches > 0:
@@ -796,19 +1051,41 @@ class Trainer:
         ``JoinedDataset`` by its store row (a stable sort on the host):
         every reduction over a batch is order-invariant, so training is
         the same up to float summation order. The profiler window is
-        :class:`_ProfilerWindow`'s."""
+        :class:`_ProfilerWindow`'s.
+
+        On a data axis of n ranks every rank draws the same global index
+        batches and stages its contiguous ``batch_size / n`` columns of
+        them. Under ``train.store_sharded`` rank d uploads only its rows of
+        the store (owner = row % n) and the stream is
+        :func:`sharded_index_batches`, whose slot d is rank d's; the sort
+        by image runs within each slot."""
         from vqa_transfer_externaldata_torch.data.features import (
             JoinedDataset)
 
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
         rows, make_batch, nbytes = self._prepare_resident(ds)
+        shard_info = self._store_shard(ds)
         store_rows = next((rows[k].shape[0] for k in ("grid", "store_pool5")
                            if k in rows), None)
-        log.info("device-resident dataset: %d rows%s, %.2f GB uploaded once",
-                 ds.size, (f" + {store_rows}-row feature store"
-                           if store_rows is not None else ""), nbytes / 1e9)
-        indices = ds.index_batches(t.batch_size, seed=t.seed)
+        log.info("device-resident dataset: %d rows%s, %.2f GB uploaded "
+                 "once%s", ds.size, (f" + {store_rows}-row feature store"
+                                     if store_rows is not None else ""),
+                 nbytes / 1e9, (f" (store row-sharded {shard_info[0]}-way)"
+                                if shard_info else ""))
+        if shard_info is not None:
+            # Each data rank trains on the questions whose image its shard
+            # holds (owner = row % n): its slot of the per-shard stream.
+            n_sh = shard_info[0]
+            owner = np.asarray(ds.arrays[ds.index_key]) % n_sh
+            indices = sharded_index_batches(owner, n_sh,
+                                            t.batch_size // n_sh, t.seed)
+        else:
+            indices = ds.index_batches(t.batch_size, seed=t.seed)
+        # Every rank draws the same global batches and takes its contiguous
+        # columns (its slot of a sharded stream).
+        n_data, d = self.mesh.num_data, self.mesh.data_index
+        local = t.batch_size // n_data
         timer = Timer()
         stepno = state.step
         last_log = stepno
@@ -863,9 +1140,16 @@ class Trainer:
                 part = [next(indices) for _ in range(
                     min(seg_steps, max_steps - stepno))]
                 if sort_rows is not None:
-                    part = [r[np.argsort(sort_rows[r], kind="stable")]
-                            for r in part]
-                seg = torch.from_numpy(np.stack(part)).to(self.device)
+                    # Within each slot of a sharded stream: a whole-batch
+                    # sort would send questions to ranks without their
+                    # images.
+                    slots = shard_info[0] if shard_info else 1
+                    part = [np.concatenate([
+                        p[np.argsort(sort_rows[p], kind="stable")]
+                        for p in r.reshape(slots, -1)]) for r in part]
+                seg = np.stack(part)[:, d * local:(d + 1) * local]
+                seg = torch.from_numpy(np.ascontiguousarray(seg)).to(
+                    self.device)
                 seg_off = 0
             window.open_at(stepno)
             kk = min(k, max_steps - stepno)
@@ -923,6 +1207,20 @@ class Trainer:
 
         return fetch
 
+    def _store_shard(self, ds) -> Optional[Tuple[int, int]]:
+        """(n_shards, rows a shard) of ``ds``'s store as
+        :meth:`_prepare_resident` uploads it under ``train.store_sharded``
+        (owner = row % n, ceil(M / n) rows a rank), else None: a split
+        without a store, or a model that reads no grid, is not sharded."""
+        from vqa_transfer_externaldata_torch.data.features import (
+            JoinedDataset)
+
+        if not (self.cfg.train.store_sharded and isinstance(ds, JoinedDataset)
+                and self.spec.visual_key == "features"):
+            return None
+        n = self.mesh.num_data
+        return n, -(-ds.store.pool5.shape[0] // n)
+
     def _prepare_resident(self, ds, drop_keys: Tuple[str, ...] = ()
                           ) -> Tuple[Dict[str, torch.Tensor], Callable, int]:
         """Upload ``ds`` for resident training or evaluation, leaving the
@@ -957,9 +1255,18 @@ class Trainer:
         from vqa_transfer_externaldata_torch.data.features import (
             POOL5_KEYS, JoinedDataset)
 
+        sharded = self.cfg.train.store_sharded
+        n_data = self.mesh.num_data
         data = {k: self._upload_rows(k, v) for k, v in ds.arrays.items()
                 if k not in drop_keys}
         if not isinstance(ds, JoinedDataset):
+            if sharded:
+                # No store to shard: an in-loop evaluation of such a split
+                # runs on, as in the JAX package.
+                log.warning("train.store_sharded has no effect on %s: no "
+                            "feature store to shard (JoinedDataset "
+                            "required)", type(ds).__name__)
+
             def make_rows(idx: torch.Tensor) -> Dict[str, object]:
                 return {k: v.index_select(0, idx) for k, v in data.items()}
 
@@ -967,14 +1274,21 @@ class Trainer:
             return data, make_rows, nbytes
         wanted = self.cfg.train.resident_fused_attention
         model_ok = bool(getattr(self.model, "n_cells", None))
+        # Each data rank runs the op on its batch_size / n questions.
         fused = (wanted and model_ok
                  and getattr(self.model, "glimpses", 1) <= 8
-                 and self.cfg.train.batch_size % 8 == 0)
+                 and self.cfg.train.batch_size % (8 * n_data) == 0)
         if wanted and not fused:
             (log.warning if model_ok else log.info)(
                 "resident_fused_attention unavailable (needs a spatial-"
-                "attention model with glimpses <= 8 and batch % 8 == 0): "
-                "using the gathered resident path")
+                "attention model with glimpses <= 8 and batch % (8 * "
+                "data-axis ranks) == 0): using the gathered resident path")
+        if sharded and not fused:
+            # The flag exists not to hold the whole store on each card.
+            raise ValueError(
+                "train.store_sharded requires the fused resident attention "
+                "path (a spatial-attention model, resident_fused_attention "
+                "on, batch % (8 * data-axis ranks) == 0)")
         key = ds.index_key
         M = ds.store.pool5.shape[0]
         index = np.asarray(ds.arrays[key])
@@ -986,8 +1300,14 @@ class Trainer:
             store["store_pool5"] = self._upload_rows(
                 "pool5", np.asarray(ds.store.pool5, np.float32))
         scale = 1.0
+        # Row-sharded store: rank d holds rows d, d + n, ... (owner = row %
+        # n); a question's row is row // n there.
+        shard = self._store_shard(ds)
+        shard_n = shard[0] if shard else 0
         if self.spec.visual_key == "features":
-            store["grid"], scale = self._upload_grid(ds.store.grid, fused)
+            store["grid"], scale = self._upload_grid(
+                ds.store.grid, fused,
+                (self.mesh.data_index, shard_n) if shard else None)
         pool5, grid = store.get("store_pool5"), store.get("grid")
         # int8 codes travel with their own scale (a val store's differs).
         codes_scale = ((scale,) if grid is not None
@@ -999,15 +1319,19 @@ class Trainer:
             for k in pool5_keys:
                 batch[k] = pool5.index_select(0, rows.long())
             if grid is not None:
-                batch["features"] = ((grid, rows, *codes_scale) if fused
-                                     else grid.index_select(0, rows.long()))
+                batch["features"] = (
+                    (grid, rows // shard_n if shard_n else rows,
+                     *codes_scale) if fused
+                    else grid.index_select(0, rows.long()))
             return batch
 
         nbytes = sum(v.numel() * v.element_size()
                      for v in (*data.values(), *store.values()))
         return dict(data, **store), make_batch, nbytes
 
-    def _upload_grid(self, grid, fused: bool) -> Tuple[torch.Tensor, float]:
+    def _upload_grid(self, grid, fused: bool,
+                     shard: Optional[Tuple[int, int]] = None
+                     ) -> Tuple[torch.Tensor, float]:
         """A store's grids on the device and their dequantization scale
         (1.0 unless int8): padded to a multiple of 8 cells (L2-normalized
         when the model skips the per-cell norm, and then quantized to int8
@@ -1015,7 +1339,9 @@ class Trainer:
         [M, N, C] as they are. ``train.store_quantize`` other than "" or
         "int8" raises ``ValueError``; int8 where the store is not
         prenormalized logs a warning and keeps the float store, as the JAX
-        package does."""
+        package does. ``shard=(d, n)`` (gather-free only): only rows d, d +
+        n, ... are uploaded, as a [ceil(M / n), Np, C] block whose tail rows
+        are zeros; an int8 scale is the whole store's."""
         quantize = self.cfg.train.store_quantize
         if quantize not in ("", "int8"):
             # A float store measured under a quantized run's name would
@@ -1046,9 +1372,17 @@ class Trainer:
             grid = torch.from_numpy(grid).to(dt).float().numpy()
         if self.model.store_prenormalized:
             return prenormalize_store(grid, out_dtype=store_dt,
-                                      quantize=quantize, device=self.device)
-        return torch.from_numpy(pad_store_rows(grid)).to(self.device,
-                                                         store_dt), 1.0
+                                      quantize=quantize, device=self.device,
+                                      shard=shard)
+        padded = pad_store_rows(grid)
+        if shard is not None:
+            d, n = shard
+            block = np.zeros((-(-padded.shape[0] // n),) + padded.shape[1:],
+                             padded.dtype)
+            part = padded[d::n]
+            block[:part.shape[0]] = part
+            padded = block
+        return torch.from_numpy(padded).to(self.device, store_dt), 1.0
 
     def _upload_rows(self, key: str, v: np.ndarray) -> torch.Tensor:
         """One row array on the device, float feature columns in the
@@ -1065,23 +1399,62 @@ class Trainer:
         valid-row-weighted mean metrics and the concatenated predicted ids.
         Each batch's means are weighted by its valid-row count (the loss's
         ``weight``), so a padded final batch cannot dilute them. ``state``
-        names the parameters, which are the model's own."""
+        names the parameters, which are the model's own. Each data rank
+        evaluates its contiguous rows of every batch (one rank: the whole
+        batch); under a process group every rank gets the same global
+        batches and returns the split's numbers (:meth:`_combine_eval`)."""
         del state
         upload = self._uploader()
-        sums: Dict[str, float] = {}
-        total_w = 0.0
-        preds = []
+        n, d = self.mesh.num_data, self.mesh.data_index
+        preds, vals, keys = [], [], None
         for batch in batches:
-            p, m = self._eval_step(upload(batch))
-            m = self._fetch_later(m)()  # one wait for the batch
-            preds.append(p.cpu().numpy())
-            w = m.pop("weight", 1.0)
-            total_w += w
-            for k, v in m.items():
-                sums[k] = sums.get(k, 0.0) + v * w
-        means = {k: v / max(total_w, 1e-9) for k, v in sums.items()}
-        return means, (np.concatenate(preds) if preds
-                       else np.zeros((0,), np.int64))
+            rows = next(iter(batch.values())).shape[0]
+            if rows % n:
+                raise ValueError(f"an evaluation batch of {rows} rows does "
+                                 f"not split over {n} data ranks")
+            b = rows // n
+            p, m = self._eval_step(upload(
+                {k: v[d * b:(d + 1) * b] for k, v in batch.items()}))
+            keys = sorted(m)
+            preds.append(p.float())
+            vals.append(torch.stack([m[k].float() for k in keys]))
+        if not preds:
+            return {}, np.zeros((0,), np.int64)
+        v = torch.stack(vals)
+        if self.mesh.distributed:
+            p, v = self._combine_eval(keys, torch.stack(preds), v)
+        else:  # the last batch may be shorter
+            p = torch.cat(preds)
+        return self._weighted_means(keys, v.double().cpu().numpy()), \
+            p.cpu().numpy().reshape(-1).astype(np.int64)
+
+    def _combine_eval(self, keys: List[str], preds: torch.Tensor,
+                      vals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every data rank's per-batch evaluation numbers as the global
+        batches': ``preds`` [n_batches, b] gathered along the rows in rank
+        order ([n_batches, n * b]), ``vals`` [n_batches, len(keys)] (each a
+        batch mean over its ``weight``) as the global batch's means, the
+        weights summed: each rank's mean counts by max(W_r, 1) / max(W, 1),
+        as the training step's loss does."""
+        g = self.mesh.data_group
+        wi = keys.index("weight")
+        w = vals[:, wi]
+        total = all_reduce_sum(w.clone(), g)
+        out = vals * (w.clamp(min=1.0) / total.clamp(min=1.0))[:, None]
+        out[:, wi] = 0.0
+        all_reduce_sum(out, g)
+        out[:, wi] = total
+        return all_gather_cat(preds, g, dim=1), out
+
+    @staticmethod
+    def _weighted_means(keys: List[str], vals: np.ndarray
+                        ) -> Dict[str, float]:
+        """The split's metrics from per-batch means [n_batches, len(keys)]:
+        each batch weighted by its ``weight`` column (1 without one)."""
+        m = {k: vals[:, i] for i, k in enumerate(keys)}
+        w = m.pop("weight", np.ones(vals.shape[0]))
+        total_w = max(float(w.sum()), 1e-9)
+        return {k: float((v * w).sum() / total_w) for k, v in m.items()}
 
     def _make_resident_evaluator(self, ds):
         """Resident evaluator over ``ds``: the split uploads once (its
@@ -1090,22 +1463,62 @@ class Trainer:
         Returns ``run(state) -> (metrics, preds)`` with ``run.dispatch``
         (enqueue, returns a handle) and ``run.collect`` (wait for the
         handle, finish on the host: weighted means, and ``vqa_accuracy``
-        from the host's score table)."""
+        from the host's score table).
+
+        Under a process group each data rank evaluates its columns of the
+        padded epoch and the numbers are combined as :meth:`evaluate`'s.
+        With a row-sharded store (``train.store_sharded``) a rank can only
+        evaluate questions whose image its shard holds, so the epoch is
+        laid out per shard, as the JAX package lays it: [n_batches, n,
+        B / n], shard d's questions in order in slot d, padded (mask 0) to
+        the longest shard's batch count; a padded slot reads question row
+        0, whose local store row ``row // n`` is inside every shard's
+        block. The predictions go back to split order by position."""
         data, make_batch, nbytes = self._prepare_resident(
             ds, drop_keys=("answer_scores", "cand_counts"))
-        log.info("device-resident eval split: %d rows, %.2f GB uploaded once",
-                 ds.size, nbytes / 1e9)
+        shard = self._store_shard(ds)
+        log.info("device-resident eval split: %d rows, %.2f GB uploaded "
+                 "once%s", ds.size, nbytes / 1e9,
+                 f" (store row-sharded {shard[0]}-way)" if shard else "")
         B = self.cfg.train.batch_size
         n = len(ds)
-        starts = list(range(0, n, B))
-        idxs = np.zeros((len(starts), B), np.int32)
-        masks = np.zeros((len(starts), B), np.float32)
-        for r, start in enumerate(starts):
-            stop = min(start + B, n)
-            idxs[r, :stop - start] = np.arange(start, stop)
-            masks[r, :stop - start] = 1.0
-        dev_idxs = torch.from_numpy(idxs).to(self.device)
-        dev_masks = torch.from_numpy(masks).to(self.device)
+        positions = None
+        if shard is None:
+            starts = list(range(0, n, B))
+            idxs = np.zeros((len(starts), B), np.int32)
+            masks = np.zeros((len(starts), B), np.float32)
+            for r, start in enumerate(starts):
+                stop = min(start + B, n)
+                idxs[r, :stop - start] = np.arange(start, stop)
+                masks[r, :stop - start] = 1.0
+        else:
+            n_sh = shard[0]
+            per_dev = B // n_sh
+            owner = np.asarray(ds.arrays[ds.index_key]) % n_sh
+            lists = [np.flatnonzero(owner == d) for d in range(n_sh)]
+            n_batches = max(1, max(-(-rows.size // per_dev)
+                                   for rows in lists))
+            idxs = np.zeros((n_batches, n_sh, per_dev), np.int32)
+            masks = np.zeros((n_batches, n_sh, per_dev), np.float32)
+            positions = np.full((n_batches, n_sh, per_dev), -1, np.int64)
+            for d, rows_d in enumerate(lists):
+                for r in range(n_batches):
+                    seg = rows_d[r * per_dev:(r + 1) * per_dev]
+                    idxs[r, d, :seg.size] = seg
+                    masks[r, d, :seg.size] = 1.0
+                    positions[r, d, :seg.size] = seg
+            idxs = idxs.reshape(n_batches, B)
+            masks = masks.reshape(n_batches, B)
+            positions = positions.reshape(-1)
+        # This data rank's columns: its contiguous rows, or its slot.
+        local = B // self.mesh.num_data
+        cols = slice(self.mesh.data_index * local,
+                     (self.mesh.data_index + 1) * local)
+        dev_idxs = torch.from_numpy(
+            np.ascontiguousarray(idxs[:, cols])).to(self.device)
+        dev_masks = torch.from_numpy(
+            np.ascontiguousarray(masks[:, cols])).to(self.device)
+        n_batches = idxs.shape[0]
         scores_host = (np.asarray(ds.arrays["answer_scores"], np.float64)
                        if "answer_scores" in ds.arrays else None)
         labels_host = (np.asarray(ds.arrays["answer_id"])
@@ -1116,7 +1529,7 @@ class Trainer:
             copies to the host are in flight when it returns."""
             del state  # the parameters are the model's own
             preds, ms = [], []
-            for r in range(len(starts)):
+            for r in range(n_batches):
                 batch = make_batch(dev_idxs[r])
                 batch["example_mask"] = dev_masks[r]
                 p, m = self._eval_step(batch)
@@ -1125,7 +1538,10 @@ class Trainer:
             keys = sorted(ms[0])
             vals = torch.stack([torch.stack([m[k].float() for k in keys])
                                 for m in ms])  # [n_batches, len(keys)]
-            both = torch.cat([torch.stack(preds).float(), vals], dim=1)
+            p = torch.stack(preds).float()
+            if self.mesh.distributed:
+                p, vals = self._combine_eval(keys, p, vals)
+            both = torch.cat([p, vals], dim=1)
             if self.device.type != "cuda":
                 return keys, both, None
             host = both.to("cpu", non_blocking=True)
@@ -1139,11 +1555,14 @@ class Trainer:
                 done.synchronize()
             both = both.double().numpy()
             p, vals = both[:, :B], both[:, B:]
-            m = {k: vals[:, i] for i, k in enumerate(keys)}
-            w = m.pop("weight", np.ones(len(starts)))
-            total_w = max(float(w.sum()), 1e-9)
-            means = {k: float((v * w).sum() / total_w) for k, v in m.items()}
-            preds = p.reshape(-1)[:n].astype(np.int64)
+            means = self._weighted_means(keys, vals)
+            flat = p.reshape(-1).astype(np.int64)
+            if positions is None:
+                preds = flat[:n]
+            else:
+                sel = positions >= 0
+                preds = np.zeros((n,), np.int64)
+                preds[positions[sel]] = flat[sel]
             if scores_host is not None and labels_host is not None:
                 from vqa_transfer_externaldata_torch.utils.vocab import UNK_ID
 

@@ -36,13 +36,16 @@ Visual = Union[np.ndarray, torch.Tensor]
 
 def resolve_device(device: Optional[Union[str, torch.device]]
                    ) -> torch.device:
-    """``device``, or CUDA when it is None — raising if there is none."""
+    """``device``, or CUDA when it is None — raising if there is none: the
+    card of this process's ``LOCAL_RANK`` (``cuda:<LOCAL_RANK>``) under a
+    launcher that sets it (torchrun), else ``cuda``."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
-    return torch.device("cuda")
+    local = os.environ.get("LOCAL_RANK")
+    return torch.device("cuda", int(local)) if local else torch.device("cuda")
 
 
 class Predictor:

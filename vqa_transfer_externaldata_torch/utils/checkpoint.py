@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,16 +33,41 @@ class CheckpointManager:
     temporary file, then a rename) and holds what a resumed run needs to
     continue bit for bit: the parameters, the model's buffers (BatchNorm
     statistics, where it has any), the AdamW state (count, mu, nu), the
-    step and the dropout generator's state. Saves are synchronous."""
+    step and the dropout generator's state. Saves are synchronous.
+
+    In a multi-process run (``mesh``, a ``parallel.mesh.Mesh`` with a
+    process group) every rank calls :meth:`latest_step`, :meth:`save` and
+    :meth:`restore`, and the run directory is one that every rank reads
+    (a shared file system). Only rank 0 lists it: :meth:`latest_step` is
+    its listing, broadcast, and :meth:`save` decides from that listing,
+    taken at its first call, and the steps this manager wrote since, so
+    no rank can decide otherwise than another and leave it waiting in a
+    collective. Rank 0 alone writes, the ranks wait for the file at a
+    barrier, and every rank restores from it. A row-sharded table
+    (``mesh.shard_params``) is saved whole: ``full(name, tensor)``
+    (collective) gives a parameter's or moment's whole table,
+    ``local(name, tensor)`` this rank's rows of a restored one; both are
+    the identity unless given."""
 
     _NAME = re.compile(r"ckpt_(\d+)\.pt")
 
     def __init__(self, train_dir: str, *, keep: int = 5,
-                 save_every: int = 1000) -> None:
+                 save_every: int = 1000, mesh=None,
+                 full: Optional[Callable[[str, torch.Tensor],
+                                         torch.Tensor]] = None,
+                 local: Optional[Callable[[str, torch.Tensor],
+                                          torch.Tensor]] = None) -> None:
         self.directory = os.path.abspath(os.path.join(train_dir, "ckpt"))
         os.makedirs(self.directory, exist_ok=True)
         self.keep = max(1, keep)
         self.save_every = max(1, save_every)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        self.full = full or (lambda name, t: t)
+        self.local = local or (lambda name, t: t)
+        # Under a mesh: the newest step saved, as save() knows it (None:
+        # none; unset until its first call lists the directory).
+        self._newest: Optional[int] = None
+        self._listed = False
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step}.pt")
@@ -52,17 +77,29 @@ class CheckpointManager:
             self._NAME.fullmatch, os.listdir(self.directory)) if m)
 
     def latest_step(self) -> Optional[int]:
-        steps = self.all_steps()
-        return steps[-1] if steps else None
+        """The newest step saved in the directory, None without one; under
+        a mesh rank 0's listing, broadcast (collective)."""
+        if self.mesh is None:
+            steps = self.all_steps()
+            return steps[-1] if steps else None
+        steps = self.all_steps() if self.mesh.is_writer else []
+        latest = self.mesh.from_writer(steps[-1] if steps else -1)
+        return None if latest < 0 else latest
 
     def save(self, step: int, state, *, force: bool = False) -> bool:
         """Write ``state`` (a trainer ``TrainState``) as step ``step`` when
         the policy says so; returns whether it wrote."""
-        latest = self.latest_step()
+        if self.mesh is None:
+            latest = self.latest_step()
+        else:
+            if not self._listed:
+                self._newest, self._listed = self.latest_step(), True
+            latest = self._newest
         if not force and latest is not None and (
                 latest >= step or step % self.save_every):
             return False
-        cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+        cpu = lambda d: {k: self.full(k, v).detach().cpu()
+                         for k, v in d.items()}
         opt = state.opt_state
         payload = {"step": int(step), "params": cpu(state.params),
                    "opt": {"count": int(opt.count), "mu": cpu(opt.mu),
@@ -71,12 +108,17 @@ class CheckpointManager:
         buffers = getattr(state, "buffers", None)
         if buffers:
             payload["buffers"] = cpu(buffers)
-        path = self._path(step)
-        tmp = f"{path}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.keep]:
-            os.remove(self._path(old))
+        if self.mesh is None or self.mesh.is_writer:
+            path = self._path(step)
+            tmp = f"{path}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self.keep]:
+                os.remove(self._path(old))
+        if self.mesh is not None:
+            # The file is whole before any rank reads it.
+            self.mesh.barrier()
+            self._newest = max(step, -1 if latest is None else latest)
         return True
 
     def restore(self, state, step: Optional[int] = None):
@@ -93,11 +135,12 @@ class CheckpointManager:
                         weights_only=True)
         with torch.no_grad():
             for k, p in state.params.items():
-                p.copy_(ck["params"][k])
+                p.copy_(self.local(k, ck["params"][k]))
             for k, b in ck.get("buffers", {}).items():
                 state.buffers[k].copy_(b)
         opt = state.opt_state
-        moved = lambda d, like: {k: v.to(like[k].device) for k, v in d.items()}
+        moved = lambda d, like: {k: self.local(k, v).to(like[k].device)
+                                 for k, v in d.items()}
         opt = dataclasses.replace(opt, count=ck["opt"]["count"],
                                   mu=moved(ck["opt"]["mu"], opt.mu),
                                   nu=moved(ck["opt"]["nu"], opt.nu))

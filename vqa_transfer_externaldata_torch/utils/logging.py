@@ -57,14 +57,20 @@ class Timer:
 class MetricWriter:
     """Appends one JSON object per record to ``<train_dir>/metrics.jsonl``:
     ``{"step": n, "<prefix>/<name>": value, ...}``, the JAX package's keys
-    (``train/loss``, ``train/questions_per_sec``, ...)."""
+    (``train/loss``, ``train/questions_per_sec``, ...). With ``enabled``
+    false (every rank but rank 0 of a multi-process run, whose metrics are
+    the global ones on every rank) it writes nothing."""
 
-    def __init__(self, train_dir: str) -> None:
-        os.makedirs(train_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(train_dir, "metrics.jsonl"), "a")
+    def __init__(self, train_dir: str, enabled: bool = True) -> None:
+        self._jsonl = None
+        if enabled:
+            os.makedirs(train_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(train_dir, "metrics.jsonl"), "a")
 
     def write(self, step: int, metrics: Dict[str, float],
               prefix: Optional[str] = None) -> None:
+        if self._jsonl is None:
+            return
         record = {"step": int(step)}
         for k, v in metrics.items():
             record[f"{prefix}/{k}" if prefix else k] = float(v)
@@ -72,4 +78,5 @@ class MetricWriter:
         self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
