@@ -218,6 +218,29 @@ Run from the repository root. Phases (any failure exits non-zero):
    parameters at a rank's batch, and steps_per_call 2 under gloo on
    CUDA raising. A rank that fails or outlives its join timeout fails
    the phase, and the rest are killed.
+25. float32 (``model.dtype float32``) on the main path: the float32
+   kernels K1f ``gru_fwd_f32`` and K3f ``gru_bwd_f32`` at the training
+   shape (B=256, T=26, H=512, both directions) and K4f
+   ``attention_resident_fwd_f32`` and K5f ``attention_resident_bwd_f32``
+   at the main path's (a 512-image store of 200x2048 cells, 196 valid,
+   B=256 with repeated rows, H=512) on float32, float16 and int8 rows at
+   G=1, 2 and 8, normalize on and off on float rows, each against its
+   plain float32 version within TOL_F32_REL of each output's largest value
+   (G times that for K5f's dqh and dW_v), each timed with its plain
+   version, its library yardstick (cuDNN's GRU in float32 for K1f/K3f,
+   cuBLAS's f32 GEMM for K4f's score and K5f's dW_v stage) and its bound
+   at the FP32 FFMA peak; ``fit_resident`` at full width in float32 on the
+   synthetic corpus's float16 store (K1f, K3f, K4f on f16 rows widened on
+   load, K5f) for F32_STEPS steps, the first against the plain path (loss
+   to TOL_F32_LOSS, gradients to cosine F32_GRAD_COS), launch counts, step
+   times; the resident evaluator; and a float32 ``Predictor`` (its
+   gathered forward needs K2 in float32) refusing with ROADMAP.md's item;
+26. ``model.fidelity_mode`` at full width: the forward (TF1 GRU, float32,
+   the plain gathered attention, no kernel) on the card against the
+   port's float64 numpy oracle (``utils/fidelity.py``) at B=8, atol 5e-4
+   and rtol 1e-4, TF32 off; ``cli.train`` (the resident path: K4f/K5f on
+   the float16 store, and no K1, K2, K3 or K8), ``cli.eval`` (K4f) and
+   ``cli.predict`` (no kernel) on the run.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -243,6 +266,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the memory rate and its operations over the peak for their type.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# FP32 outside the tensor cores (FFMA), the float32 kernels' pipes.
+PEAK_FP32_FLOPS = 67e12
 
 # Tolerances (max abs error, kernel vs its plain version on the card):
 # K1: h in (-1, 1). Sums of 512 products run in another order, and when the
@@ -340,7 +365,9 @@ STAGE1_MODEL = {"model.model": "vlmap_description",
                 "model.bidirectional_desc": True}
 KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
            "attention_resident_bwd", "bigru_fwd", "bigru_bwd",
-           "attention_bwd", "probe_mxu_rows", "probe_bwd_ceiling"]
+           "attention_bwd", "probe_mxu_rows", "probe_bwd_ceiling",
+           "gru_fwd_f32", "gru_bwd_f32", "attention_resident_fwd_f32",
+           "attention_resident_bwd_f32"]
 # K4 and K5 on int8 rows: the glimpse counts checked against the plain
 # versions (the limits are the bf16 rows', as the codes widen exactly to
 # bf16), and the bound on v_att's relative quantization error against the
@@ -463,6 +490,37 @@ MD_CASES = {
 #     of the run (a wrong step, batch or mask moves a parameter by a whole
 #     update).
 SPC_PARAM_REL = 2.0 ** -9
+# Phase 25, float32. The float32 kernels K1f, K3f, K4f and K5f take FFMA
+#     products with f32 sums and round to no narrower type, so each output
+#     differs from its plain version (cuBLAS's f32 GEMMs and PyTorch's f32
+#     ops, TF32 off) only by the order of f32 sums: a sum of n terms in
+#     another order moves by about sqrt(n) 2^-24 of its terms' scale, under
+#     1e-6 of the largest value of an output at the main path's sums (512
+#     to 50176 terms). Each output is held to TOL_F32_REL of its largest
+#     value, and K5f's dqh and dW_v, whose dz sums G glimpse terms, to G
+#     times that (as GLIMPSE_CHECKS reasons for K5). A wrong step, gate,
+#     mask, row or glimpse moves an output by a large share of its largest
+#     value. The store holds F32_IMAGES images; K4f/K5f run at
+#     F32_GLIMPSES on each of F32_ROWS.
+TOL_F32_REL = 1e-5
+F32_IMAGES, F32_GLIMPSES = 512, (1, 2, 8)
+F32_ROWS = ("float32", "float16", "int8")
+# The float32 main path's first step against the plain path on the card:
+#     no bf16 rounding anywhere, so the loss (about 7.6) moves by the f32
+#     sums' order alone; held to 1e-5 and every gradient to cosine 0.99999.
+#     F32_STEPS steps of fit_resident, the first F32_WARMUP untimed, so
+#     the step time is a median of at least 10 timed steps (one epoch of
+#     the corpus; host noise moved medians of 2 to 4 steps by 2x).
+TOL_F32_LOSS, F32_GRAD_COS = 1e-5, 0.99999
+F32_STEPS, F32_WARMUP = 16, 3
+# What a kernel without a float32 variant names when it is handed float32.
+ITEM_F32 = "ROADMAP.md, section 2, item 1"
+# Phase 26, model.fidelity_mode: the forward at FID_BATCH questions from
+#     seed FID_SEED against the float64 oracle at the JAX package's own
+#     tolerance for it (atol 5e-4, rtol 1e-4: its tests/test_fidelity.py),
+#     then FID_STEPS steps through cli.train (timed as float32's).
+FID_SEED, FID_BATCH, FID_STEPS = 0, 8, 16
+FID_ATOL, FID_RTOL = 5e-4, 1e-4
 # sort_batch_by_image permutes each batch: every reduction over it is the
 #     same sum in another order, so the runs differ by rounding that Adam
 #     amplifies where a gradient entry is near zero. The logged losses are
@@ -508,6 +566,14 @@ def bound(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def carried_steps(lens) -> int:
+    """The row-steps of a GRU chain that take a product with the carried
+    state: each row's live steps after its first. At a row's first step
+    the carry is zero, so its h_prev @ U_h, its share of dU_h and the
+    U_h^T product into the zero start need no work."""
+    return int((lens.long() - 1).clamp_min(0).sum().item())
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the kernel wrappers to their plain versions (for the reference
@@ -551,7 +617,10 @@ def launch_counters():
              "bigru_fwd": gru.bigru_fwd, "bigru_bwd": gru.bigru_bwd,
              "attention_bwd": attention.attention_bwd,
              "probe_mxu_rows": p1.probe_mxu_rows,
-             "probe_bwd_ceiling": p2.probe_bwd_ceiling}
+             "probe_bwd_ceiling": p2.probe_bwd_ceiling,
+             "gru_fwd_f32": gru.gru_fwd_f32, "gru_bwd_f32": gru.gru_bwd_f32,
+             "attention_resident_fwd_f32": ar.attention_resident_fwd_f32,
+             "attention_resident_bwd_f32": ar.attention_resident_bwd_f32}
     out = {name: (fn, "launches") for name, fn in plain.items()}
     for name in ("attention_resident_fwd", "attention_resident_bwd"):
         out[f"{name}[int8]"] = (plain[name], "launches_int8")
@@ -1430,12 +1499,13 @@ def phase_serving(report: dict, dev) -> dict:
 
 
 def check_first_step(spec, state, batch, dev, what: str,
-                     frozen=lambda name: False) -> dict:
+                     frozen=lambda name: False, loss_tol: float = TOL_LOSS,
+                     grad_cos: float = GRAD_COS) -> dict:
     """The first training step of ``spec``'s model on ``batch`` with the
     kernels and with their plain versions on the card, under one dropout
-    mask: the loss to TOL_LOSS, each gradient to cosine GRAD_COS (a scalar
-    to TOL_SCALAR_REL relative). Only a parameter that ``frozen`` names
-    may go without a gradient, and then on both paths."""
+    mask: the loss to ``loss_tol``, each gradient to cosine ``grad_cos``
+    (a scalar to TOL_SCALAR_REL relative). Only a parameter that
+    ``frozen`` names may go without a gradient, and then on both paths."""
     import torch
 
     names = list(state.params)
@@ -1469,18 +1539,18 @@ def check_first_step(spec, state, batch, dev, what: str,
         else:
             cos = torch.nn.functional.cosine_similarity(a, b, 0).item()
             grad_checks[k] = {"cos": cos}
-            check(cos >= GRAD_COS, f"{what}: grad {k} cosine {cos} < "
-                  f"{GRAD_COS}")
+            check(cos >= grad_cos, f"{what}: grad {k} cosine {cos} < "
+                  f"{grad_cos}")
     worst = min(v.get("cos", 1.0) for v in grad_checks.values())
     frozen = len(names) - len(grad_checks)
-    print(f"{what} first step: loss {lk:.6f} (kernels) vs {lp:.6f} "
-          f"(plain), tol {TOL_LOSS}; lowest gradient cosine {worst:.6f} "
-          f"(bound {GRAD_COS})"
+    print(f"{what} first step: loss {lk:.7f} (kernels) vs {lp:.7f} "
+          f"(plain), tol {loss_tol}; lowest gradient cosine {worst:.7f} "
+          f"(bound {grad_cos})"
           + (f"; {frozen} frozen parameters get no gradient" if frozen
              else ""))
-    check(abs(lk - lp) <= TOL_LOSS, f"{what}: loss {lk} vs plain {lp}")
-    return {"loss_kernels": lk, "loss_plain": lp, "loss_tol": TOL_LOSS,
-            "grad_cos_bound": GRAD_COS, "grads": grad_checks,
+    check(abs(lk - lp) <= loss_tol, f"{what}: loss {lk} vs plain {lp}")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_tol": loss_tol,
+            "grad_cos_bound": grad_cos, "grads": grad_checks,
             "params_without_grad": frozen}
 
 
@@ -4134,7 +4204,9 @@ def summarize(res: dict, n: int, what: str) -> dict:
                                       else res["cuda_event_ms"] / n),
            "lost_events": lost,
            "unmatched_launches": res["unmatched_by_op"],
-           "unmatched_at_ms": res["unmatched_at_ms"]}
+           "unmatched_at_ms": res["unmatched_at_ms"],
+           "clock_gap_ms": res["clock_gap_ms"],
+           "lost_before_window": res["lost_before_window"]}
     print(f"profile of {n} {what}: {json.dumps(out)}")
     return out
 
@@ -4181,8 +4253,14 @@ def kernel_device_ms(fn, prefix: str, buf, runs: int = RUNS) -> float:
         # touch this sum; one of its own does). A window that lost some
         # is taken again, once.
         msg = (f"the profile of {prefix} holds {records} records over "
-               f"{runs} calls (lost: {res['unmatched_by_op']})")
+               f"{runs} calls (lost: {res['unmatched_by_op']} at "
+               f"{res['unmatched_at_ms']} ms of a {res['window_ms']:.3f} ms "
+               f"window, clock gap {res['clock_gap_ms']} ms, "
+               f"{res['lost_before_window']} settling launches lost)")
         if records and records % runs == 0:
+            print(f"profile of {prefix}: {records} records over {runs} "
+                  f"calls, clock gap {res['clock_gap_ms']} ms, "
+                  f"{res['lost_before_window']} settling launches lost")
             break
         print(msg + ("" if last_try else "; profiling again"))
         check(not last_try, msg + ", twice")
@@ -4202,7 +4280,9 @@ def window_ok(res: dict, steps: int, what: str, last_try: bool) -> bool:
     print(f"{what}: the profiler window lost device records "
           f"({res['unmatched_launches']} launches without one, "
           f"{res['unmatched_by_op']}; window {res['window_ms']:.3f} ms "
-          f"against {res['cuda_event_ms']} ms on CUDA events)"
+          f"against {res['cuda_event_ms']} ms on CUDA events, clock gap "
+          f"{res['clock_gap_ms']} ms, {res['lost_before_window']} settling "
+          "launches lost)"
           + ("" if last_try else "; profiling again"))
     check(not last_try, f"{what}: the profiler window lost device records "
           "twice")
@@ -4394,11 +4474,12 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
 
     def k1_bound(lens) -> tuple:
         # The row-steps that this run's lengths need read gx once; hseq
-        # [T, B, H] and hT are written once.
+        # [T, B, H] and hT are written once; one [H] x [H, 3H] product a
+        # carried row-step.
         nlen, nb = int(lens.sum().item()), lens.shape[0]
         return bound(nlen * 3 * H * 4 + nb * 4 + H * 3 * H * 2 + H * 4
                      + T * nb * H * 4 + nb * H * 4,
-                     2 * nlen * H * 3 * H), nlen
+                     2 * carried_steps(lens) * H * 3 * H), nlen
 
     times["gru_fwd"]["bound"], nlen = k1_bound(k3["lens"])
     k1_serving["bound"], nlen_serving = k1_bound(k1["lens"])
@@ -4413,13 +4494,13 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
 
     times["attention_fwd"]["bound"] = k2_bound(B)
     # K3: the live row-steps of this run's lengths read gx and hseq once;
-    # dgx [T, B, 3H] and dU_h are written once. Each live row-step takes
-    # three [H] x [H, 3H] products: the recomputed gh, the U_h^T product
-    # and its share of dU_h.
+    # dgx [T, B, 3H] and dU_h are written once. Each carried row-step
+    # takes three [H] x [H, 3H] products: the recomputed gh, the U_h^T
+    # product and its share of dU_h.
     Bt, nl3 = B_TRAIN, int(lens3.sum().item())
     k3_bytes = (nl3 * 4 * H * 4 + Bt * 4 + H * 3 * H * 2 + H * 4
                 + Bt * H * 4 + T * Bt * 3 * H * 4 + H * 3 * H * 4 + H * 4)
-    k3_flops = 3 * 2 * nl3 * H * 3 * H
+    k3_flops = 3 * 2 * carried_steps(lens3) * H * 3 * H
     times["gru_bwd"]["bound"] = bound(k3_bytes, k3_flops)
     # K4/K5 with G glimpses: each store row that the batch names is read
     # once (rows repeat), and the GEMMs run over the valid cells only: the
@@ -4567,16 +4648,16 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     # Both chains: each reads its live rows of gx and U_h, b_hn once and
     # writes its hseq and hT (K6), or reads gx and hseq over its live rows
     # and writes dgx, dU_h and db_hn (K7); lens is read once. Operations as
-    # K1's and K3's for each direction.
-    Bt, nl6 = B_TRAIN, int(lens6.sum().item())
+    # K1's and K3's for each direction, over its carried row-steps.
+    Bt, nl6, nc6 = B_TRAIN, int(lens6.sum().item()), carried_steps(lens6)
     k6_bytes = Bt * 4 + 2 * (nl6 * 3 * H * 4 + H * 3 * H * 2 + H * 4
                              + T * Bt * H * 4 + Bt * H * 4)
     k7_bytes = Bt * 4 + 2 * (nl6 * 4 * H * 4 + H * 3 * H * 2 + H * 4
                              + Bt * H * 4 + T * Bt * 3 * H * 4
                              + H * 3 * H * 4 + H * 4)
-    times["bigru_fwd"]["bound"] = bound(k6_bytes, 2 * 2 * nl6 * H * 3 * H)
+    times["bigru_fwd"]["bound"] = bound(k6_bytes, 2 * 2 * nc6 * H * 3 * H)
     times["bigru_bwd"]["bound"] = bound(k7_bytes,
-                                        2 * 3 * 2 * nl6 * H * 3 * H)
+                                        2 * 3 * 2 * nc6 * H * 3 * H)
     # K8 at the gathered training shape (normalize on, the main path's
     # mode). Beside it: the op's whole backward with K8 (the score
     # cotangent from one bf16 batched GEMV, then K8) and with the explicit
@@ -4799,6 +4880,506 @@ def rows_stage_times(k45: dict, k45g: dict, k45q: dict, buf) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: float32. Phase 26: the checkpoint-fidelity path.
+# ---------------------------------------------------------------------------
+
+
+def bound_f32(nbytes: float, flops: float) -> tuple:
+    """:func:`bound` for float32 work: its operations over the FP32 FFMA
+    peak (the float32 kernels take no tensor-core pass)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def f32_errors(got: dict, want: dict, limits: dict) -> dict:
+    """Each output's largest error relative to its plain version's largest
+    |value|, checked against its limit."""
+    import torch
+
+    out = {}
+    for name, limit in limits.items():
+        check(bool(torch.isfinite(got[name]).all()), f"{name} not finite")
+        e = rel_err(got[name].float(), want[name].float())
+        check(e <= limit, f"{name}: relative error {e} > {limit}")
+        out[name] = {"rel_err": e, "limit": limit,
+                     "max_abs_err": (got[name] - want[name]).abs().max()
+                     .item()}
+    return out
+
+
+def f32_gru_checks(dev, gen) -> dict:
+    """K1f and K3f against their plain float32 versions at the training
+    shape (B_TRAIN, T, H), lengths 1..T, both directions, K3f fed the plain
+    version's hseq."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    gx = torch.randn(T, B_TRAIN, 3 * H, generator=gen, device=dev) * 0.5
+    lens = torch.randint(1, T + 1, (B_TRAIN,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
+    uh = (torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1) * lim
+    bhn = torch.randn(H, generator=gen, device=dev) * 0.1
+    ghT = torch.randn(B_TRAIN, H, generator=gen, device=dev)
+    checks, err = [], 0.0
+    for reverse in (False, True):
+        hT, hseq = gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
+        rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+        got = dict(zip(("dgx", "duh", "dbhn"), gru.gru_bwd_f32(
+            gx, rseq, lens, uh, bhn, ghT, reverse=reverse)))
+        want = dict(zip(("dgx", "duh", "dbhn"), gru.gru_bwd_reference(
+            gx, rseq, lens, uh, bhn, ghT, reverse=reverse)))
+        torch.cuda.synchronize()
+        e1 = f32_errors({"hT": hT, "hseq": hseq}, {"hT": rT, "hseq": rseq},
+                        {"hT": TOL_F32_REL, "hseq": TOL_F32_REL})
+        e3 = f32_errors(got, want, {k: TOL_F32_REL for k in got})
+        print(f"K1f reverse={reverse}: " + ", ".join(
+            f"{k} {v['rel_err']:.3e}" for k, v in e1.items())
+            + f"; K3f: " + ", ".join(f"{k} {v['rel_err']:.3e}"
+                                      for k, v in e3.items())
+            + f" (limit {TOL_F32_REL} of each output's largest value)")
+        checks.append({"reverse": reverse, "k1f": e1, "k3f": e3})
+        err = max(err, *(v["max_abs_err"] for v in e1.values()))
+    err3 = max(v["max_abs_err"] for c in checks for v in c["k3f"].values())
+    return {"gx": gx, "lens": lens, "uh": uh, "bhn": bhn, "ghT": ghT,
+            "hseq": rseq, "checks": checks, "err1": err, "err3": err3}
+
+
+def f32_store(dev, gen, rows_dtype: str) -> tuple:
+    """The main path's store at F32_IMAGES images of N cells (padded to
+    8) of C channels and its dequantization scale: float32 rows, their
+    float16 copy (the synthetic corpus's rows), or the int8 codes of the
+    L2-normalized rows with one global scale."""
+    import torch
+
+    Np = N + (-N) % 8
+    grid = torch.zeros(F32_IMAGES, Np, C, device=dev)
+    grid[:, :N] = torch.randn(F32_IMAGES, N, C, generator=gen,
+                              device=dev).relu()
+    if rows_dtype == "int8":
+        grid = grid / grid.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+        scale = grid.abs().max().item() / 127
+        return (grid / scale).round().to(torch.int8), scale
+    return grid.to(getattr(torch, rows_dtype)), 1.0
+
+
+def f32_resident_checks(dev, gen) -> dict:
+    """K4f and K5f against their plain float32 versions at the main path's
+    shapes (B_TRAIN questions with repeated rows over F32_IMAGES images of
+    196 cells, C=2048, H=512) on float32, float16 and int8 rows at
+    F32_GLIMPSES glimpses, normalize on and off on float rows, K5f fed the
+    plain version's saved h and alpha. On int8 codes W_v is scaled as the
+    op scales it (``wv * scale``), so the scores keep the float rows'
+    magnitude."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+
+    rows = torch.randint(0, F32_IMAGES, (B_TRAIN,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    rows[1::7] = rows[0]  # questions about one image
+    qh = torch.randn(B_TRAIN, H, generator=gen, device=dev) * 0.5
+    wv = (torch.rand(C, H, generator=gen, device=dev) * 2 - 1) * (
+        6.0 / (C + H)) ** 0.5
+    ws8 = torch.randn(H, 8, generator=gen, device=dev) * 0.05
+    checks, keep = [], {}
+    err4 = err5 = 0.0
+    wv_rows = wv
+    for rows_dtype in F32_ROWS:
+        store, scale = f32_store(dev, gen, rows_dtype)
+        wv = wv_rows * scale if scale != 1.0 else wv_rows
+        for G in F32_GLIMPSES:
+            ws = ws8[:, :G].contiguous() if G > 1 else ws8[:, 0].contiguous()
+            for normalize in ((False,) if rows_dtype == "int8"
+                              else (False, True)):
+                kw = dict(n_valid=N, normalize=normalize)
+                v, a, h = ar.attention_resident_fwd_f32(
+                    store, rows, qh, wv, ws, save_h=True, **kw)
+                rv, ra, rh = ar.attention_resident_fwd_reference(
+                    store, rows, qh, wv, ws, save_h=True, **kw)
+                g = torch.randn(B_TRAIN, G * C, generator=gen, device=dev)
+                sga = torch.randn(ra.shape, generator=gen, device=dev) * 0.1
+                got5 = dict(zip(("dqh", "dwv", "dws"),
+                                ar.attention_resident_bwd_f32(
+                                    store, rows, rh, ws, ra, g, sga, **kw)))
+                want5 = dict(zip(("dqh", "dwv", "dws"),
+                                 ar.attention_resident_bwd_reference(
+                                     store, rows, rh, ws, ra, g, sga, **kw)))
+                torch.cuda.synchronize()
+                got4 = {"alpha": a, "h": h}
+                want4 = {"alpha": ra, "h": rh}
+                for k in range(G):
+                    got4[f"v_att_{k}"] = v[:, k * C:(k + 1) * C]
+                    want4[f"v_att_{k}"] = rv[:, k * C:(k + 1) * C]
+                e4 = f32_errors(got4, want4,
+                                {k: TOL_F32_REL for k in got4})
+                e5 = f32_errors(got5, want5, {"dqh": G * TOL_F32_REL,
+                                              "dwv": G * TOL_F32_REL,
+                                              "dws": TOL_F32_REL})
+                vatt = max(x["rel_err"] for k, x in e4.items()
+                           if k.startswith("v_att"))
+                print(f"K4f/K5f {rows_dtype} rows, G={G}, normalize="
+                      f"{normalize}: v_att {vatt:.3e}, "
+                      f"alpha {e4['alpha']['rel_err']:.3e}, h "
+                      f"{e4['h']['rel_err']:.3e}; dqh "
+                      f"{e5['dqh']['rel_err']:.3e}, dwv "
+                      f"{e5['dwv']['rel_err']:.3e}, dws "
+                      f"{e5['dws']['rel_err']:.3e}")
+                checks.append({"rows": rows_dtype, "glimpses": G,
+                               "normalize": normalize, "k4f": e4,
+                               "k5f": e5})
+                err4 = max(err4, *(x["max_abs_err"] for x in e4.values()))
+                err5 = max(err5, *(x["max_abs_err"] for x in e5.values()))
+                if G == 1 and not normalize:
+                    keep[rows_dtype] = dict(store=store, ws=ws, h=rh,
+                                            alpha=ra, g=g, sga=sga)
+        del store
+    return {"rows": rows, "qh": qh, "wv": wv_rows, "by_rows": keep,
+            "checks": checks, "err4": err4, "err5": err5}
+
+
+def f32_times(k13: dict, k45: dict, dev) -> dict:
+    """Each float32 kernel at the main path's shapes (K4f/K5f at G=1 on
+    the synthetic corpus's float16 rows, normalize off: the prenormalized
+    store): its time, its plain version's, the library yardstick's and
+    the bound from this run's inputs."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    gx, lens, uh, bhn = k13["gx"], k13["lens"], k13["uh"], k13["bhn"]
+    hseq, ghT = k13["hseq"], k13["ghT"]
+    Bt, nl, nc = B_TRAIN, int(lens.sum().item()), carried_steps(lens)
+    times = {}
+    # Library yardstick of K1f and K3f: cuDNN's GRU in float32 (TF32 off)
+    # over the packed lengths; it also takes the input projection.
+    lib = torch.nn.GRU(D, H).to(dev)
+    lib.flatten_parameters()
+    x = torch.randn(T, Bt, D, device=dev, requires_grad=True)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(),
+                                                     enforce_sorted=False)
+    with torch.inference_mode():
+        lib_fwd = time_cuda(lambda: lib(packed), buf)
+    _, h_n = lib(packed)
+    wrt, g_n = [x, *lib.parameters()], torch.randn_like(h_n)
+    lib_bwd = time_cuda(
+        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+    times["gru_fwd_f32"] = {
+        "kernel": time_cuda(lambda: gru.gru_fwd_f32(gx, lens, uh, bhn), buf),
+        "plain": time_cuda(lambda: gru.gru_reference(gx, lens, uh, bhn), buf),
+        "library": lib_fwd,
+        "library_call": f"torch.nn.GRU({D}, {H}) in float32 (TF32 off) "
+                        "over a packed sequence, input projection included",
+        # The live row-steps read gx once, U_h and bhn once; hseq and hT
+        # are written once; one [H] x [H, 3H] product a carried
+        # row-step.
+        "bound": bound_f32(nl * 3 * H * 4 + Bt * 4 + 3 * H * H * 4 + H * 4
+                           + T * Bt * H * 4 + Bt * H * 4,
+                           2 * nc * H * 3 * H)}
+    times["gru_bwd_f32"] = {
+        "kernel": time_cuda(lambda: gru.gru_bwd_f32(gx, hseq, lens, uh, bhn,
+                                                    ghT), buf),
+        "plain": time_cuda(lambda: gru.gru_bwd_reference(
+            gx, hseq, lens, uh, bhn, ghT), buf),
+        "library": lib_bwd,
+        "library_call": f"backward of torch.nn.GRU({D}, {H}) in float32 "
+                        "(TF32 off) over a packed sequence, "
+                        "input-projection gradients included",
+        # gx and hseq read once for the live row-steps, dgx, dU_h and
+        # db_hn written once; three products a carried row-step (the
+        # recomputed gh, the U_h^T product, the share of dU_h).
+        "bound": bound_f32(nl * 4 * H * 4 + Bt * 4 + 3 * H * H * 4 + H * 4
+                           + Bt * H * 4 + T * Bt * 3 * H * 4
+                           + 3 * H * H * 4 + H * 4,
+                           3 * 2 * nc * H * 3 * H)}
+    rows, qh, wv = k45["rows"], k45["qh"], k45["wv"]
+    f16 = k45["by_rows"]["float16"]
+    st, ws, h, al, g, sga = (f16[k] for k in ("store", "ws", "h", "alpha",
+                                              "g", "sga"))
+    kw = dict(n_valid=N, normalize=False)
+    Np = st.shape[1]
+    uniq = int(torch.unique(rows).numel())
+    row_bytes = uniq * Np * C * 2
+    # The score stage's yardstick: cuBLAS's f32 GEMM on the gathered rows
+    # (the gather timed apart); the dW_v stage's: the same on its operands.
+    cells = Bt * Np
+    v32 = st[rows.long()].float().reshape(cells, C)
+    dzr = torch.randn(Bt * N, H, device=dev)
+    vt = st[rows.long()][:, :N].float().reshape(Bt * N, C).t()
+    times["attention_resident_fwd_f32"] = {
+        "kernel": time_cuda(lambda: ar.attention_resident_fwd_f32(
+            st, rows, qh, wv, ws, save_h=True, **kw), buf),
+        "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
+            st, rows, qh, wv, ws, save_h=True, **kw), buf),
+        "score_ms": kernel_device_ms(lambda: ar.attention_resident_fwd_f32(
+            st, rows, qh, wv, ws, save_h=True, **kw),
+            "attn_f32_score_kernel", buf),
+        "library": time_cuda(lambda: torch.matmul(v32, wv), buf),
+        "library_call": f"torch.matmul([{cells}, {C}] f32, [{C}, {H}] f32) "
+                        "(TF32 off): the score stage alone, on rows "
+                        "gathered apart",
+        "library_gather_ms": time_cuda(
+            lambda: st[rows.long()].float(), buf),
+        # Each named store row read once (rows repeat), W_v, qh and ws
+        # once; v_att, alpha and the saved f32 h written once; the score
+        # product, the scores and the weighted sum over the valid cells
+        # (K4's bound counts the same).
+        "bound": bound_f32(row_bytes + Bt * 4 + Bt * H * 4 + C * H * 4
+                           + H * 4 + Bt * C * 4 + cells * 4 + cells * H * 4,
+                           2 * Bt * N * C * (H + 1) + 2 * Bt * N * H)}
+    times["attention_resident_bwd_f32"] = {
+        "kernel": time_cuda(lambda: ar.attention_resident_bwd_f32(
+            st, rows, h, ws, al, g, sga, **kw), buf),
+        "plain": time_cuda(lambda: ar.attention_resident_bwd_reference(
+            st, rows, h, ws, al, g, sga, **kw), buf),
+        "dwv_ms": kernel_device_ms(lambda: ar.attention_resident_bwd_f32(
+            st, rows, h, ws, al, g, sga, **kw), "fp32_tile::product_kernel",
+            buf),
+        "library": time_cuda(lambda: torch.matmul(vt, dzr), buf),
+        "library_call": f"torch.matmul([{C}, {Bt * N}] f32, [{Bt * N}, "
+                        f"{H}] f32) (TF32 off): the dW_v stage alone, on "
+                        "rows gathered apart",
+        # The rows read once, h, alpha, sga and g once; dqh, dW_v and dws
+        # written once; dW_v and the dalpha dots over the valid cells, dz
+        # and dws.
+        "bound": bound_f32(row_bytes + Bt * 4 + cells * H * 4 + H * 4
+                           + 2 * cells * 4 + Bt * C * 4 + Bt * H * 4
+                           + C * H * 4 + H * 4,
+                           2 * Bt * N * C * (H + 1) + 4 * Bt * N * H)}
+    # Each stage's rate over the work its valid cells need.
+    times["attention_resident_fwd_f32"]["score_tflops"] = (
+        2 * Bt * N * C * H / times["attention_resident_fwd_f32"]["score_ms"]
+        / 1e9)
+    times["attention_resident_bwd_f32"]["dwv_tflops"] = (
+        2 * Bt * N * C * H / times["attention_resident_bwd_f32"]["dwv_ms"]
+        / 1e9)
+    for name, t in times.items():
+        print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, library {t['library']:.4f} ms "
+              f"({t['library_call']}), bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})")
+    t4 = times["attention_resident_fwd_f32"]
+    t5 = times["attention_resident_bwd_f32"]
+    print(f"K4f score launch {t4['score_ms']:.4f} ms "
+          f"({t4['score_tflops']:.1f} TFLOP/s); K5f dW_v launch "
+          f"{t5['dwv_ms']:.4f} ms ({t5['dwv_tflops']:.1f} TFLOP/s)")
+    return times
+
+
+def phase_float32(report: dict, dev, gen) -> dict:
+    """Phase 25, model.dtype float32 on the main path: the float32 kernels
+    K1f, K3f, K4f and K5f against their plain versions at the main path's
+    shapes and timed beside their bounds; fit_resident at full width in
+    float32 on the synthetic corpus's float16 store (K1f, K3f, K4f on f16
+    rows, K5f), its first step against the plain path, launch counts, step
+    times, then the resident evaluator; and a float32 Predictor, whose
+    gathered forward needs K2 in float32, refusing with the roadmap's
+    item."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
+    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+
+    out = {"k13": f32_gru_checks(dev, gen)}
+    out["k45"] = f32_resident_checks(dev, gen)
+    out["times"] = f32_times(out["k13"], out["k45"], dev)
+    steps = F32_STEPS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as tmp:
+        cfg = stage2_config(tmp, steps, **{"model.dtype": "float32"})
+        ds = load_dataset(cfg, "train")
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=tmp)
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        check(data["grid"].dtype == torch.float16,
+              f"float32 store uploaded as {data['grid'].dtype}")
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        out["first_step"] = check_first_step(
+            spec, state, batch, dev, "float32 stage 2",
+            loss_tol=TOL_F32_LOSS, grad_cos=F32_GRAD_COS)
+        del data, make_batch, batch
+
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_launches(launches, {
+            "gru_fwd_f32": T * steps, "gru_bwd_f32": (2 * T + 1) * steps,
+            "attention_resident_fwd_f32": 2 * steps,
+            "attention_resident_bwd_f32": 3 * steps},
+            f"float32 stage-2 training over {steps} steps")
+        out.update(launches=launches, **read_steps(
+            tmp, steps, "float32 stage-2 training", "questions",
+            warmup=F32_WARMUP))
+        reset_counts()
+        metrics, preds = trainer.evaluate_resident(state, val)
+        torch.cuda.synchronize()
+        batches = -(-VAL_QUESTIONS // B_TRAIN)
+        out["eval_launches"] = read_counts()
+        check_launches(out["eval_launches"], {
+            "gru_fwd_f32": T * batches,
+            "attention_resident_fwd_f32": 2 * batches},
+            "float32 resident evaluation")
+        check(np.isfinite(metrics["loss"]) and len(preds) == VAL_QUESTIONS,
+              f"float32 evaluation: {metrics}, {len(preds)} predictions")
+        print(f"float32 resident evaluation: {metrics}")
+        out["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
+
+        # --- serving needs K2 in float32: the roadmap's item -------------
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+        save_params(os.path.join(tmp, PARAMS_FILE),
+                    spec.module.state_dict())
+        pred = Predictor(tmp, batch_size=8)
+        feats = np.abs(np.random.default_rng(5).standard_normal(
+            (8, N, C), np.float32))
+        try:
+            pred.answer(feats, ["w4 w5"] * 8)
+            raise PhaseError("a float32 Predictor ran K2 in float32")
+        except TypeError as e:
+            check(ITEM_F32 in str(e), f"the refusal names no item: {e}")
+            out["predictor_refusal"] = str(e)
+            print(f"float32 Predictor with use_pallas on refuses: {e}")
+        trainer.close()
+    return out
+
+
+def phase_fidelity(report: dict, dev) -> dict:
+    """Phase 26, model.fidelity_mode at full width: the forward on the card
+    (TF1 GRU, float32, the plain gathered attention: no kernel) against the
+    port's float64 numpy oracle at FID_BATCH questions, at JAX's own
+    tolerance; then cli.train (the gather-free resident path: K4f/K5f on
+    the float16 store, no K1, K2, K3 or K8), cli.eval (the resident
+    evaluator: K4f) and cli.predict (the plain gathered attention: no
+    kernel) on the run."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.cli import predict as predict_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.serving import Predictor
+    from vqa_transfer_externaldata_torch.utils import fidelity
+
+    out = {}
+    cfg = Config().replace_flat({"data.synthetic": True,
+                                 "model.fidelity_mode": True,
+                                 **MODEL_OVERRIDES})
+    model = build_model(cfg, generator=torch.Generator().manual_seed(
+        FID_SEED)).module
+    check((model.dtype, model.rnn_variant, model.use_pallas,
+           model.glimpses) == (torch.float32, "tf", False, 1),
+          "fidelity_mode did not assemble the reference convention")
+    # Move every parameter off its initial value (zero biases, tiny
+    # tables), as the JAX package's fidelity test does.
+    rng = np.random.default_rng(FID_SEED)
+    params = {k: np.asarray(v.numpy() + rng.normal(
+        scale=0.05, size=tuple(v.shape)), np.float32)
+        for k, v in model.state_dict().items()}
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           params.items()})
+    model.to(dev).eval()
+    feats = np.maximum(rng.standard_normal((FID_BATCH, N, C), np.float32), 0)
+    q = rng.integers(4, cfg.data.vocab_size, (FID_BATCH, T)).astype(np.int32)
+    for i, n in enumerate(rng.integers(1, T + 1, FID_BATCH)):
+        q[i, n:] = 0
+    reset_counts()
+    with torch.no_grad():
+        got = model(torch.from_numpy(feats).to(dev),
+                    torch.from_numpy(q).to(dev))["logits"]
+    torch.cuda.synchronize()
+    check_launches(read_counts(), {}, "the fidelity forward")
+    t0 = time.perf_counter()
+    want = fidelity.reference_forward_numpy(params, feats, q)
+    out["oracle_s"] = time.perf_counter() - t0
+    got = got.double().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    ok = bool(np.allclose(got, want, atol=FID_ATOL, rtol=FID_RTOL))
+    print(f"fidelity forward at B={FID_BATCH} vs the float64 oracle: max "
+          f"abs err {err:.3e} (atol {FID_ATOL}, rtol {FID_RTOL}), logits "
+          f"in [{want.min():.3f}, {want.max():.3f}]")
+    check(ok and got.shape == want.shape,
+          f"fidelity forward vs oracle: max abs err {err}")
+    out["oracle"] = {"max_abs_err": err, "atol": FID_ATOL, "rtol": FID_RTOL,
+                     "batch": FID_BATCH}
+    del model
+
+    steps = FID_STEPS
+    flags = {"model.fidelity_mode": True, "data.synthetic": True,
+             "data.synthetic_layout": "joined",
+             "data.synthetic_size": TRAIN_QUESTIONS,
+             "train.device_data_cache": True, "train.batch_size": B_TRAIN,
+             "train.max_steps": steps, "train.log_every": 1,
+             **MODEL_OVERRIDES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fidelity_") as tmp:
+        reset_counts()
+        train_dir = train_cli.main(["--train.train_dir",
+                                    os.path.join(tmp, "run")]
+                                   + cli_argv(flags))
+        torch.cuda.synchronize()
+        out["train_launches"] = read_counts()
+        check_launches(out["train_launches"], {
+            "attention_resident_fwd_f32": 2 * steps,
+            "attention_resident_bwd_f32": 3 * steps},
+            f"fidelity-mode training over {steps} steps")
+        out.update(read_steps(train_dir, steps, "fidelity-mode training",
+                              "questions", warmup=F32_WARMUP))
+
+        reset_counts()
+        got = eval_cli.main(["--train.train_dir", train_dir])
+        torch.cuda.synchronize()
+        out["eval_launches"] = read_counts()
+        with open(os.path.join(train_dir, "results_val.json")) as fh:
+            rows = json.load(fh)
+        batches = -(-len(rows) // B_TRAIN)
+        check_launches(out["eval_launches"],
+                       {"attention_resident_fwd_f32": 2 * batches},
+                       "fidelity-mode cli.eval")
+        check(len(rows) == TRAIN_QUESTIONS
+              and 0.0 <= got["vqa_accuracy"] <= 1.0,
+              f"cli.eval: {got}, {len(rows)} result rows")
+        print(f"fidelity-mode cli.eval: {got}")
+        out["cli_eval"] = got
+
+        store_path = os.path.join(tmp, "store.npz")
+        ids = np.arange(100, 100 + PREDICT_IMAGES)
+        grid = np.maximum(rng.standard_normal((PREDICT_IMAGES, N, C),
+                                              np.float32), 0)
+        np.savez(store_path, image_ids=ids, grid=grid.astype(np.float16),
+                 pool5=grid.mean(1))
+        qs = ["w5 w6 w7", "w8", "w9 w10", "w11 w12 w13 w14"]
+        pick = [3, 0, 7 % PREDICT_IMAGES, 3]
+        argv = ["--train_dir", train_dir, "--feature_path", store_path]
+        for i, qq in zip(pick, qs):
+            argv += ["--image_id", str(ids[i]), "--question", qq]
+        reset_counts()
+        answers = predict_cli.main(argv)
+        torch.cuda.synchronize()
+        out["predict_launches"] = read_counts()
+        check_launches(out["predict_launches"], {},
+                       "fidelity-mode cli.predict")
+        pred = Predictor(train_dir)
+        direct = pred.answer(grid.astype(np.float16)[pick].astype(
+            np.float32), qs)
+        check(answers == direct and all(a in pred.answer_vocab.tokens
+                                        for a in answers),
+              f"cli.predict answers {answers} vs Predictor {direct}")
+        print(f"fidelity-mode cli.predict: {answers}")
+        out["predict_answers"] = answers
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -4877,6 +5458,12 @@ def main(argv=None) -> int:
         report["end2end"] = end2end = phase_end2end(report, dev)
         report["steps_per_call"] = spc = phase_steps_per_call(report, dev)
         report["multi_device"] = md = phase_multi_device(report, dev)
+        f32 = phase_float32(report, dev, gen)
+        report["float32"] = {  # the kernels' inputs stay out of the report
+            **{k: v for k, v in f32.items() if k not in ("k13", "k45")},
+            "checks": {"k1f_k3f": f32["k13"]["checks"],
+                       "k4f_k5f": f32["k45"]["checks"]}}
+        report["fidelity"] = fid = phase_fidelity(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -5051,6 +5638,12 @@ def main(argv=None) -> int:
     # Phase 24: the world-1 NCCL runs (graphed launches as phase 23's) and
     # each rank of the two-rank runs sharing the card.
     paths.update(md["launches"])
+    # Phases 25 and 26: the float32 main path and the fidelity path.
+    paths.update(float32_training=f32["launches"],
+                 float32_eval=f32["eval_launches"],
+                 fidelity_train=fid["train_launches"],
+                 fidelity_eval=fid["eval_launches"],
+                 fidelity_predict=fid["predict_launches"])
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",
@@ -5103,6 +5696,52 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], **extra, "ms": ms,
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["cublas_ms"], "library_call": r["cublas_call"]})
+    # The float32 kernels: launches of phase 25's float32 training, their
+    # checks at the main path's shapes (K4f/K5f over every row type and
+    # glimpse count), their times at G=1 on float16 rows with each stage's
+    # library GEMM.
+    k13, k45f, f32t = f32["k13"], f32["k45"], f32["times"]
+    for name, replaces, err, extra in (
+            ("gru_fwd_f32", ref + "gru.py:227", k13["err1"], {
+                "tol_rel": TOL_F32_REL,
+                "checks": [{"reverse": c["reverse"], **c["k1f"]}
+                           for c in k13["checks"]]}),
+            ("gru_bwd_f32", ref + "gru.py:259", k13["err3"], {
+                "tol_rel": TOL_F32_REL,
+                "checks": [{"reverse": c["reverse"], **c["k3f"]}
+                           for c in k13["checks"]]}),
+            ("attention_resident_fwd_f32", ref + "attention_resident.py:150",
+             k45f["err4"], {
+                 "tol_rel": TOL_F32_REL, "glimpses": "1-8",
+                 "rows": list(F32_ROWS),
+                 "checks": [{k: c[k] for k in ("rows", "glimpses",
+                                               "normalize", "k4f")}
+                            for c in k45f["checks"]],
+                 "score_ms": f32t["attention_resident_fwd_f32"]["score_ms"],
+                 "score_tflops":
+                 f32t["attention_resident_fwd_f32"]["score_tflops"],
+                 "library_gather_ms":
+                 f32t["attention_resident_fwd_f32"]["library_gather_ms"]}),
+            ("attention_resident_bwd_f32", ref + "attention_resident.py:208",
+             k45f["err5"], {
+                 "tol_rel": TOL_F32_REL, "glimpses": "1-8",
+                 "rows": list(F32_ROWS),
+                 "checks": [{k: c[k] for k in ("rows", "glimpses",
+                                               "normalize", "k5f")}
+                            for c in k45f["checks"]],
+                 "dwv_ms": f32t["attention_resident_bwd_f32"]["dwv_ms"],
+                 "dwv_tflops":
+                 f32t["attention_resident_bwd_f32"]["dwv_tflops"]})):
+        t = f32t[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": replaces,
+            "launches": paths["float32_training"][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": err, **extra, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library"],
+            "library_call": t["library_call"]})
     report["kernels"] = kernels
     report["library_calls"] = {k: times[k]["library_call"]
                                for k in ("gru_fwd", "gru_bwd", "bigru_fwd",

@@ -99,6 +99,16 @@ def test_multi_device_modules_import_no_jax(name):
     assert "ok" in _fresh(NEW_MODULE.format(name=name, extra="()"))
 
 
+@pytest.mark.parametrize("name,extra", [
+    ("utils.fidelity", ("torch",)), ("ops.gru", ()), ("models.zoo", ()),
+    ("models.vqa_attention", ()), ("ops.attention_resident", ())])
+def test_fidelity_and_float32_modules_import_no_jax(name, extra):
+    """The float64 oracle imports neither JAX nor torch (it runs on the
+    card's machine, which has no JAX); the TF1 GRU, the fidelity assembly
+    and the float32 kernels' wrappers import no JAX, h5py or nltk."""
+    assert "ok" in _fresh(NEW_MODULE.format(name=name, extra=repr(extra)))
+
+
 WORKER = """
 import sys
 sys.path.insert(0, "tests")

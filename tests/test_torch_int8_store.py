@@ -305,8 +305,10 @@ def test_int8_store_trains_and_evaluates_close_to_float(tmp_path,
                             max_steps=6)
         del seen[:]
         results[quant] = tr.evaluate_resident(s, _joined(tmp_path, cfg))
+        # The float run's store is the synthetic corpus's float16 rows,
+        # which the float32 model hands to the op as they are.
         assert seen and set(seen) == {torch.int8 if quant else
-                                      torch.float32}, seen
+                                      torch.float16}, seen
         tr.close()
     (mf, pf), (mq, pq) = results[""], results["int8"]
     assert np.isfinite(mq["loss"])

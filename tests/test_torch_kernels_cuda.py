@@ -48,6 +48,13 @@ and each column of dws; dqh and dW_v, whose dz sums G glimpse terms, get G
 times K5's. On int8 codes K4 and K5 widen each code to bf16 exactly, so the
 limits are the bf16 rows'. The probes sum the same exact products in
 another order: 2^-14 of each output's largest value (``tools.TOL_REL``).
+
+The float32 kernels K1f, K3f, K4f and K5f (FFMA, f32 sums, no rounding to
+a narrower type anywhere) differ from their plain versions only by the
+order of f32 sums: each output is held to ``TOL_F32`` (1e-5) of its largest
+value, and K5f's dqh and dW_v, whose dz sums G glimpse terms, to G times
+that; see chip_smoke.py for the reasoning. K2, K6, K7 and K8 have no
+float32 variant yet and refuse float32, naming ROADMAP.md's item.
 """
 
 import pytest
@@ -286,7 +293,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru.gru_fwd(gx, lens, uh, bhn)
     gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 32)
     with pytest.raises(TypeError, match="uh"):
-        gru.gru_fwd(gx, lens, uh.float(), bhn)
+        gru.gru_fwd(gx, lens, uh.half(), bhn)
     v = torch.zeros(2, 9, 64, device=dev)
     qh, ws = torch.zeros(2, 128, device=dev), torch.zeros(128, device=dev)
     wv = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
@@ -301,7 +308,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru.gru_bwd(gx, hseq, lens, uh, bhn, torch.zeros(4, 32, device=dev))
     store, rows, qh, wv, ws = _resident_inputs(dev, 3, 9, 64, 128, 2)
     with pytest.raises(TypeError, match="store must be"):
-        ar.attention_resident_fwd(store.float(), rows, qh, wv, ws, n_valid=9,
+        ar.attention_resident_fwd(store.half(), rows, qh, wv, ws, n_valid=9,
                                   normalize=False)
     with pytest.raises(ValueError, match="n_valid"):
         ar.attention_resident_fwd(store, rows, qh, wv, ws, n_valid=17,
@@ -1620,3 +1627,180 @@ def test_attention_refuses_a_non_contiguous_grid(dev, end2end_model):
             attention.spatial_attention(bad, qh, wv, ws, normalize=True)
         with pytest.raises(ValueError, match="contiguous"):
             attention.attention_bwd(bad, qh, wv, ws, ds, r, True)
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernels K1f, K3f, K4f, K5f
+# ---------------------------------------------------------------------------
+
+TOL_F32 = 1e-5
+
+
+def _rel(got, want):
+    return ((got - want).abs().max().item()
+            / max(want.abs().max().item(), 1e-30))
+
+
+def _f32_gru_inputs(dev, T, B, H, seed=0):
+    gx, lens, _, bhn = _gru_inputs(dev, T, B, H, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    uh = torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    return gx, lens, uh, bhn
+
+
+@pytest.mark.parametrize("B", [1, 65, 256])
+@pytest.mark.parametrize("T", [1, 26])
+@pytest.mark.parametrize("H", [16, 100, 512])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_f32_kernels_match_plain(dev, B, T, H, reverse):
+    """K1f (one launch a step) and K3f (two a step but the last, then the
+    dU_h product and the db_hn sum) against their plain versions on
+    float32 U_h, through the dispatch of gru_fwd and gru_bwd; lengths hold
+    0 and T, H need not be a multiple of a tile."""
+    gx, lens, uh, bhn = _f32_gru_inputs(dev, T, B, H)
+    f0, b0 = gru.gru_fwd_f32.launches, gru.gru_bwd_f32.launches
+    k1 = gru.gru_fwd.launches
+    hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=reverse)
+    rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    ghT = torch.randn(B, H, device=dev)
+    got = gru.gru_bwd(gx, rseq, lens, uh, bhn, ghT, reverse=reverse)
+    want = gru.gru_bwd_reference(gx, rseq, lens, uh, bhn, ghT,
+                                 reverse=reverse)
+    torch.cuda.synchronize()
+    assert gru.gru_fwd_f32.launches == f0 + T
+    assert gru.gru_bwd_f32.launches == b0 + 2 * T + 1
+    assert gru.gru_fwd.launches == k1
+    assert torch.equal(hT, hseq[0 if reverse else -1])
+    assert _rel(hseq, rseq) <= TOL_F32 and _rel(hT, rT) <= TOL_F32
+    for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= TOL_F32, (name, _rel(a, b))
+
+
+def test_gru_f32_kernels_are_deterministic(dev):
+    gx, lens, uh, bhn = _f32_gru_inputs(dev, 26, 256, 512)
+    a = gru.gru_fwd_f32(gx, lens, uh, bhn)
+    b = gru.gru_fwd_f32(gx, lens, uh, bhn)
+    ghT = torch.randn(256, 512, device=dev)
+    c = gru.gru_bwd_f32(gx, a[1], lens, uh, bhn, ghT)
+    d = gru.gru_bwd_f32(gx, a[1], lens, uh, bhn, ghT)
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def _f32_resident_inputs(dev, M, n_valid, C, H, B, G, rows_dtype, seed=7):
+    store, rows, qh, wv, ws = _resident_inputs(dev, M, n_valid, C, H, B,
+                                               seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    grid, scale = store.float(), 1.0
+    if rows_dtype == torch.int8:  # W_v scaled as the op scales it
+        grid = grid / grid.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+        scale = grid.abs().max().item() / 127
+        store = (grid / scale).round().to(torch.int8)
+    else:
+        store = grid.to(rows_dtype)
+    wv = (torch.rand(C, H, generator=g, device=dev) * 2 - 1) * (
+        6.0 / (C + H)) ** 0.5 * scale
+    ws = torch.randn(H, G, generator=g, device=dev) * 0.05
+    return store, rows, qh, wv, (ws if G > 1 else ws[:, 0].contiguous())
+
+
+@pytest.mark.parametrize("shape", [(5, 13, 96, 200, 6),
+                                   (64, 196, 2048, 512, 256)])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.float16,
+                                        torch.int8])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_resident_f32_kernels_match_plain(dev, shape, G,
+                                                    rows_dtype, normalize):
+    """K4f and K5f against their plain versions on f32 rows, f16 rows
+    (widened on load) and int8 codes, at 1, 2 and 8 glimpses, through the
+    dispatch of attention_resident_fwd / _bwd (float32 wv and h); K5f fed
+    the plain version's saved h and alpha. C and H need not be a multiple
+    of a tile."""
+    if rows_dtype == torch.int8 and normalize:
+        pytest.skip("an int8 store is normalized before it is quantized")
+    M, n_valid, C, H, B = shape
+    store, rows, qh, wv, ws = _f32_resident_inputs(dev, M, n_valid, C, H, B,
+                                                   G, rows_dtype)
+    Np = store.shape[1]
+    f0 = ar.attention_resident_fwd_f32.launches
+    b0 = ar.attention_resident_bwd_f32.launches
+    k45 = (ar.attention_resident_fwd.launches,
+           ar.attention_resident_bwd.launches)
+    v, a, h = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                        n_valid=n_valid, normalize=normalize,
+                                        save_h=True)
+    rv, ra, rh = ar.attention_resident_fwd_reference(
+        store, rows, qh, wv, ws, n_valid=n_valid, normalize=normalize,
+        save_h=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gv = torch.randn(B, G * C, generator=gen, device=dev)
+    sga = torch.randn(ra.shape, generator=gen, device=dev) * 0.1
+    got = ar.attention_resident_bwd(store, rows, rh, ws, ra, gv, sga,
+                                    n_valid=n_valid, normalize=normalize)
+    want = ar.attention_resident_bwd_reference(
+        store, rows, rh, ws, ra, gv, sga, n_valid=n_valid,
+        normalize=normalize)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float32 and h.shape == (B, Np, H)
+    assert ar.attention_resident_fwd_f32.launches == f0 + 2 + normalize
+    assert ar.attention_resident_bwd_f32.launches == b0 + 3
+    assert (ar.attention_resident_fwd.launches,
+            ar.attention_resident_bwd.launches) == k45
+    assert _rel(a, ra) <= TOL_F32 and _rel(h, rh) <= TOL_F32
+    for k in range(G):
+        assert _rel(v[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]) \
+            <= TOL_F32
+    for name, x, y, tol in zip(("dqh", "dwv", "dws"), got, want,
+                               (G * TOL_F32, G * TOL_F32, TOL_F32)):
+        assert torch.isfinite(x).all(), name
+        assert _rel(x, y) <= tol, (name, _rel(x, y))
+
+
+def test_attention_resident_f32_kernels_are_deterministic(dev):
+    store, rows, qh, wv, ws = _f32_resident_inputs(
+        dev, 64, 196, 2048, 512, 256, 2, torch.float16)
+    kw = dict(n_valid=196, normalize=False)
+    a = ar.attention_resident_fwd_f32(store, rows, qh, wv, ws, save_h=True,
+                                      **kw)
+    b = ar.attention_resident_fwd_f32(store, rows, qh, wv, ws, save_h=True,
+                                      **kw)
+    gv = torch.randn(256, 2 * 2048, device=dev)
+    sga = torch.randn(a[1].shape, device=dev) * 0.1
+    c = ar.attention_resident_bwd_f32(store, rows, a[2], ws, a[1], gv, sga,
+                                      **kw)
+    d = ar.attention_resident_bwd_f32(store, rows, a[2], ws, a[1], gv, sga,
+                                      **kw)
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def test_kernels_without_float32_variant_name_the_roadmap_item(dev):
+    """K2, K6, K7 and K8 take bf16 only: float32 raises TypeError naming
+    ROADMAP.md, section 2, item 1; float16 to K1 or K4 raises too."""
+    item = "ROADMAP.md, section 2, item 1"
+    v, qh, wv, ws = _k2_inputs(dev, 2, 9, 128, 128)
+    with pytest.raises(TypeError, match=item):
+        attention.attention_fwd(v.float(), qh, wv, ws, normalize=True)
+    with pytest.raises(TypeError, match=item):
+        attention.attention_bwd(v, qh, wv.float(), ws, torch.zeros(2, 9,
+                                device=dev), torch.ones(2, 9, device=dev),
+                                True)
+    gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 64)
+    with pytest.raises(TypeError, match=item):
+        gru.bigru_fwd(gx, gx, lens, uh.float(), uh.float(), bhn, bhn)
+    _, hseq = gru.gru_reference(gx, lens, uh, bhn)
+    ghT = torch.zeros(4, 64, device=dev)
+    with pytest.raises(TypeError, match=item):
+        gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.float(), uh.float(), bhn,
+                      bhn, ghT, ghT)
+    with pytest.raises(TypeError, match="uh"):
+        gru.gru_bwd(gx, hseq, lens, uh.half(), bhn, ghT)
+    store, rows, qh, wv, ws = _resident_inputs(dev, 3, 9, 64, 128, 2)
+    with pytest.raises(TypeError, match="store must be"):
+        ar.attention_resident_fwd(store.to(torch.float64), rows, qh,
+                                  wv.float(), ws, n_valid=9, normalize=False)

@@ -101,12 +101,27 @@ def test_build_model_full_width_defaults():
     assert all(torch.equal(sd[k], t) for k, t in b.state_dict().items())
 
 
-@pytest.mark.parametrize("overrides,item", [
-    ({"model.fidelity_mode": True}, "item 14"),
+@pytest.mark.parametrize("overrides,variant,glimpses", [
+    ({"model.fidelity_mode": True}, "tf", 1),
+    ({"model.fidelity_mode": True, "model.model": "vqa_attention2"}, "tf",
+     1),
+    ({"model.rnn_variant": "tf"}, "tf", 1),
+    ({"model.rnn_variant": "tf", "model.glimpses": 2}, "tf", 2),
 ])
-def test_unported_configs_name_their_roadmap_item(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(Config().replace_flat(overrides))
+def test_build_model_fidelity_configs_at_full_width(overrides, variant,
+                                                    glimpses):
+    """The checkpoint-fidelity configurations build at config.py's full
+    width: the TF1 GRU's packed kernels over [x, h] (300 + 512 rows), in
+    float32 under fidelity_mode, with one glimpse and use_pallas off."""
+    m = build_model(Config().replace_flat(overrides)).module
+    sd = m.state_dict()
+    assert m.rnn_variant == variant and m.glimpses == glimpses
+    assert sd["gru.gates_kernel"].shape == (812, 1024)
+    assert sd["gru.candidate_kernel"].shape == (812, 512)
+    assert "gru.uh" not in sd
+    fidelity = overrides.get("model.fidelity_mode", False)
+    assert m.dtype == (torch.float32 if fidelity else torch.bfloat16)
+    assert m.use_pallas is not fidelity
 
 
 def test_build_model_builds_vqa_end2end():

@@ -107,6 +107,8 @@ def test_summarize_reads_a_kineto_trace(tmp_path):
     assert res["kernel_records"] == {"gru_seq_kernel<64>": 2,
                                      "Memcpy DtoH": 1}
     assert res["unmatched_by_op"] == {} and res["unmatched_at_ms"] == []
+    assert res["clock_gap_ms"] == pytest.approx(0.01)
+    assert res["lost_before_window"] is None  # no annotation
     assert ts.summarize(path, steps=3, top=1)["kernels_ms"] == {
         "gru_seq_kernel<64>": pytest.approx(0.6)}
 
@@ -140,8 +142,8 @@ def test_summarize_says_when_a_window_lost_events(tmp_path, case):
 
 def test_summarize_keeps_to_the_window_annotation(tmp_path):
     """A TraceWindow's trace: only what its annotation holds counts, so
-    launches before it (here one without a device record) and work after
-    it are not the window's."""
+    launches before it (here one without a device record, counted as
+    lost before the window) and work after it are not the window's."""
     events = _step_events([1, 2], [1, 2], t0=1000.0) + [
         {"ph": "X", "cat": "user_annotation", "name": tracing.WINDOW_ANNOTATION,
          "pid": 1, "tid": 1, "ts": 1000.0, "dur": 750.0},
@@ -159,6 +161,7 @@ def test_summarize_keeps_to_the_window_annotation(tmp_path):
     assert res["window_ms"] == pytest.approx(0.75)
     assert res["device_busy_ms"] == pytest.approx(0.6)
     assert "late" not in res["kernels_ms"]
+    assert res["lost_before_window"] == 1  # the launch before it
     assert set(res["host_ops_self_ms"]) == {"aten::mm", "aten::empty"}
 
 
@@ -210,10 +213,29 @@ def test_a_windows_records_are_those_of_its_launches(tmp_path, offset):
     assert res["lost_events"] is False and res["unmatched_launches"] == 0
     assert res["kernel_records"] == {"gru_seq_kernel<64>": 2,
                                      "Memcpy DtoH": 1}
+    assert res["clock_gap_ms"] == pytest.approx((10.0 + offset) / 1e3)
+    assert res["lost_before_window"] == 0
     # The copy (not moved) overlaps the first kernel only where the
     # clocks agree.
     assert res["device_busy_ms"] == pytest.approx(0.7 if offset else 0.6)
     assert res["window_ms"] == pytest.approx(0.75)
+
+
+@pytest.mark.parametrize("offset", [-12000.0, 0.0, 5000.0])
+def test_clock_gap_is_the_least_launch_to_record_time(tmp_path, offset):
+    """The clock gap: the least time from a launch to its first device
+    record, in ms; negative where the card's clock stands behind the
+    host's. A launch without a record and a copy enter no gap."""
+    events = _step_events([1, 2, 3], [1, 2], t0=1000.0)
+    for e in events:
+        if e["cat"] == "kernel":
+            e["ts"] += offset
+    events.append({"ph": "X", "cat": "kernel", "name": "second", "pid": 0,
+                   "tid": 7, "ts": events[-4]["ts"] + 5000.0, "dur": 10.0,
+                   "args": {"correlation": 1}})
+    res = ts.summarize(_trace(tmp_path, events), steps=2, top=None)
+    assert res["unmatched_launches"] == 1
+    assert res["clock_gap_ms"] == pytest.approx((10.0 + offset) / 1e3)
 
 
 def test_trace_window_on_the_cpu(tmp_path):
@@ -242,6 +264,7 @@ def test_summarize_of_a_cpu_trace_reports_no_device_figures(tmp_path):
     assert res["lost_events"] is False
     assert res["device_busy_ms"] is res["device_step_ms"] is None
     assert res["device_span_ms"] is None and res["kernels_ms"] == {}
+    assert res["clock_gap_ms"] is None
 
 
 def test_main_prints_one_json_line(tmp_path, capsys):

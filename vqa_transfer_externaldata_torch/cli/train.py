@@ -33,7 +33,7 @@ artifacts, or synthetic pixels), its backbone converted from
 ``--model.resnet_checkpoint`` (a torchvision resnet101 state dict) when
 given. Runs on CUDA unless ``--device cpu``. Not ported yet, raising
 ``NotImplementedError`` with its ROADMAP item: the grain input pipeline
-(item 14).
+(item 14b).
 
 Multi-device (one process per card; ``--mesh.num_model`` and
 ``--mesh.shard_params`` for tensor-parallel tables):
@@ -85,7 +85,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     t = cfg.train
     if cfg.data.input_pipeline == "grain":
         raise NotImplementedError("the grain input pipeline is not ported "
-                                  "yet (ROADMAP.md, section 1, item 14)")
+                                  "yet (ROADMAP.md, section 1, item 14b)")
     started = initialize_distributed_from(
         cfg, backend="gloo" if args.device == "cpu" else None)
     mesh = create_mesh(cfg, rank_device(args.device))

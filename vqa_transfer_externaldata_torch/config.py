@@ -54,7 +54,7 @@ class ModelConfig:
     answer_dim: int = 300  # answer-embedding space (ties to word_dim)
     dropout: float = 0.5
     dtype: str = "bfloat16"  # compute dtype; params stay float32
-    use_pallas: bool = True  # JAX package only (its Pallas kernels)
+    use_pallas: bool = True  # off: plain GRUs and gathered attention
     glimpses: int = 1  # attention glimpses (vqa_attention2 sets 2)
     bidirectional_desc: bool = False  # vlmap_description: BiGRU encoder
     dense_candidate_loss: bool = False  # vlmap: count-weighted dense CE

@@ -6,7 +6,7 @@ resized to the model's static input; normalization runs on the device
 The decoder is PIL (``PIL`` is imported only when a file is decoded). The
 JAX package decodes with its native libjpeg library where that is built
 (within one 8-bit step of PIL's pixels) and with PIL otherwise; the port
-has no native decoder (ROADMAP.md, section 1, item 14).
+has no native decoder (ROADMAP.md, section 1, item 14c).
 """
 
 from __future__ import annotations

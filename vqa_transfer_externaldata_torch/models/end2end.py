@@ -42,7 +42,7 @@ class VQAEnd2EndModel(nn.Module):
                  word_dim: int = 300, rnn_dim: int = 512,
                  fusion_dim: int = 1024, att_hidden: int = 512,
                  answer_dim: int = 300, dropout: float = 0.5,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype = torch.bfloat16, use_pallas: bool = True,
                  freeze_backbone: bool = True, image_size: int = 448,
                  stage_sizes: Sequence[int] = RESNET101_STAGES,
                  width: int = 64,
@@ -59,7 +59,7 @@ class VQAEnd2EndModel(nn.Module):
             word_dim=word_dim, rnn_dim=rnn_dim, fusion_dim=fusion_dim,
             att_hidden=att_hidden, answer_dim=answer_dim, dropout=dropout,
             feature_grad=not freeze_backbone, dtype=dtype,
-            word_init=word_init, generator=generator)
+            use_pallas=use_pallas, word_init=word_init, generator=generator)
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """uint8 images [B, S, S, 3] -> the grid [B, h*w, C] in the compute

@@ -113,6 +113,7 @@ class VLMapDescriptionModel(_VLMapHead):
                  hidden_dim: int = 1024, dropout: float = 0.5,
                  dtype: torch.dtype = torch.bfloat16,
                  bidirectional: bool = False, dense_loss: bool = False,
+                 use_pallas: bool = True,
                  word_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None) -> None:
         enc_dim = 2 * rnn_dim if bidirectional else rnn_dim
@@ -122,9 +123,11 @@ class VLMapDescriptionModel(_VLMapHead):
         self.bidirectional = bidirectional
         if bidirectional:
             self.desc_bigru = BiGRUEncoder(word_dim, rnn_dim, dtype=dtype,
+                                           use_pallas=use_pallas,
                                            generator=generator)
         else:
             self.desc_gru = GRUEncoder(word_dim, rnn_dim, dtype=dtype,
+                                       use_pallas=use_pallas,
                                        generator=generator)
 
     def forward(self, feature: torch.Tensor, desc_ids: torch.Tensor,

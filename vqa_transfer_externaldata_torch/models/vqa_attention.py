@@ -19,6 +19,15 @@ as the triple ``(store, rows, scale)``; as a pair its codes are the values
 the same op with its G-glimpse kernels, the gathered input normalizes the
 grid and runs ``spatial_attention_multi``. Parameter names follow the JAX
 package's tree (``utils/convert.py`` maps one to the other).
+
+``rnn_variant`` picks the question encoder: ``"cudnn"`` (``GRUEncoder``,
+the fused recurrence, ids looked up time-major) or ``"tf"``
+(``TFGRUEncoder``, the TF1-exact cell of the checkpoint-fidelity path, ids
+looked up batch-major as it consumes them). ``use_pallas`` is the JAX
+package's switch of the same name, read where JAX reads it: the
+``GRUEncoder`` and the gathered single-glimpse attention run their plain
+versions on CUDA when it is off, while the resident op always runs its
+kernels (JAX's resident op ignores it too).
 """
 
 from __future__ import annotations
@@ -34,11 +43,14 @@ from vqa_transfer_externaldata_torch.ops.attention import (
     spatial_attention, spatial_attention_multi)
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     spatial_attention_resident)
-from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder
+from vqa_transfer_externaldata_torch.ops.gru import GRUEncoder, TFGRUEncoder
 from vqa_transfer_externaldata_torch.ops.layers import (
     Dense, GatedTanh, WordEmbedding, dropout, glorot_uniform_, l2_normalize,
     row_product)
 from vqa_transfer_externaldata_torch.utils.vocab import PAD_ID, UNK_ID
+
+RNN_VARIANTS = ("cudnn", "tf")
+
 
 class VQAAttentionModel(nn.Module):
     # Tables the trainer may row-shard under mesh.shard_params (the answer
@@ -54,11 +66,17 @@ class VQAAttentionModel(nn.Module):
                  store_prenormalized: bool = False,
                  feature_grad: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
+                 rnn_variant: str = "cudnn", use_pallas: bool = True,
                  word_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        if rnn_variant not in RNN_VARIANTS:
+            raise ValueError(f"model.rnn_variant={rnn_variant!r}: one of "
+                             f"{RNN_VARIANTS}")
         g = generator
         self.dtype = dtype
+        self.rnn_variant = rnn_variant
+        self.use_pallas = use_pallas
         self.dropout = dropout
         self.glimpses = glimpses
         # True grid-cell count of a (store, rows) input, whose cell axis is
@@ -74,7 +92,12 @@ class VQAAttentionModel(nn.Module):
         self.word_emb = WordEmbedding(vocab_size, word_dim,
                                       init_matrix=word_init, dtype=dtype,
                                       generator=g)
-        self.gru = GRUEncoder(word_dim, rnn_dim, dtype=dtype, generator=g)
+        if rnn_variant == "tf":
+            self.gru = TFGRUEncoder(word_dim, rnn_dim, dtype=dtype,
+                                    generator=g)
+        else:
+            self.gru = GRUEncoder(word_dim, rnn_dim, dtype=dtype,
+                                  use_pallas=use_pallas, generator=g)
         self.att_q = Dense(rnn_dim, att_hidden, dtype=dtype, generator=g)
         self.att_wv = nn.Parameter(torch.empty(feature_dim, att_hidden))
         self.att_ws = nn.Parameter(torch.empty(
@@ -104,19 +127,26 @@ class VQAAttentionModel(nn.Module):
         dt = self.dtype
         resident = isinstance(features, (tuple, list))
         mask = (q_ids != PAD_ID).float()
-        # Look up the transposed ids: words are born time-major [T, B, D],
-        # the layout the recurrence consumes.
-        q = self.gru(self.word_emb(q_ids.t()), mask)  # [B, H] dt
+        if self.rnn_variant == "tf":  # the TF1 cell consumes [B, T, D]
+            q = self.gru(self.word_emb(q_ids), mask)
+        else:
+            # Look up the transposed ids: words are born time-major
+            # [T, B, D], the layout the recurrence consumes.
+            q = self.gru(self.word_emb(q_ids.t()), mask)  # [B, H] dt
         qh = self.att_q(q)
         if resident:
             store, rows = features[:2]
             # int8 codes go to the op as they are, with their scale (each
             # store its own: the Trainer's train and val stores differ);
-            # an int8 store is prenormalized by construction.
+            # an int8 store is prenormalized by construction. A float32
+            # model takes f16 rows as they are too: the kernels widen them
+            # on load (exactly), so no f32 copy of the store is made.
             quant = store.dtype == torch.int8
             scale = features[2] if len(features) > 2 else 1.0
+            as_is = quant or store.dtype == dt or (
+                dt == torch.float32 and store.dtype == torch.float16)
             v_att, alpha = spatial_attention_resident(
-                store if quant else store.to(dt), rows, qh, self.att_wv,
+                store if as_is else store.to(dt), rows, qh, self.att_wv,
                 self.att_ws, n_valid=self.n_cells or store.shape[1],
                 normalize=not (self.store_prenormalized or quant),
                 store_scale=scale if quant else 1.0)
@@ -129,7 +159,7 @@ class VQAAttentionModel(nn.Module):
             # The per-cell L2 normalization of the grid is fused into the op.
             v_att, alpha = spatial_attention(
                 features.to(dt), qh, self.att_wv, self.att_ws, normalize=True,
-                feature_grad=self.feature_grad)
+                feature_grad=self.feature_grad, use_kernels=self.use_pallas)
         fused = self.fuse_q(q) * self.fuse_v(v_att.to(dt))
         if train and self.dropout > 0.0:
             fused = dropout(fused, self.dropout, generator)

@@ -76,8 +76,8 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
             d.vocab_size, num_tasks=m.num_tasks, feature_dim=d.pool5_dim,
             word_dim=m.word_dim, rnn_dim=m.rnn_dim, task_dim=m.task_dim,
             dropout=m.dropout, dtype=dt, bidirectional=m.bidirectional_desc,
-            dense_loss=m.dense_candidate_loss, word_init=word_init,
-            generator=generator)
+            dense_loss=m.dense_candidate_loss, use_pallas=m.use_pallas,
+            word_init=word_init, generator=generator)
         return ModelSpec(module,
                          lambda b: (b["feature"], b["desc_ids"], b["task"],
                                     b["candidates"]),
@@ -89,10 +89,6 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
             dtype=dt, word_init=word_init, generator=generator)
         return ModelSpec(module, lambda b: (b["pool5"], b["q_ids"]),
                          vqa_loss, "vqa", "answer_id", "pool5")
-    if m.fidelity_mode or m.rnn_variant != "cudnn":
-        raise NotImplementedError(
-            "the TF1-exact GRU (model.rnn_variant tf, model.fidelity_mode) "
-            "is not ported yet (ROADMAP.md, section 1, item 14)")
     if name == "vqa_end2end":
         from vqa_transfer_externaldata_torch.models.end2end import (
             VQAEnd2EndModel, end2end_loss)
@@ -101,17 +97,24 @@ def build_model(cfg: Config, word_init: Optional[np.ndarray] = None,
             d.vocab_size, d.num_answers, word_dim=m.word_dim,
             rnn_dim=m.rnn_dim, fusion_dim=m.fusion_dim,
             att_hidden=m.att_hidden, answer_dim=m.answer_dim,
-            dropout=m.dropout, dtype=dt, image_size=d.image_size,
-            stage_sizes=resnet_stage_sizes(cfg), width=m.resnet_width,
-            word_init=word_init, generator=generator)
+            dropout=m.dropout, dtype=dt, use_pallas=m.use_pallas,
+            image_size=d.image_size, stage_sizes=resnet_stage_sizes(cfg),
+            width=m.resnet_width, word_init=word_init, generator=generator)
         return ModelSpec(module, lambda b: (b["images"], b["q_ids"]),
                          end2end_loss, "vqa", "answer_id", "images")
     glimpses = 2 if name == "vqa_attention2" else max(1, m.glimpses)
+    rnn_variant, use_pallas = m.rnn_variant, m.use_pallas
+    if m.fidelity_mode:
+        # The reference-convention assembly, as the JAX package's: the
+        # TF1-exact GRU, float32, the plain gathered attention and one
+        # glimpse; its forward is pinned to utils/fidelity.py's oracle.
+        dt, rnn_variant, use_pallas, glimpses = torch.float32, "tf", False, 1
     module = VQAAttentionModel(
         d.vocab_size, d.num_answers, feature_dim=d.feature_dim,
         word_dim=m.word_dim, rnn_dim=m.rnn_dim, fusion_dim=m.fusion_dim,
         att_hidden=m.att_hidden, answer_dim=m.answer_dim, dropout=m.dropout,
         glimpses=glimpses, n_cells=d.grid_h * d.grid_w, dtype=dt,
+        rnn_variant=rnn_variant, use_pallas=use_pallas,
         word_init=word_init, generator=generator)
     return ModelSpec(module, lambda b: (b["features"], b["q_ids"]), vqa_loss,
                      "vqa", "answer_id", "features")

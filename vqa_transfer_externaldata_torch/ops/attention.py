@@ -203,14 +203,23 @@ class _GatheredAttention(torch.autograd.Function):
     """Forward K2 (its plain version on the CPU), saving the per-cell norm
     r that K2 computed. Backward: K8 from the score cotangent formed here
     (its plain version on the CPU); with ``feature_grad`` or without
-    ``bwd_kernel``, the explicit math of :func:`attention_bwd_math`."""
+    ``bwd_kernel``, the explicit math of :func:`attention_bwd_math`.
+    Without ``kernel`` (``model.use_pallas`` off), the JAX package's XLA
+    forward and the explicit backward on any device."""
 
     @staticmethod
-    def forward(ctx, v, qh, wv, ws, normalize, bwd_kernel, feature_grad):
+    def forward(ctx, v, qh, wv, ws, normalize, bwd_kernel, feature_grad,
+                kernel):
         wv_c = wv.to(v.dtype).contiguous()
         ws_c = ws.to(v.dtype).float().contiguous()
         qh_c = qh.float().contiguous()
-        if v.device.type == "cuda":
+        r = None
+        if not kernel:  # the JAX package's XLA forward, in PyTorch
+            oracle = (_reference_postscaled if normalize
+                      else spatial_attention_reference)
+            v_att, alpha = oracle(v, qh, wv, ws)
+            bwd_kernel = False
+        elif v.device.type == "cuda":
             v_att, alpha, r = attention_fwd(v, qh_c, wv_c, ws_c,
                                             normalize=normalize)
         else:
@@ -243,12 +252,13 @@ class _GatheredAttention(torch.autograd.Function):
                    else attention_bwd_reference)
             dqh, dwv, dws = bwd(v, qh_c, wv_c, ws_c, ds, r, normalize)
         return (dv, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt), None, None,
-                None)
+                None, None)
 
 
 def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
                       w_score: torch.Tensor, *, normalize: bool = False,
-                      bwd_kernel: bool = True, feature_grad: bool = True
+                      bwd_kernel: bool = True, feature_grad: bool = True,
+                      use_kernels: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention over a gathered grid: v [B, N, C] in the compute dtype, qh
     [B, H], wv [C, H], w_score [H] -> (v_att [B, C] f32, alpha [B, N] f32),
@@ -258,6 +268,10 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     or ``feature_grad`` asks for dv, when the explicit backward runs; on
     CPU tensors each path takes its plain version. ``feature_grad=False``
     gives the grid no gradient: only for features that are data.
+    ``use_kernels=False`` (``model.use_pallas`` off) takes, on any device,
+    the JAX package's XLA forward (:func:`_reference_postscaled`, or
+    :func:`spatial_attention_reference` without ``normalize``) and the
+    explicit backward, as JAX does with ``use_pallas`` off.
 
     One glimpse only, as in the JAX package: a 2-D ``w_score`` raises
     ``ValueError`` (:func:`spatial_attention_multi` takes G glimpses)."""
@@ -269,7 +283,7 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     if v.device.type not in ("cuda", "cpu"):
         raise ValueError(f"spatial_attention: no path for device {v.device}")
     return _GatheredAttention.apply(v, qh, wv, w_score, normalize,
-                                    bwd_kernel, feature_grad)
+                                    bwd_kernel, feature_grad, use_kernels)
 
 
 def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
@@ -279,7 +293,7 @@ def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
     if C % _SCORE_TILE_C or H % _SCORE_TILE_H or B < 1 or N < 1:
         raise ValueError(f"{what} needs C % {_SCORE_TILE_C} == 0 and "
                          f"H % {_SCORE_TILE_H} == 0, got C={C}, H={H}")
-    kernels.expect("v", v, torch.bfloat16, (B, N, C), v.device)
+    kernels.expect_bf16("v", v, (B, N, C), v.device)
     if v.data_ptr() % 16:
         raise ValueError(f"{what} reads v in 16-byte vectors: it must start "
                          "16-byte aligned")
@@ -328,7 +342,7 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
         raise ValueError(f"attention_fwd: N={N} cells exceed the softmax's "
                          "shared memory")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect_bf16("wv", wv, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     n_part = kernels.score_plan(B, N, C, H)["n_part"]
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
@@ -398,7 +412,7 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
         raise ValueError(f"attention_bwd needs C % {tile} == 0 and "
                          f"H % {tile} == 0, got C={C}, H={H}")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect_bf16("wv", wv, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     kernels.expect("ds", ds, torch.float32, (B, N), dev)
     kernels.expect("r", r, torch.float32, (B, N), dev)

@@ -14,19 +14,27 @@ dqh, dWv and dws, while the store and the rows get no gradient (the store
 is data). A 1-D ``w_score`` [H] is the single glimpse, with outputs
 without the glimpse axis.
 
-The store is bf16 (f32 on the CPU) or int8 codes of an L2-prenormalized
-store with one global dequantization scale (:func:`quantize_store`,
+The store is bf16 or float32 rows, float16 rows in a float32 model (widened
+to float32 as they are loaded, exactly: the values of the JAX package's
+``store.astype(float32)``), or int8 codes of an L2-prenormalized store
+with one global dequantization scale (:func:`quantize_store`,
 :func:`prenormalize_store` with ``quantize="int8"``): the kernels widen the
 codes to the compute dtype as they load them (exact: |code| <= 127), and
 the scale stays outside them, folded into Wv, applied to v_att after the
 forward, to the v_att cotangent before the backward and to dWv after it.
+The compute dtype is the store's, or qh's for int8 codes and float16 rows.
 
 :func:`spatial_attention_resident` is the entry point. On CUDA tensors its
 forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
 :func:`attention_resident_fwd`) and its backward kernel K5
 (``csrc/attention_resident_bwd.cu``, wrapper :func:`attention_resident_bwd`);
 on CPU tensors their plain versions :func:`attention_resident_fwd_reference`
-and :func:`attention_resident_bwd_reference`. The rounding follows the
+and :func:`attention_resident_bwd_reference`. A float32 computation takes
+the float32 kernels instead: K4f (``csrc/attention_resident_fwd_f32.cu``,
+:func:`attention_resident_fwd_f32`) and K5f
+(``csrc/attention_resident_bwd_f32.cu``,
+:func:`attention_resident_bwd_f32`), plain FFMA with f32 sums, which save
+and read h in float32. The rounding follows the
 kernels: f32 sums of compute-dtype products, squares, each glimpse's
 ``alpha * r``, the v_att cotangents and ``dz * r`` (dz summed over the
 glimpses in f32 first) rounded to the compute dtype.
@@ -48,6 +56,10 @@ _FWD_TILE_H = 128  # H's multiple: the score tile's 128 or 256 columns
 _FWD_TILE_C = 32  # C's multiple (the score GEMM zero-fills half a chunk)
 _SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
 MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
+# Row dtypes that compute in the model's dtype (qh's), widened on load.
+_WIDENED = (torch.int8, torch.float16)
+# float32 rows, f16 rows widened to f32, int8 codes: the C side's row_type.
+_F32_ROWS = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
 
 
 def pad_store_rows(grid: np.ndarray, multiple: int = 8) -> np.ndarray:
@@ -169,8 +181,9 @@ def attention_resident_fwd_reference(
     ws [H, G] f32 -> (v_att [B, G*C] f32, alpha [B, Np, G] f32 (0 at
     padded cells), h [B, Np, H] in dt or None). A 1-D ws [H] gives v_att
     [B, C] and alpha [B, Np]. The outputs are in the codes' units (the
-    caller applies an int8 store's scale)."""
-    dt = wv.dtype if store.dtype == torch.int8 else store.dtype
+    caller applies an int8 store's scale). float16 rows compute in wv's
+    dtype, as int8 codes do."""
+    dt = wv.dtype if store.dtype in _WIDENED else store.dtype
     G = _glimpses(ws, "attention_resident_fwd_reference")
     vf, r = _gather(store, rows, normalize, dt)
     z = vf @ wv.float()
@@ -199,9 +212,10 @@ def attention_resident_bwd_reference(
     gives dws [H]. The glimpses' dz are summed in f32 before the one
     ``dz * r`` rounding. The padded cells (alpha 0) add nothing, so
     ``n_valid`` is not needed. The compute dtype is the store's, or h's
-    for int8 codes (whose scale the caller applies to g and dwv)."""
+    for int8 codes (whose scale the caller applies to g and dwv) and
+    float16 rows."""
     del n_valid
-    dt = h.dtype if store.dtype == torch.int8 else store.dtype
+    dt = h.dtype if store.dtype in _WIDENED else store.dtype
     G = _glimpses(ws, "attention_resident_bwd_reference")
     B, Np = alpha.shape[:2]
     ws2 = ws.reshape(-1, G)
@@ -297,15 +311,18 @@ def dwv_launch_config(K: int, C: int, H: int, int8: bool,
 
 
 def _check_store(store: torch.Tensor, rows: torch.Tensor, n_valid: int,
-                 normalize: bool, what: str) -> Tuple[int, int, int, int]:
-    """Shapes (M, Np, C, B) of a CUDA store of bf16 rows or int8 codes and
-    its int32 row indices."""
+                 normalize: bool, what: str,
+                 dtypes: tuple = (torch.bfloat16, torch.int8)
+                 ) -> Tuple[int, int, int, int]:
+    """Shapes (M, Np, C, B) of a CUDA store of rows of one of ``dtypes``
+    (bf16 rows or int8 codes for K4/K5) and its int32 row indices."""
     if store.device.type != "cuda" or store.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA store")
     M, Np, C = store.shape
     B = rows.shape[0] if rows.dim() == 1 else -1
-    if store.dtype not in (torch.bfloat16, torch.int8):
-        raise TypeError(f"{what}: store must be bf16 or int8, got "
+    if store.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{what}: store must be {names}, got "
                         f"{store.dtype}")
     if store.dtype == torch.int8 and normalize:
         raise ValueError(f"{what}: an int8 store is normalized before it is "
@@ -337,7 +354,12 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     C=2048, H=512). One call makes the kernel's two launches on the current
     stream and adds the number launched (2) to
     ``attention_resident_fwd.launches`` (bf16 rows) or
-    ``attention_resident_fwd.launches_int8`` (int8 rows)."""
+    ``attention_resident_fwd.launches_int8`` (int8 rows). A float32 ``wv``
+    goes to :func:`attention_resident_fwd_f32` (K4f)."""
+    if wv.dtype == torch.float32:
+        return attention_resident_fwd_f32(store, rows, qh, wv, ws,
+                                          n_valid=n_valid,
+                                          normalize=normalize, save_h=save_h)
     v_att, alpha, h, _ = _launch_fwd(store, rows, qh, wv, ws, n_valid,
                                      normalize, save_h)
     return v_att, alpha, h
@@ -418,7 +440,12 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     One call makes the kernel's three launches on the current stream and
     adds the number launched (3) to
     ``attention_resident_bwd.launches`` (bf16 rows) or
-    ``attention_resident_bwd.launches_int8`` (int8 rows)."""
+    ``attention_resident_bwd.launches_int8`` (int8 rows). A float32 ``h``
+    (K4f's residual) goes to :func:`attention_resident_bwd_f32` (K5f)."""
+    if h.dtype == torch.float32:
+        return attention_resident_bwd_f32(store, rows, h, ws, alpha, g, sga,
+                                          n_valid=n_valid,
+                                          normalize=normalize)
     M, Np, C, B = _check_store(store, rows, n_valid, normalize,
                                "attention_resident_bwd")
     int8 = store.dtype == torch.int8
@@ -472,6 +499,162 @@ attention_resident_bwd.launches = 0
 attention_resident_bwd.launches_int8 = 0
 
 
+F32_TILE = 128  # cells and units (or channels) of a K4f/K5f product tile
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_lib(name: str) -> ctypes.CDLL:
+    """The library of K4f (``name`` "attention_resident_fwd_f32") or K5f
+    ("attention_resident_bwd_f32")."""
+    lib = kernels.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fwd = name == "attention_resident_fwd_f32"
+    getattr(lib, name).argtypes = ([p] * 10 + [i] * 8 if fwd
+                                   else [p] * 13 + [i] * 9) + [p, p]
+    getattr(lib, name).restype = i
+    return lib
+
+
+def f32_bwd_smem(n_valid: int, G: int, C: int) -> int:
+    """Bytes of dynamic shared memory of K5f's rows launch: the G
+    cotangent rows [G, C], ds [n_valid, G] and r [n_valid], all f32."""
+    return 4 * (G * C + (G + 1) * n_valid)
+
+
+def f32_dwv_splits(K: int, C: int, H: int, sms: int) -> int:
+    """The splits of the K cells of K5f's dW_v product: as many as fit two
+    blocks of ``F32_TILE``-square tiles on each of ``sms`` SMs (one wave,
+    no ragged second one), each split but the last keeping at least 512
+    cells, none empty under the C side's rule (a split takes
+    ceil(K / splits) cells rounded up to 8). A function of the shapes and
+    the card alone, so two calls sum in the same order."""
+    tiles = -(-C // F32_TILE) * -(-H // F32_TILE)
+    want = max(1, min(2 * sms // tiles, K // 512))
+    return -(-K // (8 * -(-K // (8 * want))))
+
+
+def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
+                               qh: torch.Tensor, wv: torch.Tensor,
+                               ws: torch.Tensor, *, n_valid: int,
+                               normalize: bool, save_h: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          Optional[torch.Tensor]]:
+    """Launch kernel K4f (``csrc/attention_resident_fwd_f32.cu``) on CUDA
+    tensors: store [M, Np, C] of f32 or f16 rows (widened to f32 on load)
+    or int8 codes (normalize off), rows [B] int32 (each < M, which the
+    caller guarantees), qh [B, H], wv [C, H] and ws [H, G] (1 <= G <= 8) in
+    f32 -> (v_att [B, G*C], alpha [B, Np, G], h [B, Np, H] when ``save_h``
+    else None), all f32; a 1-D ws [H] gives v_att [B, C] and alpha [B, Np].
+    :func:`attention_resident_fwd_reference`'s math in FFMA with f32 sums;
+    any C and H. One call launches, on the current stream, the per-cell
+    norm (only when ``normalize``), the score product with its epilogue
+    and the softmaxes with the weighted sums, and adds the number launched
+    (2, or 3) to ``attention_resident_fwd_f32.launches``."""
+    what = "attention_resident_fwd_f32"
+    M, Np, C, B = _check_store(store, rows, n_valid, normalize, what,
+                               tuple(_F32_ROWS))
+    G = _glimpses(ws, what)
+    H = qh.shape[-1]
+    dev = store.device
+    if 2 * G * Np * 4 > _SMEM_LIMIT:
+        raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses exceed "
+                         "the softmax's shared memory")
+    kernels.expect("qh", qh, torch.float32, (B, H), dev)
+    kernels.expect("wv", wv, torch.float32, (C, H), dev)
+    kernels.expect("ws", ws, torch.float32,
+                   (H, G) if ws.dim() == 2 else (H,), dev)
+    ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty(-(-H // F32_TILE), G, B * Np, **f32)
+    rnorm = torch.empty(B * Np, **f32)
+    v_att = torch.empty(B, G * C, **f32)
+    alpha = torch.empty(B, Np, G, **f32)
+    h = torch.empty(B, Np, H, **f32) if save_h else None
+    lib = _f32_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_resident_fwd_f32(
+            store.data_ptr(), rows.data_ptr(), wv.data_ptr(), qh.data_ptr(),
+            ws_gh.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
+            h.data_ptr() if save_h else None, v_att.data_ptr(),
+            alpha.data_ptr(), B, Np, n_valid, C, H, G, int(normalize),
+            _F32_ROWS[store.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_resident_fwd_f32.launches += launched.value
+    kernels.check(lib, rc, what)
+    return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h
+
+
+attention_resident_fwd_f32.launches = 0
+
+
+def attention_resident_bwd_f32(store: torch.Tensor, rows: torch.Tensor,
+                               h: torch.Tensor, ws: torch.Tensor,
+                               alpha: torch.Tensor, g: torch.Tensor,
+                               sga: torch.Tensor, *, n_valid: int,
+                               normalize: bool
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Launch kernel K5f (``csrc/attention_resident_bwd_f32.cu``) on CUDA
+    tensors: store and rows as :func:`attention_resident_fwd_f32`'s, h
+    [B, Np, H] f32 (K4f's residual), ws [H, G] f32 (1 <= G <= 8), alpha and
+    sga [B, Np, G] f32, g [B, G*C] f32 -> (dqh [B, H], dwv [C, H],
+    dws [H, G]), all f32; a 1-D ws [H] takes alpha and sga [B, Np] and
+    gives dws [H]. :func:`attention_resident_bwd_reference`'s math in FFMA
+    with f32 sums; any C and H, the rows launch's shared memory
+    (:func:`f32_bwd_smem`) within a block's. One call launches, on the
+    current stream, the rows stage (one block a question: dalpha, ds, dz,
+    dqh, the question's dws and dz * r), the dW_v product over the
+    B * n_valid cells split ``f32_dwv_splits`` ways, and the reduction of
+    the splits and of dws in a fixed order, and adds the number launched
+    (3) to ``attention_resident_bwd_f32.launches``."""
+    what = "attention_resident_bwd_f32"
+    M, Np, C, B = _check_store(store, rows, n_valid, normalize, what,
+                               tuple(_F32_ROWS))
+    G = _glimpses(ws, what)
+    H = h.shape[-1]
+    dev = store.device
+    smem = f32_bwd_smem(n_valid, G, C)
+    if smem > kernels.SMEM_OPTIN:
+        raise ValueError(f"{what}: {n_valid} cells of G={G} glimpses at "
+                         f"C={C} need {smem} B of shared memory, over a "
+                         f"block's {kernels.SMEM_OPTIN} B")
+    per_cell = (B, Np) + ((G,) if ws.dim() == 2 else ())
+    kernels.expect("h", h, torch.float32, (B, Np, H), dev)
+    kernels.expect("ws", ws, torch.float32, (H,) + per_cell[2:], dev)
+    kernels.expect("alpha", alpha, torch.float32, per_cell, dev)
+    kernels.expect("g", g, torch.float32, (B, G * C), dev)
+    kernels.expect("sga", sga, torch.float32, per_cell, dev)
+    ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
+    K = B * n_valid
+    splits = f32_dwv_splits(K, C, H, kernels.sm_count(dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dzr = torch.empty(K, H, **f32)
+    dws_part = torch.empty(B, G, H, **f32)
+    part = torch.empty(splits, C, H, **f32)
+    dqh = torch.empty(B, H, **f32)
+    dwv = torch.empty(C, H, **f32)
+    dws = torch.empty(G, H, **f32)
+    lib = _f32_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_resident_bwd_f32(
+            store.data_ptr(), rows.data_ptr(), h.data_ptr(),
+            ws_gh.data_ptr(), alpha.data_ptr(), g.data_ptr(), sga.data_ptr(),
+            dzr.data_ptr(), dws_part.data_ptr(), part.data_ptr(),
+            dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(), B, Np, n_valid,
+            C, H, G, int(normalize), _F32_ROWS[store.dtype], splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_resident_bwd_f32.launches += launched.value
+    kernels.check(lib, rc, what)
+    return dqh, dwv, dws.t().contiguous().reshape(ws.shape)
+
+
+attention_resident_bwd_f32.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # The differentiable op
 # ---------------------------------------------------------------------------
@@ -489,7 +672,7 @@ class _ResidentAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize, save_h,
                 scale):
-        dt = qh.dtype if store.dtype == torch.int8 else store.dtype
+        dt = qh.dtype if store.dtype in _WIDENED else store.dtype
         wv_c = (wv * scale if scale != 1.0 else wv).to(dt).contiguous()
         ws_c = ws.to(dt).float().contiguous()
         fwd = (attention_resident_fwd if store.device.type == "cuda"
@@ -544,8 +727,9 @@ def spatial_attention_resident(
     [B, G*C] f32, concatenated in glimpse order, alpha [B, n_valid, G]
     f32). Differentiable in ``qh``, ``wv`` and ``w_score``, which are
     rounded to the compute dtype inside: the store's, or ``qh``'s for an
-    int8 store. A CUDA store runs kernels K4/K5 (bf16 rows or int8 codes),
-    a CPU store their plain versions.
+    int8 store and for float16 rows. A CUDA store runs kernels K4/K5 in
+    bf16 (bf16 rows or int8 codes) and K4f/K5f in float32 (f32 or f16 rows
+    or int8 codes), a CPU store their plain versions.
 
     ``store`` may hold the int8 codes of an L2-prenormalized store
     (:func:`prenormalize_store` with ``quantize="int8"``) with their

@@ -17,7 +17,12 @@ and ``bhn``: on a CUDA tensor its forward launches the hand-written kernel
 ``csrc/gru_fwd.cu`` (K1, wrapper :func:`gru_fwd`: one persistent launch for
 all timesteps) and its backward the BPTT kernel ``csrc/gru_bwd.cu`` (K3,
 wrapper :func:`gru_bwd`); on a CPU tensor their plain versions
-:func:`gru_reference` and :func:`gru_bwd_reference`.
+:func:`gru_reference` and :func:`gru_bwd_reference`. The wrappers dispatch
+on U_h's dtype: bf16 takes K1/K3, float32 the float32 kernels
+``csrc/gru_fwd_f32.cu`` (K1f, :func:`gru_fwd_f32`) and
+``csrc/gru_bwd_f32.cu`` (K3f, :func:`gru_bwd_f32`), plain FFMA with f32
+sums. ``use_kernels=False`` (the model's ``model.use_pallas`` off) runs
+the plain versions on CUDA too, as the JAX package runs its XLA scan.
 The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 
 :class:`BiGRUEncoder` concatenates a forward and a reverse encoder's final
@@ -31,6 +36,12 @@ on a CPU tensor their plain versions
 keeps this fused path behind ``fuse_directions`` (off); its outputs and
 gradients equal the two per-direction encoders', and here it is the only
 path.
+
+:class:`TFGRUEncoder` is the TF1 ``GRUCell``-exact variant of the
+checkpoint-fidelity path (``model.rnn_variant tf``): packed gate and
+candidate kernels over ``[x, h]``, the reset gate applied to h before the
+candidate matmul. The JAX package runs it as an XLA scan with no Pallas
+body, so here it is plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -52,15 +63,18 @@ class GRUEncoder(nn.Module):
     """Masked GRU over a time-major [T, B, D] sequence (mask [B, T]);
     returns the final state [B, H] in ``dtype``. Parameters keep the JAX
     package's layout: ``wx`` [D, 3H], ``uh`` [H, 3H], ``b`` [3H],
-    ``bhn`` [H]."""
+    ``bhn`` [H]. ``use_pallas`` (``model.use_pallas``) False runs the
+    recurrence's plain version on CUDA as well."""
 
     def __init__(self, in_dim: int, hidden: int = 512, *,
                  dtype: torch.dtype = torch.bfloat16, reverse: bool = False,
+                 use_pallas: bool = True,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.hidden = hidden
         self.dtype = dtype
         self.reverse = reverse
+        self.use_pallas = use_pallas
         H3 = 3 * hidden
         self.wx = nn.Parameter(torch.empty(in_dim, H3))
         self.uh = nn.Parameter(torch.empty(hidden, H3))
@@ -84,7 +98,8 @@ class GRUEncoder(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         lens = mask.sum(1).to(torch.int32)
         hT = gru_fused(self.project(x), lens, self.uh.to(self.dtype),
-                       self.bhn, reverse=self.reverse)
+                       self.bhn, reverse=self.reverse,
+                       use_kernels=self.use_pallas)
         return hT.to(self.dtype)
 
 
@@ -94,13 +109,14 @@ class BiGRUEncoder(nn.Module):
     ``dtype``. Parameters sit under ``fwd.*`` and ``bwd.*`` in
     :class:`GRUEncoder`'s layout; each direction is projected by its own
     encoder and both recurrences run through :func:`bigru_fused` (kernels
-    K6/K7 on CUDA)."""
+    K6/K7 on CUDA, their plain versions with ``use_pallas`` False)."""
 
     def __init__(self, in_dim: int, hidden: int = 512, *,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype = torch.bfloat16, use_pallas: bool = True,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.dtype = dtype
+        self.use_pallas = use_pallas
         self.fwd = GRUEncoder(in_dim, hidden, dtype=dtype,
                               generator=generator)
         self.bwd = GRUEncoder(in_dim, hidden, dtype=dtype, reverse=True,
@@ -110,20 +126,81 @@ class BiGRUEncoder(nn.Module):
         f, b, dt = self.fwd, self.bwd, self.dtype
         lens = mask.sum(1).to(torch.int32)
         hTf, hTb = bigru_fused(f.project(x), b.project(x), lens,
-                               f.uh.to(dt), b.uh.to(dt), f.bhn, b.bhn)
+                               f.uh.to(dt), b.uh.to(dt), f.bhn, b.bhn,
+                               use_kernels=self.use_pallas)
         return torch.cat([hTf, hTb], dim=-1).to(dt)
 
 
+class TFGRUEncoder(nn.Module):
+    """TF1 ``tf.nn.rnn_cell.GRUCell``-exact encoder (``model.rnn_variant
+    tf``, the checkpoint-fidelity path) over a batch-major [B, T, D]
+    sequence (mask [B, T]); returns the final state [B, H] in ``dtype``:
+
+        r, z = sigmoid([x, h] @ W_g + b_g)          (b_g starts at 1.0)
+        c    = tanh([x, r*h] @ W_c + b_c)
+        h'   = z*h + (1-z)*c
+
+    Parameters keep the JAX package's names and layout
+    (``ops/gru.py::TFGRUEncoder``): ``gates_kernel`` [D+H, 2H],
+    ``gates_bias`` [2H], ``candidate_kernel`` [D+H, H], ``candidate_bias``
+    [H]. The x-side of both products is hoisted out of the recurrence;
+    operands are rounded to ``dtype`` and summed in f32, the state stays
+    f32, and a padded step carries the state through. Plain PyTorch on
+    every device (the JAX package runs it as an XLA scan), with no host
+    synchronization, so a CUDA graph can capture it."""
+
+    def __init__(self, in_dim: int, hidden: int = 512, *,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.hidden = hidden
+        self.dtype = dtype
+        DH = in_dim + hidden
+        self.gates_kernel = nn.Parameter(torch.empty(DH, 2 * hidden))
+        self.gates_bias = nn.Parameter(torch.ones(2 * hidden))
+        self.candidate_kernel = nn.Parameter(torch.empty(DH, hidden))
+        self.candidate_bias = nn.Parameter(torch.zeros(hidden))
+        with torch.no_grad():
+            glorot_uniform_(self.gates_kernel, DH, 2 * hidden, generator)
+            glorot_uniform_(self.candidate_kernel, DH, hidden, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        B, T, D = x.shape
+        H, dt = self.hidden, self.dtype
+        # Products of dt values as f32 matmuls of exact upcast copies: dt
+        # products with f32 sums, as ``preferred_element_type=float32``.
+        wg = self.gates_kernel.to(dt).float()
+        wc = self.candidate_kernel.to(dt).float()
+        xd = x.to(dt).float().reshape(B * T, D)
+        gx = (xd @ wg[:D] + self.gates_bias).reshape(B, T, 2 * H)
+        cx = (xd @ wc[:D] + self.candidate_bias).reshape(B, T, H)
+        wg_h, wc_h = wg[D:], wc[D:]
+        m_seq = mask.float()
+        h = x.new_zeros(B, H, dtype=torch.float32)
+        for t in range(T):
+            gates = gx[:, t] + h.to(dt).float() @ wg_h
+            r = torch.sigmoid(gates[:, :H])
+            z = torch.sigmoid(gates[:, H:])
+            c = torch.tanh(cx[:, t] + (r * h).to(dt).float() @ wc_h)
+            h_new = z * h + (1.0 - z) * c
+            m = m_seq[:, t, None]
+            h = m * h_new + (1.0 - m) * h
+        return h.to(dt)
+
+
 def gru_fused(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
-              bhn: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
+              bhn: torch.Tensor, *, reverse: bool = False,
+              use_kernels: bool = True) -> torch.Tensor:
     """Fused recurrence: gx_t [T, B, 3H] f32 (= x@Wx + b, time-major),
     lens [B] int32, uh [H, 3H], bhn [H] f32 -> final state [B, H] f32,
     differentiable in gx_t, uh and bhn. A CUDA tensor runs the kernels
-    (which take bf16 ``uh``), a CPU tensor the plain versions."""
+    (K1/K3 on bf16 ``uh``, K1f/K3f on float32), a CPU tensor the plain
+    versions, and so does a CUDA tensor with ``use_kernels`` False."""
     if gx_t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"gru_fused: no path for device {gx_t.device}")
     return _GRUFused.apply(gx_t.contiguous(), lens.to(torch.int32),
-                           uh.contiguous(), bhn.contiguous(), reverse)
+                           uh.contiguous(), bhn.contiguous(), reverse,
+                           use_kernels and gx_t.device.type == "cuda")
 
 
 class _GRUFused(torch.autograd.Function):
@@ -132,22 +209,22 @@ class _GRUFused(torch.autograd.Function):
     sequence ``hseq`` that K1 writes anyway."""
 
     @staticmethod
-    def forward(ctx, gx_t, lens, uh, bhn, reverse):
-        fwd = gru_fwd if gx_t.device.type == "cuda" else gru_reference
+    def forward(ctx, gx_t, lens, uh, bhn, reverse, kernel):
+        fwd = gru_fwd if kernel else gru_reference
         hT, hseq = fwd(gx_t, lens, uh, bhn, reverse=reverse)
         ctx.save_for_backward(gx_t, hseq, lens, uh, bhn)
-        ctx.reverse = reverse
+        ctx.reverse, ctx.kernel = reverse, kernel
         return hT
 
     @staticmethod
     def backward(ctx, ghT):
         gx_t, hseq, lens, uh, bhn = ctx.saved_tensors
-        bwd = gru_bwd if gx_t.device.type == "cuda" else gru_bwd_reference
+        bwd = gru_bwd if ctx.kernel else gru_bwd_reference
         dgx, duh, dbhn = bwd(gx_t, hseq, lens, uh, bhn,
                              ghT.float().contiguous(), reverse=ctx.reverse)
         # uh arrives in the compute dtype: its cotangent is rounded to it,
         # as JAX's ``duh.astype(uh.dtype)``.
-        return dgx, None, duh.to(uh.dtype), dbhn.to(bhn.dtype), None
+        return dgx, None, duh.to(uh.dtype), dbhn.to(bhn.dtype), None, None
 
 
 def gru_reference(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
@@ -291,13 +368,20 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel K1 (``csrc/gru_fwd.cu``) on CUDA tensors:
     gx_t [T, B, 3H] f32, lens [B] int32, uh [H, 3H] bf16, bhn [H] f32
-    -> (hT [B, H] f32, hseq [T, B, H] f32). Needs H % 16 == 0 and a
+    -> (hT [B, H] f32, hseq [T, B, H] f32); a float32 ``uh`` goes to
+    :func:`gru_fwd_f32` (K1f), another dtype raises ``TypeError``. Needs
+    H % 16 == 0 and a
     block's U_h slice and 16-row b-tile to fit in shared memory
     (H <= 1568). One call makes one cooperative launch of the persistent
     kernel for all T steps, with the batch rows a block of
     ``kernels.gru_fwd_plan``, on the current stream and adds it (1) to
     ``gru_fwd.launches``; it raises when no tiling's grid can be resident
     on the card at once."""
+    if uh.dtype == torch.float32:
+        return gru_fwd_f32(gx_t, lens, uh, bhn, reverse=reverse)
+    if uh.dtype != torch.bfloat16:
+        raise TypeError(f"gru_fwd: uh must be torch.bfloat16 (K1) or "
+                        f"torch.float32 (K1f), got {uh.dtype}")
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_fwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -408,13 +492,20 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     """Launch kernel K3 (``csrc/gru_bwd.cu``) on CUDA tensors: gx_t
     [T, B, 3H] f32, hseq [T, B, H] f32 (K1's residual), lens [B] int32,
     uh [H, 3H] bf16, bhn [H] f32, ghT [B, H] f32 -> (dgx_t [T, B, 3H],
-    duh [H, 3H], dbhn [H]), all f32. Needs H % 64 == 0 and U_h's slices to
+    duh [H, 3H], dbhn [H]), all f32; a float32 ``uh`` goes to
+    :func:`gru_bwd_f32` (K3f), another dtype raises ``TypeError``. Needs
+    H % 64 == 0 and U_h's slices to
     fit in shared memory (H <= 576). One call launches the persistent step
     kernel (one cooperative launch for all T steps, on the grid of
     ``kernels.gru_bwd_plan``), the dU_h GEMM and the db_hn sum on the
     current stream and adds the number launched (3) to
     ``gru_bwd.launches``; it raises when U_h's slices do not fit or the
     step kernel's grid cannot be resident on the card at once."""
+    if uh.dtype == torch.float32:
+        return gru_bwd_f32(gx_t, hseq, lens, uh, bhn, ghT, reverse=reverse)
+    if uh.dtype != torch.bfloat16:
+        raise TypeError(f"gru_bwd: uh must be torch.bfloat16 (K3) or "
+                        f"torch.float32 (K3f), got {uh.dtype}")
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_bwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -456,6 +547,106 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
 gru_bwd.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _f32_lib(name: str) -> ctypes.CDLL:
+    """The library of K1f (``name`` "gru_fwd_f32") or K3f
+    ("gru_bwd_f32")."""
+    lib = kernels.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    pointers = 6 if name == "gru_fwd_f32" else 11
+    getattr(lib, name).argtypes = [p] * pointers + [i] * 4 + [p, p]
+    getattr(lib, name).restype = i
+    return lib
+
+
+def _check_f32(what: str, gx_t: torch.Tensor, lens: torch.Tensor,
+               uh: torch.Tensor, bhn: torch.Tensor
+               ) -> Tuple[int, int, int, torch.device]:
+    """(T, B, H, device) of the float32 kernels' common inputs."""
+    if gx_t.device.type != "cuda" or gx_t.dim() != 3:
+        raise ValueError(f"{what} takes a 3-D CUDA gx_t")
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H:
+        raise ValueError(f"{what} needs T, B, H >= 1, got gx_t of shape "
+                         f"{tuple(gx_t.shape)}")
+    kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
+    kernels.expect("lens", lens, torch.int32, (B,), dev)
+    kernels.expect("uh", uh, torch.float32, (H, 3 * H), dev)
+    kernels.expect("bhn", bhn, torch.float32, (H,), dev)
+    return T, B, H, dev
+
+
+def gru_fwd_f32(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+                bhn: torch.Tensor, *, reverse: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel K1f (``csrc/gru_fwd_f32.cu``) on CUDA tensors, all
+    float32: gx_t [T, B, 3H], lens [B] int32, uh [H, 3H], bhn [H] -> (hT
+    [B, H], hseq [T, B, H]), :func:`gru_reference`'s recurrence with FFMA
+    products and f32 sums. Any B and H. One launch a step, on the current
+    stream: T launches a call, added to ``gru_fwd_f32.launches``."""
+    T, B, H, dev = _check_f32("gru_fwd_f32", gx_t, lens, uh, bhn)
+    hseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    hT = torch.empty(B, H, dtype=torch.float32, device=dev)
+    lib = _f32_lib("gru_fwd_f32")
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.gru_fwd_f32(gx_t.data_ptr(), lens.data_ptr(), uh.data_ptr(),
+                             bhn.data_ptr(), hseq.data_ptr(), hT.data_ptr(),
+                             T, B, H, int(reverse),
+                             torch.cuda.current_stream(dev).cuda_stream,
+                             ctypes.addressof(launched))
+    gru_fwd_f32.launches += launched.value
+    kernels.check(lib, rc, "gru_fwd_f32")
+    return hT, hseq
+
+
+gru_fwd_f32.launches = 0
+
+
+def gru_bwd_f32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
+                uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor, *,
+                reverse: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K3f (``csrc/gru_bwd_f32.cu``) on CUDA tensors, all
+    float32: gx_t [T, B, 3H], hseq [T, B, H] (K1f's residual), lens [B]
+    int32, uh [H, 3H], bhn [H], ghT [B, H] -> (dgx_t [T, B, 3H], duh
+    [H, 3H], dbhn [H]), :func:`gru_bwd_reference`'s BPTT with FFMA products
+    and f32 sums. Any B and H. Two launches a step (the gates' cotangents,
+    then the carried dh through U_h^T, which the last step skips), then
+    the dU_h product over the (T-1)*B rows and the db_hn sum, on the
+    current stream: 2T + 1 launches a call, added to
+    ``gru_bwd_f32.launches``."""
+    T, B, H, dev = _check_f32("gru_bwd_f32", gx_t, lens, uh, bhn)
+    kernels.expect("hseq", hseq, torch.float32, (T, B, H), dev)
+    kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = torch.empty(2, B, H, **f32)  # the carried cotangent, ping-pong
+    dh[0].copy_(ghT)
+    dpart = torch.empty(B, H, **f32)
+    gq = torch.empty(T, B, 3 * H, **f32)
+    dgx = torch.empty(T, B, 3 * H, **f32)
+    duh = torch.empty(H, 3 * H, **f32)
+    dbhn = torch.empty(H, **f32)
+    lib = _f32_lib("gru_bwd_f32")
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.gru_bwd_f32(gx_t.data_ptr(), hseq.data_ptr(),
+                             lens.data_ptr(), uh.data_ptr(), bhn.data_ptr(),
+                             dh.data_ptr(), dpart.data_ptr(), gq.data_ptr(),
+                             dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(),
+                             T, B, H, int(reverse),
+                             torch.cuda.current_stream(dev).cuda_stream,
+                             ctypes.addressof(launched))
+    gru_bwd_f32.launches += launched.value
+    kernels.check(lib, rc, "gru_bwd_f32")
+    return dgx, duh, dbhn
+
+
+gru_bwd_f32.launches = 0
+
+
 def gru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
     """The shape of K3's persistent step launch at batch ``B`` and width
     ``H`` on CUDA ``device``: ``kernels.gru_bwd_plan``'s b-tiles and grid
@@ -468,20 +659,23 @@ def gru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
 
 def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
                 uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
-                bhnb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                bhnb: torch.Tensor, *, use_kernels: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both recurrences of a bidirectional GRU: gxf, gxb [T, B, 3H] f32
     (each direction's x@Wx + b, time-major), lens [B] int32, uhf, uhb
     [H, 3H], bhnf, bhnb [H] f32 -> (hT_fwd, hT_bwd) [B, H] f32, the
     backward chain reversed over each row's valid prefix as
     ``gru_fused(reverse=True)``. Differentiable in gx*, uh* and bhn*. A
     CUDA tensor runs kernels K6/K7 (which take bf16 ``uh*``), a CPU tensor
-    the plain versions."""
+    the plain versions, and so does a CUDA tensor with ``use_kernels``
+    False."""
     if gxf.device.type not in ("cuda", "cpu"):
         raise ValueError(f"bigru_fused: no path for device {gxf.device}")
     return _BiGRUFused.apply(gxf.contiguous(), gxb.contiguous(),
                              lens.to(torch.int32), uhf.contiguous(),
                              uhb.contiguous(), bhnf.contiguous(),
-                             bhnb.contiguous())
+                             bhnb.contiguous(),
+                             use_kernels and gxf.device.type == "cuda")
 
 
 class _BiGRUFused(torch.autograd.Function):
@@ -490,22 +684,23 @@ class _BiGRUFused(torch.autograd.Function):
     the two state sequences that K6 writes anyway."""
 
     @staticmethod
-    def forward(ctx, gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
-        fwd = bigru_fwd if gxf.device.type == "cuda" else bigru_reference
+    def forward(ctx, gxf, gxb, lens, uhf, uhb, bhnf, bhnb, kernel):
+        fwd = bigru_fwd if kernel else bigru_reference
         hTf, hTb, hseqf, hseqb = fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
         ctx.save_for_backward(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf,
                               bhnb)
+        ctx.kernel = kernel
         return hTf, hTb
 
     @staticmethod
     def backward(ctx, ghTf, ghTb):
         gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb = ctx.saved_tensors
-        bwd = bigru_bwd if gxf.device.type == "cuda" else bigru_bwd_reference
+        bwd = bigru_bwd if ctx.kernel else bigru_bwd_reference
         dgxf, dgxb, duhf, duhb, dbhnf, dbhnb = bwd(
             gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb,
             ghTf.float().contiguous(), ghTb.float().contiguous())
         return (dgxf, dgxb, None, duhf.to(uhf.dtype), duhb.to(uhb.dtype),
-                dbhnf.to(bhnf.dtype), dbhnb.to(bhnb.dtype))
+                dbhnf.to(bhnf.dtype), dbhnb.to(bhnb.dtype), None)
 
 
 def bigru_reference(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
@@ -543,8 +738,11 @@ def _expect_pair(T: int, B: int, H: int, dev: torch.device, **pairs) -> None:
               "bhn": ((H,), torch.float32), "ghT": ((B, H), torch.float32)}
     for name, (f, b) in pairs.items():
         shape, dtype = shapes[name]
-        kernels.expect(f"{name}f", f, dtype, shape, dev)
-        kernels.expect(f"{name}b", b, dtype, shape, dev)
+        for x, tag in ((f, f"{name}f"), (b, f"{name}b")):
+            if name == "uh":  # K6/K7 have no float32 variant yet
+                kernels.expect_bf16(tag, x, shape, dev)
+            else:
+                kernels.expect(tag, x, dtype, shape, dev)
 
 
 @functools.lru_cache(maxsize=None)

@@ -367,3 +367,18 @@ def expect(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# Where the float32 variants of the kernels that take only bf16 so far
+# (K2, K6, K7, K8) stand in the roadmap.
+F32_PENDING = "ROADMAP.md, section 2, item 1"
+
+
+def expect_bf16(name: str, x: torch.Tensor, shape: tuple,
+                device: torch.device) -> None:
+    """:func:`expect` with bf16 for a kernel that has no float32 variant
+    yet: another dtype raises ``TypeError`` naming :data:`F32_PENDING`."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} must be torch.bfloat16, got {x.dtype}: this "
+                        f"kernel's float32 variant is {F32_PENDING}")
+    expect(name, x, torch.bfloat16, shape, device)

@@ -25,7 +25,6 @@ import torch
 
 from vqa_transfer_externaldata_torch.cli.common import build_spec
 from vqa_transfer_externaldata_torch.config import Config
-from vqa_transfer_externaldata_torch.ops.layers import dtype_of
 from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
 from vqa_transfer_externaldata_torch.utils.logging import log
 
@@ -76,11 +75,12 @@ class Predictor:
                 params_path = os.path.join(train_dir, "params_final")
         self.model.load_state_dict(load_params(params_path))
         self.model.to(self.device).eval()
-        # f32 host features are cast to bf16 before they are uploaded (the
-        # model casts on arrival anyway: same math, half the bytes).
+        # f32 host features are cast to bf16 before they are uploaded when
+        # the model computes in bf16 (it casts on arrival anyway: same math,
+        # half the bytes). The model's dtype, not the config's: fidelity
+        # mode computes in float32 whatever model.dtype says.
         self._vis_cast = (torch.bfloat16
-                          if dtype_of(self.cfg.model.dtype) == torch.bfloat16
-                          else None)
+                          if self.model.dtype == torch.bfloat16 else None)
         self._store: Optional[torch.Tensor] = None  # set by stage_store()
         log.info("predictor ready: %s (%s), batch %d on %s", train_dir,
                  self.cfg.model.model, batch_size, self.device)

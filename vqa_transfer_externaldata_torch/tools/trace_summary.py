@@ -29,6 +29,12 @@ The steps and the window's CUDA-event time default to those of the
   must span at least ``MIN_WINDOW_SHARE`` of the window's time on CUDA
   events. Otherwise the summary says ``lost_events`` and reports no busy,
   step or idle figure.
+- **clock gap**: the least time from a launch to its first device record.
+  A record cannot start before its launch, so a negative gap is the least
+  by which the card's clock stands behind the host's in the trace;
+- **lost before the window**: the launches before the annotation (the
+  settling launches of ``utils/tracing.py``) without a device record: the
+  session's leading losses, which the settling launches must outnumber.
 
 One JSON line on stdout, a table on stderr. The CUDA trace's track layout
 is Kineto's: device events carry ``cat`` ``kernel``, ``gpu_memcpy`` or
@@ -190,9 +196,17 @@ def summarize(path: str, steps: Optional[int] = None,
     steps = steps if steps is not None else window.get("steps")
     if cuda_event_ms is None:
         cuda_event_ms = window.get("cuda_event_ms")
+    lost_before = None
     if span:  # a TraceWindow's: what its annotation holds
         start = span[0]["ts"]
         end = start + span[0].get("dur", 0.0)
+        recorded = {e.get("args", {}).get("correlation") for e in events
+                    if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS}
+        lost_before = sum(
+            1 for e in events if e.get("ph") == "X"
+            and e.get("cat") == "cuda_runtime" and e["ts"] < start
+            and e.get("name", "").startswith(LAUNCH_PREFIXES)
+            and e.get("args", {}).get("correlation") not in recorded)
         on_device = device_events(events, start, end)
         events = [e for e in events if e is not span[0]
                   and e.get("cat") not in DEVICE_CATS
@@ -224,9 +238,14 @@ def summarize(path: str, steps: Optional[int] = None,
         threads[(e["pid"], e["tid"])].append(e)
     for track in threads.values():
         host_ops.update(self_times(track))
-    recorded = {e.get("args", {}).get("correlation") for e in device}
+    first = {}
+    for e in device:
+        c = e.get("args", {}).get("correlation")
+        first[c] = min(first.get(c, e["ts"]), e["ts"])
     missing = [e for e in launches
-               if e.get("args", {}).get("correlation") not in recorded]
+               if e.get("args", {}).get("correlation") not in first]
+    gaps = [first[e["args"]["correlation"]] - e["ts"] for e in launches
+            if e.get("args", {}).get("correlation") in first]
     unmatched = collections.Counter(e["name"] for e in missing)
     # The host op that made each launch without a record: the innermost
     # cpu_op around it on its thread.
@@ -259,6 +278,8 @@ def summarize(path: str, steps: Optional[int] = None,
         "unmatched_by_op": dict(by_op),
         "unmatched_at_ms": sorted(round((e["ts"] - start) / 1e3, 3)
                                   for e in missing)[:10],
+        "clock_gap_ms": min(gaps) / 1e3 if gaps else None,
+        "lost_before_window": lost_before,
         "lost_events": lost,
         "device_busy_ms": None if lost or not device else busy_us / 1e3,
         "device_step_ms": (None if lost or not device or not steps
@@ -296,7 +317,9 @@ def report(res: dict) -> None:
     print(f"window {res['window_ms']:.3f} ms, steps {res['steps']}, "
           f"CUDA events {res['cuda_event_ms']} ms, device span "
           f"{res['device_span_ms']} ms, {res['launches']} launches "
-          f"({res['unmatched_launches']} without a device record)", file=err)
+          f"({res['unmatched_launches']} without a device record), clock "
+          f"gap {res['clock_gap_ms']} ms, {res['lost_before_window']} "
+          "launches before the window without a record", file=err)
     if res["lost_events"]:
         print("the window lost device events: no busy figure", file=err)
     elif res["device_busy_ms"] is None:

@@ -150,12 +150,12 @@ class CheckpointManager:
     def save_data_iter(self, step: int, state: Dict) -> None:
         raise NotImplementedError(
             "input-iterator state (the grain pipeline) is not ported yet "
-            "(ROADMAP.md, section 1, item 14)")
+            "(ROADMAP.md, section 1, item 14b)")
 
     def restore_data_iter(self, step: Optional[int] = None) -> Optional[Dict]:
         raise NotImplementedError(
             "input-iterator state (the grain pipeline) is not ported yet "
-            "(ROADMAP.md, section 1, item 14)")
+            "(ROADMAP.md, section 1, item 14b)")
 
 
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:

@@ -18,11 +18,19 @@ TRACE_SUFFIX = ".pt.trace.json.gz"
 # The annotation around a window's work (:class:`TraceWindow`): the reader
 # summarizes the host's work inside it and the device records of that work.
 WINDOW_ANNOTATION = "profiler_window"
-# CUPTI leaves no device record for the first kernel launched after the
-# profiler starts (a window on an H100 with torch 2.11 opened without this
-# step lost its first launch's record, twice in a row), so a window first
-# launches a few kernels outside its annotation and waits.
-SETTLE_LAUNCHES, SETTLE_S = 16, 0.01
+# A profiler session on CUDA loses device records at its start in two
+# ways (an H100 with torch 2.11, chip_smoke's windows): the records of its
+# first K launches, K growing with the process (0 in a fresh one, 6 to 22
+# late in a run; 16 settling launches once let K4f's window lose its
+# first call), and those that the trace's card clock, which can stand
+# milliseconds behind the host's, puts before the session started (one
+# window, its clock gap -6 ms, lost its first 353 launches). So a window
+# first launches SETTLE_LAUNCHES small kernels outside its annotation,
+# waits for them and lets SETTLE_S pass; it lets SETTLE_S pass again
+# after the annotation, before the profiler stops, for a card clock that
+# stands ahead. ``tools/trace_summary`` reports the settling launches that
+# lost their records (``lost_before_window``) and the clock gap.
+SETTLE_LAUNCHES, SETTLE_S = 512, 0.25
 
 
 class TraceWindow:
@@ -31,9 +39,9 @@ class TraceWindow:
     the device, starts the profiler, lets it settle (``SETTLE_LAUNCHES``
     small kernels, a wait), then opens the ``WINDOW_ANNOTATION`` span and
     records a CUDA event; :meth:`close` records the closing event, waits
-    for the device, closes the span and stops the profiler, and returns the
-    window's CUDA-event ms (None on the CPU). ``prof`` is then ready for
-    :func:`write_trace`."""
+    for the device, closes the span, waits ``SETTLE_S`` on CUDA and stops
+    the profiler, and returns the window's CUDA-event ms (None on the
+    CPU). ``prof`` is then ready for :func:`write_trace`."""
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -71,6 +79,8 @@ class TraceWindow:
             self._events[1].synchronize()
             event_ms = self._events[0].elapsed_time(self._events[1])
         self._span.__exit__(None, None, None)
+        if self._events is not None:
+            time.sleep(SETTLE_S)
         self.prof.stop()
         self._span = self._events = None
         return event_ms
