@@ -233,14 +233,39 @@ Run from the repository root. Phases (any failure exits non-zero):
    synthetic corpus's float16 store (K1f, K3f, K4f on f16 rows widened on
    load, K5f) for F32_STEPS steps, the first against the plain path (loss
    to TOL_F32_LOSS, gradients to cosine F32_GRAD_COS), launch counts, step
-   times; the resident evaluator; and a float32 ``Predictor`` (its
-   gathered forward needs K2 in float32) refusing with ROADMAP.md's item;
+   times; the resident evaluator;
 26. ``model.fidelity_mode`` at full width: the forward (TF1 GRU, float32,
    the plain gathered attention, no kernel) on the card against the
    port's float64 numpy oracle (``utils/fidelity.py``) at B=8, atol 5e-4
    and rtol 1e-4, TF32 off; ``cli.train`` (the resident path: K4f/K5f on
    the float16 store, and no K1, K2, K3 or K8), ``cli.eval`` (K4f) and
-   ``cli.predict`` (no kernel) on the run.
+   ``cli.predict`` (no kernel) on the run;
+27. float32 on the gathered attention and the bidirectional GRU: K2f
+   ``attention_fwd_f32`` and K8f ``attention_bwd_f32`` at the gathered
+   training batch (B=256, N=196, C=2048, H=512), the serving batch (64)
+   and F32_ODD_SHAPE (C and H off the bf16 kernels' tiles), normalize on
+   and off, each against its plain float32 version within TOL_F32_REL of
+   each output's largest value (K2f's r within TOL_R_REL; K8f's dqh and
+   dW_v also within what units whose recomputed z lies within rounding of
+   0 can move them, as K8's), K8f fed the same ds and K2f's r, two calls
+   of each bit-equal; K6f ``bigru_fwd_f32`` and K7f ``bigru_bwd_f32`` at
+   the stage-1 shape (B=256, T=26, H=512, lengths 1..26) bit-equal to two
+   K1f / K3f calls and within TOL_F32_REL of their plain versions, two
+   calls bit-equal; each timed with its plain version, its library
+   yardstick (cuBLAS's f32 GEMM on K2f's score and K8f's dW_v product,
+   ``nn.GRU(bidirectional=True)`` in float32 for K6f/K7f) and its bound at
+   the FP32 FFMA peak, K6f/K7f in turns with two K1f/K3f calls; then
+   ``fit_resident`` in float32 on the gathered store
+   (``train.resident_fused_attention`` false: K1f, K2f, K3f, K8f) for
+   F32_STEPS steps, its first step against the plain path, launch counts,
+   step times, and its gathered evaluator on the 1024-question val split;
+   the float32 ``Predictor`` on that run's parameters at batch 8 and 64
+   with host features (K1f, K2f), its logits against the same
+   ``Predictor`` with ``model.use_pallas`` false (the plain path) within
+   TOL_F32_LOGITS, launch counts and p50; and stage-1
+   ``vlmap_description`` (bidirectional) in float32 through
+   ``fit_resident`` (K6f, K7f) for F32_STEPS steps, its first step against
+   the plain path, launch counts and step times.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -367,7 +392,8 @@ KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
            "attention_resident_bwd", "bigru_fwd", "bigru_bwd",
            "attention_bwd", "probe_mxu_rows", "probe_bwd_ceiling",
            "gru_fwd_f32", "gru_bwd_f32", "attention_resident_fwd_f32",
-           "attention_resident_bwd_f32"]
+           "attention_resident_bwd_f32", "attention_fwd_f32",
+           "attention_bwd_f32", "bigru_fwd_f32", "bigru_bwd_f32"]
 # K4 and K5 on int8 rows: the glimpse counts checked against the plain
 # versions (the limits are the bf16 rows', as the codes widen exactly to
 # bf16), and the bound on v_att's relative quantization error against the
@@ -513,8 +539,26 @@ F32_ROWS = ("float32", "float16", "int8")
 #     the corpus; host noise moved medians of 2 to 4 steps by 2x).
 TOL_F32_LOSS, F32_GRAD_COS = 1e-5, 0.99999
 F32_STEPS, F32_WARMUP = 16, 3
-# What a kernel without a float32 variant names when it is handed float32.
-ITEM_F32 = "ROADMAP.md, section 2, item 1"
+# Phase 27, float32 on the gathered attention (K2f, K8f) and the
+#     bidirectional GRU (K6f, K7f), held as phase 25's kernels are: each
+#     output to TOL_F32_REL of its largest value, K2f's r to TOL_R_REL. K8f
+#     recomputes z = (v . W_v) r + qh with its own order of f32 sums, which
+#     differs from the plain version's (cuBLAS) by less than 2^-12 of the
+#     sum of the terms' magnitudes (C u <= 2^-13 at C=2048 for each order),
+#     so a unit whose z lies that close to 0 may take the other side of the
+#     ReLU in one version: K8f's dqh and dW_v also get k8_allowance's room,
+#     entry by entry, as K8's do. K6f and K7f run K1f's and K3f's step with
+#     both chains in each launch: bit-equal to two K1f / K3f calls.
+#     F32_ODD_SHAPE (B, N, C, H) lies off every tile of the bf16 kernels.
+#     The float32 Predictor's logits (10 cos + bias, |logit| about 10)
+#     against its plain path: only the order of f32 sums differs, which
+#     moves each layer's outputs by about 1e-7 of their scale and the
+#     logits by about 1e-6; TOL_F32_LOGITS leaves a hundredfold margin, and
+#     a wrong kernel moves logits by a share of their spread. The
+#     Predictor runs at F32_PREDICT_BATCHES.
+F32_ODD_SHAPE = (8, N, 2000, 500)
+TOL_F32_LOGITS = 1e-4
+F32_PREDICT_BATCHES = (B_PREDICT, B)
 # Phase 26, model.fidelity_mode: the forward at FID_BATCH questions from
 #     seed FID_SEED against the float64 oracle at the JAX package's own
 #     tolerance for it (atol 5e-4, rtol 1e-4: its tests/test_fidelity.py),
@@ -620,7 +664,11 @@ def launch_counters():
              "probe_bwd_ceiling": p2.probe_bwd_ceiling,
              "gru_fwd_f32": gru.gru_fwd_f32, "gru_bwd_f32": gru.gru_bwd_f32,
              "attention_resident_fwd_f32": ar.attention_resident_fwd_f32,
-             "attention_resident_bwd_f32": ar.attention_resident_bwd_f32}
+             "attention_resident_bwd_f32": ar.attention_resident_bwd_f32,
+             "attention_fwd_f32": attention.attention_fwd_f32,
+             "attention_bwd_f32": attention.attention_bwd_f32,
+             "bigru_fwd_f32": gru.bigru_fwd_f32,
+             "bigru_bwd_f32": gru.bigru_bwd_f32}
     out = {name: (fn, "launches") for name, fn in plain.items()}
     for name in ("attention_resident_fwd", "attention_resident_bwd"):
         out[f"{name}[int8]"] = (plain[name], "launches_int8")
@@ -5173,17 +5221,13 @@ def phase_float32(report: dict, dev, gen) -> dict:
     shapes and timed beside their bounds; fit_resident at full width in
     float32 on the synthetic corpus's float16 store (K1f, K3f, K4f on f16
     rows, K5f), its first step against the plain path, launch counts, step
-    times, then the resident evaluator; and a float32 Predictor, whose
-    gathered forward needs K2 in float32, refusing with the roadmap's
-    item."""
+    times, then the resident evaluator. (The float32 Predictor, on K1f
+    and K2f, is phase 27's.)"""
     import numpy as np
     import torch
-    from vqa_transfer_externaldata_torch.config import Config
     from vqa_transfer_externaldata_torch.data.datasets import load_dataset
     from vqa_transfer_externaldata_torch.models.zoo import build_model
     from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
-    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
-    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
 
     out = {"k13": f32_gru_checks(dev, gen)}
     out["k45"] = f32_resident_checks(dev, gen)
@@ -5234,22 +5278,6 @@ def phase_float32(report: dict, dev, gen) -> dict:
               f"float32 evaluation: {metrics}, {len(preds)} predictions")
         print(f"float32 resident evaluation: {metrics}")
         out["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
-
-        # --- serving needs K2 in float32: the roadmap's item -------------
-        with open(os.path.join(tmp, "config.json"), "w") as fh:
-            fh.write(cfg.to_json())
-        save_params(os.path.join(tmp, PARAMS_FILE),
-                    spec.module.state_dict())
-        pred = Predictor(tmp, batch_size=8)
-        feats = np.abs(np.random.default_rng(5).standard_normal(
-            (8, N, C), np.float32))
-        try:
-            pred.answer(feats, ["w4 w5"] * 8)
-            raise PhaseError("a float32 Predictor ran K2 in float32")
-        except TypeError as e:
-            check(ITEM_F32 in str(e), f"the refusal names no item: {e}")
-            out["predictor_refusal"] = str(e)
-            print(f"float32 Predictor with use_pallas on refuses: {e}")
         trainer.close()
     return out
 
@@ -5380,6 +5408,478 @@ def phase_fidelity(report: dict, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: float32 on the gathered attention (K2f, K8f) and the
+# bidirectional GRU (K6f, K7f).
+# ---------------------------------------------------------------------------
+
+
+def f32_grid_inputs(dev, gen, Bq: int, Nq: int, Cq: int, Hq: int) -> tuple:
+    """A float32 grid [Bq, Nq, Cq] (ReLU of normals, cells scaled by
+    factors in [1/4, 4] so that their norms differ), qh, a glorot W_v, w_s
+    and a score cotangent ds."""
+    import torch
+
+    scale = torch.exp2(torch.rand(Bq, Nq, 1, generator=gen, device=dev) * 4
+                       - 2)
+    v = torch.randn(Bq, Nq, Cq, generator=gen, device=dev).relu() * scale
+    qh = torch.randn(Bq, Hq, generator=gen, device=dev) * 0.5
+    wv = (torch.rand(Cq, Hq, generator=gen, device=dev) * 2 - 1) * (
+        6.0 / (Cq + Hq)) ** 0.5
+    ws = torch.randn(Hq, generator=gen, device=dev) * 0.05
+    ds = torch.randn(Bq, Nq, generator=gen, device=dev) * 0.01
+    return v, qh, wv, ws, ds
+
+
+def f32_gathered_checks(dev, gen) -> dict:
+    """K2f and K8f against their plain float32 versions at the gathered
+    training batch, the serving batch and F32_ODD_SHAPE, normalize off and
+    on, K8f fed the same ds and K2f's r (module comment of F32_ODD_SHAPE:
+    the limits); two calls of each bit-equal at the training batch."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention
+
+    checks, keep = [], {}
+    err2 = err8 = 0.0
+    for Bq, Nq, Cq, Hq in ((B_TRAIN, N, C, H), (B, N, C, H), F32_ODD_SHAPE):
+        v, qh, wv, ws, ds = f32_grid_inputs(dev, gen, Bq, Nq, Cq, Hq)
+        for normalize in (False, True):
+            va, al, r = attention.attention_fwd_f32(v, qh, wv, ws,
+                                                    normalize=normalize)
+            rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
+                                                           normalize)
+            got8 = dict(zip(("dqh", "dwv", "dws"), attention.attention_bwd_f32(
+                v, qh, wv, ws, ds, r, normalize)))
+            want8 = dict(zip(("dqh", "dwv", "dws"),
+                             attention.attention_bwd_reference(
+                                 v, qh, wv, ws, ds, r, normalize)))
+            torch.cuda.synchronize()
+            e2 = f32_errors({"v_att": va, "alpha": al},
+                            {"v_att": rv, "alpha": ra},
+                            {"v_att": TOL_F32_REL, "alpha": TOL_F32_REL})
+            r_err = rel_err(r, rr)
+            check(r_err <= TOL_R_REL, f"K2f r: relative error {r_err} > "
+                  f"{TOL_R_REL}")
+            e2["r"] = {"rel_err": r_err, "limit": TOL_R_REL,
+                       "max_abs_err": (r - rr).abs().max().item()}
+            a_dqh, a_dwv, unsure = k8_allowance(v, qh, wv, ws, ds, r,
+                                                normalize)
+            e8 = {}
+            for name, allow in (("dqh", a_dqh), ("dwv", a_dwv),
+                                ("dws", 0.0)):
+                a, b = got8[name], want8[name]
+                check(bool(torch.isfinite(a).all()), f"K8f {name} not finite")
+                excess = ((a - b).abs() - TOL_F32_REL * b.abs().max()
+                          - allow).max().item()
+                check(excess <= 0, f"K8f {name}: {excess} past its limit "
+                      f"({TOL_F32_REL} of its largest value plus the ReLU "
+                      f"flips' room) at B={Bq}, normalize={normalize}")
+                e8[name] = {"rel_err": rel_err(a, b), "limit": TOL_F32_REL,
+                            "max_abs_err": (a - b).abs().max().item()}
+            print(f"K2f/K8f B={Bq} N={Nq} C={Cq} H={Hq} normalize="
+                  f"{normalize}: v_att {e2['v_att']['rel_err']:.3e}, alpha "
+                  f"{e2['alpha']['rel_err']:.3e}, r {r_err:.3e}; dqh "
+                  f"{e8['dqh']['rel_err']:.3e}, dwv "
+                  f"{e8['dwv']['rel_err']:.3e}, dws "
+                  f"{e8['dws']['rel_err']:.3e} ({unsure} units within "
+                  f"rounding of z = 0)")
+            checks.append({"shape": [Bq, Nq, Cq, Hq], "normalize": normalize,
+                           "k2f": e2, "k8f": e8, "units_near_zero": unsure})
+            err2 = max(err2, *(x["max_abs_err"] for x in e2.values()))
+            err8 = max(err8, *(x["max_abs_err"] for x in e8.values()))
+        if Bq in (B_TRAIN, B) and (Cq, Hq) == (C, H):
+            keep[Bq] = (v, qh, wv, ws, ds)
+        if Bq == B_TRAIN:  # two calls of each, the model's normalize
+            a = attention.attention_fwd_f32(v, qh, wv, ws, normalize=True)
+            b = attention.attention_fwd_f32(v, qh, wv, ws, normalize=True)
+            c = attention.attention_bwd_f32(v, qh, wv, ws, ds, a[2], True)
+            d = attention.attention_bwd_f32(v, qh, wv, ws, ds, a[2], True)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(a + c, b + d)),
+                  "K2f or K8f: two calls differ")
+        del v
+    return {"checks": checks, "inputs": keep, "err2": err2, "err8": err8}
+
+
+def f32_bigru_checks(dev, gen) -> dict:
+    """K6f and K7f at the stage-1 shape (B_TRAIN, T, H, lengths 1..T)
+    against their plain float32 versions and bit-equal to two K1f / K3f
+    calls, K7f fed K6f's hseqs; two calls of each bit-equal."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
+    gxf, gxb = (torch.randn(T, B_TRAIN, 3 * H, generator=gen, device=dev)
+                * 0.5 for _ in "fb")
+    uhf, uhb = ((torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1)
+                * lim for _ in "fb")
+    bhnf, bhnb = (torch.randn(H, generator=gen, device=dev) * 0.1
+                  for _ in "fb")
+    lens = torch.randint(1, T + 1, (B_TRAIN,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    ghTf, ghTb = (torch.randn(B_TRAIN, H, generator=gen, device=dev)
+                  for _ in "fb")
+    args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    got6 = gru.bigru_fwd_f32(*args)
+    want6 = gru.bigru_reference(*args)
+    hTf1, hsf1 = gru.gru_fwd_f32(gxf, lens, uhf, bhnf)
+    hTb1, hsb1 = gru.gru_fwd_f32(gxb, lens, uhb, bhnb, reverse=True)
+    one6 = (hTf1, hTb1, hsf1, hsb1)
+    hsf, hsb = got6[2], got6[3]
+    bwd_args = (gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
+    got7 = gru.bigru_bwd_f32(*bwd_args)
+    want7 = gru.bigru_bwd_reference(*bwd_args)
+    f3 = gru.gru_bwd_f32(gxf, hsf, lens, uhf, bhnf, ghTf)
+    b3 = gru.gru_bwd_f32(gxb, hsb, lens, uhb, bhnb, ghTb, reverse=True)
+    one7 = (f3[0], b3[0], f3[1], b3[1], f3[2], b3[2])
+    again6 = gru.bigru_fwd_f32(*args)
+    again7 = gru.bigru_bwd_f32(*bwd_args)
+    torch.cuda.synchronize()
+    n6, n7 = ("hTf", "hTb", "hseqf", "hseqb"), ("dgxf", "dgxb", "duhf",
+                                                 "duhb", "dbhnf", "dbhnb")
+    e6 = f32_errors(dict(zip(n6, got6)), dict(zip(n6, want6)),
+                    {k: TOL_F32_REL for k in n6})
+    e7 = f32_errors(dict(zip(n7, got7)), dict(zip(n7, want7)),
+                    {k: TOL_F32_REL for k in n7})
+    diff6 = max((a - b).abs().max().item() for a, b in zip(got6, one6))
+    diff7 = max((a - b).abs().max().item() for a, b in zip(got7, one7))
+    check(diff6 == 0.0, f"K6f differs from two K1f calls by {diff6}")
+    check(diff7 == 0.0, f"K7f differs from two K3f calls by {diff7}")
+    check(all(torch.equal(a, b) for a, b in zip(got6 + got7,
+                                                again6 + again7)),
+          "K6f or K7f: two calls differ")
+    print("K6f: " + ", ".join(f"{k} {v['rel_err']:.3e}" for k, v in
+                              e6.items())
+          + f"; K7f: " + ", ".join(f"{k} {v['rel_err']:.3e}" for k, v in
+                                   e7.items())
+          + f" (limit {TOL_F32_REL}); bit-equal to two K1f / K3f calls")
+    return {"args": args, "bwd_args": bwd_args, "k6f": e6, "k7f": e7,
+            "diff_vs_two_k1f": diff6, "diff_vs_two_k3f": diff7,
+            "err6": max(v["max_abs_err"] for v in e6.values()),
+            "err7": max(v["max_abs_err"] for v in e7.values())}
+
+
+def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
+    """K2f at the training and the serving batch (normalize on: the model's
+    op), K8f at the training batch, K6f and K7f at the stage-1 shape: each
+    kernel's time, its plain version's, the library yardstick's and the
+    bound from this run's inputs at the FP32 FFMA peak; K6f and K7f in
+    turns with two K1f / K3f calls."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention, gru
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    times = {}
+    for Bq in (B_TRAIN, B):
+        v, qh, wv, ws, _ = k28["inputs"][Bq]
+        cells = Bq * N
+        t = {"kernel": time_cuda(lambda: attention.attention_fwd_f32(
+                 v, qh, wv, ws, normalize=True), buf),
+             "plain": time_cuda(lambda: attention.attention_fwd_reference(
+                 v, qh, wv, ws, True), buf),
+             "library": time_cuda(lambda: torch.matmul(
+                 v.reshape(cells, C), wv), buf),
+             "library_call": f"torch.matmul([{cells}, {C}] f32, [{C}, {H}] "
+                             "f32) (TF32 off): the score product alone",
+             # v, W_v, qh and w_s read once; v_att, alpha and r written
+             # once; the norms, the score product, h . w_s and the weighted
+             # sum.
+             "bound": bound_f32(cells * C * 4 + C * H * 4 + Bq * H * 4
+                                + H * 4 + Bq * C * 4 + 2 * cells * 4,
+                                2 * cells * C * (H + 2) + 2 * cells * H)}
+        if Bq == B_TRAIN:
+            t["score_ms"] = kernel_device_ms(
+                lambda: attention.attention_fwd_f32(v, qh, wv, ws,
+                                                    normalize=True),
+                "attn_f32_score_kernel", buf)
+            t["score_tflops"] = 2 * cells * C * H / t["score_ms"] / 1e9
+        times["attention_fwd_f32" if Bq == B_TRAIN
+              else "attention_fwd_f32_serving"] = t
+    v, qh, wv, ws, ds = k28["inputs"][B_TRAIN]
+    cells = B_TRAIN * N
+    r = attention.attention_fwd_f32(v, qh, wv, ws, normalize=True)[2]
+    vt = v.reshape(cells, C).t()
+    dzr = torch.randn(cells, H, device=dev)
+    times["attention_bwd_f32"] = {
+        "kernel": time_cuda(lambda: attention.attention_bwd_f32(
+            v, qh, wv, ws, ds, r, True), buf),
+        "plain": time_cuda(lambda: attention.attention_bwd_reference(
+            v, qh, wv, ws, ds, r, True), buf),
+        "library": time_cuda(lambda: torch.matmul(vt, dzr), buf),
+        "library_call": f"torch.matmul([{C}, {cells}] f32, [{cells}, {H}] "
+                        "f32) (TF32 off): the dW_v product alone",
+        "library_dz_ms": time_cuda(lambda: torch.matmul(
+            v.reshape(cells, C), wv), buf),
+        "dz_ms": kernel_device_ms(lambda: attention.attention_bwd_f32(
+            v, qh, wv, ws, ds, r, True), "attn_f32_bwd_dz_kernel", buf),
+        "dwv_ms": kernel_device_ms(lambda: attention.attention_bwd_f32(
+            v, qh, wv, ws, ds, r, True), "fp32_tile::product_kernel", buf),
+        # v, W_v, qh, w_s, ds and r read once; dqh, dW_v and dws written
+        # once; the recomputed z and dW_v products, dz and dws.
+        "bound": bound_f32(cells * C * 4 + C * H * 4 + B_TRAIN * H * 4
+                           + H * 4 + 2 * cells * 4 + B_TRAIN * H * 4
+                           + C * H * 4 + H * 4,
+                           2 * 2 * cells * C * H + 4 * cells * H)}
+    t8 = times["attention_bwd_f32"]
+    t8["dz_tflops"] = 2 * cells * C * H / t8["dz_ms"] / 1e9
+    t8["dwv_tflops"] = 2 * cells * C * H / t8["dwv_ms"] / 1e9
+    del vt, dzr
+
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = k67["args"]
+    bwd_args = k67["bwd_args"]
+    Bt, nl, nc = B_TRAIN, int(lens.sum().item()), carried_steps(lens)
+    lib = torch.nn.GRU(D, H, bidirectional=True).to(dev)
+    lib.flatten_parameters()
+    x = torch.randn(T, Bt, D, device=dev, requires_grad=True)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(),
+                                                     enforce_sorted=False)
+    with torch.inference_mode():
+        lib_fwd = time_cuda(lambda: lib(packed), buf)
+    _, h_n = lib(packed)
+    wrt, g_n = [x, *lib.parameters()], torch.randn_like(h_n)
+    lib_bwd = time_cuda(
+        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+
+    def two_k1f():
+        gru.gru_fwd_f32(gxf, lens, uhf, bhnf)
+        gru.gru_fwd_f32(gxb, lens, uhb, bhnb, reverse=True)
+
+    def two_k3f():
+        gru.gru_bwd_f32(gxf, bwd_args[2], lens, uhf, bhnf, bwd_args[9])
+        gru.gru_bwd_f32(gxb, bwd_args[3], lens, uhb, bhnb, bwd_args[10],
+                        reverse=True)
+
+    def k6f():
+        gru.bigru_fwd_f32(*k67["args"])
+
+    def k7f():
+        gru.bigru_bwd_f32(*bwd_args)
+
+    # In turns, in one call: the kernel, the pair, the pair, the kernel.
+    turns6 = [time_cuda(fn, buf) for fn in (k6f, two_k1f, two_k1f, k6f)]
+    turns7 = [time_cuda(fn, buf) for fn in (k7f, two_k3f, two_k3f, k7f)]
+    times["bigru_fwd_f32"] = {
+        "kernel": min(turns6[0], turns6[3]),
+        "turns_ms": turns6, "two_k1f": min(turns6[1], turns6[2]),
+        "plain": time_cuda(lambda: gru.bigru_reference(*k67["args"]), buf),
+        "library": lib_fwd,
+        "library_call": f"torch.nn.GRU({D}, {H}, bidirectional=True) in "
+                        "float32 (TF32 off) over a packed sequence, input "
+                        "projection included",
+        # Twice K1f's bound (phase 25): each chain's live row-steps read
+        # gx once, U_h and bhn once, write hseq and hT once, one [H] x
+        # [H, 3H] product a carried row-step.
+        "bound": bound_f32(2 * (nl * 3 * H * 4 + 3 * H * H * 4 + H * 4
+                                + T * Bt * H * 4 + Bt * H * 4) + Bt * 4,
+                           2 * 2 * nc * H * 3 * H)}
+    times["bigru_bwd_f32"] = {
+        "kernel": min(turns7[0], turns7[3]),
+        "turns_ms": turns7, "two_k3f": min(turns7[1], turns7[2]),
+        "plain": time_cuda(lambda: gru.bigru_bwd_reference(*bwd_args), buf),
+        "library": lib_bwd,
+        "library_call": f"backward of torch.nn.GRU({D}, {H}, "
+                        "bidirectional=True) in float32 (TF32 off) over a "
+                        "packed sequence, input-projection gradients "
+                        "included",
+        # Twice K3f's bound: three products a carried row-step a chain.
+        "bound": bound_f32(2 * (nl * 4 * H * 4 + 3 * H * H * 4 + H * 4
+                                + Bt * H * 4 + T * Bt * 3 * H * 4
+                                + 3 * H * H * 4 + H * 4) + Bt * 4,
+                           2 * 3 * 2 * nc * H * 3 * H)}
+    for name, t in times.items():
+        print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, library {t['library']:.4f} ms "
+              f"({t['library_call']}), bound {t['bound'][0]:.4f} ms "
+              f"({t['bound'][1]})")
+    t2 = times["attention_fwd_f32"]
+    print(f"K2f score launch {t2['score_ms']:.4f} ms "
+          f"({t2['score_tflops']:.1f} TFLOP/s); K8f dz launch "
+          f"{t8['dz_ms']:.4f} ms ({t8['dz_tflops']:.1f} TFLOP/s), dW_v "
+          f"launch {t8['dwv_ms']:.4f} ms ({t8['dwv_tflops']:.1f} TFLOP/s); "
+          f"K6f {times['bigru_fwd_f32']['kernel']:.4f} ms vs two K1f "
+          f"{times['bigru_fwd_f32']['two_k1f']:.4f}; K7f "
+          f"{times['bigru_bwd_f32']['kernel']:.4f} ms vs two K3f "
+          f"{times['bigru_bwd_f32']['two_k3f']:.4f}")
+    return times
+
+
+def f32_predictor(run_dir: str, plain_dir: str, dev) -> dict:
+    """The float32 Predictor on ``run_dir`` (use_pallas on: K1f, K2f) at
+    F32_PREDICT_BATCHES with host features: launch counts, answers and
+    logits against the Predictor on ``plain_dir`` (the same parameters,
+    model.use_pallas false: the plain path on the card), p50."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.serving import Predictor
+
+    rng = np.random.default_rng(27)
+    out = {}
+    for bq in F32_PREDICT_BATCHES:
+        pred = Predictor(run_dir, batch_size=bq)  # default device: CUDA
+        plain = Predictor(plain_dir, batch_size=bq)
+        check(pred.model.dtype == torch.float32 and pred.model.use_pallas
+              and not plain.model.use_pallas, "float32 Predictors' flags")
+        vocab = len(pred.word_vocab) - 4
+        questions = [" ".join(f"w{w}" for w in rng.integers(0, vocab, n))
+                     for n in rng.integers(1, T + 1, bq)]
+        feats = np.maximum(rng.standard_normal((bq, N, C), np.float32), 0)
+        reset_counts()
+        answers = pred.answer(feats, questions)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_launches(launches, {"gru_fwd_f32": T, "attention_fwd_f32": 3},
+                       f"float32 Predictor at batch {bq}")
+        reset_counts()
+        plain_answers = plain.answer(feats, questions)
+        torch.cuda.synchronize()
+        check_launches(read_counts(), {},
+                       f"float32 Predictor at batch {bq}, use_pallas off")
+        v = torch.from_numpy(feats).to(dev)
+        q = torch.from_numpy(pred._encode_questions(questions)).to(dev)
+        with torch.inference_mode():
+            lk = pred.model(v, q)["logits"]
+            lr = plain.model(v, q)["logits"]
+        check(tuple(lk.shape) == (bq, pred.cfg.data.num_answers)
+              and bool(torch.isfinite(lk).all()), "float32 logits")
+        err = (lk - lr).abs().max().item()
+        top2 = lr.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > TOL_F32_LOGITS
+        agree = all(a == b or not d for a, b, d in zip(
+            answers, plain_answers, decided.tolist()))
+        print(f"float32 Predictor at batch {bq}: logits vs the plain path "
+              f"max abs err {err:.3e} (tol {TOL_F32_LOGITS}), answers agree "
+              f"on {int(decided.sum())} decided rows: {agree}")
+        check(err <= TOL_F32_LOGITS, f"float32 logits err {err}")
+        check(agree, "float32 Predictor answers differ from the plain path")
+        ts = []
+        for i in range(RUNS + 3):
+            t0 = time.perf_counter()
+            pred.answer(feats, questions)  # ends in a device->host copy
+            if i >= 3:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        out[str(bq)] = {"launches": launches, "logits_max_abs_err": err,
+                        "decided_rows": int(decided.sum()),
+                        "p50_ms": statistics.median(ts)}
+        print(f"float32 Predictor p50 at batch {bq}: "
+              f"{out[str(bq)]['p50_ms']:.3f} ms")
+        del pred, plain
+    return out
+
+
+def phase_float32_gathered(report: dict, dev, gen) -> dict:
+    """Phase 27, float32 on the gathered attention and the bidirectional
+    GRU: K2f, K8f, K6f and K7f against their plain versions and timed;
+    fit_resident in float32 on the gathered store (K1f, K2f, K3f, K8f) and
+    its gathered evaluator; the float32 Predictor (K1f, K2f); stage-1
+    vlmap_description in float32 (K6f, K7f)."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
+    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+
+    out = {"k28": f32_gathered_checks(dev, gen),
+           "k67": f32_bigru_checks(dev, gen)}
+    out["times"] = f32_gathered_times(out["k28"], out["k67"], dev)
+    steps = F32_STEPS
+    f32 = {"model.dtype": "float32"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32g_") as tmp:
+        run_dir, plain_dir = (os.path.join(tmp, d) for d in ("run", "plain"))
+        os.makedirs(plain_dir)
+        cfg = stage2_config(run_dir, steps, **f32,
+                            **{"train.resident_fused_attention": False})
+        ds = load_dataset(cfg, "train")
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=run_dir)
+        check(not spec.module.store_prenormalized, "gathered store changed")
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        check(tuple(batch["features"].shape) == (B_TRAIN, N, C),
+              "gathered batch shape")
+        out["first_step"] = check_first_step(
+            spec, state, batch, dev, "float32 stage 2 (gathered)",
+            loss_tol=TOL_F32_LOSS, grad_cos=F32_GRAD_COS)
+        del data, make_batch, batch
+
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # A step: K1f T, K3f 2T + 1, K2f 3 (the op normalizes the grid), K8f
+        # 3; no bf16 kernel.
+        check_launches(launches, {
+            "gru_fwd_f32": T * steps, "gru_bwd_f32": (2 * T + 1) * steps,
+            "attention_fwd_f32": 3 * steps, "attention_bwd_f32": 3 * steps},
+            f"float32 gathered stage-2 training over {steps} steps")
+        out.update(launches=launches, **read_steps(
+            run_dir, steps, "float32 gathered stage-2 training", "questions",
+            warmup=F32_WARMUP))
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics, preds = trainer.evaluate_resident(state, val)
+        torch.cuda.synchronize()
+        out["eval_s"] = time.perf_counter() - t0
+        batches = -(-VAL_QUESTIONS // B_TRAIN)
+        out["eval_launches"] = read_counts()
+        check_launches(out["eval_launches"], {
+            "gru_fwd_f32": T * batches, "attention_fwd_f32": 3 * batches},
+            "float32 gathered evaluation")
+        check(np.isfinite(metrics["loss"]) and len(preds) == VAL_QUESTIONS,
+              f"float32 gathered evaluation: {metrics}, {len(preds)} "
+              "predictions")
+        print(f"float32 gathered evaluation of {VAL_QUESTIONS} questions in "
+              f"{out['eval_s']:.3f} s: {metrics}")
+        out["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
+
+        # --- the float32 Predictor on this run's parameters --------------
+        for d, over in ((run_dir, {}), (plain_dir,
+                                        {"model.use_pallas": False})):
+            with open(os.path.join(d, "config.json"), "w") as fh:
+                fh.write(cfg.replace_flat(over).to_json())
+            save_params(os.path.join(d, PARAMS_FILE),
+                        spec.module.state_dict())
+        trainer.close()
+        out["predictor"] = f32_predictor(run_dir, plain_dir, dev)
+
+    # --- stage 1, bidirectional, in float32 --------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32s1_") as tmp:
+        cfg = stage1_config(tmp, steps).replace_flat(f32)
+        ds = load_dataset(cfg, "train", stage="vlmap_desc")
+        Td = ds.arrays["desc_ids"].shape[1]
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=tmp)
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        s1 = {"first_step": check_first_step(
+            spec, state, batch, dev, "float32 stage 1",
+            loss_tol=TOL_F32_LOSS, grad_cos=F32_GRAD_COS)}
+        del data, make_batch, batch
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        s1["launches"] = read_counts()
+        # K6f: a launch a timestep for both chains; K7f 2T + 1.
+        check_launches(s1["launches"], {"bigru_fwd_f32": Td * steps,
+                                        "bigru_bwd_f32": (2 * Td + 1) * steps},
+                       f"float32 stage-1 training over {steps} steps")
+        s1.update(read_steps(tmp, steps, "float32 stage-1 training",
+                             "regions", warmup=F32_WARMUP))
+        trainer.close()
+        out["stage1"] = s1
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5464,6 +5964,11 @@ def main(argv=None) -> int:
             "checks": {"k1f_k3f": f32["k13"]["checks"],
                        "k4f_k5f": f32["k45"]["checks"]}}
         report["fidelity"] = fid = phase_fidelity(report, dev)
+        f32g = phase_float32_gathered(report, dev, gen)
+        report["float32_gathered"] = {  # the kernels' inputs stay out
+            **{k: v for k, v in f32g.items() if k not in ("k28", "k67")},
+            "checks": {"k2f_k8f": f32g["k28"]["checks"],
+                       "k6f": f32g["k67"]["k6f"], "k7f": f32g["k67"]["k7f"]}}
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -5644,6 +6149,13 @@ def main(argv=None) -> int:
                  fidelity_train=fid["train_launches"],
                  fidelity_eval=fid["eval_launches"],
                  fidelity_predict=fid["predict_launches"])
+    # Phase 27: float32 on the gathered store, its evaluator, the float32
+    # Predictor at each batch and float32 stage 1.
+    paths.update(float32_gathered_training=f32g["launches"],
+                 float32_gathered_eval=f32g["eval_launches"],
+                 float32_stage1=f32g["stage1"]["launches"],
+                 **{f"float32_predict_b{b}": p["launches"]
+                    for b, p in f32g["predictor"].items()})
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",
@@ -5737,6 +6249,55 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": replaces,
             "launches": paths["float32_training"][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": err, **extra, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library"],
+            "library_call": t["library_call"]})
+    # The float32 kernels of phase 27: K2f and K8f with the launches of the
+    # float32 gathered training, K6f and K7f of float32 stage 1; their
+    # checks at every shape, their times at the main path's shapes (K2f at
+    # the training batch, and at the serving batch under at_serving_batch).
+    k28, k67, f32gt = f32g["k28"], f32g["k67"], f32g["times"]
+    k2s = f32gt["attention_fwd_f32_serving"]
+    for name, replaces, err, path, extra in (
+            ("attention_fwd_f32", ref + "attention.py:125", k28["err2"],
+             "float32_gathered_training", {
+                 "tol_rel": TOL_F32_REL, "tol_r_rel": TOL_R_REL,
+                 "checks": [{k: c[k] for k in ("shape", "normalize", "k2f")}
+                            for c in k28["checks"]],
+                 "score_ms": f32gt["attention_fwd_f32"]["score_ms"],
+                 "score_tflops": f32gt["attention_fwd_f32"]["score_tflops"],
+                 "at_serving_batch": {
+                     "batch": B, "ms": k2s["kernel"],
+                     "plain_ms": k2s["plain"], "bound_ms": k2s["bound"][0],
+                     "bound_by": k2s["bound"][1],
+                     "library_ms": k2s["library"]}}),
+            ("attention_bwd_f32", ref + "attention.py:267", k28["err8"],
+             "float32_gathered_training", {
+                 "tol_rel": TOL_F32_REL, "relu_flip_allowance": True,
+                 "checks": [{k: c[k] for k in ("shape", "normalize", "k8f",
+                                               "units_near_zero")}
+                            for c in k28["checks"]],
+                 **{k: f32gt["attention_bwd_f32"][k] for k in (
+                     "dz_ms", "dz_tflops", "dwv_ms", "dwv_tflops",
+                     "library_dz_ms")}}),
+            ("bigru_fwd_f32", ref + "gru.py:474", k67["err6"],
+             "float32_stage1", {
+                 "tol_rel": TOL_F32_REL, "checks": k67["k6f"],
+                 "diff_vs_two_k1f_calls": k67["diff_vs_two_k1f"],
+                 "two_k1f_ms": f32gt["bigru_fwd_f32"]["two_k1f"],
+                 "turns_ms": f32gt["bigru_fwd_f32"]["turns_ms"]}),
+            ("bigru_bwd_f32", ref + "gru.py:561", k67["err7"],
+             "float32_stage1", {
+                 "tol_rel": TOL_F32_REL, "checks": k67["k7f"],
+                 "diff_vs_two_k3f_calls": k67["diff_vs_two_k3f"],
+                 "two_k3f_ms": f32gt["bigru_bwd_f32"]["two_k3f"],
+                 "turns_ms": f32gt["bigru_bwd_f32"]["turns_ms"]})):
+        t = f32gt[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
+            "replaces": replaces, "launches": paths[path][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err, **extra, "ms": t["kernel"],
             "plain_ms": t["plain"], "bound_ms": t["bound"][0],

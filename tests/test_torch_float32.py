@@ -58,7 +58,7 @@ torch.set_num_threads(2)  # xdist runs several workers on the same cores
 
 M, N, C, H, B = 6, 13, 24, 16, 8  # Np = 16 > n_valid = 13
 TOL = dict(rtol=1e-5, atol=1e-5)
-ITEM = "ROADMAP.md, section 2, item 1"
+ITEM = "ROADMAP.md, section 2, item 3"
 
 
 def _close(got, want, what=""):
@@ -375,15 +375,17 @@ def test_float32_wrappers_refuse_cpu_tensors():
             n_valid=13, normalize=False)
 
 
-def test_expect_bf16_names_the_roadmap_item():
-    x = torch.zeros(2, 3)
-    with pytest.raises(TypeError, match=ITEM):
-        kernels.expect_bf16("v", x, (2, 3), x.device)
-    with pytest.raises(TypeError, match=ITEM):
-        kernels.expect_bf16("v", x.half(), (2, 3), x.device)
-    kernels.expect_bf16("v", x.to(torch.bfloat16), (2, 3), x.device)
-    with pytest.raises(ValueError, match="shape"):
-        kernels.expect_bf16("v", x.to(torch.bfloat16), (3, 2), x.device)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16, torch.float64])
+def test_kernel_dtype_names_the_float16_item(dtype):
+    """The dtype that picks a kernel: bf16 or float32 pass through, any
+    other raises TypeError naming ROADMAP.md's float16 item."""
+    x = torch.zeros(2, 3, dtype=dtype)
+    if dtype in (torch.bfloat16, torch.float32):
+        assert kernels.kernel_dtype("k", "v", x) == dtype
+    else:
+        with pytest.raises(TypeError, match=ITEM):
+            kernels.kernel_dtype("k", "v", x)
 
 
 @pytest.mark.parametrize("K", [1, 8, 511, 513, 4096, 50176, 200000])
@@ -394,8 +396,8 @@ def test_f32_dwv_splits_cover_every_cell_once(K, C_, H_, sms):
     cells): at least one split, no more blocks than two a SM, at least 512
     cells a split but the last, every cell in exactly one split and no
     split empty."""
-    S = tar.f32_dwv_splits(K, C_, H_, sms)
-    tiles = -(-C_ // tar.F32_TILE) * -(-H_ // tar.F32_TILE)
+    S = kernels.f32_dwv_splits(K, C_, H_, sms)
+    tiles = -(-C_ // kernels.F32_TILE) * -(-H_ // kernels.F32_TILE)
     assert S >= 1
     assert S == 1 or S * tiles <= 2 * sms
     per = -(-K // S)

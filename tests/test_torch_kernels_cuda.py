@@ -53,8 +53,12 @@ The float32 kernels K1f, K3f, K4f and K5f (FFMA, f32 sums, no rounding to
 a narrower type anywhere) differ from their plain versions only by the
 order of f32 sums: each output is held to ``TOL_F32`` (1e-5) of its largest
 value, and K5f's dqh and dW_v, whose dz sums G glimpse terms, to G times
-that; see chip_smoke.py for the reasoning. K2, K6, K7 and K8 have no
-float32 variant yet and refuse float32, naming ROADMAP.md's item.
+that; see chip_smoke.py for the reasoning. K2f and K8f (the gathered
+attention on a float32 grid) are held the same way, K2f's r to 1e-6 and
+K8f's dqh and dW_v also to K8's per-entry allowance for ReLU flips, and
+K6f (K7f), which run K1f's (K3f's) step with both chains in each launch,
+equal two K1f (K3f) calls bit for bit. Every kernel refuses a dtype other
+than bf16 and float32, naming ROADMAP.md's float16 item.
 """
 
 import pytest
@@ -1779,28 +1783,247 @@ def test_attention_resident_f32_kernels_are_deterministic(dev):
         assert torch.equal(x, y)
 
 
-def test_kernels_without_float32_variant_name_the_roadmap_item(dev):
-    """K2, K6, K7 and K8 take bf16 only: float32 raises TypeError naming
-    ROADMAP.md, section 2, item 1; float16 to K1 or K4 raises too."""
-    item = "ROADMAP.md, section 2, item 1"
+def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
+    """Every kernel takes bf16 or float32: float16 and float64 raise
+    TypeError naming ROADMAP.md's float16 item (kernels.F16_PENDING), on
+    the card as on the CPU; a chain pair whose U_h dtypes differ raises
+    too."""
+    item = kernels.F16_PENDING
     v, qh, wv, ws = _k2_inputs(dev, 2, 9, 128, 128)
-    with pytest.raises(TypeError, match=item):
-        attention.attention_fwd(v.float(), qh, wv, ws, normalize=True)
-    with pytest.raises(TypeError, match=item):
-        attention.attention_bwd(v, qh, wv.float(), ws, torch.zeros(2, 9,
-                                device=dev), torch.ones(2, 9, device=dev),
-                                True)
+    ds, r = torch.zeros(2, 9, device=dev), torch.ones(2, 9, device=dev)
     gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 64)
-    with pytest.raises(TypeError, match=item):
-        gru.bigru_fwd(gx, gx, lens, uh.float(), uh.float(), bhn, bhn)
     _, hseq = gru.gru_reference(gx, lens, uh, bhn)
     ghT = torch.zeros(4, 64, device=dev)
-    with pytest.raises(TypeError, match=item):
-        gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.float(), uh.float(), bhn,
-                      bhn, ghT, ghT)
-    with pytest.raises(TypeError, match="uh"):
-        gru.gru_bwd(gx, hseq, lens, uh.half(), bhn, ghT)
-    store, rows, qh, wv, ws = _resident_inputs(dev, 3, 9, 64, 128, 2)
-    with pytest.raises(TypeError, match="store must be"):
-        ar.attention_resident_fwd(store.to(torch.float64), rows, qh,
-                                  wv.float(), ws, n_valid=9, normalize=False)
+    store, rows, qh4, wv4, ws4 = _resident_inputs(dev, 3, 9, 128, 128, 2)
+    h = torch.zeros(2, store.shape[1], 128, device=dev)
+    al = torch.zeros(2, store.shape[1], device=dev)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match=item):
+            attention.attention_fwd(v.to(dt), qh, wv.to(dt), ws,
+                                    normalize=True)
+        with pytest.raises(TypeError, match=item):
+            attention.attention_bwd(v.to(dt), qh, wv.to(dt), ws, ds, r, True)
+        with pytest.raises(TypeError, match=item):
+            gru.gru_fwd(gx, lens, uh.to(dt), bhn)
+        with pytest.raises(TypeError, match=item):
+            gru.gru_bwd(gx, hseq, lens, uh.to(dt), bhn, ghT)
+        with pytest.raises(TypeError, match=item):
+            gru.bigru_fwd(gx, gx, lens, uh.to(dt), uh.to(dt), bhn, bhn)
+        with pytest.raises(TypeError, match=item):
+            gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.to(dt), uh.to(dt),
+                          bhn, bhn, ghT, ghT)
+        with pytest.raises(TypeError, match=item):
+            ar.attention_resident_fwd(store, rows, qh4, wv4.to(dt), ws4,
+                                      n_valid=9, normalize=False)
+        with pytest.raises(TypeError, match=item):
+            ar.attention_resident_bwd(store, rows, h.to(dt), ws4, al,
+                                      torch.zeros(2, 128, device=dev), al,
+                                      n_valid=9, normalize=False)
+    with pytest.raises(TypeError, match="uhb"):
+        gru.bigru_fwd(gx, gx, lens, uh.float(), uh, bhn, bhn)
+    with pytest.raises(TypeError, match="uhb"):
+        gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.float(), uh, bhn, bhn,
+                      ghT, ghT)
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernels K2f, K8f (gathered attention) and K6f, K7f (BiGRU)
+# ---------------------------------------------------------------------------
+
+
+def _f32_grid_inputs(dev, B, N, C, H, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.exp2(torch.rand(B, N, 1, generator=g, device=dev) * 4 - 2)
+    v = torch.randn(B, N, C, generator=g, device=dev).relu() * scale
+    qh = torch.randn(B, H, generator=g, device=dev) * 0.5
+    wv = (torch.rand(C, H, generator=g, device=dev) * 2 - 1) * (
+        6.0 / (C + H)) ** 0.5
+    ws = torch.randn(H, generator=g, device=dev) * 0.1
+    ds = torch.randn(B, N, generator=g, device=dev) * 0.01
+    return v, qh, wv, ws, ds
+
+
+# One cell, one question, a 128-cell tile boundary inside a question, C
+# and H off every tile (C=2000, H=500), the serving and training shapes.
+F32_GRID_SHAPES = [(1, 1, 16, 8), (3, 13, 96, 200), (2, 129, 96, 130),
+                   (4, 196, 2000, 500), (64, 196, 2048, 512),
+                   (256, 196, 2048, 512)]
+
+
+@pytest.mark.parametrize("shape", F32_GRID_SHAPES)
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_f32_kernels_match_plain(dev, shape, normalize):
+    """K2f and K8f against their plain versions on a float32 grid, through
+    the dispatch of attention_fwd / attention_bwd; K8f fed the same ds and
+    K2f's r. Each output within TOL_F32 of its largest value, r within
+    1e-6; K8f's dqh and dW_v also, entry by entry, what units whose
+    recomputed z lies within rounding of 0 can move them (each version
+    sums z's f32 products in its own order, so such a unit may take the
+    other side of the ReLU in one: _k8_allowance, as for K8); no bf16
+    kernel launches."""
+    B, N, C, H = shape
+    v, qh, wv, ws, ds = _f32_grid_inputs(dev, B, N, C, H)
+    f0, b0 = attention.attention_fwd_f32.launches, \
+        attention.attention_bwd_f32.launches
+    k28 = (attention.attention_fwd.launches, attention.attention_bwd.launches)
+    va, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+    rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws, normalize)
+    got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
+    want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, normalize)
+    torch.cuda.synchronize()
+    assert attention.attention_fwd_f32.launches == f0 + 2 + normalize
+    assert attention.attention_bwd_f32.launches == b0 + 3
+    assert (attention.attention_fwd.launches,
+            attention.attention_bwd.launches) == k28
+    assert _rel(r, rr) <= 1e-6
+    assert _rel(va, rv) <= TOL_F32 and _rel(al, ra) <= TOL_F32
+    a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, normalize)
+    for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                 (a_dqh, a_dwv, 0.0)):
+        assert torch.isfinite(a).all(), name
+        limit = TOL_F32 * b.abs().max().item() + allow
+        assert ((a - b).abs() <= limit).all(), (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_f32_kernels_are_deterministic(dev, normalize):
+    v, qh, wv, ws, ds = _f32_grid_inputs(dev, 256, 196, 2048, 512)
+    a = attention.attention_fwd_f32(v, qh, wv, ws, normalize=normalize)
+    b = attention.attention_fwd_f32(v, qh, wv, ws, normalize=normalize)
+    c = attention.attention_bwd_f32(v, qh, wv, ws, ds, a[2], normalize)
+    d = attention.attention_bwd_f32(v, qh, wv, ws, ds, a[2], normalize)
+    torch.cuda.synchronize()
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def test_gathered_op_float32_grads_go_through_k2f_k8f(dev):
+    """The autograd op on a float32 grid launches K2f forward and K8f
+    backward (no bf16 kernel), and its parameter gradients agree with the
+    explicit backward's (bwd_kernel=False) to cosine 0.99999 (chip_smoke's
+    F32_GRAD_COS): both are float32 with only the order of sums apart, and
+    a unit whose z lies within rounding of 0 may take the other side of
+    the ReLU in one of them."""
+    v, qh, wv, ws, _ = _f32_grid_inputs(dev, 16, 49, 256, 128, seed=11)
+    g = torch.Generator(device=dev).manual_seed(12)
+    wa = torch.randn(16, 256, generator=g, device=dev)
+    wb = torch.randn(16, 49, generator=g, device=dev)
+    grads = []
+    for bwd_kernel in (True, False):
+        ins = [p.clone().requires_grad_() for p in (qh, wv, ws)]
+        counts = [getattr(attention, n).launches for n in (
+            "attention_fwd_f32", "attention_bwd_f32", "attention_fwd",
+            "attention_bwd")]
+        va, al = attention.spatial_attention(v, *ins, normalize=True,
+                                             bwd_kernel=bwd_kernel,
+                                             feature_grad=False)
+        ((va * wa).sum() + (al * wb).sum()).backward()
+        torch.cuda.synchronize()
+        assert [getattr(attention, n).launches - c for n, c in zip(
+            ("attention_fwd_f32", "attention_bwd_f32", "attention_fwd",
+             "attention_bwd"), counts)] == [3, 3 if bwd_kernel else 0, 0, 0]
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+        assert cos >= 0.99999, cos
+
+
+def _two_k1f(gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
+    """K1f on each chain, in K6f's output order (hTf, hTb, hseqf, hseqb)."""
+    (hTf, hsf), (hTb, hsb) = (
+        gru.gru_fwd_f32(gxf, lens, uhf, bhnf),
+        gru.gru_fwd_f32(gxb, lens, uhb, bhnb, reverse=True))
+    return hTf, hTb, hsf, hsb
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 16), (7, 65, 100), (26, 256, 512)])
+def test_bigru_f32_kernels_match_plain_and_two_k1f_k3f(dev, shape):
+    """K6f and K7f through the dispatch of bigru_fwd / bigru_bwd on float32
+    U_h: bit-equal to a K1f (K3f) call on each chain's inputs, within
+    TOL_F32 of their plain versions, T and 2T + 1 launches a call, and no
+    bf16 kernel; lengths hold 0 and T."""
+    T, B, H = shape
+    gxf, lens, _, bhnf = _f32_gru_inputs(dev, T, B, H, seed=7)
+    gxb, _, _, bhnb = _f32_gru_inputs(dev, T, B, H, seed=8)
+    g = torch.Generator(device=dev).manual_seed(9)
+    uhf = torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
+    uhb = torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
+    args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    c0 = {n: getattr(gru, n).launches for n in (
+        "bigru_fwd_f32", "bigru_bwd_f32", "bigru_fwd", "bigru_bwd")}
+    got = gru.bigru_fwd(*args)
+    want = gru.bigru_reference(*args)
+    ones = _two_k1f(*args)
+    ghTf = torch.randn(B, H, generator=g, device=dev)
+    ghTb = torch.randn(B, H, generator=g, device=dev)
+    hsf, hsb = got[2], got[3]
+    got7 = gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb,
+                         ghTf, ghTb)
+    want7 = gru.bigru_bwd_reference(gxf, gxb, hsf, hsb, lens, uhf, uhb,
+                                    bhnf, bhnb, ghTf, ghTb)
+    one_f = gru.gru_bwd_f32(gxf, hsf, lens, uhf, bhnf, ghTf)
+    one_b = gru.gru_bwd_f32(gxb, hsb, lens, uhb, bhnb, ghTb, reverse=True)
+    torch.cuda.synchronize()
+    assert {n: getattr(gru, n).launches - c for n, c in c0.items()} == {
+        "bigru_fwd_f32": T, "bigru_bwd_f32": 2 * T + 1, "bigru_fwd": 0,
+        "bigru_bwd": 0}
+    for a, b, c in zip(got, want, ones):
+        assert _rel(a, b) <= TOL_F32
+        assert torch.equal(a, c)
+    ones7 = (one_f[0], one_b[0], one_f[1], one_b[1], one_f[2], one_b[2])
+    for name, a, b, c in zip(("dgxf", "dgxb", "duhf", "duhb", "dbhnf",
+                              "dbhnb"), got7, want7, ones7):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= TOL_F32, (name, _rel(a, b))
+        assert torch.equal(a, c), name
+
+
+def test_bigru_f32_kernels_are_deterministic(dev):
+    gxf, lens, uhf, bhnf = _f32_gru_inputs(dev, 26, 256, 512, seed=3)
+    gxb, _, uhb, bhnb = _f32_gru_inputs(dev, 26, 256, 512, seed=4)
+    args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    a = gru.bigru_fwd_f32(*args)
+    b = gru.bigru_fwd_f32(*args)
+    ghT = torch.randn(256, 512, device=dev)
+    c = gru.bigru_bwd_f32(gxf, gxb, a[2], a[3], lens, uhf, uhb, bhnf, bhnb,
+                          ghT, ghT)
+    d = gru.bigru_bwd_f32(gxf, gxb, a[2], a[3], lens, uhf, uhb, bhnf, bhnb,
+                          ghT, ghT)
+    torch.cuda.synchronize()
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def test_fused_bigru_encoder_float32_goes_through_k6f_k7f(dev):
+    """The float32 BiGRU encoder on the card launches K6f forward and K7f
+    backward and no other GRU kernel, and its output and gradients equal
+    the per-direction encoders' (K1f/K3f) on the same weights bit for
+    bit."""
+    g = torch.Generator().manual_seed(9)
+    enc = gru.BiGRUEncoder(32, 64, dtype=torch.float32, generator=g).to(dev)
+    x = torch.randn(6, 10, 32, generator=g).to(dev)
+    mask = (torch.arange(6)[None, :] <
+            torch.tensor([6, 1, 3, 0, 5, 2, 6, 4, 1, 3])[:, None]).float()
+    mask = mask.to(dev)
+
+    def two_encoders(x, mask):
+        return torch.cat([enc.fwd(x, mask), enc.bwd(x, mask)], dim=-1)
+
+    names = ("bigru_fwd_f32", "bigru_bwd_f32", "gru_fwd_f32", "gru_bwd_f32",
+             "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
+    res = []
+    for fn, want in ((enc, [6, 13, 0, 0, 0, 0, 0, 0]),
+                     (two_encoders, [0, 0, 12, 26, 0, 0, 0, 0])):
+        enc.zero_grad()
+        counts = [getattr(gru, n).launches for n in names]
+        out = fn(x, mask)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        assert [getattr(gru, n).launches - c
+                for n, c in zip(names, counts)] == want
+        res.append((out, {k: p.grad.clone()
+                          for k, p in enc.named_parameters()}))
+    assert torch.equal(res[0][0], res[1][0])
+    for k, a in res[0][1].items():
+        assert torch.equal(a, res[1][1][k]), k

@@ -1,5 +1,6 @@
-// fp32_tile.cuh: the float32 tile product of the float32 kernels (K1f, K3f,
-// K4f, K5f), on the FP32 pipes (FFMA), for Hopper (sm_90a).
+// fp32_tile.cuh: the float32 tile product of the float32 kernels (K1f, K2f,
+// K3f, K4f, K5f, K6f, K7f, K8f), on the FP32 pipes (FFMA), for Hopper
+// (sm_90a).
 //
 // The float32 path of the port exists to meet a float64 oracle to 1e-4
 // (the checkpoint-fidelity path), so its products take no TF32 or bf16
@@ -136,26 +137,20 @@ struct DenseT {
   }
 };
 
-// out[m, n] = (add[m, n] +) sum_k A(m, k) B(k, n) over M x N, on a grid of
-// (N / BN, M / BM, splits) blocks (edges rounded up): split z takes k in
-// [z * chunk, min(K, (z + 1) * chunk)) and writes its own M x N slice of
-// out (out + z * M * ldo), which a caller sums in a fixed order; with one
-// split, chunk = K. `add` (null for none) is added after the sum, rounded
-// apart.
+// The BM x BN tile of out at (blockIdx.y * BM, blockIdx.x * BN):
+// out[m, n] = (add[m, n] +) sum over k in [k0, k1) of A(m, k) B(k, n) over
+// M x N. `add` (null for none) is added after the sum, rounded apart.
 template <int BM, int BN, int BK, bool A_ALONG_K, bool B_ALONG_K,
           class ALoad, class BLoad>
-__global__ void __launch_bounds__(THREADS)
-    product_kernel(ALoad A, BLoad B, int M, int N, int K, int chunk,
-                   const float* __restrict__ add, float* __restrict__ out,
-                   long long ldo) {
-  __shared__ Smem<BM, BN, BK> s;
+__device__ __forceinline__ void product_tile(const ALoad& A, const BLoad& B,
+                                             int M, int N, int k0, int k1,
+                                             const float* add, float* out,
+                                             long long ldo,
+                                             Smem<BM, BN, BK>& s) {
   float acc[BM / 16][BN / 16] = {};
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k0 = blockIdx.z * chunk;
-  const int k1 = min(K, k0 + chunk);
   mainloop<BM, BN, BK, A_ALONG_K, B_ALONG_K>(A, B, M, N, m0, n0, k0, k1,
                                              acc, s);
-  out += (long long)blockIdx.z * M * ldo;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < BM / 16; ++i) {
@@ -169,6 +164,42 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
+}
+
+// out[m, n] = (add[m, n] +) sum_k A(m, k) B(k, n) over M x N, on a grid of
+// (N / BN, M / BM, splits) blocks (edges rounded up): split z takes k in
+// [z * chunk, min(K, (z + 1) * chunk)) and writes its own M x N slice of
+// out (out + z * M * ldo), which a caller sums in a fixed order; with one
+// split, chunk = K.
+template <int BM, int BN, int BK, bool A_ALONG_K, bool B_ALONG_K,
+          class ALoad, class BLoad>
+__global__ void __launch_bounds__(THREADS)
+    product_kernel(ALoad A, BLoad B, int M, int N, int K, int chunk,
+                   const float* __restrict__ add, float* __restrict__ out,
+                   long long ldo) {
+  __shared__ Smem<BM, BN, BK> s;
+  const int k0 = blockIdx.z * chunk;
+  product_tile<BM, BN, BK, A_ALONG_K, B_ALONG_K>(
+      A, B, M, N, k0, min(K, k0 + chunk), add,
+      out + (long long)blockIdx.z * M * ldo, ldo, s);
+}
+
+// Two independent products of one shape in one launch, as product_kernel's
+// with one split each: blocks of blockIdx.z 0 compute out0 = (add0 +)
+// A0 B0, those of blockIdx.z 1 out1 = (add1 +) A1 B1 (the two chains of a
+// bidirectional recurrence). Each tile's sums are product_kernel's, so each
+// product equals a product_kernel launch on its operands bit for bit.
+template <int BM, int BN, int BK, bool A_ALONG_K, bool B_ALONG_K,
+          class ALoad, class BLoad>
+__global__ void __launch_bounds__(THREADS)
+    pair_product_kernel(ALoad A0, BLoad B0, const float* add0, float* out0,
+                        ALoad A1, BLoad B1, const float* add1, float* out1,
+                        int M, int N, int K, long long ldo) {
+  __shared__ Smem<BM, BN, BK> s;
+  const bool second = blockIdx.z == 1;
+  product_tile<BM, BN, BK, A_ALONG_K, B_ALONG_K>(
+      second ? A1 : A0, second ? B1 : B0, M, N, 0, K, second ? add1 : add0,
+      second ? out1 : out0, ldo, s);
 }
 
 }  // namespace fp32_tile

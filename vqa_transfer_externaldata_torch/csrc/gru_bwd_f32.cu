@@ -28,37 +28,12 @@
 //     nothing): hseq and g read in place, shifted by one step, 64 x 64
 //     outputs a block, each sum over all rows in order;
 //  4. db_hn = the column sums of g's n-gate block over the T B rows, eight
-//     row strides a unit added in a fixed order.
+//     row strides a unit added in a fixed order (gru_step_f32.cuh).
 // 2T + 1 launches a call. No atomics: two calls give the same bits.
 
 #include <cuda_runtime.h>
 
 #include "gru_step_f32.cuh"
-
-namespace {
-
-constexpr int SUM_ROWS = 8;  // row strides a unit of the db_hn sum
-
-// dbhn[j] = sum over `rows` rows of gq[:, 2H + j].
-__global__ void __launch_bounds__(32 * SUM_ROWS)
-    gru_f32_dbhn_kernel(const float* __restrict__ gq, int rows, int H,
-                        float* __restrict__ dbhn) {
-  __shared__ float part[SUM_ROWS][32];
-  const int j = blockIdx.x * 32 + threadIdx.x;
-  float acc = 0.f;
-  if (j < H)
-    for (int r = threadIdx.y; r < rows; r += SUM_ROWS)
-      acc += gq[(long long)r * 3 * H + 2 * H + j];
-  part[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && j < H) {
-    float sum = 0.f;
-    for (int w = 0; w < SUM_ROWS; ++w) sum += part[w][threadIdx.x];
-    dbhn[j] = sum;
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -116,8 +91,9 @@ int gru_bwd_f32(const float* gx, const float* hseq, const int* lens,
           nullptr, duh, H3);
   ++*launched;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gru_f32_dbhn_kernel<<<(H + 31) / 32, dim3(32, SUM_ROWS), 0, stream>>>(
-      gq, T * B, H, dbhn);
+  gru_f32::gru_f32_dbhn_kernel<<<(H + 31) / 32, dim3(32, gru_f32::SUM_ROWS),
+                                 0, stream>>>(gq, dbhn, nullptr, nullptr,
+                                              T * B, H);
   ++*launched;
   return static_cast<int>(cudaGetLastError());
 }

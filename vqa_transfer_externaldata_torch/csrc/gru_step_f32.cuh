@@ -1,6 +1,9 @@
-// gru_step_f32.cuh: one timestep of the float32 GRU recurrence, the step
-// kernel of K1f (the forward, csrc/gru_fwd_f32.cu) and of K3f (the BPTT,
-// csrc/gru_bwd_f32.cu, which recomputes the gates), for Hopper (sm_90a).
+// gru_step_f32.cuh: one timestep of the float32 GRU recurrence, the step of
+// K1f (the forward, csrc/gru_fwd_f32.cu) and of K3f (the BPTT,
+// csrc/gru_bwd_f32.cu, which recomputes the gates), and of K6f and K7f,
+// which take both chains of a bidirectional GRU in each launch
+// (csrc/bigru_fwd_f32.cu, csrc/bigru_bwd_f32.cu); and the db_hn sum of K3f
+// and K7f. For Hopper (sm_90a).
 //
 // A block owns BM = 64 batch rows x UNITS = 16 hidden units and computes
 // the three gate columns of each of its units, gh = h_prev @ U_h, on
@@ -55,23 +58,22 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// One step t over all rows. gx [B, 3H] is step t's hoisted x@W_x + b,
-// hprev [B, H] the state before it (null at the chain's first step: zeros).
-// Forward (BWD false): hout [B, H] = the state after step t (hseq[t]), and
-// hT too when not null. Backward: dh [B, H] the carried cotangent of the
-// state after step t -> dgx [B, 3H], gq [B, 3H] and dpart [B, H].
+// One step t over all rows, the block's 64 rows x 16 units at (blockIdx.y,
+// blockIdx.x). gx [B, 3H] is step t's hoisted x@W_x + b, hprev [B, H] the
+// state before it (null at the chain's first step: zeros). Forward (BWD
+// false): hout [B, H] = the state after step t (hseq[t]), and hT too when
+// not null. Backward: dh [B, H] the carried cotangent of the state after
+// step t -> dgx [B, 3H], gq [B, 3H] and dpart [B, H]. K1f's and K3f's step
+// kernel and K6f's and K7f's (both chains, the direction on blockIdx.z)
+// call it, so every chain runs the same arithmetic.
 template <bool BWD>
-__global__ void __launch_bounds__(fp32_tile::THREADS)
-    gru_f32_step_kernel(const float* __restrict__ gx,
-                        const float* __restrict__ hprev,
-                        const int* __restrict__ lens, int t,
-                        const float* __restrict__ uh,
-                        const float* __restrict__ bhn, int B, int H,
-                        float* __restrict__ hout, float* __restrict__ hT,
-                        const float* __restrict__ dh,
-                        float* __restrict__ dgx, float* __restrict__ gq,
-                        float* __restrict__ dpart) {
-  __shared__ fp32_tile::Smem<BM, BN, BK> s;
+__device__ __forceinline__ void step(
+    const float* __restrict__ gx, const float* __restrict__ hprev,
+    const int* __restrict__ lens, int t, const float* __restrict__ uh,
+    const float* __restrict__ bhn, int B, int H, float* __restrict__ hout,
+    float* __restrict__ hT, const float* __restrict__ dh,
+    float* __restrict__ dgx, float* __restrict__ gq,
+    float* __restrict__ dpart, fp32_tile::Smem<BM, BN, BK>& s) {
   float acc[BM / 16][BN / 16] = {};
   const int m0 = blockIdx.y * BM, u0 = blockIdx.x * UNITS;
   if (hprev != nullptr)
@@ -118,6 +120,50 @@ __global__ void __launch_bounds__(fp32_tile::THREADS)
       q[2 * H + u] = dgh_n;
       dpart[o] = live ? __fmul_rn(d, z) : d;
     }
+  }
+}
+
+// K1f's and K3f's step kernel: step() on one chain.
+template <bool BWD>
+__global__ void __launch_bounds__(fp32_tile::THREADS)
+    gru_f32_step_kernel(const float* __restrict__ gx,
+                        const float* __restrict__ hprev,
+                        const int* __restrict__ lens, int t,
+                        const float* __restrict__ uh,
+                        const float* __restrict__ bhn, int B, int H,
+                        float* __restrict__ hout, float* __restrict__ hT,
+                        const float* __restrict__ dh,
+                        float* __restrict__ dgx, float* __restrict__ gq,
+                        float* __restrict__ dpart) {
+  __shared__ fp32_tile::Smem<BM, BN, BK> s;
+  step<BWD>(gx, hprev, lens, t, uh, bhn, B, H, hout, hT, dh, dgx, gq, dpart,
+            s);
+}
+
+constexpr int SUM_ROWS = 8;  // row strides a unit of the db_hn sum
+
+// dbhn[j] = sum over `rows` rows of gq[:, 2H + j], eight row strides a unit
+// added in a fixed order; blocks of blockIdx.y 1 sum gq1 into dbhn1 (the
+// second chain of K7f; K3f launches one row of blocks).
+__global__ void __launch_bounds__(32 * SUM_ROWS)
+    gru_f32_dbhn_kernel(const float* __restrict__ gq0,
+                        float* __restrict__ dbhn0,
+                        const float* __restrict__ gq1,
+                        float* __restrict__ dbhn1, int rows, int H) {
+  __shared__ float part[SUM_ROWS][32];
+  const float* gq = blockIdx.y == 1 ? gq1 : gq0;
+  float* dbhn = blockIdx.y == 1 ? dbhn1 : dbhn0;
+  const int j = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (j < H)
+    for (int r = threadIdx.y; r < rows; r += SUM_ROWS)
+      acc += gq[(long long)r * 3 * H + 2 * H + j];
+  part[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < H) {
+    float sum = 0.f;
+    for (int w = 0; w < SUM_ROWS; ++w) sum += part[w][threadIdx.x];
+    dbhn[j] = sum;
   }
 }
 

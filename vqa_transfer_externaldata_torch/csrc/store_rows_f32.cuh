@@ -1,6 +1,7 @@
 // store_rows_f32.cuh: reading a resident store's rows in float32, for the
 // float32 attention kernels K4f (attention_resident_fwd_f32.cu) and K5f
-// (attention_resident_bwd_f32.cu), for Hopper (sm_90a).
+// (attention_resident_bwd_f32.cu), and a dense float32 grid's, for K2f
+// (attention_fwd_f32.cu), for Hopper (sm_90a).
 //
 // A float32 model keeps its store in the source's dtype (f32, or the f16
 // of a raw store), or as the int8 codes of a quantized one, as the JAX
@@ -22,15 +23,32 @@ __device__ __forceinline__ float widen(__half x) { return __half2float(x); }
 __device__ __forceinline__ float widen(int8_t x) { return float(x); }
 
 // Cell i of the batch (question i / Np, cell i % Np) at channel k, read
-// straight out of the store row rows[i / Np]: the A of the score product.
+// straight out of the store row rows[i / Np]: the A of the score product;
+// row(b, n) is the row of cell n of question b.
 template <typename T>
 struct CellRows {
   const T* store;
   const int* rows;
   int Np, C;
+  __device__ __forceinline__ const T* row(int b, int n) const {
+    return store + ((long long)rows[b] * Np + n) * C;
+  }
   __device__ __forceinline__ float operator()(int i, int k) const {
     const int b = i / Np;
-    return widen(store[((long long)rows[b] * Np + (i - b * Np)) * C + k]);
+    return widen(row(b, i - b * Np)[k]);
+  }
+};
+
+// The same for a dense float32 grid v [B, Np, C] (K2f's gathered grid): cell
+// n of question b is v[b, n, :], read in place.
+struct GridCells {
+  const float* v;
+  int Np, C;
+  __device__ __forceinline__ const float* row(int b, int n) const {
+    return v + ((long long)b * Np + n) * C;
+  }
+  __device__ __forceinline__ float operator()(int i, int k) const {
+    return v[(long long)i * C + k];
   }
 };
 

@@ -15,6 +15,10 @@ tensors its forward launches the hand-written kernel ``csrc/attention_fwd.cu``
 ``csrc/attention_bwd.cu`` (K8, wrapper :func:`attention_bwd`), or the
 explicit backward :func:`attention_bwd_math`; on CPU tensors the plain
 versions :func:`attention_fwd_reference` and :func:`attention_bwd_reference`.
+The wrappers dispatch on v's dtype: bf16 takes K2/K8, float32 the float32
+kernels ``csrc/attention_fwd_f32.cu`` (K2f, :func:`attention_fwd_f32`) and
+``csrc/attention_bwd_f32.cu`` (K8f, :func:`attention_bwd_f32`), plain FFMA
+with f32 sums.
 :func:`spatial_attention_reference` and :func:`_reference_postscaled` are
 the JAX package's oracles, in PyTorch. :func:`spatial_attention_multi` is
 the G-glimpse variant on a gathered grid, plain PyTorch differentiated by
@@ -191,18 +195,23 @@ def attention_bwd_math(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
 def _score_dot(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """g . v_n for every cell: v [B, N, C] (dt), g [B, C] f32 -> [B, N]
     f32, from products of dt values (g rounded to dt) summed in f32. On the
-    card one batched GEMV reads the bf16 grid once and returns f32 (no f32
-    copy of the grid); on the CPU the operands are upcast."""
+    card one batched GEMV reads the grid once and returns f32 (for a bf16
+    grid no f32 copy of it; a float32 grid takes cuBLAS's f32 GEMV, in full
+    f32 unless the caller turns TF32 on); on the CPU the operands are
+    upcast."""
     gc = g.to(v.dtype)
-    if v.device.type == "cuda":
-        return torch.bmm(v, gc[:, :, None], out_dtype=torch.float32)[:, :, 0]
-    return torch.einsum("bnc,bc->bn", v.float(), gc.float())
+    if v.device.type != "cuda":
+        return torch.einsum("bnc,bc->bn", v.float(), gc.float())
+    if v.dtype == torch.float32:
+        return torch.bmm(v, gc[:, :, None])[:, :, 0]
+    return torch.bmm(v, gc[:, :, None], out_dtype=torch.float32)[:, :, 0]
 
 
 class _GatheredAttention(torch.autograd.Function):
-    """Forward K2 (its plain version on the CPU), saving the per-cell norm
-    r that K2 computed. Backward: K8 from the score cotangent formed here
-    (its plain version on the CPU); with ``feature_grad`` or without
+    """Forward K2 (K2f on a float32 grid; the plain version on the CPU),
+    saving the per-cell norm r that it computed. Backward: K8 (K8f) from
+    the score cotangent formed here (the plain version on the CPU); with
+    ``feature_grad`` or without
     ``bwd_kernel``, the explicit math of :func:`attention_bwd_math`.
     Without ``kernel`` (``model.use_pallas`` off), the JAX package's XLA
     forward and the explicit backward on any device."""
@@ -263,9 +272,10 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     """Attention over a gathered grid: v [B, N, C] in the compute dtype, qh
     [B, H], wv [C, H], w_score [H] -> (v_att [B, C] f32, alpha [B, N] f32),
     differentiable in all four. ``wv`` and ``w_score`` are rounded to
-    ``v.dtype``. On CUDA tensors the forward is kernel K2 (bf16 ``v``), in
-    training too, and the backward kernel K8 unless ``bwd_kernel`` is False
-    or ``feature_grad`` asks for dv, when the explicit backward runs; on
+    ``v.dtype``. On CUDA tensors the forward is kernel K2 (bf16 ``v``; K2f
+    on float32), in training too, and the backward kernel K8 (K8f) unless
+    ``bwd_kernel`` is False or ``feature_grad`` asks for dv, when the
+    explicit backward runs; on
     CPU tensors each path takes its plain version. ``feature_grad=False``
     gives the grid no gradient: only for features that are data.
     ``use_kernels=False`` (``model.use_pallas`` off) takes, on any device,
@@ -293,7 +303,7 @@ def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
     if C % _SCORE_TILE_C or H % _SCORE_TILE_H or B < 1 or N < 1:
         raise ValueError(f"{what} needs C % {_SCORE_TILE_C} == 0 and "
                          f"H % {_SCORE_TILE_H} == 0, got C={C}, H={H}")
-    kernels.expect_bf16("v", v, (B, N, C), v.device)
+    kernels.expect("v", v, torch.bfloat16, (B, N, C), v.device)
     if v.data_ptr() % 16:
         raise ValueError(f"{what} reads v in 16-byte vectors: it must start "
                          "16-byte aligned")
@@ -334,7 +344,11 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     H % 128 == 0. The score launch reads W_v as its K-major copy ``wv.t()``
     [H, C], made here, and runs as :func:`kernels.score_plan` plans it. One
     call makes the kernel's two launches on the current stream and adds the
-    number launched (2) to ``attention_fwd.launches``."""
+    number launched (2) to ``attention_fwd.launches``. A float32 ``v`` goes
+    to :func:`attention_fwd_f32` (K2f); another dtype raises ``TypeError``
+    (:func:`kernels.kernel_dtype`)."""
+    if kernels.kernel_dtype("attention_fwd", "v", v) == torch.float32:
+        return attention_fwd_f32(v, qh, wv, ws, normalize=normalize)
     H = qh.shape[-1]
     B, N, C = _check_grid(v, H, "attention_fwd")
     dev = v.device
@@ -342,7 +356,7 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
         raise ValueError(f"attention_fwd: N={N} cells exceed the softmax's "
                          "shared memory")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect_bf16("wv", wv, (C, H), dev)
+    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     n_part = kernels.score_plan(B, N, C, H)["n_part"]
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
@@ -403,7 +417,11 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     ``kernels.ATTENTION_BWD_LAUNCHES`` (4) launches on the current stream,
     its dz stage as :func:`kernels.dz_plan` and its dW_v GEMM as
     :func:`kernels.dwv_plan` plan them, and adds the number launched to
-    ``attention_bwd.launches``."""
+    ``attention_bwd.launches``. A float32 ``v`` goes to
+    :func:`attention_bwd_f32` (K8f); another dtype raises ``TypeError``
+    (:func:`kernels.kernel_dtype`)."""
+    if kernels.kernel_dtype("attention_bwd", "v", v) == torch.float32:
+        return attention_bwd_f32(v, qh, wv, ws, ds, r, normalize)
     H = qh.shape[-1]
     B, N, C = _check_grid(v, H, "attention_bwd")
     dev = v.device
@@ -412,7 +430,7 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
         raise ValueError(f"attention_bwd needs C % {tile} == 0 and "
                          f"H % {tile} == 0, got C={C}, H={H}")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect_bf16("wv", wv, (C, H), dev)
+    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     kernels.expect("ds", ds, torch.float32, (B, N), dev)
     kernels.expect("r", r, torch.float32, (B, N), dev)
@@ -449,3 +467,127 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
 
 
 attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernels K2f and K8f
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_lib(name: str) -> ctypes.CDLL:
+    """The library of K2f (``name`` "attention_fwd_f32") or K8f
+    ("attention_bwd_f32")."""
+    lib = kernels.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    getattr(lib, name).argtypes = ([p] * 8 + [i] * 5 if name ==
+                                   "attention_fwd_f32"
+                                   else [p] * 12 + [i] * 6) + [p, p]
+    getattr(lib, name).restype = i
+    return lib
+
+
+def _check_grid_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                    ws: torch.Tensor, what: str
+                    ) -> Tuple[int, int, int, int]:
+    """(B, N, C, H) of the float32 kernels' common inputs: v [B, N, C], qh
+    [B, H], wv [C, H] and ws [H], all float32 on one CUDA device."""
+    if v.device.type != "cuda" or v.dim() != 3:
+        raise ValueError(f"{what} takes a 3-D CUDA v")
+    B, N, C = v.shape
+    H = qh.shape[-1]
+    if B < 1 or N < 1 or C < 1 or H < 1:
+        raise ValueError(f"{what} needs B, N, C, H >= 1, got v of shape "
+                         f"{tuple(v.shape)} and H={H}")
+    dev = v.device
+    kernels.expect("v", v, torch.float32, (B, N, C), dev)
+    kernels.expect("qh", qh, torch.float32, (B, H), dev)
+    kernels.expect("wv", wv, torch.float32, (C, H), dev)
+    kernels.expect("ws", ws, torch.float32, (H,), dev)
+    return B, N, C, H
+
+
+def attention_fwd_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                      ws: torch.Tensor, *, normalize: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K2f (``csrc/attention_fwd_f32.cu``) on CUDA tensors,
+    all float32: v [B, N, C], qh [B, H], wv [C, H], ws [H] -> (v_att [B, C],
+    alpha [B, N], r [B, N], the per-cell norm: ones unless ``normalize``),
+    :func:`attention_fwd_reference`'s math in FFMA with f32 sums. Any C and
+    H; N * 4 bytes (the softmax) within 48 KB. One call launches, on the
+    current stream, the per-cell norm (only when ``normalize``), the score
+    product with its epilogue and the softmax with the weighted sum, and
+    adds the number launched (2, or 3) to ``attention_fwd_f32.launches``."""
+    what = "attention_fwd_f32"
+    B, N, C, H = _check_grid_f32(v, qh, wv, ws, what)
+    dev = v.device
+    if N * 4 > 48 * 1024:
+        raise ValueError(f"{what}: N={N} cells exceed the softmax's shared "
+                         "memory")
+    f32 = dict(dtype=torch.float32, device=dev)
+    part = torch.empty(-(-H // kernels.F32_TILE), B * N, **f32)
+    rnorm = (torch.empty(B, N, **f32) if normalize
+             else torch.ones(B, N, **f32))
+    v_att = torch.empty(B, C, **f32)
+    alpha = torch.empty(B, N, **f32)
+    lib = _f32_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_fwd_f32(
+            v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
+            part.data_ptr(), rnorm.data_ptr(), v_att.data_ptr(),
+            alpha.data_ptr(), B, N, C, H, int(normalize),
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_fwd_f32.launches += launched.value
+    kernels.check(lib, rc, what)
+    return v_att, alpha, rnorm
+
+
+attention_fwd_f32.launches = 0
+
+
+def attention_bwd_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                      ws: torch.Tensor, ds: torch.Tensor, r: torch.Tensor,
+                      normalize: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K8f (``csrc/attention_bwd_f32.cu``) on CUDA tensors,
+    all float32: v [B, N, C], qh [B, H], wv [C, H], ws [H], the score
+    cotangent ds [B, N] and K2f's per-cell norm r [B, N] (read only when
+    ``normalize``) -> (dqh [B, H], dwv [C, H], dws [H]),
+    :func:`attention_bwd_reference`'s math in FFMA with f32 sums. Any C, H
+    and N. One call launches, on the current stream, the recomputed score
+    product with its dz epilogue, the dW_v product over the B * N cells
+    split ``kernels.f32_dwv_splits`` ways, and the reduction of dW_v's
+    splits, each question's dqh and dws in a fixed order, and adds the
+    number launched (3) to ``attention_bwd_f32.launches``."""
+    what = "attention_bwd_f32"
+    B, N, C, H = _check_grid_f32(v, qh, wv, ws, what)
+    dev = v.device
+    kernels.expect("ds", ds, torch.float32, (B, N), dev)
+    kernels.expect("r", r, torch.float32, (B, N), dev)
+    K = B * N
+    splits = kernels.f32_dwv_splits(K, C, H, kernels.sm_count(dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dz = torch.empty(K, H, **f32)
+    wpart = torch.empty(-(-K // kernels.F32_TILE), H, **f32)
+    part = torch.empty(splits, C, H, **f32)
+    dqh = torch.empty(B, H, **f32)
+    dwv = torch.empty(C, H, **f32)
+    dws = torch.empty(H, **f32)
+    lib = _f32_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.attention_bwd_f32(
+            v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
+            ds.data_ptr(), r.data_ptr(), dz.data_ptr(), wpart.data_ptr(),
+            part.data_ptr(), dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(),
+            B, N, C, H, int(normalize), splits,
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    attention_bwd_f32.launches += launched.value
+    kernels.check(lib, rc, what)
+    return dqh, dwv, dws
+
+
+attention_bwd_f32.launches = 0

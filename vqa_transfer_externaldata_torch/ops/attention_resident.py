@@ -355,8 +355,10 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     stream and adds the number launched (2) to
     ``attention_resident_fwd.launches`` (bf16 rows) or
     ``attention_resident_fwd.launches_int8`` (int8 rows). A float32 ``wv``
-    goes to :func:`attention_resident_fwd_f32` (K4f)."""
-    if wv.dtype == torch.float32:
+    goes to :func:`attention_resident_fwd_f32` (K4f); another dtype raises
+    ``TypeError`` (:func:`kernels.kernel_dtype`)."""
+    if kernels.kernel_dtype("attention_resident_fwd", "wv",
+                            wv) == torch.float32:
         return attention_resident_fwd_f32(store, rows, qh, wv, ws,
                                           n_valid=n_valid,
                                           normalize=normalize, save_h=save_h)
@@ -441,8 +443,10 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     adds the number launched (3) to
     ``attention_resident_bwd.launches`` (bf16 rows) or
     ``attention_resident_bwd.launches_int8`` (int8 rows). A float32 ``h``
-    (K4f's residual) goes to :func:`attention_resident_bwd_f32` (K5f)."""
-    if h.dtype == torch.float32:
+    (K4f's residual) goes to :func:`attention_resident_bwd_f32` (K5f);
+    another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`)."""
+    if kernels.kernel_dtype("attention_resident_bwd", "h",
+                            h) == torch.float32:
         return attention_resident_bwd_f32(store, rows, h, ws, alpha, g, sga,
                                           n_valid=n_valid,
                                           normalize=normalize)
@@ -499,9 +503,6 @@ attention_resident_bwd.launches = 0
 attention_resident_bwd.launches_int8 = 0
 
 
-F32_TILE = 128  # cells and units (or channels) of a K4f/K5f product tile
-
-
 @functools.lru_cache(maxsize=None)
 def _f32_lib(name: str) -> ctypes.CDLL:
     """The library of K4f (``name`` "attention_resident_fwd_f32") or K5f
@@ -519,18 +520,6 @@ def f32_bwd_smem(n_valid: int, G: int, C: int) -> int:
     """Bytes of dynamic shared memory of K5f's rows launch: the G
     cotangent rows [G, C], ds [n_valid, G] and r [n_valid], all f32."""
     return 4 * (G * C + (G + 1) * n_valid)
-
-
-def f32_dwv_splits(K: int, C: int, H: int, sms: int) -> int:
-    """The splits of the K cells of K5f's dW_v product: as many as fit two
-    blocks of ``F32_TILE``-square tiles on each of ``sms`` SMs (one wave,
-    no ragged second one), each split but the last keeping at least 512
-    cells, none empty under the C side's rule (a split takes
-    ceil(K / splits) cells rounded up to 8). A function of the shapes and
-    the card alone, so two calls sum in the same order."""
-    tiles = -(-C // F32_TILE) * -(-H // F32_TILE)
-    want = max(1, min(2 * sms // tiles, K // 512))
-    return -(-K // (8 * -(-K // (8 * want))))
 
 
 def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
@@ -565,7 +554,7 @@ def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
                    (H, G) if ws.dim() == 2 else (H,), dev)
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty(-(-H // F32_TILE), G, B * Np, **f32)
+    part = torch.empty(-(-H // kernels.F32_TILE), G, B * Np, **f32)
     rnorm = torch.empty(B * Np, **f32)
     v_att = torch.empty(B, G * C, **f32)
     alpha = torch.empty(B, Np, G, **f32)
@@ -606,9 +595,9 @@ def attention_resident_bwd_f32(store: torch.Tensor, rows: torch.Tensor,
     (:func:`f32_bwd_smem`) within a block's. One call launches, on the
     current stream, the rows stage (one block a question: dalpha, ds, dz,
     dqh, the question's dws and dz * r), the dW_v product over the
-    B * n_valid cells split ``f32_dwv_splits`` ways, and the reduction of
-    the splits and of dws in a fixed order, and adds the number launched
-    (3) to ``attention_resident_bwd_f32.launches``."""
+    B * n_valid cells split ``kernels.f32_dwv_splits`` ways, and the
+    reduction of the splits and of dws in a fixed order, and adds the number
+    launched (3) to ``attention_resident_bwd_f32.launches``."""
     what = "attention_resident_bwd_f32"
     M, Np, C, B = _check_store(store, rows, n_valid, normalize, what,
                                tuple(_F32_ROWS))
@@ -628,7 +617,7 @@ def attention_resident_bwd_f32(store: torch.Tensor, rows: torch.Tensor,
     kernels.expect("sga", sga, torch.float32, per_cell, dev)
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     K = B * n_valid
-    splits = f32_dwv_splits(K, C, H, kernels.sm_count(dev))
+    splits = kernels.f32_dwv_splits(K, C, H, kernels.sm_count(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     dzr = torch.empty(K, H, **f32)
     dws_part = torch.empty(B, G, H, **f32)

@@ -30,7 +30,9 @@ states. It projects each direction as :class:`GRUEncoder` does and runs both
 recurrences through ``bigru_fused``: on a CUDA tensor kernel
 ``csrc/bigru_fwd.cu`` (K6, wrapper :func:`bigru_fwd`: K1's persistent
 kernel, both chains in one launch) advances both chains and
-``csrc/bigru_bwd.cu`` (K7, wrapper :func:`bigru_bwd`) walks both BPTTs;
+``csrc/bigru_bwd.cu`` (K7, wrapper :func:`bigru_bwd`) walks both BPTTs
+(on float32 U_h, ``csrc/bigru_fwd_f32.cu`` and ``csrc/bigru_bwd_f32.cu``,
+K6f and K7f: K1f's and K3f's steps with both chains in each launch);
 on a CPU tensor their plain versions
 :func:`bigru_reference` and :func:`bigru_bwd_reference`. The JAX package
 keeps this fused path behind ``fuse_directions`` (off); its outputs and
@@ -369,7 +371,8 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     """Launch kernel K1 (``csrc/gru_fwd.cu``) on CUDA tensors:
     gx_t [T, B, 3H] f32, lens [B] int32, uh [H, 3H] bf16, bhn [H] f32
     -> (hT [B, H] f32, hseq [T, B, H] f32); a float32 ``uh`` goes to
-    :func:`gru_fwd_f32` (K1f), another dtype raises ``TypeError``. Needs
+    :func:`gru_fwd_f32` (K1f), another dtype raises ``TypeError``
+    (:func:`kernels.kernel_dtype`). Needs
     H % 16 == 0 and a
     block's U_h slice and 16-row b-tile to fit in shared memory
     (H <= 1568). One call makes one cooperative launch of the persistent
@@ -377,11 +380,8 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     ``kernels.gru_fwd_plan``, on the current stream and adds it (1) to
     ``gru_fwd.launches``; it raises when no tiling's grid can be resident
     on the card at once."""
-    if uh.dtype == torch.float32:
+    if kernels.kernel_dtype("gru_fwd", "uh", uh) == torch.float32:
         return gru_fwd_f32(gx_t, lens, uh, bhn, reverse=reverse)
-    if uh.dtype != torch.bfloat16:
-        raise TypeError(f"gru_fwd: uh must be torch.bfloat16 (K1) or "
-                        f"torch.float32 (K1f), got {uh.dtype}")
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_fwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -493,7 +493,8 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     [T, B, 3H] f32, hseq [T, B, H] f32 (K1's residual), lens [B] int32,
     uh [H, 3H] bf16, bhn [H] f32, ghT [B, H] f32 -> (dgx_t [T, B, 3H],
     duh [H, 3H], dbhn [H]), all f32; a float32 ``uh`` goes to
-    :func:`gru_bwd_f32` (K3f), another dtype raises ``TypeError``. Needs
+    :func:`gru_bwd_f32` (K3f), another dtype raises ``TypeError``
+    (:func:`kernels.kernel_dtype`). Needs
     H % 64 == 0 and U_h's slices to
     fit in shared memory (H <= 576). One call launches the persistent step
     kernel (one cooperative launch for all T steps, on the grid of
@@ -501,11 +502,8 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     current stream and adds the number launched (3) to
     ``gru_bwd.launches``; it raises when U_h's slices do not fit or the
     step kernel's grid cannot be resident on the card at once."""
-    if uh.dtype == torch.float32:
+    if kernels.kernel_dtype("gru_bwd", "uh", uh) == torch.float32:
         return gru_bwd_f32(gx_t, hseq, lens, uh, bhn, ghT, reverse=reverse)
-    if uh.dtype != torch.bfloat16:
-        raise TypeError(f"gru_bwd: uh must be torch.bfloat16 (K3) or "
-                        f"torch.float32 (K3f), got {uh.dtype}")
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError("gru_bwd takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
@@ -547,14 +545,20 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
 gru_bwd.launches = 0
 
 
+# The float32 kernels' entries: (pointers, ints) ahead of the stream and
+# the launch count.
+_F32_ARGS = {"gru_fwd_f32": (6, 4), "gru_bwd_f32": (11, 4),
+             "bigru_fwd_f32": (9, 3), "bigru_bwd_f32": (15, 3)}
+
+
 @functools.lru_cache(maxsize=None)
 def _f32_lib(name: str) -> ctypes.CDLL:
-    """The library of K1f (``name`` "gru_fwd_f32") or K3f
-    ("gru_bwd_f32")."""
+    """The library of K1f (``name`` "gru_fwd_f32"), K3f ("gru_bwd_f32"),
+    K6f ("bigru_fwd_f32") or K7f ("bigru_bwd_f32")."""
     lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    pointers = 6 if name == "gru_fwd_f32" else 11
-    getattr(lib, name).argtypes = [p] * pointers + [i] * 4 + [p, p]
+    pointers, ints = _F32_ARGS[name]
+    getattr(lib, name).argtypes = [p] * pointers + [i] * ints + [p, p]
     getattr(lib, name).restype = i
     return lib
 
@@ -666,9 +670,9 @@ def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     [H, 3H], bhnf, bhnb [H] f32 -> (hT_fwd, hT_bwd) [B, H] f32, the
     backward chain reversed over each row's valid prefix as
     ``gru_fused(reverse=True)``. Differentiable in gx*, uh* and bhn*. A
-    CUDA tensor runs kernels K6/K7 (which take bf16 ``uh*``), a CPU tensor
-    the plain versions, and so does a CUDA tensor with ``use_kernels``
-    False."""
+    CUDA tensor runs kernels K6/K7 (K6f/K7f on float32 ``uh*``), a CPU
+    tensor the plain versions, and so does a CUDA tensor with
+    ``use_kernels`` False."""
     if gxf.device.type not in ("cuda", "cpu"):
         raise ValueError(f"bigru_fused: no path for device {gxf.device}")
     return _BiGRUFused.apply(gxf.contiguous(), gxb.contiguous(),
@@ -730,19 +734,18 @@ def bigru_bwd_reference(gxf: torch.Tensor, gxb: torch.Tensor,
     return dgxf, dgxb, duhf, duhb, dbhnf, dbhnb
 
 
-def _expect_pair(T: int, B: int, H: int, dev: torch.device, **pairs) -> None:
-    """``kernels.expect`` on both tensors of each direction pair."""
+def _expect_pair(T: int, B: int, H: int, dev: torch.device,
+                 dtype: torch.dtype, **pairs) -> None:
+    """``kernels.expect`` on both tensors of each direction pair, U_h in
+    ``dtype``."""
     shapes = {"gx": ((T, B, 3 * H), torch.float32),
               "hseq": ((T, B, H), torch.float32),
-              "uh": ((H, 3 * H), torch.bfloat16),
+              "uh": ((H, 3 * H), dtype),
               "bhn": ((H,), torch.float32), "ghT": ((B, H), torch.float32)}
     for name, (f, b) in pairs.items():
-        shape, dtype = shapes[name]
+        shape, dt = shapes[name]
         for x, tag in ((f, f"{name}f"), (b, f"{name}b")):
-            if name == "uh":  # K6/K7 have no float32 variant yet
-                kernels.expect_bf16(tag, x, shape, dev)
-            else:
-                kernels.expect(tag, x, dtype, shape, dev)
+            kernels.expect(tag, x, dt, shape, dev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -770,7 +773,11 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     (or, where the plan says that both directions' j-tiles cannot be
     resident at once, one launch a chain), on the current stream and adds
     the number launched (1, or 2) to ``bigru_fwd.launches``; it raises
-    where the plan raises."""
+    where the plan raises. A float32 ``uhf`` goes to :func:`bigru_fwd_f32`
+    (K6f), another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`),
+    and so does a ``uhb`` of another dtype than ``uhf``."""
+    if kernels.kernel_dtype("bigru_fwd", "uhf", uhf) == torch.float32:
+        return bigru_fwd_f32(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
     if gxf.device.type != "cuda" or gxf.dim() != 3:
         raise ValueError("bigru_fwd takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
@@ -779,8 +786,8 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
         raise ValueError(f"bigru_fwd needs T, B >= 1 and H % {_TILE} == 0, "
                          f"got gxf of shape {tuple(gxf.shape)}")
-    _expect_pair(T, B, H, dev, gx=(gxf, gxb), uh=(uhf, uhb),
-                 bhn=(bhnf, bhnb))
+    _expect_pair(T, B, H, dev, torch.bfloat16, gx=(gxf, gxb),
+                 uh=(uhf, uhb), bhn=(bhnf, bhnb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     plan, _ = _fwd_plan("bigru_fwd", B, H, dev)
     return _launch_bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb,
@@ -856,7 +863,12 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     db_hn sum of both directions on the current stream and adds the number
     launched (3) to ``bigru_bwd.launches``; it raises when U_h's slices do
     not fit or the step kernel's grid cannot be resident on the card at
-    once."""
+    once. A float32 ``uhf`` goes to :func:`bigru_bwd_f32` (K7f), another
+    dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`), and so does
+    a ``uhb`` of another dtype than ``uhf``."""
+    if kernels.kernel_dtype("bigru_bwd", "uhf", uhf) == torch.float32:
+        return bigru_bwd_f32(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf,
+                             bhnb, ghTf, ghTb)
     if gxf.device.type != "cuda" or gxf.dim() != 3:
         raise ValueError("bigru_bwd takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
@@ -865,8 +877,9 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
         raise ValueError(f"bigru_bwd needs T, B >= 1 and H % 64 == 0, got "
                          f"gxf of shape {tuple(gxf.shape)}")
-    _expect_pair(T, B, H, dev, gx=(gxf, gxb), hseq=(hseqf, hseqb),
-                 uh=(uhf, uhb), bhn=(bhnf, bhnb), ghT=(ghTf, ghTb))
+    _expect_pair(T, B, H, dev, torch.bfloat16, gx=(gxf, gxb),
+                 hseq=(hseqf, hseqb), uh=(uhf, uhb), bhn=(bhnf, bhnb),
+                 ghT=(ghTf, ghTb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     plan = _bptt_plan("bigru_bwd", B, H, dev, 2)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -902,3 +915,92 @@ def bigru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
     the grid is (16-unit j-tiles, rows of 64-row b-tile blocks, 2
     directions). Raises where :func:`bigru_bwd` would."""
     return _bptt_plan("bigru_bwd", B, H, device, 2)
+
+
+def _check_pair_f32(what: str, gxf: torch.Tensor, gxb: torch.Tensor,
+                    lens: torch.Tensor, uhf: torch.Tensor, uhb: torch.Tensor,
+                    bhnf: torch.Tensor, bhnb: torch.Tensor
+                    ) -> Tuple[int, int, int, torch.device]:
+    """(T, B, H, device) of both chains' common float32 inputs."""
+    T, B, H, dev = _check_f32(what, gxf, lens, uhf, bhnf)
+    _expect_pair(T, B, H, dev, torch.float32, gx=(gxf, gxb), uh=(uhf, uhb),
+                 bhn=(bhnf, bhnb))
+    return T, B, H, dev
+
+
+def bigru_fwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+                  uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+                  bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel K6f (``csrc/bigru_fwd_f32.cu``) on CUDA tensors, all
+    float32: gxf, gxb [T, B, 3H], lens [B] int32, uhf, uhb [H, 3H], bhnf,
+    bhnb [H] -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), each direction
+    bit-equal to a :func:`gru_fwd_f32` call on its inputs. Any B and H. One
+    launch a step advances both chains, on the current stream: T launches
+    a call, added to ``bigru_fwd_f32.launches``."""
+    what = "bigru_fwd_f32"
+    T, B, H, dev = _check_pair_f32(what, gxf, gxb, lens, uhf, uhb, bhnf,
+                                   bhnb)
+    hseq = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
+    hT = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+    lib = _f32_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.bigru_fwd_f32(gxf.data_ptr(), gxb.data_ptr(),
+                               lens.data_ptr(), uhf.data_ptr(),
+                               uhb.data_ptr(), bhnf.data_ptr(),
+                               bhnb.data_ptr(), hseq.data_ptr(),
+                               hT.data_ptr(), T, B, H,
+                               torch.cuda.current_stream(dev).cuda_stream,
+                               ctypes.addressof(launched))
+    bigru_fwd_f32.launches += launched.value
+    kernels.check(lib, rc, what)
+    return hT[0], hT[1], hseq[0], hseq[1]
+
+
+bigru_fwd_f32.launches = 0
+
+
+def bigru_bwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
+                  hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
+                  uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
+                  ghTf: torch.Tensor, ghTb: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel K7f (``csrc/bigru_bwd_f32.cu``) on CUDA tensors, all
+    float32: gxf, gxb [T, B, 3H], hseqf, hseqb [T, B, H] (K6f's residuals),
+    lens [B] int32, uhf, uhb [H, 3H], bhnf, bhnb [H], ghTf, ghTb [B, H] ->
+    (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), each
+    direction bit-equal to a :func:`gru_bwd_f32` call on its inputs. Any B
+    and H. Two launches a step for both chains (the gates' cotangents, then
+    the carried dh through U_h^T, which the last step skips), then both
+    chains' dU_h products and db_hn sums, one launch each, on the current
+    stream: 2T + 1 launches a call, added to ``bigru_bwd_f32.launches``."""
+    what = "bigru_bwd_f32"
+    T, B, H, dev = _check_pair_f32(what, gxf, gxb, lens, uhf, uhb, bhnf,
+                                   bhnb)
+    _expect_pair(T, B, H, dev, torch.float32, hseq=(hseqf, hseqb),
+                 ghT=(ghTf, ghTb))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = torch.empty(2, 2, B, H, **f32)  # each chain's carried cotangent
+    dh[0, 0].copy_(ghTf)
+    dh[1, 0].copy_(ghTb)
+    dpart = torch.empty(2, B, H, **f32)
+    gq = torch.empty(2, T, B, 3 * H, **f32)
+    dgx = torch.empty(2, T, B, 3 * H, **f32)
+    duh = torch.empty(2, H, 3 * H, **f32)
+    dbhn = torch.empty(2, H, **f32)
+    lib = _f32_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.bigru_bwd_f32(
+            gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
+            hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(), uhb.data_ptr(),
+            bhnf.data_ptr(), bhnb.data_ptr(), dh.data_ptr(), dpart.data_ptr(),
+            gq.data_ptr(), dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(),
+            T, B, H, torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    bigru_bwd_f32.launches += launched.value
+    kernels.check(lib, rc, what)
+    return dgx[0], dgx[1], duh[0], duh[1], dbhn[0], dbhn[1]
+
+
+bigru_bwd_f32.launches = 0

@@ -369,16 +369,33 @@ def expect(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-# Where the float32 variants of the kernels that take only bf16 so far
-# (K2, K6, K7, K8) stand in the roadmap.
-F32_PENDING = "ROADMAP.md, section 2, item 1"
+# Where the kernels for a model that computes in another dtype than bf16
+# and float32 (model.dtype float16) stand in the roadmap.
+F16_PENDING = "ROADMAP.md, section 2, item 3"
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def expect_bf16(name: str, x: torch.Tensor, shape: tuple,
-                device: torch.device) -> None:
-    """:func:`expect` with bf16 for a kernel that has no float32 variant
-    yet: another dtype raises ``TypeError`` naming :data:`F32_PENDING`."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be torch.bfloat16, got {x.dtype}: this "
-                        f"kernel's float32 variant is {F32_PENDING}")
-    expect(name, x, torch.bfloat16, shape, device)
+def kernel_dtype(what: str, name: str, x: torch.Tensor) -> torch.dtype:
+    """The dtype of ``x`` (named ``name``), which picks the kernel that
+    ``what`` launches: bf16 (K1-K8) or float32 (K1f-K8f). Another dtype
+    raises ``TypeError`` naming :data:`F16_PENDING`."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: {name} must be torch.bfloat16 or "
+                        f"torch.float32, got {x.dtype}: kernels for another "
+                        f"dtype are {F16_PENDING}")
+    return x.dtype
+
+
+F32_TILE = 128  # cells and units (channels) of a K4f/K5f/K8f product tile
+
+
+def f32_dwv_splits(K: int, C: int, H: int, sms: int) -> int:
+    """The splits of the K cells of K5f's and K8f's dW_v product: as many
+    as fit two blocks of ``F32_TILE``-square tiles on each of ``sms`` SMs
+    (one wave, no ragged second one), each split but the last keeping at
+    least 512 cells, none empty under the C side's rule (a split takes
+    ceil(K / splits) cells rounded up to 8). A function of the shapes and
+    the card alone, so two calls sum in the same order."""
+    tiles = -(-C // F32_TILE) * -(-H // F32_TILE)
+    want = max(1, min(2 * sms // tiles, K // 512))
+    return -(-K // (8 * -(-K // (8 * want))))
