@@ -265,7 +265,27 @@ Run from the repository root. Phases (any failure exits non-zero):
    TOL_F32_LOGITS, launch counts and p50; and stage-1
    ``vlmap_description`` (bidirectional) in float32 through
    ``fit_resident`` (K6f, K7f) for F32_STEPS steps, its first step against
-   the plain path, launch counts and step times.
+   the plain path, launch counts and step times;
+28. float16 (``model.dtype float16``) on the main path: the float16
+   kernels K1h ``gru_fwd_f16`` and K3h ``gru_bwd_f16`` (K1's and K3's
+   bodies with float16 as their element type) at the training and the
+   serving batch (B=256 and 64, T=26, H=512, both directions) and K4h
+   ``attention_resident_fwd_f16`` and K5h ``attention_resident_bwd_f16``
+   at the main path's store (512 images of 196 valid cells, C=2048,
+   H=512) at both batches, G=1, 2 and 8, on float16 rows (normalize on
+   and off) and int8 codes, each against its plain float16 version within
+   its bf16 limit scaled by float16's step (TOL_F16_*); each timed beside
+   its bf16 kernel on the same inputs in turns (bf16, f16, f16, bf16),
+   with its plain version, the library's float16 call (cuDNN's GRU,
+   cuBLAS's GEMM on K4h's score and K5h's dW_v product) and the bf16
+   kernel's bound; ``fit_resident`` at full width in float16 for
+   F16_STEPS steps on the corpus's float16 store, then on its int8
+   store, each with its first step against the plain path (loss to
+   TOL_F16_LOSS, gradients to cosine F16_GRAD_COS, or where the plain path
+   with v_att perturbed by F16_PERTURB moves a gradient further, to
+   F16_SENSITIVITY times that), launch counts that
+   show the float16 kernels alone, step times, and the resident
+   evaluator.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -393,7 +413,9 @@ KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
            "attention_bwd", "probe_mxu_rows", "probe_bwd_ceiling",
            "gru_fwd_f32", "gru_bwd_f32", "attention_resident_fwd_f32",
            "attention_resident_bwd_f32", "attention_fwd_f32",
-           "attention_bwd_f32", "bigru_fwd_f32", "bigru_bwd_f32"]
+           "attention_bwd_f32", "bigru_fwd_f32", "bigru_bwd_f32",
+           "gru_fwd_f16", "gru_bwd_f16", "attention_resident_fwd_f16",
+           "attention_resident_bwd_f16"]
 # K4 and K5 on int8 rows: the glimpse counts checked against the plain
 # versions (the limits are the bf16 rows', as the codes widen exactly to
 # bf16), and the bound on v_att's relative quantization error against the
@@ -565,6 +587,52 @@ F32_PREDICT_BATCHES = (B_PREDICT, B)
 #     then FID_STEPS steps through cli.train (timed as float32's).
 FID_SEED, FID_BATCH, FID_STEPS = 0, 8, 16
 FID_ATOL, FID_RTOL = 5e-4, 1e-4
+# Phase 28, float16. K1h, K3h, K4h and K5h are K1's, K3's, K4's and K5's
+#     bodies with float16 as their element type: the same products, sums
+#     and rounding points, each rounding to float16's 11 significant bits
+#     (a step of 2^-11 of a value) where bf16 keeps 8 (2^-8). Each limit is
+#     the bf16 kernel's with that step: K1h's h TOL_GRU / 8 (a flipped
+#     rounding of the state moves one product by a float16 step), K3h
+#     2^-11 of each output's largest value (TOL_K3_REL / 8), K4h's saved h
+#     2^-10 (one float16 step of the largest |h|; TOL_K4_H_REL / 8), K5h
+#     2^-12 (TOL_K5_REL / 8; G times that for dqh and dW_v, as
+#     GLIMPSE_CHECKS reasons), alpha TOL_ALPHA (f32 sums). v_att keeps
+#     TOL_VATT_REL (2^-10): its weights alpha * r are rounded to float16,
+#     and the two versions' alpha differ by up to ~4e-5 of themselves, in
+#     one direction within a question (the softmax's sum): a tenth of a
+#     float16 step, so many weights land one step apart at once, where
+#     bf16's coarser step leaves few; each moves its term by at most 2^-10
+#     of it (v >= 0), so v_att moves by at most 2^-10 of itself (3.7e-4
+#     read on an H100 at G=8). No limit is looser than the bf16 kernel's.
+#     The first training step against the plain path: the loss to
+#     TOL_LOSS / 8 (the activations are normal float16 numbers, a flip
+#     moves one by 2^-11), every gradient to bf16's cosine 0.999 where the
+#     model allows it. A float16 model's cotangents are float16 too, and
+#     small ones fall below float16's smallest normal value 2^-14, where
+#     it keeps fewer significant bits: on the int8 store the v_att
+#     cotangent is multiplied by the store's scale before the backward
+#     rounds it to float16 (JAX's B4 does the same), and at full width it
+#     is ~2e-6, all of it below 2^-14 (bf16 keeps it normal). There the
+#     plain path alone, with its v_att perturbed by 1e-5 of itself (less
+#     than K4h's and its plain version's v_att differ), moves
+#     att_q.weight's gradient to cosine 0.99881, and the kernels' path
+#     reads 0.99881 against it (H100, PR 23): a property of the float16
+#     model, not of a kernel. So each run first measures that cosine for
+#     every parameter (f16_grad_bounds) and holds the kernels to bf16's
+#     0.999, or, where the perturbed plain path moves a gradient further,
+#     to F16_SENSITIVITY times its distance (1 - cosine); a wrong kernel
+#     moves gradients to cosines far below either. F16_STEPS steps of
+#     fit_resident a store, the first F16_WARMUP untimed; the kernel
+#     checks run at each of F16_BATCHES and F16_GLIMPSES.
+TOL_F16_GRU = TOL_GRU / 8
+TOL_F16_K3_REL = TOL_K3_REL / 8
+TOL_F16_K4_H_REL = TOL_K4_H_REL / 8
+TOL_F16_VATT_REL = TOL_VATT_REL
+TOL_F16_K5_REL = TOL_K5_REL / 8
+TOL_F16_LOSS, F16_GRAD_COS = TOL_LOSS / 8, GRAD_COS
+F16_PERTURB, F16_SENSITIVITY = 1e-5, 4
+F16_STEPS, F16_WARMUP = 16, 3
+F16_BATCHES, F16_GLIMPSES = (B_TRAIN, B), (1, 2, 8)
 # sort_batch_by_image permutes each batch: every reduction over it is the
 #     same sum in another order, so the runs differ by rounding that Adam
 #     amplifies where a gradient entry is near zero. The logged losses are
@@ -648,7 +716,7 @@ def plain_kernels():
 
 def launch_counters():
     """{kernel name: (its wrapper, the wrapper's count attribute)}. K4 and
-    K5 count their launches on int8 rows apart."""
+    K5 (and K4h and K5h) count their launches on int8 rows apart."""
     from vqa_transfer_externaldata_torch.ops import (
         attention, attention_resident as ar, gru)
     from vqa_transfer_externaldata_torch.tools import (
@@ -668,9 +736,13 @@ def launch_counters():
              "attention_fwd_f32": attention.attention_fwd_f32,
              "attention_bwd_f32": attention.attention_bwd_f32,
              "bigru_fwd_f32": gru.bigru_fwd_f32,
-             "bigru_bwd_f32": gru.bigru_bwd_f32}
+             "bigru_bwd_f32": gru.bigru_bwd_f32,
+             "gru_fwd_f16": gru.gru_fwd_f16, "gru_bwd_f16": gru.gru_bwd_f16,
+             "attention_resident_fwd_f16": ar.attention_resident_fwd_f16,
+             "attention_resident_bwd_f16": ar.attention_resident_bwd_f16}
     out = {name: (fn, "launches") for name, fn in plain.items()}
-    for name in ("attention_resident_fwd", "attention_resident_bwd"):
+    for name in ("attention_resident_fwd", "attention_resident_bwd",
+                 "attention_resident_fwd_f16", "attention_resident_bwd_f16"):
         out[f"{name}[int8]"] = (plain[name], "launches_int8")
     return out
 
@@ -1546,31 +1618,40 @@ def phase_serving(report: dict, dev) -> dict:
     return launches
 
 
-def check_first_step(spec, state, batch, dev, what: str,
-                     frozen=lambda name: False, loss_tol: float = TOL_LOSS,
-                     grad_cos: float = GRAD_COS) -> dict:
-    """The first training step of ``spec``'s model on ``batch`` with the
-    kernels and with their plain versions on the card, under one dropout
-    mask: the loss to ``loss_tol``, each gradient to cosine ``grad_cos``
-    (a scalar to TOL_SCALAR_REL relative). Only a parameter that
-    ``frozen`` names may go without a gradient, and then on both paths."""
+def first_step_grads(spec, state, batch, dev) -> tuple:
+    """The loss and every parameter's gradient (None where the loss does
+    not reach it) of ``spec``'s model on ``batch`` under one fixed
+    dropout mask."""
     import torch
 
     names = list(state.params)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    outs = spec.module(*spec.inputs(batch), train=True, generator=gen)
+    loss, _ = spec.loss(outs, batch)
+    # A frozen backbone run under no_grad gets no gradient; the callers
+    # check the others.
+    grads = torch.autograd.grad(loss, [state.params[k] for k in names],
+                                allow_unused=True)
+    return loss.item(), dict(zip(names, grads))
 
-    def loss_and_grads():
-        gen = torch.Generator(device=dev).manual_seed(7)
-        outs = spec.module(*spec.inputs(batch), train=True, generator=gen)
-        loss, _ = spec.loss(outs, batch)
-        # A frozen backbone run under no_grad gets no gradient; the
-        # others are checked below.
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names],
-                                    allow_unused=True)
-        return loss.item(), dict(zip(names, grads))
 
-    lk, gk = loss_and_grads()
+def check_first_step(spec, state, batch, dev, what: str,
+                     frozen=lambda name: False, loss_tol: float = TOL_LOSS,
+                     grad_cos: float = GRAD_COS,
+                     grad_cos_by_param: Optional[dict] = None) -> dict:
+    """The first training step of ``spec``'s model on ``batch`` with the
+    kernels and with their plain versions on the card, under one dropout
+    mask: the loss to ``loss_tol``, each gradient to cosine ``grad_cos``
+    (or the parameter's own bound in ``grad_cos_by_param``; a scalar to
+    TOL_SCALAR_REL relative). Only a parameter that ``frozen`` names may
+    go without a gradient, and then on both paths."""
+    import torch
+
+    names = list(state.params)
+    lk, gk = first_step_grads(spec, state, batch, dev)
     with plain_kernels():
-        lp, gp = loss_and_grads()
+        lp, gp = first_step_grads(spec, state, batch, dev)
+    bounds = grad_cos_by_param or {}
     grad_checks = {}
     for k in names:
         if gk[k] is None or gp[k] is None:
@@ -1586,14 +1667,19 @@ def check_first_step(spec, state, batch, dev, what: str,
             check(rel <= TOL_SCALAR_REL, f"{what}: grad {k} rel err {rel}")
         else:
             cos = torch.nn.functional.cosine_similarity(a, b, 0).item()
+            bound_k = bounds.get(k, grad_cos)
             grad_checks[k] = {"cos": cos}
-            check(cos >= grad_cos, f"{what}: grad {k} cosine {cos} < "
-                  f"{grad_cos}")
+            if bound_k != grad_cos:
+                grad_checks[k]["bound"] = bound_k
+            check(cos >= bound_k, f"{what}: grad {k} cosine {cos} < "
+                  f"{bound_k}")
     worst = min(v.get("cos", 1.0) for v in grad_checks.values())
     frozen = len(names) - len(grad_checks)
+    own = {k: v["bound"] for k, v in grad_checks.items() if "bound" in v}
     print(f"{what} first step: loss {lk:.7f} (kernels) vs {lp:.7f} "
           f"(plain), tol {loss_tol}; lowest gradient cosine {worst:.7f} "
-          f"(bound {grad_cos})"
+          f"(bound {grad_cos}"
+          + (f"; own bounds {own}" if own else "") + ")"
           + (f"; {frozen} frozen parameters get no gradient" if frozen
              else ""))
     check(abs(lk - lp) <= loss_tol, f"{what}: loss {lk} vs plain {lp}")
@@ -4367,6 +4453,45 @@ def profile_fit(trainer, ds, state, steps: int) -> tuple:
     return state, summarize(res, steps, "fit_resident steps")
 
 
+def k1_bound(lens) -> tuple:
+    """K1's (and K1h's) bound at this run's lengths, and its live
+    row-steps: the row-steps that the lengths need read gx once; hseq
+    [T, B, H] and hT are written once; one [H] x [H, 3H] product a carried
+    row-step."""
+    nlen, nb = int(lens.sum().item()), lens.shape[0]
+    return bound(nlen * 3 * H * 4 + nb * 4 + H * 3 * H * 2 + H * 4
+                 + T * nb * H * 4 + nb * H * 4,
+                 2 * carried_steps(lens) * H * 3 * H), nlen
+
+
+def k3_bound(lens) -> tuple:
+    """K3's (and K3h's) bound: the live row-steps of this run's lengths
+    read gx and hseq once; dgx [T, B, 3H] and dU_h are written once. Each
+    carried row-step takes three [H] x [H, 3H] products: the recomputed
+    gh, the U_h^T product and its share of dU_h."""
+    nl, nb = int(lens.sum().item()), lens.shape[0]
+    return bound(nl * 4 * H * 4 + nb * 4 + H * 3 * H * 2 + H * 4
+                 + nb * H * 4 + T * nb * 3 * H * 4 + H * 3 * H * 4 + H * 4,
+                 3 * 2 * carried_steps(lens) * H * 3 * H)
+
+
+def k45_bounds(G: int, Bt: int, Np: int, nv: int, row_bytes: int) -> tuple:
+    """K4's and K5's (and K4h's and K5h's) bounds with G glimpses over Bt
+    questions of nv valid cells (Np a store row): each store row that the
+    batch names is read once (``row_bytes``: rows repeat), and the GEMMs
+    run over the valid cells only: the score GEMM (or dW_v) once,
+    2 B n C H, then per glimpse the weighted sum (or dalpha), 2 B n C, and
+    the score (or dz and dws), 2 (4) B n H."""
+    k4_bytes = (row_bytes + Bt * 4 + Bt * H * 4 + C * H * 2 + G * H * 4
+                + Bt * G * C * 4 + Bt * Np * G * 4 + Bt * Np * H * 2)
+    k4_flops = 2 * Bt * nv * C * (H + G) + 2 * G * Bt * nv * H
+    k5_bytes = (row_bytes + Bt * 4 + Bt * Np * H * 2 + G * H * 4
+                + 2 * Bt * Np * G * 4 + Bt * G * C * 4 + Bt * H * 4
+                + C * H * 4 + G * H * 4)
+    k5_flops = 2 * Bt * nv * C * (H + G) + 4 * G * Bt * nv * H
+    return bound(k4_bytes, k4_flops), bound(k5_bytes, k5_flops)
+
+
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 k45g: dict, k45q: dict, k67: dict, k8: dict, dev) -> dict:
     import torch
@@ -4520,15 +4645,6 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
             "library": None},
     }
 
-    def k1_bound(lens) -> tuple:
-        # The row-steps that this run's lengths need read gx once; hseq
-        # [T, B, H] and hT are written once; one [H] x [H, 3H] product a
-        # carried row-step.
-        nlen, nb = int(lens.sum().item()), lens.shape[0]
-        return bound(nlen * 3 * H * 4 + nb * 4 + H * 3 * H * 2 + H * 4
-                     + T * nb * H * 4 + nb * H * 4,
-                     2 * carried_steps(lens) * H * 3 * H), nlen
-
     times["gru_fwd"]["bound"], nlen = k1_bound(k3["lens"])
     k1_serving["bound"], nlen_serving = k1_bound(k1["lens"])
     times["gru_fwd"]["at_serving_batch"] = k1_serving
@@ -4541,15 +4657,8 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                      2 * batch * N * C * H + 2 * batch * N * C)
 
     times["attention_fwd"]["bound"] = k2_bound(B)
-    # K3: the live row-steps of this run's lengths read gx and hseq once;
-    # dgx [T, B, 3H] and dU_h are written once. Each carried row-step
-    # takes three [H] x [H, 3H] products: the recomputed gh, the U_h^T
-    # product and its share of dU_h.
     Bt, nl3 = B_TRAIN, int(lens3.sum().item())
-    k3_bytes = (nl3 * 4 * H * 4 + Bt * 4 + H * 3 * H * 2 + H * 4
-                + Bt * H * 4 + T * Bt * 3 * H * 4 + H * 3 * H * 4 + H * 4)
-    k3_flops = 3 * 2 * carried_steps(lens3) * H * 3 * H
-    times["gru_bwd"]["bound"] = bound(k3_bytes, k3_flops)
+    times["gru_bwd"]["bound"] = k3_bound(lens3)
     # K4/K5 with G glimpses: each store row that the batch names is read
     # once (rows repeat), and the GEMMs run over the valid cells only: the
     # score GEMM (or dW_v) once, 2 B n C H, then per glimpse the weighted
@@ -4580,23 +4689,15 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
             "library": None},
     }
 
-    def k45_bounds(G: int, row_bytes: int = row_bytes) -> tuple:
-        k4_bytes = (row_bytes + Bt * 4 + Bt * H * 4 + C * H * 2 + G * H * 4
-                    + Bt * G * C * 4 + Bt * Np * G * 4 + Bt * Np * H * 2)
-        k4_flops = 2 * Bt * nv * C * (H + G) + 2 * G * Bt * nv * H
-        k5_bytes = (row_bytes + Bt * 4 + Bt * Np * H * 2 + G * H * 4
-                    + 2 * Bt * Np * G * 4 + Bt * G * C * 4 + Bt * H * 4
-                    + C * H * 4 + G * H * 4)
-        k5_flops = 2 * Bt * nv * C * (H + G) + 4 * G * Bt * nv * H
-        return bound(k4_bytes, k4_flops), bound(k5_bytes, k5_flops)
-
     (times["attention_resident_fwd"]["bound"],
-     times["attention_resident_bwd"]["bound"]) = k45_bounds(1)
+     times["attention_resident_bwd"]["bound"]) = k45_bounds(1, Bt, Np, nv,
+                                                            row_bytes)
     (g2_times["attention_resident_fwd"]["bound"],
-     g2_times["attention_resident_bwd"]["bound"]) = k45_bounds(2)
+     g2_times["attention_resident_bwd"]["bound"]) = k45_bounds(2, Bt, Np, nv,
+                                                               row_bytes)
     (q_times["attention_resident_fwd"]["bound"],
      q_times["attention_resident_bwd"]["bound"]) = k45_bounds(
-         1, row_bytes=uniq * Np * C)  # one byte a code
+         1, Bt, Np, nv, uniq * Np * C)  # one byte a code
     for name, t in g2_times.items():
         times[name]["at_g2"] = t
         times[f"{name}[int8]"] = q_times[name]
@@ -5880,6 +5981,369 @@ def phase_float32_gathered(report: dict, dev, gen) -> dict:
     return out
 
 
+def f16_gru_checks(dev, gen) -> dict:
+    """K1h and K3h against their plain float16 versions at F16_BATCHES
+    (B_TRAIN, then the serving batch), T and H of the main path, lengths
+    1..T, both directions, K3h fed the plain version's hseq. The training
+    batch's inputs are kept for the times."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
+    uh = ((torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1)
+          * lim).half()
+    bhn = torch.randn(H, generator=gen, device=dev) * 0.1
+    checks, keep = [], {}
+    err1 = err3 = 0.0
+    for batch in F16_BATCHES:
+        gx = torch.randn(T, batch, 3 * H, generator=gen, device=dev) * 0.5
+        lens = torch.randint(1, T + 1, (batch,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        ghT = torch.randn(batch, H, generator=gen, device=dev)
+        for reverse in (False, True):
+            hT, hseq = gru.gru_fwd_f16(gx, lens, uh, bhn, reverse=reverse)
+            rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+            got = dict(zip(("dgx", "duh", "dbhn"), gru.gru_bwd_f16(
+                gx, rseq, lens, uh, bhn, ghT, reverse=reverse)))
+            want = dict(zip(("dgx", "duh", "dbhn"), gru.gru_bwd_reference(
+                gx, rseq, lens, uh, bhn, ghT, reverse=reverse)))
+            torch.cuda.synchronize()
+            e1 = (hseq - rseq).abs().max().item()
+            check(bool(torch.isfinite(hseq).all()) and e1 <= TOL_F16_GRU,
+                  f"K1h B={batch} reverse={reverse}: h error {e1} > "
+                  f"{TOL_F16_GRU}")
+            e3 = f32_errors(got, want, {k: TOL_F16_K3_REL for k in got})
+            print(f"K1h B={batch} reverse={reverse}: h {e1:.3e} (limit "
+                  f"{TOL_F16_GRU}); K3h: " + ", ".join(
+                      f"{k} {v['rel_err']:.3e}" for k, v in e3.items())
+                  + f" (limit {TOL_F16_K3_REL} of each output's largest)")
+            checks.append({"batch": batch, "reverse": reverse,
+                           "k1h_abs_err": e1, "k3h": e3})
+            err1 = max(err1, e1)
+            err3 = max(err3, *(v["max_abs_err"] for v in e3.values()))
+        if batch == B_TRAIN:
+            keep = {"gx": gx, "lens": lens, "ghT": ghT, "hseq": rseq}
+    return {**keep, "uh": uh, "bhn": bhn, "checks": checks, "err1": err1,
+            "err3": err3}
+
+
+def f16_resident_checks(dev, gen) -> dict:
+    """K4h and K5h against their plain float16 versions at the main path's
+    shapes (F32_IMAGES images of 196 valid cells, C=2048, H=512) at each of
+    F16_BATCHES (rows repeat), on float16 rows (normalize on and off) and
+    int8 codes (off) at F16_GLIMPSES glimpses, K5h fed the plain version's
+    saved h and alpha. The float16 and int8 stores of one grid are kept
+    for the times."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+
+    store16, _ = f32_store(dev, gen, "float16")
+    g32 = store16.float()
+    g32 = g32 / g32.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+    scale = g32.abs().max().item() / 127
+    stores = {"float16": (store16, 1.0),
+              "int8": ((g32 / scale).round().to(torch.int8), scale)}
+    del g32
+    rows = torch.randint(0, F32_IMAGES, (B_TRAIN,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    rows[1::7] = rows[0]  # questions about one image
+    qh = torch.randn(B_TRAIN, H, generator=gen, device=dev) * 0.5
+    wv = (torch.rand(C, H, generator=gen, device=dev) * 2 - 1) * (
+        6.0 / (C + H)) ** 0.5
+    ws8 = torch.randn(H, 8, generator=gen, device=dev) * 0.05
+    checks = []
+    err4 = err5 = 0.0
+    for rows_dtype, (store, sc) in stores.items():
+        wv16 = (wv * sc).half()
+        for batch in F16_BATCHES:
+            rb, qb = rows[:batch].contiguous(), qh[:batch].contiguous()
+            for G in F16_GLIMPSES:
+                ws = (ws8[:, :G].contiguous() if G > 1
+                      else ws8[:, 0].contiguous())
+                for normalize in ((False,) if rows_dtype == "int8"
+                                  else (False, True)):
+                    kw = dict(n_valid=N, normalize=normalize)
+                    v, a, h = ar.attention_resident_fwd_f16(
+                        store, rb, qb, wv16, ws, save_h=True, **kw)
+                    rv, ra, rh = ar.attention_resident_fwd_reference(
+                        store, rb, qb, wv16, ws, save_h=True, **kw)
+                    g = torch.randn(batch, G * C, generator=gen, device=dev)
+                    sga = torch.randn(ra.shape, generator=gen,
+                                      device=dev) * 0.1
+                    got5 = dict(zip(("dqh", "dwv", "dws"),
+                                    ar.attention_resident_bwd_f16(
+                                        store, rb, rh, ws, ra, g, sga,
+                                        **kw)))
+                    want5 = dict(zip(("dqh", "dwv", "dws"),
+                                     ar.attention_resident_bwd_reference(
+                                         store, rb, rh, ws, ra, g, sga,
+                                         **kw)))
+                    torch.cuda.synchronize()
+                    check(h.dtype == torch.float16, f"K4h saved h {h.dtype}")
+                    ea = (a - ra).abs().max().item()
+                    check(ea <= TOL_ALPHA, f"K4h alpha error {ea}")
+                    got4, want4 = {"h": h}, {"h": rh}
+                    lim4 = {"h": TOL_F16_K4_H_REL}
+                    for k in range(G):
+                        got4[f"v_att_{k}"] = v[:, k * C:(k + 1) * C]
+                        want4[f"v_att_{k}"] = rv[:, k * C:(k + 1) * C]
+                        lim4[f"v_att_{k}"] = TOL_F16_VATT_REL
+                    e4 = f32_errors(got4, want4, lim4)
+                    e5 = f32_errors(got5, want5, {
+                        "dqh": G * TOL_F16_K5_REL, "dwv": G * TOL_F16_K5_REL,
+                        "dws": TOL_F16_K5_REL})
+                    vatt = max(x["rel_err"] for k, x in e4.items()
+                               if k.startswith("v_att"))
+                    print(f"K4h/K5h {rows_dtype} rows, B={batch}, G={G}, "
+                          f"normalize={normalize}: v_att {vatt:.3e}, alpha "
+                          f"{ea:.3e}, h {e4['h']['rel_err']:.3e}; dqh "
+                          f"{e5['dqh']['rel_err']:.3e}, dwv "
+                          f"{e5['dwv']['rel_err']:.3e}, dws "
+                          f"{e5['dws']['rel_err']:.3e}")
+                    checks.append({"rows": rows_dtype, "batch": batch,
+                                   "glimpses": G, "normalize": normalize,
+                                   "alpha_abs_err": ea, "k4h": e4,
+                                   "k5h": e5})
+                    err4 = max(err4, ea,
+                               *(x["max_abs_err"] for x in e4.values()))
+                    err5 = max(err5, *(x["max_abs_err"] for x in e5.values()))
+    return {"stores": stores, "rows": rows, "qh": qh, "wv": wv,
+            "ws": ws8[:, 0].contiguous(), "checks": checks, "err4": err4,
+            "err5": err5}
+
+
+def f16_times(k13: dict, k45: dict, dev) -> dict:
+    """Each float16 kernel at the main path's shapes (K4h/K5h at G=1,
+    normalize off, as the prenormalized store runs) beside its bf16
+    counterpart on the same inputs (bf16 U_h, W_v and rows: the same work
+    and bytes), in turns (bf16, f16, f16, bf16), each the median of RUNS
+    timings; its plain version's time, the library call's (cuDNN's GRU
+    and cuBLAS's GEMM in float16) and the bf16 row's bound."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    gx, lens, uh, bhn = k13["gx"], k13["lens"], k13["uh"], k13["bhn"]
+    hseq, ghT = k13["hseq"], k13["ghT"]
+    uhb = uh.to(torch.bfloat16)
+    Bt = lens.shape[0]
+
+    def turns(bf16, f16) -> dict:
+        t = [time_cuda(f, buf) for f in (bf16, f16, f16, bf16)]
+        return {"kernel": (t[1] + t[2]) / 2, "bf16_ms": (t[0] + t[3]) / 2,
+                "turns_ms": t}
+
+    times = {}
+    # Library yardstick of K1h and K3h: cuDNN's GRU in float16 over the
+    # packed lengths; it also takes the input projection.
+    lib = torch.nn.GRU(D, H).to(dev, torch.float16)
+    lib.flatten_parameters()
+    x = torch.randn(T, Bt, D, device=dev, dtype=torch.float16,
+                    requires_grad=True)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(),
+                                                     enforce_sorted=False)
+    with torch.inference_mode():
+        lib_fwd = time_cuda(lambda: lib(packed), buf)
+    _, h_n = lib(packed)
+    wrt, g_n = [x, *lib.parameters()], torch.randn_like(h_n)
+    lib_bwd = time_cuda(
+        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+    times["gru_fwd_f16"] = {
+        **turns(lambda: gru.gru_fwd(gx, lens, uhb, bhn),
+                lambda: gru.gru_fwd_f16(gx, lens, uh, bhn)),
+        "plain": time_cuda(lambda: gru.gru_reference(gx, lens, uh, bhn), buf),
+        "library": lib_fwd,
+        "library_call": f"torch.nn.GRU({D}, {H}) in float16 over a packed "
+                        "sequence, input projection included",
+        "bound": k1_bound(lens)[0]}
+    times["gru_bwd_f16"] = {
+        **turns(lambda: gru.gru_bwd(gx, hseq, lens, uhb, bhn, ghT),
+                lambda: gru.gru_bwd_f16(gx, hseq, lens, uh, bhn, ghT)),
+        "plain": time_cuda(lambda: gru.gru_bwd_reference(
+            gx, hseq, lens, uh, bhn, ghT), buf),
+        "library": lib_bwd,
+        "library_call": f"backward of torch.nn.GRU({D}, {H}) in float16 "
+                        "over a packed sequence, input-projection gradients "
+                        "included",
+        "bound": k3_bound(lens)}
+    rows, qh, ws = k45["rows"], k45["qh"], k45["ws"]
+    kw = dict(n_valid=N, normalize=False)
+    uniq = int(torch.unique(rows).numel())
+    for rows_dtype, (st, sc) in k45["stores"].items():
+        int8 = rows_dtype == "int8"
+        sfx = "[int8]" if int8 else ""
+        wv16 = (k45["wv"] * sc).half()
+        wvb = (k45["wv"] * sc).to(torch.bfloat16)
+        stb = st if int8 else st.to(torch.bfloat16)
+        Np = st.shape[1]
+        v16, a16, h16 = ar.attention_resident_fwd_f16(st, rows, qh, wv16, ws,
+                                                      save_h=True, **kw)
+        _, ab, hb = ar.attention_resident_fwd(stb, rows, qh, wvb, ws,
+                                              save_h=True, **kw)
+        g = torch.randn(Bt, C, device=dev)
+        sga = torch.randn(a16.shape, device=dev) * 0.1
+        # The library's products in float16 on rows gathered apart: the
+        # score GEMM [B*Np, C] x [C, H] and the dW_v GEMM [C, B*n] x
+        # [B*n, H].
+        v16g = st[rows.long()].half().reshape(Bt * Np, C)
+        vt16 = st[rows.long()][:, :N].half().reshape(Bt * N, C).t()
+        dzr = torch.randn(Bt * N, H, device=dev, dtype=torch.float16)
+        b4, b5 = k45_bounds(1, Bt, Np, N, uniq * Np * C * (1 if int8 else 2))
+        times[f"attention_resident_fwd_f16{sfx}"] = {
+            **turns(lambda: ar.attention_resident_fwd(
+                stb, rows, qh, wvb, ws, save_h=True, **kw),
+                lambda: ar.attention_resident_fwd_f16(
+                    st, rows, qh, wv16, ws, save_h=True, **kw)),
+            "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
+                st, rows, qh, wv16, ws, save_h=True, **kw), buf),
+            "library": time_cuda(lambda: torch.matmul(v16g, wv16), buf),
+            "library_call": f"torch.matmul([{Bt * Np}, {C}] f16, [{C}, {H}] "
+                            "f16): the score product alone, on rows "
+                            "gathered apart",
+            "library_gather_ms": time_cuda(
+                lambda: st[rows.long()].half(), buf),
+            "bound": b4}
+        times[f"attention_resident_bwd_f16{sfx}"] = {
+            **turns(lambda: ar.attention_resident_bwd(
+                stb, rows, hb, ws, ab, g, sga, **kw),
+                lambda: ar.attention_resident_bwd_f16(
+                    st, rows, h16, ws, a16, g, sga, **kw)),
+            "plain": time_cuda(lambda: ar.attention_resident_bwd_reference(
+                st, rows, h16, ws, a16, g, sga, **kw), buf),
+            "library": time_cuda(lambda: torch.matmul(vt16, dzr), buf),
+            "library_call": f"torch.matmul([{C}, {Bt * N}] f16, [{Bt * N}, "
+                            f"{H}] f16): the dW_v product alone, on rows "
+                            "gathered apart",
+            "bound": b5}
+    for name, t in times.items():
+        print(f"{name}: kernel {t['kernel']:.4f} ms beside bf16 "
+              f"{t['bf16_ms']:.4f} ms (turns bf16, f16, f16, bf16: "
+              + ", ".join(f"{x:.4f}" for x in t["turns_ms"])
+              + f"), plain {t['plain']:.4f} ms, library "
+              f"{t['library']:.4f} ms ({t['library_call']}), bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    return times
+
+
+def f16_grad_bounds(spec, state, batch, dev) -> dict:
+    """Each parameter's first-step gradient bound of a float16 run: bf16's
+    GRAD_COS, unless the plain path itself moves that gradient further
+    when the resident op's v_att is perturbed by F16_PERTURB of itself
+    (what a kernel's order of sums does): then 1 - F16_SENSITIVITY x
+    (1 - that cosine). Returns {parameter: bound} and prints the
+    cosines under the perturbation."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+
+    with plain_kernels():
+        _, base = first_step_grads(spec, state, batch, dev)
+        plain_fwd = ar.attention_resident_fwd
+        gen = torch.Generator(device=dev).manual_seed(11)
+
+        def perturbed(*args, **kw):
+            v, alpha, h = plain_fwd(*args, **kw)
+            noise = torch.randn(v.shape, generator=gen, device=dev)
+            return v * (1 + F16_PERTURB * noise), alpha, h
+
+        ar.attention_resident_fwd = perturbed
+        _, moved = first_step_grads(spec, state, batch, dev)
+    cos = {k: torch.nn.functional.cosine_similarity(
+        moved[k].flatten().float(), base[k].flatten().float(), 0).item()
+        for k in base if base[k] is not None and base[k].numel() > 1}
+    low = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    print(f"plain path with v_att x (1 + {F16_PERTURB} N(0, 1)): lowest "
+          f"gradient cosines {low}")
+    return {k: min(F16_GRAD_COS, 1 - F16_SENSITIVITY * (1 - c))
+            for k, c in cos.items()}
+
+
+def f16_training(dev, quantize: str) -> dict:
+    """fit_resident at full width in float16 on the main corpus for
+    F16_STEPS steps, on its float16 store or (``quantize`` "int8") the int8
+    codes of it: the store's dtype, the first step against the plain path,
+    launch counts (the float16 kernels alone), step times; then the
+    resident evaluator."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    steps = F16_STEPS
+    what = "float16 stage 2" + (" (int8 store)" if quantize else "")
+    sfx = "[int8]" if quantize else ""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f16_") as tmp:
+        cfg = stage2_config(tmp, steps, **{
+            "model.dtype": "float16", "train.store_quantize": quantize})
+        ds = load_dataset(cfg, "train")
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        check(spec.module.dtype == torch.float16,
+              f"{what}: model dtype {spec.module.dtype}")
+        trainer = Trainer(cfg, spec, train_dir=tmp)
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        want = torch.int8 if quantize else torch.float16
+        check(data["grid"].dtype == want,
+              f"{what}: store uploaded as {data['grid'].dtype}")
+        out["store_dtype"] = str(data["grid"].dtype)
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        bounds = f16_grad_bounds(spec, state, batch, dev)
+        out["first_step"] = check_first_step(
+            spec, state, batch, dev, what, loss_tol=TOL_F16_LOSS,
+            grad_cos=F16_GRAD_COS, grad_cos_by_param=bounds)
+        del data, make_batch, batch
+
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_launches(launches, {
+            "gru_fwd_f16": steps, "gru_bwd_f16": 3 * steps,
+            f"attention_resident_fwd_f16{sfx}": 2 * steps,
+            f"attention_resident_bwd_f16{sfx}": 3 * steps},
+            f"{what} training over {steps} steps")
+        out.update(launches=launches, **read_steps(
+            tmp, steps, what, "questions", warmup=F16_WARMUP))
+        reset_counts()
+        metrics, preds = trainer.evaluate_resident(state, val)
+        torch.cuda.synchronize()
+        batches = -(-VAL_QUESTIONS // B_TRAIN)
+        out["eval_launches"] = read_counts()
+        check_launches(out["eval_launches"], {
+            "gru_fwd_f16": batches,
+            f"attention_resident_fwd_f16{sfx}": 2 * batches},
+            f"{what} resident evaluation")
+        check(np.isfinite(metrics["loss"]) and len(preds) == VAL_QUESTIONS,
+              f"{what} evaluation: {metrics}, {len(preds)} predictions")
+        print(f"{what} resident evaluation: {metrics}")
+        out["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
+        trainer.close()
+    return out
+
+
+def phase_float16(report: dict, dev, gen) -> dict:
+    """Phase 28, model.dtype float16 on the main path: the float16 kernels
+    K1h, K3h, K4h and K5h against their plain versions at the main path's
+    shapes and timed beside their bf16 counterparts; fit_resident at full
+    width in float16 on the float16 store and on the int8 store, each
+    with its first step against the plain path, launch counts and step
+    times, then the resident evaluator."""
+    out = {"k13": f16_gru_checks(dev, gen)}
+    out["k45"] = f16_resident_checks(dev, gen)
+    out["times"] = f16_times(out["k13"], out["k45"], dev)
+    out["k45"].pop("stores")
+    out["training"] = f16_training(dev, "")
+    out["training_int8"] = f16_training(dev, "int8")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -5969,6 +6433,11 @@ def main(argv=None) -> int:
             **{k: v for k, v in f32g.items() if k not in ("k28", "k67")},
             "checks": {"k2f_k8f": f32g["k28"]["checks"],
                        "k6f": f32g["k67"]["k6f"], "k7f": f32g["k67"]["k7f"]}}
+        f16 = phase_float16(report, dev, gen)
+        report["float16"] = {  # the kernels' inputs stay out of the report
+            **{k: v for k, v in f16.items() if k not in ("k13", "k45")},
+            "checks": {"k1h_k3h": f16["k13"]["checks"],
+                       "k4h_k5h": f16["k45"]["checks"]}}
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -6300,6 +6769,69 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": paths[path][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err, **extra, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library"],
+            "library_call": t["library_call"]})
+    # The float16 kernels of phase 28: the launches of its float16
+    # training (K4h/K5h on int8 rows: of its int8-store training), their
+    # checks at both batches, their times at the training batch beside
+    # the bf16 kernel's (bf16_ms, turns_ms), the bf16 row's bound.
+    paths.update(float16_training=f16["training"]["launches"],
+                 float16_eval=f16["training"]["eval_launches"],
+                 float16_int8_training=f16["training_int8"]["launches"],
+                 float16_int8_eval=f16["training_int8"]["eval_launches"])
+    k13h, k45h, f16t = f16["k13"], f16["k45"], f16["times"]
+    k4h_checks = [{k: c[k] for k in ("rows", "batch", "glimpses",
+                                     "normalize", "alpha_abs_err", "k4h")}
+                  for c in k45h["checks"]]
+    k5h_checks = [{k: c[k] for k in ("rows", "batch", "glimpses",
+                                     "normalize", "k5h")}
+                  for c in k45h["checks"]]
+    for name, source, replaces, err, path, extra in (
+            ("gru_fwd_f16", "gru_fwd_f16.cu", ref + "gru.py:227",
+             k13h["err1"], "float16_training", {
+                 "tol": TOL_F16_GRU,
+                 "checks": [{k: c[k] for k in ("batch", "reverse",
+                                               "k1h_abs_err")}
+                            for c in k13h["checks"]]}),
+            ("gru_bwd_f16", "gru_bwd_f16.cu", ref + "gru.py:259",
+             k13h["err3"], "float16_training", {
+                 "tol_rel": TOL_F16_K3_REL,
+                 "checks": [{k: c[k] for k in ("batch", "reverse", "k3h")}
+                            for c in k13h["checks"]]}),
+            ("attention_resident_fwd_f16", "attention_resident_fwd_f16.cu",
+             ref + "attention_resident.py:150", k45h["err4"],
+             "float16_training", {
+                 "tol_h_rel": TOL_F16_K4_H_REL,
+                 "tol_vatt_rel": TOL_F16_VATT_REL, "tol_alpha": TOL_ALPHA,
+                 "glimpses": list(F16_GLIMPSES),
+                 "checks": [c for c in k4h_checks if c["rows"] != "int8"]}),
+            ("attention_resident_bwd_f16", "attention_resident_bwd_f16.cu",
+             ref + "attention_resident.py:208", k45h["err5"],
+             "float16_training", {
+                 "tol_rel": TOL_F16_K5_REL, "glimpses": list(F16_GLIMPSES),
+                 "checks": [c for c in k5h_checks if c["rows"] != "int8"]}),
+            ("attention_resident_fwd_f16[int8]",
+             "attention_resident_fwd_f16.cu",
+             ref + "attention_resident.py:174", k45h["err4"],
+             "float16_int8_training", {
+                 "tol_h_rel": TOL_F16_K4_H_REL,
+                 "tol_vatt_rel": TOL_F16_VATT_REL,
+                 "glimpses": list(F16_GLIMPSES),
+                 "checks": [c for c in k4h_checks if c["rows"] == "int8"]}),
+            ("attention_resident_bwd_f16[int8]",
+             "attention_resident_bwd_f16.cu",
+             ref + "attention_resident.py:235", k45h["err5"],
+             "float16_int8_training", {
+                 "tol_rel": TOL_F16_K5_REL, "glimpses": list(F16_GLIMPSES),
+                 "checks": [c for c in k5h_checks if c["rows"] == "int8"]})):
+        t = f16t[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": err, **extra, "ms": t["kernel"],
+            "bf16_ms": t["bf16_ms"], "turns_ms": t["turns_ms"],
             "plain_ms": t["plain"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library"],
             "library_call": t["library_call"]})

@@ -146,7 +146,7 @@ def test_dz_stage_runs_on_the_score_mainloop():
     names."""
     assert [p.name for p in kernels.sources("attention_bwd")] == [
         "attention_bwd.cu", "attention_dwv.cuh", "score_gemm.cuh",
-        "store_rows.cuh"]
+        "store_rows.cuh", "elem16.cuh"]
     text = (kernels.CSRC / "attention_bwd.cu").read_text()
     assert "mma.h" not in text and "wmma" not in text
     assert "score_gemm::mainloop<__nv_bfloat16, BN>" in text

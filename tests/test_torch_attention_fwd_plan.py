@@ -128,7 +128,7 @@ def test_k2_runs_the_score_tile_on_the_mainloop():
     epilogue rounds z * r and + qh as two operations."""
     assert [p.name for p in kernels.sources("attention_fwd")] == [
         "attention_fwd.cu", "score_gemm.cuh", "score_tile.cuh",
-        "store_rows.cuh"]
+        "store_rows.cuh", "elem16.cuh"]
     text = (kernels.CSRC / "attention_fwd.cu").read_text()
     assert '#include "score_tile.cuh"' in text
     assert '#include "score_gemm.cuh"' in text
@@ -137,7 +137,7 @@ def test_k2_runs_the_score_tile_on_the_mainloop():
     assert "mma.h" not in text and "wmma" not in text.lower()
     assert text.count("++*launched") == 2
     k4 = (kernels.CSRC / "attention_resident_fwd.cu").read_text()
-    assert "score_tile::launch<T>(" in k4 and "CellRows<T>{" in k4
+    assert "score_tile::launch<T, E>(" in k4 and "CellRows<T>{" in k4
     assert "__global__" not in k4.split("attn_res_wsum_kernel")[0]
     tile = (kernels.CSRC / "score_tile.cuh").read_text()
     assert "score_gemm::mainloop<T, BN>(rows," in tile

@@ -235,11 +235,11 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     K3 the mma.sync primitives they share; the per-step kernel and WMMA
     are gone from K1/K6's header."""
     assert [p.name for p in kernels.sources("bigru_fwd")] == [
-        "bigru_fwd.cu", "gru_fwd_step.cuh", "mma_sync.cuh"]
+        "bigru_fwd.cu", "gru_fwd_step.cuh", "mma_sync.cuh", "elem16.cuh"]
     header = (kernels.CSRC / "gru_fwd_step.cuh").read_text()
     assert "gru_step_kernel" not in header and "wmma" not in header
     assert [p.name for p in kernels.sources("gru_bwd")] == [
-        "gru_bwd.cu", "gru_bwd_step.cuh", "mma_sync.cuh"]
+        "gru_bwd.cu", "gru_bwd_step.cuh", "mma_sync.cuh", "elem16.cuh"]
     (tmp_path / "k.cu").write_text('#include "step.cuh"\nint f();\n')
     (tmp_path / "step.cuh").write_text("// v1\n")
     monkeypatch.setattr(kernels, "CSRC", tmp_path)

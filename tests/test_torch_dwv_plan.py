@@ -89,7 +89,7 @@ def test_dwv_gemm_is_one_header_of_k5_k8_and_p2():
         rows = [] if name == "attention_bwd" else ["attention_rows.cuh"]
         assert [p.name for p in kernels.sources(name)] == [
             f"{name}.cu", "attention_dwv.cuh", *rows, "score_gemm.cuh",
-            "store_rows.cuh"]
+            "store_rows.cuh", "elem16.cuh"]
 
 
 def test_dwv_gemm_runs_on_wgmma_alone():
@@ -97,4 +97,4 @@ def test_dwv_gemm_runs_on_wgmma_alone():
     operands (score_gemm.cuh's wrappers with tnsp 1): no WMMA is left."""
     text = (kernels.CSRC / "attention_dwv.cuh").read_text()
     assert "mma.h" not in text and "wmma" not in text
-    assert "score_gemm::mma<BN, 1>" in text
+    assert "score_gemm::mma<BN, 1, E>" in text

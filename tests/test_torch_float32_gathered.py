@@ -373,6 +373,11 @@ def _wrapper_calls(dt):
     }
 
 
+# The wrappers whose kernels take float16 (K1h, K3h, K4h, K5h).
+F16_WRAPPERS = ("gru_fwd", "gru_bwd", "attention_resident_fwd",
+                "attention_resident_bwd")
+
+
 @pytest.mark.parametrize("wrapper", ["attention_fwd", "attention_bwd",
                                      "gru_fwd", "gru_bwd", "bigru_fwd",
                                      "bigru_bwd", "attention_resident_fwd",
@@ -380,10 +385,18 @@ def _wrapper_calls(dt):
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_wrappers_refuse_other_dtypes_naming_the_float16_item(wrapper,
                                                               dtype):
-    """Every kernel wrapper takes bf16 (K1-K8) or float32 (K1f-K8f): a
-    float16 or float64 model raises TypeError naming ROADMAP.md's float16
-    item before anything is launched."""
+    """Every kernel wrapper takes bf16 (K1-K8) and float32 (K1f-K8f), and
+    those of K1, K3, K4 and K5 float16 too (K1h, K3h, K4h, K5h): a float64
+    model, and a float16 one at K2, K8, K6 or K7, raises TypeError naming
+    ROADMAP.md's float16 item before anything is launched. A float16
+    tensor that a wrapper takes gets past the dtype to the device check:
+    on the CPU the ops run the plain versions, so the wrapper refuses a CPU
+    tensor with ValueError."""
     assert kernels.F16_PENDING == "ROADMAP.md, section 2, item 3"
+    if dtype == torch.float16 and wrapper in F16_WRAPPERS:
+        with pytest.raises(ValueError, match="CUDA"):
+            _wrapper_calls(dtype)[wrapper]()
+        return
     with pytest.raises(TypeError, match=kernels.F16_PENDING):
         _wrapper_calls(dtype)[wrapper]()
 

@@ -108,11 +108,11 @@ def test_k3_and_k7_share_one_persistent_body():
     per-step kernel and the WMMA dU_h GEMM are gone."""
     for name in ("gru_bwd", "bigru_bwd"):
         assert [p.name for p in kernels.sources(name)] == [
-            f"{name}.cu", "gru_bwd_step.cuh", "mma_sync.cuh"]
+            f"{name}.cu", "gru_bwd_step.cuh", "mma_sync.cuh", "elem16.cuh"]
         text = (kernels.CSRC / f"{name}.cu").read_text()
         assert "<<<" not in text and "__global__" not in text
         assert "for (int k" not in text
-        assert "bptt_run(" in text
+        assert "bptt_run<" in text
     step = (kernels.CSRC / "gru_bwd_step.cuh").read_text()
     assert "cudaLaunchCooperativeKernel" in step
     assert step.count("__global__") == 3  # step, dU_h GEMM, db_hn sum

@@ -201,9 +201,9 @@ def test_gru_fwd_is_one_persistent_launch_on_mma_sync():
     neither C interface launches a kernel of its own."""
     for name in ("gru_fwd", "bigru_fwd"):
         assert [p.name for p in kernels.sources(name)] == [
-            f"{name}.cu", "gru_fwd_step.cuh", "mma_sync.cuh"]
+            f"{name}.cu", "gru_fwd_step.cuh", "mma_sync.cuh", "elem16.cuh"]
         text = (kernels.CSRC / f"{name}.cu").read_text()
-        assert "seq_run(" in text and "seq_config(" in text
+        assert "seq_run<" in text and "seq_config<" in text
         assert "cudaLaunch" not in text and text.count("<<<") == 0
         assert "gru_step_kernel" not in text and "wmma" not in text
         assert "template" not in text
@@ -211,6 +211,9 @@ def test_gru_fwd_is_one_persistent_launch_on_mma_sync():
     assert header.count("cudaLaunchCooperativeKernel(") == 1
     assert header.count("__global__") == 1 and "<<<" not in header
     assert "gru_step_kernel" not in header and "wmma" not in header
-    assert "mma.h" not in header and "template" not in header
+    assert "mma.h" not in header
+    # One template parameter, the element type (bf16 in K1/K6, float16 in
+    # K1h): each library instantiates the kernel once.
+    assert "template <class E>\n__global__" in header
     assert not any("gru_step_kernel" in p.read_text()
                    for p in kernels.CSRC.iterdir())

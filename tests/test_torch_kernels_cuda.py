@@ -297,7 +297,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru.gru_fwd(gx, lens, uh, bhn)
     gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 32)
     with pytest.raises(TypeError, match="uh"):
-        gru.gru_fwd(gx, lens, uh.half(), bhn)
+        gru.gru_fwd(gx, lens, uh.double(), bhn)
     v = torch.zeros(2, 9, 64, device=dev)
     qh, ws = torch.zeros(2, 128, device=dev), torch.zeros(128, device=dev)
     wv = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
@@ -1784,10 +1784,11 @@ def test_attention_resident_f32_kernels_are_deterministic(dev):
 
 
 def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
-    """Every kernel takes bf16 or float32: float16 and float64 raise
-    TypeError naming ROADMAP.md's float16 item (kernels.F16_PENDING), on
-    the card as on the CPU; a chain pair whose U_h dtypes differ raises
-    too."""
+    """Every kernel takes bf16 and float32, and K1, K3, K4 and K5 float16
+    too (K1h, K3h, K4h, K5h): float64, and float16 at K2, K8, K6 or K7,
+    raise TypeError naming ROADMAP.md's float16 item (kernels.F16_PENDING),
+    on the card as on the CPU, while the float16 kernels launch and count
+    their own launches; a chain pair whose U_h dtypes differ raises too."""
     item = kernels.F16_PENDING
     v, qh, wv, ws = _k2_inputs(dev, 2, 9, 128, 128)
     ds, r = torch.zeros(2, 9, device=dev), torch.ones(2, 9, device=dev)
@@ -1804,21 +1805,40 @@ def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
         with pytest.raises(TypeError, match=item):
             attention.attention_bwd(v.to(dt), qh, wv.to(dt), ws, ds, r, True)
         with pytest.raises(TypeError, match=item):
-            gru.gru_fwd(gx, lens, uh.to(dt), bhn)
-        with pytest.raises(TypeError, match=item):
-            gru.gru_bwd(gx, hseq, lens, uh.to(dt), bhn, ghT)
-        with pytest.raises(TypeError, match=item):
             gru.bigru_fwd(gx, gx, lens, uh.to(dt), uh.to(dt), bhn, bhn)
         with pytest.raises(TypeError, match=item):
             gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.to(dt), uh.to(dt),
                           bhn, bhn, ghT, ghT)
-        with pytest.raises(TypeError, match=item):
-            ar.attention_resident_fwd(store, rows, qh4, wv4.to(dt), ws4,
-                                      n_valid=9, normalize=False)
-        with pytest.raises(TypeError, match=item):
-            ar.attention_resident_bwd(store, rows, h.to(dt), ws4, al,
-                                      torch.zeros(2, 128, device=dev), al,
-                                      n_valid=9, normalize=False)
+    with pytest.raises(TypeError, match=item):
+        gru.gru_fwd(gx, lens, uh.double(), bhn)
+    with pytest.raises(TypeError, match=item):
+        gru.gru_bwd(gx, hseq, lens, uh.double(), bhn, ghT)
+    with pytest.raises(TypeError, match=item):
+        ar.attention_resident_fwd(store, rows, qh4, wv4.double(), ws4,
+                                  n_valid=9, normalize=False)
+    with pytest.raises(TypeError, match=item):
+        ar.attention_resident_bwd(store, rows, h.double(), ws4, al,
+                                  torch.zeros(2, 128, device=dev), al,
+                                  n_valid=9, normalize=False)
+    names = ("gru_fwd_f16", "gru_bwd_f16", "attention_resident_fwd_f16",
+             "attention_resident_bwd_f16")
+    mods = (gru, gru, ar, ar)
+    before = [getattr(m, n).launches for m, n in zip(mods, names)]
+    gru.gru_fwd(gx, lens, uh.half(), bhn)
+    gru.gru_bwd(gx, hseq, lens, uh.half(), bhn, ghT)
+    st16 = store.half()
+    ar.attention_resident_fwd(st16, rows, qh4, wv4.half(), ws4, n_valid=9,
+                              normalize=False)
+    ar.attention_resident_bwd(st16, rows, h.half(), ws4, al,
+                              torch.zeros(2, 128, device=dev), al,
+                              n_valid=9, normalize=False)
+    torch.cuda.synchronize()
+    assert [getattr(m, n).launches - c
+            for m, n, c in zip(mods, names, before)] == [1, 3, 2, 3]
+    # A bf16 store under float16 weights (or the other way) is refused.
+    with pytest.raises(TypeError, match="store must be float16 or int8"):
+        ar.attention_resident_fwd(store, rows, qh4, wv4.half(), ws4,
+                                  n_valid=9, normalize=False)
     with pytest.raises(TypeError, match="uhb"):
         gru.bigru_fwd(gx, gx, lens, uh.float(), uh, bhn, bhn)
     with pytest.raises(TypeError, match="uhb"):
@@ -2027,3 +2047,213 @@ def test_fused_bigru_encoder_float32_goes_through_k6f_k7f(dev):
     assert torch.equal(res[0][0], res[1][0])
     for k, a in res[0][1].items():
         assert torch.equal(a, res[1][1][k]), k
+
+
+# ---------------------------------------------------------------------------
+# The float16 kernels K1h, K3h, K4h, K5h: K1's, K3's, K4's and K5's bodies
+# built with float16 as their element type. Each limit is the bf16 kernel's
+# with float16's step, 2^-11 of a value, in place of bf16's 2^-8: K1h's h
+# to TOL_GRU / 8, K3h to 2^-11 of each output's largest value, K4h's saved
+# h to 2^-10 (one float16 step of the largest value), K5h to 2^-12 (G times
+# that for dqh and dW_v). v_att keeps bf16's 2^-10: its weights alpha * r
+# are rounded to float16, and the two versions' alpha differ by ~4e-5 of
+# themselves, the same way within a question (the softmax's sum), which is
+# a tenth of a float16 step: many weights land one step apart, all in one
+# direction, and each moves its term by at most 2^-10 of it (v >= 0), so
+# v_att moves by at most 2^-10 of itself. alpha keeps K2/K4's 1e-5.
+# ---------------------------------------------------------------------------
+
+TOL_F16_GRU = 2e-3 / 8
+TOL_F16_K3 = 2.0 ** -11
+TOL_F16_K4_H = 2.0 ** -10
+TOL_F16_VATT = 2.0 ** -10
+TOL_F16_K5 = 2.0 ** -12
+
+
+@pytest.mark.parametrize("B", [1, 65, 256])
+@pytest.mark.parametrize("T", [1, 26])
+@pytest.mark.parametrize("H", [64, 512])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_f16_kernels_match_plain(dev, B, T, H, reverse):
+    """K1h and K3h against their plain versions on float16 U_h, through
+    the dispatch of gru_fwd and gru_bwd; lengths hold 0 and T. Only the
+    float16 kernels' counters move: one persistent launch for K1h, three
+    launches for K3h."""
+    gx, lens, uh, bhn = _gru_inputs(dev, T, B, H)
+    uh = uh.half()
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    names = ("gru_fwd_f16", "gru_bwd_f16", "gru_fwd", "gru_bwd",
+             "gru_fwd_f32", "gru_bwd_f32")
+    before = [getattr(gru, n).launches for n in names]
+    hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=reverse)
+    rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    ghT = torch.randn(B, H, device=dev)
+    got = gru.gru_bwd(gx, rseq, lens, uh, bhn, ghT, reverse=reverse)
+    want = gru.gru_bwd_reference(gx, rseq, lens, uh, bhn, ghT,
+                                 reverse=reverse)
+    torch.cuda.synchronize()
+    assert [getattr(gru, n).launches - c
+            for n, c in zip(names, before)] == [1, 3, 0, 0, 0, 0]
+    assert torch.equal(hT, hseq[0 if reverse else -1])
+    assert (hseq - rseq).abs().max().item() <= TOL_F16_GRU
+    for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= TOL_F16_K3, (name, _rel(a, b))
+
+
+def test_gru_f16_kernels_are_deterministic(dev):
+    gx, lens, uh, bhn = _gru_inputs(dev, 26, 256, 512)
+    uh = uh.half()
+    a = gru.gru_fwd_f16(gx, lens, uh, bhn)
+    b = gru.gru_fwd_f16(gx, lens, uh, bhn)
+    ghT = torch.randn(256, 512, device=dev)
+    c = gru.gru_bwd_f16(gx, a[1], lens, uh, bhn, ghT)
+    d = gru.gru_bwd_f16(gx, a[1], lens, uh, bhn, ghT)
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def _f16_resident_inputs(dev, M, n_valid, C, H, B, G, int8, seed=7):
+    """K4h/K5h's inputs: float16 rows (or the int8 codes of their
+    normalized cells, W_v scaled as the op scales it), float16 W_v."""
+    store, rows, qh, _, _ = _resident_inputs(dev, M, n_valid, C, H, B,
+                                             seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    grid, scale = store.float(), 1.0
+    if int8:
+        grid = grid / grid.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+        scale = grid.abs().max().item() / 127
+        store = (grid / scale).round().to(torch.int8)
+    else:
+        store = grid.half()
+    wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1) * (
+        6.0 / (C + H)) ** 0.5 * scale).half()
+    ws = torch.randn(H, G, generator=g, device=dev) * 0.05
+    return store, rows, qh, wv, (ws if G > 1 else ws[:, 0].contiguous())
+
+
+@pytest.mark.parametrize("shape", [(5, 13, 128, 128, 6),
+                                   (64, 196, 2048, 512, 256)])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("int8,normalize", [(False, True), (False, False),
+                                            (True, False)])
+def test_attention_resident_f16_kernels_match_plain(dev, shape, G, int8,
+                                                    normalize):
+    """K4h and K5h against their plain versions on float16 rows and on
+    int8 codes (widened to float16), at 1, 2 and 8 glimpses, through the
+    dispatch of attention_resident_fwd / _bwd (float16 wv and h); K5h fed
+    the plain version's saved h and alpha. The bf16 kernels' counters stay
+    where they were, and the float16 ones count int8 rows apart."""
+    M, n_valid, C, H, B = shape
+    store, rows, qh, wv, ws = _f16_resident_inputs(dev, M, n_valid, C, H, B,
+                                                   G, int8)
+    attr = "launches_int8" if int8 else "launches"
+    fwd16, bwd16 = ar.attention_resident_fwd_f16, ar.attention_resident_bwd_f16
+    f0, b0 = getattr(fwd16, attr), getattr(bwd16, attr)
+    k45 = (ar.attention_resident_fwd.launches,
+           ar.attention_resident_fwd.launches_int8,
+           ar.attention_resident_bwd.launches,
+           ar.attention_resident_bwd.launches_int8)
+    kw = dict(n_valid=n_valid, normalize=normalize)
+    v, a, h = ar.attention_resident_fwd(store, rows, qh, wv, ws, save_h=True,
+                                        **kw)
+    rv, ra, rh = ar.attention_resident_fwd_reference(store, rows, qh, wv, ws,
+                                                     save_h=True, **kw)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gv = torch.randn(B, G * C, generator=gen, device=dev)
+    sga = torch.randn(ra.shape, generator=gen, device=dev) * 0.1
+    got = ar.attention_resident_bwd(store, rows, rh, ws, ra, gv, sga, **kw)
+    want = ar.attention_resident_bwd_reference(store, rows, rh, ws, ra, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert h.dtype == torch.float16 and h.shape == rh.shape
+    assert getattr(fwd16, attr) == f0 + 2 and getattr(bwd16, attr) == b0 + 3
+    assert (ar.attention_resident_fwd.launches,
+            ar.attention_resident_fwd.launches_int8,
+            ar.attention_resident_bwd.launches,
+            ar.attention_resident_bwd.launches_int8) == k45
+    assert (a - ra).abs().max().item() <= 1e-5
+    assert _rel(h, rh) <= TOL_F16_K4_H
+    for k in range(G):
+        assert _rel(v[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]) \
+            <= TOL_F16_VATT
+    for name, x, y, tol in zip(("dqh", "dwv", "dws"), got, want,
+                               (G * TOL_F16_K5, G * TOL_F16_K5, TOL_F16_K5)):
+        assert torch.isfinite(x).all(), name
+        assert _rel(x, y) <= tol, (name, _rel(x, y))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_attention_resident_f16_kernels_are_deterministic(dev, int8):
+    store, rows, qh, wv, ws = _f16_resident_inputs(dev, 64, 196, 2048, 512,
+                                                   256, 2, int8)
+    kw = dict(n_valid=196, normalize=False)
+    a = ar.attention_resident_fwd_f16(store, rows, qh, wv, ws, save_h=True,
+                                      **kw)
+    b = ar.attention_resident_fwd_f16(store, rows, qh, wv, ws, save_h=True,
+                                      **kw)
+    gv = torch.randn(256, 2 * 2048, device=dev)
+    sga = torch.randn(a[1].shape, device=dev) * 0.1
+    c = ar.attention_resident_bwd_f16(store, rows, a[2], ws, a[1], gv, sga,
+                                      **kw)
+    d = ar.attention_resident_bwd_f16(store, rows, a[2], ws, a[1], gv, sga,
+                                      **kw)
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def test_f16_kernels_take_the_bf16_launches(dev):
+    """float16 takes the same fragments, tiles and shared memory as bf16:
+    each float16 library's C side reports K1's, K3's, K4's and K5's launch
+    shapes at the main path's and the serving batch."""
+    f16 = torch.float16
+    for B in (64, 256):
+        assert (gru.gru_fwd_launch_config(B, 512, dev, f16)
+                == gru.gru_fwd_launch_config(B, 512, dev))
+        assert (gru.gru_bwd_launch_config(B, 512, dev, f16)
+                == gru.gru_bwd_launch_config(B, 512, dev))
+        for int8 in (False, True):
+            assert (ar.score_launch_config(B * 200, 512, int8, f16)
+                    == ar.score_launch_config(B * 200, 512, int8))
+            splits = kernels.dwv_plan(B * 196, 2048, 512,
+                                      kernels.sm_count(dev), int8)["splits"]
+            assert (ar.dwv_launch_config(B * 196, 2048, 512, int8, splits,
+                                         f16)
+                    == ar.dwv_launch_config(B * 196, 2048, 512, int8,
+                                            splits))
+        for G in (1, 8):
+            assert (ar.rows_launch_config(B, 196, G, 2048, 512, f16)
+                    == ar.rows_launch_config(B, 196, G, 2048, 512))
+
+
+def test_f16_model_trains_through_k1h_k3h_k4h_k5h(dev):
+    """A float16 vqa_attention step on a float16 store: the forward runs
+    K1h and K4h, the backward K3h and K5h, and no bf16 or float32 kernel
+    runs."""
+    from vqa_transfer_externaldata_torch.models.vqa_attention import (
+        VQAAttentionModel)
+
+    g = torch.Generator().manual_seed(4)
+    model = VQAAttentionModel(64, 16, feature_dim=128, word_dim=32,
+                              rnn_dim=64, fusion_dim=64, att_hidden=128,
+                              answer_dim=32, n_cells=13,
+                              store_prenormalized=True, dtype=torch.float16,
+                              generator=g).to(dev)
+    store, rows, *_ = _f16_resident_inputs(dev, 5, 13, 128, 128, 6, 1, False)
+    q = torch.randint(4, 64, (6, 7), generator=g).to(dev)
+    names = [(m, n) for m in (gru, ar) for n in dir(m)
+             if hasattr(getattr(m, n), "launches")]
+    before = {n: getattr(m, n).launches for m, n in names}
+    out = model((store, rows), q, train=True,
+                generator=torch.Generator(device=dev).manual_seed(1))
+    out["logits"].float().square().mean().backward()
+    torch.cuda.synchronize()
+    moved = {n: getattr(m, n).launches - before[n] for m, n in names
+             if getattr(m, n).launches != before[n]}
+    assert moved == {"gru_fwd_f16": 1, "gru_bwd_f16": 3,
+                     "attention_resident_fwd_f16": 2,
+                     "attention_resident_bwd_f16": 3}
+    for k, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), k

@@ -131,4 +131,5 @@ def test_score_mainloop_is_one_header_of_k4_and_p1():
     for name, tile in (("attention_resident_fwd", ["score_tile.cuh"]),
                        ("probe_mxu_rows", [])):
         assert [p.name for p in kernels.sources(name)] == [
-            f"{name}.cu", "score_gemm.cuh", *tile, "store_rows.cuh"]
+            f"{name}.cu", "score_gemm.cuh", *tile, "store_rows.cuh",
+            "elem16.cuh"]

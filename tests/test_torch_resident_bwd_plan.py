@@ -115,7 +115,7 @@ def test_rows_stage_is_one_header_of_k5_and_p2():
     for name in ("attention_resident_bwd", "probe_bwd_ceiling"):
         assert [p.name for p in kernels.sources(name)] == [
             f"{name}.cu", "attention_dwv.cuh", "attention_rows.cuh",
-            "score_gemm.cuh", "store_rows.cuh"]
+            "score_gemm.cuh", "store_rows.cuh", "elem16.cuh"]
         text = (kernels.CSRC / f"{name}.cu").read_text()
         assert "attn_rows::cell_dots<" in text
     assert "attention_rows.cuh" not in [

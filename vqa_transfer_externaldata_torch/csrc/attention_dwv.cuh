@@ -4,11 +4,12 @@
 //
 //   dW_v = sum over cells kk of v(kk)^T dzr[kk]      [C, H], f32
 //
-// where dzr [K, H] holds bf16(dz * r) of each cell, written compactly by the
+// where dzr [K, H] holds E(dz * r) of each cell, written compactly by the
 // kernel's first stage, and v(kk) is the cell's [C] feature row: a row of
-// the resident store looked up per cell (K5 and P2, StoreCells: bf16 values
-// or int8 codes, widened to bf16 in shared memory) or a row of the gathered
-// bf16 grid (K8, DenseCells). bf16 products, f32 sums.
+// the resident store looked up per cell (K5 and P2, StoreCells: E values
+// or int8 codes, widened to E in shared memory) or a row of the gathered
+// bf16 grid (K8, DenseCells). E products, f32 sums; E is the 16-bit
+// element type, bf16 (K5, K8, P2) or float16 (K5h).
 //
 // What bounds it on an H100: at K5's training shape (50,176 cells, C=2048,
 // H=512) the product is 105 GFLOP, 0.106 ms at the bf16 peak, against 205
@@ -20,7 +21,7 @@
 // dW_v [C, H] = V^T [C, K] dzr [K, H] reduces over the cells, and both
 // operands arrive with the cells as their rows: A = V^T is M-major (a
 // cell's row is channel-contiguous), B = dzr is N-major (unit-contiguous).
-// wgmma takes both so for bf16 (its tnsp immediates set to 1):
+// wgmma takes both so for bf16 and f16 (its tnsp immediates set to 1):
 //  - A tile: 128 channels x BN hidden units (BN = 256 where it divides H,
 //    else 128), 64 cells a chunk; warpgroup w owns channels 64w .. 64w + 63
 //    and keeps its 64 x BN f32 accumulator in registers.
@@ -38,7 +39,7 @@
 //    divides and reads the row index there, not per copy). Cells past the
 //    split's end are zero-filled in both operands (source size 0), so no
 //    uninitialised byte meets a zero. int8 codes land raw in a 128 B-a-cell
-//    slot and each thread widens the codes it copied itself into the bf16
+//    slot and each thread widens the codes it copied itself into the E
 //    slot: no second barrier.
 //  - Each chunk: cp.async.wait_group; the widening (int8); fence.proxy.async;
 //    the barrier; four wgmmas a warpgroup; commit; wgmma.wait_group 1; then
@@ -62,6 +63,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "score_gemm.cuh"
 #include "store_rows.cuh"
@@ -91,7 +93,7 @@ struct Plan {
 };
 
 // Cell kk = b * n_valid + n is cell n of store row rows[b] ([M, Np, C] of
-// T: bf16, or int8 codes).
+// T: E values, or int8 codes).
 template <class T>
 struct StoreCells {
   using value_type = T;
@@ -115,7 +117,7 @@ struct DenseCells {
   }
 };
 
-// Descriptor of an MN-major bf16 operand in the 128-byte swizzle: start
+// Descriptor of an MN-major 16-bit operand in the 128-byte swizzle: start
 // address >> 4 (bits 0-13), LBO 8 KB between 64-wide atom columns (bits
 // 16-29), SBO 1024 B between groups of 8 cells (bits 32-45), base offset 0
 // (every stage and every k16 step is 1024-byte aligned), SWIZZLE_128B
@@ -136,13 +138,15 @@ __device__ __forceinline__ uint32_t mn_off(int r, int q) {
 
 // part[s] = sum over the cells of split s of v(kk)^T dzr[kk], one 128 x BN
 // tile of [C, H] per block.
-template <class Cells, int BN>
+template <class Cells, int BN, class E>
 __global__ void __launch_bounds__(kThreads, 1)
-dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
-           float* __restrict__ part,                            // [S, C, H]
+dwv_kernel(Cells cells, const E* __restrict__ dzr,  // [K, H]
+           float* __restrict__ part,                // [S, C, H]
            int K, int C, int H, int chunks_per_split) {
   using T = typename Cells::value_type;
   using P = Plan<T, BN>;
+  static_assert(P::kInt8 || std::is_same<T, E>::value,
+                "float rows are of the element type");
   constexpr int S = P::kStages;
   constexpr int kAhead = S - 2;
   constexpr int kACopies = P::kInt8 ? 2 : 4;  // 16 B of 128 channels each
@@ -182,7 +186,7 @@ dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
     const bool ok = kk < k_end;
     const T* a = a_next;
     a_next = row_of(kc + 1);
-    const __nv_bfloat16* b = dzr + static_cast<size_t>(ok ? kk : 0) * H + h0;
+    const E* b = dzr + static_cast<size_t>(ok ? kk : 0) * H + h0;
 #pragma unroll
     for (int i = 0; i < kACopies; ++i) {
       const int q = q0 + 4 * i;
@@ -220,14 +224,14 @@ dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
       unsigned char* sp = ring + stage * P::kStageBytes;
 #pragma unroll
       for (int i = 0; i < kACopies; ++i) {
-        // Codes 16q .. 16q + 15 of the cell: its bf16 pieces 2q and 2q + 1.
+        // Codes 16q .. 16q + 15 of the cell: its E pieces 2q and 2q + 1.
         const int q = q0 + 4 * i;
         const uint4 raw = *reinterpret_cast<const uint4*>(
             sp + P::kABytes + P::kBBytes + cl * 128 + q * 16);
         *reinterpret_cast<uint4*>(sp + mn_off(cl, 2 * q)) =
-            store_rows::widen8(make_uint2(raw.x, raw.y));
+            store_rows::widen8<E>(make_uint2(raw.x, raw.y));
         *reinterpret_cast<uint4*>(sp + mn_off(cl, 2 * q + 1)) =
-            store_rows::widen8(make_uint2(raw.z, raw.w));
+            store_rows::widen8<E>(make_uint2(raw.z, raw.w));
       }
     }
     score_gemm::fence_proxy_async();
@@ -239,8 +243,8 @@ dwv_kernel(Cells cells, const __nv_bfloat16* __restrict__ dzr,  // [K, H]
     score_gemm::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      score_gemm::mma<BN, 1>(acc, desc_mn(a + kk * 2048),
-                             desc_mn(b + kk * 2048), (kc | kk) != 0);
+      score_gemm::mma<BN, 1, E>(acc, desc_mn(a + kk * 2048),
+                                desc_mn(b + kk * 2048), (kc | kk) != 0);
     }
     score_gemm::wgmma_commit();
     score_gemm::fence_acc(acc);
@@ -324,34 +328,34 @@ inline Shape plan(int K, int C, int H, bool int8, int splits) {
   return s;
 }
 
-template <class Cells, int BN>
-cudaError_t launch_dwv_bn(Cells cells, const __nv_bfloat16* dzr, float* part,
-                          int K, int C, int H, const Shape& s,
-                          cudaStream_t st) {
+template <class Cells, int BN, class E>
+cudaError_t launch_dwv_bn(Cells cells, const E* dzr, float* part, int K,
+                          int C, int H, const Shape& s, cudaStream_t st) {
   constexpr int smem = Plan<typename Cells::value_type, BN>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      dwv_kernel<Cells, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dwv_kernel<Cells, BN, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return e;
   }
-  dwv_kernel<Cells, BN>
+  dwv_kernel<Cells, BN, E>
       <<<dim3(s.grid_x, s.grid_y, s.grid_z), kThreads, smem, st>>>(
           cells, dzr, part, K, C, H, s.chunks_per_split);
   return cudaGetLastError();
 }
 
 // The dW_v GEMM over K cells split `splits` ways (C % 128 == 0 and
-// H % 128 == 0, checked by the caller); returns the launch error.
-template <class Cells>
-cudaError_t launch_dwv(Cells cells, const __nv_bfloat16* dzr, float* part,
-                       int K, int C, int H, int splits, cudaStream_t st) {
+// H % 128 == 0, checked by the caller), dzr [K, H] of E; returns the launch
+// error.
+template <class Cells, class E>
+cudaError_t launch_dwv(Cells cells, const E* dzr, float* part, int K, int C,
+                       int H, int splits, cudaStream_t st) {
   const Shape s = plan(K, C, H, store_rows::kInt8<typename Cells::value_type>,
                        splits);
   return s.tile_n == 256
-             ? launch_dwv_bn<Cells, 256>(cells, dzr, part, K, C, H, s, st)
-             : launch_dwv_bn<Cells, 128>(cells, dzr, part, K, C, H, s, st);
+             ? launch_dwv_bn<Cells, 256, E>(cells, dzr, part, K, C, H, s, st)
+             : launch_dwv_bn<Cells, 128, E>(cells, dzr, part, K, C, H, s, st);
 }
 
 // dwv = sum of the split partials, dws [W] = sum of the B question

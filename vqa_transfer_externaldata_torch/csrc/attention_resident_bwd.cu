@@ -1,5 +1,8 @@
 // K5 `attention_resident_bwd`: backward of the gather-free attention (K4)
-// with G glimpses (1 <= G <= 8) from its saved h, for Hopper (sm_90a).
+// with G glimpses (1 <= G <= 8) from its saved h, for Hopper (sm_90a). The
+// same source builds K5h (csrc/attention_resident_bwd_f16.cu), the float16
+// instance: E = KernelElem (elem16.cuh), the Pallas body's compute dtype
+// dt, is bf16 here and float16 there.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/attention_resident.py::
 // _make_bwd_kernel_multi (the Pallas body launched by _resident_bwd_multi).
@@ -7,20 +10,23 @@
 // the glimpses) and, per glimpse g, alpha_g, the v_att_g cotangent g_g and
 // sga_g = g_alpha_g - S_g (packed by the caller):
 //
-//   dalpha_gn = (bf16(g_g) . v_n) * r_n           (r = 1 when !normalize)
+//   dalpha_gn = (E(g_g) . v_n) * r_n              (r = 1 when !normalize)
 //   ds_gn     = alpha_gn (dalpha_gn + sga_gn)
 //   dz_nk     = sum_g [h_nk > 0] ds_gn ws_gk      (f32, glimpses in order)
 //   dqh_bk    = sum_n dz_nk,   dws_gk += sum_n ds_gn h_nk
-//   dW_v      = sum_{b,n} v_n^T bf16(dz_n r_n)    (once, on the summed dz)
+//   dW_v      = sum_{b,n} v_n^T E(dz_n r_n)       (once, on the summed dz)
 //
 // The store gets no gradient (it is data). The rounding points are the
-// Pallas kernel's: g and dz * r in bf16, every sum in f32.
+// Pallas kernel's: g and dz * r in E, every sum in f32, and dalpha * r and
+// the sum with sga each rounded on its own (two f32 operations, as JAX
+// rounds them, never one fused multiply-add).
 //
-// The store rows are bf16, or the int8 codes of an L2-prenormalized store
-// (the Pallas kernel's int8 branch): both stages widen the codes to bf16 as
-// they load them, exactly (store_rows.cuh), and the rest runs as on bf16
-// rows. The store's scale is applied outside (to g before, to dW_v after),
-// and an int8 store is never normalized here.
+// The store rows are E, or the int8 codes of an L2-prenormalized store
+// (the Pallas kernel's int8 branch, which widens the codes to h's dtype):
+// both stages widen the codes to E as they load them, exactly
+// (store_rows.cuh), and the rest runs as on E rows. The store's scale is
+// applied outside (to g before, to dW_v after), and an int8 store is never
+// normalized here.
 //
 // What bounds it on an H100: dW_v over the B * n_valid = 50176 live cells
 // of a batch of 256 is 105 GFLOP of bf16 (106 us at 989 TFLOP/s) whatever
@@ -33,12 +39,12 @@
 // the sums depend on the schedule, so the work is split in three launches:
 //
 //  1. attn_res_bwd_rows_kernel, the per-question pass on attention_rows.cuh:
-//     one block a question stages the G cotangent rows in bf16 (G * C * 2
+//     one block a question stages the G cotangent rows in E (G * C * 2
 //     bytes: 32 KB at G=8, C=2048) and its cells' alpha; each warp takes
 //     cells and reads each store row ONCE, a whole row's 16-byte loads in
 //     flight, for all G dalphas (and the sum of squares when normalizing);
 //     then each thread takes 8 hidden units of 4 cells at a time (16-byte
-//     loads of h and stores of bf16(dz * r) of the summed dz, written
+//     loads of h and stores of E(dz * r) of the summed dz, written
 //     compactly as [B * n_valid, H]) and keeps its units' dqh and G dws
 //     partials in registers, summed over the threads that share its units
 //     in a fixed xor tree inside their warp. No atomics.
@@ -54,9 +60,10 @@
 //     not depend on the schedule.
 //
 // G is a template parameter instantiated for 1..8, so the G=1 code is the
-// single-glimpse kernel; the row type T (bf16 or int8) is the second,
-// picked by a flag in the C entry, and the rows kernel on bf16 rows takes
-// normalize as a third (no squares are summed where they are not used).
+// single-glimpse kernel; the row type T (E or int8) is the second,
+// picked by a flag in the C entry, and the rows kernel on E rows takes
+// normalize as a third (no squares are summed where they are not used), and
+// E the fourth.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,30 +79,30 @@ constexpr int kRowThreads = attn_rows::kThreads;
 constexpr int kUnits = attn_rows::kUnits;
 constexpr int kDefaultSmem = 48 * 1024;  // above it: opt in per kernel
 
-template <int G, class T, bool kNorm>
+template <int G, class T, bool kNorm, class E>
 __global__ void __launch_bounds__(kRowThreads)
 attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
-                         const int* __restrict__ rows,             // [B]
-                         const __nv_bfloat16* __restrict__ h,  // [B, Np, H]
+                         const int* __restrict__ rows,         // [B]
+                         const E* __restrict__ h,              // [B, Np, H]
                          const float* __restrict__ ws,         // [G, H]
                          const float* __restrict__ alpha,      // [B, Np, G]
                          const float* __restrict__ g,          // [B, G, C]
                          const float* __restrict__ sga,        // [B, Np, G]
                          float* __restrict__ dqh,              // [B, H]
                          float* __restrict__ dws_part,         // [B, G, H]
-                         __nv_bfloat16* __restrict__ dzr,  // [B*n_valid, H]
+                         E* __restrict__ dzr,          // [B*n_valid, H]
                          int Np, int n_valid, int C, int H) {
-  // bf16(g) [G][C], then alpha -> ds [n_valid][G] and r [n_valid] in f32
+  // E(g) [G][C], then alpha -> ds [n_valid][G] and r [n_valid] in f32
   // (G * C * 2 bytes is a multiple of 16: C % 128 == 0).
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* ds = reinterpret_cast<float*>(smem + sizeof(__nv_bfloat16) * G * C);
+  E* gs = reinterpret_cast<E*>(smem);
+  float* ds = reinterpret_cast<float*>(smem + sizeof(E) * G * C);
   float* rs = ds + n_valid * G;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const float* gb = g + static_cast<size_t>(b) * G * C;
   for (int i = tid; i < G * C; i += kRowThreads) {
-    gs[i] = __float2bfloat16(gb[i]);
+    gs[i] = Elem<E>::from(gb[i]);
   }
   const size_t o0 = static_cast<size_t>(b) * Np * G;
   for (int i = tid; i < n_valid * G; i += kRowThreads) ds[i] = alpha[o0 + i];
@@ -113,7 +120,8 @@ attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
 #pragma unroll
       for (int k = 0; k < G; ++k) {
         const int i = n * G + k;
-        ds[i] = ds[i] * (dot[k] * r + sga[o0 + i]);
+        // dalpha * r, then + sga, each rounded (JAX's two operations).
+        ds[i] = ds[i] * __fadd_rn(__fmul_rn(dot[k], r), sga[o0 + i]);
       }
       rs[n] = r;
     }
@@ -126,8 +134,8 @@ attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
   const int P = attn_rows::cell_lanes(H);
   const int W = attn_rows::unit_lanes(H) * kUnits;
   const int cl = tid % P, lu = tid / P;
-  const __nv_bfloat16* hb = h + static_cast<size_t>(b) * Np * H;
-  __nv_bfloat16* ob = dzr + static_cast<size_t>(b) * n_valid * H;
+  const E* hb = h + static_cast<size_t>(b) * Np * H;
+  E* ob = dzr + static_cast<size_t>(b) * n_valid * H;
   for (int u_base = 0; u_base < H; u_base += W) {
     const int u0 = u_base + lu * kUnits;
     const bool active = lu * kUnits < W && u0 < H;
@@ -157,17 +165,16 @@ attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
         for (int f = 0; f < attn_rows::kCellsInFlight; ++f) {
           const int n = nb + f * P;
           if (n < n_valid) {
-            const __nv_bfloat16* he =
-                reinterpret_cast<const __nv_bfloat16*>(&hx[f]);
+            const E* he = reinterpret_cast<const E*>(&hx[f]);
             float d[G];
 #pragma unroll
             for (int j = 0; j < G; ++j) d[j] = ds[n * G + j];
             const float r = rs[n];
             uint4 out;
-            __nv_bfloat16* oe = reinterpret_cast<__nv_bfloat16*>(&out);
+            E* oe = reinterpret_cast<E*>(&out);
 #pragma unroll
             for (int i = 0; i < kUnits; ++i) {
-              const float hv = __bfloat162float(he[i]);
+              const float hv = Elem<E>::to(he[i]);
               float dz = 0.0f;
 #pragma unroll
               for (int j = 0; j < G; ++j) {
@@ -177,7 +184,7 @@ attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
                 dw[j][i] = fmaf(d[j], hv, dw[j][i]);
               }
               dq[i] += dz;
-              oe[i] = __float2bfloat16(dz * r);
+              oe[i] = Elem<E>::from(dz * r);
             }
             *reinterpret_cast<uint4*>(ob + static_cast<size_t>(n) * H + u0) =
                 out;
@@ -212,14 +219,14 @@ attn_res_bwd_rows_kernel(const T* __restrict__ store,  // [M, Np, C]
   }
 }
 
-template <int G, class T, bool kNorm>
+template <int G, class T, bool kNorm, class E>
 cudaError_t launch_rows(const void* store, const void* rows, const void* h,
                         const void* ws, const void* alpha, const void* g,
                         const void* sga, void* dqh, void* dws_part, void* dzr,
                         int B, int Np, int n_valid, int C, int H,
                         cudaStream_t st) {
   const attn_rows::Shape s = attn_rows::plan(B, n_valid, G, C, H);
-  auto kernel = attn_res_bwd_rows_kernel<G, T, kNorm>;
+  auto kernel = attn_res_bwd_rows_kernel<G, T, kNorm, E>;
   if (s.smem_bytes > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
@@ -230,15 +237,15 @@ cudaError_t launch_rows(const void* store, const void* rows, const void* h,
   }
   kernel<<<s.grid_x, s.threads, s.smem_bytes, st>>>(
       static_cast<const T*>(store), static_cast<const int*>(rows),
-      static_cast<const __nv_bfloat16*>(h), static_cast<const float*>(ws),
+      static_cast<const E*>(h), static_cast<const float*>(ws),
       static_cast<const float*>(alpha), static_cast<const float*>(g),
       static_cast<const float*>(sga), static_cast<float*>(dqh),
-      static_cast<float*>(dws_part), static_cast<__nv_bfloat16*>(dzr), Np,
-      n_valid, C, H);
+      static_cast<float*>(dws_part), static_cast<E*>(dzr), Np, n_valid, C,
+      H);
   return cudaGetLastError();
 }
 
-template <int G, class T>
+template <int G, class T, class E>
 int launch_bwd(const void* store, const void* rows, const void* h,
                const void* ws, const void* alpha, const void* g,
                const void* sga, void* dzr, void* dws_part, void* part,
@@ -249,19 +256,19 @@ int launch_bwd(const void* store, const void* rows, const void* h,
   // squares.
   const bool norm = !store_rows::kInt8<T> && normalize;
   cudaError_t e =
-      norm ? launch_rows<G, T, !store_rows::kInt8<T>>(
+      norm ? launch_rows<G, T, !store_rows::kInt8<T>, E>(
                  store, rows, h, ws, alpha, g, sga, dqh, dws_part, dzr, B, Np,
                  n_valid, C, H, st)
-           : launch_rows<G, T, false>(store, rows, h, ws, alpha, g, sga, dqh,
-                                      dws_part, dzr, B, Np, n_valid, C, H,
-                                      st);
+           : launch_rows<G, T, false, E>(store, rows, h, ws, alpha, g, sga,
+                                         dqh, dws_part, dzr, B, Np, n_valid, C,
+                                         H, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   e = attn_dwv::launch_dwv(
       attn_dwv::StoreCells<T>{static_cast<const T*>(store),
                               static_cast<const int*>(rows), n_valid, Np, C},
-      static_cast<const __nv_bfloat16*>(dzr), static_cast<float*>(part),
-      B * n_valid, C, H, splits, st);
+      static_cast<const E*>(dzr), static_cast<float*>(part), B * n_valid, C,
+      H, splits, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   e = attn_dwv::launch_reduce(static_cast<const float*>(part),
@@ -282,7 +289,7 @@ const char* cuda_error_string(int code) {
 }
 
 // The dW_v launch's shape over K cells split `splits` ways at C x H on
-// bf16 rows or int8 codes: tile (channels x units), ring stages, dynamic
+// E rows or int8 codes: tile (channels x units), ring stages, dynamic
 // shared memory in bytes, chunks of 64 cells a split and grid (unit tiles,
 // channel tiles, splits).
 int attention_resident_bwd_dwv_config(int K, int C, int H, int int8,
@@ -305,14 +312,15 @@ int attention_resident_bwd_rows_config(int B, int n_valid, int G, int C,
   return 0;
 }
 
-// store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must
-// be 0), rows [B] i32, h [B, Np, H] bf16 (K4's residual, 16-byte aligned),
+// store [M, Np, C] of E, or int8 codes when int8 != 0 (then normalize must
+// be 0), rows [B] i32, h [B, Np, H] E (K4's residual, 16-byte aligned),
 // ws [G, H] f32 (1 <= G <= 8), alpha [B, Np, G] f32, g [B, G, C] f32, sga
 // [B, Np, G] f32 -> dqh [B, H], dwv [C, H], dws [G, H], all f32. Scratch:
-// dzr [B*n_valid, H] bf16, dws_part [B, G, H] f32, part [splits, C, H] f32.
+// dzr [B*n_valid, H] E, dws_part [B, G, H] f32, part [splits, C, H] f32.
 // Needs C % 128 == 0 and H % 128 == 0 and the rows launch's shared memory
-// (attn_rows::plan) at most 227 KB (checked by the caller). Three launches on `stream`, counting in *launched those that
-// launched; returns the first launch error.
+// (attn_rows::plan) at most 227 KB (checked by the caller). Three launches
+// on `stream`, counting in *launched those that launched; returns the first
+// launch error.
 int attention_resident_bwd(const void* store, const void* rows,
                            const void* h, const void* ws, const void* alpha,
                            const void* g, const void* sga, void* dzr,
@@ -323,16 +331,17 @@ int attention_resident_bwd(const void* store, const void* rows,
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int8 && normalize) return static_cast<int>(cudaErrorInvalidValue);
+  using E = KernelElem;
 #define K5_CASE(k)                                                            \
   case k:                                                                     \
-    return int8 ? launch_bwd<k, int8_t>(store, rows, h, ws, alpha, g, sga,    \
-                                        dzr, dws_part, part, dqh, dwv, dws,   \
-                                        B, Np, n_valid, C, H, 0, splits, st,  \
-                                        launched)                             \
-                : launch_bwd<k, __nv_bfloat16>(                               \
-                      store, rows, h, ws, alpha, g, sga, dzr, dws_part, part, \
-                      dqh, dwv, dws, B, Np, n_valid, C, H, normalize, splits, \
-                      st, launched);
+    return int8 ? launch_bwd<k, int8_t, E>(store, rows, h, ws, alpha, g, sga, \
+                                           dzr, dws_part, part, dqh, dwv,     \
+                                           dws, B, Np, n_valid, C, H, 0,      \
+                                           splits, st, launched)              \
+                : launch_bwd<k, E, E>(store, rows, h, ws, alpha, g, sga, dzr, \
+                                      dws_part, part, dqh, dwv, dws, B, Np,   \
+                                      n_valid, C, H, normalize, splits, st,   \
+                                      launched);
   switch (G) {
     K5_CASE(1) K5_CASE(2) K5_CASE(3) K5_CASE(4)
     K5_CASE(5) K5_CASE(6) K5_CASE(7) K5_CASE(8)

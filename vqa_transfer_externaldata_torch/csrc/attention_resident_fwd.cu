@@ -1,6 +1,8 @@
 // K4 `attention_resident_fwd`: gather-free attention forward with G glimpses
 // (1 <= G <= 8) over a feature store resident in device memory, for Hopper
-// (sm_90a).
+// (sm_90a). The same source builds K4h (csrc/attention_resident_fwd_f16.cu),
+// the float16 instance: E = KernelElem (elem16.cuh), the compute dtype dt
+// of the Pallas body, is bf16 here and float16 there.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/attention_resident.py::
 // _make_fwd_kernel_multi (the Pallas body launched by _resident_fwd_multi).
@@ -8,26 +10,27 @@
 // [B, Np, C] batch is ever built. The G glimpses share the one score GEMM:
 //
 //   v       = store[rows[b]]                     [Np, C] (Np padded cells)
-//   r       = rsqrt(sum_c bf16(v^2) + 1e-12)     (1 when !normalize)
-//   h       = relu((v @ W_v) * r + qh[b])        [Np, H] f32; saved in bf16
+//   r       = rsqrt(sum_c E(v^2) + 1e-12)        (1 when !normalize)
+//   h       = relu((v @ W_v) * r + qh[b])        [Np, H] f32; saved in E
 //   s_g     = h . ws_g, masked to -1e30 at cells >= n_valid   (each glimpse)
 //   alpha_g = softmax_Np(s_g)
-//   v_att_g = sum_n bf16(alpha_gn r_n) v_n       (concatenated in g order)
+//   v_att_g = sum_n E(alpha_gn r_n) v_n          (concatenated in g order)
 //
-// The rounding follows the Pallas kernel: f32 sums of bf16 products, h in
-// f32 for the scores, each glimpse's alpha * r rounded to bf16 before its
-// weighted sum.
+// The rounding follows the Pallas kernel: f32 sums of E products, h in f32
+// for the scores, each glimpse's alpha * r rounded to E before its weighted
+// sum.
 //
-// The store rows are bf16, or the int8 codes of an L2-prenormalized store
-// (the Pallas kernel's int8 branch, which casts the codes in VMEM): the
-// score GEMM copies the codes raw and widens them to bf16 in shared memory,
+// The store rows are E, or the int8 codes of an L2-prenormalized store
+// (the Pallas kernel's int8 branch, which casts the codes in VMEM to qh's
+// dtype): the score GEMM copies the codes raw and widens them to E in
+// shared memory,
 // the weighted sum as it loads them, both exactly (store_rows.cuh), and the
-// rest runs as on bf16 rows. The store's scale is applied outside the
+// rest runs as on E rows. The store's scale is applied outside the
 // kernel (folded into W_v, and to v_att afterwards), and an int8 store is
 // never normalized here: it was normalized before it was quantized.
 //
 // What bounds it on an H100: at B=256, n_valid=196, C=2048, H=512 the score
-// GEMM is 105 GFLOP of bf16 (106 us at 989 TFLOP/s; each glimpse adds a
+// GEMM is 105 GFLOP of E (106 us at 989 TFLOP/s; each glimpse adds a
 // 0.2 GFLOP weighted sum) against 205 MB of grid reads (102 MB of int8
 // codes) and 51 MB of saved h (77 us at 3.35 TB/s): the tensor cores.
 //
@@ -43,7 +46,7 @@
 //     place of the scalar prefetch), int8 codes widened in shared memory.
 //     The grid runs the column tiles of one cell tile side by side
 //     (blockIdx.x), so they share its rows through L2. The epilogue works
-//     from the accumulator registers: h, saved in bf16 on the grad path
+//     from the accumulator registers: h, saved in E on the grad path
 //     through shared memory (16-byte stores), and G partial scores per cell
 //     and column tile against the G columns of ws. The GEMM runs once
 //     whatever G is, as on the TPU, and G is a runtime count of the
@@ -51,7 +54,7 @@
 //  2. attn_res_wsum_kernel: one block per (question, 512-channel chunk) sums
 //     the partial scores in a fixed order (deterministic), takes the G
 //     masked softmaxes in shared memory, then forms all G weighted sums in
-//     ONE pass over the store row (coalesced bf16x2 loads, G accumulator
+//     ONE pass over the store row (coalesced E-pair loads, G accumulator
 //     pairs per thread): the row is read once, not G times. G is a template
 //     parameter here, 1..8 (the TPU kernel's limit, its ws sublane window).
 //
@@ -73,10 +76,6 @@ namespace {
 constexpr int kWsumThreads = 256;
 constexpr int kWsumChannels = 2 * kWsumThreads;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Tile row r is cell row0 + r: cell n of question b's store row rows[b].
 template <class T>
@@ -110,16 +109,16 @@ __device__ float block_reduce(float x, float* red) {
   return x;
 }
 
-template <int G, class T>
+template <int G, class T, class E>
 __global__ void __launch_bounds__(kWsumThreads)
-attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
+attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] E | int8
                      const int* __restrict__ rows,             // [B]
                      const float* __restrict__ part,  // [n_part, G, B*Np]
                      const float* __restrict__ rnorm,  // [B*Np]
                      float* __restrict__ vatt,         // [B, G, C]
                      float* __restrict__ alpha,        // [B, Np, G]
                      int B, int Np, int n_valid, int C, int n_part) {
-  extern __shared__ float sh[];  // p [G][Np], then the bf16 weights w [G][Np]
+  extern __shared__ float sh[];  // p [G][Np], then the E weights w [G][Np]
   __shared__ float red[32];
   float* p = sh;
   float* w = sh + G * Np;
@@ -150,13 +149,13 @@ attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
     for (int n = threadIdx.x; n < Np; n += blockDim.x) {
       const float a = pg[n] / d;
       if (blockIdx.y == 0) alpha[(base + n) * G + g] = a;
-      w[g * Np + n] = round_bf16(a * rnorm[base + n]);
+      w[g * Np + n] = round_to<E>(a * rnorm[base + n]);
     }
   }
   __syncthreads();
 
   // All G weighted sums from one pass over the store row, two channels a
-  // thread (a bf16x2 or a char2 load).
+  // thread (an E pair or a char2 load).
   const int c = blockIdx.y * kWsumChannels + 2 * threadIdx.x;
   if (c < C) {
     const T* src = store + static_cast<size_t>(rows[b]) * Np * C + c;
@@ -181,7 +180,7 @@ attn_res_wsum_kernel(const T* __restrict__ store,  // [M, Np, C] bf16 | int8
   }
 }
 
-template <int G, class T>
+template <int G, class T, class E>
 int launch_fwd(const void* store, const void* rows, const void* wvt,
                const void* qh, const void* ws, void* part, void* rnorm,
                void* hsave, void* vatt, void* alpha, int B, int Np,
@@ -189,7 +188,7 @@ int launch_fwd(const void* store, const void* rows, const void* wvt,
                int* launched) {
   const int cells = B * Np;
   const int BN = score_gemm::tile_n(H);
-  cudaError_t e = score_tile::launch<T>(
+  cudaError_t e = score_tile::launch<T, E>(
       CellRows<T>{static_cast<const T*>(store),
                   static_cast<const int*>(rows), Np, C, cells, 0},
       wvt, qh, ws, part, rnorm, hsave, cells, Np, C, H, G, normalize, st);
@@ -197,7 +196,7 @@ int launch_fwd(const void* store, const void* rows, const void* wvt,
   ++*launched;
   const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
   const size_t smem = 2 * static_cast<size_t>(G) * Np * sizeof(float);
-  attn_res_wsum_kernel<G, T><<<g2, kWsumThreads, smem, st>>>(
+  attn_res_wsum_kernel<G, T, E><<<g2, kWsumThreads, smem, st>>>(
       static_cast<const T*>(store),
       static_cast<const int*>(rows), static_cast<const float*>(part),
       static_cast<const float*>(rnorm), static_cast<float*>(vatt),
@@ -222,7 +221,7 @@ int attention_resident_score_config(int cells, int H, int int8, int* tile_m,
                                     int* grid_x, int* grid_y) {
   const score_tile::Shape s =
       int8 ? score_tile::shape<int8_t>(cells, H)
-           : score_tile::shape<__nv_bfloat16>(cells, H);
+           : score_tile::shape<KernelElem>(cells, H);
   *tile_m = s.tile_m;
   *tile_n = s.tile_n;
   *stages = s.stages;
@@ -232,11 +231,11 @@ int attention_resident_score_config(int cells, int H, int int8, int* tile_m,
   return 0;
 }
 
-// store [M, Np, C] bf16, or int8 codes when int8 != 0 (then normalize must
-// be 0), rows [B] i32 (< M, checked by the caller), wvt [H, C] bf16 (W_v
+// store [M, Np, C] of E, or int8 codes when int8 != 0 (then normalize must
+// be 0), rows [B] i32 (< M, checked by the caller), wvt [H, C] E (W_v
 // transposed, K-major), qh [B, H] f32, ws [G, H] f32 (1 <= G <= 8) -> vatt
 // [B, G, C] f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and h
-// [B, Np, H] bf16 when hsave is not null. Scratch: part [H/128, G, B*Np]
+// [B, Np, H] E when hsave is not null. Scratch: part [H/128, G, B*Np]
 // f32 (the score kernel fills the first H/BN slices, BN = 256 when
 // H % 256 == 0, else 128), rnorm [B*Np] f32. Needs
 // C % 32 == 0 and H % 128 == 0 (checked by the caller). Two launches on
@@ -251,14 +250,16 @@ int attention_resident_fwd(const void* store, const void* rows,
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int8 && normalize) return static_cast<int>(cudaErrorInvalidValue);
+  using E = KernelElem;
 #define K4_CASE(g)                                                          \
   case g:                                                                   \
-    return int8 ? launch_fwd<g, int8_t>(store, rows, wvt, qh, ws, part,     \
-                                        rnorm, hsave, vatt, alpha, B, Np,   \
-                                        n_valid, C, H, 0, st, launched)     \
-                : launch_fwd<g, __nv_bfloat16>(                             \
-                      store, rows, wvt, qh, ws, part, rnorm, hsave, vatt,   \
-                      alpha, B, Np, n_valid, C, H, normalize, st, launched);
+    return int8 ? launch_fwd<g, int8_t, E>(store, rows, wvt, qh, ws, part,  \
+                                           rnorm, hsave, vatt, alpha, B,    \
+                                           Np, n_valid, C, H, 0, st,        \
+                                           launched)                        \
+                : launch_fwd<g, E, E>(store, rows, wvt, qh, ws, part, rnorm, \
+                                      hsave, vatt, alpha, B, Np, n_valid, C, \
+                                      H, normalize, st, launched);
   switch (G) {
     K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4)
     K4_CASE(5) K4_CASE(6) K4_CASE(7) K4_CASE(8)

@@ -1,15 +1,16 @@
 // The per-question rows stage shared by K5 (attention_resident_bwd.cu) and
 // the probe P2 (probe_bwd_ceiling.cu): for question b, whose feature grid is
-// row rows[b] of a resident store [M, Np, C] (bf16, or int8 codes widened
-// to bf16 as they are loaded: store_rows.cuh), each cell n's row is read
-// once and dotted with the question's G bf16 cotangent rows g_k [C]:
+// row rows[b] of a resident store [M, Np, C] (values of the element type E,
+// bf16 or float16 in K5h, or int8 codes widened to E as they are loaded:
+// store_rows.cuh), each cell n's row is read once and dotted with the
+// question's G cotangent rows g_k [C] in E:
 //
-//   dot_kn = g_k . v_n        (f32 sums of bf16 products; K5 also sums
-//                              the bf16 squares of v_n for its norm)
+//   dot_kn = g_k . v_n        (f32 sums of E products; K5 also sums
+//                              the E squares of v_n for its norm)
 //
 // and then a pass over the question's cells in hidden units writes the
 // cotangent that the dW_v GEMM of attention_dwv.cuh reads, compactly as
-// [B * cells, H] bf16.
+// [B * cells, H] of E.
 //
 // What bounds it on an H100: bytes. At K5's training shape (B=256, 196
 // valid cells, C=2048, H=512) it reads 205 MB of store rows (103 MB of
@@ -40,7 +41,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "store_rows.cuh"
+#include "store_rows.cuh"  // and elem16.cuh
 
 namespace {
 
@@ -81,23 +82,18 @@ inline Shape plan(int B, int n_valid, int G, int C, int H) {
   s.cell_lanes = cell_lanes(H);
   s.unit_lanes = unit_lanes(H);
   s.unit_passes = (H / kUnits + s.unit_lanes - 1) / s.unit_lanes;
-  // bf16(g) [G][C], then ds [n_valid][G] and r [n_valid] in f32.
+  // E(g) [G][C], then ds [n_valid][G] and r [n_valid] in f32.
   s.smem_bytes = 2 * G * C + 4 * (G + 1) * n_valid;
   return s;
 }
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// The G dot products of one cell's row [C] with gs [G][C] (bf16, shared
-// memory) by one warp, and with kSq the f32 sum of the row's bf16 squares.
+// The G dot products of one cell's row [C] with gs [G][C] (E, shared
+// memory) by one warp, and with kSq the f32 sum of the row's E squares.
 // Every lane ends with the sums. C % 8 == 0.
-template <int G, bool kSq, class T>
+template <int G, bool kSq, class T, class E>
 __device__ __forceinline__ void cell_dots(const T* __restrict__ row,
-                                          const __nv_bfloat16* gs, int C,
-                                          int lane, float (&dot)[G],
-                                          float& sq) {
+                                          const E* gs, int C, int lane,
+                                          float (&dot)[G], float& sq) {
 #pragma unroll
   for (int k = 0; k < G; ++k) dot[k] = 0.0f;
   sq = 0.0f;
@@ -112,22 +108,21 @@ __device__ __forceinline__ void cell_dots(const T* __restrict__ row,
     for (int j = 0; j < kRowLoads; ++j) {
       const int c = c0 + 256 * j;
       if (c < C) {
-        const uint4 x4 = store_rows::widen8(raw[j]);
-        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x4);
+        const uint4 x4 = store_rows::widen8<E>(raw[j]);
+        const E* e = reinterpret_cast<const E*>(&x4);
         float x[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          x[i] = __bfloat162float(e[i]);
-          if constexpr (kSq) sq += round_bf16(x[i] * x[i]);
+          x[i] = Elem<E>::to(e[i]);
+          if constexpr (kSq) sq += round_to<E>(x[i] * x[i]);
         }
 #pragma unroll
         for (int k = 0; k < G; ++k) {  // every glimpse from this one read
           const uint4 g4 = *reinterpret_cast<const uint4*>(gs + k * C + c);
-          const __nv_bfloat16* ge =
-              reinterpret_cast<const __nv_bfloat16*>(&g4);
+          const E* ge = reinterpret_cast<const E*>(&g4);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            dot[k] = fmaf(__bfloat162float(ge[i]), x[i], dot[k]);
+            dot[k] = fmaf(Elem<E>::to(ge[i]), x[i], dot[k]);
           }
         }
       }

@@ -37,7 +37,8 @@ const char* cuda_error_string(int code) {
 int bigru_bwd_config(int H, int* per_sm, long long* smem_bytes,
                      int* max_width) {
   size_t smem = 0;
-  const cudaError_t e = bptt_occupancy(H, per_sm, &smem, max_width);
+  const cudaError_t e =
+      bptt_occupancy<__nv_bfloat16>(H, per_sm, &smem, max_width);
   if (e != cudaSuccess) cudaGetLastError();
   *smem_bytes = static_cast<long long>(smem);
   return static_cast<int>(e);
@@ -68,23 +69,25 @@ int bigru_bwd(const void* gxf, const void* gxb, const void* hseqf,
   const int* ln = static_cast<const int*>(lens);
   float* const dh = static_cast<float*>(dhe);
   float* const dg = static_cast<float*>(dgx);
-  __nv_bfloat16* const gs = static_cast<__nv_bfloat16*>(g);
+  using E = __nv_bfloat16;
+  E* const gs = static_cast<E*>(g);
   float* const pt = static_cast<float*>(part);
-  __nv_bfloat16* const hb = static_cast<__nv_bfloat16*>(hbf);
-  const Bptt f{static_cast<const float*>(gxf),
-               static_cast<const float*>(hseqf), hb, ln,
-               static_cast<const __nv_bfloat16*>(uhf),
-               static_cast<const float*>(bhnf), dh, dg, gs, pt, T, B, H, 0};
-  const Bptt b{static_cast<const float*>(gxb),
-               static_cast<const float*>(hseqb), hb + seq_h, ln,
-               static_cast<const __nv_bfloat16*>(uhb),
-               static_cast<const float*>(bhnb), dh + step_h, dg + seq_gx,
-               gs + seq_gx, pt + seq_part, T, B, H, 1};
+  E* const hb = static_cast<E*>(hbf);
+  const Bptt<E> f{static_cast<const float*>(gxf),
+                  static_cast<const float*>(hseqf), hb, ln,
+                  static_cast<const E*>(uhf),
+                  static_cast<const float*>(bhnf), dh, dg, gs, pt, T, B, H,
+                  0};
+  const Bptt<E> b{static_cast<const float*>(gxb),
+                  static_cast<const float*>(hseqb), hb + seq_h, ln,
+                  static_cast<const E*>(uhb),
+                  static_cast<const float*>(bhnb), dh + step_h, dg + seq_gx,
+                  gs + seq_gx, pt + seq_part, T, B, H, 1};
   float* const du = static_cast<float*>(duh);
   float* const db = static_cast<float*>(dbhn);
-  return bptt_run({f, b}, {du, du + static_cast<size_t>(H) * 3 * H},
-                  {db, db + H}, 2, rows, static_cast<cudaStream_t>(stream),
-                  launched);
+  return bptt_run<E>({f, b}, {du, du + static_cast<size_t>(H) * 3 * H},
+                     {db, db + H}, 2, rows, static_cast<cudaStream_t>(stream),
+                     launched);
 }
 
 }  // extern "C"

@@ -41,7 +41,8 @@ const char* cuda_error_string(int code) {
 // one direction's j-tiles are resident at once.
 int bigru_fwd_config(int B, int H, int rows, int* grid, int* launches,
                      int* per_sm, long long* smem_bytes) {
-  return seq_config(B, H, rows, 2, grid, launches, per_sm, smem_bytes);
+  return seq_config<__nv_bfloat16>(B, H, rows, 2, grid, launches, per_sm,
+                                   smem_bytes);
 }
 
 // gxf, gxb [T, B, 3H] f32, lens [B] i32, uhf, uhb [H, 3H] bf16, bhnf, bhnb
@@ -62,16 +63,17 @@ int bigru_fwd(const void* gxf, const void* gxb, const void* lens,
   float* const hs = static_cast<float*>(hseq);
   float* const ht = static_cast<float*>(hT);
   __nv_bfloat16* const hb = static_cast<__nv_bfloat16*>(hbf);
-  const FwdSeq f{static_cast<const float*>(gxf), ln,
-                 static_cast<const __nv_bfloat16*>(uhf),
-                 static_cast<const float*>(bhnf), hs, ht, hb,
-                 T, B, H, rows, 0};
-  const FwdSeq b{static_cast<const float*>(gxb), ln,
-                 static_cast<const __nv_bfloat16*>(uhb),
-                 static_cast<const float*>(bhnb), hs + T * step_h,
-                 ht + step_h, hb + 2 * step_h, T, B, H, rows, 1};
-  return seq_run({f, b}, 2, rows, static_cast<cudaStream_t>(stream),
-                 launched);
+  using E = __nv_bfloat16;
+  const FwdSeq<E> f{static_cast<const float*>(gxf), ln,
+                    static_cast<const E*>(uhf),
+                    static_cast<const float*>(bhnf), hs, ht, hb,
+                    T, B, H, rows, 0};
+  const FwdSeq<E> b{static_cast<const float*>(gxb), ln,
+                    static_cast<const E*>(uhb),
+                    static_cast<const float*>(bhnb), hs + T * step_h,
+                    ht + step_h, hb + 2 * step_h, T, B, H, rows, 1};
+  return seq_run<E>({f, b}, 2, rows, static_cast<cudaStream_t>(stream),
+                    launched);
 }
 
 }  // extern "C"

@@ -1,5 +1,8 @@
 // K3 `gru_bwd`: backpropagation through time of the fused GRU recurrence,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a). The same source builds K3h (csrc/gru_bwd_f16.cu),
+// the float16 instance: E = KernelElem (elem16.cuh) is bf16 here and
+// float16 there, the type of U_h, of the copy of the pre-step states and of
+// the staged gate cotangents.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_gru_bwd_kernel (the
 // Pallas body launched by _gru_pallas_bwd_call); the step math is that
@@ -37,16 +40,17 @@ const char* cuda_error_string(int code) {
 int gru_bwd_config(int H, int* per_sm, long long* smem_bytes,
                    int* max_width) {
   size_t smem = 0;
-  const cudaError_t e = bptt_occupancy(H, per_sm, &smem, max_width);
+  const cudaError_t e =
+      bptt_occupancy<KernelElem>(H, per_sm, &smem, max_width);
   if (e != cudaSuccess) cudaGetLastError();
   *smem_bytes = static_cast<long long>(smem);
   return static_cast<int>(e);
 }
 
 // gx_t [T, B, 3H] f32, hseq [T, B, H] f32 (K1's residual), lens [B] i32,
-// uh [H, 3H] bf16, bhn [H] f32; dhe [B, H] f32 holds the cotangent of the
-// final state on entry and is clobbered. Scratch: g [T, B, 3H] bf16,
-// part [T, ceil(B/16), H] f32, hbf [T, B, H] bf16. Outputs: dgx
+// uh [H, 3H] E, bhn [H] f32; dhe [B, H] f32 holds the cotangent of the
+// final state on entry and is clobbered. Scratch: g [T, B, 3H] E,
+// part [T, ceil(B/16), H] f32, hbf [T, B, H] E. Outputs: dgx
 // [T, B, 3H], duh [H, 3H], dbhn [H], all f32. `rows` rows of blocks, as
 // ops/kernels.py::gru_bwd_plan chooses them. Needs H % 64 == 0 (checked by
 // the caller). Launches the persistent step kernel (cooperatively), the
@@ -56,21 +60,22 @@ int gru_bwd(const void* gx_t, const void* hseq, const void* lens,
             const void* uh, const void* bhn, void* dhe, void* dgx, void* g,
             void* part, void* duh, void* dbhn, void* hbf, int T, int B,
             int H, int reverse, int rows, void* stream, int* launched) {
-  const Bptt p{static_cast<const float*>(gx_t),
-               static_cast<const float*>(hseq),
-               static_cast<__nv_bfloat16*>(hbf),
-               static_cast<const int*>(lens),
-               static_cast<const __nv_bfloat16*>(uh),
-               static_cast<const float*>(bhn),
-               static_cast<float*>(dhe),
-               static_cast<float*>(dgx),
-               static_cast<__nv_bfloat16*>(g),
-               static_cast<float*>(part),
-               T, B, H, reverse};
+  using E = KernelElem;
+  const Bptt<E> p{static_cast<const float*>(gx_t),
+                  static_cast<const float*>(hseq),
+                  static_cast<E*>(hbf),
+                  static_cast<const int*>(lens),
+                  static_cast<const E*>(uh),
+                  static_cast<const float*>(bhn),
+                  static_cast<float*>(dhe),
+                  static_cast<float*>(dgx),
+                  static_cast<E*>(g),
+                  static_cast<float*>(part),
+                  T, B, H, reverse};
   float* const du = static_cast<float*>(duh);
   float* const db = static_cast<float*>(dbhn);
-  return bptt_run({p, p}, {du, du}, {db, db}, 1, rows,
-                  static_cast<cudaStream_t>(stream), launched);
+  return bptt_run<E>({p, p}, {du, du}, {db, db}, 1, rows,
+                     static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // extern "C"

@@ -6,17 +6,19 @@
 // the processing order backwards, with dh the cotangent of the state after
 // step t and h_prev the state before it:
 //
-//   gh   = bf16(h_prev) @ U_h                     (recomputed, f32 sums)
+//   gh   = E(h_prev) @ U_h                        (recomputed, f32 sums)
 //   r, z, n as in the forward;  m = t < lens[b]
 //   dh_new = m dh;  dz = dh_new (h_prev - n);  dn = dh_new (1 - z)
 //   da_n = dn (1 - n^2);  dgh_n = da_n r;  da_r = da_n (gh_n + b_hn) r (1-r)
 //   da_z = dz z (1 - z)
 //   dgx[t] = [da_r, da_z, da_n]
-//   dh_prev = (1 - m) dh + dh_new z + bf16([da_r, da_z, dgh_n]) @ U_h^T
-//   dU_h  += bf16(h_prev)^T @ bf16([da_r, da_z, dgh_n]),  db_hn += sum_b dgh_n
+//   dh_prev = (1 - m) dh + dh_new z + E([da_r, da_z, dgh_n]) @ U_h^T
+//   dU_h  += E(h_prev)^T @ E([da_r, da_z, dgh_n]),  db_hn += sum_b dgh_n
 //
-// The bf16 rounding points are JAX's: h_prev before U_h and before dU_h,
-// the gate cotangents before U_h^T and dU_h.
+// E is U_h's 16-bit type, bf16 (K3, K7) or float16 (K3h), and the rounding
+// points are JAX's: h_prev before U_h and before dU_h, the gate cotangents
+// before U_h^T and dU_h (its da_*.astype(uht_ref.dtype)). A float16
+// cotangent below f16's smallest subnormal rounds to 0 there, as in JAX.
 //
 // The TPU kernel walks a sequential grid of T steps with dh in VMEM and
 // dU_h in a resident output block. Here:
@@ -27,11 +29,11 @@
 //     direction's U_h in shared memory throughout: its 48 columns
 //     {j0, H+j0, 2H+j0} + 0..15 (the B operand of gh) and its rows
 //     j0..j0+15 (the B operand of the U_h^T product). The blocks of a
-//     direction first write the bf16 copy of its pre-step states that the
+//     direction first write the E copy of its pre-step states that the
 //     steps and the dU_h GEMM read, striding over it together; then every
 //     block walks the steps, separated by grid-wide barriers, and within a
 //     step its 64-row b-tiles (bb, bb + gridDim.y, ...). A b-tile streams
-//     bf16(h_prev) and the previous step's bf16 gate cotangents G_prev
+//     E(h_prev) and the previous step's E gate cotangents G_prev
 //     through a 3-stage ring of cp.async copies, 64 columns of each gate a
 //     stage; warp pair rb (16 rows) splits into a warp that accumulates gh
 //     for the 3 gates and one that accumulates the 3 gate chunks of
@@ -39,9 +41,9 @@
 //     registers ahead of the mainloop, then writes dgx, G_t, the carried dh
 //     (`dhe`, read and written by the same thread) and the per-16-row dgh_n
 //     partials. G_t is the only state that blocks exchange.
-//  2. gru_duh_pipe_kernel: each direction's dU_h = sum_t bf16(h_prev_t)^T
+//  2. gru_duh_pipe_kernel: each direction's dU_h = sum_t E(h_prev_t)^T
 //     G_t over the (T-1) B rows of its sequence, 128 x 64 tiles, 8 warps of
-//     32 x 32, a 4-stage cp.async ring of 128-row K slices of the bf16 copy
+//     32 x 32, a 4-stage cp.async ring of 128-row K slices of the E copy
 //     and of G (both k-major, so their fragments load through ldmatrix's
 //     transpose).
 //  3. gru_dbhn_kernel: each direction's db_hn as a fixed-order sum of its
@@ -49,7 +51,7 @@
 //
 // The copy, ldmatrix and mma.sync primitives are mma_sync.cuh's, which K1's
 // persistent kernel (gru_fwd.cu) runs too: every 16x16 fragment of gh, of
-// each U_h^T chunk and of dU_h is one chain of 16x16x16 bf16 products (two
+// each U_h^T chunk and of dU_h is one chain of 16x16x16 E products (two
 // HMMA.16816 each) in ascending 16-steps of k, dh is
 // ((dhe + P0) + P1) + P2, and db_hn sums the partials in step order.
 //
@@ -76,7 +78,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma_sync.cuh"
+#include "mma_sync.cuh"  // and elem16.cuh
 
 namespace {
 
@@ -101,8 +103,8 @@ namespace cgrp = cooperative_groups;
 constexpr int kRows = 64;            // batch rows of a b-tile
 constexpr int kKc = 64;              // columns of each gate in a ring stage
 constexpr int kStages = 3;           // depth of the step's cp.async ring
-constexpr int kHLd = kKc + 8;        // h_prev stage [64][72] bf16
-constexpr int kGsLd = 3 * kKc + 8;   // G_prev stage [64][200] bf16
+constexpr int kHLd = kKc + 8;        // h_prev stage [64][72] E
+constexpr int kGsLd = 3 * kKc + 8;   // G_prev stage [64][200] E
 constexpr size_t kStageBytes =
     static_cast<size_t>(kRows) * (kHLd + kGsLd) * 2;
 constexpr size_t kCsBytes = static_cast<size_t>(kRows) * kCLd * 4;
@@ -111,7 +113,7 @@ static_assert(kCsBytes + kPsBytes <= kStages * kStageBytes,
               "gh and the U_h^T chunks reuse the ring after the mainloop");
 static_assert(kRows * kKc / 8 % kThreads == 0, "whole copies a thread");
 
-// Uc [H][56] bf16 | Ur [16][3H+8] bf16 | ring [3][64][72 + 200] bf16,
+// Uc [H][56] E | Ur [16][3H+8] E | ring [3][64][72 + 200] E (E: 2 bytes),
 // which after a tile's mainloop holds Cs [64][52] f32 and Ps [3][64][20]
 // f32 | Rs [64][16] f32
 __host__ __device__ constexpr size_t p_off_ur(int H) {
@@ -132,24 +134,26 @@ __host__ __device__ constexpr size_t bptt_smem_bytes(int H) {
 }
 
 // One direction's arguments of the persistent step kernel.
+template <class E>
 struct Bptt {
   const float* gx;               // [T, B, 3H]
   const float* hseq;             // [T, B, H] f32 (the forward's states)
-  __nv_bfloat16* hbf;            // [T, B, H] bf16 copy (pre-step slices)
+  E* hbf;                        // [T, B, H] E copy (pre-step slices)
   const int* lens;               // [B]
-  const __nv_bfloat16* uh;       // [H, 3H]
+  const E* uh;                   // [H, 3H]
   const float* bhn;              // [H]
   float* dhe;                    // [B, H] in/out
   float* dgx;                    // [T, B, 3H]
-  __nv_bfloat16* g;              // [T, B, 3H]
+  E* g;                          // [T, B, 3H]
   float* part;                   // [T, ceil(B/16), H]
   int T, B, H, reverse;
 };
 
+template <class E>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_bptt_kernel(Bptt p0, Bptt p1) {
+gru_bptt_kernel(Bptt<E> p0, Bptt<E> p1) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Bptt p = blockIdx.z == 0 ? p0 : p1;
+  const Bptt<E> p = blockIdx.z == 0 ? p0 : p1;
   const int H = p.H;
   const int B = p.B;
   const int T = p.T;
@@ -157,8 +161,8 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
   const size_t step_h = static_cast<size_t>(B) * H;
   const size_t step_gx = static_cast<size_t>(B) * H3;
   const int ldr = g_ld(H);
-  __nv_bfloat16* Uc = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ur = reinterpret_cast<__nv_bfloat16*>(smem + p_off_ur(H));
+  E* Uc = reinterpret_cast<E*>(smem);
+  E* Ur = reinterpret_cast<E*>(smem + p_off_ur(H));
   unsigned char* ring = smem + p_off_ring(H);
   float* Cs = reinterpret_cast<float*>(smem + p_off_cs(H));
   float* Ps = reinterpret_cast<float*>(smem + p_off_ps(H));
@@ -186,7 +190,7 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
   }
   cp_async_commit();
 
-  // bf16 copy of the pre-step states: hseq[0..T-2] (forward) or
+  // E copy of the pre-step states: hseq[0..T-2] (forward) or
   // hseq[1..T-1] (reverse), rounded as the reference rounds h_prev, by the
   // gridDim.x * gridDim.y blocks of this direction together, four floats a
   // thread and load, 8 loads in flight a pass.
@@ -194,7 +198,8 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
     constexpr int kBatch = 8;
     const size_t off = p.reverse ? step_h : 0;
     const float4* src = reinterpret_cast<const float4*>(p.hseq + off);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.hbf + off);
+    using Pair = typename Elem<E>::pair;
+    Pair* dst = reinterpret_cast<Pair*>(p.hbf + off);
     const size_t n4 = (T - 1) * step_h / 4;
     const size_t nthreads =
         static_cast<size_t>(gridDim.x) * gridDim.y * kThreads;
@@ -211,8 +216,8 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
       for (int u = 0; u < kBatch; ++u) {
         const size_t i = i0 + u * nthreads;
         if (i < n4) {
-          dst[2 * i] = __floats2bfloat162_rn(h[u].x, h[u].y);
-          dst[2 * i + 1] = __floats2bfloat162_rn(h[u].z, h[u].w);
+          dst[2 * i] = Elem<E>::from2(h[u].x, h[u].y);
+          dst[2 * i + 1] = Elem<E>::from2(h[u].z, h[u].w);
         }
       }
     }
@@ -234,27 +239,26 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
     const int t = p.reverse ? k : T - 1 - k;
     const bool first = p.reverse ? t == T - 1 : t == 0;
     const size_t tp = static_cast<size_t>(p.reverse ? t + 1 : t - 1);
-    // h_prev == null: the zero initial state (its bf16 tile is zero-filled
+    // h_prev == null: the zero initial state (its E tile is zero-filled
     // and gh still runs). g_prev == null: the
     // first BPTT step, whose dh is `dhe` as given.
-    const __nv_bfloat16* hb = first ? nullptr : p.hbf + tp * step_h;
+    const E* hb = first ? nullptr : p.hbf + tp * step_h;
     const float* hf = first ? nullptr : p.hseq + tp * step_h;
-    const __nv_bfloat16* gp =
+    const E* gp =
         k == 0 ? nullptr : p.g + (p.reverse ? t - 1 : t + 1) * step_gx;
     const float* gxt = p.gx + t * step_gx;
     float* dgxt = p.dgx + t * step_gx;
-    __nv_bfloat16* gt = p.g + t * step_gx;
+    E* gt = p.g + t * step_gx;
     float* part = p.part + static_cast<size_t>(k) * nbt * H;
 
     for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y) {
       const int b0 = bt * kRows;
-      // Stage c: columns c*64.. of bf16(h_prev), and of each gate of G_prev,
+      // Stage c: columns c*64.. of E(h_prev), and of each gate of G_prev,
       // 16 bytes a copy.
       auto load_stage = [&](int c, int slot) {
         constexpr int kV = kKc / 8;
-        __nv_bfloat16* Ah =
-            reinterpret_cast<__nv_bfloat16*>(ring + slot * kStageBytes);
-        __nv_bfloat16* Ag = Ah + kRows * kHLd;
+        E* Ah = reinterpret_cast<E*>(ring + slot * kStageBytes);
+        E* Ag = Ah + kRows * kHLd;
 #pragma unroll
         for (int u = 0; u < kRows * kV / kThreads; ++u) {
           const int i = tid + u * kThreads;
@@ -321,11 +325,11 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
         const int nx = c + kStages - 1;
         if (nx < nchunk) load_stage(nx, nx % kStages);
         cp_async_commit();
-        const __nv_bfloat16* Ah = reinterpret_cast<const __nv_bfloat16*>(
-            ring + (c % kStages) * kStageBytes);
-        const __nv_bfloat16* Ag = Ah + kRows * kHLd;
+        const E* Ah =
+            reinterpret_cast<const E*>(ring + (c % kStages) * kStageBytes);
+        const E* Ag = Ah + kRows * kHLd;
         if (gate_warp) {
-          // gh = bf16(h_prev) U_h for the 3 gates of rows rb*16..; U_h's
+          // gh = E(h_prev) U_h for the 3 gates of rows rb*16..; U_h's
           // columns sit k-major in Uc.
 #pragma unroll
           for (int ks = 0; ks < kKc; ks += 16) {
@@ -336,7 +340,7 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
               unsigned bf[4];
               load_b_kmajor(bf, Uc + (c * kKc + ks) * kBLd + g * kTile,
                             kBLd, lane);
-              mma16(acc[g], af, bf);
+              mma16<E>(acc[g], af, bf);
             }
           }
         } else if (gp != nullptr) {
@@ -349,7 +353,7 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
               unsigned af[4], bf[4];
               load_a(af, Ag + rb * 16 * kGsLd + g * kKc + ks, kGsLd, lane);
               load_b_nmajor(bf, Ur + g * H + c * kKc + ks, ldr, lane);
-              mma16(acc[g], af, bf);
+              mma16<E>(acc[g], af, bf);
             }
           }
         }
@@ -401,10 +405,10 @@ gru_bptt_kernel(Bptt p0, Bptt p1) {
           dg[j] = da_r;
           dg[H + j] = da_z;
           dg[2 * H + j] = da_n;
-          __nv_bfloat16* go = gt + b * H3;
-          go[j] = __float2bfloat16(da_r);
-          go[H + j] = __float2bfloat16(da_z);
-          go[2 * H + j] = __float2bfloat16(dgh_n);
+          E* go = gt + b * H3;
+          go[j] = Elem<E>::from(da_r);
+          go[H + j] = Elem<E>::from(da_z);
+          go[2 * H + j] = Elem<E>::from(dgh_n);
           p.dhe[o] = dhp;
         }
         Rs[bl * kTile + jl] = dgh_n;
@@ -435,18 +439,20 @@ constexpr size_t kDStageBytes =
 constexpr size_t kDuhSmem = kDStages * kDStageBytes;
 
 // One direction's dU_h [H, 3H] = sum_k hp[k, :]^T g[k, :] over K rows, hp
-// the bf16 copy.
+// the E copy.
+template <class E>
 struct DuhPipe {
-  const __nv_bfloat16* hp;     // [K, H]
-  const __nv_bfloat16* g;      // [K, 3H]
+  const E* hp;                 // [K, H]
+  const E* g;                  // [K, 3H]
   float* duh;                  // [H, 3H]
   int K, H;
 };
 
+template <class E>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_duh_pipe_kernel(DuhPipe d0, DuhPipe d1) {
+gru_duh_pipe_kernel(DuhPipe<E> d0, DuhPipe<E> d1) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const DuhPipe d = blockIdx.z == 0 ? d0 : d1;
+  const DuhPipe<E> d = blockIdx.z == 0 ? d0 : d1;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -462,9 +468,8 @@ gru_duh_pipe_kernel(DuhPipe d0, DuhPipe d1) {
   const int kend = (K + 31) / 32 * 32;
 
   auto load_stage = [&](int c, int slot) {
-    __nv_bfloat16* As =
-        reinterpret_cast<__nv_bfloat16*>(smem + slot * kDStageBytes);
-    __nv_bfloat16* Bs = As + kDK * kDALd;
+    E* As = reinterpret_cast<E*>(smem + slot * kDStageBytes);
+    E* Bs = As + kDK * kDALd;
     const int k0 = c * kDK;
     for (int i = tid; i < kDK * kDM / 8; i += kThreads) {
       const int r = i >> 4;
@@ -504,15 +509,15 @@ gru_duh_pipe_kernel(DuhPipe d0, DuhPipe d1) {
     const int nx = c + kDStages - 1;
     if (nx < nk) load_stage(nx, nx % kDStages);
     cp_async_commit();
-    const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(
-        smem + (c % kDStages) * kDStageBytes);
-    const __nv_bfloat16* Bs = As + kDK * kDALd;
+    const E* As =
+        reinterpret_cast<const E*>(smem + (c % kDStages) * kDStageBytes);
+    const E* Bs = As + kDK * kDALd;
     if (!live) continue;
     const int nkk = kend - c * kDK;  // the stage's k-steps, 16 rows each
 #pragma unroll
     for (int kk = 0; kk < kDK; kk += 16) {
       if (kk >= nkk) break;
-      // A = bf16(h_prev)^T, held k-major ([k][i]) as G.
+      // A = E(h_prev)^T, held k-major ([k][i]) as G.
       unsigned af[2][4], bf[2][4];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
@@ -524,7 +529,7 @@ gru_duh_pipe_kernel(DuhPipe d0, DuhPipe d1) {
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
-        for (int c2 = 0; c2 < 2; ++c2) mma16(acc[a][c2], af[a], bf[c2]);
+        for (int c2 = 0; c2 < 2; ++c2) mma16<E>(acc[a][c2], af[a], bf[c2]);
     }
   }
   cp_async_wait<0>();
@@ -560,6 +565,7 @@ __global__ void gru_dbhn_kernel(DbhnSum d0, DbhnSum d1, int n_part, int H) {
 // memory exceeds what a block may have), the dynamic shared memory it
 // takes, and the widest H, a multiple of 64, whose shared memory fits on
 // the current device; grants the kernel that memory where it fits.
+template <class E>
 cudaError_t bptt_occupancy(int H, int* per_sm, size_t* smem,
                            int* max_width) {
   *per_sm = 0;
@@ -579,12 +585,12 @@ cudaError_t bptt_occupancy(int H, int* per_sm, size_t* smem,
   while (bptt_smem_bytes(*max_width + 64) <= static_cast<size_t>(optin))
     *max_width += 64;
   if (*smem > static_cast<size_t>(optin)) return cudaSuccess;
-  e = cudaFuncSetAttribute(gru_bptt_kernel,
+  e = cudaFuncSetAttribute(gru_bptt_kernel<E>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(*smem));
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, gru_bptt_kernel, kThreads, *smem);
+      per_sm, gru_bptt_kernel<E>, kThreads, *smem);
 }
 
 // The BPTT of `dirs` (1 or 2) recurrences on `st`: the persistent step
@@ -597,7 +603,8 @@ cudaError_t bptt_occupancy(int H, int* per_sm, size_t* smem,
 // them cudaErrorCooperativeLaunchTooLarge where the grid cannot be resident
 // at once, clearing it from the runtime so that later launch checks of
 // other kernels do not report it again.
-int bptt_run(const Bptt (&p)[2], float* const (&duh)[2],
+template <class E>
+int bptt_run(const Bptt<E> (&p)[2], float* const (&duh)[2],
              float* const (&dbhn)[2], int dirs, int rows, cudaStream_t st,
              int* launched) {
   *launched = 0;
@@ -606,7 +613,7 @@ int bptt_run(const Bptt (&p)[2], float* const (&duh)[2],
   const int H = p[0].H;
   int per_sm = 0, max_width = 0;
   size_t smem = 0;
-  cudaError_t e = bptt_occupancy(H, &per_sm, &smem, &max_width);
+  cudaError_t e = bptt_occupancy<E>(H, &per_sm, &smem, &max_width);
   if (e == cudaSuccess &&
       (T < 1 || B < 1 || H < 64 || H % 64 != 0 || dirs < 1 || dirs > 2 ||
        rows < 1 || per_sm < 1))
@@ -615,17 +622,17 @@ int bptt_run(const Bptt (&p)[2], float* const (&duh)[2],
     cudaGetLastError();
     return static_cast<int>(e);
   }
-  Bptt p0 = p[0], p1 = p[1];
+  Bptt<E> p0 = p[0], p1 = p[1];
   void* args[] = {&p0, &p1};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(gru_bptt_kernel),
+      reinterpret_cast<const void*>(gru_bptt_kernel<E>),
       dim3(H / kTile, rows, dirs), dim3(kThreads), args, smem, st);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
   ++*launched;
-  e = cudaFuncSetAttribute(gru_duh_pipe_kernel,
+  e = cudaFuncSetAttribute(gru_duh_pipe_kernel<E>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kDuhSmem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -633,14 +640,14 @@ int bptt_run(const Bptt (&p)[2], float* const (&duh)[2],
   // first processed step's zero state adds nothing and is left out.
   const size_t step_h = static_cast<size_t>(B) * H;
   const size_t step_gx = 3 * step_h;
-  DuhPipe d[2];
+  DuhPipe<E> d[2];
   for (int i = 0; i < 2; ++i) {
-    d[i] = DuhPipe{p[i].hbf + (p[i].reverse ? step_h : 0),
-                   p[i].g + (p[i].reverse ? 0 : step_gx), duh[i],
-                   (T - 1) * B, H};
+    d[i] = DuhPipe<E>{p[i].hbf + (p[i].reverse ? step_h : 0),
+                      p[i].g + (p[i].reverse ? 0 : step_gx), duh[i],
+                      (T - 1) * B, H};
   }
-  gru_duh_pipe_kernel<<<dim3(3 * H / kDN, (H + kDM - 1) / kDM, dirs),
-                        kThreads, kDuhSmem, st>>>(d[0], d[1]);
+  gru_duh_pipe_kernel<E><<<dim3(3 * H / kDN, (H + kDM - 1) / kDM, dirs),
+                           kThreads, kDuhSmem, st>>>(d[0], d[1]);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;

@@ -1,4 +1,7 @@
-// K1 `gru_fwd`: the fused GRU forward recurrence, for Hopper (sm_90a).
+// K1 `gru_fwd`: the fused GRU forward recurrence, for Hopper (sm_90a). The
+// same source builds K1h (csrc/gru_fwd_f16.cu), the float16 instance: E =
+// KernelElem (elem16.cuh) is bf16 here and float16 there, U_h's type and
+// the exchanged state's.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_gru_fwd_kernel (the
 // Pallas body launched by _gru_pallas_fwd_call); the step math is that
@@ -13,7 +16,7 @@
 // Design: the persistent kernel of gru_fwd_step.cuh (gru_seq_kernel), one
 // cooperative launch for all T steps with one direction (gridDim.z = 1);
 // each block's U_h columns stay resident in shared memory, the state is
-// exchanged as a bf16 ping-pong copy [2, B, H]. K6 (csrc/bigru_fwd.cu)
+// exchanged as an E ping-pong copy [2, B, H]. K6 (csrc/bigru_fwd.cu)
 // launches the same kernel with two directions: each of its chains equals a
 // K1 call bit for bit.
 
@@ -34,12 +37,13 @@ const char* cuda_error_string(int code) {
 // that later launch checks of other kernels do not report it again.
 int gru_fwd_config(int B, int H, int rows, int* grid, int* launches,
                    int* per_sm, long long* smem_bytes) {
-  return seq_config(B, H, rows, 1, grid, launches, per_sm, smem_bytes);
+  return seq_config<KernelElem>(B, H, rows, 1, grid, launches, per_sm,
+                                smem_bytes);
 }
 
-// gx_t [T, B, 3H] f32, lens [B] i32, uh [H, 3H] bf16, bhn [H] f32
+// gx_t [T, B, 3H] f32, lens [B] i32, uh [H, 3H] E, bhn [H] f32
 // -> hseq [T, B, H] f32 (post-step state of actual timestep t), hT [B, H];
-// scratch hbf [2, B, H] bf16. `rows` (16 or 64) batch rows a block, as
+// scratch hbf [2, B, H] E. `rows` (16 or 64) batch rows a block, as
 // ops/kernels.py::gru_fwd_plan chooses them; the grid is derived from them
 // (seq_grid). Needs H % 16 == 0 (checked by the caller). Launches the
 // persistent kernel cooperatively on `stream` (1), counting in *launched
@@ -48,16 +52,17 @@ int gru_fwd_config(int B, int H, int rows, int* grid, int* launches,
 int gru_fwd(const void* gx_t, const void* lens, const void* uh,
             const void* bhn, void* hseq, void* hT, void* hbf, int T, int B,
             int H, int reverse, int rows, void* stream, int* launched) {
-  const FwdSeq p{static_cast<const float*>(gx_t),
-                 static_cast<const int*>(lens),
-                 static_cast<const __nv_bfloat16*>(uh),
-                 static_cast<const float*>(bhn),
-                 static_cast<float*>(hseq),
-                 static_cast<float*>(hT),
-                 static_cast<__nv_bfloat16*>(hbf),
-                 T, B, H, rows, reverse};
-  return seq_run({p, p}, 1, rows, static_cast<cudaStream_t>(stream),
-                 launched);
+  using E = KernelElem;
+  const FwdSeq<E> p{static_cast<const float*>(gx_t),
+                    static_cast<const int*>(lens),
+                    static_cast<const E*>(uh),
+                    static_cast<const float*>(bhn),
+                    static_cast<float*>(hseq),
+                    static_cast<float*>(hT),
+                    static_cast<E*>(hbf),
+                    T, B, H, rows, reverse};
+  return seq_run<E>({p, p}, 1, rows, static_cast<cudaStream_t>(stream),
+                    launched);
 }
 
 }  // extern "C"

@@ -4,12 +4,15 @@
 // (csrc/bigru_fwd.cu, both directions of a bidirectional GRU) share. The
 // step math is vqa_transfer_externaldata_tpu/ops/gru.py::_gru_cell:
 //
-//   gh = bf16(h) @ U_h                      (f32 accumulation)
+//   gh = E(h) @ U_h                         (f32 accumulation)
 //   r  = sigmoid(gx_r + gh_r),  z = sigmoid(gx_z + gh_z)
 //   n  = tanh(gx_n + r * (gh_n + b_hn))
 //   h' = (1 - z) * n + z * h                applied only where t < lens[b]
 //
 // gx = x @ W_x + b is computed once for all steps outside (a plain GEMM).
+// E is U_h's 16-bit type, bf16 (K1, K6) or float16 (K1h): the state is
+// rounded to it ahead of the product, as JAX's h.astype(uh.dtype), and the
+// products run on mma.sync of that type (elem16.cuh).
 // `reverse` walks t from T-1 down to 0 under the same prefix mask, so the
 // padded tail is processed first and carries the zero state through.
 //
@@ -25,7 +28,7 @@
 // Pallas grid step of _bigru_fwd_kernel does; a one-direction launch
 // (gridDim.z == 1) reads only the first. Within a step a block walks its
 // b-tiles of `rows` rows (by, by + gridDim.y, ...). The state that blocks
-// exchange is a bf16 copy of h_t, rounded as the reference rounds h before
+// exchange is an E copy of h_t, rounded as the reference rounds h before
 // its matmul, in a ping-pong pair [2, B, H] a direction: step k reads slot
 // (k+1) % 2 and writes slot k % 2, so one barrier a step suffices (no block
 // writes a slot before every block has finished reading it). A b-tile's
@@ -68,7 +71,7 @@
 
 #include <algorithm>
 
-#include "mma_sync.cuh"
+#include "mma_sync.cuh"  // and elem16.cuh
 
 namespace {
 
@@ -78,7 +81,7 @@ constexpr int kSeqThreads = 256;  // 8 warps, one (16-row, n8-half) task each
 constexpr int kUnits = 16;        // hidden units a block owns
 constexpr int kHalves = kUnits / 8;  // n8 halves of a gate's units
 constexpr int kChunk = 64;        // h_prev columns in one cp.async group
-// Leading dimension of the U_h slice [H][48] bf16: a row is 7 (an odd
+// Leading dimension of the U_h slice [H][48] of E: a row is 7 (an odd
 // number of) 16-byte units, so ldmatrix's 8 rows hit distinct banks.
 constexpr int kULd = 3 * kUnits + 8;
 constexpr int kXLd = 3 * kUnits;  // floats of a row of a gx slice
@@ -89,7 +92,7 @@ __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) / 128 * 128;
 }
 
-// Us [H][kULd] bf16 | Hs [rows][H+8] bf16 | Xs [2][rows][48] f32
+// Us [H][kULd] E | Hs [rows][H+8] E | Xs [2][rows][48] f32 (E: 2 bytes)
 __host__ __device__ constexpr size_t seq_off_h(int H) {
   return align128(static_cast<size_t>(H) * kULd * 2);
 }
@@ -104,7 +107,7 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// One element of the step: x* = gx of the gates, gh* = bf16(h_prev) @ U_h
+// One element of the step: x* = gx of the gates, gh* = E(h_prev) @ U_h
 // of the gates, hp = the f32 state before the step, live = t < lens[b].
 __device__ __forceinline__ float gru_cell(float xr, float xz, float xn,
                                           float ghr, float ghz, float ghn,
@@ -131,21 +134,23 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
   }
 }
 
-// One direction's recurrence.
+// One direction's recurrence, U_h and the exchanged state in E.
+template <class E>
 struct FwdSeq {
   const float* gx;             // [T, B, 3H]
   const int* lens;             // [B]
-  const __nv_bfloat16* uh;     // [H, 3H]
+  const E* uh;                 // [H, 3H]
   const float* bhn;            // [H]
   float* hseq;                 // [T, B, H]
   float* hT;                   // [B, H]
-  __nv_bfloat16* hbf;          // [2, B, H] bf16 copies of the state
+  E* hbf;                      // [2, B, H] E copies of the state
   int T, B, H, rows, reverse;
 };
 
+template <class E>
 __global__ void __launch_bounds__(kSeqThreads)
-gru_seq_kernel(FwdSeq d0, FwdSeq d1) {
-  const FwdSeq p = blockIdx.z == 0 ? d0 : d1;
+gru_seq_kernel(FwdSeq<E> d0, FwdSeq<E> d1) {
+  const FwdSeq<E> p = blockIdx.z == 0 ? d0 : d1;
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int U = kUnits;
   const int H = p.H;
@@ -156,9 +161,8 @@ gru_seq_kernel(FwdSeq d0, FwdSeq d1) {
   const size_t step_h = static_cast<size_t>(B) * H;
   const size_t step_gx = static_cast<size_t>(B) * H3;
   const int lda = a_ld(H);
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Hs =
-      reinterpret_cast<__nv_bfloat16*>(smem + seq_off_h(H));
+  E* Us = reinterpret_cast<E*>(smem);
+  E* Hs = reinterpret_cast<E*>(smem + seq_off_h(H));
   float* Xs = reinterpret_cast<float*>(smem + seq_off_x(H, rows));
 
   const int tid = threadIdx.x;
@@ -214,19 +218,19 @@ gru_seq_kernel(FwdSeq d0, FwdSeq d1) {
   int item = 0;  // the block's work items so far: parity picks the gx buffer
   for (int k = 0; k < T; ++k) {
     const int t = p.reverse ? T - 1 - k : k;
-    // null at the first step: the zero initial state (its bf16 tile is
+    // null at the first step: the zero initial state (its E tile is
     // zero-filled and the products still run).
-    const __nv_bfloat16* hb =
+    const E* hb =
         k == 0 ? nullptr : p.hbf + ((k + 1) & 1) * step_h;
     const float* hf =
         k == 0 ? nullptr : p.hseq + (p.reverse ? t + 1 : t - 1) * step_h;
     float* ho = p.hseq + t * step_h;
-    __nv_bfloat16* hbo = p.hbf + (k & 1) * step_h;
+    E* hbo = p.hbf + (k & 1) * step_h;
     float* hTo = k == T - 1 ? p.hT : nullptr;
 
     for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y, ++item) {
       const int b0 = bt * rows;
-      // bf16(h_prev) of the tile's rows, 64 columns a commit group.
+      // E(h_prev) of the tile's rows, 64 columns a commit group.
       for (int c = 0; c < nchunk; ++c) {
         const int cw = min(kChunk, H - c * kChunk) / 8;
         for (int i = tid; i < rows * cw; i += kSeqThreads) {
@@ -290,7 +294,7 @@ gru_seq_kernel(FwdSeq d0, FwdSeq d1) {
               unsigned b[2];
               load_b_half_kmajor(b, Us + kk * kULd + g * U + half * 8,
                                  kULd, lane);
-              mma16816(acc[g], a, b[0], b[1]);
+              mma16816<E>(acc[g], a, b[0], b[1]);
             }
           }
         }
@@ -317,8 +321,8 @@ gru_seq_kernel(FwdSeq d0, FwdSeq d1) {
           const size_t o = static_cast<size_t>(b) * H + j;
           *reinterpret_cast<float2*>(ho + o) = h;
           if (hTo != nullptr) *reinterpret_cast<float2*>(hTo + o) = h;
-          *reinterpret_cast<__nv_bfloat162*>(hbo + o) =
-              __floats2bfloat162_rn(h.x, h.y);
+          *reinterpret_cast<typename Elem<E>::pair*>(hbo + o) =
+              Elem<E>::from2(h.x, h.y);
         }
       }
     }
@@ -329,6 +333,7 @@ gru_seq_kernel(FwdSeq d0, FwdSeq d1) {
 // The dynamic shared memory of a block of `rows` (16 or 64) batch rows at
 // width H, granted to the kernel, and the blocks of it resident per SM (0
 // where that memory exceeds what a block may have).
+template <class E>
 cudaError_t seq_occupancy(int H, int rows, int* per_sm, size_t* smem) {
   *per_sm = 0;
   *smem = 0;
@@ -341,12 +346,12 @@ cudaError_t seq_occupancy(int H, int rows, int* per_sm, size_t* smem) {
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
   if (e != cudaSuccess || *smem > static_cast<size_t>(optin)) return e;
-  e = cudaFuncSetAttribute(gru_seq_kernel,
+  e = cudaFuncSetAttribute(gru_seq_kernel<E>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(*smem));
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gru_seq_kernel,
-                                                       kSeqThreads, *smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, gru_seq_kernel<E>, kSeqThreads, *smem);
 }
 
 // The grid of `dirs` (1 or 2) recurrences at batch B: H / 16 j-tiles x as
@@ -357,10 +362,11 @@ cudaError_t seq_occupancy(int H, int rows, int* per_sm, size_t* smem) {
 // the grid of one direction (grid.z = 1), launched once a direction; 0 x 0
 // x 0 where not even that is. ops/kernels.py::gru_fwd_plan computes the
 // same grid from the same blocks per SM.
+template <class E>
 cudaError_t seq_grid(int B, int H, int rows, int dirs, dim3* grid,
                      int* per_sm, size_t* smem) {
   *grid = dim3(0, 0, 0);
-  cudaError_t e = seq_occupancy(H, rows, per_sm, smem);
+  cudaError_t e = seq_occupancy<E>(H, rows, per_sm, smem);
   if (e != cudaSuccess) return e;
   if (dirs < 1 || dirs > 2) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0;
@@ -389,14 +395,15 @@ cudaError_t seq_grid(int B, int H, int rows, int dirs, dim3* grid,
 // them cudaErrorCooperativeLaunchTooLarge where not even one direction's
 // grid can be resident at once, clearing it from the runtime so that later
 // launch checks of other kernels do not report it again.
-int seq_run(const FwdSeq (&p)[2], int dirs, int rows, cudaStream_t st,
+template <class E>
+int seq_run(const FwdSeq<E> (&p)[2], int dirs, int rows, cudaStream_t st,
             int* launched) {
   *launched = 0;
   dim3 grid;
   int per_sm = 0;
   size_t smem = 0;
   cudaError_t e =
-      seq_grid(p[0].B, p[0].H, rows, dirs, &grid, &per_sm, &smem);
+      seq_grid<E>(p[0].B, p[0].H, rows, dirs, &grid, &per_sm, &smem);
   if (e == cudaSuccess && (p[0].T < 1 || p[0].B < 1))
     e = cudaErrorInvalidValue;
   if (e == cudaSuccess && grid.y == 0) e = cudaErrorCooperativeLaunchTooLarge;
@@ -408,11 +415,11 @@ int seq_run(const FwdSeq (&p)[2], int dirs, int rows, cudaStream_t st,
   for (int i = 0; i < n; ++i) {
     // With grid.z == dirs one launch takes p[0] and p[1]; with grid.z == 1
     // launch i reads only its first argument, p[i].
-    FwdSeq a = p[i];
-    FwdSeq b = p[grid.z == 1 ? i : 1];
+    FwdSeq<E> a = p[i];
+    FwdSeq<E> b = p[grid.z == 1 ? i : 1];
     void* args[] = {&a, &b};
     e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(gru_seq_kernel), grid,
+        reinterpret_cast<const void*>(gru_seq_kernel<E>), grid,
         dim3(kSeqThreads), args, smem, st);
     if (e != cudaSuccess) {
       cudaGetLastError();
@@ -429,11 +436,12 @@ int seq_run(const FwdSeq (&p)[2], int dirs, int rows, cudaStream_t st,
 // once), the launches it takes, the blocks resident per SM (0 where the
 // shared memory exceeds a block's) and the dynamic shared memory. Returns
 // the CUDA error of the queries, clearing it from the runtime.
+template <class E>
 int seq_config(int B, int H, int rows, int dirs, int* grid, int* launches,
                int* per_sm, long long* smem_bytes) {
   dim3 g;
   size_t smem = 0;
-  const cudaError_t e = seq_grid(B, H, rows, dirs, &g, per_sm, &smem);
+  const cudaError_t e = seq_grid<E>(B, H, rows, dirs, &g, per_sm, &smem);
   if (e != cudaSuccess) cudaGetLastError();
   grid[0] = static_cast<int>(g.x);
   grid[1] = static_cast<int>(g.y);

@@ -1,7 +1,8 @@
 // The warp-level tensor-core primitives of the persistent GRU kernels, the
 // forward of K1 and K6 (csrc/gru_fwd_step.cuh) and the BPTT of K3 and K7
 // (csrc/gru_bwd_step.cuh): asynchronous 16-byte copies into shared memory,
-// ldmatrix loads and mma.sync m16n8k16 bf16 products with f32 sums.
+// ldmatrix loads and mma.sync m16n8k16 products of 16-bit values (bf16, or
+// float16 in K1h and K3h: elem16.cuh) with f32 sums.
 //
 // WMMA's 16x16x16 bf16 product compiles on sm_90a to two
 // HMMA.16816.F32.BF16, one for columns 0..7 and one for 8..15 of the same A
@@ -18,6 +19,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "elem16.cuh"
 
 namespace {
 
@@ -64,27 +67,38 @@ __device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
       : "r"(s)
       : "memory");
 }
+// d (m16n8, f32) += A B of E values (E picks the instruction's type; the
+// operand registers hold two E values each, as ldmatrix loads them).
+template <class E>
 __device__ __forceinline__ void mma16816(float* d, const unsigned (&a)[4],
                                          unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (Elem<E>::kF16) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 // acc (16x16) += A B, with b = {b0 of columns 0-7, b1 of 0-7, b0 of 8-15,
 // b1 of 8-15} as ldmatrix gives them below.
+template <class E>
 __device__ __forceinline__ void mma16(float (&acc)[8], const unsigned (&a)[4],
                                       const unsigned (&b)[4]) {
-  mma16816(acc, a, b[0], b[1]);
-  mma16816(acc + 4, a, b[2], b[3]);
+  mma16816<E>(acc, a, b[0], b[1]);
+  mma16816<E>(acc + 4, a, b[2], b[3]);
 }
 // Lane l's row address for ldmatrix x4 of a 16x16 tile at `base` (leading
 // dimension ld): matrix m = l/8 covers rows 8 (m & 1).., columns 8 (m >> 1)..
 // (kRowsFirst) or rows 8 (m >> 1).., columns 8 (m & 1).. (otherwise). For
 // x2, lanes 0-15 give matrices 0 and 1.
-template <bool kRowsFirst>
-__device__ __forceinline__ const __nv_bfloat16* ldsm_addr(
-    const __nv_bfloat16* base, int ld, int lane) {
+template <bool kRowsFirst, class E>
+__device__ __forceinline__ const E* ldsm_addr(const E* base, int ld,
+                                              int lane) {
   const int m = lane >> 3;
   const int r = (kRowsFirst ? (m & 1) : (m >> 1)) * 8 + (lane & 7);
   const int c = (kRowsFirst ? (m >> 1) : (m & 1)) * 8;
@@ -92,33 +106,38 @@ __device__ __forceinline__ const __nv_bfloat16* ldsm_addr(
 }
 // A fragment (rows x k) from a row-major tile: a0..a3 = (rows 0-7, k 0-7),
 // (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15).
+template <class E>
 __device__ __forceinline__ void load_a(unsigned (&a)[4],
-                                       const __nv_bfloat16* base, int ld,
+                                       const E* base, int ld,
                                        int lane) {
   ldsm_x4(a, ldsm_addr<true>(base, ld, lane));
 }
 // A fragment from a tile stored k-major ([k][rows]), through the transpose.
+template <class E>
 __device__ __forceinline__ void load_a_kmajor(unsigned (&a)[4],
-                                              const __nv_bfloat16* base,
+                                              const E* base,
                                               int ld, int lane) {
   ldsm_x4_t(a, ldsm_addr<false>(base, ld, lane));
 }
 // B fragment (k x 16 columns) from a tile stored k-major ([k][n]).
+template <class E>
 __device__ __forceinline__ void load_b_kmajor(unsigned (&b)[4],
-                                              const __nv_bfloat16* base,
+                                              const E* base,
                                               int ld, int lane) {
   ldsm_x4_t(b, ldsm_addr<true>(base, ld, lane));
 }
 // B fragment of one n8 half (k x 8 columns at `base`) from a tile stored
 // k-major: b0, b1 of those columns, as load_b_kmajor gives them.
+template <class E>
 __device__ __forceinline__ void load_b_half_kmajor(unsigned (&b)[2],
-                                                   const __nv_bfloat16* base,
+                                                   const E* base,
                                                    int ld, int lane) {
   ldsm_x2_t(b, ldsm_addr<true>(base, ld, lane));
 }
 // B fragment from a tile stored n-major ([n][k]).
+template <class E>
 __device__ __forceinline__ void load_b_nmajor(unsigned (&b)[4],
-                                              const __nv_bfloat16* base,
+                                              const E* base,
                                               int ld, int lane) {
   ldsm_x4(b, ldsm_addr<false>(base, ld, lane));
 }

@@ -4,7 +4,8 @@
 //
 //   acc = A @ W_v      A [rows, C]: store rows looked up one by one, or the
 //                      rows of a dense matrix (DenseRows),
-//                      W_v [C, H] bf16, f32 sums of bf16 products
+//                      W_v [C, H] of E, f32 sums of E products, E the
+//                      16-bit element type: bf16, or float16 in K4h
 //
 // on Hopper's warpgroup MMA (wgmma, sm_90a). Its primitives (the copies,
 // fences, swizzle and wgmma wrappers) also serve the dW_v GEMM of
@@ -32,7 +33,7 @@
 //    channels past C (the upper half of the last chunk when C % 64 == 32),
 //    are zero-filled with the copy's source size 0.
 //  - int8 rows: the raw codes go to an int8 slot of the stage (64 B a row),
-//    and each thread widens the codes it copied into the stage's bf16 slot
+//    and each thread widens the codes it copied into the stage's E slot
 //    (exact: |code| <= 127).
 //  - Each chunk: cp.async.wait_group for it; the widening (int8 rows) or the
 //    squares (normalize) of the thread's own copies; fence.proxy.async
@@ -52,8 +53,9 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
-#include "store_rows.cuh"
+#include "store_rows.cuh"  // and elem16.cuh
 
 namespace {
 
@@ -133,7 +135,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Descriptor of a K-major bf16 operand in the 128-byte swizzle: start
+// Descriptor of a K-major 16-bit operand in the 128-byte swizzle: start
 // address >> 4 (bits 0-13), leading offset 1 (unused by this layout, bits
 // 16-29), stride 1024 B between 8-row groups (bits 32-45), layout type 1,
 // SWIZZLE_128B (bits 62-63). The base offset (bits 49-51) is 0: every
@@ -146,97 +148,116 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr) {
 }
 
 // D[64 x N] += A[64 x 16] B[16 x N] for the warpgroup, A and B from shared
-// memory through their descriptors, bf16 in, f32 accumulators. kTnsp 0:
-// both operands K-major (this mainloop); 1: both MN-major (the dW_v GEMM of
-// attention_dwv.cuh, whose reduction runs along the rows of both).
-// scale_d 0 ignores D's old value (D = A B), which starts a sum without
-// any other instruction writing the accumulator registers.
-template <int kTnsp = 0>
+// memory through their descriptors, E (bf16 or f16) in, f32 accumulators.
+// kTnsp 0: both operands K-major (this mainloop); 1: both MN-major (the
+// dW_v GEMM of attention_dwv.cuh, whose reduction runs along the rows of
+// both). scale_d 0 ignores D's old value (D = A B), which starts a sum
+// without any other instruction writing the accumulator registers. The two
+// element types take the same descriptors, layouts and operand registers;
+// only the instruction's type names differ (TYPE of the macros below).
+#define SCORE_GEMM_WGMMA_N256(TYPE) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TYPE "." TYPE " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, " \
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, " \
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, " \
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, " \
+      "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, " \
+      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, " \
+      "%121, %122, %123, %124, %125, %126, %127" \
+      "}, %128, %129, p, 1, 1, %131, %131;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), \
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), \
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), \
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), \
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), \
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnsp))
+
+#define SCORE_GEMM_WGMMA_N128(TYPE) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, " \
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, " \
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnsp))
+
+template <class E, int kTnsp>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
                                                  uint64_t da, uint64_t db,
-                                                 int scale_d = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
-      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
-      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
-      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
-      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
-      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
-      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
-      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
-      "%121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnsp));
+                                                 int scale_d) {
+  if constexpr (Elem<E>::kF16) {
+    SCORE_GEMM_WGMMA_N256("f16");
+  } else {
+    SCORE_GEMM_WGMMA_N256("bf16");
+  }
 }
 
-template <int kTnsp = 0>
+template <class E, int kTnsp>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
                                                  uint64_t da, uint64_t db,
-                                                 int scale_d = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
-      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
-      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
-      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
-      "%55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTnsp));
+                                                 int scale_d) {
+  if constexpr (Elem<E>::kF16) {
+    SCORE_GEMM_WGMMA_N128("f16");
+  } else {
+    SCORE_GEMM_WGMMA_N128("bf16");
+  }
 }
 
-template <int BN, int kTnsp = 0>
+#undef SCORE_GEMM_WGMMA_N256
+#undef SCORE_GEMM_WGMMA_N128
+
+template <int BN, int kTnsp, class E>
 __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t a,
-                                    uint64_t b, int scale_d = 1) {
+                                    uint64_t b, int scale_d) {
   if constexpr (BN == 256) {
-    wgmma_m64n256k16<kTnsp>(d, a, b, scale_d);
+    wgmma_m64n256k16<E, kTnsp>(d, a, b, scale_d);
   } else {
-    wgmma_m64n128k16<kTnsp>(d, a, b, scale_d);
+    wgmma_m64n128k16<E, kTnsp>(d, a, b, scale_d);
   }
 }
 
@@ -249,15 +270,12 @@ __device__ __forceinline__ int frag_row(int t) {
 }
 __device__ __forceinline__ int frag_col(int t) { return 2 * (t & 3); }
 
-// With bf16 rows, thread t copies channel chunk t & 7 of tile rows
-// (t >> 3) + 32 j, j < 4: sq[j] holds the sum of bf16(x^2) over those
-// channels of row sq_row(t, j) (when `squares`).
+// With E rows, thread t copies channel chunk t & 7 of tile rows
+// (t >> 3) + 32 j, j < 4: sq[j] holds the sum of E(x^2) over those
+// channels of row sq_row(t, j) (when `squares`): JAX's
+// sum(square(v), dtype=f32) squares in v's dtype.
 __device__ __forceinline__ int sq_row(int t, int j) {
   return (t >> 3) + 32 * j;
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 // Tile row r is row row0 + r of a dense [rows, C] bf16 matrix (K8's
@@ -273,17 +291,20 @@ struct DenseRows {
 
 // acc = rows(0 .. kBM-1) @ W_v[:, col0 .. col0 + BN) for this thread's part
 // of the tile (frag_row / frag_col). `rows(r)` gives a const T* to tile row
-// r's first channel, or nullptr past the end; wvt is W_v^T [H, C] bf16; C >
-// 0 and C % 32 == 0. `ring` is the 1024-byte-aligned ring of Plan<T, BN>. Ends with
-// every copy landed and every MMA done, but without a barrier: the caller
-// syncs before it reuses the ring.
-template <class T, int BN, class Rows>
+// r's first channel, or nullptr past the end (T is E, or int8_t for codes
+// widened to E); wvt is W_v^T [H, C] of E; C > 0 and C % 32 == 0. `ring`
+// is the 1024-byte-aligned ring of Plan<T, BN>. Ends with every copy landed
+// and every MMA done, but without a barrier: the caller syncs before it
+// reuses the ring.
+template <class T, int BN, class Rows, class E>
 __device__ __forceinline__ void mainloop(const Rows& rows,
-                                         const __nv_bfloat16* __restrict__ wvt,
-                                         int C, int col0, unsigned char* ring,
+                                         const E* __restrict__ wvt, int C,
+                                         int col0, unsigned char* ring,
                                          float (&acc)[BN / 2], float (&sq)[4],
                                          bool squares) {
   using P = Plan<T, BN>;
+  static_assert(P::kInt8 || std::is_same<T, E>::value,
+                "float rows are of the element type");
   constexpr int S = P::kStages;
   constexpr int kAhead = S - 2;
   constexpr int kACopies = P::kInt8 ? 2 : 4;    // 16 B of A a thread each
@@ -300,7 +321,7 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
   for (int j = 0; j < kACopies; ++j) asrc[j] = rows(ar + j * kARowStep);
   const int br = t >> 3;
   const int bc = t & 7;
-  const __nv_bfloat16* bsrc =
+  const E* bsrc =
       wvt + static_cast<size_t>(col0 + br) * C + bc * 8;
   const uint32_t ring_s = smem_u32(ring);
 
@@ -351,9 +372,9 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
         const uint4 raw = *reinterpret_cast<const uint4*>(
             sp + P::kABytes + P::kBBytes + r * kBK + ac * 16);
         *reinterpret_cast<uint4*>(sp + swz(r, 2 * ac)) =
-            store_rows::widen8(make_uint2(raw.x, raw.y));
+            store_rows::widen8<E>(make_uint2(raw.x, raw.y));
         *reinterpret_cast<uint4*>(sp + swz(r, 2 * ac + 1)) =
-            store_rows::widen8(make_uint2(raw.z, raw.w));
+            store_rows::widen8<E>(make_uint2(raw.z, raw.w));
       }
     } else {
       if (squares) {
@@ -361,11 +382,11 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
         for (int j = 0; j < kACopies; ++j) {
           const uint4 x = *reinterpret_cast<const uint4*>(
               sp + swz(ar + j * kARowStep, ac));
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&x);
+          const E* e = reinterpret_cast<const E*>(&x);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            const float v = __bfloat162float(e[i]);
-            sq[j] += round_bf16(v * v);
+            const float v = Elem<E>::to(e[i]);
+            sq[j] += round_to<E>(v * v);
           }
         }
       }
@@ -379,7 +400,8 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      mma<BN>(acc, desc(a + kk * 32), desc(b + kk * 32), (kc | kk) != 0);
+      mma<BN, 0, E>(acc, desc(a + kk * 32), desc(b + kk * 32),
+                    (kc | kk) != 0);
     }
     wgmma_commit();
     fence_acc(acc);

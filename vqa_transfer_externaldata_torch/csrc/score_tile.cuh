@@ -3,10 +3,13 @@
 // resident store): one 128-cell x BN-unit tile of
 //
 //   z     = v @ W_v[:, col0 .. col0 + BN)     score_gemm.cuh's wgmma mainloop
-//   r     = rsqrt(sum_c bf16(v^2) + 1e-12)    (1 when !normalize)
+//   r     = rsqrt(sum_c E(v^2) + 1e-12)       (1 when !normalize)
 //   h     = relu((z * r) + qh[question])      two roundings, as the reference
 //   s_g   = h . ws_g over the tile's units    G partial scores a cell
-//   hsave = bf16(h)                           only where hsave is not null
+//   hsave = E(h)                              only where hsave is not null
+//
+// E is the 16-bit element type of W_v and of the saved h (bf16 in K2 and
+// K4, float16 in K4h); the rows are E or int8 codes widened to E.
 //
 // r comes from the squares that the mainloop takes of its own copies, h
 // replaces z in the accumulator registers, and only the partial scores (and
@@ -36,14 +39,14 @@ namespace score_tile {
 using score_gemm::kBM;
 
 // qh [B, H] f32, ws [G, H] f32 -> part [H/BN, G, cells] f32 (slice x of
-// unit tile x), rnorm [cells] f32, hsave [cells, H] bf16 or null.
-template <class T, int BN, class Rows>
+// unit tile x), rnorm [cells] f32, hsave [cells, H] of E or null.
+template <class T, class E, int BN, class Rows>
 __global__ void __launch_bounds__(score_gemm::kThreads, 1)
-kernel(Rows rows, const __nv_bfloat16* __restrict__ wvt,  // [H, C]
+kernel(Rows rows, const E* __restrict__ wvt,  // [H, C]
        const float* __restrict__ qh, const float* __restrict__ ws,
        float* __restrict__ part, float* __restrict__ rnorm,
-       __nv_bfloat16* __restrict__ hsave, int cells, int per_question, int C,
-       int H, int G, int normalize) {
+       E* __restrict__ hsave, int cells, int per_question, int C, int H,
+       int G, int normalize) {
   using P = score_gemm::Plan<T, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = score_gemm::align1024(smem_raw);
@@ -59,7 +62,7 @@ kernel(Rows rows, const __nv_bfloat16* __restrict__ wvt,  // [H, C]
                               normalize != 0);
 
   // r per cell: the 8 threads that copied a row's channel chunks hold its
-  // squares (bf16 rows; an int8 store is never normalized here).
+  // squares (E rows; an int8 store is never normalized here).
   if (!P::kInt8 && normalize) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -119,18 +122,18 @@ kernel(Rows rows, const __nv_bfloat16* __restrict__ wvt,  // [H, C]
     }
   }
 
-  // Saved h in bf16, staged through the ring's shared memory so that each
+  // Saved h in E, staged through the ring's shared memory so that each
   // row goes out in 16-byte stores.
   if (hsave != nullptr) {
-    constexpr int kLd = BN + 8;  // bf16 a staged row (16 B of padding)
-    __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(ring);
+    constexpr int kLd = BN + 8;  // E values a staged row (16 B of padding)
+    E* stg = reinterpret_cast<E*>(ring);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      __nv_bfloat16* dst = stg + (fr + 8 * hf) * kLd + fc;
+      E* dst = stg + (fr + 8 * hf) * kLd + fc;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
+        *reinterpret_cast<typename Elem<E>::pair*>(dst + 8 * j) =
+            Elem<E>::from2(acc[4 * j + 2 * hf], acc[4 * j + 2 * hf + 1]);
       }
     }
     __syncthreads();
@@ -170,40 +173,44 @@ Shape shape(int cells, int H) {
 }
 
 // The launch at BN units a tile, its dynamic shared memory raised past the
-// default 48 KB first.
-template <class T, int BN, class Rows>
+// default 48 KB first. E is the element type (T's own for E rows; named for
+// int8 codes).
+template <class T, class E, int BN, class Rows>
 cudaError_t launch_at(const Rows& rows, const void* wvt, const void* qh,
                       const void* ws, void* part, void* rnorm, void* hsave,
                       int cells, int per_question, int C, int H, int G,
                       int normalize, cudaStream_t st) {
   constexpr int smem = score_gemm::Plan<T, BN>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel<T, BN, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel<T, E, BN, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return e;
   }
   const dim3 grid(H / BN, (cells + kBM - 1) / kBM);
-  kernel<T, BN, Rows><<<grid, score_gemm::kThreads, smem, st>>>(
-      rows, static_cast<const __nv_bfloat16*>(wvt),
-      static_cast<const float*>(qh), static_cast<const float*>(ws),
-      static_cast<float*>(part), static_cast<float*>(rnorm),
-      static_cast<__nv_bfloat16*>(hsave), cells, per_question, C, H, G,
-      normalize);
+  kernel<T, E, BN, Rows><<<grid, score_gemm::kThreads, smem, st>>>(
+      rows, static_cast<const E*>(wvt), static_cast<const float*>(qh),
+      static_cast<const float*>(ws), static_cast<float*>(part),
+      static_cast<float*>(rnorm), static_cast<E*>(hsave), cells,
+      per_question, C, H, G, normalize);
   return cudaGetLastError();
 }
 
-// The launch at the tile width of `shape` (score_gemm::tile_n(H)).
-template <class T, class Rows>
+// The launch at the tile width of `shape` (score_gemm::tile_n(H)); E
+// defaults to the row type T (int8 rows name it).
+template <class T, class E = T, class Rows>
 cudaError_t launch(const Rows& rows, const void* wvt, const void* qh,
                    const void* ws, void* part, void* rnorm, void* hsave,
                    int cells, int per_question, int C, int H, int G,
                    int normalize, cudaStream_t st) {
   return score_gemm::tile_n(H) == 256
-             ? launch_at<T, 256>(rows, wvt, qh, ws, part, rnorm, hsave, cells,
-                                 per_question, C, H, G, normalize, st)
-             : launch_at<T, 128>(rows, wvt, qh, ws, part, rnorm, hsave, cells,
-                                 per_question, C, H, G, normalize, st);
+             ? launch_at<T, E, 256>(rows, wvt, qh, ws, part, rnorm, hsave,
+                                    cells, per_question, C, H, G, normalize,
+                                    st)
+             : launch_at<T, E, 128>(rows, wvt, qh, ws, part, rnorm, hsave,
+                                    cells, per_question, C, H, G, normalize,
+                                    st);
 }
 
 }  // namespace score_tile

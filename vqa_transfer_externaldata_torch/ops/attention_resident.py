@@ -14,30 +14,36 @@ dqh, dWv and dws, while the store and the rows get no gradient (the store
 is data). A 1-D ``w_score`` [H] is the single glimpse, with outputs
 without the glimpse axis.
 
-The store is bf16 or float32 rows, float16 rows in a float32 model (widened
-to float32 as they are loaded, exactly: the values of the JAX package's
-``store.astype(float32)``), or int8 codes of an L2-prenormalized store
-with one global dequantization scale (:func:`quantize_store`,
-:func:`prenormalize_store` with ``quantize="int8"``): the kernels widen the
-codes to the compute dtype as they load them (exact: |code| <= 127), and
-the scale stays outside them, folded into Wv, applied to v_att after the
-forward, to the v_att cotangent before the backward and to dWv after it.
-The compute dtype is the store's, or qh's for int8 codes and float16 rows.
+The store is bf16, float16 or float32 rows, float16 rows in a float32
+model (widened to float32 as they are loaded, exactly: the values of the
+JAX package's ``store.astype(float32)``), or int8 codes of an
+L2-prenormalized store with one global dequantization scale
+(:func:`quantize_store`, :func:`prenormalize_store` with
+``quantize="int8"``): the kernels widen the codes to the compute dtype as
+they load them (exact: |code| <= 127), and the scale stays outside them,
+folded into Wv, applied to v_att after the forward, to the v_att cotangent
+before the backward and to dWv after it. The compute dtype is the
+store's, or qh's for int8 codes and float16 rows.
 
 :func:`spatial_attention_resident` is the entry point. On CUDA tensors its
 forward launches kernel K4 (``csrc/attention_resident_fwd.cu``, wrapper
 :func:`attention_resident_fwd`) and its backward kernel K5
 (``csrc/attention_resident_bwd.cu``, wrapper :func:`attention_resident_bwd`);
 on CPU tensors their plain versions :func:`attention_resident_fwd_reference`
-and :func:`attention_resident_bwd_reference`. A float32 computation takes
-the float32 kernels instead: K4f (``csrc/attention_resident_fwd_f32.cu``,
+and :func:`attention_resident_bwd_reference`. A float16 computation takes
+their float16 instances K4h (``csrc/attention_resident_fwd_f16.cu``,
+:func:`attention_resident_fwd_f16`) and K5h
+(``csrc/attention_resident_bwd_f16.cu``,
+:func:`attention_resident_bwd_f16`), the same bodies with float16 in place
+of bf16, and a float32 computation the float32 kernels: K4f
+(``csrc/attention_resident_fwd_f32.cu``,
 :func:`attention_resident_fwd_f32`) and K5f
 (``csrc/attention_resident_bwd_f32.cu``,
 :func:`attention_resident_bwd_f32`), plain FFMA with f32 sums, which save
-and read h in float32. The rounding follows the
-kernels: f32 sums of compute-dtype products, squares, each glimpse's
-``alpha * r``, the v_att cotangents and ``dz * r`` (dz summed over the
-glimpses in f32 first) rounded to the compute dtype.
+and read h in float32. The rounding follows the kernels: f32 sums of
+compute-dtype products, squares, each glimpse's ``alpha * r``, the v_att
+cotangents and ``dz * r`` (dz summed over the glimpses in f32 first)
+rounded to the compute dtype.
 """
 
 from __future__ import annotations
@@ -242,8 +248,10 @@ def attention_resident_bwd_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_lib() -> ctypes.CDLL:
-    lib = kernels.load("attention_resident_fwd")
+def _fwd_lib(name: str = "attention_resident_fwd") -> ctypes.CDLL:
+    """The library of K4 (``name`` "attention_resident_fwd") or K4h
+    ("attention_resident_fwd_f16"); both export the same entries."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.attention_resident_fwd.argtypes = [p] * 10 + [i] * 8 + [p, p]
     lib.attention_resident_fwd.restype = i
@@ -252,11 +260,13 @@ def _fwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def score_launch_config(cells: int, H: int, int8: bool) -> dict:
-    """The shape of K4's score launch over ``cells`` cells at width ``H``
-    on bf16 rows or int8 codes: its tile (rows x columns), ring stages,
-    dynamic shared memory in bytes and grid (column tiles fastest)."""
-    lib = _fwd_lib()
+def score_launch_config(cells: int, H: int, int8: bool,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K4's score launch (K4h's with ``dtype`` float16) over
+    ``cells`` cells at width ``H`` on 16-bit rows or int8 codes: its tile
+    (rows x columns), ring stages, dynamic shared memory in bytes and grid
+    (column tiles fastest)."""
+    lib = _fwd_lib(kernels.name16("attention_resident_fwd", dtype))
     out = [ctypes.c_int(0) for _ in range(6)]
     rc = lib.attention_resident_score_config(
         cells, H, int(int8), *(ctypes.addressof(o) for o in out))
@@ -267,8 +277,10 @@ def score_launch_config(cells: int, H: int, int8: bool) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    lib = kernels.load("attention_resident_bwd")
+def _bwd_lib(name: str = "attention_resident_bwd") -> ctypes.CDLL:
+    """The library of K5 (``name`` "attention_resident_bwd") or K5h
+    ("attention_resident_bwd_f16"); both export the same entries."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.attention_resident_bwd.argtypes = [p] * 13 + [i] * 9 + [p, p]
     lib.attention_resident_bwd.restype = i
@@ -279,12 +291,12 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def rows_launch_config(B: int, n_valid: int, G: int, C: int,
-                       H: int) -> dict:
-    """The shape of K5's rows launch as the C side sets it for ``B``
-    questions of ``n_valid`` cells at G glimpses, C x H, in
-    :func:`kernels.rows_plan`'s keys."""
-    lib = _bwd_lib()
+def rows_launch_config(B: int, n_valid: int, G: int, C: int, H: int,
+                       dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K5's rows launch (K5h's with ``dtype`` float16) as the
+    C side sets it for ``B`` questions of ``n_valid`` cells at G glimpses,
+    C x H, in :func:`kernels.rows_plan`'s keys."""
+    lib = _bwd_lib(kernels.name16("attention_resident_bwd", dtype))
     out = (ctypes.c_int * 5)()
     rc = lib.attention_resident_bwd_rows_config(B, n_valid, G, C, H,
                                                  ctypes.addressof(out))
@@ -294,13 +306,13 @@ def rows_launch_config(B: int, n_valid: int, G: int, C: int,
             "cell_lanes": lanes, "unit_passes": passes}
 
 
-def dwv_launch_config(K: int, C: int, H: int, int8: bool,
-                      splits: int) -> dict:
-    """The shape of K5's dW_v launch as the C side sets it (the same
-    header serves K8 and P2) over ``K`` cells at ``C`` x ``H`` split
-    ``splits`` ways, in :func:`kernels.dwv_plan`'s keys (``splits`` as
-    given)."""
-    lib = _bwd_lib()
+def dwv_launch_config(K: int, C: int, H: int, int8: bool, splits: int,
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K5's dW_v launch (K5h's with ``dtype`` float16) as the
+    C side sets it (the same header serves K8 and P2) over ``K`` cells at
+    ``C`` x ``H`` split ``splits`` ways, in :func:`kernels.dwv_plan`'s keys
+    (``splits`` as given)."""
+    lib = _bwd_lib(kernels.name16("attention_resident_bwd", dtype))
     out = (ctypes.c_int * 8)()
     rc = lib.attention_resident_bwd_dwv_config(K, C, H, int(int8), splits,
                                                 ctypes.addressof(out))
@@ -315,7 +327,8 @@ def _check_store(store: torch.Tensor, rows: torch.Tensor, n_valid: int,
                  dtypes: tuple = (torch.bfloat16, torch.int8)
                  ) -> Tuple[int, int, int, int]:
     """Shapes (M, Np, C, B) of a CUDA store of rows of one of ``dtypes``
-    (bf16 rows or int8 codes for K4/K5) and its int32 row indices."""
+    (bf16 rows or int8 codes for K4/K5, float16 rows or int8 codes for
+    K4h/K5h) and its int32 row indices."""
     if store.device.type != "cuda" or store.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA store")
     M, Np, C = store.shape
@@ -354,12 +367,18 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     C=2048, H=512). One call makes the kernel's two launches on the current
     stream and adds the number launched (2) to
     ``attention_resident_fwd.launches`` (bf16 rows) or
-    ``attention_resident_fwd.launches_int8`` (int8 rows). A float32 ``wv``
-    goes to :func:`attention_resident_fwd_f32` (K4f); another dtype raises
+    ``attention_resident_fwd.launches_int8`` (int8 rows). A float16 ``wv``
+    goes to :func:`attention_resident_fwd_f16` (K4h), a float32 one to
+    :func:`attention_resident_fwd_f32` (K4f); another dtype raises
     ``TypeError`` (:func:`kernels.kernel_dtype`)."""
-    if kernels.kernel_dtype("attention_resident_fwd", "wv",
-                            wv) == torch.float32:
+    dt = kernels.kernel_dtype("attention_resident_fwd", "wv", wv,
+                              kernels.KERNEL_DTYPES_F16)
+    if dt == torch.float32:
         return attention_resident_fwd_f32(store, rows, qh, wv, ws,
+                                          n_valid=n_valid,
+                                          normalize=normalize, save_h=save_h)
+    if dt == torch.float16:
+        return attention_resident_fwd_f16(store, rows, qh, wv, ws,
                                           n_valid=n_valid,
                                           normalize=normalize, save_h=save_h)
     v_att, alpha, h, _ = _launch_fwd(store, rows, qh, wv, ws, n_valid,
@@ -367,29 +386,57 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     return v_att, alpha, h
 
 
+attention_resident_fwd.launches = 0
+attention_resident_fwd.launches_int8 = 0
+
+
+def attention_resident_fwd_f16(store: torch.Tensor, rows: torch.Tensor,
+                               qh: torch.Tensor, wv: torch.Tensor,
+                               ws: torch.Tensor, *, n_valid: int,
+                               normalize: bool, save_h: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          Optional[torch.Tensor]]:
+    """Launch kernel K4h (``csrc/attention_resident_fwd_f16.cu``: K4's body
+    with float16 as its element type) on CUDA tensors: as
+    :func:`attention_resident_fwd` with a float16 or int8 store, wv [C, H]
+    float16 and h saved in float16 (the squares of the norm and each
+    glimpse's alpha * r rounded to float16). The same launches and limits
+    as K4; 2 launches a call, added to
+    ``attention_resident_fwd_f16.launches`` (float16 rows) or
+    ``attention_resident_fwd_f16.launches_int8`` (int8 rows)."""
+    v_att, alpha, h, _ = _launch_fwd(store, rows, qh, wv, ws, n_valid,
+                                     normalize, save_h)
+    return v_att, alpha, h
+
+
+attention_resident_fwd_f16.launches = 0
+attention_resident_fwd_f16.launches_int8 = 0
+
+
 def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
                 wv: torch.Tensor, ws: torch.Tensor, n_valid: int,
                 normalize: bool, save_h: bool
                 ) -> Tuple[torch.Tensor, torch.Tensor,
                            Optional[torch.Tensor], torch.Tensor]:
-    """:func:`attention_resident_fwd`'s launch, also returning the per-cell
+    """K4's launch (K4h's on a float16 ``wv``), also returning the per-cell
     norm r [B*Np] f32 that its score launch wrote (ones unless
     ``normalize``)."""
-    M, Np, C, B = _check_store(store, rows, n_valid, normalize,
-                               "attention_resident_fwd")
+    dt = wv.dtype
+    what = kernels.name16("attention_resident_fwd", dt)
+    M, Np, C, B = _check_store(store, rows, n_valid, normalize, what,
+                               (dt, torch.int8))
     int8 = store.dtype == torch.int8
     H = qh.shape[-1]
     dev = store.device
-    G = _glimpses(ws, "attention_resident_fwd")
+    G = _glimpses(ws, what)
     if C % _FWD_TILE_C or H % _FWD_TILE_H:
-        raise ValueError(f"attention_resident_fwd needs C % {_FWD_TILE_C} "
-                         f"== 0 and H % {_FWD_TILE_H} == 0, got C={C}, "
-                         f"H={H}")
+        raise ValueError(f"{what} needs C % {_FWD_TILE_C} == 0 and "
+                         f"H % {_FWD_TILE_H} == 0, got C={C}, H={H}")
     if 2 * G * Np * 4 > _SMEM_LIMIT:
-        raise ValueError(f"attention_resident_fwd: Np={Np} cells of G={G} "
-                         "glimpses exceed the softmax's shared memory")
+        raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses exceed "
+                         "the softmax's shared memory")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect("wv", wv, dt, (C, H), dev)
     kernels.expect("ws", ws, torch.float32,
                    (H, G) if ws.dim() == 2 else (H,), dev)
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the score GEMM reads it
@@ -401,9 +448,8 @@ def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
     rnorm = torch.empty(B * Np, **f32)
     v_att = torch.empty(B, G * C, **f32)
     alpha = torch.empty(B, Np, G, **f32)
-    h = (torch.empty(B, Np, H, dtype=torch.bfloat16, device=dev)
-         if save_h else None)
-    lib = _fwd_lib()
+    h = torch.empty(B, Np, H, dtype=dt, device=dev) if save_h else None
+    lib = _fwd_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_resident_fwd(
@@ -413,16 +459,14 @@ def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
             alpha.data_ptr(), B, Np, n_valid, C, H, G, int(normalize),
             int(int8), torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
+    counter = (attention_resident_fwd_f16 if dt == torch.float16
+               else attention_resident_fwd)
     if int8:
-        attention_resident_fwd.launches_int8 += launched.value
+        counter.launches_int8 += launched.value
     else:
-        attention_resident_fwd.launches += launched.value
-    kernels.check(lib, rc, "attention_resident_fwd")
+        counter.launches += launched.value
+    kernels.check(lib, rc, what)
     return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h, rnorm
-
-
-attention_resident_fwd.launches = 0
-attention_resident_fwd.launches_int8 = 0
 
 
 def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
@@ -442,45 +486,87 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     One call makes the kernel's three launches on the current stream and
     adds the number launched (3) to
     ``attention_resident_bwd.launches`` (bf16 rows) or
-    ``attention_resident_bwd.launches_int8`` (int8 rows). A float32 ``h``
-    (K4f's residual) goes to :func:`attention_resident_bwd_f32` (K5f);
+    ``attention_resident_bwd.launches_int8`` (int8 rows). A float16 ``h``
+    (K4h's residual) goes to :func:`attention_resident_bwd_f16` (K5h), a
+    float32 one (K4f's) to :func:`attention_resident_bwd_f32` (K5f);
     another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`)."""
-    if kernels.kernel_dtype("attention_resident_bwd", "h",
-                            h) == torch.float32:
+    dt = kernels.kernel_dtype("attention_resident_bwd", "h", h,
+                              kernels.KERNEL_DTYPES_F16)
+    if dt == torch.float32:
         return attention_resident_bwd_f32(store, rows, h, ws, alpha, g, sga,
                                           n_valid=n_valid,
                                           normalize=normalize)
-    M, Np, C, B = _check_store(store, rows, n_valid, normalize,
-                               "attention_resident_bwd")
+    if dt == torch.float16:
+        return attention_resident_bwd_f16(store, rows, h, ws, alpha, g, sga,
+                                          n_valid=n_valid,
+                                          normalize=normalize)
+    return _launch_bwd(store, rows, h, ws, alpha, g, sga, n_valid, normalize)
+
+
+attention_resident_bwd.launches = 0
+attention_resident_bwd.launches_int8 = 0
+
+
+def attention_resident_bwd_f16(store: torch.Tensor, rows: torch.Tensor,
+                               h: torch.Tensor, ws: torch.Tensor,
+                               alpha: torch.Tensor, g: torch.Tensor,
+                               sga: torch.Tensor, *, n_valid: int,
+                               normalize: bool
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Launch kernel K5h (``csrc/attention_resident_bwd_f16.cu``: K5's body
+    with float16 as its element type) on CUDA tensors: as
+    :func:`attention_resident_bwd` with a float16 or int8 store and h
+    [B, Np, H] float16 (K4h's residual), g and dz * r rounded to float16
+    ahead of their products. The same launches and limits as K5; 3
+    launches a call, added to ``attention_resident_bwd_f16.launches``
+    (float16 rows) or ``attention_resident_bwd_f16.launches_int8`` (int8
+    rows)."""
+    return _launch_bwd(store, rows, h, ws, alpha, g, sga, n_valid, normalize)
+
+
+attention_resident_bwd_f16.launches = 0
+attention_resident_bwd_f16.launches_int8 = 0
+
+
+def _launch_bwd(store: torch.Tensor, rows: torch.Tensor, h: torch.Tensor,
+                ws: torch.Tensor, alpha: torch.Tensor, g: torch.Tensor,
+                sga: torch.Tensor, n_valid: int, normalize: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's checks and launches (K5h's on a float16 ``h``)."""
+    dt = h.dtype
+    what = kernels.name16("attention_resident_bwd", dt)
+    M, Np, C, B = _check_store(store, rows, n_valid, normalize, what,
+                               (dt, torch.int8))
     int8 = store.dtype == torch.int8
     H = h.shape[-1]
     dev = store.device
-    G = _glimpses(ws, "attention_resident_bwd")
+    G = _glimpses(ws, what)
     tile = kernels.DWV_TILE
     if C % tile or H % tile:
-        raise ValueError(f"attention_resident_bwd needs C % {tile} == 0 "
-                         f"and H % {tile} == 0, got C={C}, H={H}")
+        raise ValueError(f"{what} needs C % {tile} == 0 and H % {tile} == 0, "
+                         f"got C={C}, H={H}")
     kernels.rows_plan(B, n_valid, G, C, H)  # raises where it cannot launch
     per_cell = (B, Np) + ((G,) if ws.dim() == 2 else ())
-    kernels.expect("h", h, torch.bfloat16, (B, Np, H), dev)
+    kernels.expect("h", h, dt, (B, Np, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,) + per_cell[2:], dev)
     kernels.expect("alpha", alpha, torch.float32, per_cell, dev)
     kernels.expect("g", g, torch.float32, (B, G * C), dev)
     kernels.expect("sga", sga, torch.float32, per_cell, dev)
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     if h.data_ptr() % 16:
-        raise ValueError("attention_resident_bwd reads h in 16-byte vectors: "
-                         "h must start 16-byte aligned")
+        raise ValueError(f"{what} reads h in 16-byte vectors: h must start "
+                         "16-byte aligned")
     K = B * n_valid
     splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev), int8)["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
-    dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
+    dzr = torch.empty(K, H, dtype=dt, device=dev)
     dws_part = torch.empty(B, G, H, **f32)
     part = torch.empty(splits, C, H, **f32)
     dqh = torch.empty(B, H, **f32)
     dwv = torch.empty(C, H, **f32)
     dws = torch.empty(G, H, **f32)
-    lib = _bwd_lib()
+    lib = _bwd_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_resident_bwd(
@@ -491,16 +577,14 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
             C, H, G, int(normalize), int(int8), splits,
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
+    counter = (attention_resident_bwd_f16 if dt == torch.float16
+               else attention_resident_bwd)
     if int8:
-        attention_resident_bwd.launches_int8 += launched.value
+        counter.launches_int8 += launched.value
     else:
-        attention_resident_bwd.launches += launched.value
-    kernels.check(lib, rc, "attention_resident_bwd")
+        counter.launches += launched.value
+    kernels.check(lib, rc, what)
     return dqh, dwv, dws.t().contiguous().reshape(ws.shape)
-
-
-attention_resident_bwd.launches = 0
-attention_resident_bwd.launches_int8 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -717,8 +801,9 @@ def spatial_attention_resident(
     f32). Differentiable in ``qh``, ``wv`` and ``w_score``, which are
     rounded to the compute dtype inside: the store's, or ``qh``'s for an
     int8 store and for float16 rows. A CUDA store runs kernels K4/K5 in
-    bf16 (bf16 rows or int8 codes) and K4f/K5f in float32 (f32 or f16 rows
-    or int8 codes), a CPU store their plain versions.
+    bf16 (bf16 rows or int8 codes), K4h/K5h in float16 (f16 rows or int8
+    codes) and K4f/K5f in float32 (f32 or f16 rows or int8 codes), a CPU
+    store their plain versions.
 
     ``store`` may hold the int8 codes of an L2-prenormalized store
     (:func:`prenormalize_store` with ``quantize="int8"``) with their

@@ -18,7 +18,10 @@ and ``bhn``: on a CUDA tensor its forward launches the hand-written kernel
 all timesteps) and its backward the BPTT kernel ``csrc/gru_bwd.cu`` (K3,
 wrapper :func:`gru_bwd`); on a CPU tensor their plain versions
 :func:`gru_reference` and :func:`gru_bwd_reference`. The wrappers dispatch
-on U_h's dtype: bf16 takes K1/K3, float32 the float32 kernels
+on U_h's dtype: bf16 takes K1/K3, float16 their float16 instances
+``csrc/gru_fwd_f16.cu`` (K1h, :func:`gru_fwd_f16`) and
+``csrc/gru_bwd_f16.cu`` (K3h, :func:`gru_bwd_f16`), the same bodies with
+float16 in place of bf16, float32 the float32 kernels
 ``csrc/gru_fwd_f32.cu`` (K1f, :func:`gru_fwd_f32`) and
 ``csrc/gru_bwd_f32.cu`` (K3f, :func:`gru_bwd_f32`), plain FFMA with f32
 sums. ``use_kernels=False`` (the model's ``model.use_pallas`` off) runs
@@ -196,8 +199,9 @@ def gru_fused(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     """Fused recurrence: gx_t [T, B, 3H] f32 (= x@Wx + b, time-major),
     lens [B] int32, uh [H, 3H], bhn [H] f32 -> final state [B, H] f32,
     differentiable in gx_t, uh and bhn. A CUDA tensor runs the kernels
-    (K1/K3 on bf16 ``uh``, K1f/K3f on float32), a CPU tensor the plain
-    versions, and so does a CUDA tensor with ``use_kernels`` False."""
+    (K1/K3 on bf16 ``uh``, K1h/K3h on float16, K1f/K3f on float32), a CPU
+    tensor the plain versions, and so does a CUDA tensor with
+    ``use_kernels`` False."""
     if gx_t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"gru_fused: no path for device {gx_t.device}")
     return _GRUFused.apply(gx_t.contiguous(), lens.to(torch.int32),
@@ -303,8 +307,10 @@ def gru_bwd_reference(gx_t: torch.Tensor, hseq: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = kernels.load("gru_fwd")
+def _lib(name: str = "gru_fwd") -> ctypes.CDLL:
+    """The library of K1 (``name`` "gru_fwd") or K1h ("gru_fwd_f16"); both
+    export ``gru_fwd`` and ``gru_fwd_config``."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gru_fwd.argtypes = [p] * 7 + [i] * 5 + [p, p]
     lib.gru_fwd.restype = i
@@ -315,19 +321,20 @@ def _lib() -> ctypes.CDLL:
 
 def _fwd_config(kernel: str, B: int, H: int, rows: int,
                 device: torch.device) -> dict:
-    """The C side's launch of K1 (``kernel`` "gru_fwd") or K6
-    ("bigru_fwd") at batch ``B`` and width ``H`` with ``rows`` batch rows
-    a block on CUDA ``device``: its grid (j-tiles, rows of blocks,
-    directions a launch; [0, 0, 0] where not even one direction's row of
-    j-tiles can be resident at once), the launches a call takes, blocks
-    resident per SM (0 where the block's shared memory does not fit) and
-    dynamic shared memory in bytes."""
-    lib = _lib() if kernel == "gru_fwd" else _bigru_lib()
+    """The C side's launch of K1 (``kernel`` "gru_fwd"), K1h
+    ("gru_fwd_f16") or K6 ("bigru_fwd") at batch ``B`` and width ``H`` with
+    ``rows`` batch rows a block on CUDA ``device``: its grid (j-tiles, rows
+    of blocks, directions a launch; [0, 0, 0] where not even one
+    direction's row of j-tiles can be resident at once), the launches a
+    call takes, blocks resident per SM (0 where the block's shared memory
+    does not fit) and dynamic shared memory in bytes."""
+    bigru = kernel == "bigru_fwd"
+    lib = _bigru_lib() if bigru else _lib(kernel)
     grid = (ctypes.c_int * 3)()
     launches, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(device):
-        rc = getattr(lib, f"{kernel}_config")(
+        rc = (lib.bigru_fwd_config if bigru else lib.gru_fwd_config)(
             B, H, rows, ctypes.addressof(grid), ctypes.addressof(launches),
             ctypes.addressof(per_sm), ctypes.addressof(smem))
     kernels.check(lib, rc, kernel)
@@ -337,8 +344,8 @@ def _fwd_config(kernel: str, B: int, H: int, rows: int,
 
 @functools.lru_cache(maxsize=None)
 def _fwd_blocks_per_sm(kernel: str, index: int, H: int) -> dict:
-    """K1's or K6's blocks resident per SM of card ``index`` at width
-    ``H``, by the batch rows of each of its tilings
+    """K1's, K1h's or K6's blocks resident per SM of card ``index`` at
+    width ``H``, by the batch rows of each of its tilings
     (``kernels.GRU_FWD_ROWS``), from its own library's instance."""
     dev = torch.device("cuda", index)
     return {rows: _fwd_config(kernel, 1, H, rows, dev)["blocks_per_sm"]
@@ -347,13 +354,13 @@ def _fwd_blocks_per_sm(kernel: str, index: int, H: int) -> dict:
 
 def _fwd_plan(kernel: str, B: int, H: int, device: torch.device
               ) -> Tuple[dict, dict]:
-    """``kernels.gru_fwd_plan`` for K1 (one direction) or K6 (two) at
-    (B, H) on CUDA ``device``, and the blocks per SM it was given."""
+    """``kernels.gru_fwd_plan`` for K1 or K1h (one direction) or K6 (two)
+    at (B, H) on CUDA ``device``, and the blocks per SM it was given."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     per_sm = _fwd_blocks_per_sm(kernel, index, H)
     plan = kernels.gru_fwd_plan(B, H, kernels.sm_count(device), per_sm,
-                                1 if kernel == "gru_fwd" else 2)
+                                2 if kernel == "bigru_fwd" else 1)
     return plan, per_sm
 
 
@@ -370,50 +377,74 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch kernel K1 (``csrc/gru_fwd.cu``) on CUDA tensors:
     gx_t [T, B, 3H] f32, lens [B] int32, uh [H, 3H] bf16, bhn [H] f32
-    -> (hT [B, H] f32, hseq [T, B, H] f32); a float32 ``uh`` goes to
-    :func:`gru_fwd_f32` (K1f), another dtype raises ``TypeError``
-    (:func:`kernels.kernel_dtype`). Needs
-    H % 16 == 0 and a
-    block's U_h slice and 16-row b-tile to fit in shared memory
-    (H <= 1568). One call makes one cooperative launch of the persistent
-    kernel for all T steps, with the batch rows a block of
+    -> (hT [B, H] f32, hseq [T, B, H] f32); a float16 ``uh`` goes to
+    :func:`gru_fwd_f16` (K1h), a float32 one to :func:`gru_fwd_f32` (K1f),
+    another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`).
+    Needs H % 16 == 0 and a block's U_h slice and 16-row b-tile to fit in
+    shared memory (H <= 1568). One call makes one cooperative launch of the
+    persistent kernel for all T steps, with the batch rows a block of
     ``kernels.gru_fwd_plan``, on the current stream and adds it (1) to
     ``gru_fwd.launches``; it raises when no tiling's grid can be resident
     on the card at once."""
-    if kernels.kernel_dtype("gru_fwd", "uh", uh) == torch.float32:
+    dt = kernels.kernel_dtype("gru_fwd", "uh", uh, kernels.KERNEL_DTYPES_F16)
+    if dt == torch.float32:
         return gru_fwd_f32(gx_t, lens, uh, bhn, reverse=reverse)
-    if gx_t.device.type != "cuda" or gx_t.dim() != 3:
-        raise ValueError("gru_fwd takes a 3-D CUDA gx_t")
-    T, B, H3 = gx_t.shape
-    H = H3 // 3
-    dev = gx_t.device
-    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
-        raise ValueError(f"gru_fwd needs T, B >= 1 and H % {_TILE} == 0, "
-                         f"got gx_t of shape {tuple(gx_t.shape)}")
-    kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
-    kernels.expect("lens", lens, torch.int32, (B,), dev)
-    kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
-    kernels.expect("bhn", bhn, torch.float32, (H,), dev)
-    plan, _ = _fwd_plan("gru_fwd", B, H, dev)
-    return _launch_fwd(gx_t, lens, uh, bhn, reverse, plan["rows"])
+    if dt == torch.float16:
+        return gru_fwd_f16(gx_t, lens, uh, bhn, reverse=reverse)
+    return _gru_fwd16(gx_t, lens, uh, bhn, reverse, torch.bfloat16)
 
 
 gru_fwd.launches = 0
 
 
+def gru_fwd_f16(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+                bhn: torch.Tensor, *, reverse: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel K1h (``csrc/gru_fwd_f16.cu``: K1's body with float16
+    as its element type) on CUDA tensors: as :func:`gru_fwd` with uh
+    [H, 3H] float16, the state rounded to float16 ahead of each step's
+    product and exchanged as a float16 copy. The same launch plan and
+    limits as K1; one launch a call, added to ``gru_fwd_f16.launches``."""
+    return _gru_fwd16(gx_t, lens, uh, bhn, reverse, torch.float16)
+
+
+gru_fwd_f16.launches = 0
+
+
+def _gru_fwd16(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+               bhn: torch.Tensor, reverse: bool, dtype: torch.dtype
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's (``dtype`` bf16) or K1h's (float16) checks, plan and launch."""
+    what = kernels.name16("gru_fwd", dtype)
+    if gx_t.device.type != "cuda" or gx_t.dim() != 3:
+        raise ValueError(f"{what} takes a 3-D CUDA gx_t")
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
+        raise ValueError(f"{what} needs T, B >= 1 and H % {_TILE} == 0, "
+                         f"got gx_t of shape {tuple(gx_t.shape)}")
+    kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
+    kernels.expect("lens", lens, torch.int32, (B,), dev)
+    kernels.expect("uh", uh, dtype, (H, 3 * H), dev)
+    kernels.expect("bhn", bhn, torch.float32, (H,), dev)
+    plan, _ = _fwd_plan(what, B, H, dev)
+    return _launch_fwd(gx_t, lens, uh, bhn, reverse, plan["rows"])
+
+
 def _launch_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
                 bhn: torch.Tensor, reverse: bool, rows: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's launch with ``rows`` batch rows a block on inputs that
-    :func:`gru_fwd` has checked (chip_smoke.py also times the tiling that
-    the plan does not take through it)."""
+    """K1's launch (K1h's on a float16 ``uh``) with ``rows`` batch rows a
+    block on inputs that :func:`gru_fwd` has checked (chip_smoke.py also
+    times the tiling that the plan does not take through it)."""
     T, B, H3 = gx_t.shape
     H = H3 // 3
     dev = gx_t.device
     hseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     hT = torch.empty(B, H, dtype=torch.float32, device=dev)
-    hbf = torch.empty(2, B, H, dtype=torch.bfloat16, device=dev)
-    lib = _lib()
+    hbf = torch.empty(2, B, H, dtype=uh.dtype, device=dev)
+    lib = _lib(kernels.name16("gru_fwd", uh.dtype))
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.gru_fwd(gx_t.data_ptr(), lens.data_ptr(), uh.data_ptr(),
@@ -421,25 +452,29 @@ def _launch_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
                          hbf.data_ptr(), T, B, H, int(reverse), rows,
                          torch.cuda.current_stream(dev).cuda_stream,
                          ctypes.addressof(launched))
-    gru_fwd.launches += launched.value
+    (gru_fwd_f16 if uh.dtype == torch.float16 else gru_fwd).launches += (
+        launched.value)
     kernels.check(lib, rc, "gru_fwd")
     return hT, hseq
 
 
-def gru_fwd_launch_config(B: int, H: int, device: torch.device) -> dict:
-    """The shape of K1's persistent launch at batch ``B`` and width ``H``
-    on CUDA ``device``: the batch ``rows`` a block and the b-tiles that
-    the plan takes, the C side's grid (j-tiles, rows of blocks, 1) and
-    launches (1), blocks resident per SM and dynamic shared memory in
-    bytes at those rows, and the blocks per SM of every tiling that the
-    plan was given (``per_sm_by_rows``). Raises where :func:`gru_fwd`
-    would."""
-    return _fwd_launch_config("gru_fwd", B, H, device)
+def gru_fwd_launch_config(B: int, H: int, device: torch.device,
+                          dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K1's persistent launch (K1h's with ``dtype`` float16)
+    at batch ``B`` and width ``H`` on CUDA ``device``: the batch ``rows`` a
+    block and the b-tiles that the plan takes, the C side's grid (j-tiles,
+    rows of blocks, 1) and launches (1), blocks resident per SM and
+    dynamic shared memory in bytes at those rows, and the blocks per SM of
+    every tiling that the plan was given (``per_sm_by_rows``). Raises where
+    :func:`gru_fwd` would."""
+    return _fwd_launch_config(kernels.name16("gru_fwd", dtype), B, H, device)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    lib = kernels.load("gru_bwd")
+def _bwd_lib(name: str = "gru_bwd") -> ctypes.CDLL:
+    """The library of K3 (``name`` "gru_bwd") or K3h ("gru_bwd_f16"); both
+    export ``gru_bwd`` and ``gru_bwd_config``."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gru_bwd.argtypes = [p] * 12 + [i] * 5 + [p, p]
     lib.gru_bwd.restype = i
@@ -450,15 +485,17 @@ def _bwd_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _bptt_occupancy(kernel: str, index: int, H: int) -> dict:
-    """The persistent BPTT step kernel of K3 (``kernel`` "gru_bwd") or K7
-    ("bigru_bwd") at width ``H`` on card ``index``, as the C side reports
-    it: blocks resident per SM (0 where a block's shared memory does not
-    fit), dynamic shared memory in bytes and the widest H that fits."""
-    lib = _bwd_lib() if kernel == "gru_bwd" else _bigru_bwd_lib()
+    """The persistent BPTT step kernel of K3 (``kernel`` "gru_bwd"), K3h
+    ("gru_bwd_f16") or K7 ("bigru_bwd") at width ``H`` on card ``index``,
+    as the C side reports it: blocks resident per SM (0 where a block's
+    shared memory does not fit), dynamic shared memory in bytes and the
+    widest H that fits."""
+    bigru = kernel == "bigru_bwd"
+    lib = _bigru_bwd_lib() if bigru else _bwd_lib(kernel)
     per_sm, max_width = ctypes.c_int(0), ctypes.c_int(0)
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(index):
-        rc = getattr(lib, f"{kernel}_config")(
+        rc = (lib.bigru_bwd_config if bigru else lib.gru_bwd_config)(
             H, ctypes.addressof(per_sm), ctypes.addressof(smem),
             ctypes.addressof(max_width))
     kernels.check(lib, rc, kernel)
@@ -468,9 +505,10 @@ def _bptt_occupancy(kernel: str, index: int, H: int) -> dict:
 
 def _bptt_plan(kernel: str, B: int, H: int, device: torch.device,
                directions: int) -> dict:
-    """``kernels.gru_bwd_plan`` for K3 or K7 at (B, H) on CUDA ``device``,
-    with the C side's occupancy beside it. Raises where U_h's slices do
-    not fit in a block's shared memory, naming the widest H that does."""
+    """``kernels.gru_bwd_plan`` for K3, K3h or K7 at (B, H) on CUDA
+    ``device``, with the C side's occupancy beside it. Raises where U_h's
+    slices do not fit in a block's shared memory, naming the widest H that
+    does."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     occ = _bptt_occupancy(kernel, index, H)
@@ -492,42 +530,75 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     """Launch kernel K3 (``csrc/gru_bwd.cu``) on CUDA tensors: gx_t
     [T, B, 3H] f32, hseq [T, B, H] f32 (K1's residual), lens [B] int32,
     uh [H, 3H] bf16, bhn [H] f32, ghT [B, H] f32 -> (dgx_t [T, B, 3H],
-    duh [H, 3H], dbhn [H]), all f32; a float32 ``uh`` goes to
-    :func:`gru_bwd_f32` (K3f), another dtype raises ``TypeError``
-    (:func:`kernels.kernel_dtype`). Needs
-    H % 64 == 0 and U_h's slices to
-    fit in shared memory (H <= 576). One call launches the persistent step
-    kernel (one cooperative launch for all T steps, on the grid of
+    duh [H, 3H], dbhn [H]), all f32; a float16 ``uh`` goes to
+    :func:`gru_bwd_f16` (K3h), a float32 one to :func:`gru_bwd_f32` (K3f),
+    another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`).
+    Needs H % 64 == 0 and U_h's slices to fit in shared memory
+    (H <= 576). One call launches the persistent step kernel (one
+    cooperative launch for all T steps, on the grid of
     ``kernels.gru_bwd_plan``), the dU_h GEMM and the db_hn sum on the
     current stream and adds the number launched (3) to
     ``gru_bwd.launches``; it raises when U_h's slices do not fit or the
     step kernel's grid cannot be resident on the card at once."""
-    if kernels.kernel_dtype("gru_bwd", "uh", uh) == torch.float32:
+    dt = kernels.kernel_dtype("gru_bwd", "uh", uh, kernels.KERNEL_DTYPES_F16)
+    if dt == torch.float32:
         return gru_bwd_f32(gx_t, hseq, lens, uh, bhn, ghT, reverse=reverse)
+    if dt == torch.float16:
+        return gru_bwd_f16(gx_t, hseq, lens, uh, bhn, ghT, reverse=reverse)
+    return _gru_bwd16(gx_t, hseq, lens, uh, bhn, ghT, reverse,
+                      torch.bfloat16)
+
+
+gru_bwd.launches = 0
+
+
+def gru_bwd_f16(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
+                uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor, *,
+                reverse: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K3h (``csrc/gru_bwd_f16.cu``: K3's body with float16
+    as its element type) on CUDA tensors: as :func:`gru_bwd` with uh
+    [H, 3H] float16, h_prev and the gate cotangents rounded to float16
+    ahead of the U_h^T product and dU_h. The same launches and limits as
+    K3; 3 launches a call, added to ``gru_bwd_f16.launches``."""
+    return _gru_bwd16(gx_t, hseq, lens, uh, bhn, ghT, reverse,
+                      torch.float16)
+
+
+gru_bwd_f16.launches = 0
+
+
+def _gru_bwd16(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
+               uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor,
+               reverse: bool, dtype: torch.dtype
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's (``dtype`` bf16) or K3h's (float16) checks, plan and
+    launches."""
+    what = kernels.name16("gru_bwd", dtype)
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
-        raise ValueError("gru_bwd takes a 3-D CUDA gx_t")
+        raise ValueError(f"{what} takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
     H = H3 // 3
     dev = gx_t.device
     if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
-        raise ValueError(f"gru_bwd needs T, B >= 1 and H % 64 == 0, got "
+        raise ValueError(f"{what} needs T, B >= 1 and H % 64 == 0, got "
                          f"gx_t of shape {tuple(gx_t.shape)}")
     kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
     kernels.expect("hseq", hseq, torch.float32, (T, B, H), dev)
     kernels.expect("lens", lens, torch.int32, (B,), dev)
-    kernels.expect("uh", uh, torch.bfloat16, (H, 3 * H), dev)
+    kernels.expect("uh", uh, dtype, (H, 3 * H), dev)
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
     kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
-    plan = _bptt_plan("gru_bwd", B, H, dev, 1)
+    plan = _bptt_plan(what, B, H, dev, 1)
     f32 = dict(dtype=torch.float32, device=dev)
     dhe = ghT.clone()  # the carried cotangent, overwritten step by step
-    g = torch.empty(T, B, 3 * H, dtype=torch.bfloat16, device=dev)
+    g = torch.empty(T, B, 3 * H, dtype=dtype, device=dev)
     part = torch.empty(T, -(-B // _TILE), H, **f32)
     dgx = torch.empty(T, B, 3 * H, **f32)
     duh = torch.empty(H, 3 * H, **f32)
     dbhn = torch.empty(H, **f32)
-    hbf = torch.empty(T, B, H, dtype=torch.bfloat16, device=dev)
-    lib = _bwd_lib()
+    hbf = torch.empty(T, B, H, dtype=dtype, device=dev)
+    lib = _bwd_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.gru_bwd(gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
@@ -537,12 +608,10 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
                          T, B, H, int(reverse), plan["grid"][1],
                          torch.cuda.current_stream(dev).cuda_stream,
                          ctypes.addressof(launched))
-    gru_bwd.launches += launched.value
-    kernels.check(lib, rc, "gru_bwd")
+    (gru_bwd_f16 if dtype == torch.float16 else gru_bwd).launches += (
+        launched.value)
+    kernels.check(lib, rc, what)
     return dgx, duh, dbhn
-
-
-gru_bwd.launches = 0
 
 
 # The float32 kernels' entries: (pointers, ints) ahead of the stream and
@@ -651,14 +720,15 @@ def gru_bwd_f32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
 gru_bwd_f32.launches = 0
 
 
-def gru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
-    """The shape of K3's persistent step launch at batch ``B`` and width
-    ``H`` on CUDA ``device``: ``kernels.gru_bwd_plan``'s b-tiles and grid
-    (16-unit j-tiles, rows of 64-row b-tile blocks, 1 direction), the
-    blocks resident per SM, its dynamic shared memory in bytes and the
-    widest H whose shared memory fits. Raises where :func:`gru_bwd`
-    would."""
-    return _bptt_plan("gru_bwd", B, H, device, 1)
+def gru_bwd_launch_config(B: int, H: int, device: torch.device,
+                          dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K3's persistent step launch (K3h's with ``dtype``
+    float16) at batch ``B`` and width ``H`` on CUDA ``device``:
+    ``kernels.gru_bwd_plan``'s b-tiles and grid (16-unit j-tiles, rows of
+    64-row b-tile blocks, 1 direction), the blocks resident per SM, its
+    dynamic shared memory in bytes and the widest H whose shared memory
+    fits. Raises where :func:`gru_bwd` would."""
+    return _bptt_plan(kernels.name16("gru_bwd", dtype), B, H, device, 1)
 
 
 def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,

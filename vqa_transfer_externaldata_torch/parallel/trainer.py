@@ -1353,11 +1353,12 @@ class Trainer:
         grid = np.asarray(grid)
         if grid.ndim == 4:  # [M, g, g, C] -> [M, N, C]
             grid = grid.reshape(grid.shape[0], -1, grid.shape[-1])
-        # The JAX package casts float stores to bf16 when it computes in
-        # bf16 and keeps their own dtype otherwise; the same values arrive
-        # here.
-        store_dt = (torch.bfloat16 if dt == torch.bfloat16
-                    else torch.from_numpy(grid[:0]).dtype)
+        # The JAX package casts float stores to the model's dtype when it
+        # computes in bf16 or float16 (an f32 grid on the host first,
+        # ``_cast_features_host``) and keeps their own dtype in float32; the
+        # same values arrive here.
+        half = dt in (torch.bfloat16, torch.float16)
+        store_dt = dt if half else torch.from_numpy(grid[:0]).dtype
         if quantize and not (fused and self.model.store_prenormalized):
             log.warning("train.store_quantize=%r needs the prenormalized "
                         "gather-free resident path (device_data_cache and "
@@ -1367,8 +1368,9 @@ class Trainer:
         if not fused:
             return torch.from_numpy(np.ascontiguousarray(grid)).to(
                 self.device).to(store_dt), 1.0
-        if dt == torch.bfloat16 and grid.dtype == np.float32:
-            # f32 sources are rounded to bf16 before they are normalized
+        if half and grid.dtype == np.float32:
+            # f32 sources are rounded to the compute dtype before they are
+            # normalized (or quantized)
             grid = torch.from_numpy(grid).to(dt).float().numpy()
         if self.model.store_prenormalized:
             return prenormalize_store(grid, out_dtype=store_dt,
