@@ -285,7 +285,29 @@ Run from the repository root. Phases (any failure exits non-zero):
    with v_att perturbed by F16_PERTURB moves a gradient further, to
    F16_SENSITIVITY times that), launch counts that
    show the float16 kernels alone, step times, and the resident
-   evaluator.
+   evaluator;
+29. float16 off the main path: K2h ``attention_fwd_f16`` and K8h
+   ``attention_bwd_f16`` at the gathered training and the serving batch
+   (B=256 and 64, N=196, C=2048, H=512; one cell holding 300, whose
+   float16 square overflows, so its r is 0 in both versions), normalize
+   on and off, and K6h ``bigru_fwd_f16`` and K7h ``bigru_bwd_f16`` at
+   both batches (T=26, H=512, lengths 1..26), each against its plain
+   float16 version (K2h as K2 with TOL_F16_VATT_REL, K8h to TOL_F16_K8_REL
+   plus K8's ReLU-flip room, K6h TOL_F16_GRU, K7h TOL_F16_K3_REL), K6h and
+   K7h bit-equal to two K1h / K3h calls, two calls of each bit-equal; each
+   timed beside its bf16 kernel in turns, with its plain version, the
+   library's float16 call and the bf16 row's bound; then ``fit_resident``
+   in float16 on the gathered store (K1h, K2h, K3h, K8h) for F16_STEPS
+   steps, its first step against the plain path (phase 28's bounds, the
+   gathered op's v_att perturbed), launch counts, step times, its
+   gathered evaluator, and the float16 ``Predictor`` on its parameters at
+   batch 8 and 64 (K1h, K2h; logits against the plain path within
+   TOL_F16_LOGITS, launch counts, p50); F16_STREAM_STEPS steps of the
+   streamed ``cli.train`` in float16 on the flat layout; stage-1
+   ``vlmap_description`` (bidirectional) in float16 for F16_STEPS steps
+   (K6h, K7h; first step, launch counts, step times) and its transfer
+   through ``cli.train`` into float16 stage 2 (K1h, K3h, K4h, K5h; the
+   word table bit for bit).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -415,7 +437,8 @@ KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
            "attention_resident_bwd_f32", "attention_fwd_f32",
            "attention_bwd_f32", "bigru_fwd_f32", "bigru_bwd_f32",
            "gru_fwd_f16", "gru_bwd_f16", "attention_resident_fwd_f16",
-           "attention_resident_bwd_f16"]
+           "attention_resident_bwd_f16", "attention_fwd_f16",
+           "attention_bwd_f16", "bigru_fwd_f16", "bigru_bwd_f16"]
 # K4 and K5 on int8 rows: the glimpse counts checked against the plain
 # versions (the limits are the bf16 rows', as the codes widen exactly to
 # bf16), and the bound on v_att's relative quantization error against the
@@ -633,6 +656,24 @@ TOL_F16_LOSS, F16_GRAD_COS = TOL_LOSS / 8, GRAD_COS
 F16_PERTURB, F16_SENSITIVITY = 1e-5, 4
 F16_STEPS, F16_WARMUP = 16, 3
 F16_BATCHES, F16_GLIMPSES = (B_TRAIN, B), (1, 2, 8)
+# Phase 29, float16 off the main path. K2h, K8h, K6h and K7h are K2's,
+#     K8's, K6's and K7's bodies with float16 as their element type, held
+#     as phase 28 holds K1h-K5h: K2h's alpha TOL_ALPHA, v_att
+#     TOL_F16_VATT_REL, r TOL_R_REL; K8h 2^-12 of each output's largest
+#     value (TOL_K8_REL / 8) plus k8_allowance's room for ReLU flips (the
+#     products of two float16 values are exact in f32, as bf16's are, so
+#     the room is K8's); K6h's h TOL_F16_GRU and K7h TOL_F16_K3_REL, each
+#     bit-equal to two K1h / K3h calls. The float16 Predictor's logits
+#     against the plain path: TOL_LOGITS / 8 (its activations between
+#     layers are float16, a flip moves one by 2^-11 where bf16's moves it
+#     by 2^-8), at F16_PREDICT_BATCHES. The gathered training and stage 1
+#     run F16_STEPS steps (first against the plain path as phase 28's);
+#     the streamed loop F16_STREAM_STEPS on F16_STREAM_QUESTIONS
+#     questions of the flat layout, the transfer F16_TRANSFER_STEPS.
+TOL_F16_K8_REL = TOL_K8_REL / 8
+TOL_F16_LOGITS = TOL_LOGITS / 8
+F16_PREDICT_BATCHES = (B_PREDICT, B)
+F16_STREAM_QUESTIONS, F16_STREAM_STEPS, F16_TRANSFER_STEPS = 512, 4, 4
 # sort_batch_by_image permutes each batch: every reduction over it is the
 #     same sum in another order, so the runs differ by rounding that Adam
 #     amplifies where a gradient entry is near zero. The logged losses are
@@ -739,7 +780,11 @@ def launch_counters():
              "bigru_bwd_f32": gru.bigru_bwd_f32,
              "gru_fwd_f16": gru.gru_fwd_f16, "gru_bwd_f16": gru.gru_bwd_f16,
              "attention_resident_fwd_f16": ar.attention_resident_fwd_f16,
-             "attention_resident_bwd_f16": ar.attention_resident_bwd_f16}
+             "attention_resident_bwd_f16": ar.attention_resident_bwd_f16,
+             "attention_fwd_f16": attention.attention_fwd_f16,
+             "attention_bwd_f16": attention.attention_bwd_f16,
+             "bigru_fwd_f16": gru.bigru_fwd_f16,
+             "bigru_bwd_f16": gru.bigru_bwd_f16}
     out = {name: (fn, "launches") for name, fn in plain.items()}
     for name in ("attention_resident_fwd", "attention_resident_bwd",
                  "attention_resident_fwd_f16", "attention_resident_bwd_f16"):
@@ -4492,6 +4537,41 @@ def k45_bounds(G: int, Bt: int, Np: int, nv: int, row_bytes: int) -> tuple:
     return bound(k4_bytes, k4_flops), bound(k5_bytes, k5_flops)
 
 
+def k2_bound(batch: int) -> tuple:
+    """K2's (and K2h's) bound over ``batch`` questions of N cells: v, qh,
+    W_v and ws read once, v_att and alpha written once; the score GEMM and
+    the weighted sum."""
+    return bound(batch * N * C * 2 + batch * H * 4 + C * H * 2 + H * 4
+                 + batch * C * 4 + batch * N * 4,
+                 2 * batch * N * C * H + 2 * batch * N * C)
+
+
+def k8_bound(batch: int) -> tuple:
+    """K8's (and K8h's) bound: each input read once (v, qh, W_v, ws, ds,
+    r), each output written once; z recomputed and the dW_v GEMM, 2 B N C
+    H operations each, plus the elementwise dz, dqh and dws (a few per
+    unit)."""
+    return bound(batch * N * C * 2 + batch * H * 4 + C * H * 2 + H * 4
+                 + 2 * batch * N * 4 + batch * H * 4 + C * H * 4 + H * 4,
+                 2 * 2 * batch * N * C * H + 6 * batch * N * H)
+
+
+def k67_bounds(lens) -> tuple:
+    """K6's and K7's (and K6h's and K7h's) bounds at this run's lengths,
+    both chains: each reads its live rows of gx and U_h, b_hn once and
+    writes its hseq and hT (K6), or reads gx and hseq over its live rows
+    and writes dgx, dU_h and db_hn (K7); lens is read once. Operations as
+    K1's and K3's for each direction, over its carried row-steps."""
+    nb, nl, nc = lens.shape[0], int(lens.sum().item()), carried_steps(lens)
+    k6_bytes = nb * 4 + 2 * (nl * 3 * H * 4 + H * 3 * H * 2 + H * 4
+                             + T * nb * H * 4 + nb * H * 4)
+    k7_bytes = nb * 4 + 2 * (nl * 4 * H * 4 + H * 3 * H * 2 + H * 4
+                             + nb * H * 4 + T * nb * 3 * H * 4
+                             + H * 3 * H * 4 + H * 4)
+    return (bound(k6_bytes, 2 * 2 * nc * H * 3 * H),
+            bound(k7_bytes, 2 * 3 * 2 * nc * H * 3 * H))
+
+
 def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                 k45g: dict, k45q: dict, k67: dict, k8: dict, dev) -> dict:
     import torch
@@ -4649,13 +4729,6 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
     k1_serving["bound"], nlen_serving = k1_bound(k1["lens"])
     times["gru_fwd"]["at_serving_batch"] = k1_serving
 
-    def k2_bound(batch: int) -> tuple:
-        # v, qh, W_v and ws read once, v_att and alpha written once; the
-        # score GEMM and the weighted sum.
-        return bound(batch * N * C * 2 + batch * H * 4 + C * H * 2 + H * 4
-                     + batch * C * 4 + batch * N * 4,
-                     2 * batch * N * C * H + 2 * batch * N * C)
-
     times["attention_fwd"]["bound"] = k2_bound(B)
     Bt, nl3 = B_TRAIN, int(lens3.sum().item())
     times["gru_bwd"]["bound"] = k3_bound(lens3)
@@ -4794,19 +4867,8 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
                         "bidirectional=True) in bfloat16 over a packed "
                         "sequence, input-projection gradients included",
     }
-    # Both chains: each reads its live rows of gx and U_h, b_hn once and
-    # writes its hseq and hT (K6), or reads gx and hseq over its live rows
-    # and writes dgx, dU_h and db_hn (K7); lens is read once. Operations as
-    # K1's and K3's for each direction, over its carried row-steps.
-    Bt, nl6, nc6 = B_TRAIN, int(lens6.sum().item()), carried_steps(lens6)
-    k6_bytes = Bt * 4 + 2 * (nl6 * 3 * H * 4 + H * 3 * H * 2 + H * 4
-                             + T * Bt * H * 4 + Bt * H * 4)
-    k7_bytes = Bt * 4 + 2 * (nl6 * 4 * H * 4 + H * 3 * H * 2 + H * 4
-                             + Bt * H * 4 + T * Bt * 3 * H * 4
-                             + H * 3 * H * 4 + H * 4)
-    times["bigru_fwd"]["bound"] = bound(k6_bytes, 2 * 2 * nc6 * H * 3 * H)
-    times["bigru_bwd"]["bound"] = bound(k7_bytes,
-                                        2 * 3 * 2 * nc6 * H * 3 * H)
+    times["bigru_fwd"]["bound"], times["bigru_bwd"]["bound"] = k67_bounds(
+        lens6)
     # K8 at the gathered training shape (normalize on, the main path's
     # mode). Beside it: the op's whole backward with K8 (the score
     # cotangent from one bf16 batched GEMV, then K8) and with the explicit
@@ -4832,14 +4894,8 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
             feature_grad=False), buf),
         "library": None,
     }
-    # Each input read once (v, qh, W_v, ws, ds, r), each output written
-    # once; z recomputed and the dW_v GEMM, 2 B N C H operations each, plus
-    # the elementwise dz, dqh and dws (a few per unit).
     Bt = B_TRAIN
-    k8_bytes = (Bt * N * C * 2 + Bt * H * 4 + C * H * 2 + H * 4
-                + 2 * Bt * N * 4 + Bt * H * 4 + C * H * 4 + H * 4)
-    k8_flops = 2 * 2 * Bt * N * C * H + 6 * Bt * N * H
-    times["attention_bwd"]["bound"] = bound(k8_bytes, k8_flops)
+    times["attention_bwd"]["bound"] = k8_bound(Bt)
     # K8's dz launch alone (the recomputed score GEMM on score_gemm.cuh's
     # mainloop and its epilogue), from the profiler over whole calls, L2
     # flushed before each, with its TFLOP/s and its bound: 2 B N C H
@@ -4925,11 +4981,26 @@ def phase_times(report: dict, k1: dict, k2: dict, k3: dict, k45: dict,
         print(f"{key} dW_v launch at G=1: {t['ms']:.4f} ms, "
               f"{t['tflops']:.1f} TFLOP/s; cuBLAS {t['library_ms']:.4f} ms "
               f"+ gather {t['library_gather_ms']:.4f} ms")
+    # K4's score launch alone (bf16 rows, and int8 codes of the same
+    # cells) beside cuBLAS on its product, the gathered rows of the valid
+    # cells by W_v in bf16, the gather timed apart (as phase 28 times
+    # K4h's).
+    lib_score = {
+        "library_ms": time_cuda(lambda: torch.matmul(v_all, wv4), buf),
+        "library_gather_ms": lib_dwv["library_gather_ms"],
+        "library_call": f"torch.matmul([{Bt * nv}, {C}] bf16 (the gathered "
+                        f"rows), [{C}, {H}] bf16) -> bf16"}
+    for key in ("attention_resident_fwd", "attention_resident_fwd[int8]"):
+        times[key]["score_stage"] = {"ms": times[key]["score"], **lib_score}
+        print(f"{key} score launch at G=1: {times[key]['score']:.4f} ms; "
+              f"cuBLAS {lib_score['library_ms']:.4f} ms + gather "
+              f"{lib_score['library_gather_ms']:.4f} ms")
     report["rows_stage"] = rows_stage_times(k45, k45g, k45q, buf)
     report["bound_inputs"] = {"k1_live_steps": nlen,
                               "k1_live_steps_serving": nlen_serving,
                               "k3_live_steps": nl3, "k45_unique_rows": uniq,
-                              "k67_live_steps_per_direction": nl6}
+                              "k67_live_steps_per_direction":
+                              int(k67["args"][2].sum().item())}
     for name, t in [*times.items(), ("gru_fwd at the serving batch",
                                      k1_serving),
                     *((f"{k} at G=2", t) for k, t in g2_times.items())]:
@@ -6226,27 +6297,32 @@ def f16_times(k13: dict, k45: dict, dev) -> dict:
     return times
 
 
-def f16_grad_bounds(spec, state, batch, dev) -> dict:
+def f16_grad_bounds(spec, state, batch, dev, gathered: bool = False
+                    ) -> dict:
     """Each parameter's first-step gradient bound of a float16 run: bf16's
     GRAD_COS, unless the plain path itself moves that gradient further
-    when the resident op's v_att is perturbed by F16_PERTURB of itself
-    (what a kernel's order of sums does): then 1 - F16_SENSITIVITY x
-    (1 - that cosine). Returns {parameter: bound} and prints the
-    cosines under the perturbation."""
+    when the attention op's v_att (the resident op's, or with ``gathered``
+    the gathered op's) is perturbed by F16_PERTURB of itself (what a
+    kernel's order of sums does): then 1 - F16_SENSITIVITY x (1 - that
+    cosine). Returns {parameter: bound} and prints the cosines under the
+    perturbation."""
     import torch
-    from vqa_transfer_externaldata_torch.ops import attention_resident as ar
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar)
 
-    with plain_kernels():
+    mod, name = ((attention, "attention_fwd") if gathered
+                 else (ar, "attention_resident_fwd"))
+    with plain_kernels():  # puts the wrappers back on the way out
         _, base = first_step_grads(spec, state, batch, dev)
-        plain_fwd = ar.attention_resident_fwd
+        plain_fwd = getattr(mod, name)
         gen = torch.Generator(device=dev).manual_seed(11)
 
         def perturbed(*args, **kw):
-            v, alpha, h = plain_fwd(*args, **kw)
+            v, *rest = plain_fwd(*args, **kw)
             noise = torch.randn(v.shape, generator=gen, device=dev)
-            return v * (1 + F16_PERTURB * noise), alpha, h
+            return (v * (1 + F16_PERTURB * noise), *rest)
 
-        ar.attention_resident_fwd = perturbed
+        setattr(mod, name, perturbed)
         _, moved = first_step_grads(spec, state, batch, dev)
     cos = {k: torch.nn.functional.cosine_similarity(
         moved[k].flatten().float(), base[k].flatten().float(), 0).item()
@@ -6344,6 +6420,552 @@ def phase_float16(report: dict, dev, gen) -> dict:
     return out
 
 
+def f16_grid_inputs(dev, gen, Bq: int) -> tuple:
+    """A float16 grid [Bq, N, C] (ReLU of normals, cells scaled by factors
+    in [1/4, 4]) with one cell holding 300, whose square overflows float16
+    so that its norm r is 0 in the kernel and in the plain version (JAX's
+    square(v) in dt does the same); qh, a glorot W_v in float16 and w_s
+    rounded to float16, as the op hands them to K2h and K8h."""
+    import torch
+
+    scale = torch.exp2(torch.rand(Bq, N, 1, generator=gen, device=dev) * 4
+                       - 2)
+    v = (torch.randn(Bq, N, C, generator=gen, device=dev).relu_() * scale
+         ).half()
+    v[0, 3, 5] = 300.0
+    qh = torch.randn(Bq, H, generator=gen, device=dev) * 0.5
+    wv = ((torch.rand(C, H, generator=gen, device=dev) * 2 - 1)
+          * (6.0 / (C + H)) ** 0.5).half()
+    ws = (torch.randn(H, generator=gen, device=dev) * 0.05).half().float()
+    return v, qh, wv, ws
+
+
+def f16_gathered_checks(dev, gen) -> dict:
+    """K2h and K8h against their plain float16 versions at F16_BATCHES
+    (N=196, C=2048, H=512), normalize on and off, K8h fed the same ds and
+    K2h's r; the planted cell's r is 0 on both sides; two calls of each
+    bit-equal at the training batch. The inputs of both batches are kept
+    for the times."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention
+
+    checks, keep = [], {}
+    err2 = err8 = 0.0
+    for Bq in F16_BATCHES:
+        v, qh, wv, ws = f16_grid_inputs(dev, gen, Bq)
+        for normalize in (True, False):
+            va, al, r = attention.attention_fwd_f16(v, qh, wv, ws,
+                                                    normalize=normalize)
+            rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
+                                                           normalize)
+            ds = (torch.randn(Bq, N, generator=gen, device=dev) * ra
+                  ).contiguous()
+            got8 = attention.attention_bwd_f16(v, qh, wv, ws, ds, r,
+                                               normalize)
+            want8 = attention.attention_bwd_reference(v, qh, wv, ws, ds, r,
+                                                      normalize)
+            torch.cuda.synchronize()
+            ev = (va - rv).abs().max().item()
+            ea = (al - ra).abs().max().item()
+            er = rel_err(r, rr)
+            tol_v = TOL_F16_VATT_REL * rv.abs().max().item()
+            check(bool(torch.isfinite(va).all() and torch.isfinite(al).all()),
+                  "K2h output not finite")
+            check(ev <= tol_v, f"K2h B={Bq} normalize={normalize}: v_att "
+                  f"error {ev} > {tol_v}")
+            check(ea <= TOL_ALPHA, f"K2h B={Bq} normalize={normalize}: "
+                  f"alpha error {ea} > {TOL_ALPHA}")
+            check(er <= TOL_R_REL, f"K2h B={Bq}: r relative error {er}")
+            if normalize:
+                check(r[0, 3].item() == 0.0 and rr[0, 3].item() == 0.0,
+                      f"K2h: the planted cell's r is {r[0, 3].item()} "
+                      f"(plain {rr[0, 3].item()}), not 0")
+            a_dqh, a_dwv, unsure = k8_allowance(v, qh, wv, ws, ds, r,
+                                                normalize)
+            e8 = {}
+            for name, a, b, allow in zip(("dqh", "dwv", "dws"), got8, want8,
+                                         (a_dqh, a_dwv, 0.0)):
+                limit = TOL_F16_K8_REL * b.abs().max().item() + allow
+                worst = ((a - b).abs() / limit).max().item()
+                check(bool(torch.isfinite(a).all()), f"K8h {name} not finite")
+                check(worst <= 1.0, f"K8h B={Bq} normalize={normalize} "
+                      f"{name}: an entry at {worst} of its limit")
+                e8[name] = {"rel_err": rel_err(a, b), "limit": TOL_F16_K8_REL,
+                            "max_abs_err": (a - b).abs().max().item(),
+                            "worst_share_of_limit": worst}
+            print(f"K2h/K8h B={Bq} normalize={normalize}: v_att {ev:.3e} "
+                  f"(tol {tol_v:.3e}), alpha {ea:.3e}, r {er:.3e}; dqh "
+                  f"{e8['dqh']['rel_err']:.3e}, dwv {e8['dwv']['rel_err']:.3e}"
+                  f", dws {e8['dws']['rel_err']:.3e} of each largest (limit "
+                  f"{TOL_F16_K8_REL:.3e} + the flips' room, {unsure} units "
+                  "within rounding of z = 0)")
+            checks.append({"batch": Bq, "normalize": normalize,
+                           "v_att_err": ev, "v_att_tol": tol_v,
+                           "alpha_err": ea, "r_rel_err": er, "k8h": e8,
+                           "units_near_zero": unsure})
+            err2 = max(err2, ev, ea)
+            err8 = max(err8, *(x["max_abs_err"] for x in e8.values()))
+        keep[Bq] = (v, qh, wv, ws, ds)
+    v, qh, wv, ws, ds = keep[B_TRAIN]
+    a = attention.attention_fwd_f16(v, qh, wv, ws, normalize=True)
+    b = attention.attention_fwd_f16(v, qh, wv, ws, normalize=True)
+    c = attention.attention_bwd_f16(v, qh, wv, ws, ds, a[2], True)
+    d = attention.attention_bwd_f16(v, qh, wv, ws, ds, a[2], True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a + c, b + d)),
+          "K2h or K8h: two calls differ")
+    return {"checks": checks, "inputs": keep, "err2": err2, "err8": err8}
+
+
+def f16_bigru_checks(dev, gen) -> dict:
+    """K6h and K7h at F16_BATCHES (T, H of stage 1, lengths 1..T) against
+    their plain float16 versions and bit-equal to two K1h / K3h calls, K7h
+    fed K6h's hseqs; two calls of each bit-equal. The training batch's
+    inputs are kept for the times."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
+    uhf, uhb = ((torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1)
+                * lim).half(), ((torch.rand(H, 3 * H, generator=gen,
+                                            device=dev) * 2 - 1) * lim).half()
+    bhnf, bhnb = (torch.randn(H, generator=gen, device=dev) * 0.1
+                  for _ in "fb")
+    n6, n7 = ("hTf", "hTb", "hseqf", "hseqb"), ("dgxf", "dgxb", "duhf",
+                                                 "duhb", "dbhnf", "dbhnb")
+    checks, keep = [], {}
+    err6 = err7 = 0.0
+    for Bq in F16_BATCHES:
+        gxf, gxb = (torch.randn(T, Bq, 3 * H, generator=gen, device=dev)
+                    * 0.5 for _ in "fb")
+        lens = torch.randint(1, T + 1, (Bq,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[0], lens[1] = T, 1  # the longest and the shortest phrase
+        ghTf, ghTb = (torch.randn(Bq, H, generator=gen, device=dev) * 0.05
+                      for _ in "fb")
+        args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+        got6 = gru.bigru_fwd_f16(*args)
+        want6 = gru.bigru_reference(*args)
+        hTf, hsf = gru.gru_fwd_f16(gxf, lens, uhf, bhnf)
+        hTb, hsb = gru.gru_fwd_f16(gxb, lens, uhb, bhnb, reverse=True)
+        bwd_args = (gxf, gxb, got6[2], got6[3], lens, uhf, uhb, bhnf, bhnb,
+                    ghTf, ghTb)
+        got7 = gru.bigru_bwd_f16(*bwd_args)
+        want7 = gru.bigru_bwd_reference(*bwd_args)
+        f3 = gru.gru_bwd_f16(gxf, got6[2], lens, uhf, bhnf, ghTf)
+        b3 = gru.gru_bwd_f16(gxb, got6[3], lens, uhb, bhnb, ghTb,
+                             reverse=True)
+        again6 = gru.bigru_fwd_f16(*args)
+        again7 = gru.bigru_bwd_f16(*bwd_args)
+        torch.cuda.synchronize()
+        e6 = max((a - b).abs().max().item() for a, b in zip(got6, want6))
+        check(all(bool(torch.isfinite(a).all()) for a in got6 + got7),
+              "K6h or K7h output not finite")
+        check(e6 <= TOL_F16_GRU, f"K6h B={Bq}: h error {e6} > "
+              f"{TOL_F16_GRU}")
+        e7 = f32_errors(dict(zip(n7, got7)), dict(zip(n7, want7)),
+                        {k: TOL_F16_K3_REL for k in n7})
+        diff6 = max((a - b).abs().max().item()
+                    for a, b in zip(got6, (hTf, hTb, hsf, hsb)))
+        diff7 = max((a - b).abs().max().item() for a, b in zip(
+            got7, (f3[0], b3[0], f3[1], b3[1], f3[2], b3[2])))
+        check(diff6 == 0.0, f"K6h differs from two K1h calls by {diff6}")
+        check(diff7 == 0.0, f"K7h differs from two K3h calls by {diff7}")
+        check(all(torch.equal(a, b) for a, b in zip(got6 + got7,
+                                                    again6 + again7)),
+              "K6h or K7h: two calls differ")
+        print(f"K6h B={Bq}: h {e6:.3e} (limit {TOL_F16_GRU}); K7h: "
+              + ", ".join(f"{k} {x['rel_err']:.3e}" for k, x in e7.items())
+              + f" (limit {TOL_F16_K3_REL} of each largest); bit-equal to "
+              "two K1h / K3h calls")
+        checks.append({"batch": Bq, "k6h_abs_err": e6, "k7h": e7,
+                       "diff_vs_two_k1h_calls": diff6,
+                       "diff_vs_two_k3h_calls": diff7})
+        err6 = max(err6, e6)
+        err7 = max(err7, *(x["max_abs_err"] for x in e7.values()))
+        if Bq == B_TRAIN:
+            keep = {"args": args, "bwd_args": bwd_args}
+    return {**keep, "checks": checks, "err6": err6, "err7": err7}
+
+
+def f16_gathered_times(k28: dict, k67: dict, dev) -> dict:
+    """K2h at the training and the serving batch (normalize on, the
+    model's op), K8h at the training batch, K6h and K7h at stage 1's
+    shape, each beside its bf16 kernel on the same inputs (bf16 copies:
+    the same work and bytes) in turns (bf16, f16, f16, bf16), each the
+    median of RUNS timings; its plain version's time, the library call's
+    in float16 (cuBLAS's score and dW_v GEMMs, cuDNN's bidirectional GRU)
+    and the bf16 row's bound from this run's inputs."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import attention, gru
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    bf = torch.bfloat16
+
+    def turns(bf16, f16) -> dict:
+        t = [time_cuda(f, buf) for f in (bf16, f16, f16, bf16)]
+        return {"kernel": (t[1] + t[2]) / 2, "bf16_ms": (t[0] + t[3]) / 2,
+                "turns_ms": t}
+
+    times = {}
+    for Bq in F16_BATCHES:
+        v, qh, wv, ws, _ = k28["inputs"][Bq]
+        vb, wvb = v.to(bf), wv.to(bf)
+        cells = Bq * N
+        times["attention_fwd_f16" + ("" if Bq == B_TRAIN else "_serving")] = {
+            **turns(lambda: attention.attention_fwd(vb, qh, wvb, ws,
+                                                    normalize=True),
+                    lambda: attention.attention_fwd_f16(v, qh, wv, ws,
+                                                        normalize=True)),
+            "plain": time_cuda(lambda: attention.attention_fwd_reference(
+                v, qh, wv, ws, True), buf),
+            "library": time_cuda(lambda: torch.matmul(
+                v.view(cells, C), wv), buf),
+            "library_call": f"torch.matmul([{cells}, {C}] f16, [{C}, {H}] "
+                            "f16): the score product alone",
+            "bound": k2_bound(Bq)}
+    v, qh, wv, ws, ds = k28["inputs"][B_TRAIN]
+    vb, wvb = v.to(bf), wv.to(bf)
+    cells = B_TRAIN * N
+    r = attention.attention_fwd_f16(v, qh, wv, ws, normalize=True)[2]
+    dzr = torch.randn(cells, H, device=dev, dtype=torch.float16)
+    times["attention_bwd_f16"] = {
+        **turns(lambda: attention.attention_bwd(vb, qh, wvb, ws, ds, r, True),
+                lambda: attention.attention_bwd_f16(v, qh, wv, ws, ds, r,
+                                                    True)),
+        "plain": time_cuda(lambda: attention.attention_bwd_reference(
+            v, qh, wv, ws, ds, r, True), buf),
+        "library": time_cuda(lambda: torch.matmul(v.view(cells, C).t(), dzr),
+                             buf),
+        "library_call": f"torch.matmul([{C}, {cells}] f16 (the grid, "
+                        f"transposed), [{cells}, {H}] f16): the dW_v product "
+                        "alone",
+        "bound": k8_bound(B_TRAIN)}
+    del dzr, vb
+
+    args, bwd_args = k67["args"], k67["bwd_args"]
+    lens = args[2]
+    args_b = (*args[:3], args[3].to(bf), args[4].to(bf), *args[5:])
+    bwd_b = (*bwd_args[:5], bwd_args[5].to(bf), bwd_args[6].to(bf),
+             *bwd_args[7:])
+    lib = torch.nn.GRU(D, H, bidirectional=True).to(dev, torch.float16)
+    lib.flatten_parameters()
+    x = torch.randn(T, B_TRAIN, D, device=dev, dtype=torch.float16,
+                    requires_grad=True)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(),
+                                                     enforce_sorted=False)
+    with torch.inference_mode():
+        lib_fwd = time_cuda(lambda: lib(packed), buf)
+    _, h_n = lib(packed)
+    wrt, g_n = [x, *lib.parameters()], torch.randn_like(h_n)
+    lib_bwd = time_cuda(
+        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+    b6, b7 = k67_bounds(lens)
+    times["bigru_fwd_f16"] = {
+        **turns(lambda: gru.bigru_fwd(*args_b),
+                lambda: gru.bigru_fwd_f16(*args)),
+        "plain": time_cuda(lambda: gru.bigru_reference(*args), buf),
+        "library": lib_fwd,
+        "library_call": f"torch.nn.GRU({D}, {H}, bidirectional=True) in "
+                        "float16 over a packed sequence, input projection "
+                        "included",
+        "bound": b6}
+    times["bigru_bwd_f16"] = {
+        **turns(lambda: gru.bigru_bwd(*bwd_b),
+                lambda: gru.bigru_bwd_f16(*bwd_args)),
+        "plain": time_cuda(lambda: gru.bigru_bwd_reference(*bwd_args), buf),
+        "library": lib_bwd,
+        "library_call": f"backward of torch.nn.GRU({D}, {H}, "
+                        "bidirectional=True) in float16 over a packed "
+                        "sequence, input-projection gradients included",
+        "bound": b7}
+    for name, t in times.items():
+        print(f"{name}: kernel {t['kernel']:.4f} ms beside bf16 "
+              f"{t['bf16_ms']:.4f} ms (turns bf16, f16, f16, bf16: "
+              + ", ".join(f"{x:.4f}" for x in t["turns_ms"])
+              + f"), plain {t['plain']:.4f} ms, library "
+              f"{t['library']:.4f} ms ({t['library_call']}), bound "
+              f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
+    return times
+
+
+def f16_predictor(run_dir: str, dev) -> dict:
+    """The float16 Predictor on ``run_dir`` (K1h, K2h) at
+    F16_PREDICT_BATCHES with host features: launch counts, the model's
+    logits against the plain path on the card within TOL_F16_LOGITS, its
+    answers where the plain path's top two logits are further apart than
+    that, p50."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.serving import Predictor
+
+    rng = np.random.default_rng(29)
+    out = {}
+    for bq in F16_PREDICT_BATCHES:
+        pred = Predictor(run_dir, batch_size=bq)  # default device: CUDA
+        check(pred.model.dtype == torch.float16, "float16 Predictor dtype")
+        vocab = len(pred.word_vocab) - 4
+        questions = [" ".join(f"w{w}" for w in rng.integers(0, vocab, n))
+                     for n in rng.integers(1, T + 1, bq)]
+        feats = np.maximum(rng.standard_normal((bq, N, C), np.float32), 0)
+        reset_counts()
+        answers = pred.answer(feats, questions)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_launches(launches, {"gru_fwd_f16": 1, "attention_fwd_f16": 2},
+                       f"float16 Predictor at batch {bq}")
+        v = torch.from_numpy(feats).to(dev)
+        q = torch.from_numpy(pred._encode_questions(questions)).to(dev)
+        with torch.inference_mode():
+            lk = pred.model(v, q)["logits"]
+            with plain_kernels():
+                lr = pred.model(v, q)["logits"]
+        check(tuple(lk.shape) == (bq, pred.cfg.data.num_answers)
+              and bool(torch.isfinite(lk).all()), "float16 logits")
+        err = (lk - lr).abs().max().item()
+        top2 = lr.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > TOL_F16_LOGITS
+        plain_answers = [pred.answer_vocab.tokens[int(i)]
+                         for i in lr.argmax(-1)]
+        agree = all(a == b or not d for a, b, d in zip(
+            answers, plain_answers, decided.tolist()))
+        print(f"float16 Predictor at batch {bq}: logits vs the plain path "
+              f"max abs err {err:.3e} (tol {TOL_F16_LOGITS}), answers agree "
+              f"on {int(decided.sum())} decided rows: {agree}")
+        check(err <= TOL_F16_LOGITS, f"float16 logits err {err}")
+        check(agree, "float16 Predictor answers differ from the plain path")
+        ts = []
+        for i in range(RUNS + 3):
+            t0 = time.perf_counter()
+            pred.answer(feats, questions)  # ends in a device->host copy
+            if i >= 3:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        out[str(bq)] = {"launches": launches, "logits_max_abs_err": err,
+                        "decided_rows": int(decided.sum()),
+                        "p50_ms": statistics.median(ts)}
+        print(f"float16 Predictor p50 at batch {bq}: "
+              f"{out[str(bq)]['p50_ms']:.3f} ms")
+        del pred
+    return out
+
+
+def f16_gathered_training(dev) -> dict:
+    """fit_resident at full width in float16 on the gathered store
+    (train.resident_fused_attention false: K1h, K2h, K3h, K8h) for
+    F16_STEPS steps, its first step against the plain path (phase 28's
+    bounds, the gathered op's v_att perturbed), launch counts, step times;
+    its gathered evaluator; the float16 Predictor on its parameters."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
+    from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
+
+    steps = F16_STEPS
+    what = "float16 gathered stage 2"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f16g_") as tmp:
+        cfg = stage2_config(tmp, steps, **{
+            "model.dtype": "float16",
+            "train.resident_fused_attention": False})
+        ds = load_dataset(cfg, "train")
+        val = load_dataset(cfg.replace_flat(
+            {"data.synthetic_size": VAL_QUESTIONS}), "val")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        check(spec.module.dtype == torch.float16,
+              f"{what}: model dtype {spec.module.dtype}")
+        trainer = Trainer(cfg, spec, train_dir=tmp)
+        check(not spec.module.store_prenormalized, "gathered store changed")
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        check(data["grid"].dtype == torch.float16,
+              f"{what}: store uploaded as {data['grid'].dtype}")
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        check(tuple(batch["features"].shape) == (B_TRAIN, N, C),
+              "gathered batch shape")
+        bounds = f16_grad_bounds(spec, state, batch, dev, gathered=True)
+        out["first_step"] = check_first_step(
+            spec, state, batch, dev, what, loss_tol=TOL_F16_LOSS,
+            grad_cos=F16_GRAD_COS, grad_cos_by_param=bounds)
+        del data, make_batch, batch
+
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # A step: K1h 1, K3h 3, K2h 2, K8h 4; no bf16 or float32 kernel.
+        check_launches(launches, {
+            "gru_fwd_f16": steps, "gru_bwd_f16": 3 * steps,
+            "attention_fwd_f16": 2 * steps, "attention_bwd_f16": 4 * steps},
+            f"{what} training over {steps} steps")
+        out.update(launches=launches, **read_steps(
+            tmp, steps, what, "questions", warmup=F16_WARMUP))
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics, preds = trainer.evaluate_resident(state, val)
+        torch.cuda.synchronize()
+        out["eval_s"] = time.perf_counter() - t0
+        batches = -(-VAL_QUESTIONS // B_TRAIN)
+        out["eval_launches"] = read_counts()
+        check_launches(out["eval_launches"], {
+            "gru_fwd_f16": batches, "attention_fwd_f16": 2 * batches},
+            f"{what} gathered evaluation")
+        check(np.isfinite(metrics["loss"]) and len(preds) == VAL_QUESTIONS,
+              f"{what} evaluation: {metrics}, {len(preds)} predictions")
+        print(f"{what} gathered evaluation of {VAL_QUESTIONS} questions in "
+              f"{out['eval_s']:.3f} s: {metrics}")
+        out["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
+        with open(os.path.join(tmp, "config.json"), "w") as fh:
+            fh.write(cfg.to_json())
+        save_params(os.path.join(tmp, PARAMS_FILE), spec.module.state_dict())
+        trainer.close()
+        out["predictor"] = f16_predictor(tmp, dev)
+    return out
+
+
+def f16_streamed(dev) -> dict:
+    """Stage-2 training in float16 through cli.train on streamed host
+    batches of the flat layout (train.device_data_cache false):
+    F16_STREAM_STEPS steps over F16_STREAM_QUESTIONS questions, each
+    batch's grid cast to float16 on its way to the card; K1h, K2h, K3h,
+    K8h."""
+    import torch
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+
+    steps = F16_STREAM_STEPS
+    flags = {"data.synthetic": True, "data.synthetic_layout": "flat",
+             "data.synthetic_size": F16_STREAM_QUESTIONS,
+             "train.device_data_cache": False, "train.batch_size": B_TRAIN,
+             "train.max_steps": steps, "train.log_every": 1,
+             "model.dtype": "float16", **MODEL_OVERRIDES}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f16s_") as tmp:
+        argv = ["--train.train_dir", tmp] + cli_argv(flags)
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        train_dir = train_cli.main(argv)  # default device: CUDA
+        torch.cuda.synchronize()
+        out = {"cli_s": time.perf_counter() - t0, "launches": read_counts()}
+        check_launches(out["launches"], {
+            "gru_fwd_f16": steps, "gru_bwd_f16": 3 * steps,
+            "attention_fwd_f16": 2 * steps, "attention_bwd_f16": 4 * steps},
+            f"float16 streamed stage-2 training over {steps} steps")
+        out.update(read_steps(train_dir, steps,
+                              "float16 streamed stage-2 training",
+                              "questions", warmup=2))
+    return out
+
+
+def f16_stage1_transfer(dev) -> dict:
+    """Stage-1 vlmap_description with the bidirectional encoder in float16
+    through fit_resident (K6h, K7h) for F16_STEPS steps, its first step
+    against the plain path, launch counts, step times; then its parameters
+    through cli.train --train.pretrained_param_path into float16 stage-2
+    training (gather-free: K1h, K3h, K4h, K5h) for F16_TRANSFER_STEPS
+    steps, the word table frozen: it arrives bit for bit."""
+    import torch
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
+    from vqa_transfer_externaldata_torch.utils.checkpoint import (
+        load_params, save_params)
+
+    steps, f16 = F16_STEPS, {"model.dtype": "float16"}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f16s1_") as root:
+        s1_dir = os.path.join(root, "stage1")
+        cfg = stage1_config(s1_dir, steps).replace_flat(f16)
+        ds = load_dataset(cfg, "train", stage="vlmap_desc")
+        Td = ds.arrays["desc_ids"].shape[1]
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        check(spec.module.dtype == torch.float16, "float16 stage-1 dtype")
+        trainer = Trainer(cfg, spec, train_dir=s1_dir)
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(ds)
+        idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        out["first_step"] = check_first_step(
+            spec, state, batch, dev, "float16 stage 1",
+            loss_tol=TOL_F16_LOSS, grad_cos=F16_GRAD_COS)
+        del data, make_batch, batch
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        out["launches"] = read_counts()
+        # K6h: one persistent launch for both chains' Td steps; K7h 3.
+        check_launches(out["launches"], {"bigru_fwd_f16": steps,
+                                         "bigru_bwd_f16": 3 * steps},
+                       f"float16 stage-1 training over {steps} steps "
+                       f"(phrases of {Td} words)")
+        out.update(read_steps(s1_dir, steps, "float16 stage-1 training",
+                              "regions", warmup=F16_WARMUP))
+        params = os.path.join(s1_dir, PARAMS_FILE)
+        save_params(params, spec.module.state_dict())
+        trainer.close()
+
+        t_steps = F16_TRANSFER_STEPS
+        flags = {"data.synthetic": True, "data.synthetic_layout": "joined",
+                 "data.synthetic_size": TRANSFER_QUESTIONS,
+                 "train.device_data_cache": True,
+                 "train.batch_size": B_TRAIN, "train.max_steps": t_steps,
+                 "train.log_every": 1,
+                 "train.freeze_params": "word_emb,answer_embedding",
+                 "train.pretrained_param_path": params, **f16,
+                 **MODEL_OVERRIDES}
+        argv = ["--train.train_dir", os.path.join(root, "stage2")] + \
+            cli_argv(flags)
+        reset_counts()
+        train_dir = train_cli.main(argv)  # default device: CUDA
+        torch.cuda.synchronize()
+        out["transfer_launches"] = read_counts()
+        check_launches(out["transfer_launches"], {
+            "gru_fwd_f16": t_steps, "gru_bwd_f16": 3 * t_steps,
+            "attention_resident_fwd_f16": 2 * t_steps,
+            "attention_resident_bwd_f16": 3 * t_steps},
+            f"float16 stage-2 training after the transfer over {t_steps} "
+            "steps")
+        out["transfer"] = read_steps(train_dir, t_steps,
+                                     "float16 stage-2 training after the "
+                                     "transfer", "questions", warmup=2)
+        words = load_params(params)["word_emb.embedding"]
+        got = load_params(os.path.join(train_dir, PARAMS_FILE))
+        check(torch.equal(got["word_emb.embedding"], words),
+              "float16 transfer: the word table did not arrive bit for bit")
+        print(f"float16 transfer: word table {tuple(words.shape)} arrived "
+              "bit for bit")
+    return out
+
+
+def phase_float16_gathered(report: dict, dev, gen) -> dict:
+    """Phase 29, model.dtype float16 off the main path: K2h, K8h, K6h and
+    K7h against their plain versions at the main path's shapes and timed
+    beside their bf16 kernels; fit_resident in float16 on the gathered
+    store with its evaluator and the float16 Predictor on its parameters;
+    the streamed loop; stage 1 with the bidirectional encoder and its
+    transfer into a float16 stage 2."""
+    out = {"k28": f16_gathered_checks(dev, gen),
+           "k67": f16_bigru_checks(dev, gen)}
+    out["times"] = f16_gathered_times(out["k28"], out["k67"], dev)
+    out["k28"].pop("inputs")
+    for k in ("args", "bwd_args"):
+        out["k67"].pop(k)
+    t0 = time.perf_counter()
+    out["gathered"] = f16_gathered_training(dev)
+    out["streamed"] = f16_streamed(dev)
+    out["stage1"] = f16_stage1_transfer(dev)
+    out["paths_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -6438,6 +7060,14 @@ def main(argv=None) -> int:
             **{k: v for k, v in f16.items() if k not in ("k13", "k45")},
             "checks": {"k1h_k3h": f16["k13"]["checks"],
                        "k4h_k5h": f16["k45"]["checks"]}}
+        t0 = time.perf_counter()
+        f16g = phase_float16_gathered(report, dev, gen)
+        report["float16_gathered"] = {
+            **{k: v for k, v in f16g.items() if k not in ("k28", "k67")},
+            "checks": {"k2h_k8h": f16g["k28"]["checks"],
+                       "k6h_k7h": f16g["k67"]["checks"]},
+            "phase_s": time.perf_counter() - t0}
+        print(f"phase 29 took {report['float16_gathered']['phase_s']:.1f} s")
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -6533,6 +7163,7 @@ def main(argv=None) -> int:
              "score_ms_g1": times["attention_resident_fwd"]["score"],
              "score_tflops_g1":
              times["attention_resident_fwd"]["score_tflops"],
+             "score_stage_g1": times["attention_resident_fwd"]["score_stage"],
              "score_launch": report["score_launch"]}),
         "attention_resident_bwd": (
             ref + "attention_resident.py:208", max(k45["err5"], k45g["err5"]),
@@ -6570,6 +7201,8 @@ def main(argv=None) -> int:
                 "score_ms_g1": times["attention_resident_fwd[int8]"]["score"],
                 "score_tflops_g1":
                 times["attention_resident_fwd[int8]"]["score_tflops"],
+                "score_stage_g1":
+                times["attention_resident_fwd[int8]"]["score_stage"],
                 "vatt_quant_rel_err_vs_bf16_store":
                 k45q["vatt_quant_rel_err"]}),
         "attention_resident_bwd[int8]": (
@@ -6780,6 +7413,16 @@ def main(argv=None) -> int:
                  float16_eval=f16["training"]["eval_launches"],
                  float16_int8_training=f16["training_int8"]["launches"],
                  float16_int8_eval=f16["training_int8"]["eval_launches"])
+    # Phase 29: float16 on the gathered store, its evaluator, the float16
+    # Predictor at each batch, the streamed loop, stage 1 and the transfer.
+    f16gg, f16s1 = f16g["gathered"], f16g["stage1"]
+    paths.update(float16_gathered_training=f16gg["launches"],
+                 float16_gathered_eval=f16gg["eval_launches"],
+                 float16_streamed=f16g["streamed"]["launches"],
+                 float16_stage1=f16s1["launches"],
+                 float16_transfer=f16s1["transfer_launches"],
+                 **{f"float16_predict_b{b}": p["launches"]
+                    for b, p in f16gg["predictor"].items()})
     k13h, k45h, f16t = f16["k13"], f16["k45"], f16["times"]
     k4h_checks = [{k: c[k] for k in ("rows", "batch", "glimpses",
                                      "normalize", "alpha_abs_err", "k4h")}
@@ -6828,6 +7471,56 @@ def main(argv=None) -> int:
         t = f16t[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": err, **extra, "ms": t["kernel"],
+            "bf16_ms": t["bf16_ms"], "turns_ms": t["turns_ms"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library"],
+            "library_call": t["library_call"]})
+    # The float16 kernels of phase 29: K2h and K8h with the launches of its
+    # float16 gathered training, K6h and K7h of its float16 stage 1; their
+    # checks at both batches, their times at the training batch (K2h also
+    # at the serving batch) beside the bf16 kernel's, the bf16 row's bound.
+    k28h, k67h, f16gt = f16g["k28"], f16g["k67"], f16g["times"]
+    k2hs = f16gt["attention_fwd_f16_serving"]
+    for name, replaces, err, path, extra in (
+            ("attention_fwd_f16", ref + "attention.py:125", k28h["err2"],
+             "float16_gathered_training", {
+                 "tol_vatt_rel": TOL_F16_VATT_REL, "tol_alpha": TOL_ALPHA,
+                 "tol_r_rel": TOL_R_REL,
+                 "checks": [{k: c[k] for k in (
+                     "batch", "normalize", "v_att_err", "v_att_tol",
+                     "alpha_err", "r_rel_err")} for c in k28h["checks"]],
+                 "at_serving_batch": {
+                     "batch": B, "ms": k2hs["kernel"],
+                     "bf16_ms": k2hs["bf16_ms"],
+                     "turns_ms": k2hs["turns_ms"],
+                     "plain_ms": k2hs["plain"],
+                     "bound_ms": k2hs["bound"][0],
+                     "bound_by": k2hs["bound"][1],
+                     "library_ms": k2hs["library"]}}),
+            ("attention_bwd_f16", ref + "attention.py:267", k28h["err8"],
+             "float16_gathered_training", {
+                 "tol_rel": TOL_F16_K8_REL, "relu_flip_allowance": True,
+                 "checks": [{k: c[k] for k in (
+                     "batch", "normalize", "k8h", "units_near_zero")}
+                     for c in k28h["checks"]]}),
+            ("bigru_fwd_f16", ref + "gru.py:474", k67h["err6"],
+             "float16_stage1", {
+                 "tol": TOL_F16_GRU,
+                 "checks": [{k: c[k] for k in (
+                     "batch", "k6h_abs_err", "diff_vs_two_k1h_calls")}
+                     for c in k67h["checks"]]}),
+            ("bigru_bwd_f16", ref + "gru.py:561", k67h["err7"],
+             "float16_stage1", {
+                 "tol_rel": TOL_F16_K3_REL,
+                 "checks": [{k: c[k] for k in (
+                     "batch", "k7h", "diff_vs_two_k3h_calls")}
+                     for c in k67h["checks"]]})):
+        t = f16gt[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{name}.cu",
             "replaces": replaces, "launches": paths[path][name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err, **extra, "ms": t["kernel"],

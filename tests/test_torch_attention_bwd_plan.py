@@ -149,7 +149,7 @@ def test_dz_stage_runs_on_the_score_mainloop():
         "store_rows.cuh", "elem16.cuh"]
     text = (kernels.CSRC / "attention_bwd.cu").read_text()
     assert "mma.h" not in text and "wmma" not in text
-    assert "score_gemm::mainloop<__nv_bfloat16, BN>" in text
-    assert "score_gemm::DenseRows{" in text
+    assert "score_gemm::mainloop<E, BN>" in text
+    assert "score_gemm::DenseRows<E>{" in text
     assert "struct DenseRows" in (kernels.CSRC / "score_gemm.cuh").read_text()
     assert text.count("++*launched") == kernels.ATTENTION_BWD_LAUNCHES == 4

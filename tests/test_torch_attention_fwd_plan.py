@@ -132,8 +132,8 @@ def test_k2_runs_the_score_tile_on_the_mainloop():
     text = (kernels.CSRC / "attention_fwd.cu").read_text()
     assert '#include "score_tile.cuh"' in text
     assert '#include "score_gemm.cuh"' in text
-    assert "score_gemm::DenseRows{" in text
-    assert "score_tile::launch<__nv_bfloat16>(" in text
+    assert "score_gemm::DenseRows<E>{" in text
+    assert "score_tile::launch<E>(" in text
     assert "mma.h" not in text and "wmma" not in text.lower()
     assert text.count("++*launched") == 2
     k4 = (kernels.CSRC / "attention_resident_fwd.cu").read_text()

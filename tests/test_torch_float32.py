@@ -58,7 +58,8 @@ torch.set_num_threads(2)  # xdist runs several workers on the same cores
 
 M, N, C, H, B = 6, 13, 24, 16, 8  # Np = 16 > n_valid = 13
 TOL = dict(rtol=1e-5, atol=1e-5)
-ITEM = "ROADMAP.md, section 2, item 3"
+# What a dtype without kernels is told: the three dtypes that have them.
+ITEM = "torch.bfloat16, torch.float16, torch.float32"
 
 
 def _close(got, want, what=""):
@@ -378,10 +379,11 @@ def test_float32_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16, torch.float64])
 def test_kernel_dtype_names_the_float16_item(dtype):
-    """The dtype that picks a kernel: bf16 or float32 pass through, any
-    other raises TypeError naming ROADMAP.md's float16 item."""
+    """The dtype that picks a kernel: bf16, float16 and float32 (the three
+    model dtypes, each with its kernels) pass through; float64 raises
+    TypeError naming the three."""
     x = torch.zeros(2, 3, dtype=dtype)
-    if dtype in (torch.bfloat16, torch.float32):
+    if dtype != torch.float64:
         assert kernels.kernel_dtype("k", "v", x) == dtype
     else:
         with pytest.raises(TypeError, match=ITEM):

@@ -20,8 +20,9 @@ float32 (or its XLA paths where JAX takes them).
   forwards, 1e-4 on the backwards (``tests/test_torch_attention_train.py``
   and ``tests/test_torch_bigru.py`` reason both).
 * What the CPU can check of the wrappers: the float32 ones refuse CPU
-  tensors, every wrapper refuses a dtype other than bf16 and float32
-  naming ROADMAP.md's float16 item, and the new libraries' sources.
+  tensors, every wrapper takes float16 as far as its device check and
+  refuses float64 naming the three dtypes that have kernels, and the new
+  libraries' sources.
 """
 
 import json
@@ -373,11 +374,6 @@ def _wrapper_calls(dt):
     }
 
 
-# The wrappers whose kernels take float16 (K1h, K3h, K4h, K5h).
-F16_WRAPPERS = ("gru_fwd", "gru_bwd", "attention_resident_fwd",
-                "attention_resident_bwd")
-
-
 @pytest.mark.parametrize("wrapper", ["attention_fwd", "attention_bwd",
                                      "gru_fwd", "gru_bwd", "bigru_fwd",
                                      "bigru_bwd", "attention_resident_fwd",
@@ -385,19 +381,18 @@ F16_WRAPPERS = ("gru_fwd", "gru_bwd", "attention_resident_fwd",
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_wrappers_refuse_other_dtypes_naming_the_float16_item(wrapper,
                                                               dtype):
-    """Every kernel wrapper takes bf16 (K1-K8) and float32 (K1f-K8f), and
-    those of K1, K3, K4 and K5 float16 too (K1h, K3h, K4h, K5h): a float64
-    model, and a float16 one at K2, K8, K6 or K7, raises TypeError naming
-    ROADMAP.md's float16 item before anything is launched. A float16
-    tensor that a wrapper takes gets past the dtype to the device check:
-    on the CPU the ops run the plain versions, so the wrapper refuses a CPU
-    tensor with ValueError."""
-    assert kernels.F16_PENDING == "ROADMAP.md, section 2, item 3"
-    if dtype == torch.float16 and wrapper in F16_WRAPPERS:
+    """Every kernel wrapper takes bf16 (K1-K8), float16 (K1h-K8h) and
+    float32 (K1f-K8f): a float16 tensor gets past the dtype to the device
+    check, and on the CPU, where the ops run the plain versions, the
+    wrapper refuses it with ValueError naming CUDA. A float64 one raises
+    TypeError naming the three dtypes that have kernels, before anything
+    is launched."""
+    if dtype == torch.float16:
         with pytest.raises(ValueError, match="CUDA"):
             _wrapper_calls(dtype)[wrapper]()
         return
-    with pytest.raises(TypeError, match=kernels.F16_PENDING):
+    with pytest.raises(TypeError, match="torch.bfloat16, torch.float16, "
+                       "torch.float32"):
         _wrapper_calls(dtype)[wrapper]()
 
 

@@ -57,8 +57,10 @@ that; see chip_smoke.py for the reasoning. K2f and K8f (the gathered
 attention on a float32 grid) are held the same way, K2f's r to 1e-6 and
 K8f's dqh and dW_v also to K8's per-entry allowance for ReLU flips, and
 K6f (K7f), which run K1f's (K3f's) step with both chains in each launch,
-equal two K1f (K3f) calls bit for bit. Every kernel refuses a dtype other
-than bf16 and float32, naming ROADMAP.md's float16 item.
+equal two K1f (K3f) calls bit for bit. The float16 kernels K1h-K8h are
+the bf16 bodies on float16, held to the bf16 limits scaled by float16's
+step (the sections below), K6h (K7h) bit-equal to two K1h (K3h) calls.
+Every kernel takes bf16, float16 and float32 and refuses float64.
 """
 
 import pytest
@@ -1784,12 +1786,12 @@ def test_attention_resident_f32_kernels_are_deterministic(dev):
 
 
 def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
-    """Every kernel takes bf16 and float32, and K1, K3, K4 and K5 float16
-    too (K1h, K3h, K4h, K5h): float64, and float16 at K2, K8, K6 or K7,
-    raise TypeError naming ROADMAP.md's float16 item (kernels.F16_PENDING),
-    on the card as on the CPU, while the float16 kernels launch and count
-    their own launches; a chain pair whose U_h dtypes differ raises too."""
-    item = kernels.F16_PENDING
+    """Every kernel takes bf16, float16 and float32: float16 launches all
+    eight float16 kernels (K1h-K8h), each counting its own launches, and
+    float64 raises TypeError naming the three dtypes that have kernels, on
+    the card as on the CPU; a chain pair whose U_h dtypes differ raises
+    too."""
+    item = "torch.bfloat16, torch.float16, torch.float32"
     v, qh, wv, ws = _k2_inputs(dev, 2, 9, 128, 128)
     ds, r = torch.zeros(2, 9, device=dev), torch.ones(2, 9, device=dev)
     gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 64)
@@ -1798,17 +1800,16 @@ def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
     store, rows, qh4, wv4, ws4 = _resident_inputs(dev, 3, 9, 128, 128, 2)
     h = torch.zeros(2, store.shape[1], 128, device=dev)
     al = torch.zeros(2, store.shape[1], device=dev)
-    for dt in (torch.float16, torch.float64):
-        with pytest.raises(TypeError, match=item):
-            attention.attention_fwd(v.to(dt), qh, wv.to(dt), ws,
-                                    normalize=True)
-        with pytest.raises(TypeError, match=item):
-            attention.attention_bwd(v.to(dt), qh, wv.to(dt), ws, ds, r, True)
-        with pytest.raises(TypeError, match=item):
-            gru.bigru_fwd(gx, gx, lens, uh.to(dt), uh.to(dt), bhn, bhn)
-        with pytest.raises(TypeError, match=item):
-            gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.to(dt), uh.to(dt),
-                          bhn, bhn, ghT, ghT)
+    dt = torch.float64
+    with pytest.raises(TypeError, match=item):
+        attention.attention_fwd(v.to(dt), qh, wv.to(dt), ws, normalize=True)
+    with pytest.raises(TypeError, match=item):
+        attention.attention_bwd(v.to(dt), qh, wv.to(dt), ws, ds, r, True)
+    with pytest.raises(TypeError, match=item):
+        gru.bigru_fwd(gx, gx, lens, uh.to(dt), uh.to(dt), bhn, bhn)
+    with pytest.raises(TypeError, match=item):
+        gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.to(dt), uh.to(dt), bhn,
+                      bhn, ghT, ghT)
     with pytest.raises(TypeError, match=item):
         gru.gru_fwd(gx, lens, uh.double(), bhn)
     with pytest.raises(TypeError, match=item):
@@ -1820,10 +1821,13 @@ def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
         ar.attention_resident_bwd(store, rows, h.double(), ws4, al,
                                   torch.zeros(2, 128, device=dev), al,
                                   n_valid=9, normalize=False)
-    names = ("gru_fwd_f16", "gru_bwd_f16", "attention_resident_fwd_f16",
-             "attention_resident_bwd_f16")
-    mods = (gru, gru, ar, ar)
-    before = [getattr(m, n).launches for m, n in zip(mods, names)]
+    wrappers = ((gru, "gru_fwd_f16"), (gru, "gru_bwd_f16"),
+                (ar, "attention_resident_fwd_f16"),
+                (ar, "attention_resident_bwd_f16"),
+                (attention, "attention_fwd_f16"),
+                (attention, "attention_bwd_f16"), (gru, "bigru_fwd_f16"),
+                (gru, "bigru_bwd_f16"))
+    before = [getattr(m, n).launches for m, n in wrappers]
     gru.gru_fwd(gx, lens, uh.half(), bhn)
     gru.gru_bwd(gx, hseq, lens, uh.half(), bhn, ghT)
     st16 = store.half()
@@ -1832,9 +1836,15 @@ def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
     ar.attention_resident_bwd(st16, rows, h.half(), ws4, al,
                               torch.zeros(2, 128, device=dev), al,
                               n_valid=9, normalize=False)
+    attention.attention_fwd(v.half(), qh, wv.half(), ws, normalize=True)
+    attention.attention_bwd(v.half(), qh, wv.half(), ws, ds, r, True)
+    gru.bigru_fwd(gx, gx, lens, uh.half(), uh.half(), bhn, bhn)
+    gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.half(), uh.half(), bhn, bhn,
+                  ghT, ghT)
     torch.cuda.synchronize()
     assert [getattr(m, n).launches - c
-            for m, n, c in zip(mods, names, before)] == [1, 3, 2, 3]
+            for (m, n), c in zip(wrappers, before)] == [1, 3, 2, 3, 2, 4,
+                                                        1, 3]
     # A bf16 store under float16 weights (or the other way) is refused.
     with pytest.raises(TypeError, match="store must be float16 or int8"):
         ar.attention_resident_fwd(store, rows, qh4, wv4.half(), ws4,
@@ -1844,6 +1854,10 @@ def test_kernels_refuse_other_dtypes_naming_the_float16_item(dev):
     with pytest.raises(TypeError, match="uhb"):
         gru.bigru_bwd(gx, gx, hseq, hseq, lens, uh.float(), uh, bhn, bhn,
                       ghT, ghT)
+    with pytest.raises(TypeError, match="uhb"):
+        gru.bigru_fwd(gx, gx, lens, uh.half(), uh, bhn, bhn)
+    with pytest.raises(TypeError, match="wv must be torch.float16"):
+        attention.attention_fwd(v.half(), qh, wv, ws, normalize=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2255,5 +2269,228 @@ def test_f16_model_trains_through_k1h_k3h_k4h_k5h(dev):
     assert moved == {"gru_fwd_f16": 1, "gru_bwd_f16": 3,
                      "attention_resident_fwd_f16": 2,
                      "attention_resident_bwd_f16": 3}
+    for k, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), k
+
+
+# ---------------------------------------------------------------------------
+# The float16 kernels K2h, K8h (gathered attention) and K6h, K7h (BiGRU):
+# K2's, K8's, K6's and K7's bodies built with float16 as their element type,
+# held as K1h-K5h are: K2h's alpha 1e-5, v_att 2^-10 of each normalize
+# mode's max|v_att| (bf16's, for the reason above), r 1e-6 relative; K8h
+# 2^-12 of each output's largest value (K8's 2^-9 with float16's step) plus
+# K8's per-entry room for ReLU flips (the products of two float16 values
+# are exact in f32, as bf16's are, so the room is the same); K6h and K7h
+# bit-equal to two K1h / K3h calls, h within TOL_F16_GRU and K7h's outputs
+# within TOL_F16_K3 of their plain versions.
+# ---------------------------------------------------------------------------
+
+TOL_F16_K8 = 2.0 ** -12
+
+
+def _f16_grid_inputs(dev, B, N, C, H, seed=1):
+    """K2h/K8h's inputs: K2's grid, W_v and ws, with the grid and W_v in
+    float16, and one cell holding 300 when N > 3 (its square overflows
+    float16, so its r is 0 in the kernel and in the plain version)."""
+    v, qh, wv, ws = _k2_inputs(dev, B, N, C, H, seed)
+    v = v.half()
+    if N > 3:
+        v[0, 3, 5] = 300.0
+    return v, qh, wv.half(), ws
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 128, 128), (3, 129, 256, 384),
+                                   (8, 196, 2048, 512),
+                                   (256, 196, 2048, 512)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_f16_kernels_match_plain(dev, shape, normalize):
+    """K2h and K8h against their plain versions on a float16 grid, through
+    the dispatch of attention_fwd / attention_bwd, K8h fed the same ds and
+    K2h's r; the planted cell's r is 0 on both sides. Only the float16
+    kernels' counters move: 2 launches for K2h, 4 for K8h."""
+    B, N, C, H = shape
+    v, qh, wv, ws = _f16_grid_inputs(dev, B, N, C, H)
+    names = ("attention_fwd_f16", "attention_bwd_f16", "attention_fwd",
+             "attention_bwd", "attention_fwd_f32", "attention_bwd_f32")
+    before = [getattr(attention, n).launches for n in names]
+    va, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=normalize)
+    rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws, normalize)
+    g = torch.Generator(device=dev).manual_seed(2)
+    ds = (torch.randn(B, N, generator=g, device=dev) * ra).contiguous()
+    got = attention.attention_bwd(v, qh, wv, ws, ds, r, normalize)
+    want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, normalize)
+    torch.cuda.synchronize()
+    assert [getattr(attention, n).launches - c
+            for n, c in zip(names, before)] == [2, 4, 0, 0, 0, 0]
+    assert torch.isfinite(va).all() and torch.isfinite(al).all()
+    assert (va - rv).abs().max().item() <= 2.0 ** -10 * rv.abs().max().item()
+    assert (al - ra).abs().max().item() <= 1e-5
+    assert _rel_err(r, rr) <= 1e-6
+    if normalize and N > 3:
+        assert r[0, 3].item() == 0.0 and rr[0, 3].item() == 0.0
+    a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, normalize)
+    for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                 (a_dqh, a_dwv, 0.0)):
+        assert torch.isfinite(a).all(), name
+        limit = TOL_F16_K8 * b.abs().max().item() + allow
+        assert ((a - b).abs() <= limit).all(), (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_attention_f16_kernels_are_deterministic(dev, normalize):
+    v, qh, wv, ws = _f16_grid_inputs(dev, 256, 196, 2048, 512)
+    a = attention.attention_fwd_f16(v, qh, wv, ws, normalize=normalize)
+    b = attention.attention_fwd_f16(v, qh, wv, ws, normalize=normalize)
+    ds = (torch.randn(256, 196, device=dev) * a[1]).contiguous()
+    c = attention.attention_bwd_f16(v, qh, wv, ws, ds, a[2], normalize)
+    d = attention.attention_bwd_f16(v, qh, wv, ws, ds, a[2], normalize)
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+def test_attention_f16_kernels_take_the_bf16_launches(dev):
+    """K2h's score launch and K8h's dz launch as their libraries' C sides
+    set them equal K2's and K8's at the serving and the training batch."""
+    f16 = torch.float16
+    for B in (8, 64, 256):
+        assert (attention.score_launch_config(B, 196, 512, f16)
+                == attention.score_launch_config(B, 196, 512))
+        assert (attention.dz_launch_config(B, 196, 512, f16)
+                == attention.dz_launch_config(B, 196, 512))
+
+
+def test_gathered_op_float16_grads_go_through_k2h_k8h(dev):
+    """The autograd op on a float16 grid launches K2h forward and K8h
+    backward, and its parameter gradients agree with the explicit
+    backward's (bwd_kernel=False) to cosine 0.999."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, N, C, H = 16, 49, 256, 128
+    v = torch.randn(B, N, C, generator=g, device=dev).relu().half()
+    params = [torch.randn(B, H, generator=g, device=dev) * 0.5,
+              torch.randn(C, H, generator=g, device=dev) * 0.05,
+              torch.randn(H, generator=g, device=dev) * 0.05]
+    wa = torch.randn(B, C, generator=g, device=dev)
+    wb = torch.randn(B, N, generator=g, device=dev)
+    grads = []
+    for bwd_kernel in (True, False):
+        ins = [p.clone().requires_grad_() for p in params]
+        counts = (attention.attention_fwd_f16.launches,
+                  attention.attention_bwd_f16.launches)
+        va, al = attention.spatial_attention(v, *ins, normalize=True,
+                                             bwd_kernel=bwd_kernel,
+                                             feature_grad=False)
+        ((va * wa).sum() + (al * wb).sum()).backward()
+        assert (attention.attention_fwd_f16.launches - counts[0],
+                attention.attention_bwd_f16.launches - counts[1]) == (
+                    2, kernels.ATTENTION_BWD_LAUNCHES if bwd_kernel else 0)
+        grads.append([t.grad for t in ins])
+    for a, b in zip(*grads):
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+        assert cos >= 0.999, cos
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64), (7, 20, 64), (26, 64, 512),
+                                   (26, 256, 512)])
+def test_bigru_f16_kernels_match_plain_and_two_k1h_k3h(dev, shape):
+    """K6h and K7h on float16 U_h through the dispatch of bigru_fwd /
+    bigru_bwd against their plain versions and bit-equal to two K1h / K3h
+    calls on the same inputs, K7h fed K6h's hseqs; one launch for K6h, three
+    for K7h, and no bf16 or float32 kernel."""
+    T, B, H = shape
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, T, B, H)
+    uhf, uhb = uhf.half(), uhb.half()
+    args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    names = ("bigru_fwd_f16", "bigru_bwd_f16", "bigru_fwd", "bigru_bwd",
+             "bigru_fwd_f32", "bigru_bwd_f32")
+    before = [getattr(gru, n).launches for n in names]
+    got = gru.bigru_fwd(*args)
+    want = gru.bigru_reference(*args)
+    g = torch.Generator(device=dev).manual_seed(8)
+    ghTf = torch.randn(B, H, generator=g, device=dev)
+    ghTb = torch.randn(B, H, generator=g, device=dev)
+    bargs = (gxf, gxb, got[2], got[3], lens, uhf, uhb, bhnf, bhnb, ghTf,
+             ghTb)
+    got7 = gru.bigru_bwd(*bargs)
+    want7 = gru.bigru_bwd_reference(*bargs)
+    torch.cuda.synchronize()
+    assert [getattr(gru, n).launches - c
+            for n, c in zip(names, before)] == [1, 3, 0, 0, 0, 0]
+    (hTf, hsf), (hTb, hsb) = (gru.gru_fwd_f16(gxf, lens, uhf, bhnf),
+                              gru.gru_fwd_f16(gxb, lens, uhb, bhnb,
+                                              reverse=True))
+    one_f = gru.gru_bwd_f16(gxf, got[2], lens, uhf, bhnf, ghTf)
+    one_b = gru.gru_bwd_f16(gxb, got[3], lens, uhb, bhnb, ghTb, reverse=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, (hTf, hTb, hsf, hsb)):
+        assert (a - b).abs().max().item() <= TOL_F16_GRU
+        assert torch.equal(a, c)
+    ones = (one_f[0], one_b[0], one_f[1], one_b[1], one_f[2], one_b[2])
+    for name, a, b, c in zip(("dgxf", "dgxb", "duhf", "duhb", "dbhnf",
+                              "dbhnb"), got7, want7, ones):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= TOL_F16_K3, (name, _rel(a, b))
+        assert torch.equal(a, c), name
+
+
+def test_bigru_f16_kernels_are_deterministic_and_take_the_bf16_launches(
+        dev):
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 26, 256, 512)
+    args = (gxf, gxb, lens, uhf.half(), uhb.half(), bhnf, bhnb)
+    a = gru.bigru_fwd_f16(*args)
+    b = gru.bigru_fwd_f16(*args)
+    ghT = torch.randn(256, 512, device=dev)
+    bargs = (gxf, gxb, a[2], a[3], lens, *args[3:], ghT, ghT)
+    c = gru.bigru_bwd_f16(*bargs)
+    d = gru.bigru_bwd_f16(*bargs)
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+    f16 = torch.float16
+    for B in (64, 256):
+        assert (gru.bigru_fwd_launch_config(B, 512, dev, f16)
+                == gru.bigru_fwd_launch_config(B, 512, dev))
+        assert (gru.bigru_bwd_launch_config(B, 512, dev, f16)
+                == gru.bigru_bwd_launch_config(B, 512, dev))
+
+
+def test_f16_stage1_encoder_and_gathered_model_go_through_k6h_k7h_k2h_k8h(
+        dev):
+    """A float16 BiGRU encoder step runs K6h forward and K7h backward, and a
+    float16 vqa_attention step on a gathered float16 grid runs K1h, K2h,
+    K3h and K8h: no bf16 or float32 kernel."""
+    from vqa_transfer_externaldata_torch.models.vqa_attention import (
+        VQAAttentionModel)
+
+    names = [(m, n) for m in (gru, attention) for n in dir(m)
+             if hasattr(getattr(m, n), "launches")]
+
+    def moved(before):
+        return {n: getattr(m, n).launches - before[n] for m, n in names
+                if getattr(m, n).launches != before[n]}
+
+    g = torch.Generator().manual_seed(5)
+    enc = gru.BiGRUEncoder(32, 64, dtype=torch.float16, generator=g).to(dev)
+    x = torch.randn(7, 6, 32, device=dev).half()
+    mask = torch.ones(6, 7, device=dev)
+    mask[1, 3:] = 0
+    before = {n: getattr(m, n).launches for m, n in names}
+    enc(x, mask).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert moved(before) == {"bigru_fwd_f16": 1, "bigru_bwd_f16": 3}
+
+    model = VQAAttentionModel(64, 16, feature_dim=128, word_dim=32,
+                              rnn_dim=64, fusion_dim=64, att_hidden=128,
+                              answer_dim=32, n_cells=13,
+                              dtype=torch.float16, generator=g).to(dev)
+    v = torch.randn(6, 13, 128, device=dev).relu().half()
+    q = torch.randint(4, 64, (6, 7), generator=g).to(dev)
+    before = {n: getattr(m, n).launches for m, n in names}
+    out = model(v, q, train=True,
+                generator=torch.Generator(device=dev).manual_seed(1))
+    out["logits"].float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert moved(before) == {"gru_fwd_f16": 1, "gru_bwd_f16": 3,
+                             "attention_fwd_f16": 2,
+                             "attention_bwd_f16": 4}
     for k, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), k

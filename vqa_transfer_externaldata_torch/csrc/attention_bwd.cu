@@ -1,6 +1,9 @@
 // K8 `attention_bwd`: fused backward of the gathered single-glimpse
 // attention (the parameter cotangents; the grid gets none), for Hopper
-// (sm_90a).
+// (sm_90a). The same source builds K8h (csrc/attention_bwd_f16.cu), the
+// float16 instance: E = KernelElem (elem16.cuh), the type of the grid, of
+// W_v and of dz * r (the Pallas body's dt), is bf16 here and float16
+// there.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/attention.py::_make_bwd_kernel
 // (the Pallas body launched by _attention_pallas_bwd). The caller forms the
@@ -11,15 +14,17 @@
 //   z_nk  = ((v_n . W_v[:, k]) r_n) + qh_bk        (r = 1 when !normalize)
 //   dz_nk = [z_nk > 0] ds_n ws_k
 //   dqh_bk = sum_n dz_nk,   dws_k = sum_{b,n} ds_n relu(z_nk)
-//   dW_v  = sum_{b,n} v_n^T bf16(dz_n r_n)
+//   dW_v  = sum_{b,n} v_n^T E(dz_n r_n)
 //
-// The rounding points are the Pallas body's: products of bf16 values summed
-// in f32, z * r and + qh rounded as two operations, dz * r rounded to bf16
-// ahead of the dW_v product.
+// The rounding points are the Pallas body's: products of E values summed
+// in f32, z * r and + qh rounded as two operations, dz * r rounded to E
+// (to nearest, keeping f16's subnormals, as JAX's astype(dt)) ahead of the
+// dW_v product.
 //
 // What bounds it on an H100: at B=256, N=196, C=2048, H=512 the recomputed
-// z and the dW_v GEMM are 105 GFLOP of bf16 each (0.106 ms each at 989
-// TFLOP/s), the grid 205 MB (61 us at 3.35 TB/s): the tensor cores.
+// z and the dW_v GEMM are 105 GFLOP of E each (0.106 ms each at 989
+// TFLOP/s, bf16 and f16 alike), the grid 205 MB (61 us at 3.35 TB/s): the
+// tensor cores.
 //
 // Design. The TPU kernel walks an (H chunk, batch tile, cell chunk) grid in
 // order and accumulates all three cotangents in VMEM output blocks; its H
@@ -38,7 +43,7 @@
 //     and masked, so any N needs no padding. The epilogue stages the tile's
 //     f32 products through the ring's shared memory; then thread k (one a
 //     column) walks the tile's cells in order, forms z (two roundings), dz,
-//     bf16(dz * r) into dzr [B*N, H] (adjacent threads, adjacent units: one
+//     E(dz * r) into dzr [B*N, H] (adjacent threads, adjacent units: one
 //     coalesced row a step), and its running dqh and dws sums, which it
 //     writes as the partial of (tile, slot) at each question boundary: slot
 //     s of a tile is its s-th question. A 128-cell tile spans at most
@@ -75,24 +80,24 @@ template <int BN>
 struct Epilogue {
   static constexpr int kLd = BN + 8;
   static constexpr int kBytes = (kBM * kLd + 2 * kBM) * 4;
-  static_assert(kBytes <= score_gemm::Plan<__nv_bfloat16, BN>::kRingBytes,
+  static_assert(kBytes <= score_gemm::Plan<KernelElem, BN>::kRingBytes,
                 "the dz epilogue must fit in the ring");
 };
 
-template <int BN>
+template <int BN, class E>
 __global__ void __launch_bounds__(score_gemm::kThreads, 1)
-attn_bwd_dz_kernel(const __nv_bfloat16* __restrict__ v,    // [cells, C]
-                   const __nv_bfloat16* __restrict__ wvt,  // [H, C]
-                   const float* __restrict__ qh,           // [B, H]
-                   const float* __restrict__ ws,           // [H]
-                   const float* __restrict__ ds,           // [cells]
-                   const float* __restrict__ r,            // [cells]
-                   __nv_bfloat16* __restrict__ dzr,        // [cells, H]
-                   float* __restrict__ qpart,  // [tiles, slots, H]
-                   float* __restrict__ wpart,  // [tiles, slots, H]
+attn_bwd_dz_kernel(const E* __restrict__ v,       // [cells, C]
+                   const E* __restrict__ wvt,     // [H, C]
+                   const float* __restrict__ qh,  // [B, H]
+                   const float* __restrict__ ws,  // [H]
+                   const float* __restrict__ ds,  // [cells]
+                   const float* __restrict__ r,   // [cells]
+                   E* __restrict__ dzr,           // [cells, H]
+                   float* __restrict__ qpart,     // [tiles, slots, H]
+                   float* __restrict__ wpart,     // [tiles, slots, H]
                    int cells, int N, int C, int H, int slots,
                    int normalize) {
-  using E = Epilogue<BN>;
+  using Ep = Epilogue<BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = score_gemm::align1024(smem_raw);
   const int t = threadIdx.x;
@@ -101,19 +106,19 @@ attn_bwd_dz_kernel(const __nv_bfloat16* __restrict__ v,    // [cells, C]
 
   float acc[BN / 2];
   float sq[4];
-  score_gemm::mainloop<__nv_bfloat16, BN>(
-      score_gemm::DenseRows{v, C, cells, row0}, wvt, C, col0, ring, acc, sq,
-      false);
+  score_gemm::mainloop<E, BN>(
+      score_gemm::DenseRows<E>{v, C, cells, row0}, wvt, C, col0, ring, acc,
+      sq, false);
   __syncthreads();  // every warpgroup is done with the ring
 
   float* zs = reinterpret_cast<float*>(ring);
-  float* ds_s = zs + kBM * E::kLd;
+  float* ds_s = zs + kBM * Ep::kLd;
   float* r_s = ds_s + kBM;
   const int fr = score_gemm::frag_row(t);
   const int fc = score_gemm::frag_col(t);
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    float* dst = zs + (fr + 8 * hf) * E::kLd + fc;
+    float* dst = zs + (fr + 8 * hf) * Ep::kLd + fc;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       *reinterpret_cast<float2*>(dst + 8 * j) =
@@ -152,12 +157,12 @@ attn_bwd_dz_kernel(const __nv_bfloat16* __restrict__ v,    // [cells, C]
     const float rr = r_s[i];
     const float d = ds_s[i];
     // (z * r) + qh rounded as two operations, as the reference does.
-    const float z = __fadd_rn(__fmul_rn(zs[i * E::kLd + t], rr), q);
+    const float z = __fadd_rn(__fmul_rn(zs[i * Ep::kLd + t], rr), q);
     const float dz = z > 0.0f ? __fmul_rn(d, w) : 0.0f;
     dq = __fadd_rn(dq, dz);
     dw = fmaf(d, fmaxf(z, 0.0f), dw);
     dzr[static_cast<size_t>(row0 + i) * H + k] =
-        __float2bfloat16(__fmul_rn(dz, rr));
+        Elem<E>::from(__fmul_rn(dz, rr));
   }
   qp[static_cast<size_t>(b - b0) * H] = dq;
   wp[static_cast<size_t>(b - b0) * H] = dw;
@@ -200,12 +205,12 @@ inline DzShape dz_shape(int B, int N, int H) {
   s.tile_m = kBM;
   s.tile_n = BN;
   if (BN == 256) {
-    s.stages = score_gemm::Plan<__nv_bfloat16, 256>::kStages;
-    s.smem_bytes = score_gemm::Plan<__nv_bfloat16, 256>::kSmemBytes;
+    s.stages = score_gemm::Plan<KernelElem, 256>::kStages;
+    s.smem_bytes = score_gemm::Plan<KernelElem, 256>::kSmemBytes;
     s.epilogue_bytes = Epilogue<256>::kBytes;
   } else {
-    s.stages = score_gemm::Plan<__nv_bfloat16, 128>::kStages;
-    s.smem_bytes = score_gemm::Plan<__nv_bfloat16, 128>::kSmemBytes;
+    s.stages = score_gemm::Plan<KernelElem, 128>::kStages;
+    s.smem_bytes = score_gemm::Plan<KernelElem, 128>::kSmemBytes;
     s.epilogue_bytes = Epilogue<128>::kBytes;
   }
   s.grid_x = H / BN;
@@ -221,21 +226,21 @@ cudaError_t launch_dz(const void* v, const void* wvt, const void* qh,
                       void* dzr, void* qpart, void* wpart, int cells, int N,
                       int C, int H, int normalize, const DzShape& s,
                       cudaStream_t st) {
-  constexpr int smem = score_gemm::Plan<__nv_bfloat16, BN>::kSmemBytes;
+  using E = KernelElem;
+  constexpr int smem = score_gemm::Plan<E, BN>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_bwd_dz_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bwd_dz_kernel<BN, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return e;
   }
-  attn_bwd_dz_kernel<BN>
+  attn_bwd_dz_kernel<BN, E>
       <<<dim3(s.grid_x, s.grid_y), score_gemm::kThreads, smem, st>>>(
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<const __nv_bfloat16*>(wvt),
+          static_cast<const E*>(v), static_cast<const E*>(wvt),
           static_cast<const float*>(qh), static_cast<const float*>(ws),
           static_cast<const float*>(ds), static_cast<const float*>(r),
-          static_cast<__nv_bfloat16*>(dzr), static_cast<float*>(qpart),
+          static_cast<E*>(dzr), static_cast<float*>(qpart),
           static_cast<float*>(wpart), cells, N, C, H, s.slots, normalize);
   return cudaGetLastError();
 }
@@ -259,9 +264,9 @@ int attention_bwd_dz_config(int B, int N, int H, int* out) {
   return 0;
 }
 
-// v [B, N, C] bf16, wvt [H, C] bf16 (W_v transposed, K-major), qh [B, H]
+// v [B, N, C] E, wvt [H, C] E (W_v transposed, K-major), qh [B, H]
 // f32, ws [H] f32, ds [B, N] f32, r [B, N] f32 (read only when normalize)
-// -> dqh [B, H], dwv [C, H], dws [H], all f32. Scratch: dzr [B*N, H] bf16,
+// -> dqh [B, H], dwv [C, H], dws [H], all f32. Scratch: dzr [B*N, H] E,
 // qpart and wpart [tiles, slots, H] f32, dws_part [B, H] f32, part
 // [splits, C, H] f32. `slots` must be the plan's (kernels.dz_plan): else
 // cudaErrorInvalidValue and nothing launched. Needs C % 128 == 0 and
@@ -296,9 +301,9 @@ int attention_bwd(const void* v, const void* wvt, const void* qh,
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   e = attn_dwv::launch_dwv(
-      attn_dwv::DenseCells{static_cast<const __nv_bfloat16*>(v), C},
-      static_cast<const __nv_bfloat16*>(dzr), static_cast<float*>(part),
-      cells, C, H, splits, st);
+      attn_dwv::DenseCells<KernelElem>{static_cast<const KernelElem*>(v), C},
+      static_cast<const KernelElem*>(dzr), static_cast<float*>(part), cells,
+      C, H, splits, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   e = attn_dwv::launch_reduce(static_cast<const float*>(part),

@@ -8,8 +8,8 @@
 // kernel's first stage, and v(kk) is the cell's [C] feature row: a row of
 // the resident store looked up per cell (K5 and P2, StoreCells: E values
 // or int8 codes, widened to E in shared memory) or a row of the gathered
-// bf16 grid (K8, DenseCells). E products, f32 sums; E is the 16-bit
-// element type, bf16 (K5, K8, P2) or float16 (K5h).
+// grid of E (K8, DenseCells). E products, f32 sums; E is the 16-bit
+// element type, bf16 (K5, K8, P2) or float16 (K5h, K8h).
 //
 // What bounds it on an H100: at K5's training shape (50,176 cells, C=2048,
 // H=512) the product is 105 GFLOP, 0.106 ms at the bf16 peak, against 205
@@ -107,12 +107,13 @@ struct StoreCells {
   }
 };
 
-// Cell kk is row kk of a gathered [K, C] grid.
+// Cell kk is row kk of a gathered [K, C] grid of E.
+template <class E>
 struct DenseCells {
-  using value_type = __nv_bfloat16;
-  const __nv_bfloat16* v;
+  using value_type = E;
+  const E* v;
   int C;
-  __device__ const __nv_bfloat16* operator()(int kk) const {
+  __device__ const E* operator()(int kk) const {
     return v + static_cast<size_t>(kk) * C;
   }
 };
@@ -299,27 +300,29 @@ reduce_kernel(const float* __restrict__ part,      // [S, C*H]
 }
 
 // The GEMM's launch shape over K cells split `splits` ways (C % 128 == 0
-// and H % 128 == 0): tile (channels x units), ring stages, dynamic shared
-// memory, chunks a split and grid (unit tiles, channel tiles, splits).
+// and H % 128 == 0), E the element type (its rows, or the type int8 codes
+// widen to): tile (channels x units), ring stages, dynamic shared memory,
+// chunks a split and grid (unit tiles, channel tiles, splits).
 struct Shape {
   int tile_m, tile_n, stages, smem_bytes, chunks_per_split;
   int grid_x, grid_y, grid_z;
 };
 
-inline Shape plan(int K, int C, int H, bool int8, int splits) {
+template <class E>
+Shape plan(int K, int C, int H, bool int8, int splits) {
   const int BN = score_gemm::tile_n(H);
   const int chunks = (K + kBK - 1) / kBK;
   Shape s;
   s.tile_m = kBM;
   s.tile_n = BN;
   if (BN == 256) {
-    s.stages = Plan<__nv_bfloat16, 256>::kStages;
+    s.stages = Plan<E, 256>::kStages;
     s.smem_bytes = int8 ? Plan<int8_t, 256>::kSmemBytes
-                        : Plan<__nv_bfloat16, 256>::kSmemBytes;
+                        : Plan<E, 256>::kSmemBytes;
   } else {
-    s.stages = Plan<__nv_bfloat16, 128>::kStages;
+    s.stages = Plan<E, 128>::kStages;
     s.smem_bytes = int8 ? Plan<int8_t, 128>::kSmemBytes
-                        : Plan<__nv_bfloat16, 128>::kSmemBytes;
+                        : Plan<E, 128>::kSmemBytes;
   }
   s.chunks_per_split = (chunks + splits - 1) / splits;
   s.grid_x = H / BN;
@@ -351,8 +354,9 @@ cudaError_t launch_dwv_bn(Cells cells, const E* dzr, float* part, int K,
 template <class Cells, class E>
 cudaError_t launch_dwv(Cells cells, const E* dzr, float* part, int K, int C,
                        int H, int splits, cudaStream_t st) {
-  const Shape s = plan(K, C, H, store_rows::kInt8<typename Cells::value_type>,
-                       splits);
+  const Shape s = plan<E>(K, C, H,
+                          store_rows::kInt8<typename Cells::value_type>,
+                          splits);
   return s.tile_n == 256
              ? launch_dwv_bn<Cells, 256, E>(cells, dzr, part, K, C, H, s, st)
              : launch_dwv_bn<Cells, 128, E>(cells, dzr, part, K, C, H, s, st);

@@ -1,23 +1,28 @@
 // K2 `attention_fwd`: single-glimpse spatial attention forward over a
-// gathered grid, for Hopper (sm_90a).
+// gathered grid, for Hopper (sm_90a). The same source builds K2h
+// (csrc/attention_fwd_f16.cu), the float16 instance: E = KernelElem
+// (elem16.cuh), the grid's and W_v's type (the Pallas body's dt), is bf16
+// here and float16 there.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/attention.py::_make_kernel
 // (the streaming online-softmax Pallas body launched by
 // _attention_pallas_fwd), with its optional fused per-cell L2 norm:
 //
-//   r     = rsqrt(sum_c bf16(v^2) + 1e-12)        (1 when !normalize)
+//   r     = rsqrt(sum_c E(v^2) + 1e-12)           (1 when !normalize)
 //   h     = relu((v @ W_v) * r + qh)              [B, N, H], f32
 //   s     = h . ws                                [B, N]
 //   alpha = softmax_N(s)
-//   v_att = sum_n bf16(p_n * r_n) v_n / sum_n p_n,   p = exp(s - max s)
+//   v_att = sum_n E(p_n * r_n) v_n / sum_n p_n,   p = exp(s - max s)
 //
-// The rounding follows the Pallas kernel: f32 accumulation of bf16
-// products, z * r and + qh rounded as two operations, h kept in f32 for the
-// score, and p * r rounded to bf16 before the weighted sum.
+// The rounding follows the Pallas kernel: f32 accumulation of E products,
+// z * r and + qh rounded as two operations, h kept in f32 for the score,
+// and p * r rounded to E before the weighted sum. Each square is rounded
+// to E before the sum, as JAX's square(v) in dt is: in float16 a cell
+// with a value past 256 squares to inf, so its r is 0 in both.
 //
 // What bounds it on an H100: at B=256, N=196, C=2048, H=512 the score GEMM
-// is 105 GFLOP of bf16 (0.106 ms at 989 TFLOP/s) and the grid is 205 MB
-// (61 us at 3.35 TB/s), so the tensor cores bound it.
+// is 105 GFLOP of E (0.106 ms at 989 TFLOP/s, bf16 and f16 alike) and the
+// grid is 205 MB (61 us at 3.35 TB/s), so the tensor cores bound it.
 //
 // Design: the TPU kernel streams cell chunks through one core with a
 // running max and accumulator in VMEM. Hopper runs blocks in parallel with
@@ -39,7 +44,7 @@
 //  2. attn_wsum_kernel: one block per (question, 512-channel chunk) sums
 //     the H/BN partial scores in a fixed order (deterministic), takes the
 //     softmax over the N valid cells in shared memory and accumulates the
-//     weighted sum with coalesced bf16x2 loads.
+//     weighted sum with coalesced E-pair loads.
 //
 // No atomics and no split-K: two calls on the same inputs give the same
 // bits.
@@ -57,10 +62,6 @@ namespace {
 
 constexpr int kWsumThreads = 256;
 constexpr int kWsumChannels = 2 * kWsumThreads;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 template <bool kMax>
 __device__ float block_reduce(float x, float* red) {
@@ -80,14 +81,15 @@ __device__ float block_reduce(float x, float* red) {
   return x;
 }
 
+template <class E>
 __global__ void __launch_bounds__(kWsumThreads)
-attn_wsum_kernel(const __nv_bfloat16* __restrict__ v,  // [B, N, C]
-                 const float* __restrict__ part,       // [n_part, B*N]
-                 const float* __restrict__ rnorm,      // [B*N]
-                 float* __restrict__ vatt,             // [B, C]
-                 float* __restrict__ alpha,            // [B, N]
+attn_wsum_kernel(const E* __restrict__ v,          // [B, N, C]
+                 const float* __restrict__ part,   // [n_part, B*N]
+                 const float* __restrict__ rnorm,  // [B*N]
+                 float* __restrict__ vatt,         // [B, C]
+                 float* __restrict__ alpha,        // [B, N]
                  int B, int N, int C, int n_part) {
-  extern __shared__ float sh[];  // p[N], then the bf16-rounded weights w[N]
+  extern __shared__ float sh[];  // p[N], then the E-rounded weights w[N]
   __shared__ float red[32];
   float* p = sh;
   float* w = sh + N;
@@ -107,7 +109,7 @@ attn_wsum_kernel(const __nv_bfloat16* __restrict__ v,  // [B, N, C]
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     const float e = expf(p[n] - m);
     p[n] = e;
-    w[n] = round_bf16(e * rnorm[base + n]);
+    w[n] = round_to<E>(e * rnorm[base + n]);
     d += e;
   }
   d = block_reduce<false>(d, red);  // its barriers also publish p and w
@@ -119,12 +121,12 @@ attn_wsum_kernel(const __nv_bfloat16* __restrict__ v,  // [B, N, C]
 
   const int c = blockIdx.y * kWsumChannels + 2 * threadIdx.x;
   if (c < C) {
-    const __nv_bfloat162* src =
-        reinterpret_cast<const __nv_bfloat162*>(v + base * C + c);
+    const typename Elem<E>::pair* src =
+        reinterpret_cast<const typename Elem<E>::pair*>(v + base * C + c);
     const size_t stride = static_cast<size_t>(C) / 2;
     float a0 = 0.0f, a1 = 0.0f;
     for (int n = 0; n < N; ++n) {
-      const float2 x = __bfloat1622float2(src[n * stride]);
+      const float2 x = Elem<E>::to2(src[n * stride]);
       a0 = fmaf(w[n], x.x, a0);
       a1 = fmaf(w[n], x.y, a1);
     }
@@ -146,14 +148,14 @@ const char* cuda_error_string(int code) {
 // ring stages, dynamic shared memory in bytes, grid x (unit tiles), grid y
 // (cell tiles), partial scores a cell (one a unit tile)}.
 int attention_fwd_score_config(int B, int N, int H, int* out) {
-  const score_tile::Shape s = score_tile::shape<__nv_bfloat16>(B * N, H);
+  const score_tile::Shape s = score_tile::shape<KernelElem>(B * N, H);
   const int vals[] = {s.tile_m, s.tile_n, s.stages, s.smem_bytes,
                       s.grid_x, s.grid_y, s.grid_x};
   for (int i = 0; i < 7; ++i) out[i] = vals[i];
   return 0;
 }
 
-// v [B, N, C] bf16, wvt [H, C] bf16 (W_v transposed, K-major), qh [B, H]
+// v [B, N, C] E, wvt [H, C] E (W_v transposed, K-major), qh [B, H]
 // f32, ws [H] f32 -> vatt [B, C] f32, alpha [B, N] f32. Scratch: part
 // [n_part, B*N] f32, rnorm [B*N] f32 (the per-cell norm, which the caller
 // keeps). `n_part` must be the plan's (kernels.score_plan): else
@@ -164,22 +166,22 @@ int attention_fwd(const void* v, const void* wvt, const void* qh,
                   const void* ws, void* part, void* rnorm, void* vatt,
                   void* alpha, int B, int N, int C, int H, int n_part,
                   int normalize, void* stream, int* launched) {
+  using E = KernelElem;
   *launched = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cells = B * N;
-  if (n_part != score_tile::shape<__nv_bfloat16>(cells, H).grid_x) {
+  if (n_part != score_tile::shape<E>(cells, H).grid_x) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = score_tile::launch<__nv_bfloat16>(
-      score_gemm::DenseRows{static_cast<const __nv_bfloat16*>(v), C, cells,
-                            0},
-      wvt, qh, ws, part, rnorm, nullptr, cells, N, C, H, 1, normalize, st);
+  cudaError_t e = score_tile::launch<E>(
+      score_gemm::DenseRows<E>{static_cast<const E*>(v), C, cells, 0}, wvt,
+      qh, ws, part, rnorm, nullptr, cells, N, C, H, 1, normalize, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   ++*launched;
   const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
   const size_t smem = 2 * static_cast<size_t>(N) * sizeof(float);
-  attn_wsum_kernel<<<g2, kWsumThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(part),
+  attn_wsum_kernel<E><<<g2, kWsumThreads, smem, st>>>(
+      static_cast<const E*>(v), static_cast<const float*>(part),
       static_cast<const float*>(rnorm), static_cast<float*>(vatt),
       static_cast<float*>(alpha), B, N, C, n_part);
   e = cudaGetLastError();

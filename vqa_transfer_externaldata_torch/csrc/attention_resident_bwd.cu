@@ -294,7 +294,8 @@ const char* cuda_error_string(int code) {
 // channel tiles, splits).
 int attention_resident_bwd_dwv_config(int K, int C, int H, int int8,
                                       int splits, int* out) {
-  const attn_dwv::Shape s = attn_dwv::plan(K, C, H, int8 != 0, splits);
+  const attn_dwv::Shape s =
+      attn_dwv::plan<KernelElem>(K, C, H, int8 != 0, splits);
   const int v[8] = {s.tile_m, s.tile_n, s.stages, s.smem_bytes,
                     s.chunks_per_split, s.grid_x, s.grid_y, s.grid_z};
   for (int i = 0; i < 8; ++i) out[i] = v[i];

@@ -1,5 +1,8 @@
 // K7 `bigru_bwd`: backpropagation through time of both recurrences of a
-// bidirectional GRU, walked together, for Hopper (sm_90a).
+// bidirectional GRU, walked together, for Hopper (sm_90a). The same source
+// builds K7h (csrc/bigru_bwd_f16.cu), the float16 instance: E = KernelElem
+// (elem16.cuh), the type of U_h, of the copy of the pre-step states and of
+// the staged gate cotangents, is bf16 here and float16 there.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_bigru_bwd_kernel (the
 // Pallas body launched by _bigru_pallas_bwd_call): grid step k walks the
@@ -8,7 +11,7 @@
 // state hseqb[t+1], zero at t = T-1). The step math is _gru_cell_bwd.
 //
 // What bounds it on an H100: at B=256, T=26, H=512 the three products of a
-// live row-step (~17 GFLOP a direction, 35 us for both at the bf16 peak)
+// live row-step (~17 GFLOP a direction, 35 us for both at the 16-bit peak)
 // lose to the bytes: gx in and dgx out are 41 MB each a direction (~50 us
 // for both at 3.35 TB/s). The real limit is, as for K3, the latency of 26
 // dependent steps.
@@ -38,17 +41,17 @@ int bigru_bwd_config(int H, int* per_sm, long long* smem_bytes,
                      int* max_width) {
   size_t smem = 0;
   const cudaError_t e =
-      bptt_occupancy<__nv_bfloat16>(H, per_sm, &smem, max_width);
+      bptt_occupancy<KernelElem>(H, per_sm, &smem, max_width);
   if (e != cudaSuccess) cudaGetLastError();
   *smem_bytes = static_cast<long long>(smem);
   return static_cast<int>(e);
 }
 
 // gxf, gxb [T, B, 3H] f32, hseqf, hseqb [T, B, H] f32 (K6's residuals),
-// lens [B] i32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H] f32; dhe [2, B, H] f32
+// lens [B] i32, uhf, uhb [H, 3H] E, bhnf, bhnb [H] f32; dhe [2, B, H] f32
 // holds the cotangents of the two final states on entry (forward chain
-// first) and is clobbered. Scratch: g [2, T, B, 3H] bf16,
-// part [2, T, ceil(B/16), H] f32, hbf [2, T, B, H] bf16. Outputs, forward
+// first) and is clobbered. Scratch: g [2, T, B, 3H] E,
+// part [2, T, ceil(B/16), H] f32, hbf [2, T, B, H] E. Outputs, forward
 // chain first: dgx [2, T, B, 3H], duh [2, H, 3H], dbhn [2, H], all f32.
 // `rows` rows of blocks for each direction, as ops/kernels.py::gru_bwd_plan
 // chooses them. Needs H % 64 == 0 (checked by the caller). Launches the
@@ -69,7 +72,7 @@ int bigru_bwd(const void* gxf, const void* gxb, const void* hseqf,
   const int* ln = static_cast<const int*>(lens);
   float* const dh = static_cast<float*>(dhe);
   float* const dg = static_cast<float*>(dgx);
-  using E = __nv_bfloat16;
+  using E = KernelElem;
   E* const gs = static_cast<E*>(g);
   float* const pt = static_cast<float*>(part);
   E* const hb = static_cast<E*>(hbf);

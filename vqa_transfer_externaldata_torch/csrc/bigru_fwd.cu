@@ -1,5 +1,8 @@
 // K6 `bigru_fwd`: both recurrences of a bidirectional GRU, advanced
-// together, for Hopper (sm_90a).
+// together, for Hopper (sm_90a). The same source builds K6h
+// (csrc/bigru_fwd_f16.cu), the float16 instance: E = KernelElem
+// (elem16.cuh), U_h's type and the exchanged state's, is bf16 here and
+// float16 there.
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_bigru_fwd_kernel (the
 // Pallas body launched by _bigru_pallas_fwd_call): grid step k advances the
@@ -10,8 +13,8 @@
 //
 // What bounds it on an H100: at B=256, T=26, H=512 the two chains do about
 // 2 x 2 x sum(lens) x H x 3H operations (~11 GFLOP, 11 us at the bf16
-// peak) and must move the live rows of gx in and hseq out for both (~2 x
-// 35 MB, ~21 us at 3.35 TB/s): the bytes bound it. The real limit is, as
+// and f16 peak) and must move the live rows of gx in and hseq out for both
+// (~2 x 35 MB, ~21 us at 3.35 TB/s): the bytes bound it. The real limit is, as
 // for K1, the latency of 26 dependent steps, each too small to fill the
 // card alone.
 //
@@ -21,8 +24,8 @@
 // j-tiles x 2 rows x 2 directions, 128 blocks of 64 rows, one an SM, each
 // holding its direction's U_h columns in shared memory and walking 2 of the
 // 4 b-tiles a step (ops/kernels.py::gru_fwd_plan fits both directions'
-// j-tiles on the card). Each direction exchanges its own bf16 ping-pong
-// copy of the state. Where both directions' j-tiles cannot be resident at
+// j-tiles on the card). Each direction exchanges its own E ping-pong copy
+// of the state. Where both directions' j-tiles cannot be resident at
 // once but one direction's can (H above 1056 on an H100), the same kernel
 // is launched once a chain on the same stream. Each direction's outputs
 // equal a K1 call with the same `reverse` bit, bit for bit.
@@ -41,14 +44,14 @@ const char* cuda_error_string(int code) {
 // one direction's j-tiles are resident at once.
 int bigru_fwd_config(int B, int H, int rows, int* grid, int* launches,
                      int* per_sm, long long* smem_bytes) {
-  return seq_config<__nv_bfloat16>(B, H, rows, 2, grid, launches, per_sm,
-                                   smem_bytes);
+  return seq_config<KernelElem>(B, H, rows, 2, grid, launches, per_sm,
+                                smem_bytes);
 }
 
-// gxf, gxb [T, B, 3H] f32, lens [B] i32, uhf, uhb [H, 3H] bf16, bhnf, bhnb
+// gxf, gxb [T, B, 3H] f32, lens [B] i32, uhf, uhb [H, 3H] E, bhnf, bhnb
 // [H] f32 -> hseq [2, T, B, H] f32 (forward chain, then backward chain; the
 // post-step state of actual timestep t), hT [2, B, H]; scratch hbf
-// [2, 2, B, H] bf16 (each direction's ping-pong copy). `rows` (16 or 64)
+// [2, 2, B, H] E (each direction's ping-pong copy). `rows` (16 or 64)
 // batch rows a block, as ops/kernels.py::gru_fwd_plan chooses them with two
 // directions. Needs H % 16 == 0 (checked by the caller). Launches the
 // persistent kernel cooperatively on `stream`, once for both chains (or
@@ -62,8 +65,8 @@ int bigru_fwd(const void* gxf, const void* gxb, const void* lens,
   const int* ln = static_cast<const int*>(lens);
   float* const hs = static_cast<float*>(hseq);
   float* const ht = static_cast<float*>(hT);
-  __nv_bfloat16* const hb = static_cast<__nv_bfloat16*>(hbf);
-  using E = __nv_bfloat16;
+  using E = KernelElem;
+  E* const hb = static_cast<E*>(hbf);
   const FwdSeq<E> f{static_cast<const float*>(gxf), ln,
                     static_cast<const E*>(uhf),
                     static_cast<const float*>(bhnf), hs, ht, hb,

@@ -1,5 +1,5 @@
 // The 16-bit element types of the tensor-core kernels: bf16 (K1-K8, P1,
-// P2) and float16 (K1h, K3h, K4h, K5h). Both feed the same mma.sync and
+// P2) and float16 (K1h-K8h). Both feed the same mma.sync and
 // wgmma shapes, fragment layouts, ldmatrix loads and shared-memory swizzle
 // at the same rate, so a kernel is one body over its element type E, and
 // Elem<E> names the conversions that differ: float -> E rounds to nearest
@@ -7,7 +7,7 @@
 // inf past 65504 and goes subnormal below 2^-14, as JAX's astype does),
 // E -> float is exact.
 //
-// The four float16 libraries (csrc/*_f16.cu) build their bf16 twin's
+// The eight float16 libraries (csrc/*_f16.cu) build their bf16 twin's
 // source again with KERNEL_ELEM_F16 defined: KernelElem is the element type
 // of the library being built.
 
@@ -34,6 +34,9 @@ struct Elem<__nv_bfloat16> {
   __device__ __forceinline__ static pair from2(float a, float b) {
     return __floats2bfloat162_rn(a, b);
   }
+  __device__ __forceinline__ static float2 to2(pair x) {
+    return __bfloat1622float2(x);
+  }
 };
 
 template <>
@@ -48,6 +51,9 @@ struct Elem<__half> {
   }
   __device__ __forceinline__ static pair from2(float a, float b) {
     return __floats2half2_rn(a, b);
+  }
+  __device__ __forceinline__ static float2 to2(pair x) {
+    return __half22float2(x);
   }
 };
 

@@ -5,7 +5,8 @@
 //   acc = A @ W_v      A [rows, C]: store rows looked up one by one, or the
 //                      rows of a dense matrix (DenseRows),
 //                      W_v [C, H] of E, f32 sums of E products, E the
-//                      16-bit element type: bf16, or float16 in K4h
+//                      16-bit element type: bf16, or float16 in K2h, K4h
+//                      and K8h
 //
 // on Hopper's warpgroup MMA (wgmma, sm_90a). Its primitives (the copies,
 // fences, swizzle and wgmma wrappers) also serve the dW_v GEMM of
@@ -278,12 +279,13 @@ __device__ __forceinline__ int sq_row(int t, int j) {
   return (t >> 3) + 32 * j;
 }
 
-// Tile row r is row row0 + r of a dense [rows, C] bf16 matrix (K8's
-// gathered grid, [B*N, C]), or null past its last row.
+// Tile row r is row row0 + r of a dense [rows, C] matrix of E (K2's and
+// K8's gathered grid, [B*N, C]), or null past its last row.
+template <class E>
 struct DenseRows {
-  const __nv_bfloat16* x;
+  const E* x;
   int C, rows, row0;
-  __device__ const __nv_bfloat16* operator()(int r) const {
+  __device__ const E* operator()(int r) const {
     const int row = row0 + r;
     return row < rows ? x + static_cast<size_t>(row) * C : nullptr;
   }

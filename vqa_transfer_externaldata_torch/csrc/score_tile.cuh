@@ -9,7 +9,7 @@
 //   hsave = E(h)                              only where hsave is not null
 //
 // E is the 16-bit element type of W_v and of the saved h (bf16 in K2 and
-// K4, float16 in K4h); the rows are E or int8 codes widened to E.
+// K4, float16 in K2h and K4h); the rows are E or int8 codes widened to E.
 //
 // r comes from the squares that the mainloop takes of its own copies, h
 // replaces z in the accumulator registers, and only the partial scores (and

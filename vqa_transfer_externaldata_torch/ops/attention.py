@@ -15,18 +15,22 @@ tensors its forward launches the hand-written kernel ``csrc/attention_fwd.cu``
 ``csrc/attention_bwd.cu`` (K8, wrapper :func:`attention_bwd`), or the
 explicit backward :func:`attention_bwd_math`; on CPU tensors the plain
 versions :func:`attention_fwd_reference` and :func:`attention_bwd_reference`.
-The wrappers dispatch on v's dtype: bf16 takes K2/K8, float32 the float32
-kernels ``csrc/attention_fwd_f32.cu`` (K2f, :func:`attention_fwd_f32`) and
-``csrc/attention_bwd_f32.cu`` (K8f, :func:`attention_bwd_f32`), plain FFMA
-with f32 sums.
+The wrappers dispatch on v's dtype: bf16 takes K2/K8, float16 their
+float16 instances ``csrc/attention_fwd_f16.cu`` (K2h,
+:func:`attention_fwd_f16`) and ``csrc/attention_bwd_f16.cu`` (K8h,
+:func:`attention_bwd_f16`), the same bodies with float16 in place of bf16,
+float32 the float32 kernels ``csrc/attention_fwd_f32.cu`` (K2f,
+:func:`attention_fwd_f32`) and ``csrc/attention_bwd_f32.cu`` (K8f,
+:func:`attention_bwd_f32`), plain FFMA with f32 sums.
 :func:`spatial_attention_reference` and :func:`_reference_postscaled` are
 the JAX package's oracles, in PyTorch. :func:`spatial_attention_multi` is
 the G-glimpse variant on a gathered grid, plain PyTorch differentiated by
 autograd (the JAX package computes it in XLA, with no Pallas kernel).
 
-Products of ``dt`` (bf16) values are taken as float32 matmuls of upcast
-operands: the upcast copies are exact, so this is a ``dt`` matmul with
-float32 accumulation, as ``preferred_element_type=float32`` is in JAX.
+Products of ``dt`` (bf16 or float16) values are taken as float32 matmuls
+of upcast operands: the upcast copies are exact, so this is a ``dt`` matmul
+with float32 accumulation, as ``preferred_element_type=float32`` is in
+JAX.
 """
 
 from __future__ import annotations
@@ -196,9 +200,9 @@ def _score_dot(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """g . v_n for every cell: v [B, N, C] (dt), g [B, C] f32 -> [B, N]
     f32, from products of dt values (g rounded to dt) summed in f32. On the
     card one batched GEMV reads the grid once and returns f32 (for a bf16
-    grid no f32 copy of it; a float32 grid takes cuBLAS's f32 GEMV, in full
-    f32 unless the caller turns TF32 on); on the CPU the operands are
-    upcast."""
+    or float16 grid no f32 copy of it; a float32 grid takes cuBLAS's f32
+    GEMV, in full f32 unless the caller turns TF32 on); on the CPU the
+    operands are upcast."""
     gc = g.to(v.dtype)
     if v.device.type != "cuda":
         return torch.einsum("bnc,bc->bn", v.float(), gc.float())
@@ -208,8 +212,9 @@ def _score_dot(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 class _GatheredAttention(torch.autograd.Function):
-    """Forward K2 (K2f on a float32 grid; the plain version on the CPU),
-    saving the per-cell norm r that it computed. Backward: K8 (K8f) from
+    """Forward K2 (K2h on a float16 grid, K2f on a float32 one; the plain
+    version on the CPU), saving the per-cell norm r that it computed.
+    Backward: K8 (K8h, K8f) from
     the score cotangent formed here (the plain version on the CPU); with
     ``feature_grad`` or without
     ``bwd_kernel``, the explicit math of :func:`attention_bwd_math`.
@@ -272,8 +277,9 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     """Attention over a gathered grid: v [B, N, C] in the compute dtype, qh
     [B, H], wv [C, H], w_score [H] -> (v_att [B, C] f32, alpha [B, N] f32),
     differentiable in all four. ``wv`` and ``w_score`` are rounded to
-    ``v.dtype``. On CUDA tensors the forward is kernel K2 (bf16 ``v``; K2f
-    on float32), in training too, and the backward kernel K8 (K8f) unless
+    ``v.dtype``. On CUDA tensors the forward is kernel K2 (bf16 ``v``; K2h
+    on float16, K2f on float32), in training too, and the backward kernel
+    K8 (K8h, K8f) unless
     ``bwd_kernel`` is False or ``feature_grad`` asks for dv, when the
     explicit backward runs; on
     CPU tensors each path takes its plain version. ``feature_grad=False``
@@ -296,14 +302,15 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
                                     bwd_kernel, feature_grad, use_kernels)
 
 
-def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
+def _check_grid(v: torch.Tensor, H: int, what: str, dtype: torch.dtype
+                ) -> Tuple[int, int, int]:
     if v.device.type != "cuda" or v.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA v")
     B, N, C = v.shape
     if C % _SCORE_TILE_C or H % _SCORE_TILE_H or B < 1 or N < 1:
         raise ValueError(f"{what} needs C % {_SCORE_TILE_C} == 0 and "
                          f"H % {_SCORE_TILE_H} == 0, got C={C}, H={H}")
-    kernels.expect("v", v, torch.bfloat16, (B, N, C), v.device)
+    kernels.expect("v", v, dtype, (B, N, C), v.device)
     if v.data_ptr() % 16:
         raise ValueError(f"{what} reads v in 16-byte vectors: it must start "
                          "16-byte aligned")
@@ -311,8 +318,10 @@ def _check_grid(v: torch.Tensor, H: int, what: str) -> Tuple[int, int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = kernels.load("attention_fwd")
+def _lib(name: str = "attention_fwd") -> ctypes.CDLL:
+    """The library of K2 (``name`` "attention_fwd") or K2h
+    ("attention_fwd_f16"); both export the same entries."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.attention_fwd.argtypes = [p] * 8 + [i] * 6 + [p, p]
     lib.attention_fwd.restype = i
@@ -321,11 +330,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def score_launch_config(B: int, N: int, H: int) -> dict:
-    """The shape of K2's score launch as the C side sets it for ``B``
-    questions of ``N`` cells at width ``H``, in :func:`kernels.score_plan`'s
-    keys."""
-    lib = _lib()
+def score_launch_config(B: int, N: int, H: int,
+                        dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K2's score launch (K2h's with ``dtype`` float16) as
+    the C side sets it for ``B`` questions of ``N`` cells at width ``H``,
+    in :func:`kernels.score_plan`'s keys."""
+    lib = _lib(kernels.name16("attention_fwd", dtype))
     out = (ctypes.c_int * 7)()
     rc = lib.attention_fwd_score_config(B, N, H, ctypes.addressof(out))
     kernels.check(lib, rc, "attention_fwd_score_config")
@@ -344,19 +354,49 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     H % 128 == 0. The score launch reads W_v as its K-major copy ``wv.t()``
     [H, C], made here, and runs as :func:`kernels.score_plan` plans it. One
     call makes the kernel's two launches on the current stream and adds the
-    number launched (2) to ``attention_fwd.launches``. A float32 ``v`` goes
-    to :func:`attention_fwd_f32` (K2f); another dtype raises ``TypeError``
+    number launched (2) to ``attention_fwd.launches``. A float16 ``v``
+    goes to :func:`attention_fwd_f16` (K2h), a float32 one to
+    :func:`attention_fwd_f32` (K2f); another dtype raises ``TypeError``
     (:func:`kernels.kernel_dtype`)."""
-    if kernels.kernel_dtype("attention_fwd", "v", v) == torch.float32:
+    dt = kernels.kernel_dtype("attention_fwd", "v", v)
+    if dt == torch.float32:
         return attention_fwd_f32(v, qh, wv, ws, normalize=normalize)
+    if dt == torch.float16:
+        return attention_fwd_f16(v, qh, wv, ws, normalize=normalize)
+    return _attention_fwd16(v, qh, wv, ws, normalize, torch.bfloat16)
+
+
+attention_fwd.launches = 0
+
+
+def attention_fwd_f16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                      ws: torch.Tensor, *, normalize: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K2h (``csrc/attention_fwd_f16.cu``: K2's body with
+    float16 as its element type) on CUDA tensors: as :func:`attention_fwd`
+    with v [B, N, C] and wv [C, H] float16, the squares and the weights
+    p * r rounded to float16. The same launches and limits as K2; two
+    launches a call, added to ``attention_fwd_f16.launches``."""
+    return _attention_fwd16(v, qh, wv, ws, normalize, torch.float16)
+
+
+attention_fwd_f16.launches = 0
+
+
+def _attention_fwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                     ws: torch.Tensor, normalize: bool, dtype: torch.dtype
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's (``dtype`` bf16) or K2h's (float16) checks, plan and
+    launches."""
+    what = kernels.name16("attention_fwd", dtype)
     H = qh.shape[-1]
-    B, N, C = _check_grid(v, H, "attention_fwd")
+    B, N, C = _check_grid(v, H, what, dtype)
     dev = v.device
     if 2 * N * 4 > 48 * 1024:
-        raise ValueError(f"attention_fwd: N={N} cells exceed the softmax's "
+        raise ValueError(f"{what}: N={N} cells exceed the softmax's "
                          "shared memory")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect("wv", wv, dtype, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     n_part = kernels.score_plan(B, N, C, H)["n_part"]
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
@@ -365,7 +405,7 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     rnorm = torch.empty(B, N, **f32)
     v_att = torch.empty(B, C, **f32)
     alpha = torch.empty(B, N, **f32)
-    lib = _lib()
+    lib = _lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_fwd(
@@ -374,17 +414,17 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
             alpha.data_ptr(), B, N, C, H, n_part, int(normalize),
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
-    attention_fwd.launches += launched.value
-    kernels.check(lib, rc, "attention_fwd")
+    (attention_fwd_f16 if dtype == torch.float16
+     else attention_fwd).launches += launched.value
+    kernels.check(lib, rc, what)
     return v_att, alpha, rnorm
 
 
-attention_fwd.launches = 0
-
-
 @functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    lib = kernels.load("attention_bwd")
+def _bwd_lib(name: str = "attention_bwd") -> ctypes.CDLL:
+    """The library of K8 (``name`` "attention_bwd") or K8h
+    ("attention_bwd_f16"); both export the same entries."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.attention_bwd.argtypes = [p] * 14 + [i] * 7 + [p, p]
     lib.attention_bwd.restype = i
@@ -393,11 +433,12 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def dz_launch_config(B: int, N: int, H: int) -> dict:
-    """The shape of K8's dz launch as the C side sets it for ``B``
-    questions of ``N`` cells at width ``H``, in :func:`kernels.dz_plan`'s
-    keys but ``partials``."""
-    lib = _bwd_lib()
+def dz_launch_config(B: int, N: int, H: int,
+                     dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K8's dz launch (K8h's with ``dtype`` float16) as the C
+    side sets it for ``B`` questions of ``N`` cells at width ``H``, in
+    :func:`kernels.dz_plan`'s keys but ``partials``."""
+    lib = _bwd_lib(kernels.name16("attention_bwd", dtype))
     out = (ctypes.c_int * 8)()
     rc = lib.attention_bwd_dz_config(B, N, H, ctypes.addressof(out))
     kernels.check(lib, rc, "attention_bwd_dz_config")
@@ -417,32 +458,64 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     ``kernels.ATTENTION_BWD_LAUNCHES`` (4) launches on the current stream,
     its dz stage as :func:`kernels.dz_plan` and its dW_v GEMM as
     :func:`kernels.dwv_plan` plan them, and adds the number launched to
-    ``attention_bwd.launches``. A float32 ``v`` goes to
+    ``attention_bwd.launches``. A float16 ``v`` goes to
+    :func:`attention_bwd_f16` (K8h), a float32 one to
     :func:`attention_bwd_f32` (K8f); another dtype raises ``TypeError``
     (:func:`kernels.kernel_dtype`)."""
-    if kernels.kernel_dtype("attention_bwd", "v", v) == torch.float32:
+    dt = kernels.kernel_dtype("attention_bwd", "v", v)
+    if dt == torch.float32:
         return attention_bwd_f32(v, qh, wv, ws, ds, r, normalize)
+    if dt == torch.float16:
+        return attention_bwd_f16(v, qh, wv, ws, ds, r, normalize)
+    return _attention_bwd16(v, qh, wv, ws, ds, r, normalize, torch.bfloat16)
+
+
+attention_bwd.launches = 0
+
+
+def attention_bwd_f16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                      ws: torch.Tensor, ds: torch.Tensor, r: torch.Tensor,
+                      normalize: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch kernel K8h (``csrc/attention_bwd_f16.cu``: K8's body with
+    float16 as its element type) on CUDA tensors: as :func:`attention_bwd`
+    with v [B, N, C] and wv [C, H] float16, dz * r rounded to float16 ahead
+    of the dW_v product. The same launches and limits as K8; 4 launches a
+    call, added to ``attention_bwd_f16.launches``."""
+    return _attention_bwd16(v, qh, wv, ws, ds, r, normalize, torch.float16)
+
+
+attention_bwd_f16.launches = 0
+
+
+def _attention_bwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
+                     ws: torch.Tensor, ds: torch.Tensor, r: torch.Tensor,
+                     normalize: bool, dtype: torch.dtype
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's (``dtype`` bf16) or K8h's (float16) checks, plans and
+    launches."""
+    what = kernels.name16("attention_bwd", dtype)
     H = qh.shape[-1]
-    B, N, C = _check_grid(v, H, "attention_bwd")
+    B, N, C = _check_grid(v, H, what, dtype)
     dev = v.device
     tile = kernels.DWV_TILE
     if C % tile or H % tile:
-        raise ValueError(f"attention_bwd needs C % {tile} == 0 and "
+        raise ValueError(f"{what} needs C % {tile} == 0 and "
                          f"H % {tile} == 0, got C={C}, H={H}")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
-    kernels.expect("wv", wv, torch.bfloat16, (C, H), dev)
+    kernels.expect("wv", wv, dtype, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     kernels.expect("ds", ds, torch.float32, (B, N), dev)
     kernels.expect("r", r, torch.float32, (B, N), dev)
     if wv.data_ptr() % 16:
-        raise ValueError("attention_bwd reads wv in 16-byte vectors: it "
-                         "must start 16-byte aligned")
+        raise ValueError(f"{what} reads wv in 16-byte vectors: it must "
+                         "start 16-byte aligned")
     K = B * N
     dz = kernels.dz_plan(B, N, C, H)
     splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev))["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
-    dzr = torch.empty(K, H, dtype=torch.bfloat16, device=dev)
+    dzr = torch.empty(K, H, dtype=dtype, device=dev)
     qpart = torch.empty(dz["partials"], **f32)
     wpart = torch.empty(dz["partials"], **f32)
     dws_part = torch.empty(B, H, **f32)
@@ -450,7 +523,7 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     dqh = torch.empty(B, H, **f32)
     dwv = torch.empty(C, H, **f32)
     dws = torch.empty(H, **f32)
-    lib = _bwd_lib()
+    lib = _bwd_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_bwd(
@@ -461,12 +534,10 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
             B, N, C, H, int(normalize), dz["slots"], splits,
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
-    attention_bwd.launches += launched.value
-    kernels.check(lib, rc, "attention_bwd")
+    (attention_bwd_f16 if dtype == torch.float16
+     else attention_bwd).launches += launched.value
+    kernels.check(lib, rc, what)
     return dqh, dwv, dws
-
-
-attention_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

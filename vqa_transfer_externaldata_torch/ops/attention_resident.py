@@ -371,8 +371,7 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     goes to :func:`attention_resident_fwd_f16` (K4h), a float32 one to
     :func:`attention_resident_fwd_f32` (K4f); another dtype raises
     ``TypeError`` (:func:`kernels.kernel_dtype`)."""
-    dt = kernels.kernel_dtype("attention_resident_fwd", "wv", wv,
-                              kernels.KERNEL_DTYPES_F16)
+    dt = kernels.kernel_dtype("attention_resident_fwd", "wv", wv)
     if dt == torch.float32:
         return attention_resident_fwd_f32(store, rows, qh, wv, ws,
                                           n_valid=n_valid,
@@ -490,8 +489,7 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     (K4h's residual) goes to :func:`attention_resident_bwd_f16` (K5h), a
     float32 one (K4f's) to :func:`attention_resident_bwd_f32` (K5f);
     another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`)."""
-    dt = kernels.kernel_dtype("attention_resident_bwd", "h", h,
-                              kernels.KERNEL_DTYPES_F16)
+    dt = kernels.kernel_dtype("attention_resident_bwd", "h", h)
     if dt == torch.float32:
         return attention_resident_bwd_f32(store, rows, h, ws, alpha, g, sga,
                                           n_valid=n_valid,

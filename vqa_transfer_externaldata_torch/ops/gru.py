@@ -34,8 +34,10 @@ recurrences through ``bigru_fused``: on a CUDA tensor kernel
 ``csrc/bigru_fwd.cu`` (K6, wrapper :func:`bigru_fwd`: K1's persistent
 kernel, both chains in one launch) advances both chains and
 ``csrc/bigru_bwd.cu`` (K7, wrapper :func:`bigru_bwd`) walks both BPTTs
-(on float32 U_h, ``csrc/bigru_fwd_f32.cu`` and ``csrc/bigru_bwd_f32.cu``,
-K6f and K7f: K1f's and K3f's steps with both chains in each launch);
+(on float16 U_h their float16 instances ``csrc/bigru_fwd_f16.cu`` and
+``csrc/bigru_bwd_f16.cu``, K6h and K7h; on float32 U_h,
+``csrc/bigru_fwd_f32.cu`` and ``csrc/bigru_bwd_f32.cu``, K6f and K7f: K1f's
+and K3f's steps with both chains in each launch);
 on a CPU tensor their plain versions
 :func:`bigru_reference` and :func:`bigru_bwd_reference`. The JAX package
 keeps this fused path behind ``fuse_directions`` (off); its outputs and
@@ -322,14 +324,15 @@ def _lib(name: str = "gru_fwd") -> ctypes.CDLL:
 def _fwd_config(kernel: str, B: int, H: int, rows: int,
                 device: torch.device) -> dict:
     """The C side's launch of K1 (``kernel`` "gru_fwd"), K1h
-    ("gru_fwd_f16") or K6 ("bigru_fwd") at batch ``B`` and width ``H`` with
+    ("gru_fwd_f16"), K6 ("bigru_fwd") or K6h ("bigru_fwd_f16") at batch
+    ``B`` and width ``H`` with
     ``rows`` batch rows a block on CUDA ``device``: its grid (j-tiles, rows
     of blocks, directions a launch; [0, 0, 0] where not even one
     direction's row of j-tiles can be resident at once), the launches a
     call takes, blocks resident per SM (0 where the block's shared memory
     does not fit) and dynamic shared memory in bytes."""
-    bigru = kernel == "bigru_fwd"
-    lib = _bigru_lib() if bigru else _lib(kernel)
+    bigru = kernel.startswith("bigru_fwd")
+    lib = _bigru_lib(kernel) if bigru else _lib(kernel)
     grid = (ctypes.c_int * 3)()
     launches, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     smem = ctypes.c_longlong(0)
@@ -344,7 +347,7 @@ def _fwd_config(kernel: str, B: int, H: int, rows: int,
 
 @functools.lru_cache(maxsize=None)
 def _fwd_blocks_per_sm(kernel: str, index: int, H: int) -> dict:
-    """K1's, K1h's or K6's blocks resident per SM of card ``index`` at
+    """K1's, K1h's, K6's or K6h's blocks resident per SM of card ``index`` at
     width ``H``, by the batch rows of each of its tilings
     (``kernels.GRU_FWD_ROWS``), from its own library's instance."""
     dev = torch.device("cuda", index)
@@ -354,13 +357,14 @@ def _fwd_blocks_per_sm(kernel: str, index: int, H: int) -> dict:
 
 def _fwd_plan(kernel: str, B: int, H: int, device: torch.device
               ) -> Tuple[dict, dict]:
-    """``kernels.gru_fwd_plan`` for K1 or K1h (one direction) or K6 (two)
-    at (B, H) on CUDA ``device``, and the blocks per SM it was given."""
+    """``kernels.gru_fwd_plan`` for K1 or K1h (one direction) or K6 or K6h
+    (two) at (B, H) on CUDA ``device``, and the blocks per SM it was
+    given."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     per_sm = _fwd_blocks_per_sm(kernel, index, H)
     plan = kernels.gru_fwd_plan(B, H, kernels.sm_count(device), per_sm,
-                                2 if kernel == "bigru_fwd" else 1)
+                                2 if kernel.startswith("bigru") else 1)
     return plan, per_sm
 
 
@@ -386,7 +390,7 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     ``kernels.gru_fwd_plan``, on the current stream and adds it (1) to
     ``gru_fwd.launches``; it raises when no tiling's grid can be resident
     on the card at once."""
-    dt = kernels.kernel_dtype("gru_fwd", "uh", uh, kernels.KERNEL_DTYPES_F16)
+    dt = kernels.kernel_dtype("gru_fwd", "uh", uh)
     if dt == torch.float32:
         return gru_fwd_f32(gx_t, lens, uh, bhn, reverse=reverse)
     if dt == torch.float16:
@@ -486,12 +490,12 @@ def _bwd_lib(name: str = "gru_bwd") -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _bptt_occupancy(kernel: str, index: int, H: int) -> dict:
     """The persistent BPTT step kernel of K3 (``kernel`` "gru_bwd"), K3h
-    ("gru_bwd_f16") or K7 ("bigru_bwd") at width ``H`` on card ``index``,
-    as the C side reports it: blocks resident per SM (0 where a block's
-    shared memory does not fit), dynamic shared memory in bytes and the
-    widest H that fits."""
-    bigru = kernel == "bigru_bwd"
-    lib = _bigru_bwd_lib() if bigru else _bwd_lib(kernel)
+    ("gru_bwd_f16"), K7 ("bigru_bwd") or K7h ("bigru_bwd_f16") at width
+    ``H`` on card ``index``, as the C side reports it: blocks resident per
+    SM (0 where a block's shared memory does not fit), dynamic shared
+    memory in bytes and the widest H that fits."""
+    bigru = kernel.startswith("bigru_bwd")
+    lib = _bigru_bwd_lib(kernel) if bigru else _bwd_lib(kernel)
     per_sm, max_width = ctypes.c_int(0), ctypes.c_int(0)
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(index):
@@ -505,7 +509,7 @@ def _bptt_occupancy(kernel: str, index: int, H: int) -> dict:
 
 def _bptt_plan(kernel: str, B: int, H: int, device: torch.device,
                directions: int) -> dict:
-    """``kernels.gru_bwd_plan`` for K3, K3h or K7 at (B, H) on CUDA
+    """``kernels.gru_bwd_plan`` for K3, K3h, K7 or K7h at (B, H) on CUDA
     ``device``, with the C side's occupancy beside it. Raises where U_h's
     slices do not fit in a block's shared memory, naming the widest H that
     does."""
@@ -540,7 +544,7 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     current stream and adds the number launched (3) to
     ``gru_bwd.launches``; it raises when U_h's slices do not fit or the
     step kernel's grid cannot be resident on the card at once."""
-    dt = kernels.kernel_dtype("gru_bwd", "uh", uh, kernels.KERNEL_DTYPES_F16)
+    dt = kernels.kernel_dtype("gru_bwd", "uh", uh)
     if dt == torch.float32:
         return gru_bwd_f32(gx_t, hseq, lens, uh, bhn, ghT, reverse=reverse)
     if dt == torch.float16:
@@ -740,7 +744,8 @@ def bigru_fused(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     [H, 3H], bhnf, bhnb [H] f32 -> (hT_fwd, hT_bwd) [B, H] f32, the
     backward chain reversed over each row's valid prefix as
     ``gru_fused(reverse=True)``. Differentiable in gx*, uh* and bhn*. A
-    CUDA tensor runs kernels K6/K7 (K6f/K7f on float32 ``uh*``), a CPU
+    CUDA tensor runs kernels K6/K7 (K6h/K7h on float16 ``uh*``, K6f/K7f
+    on float32), a CPU
     tensor the plain versions, and so does a CUDA tensor with
     ``use_kernels`` False."""
     if gxf.device.type not in ("cuda", "cpu"):
@@ -819,8 +824,10 @@ def _expect_pair(T: int, B: int, H: int, dev: torch.device,
 
 
 @functools.lru_cache(maxsize=None)
-def _bigru_lib() -> ctypes.CDLL:
-    lib = kernels.load("bigru_fwd")
+def _bigru_lib(name: str = "bigru_fwd") -> ctypes.CDLL:
+    """The library of K6 (``name`` "bigru_fwd") or K6h ("bigru_fwd_f16");
+    both export ``bigru_fwd`` and ``bigru_fwd_config``."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bigru_fwd.argtypes = [p] * 10 + [i] * 4 + [p, p]
     lib.bigru_fwd.restype = i
@@ -843,28 +850,55 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     (or, where the plan says that both directions' j-tiles cannot be
     resident at once, one launch a chain), on the current stream and adds
     the number launched (1, or 2) to ``bigru_fwd.launches``; it raises
-    where the plan raises. A float32 ``uhf`` goes to :func:`bigru_fwd_f32`
+    where the plan raises. A float16 ``uhf`` goes to
+    :func:`bigru_fwd_f16` (K6h), a float32 one to :func:`bigru_fwd_f32`
     (K6f), another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`),
     and so does a ``uhb`` of another dtype than ``uhf``."""
-    if kernels.kernel_dtype("bigru_fwd", "uhf", uhf) == torch.float32:
+    dt = kernels.kernel_dtype("bigru_fwd", "uhf", uhf)
+    if dt == torch.float32:
         return bigru_fwd_f32(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    if dt == torch.float16:
+        return bigru_fwd_f16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    return _bigru_fwd16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb, torch.bfloat16)
+
+
+bigru_fwd.launches = 0
+
+
+def bigru_fwd_f16(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+                  uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+                  bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel K6h (``csrc/bigru_fwd_f16.cu``: K6's body with float16
+    as its element type) on CUDA tensors: as :func:`bigru_fwd` with uhf,
+    uhb [H, 3H] float16, each direction bit-equal to a :func:`gru_fwd_f16`
+    call on its inputs. The same launch plan and limits as K6; the number
+    launched (1, or 2) is added to ``bigru_fwd_f16.launches``."""
+    return _bigru_fwd16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb, torch.float16)
+
+
+bigru_fwd_f16.launches = 0
+
+
+def _bigru_fwd16(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+                 uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+                 bhnb: torch.Tensor, dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, ...]:
+    """K6's (``dtype`` bf16) or K6h's (float16) checks, plan and launch."""
+    what = kernels.name16("bigru_fwd", dtype)
     if gxf.device.type != "cuda" or gxf.dim() != 3:
-        raise ValueError("bigru_fwd takes 3-D CUDA gx tensors")
+        raise ValueError(f"{what} takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
     H = H3 // 3
     dev = gxf.device
     if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
-        raise ValueError(f"bigru_fwd needs T, B >= 1 and H % {_TILE} == 0, "
+        raise ValueError(f"{what} needs T, B >= 1 and H % {_TILE} == 0, "
                          f"got gxf of shape {tuple(gxf.shape)}")
-    _expect_pair(T, B, H, dev, torch.bfloat16, gx=(gxf, gxb),
-                 uh=(uhf, uhb), bhn=(bhnf, bhnb))
+    _expect_pair(T, B, H, dev, dtype, gx=(gxf, gxb), uh=(uhf, uhb),
+                 bhn=(bhnf, bhnb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
-    plan, _ = _fwd_plan("bigru_fwd", B, H, dev)
+    plan, _ = _fwd_plan(what, B, H, dev)
     return _launch_bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb,
                              plan["rows"])
-
-
-bigru_fwd.launches = 0
 
 
 def _launch_bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor,
@@ -872,16 +906,17 @@ def _launch_bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor,
                       uhb: torch.Tensor, bhnf: torch.Tensor,
                       bhnb: torch.Tensor, rows: int
                       ) -> Tuple[torch.Tensor, ...]:
-    """K6's launch with ``rows`` batch rows a block on inputs that
-    :func:`bigru_fwd` has checked (chip_smoke.py also times the tiling
-    that the plan does not take through it)."""
+    """K6's launch (K6h's on a float16 ``uhf``) with ``rows`` batch rows a
+    block on inputs that :func:`bigru_fwd` has checked (chip_smoke.py also
+    times the tiling that the plan does not take through it)."""
     T, B, H3 = gxf.shape
     H = H3 // 3
     dev = gxf.device
+    what = kernels.name16("bigru_fwd", uhf.dtype)
     hseq = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
     hT = torch.empty(2, B, H, dtype=torch.float32, device=dev)
-    hbf = torch.empty(2, 2, B, H, dtype=torch.bfloat16, device=dev)
-    lib = _bigru_lib()
+    hbf = torch.empty(2, 2, B, H, dtype=uhf.dtype, device=dev)
+    lib = _bigru_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.bigru_fwd(gxf.data_ptr(), gxb.data_ptr(), lens.data_ptr(),
@@ -890,24 +925,30 @@ def _launch_bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor,
                            hbf.data_ptr(), T, B, H, rows,
                            torch.cuda.current_stream(dev).cuda_stream,
                            ctypes.addressof(launched))
-    bigru_fwd.launches += launched.value
-    kernels.check(lib, rc, "bigru_fwd")
+    (bigru_fwd_f16 if uhf.dtype == torch.float16
+     else bigru_fwd).launches += launched.value
+    kernels.check(lib, rc, what)
     return hT[0], hT[1], hseq[0], hseq[1]
 
 
-def bigru_fwd_launch_config(B: int, H: int, device: torch.device) -> dict:
-    """The shape of K6's persistent launch at batch ``B`` and width ``H``
-    on CUDA ``device``, as :func:`gru_fwd_launch_config` gives K1's, from
-    K6's own instance of the kernel: the grid is (j-tiles, rows of blocks,
-    2 directions), or (j-tiles, rows of blocks, 1) with ``launches`` 2
-    where both directions' j-tiles cannot be resident at once. Raises
-    where :func:`bigru_fwd` would."""
-    return _fwd_launch_config("bigru_fwd", B, H, device)
+def bigru_fwd_launch_config(B: int, H: int, device: torch.device,
+                            dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K6's persistent launch (K6h's with ``dtype`` float16)
+    at batch ``B`` and width ``H`` on CUDA ``device``, as
+    :func:`gru_fwd_launch_config` gives K1's, from K6's own instance of the
+    kernel: the grid is (j-tiles, rows of blocks, 2 directions), or
+    (j-tiles, rows of blocks, 1) with ``launches`` 2 where both
+    directions' j-tiles cannot be resident at once. Raises where
+    :func:`bigru_fwd` would."""
+    return _fwd_launch_config(kernels.name16("bigru_fwd", dtype), B, H,
+                              device)
 
 
 @functools.lru_cache(maxsize=None)
-def _bigru_bwd_lib() -> ctypes.CDLL:
-    lib = kernels.load("bigru_bwd")
+def _bigru_bwd_lib(name: str = "bigru_bwd") -> ctypes.CDLL:
+    """The library of K7 (``name`` "bigru_bwd") or K7h ("bigru_bwd_f16");
+    both export ``bigru_bwd`` and ``bigru_bwd_config``."""
+    lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bigru_bwd.argtypes = [p] * 16 + [i] * 4 + [p, p]
     lib.bigru_bwd.restype = i
@@ -933,34 +974,68 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     db_hn sum of both directions on the current stream and adds the number
     launched (3) to ``bigru_bwd.launches``; it raises when U_h's slices do
     not fit or the step kernel's grid cannot be resident on the card at
-    once. A float32 ``uhf`` goes to :func:`bigru_bwd_f32` (K7f), another
-    dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`), and so does
-    a ``uhb`` of another dtype than ``uhf``."""
-    if kernels.kernel_dtype("bigru_bwd", "uhf", uhf) == torch.float32:
-        return bigru_bwd_f32(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf,
-                             bhnb, ghTf, ghTb)
+    once. A float16 ``uhf`` goes to :func:`bigru_bwd_f16` (K7h), a float32
+    one to :func:`bigru_bwd_f32` (K7f), another dtype raises ``TypeError``
+    (:func:`kernels.kernel_dtype`), and so does a ``uhb`` of another dtype
+    than ``uhf``."""
+    dt = kernels.kernel_dtype("bigru_bwd", "uhf", uhf)
+    args = (gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
+    if dt == torch.float32:
+        return bigru_bwd_f32(*args)
+    if dt == torch.float16:
+        return bigru_bwd_f16(*args)
+    return _bigru_bwd16(*args, torch.bfloat16)
+
+
+bigru_bwd.launches = 0
+
+
+def bigru_bwd_f16(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
+                  hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
+                  uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
+                  ghTf: torch.Tensor, ghTb: torch.Tensor
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel K7h (``csrc/bigru_bwd_f16.cu``: K7's body with float16
+    as its element type) on CUDA tensors: as :func:`bigru_bwd` with uhf,
+    uhb [H, 3H] float16, each direction bit-equal to a :func:`gru_bwd_f16`
+    call on its inputs. The same launches and limits as K7; 3 launches a
+    call, added to ``bigru_bwd_f16.launches``."""
+    return _bigru_bwd16(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb,
+                        ghTf, ghTb, torch.float16)
+
+
+bigru_bwd_f16.launches = 0
+
+
+def _bigru_bwd16(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
+                 hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
+                 uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
+                 ghTf: torch.Tensor, ghTb: torch.Tensor, dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, ...]:
+    """K7's (``dtype`` bf16) or K7h's (float16) checks, plan and
+    launches."""
+    what = kernels.name16("bigru_bwd", dtype)
     if gxf.device.type != "cuda" or gxf.dim() != 3:
-        raise ValueError("bigru_bwd takes 3-D CUDA gx tensors")
+        raise ValueError(f"{what} takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
     H = H3 // 3
     dev = gxf.device
     if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
-        raise ValueError(f"bigru_bwd needs T, B >= 1 and H % 64 == 0, got "
+        raise ValueError(f"{what} needs T, B >= 1 and H % 64 == 0, got "
                          f"gxf of shape {tuple(gxf.shape)}")
-    _expect_pair(T, B, H, dev, torch.bfloat16, gx=(gxf, gxb),
-                 hseq=(hseqf, hseqb), uh=(uhf, uhb), bhn=(bhnf, bhnb),
-                 ghT=(ghTf, ghTb))
+    _expect_pair(T, B, H, dev, dtype, gx=(gxf, gxb), hseq=(hseqf, hseqb),
+                 uh=(uhf, uhb), bhn=(bhnf, bhnb), ghT=(ghTf, ghTb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
-    plan = _bptt_plan("bigru_bwd", B, H, dev, 2)
+    plan = _bptt_plan(what, B, H, dev, 2)
     f32 = dict(dtype=torch.float32, device=dev)
     dhe = torch.stack([ghTf, ghTb])  # the carried cotangents, overwritten
-    g = torch.empty(2, T, B, 3 * H, dtype=torch.bfloat16, device=dev)
-    hbf = torch.empty(2, T, B, H, dtype=torch.bfloat16, device=dev)
+    g = torch.empty(2, T, B, 3 * H, dtype=dtype, device=dev)
+    hbf = torch.empty(2, T, B, H, dtype=dtype, device=dev)
     part = torch.empty(2, T, -(-B // _TILE), H, **f32)
     dgx = torch.empty(2, T, B, 3 * H, **f32)
     duh = torch.empty(2, H, 3 * H, **f32)
     dbhn = torch.empty(2, H, **f32)
-    lib = _bigru_bwd_lib()
+    lib = _bigru_bwd_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.bigru_bwd(gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
@@ -971,20 +1046,20 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
                            hbf.data_ptr(), T, B, H, plan["grid"][1],
                            torch.cuda.current_stream(dev).cuda_stream,
                            ctypes.addressof(launched))
-    bigru_bwd.launches += launched.value
-    kernels.check(lib, rc, "bigru_bwd")
+    (bigru_bwd_f16 if dtype == torch.float16
+     else bigru_bwd).launches += launched.value
+    kernels.check(lib, rc, what)
     return dgx[0], dgx[1], duh[0], duh[1], dbhn[0], dbhn[1]
 
 
-bigru_bwd.launches = 0
-
-
-def bigru_bwd_launch_config(B: int, H: int, device: torch.device) -> dict:
-    """The shape of K7's persistent step launch at batch ``B`` and width
-    ``H`` on CUDA ``device``, as :func:`gru_bwd_launch_config` gives K3's:
-    the grid is (16-unit j-tiles, rows of 64-row b-tile blocks, 2
-    directions). Raises where :func:`bigru_bwd` would."""
-    return _bptt_plan("bigru_bwd", B, H, device, 2)
+def bigru_bwd_launch_config(B: int, H: int, device: torch.device,
+                            dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The shape of K7's persistent step launch (K7h's with ``dtype``
+    float16) at batch ``B`` and width ``H`` on CUDA ``device``, as
+    :func:`gru_bwd_launch_config` gives K3's: the grid is (16-unit
+    j-tiles, rows of 64-row b-tile blocks, 2 directions). Raises where
+    :func:`bigru_bwd` would."""
+    return _bptt_plan(kernels.name16("bigru_bwd", dtype), B, H, device, 2)
 
 
 def _check_pair_f32(what: str, gxf: torch.Tensor, gxb: torch.Tensor,

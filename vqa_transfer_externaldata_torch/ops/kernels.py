@@ -369,27 +369,19 @@ def expect(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
-# Where the float16 kernels that are still to be written (K2, K8, K6 and K7
-# in float16) stand in the roadmap.
-F16_PENDING = "ROADMAP.md, section 2, item 3"
-# The dtypes every kernel takes: bf16 (K1-K8) and float32 (K1f-K8f).
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-# The dtypes of the kernels that also take float16 (K1h, K3h, K4h, K5h).
-KERNEL_DTYPES_F16 = (torch.bfloat16, torch.float16, torch.float32)
+# The dtypes every kernel takes: bf16 (K1-K8), float16 (K1h-K8h) and
+# float32 (K1f-K8f), the model dtypes of config.py's dtype_of.
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
-def kernel_dtype(what: str, name: str, x: torch.Tensor,
-                 dtypes: Tuple[torch.dtype, ...] = KERNEL_DTYPES
-                 ) -> torch.dtype:
+def kernel_dtype(what: str, name: str, x: torch.Tensor) -> torch.dtype:
     """The dtype of ``x`` (named ``name``), which picks the kernel that
-    ``what`` launches: one of ``dtypes``, bf16 (K1-K8), float32 (K1f-K8f)
-    and, for the kernels that take it (:data:`KERNEL_DTYPES_F16`), float16
-    (K1h, K3h, K4h, K5h). Another dtype raises ``TypeError`` naming
-    :data:`F16_PENDING`."""
-    if x.dtype not in dtypes:
-        names = " or ".join(str(d) for d in dtypes)
-        raise TypeError(f"{what}: {name} must be {names}, got {x.dtype}: "
-                        f"kernels for another dtype are {F16_PENDING}")
+    ``what`` launches: bf16 (K1-K8), float16 (K1h-K8h) or float32
+    (K1f-K8f). Another dtype raises ``TypeError`` naming the three."""
+    if x.dtype not in KERNEL_DTYPES:
+        names = ", ".join(str(d) for d in KERNEL_DTYPES)
+        raise TypeError(f"{what}: {name} must be one of {names}, got "
+                        f"{x.dtype}")
     return x.dtype
 
 
