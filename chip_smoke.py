@@ -152,10 +152,10 @@ Run from the repository root. Phases (any failure exits non-zero):
    val question, the per-type and OOV accuracies, the types' weighted mix
    equal to the overall accuracy) and ``cli.predict`` on three val
    questions by image id (K1/K2) against ``Predictor``;
-21. the paper's OOV-answer claim (the CPU test's protocol) at the
-   smallest widths every kernel takes in bf16: stage 1 ``vlmap``, the
-   transfer, stage 2 from the transferred and from a fresh answer table
-   (frozen; K1/K3/K2/K8), launch counts, JAX's thresholds;
+21. the paper's OOV-answer claim (the CPU test's protocol) at OOV_WIDTHS,
+   where it was measured on the card: stage 1 ``vlmap``, the transfer,
+   stage 2 from the transferred and from a fresh answer table (frozen;
+   K1/K3/K2/K8), launch counts, JAX's thresholds;
 22. the raw-image model ``vqa_end2end`` at full width (ResNet-101 at 448
    pixels, bf16, config.py's head), its weights from a seeded
    torchvision-format checkpoint the phase writes: the backbone alone at
@@ -307,7 +307,24 @@ Run from the repository root. Phases (any failure exits non-zero):
    ``vlmap_description`` (bidirectional) in float16 for F16_STEPS steps
    (K6h, K7h; first step, launch counts, step times) and its transfer
    through ``cli.train`` into float16 stage 2 (K1h, K3h, K4h, K5h; the
-   word table bit for bit).
+   word table bit for bit);
+30. widths: every 16-bit kernel (K1-K8 in bf16 and float16, K4/K5 on int8
+   codes) at H of 8, 24, 40, 100 and 600 units and C of 16, 48, 100 and
+   300 channels, which the wrappers zero-pad to their multiples, against
+   its plain version (K6/K7 bit-equal to two K1/K3 calls); the GRU's step
+   form (``csrc/gru_wide_step.cuh``: one launch a step forward, two a step
+   backward, U_h read through L2) where the persistent kernels' shared
+   memory ends: K1/K3 at 1024 and 2400 units (B=256, T=26) against their
+   plain versions, timed beside ``nn.GRU``'s packed forward and backward
+   at the same width, K6/K7 at 1024 beside two K1/K3 calls; the padding's
+   cost for K2, K4, K5 and K8 at (C, H) = (2048, 500) and (2000, 512)
+   against (2048, 512); stage-2 gather-free ``vqa_attention`` at
+   ``model.rnn_dim`` 1024 and 2400 in bf16 (8 steps each, the first
+   against the plain path, the resident evaluator on the 1024-question
+   val split), float16 at 2400, stage 1 at 1024 in bf16 (8 steps, first
+   step) and at 2400 in bf16 and float16; ``tools/oov_claim.py``'s TINY
+   config in bf16 through ``cli.train`` (stage 1, the transfer into stage
+   2), ``cli.eval`` and the ``Predictor`` (logits against the plain path).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -438,7 +455,9 @@ KERNELS = ["gru_fwd", "attention_fwd", "gru_bwd", "attention_resident_fwd",
            "attention_bwd_f32", "bigru_fwd_f32", "bigru_bwd_f32",
            "gru_fwd_f16", "gru_bwd_f16", "attention_resident_fwd_f16",
            "attention_resident_bwd_f16", "attention_fwd_f16",
-           "attention_bwd_f16", "bigru_fwd_f16", "bigru_bwd_f16"]
+           "attention_bwd_f16", "bigru_fwd_f16", "bigru_bwd_f16",
+           "gru_fwd_wide", "gru_bwd_wide", "gru_fwd_wide_f16",
+           "gru_bwd_wide_f16"]
 # K4 and K5 on int8 rows: the glimpse counts checked against the plain
 # versions (the limits are the bf16 rows', as the codes widen exactly to
 # bf16), and the bound on v_att's relative quantization error against the
@@ -464,12 +483,13 @@ REAL_TOP_K, REAL_HOLDOUT = 2000, 0.1
 REAL_STAGE1_STEPS, REAL_STAGE2_STEPS, REAL_EVAL_EVERY = 10, 20, 10
 REAL_PREDICT = 3
 # The OOV phase: tools/oov_claim.py's protocol (the JAX tests' tiny config,
-# 200 steps at batch 64 a stage) at the smallest widths every kernel
-# wrapper takes in bf16: GRU 64 (K3: H % 64), attention hidden 128 and
-# channels 128 (K2: H % 128, C % 32; K8: both % 128). The corpus is drawn
-# at the tiny config's 32 channels and zero-padded: drawn at 128, its 21
-# in-vocabulary concepts span a sixth of the space, and no map learned
-# from them reaches the held-out answers (PERF.md §6).
+# 200 steps at batch 64 a stage) at OOV_WIDTHS: GRU 64, attention hidden
+# 128, 128 channels, where the claim was measured on the card (PERF.md
+# §6). Every kernel wrapper now takes the tiny config's own widths too
+# (phase 30 runs them), zero-padding them to these multiples. The corpus
+# is drawn at the tiny config's 32 channels and zero-padded: drawn at 128,
+# its 21 in-vocabulary concepts span a sixth of the space, and no map
+# learned from them reaches the held-out answers (PERF.md §6).
 OOV_WIDTHS = {"data.feature_dim": 128, "data.pool5_dim": 128,
               "model.rnn_dim": 64, "model.att_hidden": 128,
               "model.dtype": "bfloat16"}
@@ -674,6 +694,32 @@ TOL_F16_K8_REL = TOL_K8_REL / 8
 TOL_F16_LOGITS = TOL_LOGITS / 8
 F16_PREDICT_BATCHES = (B_PREDICT, B)
 F16_STREAM_QUESTIONS, F16_STREAM_STEPS, F16_TRANSFER_STEPS = 512, 4, 4
+# Phase 30, widths. Every 16-bit kernel (K1-K8, their float16 builds, K4/K5
+#     on int8 codes) at widths off its multiples, WIDTH_H units and WIDTH_C
+#     channels, which its wrapper zero-pads (a padded unit or channel adds
+#     exact zeros), held to its plain version at the limits of its own
+#     phase (float16's scaled by its step, 1/8). The GRU's step form
+#     (csrc/gru_wide_step.cuh) runs where the persistent kernels' shared
+#     memory ends (BPTT above 576 units, the forward above 1568): stage 2
+#     gather-free at each of WIDE_RNN (a 1024-unit question GRU; the
+#     2400 units of Skip-Thought's uni-skip encoder, which MUTAN encodes
+#     questions with) in bf16 for WIDE_STEPS steps, its first step against
+#     the plain path at phase 9's bounds and the resident evaluator; stage 1
+#     at WIDE_RNN[0] in bf16 the same; float16 stage 2 and bf16 and float16
+#     stage 1 at WIDE_RNN[-1] for WIDE_F16_STEPS steps (the step forms'
+#     remaining builds on a training path); oov_claim's TINY (GRU 16,
+#     attention 16, 32 channels) in bf16 for TINY_STEPS steps a stage
+#     through cli.train, cli.eval and the Predictor. The step forms and the
+#     padding are timed: K1's and K3's step forms at B = 256, T = 26 at
+#     each of WIDE_RNN, K6's and K7's at WIDE_RNN[0], and K2, K4, K5, K8
+#     at each (C, H) of PAD_SHAPES in turns. The phase's wall is held to
+#     WIDTHS_BUDGET_S seconds in its report.
+WIDTH_H = (8, 24, 40, 100, 600)
+WIDTH_C = (16, 48, 100, 300)
+WIDE_RNN = (1024, 2400)
+WIDE_STEPS, WIDE_F16_STEPS, TINY_STEPS = 8, 4, 20
+PAD_SHAPES = ((2048, 512), (2048, 500), (2000, 512))
+WIDTHS_BUDGET_S = 120
 # sort_batch_by_image permutes each batch: every reduction over it is the
 #     same sum in another order, so the runs differ by rounding that Adam
 #     amplifies where a gradient entry is near zero. The logged losses are
@@ -784,7 +830,11 @@ def launch_counters():
              "attention_fwd_f16": attention.attention_fwd_f16,
              "attention_bwd_f16": attention.attention_bwd_f16,
              "bigru_fwd_f16": gru.bigru_fwd_f16,
-             "bigru_bwd_f16": gru.bigru_bwd_f16}
+             "bigru_bwd_f16": gru.bigru_bwd_f16,
+             **{name: getattr(gru, name) for name in (
+                 "gru_fwd_wide", "gru_bwd_wide", "bigru_fwd_wide",
+                 "bigru_bwd_wide", "gru_fwd_wide_f16", "gru_bwd_wide_f16",
+                 "bigru_fwd_wide_f16", "bigru_bwd_wide_f16")}}
     out = {name: (fn, "launches") for name, fn in plain.items()}
     for name in ("attention_resident_fwd", "attention_resident_bwd",
                  "attention_resident_fwd_f16", "attention_resident_bwd_f16"):
@@ -6966,6 +7016,694 @@ def phase_float16_gathered(report: dict, dev, gen) -> dict:
     return out
 
 
+def gru_width_bounds(lens, Hh: int) -> tuple:
+    """K1's and K3's bounds (k1_bound's and k3_bound's counts) at width
+    ``Hh`` and this run's lengths: the step form does the same work, so
+    its bound is the same."""
+    nl, nb, nc = int(lens.sum().item()), lens.shape[0], carried_steps(lens)
+    k1 = bound(nl * 3 * Hh * 4 + nb * 4 + Hh * 3 * Hh * 2 + Hh * 4
+               + T * nb * Hh * 4 + nb * Hh * 4, 2 * nc * Hh * 3 * Hh)
+    k3 = bound(nl * 4 * Hh * 4 + nb * 4 + Hh * 3 * Hh * 2 + Hh * 4
+               + nb * Hh * 4 + T * nb * 3 * Hh * 4 + Hh * 3 * Hh * 4
+               + Hh * 4, 3 * 2 * nc * Hh * 3 * Hh)
+    return k1, k3
+
+
+def widths_gru_inputs(dev, Tt: int, Bt: int, Hh: int, dtype, seed: int):
+    """GRU inputs at (Tt, Bt, Hh): gx, lengths 1..Tt (the first row Tt),
+    U_h in ``dtype`` at Glorot-like scale, b_hn, a final-state cotangent."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gx = torch.randn(Tt, Bt, 3 * Hh, generator=g, device=dev) * 0.5
+    lens = torch.randint(1, Tt + 1, (Bt,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0] = Tt
+    uh = (torch.randn(Hh, 3 * Hh, generator=g, device=dev)
+          * Hh ** -0.5).to(dtype)
+    bhn = torch.randn(Hh, generator=g, device=dev) * 0.1
+    ghT = torch.randn(Bt, Hh, generator=g, device=dev)
+    return gx, lens, uh, bhn, ghT
+
+
+def width_name(base: str, dtype, form: str = "persistent") -> str:
+    """The wrapper that counts a launch: ``base`` ("gru_fwd", "bigru_bwd",
+    ...), its step form's "_wide", its float16 build's "_f16"."""
+    import torch
+
+    return (base + ("_wide" if form == "step" else "")
+            + ("_f16" if dtype == torch.float16 else ""))
+
+
+class WidthErrors:
+    """Each wrapper's largest error against its plain version over the
+    sweep (``err``: the largest, ``ratio``: of error to limit), and every
+    check."""
+
+    def __init__(self) -> None:
+        self.err, self.ratio, self.checks = {}, {}, []
+
+    def note(self, name: str, err: float, limit: float, **where) -> None:
+        self.checks.append({"kernel": name, "err": err, "limit": limit,
+                            **where})
+        check(err <= limit, f"widths: {name} at {where}: error {err} over "
+              f"{limit}")
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        self.ratio[name] = max(self.ratio.get(name, 0.0), err / limit)
+
+
+def widths_gru_checks(dev, errs: WidthErrors) -> None:
+    """K1/K3/K6/K7 and their float16 builds at WIDTH_H units (T=7, B=20)
+    and at WIDE_RNN (the training shape) against their plain versions,
+    on the form each route takes (the step form past the persistent
+    kernels' shared memory); K6/K7 bit-equal to two K1/K3 calls."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+
+    for dtype in (torch.bfloat16, torch.float16):
+        step = 1.0 if dtype == torch.bfloat16 else 0.125
+        for Hh in WIDTH_H + WIDE_RNN:
+            Tt, Bt = (7, 20) if Hh in WIDTH_H else (T, B_TRAIN)
+            f = widths_gru_inputs(dev, Tt, Bt, Hh, dtype, Hh)
+            b = widths_gru_inputs(dev, Tt, Bt, Hh, dtype, Hh + 1)
+            lens = f[1]
+            Hf = kernels.round_up(Hh, kernels.GRU_FWD_PAD)
+            Hb = kernels.round_up(Hh, kernels.GRU_BWD_PAD)
+            fwd = width_name("gru_fwd", dtype, gru._fwd_route(
+                width_name("gru_fwd", dtype), Bt, Hf, dev))
+            bwd = width_name("gru_bwd", dtype, gru._bwd_route(
+                width_name("gru_bwd", dtype), Bt, Hb, dev, 1))
+            outs, e1, e3 = [], 0.0, 0.0
+            for d, (gx, _, uh, bhn, ghT) in enumerate((f, b)):
+                rev = bool(d)
+                hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=rev)
+                _, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=rev)
+                e1 = max(e1, (hseq - rseq).abs().max().item())
+                got = gru.gru_bwd(gx, rseq, lens, uh, bhn, ghT, reverse=rev)
+                want = gru.gru_bwd_reference(gx, rseq, lens, uh, bhn, ghT,
+                                             reverse=rev)
+                e3 = max([e3] + [rel_err(a, w) for a, w in zip(got, want)])
+                outs.append((hT, hseq, rseq, got))
+            errs.note(fwd, e1, TOL_GRU * step, H=Hh)
+            errs.note(bwd, e3, TOL_K3_REL * step, H=Hh)
+            k6 = gru.bigru_fwd(f[0], b[0], lens, f[2], b[2], f[3], b[3])
+            k7 = gru.bigru_bwd(f[0], b[0], outs[0][2], outs[1][2], lens,
+                               f[2], b[2], f[3], b[3], f[4], b[4])
+            torch.cuda.synchronize()
+            two = (outs[0][0], outs[1][0], outs[0][1], outs[1][1])
+            check(all(torch.equal(x, y) for x, y in zip(k6, two)),
+                  f"widths: K6 at H={Hh} ({dtype}) differs from two K1 calls")
+            check(all(torch.equal(x, outs[i % 2][3][i // 2])
+                      for i, x in enumerate(k7)),
+                  f"widths: K7 at H={Hh} ({dtype}) differs from two K3 calls")
+            # K6/K7 equal two K1/K3 calls, so their errors against their
+            # plain versions are those; each takes its own route.
+            f6 = width_name("bigru_fwd", dtype, gru._fwd_route(
+                width_name("bigru_fwd", dtype), Bt, Hf, dev))
+            f7 = width_name("bigru_bwd", dtype, gru._bwd_route(
+                width_name("bigru_bwd", dtype), Bt, Hb, dev, 2))
+            errs.note(f6, e1, TOL_GRU * step, H=Hh,
+                      equal_to_two_one_direction_calls=True)
+            errs.note(f7, e3, TOL_K3_REL * step, H=Hh,
+                      equal_to_two_one_direction_calls=True)
+
+
+def widths_attention_checks(dev, errs: WidthErrors) -> None:
+    """K2/K8 and K4/K5 (their float16 builds, and K4/K5 on int8 codes) at
+    every (C, H) of WIDTH_C x WIDTH_H against their plain versions: the
+    gathered pair at B=3, N=13 with the per-cell norm (the model's mode),
+    the resident pair on a 5-image store of 13 valid cells at G = 1 and 2
+    without it (the prenormalized main path)."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar)
+
+    g = torch.Generator(device=dev).manual_seed(30)
+    for dtype in (torch.bfloat16, torch.float16):
+        step = 1.0 if dtype == torch.bfloat16 else 0.125
+        for Cc in WIDTH_C:
+            for Hh in WIDTH_H:
+                where = {"C": Cc, "H": Hh}
+                v = (torch.randn(3, 13, Cc, generator=g, device=dev).relu()
+                     * torch.exp2(torch.rand(3, 13, 1, generator=g,
+                                             device=dev) * 4 - 2)).to(dtype)
+                qh = torch.randn(3, Hh, generator=g, device=dev) * 0.5
+                wv = (torch.randn(Cc, Hh, generator=g, device=dev)
+                      * (6.0 / (Cc + Hh)) ** 0.5).to(dtype)
+                ws = (torch.randn(Hh, generator=g, device=dev) * 0.1).to(
+                    dtype).float()
+                va, al, r = attention.attention_fwd(v, qh, wv, ws,
+                                                    normalize=True)
+                rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
+                                                               True)
+                name = width_name("attention_fwd", dtype)
+                errs.note(name, rel_err(va, rv), TOL_VATT_REL, **where)
+                errs.note(name, (al - ra).abs().max().item(), TOL_ALPHA,
+                          **where)
+                errs.note(name, rel_err(r, rr), TOL_R_REL, **where)
+                ds = (torch.randn(3, 13, generator=g, device=dev)
+                      * ra).contiguous()
+                got = attention.attention_bwd(v, qh, wv, ws, ds, rr, True)
+                want = attention.attention_bwd_reference(v, qh, wv, ws, ds,
+                                                         rr, True)
+                a_dqh, a_dwv, _ = k8_allowance(v, qh, wv, ws, ds, rr, True)
+                worst = 0.0
+                for a, w, allow in zip(got, want, (a_dqh, a_dwv, 0.0)):
+                    over = (a - w).abs() - allow
+                    worst = max(worst, over.max().item()
+                                / max(w.abs().max().item(), 1e-30))
+                errs.note(width_name("attention_bwd", dtype), max(worst, 0.0),
+                          TOL_K8_REL * step, **where)
+                store = (torch.randn(5, 16, Cc, generator=g, device=dev)
+                         .relu())
+                store[:, 13:] = 0
+                rows = torch.randint(0, 5, (8,), generator=g, device=dev,
+                                     dtype=torch.int32)
+                qr = torch.randn(8, Hh, generator=g, device=dev) * 0.5
+                for rows_type in ("float", "int8"):
+                    st = (int8_codes(store)[0] if rows_type == "int8"
+                          else store.to(dtype))
+                    sfx = "[int8]" if rows_type == "int8" else ""
+                    for G in (1, 2):
+                        wsg = torch.randn(Hh, G, generator=g, device=dev) * 0.1
+                        wsg = wsg if G > 1 else wsg[:, 0].contiguous()
+                        kw = dict(n_valid=13, normalize=False)
+                        va, al, h = ar.attention_resident_fwd(
+                            st, rows, qr, wv, wsg, save_h=True, **kw)
+                        rv, ra, rh = ar.attention_resident_fwd_reference(
+                            st, rows, qr, wv, wsg, save_h=True, **kw)
+                        name = width_name("attention_resident_fwd",
+                                          dtype) + sfx
+                        for k in range(G):
+                            sl = slice(k * Cc, (k + 1) * Cc)
+                            errs.note(name, rel_err(va[:, sl], rv[:, sl]),
+                                      TOL_VATT_REL, G=G, **where)
+                        errs.note(name, (al - ra).abs().max().item(),
+                                  TOL_ALPHA, G=G, **where)
+                        errs.note(name, rel_err(h.float(), rh.float()),
+                                  TOL_K4_H_REL * step, G=G, **where)
+                        gv = torch.randn(8, G * Cc, generator=g, device=dev)
+                        sga = torch.randn(ra.shape, generator=g, device=dev)
+                        got = ar.attention_resident_bwd(
+                            st, rows, rh, wsg, ra, gv, sga, **kw)
+                        want = ar.attention_resident_bwd_reference(
+                            st, rows, rh, wsg, ra, gv, sga, **kw)
+                        name = width_name("attention_resident_bwd",
+                                          dtype) + sfx
+                        for i, (a, w) in enumerate(zip(got, want)):
+                            errs.note(name, rel_err(a, w),
+                                      TOL_K5_REL * step * (G if i < 2
+                                                           else 1),
+                                      G=G, output=("dqh", "dwv", "dws")[i],
+                                      **where)
+    torch.cuda.synchronize()
+
+
+def widths_gru_times(dev) -> dict:
+    """K1's and K3's step forms at the training batch (B=256, T=26) at
+    each of WIDE_RNN (their float16 builds too), called directly (at 1024
+    the forward's route is the persistent kernel, also timed), each beside
+    its plain version, torch.nn.GRU's packed forward or backward in the
+    same dtype at the same width (its input projection from D=300
+    included) and the bound; K6's and K7's step forms at 1024 beside two
+    K1/K3 step-form calls. Launches of one call each."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for Hh in WIDE_RNN:
+            gx, lens, uh, bhn, ghT = widths_gru_inputs(dev, T, B_TRAIN, Hh,
+                                                       dtype, 7)
+            _, hseq = gru.gru_reference(gx, lens, uh, bhn)
+            (b1, b3) = gru_width_bounds(lens, Hh)
+            fw, bw = width_name("gru_fwd", dtype, "step"), width_name(
+                "gru_bwd", dtype, "step")
+            fwd = getattr(gru, fw)
+            bwd = getattr(gru, bw)
+            reset_counts()
+            fwd(gx, lens, uh, bhn)
+            bwd(gx, hseq, lens, uh, bhn, ghT)
+            torch.cuda.synchronize()
+            calls = read_counts()
+            lib = torch.nn.GRU(D, Hh).to(dev, dtype)
+            lib.flatten_parameters()
+            x = torch.randn(T, B_TRAIN, D, device=dev, dtype=dtype,
+                            requires_grad=True)
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x, lens.cpu(), enforce_sorted=False)
+            with torch.inference_mode():
+                lib_f = time_cuda(lambda: lib(packed), buf)
+            _, h_n = lib(packed)
+            g_n = torch.randn_like(h_n)
+            wrt = [x, *lib.parameters()]
+            lib_b = time_cuda(lambda: torch.autograd.grad(
+                h_n, wrt, g_n, retain_graph=True), buf)
+            key = f"H{Hh}"
+            out[fw + "@" + key] = {
+                "kernel": time_cuda(lambda: fwd(gx, lens, uh, bhn), buf),
+                "plain": time_cuda(
+                    lambda: gru.gru_reference(gx, lens, uh, bhn), buf),
+                "library": lib_f, "bound": b1, "launches_a_call": calls[fw],
+                "library_call": f"torch.nn.GRU({D}, {Hh}) in {dtype} over a "
+                                "packed sequence, input projection included"}
+            if Hh <= 1568:  # the forward's route there: the persistent one
+                out[fw + "@" + key]["persistent_ms"] = time_cuda(
+                    lambda: gru.gru_fwd(gx, lens, uh, bhn), buf)
+            out[bw + "@" + key] = {
+                "kernel": time_cuda(
+                    lambda: bwd(gx, hseq, lens, uh, bhn, ghT), buf),
+                "plain": time_cuda(lambda: gru.gru_bwd_reference(
+                    gx, hseq, lens, uh, bhn, ghT), buf),
+                "library": lib_b, "bound": b3, "launches_a_call": calls[bw],
+                "library_call": f"backward of torch.nn.GRU({D}, {Hh}) in "
+                                f"{dtype} over a packed sequence, "
+                                "input-projection gradients included"}
+            del lib, x, packed, h_n
+        # K6's and K7's step forms at 1024: both chains in each launch.
+        Hh = WIDE_RNN[0]
+        f = widths_gru_inputs(dev, T, B_TRAIN, Hh, dtype, 8)
+        b = widths_gru_inputs(dev, T, B_TRAIN, Hh, dtype, 9)
+        lens = f[1]
+        _, _, hsf, hsb = gru.bigru_reference(f[0], b[0], lens, f[2], b[2],
+                                             f[3], b[3])
+        b1, b3 = gru_width_bounds(lens, Hh)
+        f6, f7 = (width_name("bigru_fwd", dtype, "step"),
+                  width_name("bigru_bwd", dtype, "step"))
+        k6, k7 = getattr(gru, f6), getattr(gru, f7)
+        one_f = getattr(gru, width_name("gru_fwd", dtype, "step"))
+        one_b = getattr(gru, width_name("gru_bwd", dtype, "step"))
+        reset_counts()
+        k6(f[0], b[0], lens, f[2], b[2], f[3], b[3])
+        k7(f[0], b[0], hsf, hsb, lens, f[2], b[2], f[3], b[3], f[4], b[4])
+        torch.cuda.synchronize()
+        calls = read_counts()
+        lib = torch.nn.GRU(D, Hh, bidirectional=True).to(dev, dtype)
+        lib.flatten_parameters()
+        x = torch.randn(T, B_TRAIN, D, device=dev, dtype=dtype,
+                        requires_grad=True)
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x, lens.cpu(), enforce_sorted=False)
+        with torch.inference_mode():
+            lib_f = time_cuda(lambda: lib(packed), buf)
+        _, h_n = lib(packed)
+        g_n = torch.randn_like(h_n)
+        wrt = [x, *lib.parameters()]
+        lib_b = time_cuda(lambda: torch.autograd.grad(
+            h_n, wrt, g_n, retain_graph=True), buf)
+
+        def two_fwd():
+            one_f(f[0], lens, f[2], f[3])
+            one_f(b[0], lens, b[2], b[3], reverse=True)
+
+        def two_bwd():
+            one_b(f[0], hsf, lens, f[2], f[3], f[4])
+            one_b(b[0], hsb, lens, b[2], b[3], b[4], reverse=True)
+
+        key = f"H{Hh}"
+        out[f6 + "@" + key] = {
+            "kernel": time_cuda(lambda: k6(f[0], b[0], lens, f[2], b[2],
+                                           f[3], b[3]), buf),
+            "two_k1_ms": time_cuda(two_fwd, buf),
+            "plain": time_cuda(lambda: gru.bigru_reference(
+                f[0], b[0], lens, f[2], b[2], f[3], b[3]), buf),
+            "library": lib_f, "bound": (2 * b1[0], b1[1]),
+            "launches_a_call": calls[f6],
+            "library_call": f"torch.nn.GRU({D}, {Hh}, bidirectional=True) "
+                            f"in {dtype} over a packed sequence"}
+        out[f7 + "@" + key] = {
+            "kernel": time_cuda(lambda: k7(f[0], b[0], hsf, hsb, lens, f[2],
+                                           b[2], f[3], b[3], f[4], b[4]),
+                                buf),
+            "two_k3_ms": time_cuda(two_bwd, buf),
+            "plain": time_cuda(lambda: gru.bigru_bwd_reference(
+                f[0], b[0], hsf, hsb, lens, f[2], b[2], f[3], b[3], f[4],
+                b[4]), buf),
+            "library": lib_b, "bound": (2 * b3[0], b3[1]),
+            "launches_a_call": calls[f7],
+            "library_call": f"backward of torch.nn.GRU({D}, {Hh}, "
+                            f"bidirectional=True) in {dtype} over a packed "
+                            "sequence"}
+        del lib, x, packed, h_n
+    # At 512 units both forms run: each step form against the persistent
+    # kernel the route takes there, in turns (persistent, step, step,
+    # persistent).
+    gx, lens, uh, bhn, ghT = widths_gru_inputs(dev, T, B_TRAIN, H,
+                                               torch.bfloat16, 6)
+    _, hseq = gru.gru_reference(gx, lens, uh, bhn)
+    pairs = {"forward": (lambda: gru.gru_fwd(gx, lens, uh, bhn),
+                         lambda: gru.gru_fwd_wide(gx, lens, uh, bhn)),
+             "backward": (lambda: gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT),
+                          lambda: gru.gru_bwd_wide(gx, hseq, lens, uh, bhn,
+                                                   ghT))}
+    both = {}
+    for what, (persistent, step) in pairs.items():
+        turns = [time_cuda(f, buf) for f in (persistent, step, step,
+                                             persistent)]
+        both[what] = {"persistent_ms": (turns[0] + turns[3]) / 2,
+                      "step_ms": (turns[1] + turns[2]) / 2,
+                      "turns_ms": turns}
+        print(f"at H={H}, B={B_TRAIN}, {what}: persistent "
+              f"{both[what]['persistent_ms']:.4f} ms, step form "
+              f"{both[what]['step_ms']:.4f} ms (turns {turns})")
+    for k, t in out.items():
+        print(f"{k}: {t['kernel']:.3f} ms (plain {t['plain']:.3f}, library "
+              f"{t['library']:.3f}, bound {t['bound'][0]:.4f} by "
+              f"{t['bound'][1]}; {t['launches_a_call']} launches a call)")
+    out[f"both_forms@H{H}"] = both
+    return out
+
+
+def widths_pad_times(dev) -> dict:
+    """What padding costs: K2, K8 (B=256, N=196) and K4, K5 (a 512-image
+    store of 196 valid cells, B=256, G=1) at each (C, H) of PAD_SHAPES,
+    timed in turns (the multiple, the others, then again in reverse);
+    (2048, 500) pads H to 512 (W_v, qh, ws and, for K5, the saved h), and
+    (2000, 512) pads C: a copy of v a call for K2/K8, of the batch's store
+    rows for K4/K5 on a store not padded at upload."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar)
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(31)
+    calls = {}
+    for Cc, Hh in PAD_SHAPES:
+        v = (torch.randn(B_TRAIN, N, Cc, generator=g, device=dev).relu()
+             ).to(torch.bfloat16)
+        qh = torch.randn(B_TRAIN, Hh, generator=g, device=dev) * 0.5
+        wv = (torch.randn(Cc, Hh, generator=g, device=dev)
+              * (6.0 / (Cc + Hh)) ** 0.5).to(torch.bfloat16)
+        ws = (torch.randn(Hh, generator=g, device=dev) * 0.1).bfloat16(
+            ).float()
+        _, al, r = attention.attention_fwd(v, qh, wv, ws, normalize=True)
+        ds = (torch.randn(B_TRAIN, N, generator=g, device=dev)
+              * al).contiguous()
+        store = torch.zeros(512, 200, Cc, device=dev, dtype=torch.bfloat16)
+        store[:, :N] = torch.randn(512, N, Cc, generator=g, device=dev
+                                   ).relu().bfloat16()
+        rows = torch.randint(0, 512, (B_TRAIN,), generator=g, device=dev,
+                             dtype=torch.int32)
+        kw = dict(n_valid=N, normalize=False)
+        _, ra, rh = ar.attention_resident_fwd(store, rows, qh, wv, ws,
+                                              save_h=True, **kw)
+        gv = torch.randn(B_TRAIN, Cc, generator=g, device=dev)
+        sga = torch.randn(ra.shape, generator=g, device=dev)
+        calls[(Cc, Hh)] = {
+            "attention_fwd": lambda v=v, qh=qh, wv=wv, ws=ws:
+                attention.attention_fwd(v, qh, wv, ws, normalize=True),
+            "attention_bwd": lambda v=v, qh=qh, wv=wv, ws=ws, ds=ds, r=r:
+                attention.attention_bwd(v, qh, wv, ws, ds, r, True),
+            "attention_resident_fwd": lambda s=store, rw=rows, qh=qh, wv=wv,
+                ws=ws: ar.attention_resident_fwd(s, rw, qh, wv, ws,
+                                                  save_h=True, **kw),
+            "attention_resident_bwd": lambda s=store, rw=rows, h=rh, ws=ws,
+                a=ra, gv=gv, sga=sga: ar.attention_resident_bwd(
+                    s, rw, h, ws, a, gv, sga, **kw)}
+    order = list(PAD_SHAPES) + list(reversed(PAD_SHAPES))
+    out = {}
+    for name in ("attention_fwd", "attention_bwd", "attention_resident_fwd",
+                 "attention_resident_bwd"):
+        runs = {shape: [] for shape in PAD_SHAPES}
+        for shape in order:
+            runs[shape].append(time_cuda(calls[shape][name], buf))
+        base = statistics.mean(runs[PAD_SHAPES[0]])
+        out[name] = {f"{c}x{h}": {"ms": statistics.mean(runs[(c, h)]),
+                                  "turns_ms": runs[(c, h)],
+                                  "over_multiple_ms":
+                                  statistics.mean(runs[(c, h)]) - base}
+                     for c, h in PAD_SHAPES}
+        print(f"padding's cost, {name}: " + ", ".join(
+            f"{k} {t['ms']:.3f} ms ({t['over_multiple_ms']:+.3f})"
+            for k, t in out[name].items()))
+    return out
+
+
+def widths_stage2(dev, rnn: int, dtype: str, steps: int,
+                  first_step: bool) -> dict:
+    """fit_resident at full width but ``model.rnn_dim`` ``rnn`` in
+    ``dtype`` on the main corpus for ``steps`` steps, gather-free: with
+    ``first_step`` its first step against the plain path (phase 9's
+    bounds) and, after training, the resident evaluator on the
+    VAL_QUESTIONS split; launch counts on each GRU form's route, finite
+    losses, step times."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    what = f"stage 2 at rnn_dim {rnn} in {dtype}"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_widths_") as tmp:
+        cfg = stage2_config(tmp, steps, **{"model.rnn_dim": rnn,
+                                           "model.dtype": dtype})
+        dt = getattr(torch, dtype)
+        ds = load_dataset(cfg, "train")
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=tmp)
+        state = trainer.init_state()
+        if first_step:
+            data, make_batch, _ = trainer._prepare_resident(ds)
+            idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+            batch = make_batch(torch.from_numpy(idx0).to(dev))
+            out["first_step"] = check_first_step(spec, state, batch, dev,
+                                                 what)
+            del data, make_batch, batch
+        Tq = cfg.data.max_question_len
+        fwd_form = gru._fwd_route(width_name("gru_fwd", dt), B_TRAIN,
+                                  kernels.round_up(rnn, kernels.GRU_FWD_PAD),
+                                  dev)
+        bwd_form = gru._bwd_route(width_name("gru_bwd", dt), B_TRAIN,
+                                  kernels.round_up(rnn, kernels.GRU_BWD_PAD),
+                                  dev, 1)
+        fwd_n = (1 if fwd_form == "persistent" else kernels.gru_step_plan(
+            Tq, B_TRAIN, kernels.round_up(rnn, kernels.GRU_FWD_PAD),
+            False)["launches"])
+        bwd_n = (3 if bwd_form == "persistent" else kernels.gru_step_plan(
+            Tq, B_TRAIN, kernels.round_up(rnn, kernels.GRU_BWD_PAD),
+            True)["launches"])
+        fwd = width_name("gru_fwd", dt, fwd_form)
+        # --- this path: counts from 0 ------------------------------------
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        out["launches"] = read_counts()
+        check_launches(out["launches"], {
+            fwd: fwd_n * steps,
+            width_name("gru_bwd", dt, bwd_form): bwd_n * steps,
+            width_name("attention_resident_fwd", dt): 2 * steps,
+            width_name("attention_resident_bwd", dt): 3 * steps},
+            f"{what} over {steps} steps")
+        out.update(forms={"forward": fwd_form, "backward": bwd_form},
+                   **read_steps(tmp, steps, what, "questions", warmup=2))
+        if first_step:
+            val = load_dataset(cfg.replace_flat(
+                {"data.synthetic_size": VAL_QUESTIONS}), "val")
+            reset_counts()
+            metrics, preds = trainer.evaluate_resident(state, val)
+            torch.cuda.synchronize()
+            n = -(-VAL_QUESTIONS // B_TRAIN)
+            out["eval_launches"] = read_counts()
+            check_launches(out["eval_launches"], {
+                fwd: fwd_n * n,
+                width_name("attention_resident_fwd", dt): 2 * n},
+                f"{what}: the resident evaluator")
+            check(np.isfinite(metrics["loss"])
+                  and len(preds) == VAL_QUESTIONS,
+                  f"{what} evaluation: {metrics}, {len(preds)} predictions")
+            print(f"{what} resident evaluation: {metrics}")
+            out["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
+        trainer.close()
+    return out
+
+
+def widths_stage1(dev, rnn: int, dtype: str, steps: int,
+                  first_step: bool) -> dict:
+    """Stage-1 vlmap_description with the bidirectional encoder at
+    ``model.rnn_dim`` ``rnn`` in ``dtype`` through fit_resident for
+    ``steps`` steps: with ``first_step`` its first step against the plain
+    path; launch counts of K6 and K7 on their routes, finite losses, step
+    times."""
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    what = f"stage 1 at rnn_dim {rnn} in {dtype}"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_widths_s1_") as tmp:
+        cfg = stage1_config(tmp, steps).replace_flat(
+            {"model.rnn_dim": rnn, "model.dtype": dtype})
+        dt = getattr(torch, dtype)
+        ds = load_dataset(cfg, "train", stage="vlmap_desc")
+        Td = ds.arrays["desc_ids"].shape[1]
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=tmp)
+        state = trainer.init_state()
+        if first_step:
+            data, make_batch, _ = trainer._prepare_resident(ds)
+            idx0 = next(ds.index_batches(B_TRAIN, seed=cfg.train.seed))
+            batch = make_batch(torch.from_numpy(idx0).to(dev))
+            out["first_step"] = check_first_step(spec, state, batch, dev,
+                                                 what)
+            del data, make_batch, batch
+        Hf = kernels.round_up(rnn, kernels.GRU_FWD_PAD)
+        fwd_form = gru._fwd_route(width_name("bigru_fwd", dt), B_TRAIN, Hf,
+                                  dev)
+        Hb = kernels.round_up(rnn, kernels.GRU_BWD_PAD)
+        bwd_form = gru._bwd_route(width_name("bigru_bwd", dt), B_TRAIN, Hb,
+                                  dev, 2)
+        fwd_n = (gru.bigru_fwd_launch_config(B_TRAIN, Hf, dev, dt)[
+            "launches"] if fwd_form == "persistent" else
+            kernels.gru_step_plan(Td, B_TRAIN, Hf, False, 2)["launches"])
+        bwd_n = (3 if bwd_form == "persistent" else
+                 kernels.gru_step_plan(Td, B_TRAIN, Hb, True, 2)["launches"])
+        reset_counts()
+        state = trainer.fit_resident(ds, state)
+        torch.cuda.synchronize()
+        out["launches"] = read_counts()
+        check_launches(out["launches"], {
+            width_name("bigru_fwd", dt, fwd_form): fwd_n * steps,
+            width_name("bigru_bwd", dt, bwd_form): bwd_n * steps},
+            f"{what} over {steps} steps (phrases of {Td} words)")
+        out.update(forms={"forward": fwd_form, "backward": bwd_form},
+                   **read_steps(tmp, steps, what, "regions", warmup=2))
+        trainer.close()
+    return out
+
+
+def widths_tiny(dev) -> dict:
+    """tools/oov_claim.py's TINY config (the JAX tests' tiny widths: GRU
+    16, attention 16, 32 channels) in bf16 through the entry points:
+    cli.train stage 1 (vlmap), cli.train stage 2 transfer-initialized from
+    it with the word table frozen (streamed gathered batches: K1, K3, K2,
+    K8 at widths their kernels pad), cli.eval on the run and the
+    Predictor on its parameters (logits against the plain path)."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.serving import (PARAMS_FILE,
+                                                         Predictor)
+    from vqa_transfer_externaldata_torch.tools import oov_claim
+    from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
+
+    steps = TINY_STEPS
+    flags = {**oov_claim.TINY, "model.dtype": "bfloat16",
+             "train.max_steps": steps, "train.log_every": 1}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiny_") as root:
+        s1, s2 = os.path.join(root, "vlmap"), os.path.join(root, "vqa")
+        reset_counts()
+        train_cli.main(["--train.train_dir", s1] + cli_argv(
+            {**flags, "model.model": "vlmap"}))
+        torch.cuda.synchronize()
+        out["stage1_launches"] = read_counts()
+        check_launches(out["stage1_launches"], {},
+                       "TINY stage 1 (vlmap: no kernel)")
+        params1 = os.path.join(s1, PARAMS_FILE)
+        reset_counts()
+        train_cli.main(["--train.train_dir", s2] + cli_argv({
+            **flags, "model.model": "vqa_attention",
+            "train.pretrained_param_path": params1,
+            "train.freeze_params": "word_emb,answer_embedding"}))
+        torch.cuda.synchronize()
+        out["stage2_launches"] = read_counts()
+        check_launches(out["stage2_launches"], {
+            "gru_fwd": steps, "gru_bwd": 3 * steps,
+            "attention_fwd": 2 * steps, "attention_bwd": 4 * steps},
+            f"TINY stage 2 in bf16 over {steps} steps")
+        out["stage2"] = read_steps(s2, steps, "TINY stage 2 in bf16",
+                                   "questions", warmup=2,
+                                   batch=flags["train.batch_size"])
+        words = load_params(params1)["word_emb.embedding"]
+        got = load_params(os.path.join(s2, PARAMS_FILE))
+        check(torch.equal(got["word_emb.embedding"], words),
+              "TINY transfer: the word table did not arrive bit for bit")
+        reset_counts()
+        res = eval_cli.main(["--train.train_dir", s2])
+        torch.cuda.synchronize()
+        out["eval_launches"] = read_counts()
+        check(out["eval_launches"]["gru_fwd"] >= 1
+              and out["eval_launches"]["attention_fwd"]
+              == 2 * out["eval_launches"]["gru_fwd"]
+              and np.isfinite(res["loss"]),
+              f"TINY cli.eval: {res}, launches {out['eval_launches']}")
+        out["cli_eval"] = res
+        pred = Predictor(s2, batch_size=B_PREDICT)
+        rng = np.random.default_rng(30)
+        vocab = len(pred.word_vocab) - 4
+        Tq, Cq = flags["data.max_question_len"], flags["data.feature_dim"]
+        Nq = flags["data.grid_h"] * flags["data.grid_w"]
+        questions = [" ".join(f"w{w}" for w in rng.integers(0, vocab, n))
+                     for n in rng.integers(1, Tq + 1, B_PREDICT)]
+        feats = np.maximum(rng.standard_normal((B_PREDICT, Nq, Cq),
+                                               np.float32), 0)
+        reset_counts()
+        answers = pred.answer(feats, questions)
+        torch.cuda.synchronize()
+        out["predict_launches"] = read_counts()
+        check_launches(out["predict_launches"], {"gru_fwd": 1,
+                                                 "attention_fwd": 2},
+                       "TINY Predictor")
+        v = torch.from_numpy(feats).to(dev)
+        q = torch.from_numpy(pred._encode_questions(questions)).to(dev)
+        with torch.inference_mode():
+            lk = pred.model(v, q)["logits"]
+            with plain_kernels():
+                lr = pred.model(v, q)["logits"]
+        err = (lk - lr).abs().max().item()
+        check(len(answers) == B_PREDICT and err <= TOL_LOGITS,
+              f"TINY Predictor: logits against the plain path {err}")
+        out["predict_logits_max_abs_err"] = err
+        print(f"TINY in bf16: cli.eval {res}; Predictor logits against the "
+              f"plain path {err:.3e} (tol {TOL_LOGITS})")
+    return out
+
+
+def phase_widths(report: dict, dev) -> dict:
+    """Phase 30, widths: every 16-bit kernel at the width sweep against its
+    plain version (widths_gru_checks, widths_attention_checks); the GRU's
+    step forms and the padding timed (widths_gru_times,
+    widths_pad_times); stage 2 at each of WIDE_RNN and stage 1 at
+    WIDE_RNN[0] in bf16 (first steps against the plain path, the resident
+    evaluator), their float16 twins at WIDE_RNN[-1] for a few steps; and
+    oov_claim's TINY in bf16 through both stages, the transfer, cli.eval
+    and the Predictor. Within WIDTHS_BUDGET_S."""
+    t0 = time.perf_counter()
+    errs = WidthErrors()
+    widths_gru_checks(dev, errs)
+    widths_attention_checks(dev, errs)
+    out = {"errors": errs.err, "error_to_limit": errs.ratio,
+           "checks": len(errs.checks)}
+    print(f"widths: {len(errs.checks)} checks; each wrapper's largest "
+          f"error to its limit: {errs.ratio}")
+    out["gru_times"] = widths_gru_times(dev)
+    out["pad_times"] = widths_pad_times(dev)
+    wide = WIDE_RNN[-1]
+    for rnn in WIDE_RNN:
+        out[f"stage2_rnn{rnn}"] = widths_stage2(dev, rnn, "bfloat16",
+                                                WIDE_STEPS, True)
+    out[f"stage2_rnn{wide}_f16"] = widths_stage2(dev, wide, "float16",
+                                                 WIDE_F16_STEPS, False)
+    out[f"stage1_rnn{WIDE_RNN[0]}"] = widths_stage1(
+        dev, WIDE_RNN[0], "bfloat16", WIDE_STEPS, True)
+    for dtype, tag in (("bfloat16", ""), ("float16", "_f16")):
+        out[f"stage1_rnn{wide}{tag}"] = widths_stage1(
+            dev, wide, dtype, WIDE_F16_STEPS, False)
+    out["tiny"] = widths_tiny(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 30 took {out['phase_s']:.1f} s (budget {WIDTHS_BUDGET_S} "
+          "s)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -7068,6 +7806,7 @@ def main(argv=None) -> int:
                        "k6h_k7h": f16g["k67"]["checks"]},
             "phase_s": time.perf_counter() - t0}
         print(f"phase 29 took {report['float16_gathered']['phase_s']:.1f} s")
+        report["widths"] = widths = phase_widths(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -7258,6 +7997,16 @@ def main(argv=None) -> int:
                  float32_stage1=f32g["stage1"]["launches"],
                  **{f"float32_predict_b{b}": p["launches"]
                     for b, p in f32g["predictor"].items()})
+    # Phase 30: the wide models' runs, their evaluators, and TINY in bf16
+    # through the entry points.
+    paths.update({f"widths_{k}": v["launches"] for k, v in widths.items()
+                  if k.startswith(("stage1_", "stage2_"))})
+    paths.update({f"widths_{k}_eval": v["eval_launches"]
+                  for k, v in widths.items()
+                  if k.startswith("stage2_") and "eval_launches" in v})
+    paths.update({f"widths_tiny_{k[:-len('_launches')]}": v
+                  for k, v in widths["tiny"].items()
+                  if k.endswith("_launches")})
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",
@@ -7528,6 +8277,58 @@ def main(argv=None) -> int:
             "plain_ms": t["plain"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library"],
             "library_call": t["library_call"]})
+    # Phase 30: the GRU's step forms with the launches of the wide runs that
+    # take them, their largest error against their plain versions over the
+    # width sweep (K6/K7's: two K1/K3 calls', which they equal bit for bit),
+    # their times at WIDE_RNN[-1] (K6/K7's at WIDE_RNN[0]) and at every
+    # width timed under at_widths; every 16-bit kernel's largest error to
+    # its limit over the sweep under widths_error_to_limit, and the
+    # padding's cost under padding_ms.
+    wt, wide = widths["gru_times"], WIDE_RNN[-1]
+    for name, source, replaces, path in (
+            ("gru_fwd_wide", "gru_fwd_wide.cu", ref + "gru.py:227",
+             f"widths_stage2_rnn{wide}"),
+            ("gru_bwd_wide", "gru_bwd_wide.cu", ref + "gru.py:259",
+             f"widths_stage2_rnn{WIDE_RNN[0]}"),
+            ("bigru_fwd_wide", "gru_fwd_wide.cu", ref + "gru.py:474",
+             f"widths_stage1_rnn{wide}"),
+            ("bigru_bwd_wide", "gru_bwd_wide.cu", ref + "gru.py:561",
+             f"widths_stage1_rnn{WIDE_RNN[0]}"),
+            ("gru_fwd_wide_f16", "gru_fwd_wide_f16.cu", ref + "gru.py:227",
+             f"widths_stage2_rnn{wide}_f16"),
+            ("gru_bwd_wide_f16", "gru_bwd_wide_f16.cu", ref + "gru.py:259",
+             f"widths_stage2_rnn{wide}_f16"),
+            ("bigru_fwd_wide_f16", "gru_fwd_wide_f16.cu", ref + "gru.py:474",
+             f"widths_stage1_rnn{wide}_f16"),
+            ("bigru_bwd_wide_f16", "gru_bwd_wide_f16.cu", ref + "gru.py:561",
+             f"widths_stage1_rnn{wide}_f16")):
+        at = {k.split("@")[1]: {
+            "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": t["library"], "library_call": t["library_call"],
+            "launches_a_call": t["launches_a_call"],
+            **{x: t[x] for x in ("persistent_ms", "two_k1_ms", "two_k3_ms")
+               if x in t}}
+            for k, t in wt.items() if k.split("@")[0] == name}
+        if name == "gru_fwd_wide" or name == "gru_bwd_wide":
+            at[f"H{H}_against_persistent"] = wt[f"both_forms@H{H}"][
+                "forward" if "fwd" in name else "backward"]
+        t = at[f"H{wide}"] if f"H{wide}" in at else at[f"H{WIDE_RNN[0]}"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{src}{source}",
+            "replaces": replaces, "launches": paths[path][name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": widths["errors"][name],
+            "error_to_limit": widths["error_to_limit"][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": t["library_call"], "at_widths": at})
+    for k in kernels:
+        if k["name"] in widths["error_to_limit"]:
+            k["widths_error_to_limit"] = widths["error_to_limit"][k["name"]]
+        if k["name"] in widths["pad_times"]:
+            k["padding_ms"] = widths["pad_times"][k["name"]]
     report["kernels"] = kernels
     report["library_calls"] = {k: times[k]["library_call"]
                                for k in ("gru_fwd", "gru_bwd", "bigru_fwd",

@@ -119,3 +119,61 @@ def test_k3_and_k7_share_one_persistent_body():
     for gone in ("gru_bwd_step_kernel", "gru_duh_kernel", "wmma",
                  "BwdStep", "DuhGemm", "step_smem_bytes"):
         assert gone not in step, gone
+
+
+# Widths off 64 that K3/K7 now take, padded by the wrappers (ops/gru.py's
+# gru_pad): 8, 24 and 40 units run at 64, 100 at 128, 600 at 640 and
+# Skip-Thought's 2400 at 2432.
+def _padded(H: int) -> int:
+    return kernels.round_up(H, kernels.GRU_BWD_PAD)
+
+
+@pytest.mark.parametrize("H", [8, 24, 40, 100])
+@pytest.mark.parametrize("B", [1, 17, 256, 1024])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_gru_bwd_plan_at_the_padded_widths(H, B, directions):
+    """At the padded widths within the persistent kernel's shared memory
+    the route takes it, and every 64-row b-tile of each direction is
+    walked once a step."""
+    Hp = _padded(H)
+    assert kernels.gru_bwd_route(B, Hp, 132, 1, directions) == "persistent"
+    plan = kernels.gru_bwd_plan(B, Hp, 132, 1, directions)
+    assert (_coverage(plan, B, Hp) == 1).all()
+
+
+@pytest.mark.parametrize("H", [600, 640, 1024, 2400])
+@pytest.mark.parametrize("B", [1, 65, 256])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_gru_step_plan_backward_past_the_persistent_kernel(H, B, directions):
+    """Past H = 576 no persistent step block fits (0 blocks an SM): the
+    route takes the step form, whose every step's grid takes each
+    (direction, row, unit) once, 2T + 2 launches a call, where the
+    persistent plan raises."""
+    Hp = _padded(H)
+    assert kernels.gru_bwd_route(B, Hp, 132, 0, directions) == "step"
+    with pytest.raises(ValueError, match="gru_bwd_plan"):
+        kernels.gru_bwd_plan(B, Hp, 132, 0, directions)
+    plan = kernels.gru_step_plan(26, B, Hp, True, directions)
+    assert plan["launches"] == 2 * 26 + 2
+    nj, gy, gz = plan["grid"]
+    assert (nj * kernels.GRU_STEP_UNITS, gz) == (Hp, directions)
+    assert gy * kernels.GRU_STEP_ROWS >= B > (gy - 1) * kernels.GRU_STEP_ROWS
+    with pytest.raises(ValueError, match="gru_step_plan"):
+        kernels.gru_step_plan(26, B, Hp - 16, True, directions)
+
+
+def test_the_step_form_reuses_k3s_dwh_and_dbhn_kernels():
+    """The step form's libraries build csrc/gru_wide_step.cuh on K3's
+    header: its BPTT ends in gru_bwd_step.cuh's dU_h GEMM and db_hn sum,
+    which it launches, and holds no persistent launch of its own."""
+    for name in ("gru_fwd_wide", "gru_bwd_wide"):
+        assert [p.name for p in kernels.sources(name)] == [
+            f"{name}.cu", "gru_wide_step.cuh", "gru_bwd_step.cuh",
+            "mma_sync.cuh", "elem16.cuh"]
+        f16 = [p.name for p in kernels.sources(f"{name}_f16")]
+        assert f16 == [f"{name}_f16.cu", f"{name}.cu", "gru_wide_step.cuh",
+                       "gru_bwd_step.cuh", "mma_sync.cuh", "elem16.cuh"]
+    step = (kernels.CSRC / "gru_wide_step.cuh").read_text()
+    assert "gru_duh_pipe_kernel<E><<<" in step and "gru_dbhn_kernel<<<" in step
+    assert "cudaLaunchCooperativeKernel" not in step
+    assert step.count("__global__") == 4  # forward, copy, dgx, carry

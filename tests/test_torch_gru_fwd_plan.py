@@ -217,3 +217,64 @@ def test_gru_fwd_is_one_persistent_launch_on_mma_sync():
     assert "template <class E>\n__global__" in header
     assert not any("gru_step_kernel" in p.read_text()
                    for p in kernels.CSRC.iterdir())
+
+
+# Widths off 16 that K1/K6 now take, padded by the wrappers (ops/gru.py's
+# gru_pad): 8, 24, 40, 100 and 600 units run at 16, 32, 48, 112 and 608.
+PADDED = [kernels.round_up(H, kernels.GRU_FWD_PAD) for H in (8, 24, 40, 100,
+                                                              600)]
+
+
+@pytest.mark.parametrize("H", PADDED)
+@pytest.mark.parametrize("B", [1, 17, 64, 256, 1024])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_gru_fwd_plan_at_the_padded_widths(H, B, directions):
+    """At the padded widths the persistent kernel plans (the route takes
+    it) and its blocks take every (direction, row, unit) of the padded
+    state once a step."""
+    assert kernels.gru_fwd_route(B, H, SMS, H100_512, directions) == (
+        "persistent")
+    plan = kernels.gru_fwd_plan(B, H, SMS, H100_512, directions)
+    assert plan["grid"][0] * kernels.GRU_FWD_UNITS == H
+    assert (_coverage(plan, B, H, directions) == 1).all()
+
+
+def _step_coverage(grid: list, B: int, H: int) -> np.ndarray:
+    """How often the step form's blocks write each (direction, row, unit)
+    in a step: block (jx, by, d) owns units 16 jx.. and rows 64 by.. of
+    direction d, dropping rows past B."""
+    nj, gy, gz = grid
+    seen = np.zeros((gz, B, H), np.int64)
+    for d in range(gz):
+        for jx in range(nj):
+            for by in range(gy):
+                seen[d, by * kernels.GRU_STEP_ROWS:(by + 1)
+                     * kernels.GRU_STEP_ROWS,
+                     jx * kernels.GRU_STEP_UNITS:(jx + 1)
+                     * kernels.GRU_STEP_UNITS] += 1
+    return seen
+
+
+@pytest.mark.parametrize("H", [16, 608, 1584, 2400])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 256])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_gru_step_plan_forward_covers_every_tile_once(H, B, directions):
+    """The step form's forward (csrc/gru_wide_step.cuh): every step's grid
+    takes every (direction, row, unit) once, T launches a call; past the
+    persistent kernel's shared memory (H = 1584, 2400) it is the route."""
+    plan = kernels.gru_step_plan(26, B, H, False, directions)
+    assert plan["launches"] == 26
+    assert plan["grid"][2] == directions
+    assert (_step_coverage(plan["grid"], B, H) == 1).all()
+    if H > 1568:  # not even a 16-row block's U_h slice fits
+        assert kernels.gru_fwd_route(B, H, SMS, {16: 0, 64: 0},
+                                     directions) == "step"
+
+
+@pytest.mark.parametrize("bad", [dict(H=24), dict(T=0), dict(B=0),
+                                 dict(directions=3)])
+def test_gru_step_plan_refuses_what_the_step_form_does_not_take(bad):
+    kw = {**dict(T=4, B=4, H=32, directions=1), **bad}
+    with pytest.raises(ValueError, match="gru_step_plan"):
+        kernels.gru_step_plan(kw["T"], kw["B"], kw["H"], False,
+                              kw["directions"])

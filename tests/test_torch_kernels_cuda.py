@@ -60,7 +60,12 @@ K6f (K7f), which run K1f's (K3f's) step with both chains in each launch,
 equal two K1f (K3f) calls bit for bit. The float16 kernels K1h-K8h are
 the bf16 bodies on float16, held to the bf16 limits scaled by float16's
 step (the sections below), K6h (K7h) bit-equal to two K1h (K3h) calls.
-Every kernel takes bf16, float16 and float32 and refuses float64.
+Every kernel takes bf16, float16 and float32 and refuses float64. Every
+16-bit wrapper takes every width its Pallas body takes (zero-padded to
+its kernel's multiples), and the GRU's step form runs past the
+persistent kernels' shared memory: the widths section at the end holds
+them to the limits above, K6/K7 bit-equal to two K1/K3 calls in either
+form.
 """
 
 import pytest
@@ -166,8 +171,10 @@ def test_gru_fwd_launch_shape_and_limit(dev):
     kernels.gru_fwd_plan takes and from its own occupancy query, and it
     equals the plan's on the same blocks per SM: at the training shape 32
     j-tiles x 4 rows of 64-row blocks, one an SM; at the serving batch
-    more than 32 blocks. A width at which not even a 16-row block's
-    shared memory fits raises instead of falling back."""
+    more than 32 blocks. At a width at which not even a 16-row block's
+    shared memory fits the persistent launch's shape raises, and gru_fwd
+    runs the step form (kernels.gru_fwd_route) against its plain
+    version."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, H in [(256, 512), (64, 512), (1, 512), (128, 512), (1024, 512),
                  (64, 64), (1, 880), (256, 1568)]:
@@ -182,9 +189,14 @@ def test_gru_fwd_launch_shape_and_limit(dev):
     assert train["grid"] == [32, 4, 1] and train["rows"] == 64
     serve = gru.gru_fwd_launch_config(64, 512, dev)
     assert serve["grid"][0] * serve["grid"][1] > 32
-    gx, lens, uh, bhn = _gru_inputs(dev, 2, 4, 1584)
     with pytest.raises(ValueError, match="gru_fwd_plan"):
-        gru.gru_fwd(gx, lens, uh, bhn)
+        gru.gru_fwd_launch_config(4, 1584, dev)
+    gx, lens, uh, bhn = _gru_inputs(dev, 2, 4, 1584)
+    before = gru.gru_fwd_wide.launches
+    hT, _ = gru.gru_fwd(gx, lens, uh, bhn)
+    assert gru.gru_fwd_wide.launches == before + 2  # one a step
+    rT, _ = gru.gru_reference(gx, lens, uh, bhn)
+    assert (hT - rT).abs().max().item() <= 2e-3
 
 
 def test_gru_fwd_captures_in_a_cuda_graph(dev):
@@ -294,9 +306,14 @@ def test_attention_fwd_score_launch_shape(dev):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """Dtypes, stores and cell counts the kernels do not take raise; the
+    widths the Pallas bodies take run (H = 24 for K1, 32 for K3, 96 for
+    K2, C = 64 for K5: zero-padded by the wrappers) and match their plain
+    versions."""
     gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 24)
-    with pytest.raises(ValueError, match="H % 16"):
-        gru.gru_fwd(gx, lens, uh, bhn)
+    hT, hseq = gru.gru_fwd(gx, lens, uh, bhn)
+    rT, rseq = gru.gru_reference(gx, lens, uh, bhn)
+    assert (hseq - rseq).abs().max().item() <= 2e-3
     gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 32)
     with pytest.raises(TypeError, match="uh"):
         gru.gru_fwd(gx, lens, uh.double(), bhn)
@@ -305,13 +322,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     wv = torch.zeros(64, 128, device=dev, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="v must be"):
         attention.attention_fwd(v, qh, wv, ws, normalize=True)
-    with pytest.raises(ValueError, match="H % 128"):
-        attention.attention_fwd(v.to(torch.bfloat16), qh[:, :96], wv[:, :96],
-                                ws[:96], normalize=True)
-    gx, lens, uh, bhn = _gru_inputs(dev, 3, 4, 32)
+    vb = torch.rand(2, 9, 64, device=dev).to(torch.bfloat16)
+    narrow = (qh[:, :96].contiguous(), wv[:, :96].contiguous(), ws[:96])
+    got = attention.attention_fwd(vb, *narrow, normalize=True)
+    want = attention.attention_fwd_reference(vb, *narrow, True)
+    assert (got[1] - want[1]).abs().max().item() <= 1e-5
     _, hseq = gru.gru_reference(gx, lens, uh, bhn)
-    with pytest.raises(ValueError, match="H % 64"):
-        gru.gru_bwd(gx, hseq, lens, uh, bhn, torch.zeros(4, 32, device=dev))
+    ghT = torch.ones(4, 32, device=dev)
+    got = gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT)
+    want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL_K3
     store, rows, qh, wv, ws = _resident_inputs(dev, 3, 9, 64, 128, 2)
     with pytest.raises(TypeError, match="store must be"):
         ar.attention_resident_fwd(store.half(), rows, qh, wv, ws, n_valid=9,
@@ -319,12 +340,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="n_valid"):
         ar.attention_resident_fwd(store, rows, qh, wv, ws, n_valid=17,
                                   normalize=False)
-    h = torch.zeros(2, 16, 128, device=dev, dtype=torch.bfloat16)
-    al, sga = torch.zeros(2, 16, device=dev), torch.zeros(2, 16, device=dev)
-    with pytest.raises(ValueError, match="C % 128"):
-        ar.attention_resident_bwd(store, rows, h, ws, al,
-                                  torch.zeros(2, 64, device=dev), sga,
-                                  n_valid=9, normalize=False)
+    _, al, h = ar.attention_resident_fwd_reference(
+        store, rows, qh, wv, ws, n_valid=9, normalize=False, save_h=True)
+    g, sga = torch.ones(2, 64, device=dev), torch.zeros_like(al)
+    got = ar.attention_resident_bwd(store, rows, h, ws, al, g, sga,
+                                    n_valid=9, normalize=False)
+    want = ar.attention_resident_bwd_reference(store, rows, h, ws, al, g,
+                                               sga, n_valid=9,
+                                               normalize=False)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL_K5
 
 
 def test_model_forward_goes_through_both_kernels(dev, monkeypatch):
@@ -433,17 +458,25 @@ def test_gru_bwd_is_deterministic(dev, B):
 
 def test_gru_bwd_launch_shape_and_limit(dev):
     """At the training shape the step kernel runs 32 j-tiles x 4 b-tile
-    rows of blocks, one a SM; a width whose U_h slices do not fit in shared
-    memory raises instead of falling back."""
+    rows of blocks, one a SM; at a width whose U_h slices do not fit in
+    shared memory the persistent launch's shape raises, naming the limit,
+    and gru_bwd runs the step form (kernels.gru_bwd_route: 2T + 2
+    launches) against its plain version."""
     cfg = gru.gru_bwd_launch_config(256, 512, dev)
     assert cfg["grid"] == [32, 4, 1]
     assert cfg["blocks_per_sm"] >= 1
     assert cfg["smem_bytes"] <= 232448
     assert cfg["max_width"] == 576
     assert gru.gru_bwd_launch_config(1024, 512, dev)["grid"][0] == 32
-    gx, hseq, lens, uh, bhn, ghT = _k3_k7_inputs(dev, 2, 4, 640, False)
     with pytest.raises(RuntimeError, match="gru_bwd.*H <= 576"):
-        gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT)
+        gru.gru_bwd_launch_config(4, 640, dev)
+    gx, hseq, lens, uh, bhn, ghT = _k3_k7_inputs(dev, 2, 4, 640, False)
+    before = gru.gru_bwd_wide.launches
+    got = gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT)
+    assert gru.gru_bwd_wide.launches == before + 6
+    want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL_K3
 
 
 def _resident_inputs(dev, M, n_valid, C, H, B, seed=5):
@@ -863,20 +896,27 @@ def test_bigru_wrappers_reject_what_the_kernels_do_not_take(dev):
         gru.bigru_fwd(gxf, gxb[:2], lens, uhf, uhb, bhnf, bhnb)
     _, _, hsf, hsb = gru.bigru_reference(gxf, gxb, lens, uhf, uhb, bhnf,
                                          bhnb)
-    ghT = torch.zeros(4, 32, device=dev)
-    with pytest.raises(ValueError, match="H % 64"):
-        gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghT,
-                      ghT)
-    # Past H = 576 U_h's slices do not fit in a block's shared memory: it
-    # raises, as K3 does, naming the limit.
+    ghT = torch.ones(4, 32, device=dev)
+    # H = 32 (padded to 64) and, past H = 576, where U_h's slices do not
+    # fit in a block's shared memory, the step form: both run and equal
+    # two one-direction calls.
+    got = gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghT,
+                        ghT)
+    one = gru.gru_bwd(gxf, hsf, lens, uhf, bhnf, ghT)
+    assert all(torch.equal(a, b) for a, b in zip(got[::2], one))
     gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 2, 4, 640)
-    hs = torch.zeros(2, 4, 640, device=dev)
-    ghT = torch.zeros(4, 640, device=dev)
-    before = gru.bigru_bwd.launches
-    with pytest.raises(RuntimeError, match="bigru_bwd.*H <= 576"):
-        gru.bigru_bwd(gxf, gxb, hs, hs, lens, uhf, uhb, bhnf, bhnb, ghT,
-                      ghT)
-    assert gru.bigru_bwd.launches == before
+    _, _, hsf, hsb = gru.bigru_reference(gxf, gxb, lens, uhf, uhb, bhnf,
+                                         bhnb)
+    ghT = torch.ones(4, 640, device=dev)
+    before = (gru.bigru_bwd.launches, gru.bigru_bwd_wide.launches)
+    got = gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghT,
+                        ghT)
+    assert (gru.bigru_bwd.launches,
+            gru.bigru_bwd_wide.launches) == (before[0], before[1] + 6)
+    want = gru.bigru_bwd_reference(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf,
+                                   bhnb, ghT, ghT)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= TOL_K3
 
 
 def _two_k1(gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
@@ -975,8 +1015,9 @@ def test_bigru_fwd_launch_shape(dev):
     directions on the same blocks per SM: at the stage-1 shape 32 j-tiles
     x 2 rows x 2 directions of 64-row blocks, one an SM, each walking 2 of
     the 4 b-tiles a step; one launch wherever both directions' j-tiles are
-    resident at once, two past that; a width at which not even a 16-row
-    block fits raises."""
+    resident at once, two past that; at a width at which not even a 16-row
+    block fits the persistent launch's shape raises and bigru_fwd runs the
+    step form."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for B, H in [(256, 512), (64, 512), (1, 512), (17, 512), (1024, 512),
                  (64, 64), (1, 880), (256, 1056), (256, 1072),
@@ -997,11 +1038,18 @@ def test_bigru_fwd_launch_shape(dev):
     assert train["launches"] == 1
     assert gru.bigru_fwd_launch_config(256, 1056, dev)["launches"] == 1
     assert gru.bigru_fwd_launch_config(256, 1072, dev)["launches"] == 2
-    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 2, 4, 1584)
-    before = gru.bigru_fwd.launches
     with pytest.raises(ValueError, match="gru_fwd_plan"):
-        gru.bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
-    assert gru.bigru_fwd.launches == before
+        gru.bigru_fwd_launch_config(4, 1584, dev)
+    # There bigru_fwd takes the step form: no persistent launch, one step
+    # form launch a step, against its plain version.
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, 2, 4, 1584)
+    before = (gru.bigru_fwd.launches, gru.bigru_fwd_wide.launches)
+    got = gru.bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    assert (gru.bigru_fwd.launches,
+            gru.bigru_fwd_wide.launches) == (before[0], before[1] + 2)
+    want = gru.bigru_reference(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 2e-3
 
 
 def _k7_args(dev, T, B, H, seed):
@@ -2494,3 +2542,273 @@ def test_f16_stage1_encoder_and_gathered_model_go_through_k6h_k7h_k2h_k8h(
                              "attention_bwd_f16": 4}
     for k, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), k
+
+
+# ---------------------------------------------------------------------------
+# Widths: every 16-bit wrapper (K1-K8 in bf16 and float16, K4/K5 on int8
+# codes) at widths off its kernels' multiples, which the wrappers zero-pad
+# (H to 16 for K1/K6, 64 for K3/K7, 128 for the attention kernels; C to 32
+# for K2/K4, 128 for K5/K8), against its plain version at the limits above
+# (float16's scaled by its step, 1/8); and the GRU's step form
+# (csrc/gru_wide_step.cuh) where the persistent kernels cannot run, K6/K7
+# in it bit-equal to two K1/K3 calls.
+# ---------------------------------------------------------------------------
+
+WIDTH_H = (8, 24, 40, 100, 600)
+WIDTH_C = (16, 48, 100, 300)
+DTYPES16 = (torch.bfloat16, torch.float16)
+
+
+def _step(dtype):
+    """float16's limits are bf16's with its step: 1/8."""
+    return 1.0 if dtype == torch.bfloat16 else 0.125
+
+
+def _gru_width_case(dev, T, B, H, dtype):
+    """K1, K3, K6 and K7 (their float16 builds on float16) at (T, B, H):
+    each against its plain version, K6/K7 bit-equal to two K1/K3 calls,
+    and each wrapper's launches counted on the form its route takes."""
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, T, B, H)
+    uhf, uhb = uhf.to(dtype), uhb.to(dtype)
+    f16 = dtype == torch.float16
+    step = _step(dtype)
+    fwd_name = kernels.name16("gru_fwd", dtype)
+    Hf = kernels.round_up(H, kernels.GRU_FWD_PAD)
+    Hb = kernels.round_up(H, kernels.GRU_BWD_PAD)
+    fwd_form = gru._fwd_route(fwd_name, B, Hf, dev)
+    bwd_form = gru._bwd_route(kernels.name16("gru_bwd", dtype), B, Hb, dev, 1)
+    counter = {("fwd", "persistent"): gru.gru_fwd_f16 if f16 else gru.gru_fwd,
+               ("fwd", "step"): gru.gru_fwd_wide_f16 if f16
+               else gru.gru_fwd_wide,
+               ("bwd", "persistent"): gru.gru_bwd_f16 if f16 else gru.gru_bwd,
+               ("bwd", "step"): gru.gru_bwd_wide_f16 if f16
+               else gru.gru_bwd_wide}
+    g = torch.Generator(device=dev).manual_seed(9)
+    ghTf = torch.randn(B, H, generator=g, device=dev)
+    ghTb = torch.randn(B, H, generator=g, device=dev)
+    outs = {}
+    for d, (gx, uh, bhn, ghT) in enumerate(((gxf, uhf, bhnf, ghTf),
+                                            (gxb, uhb, bhnb, ghTb))):
+        rev = bool(d)
+        c = counter[("fwd", fwd_form)]
+        before = c.launches
+        hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=rev)
+        torch.cuda.synchronize()
+        assert c.launches == before + (1 if fwd_form == "persistent" else T)
+        rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=rev)
+        assert hseq.shape == rseq.shape and torch.isfinite(hseq).all()
+        assert (hseq - rseq).abs().max().item() <= 2e-3 * step
+        assert (hT - rT).abs().max().item() <= 2e-3 * step
+        c = counter[("bwd", bwd_form)]
+        before = c.launches
+        got = gru.gru_bwd(gx, rseq, lens, uh, bhn, ghT, reverse=rev)
+        torch.cuda.synchronize()
+        assert c.launches == before + (3 if bwd_form == "persistent"
+                                       else 2 * T + 2)
+        want = gru.gru_bwd_reference(gx, rseq, lens, uh, bhn, ghT,
+                                     reverse=rev)
+        for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
+            assert a.shape == b.shape and torch.isfinite(a).all(), name
+            assert _rel_err(a, b) <= TOL_K3 * step, (name, _rel_err(a, b))
+        outs[d] = (hT, hseq, rseq, got)
+    k6 = gru.bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    k7 = gru.bigru_bwd(gxf, gxb, outs[0][2], outs[1][2], lens, uhf, uhb,
+                       bhnf, bhnb, ghTf, ghTb)
+    torch.cuda.synchronize()
+    for a, b in zip(k6, (outs[0][0], outs[1][0], outs[0][1], outs[1][1])):
+        assert torch.equal(a, b)
+    for i, a in enumerate(k7):
+        assert torch.equal(a, outs[i % 2][3][i // 2]), i
+    return fwd_form, bwd_form
+
+
+@pytest.mark.parametrize("H", WIDTH_H)
+@pytest.mark.parametrize("dtype", DTYPES16)
+def test_gru_kernels_take_every_width(dev, H, dtype):
+    """K1/K3/K6/K7 (bf16) and K1h/K3h/K6h/K7h (float16) at widths off 16
+    and 64: 600 pads to 608 forward (the persistent kernel) and to 640
+    backward (past its shared memory: the step form)."""
+    forms = _gru_width_case(dev, 7, 20, H, dtype)
+    assert forms == ("persistent", "step" if H > 576 else "persistent")
+
+
+@pytest.mark.parametrize("H", [1024, 2400])
+@pytest.mark.parametrize("dtype", DTYPES16)
+def test_gru_step_form_at_the_wide_models(dev, H, dtype):
+    """At B = 256, T = 26: a 1024-unit question GRU (K1 persistent, K3 in
+    the step form) and Skip-Thought's 2400 units (both in the step form,
+    U_h 34.6 MB through L2)."""
+    forms = _gru_width_case(dev, 26, 256, H, dtype)
+    assert forms == ("persistent" if H <= 1568 else "step", "step")
+
+
+@pytest.mark.parametrize("H", [64, 512, 1024])
+@pytest.mark.parametrize("dtype", DTYPES16)
+def test_gru_step_form_where_both_forms_run(dev, H, dtype):
+    """The step form called directly (gru_fwd_wide, gru_bwd_wide and their
+    two-direction and float16 twins) at widths the persistent kernels also
+    take: against the plain version, T and 2T + 2 launches, two calls
+    bit-equal, K6/K7's step form bit-equal to two K1/K3 step-form calls."""
+    T, B = 26, 64
+    gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, T, B, H)
+    uhf, uhb = uhf.to(dtype), uhb.to(dtype)
+    f16 = dtype == torch.float16
+    fw = gru.gru_fwd_wide_f16 if f16 else gru.gru_fwd_wide
+    bw = gru.gru_bwd_wide_f16 if f16 else gru.gru_bwd_wide
+    before = (fw.launches, bw.launches)
+    hT, hseq = gru.gru_fwd_wide(gxf, lens, uhf, bhnf)
+    again = gru.gru_fwd_wide(gxf, lens, uhf, bhnf)
+    _, rseq = gru.gru_reference(gxf, lens, uhf, bhnf)
+    ghT = torch.randn(B, H, generator=torch.Generator(device=dev)
+                      .manual_seed(2), device=dev)
+    got = gru.gru_bwd_wide(gxf, rseq, lens, uhf, bhnf, ghT)
+    got2 = gru.gru_bwd_wide(gxf, rseq, lens, uhf, bhnf, ghT)
+    want = gru.gru_bwd_reference(gxf, rseq, lens, uhf, bhnf, ghT)
+    torch.cuda.synchronize()
+    assert (fw.launches, bw.launches) == (before[0] + 2 * T,
+                                          before[1] + 2 * (2 * T + 2))
+    assert (hseq - rseq).abs().max().item() <= 2e-3 * _step(dtype)
+    assert torch.equal(hseq, again[1]) and torch.equal(hT, again[0])
+    for name, a, b, c in zip(("dgx", "duh", "dbhn"), got, want, got2):
+        assert _rel_err(a, b) <= TOL_K3 * _step(dtype), name
+        assert torch.equal(a, c), name
+    hb = gru.gru_fwd_wide(gxb, lens, uhb, bhnb, reverse=True)
+    k6 = gru.bigru_fwd_wide(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    for a, b in zip(k6, (hT, hb[0], hseq, hb[1])):
+        assert torch.equal(a, b)
+    gb = gru.gru_bwd_wide(gxb, hb[1], lens, uhb, bhnb, ghT, reverse=True)
+    k7 = gru.bigru_bwd_wide(gxf, gxb, rseq, hb[1], lens, uhf, uhb, bhnf,
+                            bhnb, ghT, ghT)
+    for i, a in enumerate(k7):
+        assert torch.equal(a, (got, gb)[i % 2][i // 2]), i
+
+
+def _width_grid(dev, B, N, C, H, dtype):
+    v, qh, wv, ws = _k2_inputs(dev, B, N, C, H)
+    return v.to(dtype), qh, wv.to(dtype), ws
+
+
+@pytest.mark.parametrize("C", WIDTH_C)
+@pytest.mark.parametrize("H", WIDTH_H)
+@pytest.mark.parametrize("dtype", DTYPES16)
+def test_gathered_attention_kernels_take_every_width(dev, C, H, dtype):
+    """K2/K8 (K2h/K8h) at C and H off 32 and 128: against their plain
+    versions at phase 7's limits (K8 with its ReLU-flip room), normalize on
+    and off, 2 and 4 launches a call."""
+    B, N = 3, 13
+    v, qh, wv, ws = _width_grid(dev, B, N, C, H, dtype)
+    f16 = dtype == torch.float16
+    fwd = attention.attention_fwd_f16 if f16 else attention.attention_fwd
+    bwd = attention.attention_bwd_f16 if f16 else attention.attention_bwd
+    for normalize in (True, False):
+        before = (fwd.launches, bwd.launches)
+        va, al, r = attention.attention_fwd(v, qh, wv, ws,
+                                            normalize=normalize)
+        rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws,
+                                                       normalize)
+        ds = (torch.randn(B, N, generator=torch.Generator(device=dev)
+                          .manual_seed(3), device=dev) * ra).contiguous()
+        got = attention.attention_bwd(v, qh, wv, ws, ds, rr, normalize)
+        want = attention.attention_bwd_reference(v, qh, wv, ws, ds, rr,
+                                                 normalize)
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches) == (before[0] + 2,
+                                                before[1] + 4)
+        assert va.shape == (B, C) and torch.isfinite(va).all()
+        assert (va - rv).abs().max().item() <= (
+            2.0 ** -10 * rv.abs().max().item())
+        assert (al - ra).abs().max().item() <= 1e-5
+        assert _rel_err(r, rr) <= 1e-6
+        a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, rr, normalize)
+        tol = TOL_K5 * _step(dtype)
+        for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                     (a_dqh, a_dwv, 0.0)):
+            assert a.shape == b.shape and torch.isfinite(a).all(), name
+            limit = tol * b.abs().max().item() + allow
+            assert ((a - b).abs() <= limit).all(), (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("C", WIDTH_C)
+@pytest.mark.parametrize("H", WIDTH_H)
+@pytest.mark.parametrize("rows", ["bf16", "f16", "int8"])
+def test_resident_attention_kernels_take_every_width(dev, C, H, rows):
+    """K4/K5 on bf16 rows, K4h/K5h on float16 rows, and both on int8 codes
+    at C and H off 32 and 128, G = 1 and 2: a store off the multiple is
+    read through the batch's padded rows (resident_pad_store); against
+    their plain versions at phase 5's limits."""
+    dtype = torch.float16 if rows == "f16" else torch.bfloat16
+    M, n_valid, B = 5, 13, 6
+    store, idx, qh, _, _ = _resident_inputs(dev, M, n_valid, C, H, B)
+    g = torch.Generator(device=dev).manual_seed(4)
+    if rows == "int8":
+        store = _int8_codes(store)[0]
+    else:
+        store = store.to(dtype)
+    wv = ((torch.rand(C, H, generator=g, device=dev) * 2 - 1)
+          * (6.0 / (C + H)) ** 0.5).to(dtype)
+    step = _step(dtype)
+    for G in (1, 2):
+        ws = torch.randn(H, G, generator=g, device=dev) * 0.05
+        ws = ws if G > 1 else ws[:, 0].contiguous()
+        for normalize in ((False,) if rows == "int8" else (True, False)):
+            kw = dict(n_valid=n_valid, normalize=normalize)
+            va, al, h = ar.attention_resident_fwd(store, idx, qh, wv, ws,
+                                                  save_h=True, **kw)
+            rv, ra, rh = ar.attention_resident_fwd_reference(
+                store, idx, qh, wv, ws, save_h=True, **kw)
+            gv = torch.randn(B, G * C, generator=g, device=dev)
+            sga = torch.randn(ra.shape, generator=g, device=dev)
+            got = ar.attention_resident_bwd(store, idx, rh, ws, ra, gv, sga,
+                                            **kw)
+            want = ar.attention_resident_bwd_reference(store, idx, rh, ws,
+                                                       ra, gv, sga, **kw)
+            torch.cuda.synchronize()
+            assert va.shape == (B, G * C) and h.shape == rh.shape
+            for k in range(G):
+                a, b = va[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]
+                assert (a - b).abs().max().item() <= (
+                    2.0 ** -10 * b.abs().max().item())
+            assert (al - ra).abs().max().item() <= 1e-5
+            assert _rel_err(h.float(), rh.float()) <= TOL_K4_H * step
+            for name, a, b in zip(("dqh", "dwv", "dws"), got, want):
+                assert a.shape == b.shape and torch.isfinite(a).all(), name
+                limit = TOL_K5 * step * (G if name != "dws" else 1)
+                assert _rel_err(a, b) <= limit, (name, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("C", [100, 300])
+@pytest.mark.parametrize("int8", [False, True])
+def test_channel_padded_store_matches_the_unpadded_one(dev, C, int8):
+    """The op on a store padded to 128 channels at upload
+    (prenormalize_store's ``channels``, as the Trainer uploads it) against
+    the op on the same store unpadded (padded by the wrappers call by
+    call): v_att [B, C] and the gradients of qh, W_v [C, H] and ws agree
+    within K4's and K5's limits, and an int8 store keeps its scale."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    grid = rng.random((6, 13, C)).astype(np.float32)
+    H, B = 100, 8
+    q = "int8" if int8 else ""
+    flat, s0 = ar.prenormalize_store(grid, torch.bfloat16, q, device=dev)
+    wide, s1 = ar.prenormalize_store(grid, torch.bfloat16, q, device=dev,
+                                     channels=kernels.STORE_CHANNELS)
+    assert s0 == s1 and wide.shape[2] == kernels.round_up(C, 128)
+    assert torch.equal(wide[..., :C], flat)
+    assert not wide[..., C:].any()
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.randint(0, 6, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    qh = torch.randn(B, H, generator=g, device=dev).requires_grad_()
+    wv = (torch.randn(C, H, generator=g, device=dev) * 0.1).requires_grad_()
+    ws = (torch.randn(H, generator=g, device=dev) * 0.1).requires_grad_()
+    res = []
+    for store, scale in ((flat, s0), (wide, s1)):
+        va, al = ar.spatial_attention_resident(
+            store, rows, qh.bfloat16(), wv, ws, n_valid=13, normalize=False,
+            store_scale=scale)
+        grads = torch.autograd.grad(va.square().sum(), (qh, wv, ws))
+        res.append((va, al) + grads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("v_att", "alpha", "dqh", "dwv", "dws"), *res):
+        assert a.shape == b.shape, name
+        assert _rel_err(a, b) <= TOL_K4_H, (name, _rel_err(a, b))

@@ -69,8 +69,11 @@
 // for each direction, times as many rows as are resident beside each other,
 // at most one per b-tile), and bptt_run derives the grid from those rows.
 // U_h's slices and the ring take 215 KB a block at H = 512, one block an
-// SM; they fit up to H = 576 on an H100, and bptt_occupancy reports the
-// widest H that fits on the card.
+// SM; they fit up to H = 576 on an H100 (about 208 H + 104 KB: 317 KB at
+// H = 1024, past a block's 227 KB), and bptt_occupancy reports the widest
+// H that fits on the card. Wider, ops/kernels.py::gru_bwd_route sends the
+// wrappers to the step form of gru_wide_step.cuh (two launches a step),
+// which ends in this header's dU_h GEMM and db_hn sum.
 
 #pragma once
 

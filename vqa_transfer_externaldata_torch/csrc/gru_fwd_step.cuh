@@ -50,7 +50,12 @@
 // the fewer rows of h_prev it reads; else 64 rows, the rows of blocks
 // walking b-tiles (B = 256: 32 x 4 blocks for one direction, 32 x 2 x 2
 // for two, one an SM). A 64-row block fits up to H = 848 and a 16-row one
-// up to H = 1568; wider, the wrappers raise. ops/kernels.py::gru_fwd_plan
+// up to H = 1568; wider (or where not even one row of j-tiles can be
+// resident), ops/kernels.py::gru_fwd_route sends the wrappers to the step
+// form of gru_wide_step.cuh, which reads U_h through L2 one launch a step.
+// At 1568 a 16-row block's U_h slice alone is 175 KB; at Skip-Thought's
+// 2400 units it would be 269 KB, and its 150 j-tiles could not be resident
+// together on 132 SMs even if it fit. ops/kernels.py::gru_fwd_plan
 // picks the rows; seq_grid derives the grid from them and from the
 // occupancy query, as the plan does, so that the grid is resident at once,
 // and the cooperative launch refuses one that cannot be. Where both

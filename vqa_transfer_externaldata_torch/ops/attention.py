@@ -21,7 +21,10 @@ float16 instances ``csrc/attention_fwd_f16.cu`` (K2h,
 :func:`attention_bwd_f16`), the same bodies with float16 in place of bf16,
 float32 the float32 kernels ``csrc/attention_fwd_f32.cu`` (K2f,
 :func:`attention_fwd_f32`) and ``csrc/attention_bwd_f32.cu`` (K8f,
-:func:`attention_bwd_f32`), plain FFMA with f32 sums.
+:func:`attention_bwd_f32`), plain FFMA with f32 sums. The 16-bit wrappers
+take any C and H, as the Pallas bodies do: :func:`attention_pad` zero-pads
+C to 32 (K2) or 128 (K8) and H to 128, :func:`attention_unpad` slices the
+outputs back; at a C off the multiple that is one copy of v a call.
 :func:`spatial_attention_reference` and :func:`_reference_postscaled` are
 the JAX package's oracles, in PyTorch. :func:`spatial_attention_multi` is
 the G-glimpse variant on a gathered grid, plain PyTorch differentiated by
@@ -43,8 +46,6 @@ import torch
 
 from vqa_transfer_externaldata_torch.ops import kernels
 
-_SCORE_TILE_H = kernels.SCORE_UNITS  # H's multiple: a score tile's units
-_SCORE_TILE_C = kernels.SCORE_CHANNELS  # C's multiple: half a chunk
 
 
 def spatial_attention_reference(
@@ -302,14 +303,60 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
                                     bwd_kernel, feature_grad, use_kernels)
 
 
+def attention_pad(Cp: int, Hp: int, v: torch.Tensor, qh: torch.Tensor,
+                  wv: torch.Tensor, ws: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The gathered attention's inputs at C channels and H units
+    zero-padded to ``Cp`` >= C and ``Hp`` >= H, as the 16-bit kernels take
+    them (C a multiple of 32 for K2 and 128 for K8, H of 128), the way
+    JAX's B6 pads its hidden axis: v [B, N, C] gets zero channels, W_v
+    [C, H] zero rows and zero columns, qh [B, H] and ws [H] zero units.
+    Returns (v, qh, wv, ws), each the input itself where its width is
+    already padded.
+
+    A zero channel adds 0 to every square of the per-cell norm and every
+    product of v W_v, so r, the scores and alpha are unchanged, and its
+    v_att entry (and dW_v row) is sliced off. A zero unit has z = 0 + 0,
+    h = relu(0) = 0 and ws 0: it adds nothing to a score, and its dz is 0
+    (z > 0 fails), so dqh, dW_v and dws of the real units are unchanged
+    and its own are sliced off (:func:`attention_unpad`)."""
+    C, H = wv.shape
+    pad = torch.nn.functional.pad
+    if Cp != C:
+        v = pad(v, (0, Cp - C))
+    if (Cp, Hp) != (C, H):
+        wv = pad(wv, (0, Hp - H, 0, Cp - C))
+    if Hp != H:
+        qh, ws = pad(qh, (0, Hp - H)), pad(ws, (0, Hp - H))
+    return v, qh, wv, ws
+
+
+def attention_unpad(C: int, H: int, *outs: torch.Tensor
+                    ) -> Tuple[torch.Tensor, ...]:
+    """The padded kernels' outputs sliced back to C channels and H units:
+    every axis of size Cp (v_att's last, dW_v's first) to C and of size Hp
+    (dqh's and dW_v's last, dws) to H. The outputs are given in the order
+    (v_att,) for K2's or (dqh, dwv, dws) for K8's; alpha and r need no
+    slicing. Contiguous copies where a slice was taken."""
+    if len(outs) == 1:
+        v_att, = outs
+        return (v_att[:, :C].contiguous() if v_att.shape[1] != C else v_att,)
+    dqh, dwv, dws = outs
+    if dwv.shape == (C, H):
+        return dqh, dwv, dws
+    return (dqh[:, :H].contiguous(), dwv[:C, :H].contiguous(),
+            dws[:H].contiguous())
+
+
 def _check_grid(v: torch.Tensor, H: int, what: str, dtype: torch.dtype
                 ) -> Tuple[int, int, int]:
     if v.device.type != "cuda" or v.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA v")
     B, N, C = v.shape
-    if C % _SCORE_TILE_C or H % _SCORE_TILE_H or B < 1 or N < 1:
-        raise ValueError(f"{what} needs C % {_SCORE_TILE_C} == 0 and "
-                         f"H % {_SCORE_TILE_H} == 0, got C={C}, H={H}")
+    if B < 1 or N < 1 or C < 1 or H < 1:
+        raise ValueError(f"{what} needs B, N, C, H >= 1, got v of shape "
+                         f"{tuple(v.shape)} and H={H}")
     kernels.expect("v", v, dtype, (B, N, C), v.device)
     if v.data_ptr() % 16:
         raise ValueError(f"{what} reads v in 16-byte vectors: it must start "
@@ -350,11 +397,14 @@ def attention_fwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     """Launch kernel K2 (``csrc/attention_fwd.cu``) on CUDA tensors:
     v [B, N, C] bf16, qh [B, H] f32, wv [C, H] bf16, ws [H] f32
     -> (v_att [B, C] f32, alpha [B, N] f32, r [B, N] f32, the per-cell norm
-    the kernel used: ones unless ``normalize``). Needs C % 32 == 0 and
-    H % 128 == 0. The score launch reads W_v as its K-major copy ``wv.t()``
-    [H, C], made here, and runs as :func:`kernels.score_plan` plans it. One
-    call makes the kernel's two launches on the current stream and adds the
-    number launched (2) to ``attention_fwd.launches``. A float16 ``v``
+    the kernel used: ones unless ``normalize``). Any C and H >= 1: the
+    wrapper zero-pads C to a multiple of 32 and H to one of 128
+    (:func:`attention_pad`; a copy of v a call, only at a C off the
+    multiple) and slices v_att back. The score launch reads W_v as its
+    K-major copy ``wv.t()`` [H, C], made here, and runs as
+    :func:`kernels.score_plan` plans it. One call makes the kernel's two
+    launches on the current stream and adds the number launched (2) to
+    ``attention_fwd.launches``. A float16 ``v``
     goes to :func:`attention_fwd_f16` (K2h), a float32 one to
     :func:`attention_fwd_f32` (K2f); another dtype raises ``TypeError``
     (:func:`kernels.kernel_dtype`)."""
@@ -375,7 +425,7 @@ def attention_fwd_f16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     """Launch kernel K2h (``csrc/attention_fwd_f16.cu``: K2's body with
     float16 as its element type) on CUDA tensors: as :func:`attention_fwd`
     with v [B, N, C] and wv [C, H] float16, the squares and the weights
-    p * r rounded to float16. The same launches and limits as K2; two
+    p * r rounded to float16. The same padding and launches as K2; two
     launches a call, added to ``attention_fwd_f16.launches``."""
     return _attention_fwd16(v, qh, wv, ws, normalize, torch.float16)
 
@@ -398,6 +448,10 @@ def _attention_fwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, dtype, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
+    C0, H0 = C, H
+    C = kernels.round_up(C0, kernels.ATTENTION_FWD_CHANNELS)
+    H = kernels.round_up(H0, kernels.ATTENTION_UNITS)
+    v, qh, wv, ws = attention_pad(C, H, v, qh, wv, ws)
     n_part = kernels.score_plan(B, N, C, H)["n_part"]
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the mainloop reads it
     f32 = dict(dtype=torch.float32, device=dev)
@@ -417,7 +471,7 @@ def _attention_fwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     (attention_fwd_f16 if dtype == torch.float16
      else attention_fwd).launches += launched.value
     kernels.check(lib, rc, what)
-    return v_att, alpha, rnorm
+    return attention_unpad(C0, H0, v_att) + (alpha, rnorm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -453,8 +507,10 @@ def attention_bwd(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch kernel K8 (``csrc/attention_bwd.cu``) on CUDA tensors: v
     [B, N, C] bf16, qh [B, H] f32, wv [C, H] bf16, ws [H] f32, ds and r
-    [B, N] f32 -> (dqh [B, H], dwv [C, H], dws [H]), all f32. Needs
-    C % 128 == 0 and H % 128 == 0. One call makes the kernel's
+    [B, N] f32 -> (dqh [B, H], dwv [C, H], dws [H]), all f32. Any C and
+    H >= 1: the wrapper zero-pads both to multiples of 128
+    (:func:`attention_pad`; a copy of v a call, only at a C off the
+    multiple) and slices the outputs back. One call makes the kernel's
     ``kernels.ATTENTION_BWD_LAUNCHES`` (4) launches on the current stream,
     its dz stage as :func:`kernels.dz_plan` and its dW_v GEMM as
     :func:`kernels.dwv_plan` plan them, and adds the number launched to
@@ -480,7 +536,7 @@ def attention_bwd_f16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     """Launch kernel K8h (``csrc/attention_bwd_f16.cu``: K8's body with
     float16 as its element type) on CUDA tensors: as :func:`attention_bwd`
     with v [B, N, C] and wv [C, H] float16, dz * r rounded to float16 ahead
-    of the dW_v product. The same launches and limits as K8; 4 launches a
+    of the dW_v product. The same padding and launches as K8; 4 launches a
     call, added to ``attention_bwd_f16.launches``."""
     return _attention_bwd16(v, qh, wv, ws, ds, r, normalize, torch.float16)
 
@@ -498,10 +554,6 @@ def _attention_bwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     H = qh.shape[-1]
     B, N, C = _check_grid(v, H, what, dtype)
     dev = v.device
-    tile = kernels.DWV_TILE
-    if C % tile or H % tile:
-        raise ValueError(f"{what} needs C % {tile} == 0 and "
-                         f"H % {tile} == 0, got C={C}, H={H}")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, dtype, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
@@ -510,6 +562,10 @@ def _attention_bwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     if wv.data_ptr() % 16:
         raise ValueError(f"{what} reads wv in 16-byte vectors: it must "
                          "start 16-byte aligned")
+    C0, H0 = C, H
+    C = kernels.round_up(C0, kernels.ATTENTION_BWD_CHANNELS)
+    H = kernels.round_up(H0, kernels.ATTENTION_UNITS)
+    v, qh, wv, ws = attention_pad(C, H, v, qh, wv, ws)
     K = B * N
     dz = kernels.dz_plan(B, N, C, H)
     splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev))["splits"]
@@ -537,7 +593,7 @@ def _attention_bwd16(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     (attention_bwd_f16 if dtype == torch.float16
      else attention_bwd).launches += launched.value
     kernels.check(lib, rc, what)
-    return dqh, dwv, dws
+    return attention_unpad(C0, H0, dqh, dwv, dws)
 
 
 # ---------------------------------------------------------------------------

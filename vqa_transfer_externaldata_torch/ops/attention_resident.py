@@ -44,6 +44,14 @@ and read h in float32. The rounding follows the kernels: f32 sums of
 compute-dtype products, squares, each glimpse's ``alpha * r``, the v_att
 cotangents and ``dz * r`` (dz summed over the glimpses in f32 first)
 rounded to the compute dtype.
+
+The 16-bit wrappers take any C and H, as the Pallas bodies do: H is
+zero-padded to 128 (:func:`resident_pad_weights`), C to 32 (K4) or 128 (K5);
+a store whose channels are off the multiple is read through the batch's
+padded rows (:func:`resident_pad_store`), and the Trainer uploads its
+stores with their channels padded to ``kernels.STORE_CHANNELS`` once
+(:func:`prenormalize_store`'s ``channels``), so the main path pads nothing
+a call but W_v's rows.
 """
 
 from __future__ import annotations
@@ -58,8 +66,6 @@ import torch
 from vqa_transfer_externaldata_torch.ops import kernels
 
 _NEG_INF = -1e30
-_FWD_TILE_H = 128  # H's multiple: the score tile's 128 or 256 columns
-_FWD_TILE_C = 32  # C's multiple (the score GEMM zero-fills half a chunk)
 _SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
 MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
 # Row dtypes that compute in the model's dtype (qh's), widened on load.
@@ -68,16 +74,22 @@ _WIDENED = (torch.int8, torch.float16)
 _F32_ROWS = {torch.float32: 0, torch.float16: 1, torch.int8: 2}
 
 
-def pad_store_rows(grid: np.ndarray, multiple: int = 8) -> np.ndarray:
+def pad_store_rows(grid: np.ndarray, multiple: int = 8,
+                   channels: int = 1) -> np.ndarray:
     """Pad the cell axis of an [M, N, C] store (float, or int8 codes) to a
-    multiple of ``multiple`` with zero rows (masked out by ``n_valid``).
-    int8 stores pad to 8 as float ones do: the JAX package pads them to 32,
-    Mosaic's int8 sublane tile, which the H100 kernels do not have."""
+    multiple of ``multiple`` with zero rows (masked out by ``n_valid``),
+    and its channel axis to a multiple of ``channels`` with zero channels
+    (``kernels.store_channel_multiple``: the 16-bit kernels' C, padded here
+    once rather than at every call; the op slices them off). int8 stores
+    pad to 8 as float ones do: the JAX package pads them to 32, Mosaic's
+    int8 sublane tile, which the H100 kernels do not have."""
     M, N, C = grid.shape
-    pad = (-N) % multiple
-    if pad == 0:
+    pad, cpad = (-N) % multiple, (-C) % channels
+    if pad == 0 and cpad == 0:
         return grid
-    return np.concatenate([grid, np.zeros((M, pad, C), grid.dtype)], axis=1)
+    out = np.zeros((M, N + pad, C + cpad), grid.dtype)
+    out[:, :N, :C] = grid
+    return out
 
 
 def _normalized(chunk: np.ndarray) -> np.ndarray:
@@ -108,7 +120,8 @@ def prenormalize_store(grid: np.ndarray,
                        quantize: str = "",
                        chunk_bytes: int = 1 << 28,
                        device: Optional[torch.device] = None,
-                       shard: Optional[Tuple[int, int]] = None
+                       shard: Optional[Tuple[int, int]] = None,
+                       channels: int = 1
                        ) -> Tuple[torch.Tensor, float]:
     """L2-normalize each cell of an [M, N, C] float store and pad the cell
     axis to a multiple of 8, chunk by chunk: each chunk is normalized in
@@ -125,7 +138,12 @@ def prenormalize_store(grid: np.ndarray,
 
     ``shard=(d, n)`` (``train.store_sharded``): only the rows d, d + n,
     d + 2n, ... are written, as the rows of a [ceil(M / n), Np, C] store
-    whose tail rows stay zero; an int8 scale is still the whole store's."""
+    whose tail rows stay zero; an int8 scale is still the whole store's.
+
+    ``channels``: the channel axis is padded to a multiple of it with zero
+    channels (:func:`pad_store_rows`'s ``channels``). A zero channel keeps
+    each cell's norm, and an int8 store's scale and codes are the unpadded
+    store's: the departure from JAX's layout is only in the shape."""
     if quantize not in ("", "int8"):
         raise ValueError(f"quantize={quantize!r}: only 'int8' or ''")
     M, N, C = grid.shape
@@ -144,11 +162,12 @@ def prenormalize_store(grid: np.ndarray,
     src, M_out = grid, M
     if shard is not None:
         src, M_out = grid[shard[0]::shard[1]], -(-M // shard[1])
-    out = torch.zeros((M_out, Np, C), dtype=out_dtype, device=device)
+    Cp = C + (-C) % channels
+    out = torch.zeros((M_out, Np, Cp), dtype=out_dtype, device=device)
     for lo in range(0, src.shape[0], rows):
         g32 = _normalized(src[lo:lo + rows])
         chunk = torch.from_numpy(_codes(g32, scale) if quantize else g32)
-        out[lo:lo + chunk.shape[0], :N] = chunk.to(out.device, out_dtype)
+        out[lo:lo + chunk.shape[0], :N, :C] = chunk.to(out.device, out_dtype)
     return out, scale
 
 
@@ -240,6 +259,60 @@ def attention_resident_bwd_reference(
     dwv = torch.einsum("bnc,bnh->ch", vf,
                        (dz * r[:, :, None]).to(dt).float())
     return dqh, dwv, dws
+
+
+# ---------------------------------------------------------------------------
+# Widths: zero padding around the 16-bit kernels
+# ---------------------------------------------------------------------------
+
+
+def glimpse_channels(x: torch.Tensor, G: int, C: int) -> torch.Tensor:
+    """x [B, G*C'] (G glimpses of C' channels, concatenated in glimpse
+    order) -> [B, G*C]: each glimpse's channels cut to C, or zero-padded
+    to C where C > C'."""
+    B = x.shape[0]
+    x3 = x.reshape(B, G, -1)
+    Cx = x3.shape[2]
+    if Cx == C:
+        return x
+    x3 = (x3[:, :, :C] if C < Cx
+          else torch.nn.functional.pad(x3, (0, C - Cx)))
+    return x3.reshape(B, G * C)
+
+
+def resident_pad_store(Cp: int, store: torch.Tensor, rows: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A store [M, Np, C] whose channels are off the kernels' multiple,
+    for one call: the rows the call reads, gathered ([B, Np, C]) and
+    zero-padded to ``Cp`` channels, with the rows 0..B-1 that index them
+    (a copy of the batch's cells, not of the store). The store and rows
+    themselves where C == Cp. A store uploaded by the Trainer is padded
+    once (:func:`prenormalize_store`'s ``channels``) and takes no copy."""
+    C = store.shape[2]
+    if C == Cp:
+        return store, rows
+    grid = torch.nn.functional.pad(store[rows.long()], (0, Cp - C))
+    return grid, torch.arange(rows.shape[0], dtype=torch.int32,
+                              device=rows.device)
+
+
+def resident_pad_weights(Cp: int, Hp: int, wv: Optional[torch.Tensor],
+                         ws: torch.Tensor, qh: Optional[torch.Tensor] = None
+                         ) -> Tuple[Optional[torch.Tensor], ...]:
+    """W_v [C, H] -> [Cp, Hp] with zero rows and zero columns, ws [H] or
+    [H, G] -> [Hp] or [Hp, G] and qh [B, H] -> [B, Hp] with zero units (wv
+    or qh None stays None), as JAX's B6 pads H. A zero channel adds 0 to
+    every norm and product; a zero unit has z = 0, h = relu(0) = 0 and ws
+    0, so it adds nothing to a score and its dz is 0: the real outputs are
+    unchanged, and the padded ones are sliced off."""
+    H = ws.shape[0]
+    pad = torch.nn.functional.pad
+    if wv is not None and tuple(wv.shape) != (Cp, Hp):
+        wv = pad(wv, (0, Hp - H, 0, Cp - wv.shape[0]))
+    if Hp != H:
+        ws = pad(ws, (0, 0, 0, Hp - H) if ws.dim() == 2 else (0, Hp - H))
+        qh = None if qh is None else pad(qh, (0, Hp - H))
+    return wv, ws, qh
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +435,11 @@ def attention_resident_fwd(store: torch.Tensor, rows: torch.Tensor,
     guarantees), qh [B, H] f32, wv [C, H] bf16, ws [H, G] f32 with
     1 <= G <= 8 -> (v_att [B, G*C] f32, alpha [B, Np, G] f32, h [B, Np, H]
     bf16 when ``save_h`` else None); a 1-D ws [H] gives v_att [B, C] and
-    alpha [B, Np]. Needs C % 32 == 0 and H % 128 == 0. The score GEMM
+    alpha [B, Np]. Any C and H >= 1: H is zero-padded to a multiple of 128
+    (:func:`resident_pad_weights`), and a store whose C is off a multiple
+    of 32 is read through :func:`resident_pad_store` (a copy of the
+    batch's rows; the Trainer's stores are padded at upload and take
+    none); the outputs are sliced back. The score GEMM
     reads W_v as its K-major copy ``wv.t()`` [H, C], made here (2 MB at
     C=2048, H=512). One call makes the kernel's two launches on the current
     stream and adds the number launched (2) to
@@ -399,7 +476,7 @@ def attention_resident_fwd_f16(store: torch.Tensor, rows: torch.Tensor,
     with float16 as its element type) on CUDA tensors: as
     :func:`attention_resident_fwd` with a float16 or int8 store, wv [C, H]
     float16 and h saved in float16 (the squares of the norm and each
-    glimpse's alpha * r rounded to float16). The same launches and limits
+    glimpse's alpha * r rounded to float16). The same padding and launches
     as K4; 2 launches a call, added to
     ``attention_resident_fwd_f16.launches`` (float16 rows) or
     ``attention_resident_fwd_f16.launches_int8`` (int8 rows)."""
@@ -428,9 +505,8 @@ def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
     H = qh.shape[-1]
     dev = store.device
     G = _glimpses(ws, what)
-    if C % _FWD_TILE_C or H % _FWD_TILE_H:
-        raise ValueError(f"{what} needs C % {_FWD_TILE_C} == 0 and "
-                         f"H % {_FWD_TILE_H} == 0, got C={C}, H={H}")
+    if C < 1 or H < 1:
+        raise ValueError(f"{what} needs C, H >= 1, got C={C}, H={H}")
     if 2 * G * Np * 4 > _SMEM_LIMIT:
         raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses exceed "
                          "the softmax's shared memory")
@@ -438,12 +514,17 @@ def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
     kernels.expect("wv", wv, dt, (C, H), dev)
     kernels.expect("ws", ws, torch.float32,
                    (H, G) if ws.dim() == 2 else (H,), dev)
+    C0, H0 = C, H
+    C = kernels.round_up(C0, kernels.ATTENTION_FWD_CHANNELS)
+    H = kernels.round_up(H0, kernels.ATTENTION_UNITS)
+    store, rows = resident_pad_store(C, store, rows)
+    wv, ws, qh = resident_pad_weights(C, H, wv, ws, qh)
     wvt = wv.t().contiguous()  # [H, C]: K-major, as the score GEMM reads it
     ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     f32 = dict(dtype=torch.float32, device=dev)
     # One partial score per cell and column tile: H / 128 slices, of which
     # the kernel fills H / 256 where its tile is 256 columns wide.
-    part = torch.empty(H // _FWD_TILE_H, G, B * Np, **f32)
+    part = torch.empty(H // kernels.ATTENTION_UNITS, G, B * Np, **f32)
     rnorm = torch.empty(B * Np, **f32)
     v_att = torch.empty(B, G * C, **f32)
     alpha = torch.empty(B, Np, G, **f32)
@@ -465,7 +546,10 @@ def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
     else:
         counter.launches += launched.value
     kernels.check(lib, rc, what)
-    return v_att, (alpha if ws.dim() == 2 else alpha[:, :, 0]), h, rnorm
+    if h is not None and H != H0:
+        h = h[..., :H0].contiguous()
+    return (glimpse_channels(v_att, G, C0),
+            (alpha if ws.dim() == 2 else alpha[:, :, 0]), h, rnorm)
 
 
 def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
@@ -479,9 +563,12 @@ def attention_resident_bwd(store: torch.Tensor, rows: torch.Tensor,
     codes (normalize off), rows [B] int32, h [B, Np, H] bf16 (K4's
     residual), ws [H, G] f32 with 1 <= G <= 8, alpha and sga [B, Np, G]
     f32, g [B, G*C] f32 -> (dqh [B, H], dwv [C, H], dws [H, G]), all f32; a
-    1-D ws [H] takes alpha and sga [B, Np] and gives dws [H]. Needs
-    C % 128 == 0 and H % 128 == 0, h 16-byte aligned, and the rows
-    launch's shared memory within a block's (:func:`kernels.rows_plan`).
+    1-D ws [H] takes alpha and sga [B, Np] and gives dws [H]. Any C and
+    H >= 1, both zero-padded to multiples of 128 (the store as
+    :func:`attention_resident_fwd` pads it, h, ws and g with zero units
+    and channels) and the outputs sliced back; h 16-byte aligned, and the
+    rows launch's shared memory within a block's
+    (:func:`kernels.rows_plan`).
     One call makes the kernel's three launches on the current stream and
     adds the number launched (3) to
     ``attention_resident_bwd.launches`` (bf16 rows) or
@@ -516,7 +603,7 @@ def attention_resident_bwd_f16(store: torch.Tensor, rows: torch.Tensor,
     with float16 as its element type) on CUDA tensors: as
     :func:`attention_resident_bwd` with a float16 or int8 store and h
     [B, Np, H] float16 (K4h's residual), g and dz * r rounded to float16
-    ahead of their products. The same launches and limits as K5; 3
+    ahead of their products. The same padding and launches as K5; 3
     launches a call, added to ``attention_resident_bwd_f16.launches``
     (float16 rows) or ``attention_resident_bwd_f16.launches_int8`` (int8
     rows)."""
@@ -540,21 +627,28 @@ def _launch_bwd(store: torch.Tensor, rows: torch.Tensor, h: torch.Tensor,
     H = h.shape[-1]
     dev = store.device
     G = _glimpses(ws, what)
-    tile = kernels.DWV_TILE
-    if C % tile or H % tile:
-        raise ValueError(f"{what} needs C % {tile} == 0 and H % {tile} == 0, "
-                         f"got C={C}, H={H}")
-    kernels.rows_plan(B, n_valid, G, C, H)  # raises where it cannot launch
+    if C < 1 or H < 1:
+        raise ValueError(f"{what} needs C, H >= 1, got C={C}, H={H}")
     per_cell = (B, Np) + ((G,) if ws.dim() == 2 else ())
     kernels.expect("h", h, dt, (B, Np, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,) + per_cell[2:], dev)
     kernels.expect("alpha", alpha, torch.float32, per_cell, dev)
     kernels.expect("g", g, torch.float32, (B, G * C), dev)
     kernels.expect("sga", sga, torch.float32, per_cell, dev)
-    ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     if h.data_ptr() % 16:
         raise ValueError(f"{what} reads h in 16-byte vectors: h must start "
                          "16-byte aligned")
+    C0, H0 = C, H
+    C = kernels.round_up(C0, kernels.ATTENTION_BWD_CHANNELS)
+    H = kernels.round_up(H0, kernels.ATTENTION_UNITS)
+    kernels.rows_plan(B, n_valid, G, C, H)  # raises where it cannot launch
+    ws_shape = ws.shape
+    store, rows = resident_pad_store(C, store, rows)
+    ws = resident_pad_weights(C, H, None, ws)[1]
+    if H != H0:
+        h = torch.nn.functional.pad(h, (0, H - H0))
+    g = glimpse_channels(g, G, C).contiguous()
+    ws_gh = ws.reshape(H, G).t().contiguous()  # [G, H]: one row a glimpse
     K = B * n_valid
     splits = kernels.dwv_plan(K, C, H, kernels.sm_count(dev), int8)["splits"]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -582,7 +676,10 @@ def _launch_bwd(store: torch.Tensor, rows: torch.Tensor, h: torch.Tensor,
     else:
         counter.launches += launched.value
     kernels.check(lib, rc, what)
-    return dqh, dwv, dws.t().contiguous().reshape(ws.shape)
+    dws = dws[:, :H0].t().contiguous().reshape(ws_shape)
+    if (C, H) != (C0, H0):
+        dqh, dwv = dqh[:, :H0].contiguous(), dwv[:C0, :H0].contiguous()
+    return dqh, dwv, dws
 
 
 @functools.lru_cache(maxsize=None)
@@ -738,19 +835,24 @@ class _ResidentAttention(torch.autograd.Function):
     sga = ga - S. An int8 store computes in qh's dtype, and its scale is
     applied here, never in a kernel: folded into wv, to v_att after the
     forward, to g ahead of K5 (its dalpha dots read the codes) and to dwv
-    after it; S takes the scaled v_att and the unscaled g."""
+    after it; S takes the scaled v_att and the unscaled g. A store whose
+    channels were padded at upload (wider than wv's C rows) takes wv with
+    zero rows, and v_att and dW_v are cut back to C."""
 
     @staticmethod
     def forward(ctx, store, rows, qh, wv, ws, n_valid, normalize, save_h,
                 scale):
         dt = qh.dtype if store.dtype in _WIDENED else store.dtype
-        wv_c = (wv * scale if scale != 1.0 else wv).to(dt).contiguous()
+        C, Cs = wv.shape[0], store.shape[2]
+        wv_c = (wv * scale if scale != 1.0 else wv).to(dt)
+        wv_c = resident_pad_weights(Cs, wv.shape[1], wv_c, ws)[0].contiguous()
         ws_c = ws.to(dt).float().contiguous()
         fwd = (attention_resident_fwd if store.device.type == "cuda"
                else attention_resident_fwd_reference)
         v_att, alpha, h = fwd(store, rows, qh.float().contiguous(), wv_c,
                               ws_c, n_valid=n_valid, normalize=normalize,
                               save_h=save_h)
+        v_att = glimpse_channels(v_att, _glimpses(ws, "the op"), C)
         if scale != 1.0:
             v_att = v_att * scale
         if save_h:
@@ -771,10 +873,13 @@ class _ResidentAttention(torch.autograd.Function):
         sga = (ga3 - s[:, None, :]).reshape(alpha.shape).contiguous()
         if scale != 1.0:
             g = g * scale
+        C = v_att.shape[1] // G
+        g = glimpse_channels(g, G, store.shape[2])
         bwd = (attention_resident_bwd if store.device.type == "cuda"
                else attention_resident_bwd_reference)
         dqh, dwv, dws = bwd(store, rows, h, ws_c, alpha, g.contiguous(), sga,
                             n_valid=n_valid, normalize=normalize)
+        dwv = dwv[:C]
         if scale != 1.0:
             dwv = dwv * scale
         return (None, None, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt),
@@ -801,7 +906,10 @@ def spatial_attention_resident(
     int8 store and for float16 rows. A CUDA store runs kernels K4/K5 in
     bf16 (bf16 rows or int8 codes), K4h/K5h in float16 (f16 rows or int8
     codes) and K4f/K5f in float32 (f32 or f16 rows or int8 codes), a CPU
-    store their plain versions.
+    store their plain versions. Any C and H: the 16-bit kernels' wrappers
+    pad both (``ops/kernels.py``'s multiples), and a store may carry zero
+    channels past wv's C rows (padded once at upload,
+    :func:`prenormalize_store`'s ``channels``), which are sliced off.
 
     ``store`` may hold the int8 codes of an L2-prenormalized store
     (:func:`prenormalize_store` with ``quantize="int8"``) with their

@@ -28,6 +28,20 @@ sums. ``use_kernels=False`` (the model's ``model.use_pallas`` off) runs
 the plain versions on CUDA too, as the JAX package runs its XLA scan.
 The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 
+The 16-bit wrappers take any width, as the Pallas bodies do: H is
+zero-padded to the kernels' multiple (16 forward, 64 backward;
+:func:`gru_pad`, whose padded units stay exactly 0) and the outputs are
+sliced back. Each then takes one of two forms by shape alone
+(``kernels.gru_fwd_route`` / ``kernels.gru_bwd_route``): the persistent
+kernels where U_h's slices fit in a block's shared memory and the grid can
+be resident (up to H = 1568 forward and 576 backward on an H100), else the
+step form of ``csrc/gru_wide_step.cuh`` (``csrc/gru_fwd_wide.cu``,
+``csrc/gru_bwd_wide.cu`` and their float16 builds; wrappers
+:func:`gru_fwd_wide`, :func:`gru_bwd_wide`, :func:`bigru_fwd_wide`,
+:func:`bigru_bwd_wide`), one or two launches a timestep with U_h read
+through L2. No form gives way to another or to a plain version: a launch
+that fails raises.
+
 :class:`BiGRUEncoder` concatenates a forward and a reverse encoder's final
 states. It projects each direction as :class:`GRUEncoder` does and runs both
 recurrences through ``bigru_fused``: on a CUDA tensor kernel
@@ -308,6 +322,102 @@ def gru_bwd_reference(gx_t: torch.Tensor, hseq: torch.Tensor,
     return dgx, duh, dbhn
 
 
+def _pad_gates(x: torch.Tensor, H: int, Hp: int) -> torch.Tensor:
+    """x [..., 3H] -> [..., 3Hp]: each gate block (r, z, n) zero-padded
+    from H to Hp columns."""
+    lead = x.shape[:-1]
+    out = x.new_zeros(*lead, 3, Hp)
+    out[..., :H] = x.reshape(*lead, 3, H)
+    return out.reshape(*lead, 3 * Hp)
+
+
+def _unpad_gates(x: torch.Tensor, H: int) -> torch.Tensor:
+    """x [..., 3Hp] -> [..., 3H]: the first H columns of each gate block,
+    contiguous."""
+    lead = x.shape[:-1]
+    Hp = x.shape[-1] // 3
+    return x.reshape(*lead, 3, Hp)[..., :H].reshape(*lead, 3 * H)
+
+
+def gru_pad(Hp: int, gx_t: torch.Tensor, uh: torch.Tensor,
+            bhn: torch.Tensor, hseq: Optional[torch.Tensor] = None,
+            ghT: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """The recurrence's inputs at width H zero-padded to ``Hp`` >= H units,
+    as the 16-bit kernels take them (H a multiple of 16 for K1/K6, of 64
+    for K3/K7), the way JAX's B6 pads its hidden axis: gx_t [T, B, 3H] ->
+    [T, B, 3Hp] and U_h [H, 3H] -> [Hp, 3Hp] with zeros in each gate
+    block's new columns, U_h with zero rows too; b_hn, hseq and ghT get
+    zero units. Returns (gx_t, uh, bhn, hseq, ghT), the last two None
+    where not given; the inputs themselves where Hp == H.
+
+    A padded unit starts at 0 and stays exactly 0: its gx and gh are 0, so
+    r = z = 1/2 and n = tanh(0 + r (0 + 0)) = 0, and h' = n/2 + h/2 = 0.
+    It adds only exact zeros to the real units' sums (its U_h row meets a
+    zero state, its U_h columns are zero) and to their cotangents: its
+    cotangent starts at 0, so its gate cotangents, its share of dU_h and
+    db_hn and its carry through U_h^T are all 0. :func:`gru_unpad_fwd` and
+    :func:`gru_unpad_bwd` slice the outputs back to H."""
+    H = uh.shape[0]
+    if Hp == H:
+        return gx_t, uh, bhn, hseq, ghT
+    if Hp < H:
+        raise ValueError(f"gru_pad: Hp={Hp} is narrower than H={H}")
+    grow = (0, Hp - H)
+    uh_p = _pad_gates(torch.nn.functional.pad(uh, (0, 0) + grow), H, Hp)
+    return (_pad_gates(gx_t, H, Hp), uh_p,
+            torch.nn.functional.pad(bhn, grow),
+            None if hseq is None else torch.nn.functional.pad(hseq, grow),
+            None if ghT is None else torch.nn.functional.pad(ghT, grow))
+
+
+def gru_unpad_fwd(H: int, hT: torch.Tensor, hseq: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's outputs at Hp sliced back to H units: (hT [B, H],
+    hseq [T, B, H]), contiguous (as they are where Hp == H)."""
+    if hT.shape[-1] == H:
+        return hT, hseq
+    return hT[:, :H].contiguous(), hseq[..., :H].contiguous()
+
+
+def gru_unpad_bwd(H: int, dgx: torch.Tensor, duh: torch.Tensor,
+                  dbhn: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The BPTT's outputs at Hp sliced back to H units: (dgx [T, B, 3H],
+    duh [H, 3H], dbhn [H]), each gate block's first H columns."""
+    if dbhn.shape[-1] == H:
+        return dgx, duh, dbhn
+    return (_unpad_gates(dgx, H), _unpad_gates(duh[:H], H),
+            dbhn[:H].contiguous())
+
+
+def _dtype16(what: str, name: str, x: torch.Tensor) -> torch.dtype:
+    """The 16-bit dtype of ``x`` for a step-form wrapper: bf16 or float16;
+    float32 (whose kernels K1f/K3f are step kernels at every width) and
+    every other dtype raise ``TypeError``."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{what}: {name} must be torch.bfloat16 or "
+                        f"torch.float16, got {x.dtype}")
+    return x.dtype
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_lib(name: str) -> ctypes.CDLL:
+    """The library of the step form: "gru_fwd_wide" (K1's and K6's,
+    exporting ``gru_fwd_wide`` and ``bigru_fwd_wide``), "gru_bwd_wide"
+    (K3's and K7's, ``gru_bwd_wide`` and ``bigru_bwd_wide``), or their
+    float16 builds ("..._f16")."""
+    lib = kernels.load(name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name.startswith("gru_fwd_wide"):
+        entries = {"gru_fwd_wide": (7, 4), "bigru_fwd_wide": (10, 3)}
+    else:
+        entries = {"gru_bwd_wide": (13, 4), "bigru_bwd_wide": (17, 3)}
+    for entry, (pointers, ints) in entries.items():
+        getattr(lib, entry).argtypes = [p] * pointers + [i] * ints + [p, p]
+        getattr(lib, entry).restype = i
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str = "gru_fwd") -> ctypes.CDLL:
     """The library of K1 (``name`` "gru_fwd") or K1h ("gru_fwd_f16"); both
@@ -368,6 +478,17 @@ def _fwd_plan(kernel: str, B: int, H: int, device: torch.device
     return plan, per_sm
 
 
+def _fwd_route(kernel: str, B: int, H: int, device: torch.device) -> str:
+    """``kernels.gru_fwd_route`` for K1 or K1h (one direction) or K6 or
+    K6h (two) at (B, H) on CUDA ``device``, from the persistent kernel's
+    blocks per SM that its own library reports."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return kernels.gru_fwd_route(B, H, kernels.sm_count(device),
+                                 _fwd_blocks_per_sm(kernel, index, H),
+                                 2 if kernel.startswith("bigru") else 1)
+
+
 def _fwd_launch_config(kernel: str, B: int, H: int,
                        device: torch.device) -> dict:
     plan, per_sm = _fwd_plan(kernel, B, H, device)
@@ -384,12 +505,15 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     -> (hT [B, H] f32, hseq [T, B, H] f32); a float16 ``uh`` goes to
     :func:`gru_fwd_f16` (K1h), a float32 one to :func:`gru_fwd_f32` (K1f),
     another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`).
-    Needs H % 16 == 0 and a block's U_h slice and 16-row b-tile to fit in
-    shared memory (H <= 1568). One call makes one cooperative launch of the
-    persistent kernel for all T steps, with the batch rows a block of
-    ``kernels.gru_fwd_plan``, on the current stream and adds it (1) to
-    ``gru_fwd.launches``; it raises when no tiling's grid can be resident
-    on the card at once."""
+    Any H >= 1: H is zero-padded to a multiple of 16 (:func:`gru_pad`, the
+    outputs sliced back). Where a block's U_h slice and 16-row b-tile fit
+    in shared memory and a row of the j-tiles can be resident at once
+    (``kernels.gru_fwd_route``: up to H = 1568 on an H100), one call makes
+    one cooperative launch of the persistent kernel for all T steps, with
+    the batch rows a block of ``kernels.gru_fwd_plan``, on the current
+    stream and adds it (1) to ``gru_fwd.launches``; elsewhere it runs the
+    step form, :func:`gru_fwd_wide` (T launches, counted there). A launch
+    that fails raises."""
     dt = kernels.kernel_dtype("gru_fwd", "uh", uh)
     if dt == torch.float32:
         return gru_fwd_f32(gx_t, lens, uh, bhn, reverse=reverse)
@@ -407,8 +531,10 @@ def gru_fwd_f16(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     """Launch kernel K1h (``csrc/gru_fwd_f16.cu``: K1's body with float16
     as its element type) on CUDA tensors: as :func:`gru_fwd` with uh
     [H, 3H] float16, the state rounded to float16 ahead of each step's
-    product and exchanged as a float16 copy. The same launch plan and
-    limits as K1; one launch a call, added to ``gru_fwd_f16.launches``."""
+    product and exchanged as a float16 copy. The same padding, route and
+    launch plan as K1; the persistent launch (one a call) is added to
+    ``gru_fwd_f16.launches``, the step form's to
+    ``gru_fwd_wide_f16.launches``."""
     return _gru_fwd16(gx_t, lens, uh, bhn, reverse, torch.float16)
 
 
@@ -416,24 +542,34 @@ gru_fwd_f16.launches = 0
 
 
 def _gru_fwd16(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
-               bhn: torch.Tensor, reverse: bool, dtype: torch.dtype
+               bhn: torch.Tensor, reverse: bool, dtype: torch.dtype,
+               form: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's (``dtype`` bf16) or K1h's (float16) checks, plan and launch."""
+    """K1's (``dtype`` bf16) or K1h's (float16) checks, padding, route and
+    launch: ``form`` "persistent" or "step", or None for
+    ``kernels.gru_fwd_route``'s choice."""
     what = kernels.name16("gru_fwd", dtype)
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
     H = H3 // 3
     dev = gx_t.device
-    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
-        raise ValueError(f"{what} needs T, B >= 1 and H % {_TILE} == 0, "
-                         f"got gx_t of shape {tuple(gx_t.shape)}")
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H:
+        raise ValueError(f"{what} needs T, B, H >= 1, got gx_t of shape "
+                         f"{tuple(gx_t.shape)}")
     kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     kernels.expect("uh", uh, dtype, (H, 3 * H), dev)
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
-    plan, _ = _fwd_plan(what, B, H, dev)
-    return _launch_fwd(gx_t, lens, uh, bhn, reverse, plan["rows"])
+    Hp = kernels.round_up(H, kernels.GRU_FWD_PAD)
+    gx_p, uh_p, bhn_p, _, _ = gru_pad(Hp, gx_t, uh, bhn)
+    if (form or _fwd_route(what, B, Hp, dev)) == "persistent":
+        plan, _ = _fwd_plan(what, B, Hp, dev)
+        hT, hseq = _launch_fwd(gx_p, lens, uh_p, bhn_p, reverse,
+                               plan["rows"])
+    else:
+        hT, hseq = _launch_fwd_wide(gx_p, lens, uh_p, bhn_p, reverse)
+    return gru_unpad_fwd(H, hT, hseq)
 
 
 def _launch_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
@@ -462,6 +598,67 @@ def _launch_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     return hT, hseq
 
 
+def _launch_fwd_wide(gx_t: torch.Tensor, lens: torch.Tensor,
+                     uh: torch.Tensor, bhn: torch.Tensor, reverse: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step form's T launches (``csrc/gru_fwd_wide.cu``, its float16
+    build on a float16 ``uh``) on checked inputs at a width H % 16 == 0,
+    added to ``gru_fwd_wide.launches`` (``gru_fwd_wide_f16.launches``)."""
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    hseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
+    hT = torch.empty(B, H, dtype=torch.float32, device=dev)
+    hbf = torch.empty(2, B, H, dtype=uh.dtype, device=dev)
+    what = kernels.name16("gru_fwd_wide", uh.dtype)
+    lib = _wide_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.gru_fwd_wide(gx_t.data_ptr(), lens.data_ptr(),
+                              uh.data_ptr(), bhn.data_ptr(), hseq.data_ptr(),
+                              hT.data_ptr(), hbf.data_ptr(), T, B, H,
+                              int(reverse),
+                              torch.cuda.current_stream(dev).cuda_stream,
+                              ctypes.addressof(launched))
+    (gru_fwd_wide_f16 if uh.dtype == torch.float16
+     else gru_fwd_wide).launches += launched.value
+    kernels.check(lib, rc, what)
+    return hT, hseq
+
+
+def gru_fwd_wide(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+                 bhn: torch.Tensor, *, reverse: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's step form (``csrc/gru_fwd_wide.cu``) on CUDA tensors, what
+    :func:`gru_fwd` runs where the persistent kernel cannot
+    (``kernels.gru_fwd_route``), at any width: the inputs and outputs of
+    :func:`gru_fwd` with a bf16 ``uh`` (a float16 one goes to
+    :func:`gru_fwd_wide_f16`; another dtype raises ``TypeError``), H
+    zero-padded to a multiple of 16. One launch a step, each advancing all
+    rows: T launches a call on the current stream, added to
+    ``gru_fwd_wide.launches``."""
+    if _dtype16("gru_fwd_wide", "uh", uh) == torch.float16:
+        return gru_fwd_wide_f16(gx_t, lens, uh, bhn, reverse=reverse)
+    return _gru_fwd16(gx_t, lens, uh, bhn, reverse, torch.bfloat16, "step")
+
+
+gru_fwd_wide.launches = 0
+
+
+def gru_fwd_wide_f16(gx_t: torch.Tensor, lens: torch.Tensor,
+                     uh: torch.Tensor, bhn: torch.Tensor, *,
+                     reverse: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1h's step form (``csrc/gru_fwd_wide_f16.cu``: the step form's body
+    with float16 as its element type): as :func:`gru_fwd_wide` with uh
+    [H, 3H] float16; T launches a call, added to
+    ``gru_fwd_wide_f16.launches``."""
+    return _gru_fwd16(gx_t, lens, uh, bhn, reverse, torch.float16, "step")
+
+
+gru_fwd_wide_f16.launches = 0
+
+
 def gru_fwd_launch_config(B: int, H: int, device: torch.device,
                           dtype: torch.dtype = torch.bfloat16) -> dict:
     """The shape of K1's persistent launch (K1h's with ``dtype`` float16)
@@ -469,8 +666,9 @@ def gru_fwd_launch_config(B: int, H: int, device: torch.device,
     block and the b-tiles that the plan takes, the C side's grid (j-tiles,
     rows of blocks, 1) and launches (1), blocks resident per SM and
     dynamic shared memory in bytes at those rows, and the blocks per SM of
-    every tiling that the plan was given (``per_sm_by_rows``). Raises where
-    :func:`gru_fwd` would."""
+    every tiling that the plan was given (``per_sm_by_rows``). ``H`` is a
+    multiple of 16. Raises where the persistent kernel cannot run
+    (:func:`gru_fwd` takes the step form there)."""
     return _fwd_launch_config(kernels.name16("gru_fwd", dtype), B, H, device)
 
 
@@ -527,6 +725,18 @@ def _bptt_plan(kernel: str, B: int, H: int, device: torch.device,
     return {**plan, **occ}
 
 
+def _bwd_route(kernel: str, B: int, H: int, device: torch.device,
+               directions: int) -> str:
+    """``kernels.gru_bwd_route`` for K3, K3h, K7 or K7h at (B, H) on CUDA
+    ``device``, from the persistent step kernel's blocks per SM that its
+    own library reports."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    occ = _bptt_occupancy(kernel, index, H)
+    return kernels.gru_bwd_route(B, H, kernels.sm_count(device),
+                                 occ["blocks_per_sm"], directions)
+
+
 def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
             uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor, *,
             reverse: bool = False
@@ -537,13 +747,16 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     duh [H, 3H], dbhn [H]), all f32; a float16 ``uh`` goes to
     :func:`gru_bwd_f16` (K3h), a float32 one to :func:`gru_bwd_f32` (K3f),
     another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`).
-    Needs H % 64 == 0 and U_h's slices to fit in shared memory
-    (H <= 576). One call launches the persistent step kernel (one
-    cooperative launch for all T steps, on the grid of
-    ``kernels.gru_bwd_plan``), the dU_h GEMM and the db_hn sum on the
-    current stream and adds the number launched (3) to
-    ``gru_bwd.launches``; it raises when U_h's slices do not fit or the
-    step kernel's grid cannot be resident on the card at once."""
+    Any H >= 1: H is zero-padded to a multiple of 64 (:func:`gru_pad`, the
+    outputs sliced back). Where U_h's slices fit in a block's shared
+    memory and a row of the j-tiles can be resident at once
+    (``kernels.gru_bwd_route``: up to H = 576 on an H100), one call
+    launches the persistent step kernel (one cooperative launch for all T
+    steps, on the grid of ``kernels.gru_bwd_plan``), the dU_h GEMM and the
+    db_hn sum on the current stream and adds the number launched (3) to
+    ``gru_bwd.launches``; elsewhere it runs the step form,
+    :func:`gru_bwd_wide` (2T + 2 launches, counted there). A launch that
+    fails raises."""
     dt = kernels.kernel_dtype("gru_bwd", "uh", uh)
     if dt == torch.float32:
         return gru_bwd_f32(gx_t, hseq, lens, uh, bhn, ghT, reverse=reverse)
@@ -563,8 +776,10 @@ def gru_bwd_f16(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     """Launch kernel K3h (``csrc/gru_bwd_f16.cu``: K3's body with float16
     as its element type) on CUDA tensors: as :func:`gru_bwd` with uh
     [H, 3H] float16, h_prev and the gate cotangents rounded to float16
-    ahead of the U_h^T product and dU_h. The same launches and limits as
-    K3; 3 launches a call, added to ``gru_bwd_f16.launches``."""
+    ahead of the U_h^T product and dU_h. The same padding, route and
+    launches as K3; the persistent form's 3 launches a call are added to
+    ``gru_bwd_f16.launches``, the step form's to
+    ``gru_bwd_wide_f16.launches``."""
     return _gru_bwd16(gx_t, hseq, lens, uh, bhn, ghT, reverse,
                       torch.float16)
 
@@ -574,25 +789,47 @@ gru_bwd_f16.launches = 0
 
 def _gru_bwd16(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
                uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor,
-               reverse: bool, dtype: torch.dtype
+               reverse: bool, dtype: torch.dtype, form: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3's (``dtype`` bf16) or K3h's (float16) checks, plan and
-    launches."""
+    """K3's (``dtype`` bf16) or K3h's (float16) checks, padding, route and
+    launches: ``form`` "persistent" or "step", or None for
+    ``kernels.gru_bwd_route``'s choice."""
     what = kernels.name16("gru_bwd", dtype)
     if gx_t.device.type != "cuda" or gx_t.dim() != 3:
         raise ValueError(f"{what} takes a 3-D CUDA gx_t")
     T, B, H3 = gx_t.shape
     H = H3 // 3
     dev = gx_t.device
-    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
-        raise ValueError(f"{what} needs T, B >= 1 and H % 64 == 0, got "
-                         f"gx_t of shape {tuple(gx_t.shape)}")
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H:
+        raise ValueError(f"{what} needs T, B, H >= 1, got gx_t of shape "
+                         f"{tuple(gx_t.shape)}")
     kernels.expect("gx_t", gx_t, torch.float32, (T, B, 3 * H), dev)
     kernels.expect("hseq", hseq, torch.float32, (T, B, H), dev)
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     kernels.expect("uh", uh, dtype, (H, 3 * H), dev)
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
     kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
+    Hp = kernels.round_up(H, kernels.GRU_BWD_PAD)
+    padded = gru_pad(Hp, gx_t, uh, bhn, hseq, ghT)
+    if (form or _bwd_route(what, B, Hp, dev, 1)) == "persistent":
+        out = _launch_bwd(*padded, lens, reverse)
+    else:
+        out = _launch_bwd_wide(*padded, lens, reverse)
+    return gru_unpad_bwd(H, *out)
+
+
+def _launch_bwd(gx_t: torch.Tensor, uh: torch.Tensor, bhn: torch.Tensor,
+                hseq: torch.Tensor, ghT: torch.Tensor, lens: torch.Tensor,
+                reverse: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's persistent launches (K3h's on a float16 ``uh``) on checked
+    inputs at a width H % 64 == 0, on the grid of ``kernels.gru_bwd_plan``
+    (which raises where the step kernel cannot be resident)."""
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    dtype = uh.dtype
+    what = kernels.name16("gru_bwd", dtype)
     plan = _bptt_plan(what, B, H, dev, 1)
     f32 = dict(dtype=torch.float32, device=dev)
     dhe = ghT.clone()  # the carried cotangent, overwritten step by step
@@ -616,6 +853,83 @@ def _gru_bwd16(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
         launched.value)
     kernels.check(lib, rc, what)
     return dgx, duh, dbhn
+
+
+def _launch_bwd_wide(gx_t: torch.Tensor, uh: torch.Tensor,
+                     bhn: torch.Tensor, hseq: torch.Tensor,
+                     ghT: torch.Tensor, lens: torch.Tensor, reverse: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The step form's 2T + 2 launches (``csrc/gru_bwd_wide.cu``, its
+    float16 build on a float16 ``uh``) on checked inputs at a width
+    H % 64 == 0, added to ``gru_bwd_wide.launches``
+    (``gru_bwd_wide_f16.launches``)."""
+    T, B, H3 = gx_t.shape
+    H = H3 // 3
+    dev = gx_t.device
+    dtype = uh.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = ghT.clone()  # the carried cotangent, overwritten step by step
+    dpart = torch.empty(B, H, **f32)
+    g = torch.empty(T, B, 3 * H, dtype=dtype, device=dev)
+    part = torch.empty(T, -(-B // _TILE), H, **f32)
+    dgx = torch.empty(T, B, 3 * H, **f32)
+    duh = torch.empty(H, 3 * H, **f32)
+    dbhn = torch.empty(H, **f32)
+    hbf = torch.empty(T, B, H, dtype=dtype, device=dev)
+    what = kernels.name16("gru_bwd_wide", dtype)
+    lib = _wide_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.gru_bwd_wide(gx_t.data_ptr(), hseq.data_ptr(),
+                              lens.data_ptr(), uh.data_ptr(), bhn.data_ptr(),
+                              dh.data_ptr(), dpart.data_ptr(),
+                              dgx.data_ptr(), g.data_ptr(), part.data_ptr(),
+                              duh.data_ptr(), dbhn.data_ptr(),
+                              hbf.data_ptr(), T, B, H, int(reverse),
+                              torch.cuda.current_stream(dev).cuda_stream,
+                              ctypes.addressof(launched))
+    (gru_bwd_wide_f16 if dtype == torch.float16
+     else gru_bwd_wide).launches += launched.value
+    kernels.check(lib, rc, what)
+    return dgx, duh, dbhn
+
+
+def gru_bwd_wide(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
+                 uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor, *,
+                 reverse: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's step form (``csrc/gru_bwd_wide.cu``) on CUDA tensors, what
+    :func:`gru_bwd` runs where the persistent step kernel cannot
+    (``kernels.gru_bwd_route``), at any width: the inputs and outputs of
+    :func:`gru_bwd` with a bf16 ``uh`` (a float16 one goes to
+    :func:`gru_bwd_wide_f16`; another dtype raises ``TypeError``), H
+    zero-padded to a multiple of 64. The E copy of the pre-step states,
+    two launches a step (the gates' cotangents with gh recomputed, the
+    carry through U_h^T but after the last step), then the dU_h GEMM and
+    the db_hn sum: 2T + 2 launches a call on the current stream, added to
+    ``gru_bwd_wide.launches``."""
+    if _dtype16("gru_bwd_wide", "uh", uh) == torch.float16:
+        return gru_bwd_wide_f16(gx_t, hseq, lens, uh, bhn, ghT,
+                                reverse=reverse)
+    return _gru_bwd16(gx_t, hseq, lens, uh, bhn, ghT, reverse,
+                      torch.bfloat16, "step")
+
+
+gru_bwd_wide.launches = 0
+
+
+def gru_bwd_wide_f16(gx_t: torch.Tensor, hseq: torch.Tensor,
+                     lens: torch.Tensor, uh: torch.Tensor, bhn: torch.Tensor,
+                     ghT: torch.Tensor, *, reverse: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3h's step form (``csrc/gru_bwd_wide_f16.cu``): as
+    :func:`gru_bwd_wide` with uh [H, 3H] float16; 2T + 2 launches a call,
+    added to ``gru_bwd_wide_f16.launches``."""
+    return _gru_bwd16(gx_t, hseq, lens, uh, bhn, ghT, reverse,
+                      torch.float16, "step")
+
+
+gru_bwd_wide_f16.launches = 0
 
 
 # The float32 kernels' entries: (pointers, ints) ahead of the stream and
@@ -731,7 +1045,8 @@ def gru_bwd_launch_config(B: int, H: int, device: torch.device,
     ``kernels.gru_bwd_plan``'s b-tiles and grid (16-unit j-tiles, rows of
     64-row b-tile blocks, 1 direction), the blocks resident per SM, its
     dynamic shared memory in bytes and the widest H whose shared memory
-    fits. Raises where :func:`gru_bwd` would."""
+    fits. ``H`` is a multiple of 64. Raises where the persistent step
+    kernel cannot run (:func:`gru_bwd` takes the step form there)."""
     return _bptt_plan(kernels.name16("gru_bwd", dtype), B, H, device, 1)
 
 
@@ -842,15 +1157,16 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     """Launch kernel K6 (``csrc/bigru_fwd.cu``) on CUDA tensors: gxf, gxb
     [T, B, 3H] f32, lens [B] int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H]
     f32 -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), all f32, each
-    direction bit-equal to a :func:`gru_fwd` call on its inputs. Needs
-    H % 16 == 0 and a block's U_h slice and 16-row b-tile to fit in shared
-    memory (H <= 1568, as :func:`gru_fwd`). One call makes one cooperative
+    direction bit-equal to a :func:`gru_fwd` call on its inputs. Any H >= 1,
+    zero-padded to a multiple of 16 (:func:`gru_pad`). Where
+    ``kernels.gru_fwd_route`` takes the persistent kernel (as for
+    :func:`gru_fwd`, up to H = 1568), one call makes one cooperative
     launch of K1's persistent kernel for all T steps of both chains, with
     the batch rows a block of ``kernels.gru_fwd_plan`` with two directions
     (or, where the plan says that both directions' j-tiles cannot be
     resident at once, one launch a chain), on the current stream and adds
-    the number launched (1, or 2) to ``bigru_fwd.launches``; it raises
-    where the plan raises. A float16 ``uhf`` goes to
+    the number launched (1, or 2) to ``bigru_fwd.launches``; elsewhere the
+    step form, :func:`bigru_fwd_wide`. A float16 ``uhf`` goes to
     :func:`bigru_fwd_f16` (K6h), a float32 one to :func:`bigru_fwd_f32`
     (K6f), another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`),
     and so does a ``uhb`` of another dtype than ``uhf``."""
@@ -871,8 +1187,9 @@ def bigru_fwd_f16(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     """Launch kernel K6h (``csrc/bigru_fwd_f16.cu``: K6's body with float16
     as its element type) on CUDA tensors: as :func:`bigru_fwd` with uhf,
     uhb [H, 3H] float16, each direction bit-equal to a :func:`gru_fwd_f16`
-    call on its inputs. The same launch plan and limits as K6; the number
-    launched (1, or 2) is added to ``bigru_fwd_f16.launches``."""
+    call on its inputs. The same padding, route and launch plan as K6; the
+    persistent launches (1, or 2) are added to ``bigru_fwd_f16.launches``,
+    the step form's to ``bigru_fwd_wide_f16.launches``."""
     return _bigru_fwd16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb, torch.float16)
 
 
@@ -881,24 +1198,36 @@ bigru_fwd_f16.launches = 0
 
 def _bigru_fwd16(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
                  uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
-                 bhnb: torch.Tensor, dtype: torch.dtype
-                 ) -> Tuple[torch.Tensor, ...]:
-    """K6's (``dtype`` bf16) or K6h's (float16) checks, plan and launch."""
+                 bhnb: torch.Tensor, dtype: torch.dtype,
+                 form: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+    """K6's (``dtype`` bf16) or K6h's (float16) checks, padding, route and
+    launch: ``form`` "persistent" or "step", or None for
+    ``kernels.gru_fwd_route``'s choice with two directions."""
     what = kernels.name16("bigru_fwd", dtype)
     if gxf.device.type != "cuda" or gxf.dim() != 3:
         raise ValueError(f"{what} takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
     H = H3 // 3
     dev = gxf.device
-    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % _TILE:
-        raise ValueError(f"{what} needs T, B >= 1 and H % {_TILE} == 0, "
-                         f"got gxf of shape {tuple(gxf.shape)}")
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H:
+        raise ValueError(f"{what} needs T, B, H >= 1, got gxf of shape "
+                         f"{tuple(gxf.shape)}")
     _expect_pair(T, B, H, dev, dtype, gx=(gxf, gxb), uh=(uhf, uhb),
                  bhn=(bhnf, bhnb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
-    plan, _ = _fwd_plan(what, B, H, dev)
-    return _launch_bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb,
-                             plan["rows"])
+    Hp = kernels.round_up(H, kernels.GRU_FWD_PAD)
+    gxf, uhf, bhnf, _, _ = gru_pad(Hp, gxf, uhf, bhnf)
+    gxb, uhb, bhnb, _, _ = gru_pad(Hp, gxb, uhb, bhnb)
+    if (form or _fwd_route(what, B, Hp, dev)) == "persistent":
+        plan, _ = _fwd_plan(what, B, Hp, dev)
+        out = _launch_bigru_fwd(gxf, gxb, lens, uhf, uhb, bhnf, bhnb,
+                                plan["rows"])
+    else:
+        out = _launch_bigru_fwd_wide(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    hTf, hTb, hseqf, hseqb = out
+    hTf, hseqf = gru_unpad_fwd(H, hTf, hseqf)
+    hTb, hseqb = gru_unpad_fwd(H, hTb, hseqb)
+    return hTf, hTb, hseqf, hseqb
 
 
 def _launch_bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor,
@@ -929,6 +1258,70 @@ def _launch_bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor,
      else bigru_fwd).launches += launched.value
     kernels.check(lib, rc, what)
     return hT[0], hT[1], hseq[0], hseq[1]
+
+
+def _launch_bigru_fwd_wide(gxf: torch.Tensor, gxb: torch.Tensor,
+                           lens: torch.Tensor, uhf: torch.Tensor,
+                           uhb: torch.Tensor, bhnf: torch.Tensor,
+                           bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The step form's T launches for both chains (``bigru_fwd_wide`` of
+    ``csrc/gru_fwd_wide.cu``, its float16 build on a float16 ``uhf``) on
+    checked inputs at a width H % 16 == 0, added to
+    ``bigru_fwd_wide.launches`` (``bigru_fwd_wide_f16.launches``)."""
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    dev = gxf.device
+    hseq = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
+    hT = torch.empty(2, B, H, dtype=torch.float32, device=dev)
+    hbf = torch.empty(2, 2, B, H, dtype=uhf.dtype, device=dev)
+    what = kernels.name16("gru_fwd_wide", uhf.dtype)
+    lib = _wide_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.bigru_fwd_wide(gxf.data_ptr(), gxb.data_ptr(),
+                                lens.data_ptr(), uhf.data_ptr(),
+                                uhb.data_ptr(), bhnf.data_ptr(),
+                                bhnb.data_ptr(), hseq.data_ptr(),
+                                hT.data_ptr(), hbf.data_ptr(), T, B, H,
+                                torch.cuda.current_stream(dev).cuda_stream,
+                                ctypes.addressof(launched))
+    (bigru_fwd_wide_f16 if uhf.dtype == torch.float16
+     else bigru_fwd_wide).launches += launched.value
+    kernels.check(lib, rc, what)
+    return hT[0], hT[1], hseq[0], hseq[1]
+
+
+def bigru_fwd_wide(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
+                   uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
+                   bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K6's step form (``bigru_fwd_wide`` of ``csrc/gru_fwd_wide.cu``) on
+    CUDA tensors, what :func:`bigru_fwd` runs where the persistent kernel
+    cannot, at any width: :func:`bigru_fwd`'s inputs and outputs with bf16
+    ``uhf``, ``uhb`` (float16 ones go to :func:`bigru_fwd_wide_f16`),
+    each direction bit-equal to a :func:`gru_fwd_wide` call on its inputs.
+    T launches a call, each advancing both chains, added to
+    ``bigru_fwd_wide.launches``."""
+    if _dtype16("bigru_fwd_wide", "uhf", uhf) == torch.float16:
+        return bigru_fwd_wide_f16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    return _bigru_fwd16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb, torch.bfloat16,
+                        "step")
+
+
+bigru_fwd_wide.launches = 0
+
+
+def bigru_fwd_wide_f16(gxf: torch.Tensor, gxb: torch.Tensor,
+                       lens: torch.Tensor, uhf: torch.Tensor,
+                       uhb: torch.Tensor, bhnf: torch.Tensor,
+                       bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K6h's step form (``csrc/gru_fwd_wide_f16.cu``): as
+    :func:`bigru_fwd_wide` with float16 ``uhf``, ``uhb``; T launches a
+    call, added to ``bigru_fwd_wide_f16.launches``."""
+    return _bigru_fwd16(gxf, gxb, lens, uhf, uhb, bhnf, bhnb, torch.float16,
+                        "step")
+
+
+bigru_fwd_wide_f16.launches = 0
 
 
 def bigru_fwd_launch_config(B: int, H: int, device: torch.device,
@@ -967,14 +1360,14 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H] f32, ghTf, ghTb [B, H] f32
     -> (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), all
     f32, each direction bit-equal to a :func:`gru_bwd` call on its inputs.
-    Needs H % 64 == 0 and U_h's slices to fit in shared memory (H <= 576,
-    as :func:`gru_bwd`). One call launches the persistent step kernel (one
-    cooperative launch for all T steps of both chains, on the grid of
+    Any H >= 1, zero-padded to a multiple of 64 (:func:`gru_pad`). Where
+    ``kernels.gru_bwd_route`` takes the persistent step kernel with two
+    directions (up to H = 576, as :func:`gru_bwd`), one call launches it
+    (one cooperative launch for all T steps of both chains, on the grid of
     ``kernels.gru_bwd_plan`` with two directions), the dU_h GEMM and the
     db_hn sum of both directions on the current stream and adds the number
-    launched (3) to ``bigru_bwd.launches``; it raises when U_h's slices do
-    not fit or the step kernel's grid cannot be resident on the card at
-    once. A float16 ``uhf`` goes to :func:`bigru_bwd_f16` (K7h), a float32
+    launched (3) to ``bigru_bwd.launches``; elsewhere the step form,
+    :func:`bigru_bwd_wide`. A float16 ``uhf`` goes to :func:`bigru_bwd_f16` (K7h), a float32
     one to :func:`bigru_bwd_f32` (K7f), another dtype raises ``TypeError``
     (:func:`kernels.kernel_dtype`), and so does a ``uhb`` of another dtype
     than ``uhf``."""
@@ -998,8 +1391,10 @@ def bigru_bwd_f16(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     """Launch kernel K7h (``csrc/bigru_bwd_f16.cu``: K7's body with float16
     as its element type) on CUDA tensors: as :func:`bigru_bwd` with uhf,
     uhb [H, 3H] float16, each direction bit-equal to a :func:`gru_bwd_f16`
-    call on its inputs. The same launches and limits as K7; 3 launches a
-    call, added to ``bigru_bwd_f16.launches``."""
+    call on its inputs. The same padding, route and launches as K7; the
+    persistent form's 3 launches a call are added to
+    ``bigru_bwd_f16.launches``, the step form's to
+    ``bigru_bwd_wide_f16.launches``."""
     return _bigru_bwd16(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb,
                         ghTf, ghTb, torch.float16)
 
@@ -1010,22 +1405,50 @@ bigru_bwd_f16.launches = 0
 def _bigru_bwd16(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
                  hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
                  uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
-                 ghTf: torch.Tensor, ghTb: torch.Tensor, dtype: torch.dtype
-                 ) -> Tuple[torch.Tensor, ...]:
-    """K7's (``dtype`` bf16) or K7h's (float16) checks, plan and
-    launches."""
+                 ghTf: torch.Tensor, ghTb: torch.Tensor, dtype: torch.dtype,
+                 form: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
+    """K7's (``dtype`` bf16) or K7h's (float16) checks, padding, route and
+    launches: ``form`` "persistent" or "step", or None for
+    ``kernels.gru_bwd_route``'s choice with two directions."""
     what = kernels.name16("bigru_bwd", dtype)
     if gxf.device.type != "cuda" or gxf.dim() != 3:
         raise ValueError(f"{what} takes 3-D CUDA gx tensors")
     T, B, H3 = gxf.shape
     H = H3 // 3
     dev = gxf.device
-    if T < 1 or B < 1 or H < 1 or H3 != 3 * H or H % 64:
-        raise ValueError(f"{what} needs T, B >= 1 and H % 64 == 0, got "
-                         f"gxf of shape {tuple(gxf.shape)}")
+    if T < 1 or B < 1 or H < 1 or H3 != 3 * H:
+        raise ValueError(f"{what} needs T, B, H >= 1, got gxf of shape "
+                         f"{tuple(gxf.shape)}")
     _expect_pair(T, B, H, dev, dtype, gx=(gxf, gxb), hseq=(hseqf, hseqb),
                  uh=(uhf, uhb), bhn=(bhnf, bhnb), ghT=(ghTf, ghTb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
+    Hp = kernels.round_up(H, kernels.GRU_BWD_PAD)
+    gxf, uhf, bhnf, hseqf, ghTf = gru_pad(Hp, gxf, uhf, bhnf, hseqf, ghTf)
+    gxb, uhb, bhnb, hseqb, ghTb = gru_pad(Hp, gxb, uhb, bhnb, hseqb, ghTb)
+    args = (gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
+    if (form or _bwd_route(what, B, Hp, dev, 2)) == "persistent":
+        dgx, duh, dbhn = _launch_bigru_bwd(*args)
+    else:
+        dgx, duh, dbhn = _launch_bigru_bwd_wide(*args)
+    dgxf, duhf, dbhnf = gru_unpad_bwd(H, dgx[0], duh[0], dbhn[0])
+    dgxb, duhb, dbhnb = gru_unpad_bwd(H, dgx[1], duh[1], dbhn[1])
+    return dgxf, dgxb, duhf, duhb, dbhnf, dbhnb
+
+
+def _launch_bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor,
+                      hseqf: torch.Tensor, hseqb: torch.Tensor,
+                      lens: torch.Tensor, uhf: torch.Tensor,
+                      uhb: torch.Tensor, bhnf: torch.Tensor,
+                      bhnb: torch.Tensor, ghTf: torch.Tensor,
+                      ghTb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K7's persistent launches (K7h's on a float16 ``uhf``) on checked
+    inputs at a width H % 64 == 0 -> (dgx [2, T, B, 3H], duh [2, H, 3H],
+    dbhn [2, H]), forward chain first."""
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    dev = gxf.device
+    dtype = uhf.dtype
+    what = kernels.name16("bigru_bwd", dtype)
     plan = _bptt_plan(what, B, H, dev, 2)
     f32 = dict(dtype=torch.float32, device=dev)
     dhe = torch.stack([ghTf, ghTb])  # the carried cotangents, overwritten
@@ -1049,7 +1472,85 @@ def _bigru_bwd16(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     (bigru_bwd_f16 if dtype == torch.float16
      else bigru_bwd).launches += launched.value
     kernels.check(lib, rc, what)
-    return dgx[0], dgx[1], duh[0], duh[1], dbhn[0], dbhn[1]
+    return dgx, duh, dbhn
+
+
+def _launch_bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor,
+                           hseqf: torch.Tensor, hseqb: torch.Tensor,
+                           lens: torch.Tensor, uhf: torch.Tensor,
+                           uhb: torch.Tensor, bhnf: torch.Tensor,
+                           bhnb: torch.Tensor, ghTf: torch.Tensor,
+                           ghTb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The step form's 2T + 2 launches for both chains (``bigru_bwd_wide``
+    of ``csrc/gru_bwd_wide.cu``, its float16 build on a float16 ``uhf``)
+    on checked inputs at a width H % 64 == 0, added to
+    ``bigru_bwd_wide.launches`` (``bigru_bwd_wide_f16.launches``)."""
+    T, B, H3 = gxf.shape
+    H = H3 // 3
+    dev = gxf.device
+    dtype = uhf.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = torch.stack([ghTf, ghTb])  # the carried cotangents, overwritten
+    dpart = torch.empty(2, B, H, **f32)
+    g = torch.empty(2, T, B, 3 * H, dtype=dtype, device=dev)
+    hbf = torch.empty(2, T, B, H, dtype=dtype, device=dev)
+    part = torch.empty(2, T, -(-B // _TILE), H, **f32)
+    dgx = torch.empty(2, T, B, 3 * H, **f32)
+    duh = torch.empty(2, H, 3 * H, **f32)
+    dbhn = torch.empty(2, H, **f32)
+    what = kernels.name16("gru_bwd_wide", dtype)
+    lib = _wide_lib(what)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.bigru_bwd_wide(
+            gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
+            hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(), uhb.data_ptr(),
+            bhnf.data_ptr(), bhnb.data_ptr(), dh.data_ptr(), dpart.data_ptr(),
+            dgx.data_ptr(), g.data_ptr(), part.data_ptr(), duh.data_ptr(),
+            dbhn.data_ptr(), hbf.data_ptr(), T, B, H,
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
+    (bigru_bwd_wide_f16 if dtype == torch.float16
+     else bigru_bwd_wide).launches += launched.value
+    kernels.check(lib, rc, what)
+    return dgx, duh, dbhn
+
+
+def bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
+                   hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
+                   uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
+                   ghTf: torch.Tensor, ghTb: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+    """K7's step form (``bigru_bwd_wide`` of ``csrc/gru_bwd_wide.cu``) on
+    CUDA tensors, what :func:`bigru_bwd` runs where the persistent step
+    kernel cannot, at any width: :func:`bigru_bwd`'s inputs and outputs
+    with bf16 ``uhf``, ``uhb`` (float16 ones go to
+    :func:`bigru_bwd_wide_f16`), each direction bit-equal to a
+    :func:`gru_bwd_wide` call on its inputs. 2T + 2 launches a call for
+    both chains, added to ``bigru_bwd_wide.launches``."""
+    args = (gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
+    if _dtype16("bigru_bwd_wide", "uhf", uhf) == torch.float16:
+        return bigru_bwd_wide_f16(*args)
+    return _bigru_bwd16(*args, torch.bfloat16, "step")
+
+
+bigru_bwd_wide.launches = 0
+
+
+def bigru_bwd_wide_f16(gxf: torch.Tensor, gxb: torch.Tensor,
+                       hseqf: torch.Tensor, hseqb: torch.Tensor,
+                       lens: torch.Tensor, uhf: torch.Tensor,
+                       uhb: torch.Tensor, bhnf: torch.Tensor,
+                       bhnb: torch.Tensor, ghTf: torch.Tensor,
+                       ghTb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """K7h's step form (``csrc/gru_bwd_wide_f16.cu``): as
+    :func:`bigru_bwd_wide` with float16 ``uhf``, ``uhb``; 2T + 2 launches a
+    call, added to ``bigru_bwd_wide_f16.launches``."""
+    return _bigru_bwd16(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb,
+                        ghTf, ghTb, torch.float16, "step")
+
+
+bigru_bwd_wide_f16.launches = 0
 
 
 def bigru_bwd_launch_config(B: int, H: int, device: torch.device,

@@ -345,6 +345,101 @@ def gru_bwd_plan(B: int, H: int, sms: int, per_sm: int,
             "grid": [jt, min(tiles, resident), directions]}
 
 
+GRU_FWD_PAD = 16  # H's multiple of K1/K6 (both forms): a block's 16 units
+GRU_BWD_PAD = 64  # H's multiple of K3/K7 (both forms): the dU_h GEMM's
+GRU_STEP_ROWS = 64  # batch rows a block of the step form takes
+GRU_STEP_UNITS = 16  # hidden units a block of the step form owns
+
+
+def round_up(n: int, multiple: int) -> int:
+    """``n`` rounded up to a multiple of ``multiple``."""
+    return -(-n // multiple) * multiple
+
+
+def gru_fwd_route(B: int, H: int, sms: int, per_sm: Mapping[int, int],
+                  directions: int = 1) -> str:
+    """The form of the 16-bit GRU forward (K1 with one direction, K6 with
+    two) at batch ``B`` and width ``H`` (a multiple of ``GRU_FWD_PAD``) on
+    a card of ``sms`` SMs with ``per_sm[rows]`` persistent blocks resident
+    per SM by tiling (0 where a block's U_h slice does not fit in shared
+    memory): "persistent" where :func:`gru_fwd_plan` plans a launch (some
+    tiling has a row of one direction's H / 16 j-tiles resident at once;
+    up to H = 1568 on an H100), else "step", the form of
+    ``csrc/gru_wide_step.cuh`` (one launch a timestep, U_h read through
+    L2), which takes any such H. A function of the shapes and the
+    occupancy alone."""
+    if B < 1 or H < GRU_FWD_PAD or H % GRU_FWD_PAD or sms < 1 or (
+            directions not in (1, 2)):
+        raise ValueError(f"gru_fwd_route needs B >= 1, H a positive multiple "
+                         f"of {GRU_FWD_PAD}, sms >= 1 and 1 or 2 directions, "
+                         f"got B={B}, H={H}, sms={sms}, "
+                         f"directions={directions}")
+    jt = H // GRU_FWD_UNITS
+    resident = any(per_sm.get(r, 0) * sms // jt >= 1 for r in GRU_FWD_ROWS)
+    return "persistent" if resident else "step"
+
+
+def gru_bwd_route(B: int, H: int, sms: int, per_sm: int,
+                  directions: int = 1) -> str:
+    """The form of the 16-bit GRU BPTT (K3 with one direction, K7 with
+    two) at batch ``B`` and width ``H`` (a multiple of ``GRU_BWD_PAD``) on
+    a card of ``sms`` SMs with ``per_sm`` persistent step blocks resident
+    per SM (0 where U_h's slices and the ring do not fit in a block's
+    shared memory, above H = 576 on an H100): "persistent" where
+    :func:`gru_bwd_plan` plans a launch (a row of every direction's
+    j-tiles resident at once), else "step", the two launches a timestep of
+    ``csrc/gru_wide_step.cuh``, which take any such H. A function of the
+    shapes and the occupancy alone."""
+    if B < 1 or H < GRU_BWD_PAD or H % GRU_BWD_PAD or sms < 1 or (
+            per_sm < 0 or directions not in (1, 2)):
+        raise ValueError(f"gru_bwd_route needs B >= 1, H a positive multiple "
+                         f"of {GRU_BWD_PAD}, sms >= 1, per_sm >= 0 and 1 or 2 "
+                         f"directions, got B={B}, H={H}, sms={sms}, "
+                         f"per_sm={per_sm}, directions={directions}")
+    jt = H // GRU_BWD_UNITS
+    return ("persistent" if per_sm * sms // (directions * jt) >= 1
+            else "step")
+
+
+def gru_step_plan(T: int, B: int, H: int, backward: bool,
+                  directions: int = 1) -> dict:
+    """The launches of the step form (``csrc/gru_wide_step.cuh``) over
+    ``T`` steps at batch ``B`` and width ``H`` (a multiple of 16 forward,
+    of 64 backward): every step's grid, (H / 16 j-tiles, 64-row b-tiles,
+    directions), each block one (16 units, 64 rows) tile of its direction,
+    and the launches a call: T forward (one a step, both directions in
+    it); backward 2T + 2 (the copy of the pre-step states in the 16-bit
+    type, the gates' cotangents each step, the carry through U_h^T each
+    step but the last, then the dU_h GEMM and the db_hn sum)."""
+    pad = GRU_BWD_PAD if backward else GRU_FWD_PAD
+    if T < 1 or B < 1 or H < pad or H % pad or directions not in (1, 2):
+        raise ValueError(f"gru_step_plan needs T, B >= 1, H a positive "
+                         f"multiple of {pad} and 1 or 2 directions, got "
+                         f"T={T}, B={B}, H={H}, directions={directions}")
+    return {"grid": [H // GRU_STEP_UNITS, -(-B // GRU_STEP_ROWS), directions],
+            "launches": 2 * T + 2 if backward else T}
+
+
+# The widths of the 16-bit attention kernels (K2/K8 gathered, K4/K5
+# resident): C and H are zero-padded to these multiples by the wrappers
+# (ops/attention.py, ops/attention_resident.py), and a resident store's
+# channels to STORE_CHANNELS once at upload.
+ATTENTION_UNITS = SCORE_UNITS  # H's multiple of every 16-bit attention kernel
+ATTENTION_FWD_CHANNELS = SCORE_CHANNELS  # C's of K2 and K4
+ATTENTION_BWD_CHANNELS = DWV_TILE  # C's of K8 and K5 (the dW_v tile)
+STORE_CHANNELS = DWV_TILE  # a resident store's channels: K4's and K5's
+
+
+def store_channel_multiple(device: torch.device, dtype: torch.dtype) -> int:
+    """The multiple a gather-free resident store's channel axis is padded
+    to at upload: ``STORE_CHANNELS`` for a CUDA store that the 16-bit
+    kernels K4/K5 (K4h/K5h) read, a bf16 or float16 model's, so that no
+    call pads it; 1 (none) on the CPU and for a float32 model, whose
+    kernels K4f/K5f take any C."""
+    half = dtype in (torch.bfloat16, torch.float16)
+    return STORE_CHANNELS if device.type == "cuda" and half else 1
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a kernel entry returned a CUDA error code (the entries
     return ``cudaGetLastError()`` right after their launches)."""

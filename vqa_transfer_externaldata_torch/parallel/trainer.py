@@ -59,6 +59,7 @@ import torch.utils.checkpoint
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data.datasets import PrefetchIterator
 from vqa_transfer_externaldata_torch.models.zoo import ModelSpec
+from vqa_transfer_externaldata_torch.ops import kernels
 from vqa_transfer_externaldata_torch.ops.attention_resident import (
     pad_store_rows, prenormalize_store)
 from vqa_transfer_externaldata_torch.ops.layers import (
@@ -1333,7 +1334,9 @@ class Trainer:
                      shard: Optional[Tuple[int, int]] = None
                      ) -> Tuple[torch.Tensor, float]:
         """A store's grids on the device and their dequantization scale
-        (1.0 unless int8): padded to a multiple of 8 cells (L2-normalized
+        (1.0 unless int8): padded to a multiple of 8 cells and, on the
+        card in bf16 or float16, of ``kernels.STORE_CHANNELS`` channels
+        (L2-normalized
         when the model skips the per-cell norm, and then quantized to int8
         under ``train.store_quantize`` int8) for the gather-free path, else
         [M, N, C] as they are. ``train.store_quantize`` other than "" or
@@ -1372,11 +1375,14 @@ class Trainer:
             # f32 sources are rounded to the compute dtype before they are
             # normalized (or quantized)
             grid = torch.from_numpy(grid).to(dt).float().numpy()
+        # The 16-bit kernels' channel multiple, padded once here rather
+        # than at every call (zero channels, sliced off by the op).
+        channels = kernels.store_channel_multiple(self.device, dt)
         if self.model.store_prenormalized:
             return prenormalize_store(grid, out_dtype=store_dt,
                                       quantize=quantize, device=self.device,
-                                      shard=shard)
-        padded = pad_store_rows(grid)
+                                      shard=shard, channels=channels)
+        padded = pad_store_rows(grid, channels=channels)
         if shard is not None:
             d, n = shard
             block = np.zeros((-(-padded.shape[0] // n),) + padded.shape[1:],
