@@ -312,13 +312,16 @@ Run from the repository root. Phases (any failure exits non-zero):
    codes) at H of 8, 24, 40, 100 and 600 units and C of 16, 48, 100 and
    300 channels, which the wrappers zero-pad to their multiples, against
    its plain version (K6/K7 bit-equal to two K1/K3 calls); the GRU's step
-   form (``csrc/gru_wide_step.cuh``: one launch a step forward, two a step
-   backward, U_h read through L2) where the persistent kernels' shared
-   memory ends: K1/K3 at 1024 and 2400 units (B=256, T=26) against their
-   plain versions, timed beside ``nn.GRU``'s packed forward and backward
-   at the same width, K6/K7 at 1024 beside two K1/K3 calls; the padding's
-   cost for K2, K4, K5 and K8 at (C, H) = (2048, 500) and (2000, 512)
-   against (2048, 512); stage-2 gather-free ``vqa_attention`` at
+   form (``csrc/gru_wide_step.cuh``: ``wgmma`` tiles with U_h read through
+   L2, one launch a step forward; backward every step's gh up front, then
+   one launch a step) past the forward's crossover and where the persistent
+   BPTT's shared memory ends: K1/K3 at 1024 and 2400 units (B=256, T=26)
+   against their plain versions, timed beside ``nn.GRU``'s packed forward
+   and backward at the same width (the forward's device ms a step, the
+   BPTT's by launch), K6/K7 at 1024 beside two K1/K3 calls; the forward's
+   two forms across CROSSOVER_H at B=256 and 64 (the route's crossover);
+   the padding's cost for K2, K4, K5 and K8 at (C, H) = (2048, 500) and
+   (2000, 512) against (2048, 512); stage-2 gather-free ``vqa_attention`` at
    ``model.rnn_dim`` 1024 and 2400 in bf16 (8 steps each, the first
    against the plain path, the resident evaluator on the 1024-question
    val split), float16 at 2400, stage 1 at 1024 in bf16 (8 steps, first
@@ -335,6 +338,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -699,8 +703,9 @@ F16_STREAM_QUESTIONS, F16_STREAM_STEPS, F16_TRANSFER_STEPS = 512, 4, 4
 #     channels, which its wrapper zero-pads (a padded unit or channel adds
 #     exact zeros), held to its plain version at the limits of its own
 #     phase (float16's scaled by its step, 1/8). The GRU's step form
-#     (csrc/gru_wide_step.cuh) runs where the persistent kernels' shared
-#     memory ends (BPTT above 576 units, the forward above 1568): stage 2
+#     (csrc/gru_wide_step.cuh) runs past the forward's crossover
+#     (kernels.GRU_FWD_STEP_ABOVE, 832 units) and where the persistent
+#     BPTT's shared memory ends (above 576 units): stage 2
 #     gather-free at each of WIDE_RNN (a 1024-unit question GRU; the
 #     2400 units of Skip-Thought's uni-skip encoder, which MUTAN encodes
 #     questions with) in bf16 for WIDE_STEPS steps, its first step against
@@ -711,13 +716,27 @@ F16_STREAM_QUESTIONS, F16_STREAM_STEPS, F16_TRANSFER_STEPS = 512, 4, 4
 #     attention 16, 32 channels) in bf16 for TINY_STEPS steps a stage
 #     through cli.train, cli.eval and the Predictor. The step forms and the
 #     padding are timed: K1's and K3's step forms at B = 256, T = 26 at
-#     each of WIDE_RNN, K6's and K7's at WIDE_RNN[0], and K2, K4, K5, K8
-#     at each (C, H) of PAD_SHAPES in turns. The phase's wall is held to
+#     each of WIDE_RNN (the BPTT's split by launch from one profile),
+#     K6's and K7's at WIDE_RNN[0], the forward's two forms across
+#     CROSSOVER_H, and K2, K4, K5, K8 at each (C, H) of PAD_SHAPES in
+#     turns. The phase's wall is held to
 #     WIDTHS_BUDGET_S seconds in its report.
 WIDTH_H = (8, 24, 40, 100, 600)
 WIDTH_C = (16, 48, 100, 300)
 WIDE_RNN = (1024, 2400)
 WIDE_STEPS, WIDE_F16_STEPS, TINY_STEPS = 8, 4, 20
+# The forward's crossover sweep (widths_gru_crossover): the route keeps
+# the persistent K1 while it is no more than CROSSOVER_ROOM times the step
+# form's time at both batches (the two are within turn-to-turn noise
+# there).
+CROSSOVER_H = (512, 576, 640, 704, 768, 832, 896, 1024)
+CROSSOVER_ROOM = 1.01
+# The step form's BPTT by launch, as a profile names its kernels.
+STEP_BPTT_PARTS = {"copy": "wide::gru_wide_round_kernel",
+                   "gh": "wide::gru_wide_gh_kernel",
+                   "carry": "wide::gru_wide_carry_kernel",
+                   "duh": "attn_dwv::dwv_kernel",
+                   "dbhn": "gru_dbhn_kernel"}
 PAD_SHAPES = ((2048, 512), (2048, 500), (2000, 512))
 WIDTHS_BUDGET_S = 120
 # sort_batch_by_image permutes each batch: every reduction over it is the
@@ -4462,6 +4481,13 @@ def kernel_device_ms(fn, prefix: str, buf, runs: int = RUNS) -> float:
     """Device ms a call of ``fn`` spends in the kernels whose name starts
     with ``prefix`` (torch.profiler, read by ``tools/trace_summary``), L2
     flushed before each of ``runs`` calls, after warm-up."""
+    return split_device_ms(fn, {prefix: prefix}, buf, runs)[prefix]
+
+
+def split_device_ms(fn, parts: dict, buf, runs: int = RUNS) -> dict:
+    """Device ms a call of ``fn`` spends in each of ``parts`` ({label:
+    kernel-name prefix}), from one profile of ``runs`` calls, L2 flushed
+    before each, after warm-up."""
     import torch
 
     for _ in range(3):
@@ -4475,25 +4501,28 @@ def kernel_device_ms(fn, prefix: str, buf, runs: int = RUNS) -> float:
 
     for last_try in (False, True):
         res = profiled(calls, runs, top=None)
-        names = [k for k in res["kernels_ms"] if k.startswith(prefix)]
-        records = sum(res["kernel_records"][k] for k in names)
-        # Each call's launches of the kernel have their records: the same
-        # number a call (a lost record elsewhere in the window does not
-        # touch this sum; one of its own does). A window that lost some
-        # is taken again, once.
-        msg = (f"the profile of {prefix} holds {records} records over "
-               f"{runs} calls (lost: {res['unmatched_by_op']} at "
-               f"{res['unmatched_at_ms']} ms of a {res['window_ms']:.3f} ms "
-               f"window, clock gap {res['clock_gap_ms']} ms, "
+        names = {label: [k for k in res["kernels_ms"] if k.startswith(pre)]
+                 for label, pre in parts.items()}
+        records = {label: sum(res["kernel_records"][k] for k in ks)
+                   for label, ks in names.items()}
+        # Each call's launches of a part's kernels have their records: the
+        # same number a call (a lost record elsewhere in the window does
+        # not touch these sums; one of its own does). A window that lost
+        # some is taken again, once.
+        msg = (f"the profile of {list(parts.values())} holds {records} "
+               f"records over {runs} calls (lost: {res['unmatched_by_op']} "
+               f"at {res['unmatched_at_ms']} ms of a {res['window_ms']:.3f} "
+               f"ms window, clock gap {res['clock_gap_ms']} ms, "
                f"{res['lost_before_window']} settling launches lost)")
-        if records and records % runs == 0:
-            print(f"profile of {prefix}: {records} records over {runs} "
-                  f"calls, clock gap {res['clock_gap_ms']} ms, "
+        if all(n and n % runs == 0 for n in records.values()):
+            print(f"profile of {list(parts.values())}: {records} records "
+                  f"over {runs} calls, clock gap {res['clock_gap_ms']} ms, "
                   f"{res['lost_before_window']} settling launches lost")
             break
         print(msg + ("" if last_try else "; profiling again"))
         check(not last_try, msg + ", twice")
-    return sum(res["kernels_ms"][k] for k in names) / runs
+    return {label: sum(res["kernels_ms"][k] for k in ks) / runs
+            for label, ks in names.items()}
 
 
 def window_ok(res: dict, steps: int, what: str, last_try: bool) -> bool:
@@ -7222,13 +7251,15 @@ def widths_attention_checks(dev, errs: WidthErrors) -> None:
 def widths_gru_times(dev) -> dict:
     """K1's and K3's step forms at the training batch (B=256, T=26) at
     each of WIDE_RNN (their float16 builds too), called directly (at 1024
-    the forward's route is the persistent kernel, also timed), each beside
-    its plain version, torch.nn.GRU's packed forward or backward in the
-    same dtype at the same width (its input projection from D=300
-    included) and the bound; K6's and K7's step forms at 1024 beside two
-    K1/K3 step-form calls. Launches of one call each."""
+    the persistent K1 is timed too), each beside its plain version,
+    torch.nn.GRU's packed forward or backward in the same dtype at the
+    same width (its input projection from D=300 included) and the bound;
+    the forward's device ms a step and the BPTT's device ms by launch (the
+    copy of the states, every step's gh, the carry steps, dU_h, db_hn);
+    K6's and K7's step forms at 1024 beside two K1/K3 step-form calls.
+    Launches of one call each."""
     import torch
-    from vqa_transfer_externaldata_torch.ops import gru
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
 
     buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     out = {}
@@ -7267,10 +7298,14 @@ def widths_gru_times(dev) -> dict:
                     lambda: gru.gru_reference(gx, lens, uh, bhn), buf),
                 "library": lib_f, "bound": b1, "launches_a_call": calls[fw],
                 "library_call": f"torch.nn.GRU({D}, {Hh}) in {dtype} over a "
-                                "packed sequence, input projection included"}
-            if Hh <= 1568:  # the forward's route there: the persistent one
+                                "packed sequence, input projection included",
+                "device_ms_a_step": split_device_ms(
+                    lambda: fwd(gx, lens, uh, bhn),
+                    {"step": "wide::gru_wide_fwd_kernel"}, buf)["step"] / T}
+            if Hh <= 1568:  # where the persistent kernel fits
                 out[fw + "@" + key]["persistent_ms"] = time_cuda(
-                    lambda: gru.gru_fwd(gx, lens, uh, bhn), buf)
+                    lambda: gru._gru_fwd16(gx, lens, uh, bhn, False, dtype,
+                                           "persistent"), buf)
             out[bw + "@" + key] = {
                 "kernel": time_cuda(
                     lambda: bwd(gx, hseq, lens, uh, bhn, ghT), buf),
@@ -7279,7 +7314,16 @@ def widths_gru_times(dev) -> dict:
                 "library": lib_b, "bound": b3, "launches_a_call": calls[bw],
                 "library_call": f"backward of torch.nn.GRU({D}, {Hh}) in "
                                 f"{dtype} over a packed sequence, "
-                                "input-projection gradients included"}
+                                "input-projection gradients included",
+                "split_ms": split_device_ms(
+                    lambda: bwd(gx, hseq, lens, uh, bhn, ghT),
+                    STEP_BPTT_PARTS, buf),
+                # a carry launch's clusters against those the card holds
+                # at once: more would run in turns
+                "carry_clusters": [
+                    math.prod(kernels.gru_step_plan(T, B_TRAIN, Hh, True)[
+                        "grid"]) // kernels.GRU_STEP_CLUSTER,
+                    gru.gru_step_clusters(B_TRAIN, Hh, dev, dtype)]}
             del lib, x, packed, h_n
         # K6's and K7's step forms at 1024: both chains in each launch.
         Hh = WIDE_RNN[0]
@@ -7370,8 +7414,62 @@ def widths_gru_times(dev) -> dict:
     for k, t in out.items():
         print(f"{k}: {t['kernel']:.3f} ms (plain {t['plain']:.3f}, library "
               f"{t['library']:.3f}, bound {t['bound'][0]:.4f} by "
-              f"{t['bound'][1]}; {t['launches_a_call']} launches a call)")
+              f"{t['bound'][1]}; {t['launches_a_call']} launches a call)"
+              + (f"; device ms a step {t['device_ms_a_step']:.4f}"
+                 if "device_ms_a_step" in t else "")
+              + (f"; split {t['split_ms']}, carry clusters (a launch's, "
+                 f"the card's at once) {t['carry_clusters']}"
+                 if "split_ms" in t else ""))
     out[f"both_forms@H{H}"] = both
+    return out
+
+
+def widths_gru_crossover(dev) -> dict:
+    """The forward's two forms at B = 256 and at the serving batch B, T =
+    26, in bf16 across CROSSOVER_H, in turns (persistent, step, step,
+    persistent): at each batch the widest swept width up to which the
+    persistent K1 is the faster, and up to which it is within
+    CROSSOVER_ROOM of the step form, at every swept width; the crossover,
+    the narrower of the two batches' latter, beside
+    kernels.GRU_FWD_STEP_ABOVE, the route's."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    out = {"route_step_above": kernels.GRU_FWD_STEP_ABOVE}
+    for Bt in (B_TRAIN, B):
+        rows = {}
+        for Hh in CROSSOVER_H:
+            gx, lens, uh, bhn, _ = widths_gru_inputs(dev, T, Bt, Hh,
+                                                     torch.bfloat16, 11)
+            forms = [lambda f=f: gru._gru_fwd16(gx, lens, uh, bhn, False,
+                                                torch.bfloat16, f)
+                     for f in ("persistent", "step")]
+            turns = [time_cuda(forms[i], buf) for i in (0, 1, 1, 0)]
+            rows[Hh] = {"persistent_ms": (turns[0] + turns[3]) / 2,
+                        "step_ms": (turns[1] + turns[2]) / 2,
+                        "turns_ms": turns}
+        def up_to(room):
+            widest = 0
+            for Hh in CROSSOVER_H:
+                if rows[Hh]["persistent_ms"] > room * rows[Hh]["step_ms"]:
+                    break
+                widest = Hh
+            return widest
+
+        out[f"B{Bt}"] = {"by_width": rows,
+                         "persistent_faster_up_to": up_to(1.0),
+                         "persistent_within_room_up_to": up_to(
+                             CROSSOVER_ROOM)}
+        print(f"forward forms at B={Bt}, T={T} (bf16): " + ", ".join(
+            f"H={Hh} {r['persistent_ms']:.4f}/{r['step_ms']:.4f}"
+            for Hh, r in rows.items()) + " ms persistent/step; the "
+            f"persistent K1 faster up to H={up_to(1.0)}, within "
+            f"{CROSSOVER_ROOM} up to H={up_to(CROSSOVER_ROOM)}")
+    out["crossover"] = min(out[f"B{Bt}"]["persistent_within_room_up_to"]
+                           for Bt in (B_TRAIN, B))
+    print(f"the forward's crossover: H={out['crossover']} (the route's "
+          f"kernels.GRU_FWD_STEP_ABOVE: {kernels.GRU_FWD_STEP_ABOVE})")
     return out
 
 
@@ -7480,12 +7578,11 @@ def widths_stage2(dev, rnn: int, dtype: str, steps: int,
         bwd_form = gru._bwd_route(width_name("gru_bwd", dt), B_TRAIN,
                                   kernels.round_up(rnn, kernels.GRU_BWD_PAD),
                                   dev, 1)
+        Hs = kernels.round_up(rnn, kernels.GRU_STEP_PAD)
         fwd_n = (1 if fwd_form == "persistent" else kernels.gru_step_plan(
-            Tq, B_TRAIN, kernels.round_up(rnn, kernels.GRU_FWD_PAD),
-            False)["launches"])
+            Tq, B_TRAIN, Hs, False)["launches"])
         bwd_n = (3 if bwd_form == "persistent" else kernels.gru_step_plan(
-            Tq, B_TRAIN, kernels.round_up(rnn, kernels.GRU_BWD_PAD),
-            True)["launches"])
+            Tq, B_TRAIN, Hs, True)["launches"])
         fwd = width_name("gru_fwd", dt, fwd_form)
         # --- this path: counts from 0 ------------------------------------
         reset_counts()
@@ -7685,6 +7782,7 @@ def phase_widths(report: dict, dev) -> dict:
     print(f"widths: {len(errs.checks)} checks; each wrapper's largest "
           f"error to its limit: {errs.ratio}")
     out["gru_times"] = widths_gru_times(dev)
+    out["gru_crossover"] = widths_gru_crossover(dev)
     out["pad_times"] = widths_pad_times(dev)
     wide = WIDE_RNN[-1]
     for rnn in WIDE_RNN:
@@ -8307,7 +8405,9 @@ def main(argv=None) -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library"], "library_call": t["library_call"],
             "launches_a_call": t["launches_a_call"],
-            **{x: t[x] for x in ("persistent_ms", "two_k1_ms", "two_k3_ms")
+            **{x: t[x] for x in ("persistent_ms", "two_k1_ms", "two_k3_ms",
+                                 "device_ms_a_step", "split_ms",
+                                 "carry_clusters")
                if x in t}}
             for k, t in wt.items() if k.split("@")[0] == name}
         if name == "gru_fwd_wide" or name == "gru_bwd_wide":

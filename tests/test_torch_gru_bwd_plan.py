@@ -141,39 +141,99 @@ def test_gru_bwd_plan_at_the_padded_widths(H, B, directions):
     assert (_coverage(plan, B, Hp) == 1).all()
 
 
+def _carry_coverage(plan: dict, B: int, H: int) -> tuple:
+    """How often a carry launch of the step form takes each (direction,
+    b-tile, unit tile, gate) for its product and each (direction, row,
+    unit) for its gate backward: block (jx, by, z) of a cluster of three
+    along z is gate g = z % 3 of direction z // 3, on units 128 jx.. and
+    rows 128 by..; its gate backward takes the tile's 16-row groups q with
+    q % 3 == g, dropping rows past B and units past H."""
+    nj, gy, gz = plan["grid"]
+    rows, units = kernels.GRU_STEP_ROWS, kernels.GRU_STEP_CARRY_UNITS
+    nd = gz // kernels.GRU_STEP_CLUSTER
+    product = np.zeros((nd, gy, nj, kernels.GRU_STEP_CLUSTER), np.int64)
+    cell = np.zeros((nd, B, H), np.int64)
+    for z in range(gz):
+        d, g = divmod(z, kernels.GRU_STEP_CLUSTER)
+        for jx in range(nj):
+            for by in range(gy):
+                product[d, by, jx, g] += 1
+                for q in range(g, rows // 16, kernels.GRU_STEP_CLUSTER):
+                    r0 = by * rows + 16 * q
+                    cell[d, r0:r0 + 16, jx * units:(jx + 1) * units] += 1
+    return product, cell
+
+
+def _gh_coverage(plan: dict, M: int, H: int) -> np.ndarray:
+    """How often the step form's gh GEMM writes each (direction, saved
+    state, gate, unit) of [(T - 1) B, 3H]: block (jx, by, d) takes the r,
+    z and n columns of units 40 jx.. for saved states 256 by.."""
+    nj, gy, nd = plan["gh_grid"]
+    units, tall = kernels.GRU_STEP_UNITS, kernels.GRU_STEP_TALL
+    seen = np.zeros((nd, M, 3, H), np.int64)
+    for d in range(nd):
+        for jx in range(nj):
+            for by in range(gy):
+                seen[d, by * tall:(by + 1) * tall, :,
+                     jx * units:(jx + 1) * units] += 1
+    return seen
+
+
 @pytest.mark.parametrize("H", [600, 640, 1024, 2400])
 @pytest.mark.parametrize("B", [1, 65, 256])
 @pytest.mark.parametrize("directions", [1, 2])
 def test_gru_step_plan_backward_past_the_persistent_kernel(H, B, directions):
     """Past H = 576 no persistent step block fits (0 blocks an SM): the
-    route takes the step form, whose every step's grid takes each
-    (direction, row, unit) once, 2T + 2 launches a call, where the
-    persistent plan raises."""
-    Hp = _padded(H)
+    route takes the step form, where the persistent plan raises. Its plan:
+    every carry launch takes each (direction, b-tile, unit tile, gate)
+    once for the product and each (direction, row, unit) once for the
+    gate backward, in clusters of three along z; the gh GEMM covers
+    [(T - 1) B, 3H] once; a partial of db_hn a carry block; the copies of
+    h and G Hq = H rounded up to 256 wide; T + 3 + directions launches a
+    call (the copy, the gh GEMM, T carries, dU_h a direction, db_hn). The
+    step form takes H padded to 16 (600 to 608, not 640)."""
+    Hp = kernels.round_up(H, kernels.GRU_BWD_PAD)
     assert kernels.gru_bwd_route(B, Hp, 132, 0, directions) == "step"
     with pytest.raises(ValueError, match="gru_bwd_plan"):
         kernels.gru_bwd_plan(B, Hp, 132, 0, directions)
-    plan = kernels.gru_step_plan(26, B, Hp, True, directions)
-    assert plan["launches"] == 2 * 26 + 2
-    nj, gy, gz = plan["grid"]
-    assert (nj * kernels.GRU_STEP_UNITS, gz) == (Hp, directions)
-    assert gy * kernels.GRU_STEP_ROWS >= B > (gy - 1) * kernels.GRU_STEP_ROWS
+    Hs = kernels.round_up(H, kernels.GRU_STEP_PAD)
+    T = 3
+    plan = kernels.gru_step_plan(T, B, Hs, True, directions)
+    assert plan["launches"] == T + 3 + directions
+    assert kernels.gru_step_plan(26, B, Hs, True, directions)["launches"] \
+        == 26 + 3 + directions
+    assert plan["cluster"] == [1, 1, kernels.GRU_STEP_CLUSTER]
+    assert plan["grid"][2] == kernels.GRU_STEP_CLUSTER * directions
+    assert plan["partials"] == kernels.GRU_STEP_CLUSTER * plan["grid"][1]
+    assert plan["Hq"] % 256 == 0 and Hs <= plan["Hq"] < Hs + 256
+    assert plan["grid"][0] * kernels.GRU_STEP_CARRY_UNITS <= plan["Hq"]
+    product, cell = _carry_coverage(plan, B, Hs)
+    assert (product == 1).all() and (cell == 1).all()
+    assert (_gh_coverage(plan, (T - 1) * B, Hs) == 1).all()
     with pytest.raises(ValueError, match="gru_step_plan"):
-        kernels.gru_step_plan(26, B, Hp - 16, True, directions)
+        kernels.gru_step_plan(T, B, Hs - 8, True, directions)
 
 
 def test_the_step_form_reuses_k3s_dwh_and_dbhn_kernels():
     """The step form's libraries build csrc/gru_wide_step.cuh on K3's
-    header: its BPTT ends in gru_bwd_step.cuh's dU_h GEMM and db_hn sum,
-    which it launches, and holds no persistent launch of its own."""
+    header and K5's: its BPTT ends in attention_dwv.cuh's wgmma dW_v
+    product (dU_h is that product over the saved states) and
+    gru_bwd_step.cuh's db_hn sum, which it launches unchanged, and holds no
+    persistent launch and no K3 dU_h GEMM of its own; its own kernels are
+    the forward step, the copy, the gh GEMM and the carry."""
     for name in ("gru_fwd_wide", "gru_bwd_wide"):
-        assert [p.name for p in kernels.sources(name)] == [
-            f"{name}.cu", "gru_wide_step.cuh", "gru_bwd_step.cuh",
-            "mma_sync.cuh", "elem16.cuh"]
+        src = [p.name for p in kernels.sources(name)]
+        assert src[:2] == [f"{name}.cu", "gru_wide_step.cuh"]
+        for dep in ("attention_dwv.cuh", "score_gemm.cuh", "gru_bwd_step.cuh",
+                    "mma_sync.cuh", "elem16.cuh"):
+            assert dep in src, dep
         f16 = [p.name for p in kernels.sources(f"{name}_f16")]
-        assert f16 == [f"{name}_f16.cu", f"{name}.cu", "gru_wide_step.cuh",
-                       "gru_bwd_step.cuh", "mma_sync.cuh", "elem16.cuh"]
+        assert f16 == [f"{name}_f16.cu"] + src
     step = (kernels.CSRC / "gru_wide_step.cuh").read_text()
-    assert "gru_duh_pipe_kernel<E><<<" in step and "gru_dbhn_kernel<<<" in step
+    assert "attn_dwv::launch_dwv(" in step and "gru_dbhn_kernel<<<" in step
+    assert "gru_duh_pipe_kernel" not in step
     assert "cudaLaunchCooperativeKernel" not in step
-    assert step.count("__global__") == 4  # forward, copy, dgx, carry
+    assert step.count("__global__") == 4  # forward, copy, gh, carry
+    for kernel in ("gru_wide_fwd_kernel", "gru_wide_round_kernel",
+                   "gru_wide_gh_kernel", "gru_wide_carry_kernel"):
+        assert kernel in step, kernel

@@ -239,33 +239,53 @@ def test_gru_fwd_plan_at_the_padded_widths(H, B, directions):
     assert (_coverage(plan, B, H, directions) == 1).all()
 
 
-def _step_coverage(grid: list, B: int, H: int) -> np.ndarray:
-    """How often the step form's blocks write each (direction, row, unit)
-    in a step: block (jx, by, d) owns units 16 jx.. and rows 64 by.. of
-    direction d, dropping rows past B."""
-    nj, gy, gz = grid
-    seen = np.zeros((gz, B, H), np.int64)
+def _step_coverage(plan: dict, B: int, H: int) -> tuple:
+    """How often the step form's forward (csrc/gru_wide_step.cuh) takes
+    each (direction, row, unit) in a step for its cell, and each (direction,
+    b-tile, unit tile, k) of its product: block (x, by, d) is half x % 2
+    of cluster (x // 2, by, d), which owns units 40 (x // 2).. and rows
+    256 by.. of direction d; the half takes k in [half split_k, (half + 1)
+    split_k) of gh's sum and the cell of rows 256 by + 128 half.., dropping
+    rows past B, units and k past H."""
+    nx, gy, gz = plan["grid"]
+    split = plan["cluster"][0]
+    units, tall = kernels.GRU_STEP_UNITS, kernels.GRU_STEP_TALL
+    rows = tall // split
+    cell = np.zeros((gz, B, H), np.int64)
+    ks = np.zeros((gz, gy, nx // split, H), np.int64)
     for d in range(gz):
-        for jx in range(nj):
+        for x in range(nx):
+            jx, half = divmod(x, split)
             for by in range(gy):
-                seen[d, by * kernels.GRU_STEP_ROWS:(by + 1)
-                     * kernels.GRU_STEP_ROWS,
-                     jx * kernels.GRU_STEP_UNITS:(jx + 1)
-                     * kernels.GRU_STEP_UNITS] += 1
-    return seen
+                r0 = by * tall + half * rows
+                cell[d, r0:r0 + rows, jx * units:(jx + 1) * units] += 1
+                ks[d, by, jx, half * plan["split_k"]:
+                   (half + 1) * plan["split_k"]] += 1
+    return cell, ks
 
 
-@pytest.mark.parametrize("H", [16, 608, 1584, 2400])
-@pytest.mark.parametrize("B", [1, 63, 64, 65, 256])
+@pytest.mark.parametrize("H", [16, 608, 1024, 1584, 2400])
+@pytest.mark.parametrize("B", [1, 63, 128, 129, 256, 300])
 @pytest.mark.parametrize("directions", [1, 2])
 def test_gru_step_plan_forward_covers_every_tile_once(H, B, directions):
     """The step form's forward (csrc/gru_wide_step.cuh): every step's grid
-    takes every (direction, row, unit) once, T launches a call; past the
-    persistent kernel's shared memory (H = 1584, 2400) it is the route."""
+    takes every (direction, row, unit) once for the cell and every k of
+    each tile's product once over the cluster's two halves, in clusters of
+    two along x, T launches a call; past the persistent kernel's shared
+    memory (H = 1584, 2400) it is the route, as past
+    kernels.GRU_FWD_STEP_ABOVE."""
     plan = kernels.gru_step_plan(26, B, H, False, directions)
     assert plan["launches"] == 26
     assert plan["grid"][2] == directions
-    assert (_step_coverage(plan["grid"], B, H) == 1).all()
+    assert plan["cluster"] == [kernels.GRU_STEP_SPLIT, 1, 1]
+    assert plan["grid"][0] % kernels.GRU_STEP_SPLIT == 0
+    assert plan["split_k"] % 64 == 0 and 2 * plan["split_k"] >= H
+    cell, ks = _step_coverage(plan, B, H)
+    assert (cell == 1).all()
+    assert (ks == 1).all()
+    if H > kernels.GRU_FWD_STEP_ABOVE:
+        assert kernels.gru_fwd_route(B, H, SMS, H100_512, directions) == (
+            "step")
     if H > 1568:  # not even a 16-row block's U_h slice fits
         assert kernels.gru_fwd_route(B, H, SMS, {16: 0, 64: 0},
                                      directions) == "step"

@@ -151,14 +151,18 @@ def test_gru_fwd_past_the_64_row_tile_matches_plain(dev, B, reverse):
     """At H = 880 a 64-row block's shared memory does not fit, so every
     batch takes 16-row blocks (B=256 walking b-tiles), still within 2e-3
     of the plain version and bit-equal to K6's matching direction (two
-    launches of one kernel body, K6's with both chains)."""
+    launches of one kernel body, K6's with both chains). The persistent
+    form is asked for: the route takes the step form past
+    kernels.GRU_FWD_STEP_ABOVE."""
     gx, lens, uh, bhn = _gru_inputs(dev, 26, B, 880, seed=6)
     lens[0] = 26
     cfg = gru.gru_fwd_launch_config(B, 880, dev)
     assert cfg["rows"] == 16 and cfg["per_sm_by_rows"][64] == 0
-    hT, hseq = gru.gru_fwd(gx, lens, uh, bhn, reverse=reverse)
+    hT, hseq = gru._gru_fwd16(gx, lens, uh, bhn, reverse, torch.bfloat16,
+                              "persistent")
     rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
-    k6 = gru.bigru_fwd(gx, gx, lens, uh, uh, bhn, bhn)
+    k6 = gru._bigru_fwd16(gx, gx, lens, uh, uh, bhn, bhn, torch.bfloat16,
+                          "persistent")
     torch.cuda.synchronize()
     assert (hseq - rseq).abs().max().item() <= 2e-3
     assert (hT - rT).abs().max().item() <= 2e-3
@@ -460,7 +464,7 @@ def test_gru_bwd_launch_shape_and_limit(dev):
     """At the training shape the step kernel runs 32 j-tiles x 4 b-tile
     rows of blocks, one a SM; at a width whose U_h slices do not fit in
     shared memory the persistent launch's shape raises, naming the limit,
-    and gru_bwd runs the step form (kernels.gru_bwd_route: 2T + 2
+    and gru_bwd runs the step form (kernels.gru_bwd_route: T + 4
     launches) against its plain version."""
     cfg = gru.gru_bwd_launch_config(256, 512, dev)
     assert cfg["grid"] == [32, 4, 1]
@@ -473,7 +477,8 @@ def test_gru_bwd_launch_shape_and_limit(dev):
     gx, hseq, lens, uh, bhn, ghT = _k3_k7_inputs(dev, 2, 4, 640, False)
     before = gru.gru_bwd_wide.launches
     got = gru.gru_bwd(gx, hseq, lens, uh, bhn, ghT)
-    assert gru.gru_bwd_wide.launches == before + 6
+    assert gru.gru_bwd_wide.launches == before + kernels.gru_step_plan(
+        2, 4, 640, True)["launches"]
     want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT)
     for a, b in zip(got, want):
         assert _rel_err(a, b) <= TOL_K3
@@ -574,6 +579,44 @@ def test_attention_resident_glimpses_match_plain(dev, glimpses, shape,
         assert _rel_err(a, b) <= G * TOL_K5, (name, _rel_err(a, b))
     for k in range(G):
         assert _rel_err(got[2][:, k], want[2][:, k]) <= TOL_K5, k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_attention_resident_softmax_past_48kb(dev, dtype):
+    """K4 (K4h, K4f) at G = 8 glimpses over a 28 x 28 grid (Np = 784): the
+    wsum launch's softmaxes take 2 G Np 4 = 50,176 B of shared memory
+    (K4f's G Np 4), past the 48 KB a launch has without opting in, which
+    the launches now do up to the card's limit (kernels.SMEM_OPTIN); the
+    wrappers raise only past it. Against the plain version at the
+    glimpse tests' limits (float32's 1e-5)."""
+    M, n_valid, C, H, B, G = 5, 784, 128, 128, 6, 8
+    store, rows, qh, wv, _ = _resident_inputs(dev, M, n_valid, C, H, B)
+    store, wv = store.to(dtype), wv.to(dtype)
+    g = torch.Generator(device=dev).manual_seed(8)
+    ws = (torch.randn(H, G, generator=g, device=dev) * 0.05).to(dtype).float()
+    counter = {torch.bfloat16: ar.attention_resident_fwd,
+               torch.float16: ar.attention_resident_fwd_f16,
+               torch.float32: ar.attention_resident_fwd_f32}[dtype]
+    kw = dict(n_valid=n_valid, normalize=False)
+    before = counter.launches
+    va, al, _ = ar.attention_resident_fwd(store, rows, qh, wv, ws, **kw)
+    rv, ra, _ = ar.attention_resident_fwd_reference(store, rows, qh, wv, ws,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert va.shape == (B, G * C) and al.shape == (B, n_valid, G)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -10
+    for k in range(G):
+        a, b = va[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), k
+    assert (al - ra).abs().max().item() <= 1e-5
+    cell = (1 if dtype == torch.float32 else 2) * G * 4  # bytes a cell
+    big = (kernels.SMEM_OPTIN // cell + 8) // 8 * 8  # past the limit
+    with pytest.raises(ValueError, match="shared memory"):
+        ar.attention_resident_fwd(store[:, :1].expand(M, big, C).contiguous(),
+                                  rows, qh, wv, ws, n_valid=big,
+                                  normalize=False)
 
 
 def _int8_codes(store):
@@ -911,8 +954,9 @@ def test_bigru_wrappers_reject_what_the_kernels_do_not_take(dev):
     before = (gru.bigru_bwd.launches, gru.bigru_bwd_wide.launches)
     got = gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghT,
                         ghT)
-    assert (gru.bigru_bwd.launches,
-            gru.bigru_bwd_wide.launches) == (before[0], before[1] + 6)
+    assert (gru.bigru_bwd.launches, gru.bigru_bwd_wide.launches) == (
+        before[0], before[1] + kernels.gru_step_plan(2, 4, 640, True,
+                                                     2)["launches"])
     want = gru.bigru_bwd_reference(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf,
                                    bhnb, ghT, ghT)
     for a, b in zip(got, want):
@@ -921,8 +965,11 @@ def test_bigru_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 def _two_k1(gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
     """K1 on each chain, in K6's output order (hTf, hTb, hseqf, hseqb)."""
-    (hTf, hsf), (hTb, hsb) = (gru.gru_fwd(gxf, lens, uhf, bhnf),
-                              gru.gru_fwd(gxb, lens, uhb, bhnb, reverse=True))
+    (hTf, hsf), (hTb, hsb) = (
+        gru._gru_fwd16(gxf, lens, uhf, bhnf, False, torch.bfloat16,
+                       "persistent"),
+        gru._gru_fwd16(gxb, lens, uhb, bhnb, True, torch.bfloat16,
+                       "persistent"))
     return hTf, hTb, hsf, hsb
 
 
@@ -957,13 +1004,15 @@ def test_bigru_fwd_two_launches_past_both_directions_resident(dev):
     """At H = 1568 one direction's 98 j-tiles of 16-row blocks fit on the
     card but not both directions' 196: the plan takes one launch a chain
     of the same kernel (grid [98, rows, 1], 2 launches), both counted, and
-    the chains still equal two K1 calls bit for bit."""
+    the chains still equal two K1 calls bit for bit. The persistent form
+    is asked for: the route takes the step form past
+    kernels.GRU_FWD_STEP_ABOVE."""
     cfg = gru.bigru_fwd_launch_config(256, 1568, dev)
     assert cfg["launches"] == 2 and cfg["grid"][2] == 1
     assert cfg["rows"] == 16 and cfg["grid"][0] == 98
     args = _bigru_inputs(dev, 26, 256, 1568, seed=13)
     before = gru.bigru_fwd.launches
-    got = gru.bigru_fwd(*args)
+    got = gru._bigru_fwd16(*args, torch.bfloat16, "persistent")
     after = gru.bigru_fwd.launches
     ones = _two_k1(*args)
     want = gru.bigru_reference(*args)
@@ -2603,8 +2652,9 @@ def _gru_width_case(dev, T, B, H, dtype):
         before = c.launches
         got = gru.gru_bwd(gx, rseq, lens, uh, bhn, ghT, reverse=rev)
         torch.cuda.synchronize()
-        assert c.launches == before + (3 if bwd_form == "persistent"
-                                       else 2 * T + 2)
+        assert c.launches == before + (
+            3 if bwd_form == "persistent"
+            else kernels.gru_step_plan(T, B, Hb, True)["launches"])
         want = gru.gru_bwd_reference(gx, rseq, lens, uh, bhn, ghT,
                                      reverse=rev)
         for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
@@ -2626,29 +2676,49 @@ def _gru_width_case(dev, T, B, H, dtype):
 @pytest.mark.parametrize("dtype", DTYPES16)
 def test_gru_kernels_take_every_width(dev, H, dtype):
     """K1/K3/K6/K7 (bf16) and K1h/K3h/K6h/K7h (float16) at widths off 16
-    and 64: 600 pads to 608 forward (the persistent kernel) and to 640
-    backward (past its shared memory: the step form)."""
+    and 64: 600 pads to 608 forward (past kernels.GRU_FWD_STEP_ABOVE: the
+    step form) and to 640 backward (past the persistent kernel's shared
+    memory: the step form)."""
     forms = _gru_width_case(dev, 7, 20, H, dtype)
-    assert forms == ("persistent", "step" if H > 576 else "persistent")
+    Hf = kernels.round_up(H, kernels.GRU_FWD_PAD)
+    assert forms == ("step" if Hf > kernels.GRU_FWD_STEP_ABOVE
+                     else "persistent", "step" if H > 576 else "persistent")
 
 
-@pytest.mark.parametrize("H", [1024, 2400])
+@pytest.mark.parametrize("H", [100, 600, 1024, 2400])
 @pytest.mark.parametrize("dtype", DTYPES16)
 def test_gru_step_form_at_the_wide_models(dev, H, dtype):
-    """At B = 256, T = 26: a 1024-unit question GRU (K1 persistent, K3 in
-    the step form) and Skip-Thought's 2400 units (both in the step form,
-    U_h 34.6 MB through L2)."""
+    """At B = 256, T = 26: a 1024-unit question GRU and Skip-Thought's 2400
+    units (both forms the step form, U_h through L2), and the odd widths
+    100 (the persistent kernels) and 600 (the step forms, padded to 608
+    and 640), one and two directions against the plain versions, each of
+    K6/K7's directions bit-equal to a K1/K3 call; two calls of the step
+    form bit-equal."""
     forms = _gru_width_case(dev, 26, 256, H, dtype)
-    assert forms == ("persistent" if H <= 1568 else "step", "step")
+    Hf = kernels.round_up(H, kernels.GRU_FWD_PAD)
+    assert forms == ("step" if Hf > kernels.GRU_FWD_STEP_ABOVE
+                     else "persistent", "step" if H > 576 else "persistent")
+    gx, lens, uh, bhn = _gru_inputs(dev, 26, 256, H, seed=5)
+    uh = uh.to(dtype)
+    a = gru.gru_fwd_wide(gx, lens, uh, bhn)
+    b = gru.gru_fwd_wide(gx, lens, uh, bhn)
+    ghT = torch.randn(256, H, generator=torch.Generator(device=dev)
+                      .manual_seed(6), device=dev)
+    c = gru.gru_bwd_wide(gx, a[1], lens, uh, bhn, ghT, reverse=True)
+    d = gru.gru_bwd_wide(gx, a[1], lens, uh, bhn, ghT, reverse=True)
+    torch.cuda.synchronize()
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("H", [64, 512, 1024])
+@pytest.mark.parametrize("H", [64, 100, 512, 600, 1024])
 @pytest.mark.parametrize("dtype", DTYPES16)
 def test_gru_step_form_where_both_forms_run(dev, H, dtype):
     """The step form called directly (gru_fwd_wide, gru_bwd_wide and their
     two-direction and float16 twins) at widths the persistent kernels also
-    take: against the plain version, T and 2T + 2 launches, two calls
-    bit-equal, K6/K7's step form bit-equal to two K1/K3 step-form calls."""
+    take and at odd ones: against the plain version, the plan's launches
+    (T and T + 4), two calls bit-equal, K6/K7's step form bit-equal to two
+    K1/K3 step-form calls."""
     T, B = 26, 64
     gxf, gxb, lens, uhf, uhb, bhnf, bhnb = _bigru_inputs(dev, T, B, H)
     uhf, uhb = uhf.to(dtype), uhb.to(dtype)
@@ -2665,8 +2735,10 @@ def test_gru_step_form_where_both_forms_run(dev, H, dtype):
     got2 = gru.gru_bwd_wide(gxf, rseq, lens, uhf, bhnf, ghT)
     want = gru.gru_bwd_reference(gxf, rseq, lens, uhf, bhnf, ghT)
     torch.cuda.synchronize()
-    assert (fw.launches, bw.launches) == (before[0] + 2 * T,
-                                          before[1] + 2 * (2 * T + 2))
+    Hb = kernels.round_up(H, kernels.GRU_BWD_PAD)
+    assert (fw.launches, bw.launches) == (
+        before[0] + 2 * T,
+        before[1] + 2 * kernels.gru_step_plan(T, B, Hb, True)["launches"])
     assert (hseq - rseq).abs().max().item() <= 2e-3 * _step(dtype)
     assert torch.equal(hseq, again[1]) and torch.equal(hT, again[0])
     for name, a, b, c in zip(("dgx", "duh", "dbhn"), got, want, got2):

@@ -418,26 +418,45 @@ def test_bwd_route_by_shape(H, form, directions):
 
 
 @pytest.mark.parametrize("H,form", [(512, "persistent"),
-                                    (1024, "persistent"),
-                                    (1568, "persistent"), (1584, "step"),
+                                    (832, "persistent"), (848, "step"),
+                                    (1024, "step"),
+                                    (1568, "step"), (1584, "step"),
                                     (2400, "step")])
 @pytest.mark.parametrize("directions", [1, 2])
 def test_fwd_route_by_shape(H, form, directions):
-    """The forward takes the persistent kernel while a 16-row block's U_h
-    slice fits (up to H = 1568 on an H100; both directions past H = 1056
-    as two launches) and the step form past it; where a block fits but its
-    j-tiles cannot be resident on the card (a card of fewer SMs than
-    j-tiles) the step form too. The route agrees with gru_fwd_plan."""
+    """The forward takes the persistent kernel up to
+    kernels.GRU_FWD_STEP_ABOVE (832 units, phase 30's crossover) where a
+    block's U_h slice fits and its j-tiles can be resident, and the step
+    form past it, though the persistent kernel still plans up to H = 1568
+    (both directions past H = 1056 as two launches; past 1568 no tiling
+    fits and its plan raises); where a block fits but its j-tiles cannot
+    be resident on the card (a card of fewer SMs than j-tiles) the step
+    form too."""
     per_sm = _fwd_per_sm(H)
     assert kernels.gru_fwd_route(256, H, SMS, per_sm, directions) == form
-    if form == "persistent":
+    if H <= 1568:
         kernels.gru_fwd_plan(256, H, SMS, per_sm, directions)
-        few = H // kernels.GRU_FWD_UNITS - 1
-        assert kernels.gru_fwd_route(256, H, few, per_sm, directions) == (
-            "step")
     else:
         with pytest.raises(ValueError, match="resident"):
             kernels.gru_fwd_plan(256, H, SMS, per_sm, directions)
+    if form == "persistent":
+        few = H // kernels.GRU_FWD_UNITS - 1
+        assert kernels.gru_fwd_route(256, H, few, per_sm, directions) == (
+            "step")
+
+
+@pytest.mark.parametrize("B", [1, 64, 256, 1024])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_fwd_route_crossover(B, directions):
+    """The crossover is a width, the same at every batch: the persistent
+    K1/K6 at kernels.GRU_FWD_STEP_ABOVE, the step form one padded width
+    (16 units) past it, where both forms run."""
+    at = kernels.GRU_FWD_STEP_ABOVE
+    assert at % kernels.GRU_FWD_PAD == 0
+    for H, form in ((at, "persistent"), (at + kernels.GRU_FWD_PAD, "step")):
+        per_sm = _fwd_per_sm(H)
+        kernels.gru_fwd_plan(B, H, SMS, per_sm, directions)
+        assert kernels.gru_fwd_route(B, H, SMS, per_sm, directions) == form
 
 
 @pytest.mark.parametrize("H", WIDTH_H + (1024, 2400))
@@ -450,7 +469,8 @@ def test_route_of_the_padded_widths(H):
     fwd = kernels.gru_fwd_route(64, Hf, SMS, _fwd_per_sm(Hf))
     bwd = kernels.gru_bwd_route(64, Hb, SMS,
                                 int(_bwd_smem(Hb) <= kernels.SMEM_OPTIN))
-    assert fwd == ("persistent" if Hf <= 1568 else "step")
+    assert fwd == ("persistent" if Hf <= kernels.GRU_FWD_STEP_ABOVE
+                   else "step")
     assert bwd == ("persistent" if Hb <= 576 else "step")
 
 

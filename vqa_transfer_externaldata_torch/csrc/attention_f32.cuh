@@ -179,8 +179,9 @@ __global__ void __launch_bounds__(WSUM_CHANNELS)
 // -> vatt [B, G, C] f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and
 // h [B, Np, H] f32 when hsave is not null; rnorm [B*Np] f32 holds r when
 // normalize. Scratch: part [ceil(H/128), G, B*Np] f32. Np * G * 4 bytes of
-// shared memory (the caller keeps it within 48 KB). Two launches (three
-// with normalize) on `stream`, added to *launched.
+// shared memory, past 48 KB opted into (the caller keeps it within the
+// card's limit). Two launches (three with normalize) on `stream`, added to
+// *launched.
 template <class Cells>
 int attn_f32_fwd(const Cells& cells_in, const float* wv, const float* qh,
                  const float* ws, float* part, float* rnorm, float* hsave,
@@ -205,10 +206,18 @@ int attn_f32_fwd(const Cells& cells_in, const float* wv, const float* qh,
                    G);
   ++*launched;
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(Np) * G * sizeof(float);
+  if (smem > 48 * 1024 &&  // past the default: opt in, up to the card's
+      (err = cudaFuncSetAttribute(attn_f32_wsum_kernel<Cells>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   attn_f32_wsum_kernel<Cells>
       <<<dim3((C + WSUM_CHANNELS - 1) / WSUM_CHANNELS, B), WSUM_CHANNELS,
-         Np * G * sizeof(float), stream>>>(cells_in, part, rn, alpha, vatt,
-                                           B, Np, n_valid, C, n_tiles, G);
+         smem, stream>>>(cells_in, part, rn, alpha, vatt, B, Np, n_valid, C,
+                         n_tiles, G);
   ++*launched;
   return static_cast<int>(cudaGetLastError());
 }

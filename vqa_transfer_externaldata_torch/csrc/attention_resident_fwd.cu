@@ -53,7 +53,9 @@
 //     epilogue: the kernel is instantiated over the row type and BN only.
 //  2. attn_res_wsum_kernel: one block per (question, 512-channel chunk) sums
 //     the partial scores in a fixed order (deterministic), takes the G
-//     masked softmaxes in shared memory, then forms all G weighted sums in
+//     masked softmaxes in shared memory (2 G Np floats; past the default
+//     48 KB the launch opts in, up to the card's limit: G = 8 on a 28 x 28
+//     grid takes 50,176 B), then forms all G weighted sums in
 //     ONE pass over the store row (coalesced E-pair loads, G accumulator
 //     pairs per thread): the row is read once, not G times. G is a template
 //     parameter here, 1..8 (the TPU kernel's limit, its ws sublane window).
@@ -196,6 +198,15 @@ int launch_fwd(const void* store, const void* rows, const void* wvt,
   ++*launched;
   const dim3 g2(B, (C + kWsumChannels - 1) / kWsumChannels);
   const size_t smem = 2 * static_cast<size_t>(G) * Np * sizeof(float);
+  if (smem > 48 * 1024) {  // past the default: opt in, up to the card's
+    e = cudaFuncSetAttribute(attn_res_wsum_kernel<G, T, E>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(e);
+    }
+  }
   attn_res_wsum_kernel<G, T, E><<<g2, kWsumThreads, smem, st>>>(
       static_cast<const T*>(store),
       static_cast<const int*>(rows), static_cast<const float*>(part),

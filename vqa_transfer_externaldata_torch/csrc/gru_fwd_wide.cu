@@ -6,19 +6,23 @@
 //
 // Replaces vqa_transfer_externaldata_tpu/ops/gru.py::_gru_fwd_kernel (B1)
 // and ::_bigru_fwd_kernel (B7) at the widths the persistent kernel of
-// gru_fwd_step.cuh cannot take (a block's U_h slice past shared memory, H
-// above 1568 on an H100, or a grid that cannot be resident):
-// ops/kernels.py::gru_fwd_route picks this form by shape.
+// gru_fwd_step.cuh does not take (above ops/kernels.py::GRU_FWD_STEP_ABOVE,
+// where this form is the faster on an H100, or where a block's U_h slice
+// or the grid does not fit): ops/kernels.py::gru_fwd_route picks this form
+// by shape.
 //
-// What bounds it on an H100: at B = 256, T = 26, H = 2400 a step reads U_h
-// (34.6 MB of E, kept in the 50 MB L2) once per 64-row b-tile (4 a step)
-// and does 2 x 256 x 2400 x 7200 operations (8.8 GFLOP, 9 us at the
-// 16-bit peak); the L2's rate and the 26 dependent launches bound it.
+// What bounds it on an H100: at B = 256, T = 26, H = 2400 a step does
+// 2 x 256 x 2400 x 7200 operations (8.85 GFLOP, 9 us at the 16-bit peak)
+// on U_h (34.6 MB of E, kept in the 50 MB L2); the L2's rate into the SMs
+// and the 26 dependent launches bound it.
 //
-// Design: gru_wide_step.cuh's gru_wide_fwd_kernel, one launch a step, the
-// direction on blockIdx.z: T launches a call whatever the directions, each
-// direction of a bigru_fwd_wide call bit-equal to a gru_fwd_wide call with
-// the same `reverse`. No atomics: the result is deterministic.
+// Design: gru_wide_step.cuh's gru_wide_fwd_kernel, one launch a step: a
+// 256-row x 40-unit tile a cluster of two blocks on wgmma (the units' r, z
+// and n columns of U_h read as they lie, each block half of the sum's K),
+// the cell in the epilogue, the direction on blockIdx.z: T launches a call
+// whatever the directions, each direction of a bigru_fwd_wide call
+// bit-equal to a gru_fwd_wide call with the same `reverse`. No atomics:
+// the result is deterministic.
 
 #include "gru_wide_step.cuh"
 

@@ -1,11 +1,11 @@
 // The step form of the 16-bit GRU recurrence and its BPTT for Hopper
-// (sm_90a), for widths whose persistent kernels cannot run: the forward of
-// K1/K6 past the U_h slice a block of gru_fwd_step.cuh can hold (H above
-// 1568 on an H100) or where its grid cannot be resident, the BPTT of K3/K7
-// past the slices and ring of gru_bwd_step.cuh (H above 576). The libraries
-// csrc/gru_fwd_wide.cu and csrc/gru_bwd_wide.cu build it (one direction for
-// K1/K3, both on blockIdx.z for K6/K7), and their float16 twins
-// (*_wide_f16.cu) build it again with E = float16 (elem16.cuh).
+// (sm_90a), for widths the persistent kernels do not take: the forward of
+// K1/K6 past the crossover width (ops/kernels.py::GRU_FWD_STEP_ABOVE) or the
+// U_h slice a block of gru_fwd_step.cuh can hold, the BPTT of K3/K7 past
+// the slices and ring of gru_bwd_step.cuh (H above 576 on an H100). The
+// libraries csrc/gru_fwd_wide.cu and csrc/gru_bwd_wide.cu build it (one
+// direction for K1/K3, both on blockIdx.z for K6/K7), and their float16
+// twins (*_wide_f16.cu) build it again with E = float16 (elem16.cuh).
 //
 // Replaces, at those widths, vqa_transfer_externaldata_tpu/ops/gru.py's
 // _gru_fwd_kernel / _bigru_fwd_kernel (B1/B7) and _gru_bwd_kernel /
@@ -17,73 +17,116 @@
 // (__fmul_rn / __fadd_rn), as the plain version rounds them, so no
 // contraction into an FMA is taken that JAX does not take.
 //
-// What bounds it on an H100: every step reads U_h (3 H^2 E values: 34.6 MB
-// at H = 2400, within the 50 MB L2) once per 64-row b-tile of the batch,
-// and the step's 2 B H 3H operations are small (B = 256, H = 2400: 8.8
-// GFLOP, 9 us at the 16-bit peak). U_h is not held in shared memory (a
-// 16-unit slice is 230 KB at H = 2400): each block streams its slices
-// through a cp.async ring, so the L2's rate and the T dependent launches
-// bound it.
+// What bounds it on an H100: a step's product is 2 B H 3H operations (B =
+// 256, H = 2400: 8.85 GFLOP, 9 us at the 16-bit peak) on U_h (34.6 MB of E,
+// which the 50 MB L2 keeps between steps) and the state; the T dependent
+// steps cannot overlap. A step is bound by the bytes its tiles read from
+// L2 (each tile re-reads the operand it shares with the other tiles of its
+// row or column), then by its elementwise epilogue's loads from HBM and
+// its launch. Every 16-bit product is a GEMM tile on wgmma.
 //
-// Design, one launch a step (the launch boundary is the step's barrier):
-//  - gru_wide_fwd_kernel: block (jx, bt, d) takes units 16 jx.. and batch
-//    rows 64 bt.. of direction d at step k: gh = E(h_prev) @ U_h[:, its 48
-//    columns] in a 3-stage ring of 64-wide k chunks (E(h_prev) from the E
-//    ping-pong copy [2, B, H] the step before wrote, the U_h columns
-//    through L2), 8 warps of (16 rows, one n8 half of the 16 units) x 3
-//    gates, mma.sync m16n8k16 (mma_sync.cuh) from a zero accumulator, k
-//    ascending; each lane applies the cell to its 4 elements from the
-//    accumulators and writes hseq[t], hT at the last step and the E copy.
-//  - the BPTT, 2T + 2 launches: gru_wide_round_kernel writes the E copy of
-//    every pre-step state once; gru_wide_dgx_kernel recomputes gh on the
-//    same ring and tiles, then forms dgx_t, the E gate cotangents G_t =
-//    (da_r, da_z, dgh_n), the part of dh_prev that does not go through U_h
-//    and the per-16-row dgh_n partials; gru_wide_carry_kernel (every step
-//    but the last) adds G_t @ U_h^T gate by gate, dh = ((part + P_r) +
-//    P_z) + P_n, on the same ring (G_t's 64-column chunks and U_h's 16 rows
-//    of the block's units); then gru_bwd_step.cuh's gru_duh_pipe_kernel
-//    (dU_h) and gru_dbhn_kernel (db_hn in step order), as K3 runs them.
+// Design: tile_gemm takes a 128- or 256-row x 128-column tile with 256
+// threads (two warpgroups, 64 or 128 rows each), wgmma m64n128k16 on
+// score_gemm.cuh's primitives (its cp.async ring of 64-wide K chunks, here
+// 192 KB deep, the 128-byte swizzle and K-major descriptors, the proxy
+// fence, the scale_d start), A K-major; then the accumulators go to
+// shared memory and an elementwise epilogue reads them, its operands
+// loaded 8 at a time a thread (the first 8 before the product), unit pairs
+// through 8-byte loads and stores.
+//  - The forward, one launch a step (gru_wide_fwd_kernel): a cluster of two
+//    blocks (2 jx, 2 jx + 1; by; d) takes units 40 jx.. and rows 256 by..
+//    of direction d, each block one half of gh = E(h_prev) @ U_h's K for
+//    those units' r, z and n columns (120 of the tile's 128). B is read
+//    from U_h as it lies, MN-major (attention_dwv.cuh's stage layout and
+//    descriptor: five 16-byte chunks of a gate's columns a k row), so a
+//    tile's columns are whole units. After the cluster's barrier each
+//    block adds the halves (half 0's, then half 1's, one of them from its
+//    peer's shared memory) for 128 of the rows and runs the cell: hseq[t],
+//    the E copy of the state (ping-pong [2, B, H]) and hT. At B = 256,
+//    H = 2400: 60 clusters, 120 blocks, one wave on 132 SMs; a step reads
+//    U_h from L2 once and E(h_prev) once a column of tiles: about 110 MB.
+//  - The BPTT, T + 3 + (directions) launches. gru_wide_round_kernel writes
+//    the E copy of every pre-step state (rows of Hq = H rounded up to 256,
+//    zero past H). gru_wide_gh_kernel computes every step's gh = E(h_prev)
+//    @ U_h up front, off the chain, in one GEMM over the (T-1) B saved
+//    states (256-row tiles, the forward's columns) into dgx's buffer:
+//    [T, B, 3H] f32, 192 MB at H = 2400 and B = 256, which step t
+//    overwrites with dgx[t] only after the step that read gh from that
+//    slot. Then one gru_wide_carry_kernel a step, the first with no
+//    product (dh = dh_T, the cotangent of the final state), each other
+//    dh_prev = ((dpart + G_r U_r^T) + G_z U_z^T) + G_n U_n^T for a 128-row
+//    x 128-unit tile, split by gate over a cluster of three blocks (each
+//    K = H of one gate: A = the E gate cotangents G of the step before, B
+//    = U_h's rows, K-major as they lie), the three sums added in that
+//    order through distributed shared memory; its epilogue runs this
+//    step's gate backward: dgx[t], G_t (gate blocks of Hq, zero past H),
+//    dpart and a dgh_n partial a block, each rank of the cluster a third of
+//    the tile's 16-row groups. At B = 256, H = 2400: 19 x 2 x 3 blocks a
+//    carry step, U_h and G read from L2 twice and 19 times: about 140 MB a
+//    step. Then dU_h = sum E(h_prev)^T G over the saved states, which is
+//    attention_dwv.cuh's dW_v product (the same ring and wgmma on MN-major
+//    operands: its reduction runs along the rows of both), one launch a
+//    direction at Hq (the wrapper drops the padding's rows and columns),
+//    and gru_bwd_step.cuh's gru_dbhn_kernel (db_hn over the partials in
+//    step order).
 //
 // Each kernel takes the arguments of two recurrences and picks its own
-// with blockIdx.z (blockIdx.y for the copy): K1/K3 launch one direction,
-// K6/K7 two. A block's work depends only on its own direction's arguments,
-// so each direction of a two-direction call gives the bits of a
-// one-direction call. No atomics: the result is deterministic. Padding: the
-// wrappers pad H to 16 (forward) or 64 (BPTT) with zero units, which stay
-// exactly 0.
+// with blockIdx.z (blockIdx.y for the copy; the carry's clusters of z 3d ..
+// 3d + 2): K1/K3 launch one direction, K6/K7 two. A block's work depends
+// only on its own direction's arguments, so each direction of a
+// two-direction call gives the bits of a one-direction call. No atomics:
+// every sum has a fixed order, so the result is deterministic. Padding: the
+// wrappers pad H to 16 with zero units, which stay exactly 0.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
-#include "gru_bwd_step.cuh"  // gru_duh_pipe_kernel, gru_dbhn_kernel,
-                             // mma_sync.cuh and elem16.cuh
+#include "attention_dwv.cuh"  // the dU_h product; score_gemm.cuh's wgmma
+#include "gru_bwd_step.cuh"     // gru_dbhn_kernel; elem16.cuh
 
 namespace {
 namespace wide {
 
-constexpr int kRows = 64;       // batch rows of a block
-constexpr int kUnits = 16;      // hidden units of a block
-constexpr int kThreads = 256;   // 8 warps: (16 rows, n8 half) each
-constexpr int kKc = 64;         // k of a ring stage
-constexpr int kStages = 3;      // depth of the cp.async ring
-constexpr int kALd = kKc + 8;   // A stage [64][72] E: 9 16-byte units a row
-constexpr int kGLd = 3 * kUnits + 8;  // gh's B stage [64 k][56] E: 7 units
-constexpr int kCLd = 3 * kUnits + 4;  // gh in f32 [64][52] after the ring
-// A stage and the larger of the two B stages (gh's [64][56], the carry's
-// U_h rows [16][72]).
-constexpr size_t kStageBytes =
-    static_cast<size_t>(kRows) * kALd * 2 + static_cast<size_t>(kKc) * kGLd * 2;
-constexpr size_t kRingBytes = kStages * kStageBytes;
-constexpr size_t kRsBytes = static_cast<size_t>(kRows) * kUnits * 4;
-constexpr size_t kFwdSmem = kRingBytes;
-constexpr size_t kDgxSmem = kRingBytes + kRsBytes;
-static_assert(static_cast<size_t>(kRows) * kCLd * 4 <= kRingBytes,
-              "gh in f32 reuses the ring after the mainloop");
-static_assert(kUnits * kALd <= kKc * kGLd, "the carry's B stage fits");
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kRows = 128;     // batch rows of a carry tile; a tile's
+                               // rows an epilogue block takes
+constexpr int kTall = 256;     // rows of a forward or gh tile
+constexpr int kN = 128;        // columns of a tile: the wgmma's n
+constexpr int kUnits = 40;     // units of a forward or gh tile: 3 x 40 columns
+constexpr int kCarryUnits = kN;  // units of a carry tile (one gate's K)
+constexpr int kBK = score_gemm::kBK;  // K of a ring stage
+constexpr int kBBytes = kN * score_gemm::kRowBytes;
+constexpr int kRingBytes = 192 * 1024;  // 6 stages of 128 rows, 4 of 256
+constexpr int kCLd = kN + 8;  // the tile in f32 after the mainloop
+// The BPTT's E copies of the states and gate cotangents are Hq = H rounded
+// up to kDuhTile units wide (zero past H): dU_h's product takes whole
+// 128-channel tiles, and 256-unit ones (its faster tile) where 3 Hq % 256
+// == 0.
+constexpr int kDuhTile = 256;
+__host__ __device__ constexpr int duh_width(int H) {
+  return (H + kDuhTile - 1) / kDuhTile * kDuhTile;
+}
+constexpr size_t kSmem = 1024 + kRingBytes;
+static_assert(static_cast<size_t>(kTall) * kCLd * 4 <= kRingBytes,
+              "the f32 tile reuses the ring after the mainloop");
+static_assert(3 * kUnits <= kN, "a forward tile holds whole units");
+
+// The ring of a tile of BM rows (128 or 256): A's 128-byte rows and B's,
+// as many stages as fit in kRingBytes.
+template <int BM>
+struct Ring {
+  static constexpr int kABytes = BM * score_gemm::kRowBytes;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;
+  static constexpr int kAhead = kStages - 2;  // chunks the copies run ahead
+};
 
 __device__ __forceinline__ float wsigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -107,378 +150,627 @@ template <class E>
 struct Bwd {
   const float* gx;    // [T, B, 3H]
   const float* hseq;  // [T, B, H] f32 (the forward's states)
-  E* hbf;             // [T, B, H] E copy of the pre-step states
+  E* hbf;             // [T, B, Hq] E copy of the pre-step states, zero
+                      // past H (Hq = duh_width(H))
   const int* lens;    // [B]
   const E* uh;        // [H, 3H]
   const float* bhn;   // [H]
-  float* dh;          // [B, H]: the carried cotangent, in/out
-  float* dpart;       // [B, H]: its part that skips U_h^T
-  float* dgx;         // [T, B, 3H]
-  E* g;               // [T, B, 3H] E gate cotangents
-  float* part;        // [T, ceil(B/16), H] dgh_n partials
-  int T, B, H, reverse;
+  float* dpart;       // [B, H]: dh_T on entry, then the carry's part that
+                      // skips U_h^T
+  float* dgx;         // [T, B, 3H]: gh of every step, then dgx
+  E* g;               // [T, B, 3Hq] E gate cotangents (gate blocks of Hq,
+                      // zero past H)
+  float* part;        // [T, 3 ceil(B/128), H] dgh_n partials: a step's,
+                      // a carry block's rows
+  int T, B, H, Hq, reverse;
 };
 
-// Warp w's task: rows 16 (w / 2).. of the block's 64, n8 half w % 2 of its
-// 16 units, all three gates.
-struct Lane {
-  int rg, half, er, jl;
-  __device__ explicit Lane(int warp, int lane)
-      : rg(warp >> 1),
-        half(warp & 1),
-        er((warp >> 1) * 16 + (lane >> 2)),
-        jl((warp & 1) * 8 + 2 * (lane & 3)) {}
-};
+// wgmma m64n128k16 with A K-major and B MN-major (tnsp-b 1), f32 sums of E
+// products: score_gemm.cuh's n128 wrapper with its two layouts mixed.
+#define GRU_WIDE_WGMMA_TB(TYPE) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, " \
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, " \
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d))
 
-// gh = E(h_prev) @ U_h for the block's rows b0.. (of B) and the 48 columns
-// {j0, H+j0, 2H+j0} + 0..15, k ascending in 16-steps, into acc[g] (the
-// warp's m16n8 tile of gate g). `hb` [B, H] E, or null for the zero state
-// (acc stays 0). H % 16 == 0; the ring's A rows past B and k past H are
-// zero-filled.
 template <class E>
-__device__ __forceinline__ void gh_mainloop(const E* hb, const E* uh, int B,
-                                            int H, int b0, int j0,
-                                            unsigned char* ring,
-                                            const Lane& w, int lane,
-                                            float (&acc)[3][4]) {
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.0f;
-  if (hb == nullptr) return;
-  const int tid = threadIdx.x;
-  const size_t H3 = 3 * static_cast<size_t>(H);
-  const int nchunk = (H + kKc - 1) / kKc;
-  auto load = [&](int c, int slot) {
-    E* As = reinterpret_cast<E*>(ring + slot * kStageBytes);
-    E* Bs = As + kRows * kALd;
-    for (int i = tid; i < kRows * (kKc / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int q = (i & 7) * 8;
-      const int b = b0 + r;
-      const int k = c * kKc + q;
-      const bool ok = b < B && k < H;
-      cp_async16(As + r * kALd + q, ok ? hb + static_cast<size_t>(b) * H + k
-                                       : hb, ok);
-    }
-    for (int i = tid; i < kKc * 6; i += kThreads) {
-      const int kr = i / 6;
-      const int s = i - kr * 6;
-      const int g = s >> 1;
-      const int q = (s & 1) * 8;
-      const int k = c * kKc + kr;
-      const bool ok = k < H;
-      cp_async16(Bs + kr * kGLd + g * kUnits + q,
-                 ok ? uh + static_cast<size_t>(k) * H3 + g * H + j0 + q : uh,
-                 ok);
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nchunk) load(s, s);
-    cp_async_commit();
+__device__ __forceinline__ void wgmma_kmn(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  if constexpr (Elem<E>::kF16) {
+    GRU_WIDE_WGMMA_TB("f16");
+  } else {
+    GRU_WIDE_WGMMA_TB("bf16");
   }
-  for (int c = 0; c < nchunk; ++c) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nx = c + kStages - 1;
-    if (nx < nchunk) load(nx, nx % kStages);
-    cp_async_commit();
-    const E* As =
-        reinterpret_cast<const E*>(ring + (c % kStages) * kStageBytes);
-    const E* Bs = As + kRows * kALd;
-    const int kend = min(kKc, H - c * kKc);
-    for (int kk = 0; kk < kend; kk += 16) {
-      unsigned a[4];
-      load_a(a, As + w.rg * 16 * kALd + kk, kALd, lane);
+}
+
+#undef GRU_WIDE_WGMMA_TB
+
+// Where a tile's B operand comes from.
+//  - Rows (the carry): tile column n is row n of a K-major matrix, b +
+//    n ldb, rows at or past `rows` zero.
+//  - GateColumns (the forward, every step's gh): tile column 8 q + e is
+//    column g H + j0 + 8 c + e of U_h [K = H rows, 3H], g = q / 5, c =
+//    q % 5: the r, z and n columns of the 40 units j0.. (chunk 15 and
+//    units past H zero). U_h is read as it lies, MN-major, in
+//    attention_dwv.cuh's stage layout (64-column atom columns of 64 k rows
+//    in the 128-byte swizzle), so no transposed copy is made.
+template <class E>
+struct Rows {
+  const E* b;
+  size_t ldb;
+  int rows;
+};
+template <class E>
+struct GateColumns {
+  const E* uh;
+  int H, j0;
+};
+
+// acc = A @ B for the block's BM x 128 tile (BM 128 or 256): A's rows
+// r < BM at a + r lda, K values of E each, K-major (rows at or past
+// `arows` and K past `K` read as zero); B from `src` (Rows or
+// GateColumns). K, lda, ldb and H are multiples of 8 and a, b, uh 16-byte
+// aligned. `ring` is 1024-byte aligned. Warpgroup w takes rows w BM/2 ..:
+// thread t ends holding score_gemm's m64n128 fragment of the 64-row
+// sub-tiles s (rows w BM/2 + 64 s ..) in acc[s], with every copy landed
+// and every MMA done, but without a barrier: the caller syncs before it
+// reuses the ring. The sums run k ascending from a first wgmma with
+// scale_d 0; K <= 0 gives zeros.
+template <int BM, class E, class BSrc>
+__device__ __forceinline__ void tile_gemm(const E* a, size_t lda, int arows,
+                                          const BSrc& src, int K,
+                                          unsigned char* ring,
+                                          float (&acc)[BM / 128][kN / 2]) {
+  namespace sg = score_gemm;
+  using R = Ring<BM>;
+  constexpr bool kGates = std::is_same<BSrc, GateColumns<E>>::value;
+  constexpr int kACopies = BM / 32;
+  constexpr int kSub = BM / 128;  // 64-row sub-tiles a warpgroup
+  const int t = threadIdx.x;
+  const int nk = K > 0 ? (K + kBK - 1) / kBK : 0;
+  const int r0 = t >> 3;  // rows r0 + 32 j of A (and of K-major B)
+  const int c = t & 7;    // 16-byte chunk c of each row of a stage
+  // B: K-major rows as A's; or U_h's k rows (t >> 4) + 16 j, chunk t & 15.
+  const E* bsrc[4];
+  const int bq = t & 15;
+  const int bk = t >> 4;
+  size_t bld = 0;
+  if constexpr (kGates) {
+    const int g = bq / 5;
+    const int cc = bq - 5 * g;
+    const bool ok = bq < 15 && src.j0 + 8 * cc < src.H;
+    bld = 3 * static_cast<size_t>(src.H);
 #pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        unsigned b[2];
-        load_b_half_kmajor(b, Bs + kk * kGLd + g * kUnits + w.half * 8, kGLd,
-                           lane);
-        mma16816<E>(acc[g], a, b[0], b[1]);
+    for (int j = 0; j < 4; ++j)
+      bsrc[j] = ok ? src.uh + (bk + 16 * j) * bld + g * src.H + src.j0 +
+                         8 * cc
+                   : nullptr;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + 32 * j;
+      bsrc[j] = r < src.rows ? src.b + r * src.ldb + c * 8 : nullptr;
+    }
+  }
+  const uint32_t ring_s = sg::smem_u32(ring);
+
+  auto load = [&](int kc, int stage) {
+    const uint32_t st = ring_s + stage * R::kStageBytes;
+    const int k0 = kc * kBK;
+    const bool kin = k0 + c * 8 < K;
+#pragma unroll
+    for (int j = 0; j < kACopies; ++j) {
+      const int r = r0 + 32 * j;
+      const bool aok = kin && r < arows;
+      sg::cp_async16(st + sg::swz(r, c), aok ? a + r * lda + c * 8 + k0 : a,
+                     aok);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (kGates) {
+        const int kr = bk + 16 * j;
+        const bool bok = bsrc[j] != nullptr && k0 + kr < K;
+        sg::cp_async16(st + R::kABytes + attn_dwv::mn_off(kr, bq),
+                       bok ? bsrc[j] + k0 * bld : a, bok);
+      } else {
+        const int r = r0 + 32 * j;
+        const bool bok = kin && bsrc[j] != nullptr;
+        sg::cp_async16(st + R::kABytes + sg::swz(r, c),
+                       bok ? bsrc[j] + k0 : a, bok);
       }
     }
+  };
+
+#pragma unroll
+  for (int s = 0; s < R::kAhead; ++s) {
+    if (s < nk) load(s, s);
+    sg::cp_async_commit();
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free
+  int stage = 0;          // the stage of chunk kc
+  int ahead = R::kAhead;  // the stage of chunk kc + kAhead
+  for (int kc = 0; kc < nk; ++kc) {
+    sg::cp_async_wait<R::kAhead - 1>();  // this thread's copies of chunk kc
+    sg::fence_proxy_async();
+    __syncthreads();
+    const uint32_t st = ring_s + stage * R::kStageBytes;
+    const uint32_t bs = st + R::kABytes;
+#pragma unroll
+    for (int u = 0; u < kSub; ++u) sg::fence_acc(acc[u]);
+    sg::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kSub; ++u) {
+      const uint32_t as =
+          st + ((t >> 7) * (BM / 2) + 64 * u) * sg::kRowBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        if constexpr (kGates) {
+          wgmma_kmn<E>(acc[u], sg::desc(as + kk * 32),
+                       attn_dwv::desc_mn(bs + kk * 2048), (kc | kk) != 0);
+        } else {
+          sg::mma<kN, 0, E>(acc[u], sg::desc(as + kk * 32),
+                            sg::desc(bs + kk * 32), (kc | kk) != 0);
+        }
+      }
+    }
+    sg::wgmma_commit();
+#pragma unroll
+    for (int u = 0; u < kSub; ++u) sg::fence_acc(acc[u]);
+    sg::wgmma_wait<1>();
+#pragma unroll
+    for (int u = 0; u < kSub; ++u) sg::fence_acc(acc[u]);
+    if (kc + R::kAhead < nk) load(kc + R::kAhead, ahead);
+    sg::cp_async_commit();
+    stage = stage + 1 == R::kStages ? 0 : stage + 1;
+    ahead = ahead + 1 == R::kStages ? 0 : ahead + 1;
+  }
+  sg::wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < kSub; ++u) sg::fence_acc(acc[u]);
+  sg::cp_async_wait<0>();
+  if (nk == 0) {
+#pragma unroll
+    for (int u = 0; u < kSub; ++u)
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[u][i] = 0.0f;
+  }
+}
+
+// A BM x 128 tile's accumulators (tile_gemm's) into Cs [BM][kCLd] f32,
+// after a barrier that frees the ring they reuse; ends with a barrier.
+template <int BM>
+__device__ __forceinline__ void tile_to_smem(
+    const float (&acc)[BM / 128][kN / 2], float* Cs) {
+  __syncthreads();
+  const int t = threadIdx.x;
+  const int row = (t >> 7) * (BM / 2) + ((t >> 5) & 3) * 16 + ((t & 31) >> 2);
+  const int col = score_gemm::frag_col(t);
+#pragma unroll
+  for (int u = 0; u < BM / 128; ++u)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(Cs + (row + 64 * u + 8 * h) * kCLd +
+                                   8 * j + col) =
+            make_float2(acc[u][4 * j + 2 * h], acc[u][4 * j + 2 * h + 1]);
+  __syncthreads();
 }
 
 // One step of the forward: h' = cell(gx, gh, h_prev) where t < lens[b].
+// Blocks (2 jx + h, by, d) form a cluster of two: block h takes half h of
+// gh's K (the state's units 64-aligned halves) for the tile's 256 rows
+// and 40 units, and after the cluster's barrier applies the cell to rows
+// 128 h .. 128 h + 127 with gh = P_0 + P_1 (both halves' sums, the
+// peer's read from its shared memory).
 template <class E>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
 gru_wide_fwd_kernel(Fwd<E> d0, Fwd<E> d1, int k) {
   extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = score_gemm::align1024(smem);
+  float* Cs = reinterpret_cast<float*>(ring);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int half = static_cast<int>(cluster.block_rank());
   const Fwd<E> p = blockIdx.z == 0 ? d0 : d1;
   const int H = p.H;
   const int B = p.B;
   const size_t BH = static_cast<size_t>(B) * H;
   const size_t H3 = 3 * static_cast<size_t>(H);
   const int t = p.reverse ? p.T - 1 - k : k;
-  const int lane = threadIdx.x & 31;
-  const Lane w(threadIdx.x >> 5, lane);
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  // null at the first step: the zero initial state.
-  const E* hb = k == 0 ? nullptr : p.hbf + ((k + 1) & 1) * BH;
+  const int j0 = (blockIdx.x >> 1) * kUnits;
+  const int b0 = blockIdx.y * kTall;
   const float* hf =
       k == 0 ? nullptr : p.hseq + (p.reverse ? t + 1 : t - 1) * BH;
-  float acc[3][4];
-  gh_mainloop<E>(hb, p.uh, B, H, b0, j0, smem, w, lane, acc);
+  const float* x = p.gx + static_cast<size_t>(t) * B * H3;
+  // Thread: units j, j + 1 (pair t % 20) of rows t / 20 + 12 m, 4 rows at
+  // a time: their operands loaded at once (the first 4 rows' before the
+  // product, each next 4's before the cell of the 4 before them), then
+  // the sums, then the cell.
+  constexpr int kPairs = kUnits / 2;
+  constexpr int kLanes = kThreads / kPairs;  // 12 rows at a time
+  const int i = 2 * (threadIdx.x % kPairs);
+  const int r0 = threadIdx.x / kPairs;
+  const int j = j0 + i;
+  const int rb = b0 + kRows * half;  // this block's rows
+  const bool active = r0 < kLanes && j < H;
+  struct Ops {
+    float2 xr[4], xz[4], xn[4], hp[4];
+    bool live[4];
+  };
+  auto load = [&](int m0, Ops& v) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + kLanes * (m0 + u);
+      const int b = rb + r;
+      v.live[u] = false;
+      v.xr[u] = v.xz[u] = v.xn[u] = v.hp[u] = make_float2(0.0f, 0.0f);
+      if (r >= kRows || b >= B) continue;
+      const float2* xb = reinterpret_cast<const float2*>(x + b * H3 + j);
+      v.xr[u] = __ldg(xb);
+      v.xz[u] = __ldg(xb + H / 2);
+      v.xn[u] = __ldg(xb + H);
+      if (hf != nullptr)
+        v.hp[u] = *reinterpret_cast<const float2*>(
+            hf + static_cast<size_t>(b) * H + j);
+      v.live[u] = t < __ldg(p.lens + b);
+    }
+  };
+  Ops v[2];
+  if (active) load(0, v[0]);
 
-  const int j = j0 + w.jl;
-  const float bhn0 = __ldg(p.bhn + j);
-  const float bhn1 = __ldg(p.bhn + j + 1);
+  const float* P[2] = {Cs, Cs};
+  // At the first step the state is zero: gh = 0, no product.
+  if (k > 0) {
+    const int kh = (H + 2 * kBK - 1) / (2 * kBK) * kBK;  // K of half 0
+    const int kb = half * kh;
+    float acc[2][kN / 2];
+    tile_gemm<kTall, E>(
+        p.hbf + ((k + 1) & 1) * BH + static_cast<size_t>(b0) * H + kb, H,
+        B - b0, GateColumns<E>{p.uh + kb * H3, H, j0}, min(H, kb + kh) - kb,
+        ring, acc);
+    tile_to_smem<kTall>(acc, Cs);
+    cluster.sync();  // both halves' sums are in shared memory
+    P[1 - half] = cluster.map_shared_rank(Cs, 1 - half);  // the peer's
+  }
   float* ho = p.hseq + t * BH;
   E* hbo = p.hbf + (k & 1) * BH;
   float* hTo = k == p.T - 1 ? p.hT : nullptr;
+  using Pair = typename Elem<E>::pair;
+  const float2 bhn = active ? *reinterpret_cast<const float2*>(p.bhn + j)
+                            : make_float2(0.0f, 0.0f);
+  auto sum2 = [](float2 a, float2 b) {
+    return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+  };
+  auto run = [&](int m0, const Ops& v) {
+    float2 gh[3][4];
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int b = b0 + w.er + 8 * e;
-    if (b >= B) continue;
-    const size_t o = static_cast<size_t>(b) * H + j;
-    const float2 hp = hf != nullptr
-                          ? *reinterpret_cast<const float2*>(hf + o)
-                          : make_float2(0.0f, 0.0f);
-    const bool live = t < __ldg(p.lens + b);
-    const float* x = p.gx + static_cast<size_t>(t) * B * H3 + b * H3 + j;
-    float hv[2];
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + kLanes * (m0 + u);
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float hpu = u == 0 ? hp.x : hp.y;
-      const float bh = u == 0 ? bhn0 : bhn1;
-      const float r = wsigmoid(__fadd_rn(x[u], acc[0][2 * e + u]));
-      const float z = wsigmoid(__fadd_rn(x[H + u], acc[1][2 * e + u]));
-      const float n = tanhf(__fadd_rn(
-          x[2 * H + u], __fmul_rn(r, __fadd_rn(acc[2][2 * e + u], bh))));
-      const float hn = __fadd_rn(__fmul_rn(1.0f - z, n), __fmul_rn(z, hpu));
-      hv[u] = live ? hn : hpu;
+      for (int g = 0; g < 3; ++g) gh[g][u] = make_float2(0.0f, 0.0f);
+      if (k == 0 || r >= kRows) continue;
+      const int c = (kRows * half + r) * kCLd + i;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const int cg = c + g * kUnits;
+        gh[g][u] = sum2(*reinterpret_cast<const float2*>(P[0] + cg),
+                        *reinterpret_cast<const float2*>(P[1] + cg));
+      }
     }
-    const float2 h = make_float2(hv[0], hv[1]);
-    *reinterpret_cast<float2*>(ho + o) = h;
-    if (hTo != nullptr) *reinterpret_cast<float2*>(hTo + o) = h;
-    *reinterpret_cast<typename Elem<E>::pair*>(hbo + o) =
-        Elem<E>::from2(h.x, h.y);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = r0 + kLanes * (m0 + u);
+      const int b = rb + r;
+      if (r >= kRows || b >= B) continue;
+      float h[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xr = e ? v.xr[u].y : v.xr[u].x;
+        const float xz = e ? v.xz[u].y : v.xz[u].x;
+        const float xn = e ? v.xn[u].y : v.xn[u].x;
+        const float hp = e ? v.hp[u].y : v.hp[u].x;
+        const float ghr = e ? gh[0][u].y : gh[0][u].x;
+        const float ghz = e ? gh[1][u].y : gh[1][u].x;
+        const float ghn = e ? gh[2][u].y : gh[2][u].x;
+        const float rg = wsigmoid(__fadd_rn(xr, ghr));
+        const float zg = wsigmoid(__fadd_rn(xz, ghz));
+        const float ng = tanhf(
+            __fadd_rn(xn, __fmul_rn(rg, __fadd_rn(ghn, e ? bhn.y : bhn.x))));
+        const float hn = __fadd_rn(__fmul_rn(1.0f - zg, ng), __fmul_rn(zg, hp));
+        h[e] = v.live[u] ? hn : hp;
+      }
+      const size_t o = static_cast<size_t>(b) * H + j;
+      const float2 hv = make_float2(h[0], h[1]);
+      *reinterpret_cast<float2*>(ho + o) = hv;
+      *reinterpret_cast<Pair*>(hbo + o) = Elem<E>::from2(h[0], h[1]);
+      if (hTo != nullptr) *reinterpret_cast<float2*>(hTo + o) = hv;
+    }
+  };
+  if (active) {
+    constexpr int kBatches = (kRows + 4 * kLanes - 1) / (4 * kLanes);
+#pragma unroll
+    for (int s = 0; s < kBatches; ++s) {
+      if (s + 1 < kBatches) load(4 * (s + 1), v[(s + 1) & 1]);
+      run(4 * s, v[s & 1]);
+    }
   }
+  if (k > 0) cluster.sync();  // the peer has read this block's sums
 }
 
 // The E copy of the pre-step states: hseq[0..T-2] (forward) or
-// hseq[1..T-1] (reverse), rounded as the plain version rounds h_prev.
-// blockIdx.y picks the direction. H % 4 == 0.
+// hseq[1..T-1] (reverse), rounded as the plain version rounds h_prev, into
+// rows of Hq values (zero past H); and zeros in G's units that no carry
+// tile covers. blockIdx.y picks the direction. H % 4 == 0.
 template <class E>
 __global__ void __launch_bounds__(kThreads)
 gru_wide_round_kernel(Bwd<E> d0, Bwd<E> d1) {
   const Bwd<E> p = blockIdx.y == 0 ? d0 : d1;
-  const size_t BH = static_cast<size_t>(p.B) * p.H;
-  const size_t off = p.reverse ? BH : 0;
-  const float4* src = reinterpret_cast<const float4*>(p.hseq + off);
+  const size_t first = p.reverse ? p.B : 0;  // row of the first saved state
+  const float* src = p.hseq + first * p.H;
   using Pair = typename Elem<E>::pair;
-  Pair* dst = reinterpret_cast<Pair*>(p.hbf + off);
-  const size_t n4 = (p.T - 1) * BH / 4;
+  Pair* dst = reinterpret_cast<Pair*>(p.hbf + first * p.Hq);
+  const int q4 = p.Hq / 4;
+  const size_t n4 = static_cast<size_t>(p.T - 1) * p.B * q4;
   for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < n4; i += static_cast<size_t>(gridDim.x) * kThreads) {
-    const float4 h = __ldg(src + i);
+    const size_t m = i / q4;
+    const int c = 4 * static_cast<int>(i - m * q4);
+    const float4 h = c < p.H ? __ldg(reinterpret_cast<const float4*>(
+                                   src + m * p.H + c))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     dst[2 * i] = Elem<E>::from2(h.x, h.y);
     dst[2 * i + 1] = Elem<E>::from2(h.z, h.w);
   }
+  // G's units from the carry's last tile on, which no carry writes: zero.
+  const int hc = (p.H + kCarryUnits - 1) / kCarryUnits * kCarryUnits;
+  const int band = p.Hq - hc;
+  const size_t nz = static_cast<size_t>(p.T) * p.B * 3 * band;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+       i < nz; i += static_cast<size_t>(gridDim.x) * kThreads) {
+    const size_t row = i / band;  // (t, b, gate)
+    p.g[row * p.Hq + hc + (i - row * band)] = Elem<E>::from(0.0f);
+  }
 }
 
-// Step k of the BPTT (t from the chain's end): gh recomputed, then the
-// gates' cotangents from the carried dh.
+// Every step's gh = E(h_prev) @ U_h at once: the (T-1) B saved states (the
+// rows of the E copy from hbf's first pre-step state on) by U_h's gate
+// columns, written to dgx's buffer at the states' own rows. Block (jx, by,
+// d) takes the r, z and n columns of units 40 jx.. for saved states
+// 256 by...
 template <class E>
-__global__ void __launch_bounds__(kThreads)
-gru_wide_dgx_kernel(Bwd<E> d0, Bwd<E> d1, int k) {
+__global__ void __launch_bounds__(kThreads, 1)
+gru_wide_gh_kernel(Bwd<E> d0, Bwd<E> d1) {
   extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = score_gemm::align1024(smem);
+  float* Cs = reinterpret_cast<float*>(ring);
   const Bwd<E> p = blockIdx.z == 0 ? d0 : d1;
+  const int H = p.H;
+  const int B = p.B;
+  const size_t H3 = 3 * static_cast<size_t>(H);
+  const int M = (p.T - 1) * B;
+  const int m0 = blockIdx.y * kTall;
+  if (m0 >= M) return;  // T = 1: no saved state
+  const size_t first = p.reverse ? B : 0;  // row of the first saved state
+  const int j0 = blockIdx.x * kUnits;
+  float acc[2][kN / 2];
+  tile_gemm<kTall, E>(p.hbf + (first + m0) * p.Hq, p.Hq, M - m0,
+                      GateColumns<E>{p.uh, H, j0}, H, ring, acc);
+  tile_to_smem<kTall>(acc, Cs);
+  float* gh = p.dgx + (first + m0) * H3;
+  for (int e = threadIdx.x; e < kTall * 3 * kUnits; e += kThreads) {
+    const int r = e / (3 * kUnits);
+    const int c = e - r * (3 * kUnits);
+    const int g = c / kUnits;
+    const int j = j0 + c - g * kUnits;
+    if (m0 + r < M && j < H) gh[r * H3 + g * H + j] = Cs[r * kCLd + c];
+  }
+}
+
+// Step k of the BPTT (t from the chain's end). Block (jx, by, 3 d + g) of
+// a cluster of three: with k > 0 the product of gate g, G_{t'}[:, g] U_g^T
+// for units 128 jx.. and rows 128 by.. (t' the step processed before),
+// then dh for the tile = ((dpart + P_r) + P_z) + P_n, read from the three
+// blocks' shared memory; with k = 0, dh = dpart (the final state's
+// cotangent). Then this step's gate backward for the tile's 16-row groups
+// q with q % 3 == g.
+template <class E>
+__global__ void __cluster_dims__(1, 1, 3) __launch_bounds__(kThreads, 1)
+gru_wide_carry_kernel(Bwd<E> d0, Bwd<E> d1, int k) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float Rs[3][4][kCarryUnits];  // dgh_n quarter-group sums
+  unsigned char* ring = score_gemm::align1024(smem);
+  float* Cs = reinterpret_cast<float*>(ring);
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int g = static_cast<int>(cluster.block_rank());
+  const Bwd<E> p = blockIdx.z < 3 ? d0 : d1;
   const int H = p.H;
   const int B = p.B;
   const int T = p.T;
   const size_t BH = static_cast<size_t>(B) * H;
   const size_t H3 = 3 * static_cast<size_t>(H);
   const int t = p.reverse ? k : T - 1 - k;
-  const bool first = p.reverse ? t == T - 1 : t == 0;
+  const bool first = p.reverse ? t == T - 1 : t == 0;  // zero h_prev
   const size_t tp = static_cast<size_t>(p.reverse ? t + 1 : t - 1);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const Lane w(tid >> 5, lane);
-  const int j0 = blockIdx.x * kUnits;
+  const int j0 = blockIdx.x * kCarryUnits;
   const int b0 = blockIdx.y * kRows;
-  float* Cs = reinterpret_cast<float*>(smem);
-  float* Rs = reinterpret_cast<float*>(smem + kRingBytes);
+  const int tid = threadIdx.x;
 
-  float acc[3][4];
-  gh_mainloop<E>(first ? nullptr : p.hbf + tp * BH, p.uh, B, H, b0, j0, smem,
-                 w, lane, acc);
-#pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      *reinterpret_cast<float2*>(Cs + (w.er + 8 * e) * kCLd + g * kUnits +
-                                 w.jl) =
-          make_float2(acc[g][2 * e], acc[g][2 * e + 1]);
-  __syncthreads();
-
-  // The elementwise step, 4 rows a thread (gru_bwd_step.cuh's math).
-  const int jl = tid & (kUnits - 1);
+  // Thread: units jl, jl + 1 (pair tid % 64) of rows 4 qt .. 4 qt + 3
+  // (qt = tid / 64) of each of the rank's 16-row groups, in order.
+  const int jl = 2 * (tid & 63);
+  const int qt = tid >> 6;
   const int j = j0 + jl;
-  const float bhn_j = __ldg(p.bhn + j);
+  const bool unit = j < H;  // H % 16 == 0: so is j + 1
   const float* hf = first ? nullptr : p.hseq + tp * BH;
+  const float* ghs = first ? nullptr : p.dgx + tp * B * H3;
   const float* gxt = p.gx + static_cast<size_t>(t) * B * H3;
   float* dgxt = p.dgx + static_cast<size_t>(t) * B * H3;
-  E* gt = p.g + static_cast<size_t>(t) * B * H3;
+  const size_t Hq3 = 3 * static_cast<size_t>(p.Hq);
+  E* gt = p.g + static_cast<size_t>(t) * B * Hq3;
+  using Pair = typename Elem<E>::pair;
+  auto ld2 = [](const float* q) { return *reinterpret_cast<const float2*>(q); };
+  // A 16-row group's operands for this thread's 4 rows of it, loaded at
+  // once: the first group's before the product, so that they land while
+  // it runs, each next group's before the gate backward of the one before.
+  struct Ops {
+    float2 dh[4], xr[4], xz[4], xn[4], ghr[4], ghz[4], ghn[4], hp[4];
+    bool live[4];
+  };
+  auto load = [&](int q, Ops& v) {
+    const float2 zero = make_float2(0.0f, 0.0f);
 #pragma unroll
-  for (int q = 0; q < kRows / 16; ++q) {
-    const int bl = (tid >> 4) + 16 * q;
-    const int b = b0 + bl;
-    float dgh_n = 0.0f;
-    if (b < B) {
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + q * 16 + qt * 4 + i;
+      v.dh[i] = v.xr[i] = v.xz[i] = v.xn[i] = zero;
+      v.ghr[i] = v.ghz[i] = v.ghn[i] = v.hp[i] = zero;
+      v.live[i] = false;
+      if (b >= B || !unit) continue;
       const size_t o = static_cast<size_t>(b) * H + j;
-      const float* x = gxt + b * H3;
-      const float* gh = Cs + bl * kCLd + jl;
-      const float dh = p.dh[o];
-      const float hp = hf != nullptr ? __ldg(hf + o) : 0.0f;
-      const float ghn_b = __fadd_rn(gh[2 * kUnits], bhn_j);
-      const float r = wsigmoid(__fadd_rn(__ldg(x + j), gh[0]));
-      const float z = wsigmoid(__fadd_rn(__ldg(x + H + j), gh[kUnits]));
-      const float n =
-          tanhf(__fadd_rn(__ldg(x + 2 * H + j), __fmul_rn(r, ghn_b)));
-      const float m = t < __ldg(p.lens + b) ? 1.0f : 0.0f;
-      const float dh_new = __fmul_rn(m, dh);
-      const float dhp =
-          __fadd_rn(__fmul_rn(1.0f - m, dh), __fmul_rn(dh_new, z));
-      const float dz = __fmul_rn(dh_new, hp - n);
-      const float dn = __fmul_rn(dh_new, 1.0f - z);
-      const float da_n = __fmul_rn(dn, 1.0f - __fmul_rn(n, n));
-      dgh_n = __fmul_rn(da_n, r);
-      const float da_r =
-          __fmul_rn(__fmul_rn(__fmul_rn(da_n, ghn_b), r), 1.0f - r);
-      const float da_z = __fmul_rn(__fmul_rn(dz, z), 1.0f - z);
-      float* dg = dgxt + b * H3;
-      dg[j] = da_r;
-      dg[H + j] = da_z;
-      dg[2 * H + j] = da_n;
-      E* go = gt + b * H3;
-      go[j] = Elem<E>::from(da_r);
-      go[H + j] = Elem<E>::from(da_z);
-      go[2 * H + j] = Elem<E>::from(dgh_n);
-      p.dpart[o] = dhp;
-    }
-    Rs[bl * kUnits + jl] = dgh_n;
-  }
-  __syncthreads();
-  if (tid < kRows) {  // dgh_n summed over each 16-row group, in order
-    const int nbt = (B + 15) / 16;
-    const int grp = tid >> 4;
-    const int bt16 = b0 / 16 + grp;
-    float sum = 0.0f;
-    for (int i = 0; i < 16; ++i) sum += Rs[(grp * 16 + i) * kUnits + jl];
-    if (bt16 < nbt)
-      p.part[(static_cast<size_t>(k) * nbt + bt16) * H + j] = sum;
-  }
-}
-
-// Step k's carry: dh = ((dpart + G_t[:, r] U_r^T) + G_t[:, z] U_z^T) +
-// G_t[:, n] U_n^T for the block's rows and units, each gate's product k
-// ascending in 16-steps from a zero accumulator.
-template <class E>
-__global__ void __launch_bounds__(kThreads)
-gru_wide_carry_kernel(Bwd<E> d0, Bwd<E> d1, int k) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Bwd<E> p = blockIdx.z == 0 ? d0 : d1;
-  const int H = p.H;
-  const int B = p.B;
-  const size_t H3 = 3 * static_cast<size_t>(H);
-  const int t = p.reverse ? k : p.T - 1 - k;
-  const E* gt = p.g + static_cast<size_t>(t) * B * H3;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const Lane w(tid >> 5, lane);
-  const int j0 = blockIdx.x * kUnits;
-  const int b0 = blockIdx.y * kRows;
-  const int nchunk = (H + kKc - 1) / kKc;
-  const int nstage = 3 * nchunk;  // gate-major: (g, c) = (s / nchunk, ..)
-
-  // Stage s: columns c*64.. of gate g of G_t's rows, and of U_h's rows
-  // j0..j0+15 (U_h^T's columns, n-major).
-  auto load = [&](int s, int slot) {
-    const int g = s / nchunk;
-    const int c = s - g * nchunk;
-    E* As = reinterpret_cast<E*>(smem + slot * kStageBytes);
-    E* Bs = As + kRows * kALd;
-    for (int i = tid; i < kRows * (kKc / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int q = (i & 7) * 8;
-      const int b = b0 + r;
-      const int kc = c * kKc + q;
-      const bool ok = b < B && kc < H;
-      cp_async16(As + r * kALd + q, ok ? gt + b * H3 + g * H + kc : gt, ok);
-    }
-    for (int i = tid; i < kUnits * (kKc / 8); i += kThreads) {
-      const int r = i >> 3;
-      const int q = (i & 7) * 8;
-      const int kc = c * kKc + q;
-      const bool ok = kc < H;
-      cp_async16(Bs + r * kALd + q,
-                 ok ? p.uh + (j0 + r) * H3 + g * H + kc : p.uh, ok);
+      const size_t ob = b * H3 + j;
+      v.dh[i] = ld2(p.dpart + o);
+      v.xr[i] = __ldg(reinterpret_cast<const float2*>(gxt + ob));
+      v.xz[i] = __ldg(reinterpret_cast<const float2*>(gxt + ob + H));
+      v.xn[i] = __ldg(reinterpret_cast<const float2*>(gxt + ob + 2 * H));
+      if (!first) {
+        v.ghr[i] = ld2(ghs + ob);
+        v.ghz[i] = ld2(ghs + ob + H);
+        v.ghn[i] = ld2(ghs + ob + 2 * H);
+        v.hp[i] = __ldg(reinterpret_cast<const float2*>(hf + o));
+      }
+      v.live[i] = t < __ldg(p.lens + b);
     }
   };
+  Ops v[2];
+  load(g, v[0]);
 
-  float acc[3][4];
+  const float* P[3] = {Cs, Cs, Cs};
+  if (k > 0) {
+    const int tq = p.reverse ? t - 1 : t + 1;  // the step processed before
+    const E* gq = p.g + static_cast<size_t>(tq) * B * Hq3;
+    float acc[1][kN / 2];
+    tile_gemm<kRows, E>(gq + static_cast<size_t>(b0) * Hq3 + g * p.Hq, Hq3,
+                        B - b0,
+                        Rows<E>{p.uh + static_cast<size_t>(j0) * H3 + g * H,
+                                H3, H - j0},
+                        H, ring, acc);
+    tile_to_smem<kRows>(acc, Cs);
+    cluster.sync();  // the three products are in shared memory
 #pragma unroll
-  for (int g = 0; g < 3; ++g)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nstage) load(s, s);
-    cp_async_commit();
+    for (int r = 0; r < 3; ++r)
+      if (r != g) P[r] = cluster.map_shared_rank(Cs, r);
   }
-  for (int s = 0; s < nstage; ++s) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int nx = s + kStages - 1;
-    if (nx < nstage) load(nx, nx % kStages);
-    cp_async_commit();
-    const int g = s / nchunk;
-    const int c = s - g * nchunk;
-    const E* As =
-        reinterpret_cast<const E*>(smem + (s % kStages) * kStageBytes);
-    const E* Bs = As + kRows * kALd;
-    const int kend = min(kKc, H - c * kKc);
-    // The gate is uniform over the block; the unrolled branch keeps each
-    // accumulator in registers.
+
+  const float2 bhn = unit ? ld2(p.bhn + j) : make_float2(0.0f, 0.0f);
+  // The gate backward of group q's 4 rows x 2 units from v; their dgh_n
+  // summed, row by row, into Rs[slot][qt].
+  auto run = [&](int q, const Ops& v, int slot) {
+    float2 dsum[4];  // dh, read for all 4 rows before their gate backward
 #pragma unroll
-    for (int gg = 0; gg < 3; ++gg) {
-      if (gg != g) continue;
-      for (int kk = 0; kk < kend; kk += 16) {
-        unsigned a[4], b[4];
-        load_a(a, As + w.rg * 16 * kALd + kk, kALd, lane);
-        load_b_nmajor(b, Bs + kk, kALd, lane);
-        // The warp's n8 half of the 16 units (a select, not an index
-        // into the register array).
-        const unsigned b0 = w.half ? b[2] : b[0];
-        const unsigned b1 = w.half ? b[3] : b[1];
-        mma16816<E>(acc[gg], a, b0, b1);
+    for (int i = 0; i < 4; ++i) {
+      dsum[i] = v.dh[i];
+      if (k > 0) {
+        const int c = (q * 16 + qt * 4 + i) * kCLd + jl;
+        float2 pr[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) pr[r] = ld2(P[r] + c);
+        dsum[i].x = __fadd_rn(__fadd_rn(__fadd_rn(dsum[i].x, pr[0].x),
+                                        pr[1].x), pr[2].x);
+        dsum[i].y = __fadd_rn(__fadd_rn(__fadd_rn(dsum[i].y, pr[0].y),
+                                        pr[1].y), pr[2].y);
       }
     }
-  }
-  cp_async_wait<0>();
-
-  const int j = j0 + w.jl;
+    float2 s = make_float2(0.0f, 0.0f);
 #pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int b = b0 + w.er + 8 * e;
-    if (b >= B) continue;
-    const size_t o = static_cast<size_t>(b) * H + j;
-    const float2 dp = *reinterpret_cast<const float2*>(p.dpart + o);
-    float2 dh;
-    dh.x = __fadd_rn(__fadd_rn(__fadd_rn(dp.x, acc[0][2 * e]), acc[1][2 * e]),
-                     acc[2][2 * e]);
-    dh.y = __fadd_rn(
-        __fadd_rn(__fadd_rn(dp.y, acc[0][2 * e + 1]), acc[1][2 * e + 1]),
-        acc[2][2 * e + 1]);
-    *reinterpret_cast<float2*>(p.dh + o) = dh;
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + q * 16 + qt * 4 + i;
+      if (b >= B) continue;
+      E* go = gt + b * Hq3 + j;
+      if (!unit) {  // G's padding units: zero for dU_h's tiles
+        const Pair z = Elem<E>::from2(0.0f, 0.0f);
+        *reinterpret_cast<Pair*>(go) = z;
+        *reinterpret_cast<Pair*>(go + p.Hq) = z;
+        *reinterpret_cast<Pair*>(go + 2 * p.Hq) = z;
+        continue;
+      }
+      float out[5][2];  // da_r, da_z, da_n, dgh_n, dhp of both units
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const auto pick = [e](float2 w) { return e ? w.y : w.x; };
+        const float d = pick(dsum[i]);
+        const float ghn_b = __fadd_rn(pick(v.ghn[i]), e ? bhn.y : bhn.x);
+        const float r = wsigmoid(__fadd_rn(pick(v.xr[i]), pick(v.ghr[i])));
+        const float z = wsigmoid(__fadd_rn(pick(v.xz[i]), pick(v.ghz[i])));
+        const float n =
+            tanhf(__fadd_rn(pick(v.xn[i]), __fmul_rn(r, ghn_b)));
+        const float m = v.live[i] ? 1.0f : 0.0f;
+        const float dh_new = __fmul_rn(m, d);
+        const float dhp =
+            __fadd_rn(__fmul_rn(1.0f - m, d), __fmul_rn(dh_new, z));
+        const float dz = __fmul_rn(dh_new, pick(v.hp[i]) - n);
+        const float dn = __fmul_rn(dh_new, 1.0f - z);
+        const float da_n = __fmul_rn(dn, 1.0f - __fmul_rn(n, n));
+        out[0][e] = __fmul_rn(__fmul_rn(__fmul_rn(da_n, ghn_b), r), 1.0f - r);
+        out[1][e] = __fmul_rn(__fmul_rn(dz, z), 1.0f - z);
+        out[2][e] = da_n;
+        out[3][e] = __fmul_rn(da_n, r);  // dgh_n
+        out[4][e] = dhp;
+      }
+      const size_t ob = b * H3 + j;
+      float2* dg = reinterpret_cast<float2*>(dgxt + ob);
+      dg[0] = make_float2(out[0][0], out[0][1]);
+      dg[H / 2] = make_float2(out[1][0], out[1][1]);
+      dg[H] = make_float2(out[2][0], out[2][1]);
+      *reinterpret_cast<Pair*>(go) = Elem<E>::from2(out[0][0], out[0][1]);
+      *reinterpret_cast<Pair*>(go + p.Hq) =
+          Elem<E>::from2(out[1][0], out[1][1]);
+      *reinterpret_cast<Pair*>(go + 2 * p.Hq) =
+          Elem<E>::from2(out[3][0], out[3][1]);
+      *reinterpret_cast<float2*>(p.dpart + static_cast<size_t>(b) * H + j) =
+          make_float2(out[4][0], out[4][1]);
+      s.x += out[3][0];
+      s.y += out[3][1];
+    }
+    Rs[slot][qt][jl] = s.x;
+    Rs[slot][qt][jl + 1] = s.y;
+  };
+  constexpr int kGroups = kRows / 16;
+#pragma unroll
+  for (int slot = 0; slot < 3; ++slot) {
+    const int q = g + 3 * slot;
+    if (q >= kGroups) break;
+    if (q + 3 < kGroups) load(q + 3, v[(slot + 1) & 1]);
+    run(q, v[slot & 1], slot);
   }
+  __syncthreads();
+  if (tid < kCarryUnits && j0 + tid < H) {  // the block's dgh_n, in order
+    float sum = 0.0f;
+    for (int slot = 0; g + 3 * slot < kGroups; ++slot)
+      for (int qq = 0; qq < 4; ++qq) sum += Rs[slot][qq][tid];
+    const size_t parts = 3 * static_cast<size_t>(gridDim.y);
+    p.part[(k * parts + 3 * blockIdx.y + g) * H + j0 + tid] = sum;
+  }
+  if (k > 0) cluster.sync();  // the other ranks have read this block's Cs
 }
 
 // The forwards p[0..dirs-1] on `st`: T launches of gru_wide_fwd_kernel,
@@ -493,16 +785,16 @@ int fwd_run(const Fwd<E> (&p)[2], int dirs, cudaStream_t st,
   const int B = p[0].B;
   const int H = p[0].H;
   cudaError_t e = cudaSuccess;
-  if (T < 1 || B < 1 || H < kUnits || H % kUnits != 0 || dirs < 1 ||
-      dirs > 2)
+  if (T < 1 || B < 1 || H < 16 || H % 16 != 0 || dirs < 1 || dirs > 2)
     e = cudaErrorInvalidValue;
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(gru_wide_fwd_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kFwdSmem));
-  const dim3 grid(H / kUnits, (B + kRows - 1) / kRows, dirs);
+                             static_cast<int>(kSmem));
+  const dim3 grid(2 * ((H + kUnits - 1) / kUnits), (B + kTall - 1) / kTall,
+                  dirs);
   for (int k = 0; e == cudaSuccess && k < T; ++k) {
-    gru_wide_fwd_kernel<E><<<grid, kThreads, kFwdSmem, st>>>(p[0], p[1], k);
+    gru_wide_fwd_kernel<E><<<grid, kThreads, kSmem, st>>>(p[0], p[1], k);
     e = cudaGetLastError();
     if (e == cudaSuccess) ++*launched;
   }
@@ -510,13 +802,15 @@ int fwd_run(const Fwd<E> (&p)[2], int dirs, cudaStream_t st,
   return static_cast<int>(e);
 }
 
-// The BPTTs p[0..dirs-1] on `st`: the E copy of the pre-step states, then
-// for each step the gates' cotangents and (but after the last step) the
-// carry, then gru_bwd_step.cuh's dU_h GEMM and db_hn sum of every
-// direction: 2T + 2 launches. duh[d] ([H, 3H] f32) and dbhn[d] ([H] f32)
-// are direction d's. p[d].dh holds the cotangent of the final state on
-// entry and is clobbered. H % 64 == 0. Counts in *launched the kernels
-// that launched; returns the first CUDA error (cleared from the runtime).
+// The BPTTs p[0..dirs-1] on `st`: the E copy of the pre-step states, every
+// step's gh, one carry launch a step (the first without a product), then
+// the dU_h product of each direction and gru_bwd_step.cuh's db_hn sum of
+// every direction: T + 3 + dirs launches. duh[d] ([H, 3H] f32) and dbhn[d]
+// ([H] f32) are direction d's: duh[d] [Hq, 3Hq] f32, gate blocks of Hq (the
+// rows and columns past H are the padding's). p[d].dpart holds the
+// cotangent of the final state on entry and is clobbered. H % 16 == 0 and
+// Hq = H rounded up to 128. Counts in *launched the kernels that launched;
+// returns the first CUDA error (cleared from the runtime).
 template <class E>
 int bwd_run(const Bwd<E> (&p)[2], float* const (&duh)[2],
             float* const (&dbhn)[2], int dirs, cudaStream_t st,
@@ -526,70 +820,86 @@ int bwd_run(const Bwd<E> (&p)[2], float* const (&duh)[2],
   const int B = p[0].B;
   const int H = p[0].H;
   cudaError_t e = cudaSuccess;
-  if (T < 1 || B < 1 || H < 64 || H % 64 != 0 || dirs < 1 || dirs > 2)
+  if (T < 1 || B < 1 || H < 16 || H % 16 != 0 ||
+      p[0].Hq != duh_width(H) || dirs < 1 || dirs > 2)
     e = cudaErrorInvalidValue;
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gru_wide_dgx_kernel<E>,
+    e = cudaFuncSetAttribute(gru_wide_gh_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDgxSmem));
+                             static_cast<int>(kSmem));
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(gru_wide_carry_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kFwdSmem));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gru_duh_pipe_kernel<E>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDuhSmem));
+                             static_cast<int>(kSmem));
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
   }
-  const size_t BH = static_cast<size_t>(B) * H;
-  const size_t n4 = (T - 1) * BH / 4;
-  const int rblocks = static_cast<int>(
-      std::min<size_t>((n4 + kThreads - 1) / kThreads, 4096));
-  if (rblocks > 0) {
-    gru_wide_round_kernel<E><<<dim3(rblocks, dirs), kThreads, 0, st>>>(p[0],
-                                                                      p[1]);
-  } else {
-    gru_wide_round_kernel<E><<<dim3(1, dirs), kThreads, 0, st>>>(p[0], p[1]);
-  }
+  const int Hq = p[0].Hq;
+  const size_t n4 = static_cast<size_t>(T - 1) * B * Hq / 4;
+  const int rblocks = static_cast<int>(std::max<size_t>(
+      1, std::min<size_t>((n4 + kThreads - 1) / kThreads, 4096)));
+  gru_wide_round_kernel<E><<<dim3(rblocks, dirs), kThreads, 0, st>>>(p[0],
+                                                                    p[1]);
   e = cudaGetLastError();
-  if (e == cudaSuccess) ++*launched;
-  const dim3 grid(H / kUnits, (B + kRows - 1) / kRows, dirs);
-  for (int k = 0; e == cudaSuccess && k < T; ++k) {
-    gru_wide_dgx_kernel<E><<<grid, kThreads, kDgxSmem, st>>>(p[0], p[1], k);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
+  if (e == cudaSuccess) {
     ++*launched;
-    if (k == T - 1) break;  // the chain's start: no dh_prev is read
-    gru_wide_carry_kernel<E><<<grid, kThreads, kFwdSmem, st>>>(p[0], p[1],
-                                                               k);
+    const int M = (T - 1) * B;
+    const dim3 grid((H + kUnits - 1) / kUnits,
+                    std::max(1, (M + kTall - 1) / kTall), dirs);
+    gru_wide_gh_kernel<E><<<grid, kThreads, kSmem, st>>>(p[0], p[1]);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess) ++*launched;
+  const dim3 grid((H + kCarryUnits - 1) / kCarryUnits,
+                  (B + kRows - 1) / kRows, 3 * dirs);
+  for (int k = 0; e == cudaSuccess && k < T; ++k) {
+    gru_wide_carry_kernel<E><<<grid, kThreads, kSmem, st>>>(p[0], p[1], k);
     e = cudaGetLastError();
     if (e == cudaSuccess) ++*launched;
   }
-  if (e == cudaSuccess) {
-    // h_prev of step t is hseq[t-1] (forward) or hseq[t+1] (reverse); the
-    // first processed step's zero state adds nothing and is left out.
-    const size_t step_gx = 3 * BH;
-    DuhPipe<E> d[2];
-    for (int i = 0; i < 2; ++i) {
-      d[i] = DuhPipe<E>{p[i].hbf + (p[i].reverse ? BH : 0),
-                        p[i].g + (p[i].reverse ? 0 : step_gx), duh[i],
-                        (T - 1) * B, H};
-    }
-    gru_duh_pipe_kernel<E><<<dim3(3 * H / kDN, (H + kDM - 1) / kDM, dirs),
-                             kThreads, kDuhSmem, st>>>(d[0], d[1]);
-    e = cudaGetLastError();
+  // dU_h = sum over the saved states of E(h_prev)^T G: attention_dwv.cuh's
+  // dW_v product, whose reduction runs along the rows of both operands
+  // (the cells there, the (step, row) pairs here), one launch a direction
+  // with the rows unsplit, so its tiles write dU_h. h_prev of step t is
+  // hseq[t-1] (forward) or hseq[t+1] (reverse); the first processed step's
+  // zero state adds nothing and is left out.
+  for (int d = 0; e == cudaSuccess && d < dirs; ++d) {
+    const size_t first = p[d].reverse ? 0 : B;  // G's row of the first state
+    e = attn_dwv::launch_dwv(
+        attn_dwv::DenseCells<E>{p[d].hbf + (B - first) * Hq, Hq},
+        p[d].g + first * 3 * Hq, duh[d], (T - 1) * B, Hq, 3 * Hq, 1, st);
     if (e == cudaSuccess) ++*launched;
   }
   if (e == cudaSuccess) {
-    const int nbt = (B + 15) / 16;
+    const int parts = 3 * ((B + kRows - 1) / kRows);
     gru_dbhn_kernel<<<dim3((H + 255) / 256, dirs), 256, 0, st>>>(
-        DbhnSum{p[0].part, dbhn[0]}, DbhnSum{p[1].part, dbhn[1]}, T * nbt,
+        DbhnSum{p[0].part, dbhn[0]}, DbhnSum{p[1].part, dbhn[1]}, T * parts,
         H);
     e = cudaGetLastError();
     if (e == cudaSuccess) ++*launched;
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+// The carry launch's clusters that the card can hold at once (0 where
+// none fits), for the report: cudaOccupancyMaxActiveClusters at the carry
+// grid of (B, H) with `dirs` directions.
+template <class E>
+int carry_clusters(int B, int H, int dirs, int* clusters) {
+  *clusters = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      gru_wide_carry_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (e == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((H + kCarryUnits - 1) / kCarryUnits,
+                       (B + kRows - 1) / kRows, 3 * dirs);  // Hq / 128
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmem;
+    e = cudaOccupancyMaxActiveClusters(clusters, gru_wide_carry_kernel<E>,
+                                       &cfg);
   }
   if (e != cudaSuccess) cudaGetLastError();
   return static_cast<int>(e);

@@ -66,7 +66,7 @@ import torch
 from vqa_transfer_externaldata_torch.ops import kernels
 
 _NEG_INF = -1e30
-_SMEM_LIMIT = 48 * 1024  # static + default dynamic shared memory of a block
+_WSUM_STATIC = 32 * 4  # K4's wsum kernel's static reduction scratch
 MAX_GLIMPSES = 8  # the kernels' limit, the TPU kernel's (its ws sublanes)
 # Row dtypes that compute in the model's dtype (qh's), widened on load.
 _WIDENED = (torch.int8, torch.float16)
@@ -507,9 +507,11 @@ def _launch_fwd(store: torch.Tensor, rows: torch.Tensor, qh: torch.Tensor,
     G = _glimpses(ws, what)
     if C < 1 or H < 1:
         raise ValueError(f"{what} needs C, H >= 1, got C={C}, H={H}")
-    if 2 * G * Np * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses exceed "
-                         "the softmax's shared memory")
+    smem = 2 * G * Np * 4  # the wsum launch's softmaxes: p and w, [G, Np]
+    if smem + _WSUM_STATIC > kernels.SMEM_OPTIN:
+        raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses need "
+                         f"{smem} B of the softmax's shared memory, over a "
+                         f"block's {kernels.SMEM_OPTIN} B")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, dt, (C, H), dev)
     kernels.expect("ws", ws, torch.float32,
@@ -724,9 +726,11 @@ def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
     G = _glimpses(ws, what)
     H = qh.shape[-1]
     dev = store.device
-    if 2 * G * Np * 4 > _SMEM_LIMIT:
-        raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses exceed "
-                         "the softmax's shared memory")
+    smem = G * Np * 4  # the wsum launch's softmaxes: [Np, G]
+    if smem > kernels.SMEM_OPTIN:
+        raise ValueError(f"{what}: Np={Np} cells of G={G} glimpses need "
+                         f"{smem} B of the softmax's shared memory, over a "
+                         f"block's {kernels.SMEM_OPTIN} B")
     kernels.expect("qh", qh, torch.float32, (B, H), dev)
     kernels.expect("wv", wv, torch.float32, (C, H), dev)
     kernels.expect("ws", ws, torch.float32,

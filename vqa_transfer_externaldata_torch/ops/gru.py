@@ -34,13 +34,15 @@ zero-padded to the kernels' multiple (16 forward, 64 backward;
 sliced back. Each then takes one of two forms by shape alone
 (``kernels.gru_fwd_route`` / ``kernels.gru_bwd_route``): the persistent
 kernels where U_h's slices fit in a block's shared memory and the grid can
-be resident (up to H = 1568 forward and 576 backward on an H100), else the
-step form of ``csrc/gru_wide_step.cuh`` (``csrc/gru_fwd_wide.cu``,
+be resident, the forward up to ``kernels.GRU_FWD_STEP_ABOVE`` units and
+the backward up to 576 on an H100, else the step form of
+``csrc/gru_wide_step.cuh`` (``csrc/gru_fwd_wide.cu``,
 ``csrc/gru_bwd_wide.cu`` and their float16 builds; wrappers
 :func:`gru_fwd_wide`, :func:`gru_bwd_wide`, :func:`bigru_fwd_wide`,
-:func:`bigru_bwd_wide`), one or two launches a timestep with U_h read
-through L2. No form gives way to another or to a plain version: a launch
-that fails raises.
+:func:`bigru_bwd_wide`): ``wgmma`` GEMM tiles with U_h read through L2,
+one launch a timestep forward, and backward every step's gh in one GEMM
+up front, then one launch a timestep. No form gives way to another or to
+a plain version: a launch that fails raises.
 
 :class:`BiGRUEncoder` concatenates a forward and a reverse encoder's final
 states. It projects each direction as :class:`GRUEncoder` does and runs both
@@ -411,7 +413,9 @@ def _wide_lib(name: str) -> ctypes.CDLL:
     if name.startswith("gru_fwd_wide"):
         entries = {"gru_fwd_wide": (7, 4), "bigru_fwd_wide": (10, 3)}
     else:
-        entries = {"gru_bwd_wide": (13, 4), "bigru_bwd_wide": (17, 3)}
+        entries = {"gru_bwd_wide": (12, 4), "bigru_bwd_wide": (16, 3)}
+        lib.gru_bwd_wide_clusters.argtypes = [i, i, i, p]
+        lib.gru_bwd_wide_clusters.restype = i
     for entry, (pointers, ints) in entries.items():
         getattr(lib, entry).argtypes = [p] * pointers + [i] * ints + [p, p]
         getattr(lib, entry).restype = i
@@ -506,14 +510,14 @@ def gru_fwd(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     :func:`gru_fwd_f16` (K1h), a float32 one to :func:`gru_fwd_f32` (K1f),
     another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`).
     Any H >= 1: H is zero-padded to a multiple of 16 (:func:`gru_pad`, the
-    outputs sliced back). Where a block's U_h slice and 16-row b-tile fit
-    in shared memory and a row of the j-tiles can be resident at once
-    (``kernels.gru_fwd_route``: up to H = 1568 on an H100), one call makes
-    one cooperative launch of the persistent kernel for all T steps, with
-    the batch rows a block of ``kernels.gru_fwd_plan``, on the current
-    stream and adds it (1) to ``gru_fwd.launches``; elsewhere it runs the
-    step form, :func:`gru_fwd_wide` (T launches, counted there). A launch
-    that fails raises."""
+    outputs sliced back). Up to ``kernels.GRU_FWD_STEP_ABOVE`` units, where
+    a block's U_h slice and 16-row b-tile fit in shared memory and a row of
+    the j-tiles can be resident at once (``kernels.gru_fwd_route``), one
+    call makes one cooperative launch of the persistent kernel for all T
+    steps, with the batch rows a block of ``kernels.gru_fwd_plan``, on the
+    current stream and adds it (1) to ``gru_fwd.launches``; elsewhere it
+    runs the step form, :func:`gru_fwd_wide` (T launches, counted there).
+    A launch that fails raises."""
     dt = kernels.kernel_dtype("gru_fwd", "uh", uh)
     if dt == torch.float32:
         return gru_fwd_f32(gx_t, lens, uh, bhn, reverse=reverse)
@@ -635,8 +639,8 @@ def gru_fwd_wide(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     :func:`gru_fwd` with a bf16 ``uh`` (a float16 one goes to
     :func:`gru_fwd_wide_f16`; another dtype raises ``TypeError``), H
     zero-padded to a multiple of 16. One launch a step, each advancing all
-    rows: T launches a call on the current stream, added to
-    ``gru_fwd_wide.launches``."""
+    rows (``kernels.gru_step_plan``): T launches a call on the current
+    stream, added to ``gru_fwd_wide.launches``."""
     if _dtype16("gru_fwd_wide", "uh", uh) == torch.float16:
         return gru_fwd_wide_f16(gx_t, lens, uh, bhn, reverse=reverse)
     return _gru_fwd16(gx_t, lens, uh, bhn, reverse, torch.bfloat16, "step")
@@ -747,15 +751,16 @@ def gru_bwd(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     duh [H, 3H], dbhn [H]), all f32; a float16 ``uh`` goes to
     :func:`gru_bwd_f16` (K3h), a float32 one to :func:`gru_bwd_f32` (K3f),
     another dtype raises ``TypeError`` (:func:`kernels.kernel_dtype`).
-    Any H >= 1: H is zero-padded to a multiple of 64 (:func:`gru_pad`, the
-    outputs sliced back). Where U_h's slices fit in a block's shared
+    Any H >= 1: H is zero-padded to a multiple of 64 (16 for the step
+    form; :func:`gru_pad`, the outputs sliced back). Where U_h's slices fit
+    in a block's shared
     memory and a row of the j-tiles can be resident at once
     (``kernels.gru_bwd_route``: up to H = 576 on an H100), one call
     launches the persistent step kernel (one cooperative launch for all T
     steps, on the grid of ``kernels.gru_bwd_plan``), the dU_h GEMM and the
     db_hn sum on the current stream and adds the number launched (3) to
     ``gru_bwd.launches``; elsewhere it runs the step form,
-    :func:`gru_bwd_wide` (2T + 2 launches, counted there). A launch that
+    :func:`gru_bwd_wide` (T + 4 launches, counted there). A launch that
     fails raises."""
     dt = kernels.kernel_dtype("gru_bwd", "uh", uh)
     if dt == torch.float32:
@@ -810,8 +815,11 @@ def _gru_bwd16(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     kernels.expect("bhn", bhn, torch.float32, (H,), dev)
     kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
     Hp = kernels.round_up(H, kernels.GRU_BWD_PAD)
+    form = form or _bwd_route(what, B, Hp, dev, 1)
+    if form == "step":
+        Hp = kernels.round_up(H, kernels.GRU_STEP_PAD)
     padded = gru_pad(Hp, gx_t, uh, bhn, hseq, ghT)
-    if (form or _bwd_route(what, B, Hp, dev, 1)) == "persistent":
+    if form == "persistent":
         out = _launch_bwd(*padded, lens, reverse)
     else:
         out = _launch_bwd_wide(*padded, lens, reverse)
@@ -859,39 +867,42 @@ def _launch_bwd_wide(gx_t: torch.Tensor, uh: torch.Tensor,
                      bhn: torch.Tensor, hseq: torch.Tensor,
                      ghT: torch.Tensor, lens: torch.Tensor, reverse: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The step form's 2T + 2 launches (``csrc/gru_bwd_wide.cu``, its
+    """The step form's T + 4 launches (``csrc/gru_bwd_wide.cu``, its
     float16 build on a float16 ``uh``) on checked inputs at a width
-    H % 64 == 0, added to ``gru_bwd_wide.launches``
-    (``gru_bwd_wide_f16.launches``)."""
+    H % 16 == 0, added to ``gru_bwd_wide.launches``
+    (``gru_bwd_wide_f16.launches``). The E copies of the states and gate
+    cotangents are Hq = H rounded up to ``kernels.GRU_STEP_DUH_TILE``
+    wide (dU_h's tiles); dU_h comes back [Hq, 3Hq] and is sliced to H."""
     T, B, H3 = gx_t.shape
     H = H3 // 3
     dev = gx_t.device
     dtype = uh.dtype
+    Hq = kernels.round_up(H, kernels.GRU_STEP_DUH_TILE)
     f32 = dict(dtype=torch.float32, device=dev)
-    dh = ghT.clone()  # the carried cotangent, overwritten step by step
-    dpart = torch.empty(B, H, **f32)
-    g = torch.empty(T, B, 3 * H, dtype=dtype, device=dev)
-    part = torch.empty(T, -(-B // _TILE), H, **f32)
+    dpart = ghT.clone()  # the carried cotangent's part, step by step
+    g = torch.empty(T, B, 3 * Hq, dtype=dtype, device=dev)
+    part = torch.empty(T, kernels.gru_step_plan(T, B, H, True)["partials"],
+                       H, **f32)
     dgx = torch.empty(T, B, 3 * H, **f32)
-    duh = torch.empty(H, 3 * H, **f32)
+    duh = torch.empty(Hq, 3 * Hq, **f32)
     dbhn = torch.empty(H, **f32)
-    hbf = torch.empty(T, B, H, dtype=dtype, device=dev)
+    hbf = torch.empty(T, B, Hq, dtype=dtype, device=dev)
     what = kernels.name16("gru_bwd_wide", dtype)
     lib = _wide_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.gru_bwd_wide(gx_t.data_ptr(), hseq.data_ptr(),
                               lens.data_ptr(), uh.data_ptr(), bhn.data_ptr(),
-                              dh.data_ptr(), dpart.data_ptr(),
-                              dgx.data_ptr(), g.data_ptr(), part.data_ptr(),
-                              duh.data_ptr(), dbhn.data_ptr(),
-                              hbf.data_ptr(), T, B, H, int(reverse),
+                              dpart.data_ptr(), dgx.data_ptr(), g.data_ptr(),
+                              part.data_ptr(), duh.data_ptr(),
+                              dbhn.data_ptr(), hbf.data_ptr(), T, B, H,
+                              int(reverse),
                               torch.cuda.current_stream(dev).cuda_stream,
                               ctypes.addressof(launched))
     (gru_bwd_wide_f16 if dtype == torch.float16
      else gru_bwd_wide).launches += launched.value
     kernels.check(lib, rc, what)
-    return dgx, duh, dbhn
+    return dgx, _unpad_gates(duh[:H], H), dbhn
 
 
 def gru_bwd_wide(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
@@ -903,10 +914,11 @@ def gru_bwd_wide(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     (``kernels.gru_bwd_route``), at any width: the inputs and outputs of
     :func:`gru_bwd` with a bf16 ``uh`` (a float16 one goes to
     :func:`gru_bwd_wide_f16`; another dtype raises ``TypeError``), H
-    zero-padded to a multiple of 64. The E copy of the pre-step states,
-    two launches a step (the gates' cotangents with gh recomputed, the
-    carry through U_h^T but after the last step), then the dU_h GEMM and
-    the db_hn sum: 2T + 2 launches a call on the current stream, added to
+    zero-padded to a multiple of 16. The E copy of the pre-step states,
+    every step's gh in one GEMM, one launch a step (the carry through
+    U_h^T, but at the first step, and the step's gate backward), then the
+    dU_h GEMM and the db_hn sum (``kernels.gru_step_plan``): T + 4
+    launches a call on the current stream, added to
     ``gru_bwd_wide.launches``."""
     if _dtype16("gru_bwd_wide", "uh", uh) == torch.float16:
         return gru_bwd_wide_f16(gx_t, hseq, lens, uh, bhn, ghT,
@@ -923,7 +935,7 @@ def gru_bwd_wide_f16(gx_t: torch.Tensor, hseq: torch.Tensor,
                      ghT: torch.Tensor, *, reverse: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3h's step form (``csrc/gru_bwd_wide_f16.cu``): as
-    :func:`gru_bwd_wide` with uh [H, 3H] float16; 2T + 2 launches a call,
+    :func:`gru_bwd_wide` with uh [H, 3H] float16; T + 4 launches a call,
     added to ``gru_bwd_wide_f16.launches``."""
     return _gru_bwd16(gx_t, hseq, lens, uh, bhn, ghT, reverse,
                       torch.float16, "step")
@@ -1160,11 +1172,12 @@ def bigru_fwd(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
     direction bit-equal to a :func:`gru_fwd` call on its inputs. Any H >= 1,
     zero-padded to a multiple of 16 (:func:`gru_pad`). Where
     ``kernels.gru_fwd_route`` takes the persistent kernel (as for
-    :func:`gru_fwd`, up to H = 1568), one call makes one cooperative
-    launch of K1's persistent kernel for all T steps of both chains, with
-    the batch rows a block of ``kernels.gru_fwd_plan`` with two directions
-    (or, where the plan says that both directions' j-tiles cannot be
-    resident at once, one launch a chain), on the current stream and adds
+    :func:`gru_fwd`, up to ``kernels.GRU_FWD_STEP_ABOVE`` units), one call
+    makes one cooperative launch of K1's persistent kernel for all T steps
+    of both chains, with the batch rows a block of ``kernels.gru_fwd_plan``
+    with two directions (or, where the plan says that both directions'
+    j-tiles cannot be resident at once, one launch a chain), on the
+    current stream and adds
     the number launched (1, or 2) to ``bigru_fwd.launches``; elsewhere the
     step form, :func:`bigru_fwd_wide`. A float16 ``uhf`` goes to
     :func:`bigru_fwd_f16` (K6h), a float32 one to :func:`bigru_fwd_f32`
@@ -1360,10 +1373,11 @@ def bigru_bwd(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     int32, uhf, uhb [H, 3H] bf16, bhnf, bhnb [H] f32, ghTf, ghTb [B, H] f32
     -> (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), all
     f32, each direction bit-equal to a :func:`gru_bwd` call on its inputs.
-    Any H >= 1, zero-padded to a multiple of 64 (:func:`gru_pad`). Where
-    ``kernels.gru_bwd_route`` takes the persistent step kernel with two
-    directions (up to H = 576, as :func:`gru_bwd`), one call launches it
-    (one cooperative launch for all T steps of both chains, on the grid of
+    Any H >= 1, zero-padded to a multiple of 64 (16 for the step form;
+    :func:`gru_pad`). Where ``kernels.gru_bwd_route`` takes the persistent
+    step kernel with two directions (up to H = 576, as :func:`gru_bwd`),
+    one call launches it (one cooperative launch for all T steps of both
+    chains, on the grid of
     ``kernels.gru_bwd_plan`` with two directions), the dU_h GEMM and the
     db_hn sum of both directions on the current stream and adds the number
     launched (3) to ``bigru_bwd.launches``; elsewhere the step form,
@@ -1423,10 +1437,13 @@ def _bigru_bwd16(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
                  uh=(uhf, uhb), bhn=(bhnf, bhnb), ghT=(ghTf, ghTb))
     kernels.expect("lens", lens, torch.int32, (B,), dev)
     Hp = kernels.round_up(H, kernels.GRU_BWD_PAD)
+    form = form or _bwd_route(what, B, Hp, dev, 2)
+    if form == "step":
+        Hp = kernels.round_up(H, kernels.GRU_STEP_PAD)
     gxf, uhf, bhnf, hseqf, ghTf = gru_pad(Hp, gxf, uhf, bhnf, hseqf, ghTf)
     gxb, uhb, bhnb, hseqb, ghTb = gru_pad(Hp, gxb, uhb, bhnb, hseqb, ghTb)
     args = (gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
-    if (form or _bwd_route(what, B, Hp, dev, 2)) == "persistent":
+    if form == "persistent":
         dgx, duh, dbhn = _launch_bigru_bwd(*args)
     else:
         dgx, duh, dbhn = _launch_bigru_bwd_wide(*args)
@@ -1481,22 +1498,24 @@ def _launch_bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor,
                            uhb: torch.Tensor, bhnf: torch.Tensor,
                            bhnb: torch.Tensor, ghTf: torch.Tensor,
                            ghTb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The step form's 2T + 2 launches for both chains (``bigru_bwd_wide``
+    """The step form's T + 5 launches for both chains (``bigru_bwd_wide``
     of ``csrc/gru_bwd_wide.cu``, its float16 build on a float16 ``uhf``)
-    on checked inputs at a width H % 64 == 0, added to
-    ``bigru_bwd_wide.launches`` (``bigru_bwd_wide_f16.launches``)."""
+    on checked inputs at a width H % 16 == 0, added to
+    ``bigru_bwd_wide.launches`` (``bigru_bwd_wide_f16.launches``): dgx
+    [2, T, B, 3H], duh [2, H, 3H], dbhn [2, H], forward chain first."""
     T, B, H3 = gxf.shape
     H = H3 // 3
     dev = gxf.device
     dtype = uhf.dtype
+    Hq = kernels.round_up(H, kernels.GRU_STEP_DUH_TILE)
     f32 = dict(dtype=torch.float32, device=dev)
-    dh = torch.stack([ghTf, ghTb])  # the carried cotangents, overwritten
-    dpart = torch.empty(2, B, H, **f32)
-    g = torch.empty(2, T, B, 3 * H, dtype=dtype, device=dev)
-    hbf = torch.empty(2, T, B, H, dtype=dtype, device=dev)
-    part = torch.empty(2, T, -(-B // _TILE), H, **f32)
+    dpart = torch.stack([ghTf, ghTb])  # the carried cotangents' parts
+    g = torch.empty(2, T, B, 3 * Hq, dtype=dtype, device=dev)
+    hbf = torch.empty(2, T, B, Hq, dtype=dtype, device=dev)
+    part = torch.empty(2, T, kernels.gru_step_plan(T, B, H, True)["partials"],
+                       H, **f32)
     dgx = torch.empty(2, T, B, 3 * H, **f32)
-    duh = torch.empty(2, H, 3 * H, **f32)
+    duh = torch.empty(2, Hq, 3 * Hq, **f32)
     dbhn = torch.empty(2, H, **f32)
     what = kernels.name16("gru_bwd_wide", dtype)
     lib = _wide_lib(what)
@@ -1505,7 +1524,7 @@ def _launch_bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor,
         rc = lib.bigru_bwd_wide(
             gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
             hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(), uhb.data_ptr(),
-            bhnf.data_ptr(), bhnb.data_ptr(), dh.data_ptr(), dpart.data_ptr(),
+            bhnf.data_ptr(), bhnb.data_ptr(), dpart.data_ptr(),
             dgx.data_ptr(), g.data_ptr(), part.data_ptr(), duh.data_ptr(),
             dbhn.data_ptr(), hbf.data_ptr(), T, B, H,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -1513,7 +1532,7 @@ def _launch_bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor,
     (bigru_bwd_wide_f16 if dtype == torch.float16
      else bigru_bwd_wide).launches += launched.value
     kernels.check(lib, rc, what)
-    return dgx, duh, dbhn
+    return dgx, _unpad_gates(duh[:, :H], H), dbhn
 
 
 def bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
@@ -1526,7 +1545,7 @@ def bigru_bwd_wide(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     kernel cannot, at any width: :func:`bigru_bwd`'s inputs and outputs
     with bf16 ``uhf``, ``uhb`` (float16 ones go to
     :func:`bigru_bwd_wide_f16`), each direction bit-equal to a
-    :func:`gru_bwd_wide` call on its inputs. 2T + 2 launches a call for
+    :func:`gru_bwd_wide` call on its inputs. T + 5 launches a call for
     both chains, added to ``bigru_bwd_wide.launches``."""
     args = (gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
     if _dtype16("bigru_bwd_wide", "uhf", uhf) == torch.float16:
@@ -1544,13 +1563,31 @@ def bigru_bwd_wide_f16(gxf: torch.Tensor, gxb: torch.Tensor,
                        bhnb: torch.Tensor, ghTf: torch.Tensor,
                        ghTb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """K7h's step form (``csrc/gru_bwd_wide_f16.cu``): as
-    :func:`bigru_bwd_wide` with float16 ``uhf``, ``uhb``; 2T + 2 launches a
+    :func:`bigru_bwd_wide` with float16 ``uhf``, ``uhb``; T + 5 launches a
     call, added to ``bigru_bwd_wide_f16.launches``."""
     return _bigru_bwd16(gxf, gxb, hseqf, hseqb, lens, uhf, uhb, bhnf, bhnb,
                         ghTf, ghTb, torch.float16, "step")
 
 
 bigru_bwd_wide_f16.launches = 0
+
+
+def gru_step_clusters(B: int, H: int, device: torch.device,
+                      dtype: torch.dtype = torch.bfloat16,
+                      directions: int = 1) -> int:
+    """How many of the step form's carry clusters (three blocks a tile,
+    ``kernels.gru_step_plan``) the card of CUDA ``device`` holds at once at
+    batch ``B`` and width ``H`` (a multiple of 16) with ``directions``
+    chains, as the C side's occupancy query reports it: a step whose
+    clusters are more runs them in turns."""
+    what = kernels.name16("gru_bwd_wide", dtype)
+    lib = _wide_lib(what)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.gru_bwd_wide_clusters(B, H, directions,
+                                       ctypes.addressof(out))
+    kernels.check(lib, rc, what)
+    return out.value
 
 
 def bigru_bwd_launch_config(B: int, H: int, device: torch.device,

@@ -347,8 +347,25 @@ def gru_bwd_plan(B: int, H: int, sms: int, per_sm: int,
 
 GRU_FWD_PAD = 16  # H's multiple of K1/K6 (both forms): a block's 16 units
 GRU_BWD_PAD = 64  # H's multiple of K3/K7 (both forms): the dU_h GEMM's
-GRU_STEP_ROWS = 64  # batch rows a block of the step form takes
-GRU_STEP_UNITS = 16  # hidden units a block of the step form owns
+GRU_STEP_PAD = 16  # H's multiple of the step form, forward and BPTT
+GRU_STEP_TALL = 256  # rows of a forward or gh tile (batch rows, saved states)
+GRU_STEP_ROWS = 128  # batch rows of a carry tile; of a forward block's cell
+GRU_STEP_UNITS = 40  # units of a forward or gh tile: 3 x 40 of its 128 columns
+GRU_STEP_CARRY_UNITS = 128  # units of a carry tile (one gate's product)
+GRU_STEP_CLUSTER = 3  # blocks of a carry tile: one a gate
+GRU_STEP_SPLIT = 2  # blocks of a forward tile: one a half of gh's K
+GRU_STEP_DUH_TILE = 256  # the BPTT's copies of h and G pad H to this (dU_h)
+# The widest H (padded to GRU_FWD_PAD) at which the forward takes the
+# persistent K1/K6; above it the step form. chip_smoke.py's phase 30
+# (widths_gru_crossover) times both at T = 26 in bf16 on an H100 80GB HBM3
+# at 700 W (PERF.md §6), persistent / step ms at B = 256: 0.5759 /
+# 0.5711 and 0.5916 / 0.5933 at 768, 0.5984 / 0.5979 and 0.6143 / 0.5801
+# at 832, 1.5746 / 0.6062 and 1.5853 / 0.6028 at 896 (16-row blocks from
+# 864 on), in two runs; at B = 64 the persistent K1 is the faster up to
+# 1024 in both (0.3026-0.3072 / 0.4709-0.4820 at 832). At 832 the forms
+# are within the runs' spread at B = 256 and the persistent K1 is a third
+# faster at B = 64; past it the step form wins at both batches.
+GRU_FWD_STEP_ABOVE = 832
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -362,12 +379,12 @@ def gru_fwd_route(B: int, H: int, sms: int, per_sm: Mapping[int, int],
     two) at batch ``B`` and width ``H`` (a multiple of ``GRU_FWD_PAD``) on
     a card of ``sms`` SMs with ``per_sm[rows]`` persistent blocks resident
     per SM by tiling (0 where a block's U_h slice does not fit in shared
-    memory): "persistent" where :func:`gru_fwd_plan` plans a launch (some
-    tiling has a row of one direction's H / 16 j-tiles resident at once;
-    up to H = 1568 on an H100), else "step", the form of
-    ``csrc/gru_wide_step.cuh`` (one launch a timestep, U_h read through
-    L2), which takes any such H. A function of the shapes and the
-    occupancy alone."""
+    memory): "persistent" up to ``GRU_FWD_STEP_ABOVE`` units where
+    :func:`gru_fwd_plan` plans a launch (some tiling has a row of one
+    direction's H / 16 j-tiles resident at once), else "step", the form of
+    ``csrc/gru_wide_step.cuh`` (one launch a timestep on ``wgmma``, U_h
+    read through L2), which takes any such H. A function of the shapes and
+    the occupancy alone."""
     if B < 1 or H < GRU_FWD_PAD or H % GRU_FWD_PAD or sms < 1 or (
             directions not in (1, 2)):
         raise ValueError(f"gru_fwd_route needs B >= 1, H a positive multiple "
@@ -376,7 +393,8 @@ def gru_fwd_route(B: int, H: int, sms: int, per_sm: Mapping[int, int],
                          f"directions={directions}")
     jt = H // GRU_FWD_UNITS
     resident = any(per_sm.get(r, 0) * sms // jt >= 1 for r in GRU_FWD_ROWS)
-    return "persistent" if resident else "step"
+    return ("persistent" if resident and H <= GRU_FWD_STEP_ABOVE
+            else "step")
 
 
 def gru_bwd_route(B: int, H: int, sms: int, per_sm: int,
@@ -387,7 +405,7 @@ def gru_bwd_route(B: int, H: int, sms: int, per_sm: int,
     per SM (0 where U_h's slices and the ring do not fit in a block's
     shared memory, above H = 576 on an H100): "persistent" where
     :func:`gru_bwd_plan` plans a launch (a row of every direction's
-    j-tiles resident at once), else "step", the two launches a timestep of
+    j-tiles resident at once), else "step", the launches of
     ``csrc/gru_wide_step.cuh``, which take any such H. A function of the
     shapes and the occupancy alone."""
     if B < 1 or H < GRU_BWD_PAD or H % GRU_BWD_PAD or sms < 1 or (
@@ -404,20 +422,51 @@ def gru_bwd_route(B: int, H: int, sms: int, per_sm: int,
 def gru_step_plan(T: int, B: int, H: int, backward: bool,
                   directions: int = 1) -> dict:
     """The launches of the step form (``csrc/gru_wide_step.cuh``) over
-    ``T`` steps at batch ``B`` and width ``H`` (a multiple of 16 forward,
-    of 64 backward): every step's grid, (H / 16 j-tiles, 64-row b-tiles,
-    directions), each block one (16 units, 64 rows) tile of its direction,
-    and the launches a call: T forward (one a step, both directions in
-    it); backward 2T + 2 (the copy of the pre-step states in the 16-bit
-    type, the gates' cotangents each step, the carry through U_h^T each
-    step but the last, then the dU_h GEMM and the db_hn sum)."""
-    pad = GRU_BWD_PAD if backward else GRU_FWD_PAD
-    if T < 1 or B < 1 or H < pad or H % pad or directions not in (1, 2):
+    ``T`` steps at batch ``B`` and width ``H`` (a multiple of
+    ``GRU_STEP_PAD``).
+
+    Forward: every step's ``grid`` (2 x ceil(H / 40), 256-row b-tiles,
+    directions) in ``cluster``s of two along x: cluster (jx, by, d) takes
+    the units 40 jx.. (the r, z and n columns of each: 120 of a tile's 128
+    columns) and rows 256 by.. of direction d, block 2 jx + h one half h of
+    gh's K (``split_k``: the K of half 0, half 1 the rest) and, with the
+    halves' sums added, the cell of rows 256 by + 128 h ..; T launches a
+    call, both directions in each.
+
+    Backward: the copy of the pre-step states in the 16-bit type; the
+    ``gh_grid`` of every step's gh at once (the forward's unit tiles by
+    256-row tiles of the (T - 1) B saved states, at least one); one carry
+    launch a step on ``grid`` (ceil(H / 128) unit tiles, 128-row b-tiles,
+    3 x directions) in ``cluster``s of three along z, block (jx, by,
+    3 d + g) the product of gate g for units 128 jx.. and rows 128 by.. of
+    direction d and the gate backward of that tile's 16-row groups q with
+    q % 3 == g (its dgh_n one partial of db_hn: ``partials`` a step); then
+    the dU_h GEMM of each direction and the db_hn sum: T + 3 + directions
+    launches a call. ``Hq``, H rounded up to ``GRU_STEP_DUH_TILE``, is the
+    width of the BPTT's copies of the states and gate cotangents, whose
+    zero units the dU_h GEMM's tiles take."""
+    if T < 1 or B < 1 or H < GRU_STEP_PAD or H % GRU_STEP_PAD or (
+            directions not in (1, 2)):
         raise ValueError(f"gru_step_plan needs T, B >= 1, H a positive "
-                         f"multiple of {pad} and 1 or 2 directions, got "
-                         f"T={T}, B={B}, H={H}, directions={directions}")
-    return {"grid": [H // GRU_STEP_UNITS, -(-B // GRU_STEP_ROWS), directions],
-            "launches": 2 * T + 2 if backward else T}
+                         f"multiple of {GRU_STEP_PAD} and 1 or 2 directions, "
+                         f"got T={T}, B={B}, H={H}, directions={directions}")
+    unit_tiles = -(-H // GRU_STEP_UNITS)
+    if not backward:
+        half0 = -(-H // (GRU_STEP_SPLIT * 64)) * 64
+        return {"grid": [GRU_STEP_SPLIT * unit_tiles,
+                         -(-B // GRU_STEP_TALL), directions],
+                "cluster": [GRU_STEP_SPLIT, 1, 1],
+                "split_k": half0, "launches": T}
+    b_tiles = -(-B // GRU_STEP_ROWS)
+    return {"Hq": round_up(H, GRU_STEP_DUH_TILE),
+            "gh_grid": [unit_tiles,
+                        max(1, -(-((T - 1) * B) // GRU_STEP_TALL)),
+                        directions],
+            "grid": [-(-H // GRU_STEP_CARRY_UNITS), b_tiles,
+                     GRU_STEP_CLUSTER * directions],
+            "cluster": [1, 1, GRU_STEP_CLUSTER],
+            "partials": GRU_STEP_CLUSTER * b_tiles,
+            "launches": T + 3 + directions}
 
 
 # The widths of the 16-bit attention kernels (K2/K8 gathered, K4/K5
