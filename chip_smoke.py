@@ -229,7 +229,11 @@ Run from the repository root. Phases (any failure exits non-zero):
    (G times that for K5f's dqh and dW_v), each timed with its plain
    version, its library yardstick (cuDNN's GRU in float32 for K1f/K3f,
    cuBLAS's f32 GEMM for K4f's score and K5f's dW_v stage) and its bound
-   at the FP32 FFMA peak; ``fit_resident`` at full width in float32 on the
+   at the FP32 FFMA peak, K4f's score and K5f's dW_v launch (the products
+   of ``csrc/fp32_ring.cuh``) alone on the device beside torch.matmul f32
+   on the same product, in turns (matmul, launch, launch, matmul), in ms
+   and TFLOP/s with the FFMA bound; ``fit_resident`` at full width in
+   float32 on the
    synthetic corpus's float16 store (K1f, K3f, K4f on f16 rows widened on
    load, K5f) for F32_STEPS steps, the first against the plain path (loss
    to TOL_F32_LOSS, gradients to cosine F32_GRAD_COS), launch counts, step
@@ -254,7 +258,9 @@ Run from the repository root. Phases (any failure exits non-zero):
    calls bit-equal; each timed with its plain version, its library
    yardstick (cuBLAS's f32 GEMM on K2f's score and K8f's dW_v product,
    ``nn.GRU(bidirectional=True)`` in float32 for K6f/K7f) and its bound at
-   the FP32 FFMA peak, K6f/K7f in turns with two K1f/K3f calls; then
+   the FP32 FFMA peak, K6f/K7f in turns with two K1f/K3f calls, K2f's
+   score and K8f's dz and dW_v launch alone beside torch.matmul f32 in
+   turns, as phase 25's; then
    ``fit_resident`` in float32 on the gathered store
    (``train.resident_fused_attention`` false: K1f, K2f, K3f, K8f) for
    F32_STEPS steps, its first step against the plain path, launch counts,
@@ -5191,6 +5197,33 @@ def bound_f32(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The profiler names of the float32 products on fp32_ring.cuh's loop.
+F32_SCORE_KERNEL = "attn_f32_score_ring_kernel"  # K4f's and K2f's score
+F32_DZ_KERNEL = "attn_f32_bwd_dz_ring_kernel"  # K8f's dz launch
+F32_DWV_KERNEL = "fp32_ring::product_kernel"  # K5f's and K8f's dW_v
+
+
+def f32_launch_turns(label: str, fn, prefix: str, matmul, flops: float,
+                     buf) -> dict:
+    """One float32 product launch (the kernels named ``prefix`` in a call of
+    ``fn``, device ms from a profile) beside ``matmul`` (one torch.matmul
+    in f32, TF32 off, on the same product; CUDA events) in turns: matmul,
+    launch, launch, matmul. Prints both in ms and TFLOP/s over ``flops``
+    and the FFMA bound; returns the four times."""
+    turns = [time_cuda(matmul, buf), kernel_device_ms(fn, prefix, buf),
+             kernel_device_ms(fn, prefix, buf), time_cuda(matmul, buf)]
+    rate = [flops / t / 1e9 for t in turns]
+    print(f"{label}: launch {turns[1]:.4f} / {turns[2]:.4f} ms "
+          f"({rate[1]:.1f} / {rate[2]:.1f} TFLOP/s) beside torch.matmul f32 "
+          f"{turns[0]:.4f} / {turns[3]:.4f} ms ({rate[0]:.1f} / {rate[3]:.1f} "
+          f"TFLOP/s), in turns; FFMA bound "
+          f"{flops / PEAK_FP32_FLOPS * 1e3:.4f} ms")
+    return {"turns_ms": turns, "launch_ms": turns[1],
+            "launch_tflops": rate[1], "matmul_ms": [turns[0], turns[3]],
+            "matmul_tflops": [rate[0], rate[3]],
+            "ffma_bound_ms": flops / PEAK_FP32_FLOPS * 1e3}
+
+
 def f32_errors(got: dict, want: dict, limits: dict) -> dict:
     """Each output's largest error relative to its plain version's largest
     |value|, checked against its limit."""
@@ -5411,9 +5444,6 @@ def f32_times(k13: dict, k45: dict, dev) -> dict:
             st, rows, qh, wv, ws, save_h=True, **kw), buf),
         "plain": time_cuda(lambda: ar.attention_resident_fwd_reference(
             st, rows, qh, wv, ws, save_h=True, **kw), buf),
-        "score_ms": kernel_device_ms(lambda: ar.attention_resident_fwd_f32(
-            st, rows, qh, wv, ws, save_h=True, **kw),
-            "attn_f32_score_kernel", buf),
         "library": time_cuda(lambda: torch.matmul(v32, wv), buf),
         "library_call": f"torch.matmul([{cells}, {C}] f32, [{C}, {H}] f32) "
                         "(TF32 off): the score stage alone, on rows "
@@ -5432,9 +5462,6 @@ def f32_times(k13: dict, k45: dict, dev) -> dict:
             st, rows, h, ws, al, g, sga, **kw), buf),
         "plain": time_cuda(lambda: ar.attention_resident_bwd_reference(
             st, rows, h, ws, al, g, sga, **kw), buf),
-        "dwv_ms": kernel_device_ms(lambda: ar.attention_resident_bwd_f32(
-            st, rows, h, ws, al, g, sga, **kw), "fp32_tile::product_kernel",
-            buf),
         "library": time_cuda(lambda: torch.matmul(vt, dzr), buf),
         "library_call": f"torch.matmul([{C}, {Bt * N}] f32, [{Bt * N}, "
                         f"{H}] f32) (TF32 off): the dW_v stage alone, on "
@@ -5446,23 +5473,28 @@ def f32_times(k13: dict, k45: dict, dev) -> dict:
                            + 2 * cells * 4 + Bt * C * 4 + Bt * H * 4
                            + C * H * 4 + H * 4,
                            2 * Bt * N * C * (H + 1) + 4 * Bt * N * H)}
-    # Each stage's rate over the work its valid cells need.
-    times["attention_resident_fwd_f32"]["score_tflops"] = (
-        2 * Bt * N * C * H / times["attention_resident_fwd_f32"]["score_ms"]
-        / 1e9)
-    times["attention_resident_bwd_f32"]["dwv_tflops"] = (
-        2 * Bt * N * C * H / times["attention_resident_bwd_f32"]["dwv_ms"]
-        / 1e9)
+    # The two redesigned launches beside the same product in torch.matmul,
+    # in turns; each rate over the work its valid cells need.
+    flops = 2 * Bt * N * C * H
+    t4 = times["attention_resident_fwd_f32"]
+    t5 = times["attention_resident_bwd_f32"]
+    t4["score_launch"] = f32_launch_turns(
+        "K4f score launch", lambda: ar.attention_resident_fwd_f32(
+            st, rows, qh, wv, ws, save_h=True, **kw), F32_SCORE_KERNEL,
+        lambda: torch.matmul(v32, wv), flops, buf)
+    t5["dwv_launch"] = f32_launch_turns(
+        "K5f dW_v launch", lambda: ar.attention_resident_bwd_f32(
+            st, rows, h, ws, al, g, sga, **kw), F32_DWV_KERNEL,
+        lambda: torch.matmul(vt, dzr), flops, buf)
+    t4["score_ms"] = t4["score_launch"]["launch_ms"]
+    t4["score_tflops"] = t4["score_launch"]["launch_tflops"]
+    t5["dwv_ms"] = t5["dwv_launch"]["launch_ms"]
+    t5["dwv_tflops"] = t5["dwv_launch"]["launch_tflops"]
     for name, t in times.items():
         print(f"{name}: kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library {t['library']:.4f} ms "
               f"({t['library_call']}), bound {t['bound'][0]:.4f} ms "
               f"({t['bound'][1]})")
-    t4 = times["attention_resident_fwd_f32"]
-    t5 = times["attention_resident_bwd_f32"]
-    print(f"K4f score launch {t4['score_ms']:.4f} ms "
-          f"({t4['score_tflops']:.1f} TFLOP/s); K5f dW_v launch "
-          f"{t5['dwv_ms']:.4f} ms ({t5['dwv_tflops']:.1f} TFLOP/s)")
     return times
 
 
@@ -5839,11 +5871,13 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
                                 + H * 4 + Bq * C * 4 + 2 * cells * 4,
                                 2 * cells * C * (H + 2) + 2 * cells * H)}
         if Bq == B_TRAIN:
-            t["score_ms"] = kernel_device_ms(
-                lambda: attention.attention_fwd_f32(v, qh, wv, ws,
-                                                    normalize=True),
-                "attn_f32_score_kernel", buf)
-            t["score_tflops"] = 2 * cells * C * H / t["score_ms"] / 1e9
+            t["score_launch"] = f32_launch_turns(
+                "K2f score launch", lambda: attention.attention_fwd_f32(
+                    v, qh, wv, ws, normalize=True), F32_SCORE_KERNEL,
+                lambda: torch.matmul(v.reshape(cells, C), wv),
+                2 * cells * C * H, buf)
+            t["score_ms"] = t["score_launch"]["launch_ms"]
+            t["score_tflops"] = t["score_launch"]["launch_tflops"]
         times["attention_fwd_f32" if Bq == B_TRAIN
               else "attention_fwd_f32_serving"] = t
     v, qh, wv, ws, ds = k28["inputs"][B_TRAIN]
@@ -5861,10 +5895,6 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
                         "f32) (TF32 off): the dW_v product alone",
         "library_dz_ms": time_cuda(lambda: torch.matmul(
             v.reshape(cells, C), wv), buf),
-        "dz_ms": kernel_device_ms(lambda: attention.attention_bwd_f32(
-            v, qh, wv, ws, ds, r, True), "attn_f32_bwd_dz_kernel", buf),
-        "dwv_ms": kernel_device_ms(lambda: attention.attention_bwd_f32(
-            v, qh, wv, ws, ds, r, True), "fp32_tile::product_kernel", buf),
         # v, W_v, qh, w_s, ds and r read once; dqh, dW_v and dws written
         # once; the recomputed z and dW_v products, dz and dws.
         "bound": bound_f32(cells * C * 4 + C * H * 4 + B_TRAIN * H * 4
@@ -5872,8 +5902,16 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
                            + C * H * 4 + H * 4,
                            2 * 2 * cells * C * H + 4 * cells * H)}
     t8 = times["attention_bwd_f32"]
-    t8["dz_tflops"] = 2 * cells * C * H / t8["dz_ms"] / 1e9
-    t8["dwv_tflops"] = 2 * cells * C * H / t8["dwv_ms"] / 1e9
+    for part, prefix, mm in (
+            ("dz", F32_DZ_KERNEL, lambda: torch.matmul(v.reshape(cells, C),
+                                                       wv)),
+            ("dwv", F32_DWV_KERNEL, lambda: torch.matmul(vt, dzr))):
+        t8[part + "_launch"] = f32_launch_turns(
+            f"K8f {part} launch", lambda: attention.attention_bwd_f32(
+                v, qh, wv, ws, ds, r, True), prefix, mm, 2 * cells * C * H,
+            buf)
+        t8[part + "_ms"] = t8[part + "_launch"]["launch_ms"]
+        t8[part + "_tflops"] = t8[part + "_launch"]["launch_tflops"]
     del vt, dzr
 
     gxf, gxb, lens, uhf, uhb, bhnf, bhnb = k67["args"]
@@ -8181,6 +8219,8 @@ def main(argv=None) -> int:
                  "score_ms": f32t["attention_resident_fwd_f32"]["score_ms"],
                  "score_tflops":
                  f32t["attention_resident_fwd_f32"]["score_tflops"],
+                 "score_launch":
+                 f32t["attention_resident_fwd_f32"]["score_launch"],
                  "library_gather_ms":
                  f32t["attention_resident_fwd_f32"]["library_gather_ms"]}),
             ("attention_resident_bwd_f32", ref + "attention_resident.py:208",
@@ -8192,7 +8232,9 @@ def main(argv=None) -> int:
                             for c in k45f["checks"]],
                  "dwv_ms": f32t["attention_resident_bwd_f32"]["dwv_ms"],
                  "dwv_tflops":
-                 f32t["attention_resident_bwd_f32"]["dwv_tflops"]})):
+                 f32t["attention_resident_bwd_f32"]["dwv_tflops"],
+                 "dwv_launch":
+                 f32t["attention_resident_bwd_f32"]["dwv_launch"]})):
         t = f32t[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}{name}.cu",
@@ -8217,6 +8259,7 @@ def main(argv=None) -> int:
                             for c in k28["checks"]],
                  "score_ms": f32gt["attention_fwd_f32"]["score_ms"],
                  "score_tflops": f32gt["attention_fwd_f32"]["score_tflops"],
+                 "score_launch": f32gt["attention_fwd_f32"]["score_launch"],
                  "at_serving_batch": {
                      "batch": B, "ms": k2s["kernel"],
                      "plain_ms": k2s["plain"], "bound_ms": k2s["bound"][0],
@@ -8230,7 +8273,7 @@ def main(argv=None) -> int:
                             for c in k28["checks"]],
                  **{k: f32gt["attention_bwd_f32"][k] for k in (
                      "dz_ms", "dz_tflops", "dwv_ms", "dwv_tflops",
-                     "library_dz_ms")}}),
+                     "library_dz_ms", "dz_launch", "dwv_launch")}}),
             ("bigru_fwd_f32", ref + "gru.py:474", k67["err6"],
              "float32_stage1", {
                  "tol_rel": TOL_F32_REL, "checks": k67["k6f"],

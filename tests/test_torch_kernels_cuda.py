@@ -57,7 +57,11 @@ that; see chip_smoke.py for the reasoning. K2f and K8f (the gathered
 attention on a float32 grid) are held the same way, K2f's r to 1e-6 and
 K8f's dqh and dW_v also to K8's per-entry allowance for ReLU flips, and
 K6f (K7f), which run K1f's (K3f's) step with both chains in each launch,
-equal two K1f (K3f) calls bit for bit. The float16 kernels K1h-K8h are
+equal two K1f (K3f) calls bit for bit. The float32 attention products
+(csrc/fp32_ring.cuh) are also held at every copy width their plan takes
+(rows whose pitch is 16-, 8-, 4-byte aligned or less, a grid 4 bytes off
+an allocation), two calls bit-equal, and a plan the rows' alignment does
+not allow refused before any launch. The float16 kernels K1h-K8h are
 the bf16 bodies on float16, held to the bf16 limits scaled by float16's
 step (the sections below), K6h (K7h) bit-equal to two K1h (K3h) calls.
 Every kernel takes bf16, float16 and float32 and refuses float64. Every
@@ -2884,3 +2888,125 @@ def test_channel_padded_store_matches_the_unpadded_one(dev, C, int8):
     for name, a, b in zip(("v_att", "alpha", "dqh", "dwv", "dws"), *res):
         assert a.shape == b.shape, name
         assert _rel_err(a, b) <= TOL_K4_H, (name, _rel_err(a, b))
+
+
+# ---------------------------------------------------------------------------
+# The float32 products' cp.async ring (csrc/fp32_ring.cuh) at every copy
+# width: K4f, K5f, K2f and K8f on rows whose pitch is not 16-byte aligned
+# ---------------------------------------------------------------------------
+
+# Channels: 16, 48, 100 and 300 (the widths sweep's) and 25 and 50, which
+# give f32 rows 4- and 8-byte copies and f16 or int8 rows element-by-element
+# ones (ops/kernels.py::f32_copy_width); units: 8, 100, 600 (16-byte rows of
+# W_v and dz), 6 (8-byte) and 101 (4-byte).
+RING_CHANNELS = [16, 25, 48, 50, 100, 300]
+RING_UNITS = [8, 100, 600, 6, 101]
+
+
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.float16,
+                                        torch.int8])
+@pytest.mark.parametrize("C", RING_CHANNELS)
+@pytest.mark.parametrize("H", RING_UNITS)
+def test_attention_resident_f32_ring_widths_match_plain(dev, rows_dtype, C,
+                                                        H):
+    """K4f and K5f at G = 2 against their plain versions where the rows'
+    pitch C takes each copy width: 37 questions of 29 valid cells (1184
+    cells, not a multiple of the 128-cell tile; K5f's 1073 valid cells split
+    with a ragged last split and a ragged last 16-cell chunk when the
+    card's split rule gives two). Two calls give the same bits."""
+    normalize = rows_dtype != torch.int8
+    store, rows, qh, wv, ws = _f32_resident_inputs(dev, 9, 29, C, H, 37, 2,
+                                                   rows_dtype)
+    kw = dict(n_valid=29, normalize=normalize)
+    es = store.element_size()
+    assert ar.f32_score_plan(store, wv)["a_width"] == \
+        kernels.f32_copy_width(C * es, store.data_ptr())
+    f0 = ar.attention_resident_fwd_f32.launches
+    b0 = ar.attention_resident_bwd_f32.launches
+    v, a, h = ar.attention_resident_fwd_f32(store, rows, qh, wv, ws,
+                                            save_h=True, **kw)
+    v2, a2, h2 = ar.attention_resident_fwd_f32(store, rows, qh, wv, ws,
+                                               save_h=True, **kw)
+    rv, ra, rh = ar.attention_resident_fwd_reference(store, rows, qh, wv,
+                                                     ws, save_h=True, **kw)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gv = torch.randn(37, 2 * C, generator=gen, device=dev)
+    sga = torch.randn(ra.shape, generator=gen, device=dev) * 0.1
+    got = ar.attention_resident_bwd_f32(store, rows, rh, ws, ra, gv, sga,
+                                        **kw)
+    again = ar.attention_resident_bwd_f32(store, rows, rh, ws, ra, gv, sga,
+                                          **kw)
+    want = ar.attention_resident_bwd_reference(store, rows, rh, ws, ra, gv,
+                                               sga, **kw)
+    torch.cuda.synchronize()
+    assert ar.attention_resident_fwd_f32.launches == f0 + 2 * (2 + normalize)
+    assert ar.attention_resident_bwd_f32.launches == b0 + 6
+    assert _rel(a, ra) <= TOL_F32 and _rel(h, rh) <= TOL_F32
+    for k in range(2):
+        assert _rel(v[:, k * C:(k + 1) * C], rv[:, k * C:(k + 1) * C]) \
+            <= TOL_F32
+    for name, x, y, tol in zip(("dqh", "dwv", "dws"), got, want,
+                               (2 * TOL_F32, 2 * TOL_F32, TOL_F32)):
+        assert torch.isfinite(x).all(), name
+        assert _rel(x, y) <= tol, (name, _rel(x, y))
+    for x, y in zip((v, a, h) + got, (v2, a2, h2) + again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("C", RING_CHANNELS)
+@pytest.mark.parametrize("H", RING_UNITS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_attention_f32_ring_widths_match_plain(dev, C, H, offset):
+    """K2f and K8f against their plain versions where v's pitch C (and, at
+    offset 1, v's start 4 bytes past an allocation's) takes each copy
+    width: 37 questions of 29 cells (1073 cells: K8f's dW_v split with a
+    ragged last split and a ragged last chunk when the card's rule gives
+    two). K8f within TOL_F32 plus its ReLU-flip allowance; two calls give
+    the same bits."""
+    B, N = 37, 29
+    v0, qh, wv, ws, ds = _f32_grid_inputs(dev, B, N, C, H)
+    v = torch.empty(B * N * C + offset, device=dev)[offset:].view(B, N, C)
+    v.copy_(v0)
+    assert attention.f32_score_plan(v, wv)["a_width"] == \
+        kernels.f32_copy_width(C * 4, v.data_ptr())
+    f0, b0 = attention.attention_fwd_f32.launches, \
+        attention.attention_bwd_f32.launches
+    va, al, r = attention.attention_fwd_f32(v, qh, wv, ws, normalize=True)
+    va2, al2, r2 = attention.attention_fwd_f32(v, qh, wv, ws, normalize=True)
+    rv, ra, rr = attention.attention_fwd_reference(v, qh, wv, ws, True)
+    got = attention.attention_bwd_f32(v, qh, wv, ws, ds, r, True)
+    again = attention.attention_bwd_f32(v, qh, wv, ws, ds, r, True)
+    want = attention.attention_bwd_reference(v, qh, wv, ws, ds, r, True)
+    torch.cuda.synchronize()
+    assert attention.attention_fwd_f32.launches == f0 + 6
+    assert attention.attention_bwd_f32.launches == b0 + 6
+    assert _rel(r, rr) <= 1e-6
+    assert _rel(va, rv) <= TOL_F32 and _rel(al, ra) <= TOL_F32
+    a_dqh, a_dwv, _ = _k8_allowance(v, qh, wv, ws, ds, r, True)
+    for name, a, b, allow in zip(("dqh", "dwv", "dws"), got, want,
+                                 (a_dqh, a_dwv, 0.0)):
+        assert torch.isfinite(a).all(), name
+        limit = TOL_F32 * b.abs().max().item() + allow
+        assert ((a - b).abs() <= limit).all(), (name, _rel(a, b))
+    for x, y in zip((va, al, r) + got, (va2, al2, r2) + again):
+        assert torch.equal(x, y)
+
+
+def test_f32_ring_refuses_a_plan_the_rows_do_not_allow(dev, monkeypatch):
+    """A plan whose copy width the rows' alignment does not allow (16 bytes
+    on f16 rows 600 bytes apart) or whose shared bytes are not the C side's
+    layout is refused by the C entry before anything launches: the wrapper
+    raises and counts no launch."""
+    store, rows, qh, wv, ws = _f32_resident_inputs(dev, 3, 13, 300, 100, 4,
+                                                   1, torch.float16)
+    good = ar.f32_score_plan(store, wv)
+    assert good["a_width"] == 8
+    kw = dict(n_valid=13, normalize=False)
+    for bad in ({**good, "a_width": 16},
+                {**good, "smem_bytes": good["smem_bytes"] + 16},
+                {**good, "stages": good["stages"] + 1}):
+        monkeypatch.setattr(ar, "f32_score_plan", lambda s, w, p=bad: p)
+        n0 = ar.attention_resident_fwd_f32.launches
+        with pytest.raises(RuntimeError, match="attention_resident_fwd_f32"):
+            ar.attention_resident_fwd_f32(store, rows, qh, wv, ws, **kw)
+        assert ar.attention_resident_fwd_f32.launches == n0

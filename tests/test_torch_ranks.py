@@ -102,13 +102,22 @@ def worker_main(cases: dict) -> None:
 
 
 def test_a_failing_rank_fails_the_run_and_the_rest_are_killed(tmp_path):
-    """Rank 1 exits 3 at once; rank 0 would sleep a minute. The run fails
-    naming rank 1 within seconds, rank 0 killed, its log in the message."""
+    """Rank 1 exits 3 as soon as rank 0 has said it is up (at most 10 s
+    on), so that rank 0's line is in its log however loaded the machine
+    is; rank 0 would sleep a minute. The run fails naming rank 1 within
+    seconds, rank 0 killed, its log in the message."""
     script = tmp_path / "worker.py"
     script.write_text(
-        "import sys, time\n"
+        "import os, sys, time\n"
         "print('rank', sys.argv[2], 'up', flush=True)\n"
         "if sys.argv[2] == '1':\n"
+        "    log = os.path.join(sys.argv[5], 'case_rank0.log')\n"
+        "    end = time.monotonic() + 10\n"
+        "    while time.monotonic() < end:\n"
+        "        with open(log) as fh:\n"
+        "            if 'rank 0 up' in fh.read():\n"
+        "                break\n"
+        "        time.sleep(0.05)\n"
         "    sys.exit(3)\n"
         "time.sleep(60)\n")
     start = time.monotonic()

@@ -22,67 +22,58 @@
 // read in 0.12 ms at 3.35 TB/s: the FP32 pipes.
 //
 // Design, three launches in stream order:
-//  1. attn_f32_bwd_dz_kernel: the [B*N, C] x [C, H] product on
-//     fp32_tile.cuh's tile loop, 128 cells x 128 units a block over all
-//     B*N cells (K2f's score tile, v read in place), 8-channel chunks, two
-//     blocks an SM. Its epilogue forms z and writes dz [B*N, H] f32, and
-//     sums ds * relu(z) over the tile's cells, a unit's 16 thread rows
-//     added in order through shared memory: one dws partial a tile [tiles,
-//     H];
-//  2. the dW_v product [C, B*N] x [B*N, H] on fp32_tile.cuh's
-//     product_kernel, 128 channels x 128 units a block, reading dz * r
-//     (rounded, as the plain version rounds it) as it loads, the cells split
-//     so that the grid fills the card (the split comes from the wrapper, a
-//     function of the shapes and the card: K5f's), each split's sum in cell
-//     order;
+//  1. attn_f32_bwd_dz_ring_kernel: the [B*N, C] x [C, H] product on
+//     fp32_ring.cuh's tile loop, 128 cells x 128 units a block over all
+//     B*N cells (K2f's score tile: v's rows copied by cp.async, transposed
+//     into the f32 slot the products read), 16-channel chunks, two blocks
+//     an SM. Its epilogue forms z and writes dz [B*N, H] f32 and, when
+//     normalizing, dz * r (rounded, as the plain version rounds it: the B
+//     of the dW_v product), and sums ds * relu(z) over the tile's cells, a
+//     unit's 16 thread rows added in order through shared memory: one dws
+//     partial a tile [tiles, H];
+//  2. the dW_v product [C, B*N] x [B*N, H] on fp32_ring.cuh's
+//     product_kernel (K5f's), 128 channels x 128 units a block, both
+//     operands MN-major (v's rows and dz * r's, copied straight into the
+//     layouts the products read), the cells split so that the grid fills
+//     the card (the split comes from the wrapper, a function of the shapes
+//     and the card: K5f's), each split's sum in cell order;
 //  3. attn_f32_bwd_reduce_kernel: dW_v's splits summed in split order, each
 //     question's dqh summed over its cells in order, dws over the tiles in
 //     order.
+// The two products' copy widths (16, 8 or 4 bytes as v's pitch C * 4 and
+// address allow) come from the wrapper's ops/kernels.py::f32_ring_plan.
 // Any C, H and N. No atomics: two calls give the same bits.
 
 #include <cuda_runtime.h>
 
-#include "fp32_tile.cuh"
+#include "fp32_ring.cuh"
 #include "store_rows_f32.cuh"
 
 namespace {
 
-constexpr int TILE = 128;  // cells and units of a dz tile
-constexpr int CHUNK = 8;  // channels of a k-chunk of the recomputed product
-constexpr int DWV_TILE = 128;  // channels and units of a dW_v tile
-constexpr int DWV_CHUNK = 16;  // cells of a k-chunk of the dW_v product
+constexpr int TILE = fp32_ring::TILE;  // cells and units of a dz tile
 constexpr int SPLIT_ROUND = 8;  // a split's cells: a multiple of 8 but
                                 // the last (the wrapper's rule)
 
-// dz [K, H], times r[k] when r is not null (rounded apart): the B of the
-// dW_v product, the plain version's dz * r.
-struct DzR {
-  const float* dz;
-  const float* r;
-  int H;
-  __device__ __forceinline__ float operator()(int k, int n) const {
-    const float d = dz[(long long)k * H + n];
-    return r != nullptr ? __fmul_rn(d, r[k]) : d;
-  }
-};
-
-__global__ void __launch_bounds__(fp32_tile::THREADS, 2)
-    attn_f32_bwd_dz_kernel(const float* __restrict__ v,
-                           const float* __restrict__ wv,
-                           const float* __restrict__ qh,
-                           const float* __restrict__ ws,
-                           const float* __restrict__ ds,
-                           const float* __restrict__ rnorm,
-                           float* __restrict__ dz, float* __restrict__ wpart,
-                           int cells, int N, int C, int H) {
-  __shared__ fp32_tile::Smem<TILE, TILE, CHUNK> s;
-  __shared__ float red[16][TILE];  // a tile's dws sums by thread row
+template <int WA, int WB>
+__global__ void __launch_bounds__(fp32_ring::THREADS, 2)
+    attn_f32_bwd_dz_ring_kernel(const float* __restrict__ v,
+                                const float* __restrict__ wv,
+                                const float* __restrict__ qh,
+                                const float* __restrict__ ws,
+                                const float* __restrict__ ds,
+                                const float* __restrict__ rnorm,
+                                float* __restrict__ dz,
+                                float* __restrict__ dzr,
+                                float* __restrict__ wpart, int cells, int N,
+                                int C, int H, int wa, int wb) {
+  extern __shared__ __align__(16) unsigned char smem[];
   constexpr int T8 = TILE / 16;
   float acc[T8][T8] = {};
   const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  fp32_tile::mainloop<TILE, TILE, CHUNK, true, false>(
-      rows_f32::GridCells{v, N, C}, fp32_tile::Dense{wv, H}, cells, H, m0,
-      n0, 0, C, acc, s);
+  fp32_ring::mainloop<float, true, WA, WB>(rows_f32::GridCells{v, N, C}, wv,
+                                          H, cells, H, m0, n0, 0, C, wa, wb,
+                                          acc, smem);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float dw[T8] = {};
 #pragma unroll
@@ -98,10 +89,16 @@ __global__ void __launch_bounds__(fp32_tile::THREADS, 2)
       if (n >= H) continue;
       const float z =
           __fadd_rn(__fmul_rn(acc[i][j], r), qh[(long long)b * H + n]);
-      dz[(long long)m * H + n] = z > 0.f ? __fmul_rn(d, ws[n]) : 0.f;
+      const float g = z > 0.f ? __fmul_rn(d, ws[n]) : 0.f;
+      dz[(long long)m * H + n] = g;
+      if (dzr != nullptr) dzr[(long long)m * H + n] = __fmul_rn(g, r);
       dw[j] = fmaf(d, fmaxf(z, 0.f), dw[j]);
     }
   }
+  // A tile's dws sums by thread row, in the ring's memory: every thread is
+  // done with the last chunk once it passes the barrier.
+  __syncthreads();
+  float(*red)[TILE] = reinterpret_cast<float(*)[TILE]>(smem);
 #pragma unroll
   for (int j = 0; j < T8; ++j) red[ty][tx * T8 + j] = dw[j];
   __syncthreads();
@@ -152,34 +149,52 @@ const char* cuda_error_string(int code) {
 
 // v [B, N, C] f32, wv [C, H] f32, qh [B, H] f32, ws [H] f32, ds [B, N] f32
 // and r [B, N] f32 (read only when normalize) -> dqh [B, H], dwv [C, H],
-// dws [H], all f32. Scratch: dz [B*N, H], wpart [ceil(B*N/128), H], part
-// [splits, C, H], all f32. Three launches on `stream`, added to *launched.
+// dws [H], all f32. Scratch: dz [B*N, H], dzr [B*N, H] (when normalize;
+// else unread), wpart [ceil(B*N/128), H], part [splits, C, H], all f32.
+// The two products' plans, ops/kernels.py::f32_ring_plan's: copy widths
+// (bytes) and shared bytes of the dz launch (wa_dz, wb_dz, smem_dz) and of
+// the dW_v launch (wa_dwv, wb_dwv, smem_dwv), and the stages, refused where
+// v's alignment does not allow them. Three launches on `stream`, added to
+// *launched.
 int attention_bwd_f32(const float* v, const float* wv, const float* qh,
                       const float* ws, const float* ds, const float* r,
-                      float* dz, float* wpart, float* part, float* dqh,
+                      float* dz, float* dzr, float* wpart, float* part,
+                      float* dqh,
                       float* dwv, float* dws, int B, int N, int C, int H,
-                      int normalize, int splits, cudaStream_t stream,
-                      int* launched) {
-  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+                      int normalize, int splits, int wa_dz, int wb_dz,
+                      int smem_dz, int wa_dwv, int wb_dwv, int smem_dwv,
+                      int stages, cudaStream_t stream, int* launched) {
+  if (splits < 1 ||
+      !fp32_ring::plan_ok<float, true>(wa_dz, wb_dz, stages, smem_dz,
+                                              v, (long long)C * 4, wv,
+                                              (long long)H * 4) ||
+      !fp32_ring::plan_ok<float, false>(wa_dwv, wb_dwv, stages, smem_dwv,
+                                        v, (long long)C * 4,
+                                        normalize ? dzr : dz,
+                                        (long long)H * 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int cells = B * N;
   const int tiles = (cells + TILE - 1) / TILE;
   const float* rn = normalize ? r : nullptr;
-  attn_f32_bwd_dz_kernel<<<dim3((H + TILE - 1) / TILE, tiles),
-                           fp32_tile::THREADS, 0, stream>>>(
-      v, wv, qh, ws, ds, rn, dz, wpart, cells, N, C, H);
-  ++*launched;
-  cudaError_t err;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  float* dzr_out = normalize ? dzr : nullptr;
+  cudaError_t err = fp32_ring::by_plan(wa_dz, wb_dz, [&](auto fa, auto fb) {
+    auto* kernel =
+        attn_f32_bwd_dz_ring_kernel<decltype(fa)::value, decltype(fb)::value>;
+    cudaError_t e = fp32_ring::opt_in(kernel, smem_dz);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((H + TILE - 1) / TILE, tiles), fp32_ring::THREADS, smem_dz,
+             stream>>>(v, wv, qh, ws, ds, rn, dz, dzr_out, wpart, cells, N,
+                       C, H, wa_dz, wb_dz);
+    ++*launched;
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int per = (cells + splits - 1) / splits;
   const int chunk = (per + SPLIT_ROUND - 1) / SPLIT_ROUND * SPLIT_ROUND;
-  fp32_tile::product_kernel<DWV_TILE, DWV_TILE, DWV_CHUNK, false, false>
-      <<<dim3((H + DWV_TILE - 1) / DWV_TILE, (C + DWV_TILE - 1) / DWV_TILE,
-              splits),
-         fp32_tile::THREADS, 0, stream>>>(
-          fp32_tile::DenseT{v, C}, DzR{dz, rn, H}, C, H, cells, chunk,
-          nullptr, part, H);
-  ++*launched;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  err = fp32_ring::launch_product<float>(
+      rows_f32::GridCells{v, N, C}, normalize ? dzr : dz, H, C, H, cells,
+      chunk, splits, part, H, wa_dwv, wb_dwv, smem_dwv, stream, launched);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long CH = (long long)C * H;
   const long long total = CH + (long long)B * H + H;
   attn_f32_bwd_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0,

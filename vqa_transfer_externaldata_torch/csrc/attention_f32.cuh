@@ -14,21 +14,27 @@
 //
 // in FFMA with f32 sums: no TF32 or bf16 pass. The row source `Cells`
 // (store_rows_f32.cuh: CellRows over a store, GridCells over a dense grid)
-// gives cells(i, k), channel k of cell i of the batch (question i / Np),
-// and cells.row(b, n), the row of cell n of question b; both widen f16
-// rows and int8 codes to f32 as they load (exactly).
+// gives cells.cell(i), the row of cell i of the batch (question i / Np),
+// and cells.row(b, n), the row of cell n of question b; f16 rows and int8
+// codes are widened to f32 exactly.
 //
 // Three launches in stream order (two without normalize):
 //  1. (normalize only) attn_f32_rnorm_kernel: a warp a cell, r for every
 //     cell of the batch;
-//  2. attn_f32_score_kernel: the [B*Np, C] x [C, H] score product on
-//     fp32_tile.cuh's tile loop, 128 cells x 128 units a block, reading
-//     each cell's row in place, 8-channel chunks, two blocks an SM (128
-//     registers a thread; 16-channel chunks ran 1.9x slower on an H100,
-//     PERF.md). Its epilogue forms h from the accumulators (saved in f32
-//     when asked) and the G partial scores of each cell over the block's
-//     128 units (a fixed xor tree across the 16 threads of a row), written
-//     per unit tile: part [H/128, G, B*Np];
+//  2. attn_f32_score_ring_kernel: the [B*Np, C] x [C, H] score product on
+//     fp32_ring.cuh's tile loop, 128 cells x 128 units a block, each
+//     cell's row found once and copied into the cp.async ring as it is
+//     stored, 16-channel chunks, two blocks an SM; the copy widths come from
+//     the wrapper's plan (ops/kernels.py::f32_ring_plan: 16 bytes where a
+//     row's pitch allows, else 8, 4 or element by element). The A rows are
+//     K-major (a cell's channels contiguous): they land [cell][channel] in
+//     the ring and each thread widens and transposes what it copied into
+//     the [channel][cell] f32 slot the products read. Its epilogue, in the
+//     accumulators (thread (ty, tx) holds cells ty*8 .. and units tx*8 ..),
+//     forms h (saved in f32 when asked) and
+//     the G partial scores of each cell over the block's 128 units (a
+//     thread's 8 units in order, then a fixed xor tree across the 16
+//     threads of a row), written per unit tile: part [H/128, G, B*Np];
 //  3. attn_f32_wsum_kernel: a block a (question, 256-channel chunk) sums
 //     the partial scores in tile order, takes the G masked softmaxes in
 //     shared memory (a warp a glimpse) and forms the G weighted sums in one
@@ -42,13 +48,12 @@
 #include <cmath>
 #include <cstdint>
 
-#include "fp32_tile.cuh"
+#include "fp32_ring.cuh"
 #include "store_rows_f32.cuh"
 
 namespace {
 
-constexpr int TILE = 128;  // cells and units of a score tile
-constexpr int CHUNK = 8;  // channels of a k-chunk of the score product
+constexpr int TILE = fp32_ring::TILE;  // cells and units of a score tile
 constexpr int MAXG = 8;  // glimpses
 constexpr int WSUM_CHANNELS = 256;  // channels of a weighted-sum block
 
@@ -80,20 +85,21 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) rnorm[i] = 1.f / sqrtf(ss + 1e-12f);
 }
 
-template <class Cells>
-__global__ void __launch_bounds__(fp32_tile::THREADS, 2)
-    attn_f32_score_kernel(Cells cells_in, const float* __restrict__ wv,
-                          const float* __restrict__ qh,
-                          const float* __restrict__ ws,
-                          const float* __restrict__ rnorm,
-                          float* __restrict__ part, float* __restrict__ hsave,
-                          int cells, int Np, int H, int C, int G) {
-  __shared__ fp32_tile::Smem<TILE, TILE, CHUNK> s;
+template <class Cells, int WA, int WB>
+__global__ void __launch_bounds__(fp32_ring::THREADS, 2)
+    attn_f32_score_ring_kernel(Cells cells_in, const float* __restrict__ wv,
+                               const float* __restrict__ qh,
+                               const float* __restrict__ ws,
+                               const float* __restrict__ rnorm,
+                               float* __restrict__ part,
+                               float* __restrict__ hsave, int cells, int Np,
+                               int H, int C, int G, int wa, int wb) {
+  extern __shared__ __align__(16) unsigned char smem[];
   constexpr int T8 = TILE / 16;
   float acc[T8][T8] = {};
   const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  fp32_tile::mainloop<TILE, TILE, CHUNK, true, false>(
-      cells_in, fp32_tile::Dense{wv, H}, cells, H, m0, n0, 0, C, acc, s);
+  fp32_ring::mainloop<typename Cells::elem, true, WA, WB>(
+      cells_in, wv, H, cells, H, m0, n0, 0, C, wa, wb, acc, smem);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < T8; ++i) {
@@ -178,17 +184,25 @@ __global__ void __launch_bounds__(WSUM_CHANNELS)
 // The forward over `cells_in`: wv [C, H] f32, qh [B, H] f32, ws [G, H] f32
 // -> vatt [B, G, C] f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and
 // h [B, Np, H] f32 when hsave is not null; rnorm [B*Np] f32 holds r when
-// normalize. Scratch: part [ceil(H/128), G, B*Np] f32. Np * G * 4 bytes of
-// shared memory, past 48 KB opted into (the caller keeps it within the
-// card's limit). Two launches (three with normalize) on `stream`, added to
-// *launched.
+// normalize. Scratch: part [ceil(H/128), G, B*Np] f32. The score launch's
+// plan (copy widths wa and wb in bytes, stages, shared bytes) is the
+// wrapper's ops/kernels.py::f32_ring_plan, refused with
+// cudaErrorInvalidValue where the rows' or W_v's alignment does not allow
+// it. Np * G * 4 bytes of shared memory for the softmaxes, past 48 KB
+// opted into (the caller keeps it within the card's limit). Two launches
+// (three with normalize) on `stream`, added to *launched.
 template <class Cells>
 int attn_f32_fwd(const Cells& cells_in, const float* wv, const float* qh,
                  const float* ws, float* part, float* rnorm, float* hsave,
                  float* vatt, float* alpha, int B, int Np, int n_valid, int C,
-                 int H, int G, int normalize, cudaStream_t stream,
-                 int* launched) {
-  if (G < 1 || G > MAXG) return static_cast<int>(cudaErrorInvalidValue);
+                 int H, int G, int normalize, int wa, int wb, int stages,
+                 int smem_score, cudaStream_t stream, int* launched) {
+  using T = typename Cells::elem;
+  if (G < 1 || G > MAXG ||
+      !fp32_ring::plan_ok<T, true>(wa, wb, stages, smem_score,
+                                   cells_in.base(), (long long)C * sizeof(T),
+                                   wv, (long long)H * 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int cells = B * Np;
   cudaError_t err;
   if (normalize) {
@@ -200,12 +214,18 @@ int attn_f32_fwd(const Cells& cells_in, const float* wv, const float* qh,
   }
   const float* rn = normalize ? rnorm : nullptr;
   const int n_tiles = (H + TILE - 1) / TILE;
-  attn_f32_score_kernel<Cells>
-      <<<dim3(n_tiles, (cells + TILE - 1) / TILE), fp32_tile::THREADS, 0,
-         stream>>>(cells_in, wv, qh, ws, rn, part, hsave, cells, Np, H, C,
-                   G);
-  ++*launched;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  err = fp32_ring::by_plan(wa, wb, [&](auto fa, auto fb) {
+    auto* kernel = attn_f32_score_ring_kernel<Cells, decltype(fa)::value,
+                                              decltype(fb)::value>;
+    cudaError_t e = fp32_ring::opt_in(kernel, smem_score);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(n_tiles, (cells + TILE - 1) / TILE), fp32_ring::THREADS,
+             smem_score, stream>>>(cells_in, wv, qh, ws, rn, part, hsave,
+                                   cells, Np, H, C, G, wa, wb);
+    ++*launched;
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(Np) * G * sizeof(float);
   if (smem > 48 * 1024 &&  // past the default: opt in, up to the card's
       (err = cudaFuncSetAttribute(attn_f32_wsum_kernel<Cells>,

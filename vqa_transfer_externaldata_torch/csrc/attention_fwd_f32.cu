@@ -24,11 +24,12 @@
 // Design: K4f's three launches (attention_f32.cuh; two without normalize)
 // at one glimpse over a dense row source (store_rows_f32.cuh's GridCells:
 // cell n of question b read at v[b, n, :] in place, as K2 and K4 share
-// score_tile.cuh): the per-cell norm, the score product on fp32_tile.cuh's
-// tile loop with the h/score epilogue, the softmax with the weighted sum.
-// Any C and H (the tile loop reads out-of-range entries as 0); N * 4 bytes
-// of shared memory hold the softmax. No atomics and no split sums: two
-// calls give the same bits.
+// score_tile.cuh): the per-cell norm, the score product on fp32_ring.cuh's
+// tile loop (v's rows copied by cp.async, 16, 8 or 4 bytes a copy as the
+// pitch C * 4 and v's address allow) with the h/score epilogue, the softmax
+// with the weighted sum. Any C and H (the tile loop zero-fills what lies
+// past them); N * 4 bytes of shared memory hold the softmax. No atomics
+// and no split sums: two calls give the same bits.
 
 #include <cuda_runtime.h>
 
@@ -42,16 +43,18 @@ const char* cuda_error_string(int code) {
 
 // v [B, N, C] f32, wv [C, H] f32, qh [B, H] f32, ws [H] f32 -> vatt [B, C]
 // f32, alpha [B, N] f32, and rnorm [B, N] f32 (r, written only when
-// normalize). Scratch: part [ceil(H/128), B*N] f32. N * 4 bytes of shared
-// memory (the caller keeps it within 48 KB). Two launches (three with
-// normalize) on `stream`, added to *launched.
+// normalize). Scratch: part [ceil(H/128), B*N] f32. The score launch's
+// plan (wa, wb, stages, smem) is ops/kernels.py::f32_ring_plan's. N * 4
+// bytes of shared memory (the caller keeps it within 48 KB). Two launches
+// (three with normalize) on `stream`, added to *launched.
 int attention_fwd_f32(const float* v, const float* wv, const float* qh,
                       const float* ws, float* part, float* rnorm, float* vatt,
                       float* alpha, int B, int N, int C, int H, int normalize,
+                      int wa, int wb, int stages, int smem,
                       cudaStream_t stream, int* launched) {
   return attn_f32_fwd(rows_f32::GridCells{v, N, C}, wv, qh, ws, part, rnorm,
-                      nullptr, vatt, alpha, B, N, N, C, H, 1, normalize,
-                      stream, launched);
+                      nullptr, vatt, alpha, B, N, N, C, H, 1, normalize, wa,
+                      wb, stages, smem, stream, launched);
 }
 
 }  // extern "C"

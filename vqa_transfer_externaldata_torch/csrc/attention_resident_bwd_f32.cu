@@ -26,10 +26,18 @@
 //     tree, ds in shared memory; then a thread a unit walks the cells in
 //     order for dz, dqh, the question's dws and dz * r, written for the
 //     dW_v product over the B * n_valid valid cells;
-//  2. the dW_v product [C, K] x [K, H] on fp32_tile.cuh's product_kernel,
+//  2. the dW_v product [C, K] x [K, H] on fp32_ring.cuh's product_kernel,
 //     128 channels x 128 units a block, the cells split so that the grid
 //     fills the card (the split comes from the wrapper, a function of the
-//     shapes and the card), each split's sum in cell order;
+//     shapes and the card), each split's sum in cell order. Both operands
+//     are MN-major: a cell's channels are contiguous in its store row and
+//     its units in dz * r, so each 16-cell chunk's copies land straight in
+//     the [cell][channel] and [cell][unit] layouts the products read; each
+//     chunk's 16 store rows are found once, a chunk ahead (ValidCellsT:
+//     one division a row, none an element); f16 rows and int8 codes are
+//     copied as stored and widened in shared memory, f32 rows read where
+//     they land. The copy widths (16, 8 or 4 bytes as the rows' pitch C
+//     allows) come from the wrapper's ops/kernels.py::f32_ring_plan;
 //  3. attn_f32_bwd_reduce_kernel: the splits of dW_v summed in split order
 //     and dws summed over the questions in order.
 // No atomics: two calls give the same bits.
@@ -38,15 +46,13 @@
 
 #include <cstdint>
 
-#include "fp32_tile.cuh"
+#include "fp32_ring.cuh"
 #include "store_rows_f32.cuh"
 
 namespace {
 
 constexpr int MAXG = 8;  // glimpses
 constexpr int ROWS_THREADS = 256;  // threads of a rows block
-constexpr int DWV_TILE = 128;  // channels and units of a dW_v tile
-constexpr int DWV_CHUNK = 16;  // cells of a k-chunk of the dW_v product
 constexpr int SPLIT_ROUND = 8;  // a split's cells: a multiple of 8 but
                                 // the last (the wrapper's rule)
 
@@ -153,7 +159,12 @@ int run(const T* store, const int* rows, const float* h, const float* ws,
         const float* alpha, const float* g, const float* sga, float* dzr,
         float* dws_part, float* part, float* dqh, float* dwv, float* dws,
         int B, int Np, int n_valid, int C, int H, int G, int normalize,
-        int splits, cudaStream_t stream, int* launched) {
+        int splits, int wa, int wb, int stages, int smem_dwv,
+        cudaStream_t stream, int* launched) {
+  if (!fp32_ring::plan_ok<T, false>(wa, wb, stages, smem_dwv, store,
+                                    (long long)C * sizeof(T), dzr,
+                                    (long long)H * 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * ((size_t)G * C + (size_t)(G + 1) * n_valid);
   cudaError_t err = cudaFuncSetAttribute(
@@ -168,14 +179,10 @@ int run(const T* store, const int* rows, const float* h, const float* ws,
   const int K = B * n_valid;
   const int per = (K + splits - 1) / splits;
   const int chunk = (per + SPLIT_ROUND - 1) / SPLIT_ROUND * SPLIT_ROUND;
-  fp32_tile::product_kernel<DWV_TILE, DWV_TILE, DWV_CHUNK, false, false>
-      <<<dim3((H + DWV_TILE - 1) / DWV_TILE, (C + DWV_TILE - 1) / DWV_TILE,
-              splits),
-         fp32_tile::THREADS, 0, stream>>>(
-          rows_f32::ValidCellsT<T>{store, rows, Np, n_valid, C},
-          fp32_tile::Dense{dzr, H}, C, H, K, chunk, nullptr, part, H);
-  ++*launched;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  err = fp32_ring::launch_product<T>(
+      rows_f32::ValidCellsT<T>{store, rows, Np, n_valid, C}, dzr, H, C, H, K,
+      chunk, splits, part, H, wa, wb, smem_dwv, stream, launched);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long CH = (long long)C * H;
   const int GH = G * H;
   attn_f32_bwd_reduce_kernel<<<(unsigned)((CH + GH + 255) / 256), 256, 0,
@@ -199,7 +206,10 @@ const char* cuda_error_string(int code) {
 // dqh [B, H], dwv [C, H], dws [G, H], all f32. Scratch: dzr [B*n_valid, H],
 // dws_part [B, G, H], part [splits, C, H], all f32. The rows launch takes
 // 4 (G C + (G + 1) n_valid) bytes of shared memory (the caller keeps it
-// within a block's). Three launches on `stream`, added to *launched.
+// within a block's). The dW_v launch's plan: copy widths wa (the rows) and
+// wb (dz * r) in bytes, stages and shared bytes, ops/kernels.py::
+// f32_ring_plan's (refused where the rows' alignment does not allow it).
+// Three launches on `stream`, added to *launched.
 int attention_resident_bwd_f32(const void* store, const int* rows,
                                const float* h, const float* ws,
                                const float* alpha, const float* g,
@@ -207,7 +217,8 @@ int attention_resident_bwd_f32(const void* store, const int* rows,
                                float* part, float* dqh, float* dwv,
                                float* dws, int B, int Np, int n_valid, int C,
                                int H, int G, int normalize, int row_type,
-                               int splits, cudaStream_t stream,
+                               int splits, int wa, int wb, int stages,
+                               int smem, cudaStream_t stream,
                                int* launched) {
   if (G < 1 || G > MAXG || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -215,15 +226,17 @@ int attention_resident_bwd_f32(const void* store, const int* rows,
     case 0:
       return run(static_cast<const float*>(store), rows, h, ws, alpha, g, sga,
                  dzr, dws_part, part, dqh, dwv, dws, B, Np, n_valid, C, H, G,
-                 normalize, splits, stream, launched);
+                 normalize, splits, wa, wb, stages, smem, stream, launched);
     case 1:
       return run(static_cast<const __half*>(store), rows, h, ws, alpha, g,
                  sga, dzr, dws_part, part, dqh, dwv, dws, B, Np, n_valid, C,
-                 H, G, normalize, splits, stream, launched);
+                 H, G, normalize, splits, wa, wb, stages, smem, stream,
+                 launched);
     case 2:
       return run(static_cast<const int8_t*>(store), rows, h, ws, alpha, g,
                  sga, dzr, dws_part, part, dqh, dwv, dws, B, Np, n_valid, C,
-                 H, G, normalize, splits, stream, launched);
+                 H, G, normalize, splits, wa, wb, stages, smem, stream,
+                 launched);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

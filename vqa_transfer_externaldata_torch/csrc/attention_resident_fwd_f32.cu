@@ -30,10 +30,13 @@
 //
 // Design: attention_f32.cuh's three launches (two without normalize) over
 // the store's rows (store_rows_f32.cuh's CellRows, in place of the TPU's
-// scalar prefetch): the per-cell norm, the score product on fp32_tile.cuh's
-// tile loop with the h/score epilogue, the softmaxes with the weighted
-// sums. K2f (attention_fwd_f32.cu) runs the same launches over a dense
-// grid. No atomics and no split sums: two calls give the same bits.
+// scalar prefetch): the per-cell norm, the score product on fp32_ring.cuh's
+// tile loop (each of a tile's 128 cells' store row found once, the rows
+// copied by cp.async in their stored type, 16, 8 or 4 bytes a copy as
+// their pitch allows, widened in shared memory) with the h/score epilogue,
+// the softmaxes with the weighted sums. K2f (attention_fwd_f32.cu) runs
+// the same launches over a dense grid. No atomics and no split sums: two
+// calls give the same bits.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -53,35 +56,39 @@ const char* cuda_error_string(int code) {
 // [C, H] f32, qh [B, H] f32, ws [G, H] f32 (1 <= G <= 8) -> vatt [B, G, C]
 // f32, alpha [B, Np, G] f32 (0 at cells >= n_valid), and h [B, Np, H] f32
 // when hsave is not null. Scratch: part [ceil(H/128), G, B*Np] f32, rnorm
-// [B*Np] f32. Np * G * 4 bytes of shared memory (the caller keeps it
-// within 48 KB). Two launches (three with normalize) on `stream`, added to
+// [B*Np] f32. The score launch's plan: copy widths wa (the rows) and wb
+// (W_v) in bytes, stages and shared bytes, ops/kernels.py::f32_ring_plan's
+// (refused where the rows' alignment does not allow it). Np * G * 4 bytes
+// of shared memory for the softmaxes (the caller keeps it within a
+// block's). Two launches (three with normalize) on `stream`, added to
 // *launched.
 int attention_resident_fwd_f32(const void* store, const int* rows,
                                const float* wv, const float* qh,
                                const float* ws, float* part, float* rnorm,
                                float* hsave, float* vatt, float* alpha, int B,
                                int Np, int n_valid, int C, int H, int G,
-                               int normalize, int row_type,
-                               cudaStream_t stream, int* launched) {
+                               int normalize, int row_type, int wa, int wb,
+                               int stages, int smem, cudaStream_t stream,
+                               int* launched) {
   switch (row_type) {
     case 0:
       return attn_f32_fwd(
           rows_f32::CellRows<float>{static_cast<const float*>(store), rows,
                                     Np, C},
           wv, qh, ws, part, rnorm, hsave, vatt, alpha, B, Np, n_valid, C, H,
-          G, normalize, stream, launched);
+          G, normalize, wa, wb, stages, smem, stream, launched);
     case 1:
       return attn_f32_fwd(
           rows_f32::CellRows<__half>{static_cast<const __half*>(store), rows,
                                      Np, C},
           wv, qh, ws, part, rnorm, hsave, vatt, alpha, B, Np, n_valid, C, H,
-          G, normalize, stream, launched);
+          G, normalize, wa, wb, stages, smem, stream, launched);
     case 2:
       return attn_f32_fwd(
           rows_f32::CellRows<int8_t>{static_cast<const int8_t*>(store), rows,
                                      Np, C},
           wv, qh, ws, part, rnorm, hsave, vatt, alpha, B, Np, n_valid, C, H,
-          G, normalize, stream, launched);
+          G, normalize, wa, wb, stages, smem, stream, launched);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,24 +1,25 @@
-// fp32_tile.cuh: the float32 tile product of the float32 kernels (K1f, K2f,
-// K3f, K4f, K5f, K6f, K7f, K8f), on the FP32 pipes (FFMA), for Hopper
-// (sm_90a).
+// fp32_tile.cuh: the float32 tile product of the float32 GRU kernels (K1f,
+// K3f, K6f, K7f: their step tiles, dU_h and the U_h^T product), on the
+// FP32 pipes (FFMA), for Hopper (sm_90a). The float32 attention products
+// (K2f, K4f, K5f, K8f) run fp32_ring.cuh's loop.
 //
 // The float32 path of the port exists to meet a float64 oracle to 1e-4
 // (the checkpoint-fidelity path), so its products take no TF32 or bf16
 // tensor-core pass: every product is an FFMA with an f32 sum. This header
-// is the one tile loop they share: a block of 256 threads (16 x 16) owns a
-// BM x BN tile of C = A x B and walks k in chunks of BK (a template
-// parameter: 8 to 32), staging the chunk's A [BM x BK] and B [BK x BN] in
-// shared memory while the next chunk's loads wait in registers (issued
-// before the chunk's products, so their latency overlaps the FFMAs);
-// thread (ty, tx) keeps the TM x TN sums of rows ty*TM .. and columns
-// tx*TN .. in registers (TM = BM / 16, TN = BN / 16). Each sum takes its k in increasing order
-// from a zero start, so a product is a fixed function of its inputs: two
-// calls give the same bits.
+// is the one tile loop the GRU kernels share: a block of 256 threads
+// (16 x 16) owns a BM x BN tile of C = A x B and walks k in chunks of BK
+// (a template parameter: 8 to 32), staging the chunk's A [BM x BK] and B
+// [BK x BN] in shared memory while the next chunk's loads wait in
+// registers (issued before the chunk's products, so their latency
+// overlaps the FFMAs); thread (ty, tx) keeps the TM x TN sums of rows
+// ty*TM .. and columns tx*TN .. in registers (TM = BM / 16, TN = BN / 16).
+// Each sum takes its k in increasing order from a zero start, so a
+// product is a fixed function of its inputs: two calls give the same
+// bits.
 //
 // Operands are read through functors, `A(m, k)` and `B(k, n)`, which
-// return a float (and widen f16 rows or int8 codes as they read them), so
-// a caller reads its operands where they lie: a question's store row, U_h
-// with its gate columns regrouped, a transposed weight. The loads put
+// return a float, so a caller reads its operands where they lie: U_h with
+// its gate columns regrouped, a transposed weight. The loads put
 // neighbouring threads on neighbouring addresses along the operand's
 // contiguous index (A_ALONG_K / B_ALONG_K). Entries at m >= M or n >= N,
 // and k outside [k0, k1), read as 0, so no shape needs to be a multiple of
@@ -26,7 +27,9 @@
 //
 // What bounds it: the FP32 pipes (67 TFLOP/s on an H100 SXM). A simple
 // loop, right first: one shared-memory buffer, scalar loads; its rate is
-// in PERF.md.
+// in PERF.md. The GRU kernels keep it: their tiles (64 rows x 48 gate
+// columns a step, 32- and 64-square dU_h and U_h^T products) are not the
+// ring's 128 x 128 with 8 x 8 sums a thread.
 
 #pragma once
 

@@ -607,9 +607,9 @@ def _f32_lib(name: str) -> ctypes.CDLL:
     ("attention_bwd_f32")."""
     lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    getattr(lib, name).argtypes = ([p] * 8 + [i] * 5 if name ==
+    getattr(lib, name).argtypes = ([p] * 8 + [i] * 9 if name ==
                                    "attention_fwd_f32"
-                                   else [p] * 12 + [i] * 6) + [p, p]
+                                   else [p] * 13 + [i] * 13) + [p, p]
     getattr(lib, name).restype = i
     return lib
 
@@ -632,6 +632,21 @@ def _check_grid_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     kernels.expect("wv", wv, torch.float32, (C, H), dev)
     kernels.expect("ws", ws, torch.float32, (H,), dev)
     return B, N, C, H
+
+
+def f32_score_plan(v: torch.Tensor, wv: torch.Tensor) -> dict:
+    """``kernels.f32_ring_plan`` of K2f's score launch and K8f's dz launch:
+    v's rows K-major (C f32 channels a cell), W_v [C, H] f32."""
+    C, H = wv.shape
+    return kernels.f32_ring_plan(4, True, C * 4, v.data_ptr(), H * 4,
+                                 wv.data_ptr())
+
+
+def f32_dwv_plan(v: torch.Tensor, dzr: torch.Tensor) -> dict:
+    """``kernels.f32_ring_plan`` of K8f's dW_v launch: v's rows MN-major
+    (the cells are k, C f32 channels each), dz * r [B*N, H] f32."""
+    return kernels.f32_ring_plan(4, False, v.shape[-1] * 4, v.data_ptr(),
+                                 dzr.shape[-1] * 4, dzr.data_ptr())
 
 
 def attention_fwd_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
@@ -657,13 +672,15 @@ def attention_fwd_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
              else torch.ones(B, N, **f32))
     v_att = torch.empty(B, C, **f32)
     alpha = torch.empty(B, N, **f32)
+    plan = f32_score_plan(v, wv)
     lib = _f32_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_fwd_f32(
             v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
             part.data_ptr(), rnorm.data_ptr(), v_att.data_ptr(),
-            alpha.data_ptr(), B, N, C, H, int(normalize),
+            alpha.data_ptr(), B, N, C, H, int(normalize), plan["a_width"],
+            plan["b_width"], plan["stages"], plan["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_fwd_f32.launches += launched.value
@@ -684,7 +701,8 @@ def attention_bwd_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     ``normalize``) -> (dqh [B, H], dwv [C, H], dws [H]),
     :func:`attention_bwd_reference`'s math in FFMA with f32 sums. Any C, H
     and N. One call launches, on the current stream, the recomputed score
-    product with its dz epilogue, the dW_v product over the B * N cells
+    product with its dz epilogue (dz and, when ``normalize``, dz * r), the
+    dW_v product over the B * N cells
     split ``kernels.f32_dwv_splits`` ways, and the reduction of dW_v's
     splits, each question's dqh and dws in a fixed order, and adds the
     number launched (3) to ``attention_bwd_f32.launches``."""
@@ -697,19 +715,24 @@ def attention_bwd_f32(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     splits = kernels.f32_dwv_splits(K, C, H, kernels.sm_count(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     dz = torch.empty(K, H, **f32)
+    dzr = torch.empty(K, H, **f32) if normalize else dz  # dz * r
     wpart = torch.empty(-(-K // kernels.F32_TILE), H, **f32)
     part = torch.empty(splits, C, H, **f32)
     dqh = torch.empty(B, H, **f32)
     dwv = torch.empty(C, H, **f32)
     dws = torch.empty(H, **f32)
+    p_dz, p_dwv = f32_score_plan(v, wv), f32_dwv_plan(v, dzr)
     lib = _f32_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.attention_bwd_f32(
             v.data_ptr(), wv.data_ptr(), qh.data_ptr(), ws.data_ptr(),
-            ds.data_ptr(), r.data_ptr(), dz.data_ptr(), wpart.data_ptr(),
-            part.data_ptr(), dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(),
-            B, N, C, H, int(normalize), splits,
+            ds.data_ptr(), r.data_ptr(), dz.data_ptr(), dzr.data_ptr(),
+            wpart.data_ptr(), part.data_ptr(), dqh.data_ptr(),
+            dwv.data_ptr(), dws.data_ptr(),
+            B, N, C, H, int(normalize), splits, p_dz["a_width"],
+            p_dz["b_width"], p_dz["smem_bytes"], p_dwv["a_width"],
+            p_dwv["b_width"], p_dwv["smem_bytes"], p_dz["stages"],
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_bwd_f32.launches += launched.value

@@ -691,8 +691,8 @@ def _f32_lib(name: str) -> ctypes.CDLL:
     lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = name == "attention_resident_fwd_f32"
-    getattr(lib, name).argtypes = ([p] * 10 + [i] * 8 if fwd
-                                   else [p] * 13 + [i] * 9) + [p, p]
+    getattr(lib, name).argtypes = ([p] * 10 + [i] * 12 if fwd
+                                   else [p] * 13 + [i] * 13) + [p, p]
     getattr(lib, name).restype = i
     return lib
 
@@ -701,6 +701,24 @@ def f32_bwd_smem(n_valid: int, G: int, C: int) -> int:
     """Bytes of dynamic shared memory of K5f's rows launch: the G
     cotangent rows [G, C], ds [n_valid, G] and r [n_valid], all f32."""
     return 4 * (G * C + (G + 1) * n_valid)
+
+
+def f32_score_plan(store: torch.Tensor, wv: torch.Tensor) -> dict:
+    """``kernels.f32_ring_plan`` of K4f's score launch: the store's rows
+    K-major (C channels a cell, in the store's dtype), W_v [C, H] f32."""
+    C, H = wv.shape
+    es = store.element_size()
+    return kernels.f32_ring_plan(es, True, C * es, store.data_ptr(), H * 4,
+                                 wv.data_ptr())
+
+
+def f32_dwv_plan(store: torch.Tensor, dzr: torch.Tensor) -> dict:
+    """``kernels.f32_ring_plan`` of K5f's dW_v launch: the store's rows
+    MN-major (the cells are k, C channels each), dz * r [K, H] f32."""
+    es = store.element_size()
+    return kernels.f32_ring_plan(es, False, store.shape[-1] * es,
+                                 store.data_ptr(), dzr.shape[-1] * 4,
+                                 dzr.data_ptr())
 
 
 def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
@@ -742,6 +760,7 @@ def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
     v_att = torch.empty(B, G * C, **f32)
     alpha = torch.empty(B, Np, G, **f32)
     h = torch.empty(B, Np, H, **f32) if save_h else None
+    plan = f32_score_plan(store, wv)
     lib = _f32_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -750,7 +769,8 @@ def attention_resident_fwd_f32(store: torch.Tensor, rows: torch.Tensor,
             ws_gh.data_ptr(), part.data_ptr(), rnorm.data_ptr(),
             h.data_ptr() if save_h else None, v_att.data_ptr(),
             alpha.data_ptr(), B, Np, n_valid, C, H, G, int(normalize),
-            _F32_ROWS[store.dtype],
+            _F32_ROWS[store.dtype], plan["a_width"], plan["b_width"],
+            plan["stages"], plan["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_resident_fwd_f32.launches += launched.value
@@ -808,6 +828,7 @@ def attention_resident_bwd_f32(store: torch.Tensor, rows: torch.Tensor,
     dqh = torch.empty(B, H, **f32)
     dwv = torch.empty(C, H, **f32)
     dws = torch.empty(G, H, **f32)
+    plan = f32_dwv_plan(store, dzr)
     lib = _f32_lib(what)
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
@@ -817,7 +838,8 @@ def attention_resident_bwd_f32(store: torch.Tensor, rows: torch.Tensor,
             dzr.data_ptr(), dws_part.data_ptr(), part.data_ptr(),
             dqh.data_ptr(), dwv.data_ptr(), dws.data_ptr(), B, Np, n_valid,
             C, H, G, int(normalize), _F32_ROWS[store.dtype], splits,
-            torch.cuda.current_stream(dev).cuda_stream,
+            plan["a_width"], plan["b_width"], plan["stages"],
+            plan["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
             ctypes.addressof(launched))
     attention_resident_bwd_f32.launches += launched.value
     kernels.check(lib, rc, what)

@@ -549,3 +549,58 @@ def f32_dwv_splits(K: int, C: int, H: int, sms: int) -> int:
     tiles = -(-C // F32_TILE) * -(-H // F32_TILE)
     want = max(1, min(2 * sms // tiles, K // 512))
     return -(-K // (8 * -(-K // (8 * want))))
+
+
+# The float32 attention products' tile loop (csrc/fp32_ring.cuh): K4f's and
+# K2f's score launch, K8f's dz launch (A K-major: [cells, C] by the cell),
+# K5f's and K8f's dW_v launch (A MN-major: the cells are k).
+F32_RING_CHUNK = 16  # k a chunk
+F32_RING_STAGES = 4  # chunks in the cp.async ring
+F32_RING_WIDE_PITCH = F32_TILE + 4  # floats a k row of the widened A
+F32_RING_SMEM_PER_SM = 233472  # an H100 SM's shared memory (228 KB)
+F32_RING_BLOCK_RESERVED = 1024  # the runtime's share of it a block
+
+
+def f32_copy_width(pitch_bytes: int, address: int) -> int:
+    """The bytes a ``cp.async`` of the ring copies from rows ``pitch_bytes``
+    apart starting at ``address``: the largest of 16, 8 and 4 that divides
+    both, else 0 (the rows copied element by element, synchronously)."""
+    for width in (16, 8, 4):
+        if pitch_bytes % width == 0 and address % width == 0:
+            return width
+    return 0
+
+
+def f32_ring_plan(elem_bytes: int, a_kmajor: bool, a_pitch_bytes: int,
+                  a_address: int, b_pitch_bytes: int, b_address: int
+                  ) -> dict:
+    """The launch plan of one product on ``csrc/fp32_ring.cuh``'s loop,
+    from the shapes and the base addresses: A's rows of ``elem_bytes``
+    elements (4 f32, 2 f16, 1 int8 codes) ``a_pitch_bytes`` apart from
+    ``a_address``, K-major (``a_kmajor``: a cell's channels are k) or
+    MN-major (the cells are k); B f32 [K, N] rows ``b_pitch_bytes`` apart
+    from ``b_address``. Returns the copy widths ``a_width`` (16, 8, 4, or
+    0: element by element) and ``b_width`` (16, 8 or 4), ``chunk`` and
+    ``stages``, whether A is widened into its f32 slots (``a_widened``:
+    all but f32 MN-major rows) and ``smem_bytes``, the block's dynamic
+    shared memory (the C side's ``fp32_ring::Layout``, which refuses
+    another plan). ``ValueError`` where B is not 4-byte aligned or two
+    blocks would not fit on an SM."""
+    if elem_bytes not in (1, 2, 4):
+        raise ValueError(f"f32_ring_plan: rows of {elem_bytes}-byte "
+                         "elements (f32, f16 or int8 codes only)")
+    wa = f32_copy_width(a_pitch_bytes, a_address)
+    wb = f32_copy_width(b_pitch_bytes, b_address)
+    if wb == 0:
+        raise ValueError(f"f32_ring_plan: B's rows ({b_pitch_bytes} B "
+                         f"apart from {b_address:#x}) are not f32-aligned")
+    k, s, t = F32_RING_CHUNK, F32_RING_STAGES, F32_TILE
+    widened = not (elem_bytes == 4 and not a_kmajor)
+    smem = (s * (t * k * elem_bytes + k * t * 4)
+            + (2 * k * F32_RING_WIDE_PITCH * 4 if widened else 0)
+            + 8 * (t if a_kmajor else s * k))
+    if 2 * (smem + F32_RING_BLOCK_RESERVED) > F32_RING_SMEM_PER_SM:
+        raise ValueError(f"f32_ring_plan: {smem} B of shared memory a block "
+                         "leave no room for two blocks an SM")
+    return {"a_width": wa, "b_width": wb, "chunk": k, "stages": s,
+            "a_widened": widened, "smem_bytes": smem}

@@ -1,8 +1,9 @@
 """Fingerprints of the bf16 kernels' outputs (K1-K8, K4/K5 on int8 rows
-too) at the main path's shapes on seeded inputs: a SHA-256 of each output's
-bytes. Two builds of the port that give the same fingerprints on one card
-compute the same bits, which is how a change to the kernels' shared
-sources is held to its parent commit.
+too) and of the float32 kernels' (K1f-K8f, K4f/K5f on f32, f16 and int8
+rows) at the main path's shapes on seeded inputs: a SHA-256 of each
+output's bytes. Two builds of the port that give the same fingerprints on
+one card compute the same bits, which is how a change to the kernels'
+shared sources is held to its parent commit.
 
 Run it from the root of the checkout whose kernels it should build and run
 (it imports ``vqa_transfer_externaldata_torch`` from the working
@@ -38,6 +39,12 @@ def _digest(x: torch.Tensor) -> str:
 
 
 def fingerprints(seed: int) -> dict:
+    """{kernel call: {output: sha256}} of every bf16 and float32 kernel at
+    the main path's shapes."""
+    return {**bf16_fingerprints(seed), **f32_fingerprints(seed)}
+
+
+def bf16_fingerprints(seed: int) -> dict:
     """{kernel call: {output: sha256}} of every bf16 kernel at the main
     path's shapes."""
     from vqa_transfer_externaldata_torch.ops import (
@@ -121,6 +128,89 @@ def fingerprints(seed: int) -> dict:
     return out
 
 
+def f32_fingerprints(seed: int) -> dict:
+    """{kernel call: {output: sha256}} of every float32 kernel at the main
+    path's shapes: K1f and K3f both ways, K6f and K7f, K2f and K8f with
+    normalize on and off, K4f and K5f on f32, f16 and int8 rows at one and
+    two glimpses (the saved h is K4f's score product's own output)."""
+    from vqa_transfer_externaldata_torch.ops import (
+        attention, attention_resident as ar, gru)
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {}
+
+    def put(name, names, tensors):
+        out[name] = {n: _digest(t) for n, t in zip(names, tensors)}
+
+    gx = [torch.randn(T, B, 3 * H, generator=g, device=dev) * 0.5
+          for _ in "fb"]
+    uh = [torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
+          for _ in "fb"]
+    bhn = [torch.randn(H, generator=g, device=dev) * 0.1 for _ in "fb"]
+    ghT = [torch.randn(B, H, generator=g, device=dev) * 0.05 for _ in "fb"]
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    for reverse in (False, True):
+        hT, hseq = gru.gru_fwd_f32(gx[0], lens, uh[0], bhn[0],
+                                   reverse=reverse)
+        put(f"K1f reverse={reverse}", ("hT", "hseq"), (hT, hseq))
+        put(f"K3f reverse={reverse}", ("dgx", "duh", "dbhn"),
+            gru.gru_bwd_f32(gx[0], hseq, lens, uh[0], bhn[0], ghT[0],
+                            reverse=reverse))
+    k6 = gru.bigru_fwd_f32(gx[0], gx[1], lens, uh[0], uh[1], bhn[0],
+                           bhn[1])
+    put("K6f", ("hTf", "hTb", "hseqf", "hseqb"), k6)
+    put("K7f", ("dgxf", "dgxb", "duhf", "duhb", "dbhnf", "dbhnb"),
+        gru.bigru_bwd_f32(gx[0], gx[1], k6[2], k6[3], lens, uh[0], uh[1],
+                          bhn[0], bhn[1], ghT[0], ghT[1]))
+    del gx, k6
+
+    scale = torch.exp2(torch.rand(B, N, 1, generator=g, device=dev) * 4 - 2)
+    v = torch.randn(B, N, C, generator=g, device=dev).relu_() * scale
+    qh = torch.randn(B, H, generator=g, device=dev) * 0.5
+    wv = (torch.rand(C, H, generator=g, device=dev) * 2 - 1) * (
+        6.0 / (C + H)) ** 0.5
+    ws = torch.randn(H, generator=g, device=dev) * 0.05
+    for normalize in (True, False):
+        va, al, r = attention.attention_fwd_f32(v, qh, wv, ws,
+                                                normalize=normalize)
+        put(f"K2f normalize={normalize}", ("v_att", "alpha", "r"),
+            (va, al, r))
+        ds = (torch.randn(B, N, generator=g, device=dev) * al).contiguous()
+        put(f"K8f normalize={normalize}", ("dqh", "dwv", "dws"),
+            attention.attention_bwd_f32(v, qh, wv, ws, ds, r, normalize))
+    del v
+
+    grid = torch.zeros(IMAGES, NP, C, device=dev)
+    grid[:, :N] = torch.randn(IMAGES, N, C, generator=g, device=dev).relu_()
+    unit = grid / grid.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+    q_scale = unit.abs().max().item() / 127
+    codes = (unit / q_scale).round().to(torch.int8)
+    del unit
+    rows = torch.randint(0, IMAGES, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    ws2 = torch.randn(H, 2, generator=g, device=dev) * 0.05
+    for rows_type, st, w, cases in (
+            ("f32", grid, wv, ((1, True), (1, False), (2, False))),
+            ("f16", grid.half(), wv, ((1, True), (1, False), (2, False))),
+            ("int8", codes, wv * q_scale, ((1, False), (2, False)))):
+        for G, normalize in cases:
+            wsg = ws2[:, 0].contiguous() if G == 1 else ws2
+            kw = dict(n_valid=N, normalize=normalize)
+            va, al, h = ar.attention_resident_fwd_f32(st, rows, qh, w, wsg,
+                                                      save_h=True, **kw)
+            tag = f"{rows_type} rows G={G} normalize={normalize}"
+            put(f"K4f {tag}", ("v_att", "alpha", "h"), (va, al, h))
+            gv = torch.randn(B, G * C, generator=g, device=dev)
+            sga = torch.randn(al.shape, generator=g, device=dev) * 0.1
+            put(f"K5f {tag}", ("dqh", "dwv", "dws"),
+                ar.attention_resident_bwd_f32(st, rows, h, wsg, al, gv, sga,
+                                              **kw))
+    torch.cuda.synchronize()
+    return out
+
+
 def compare(a: dict, b: dict) -> list:
     """The (call, output) pairs whose fingerprints differ or that one side
     lacks."""
@@ -146,7 +236,15 @@ def main(argv=None) -> int:
         total = sum(len(v) for v in a["fingerprints"].values())
         for call, name in bad:
             print(f"differs: {call} {name}")
+        by_family = {}
+        for call, outs in a["fingerprints"].items():
+            fam = "float32" if call.split()[0].endswith("f") else "bf16"
+            n, d = by_family.get(fam, (0, 0))
+            by_family[fam] = (n + len(outs), d + sum(c == call for c, _ in
+                                                     bad))
         print(json.dumps({"outputs": total, "differ": len(bad),
+                          "by_family": {f: {"outputs": n, "differ": d}
+                                        for f, (n, d) in by_family.items()},
                           "a": a["card"], "b": b["card"]}))
         return 1 if bad else 0
     sys.path.insert(0, os.getcwd())
