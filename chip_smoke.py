@@ -226,10 +226,14 @@ Run from the repository root. Phases (any failure exits non-zero):
    B=256 with repeated rows, H=512) on float32, float16 and int8 rows at
    G=1, 2 and 8, normalize on and off on float rows, each against its
    plain float32 version within TOL_F32_REL of each output's largest value
-   (G times that for K5f's dqh and dW_v), each timed with its plain
-   version, its library yardstick (cuDNN's GRU in float32 for K1f/K3f,
-   cuBLAS's f32 GEMM for K4f's score and K5f's dW_v stage) and its bound
-   at the FP32 FFMA peak, K4f's score and K5f's dW_v launch (the products
+   (G times that for K5f's dqh and dW_v), K1f and K3f there in their
+   persistent forms (``csrc/gru_seq_f32.cuh``) and bit-equal to their
+   step forms, each timed with its plain version, its library yardstick
+   (cuDNN's GRU in float32 for K1f/K3f, cuBLAS's f32 GEMM for K4f's
+   score and K5f's dW_v stage) and its bound at the FP32 FFMA peak, K1f
+   and K3f in turns with their step forms and cuDNN (library, kernel,
+   step, step, kernel, library) and K3f's four launches (gh, chain, dU_h,
+   db_hn) apart, K4f's score and K5f's dW_v launch (the products
    of ``csrc/fp32_ring.cuh``) alone on the device beside torch.matmul f32
    on the same product, in turns (matmul, launch, launch, matmul), in ms
    and TFLOP/s with the FFMA bound; ``fit_resident`` at full width in
@@ -605,6 +609,11 @@ SPC_PARAM_REL = 2.0 ** -9
 #     F32_GLIMPSES on each of F32_ROWS.
 TOL_F32_REL = 1e-5
 F32_IMAGES, F32_GLIMPSES = 512, (1, 2, 8)
+# K1f's and K3f's launches a call at the main path's width (H = 512): the
+#     persistent forms of csrc/gru_seq_f32.cuh (phase 25 checks the route),
+#     K1f one cooperative launch, K3f every step's gh, the chain, dU_h and
+#     db_hn.
+K1F_LAUNCHES, K3F_LAUNCHES = 1, 4
 F32_ROWS = ("float32", "float16", "int8")
 # The float32 main path's first step against the plain path on the card:
 #     no bf16 rounding anywhere, so the loss (about 7.6) moves by the f32
@@ -622,8 +631,9 @@ F32_STEPS, F32_WARMUP = 16, 3
 #     sum of the terms' magnitudes (C u <= 2^-13 at C=2048 for each order),
 #     so a unit whose z lies that close to 0 may take the other side of the
 #     ReLU in one version: K8f's dqh and dW_v also get k8_allowance's room,
-#     entry by entry, as K8's do. K6f and K7f run K1f's and K3f's step with
-#     both chains in each launch: bit-equal to two K1f / K3f calls.
+#     entry by entry, as K8's do. K6f and K7f run the step form of K1f and
+#     K3f with both chains in each launch: bit-equal to two K1f / K3f calls
+#     (whose persistent forms equal their step forms bit for bit).
 #     F32_ODD_SHAPE (B, N, C, H) lies off every tile of the bf16 kernels.
 #     The float32 Predictor's logits (10 cos + bias, |logit| about 10)
 #     against its plain path: only the order of f32 sums differs, which
@@ -5197,6 +5207,12 @@ def bound_f32(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The profiler names of K3f's four launches (csrc/gru_bwd_f32.cu): every
+# step's gh, the chain, dU_h and db_hn.
+K3F_LAUNCH_KERNELS = {"gh": "gru_seq_f32::gru_f32_gh_kernel",
+                      "chain": "gru_seq_f32::gru_f32_bptt_kernel",
+                      "duh": "fp32_tile::product_kernel",
+                      "dbhn": "gru_f32::gru_f32_dbhn_kernel"}
 # The profiler names of the float32 products on fp32_ring.cuh's loop.
 F32_SCORE_KERNEL = "attn_f32_score_ring_kernel"  # K4f's and K2f's score
 F32_DZ_KERNEL = "attn_f32_bwd_dz_ring_kernel"  # K8f's dz launch
@@ -5243,7 +5259,8 @@ def f32_errors(got: dict, want: dict, limits: dict) -> dict:
 def f32_gru_checks(dev, gen) -> dict:
     """K1f and K3f against their plain float32 versions at the training
     shape (B_TRAIN, T, H), lengths 1..T, both directions, K3f fed the plain
-    version's hseq."""
+    version's hseq; the route there is the persistent form of each, and
+    every output equals the step form's bit for bit."""
     import torch
     from vqa_transfer_externaldata_torch.ops import gru
 
@@ -5254,6 +5271,10 @@ def f32_gru_checks(dev, gen) -> dict:
     uh = (torch.rand(H, 3 * H, generator=gen, device=dev) * 2 - 1) * lim
     bhn = torch.randn(H, generator=gen, device=dev) * 0.1
     ghT = torch.randn(B_TRAIN, H, generator=gen, device=dev)
+    routes = {n: gru._f32_route(n, B_TRAIN, H, dev)
+              for n in ("gru_fwd_f32", "gru_bwd_f32")}
+    check(set(routes.values()) == {"persistent"},
+          f"K1f/K3f at the training shape take {routes}")
     checks, err = [], 0.0
     for reverse in (False, True):
         hT, hseq = gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
@@ -5262,20 +5283,34 @@ def f32_gru_checks(dev, gen) -> dict:
             gx, rseq, lens, uh, bhn, ghT, reverse=reverse)))
         want = dict(zip(("dgx", "duh", "dbhn"), gru.gru_bwd_reference(
             gx, rseq, lens, uh, bhn, ghT, reverse=reverse)))
+        # The step form of each on the same inputs: bit for bit.
+        step = dict(zip(("hT", "hseq"), gru._gru_fwd32(
+            gx, lens, uh, bhn, reverse, "step")))
+        step.update(zip(("dgx", "duh", "dbhn"), gru._gru_bwd32(
+            gx, rseq, lens, uh, bhn, ghT, reverse, "step")))
         torch.cuda.synchronize()
         e1 = f32_errors({"hT": hT, "hseq": hseq}, {"hT": rT, "hseq": rseq},
                         {"hT": TOL_F32_REL, "hseq": TOL_F32_REL})
         e3 = f32_errors(got, want, {k: TOL_F32_REL for k in got})
+        diff = {k: (v - step[k]).abs().max().item()
+                for k, v in {"hT": hT, "hseq": hseq, **got}.items()}
+        check(all(torch.equal(v, step[k]) for k, v in
+                  {"hT": hT, "hseq": hseq, **got}.items()),
+              f"K1f/K3f reverse={reverse}: the persistent form differs "
+              f"from the step form by {diff}")
         print(f"K1f reverse={reverse}: " + ", ".join(
             f"{k} {v['rel_err']:.3e}" for k, v in e1.items())
             + f"; K3f: " + ", ".join(f"{k} {v['rel_err']:.3e}"
                                       for k, v in e3.items())
-            + f" (limit {TOL_F32_REL} of each output's largest value)")
-        checks.append({"reverse": reverse, "k1f": e1, "k3f": e3})
+            + f" (limit {TOL_F32_REL} of each output's largest value); "
+            "persistent form bit-equal to the step form")
+        checks.append({"reverse": reverse, "k1f": e1, "k3f": e3,
+                       "diff_vs_step_form": diff})
         err = max(err, *(v["max_abs_err"] for v in e1.values()))
     err3 = max(v["max_abs_err"] for c in checks for v in c["k3f"].values())
     return {"gx": gx, "lens": lens, "uh": uh, "bhn": bhn, "ghT": ghT,
-            "hseq": rseq, "checks": checks, "err1": err, "err3": err3}
+            "hseq": rseq, "checks": checks, "err1": err, "err3": err3,
+            "routes": routes}
 
 
 def f32_store(dev, gen, rows_dtype: str) -> tuple:
@@ -5374,7 +5409,8 @@ def f32_times(k13: dict, k45: dict, dev) -> dict:
     """Each float32 kernel at the main path's shapes (K4f/K5f at G=1 on
     the synthetic corpus's float16 rows, normalize off: the prenormalized
     store): its time, its plain version's, the library yardstick's and
-    the bound from this run's inputs."""
+    the bound from this run's inputs; K1f and K3f in turns with their
+    step form and cuDNN's GRU, and K3f's four launches apart."""
     import torch
     from vqa_transfer_externaldata_torch.ops import attention_resident as ar
     from vqa_transfer_externaldata_torch.ops import gru
@@ -5391,18 +5427,48 @@ def f32_times(k13: dict, k45: dict, dev) -> dict:
     x = torch.randn(T, Bt, D, device=dev, requires_grad=True)
     packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(),
                                                      enforce_sorted=False)
-    with torch.inference_mode():
-        lib_fwd = time_cuda(lambda: lib(packed), buf)
     _, h_n = lib(packed)
     wrt, g_n = [x, *lib.parameters()], torch.randn_like(h_n)
-    lib_bwd = time_cuda(
-        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+
+    def lib_fwd():
+        with torch.inference_mode():
+            lib(packed)
+
+    def lib_bwd():
+        torch.autograd.grad(h_n, wrt, g_n, retain_graph=True)
+
+    def k1f(form=None):
+        return lambda: gru._gru_fwd32(gx, lens, uh, bhn, False, form)
+
+    def k3f(form=None):
+        return lambda: gru._gru_bwd32(gx, hseq, lens, uh, bhn, ghT, False,
+                                      form)
+
+    # Each kernel, its step form and cuDNN in the same call, in turns:
+    # library, kernel, step form, step form, kernel, library.
+    turns = {}
+    for name, kern, lib_call in (("gru_fwd_f32", k1f, lib_fwd),
+                                 ("gru_bwd_f32", k3f, lib_bwd)):
+        t = [time_cuda(lib_call, buf), time_cuda(kern(), buf),
+             time_cuda(kern("step"), buf), time_cuda(kern("step"), buf),
+             time_cuda(kern(), buf), time_cuda(lib_call, buf)]
+        turns[name] = {"turns_ms": t, "library_turns": [t[0], t[5]],
+                       "kernel_turns": [t[1], t[4]],
+                       "step_form": [t[2], t[3]]}
+        print(f"{name}: persistent {t[1]:.4f} / {t[4]:.4f} ms, step form "
+              f"{t[2]:.4f} / {t[3]:.4f} ms, library {t[0]:.4f} / "
+              f"{t[5]:.4f} ms, in turns")
+    # K3f's four launches apart: device ms a call, from one profile.
+    k3_launch_ms = split_device_ms(k3f(), K3F_LAUNCH_KERNELS, buf)
+    print("K3f launches (ms a call): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in k3_launch_ms.items()))
     times["gru_fwd_f32"] = {
-        "kernel": time_cuda(lambda: gru.gru_fwd_f32(gx, lens, uh, bhn), buf),
+        "kernel": turns["gru_fwd_f32"]["kernel_turns"][0],
         "plain": time_cuda(lambda: gru.gru_reference(gx, lens, uh, bhn), buf),
-        "library": lib_fwd,
+        "library": turns["gru_fwd_f32"]["library_turns"][0],
         "library_call": f"torch.nn.GRU({D}, {H}) in float32 (TF32 off) "
                         "over a packed sequence, input projection included",
+        **turns["gru_fwd_f32"],
         # The live row-steps read gx once, U_h and bhn once; hseq and hT
         # are written once; one [H] x [H, 3H] product a carried
         # row-step.
@@ -5410,14 +5476,14 @@ def f32_times(k13: dict, k45: dict, dev) -> dict:
                            + T * Bt * H * 4 + Bt * H * 4,
                            2 * nc * H * 3 * H)}
     times["gru_bwd_f32"] = {
-        "kernel": time_cuda(lambda: gru.gru_bwd_f32(gx, hseq, lens, uh, bhn,
-                                                    ghT), buf),
+        "kernel": turns["gru_bwd_f32"]["kernel_turns"][0],
         "plain": time_cuda(lambda: gru.gru_bwd_reference(
             gx, hseq, lens, uh, bhn, ghT), buf),
-        "library": lib_bwd,
+        "library": turns["gru_bwd_f32"]["library_turns"][0],
         "library_call": f"backward of torch.nn.GRU({D}, {H}) in float32 "
                         "(TF32 off) over a packed sequence, "
                         "input-projection gradients included",
+        **turns["gru_bwd_f32"], "launch_ms": k3_launch_ms,
         # gx and hseq read once for the live row-steps, dgx, dU_h and
         # db_hn written once; three products a carried row-step (the
         # recomputed gh, the U_h^T product, the share of dU_h).
@@ -5541,7 +5607,8 @@ def phase_float32(report: dict, dev, gen) -> dict:
         torch.cuda.synchronize()
         launches = read_counts()
         check_launches(launches, {
-            "gru_fwd_f32": T * steps, "gru_bwd_f32": (2 * T + 1) * steps,
+            "gru_fwd_f32": K1F_LAUNCHES * steps,
+            "gru_bwd_f32": K3F_LAUNCHES * steps,
             "attention_resident_fwd_f32": 2 * steps,
             "attention_resident_bwd_f32": 3 * steps},
             f"float32 stage-2 training over {steps} steps")
@@ -5554,7 +5621,7 @@ def phase_float32(report: dict, dev, gen) -> dict:
         batches = -(-VAL_QUESTIONS // B_TRAIN)
         out["eval_launches"] = read_counts()
         check_launches(out["eval_launches"], {
-            "gru_fwd_f32": T * batches,
+            "gru_fwd_f32": K1F_LAUNCHES * batches,
             "attention_resident_fwd_f32": 2 * batches},
             "float32 resident evaluation")
         check(np.isfinite(metrics["loss"]) and len(preds) == VAL_QUESTIONS,
@@ -6016,7 +6083,8 @@ def f32_predictor(run_dir: str, plain_dir: str, dev) -> dict:
         answers = pred.answer(feats, questions)
         torch.cuda.synchronize()
         launches = read_counts()
-        check_launches(launches, {"gru_fwd_f32": T, "attention_fwd_f32": 3},
+        check_launches(launches, {"gru_fwd_f32": K1F_LAUNCHES,
+                                  "attention_fwd_f32": 3},
                        f"float32 Predictor at batch {bq}")
         reset_counts()
         plain_answers = plain.answer(feats, questions)
@@ -6102,10 +6170,11 @@ def phase_float32_gathered(report: dict, dev, gen) -> dict:
         state = trainer.fit_resident(ds, state)
         torch.cuda.synchronize()
         launches = read_counts()
-        # A step: K1f T, K3f 2T + 1, K2f 3 (the op normalizes the grid), K8f
-        # 3; no bf16 kernel.
+        # A step: K1f 1, K3f 4, K2f 3 (the op normalizes the grid), K8f 3;
+        # no bf16 kernel.
         check_launches(launches, {
-            "gru_fwd_f32": T * steps, "gru_bwd_f32": (2 * T + 1) * steps,
+            "gru_fwd_f32": K1F_LAUNCHES * steps,
+            "gru_bwd_f32": K3F_LAUNCHES * steps,
             "attention_fwd_f32": 3 * steps, "attention_bwd_f32": 3 * steps},
             f"float32 gathered stage-2 training over {steps} steps")
         out.update(launches=launches, **read_steps(
@@ -6119,7 +6188,8 @@ def phase_float32_gathered(report: dict, dev, gen) -> dict:
         batches = -(-VAL_QUESTIONS // B_TRAIN)
         out["eval_launches"] = read_counts()
         check_launches(out["eval_launches"], {
-            "gru_fwd_f32": T * batches, "attention_fwd_f32": 3 * batches},
+            "gru_fwd_f32": K1F_LAUNCHES * batches,
+            "attention_fwd_f32": 3 * batches},
             "float32 gathered evaluation")
         check(np.isfinite(metrics["loss"]) and len(preds) == VAL_QUESTIONS,
               f"float32 gathered evaluation: {metrics}, {len(preds)} "
@@ -8202,13 +8272,21 @@ def main(argv=None) -> int:
     k13, k45f, f32t = f32["k13"], f32["k45"], f32["times"]
     for name, replaces, err, extra in (
             ("gru_fwd_f32", ref + "gru.py:227", k13["err1"], {
-                "tol_rel": TOL_F32_REL,
+                "tol_rel": TOL_F32_REL, "form": k13["routes"]["gru_fwd_f32"],
                 "checks": [{"reverse": c["reverse"], **c["k1f"]}
-                           for c in k13["checks"]]}),
+                           for c in k13["checks"]],
+                "step_form_bit_equal": True,
+                **{k: f32t["gru_fwd_f32"][k] for k in (
+                    "turns_ms", "step_form", "kernel_turns",
+                    "library_turns")}}),
             ("gru_bwd_f32", ref + "gru.py:259", k13["err3"], {
-                "tol_rel": TOL_F32_REL,
+                "tol_rel": TOL_F32_REL, "form": k13["routes"]["gru_bwd_f32"],
                 "checks": [{"reverse": c["reverse"], **c["k3f"]}
-                           for c in k13["checks"]]}),
+                           for c in k13["checks"]],
+                "step_form_bit_equal": True,
+                **{k: f32t["gru_bwd_f32"][k] for k in (
+                    "turns_ms", "step_form", "kernel_turns",
+                    "library_turns", "launch_ms")}}),
             ("attention_resident_fwd_f32", ref + "attention_resident.py:150",
              k45f["err4"], {
                  "tol_rel": TOL_F32_REL, "glimpses": "1-8",

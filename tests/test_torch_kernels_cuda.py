@@ -1763,10 +1763,10 @@ def _f32_gru_inputs(dev, T, B, H, seed=0):
 @pytest.mark.parametrize("H", [16, 100, 512])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_f32_kernels_match_plain(dev, B, T, H, reverse):
-    """K1f (one launch a step) and K3f (two a step but the last, then the
-    dU_h product and the db_hn sum) against their plain versions on
-    float32 U_h, through the dispatch of gru_fwd and gru_bwd; lengths hold
-    0 and T, H need not be a multiple of a tile."""
+    """K1f (one persistent launch) and K3f (every step's gh, the chain, the
+    dU_h product and the db_hn sum: 4 launches) against their plain
+    versions on float32 U_h, through the dispatch of gru_fwd and gru_bwd;
+    lengths hold 0 and T, H need not be a multiple of a tile."""
     gx, lens, uh, bhn = _f32_gru_inputs(dev, T, B, H)
     f0, b0 = gru.gru_fwd_f32.launches, gru.gru_bwd_f32.launches
     k1 = gru.gru_fwd.launches
@@ -1777,8 +1777,8 @@ def test_gru_f32_kernels_match_plain(dev, B, T, H, reverse):
     want = gru.gru_bwd_reference(gx, rseq, lens, uh, bhn, ghT,
                                  reverse=reverse)
     torch.cuda.synchronize()
-    assert gru.gru_fwd_f32.launches == f0 + T
-    assert gru.gru_bwd_f32.launches == b0 + 2 * T + 1
+    assert gru.gru_fwd_f32.launches == f0 + 1
+    assert gru.gru_bwd_f32.launches == b0 + kernels.GRU_F32_BWD_LAUNCHES
     assert gru.gru_fwd.launches == k1
     assert torch.equal(hT, hseq[0 if reverse else -1])
     assert _rel(hseq, rseq) <= TOL_F32 and _rel(hT, rT) <= TOL_F32
@@ -1796,6 +1796,127 @@ def test_gru_f32_kernels_are_deterministic(dev):
     d = gru.gru_bwd_f32(gx, a[1], lens, uh, bhn, ghT)
     for x, y in zip(a + c, b + d):
         assert torch.equal(x, y)
+
+
+# The float32 GRU's two forms: the persistent kernels of gru_seq_f32.cuh
+# (K1f one launch, K3f 4) where they fit, the step form of gru_step_f32.cuh
+# elsewhere (H = 1100: past both persistent kernels' shared memory).
+F32_STEP_H = 1100
+
+
+def _f32_seq_inputs(dev, T, B, H, seed):
+    """K1f/K3f inputs with lengths 1..T (one row at T) and ghT."""
+    gx, _, uh, bhn = _f32_gru_inputs(dev, T, B, H, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    lens[0] = T
+    ghT = torch.randn(B, H, generator=g, device=dev)
+    return gx, lens, uh, bhn, ghT
+
+
+@pytest.mark.parametrize("B", [1, 8, 63, 256])
+@pytest.mark.parametrize("H", [6, 100, 101, 512, F32_STEP_H])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_f32_persistent_form_equals_step_form(dev, B, H, reverse):
+    """K1f and K3f through their wrappers: the route takes the persistent
+    form where it fits (1 and 4 launches a call) and the step form at
+    H = 1100 (T and 2T + 1); every output bit-equal to the step form's on
+    the same inputs and within TOL_F32 of the plain versions, lengths
+    1..T, both directions; two calls give the same bits."""
+    T = 26
+    gx, lens, uh, bhn, ghT = _f32_seq_inputs(dev, T, B, H, seed=B + H)
+    persistent = H != F32_STEP_H
+    for name in ("gru_fwd_f32", "gru_bwd_f32"):
+        assert gru._f32_route(name, B, H, dev) == (
+            "persistent" if persistent else "step")
+    f0, b0 = gru.gru_fwd_f32.launches, gru.gru_bwd_f32.launches
+    hT, hseq = gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
+    got = gru.gru_bwd_f32(gx, hseq, lens, uh, bhn, ghT, reverse=reverse)
+    torch.cuda.synchronize()
+    assert gru.gru_fwd_f32.launches - f0 == (1 if persistent else T)
+    assert gru.gru_bwd_f32.launches - b0 == (
+        kernels.GRU_F32_BWD_LAUNCHES if persistent else 2 * T + 1)
+    step_fwd = gru._gru_fwd32(gx, lens, uh, bhn, reverse, "step")
+    step_bwd = gru._gru_bwd32(gx, hseq, lens, uh, bhn, ghT, reverse, "step")
+    again = (gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
+             + gru.gru_bwd_f32(gx, hseq, lens, uh, bhn, ghT,
+                               reverse=reverse))
+    rT, rseq = gru.gru_reference(gx, lens, uh, bhn, reverse=reverse)
+    want = gru.gru_bwd_reference(gx, hseq, lens, uh, bhn, ghT,
+                                 reverse=reverse)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("hT", "hseq", "dgx", "duh", "dbhn"),
+                             (hT, hseq) + got, step_fwd + step_bwd, again):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), (name, (a - b).abs().max().item())
+        assert torch.equal(a, c), name
+    assert _rel(hT, rT) <= TOL_F32 and _rel(hseq, rseq) <= TOL_F32
+    for name, a, b in zip(("dgx", "duh", "dbhn"), got, want):
+        assert _rel(a, b) <= TOL_F32, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_f32_persistent_forms_capture_in_a_cuda_graph(dev, reverse):
+    """K1f's cooperative launch and K3f's four launches are accepted under
+    stream capture (1 and 4 counted at the capture), and the graph's
+    replay on new inputs equals an eager call on them bit for bit."""
+    T, B, H = 26, 256, 512
+    gx, lens, uh, bhn, ghT = _f32_seq_inputs(dev, T, B, H, seed=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        _, hs = gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
+        gru.gru_bwd_f32(gx, hs, lens, uh, bhn, ghT, reverse=reverse)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    f0, b0 = gru.gru_fwd_f32.launches, gru.gru_bwd_f32.launches
+    with torch.cuda.graph(graph):
+        hT, hseq = gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
+        dgx, duh, dbhn = gru.gru_bwd_f32(gx, hseq, lens, uh, bhn, ghT,
+                                         reverse=reverse)
+    assert gru.gru_fwd_f32.launches == f0 + 1
+    assert gru.gru_bwd_f32.launches == b0 + kernels.GRU_F32_BWD_LAUNCHES
+    gx2, lens2, _, _, ghT2 = _f32_seq_inputs(dev, T, B, H, seed=5)
+    gx.copy_(gx2)
+    lens.copy_(lens2)
+    ghT.copy_(ghT2)
+    graph.replay()
+    want = gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
+    want += gru.gru_bwd_f32(gx, want[1], lens, uh, bhn, ghT,
+                            reverse=reverse)
+    torch.cuda.synchronize()
+    for a, b in zip((hT, hseq, dgx, duh, dbhn), want):
+        assert torch.equal(a, b)
+
+
+def test_gru_f32_launch_config_matches_the_plan(dev):
+    """The C side derives K1f's and K3f's chain's grids from its occupancy
+    query, and they equal kernels.gru_f32_plan's on the same blocks per
+    SM, with the plan's shared memory; at the training shape 32 unit
+    tiles x 4 rows of blocks, one an SM. Where a block's shared memory
+    does not fit (H = 1100) the C side reports no grid and no block, the
+    route takes the step form, and asking for the persistent form raises
+    (no fallback)."""
+    for B, H in [(256, 512), (1, 6), (63, 101), (8, 100), (1024, 512),
+                 (64, 1013), (300, 40)]:
+        for name in ("gru_fwd_f32", "gru_bwd_f32"):
+            cfg = gru._f32_launch_config(name, B, H, dev)
+            assert cfg["c_grid"] == cfg["grid"], (name, B, H, cfg)
+            assert cfg["c_smem_bytes"] == cfg["smem_bytes"] <= 232448
+            assert cfg["blocks_per_sm"] >= 1
+    for name in ("gru_fwd_f32", "gru_bwd_f32"):
+        assert gru._f32_launch_config(name, 256, 512, dev)["grid"] == [
+            32, 4, 1]
+        c = gru._f32_config(name, 4, F32_STEP_H, dev)
+        assert c["grid"] == [0, 0, 0] and c["blocks_per_sm"] == 0
+        assert gru._f32_route(name, 4, F32_STEP_H, dev) == "step"
+    gx, lens, uh, bhn, ghT = _f32_seq_inputs(dev, 2, 4, F32_STEP_H, seed=9)
+    _, hseq = gru.gru_fwd_f32(gx, lens, uh, bhn)
+    with pytest.raises(RuntimeError, match="gru_fwd_f32"):
+        gru._gru_fwd32(gx, lens, uh, bhn, False, "persistent")
+    with pytest.raises(RuntimeError, match="gru_bwd_f32"):
+        gru._gru_bwd32(gx, hseq, lens, uh, bhn, ghT, False, "persistent")
 
 
 def _f32_resident_inputs(dev, M, n_valid, C, H, B, G, rows_dtype, seed=7):
@@ -2149,7 +2270,8 @@ def test_fused_bigru_encoder_float32_goes_through_k6f_k7f(dev):
              "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
     res = []
     for fn, want in ((enc, [6, 13, 0, 0, 0, 0, 0, 0]),
-                     (two_encoders, [0, 0, 12, 26, 0, 0, 0, 0])):
+                     (two_encoders, [0, 0, 2, 2 * kernels.GRU_F32_BWD_LAUNCHES,
+                                     0, 0, 0, 0])):
         enc.zero_grad()
         counts = [getattr(gru, n).launches for n in names]
         out = fn(x, mask)

@@ -13,27 +13,80 @@
 // hidden products, carries dh through U_h^T and forms dU_h, each at most
 // 10.1 GFLOP over the 25 x 256 row-steps whose carry is not the zero
 // start: 30.2 GFLOP of f32 FFMA, 0.45 ms at 67 TFLOP/s, against ~100 MB
-// of reads and writes: the FP32 pipes, and the T dependent steps.
+// of reads and writes: the FP32 pipes and the shared-memory loads that
+// feed them, and the T dependent steps of the carry.
 //
-// Design, all on fp32_tile.cuh's tile loop, launches in stream order (the
-// launch boundary is each step's barrier):
-//  1. a step (t from the chain's end): gru_step_f32.cuh's step kernel in
-//     its BPTT form recomputes gh = h_prev @ U_h for 64 rows x 16 units a
-//     block and writes dgx_t, g_t = (da_r, da_z, dgh_n) and the part of
-//     dh_prev that skips U_h;
-//  2. then (but after the last step) dh_prev = that part + g_t @ U_h^T,
-//     32 x 32 outputs a block, into the other half of the ping-pong dh;
-//  3. after the steps, dU_h = h_prev^T g over the (T-1) B rows whose h_prev
-//     is not the zero start (the rows of the chain's first step add
-//     nothing): hseq and g read in place, shifted by one step, 64 x 64
-//     outputs a block, each sum over all rows in order;
+// Design, launches in stream order (gru_seq_f32.cuh):
+//  1. gh = h_prev @ U_h for every step but the chain's first (whose h_prev
+//     is the zero start) in one product over the (T-1) B saved states,
+//     gru_f32_gh_kernel on fp32_ring.cuh's tile loop (its plan from
+//     ops/kernels.py::f32_ring_plan), into a [T-1, B, 3H] scratch: the
+//     recompute is off the chain;
+//  2. the chain, one cooperative launch (gru_f32_bptt_kernel): each block
+//     keeps U_h's rows of its 16 units in shared memory, and every step
+//     forms dh = dpart + g_{t+-1} @ U_h^T for its units from the g rows
+//     that every block wrote before the grid barrier, streamed through a
+//     cp.async ring, then the gate backward, writing dgx_t, g_t and dpart;
+//  3. dU_h = h_prev^T g over the (T-1) B rows whose h_prev is not the zero
+//     start: hseq and g read in place, shifted by one step, on
+//     fp32_tile.cuh's loop, 64 x 64 outputs a block, each sum over all rows
+//     in order;
 //  4. db_hn = the column sums of g's n-gate block over the T B rows, eight
 //     row strides a unit added in a fixed order (gru_step_f32.cuh).
-// 2T + 1 launches a call. No atomics: two calls give the same bits.
+// 4 launches a call at any T. Where the chain does not fit, the wrapper
+// takes the step form, gru_bwd_f32_step: two launches a step (the step
+// kernel's BPTT form, which recomputes gh, then dh_prev = dpart + g_t @
+// U_h^T on fp32_tile.cuh's loop, 32 x 32 outputs a block, but after the
+// last step), then 3 and 4: 2T + 1 launches. Every sum of both forms is
+// one FFMA chain in the same order and the gate math is shared, so their
+// outputs are equal bit for bit. No atomics: two calls give the same bits.
 
 #include <cuda_runtime.h>
 
-#include "gru_step_f32.cuh"
+#include "gru_seq_f32.cuh"
+
+namespace {
+
+using gru_seq_f32::BwdArgs;
+
+using gru_seq_f32::BwdTile;
+using BwdKernel = void (*)(BwdArgs);
+
+// The chain's instance at width H: 16-byte copies of g where its rows are
+// 16-byte aligned.
+BwdKernel bwd_kernel(int H) {
+  return H % 4 == 0 ? gru_seq_f32::gru_f32_bptt_kernel<BwdTile, true>
+                    : gru_seq_f32::gru_f32_bptt_kernel<BwdTile, false>;
+}
+
+// Steps 3 and 4 of both forms: dU_h over the rows of live h_prev and db_hn.
+cudaError_t duh_dbhn(const float* hseq, const float* gq, float* duh,
+                     float* dbhn, int T, int B, int H, int reverse,
+                     cudaStream_t stream, int* launched) {
+  constexpr int DUH_TILE = 64;
+  const long long BH = (long long)B * H, H3 = 3LL * H;
+  // Rows of live h_prev: forward, hseq[0 .. T-2] against g[1 .. T-1];
+  // reverse, hseq[1 .. T-1] against g[0 .. T-2].
+  const float* hp = hseq + (reverse ? BH : 0);
+  const float* gp = gq + (reverse ? 0 : B * H3);
+  const int K = (T - 1) * B;
+  const dim3 duh_grid((3 * H + DUH_TILE - 1) / DUH_TILE,
+                      (H + DUH_TILE - 1) / DUH_TILE);
+  fp32_tile::product_kernel<DUH_TILE, DUH_TILE, 16, false, false>
+      <<<duh_grid, fp32_tile::THREADS, 0, stream>>>(
+          fp32_tile::DenseT{hp, H}, fp32_tile::Dense{gp, H3}, H, 3 * H, K, K,
+          nullptr, duh, H3);
+  ++*launched;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gru_f32::gru_f32_dbhn_kernel<<<(H + 31) / 32, dim3(32, gru_f32::SUM_ROWS),
+                                 0, stream>>>(gq, dbhn, nullptr, nullptr,
+                                              T * B, H);
+  ++*launched;
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -41,18 +94,77 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// gx [T, B, 3H], hseq [T, B, H] (K1f's), lens [B] i32, uh [H, 3H], bhn [H]
-// f32; dh [2, B, H] f32 with dh[0] = the cotangent of hT (overwritten);
-// scratch dpart [B, H], gq [T, B, 3H] -> dgx [T, B, 3H], duh [H, 3H], dbhn
-// [H], all f32. 2T + 1 launches on `stream`, added to *launched.
+// The chain's persistent launch at batch B and width H on the current
+// device, as gru_fwd_f32_config reports K1f's.
+int gru_bwd_f32_config(int B, int H, int* grid, int* per_sm,
+                       long long* smem_bytes) {
+  return gru_seq_f32::persist_config(bwd_kernel(H), BwdTile::THREADS,
+                                     gru_seq_f32::bwd_smem(H), B, H, grid,
+                                     per_sm, smem_bytes);
+}
+
+// gx [T, B, 3H], hseq [T, B, H] (K1f's), lens [B] i32, uh [H, 3H], bhn
+// [H], ghT [B, H] (the cotangent of hT) f32; scratch dpart [B, H], gq
+// [T, B, 3H], gh [max(T-1, 1), B, 3H] -> dgx [T, B, 3H], duh [H, 3H], dbhn
+// [H], all f32. The gh product's ring plan (copy widths wa, wb in bytes,
+// stages, shared bytes smem_gh) is the wrapper's
+// ops/kernels.py::f32_ring_plan of hseq's rows and U_h, refused with
+// cudaErrorInvalidValue where their alignment does not allow it. 4
+// launches on `stream`, added to *launched; the chain's cooperative launch
+// returns cudaErrorCooperativeLaunchTooLarge where its grid cannot be
+// resident (ops/kernels.py::gru_f32_route sends such shapes to
+// gru_bwd_f32_step).
 int gru_bwd_f32(const float* gx, const float* hseq, const int* lens,
-                const float* uh, const float* bhn, float* dh, float* dpart,
-                float* gq, float* dgx, float* duh, float* dbhn, int T, int B,
-                int H, int reverse, cudaStream_t stream, int* launched) {
+                const float* uh, const float* bhn, const float* ghT,
+                float* dpart, float* gq, float* gh, float* dgx, float* duh,
+                float* dbhn, int T, int B, int H, int reverse, int wa,
+                int wb, int stages, int smem_gh, cudaStream_t stream,
+                int* launched) {
+  const long long BH = (long long)B * H;
+  const int M = (T - 1) * B;
+  // The saved states of live h_prev (hseq itself at T = 1: no rows).
+  const float* hp = hseq + (reverse && M > 0 ? BH : 0);
+  if (T < 1 || B < 1 || H < 1 ||
+      !fp32_ring::plan_ok<float, true>(wa, wb, stages, smem_gh, hp,
+                                       (long long)H * 4, uh,
+                                       3LL * H * 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = fp32_ring::by_plan(wa, wb, [&](auto fa, auto fb) {
+    auto* kernel = gru_seq_f32::gru_f32_gh_kernel<decltype(fa)::value,
+                                                   decltype(fb)::value>;
+    cudaError_t e = fp32_ring::opt_in(kernel, smem_gh);
+    if (e != cudaSuccess) return e;
+    const int tile = fp32_ring::TILE;
+    const dim3 grid((3 * H + tile - 1) / tile,
+                    std::max(1, (M + tile - 1) / tile));
+    kernel<<<grid, fp32_ring::THREADS, smem_gh, stream>>>(
+        rows_f32::GridCells{hp, 1, H}, uh, M, H, gh, wa, wb);
+    ++*launched;
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdArgs a{gx, gh, hseq, lens, uh, bhn, ghT, dpart, gq, dgx, T, B, H,
+                  reverse};
+  const int rc = gru_seq_f32::persist_launch(
+      bwd_kernel(H), BwdTile::THREADS, gru_seq_f32::bwd_smem(H), a, B, H,
+      stream, launched);
+  if (rc != 0) return rc;
+  return static_cast<int>(
+      duh_dbhn(hseq, gq, duh, dbhn, T, B, H, reverse, stream, launched));
+}
+
+// The step form: dh [2, B, H] f32 with dh[0] = the cotangent of hT
+// (overwritten) in place of ghT and no gh scratch; otherwise gru_bwd_f32's
+// arguments. 2T + 1 launches on `stream`, added to *launched.
+int gru_bwd_f32_step(const float* gx, const float* hseq, const int* lens,
+                     const float* uh, const float* bhn, float* dh,
+                     float* dpart, float* gq, float* dgx, float* duh,
+                     float* dbhn, int T, int B, int H, int reverse,
+                     cudaStream_t stream, int* launched) {
   const long long BH = (long long)B * H, H3 = 3LL * H;
   const dim3 step_grid((H + gru_f32::UNITS - 1) / gru_f32::UNITS,
                        (B + gru_f32::BM - 1) / gru_f32::BM);
-  constexpr int DH_TILE = 32, DUH_TILE = 64;
+  constexpr int DH_TILE = 32;
   const dim3 dh_grid((H + DH_TILE - 1) / DH_TILE, (B + DH_TILE - 1) / DH_TILE);
   cudaError_t err;
   for (int s = 0; s < T; ++s) {
@@ -78,24 +190,8 @@ int gru_bwd_f32(const float* gx, const float* hseq, const int* lens,
     if ((err = cudaGetLastError()) != cudaSuccess)
       return static_cast<int>(err);
   }
-  // Rows of live h_prev: forward, hseq[0 .. T-2] against g[1 .. T-1];
-  // reverse, hseq[1 .. T-1] against g[0 .. T-2].
-  const float* hp = hseq + (reverse ? BH : 0);
-  const float* gp = gq + (reverse ? 0 : B * H3);
-  const int K = (T - 1) * B;
-  const dim3 duh_grid((3 * H + DUH_TILE - 1) / DUH_TILE,
-                      (H + DUH_TILE - 1) / DUH_TILE);
-  fp32_tile::product_kernel<DUH_TILE, DUH_TILE, 16, false, false>
-      <<<duh_grid, fp32_tile::THREADS, 0, stream>>>(
-          fp32_tile::DenseT{hp, H}, fp32_tile::Dense{gp, H3}, H, 3 * H, K, K,
-          nullptr, duh, H3);
-  ++*launched;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  gru_f32::gru_f32_dbhn_kernel<<<(H + 31) / 32, dim3(32, gru_f32::SUM_ROWS),
-                                 0, stream>>>(gq, dbhn, nullptr, nullptr,
-                                              T * B, H);
-  ++*launched;
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      duh_dbhn(hseq, gq, duh, dbhn, T, B, H, reverse, stream, launched));
 }
 
 }  // extern "C"

@@ -10,22 +10,43 @@
 // reverse chain walked in descending t.
 //
 // What bounds it on an H100: at B=256, H=512, T=26 the hidden products
-// after each row's first step (whose carry is zero, so the first launch
+// after each row's first step (whose carry is zero, so the first step
 // takes none) are at most 25 x 2 x 256 x 512 x 1536 = 10.1 GFLOP of f32
 // FFMA (0.15 ms at 67 TFLOP/s), against 41 MB of gx, hseq and U_h reads
-// and writes: the FP32 pipes, and the T dependent steps.
+// and writes: the FP32 pipes, the shared-memory loads that feed them, and
+// the T dependent steps.
 //
-// Design: one launch a step of gru_step_f32.cuh's step kernel (64 rows x
-// 16 units a block, the three gate columns of a unit in one thread's
-// registers; 4 x 32 = 128 blocks at B=256, H=512). The launch boundary is
-// the step's barrier: no cooperative launch and no plan. U_h (3 MB in f32
-// at H=512) is read from L2 each step. hseq[t - 1] (hseq[t + 1] in
-// reverse) is the step's h_prev, so no other state buffer exists. T
-// launches a call.
+// Design: the persistent kernel of gru_seq_f32.cuh (gru_f32_seq_kernel),
+// one cooperative launch for all T steps: each block keeps its 16 units'
+// 48 U_h columns in shared memory for the call and streams h_prev through
+// a cp.async ring, one grid barrier a step; the grid from persist_grid
+// (ops/kernels.py::gru_f32_plan). Where it does not fit, the wrapper takes
+// the step form, gru_fwd_f32_step: one launch a step of gru_step_f32.cuh's
+// step kernel (64 rows x 16 units a block, U_h read from L2 each step),
+// the launch boundary the step's barrier. Both forms take the same FFMA
+// chains and gate math: their outputs are equal bit for bit. hseq[t - 1]
+// (hseq[t + 1] in reverse) is the step's h_prev, so no other state buffer
+// exists.
 
 #include <cuda_runtime.h>
 
-#include "gru_step_f32.cuh"
+#include "gru_seq_f32.cuh"
+
+namespace {
+
+using gru_seq_f32::FwdArgs;
+
+using gru_seq_f32::FwdTile;
+using FwdKernel = void (*)(FwdArgs);
+
+// The persistent kernel's instance at width H: 16-byte copies of h_prev
+// where its rows are 16-byte aligned.
+FwdKernel fwd_kernel(int H) {
+  return H % 4 == 0 ? gru_seq_f32::gru_f32_seq_kernel<FwdTile, true>
+                    : gru_seq_f32::gru_f32_seq_kernel<FwdTile, false>;
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -33,12 +54,40 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The persistent launch at batch B and width H on the current device: its
+// grid[3] (0 x 0 x 0 where a row of ceil(H / 16) unit tiles cannot be
+// resident at once, or its shared memory exceeds a block's), the blocks
+// resident per SM (0 where the shared memory does not fit) and the
+// dynamic shared memory. Returns the CUDA error of the queries.
+int gru_fwd_f32_config(int B, int H, int* grid, int* per_sm,
+                       long long* smem_bytes) {
+  return gru_seq_f32::persist_config(fwd_kernel(H), FwdTile::THREADS,
+                                     gru_seq_f32::fwd_smem(H), B, H, grid,
+                                     per_sm, smem_bytes);
+}
+
 // gx [T, B, 3H] f32, lens [B] i32, uh [H, 3H] f32, bhn [H] f32 -> hseq
-// [T, B, H] f32 and hT [B, H] f32. One launch a step on `stream`; the
-// number launched is added to *launched.
+// [T, B, H] f32 and hT [B, H] f32. One cooperative launch of the
+// persistent kernel on `stream`, counted in *launched; returns the CUDA
+// error, among them cudaErrorCooperativeLaunchTooLarge where its grid
+// cannot be resident (ops/kernels.py::gru_f32_route sends such shapes to
+// gru_fwd_f32_step).
 int gru_fwd_f32(const float* gx, const int* lens, const float* uh,
                 const float* bhn, float* hseq, float* hT, int T, int B,
                 int H, int reverse, cudaStream_t stream, int* launched) {
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{gx, lens, uh, bhn, hseq, hT, T, B, H, reverse};
+  return gru_seq_f32::persist_launch(fwd_kernel(H), FwdTile::THREADS,
+                                     gru_seq_f32::fwd_smem(H), a, B, H,
+                                     stream, launched);
+}
+
+// The step form on the same arguments: one launch a step on `stream`; the
+// number launched is added to *launched.
+int gru_fwd_f32_step(const float* gx, const int* lens, const float* uh,
+                     const float* bhn, float* hseq, float* hT, int T, int B,
+                     int H, int reverse, cudaStream_t stream,
+                     int* launched) {
   const dim3 grid((H + gru_f32::UNITS - 1) / gru_f32::UNITS,
                   (B + gru_f32::BM - 1) / gru_f32::BM);
   const long long BH = (long long)B * H;

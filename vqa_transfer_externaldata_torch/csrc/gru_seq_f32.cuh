@@ -1,0 +1,600 @@
+// gru_seq_f32.cuh: the persistent kernels of the float32 GRU, for Hopper
+// (sm_90a): K1f's recurrence (csrc/gru_fwd_f32.cu, gru_f32_seq_kernel)
+// and the chain of K3f's BPTT (csrc/gru_bwd_f32.cu, gru_f32_bptt_kernel),
+// each one cooperative launch for all T steps, with one grid barrier a
+// step; and K3f's product of every step's gh ahead of the chain
+// (gru_f32_gh_kernel, on fp32_ring.cuh's tile loop). The gate math is
+// gru_step_f32.cuh's (gates, cell, cell_bwd), which the step form of K1f
+// and K3f (one launch a step, taken where these kernels do not fit) and
+// K6f/K7f run too.
+//
+// Every product is an FFMA chain with an f32 sum, one chain an output, k
+// ascending from zero, as fp32_tile.cuh's loop takes it: the float32 path
+// meets a float64 oracle and takes no TF32. Columns past the operands'
+// ends are zero-filled, and a zero product leaves a sum that is never -0
+// unchanged, so every output equals the step form's bit for bit.
+//
+// What bounds them on an H100: a step's products, [B, H] x [H, 3H] forward
+// and [B, 3H] x [3H, H] for the carried dh, spread over H / 16 x B / 64
+// blocks (128 at B = 256, H = 512), 1.57 M FFMA a block a step, 12.3 k
+// cycles at an SM's 128 FFMA a cycle (7 us at 1.755 GHz). An SM moves 128
+// bytes a cycle from shared memory into registers, and a thread with an
+// m x n tile of sums loads m + n floats for m * n FFMA, so the loads cost
+// (m + n) / (m n) floats an FFMA against the FFMA pipes' 1/4: the
+// forward's 4 x 3 tile 0.58 (at most 43% of the FFMA rate), the chain's
+// 4 x 2 tile 0.75 (33%). A larger tile a thread leaves fewer warps than
+// hide the loads' latency at 3072 (forward) or 1024 (chain) sums a block:
+// PERF.md (PR 28) has the tilings timed. Then the T dependent steps: a
+// grid barrier, a refill of the ring and the gate math a step (~3 us
+// forward, ~5 us for the chain).
+//
+// Design, after gru_fwd_step.cuh and gru_bwd_step.cuh (the 16-bit K1 and
+// K3):
+//  - A block owns UNITS = 16 hidden units (unit tile jx) for the whole
+//    call and walks ROWS = 64-row b-tiles by, by + gridDim.y, ... in every
+//    step. It keeps its slice of U_h in shared memory for the call, loaded
+//    once: forward, the 48 columns {u0, H+u0, 2H+u0} + 0..15 transposed to
+//    [48][H + pad] (96 KB at H = 512); the chain, U_h's rows u0 .. u0+15
+//    as they lie, [16][3H + pad] (96 KB).
+//  - The step's other operand, rows of the state that every block wrote
+//    before the barrier (forward h_prev = hseq[t -/+ 1], chain g_{t +/- 1}),
+//    streams through a ring of cp.async.cg copies (L2 only), KC columns a
+//    stage, so the products start on the first stage while the rest
+//    arrive. Where H is not a multiple of 4 (rows not 16-byte aligned) the
+//    stages are loaded through L2 a float at a time, synchronously.
+//  - Thread (ty, tx) = (tid / UG, tid % UG) keeps the sums of rows
+//    ty + RG i and units tx + UG e (Tile): forward 256 threads, 4 rows x
+//    one unit's 3 gates; chain 128 threads, 4 rows x 2 units of dh. Both
+//    operands are read as 128-bit k-quads from rows padded by 4 floats, so
+//    a quarter warp (one ty) reads one row of its operand A (a broadcast)
+//    and 8 consecutive rows of B, in distinct bank groups.
+//  - The elementwise operands (gx, forward h_prev, chain gh, h_prev, dpart
+//    or dh_T, the lengths) are loaded into registers ahead of the step's
+//    products, whose time hides their latency; the epilogue runs the gate
+//    math on the sums in registers.
+//  - The chain exchanges only g_t, written to gq [T, B, 3H] (which dU_h
+//    and db_hn then read); dpart, the part of dh that skips U_h, is read
+//    and written by the thread that owns it. The recompute of gh is off
+//    the chain: gru_f32_gh_kernel forms every step's gh in one product
+//    before it.
+//
+// The launch (ops/kernels.py::gru_f32_plan): H / 16 unit tiles (rounded
+// up) x as many rows of blocks as there are b-tiles, but no more than are
+// resident beside each other (the occupancy query's blocks per SM), one
+// block an SM at H = 512; persist_grid derives the same grid. Where a
+// block's slice and ring exceed its shared memory (past H = 1024 forward
+// and H = 1013 for the chain on an H100) or a row of unit tiles cannot be
+// resident at once, ops/kernels.py::gru_f32_route sends the wrappers to
+// the step form. Tail units and tail rows are masked, never returned
+// from: every block reaches every grid barrier. No atomics: two calls
+// give the same bits.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "fp32_ring.cuh"
+#include "gru_step_f32.cuh"
+
+namespace gru_seq_f32 {
+
+namespace cgrp = cooperative_groups;
+
+constexpr int UNITS = 16;  // hidden units a block owns
+constexpr int ROWS = 64;   // batch rows of a b-tile
+
+// A block's tiling: TR rows x TU units of sums a thread (rows ty + RG i,
+// units tx + UG e of the block's), KC columns a ring stage, S stages.
+template <int TR_, int TU_, int KC_, int S_>
+struct Tile {
+  static constexpr int TR = TR_, TU = TU_, KC = KC_, S = S_;
+  static constexpr int RG = ROWS / TR;    // row groups
+  static constexpr int UG = UNITS / TU;   // unit lanes
+  static constexpr int THREADS = RG * UG;
+  static constexpr int P = KC + 4;        // floats a ring row
+};
+// K1f: 256 threads, 12 sums each (4 rows x one unit's 3 gates), 2 stages
+// of 64 columns; K3f's chain: 128 threads, 8 sums each (4 rows x 2
+// units), 4 stages of 32 columns. PERF.md (PR 28) has the tilings timed
+// against them.
+using FwdTile = Tile<4, 1, 64, 2>;
+using BwdTile = Tile<4, 2, 32, 4>;
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+// The padded depths of the products: H (forward) and 3H (chain) rounded up
+// to a stage's columns.
+template <class Tl>
+__host__ __device__ constexpr int fwd_depth(int H) {
+  return round_up(H, Tl::KC);
+}
+template <class Tl>
+__host__ __device__ constexpr int bwd_depth(int H) {
+  return round_up(3 * H, Tl::KC);
+}
+template <class Tl>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return static_cast<size_t>(Tl::S) * ROWS * Tl::P * 4;
+}
+// Us [48][fwd_depth + 4] | ring [S][64][KC + 4], all f32.
+template <class Tl = FwdTile>
+__host__ __device__ constexpr size_t fwd_smem(int H) {
+  return static_cast<size_t>(3 * UNITS) * (fwd_depth<Tl>(H) + 4) * 4 +
+         ring_bytes<Tl>();
+}
+// Ur [16][bwd_depth + 4] | ring [S][64][KC + 4], all f32.
+template <class Tl = BwdTile>
+__host__ __device__ constexpr size_t bwd_smem(int H) {
+  return static_cast<size_t>(UNITS) * (bwd_depth<Tl>(H) + 4) * 4 +
+         ring_bytes<Tl>();
+}
+
+__device__ __forceinline__ float lane(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Columns kc .. kc + KC - 1 of rows b0 .. b0 + 63 of X [B, ld] f32 into a
+// ring stage [ROWS][KC + 4], zero at b >= B or k >= K. V16: 16-byte
+// cp.async.cg copies (L2 only: other blocks wrote X before the last grid
+// barrier), in the thread's current commit group. Else floats loaded
+// through L2 (ld.global.cg) and stored synchronously.
+template <class Tl, bool V16>
+__device__ __forceinline__ void stage(float* st, const float* X, long long ld,
+                                      int b0, int B, int kc, int K) {
+  constexpr int Q = Tl::KC / 4;
+  static_assert(ROWS * Q % Tl::THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int i0 = 0; i0 < ROWS * Q; i0 += Tl::THREADS) {
+    const int i = i0 + threadIdx.x;
+    const int r = i / Q, q = (i % Q) * 4;
+    const int b = b0 + r, k = kc + q;
+    float* dst = st + r * Tl::P + q;
+    const float* src = X + static_cast<long long>(b) * ld + k;
+    if constexpr (V16) {
+      const bool ok = b < B && k < K;
+      fp32_ring::cp_async<16>(dst, ok ? src : X, ok);
+    } else {
+      float4 v;
+      v.x = b < B && k < K ? __ldcg(src) : 0.f;
+      v.y = b < B && k + 1 < K ? __ldcg(src + 1) : 0.f;
+      v.z = b < B && k + 2 < K ? __ldcg(src + 2) : 0.f;
+      v.w = b < B && k + 3 < K ? __ldcg(src + 3) : 0.f;
+      *reinterpret_cast<float4*>(dst) = v;
+    }
+  }
+}
+
+// k-quad q of a stage: the thread's A rows (ty + RG i, from As) and B rows
+// (b_rows[n] * ldb floats from Bs) as 128-bit loads.
+template <class Tl, int NB>
+__device__ __forceinline__ void quad_load(const float* As, const float* Bs,
+                                          int ldb, const int (&b_rows)[NB],
+                                          int q, float4 (&a)[Tl::TR],
+                                          float4 (&w)[NB]) {
+#pragma unroll
+  for (int i = 0; i < Tl::TR; ++i)
+    a[i] = *reinterpret_cast<const float4*>(As + Tl::RG * i * Tl::P + 4 * q);
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+    w[n] = *reinterpret_cast<const float4*>(Bs + b_rows[n] * ldb + 4 * q);
+}
+
+// The quad's FFMA: each sum takes its four k in ascending order.
+template <class Tl, int NB>
+__device__ __forceinline__ void quad_fma(const float4 (&a)[Tl::TR],
+                                         const float4 (&w)[NB],
+                                         float (&acc)[Tl::TR][NB]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < Tl::TR; ++i)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        acc[i][n] = fmaf(lane(a[i], kk), lane(w[n], kk), acc[i][n]);
+}
+
+// One ring stage's products: acc[i][n] += sum over the stage's KC columns
+// of A's row (ty + RG i) times B's row b_rows[n], one FFMA chain a sum, k
+// ascending.
+template <class Tl, int NB>
+__device__ __forceinline__ void stage_products(const float* As,
+                                               const float* Bs, int ldb,
+                                               const int (&b_rows)[NB],
+                                               float (&acc)[Tl::TR][NB]) {
+  float4 a[Tl::TR], w[NB];
+#pragma unroll
+  for (int q = 0; q < Tl::KC / 4; ++q) {
+    quad_load<Tl, NB>(As, Bs, ldb, b_rows, q, a, w);
+    quad_fma<Tl, NB>(a, w, acc);
+  }
+}
+
+// One direction's recurrence (K1f).
+struct FwdArgs {
+  const float* gx;   // [T, B, 3H]
+  const int* lens;   // [B]
+  const float* uh;   // [H, 3H]
+  const float* bhn;  // [H]
+  float* hseq;       // [T, B, H]
+  float* hT;         // [B, H]
+  int T, B, H, reverse;
+};
+
+template <class Tl, bool V16>
+__global__ void __launch_bounds__(Tl::THREADS, 1)
+    gru_f32_seq_kernel(FwdArgs p) {
+  extern __shared__ __align__(16) float seq_smem[];
+  constexpr int TR = Tl::TR, TU = Tl::TU, RG = Tl::RG, UG = Tl::UG;
+  constexpr int KC = Tl::KC, S = Tl::S, NB = 3 * TU;
+  const int T = p.T, B = p.B, H = p.H;
+  const int HK = fwd_depth<Tl>(H), UP = HK + 4;
+  const long long H3 = 3LL * H, BH = static_cast<long long>(B) * H;
+  float* Us = seq_smem;  // Us[g * 16 + uu][k] = U_h[k, g * H + u0 + uu]
+  float* ring = seq_smem + 3 * UNITS * UP;
+  const int tid = threadIdx.x, ty = tid / UG, tx = tid % UG;
+  const int u0 = blockIdx.x * UNITS;
+
+  // U_h's 48 columns, transposed once, zero past H (units and k).
+  for (int i = tid; i < 3 * UNITS * HK; i += Tl::THREADS) {
+    const int k = i / (3 * UNITS), v = i % (3 * UNITS);
+    const int g = v / UNITS, u = u0 + v % UNITS;
+    Us[v * UP + k] =
+        k < H && u < H ? __ldg(p.uh + k * H3 + g * H + u) : 0.f;
+  }
+  __syncthreads();
+
+  // The thread's B rows: gate g of unit tx + UG e at n = g TU + e.
+  int b_rows[NB];
+  float bh[TU];
+#pragma unroll
+  for (int e = 0; e < TU; ++e) {
+    const int u = u0 + tx + UG * e;
+    bh[e] = u < H ? __ldg(p.bhn + u) : 0.f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) b_rows[g * TU + e] = g * UNITS + tx + UG * e;
+  }
+  const int ntiles = (B + ROWS - 1) / ROWS;
+  const int nchunk = HK / KC;
+  cgrp::grid_group grid = cgrp::this_grid();
+  for (int k = 0; k < T; ++k) {
+    const int t = p.reverse ? T - 1 - k : k;
+    // null at the chain's first step: the zero state, no product.
+    const float* hprev =
+        k == 0 ? nullptr : p.hseq + (p.reverse ? t + 1 : t - 1) * BH;
+    const float* gxt = p.gx + t * 3 * BH;
+    float* ho = p.hseq + t * BH;
+    float* hTo = k == T - 1 ? p.hT : nullptr;
+    for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y) {
+      const int b0 = bt * ROWS;
+      if (hprev != nullptr) {
+#pragma unroll
+        for (int s = 0; s < S - 1; ++s) {
+          if (s < nchunk)
+            stage<Tl, V16>(ring + s * ROWS * Tl::P, hprev, H, b0, B, s * KC,
+                           H);
+          fp32_ring::cp_async_commit();
+        }
+      }
+      // The epilogue's operands, loaded ahead of the products.
+      float x[TR][TU][3], hp[TR][TU];
+      bool live[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int b = b0 + ty + RG * i;
+        live[i] = b < B && t < __ldg(p.lens + b);
+#pragma unroll
+        for (int e = 0; e < TU; ++e) {
+          const int u = u0 + tx + UG * e;
+          const bool ok = b < B && u < H;
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            x[i][e][g] = ok ? __ldg(gxt + b * H3 + g * H + u) : 0.f;
+          hp[i][e] = ok && hprev != nullptr
+                         ? __ldcg(hprev + static_cast<long long>(b) * H + u)
+                         : 0.f;
+        }
+      }
+      float acc[TR][NB];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int n = 0; n < NB; ++n) acc[i][n] = 0.f;
+      if (hprev != nullptr) {
+        for (int c = 0; c < nchunk; ++c) {
+          fp32_ring::cp_async_wait<S - 2>();
+          __syncthreads();
+          const int nx = c + S - 1;
+          if (nx < nchunk)
+            stage<Tl, V16>(ring + (nx % S) * ROWS * Tl::P, hprev, H, b0, B,
+                           nx * KC, H);
+          fp32_ring::cp_async_commit();
+          stage_products<Tl, NB>(
+              ring + (c % S) * ROWS * Tl::P + ty * Tl::P, Us + c * KC, UP,
+              b_rows, acc);
+        }
+        fp32_ring::cp_async_wait<0>();
+        __syncthreads();  // the ring is free for the next b-tile
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int b = b0 + ty + RG * i;
+#pragma unroll
+        for (int e = 0; e < TU; ++e) {
+          const int u = u0 + tx + UG * e;
+          if (b >= B || u >= H) continue;
+          const gru_f32::Gates q = gru_f32::gates(
+              x[i][e][0], x[i][e][1], x[i][e][2], acc[i][e], acc[i][TU + e],
+              acc[i][2 * TU + e], bh[e]);
+          const float h = gru_f32::cell(q, hp[i][e], live[i]);
+          const long long o = static_cast<long long>(b) * H + u;
+          ho[o] = h;
+          if (hTo != nullptr) hTo[o] = h;
+        }
+      }
+    }
+    if (k + 1 < T) grid.sync();
+  }
+}
+
+// The BPTT chain of one direction (K3f).
+struct BwdArgs {
+  const float* gx;    // [T, B, 3H]
+  const float* gh;    // [T - 1, B, 3H]: gh of each step but the first
+  const float* hseq;  // [T, B, H], K1f's
+  const int* lens;    // [B]
+  const float* uh;    // [H, 3H]
+  const float* bhn;   // [H]
+  const float* ghT;   // [B, H]: the cotangent of the final state
+  float* dpart;       // [B, H] scratch
+  float* gq;          // [T, B, 3H]: g_t
+  float* dgx;         // [T, B, 3H]
+  int T, B, H, reverse;
+};
+
+template <class Tl, bool V16>
+__global__ void __launch_bounds__(Tl::THREADS, 1)
+    gru_f32_bptt_kernel(BwdArgs p) {
+  extern __shared__ __align__(16) float seq_smem[];
+  constexpr int TR = Tl::TR, TU = Tl::TU, RG = Tl::RG, UG = Tl::UG;
+  constexpr int KC = Tl::KC, S = Tl::S;
+  const int T = p.T, B = p.B, H = p.H;
+  const int K3 = 3 * H, KD = bwd_depth<Tl>(H), UP = KD + 4;
+  const long long H3 = 3LL * H, BH = static_cast<long long>(B) * H,
+                  BH3 = 3 * BH;
+  float* Ur = seq_smem;  // Ur[jj][c] = U_h[u0 + jj, c]
+  float* ring = seq_smem + UNITS * UP;
+  const int tid = threadIdx.x, ty = tid / UG, tx = tid % UG;
+  const int u0 = blockIdx.x * UNITS;
+
+  // U_h's rows u0 .. u0 + 15 once, zero past 3H and past H.
+  for (int i = tid; i < UNITS * KD; i += Tl::THREADS) {
+    const int jj = i / KD, c = i % KD;
+    Ur[jj * UP + c] =
+        c < K3 && u0 + jj < H ? __ldg(p.uh + (u0 + jj) * H3 + c) : 0.f;
+  }
+  __syncthreads();
+
+  int b_rows[TU];  // the thread's B rows: units tx + UG e
+  float bh[TU];
+#pragma unroll
+  for (int e = 0; e < TU; ++e) {
+    const int u = u0 + tx + UG * e;
+    bh[e] = u < H ? __ldg(p.bhn + u) : 0.f;
+    b_rows[e] = tx + UG * e;
+  }
+  const int ntiles = (B + ROWS - 1) / ROWS;
+  const int nchunk = KD / KC;
+  cgrp::grid_group grid = cgrp::this_grid();
+  for (int k = 0; k < T; ++k) {
+    const int t = p.reverse ? k : T - 1 - k;
+    const bool first = p.reverse ? t == T - 1 : t == 0;  // zero h_prev
+    // g of the step before in the walk: null at the walk's first step,
+    // whose dh is ghT.
+    const float* gprev =
+        k == 0 ? nullptr : p.gq + (p.reverse ? t - 1 : t + 1) * BH3;
+    const float* hprev =
+        first ? nullptr : p.hseq + (p.reverse ? t + 1 : t - 1) * BH;
+    const float* ght =
+        first ? nullptr : p.gh + (p.reverse ? t : t - 1) * BH3;
+    const float* gxt = p.gx + t * BH3;
+    float* dgxt = p.dgx + t * BH3;
+    float* gqt = p.gq + t * BH3;
+    for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y) {
+      const int b0 = bt * ROWS;
+      if (gprev != nullptr) {
+#pragma unroll
+        for (int s = 0; s < S - 1; ++s) {
+          if (s < nchunk)
+            stage<Tl, V16>(ring + s * ROWS * Tl::P, gprev, H3, b0, B, s * KC,
+                           K3);
+          fp32_ring::cp_async_commit();
+        }
+      }
+      // The epilogue's operands, loaded ahead of the products.
+      float x[TR][TU][3], q3[TR][TU][3], hp[TR][TU], d0[TR][TU];
+      bool live[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int b = b0 + ty + RG * i;
+        live[i] = b < B && t < __ldg(p.lens + b);
+#pragma unroll
+        for (int e = 0; e < TU; ++e) {
+          const int u = u0 + tx + UG * e;
+          const bool ok = b < B && u < H;
+          const long long o = static_cast<long long>(b) * H + u;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            x[i][e][g] = ok ? __ldg(gxt + b * H3 + g * H + u) : 0.f;
+            q3[i][e][g] =
+                ok && ght != nullptr ? __ldg(ght + b * H3 + g * H + u) : 0.f;
+          }
+          hp[i][e] = ok && hprev != nullptr ? __ldg(hprev + o) : 0.f;
+          d0[i][e] = !ok ? 0.f
+                     : gprev == nullptr ? __ldg(p.ghT + o)
+                                        : __ldcg(p.dpart + o);
+        }
+      }
+      float acc[TR][TU];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int e = 0; e < TU; ++e) acc[i][e] = 0.f;
+      if (gprev != nullptr) {
+        for (int c = 0; c < nchunk; ++c) {
+          fp32_ring::cp_async_wait<S - 2>();
+          __syncthreads();
+          const int nx = c + S - 1;
+          if (nx < nchunk)
+            stage<Tl, V16>(ring + (nx % S) * ROWS * Tl::P, gprev, H3, b0, B,
+                           nx * KC, K3);
+          fp32_ring::cp_async_commit();
+          stage_products<Tl, TU>(
+              ring + (c % S) * ROWS * Tl::P + ty * Tl::P, Ur + c * KC, UP,
+              b_rows, acc);
+        }
+        fp32_ring::cp_async_wait<0>();
+        __syncthreads();  // the ring is free for the next b-tile
+      }
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        const int b = b0 + ty + RG * i;
+#pragma unroll
+        for (int e = 0; e < TU; ++e) {
+          const int u = u0 + tx + UG * e;
+          if (b >= B || u >= H) continue;
+          // dh = dpart + g_prev U_h^T, rounded as the step form's product
+          // adds its `add`; the walk's first step carries ghT as it is.
+          const float d =
+              gprev != nullptr ? __fadd_rn(d0[i][e], acc[i][e]) : d0[i][e];
+          const gru_f32::Gates q = gru_f32::gates(
+              x[i][e][0], x[i][e][1], x[i][e][2], q3[i][e][0], q3[i][e][1],
+              q3[i][e][2], bh[e]);
+          const gru_f32::Cotangents cot =
+              gru_f32::cell_bwd(q, hp[i][e], d, live[i]);
+          const long long o = static_cast<long long>(b) * H + u;
+          float* dg = dgxt + b * H3;
+          dg[u] = cot.da_r;
+          dg[H + u] = cot.da_z;
+          dg[2 * H + u] = cot.da_n;
+          float* gqb = gqt + b * H3;
+          gqb[u] = cot.da_r;
+          gqb[H + u] = cot.da_z;
+          gqb[2 * H + u] = cot.dgh_n;
+          __stcg(p.dpart + o, cot.dpart);
+        }
+      }
+    }
+    if (k + 1 < T) grid.sync();
+  }
+}
+// gh [M, 3H] = hp [M, H] @ U_h [H, 3H] for the M = (T - 1) B rows of live
+// h_prev (hseq shifted by a step) on fp32_ring.cuh's loop: 128 x 128
+// tiles, A K-major (a state's units are k), each sum an FFMA chain over
+// k = 0 .. H - 1 as the step form's. A grid of at least one row of tiles:
+// at M = 0 (T = 1) it writes nothing.
+template <int WA, int WB>
+__global__ void __launch_bounds__(fp32_ring::THREADS, 2)
+    gru_f32_gh_kernel(rows_f32::GridCells hp, const float* __restrict__ uh,
+                      int M, int H, float* __restrict__ gh, int wa, int wb) {
+  extern __shared__ __align__(16) unsigned char smem_gh[];
+  float acc[8][8] = {};
+  const int m0 = blockIdx.y * fp32_ring::TILE;
+  const int n0 = blockIdx.x * fp32_ring::TILE;
+  const long long N = 3LL * H;
+  fp32_ring::mainloop<float, true, WA, WB>(hp, uh, N, M, 3 * H, m0, n0, 0,
+                                           H, wa, wb, acc, smem_gh);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx * 8 + j;
+      if (m < M && n < N) gh[m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// The persistent kernel's blocks resident per SM at its dynamic shared
+// memory `smem` (0 where that exceeds a block's), granting it that memory,
+// and its grid at batch B and width H: ceil(H / 16) unit tiles x
+// min(ceil(B / 64), resident rows) x 1; 0 x 0 x 0 where a row of unit
+// tiles cannot be resident at once. ops/kernels.py::gru_f32_plan computes
+// the same grid from the same blocks per SM.
+template <class Kernel>
+cudaError_t persist_grid(Kernel* kernel, int threads, size_t smem, int B,
+                         int H, dim3* grid, int* per_sm) {
+  *grid = dim3(0, 0, 0);
+  *per_sm = 0;
+  int dev = 0, optin = 0, sms = 0, coop = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                  dev)) != cudaSuccess)
+    return e;
+  if (!coop) return cudaErrorNotSupported;
+  if (B < 1 || H < 1) return cudaErrorInvalidValue;
+  if (smem > static_cast<size_t>(optin)) return cudaSuccess;
+  if ((e = cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem))) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           per_sm, kernel, threads, smem)) != cudaSuccess)
+    return e;
+  const int jt = (H + UNITS - 1) / UNITS;
+  const int rows = *per_sm * sms / jt;
+  if (rows >= 1) *grid = dim3(jt, std::min((B + ROWS - 1) / ROWS, rows), 1);
+  return cudaSuccess;
+}
+
+// The persistent kernel's launch at (B, H) for the C entries' *_config:
+// grid[3] (0 x 0 x 0 where it cannot be resident), blocks per SM and
+// dynamic shared memory. Returns the queries' CUDA error, clearing it
+// from the runtime.
+template <class Kernel>
+int persist_config(Kernel* kernel, int threads, size_t smem, int B, int H,
+                   int* grid, int* per_sm, long long* smem_bytes) {
+  dim3 g;
+  const cudaError_t e = persist_grid(kernel, threads, smem, B, H, &g, per_sm);
+  if (e != cudaSuccess) cudaGetLastError();
+  grid[0] = static_cast<int>(g.x);
+  grid[1] = static_cast<int>(g.y);
+  grid[2] = static_cast<int>(g.z);
+  *smem_bytes = static_cast<long long>(smem);
+  return static_cast<int>(e);
+}
+
+// One cooperative launch of `kernel` on its grid (persist_grid) with the
+// arguments `a`, counted in *launched; returns the CUDA error, among them
+// cudaErrorCooperativeLaunchTooLarge where the grid cannot be resident,
+// clearing it from the runtime.
+template <class Kernel, class Args>
+int persist_launch(Kernel* kernel, int threads, size_t smem, Args a, int B,
+                   int H, cudaStream_t stream, int* launched) {
+  dim3 grid;
+  int per_sm = 0;
+  cudaError_t e = persist_grid(kernel, threads, smem, B, H, &grid, &per_sm);
+  if (e == cudaSuccess && grid.y == 0) e = cudaErrorCooperativeLaunchTooLarge;
+  if (e == cudaSuccess) {
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    grid, dim3(threads), args, smem, stream);
+    if (e == cudaSuccess) ++*launched;
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return static_cast<int>(e);
+}
+
+}  // namespace gru_seq_f32

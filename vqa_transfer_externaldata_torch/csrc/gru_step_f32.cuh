@@ -1,13 +1,16 @@
-// gru_step_f32.cuh: one timestep of the float32 GRU recurrence, the step of
-// K1f (the forward, csrc/gru_fwd_f32.cu) and of K3f (the BPTT,
-// csrc/gru_bwd_f32.cu, which recomputes the gates), and of K6f and K7f,
-// which take both chains of a bidirectional GRU in each launch
+// gru_step_f32.cuh: the float32 GRU's gate math (gates, cell, cell_bwd),
+// which every float32 GRU kernel runs, and one timestep of the recurrence
+// as a launch of its own: the step form of K1f (the forward,
+// csrc/gru_fwd_f32.cu) and of K3f (the BPTT, csrc/gru_bwd_f32.cu, which
+// recomputes the gates), taken where their persistent kernels
+// (gru_seq_f32.cuh) do not fit, and the step of K6f and K7f, which take
+// both chains of a bidirectional GRU in each launch
 // (csrc/bigru_fwd_f32.cu, csrc/bigru_bwd_f32.cu); and the db_hn sum of K3f
 // and K7f. For Hopper (sm_90a).
 //
-// A block owns BM = 64 batch rows x UNITS = 16 hidden units and computes
-// the three gate columns of each of its units, gh = h_prev @ U_h, on
-// fp32_tile.cuh's tile loop over a regrouped column space: tile column
+// A step block owns BM = 64 batch rows x UNITS = 16 hidden units and
+// computes the three gate columns of each of its units, gh = h_prev @ U_h,
+// on fp32_tile.cuh's tile loop over a regrouped column space: tile column
 // v = 3u + g reads U_h's column g*H + u, so thread tx holds the r, z and n
 // products of unit u0 + tx for its 4 rows in registers, and the gate math
 // runs on them in the epilogue with no trip through memory:
@@ -23,6 +26,8 @@
 //
 // Full-precision expf and tanhf, products and sums rounded apart where the
 // plain version rounds them apart (__fmul_rn / __fadd_rn), no fast math.
+// Every kernel that takes the same hidden products (the same FFMA chain, k
+// ascending from zero) and calls these functions gives the same bits.
 
 #pragma once
 
@@ -58,6 +63,50 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// The gates of one element: gx's (xr, xz, xn), the hidden products (ghr,
+// ghz, ghn: f32 sums of h_prev @ U_h's three columns) and b_hn.
+struct Gates {
+  float r, z, ghn, n;  // ghn: gh_n + b_hn
+};
+
+__device__ __forceinline__ Gates gates(float xr, float xz, float xn,
+                                       float ghr, float ghz, float ghn,
+                                       float bhn) {
+  Gates q;
+  q.r = sigmoid(__fadd_rn(xr, ghr));
+  q.z = sigmoid(__fadd_rn(xz, ghz));
+  q.ghn = __fadd_rn(ghn, bhn);
+  q.n = tanhf(__fadd_rn(xn, __fmul_rn(q.r, q.ghn)));
+  return q;
+}
+
+// The state after the step from h_prev `hp`: h' where `live`, else hp.
+__device__ __forceinline__ float cell(const Gates& q, float hp, bool live) {
+  const float hn = __fadd_rn(__fmul_rn(1.f - q.z, q.n), __fmul_rn(q.z, hp));
+  return live ? hn : hp;
+}
+
+// The step's cotangents from d, the carried cotangent of the state after
+// it: dgx = (da_r, da_z, da_n), g = (da_r, da_z, dgh_n), and dpart, the
+// part of dh_prev that does not go through U_h.
+struct Cotangents {
+  float da_r, da_z, da_n, dgh_n, dpart;
+};
+
+__device__ __forceinline__ Cotangents cell_bwd(const Gates& q, float hp,
+                                               float d, bool live) {
+  const float dnew = live ? d : 0.f;
+  const float dz = __fmul_rn(dnew, hp - q.n);
+  const float dn = __fmul_rn(dnew, 1.f - q.z);
+  Cotangents c;
+  c.da_n = __fmul_rn(dn, 1.f - __fmul_rn(q.n, q.n));
+  c.dgh_n = __fmul_rn(c.da_n, q.r);
+  c.da_r = __fmul_rn(__fmul_rn(__fmul_rn(c.da_n, q.ghn), q.r), 1.f - q.r);
+  c.da_z = __fmul_rn(__fmul_rn(dz, q.z), 1.f - q.z);
+  c.dpart = live ? __fmul_rn(d, q.z) : d;
+  return c;
+}
+
 // One step t over all rows, the block's 64 rows x 16 units at (blockIdx.y,
 // blockIdx.x). gx [B, 3H] is step t's hoisted x@W_x + b, hprev [B, H] the
 // state before it (null at the chain's first step: zeros). Forward (BWD
@@ -89,36 +138,25 @@ __device__ __forceinline__ void step(
     if (b >= B) continue;
     const float* g = gx + b * H3;
     const float hp = hprev != nullptr ? hprev[(long long)b * H + u] : 0.f;
-    const float r = sigmoid(__fadd_rn(g[u], acc[i][0]));
-    const float z = sigmoid(__fadd_rn(g[H + u], acc[i][1]));
-    const float ghn = __fadd_rn(acc[i][2], bhn[u]);
-    const float n = tanhf(__fadd_rn(g[2 * H + u], __fmul_rn(r, ghn)));
+    const Gates q = gates(g[u], g[H + u], g[2 * H + u], acc[i][0], acc[i][1],
+                          acc[i][2], bhn[u]);
     const bool live = t < lens[b];
     const long long o = (long long)b * H + u;
     if (!BWD) {
-      const float hn = __fadd_rn(__fmul_rn(1.f - z, n), __fmul_rn(z, hp));
-      const float h = live ? hn : hp;
+      const float h = cell(q, hp, live);
       hout[o] = h;
       if (hT != nullptr) hT[o] = h;
     } else {
-      const float d = dh[o];
-      const float dnew = live ? d : 0.f;
-      const float dz = __fmul_rn(dnew, hp - n);
-      const float dn = __fmul_rn(dnew, 1.f - z);
-      const float da_n = __fmul_rn(dn, 1.f - __fmul_rn(n, n));
-      const float dgh_n = __fmul_rn(da_n, r);
-      const float da_r =
-          __fmul_rn(__fmul_rn(__fmul_rn(da_n, ghn), r), 1.f - r);
-      const float da_z = __fmul_rn(__fmul_rn(dz, z), 1.f - z);
+      const Cotangents c = cell_bwd(q, hp, dh[o], live);
       float* dg = dgx + b * H3;
-      dg[u] = da_r;
-      dg[H + u] = da_z;
-      dg[2 * H + u] = da_n;
-      float* q = gq + b * H3;
-      q[u] = da_r;
-      q[H + u] = da_z;
-      q[2 * H + u] = dgh_n;
-      dpart[o] = live ? __fmul_rn(d, z) : d;
+      dg[u] = c.da_r;
+      dg[H + u] = c.da_z;
+      dg[2 * H + u] = c.da_n;
+      float* gqb = gq + b * H3;
+      gqb[u] = c.da_r;
+      gqb[H + u] = c.da_z;
+      gqb[2 * H + u] = c.dgh_n;
+      dpart[o] = c.dpart;
     }
   }
 }
@@ -144,7 +182,8 @@ constexpr int SUM_ROWS = 8;  // row strides a unit of the db_hn sum
 
 // dbhn[j] = sum over `rows` rows of gq[:, 2H + j], eight row strides a unit
 // added in a fixed order; blocks of blockIdx.y 1 sum gq1 into dbhn1 (the
-// second chain of K7f; K3f launches one row of blocks).
+// second chain of K7f; K3f launches one row of blocks). A thread keeps
+// AHEAD of its rows' loads in flight and adds them in row order.
 __global__ void __launch_bounds__(32 * SUM_ROWS)
     gru_f32_dbhn_kernel(const float* __restrict__ gq0,
                         float* __restrict__ dbhn0,
@@ -155,9 +194,20 @@ __global__ void __launch_bounds__(32 * SUM_ROWS)
   float* dbhn = blockIdx.y == 1 ? dbhn1 : dbhn0;
   const int j = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.f;
-  if (j < H)
-    for (int r = threadIdx.y; r < rows; r += SUM_ROWS)
-      acc += gq[(long long)r * 3 * H + 2 * H + j];
+  if (j < H) {
+    constexpr int AHEAD = 8;
+    const float* col = gq + 2 * H + j;
+    const long long ld = 3LL * H;
+    int r = threadIdx.y;
+    for (; r + (AHEAD - 1) * SUM_ROWS < rows; r += AHEAD * SUM_ROWS) {
+      float v[AHEAD];
+#pragma unroll
+      for (int a = 0; a < AHEAD; ++a) v[a] = col[(r + a * SUM_ROWS) * ld];
+#pragma unroll
+      for (int a = 0; a < AHEAD; ++a) acc += v[a];
+    }
+    for (; r < rows; r += SUM_ROWS) acc += col[r * ld];
+  }
   part[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.y == 0 && j < H) {

@@ -24,8 +24,13 @@ on U_h's dtype: bf16 takes K1/K3, float16 their float16 instances
 float16 in place of bf16, float32 the float32 kernels
 ``csrc/gru_fwd_f32.cu`` (K1f, :func:`gru_fwd_f32`) and
 ``csrc/gru_bwd_f32.cu`` (K3f, :func:`gru_bwd_f32`), plain FFMA with f32
-sums. ``use_kernels=False`` (the model's ``model.use_pallas`` off) runs
-the plain versions on CUDA too, as the JAX package runs its XLA scan.
+sums: the persistent kernels of ``csrc/gru_seq_f32.cuh`` (K1f one
+cooperative launch for all timesteps, K3f every step's gh up front, then
+one for the chain) where U_h's slices fit in shared memory
+(``kernels.gru_f32_route``), else one launch a step of
+``csrc/gru_step_f32.cuh``, bit-equal. ``use_kernels=False`` (the model's
+``model.use_pallas`` off) runs the plain versions on CUDA too, as the JAX
+package runs its XLA scan.
 The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 
 The 16-bit wrappers take any width, as the Pallas bodies do: H is
@@ -394,8 +399,9 @@ def gru_unpad_bwd(H: int, dgx: torch.Tensor, duh: torch.Tensor,
 
 def _dtype16(what: str, name: str, x: torch.Tensor) -> torch.dtype:
     """The 16-bit dtype of ``x`` for a step-form wrapper: bf16 or float16;
-    float32 (whose kernels K1f/K3f are step kernels at every width) and
-    every other dtype raise ``TypeError``."""
+    float32 (whose kernels K1f/K3f have a step form of their own, in
+    ``csrc/gru_step_f32.cuh``) and every other dtype raise
+    ``TypeError``."""
     if x.dtype not in (torch.bfloat16, torch.float16):
         raise TypeError(f"{what}: {name} must be torch.bfloat16 or "
                         f"torch.float16, got {x.dtype}")
@@ -945,21 +951,97 @@ gru_bwd_wide_f16.launches = 0
 
 
 # The float32 kernels' entries: (pointers, ints) ahead of the stream and
-# the launch count.
-_F32_ARGS = {"gru_fwd_f32": (6, 4), "gru_bwd_f32": (11, 4),
+# the launch count. K1f's and K3f's libraries export their persistent form
+# under their own name and the step form as "<name>_step".
+_F32_ARGS = {"gru_fwd_f32": (6, 4), "gru_fwd_f32_step": (6, 4),
+             "gru_bwd_f32": (12, 8), "gru_bwd_f32_step": (11, 4),
              "bigru_fwd_f32": (9, 3), "bigru_bwd_f32": (15, 3)}
+_F32_FORMS = {"persistent": "", "step": "_step"}
 
 
 @functools.lru_cache(maxsize=None)
 def _f32_lib(name: str) -> ctypes.CDLL:
-    """The library of K1f (``name`` "gru_fwd_f32"), K3f ("gru_bwd_f32"),
-    K6f ("bigru_fwd_f32") or K7f ("bigru_bwd_f32")."""
+    """The library of K1f (``name`` "gru_fwd_f32": entries
+    ``gru_fwd_f32``, the persistent form, ``gru_fwd_f32_step`` and
+    ``gru_fwd_f32_config``), K3f ("gru_bwd_f32", the same three), K6f
+    ("bigru_fwd_f32") or K7f ("bigru_bwd_f32")."""
     lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    pointers, ints = _F32_ARGS[name]
-    getattr(lib, name).argtypes = [p] * pointers + [i] * ints + [p, p]
-    getattr(lib, name).restype = i
+    for entry, (pointers, ints) in _F32_ARGS.items():
+        if entry in (name, name + "_step"):
+            getattr(lib, entry).argtypes = [p] * pointers + [i] * ints + [p, p]
+            getattr(lib, entry).restype = i
+    if name in ("gru_fwd_f32", "gru_bwd_f32"):
+        getattr(lib, name + "_config").argtypes = [i, i, p, p, p]
+        getattr(lib, name + "_config").restype = i
     return lib
+
+
+def _f32_config(name: str, B: int, H: int, device: torch.device) -> dict:
+    """The C side's persistent launch of K1f (``name`` "gru_fwd_f32") or of
+    K3f's chain ("gru_bwd_f32") at (B, H) on CUDA ``device``: its grid
+    ([0, 0, 0] where a row of unit tiles cannot be resident at once or a
+    block's shared memory does not fit), blocks resident per SM (0 where
+    that memory does not fit) and dynamic shared memory in bytes."""
+    lib = _f32_lib(name)
+    grid = (ctypes.c_int * 3)()
+    per_sm, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name + "_config")(
+            B, H, ctypes.addressof(grid), ctypes.addressof(per_sm),
+            ctypes.addressof(smem))
+    kernels.check(lib, rc, name)
+    return {"grid": list(grid), "blocks_per_sm": per_sm.value,
+            "smem_bytes": smem.value}
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_blocks_per_sm(name: str, index: int, H: int) -> int:
+    """K1f's or K3f's chain's persistent blocks resident per SM of card
+    ``index`` at width ``H``."""
+    return _f32_config(name, 1, H,
+                       torch.device("cuda", index))["blocks_per_sm"]
+
+
+def _f32_route(name: str, B: int, H: int, device: torch.device) -> str:
+    """``kernels.gru_f32_route`` for K1f (``name`` "gru_fwd_f32") or K3f
+    ("gru_bwd_f32") at (B, H) on CUDA ``device``, from the occupancy that
+    its own library reports."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return kernels.gru_f32_route(B, H, kernels.sm_count(device),
+                                 _f32_blocks_per_sm(name, index, H),
+                                 name == "gru_bwd_f32")
+
+
+def _f32_launch_config(name: str, B: int, H: int,
+                       device: torch.device) -> dict:
+    """``kernels.gru_f32_plan`` for K1f (``name`` "gru_fwd_f32") or K3f's
+    chain ("gru_bwd_f32") at (B, H) on CUDA ``device``, beside the C
+    side's grid, blocks per SM and shared memory (``c_grid``,
+    ``blocks_per_sm``, ``c_smem_bytes``). Raises where the route takes the
+    step form."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    plan = kernels.gru_f32_plan(B, H, kernels.sm_count(device),
+                                _f32_blocks_per_sm(name, index, H),
+                                name == "gru_bwd_f32")
+    cfg = _f32_config(name, B, H, device)
+    return {**plan, "c_grid": cfg["grid"],
+            "blocks_per_sm": cfg["blocks_per_sm"],
+            "c_smem_bytes": cfg["smem_bytes"]}
+
+
+def _f32_form(name: str, form: Optional[str], B: int, H: int,
+              device: torch.device) -> str:
+    """The entry of ``name``'s library that a call launches: ``form``
+    "persistent" or "step", or None for ``kernels.gru_f32_route``'s
+    choice."""
+    form = form or _f32_route(name, B, H, device)
+    if form not in _F32_FORMS:
+        raise ValueError(f"{name}: form must be 'persistent' or 'step', got "
+                         f"{form!r}")
+    return name + _F32_FORMS[form]
 
 
 def _check_f32(what: str, gx_t: torch.Tensor, lens: torch.Tensor,
@@ -987,25 +1069,40 @@ def gru_fwd_f32(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
     """Launch kernel K1f (``csrc/gru_fwd_f32.cu``) on CUDA tensors, all
     float32: gx_t [T, B, 3H], lens [B] int32, uh [H, 3H], bhn [H] -> (hT
     [B, H], hseq [T, B, H]), :func:`gru_reference`'s recurrence with FFMA
-    products and f32 sums. Any B and H. One launch a step, on the current
-    stream: T launches a call, added to ``gru_fwd_f32.launches``."""
+    products and f32 sums. Any B and H. Where a block's U_h slice and ring
+    fit in shared memory and a row of the ceil(H / 16) unit tiles can be
+    resident at once (``kernels.gru_f32_route``: up to H = 1024 on an
+    H100), one cooperative launch of the persistent kernel of
+    ``csrc/gru_seq_f32.cuh`` for all T steps, on the grid of
+    ``kernels.gru_f32_plan``; elsewhere the step form, one launch a step (T
+    a call). On the current stream, added to ``gru_fwd_f32.launches``. Both
+    forms give the same bits; a launch that fails raises."""
+    return _gru_fwd32(gx_t, lens, uh, bhn, reverse)
+
+
+gru_fwd_f32.launches = 0
+
+
+def _gru_fwd32(gx_t: torch.Tensor, lens: torch.Tensor, uh: torch.Tensor,
+               bhn: torch.Tensor, reverse: bool, form: Optional[str] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1f's checks, route and launch: ``form`` "persistent" or "step", or
+    None for ``kernels.gru_f32_route``'s choice."""
     T, B, H, dev = _check_f32("gru_fwd_f32", gx_t, lens, uh, bhn)
+    entry = _f32_form("gru_fwd_f32", form, B, H, dev)
     hseq = torch.empty(T, B, H, dtype=torch.float32, device=dev)
     hT = torch.empty(B, H, dtype=torch.float32, device=dev)
     lib = _f32_lib("gru_fwd_f32")
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        rc = lib.gru_fwd_f32(gx_t.data_ptr(), lens.data_ptr(), uh.data_ptr(),
-                             bhn.data_ptr(), hseq.data_ptr(), hT.data_ptr(),
-                             T, B, H, int(reverse),
-                             torch.cuda.current_stream(dev).cuda_stream,
-                             ctypes.addressof(launched))
+        rc = getattr(lib, entry)(
+            gx_t.data_ptr(), lens.data_ptr(), uh.data_ptr(), bhn.data_ptr(),
+            hseq.data_ptr(), hT.data_ptr(), T, B, H, int(reverse),
+            torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
     gru_fwd_f32.launches += launched.value
-    kernels.check(lib, rc, "gru_fwd_f32")
+    kernels.check(lib, rc, entry)
     return hT, hseq
-
-
-gru_fwd_f32.launches = 0
 
 
 def gru_bwd_f32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
@@ -1016,17 +1113,33 @@ def gru_bwd_f32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     float32: gx_t [T, B, 3H], hseq [T, B, H] (K1f's residual), lens [B]
     int32, uh [H, 3H], bhn [H], ghT [B, H] -> (dgx_t [T, B, 3H], duh
     [H, 3H], dbhn [H]), :func:`gru_bwd_reference`'s BPTT with FFMA products
-    and f32 sums. Any B and H. Two launches a step (the gates' cotangents,
-    then the carried dh through U_h^T, which the last step skips), then
-    the dU_h product over the (T-1)*B rows and the db_hn sum, on the
-    current stream: 2T + 1 launches a call, added to
-    ``gru_bwd_f32.launches``."""
+    and f32 sums. Any B and H. Where the chain's U_h rows and ring fit in
+    a block's shared memory and a row of its unit tiles can be resident at
+    once (``kernels.gru_f32_route``: up to H = 1013 on an H100), every
+    step's gh in one product, the chain in one cooperative launch
+    (``kernels.gru_f32_plan``), the dU_h product over the (T-1)*B rows and
+    the db_hn sum: 4 launches a call at any T. Elsewhere the step form: two
+    launches a step (the gates' cotangents, then the carried dh through
+    U_h^T, which the last step skips), then dU_h and db_hn, 2T + 1 a call.
+    On the current stream, added to ``gru_bwd_f32.launches``. Both forms
+    give the same bits; a launch that fails raises."""
+    return _gru_bwd32(gx_t, hseq, lens, uh, bhn, ghT, reverse)
+
+
+gru_bwd_f32.launches = 0
+
+
+def _gru_bwd32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
+               uh: torch.Tensor, bhn: torch.Tensor, ghT: torch.Tensor,
+               reverse: bool, form: Optional[str] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3f's checks, route and launches: ``form`` "persistent" or "step",
+    or None for ``kernels.gru_f32_route``'s choice."""
     T, B, H, dev = _check_f32("gru_bwd_f32", gx_t, lens, uh, bhn)
     kernels.expect("hseq", hseq, torch.float32, (T, B, H), dev)
     kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
+    entry = _f32_form("gru_bwd_f32", form, B, H, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    dh = torch.empty(2, B, H, **f32)  # the carried cotangent, ping-pong
-    dh[0].copy_(ghT)
     dpart = torch.empty(B, H, **f32)
     gq = torch.empty(T, B, 3 * H, **f32)
     dgx = torch.empty(T, B, 3 * H, **f32)
@@ -1034,20 +1147,35 @@ def gru_bwd_f32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     dbhn = torch.empty(H, **f32)
     lib = _f32_lib("gru_bwd_f32")
     launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.gru_bwd_f32(gx_t.data_ptr(), hseq.data_ptr(),
-                             lens.data_ptr(), uh.data_ptr(), bhn.data_ptr(),
-                             dh.data_ptr(), dpart.data_ptr(), gq.data_ptr(),
-                             dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(),
-                             T, B, H, int(reverse),
-                             torch.cuda.current_stream(dev).cuda_stream,
-                             ctypes.addressof(launched))
+        if entry == "gru_bwd_f32":
+            # Every step's gh but the chain's first, over the saved states
+            # of live h_prev (hseq shifted by a step; none at T = 1).
+            gh = torch.empty(max(T - 1, 1), B, 3 * H, **f32)
+            hp = hseq.data_ptr() + (B * H * 4 if reverse and T > 1 else 0)
+            plan = kernels.f32_ring_plan(4, True, H * 4, hp, 3 * H * 4,
+                                         uh.data_ptr())
+            rc = lib.gru_bwd_f32(
+                gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
+                uh.data_ptr(), bhn.data_ptr(), ghT.data_ptr(),
+                dpart.data_ptr(), gq.data_ptr(), gh.data_ptr(),
+                dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(), T, B, H,
+                int(reverse), plan["a_width"], plan["b_width"],
+                plan["stages"], plan["smem_bytes"], stream,
+                ctypes.addressof(launched))
+        else:
+            dh = torch.empty(2, B, H, **f32)  # the carried cotangent
+            dh[0].copy_(ghT)
+            rc = lib.gru_bwd_f32_step(
+                gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
+                uh.data_ptr(), bhn.data_ptr(), dh.data_ptr(),
+                dpart.data_ptr(), gq.data_ptr(), dgx.data_ptr(),
+                duh.data_ptr(), dbhn.data_ptr(), T, B, H, int(reverse),
+                stream, ctypes.addressof(launched))
     gru_bwd_f32.launches += launched.value
-    kernels.check(lib, rc, "gru_bwd_f32")
+    kernels.check(lib, rc, entry)
     return dgx, duh, dbhn
-
-
-gru_bwd_f32.launches = 0
 
 
 def gru_bwd_launch_config(B: int, H: int, device: torch.device,

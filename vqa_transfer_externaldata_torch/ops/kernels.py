@@ -419,6 +419,85 @@ def gru_bwd_route(B: int, H: int, sms: int, per_sm: int,
             else "step")
 
 
+# The float32 GRU's persistent kernels (csrc/gru_seq_f32.cuh): K1f's
+# recurrence and K3f's chain, a block of GRU_F32_THREADS owning
+# GRU_F32_UNITS hidden units for the call and walking b-tiles of
+# GRU_F32_ROWS rows; U_h's slice resident in its shared memory beside a
+# ring of stages of the step's streamed operand (forward h_prev, chain g).
+GRU_F32_UNITS = 16  # hidden units a block owns (tail units masked)
+GRU_F32_ROWS = 64  # batch rows of a b-tile (tail rows masked)
+GRU_F32_FWD_CHUNK, GRU_F32_FWD_STAGES = 64, 2  # h_prev columns a stage
+GRU_F32_BWD_CHUNK, GRU_F32_BWD_STAGES = 32, 4  # g columns a stage
+GRU_F32_FWD_THREADS, GRU_F32_BWD_THREADS = 256, 128  # a block
+GRU_F32_BWD_LAUNCHES = 4  # K3f a call: gh, the chain, dU_h, db_hn
+
+
+def gru_f32_smem(H: int, backward: bool = False) -> int:
+    """The dynamic shared memory of a block of the float32 GRU's persistent
+    kernel at width ``H`` (the C side's ``fwd_smem`` / ``bwd_smem``):
+    forward, U_h's 48 columns [48][H' + 4] with H' = H rounded up to a
+    stage; backward (K3f's chain), U_h's 16 rows [16][3H' + 4] with 3H'
+    = 3H rounded up to a stage; then the ring [stages][64][chunk + 4], all
+    f32."""
+    if H < 1:
+        raise ValueError(f"gru_f32_smem needs H >= 1, got H={H}")
+    if backward:
+        cols, depth = GRU_F32_UNITS, round_up(3 * H, GRU_F32_BWD_CHUNK)
+        chunk, stages = GRU_F32_BWD_CHUNK, GRU_F32_BWD_STAGES
+    else:
+        cols, depth = 3 * GRU_F32_UNITS, round_up(H, GRU_F32_FWD_CHUNK)
+        chunk, stages = GRU_F32_FWD_CHUNK, GRU_F32_FWD_STAGES
+    return 4 * (cols * (depth + 4) + stages * GRU_F32_ROWS * (chunk + 4))
+
+
+def gru_f32_route(B: int, H: int, sms: int, per_sm: int,
+                  backward: bool = False) -> str:
+    """The form of K1f (``backward`` False) or K3f at batch ``B`` and any
+    width ``H`` on a card of ``sms`` SMs with ``per_sm`` persistent blocks
+    resident per SM (the occupancy query's; 0 where a block's shared
+    memory does not fit): "persistent" where :func:`gru_f32_plan` plans a
+    launch (the block's U_h slice and ring within ``SMEM_OPTIN``, a row of
+    ceil(H / 16) unit tiles resident at once), else "step", one launch a
+    timestep of ``csrc/gru_step_f32.cuh`` (two for K3f), which takes any
+    shape. A function of the shapes and the occupancy alone."""
+    if B < 1 or H < 1 or sms < 1 or per_sm < 0:
+        raise ValueError(f"gru_f32_route needs B, H, sms >= 1 and per_sm >= "
+                         f"0, got B={B}, H={H}, sms={sms}, per_sm={per_sm}")
+    fits = gru_f32_smem(H, backward) <= SMEM_OPTIN
+    jt = -(-H // GRU_F32_UNITS)
+    return "persistent" if fits and per_sm * sms // jt >= 1 else "step"
+
+
+def gru_f32_plan(B: int, H: int, sms: int, per_sm: int,
+                 backward: bool = False) -> dict:
+    """The persistent launch of K1f (``backward`` False) or of K3f's chain
+    at batch ``B`` and width ``H`` on a card of ``sms`` SMs, ``per_sm`` of
+    its blocks resident per SM: the ``rows`` of a b-tile, the ``b_tiles``,
+    the ``grid`` (ceil(H / 16) unit tiles, rows of blocks, 1), its
+    ``smem_bytes`` and ``threads`` a block and the ``launches`` a call
+    (K1f 1; K3f 4: gh, the chain, dU_h, db_hn). Each unit tile takes as
+    many rows of blocks as are resident beside each other, at most one per
+    b-tile; block (jx, by) walks b-tiles by, by + rows, ... in every
+    step. The grid is
+    cooperative, so it never exceeds sms x per_sm blocks; where
+    :func:`gru_f32_route` takes the step form it raises. The C side
+    (``persist_grid``) derives the same grid from its own occupancy
+    query."""
+    if gru_f32_route(B, H, sms, per_sm, backward) != "persistent":
+        raise ValueError(
+            f"gru_f32_plan: no persistent launch at B={B}, H={H} on {sms} "
+            f"SMs with {per_sm} blocks per SM ({gru_f32_smem(H, backward)} "
+            f"B of shared memory a block, {SMEM_OPTIN} B at most)")
+    jt = -(-H // GRU_F32_UNITS)
+    tiles = -(-B // GRU_F32_ROWS)
+    return {"rows": GRU_F32_ROWS, "b_tiles": tiles,
+            "grid": [jt, min(tiles, per_sm * sms // jt), 1],
+            "smem_bytes": gru_f32_smem(H, backward),
+            "threads": (GRU_F32_BWD_THREADS if backward
+                        else GRU_F32_FWD_THREADS),
+            "launches": GRU_F32_BWD_LAUNCHES if backward else 1}
+
+
 def gru_step_plan(T: int, B: int, H: int, backward: bool,
                   directions: int = 1) -> dict:
     """The launches of the step form (``csrc/gru_wide_step.cuh``) over
