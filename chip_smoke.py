@@ -257,14 +257,21 @@ Run from the repository root. Phases (any failure exits non-zero):
    dW_v also within what units whose recomputed z lies within rounding of
    0 can move them, as K8's), K8f fed the same ds and K2f's r, two calls
    of each bit-equal; K6f ``bigru_fwd_f32`` and K7f ``bigru_bwd_f32`` at
-   the stage-1 shape (B=256, T=26, H=512, lengths 1..26) bit-equal to two
-   K1f / K3f calls and within TOL_F32_REL of their plain versions, two
-   calls bit-equal; each timed with its plain version, its library
+   the stage-1 shape (B=256, T=26, H=512, lengths 1..26) in their
+   persistent forms on ``kernels.gru_f32_plan``'s grid (the C side's too;
+   1 and 4 launches a call, both chains in each; K6f on 128-row b-tiles),
+   bit-equal to two K1f / K3f calls, to their one-launch-a-chain form (2
+   and 5), to K6f on 64-row b-tiles and to their step form (T and 2T +
+   1), within TOL_F32_REL of their plain versions,
+   two calls bit-equal; each timed with its plain version, its library
    yardstick (cuBLAS's f32 GEMM on K2f's score and K8f's dW_v product,
    ``nn.GRU(bidirectional=True)`` in float32 for K6f/K7f) and its bound at
-   the FP32 FFMA peak, K6f/K7f in turns with two K1f/K3f calls, K2f's
-   score and K8f's dz and dW_v launch alone beside torch.matmul f32 in
-   turns, as phase 25's; then
+   the FP32 FFMA peak, K6f/K7f in turns with two K1f/K3f calls, their step
+   forms and the library (library, kernel, pair, step, step, pair,
+   kernel, library; K6f's 64-row tiling twice between its step forms),
+   K7f's four launches (gh, chains, dU_h, db_hn) apart,
+   K2f's score and K8f's dz and dW_v launch alone beside torch.matmul f32
+   in turns, as phase 25's; then
    ``fit_resident`` in float32 on the gathered store
    (``train.resident_fused_attention`` false: K1f, K2f, K3f, K8f) for
    F32_STEPS steps, its first step against the plain path, launch counts,
@@ -275,7 +282,7 @@ Run from the repository root. Phases (any failure exits non-zero):
    TOL_F32_LOGITS, launch counts and p50; and stage-1
    ``vlmap_description`` (bidirectional) in float32 through
    ``fit_resident`` (K6f, K7f) for F32_STEPS steps, its first step against
-   the plain path, launch counts and step times;
+   the plain path, launch counts (the plan's a call) and step times;
 28. float16 (``model.dtype float16``) on the main path: the float16
    kernels K1h ``gru_fwd_f16`` and K3h ``gru_bwd_f16`` (K1's and K3's
    bodies with float16 as their element type) at the training and the
@@ -631,9 +638,9 @@ F32_STEPS, F32_WARMUP = 16, 3
 #     sum of the terms' magnitudes (C u <= 2^-13 at C=2048 for each order),
 #     so a unit whose z lies that close to 0 may take the other side of the
 #     ReLU in one version: K8f's dqh and dW_v also get k8_allowance's room,
-#     entry by entry, as K8's do. K6f and K7f run the step form of K1f and
-#     K3f with both chains in each launch: bit-equal to two K1f / K3f calls
-#     (whose persistent forms equal their step forms bit for bit).
+#     entry by entry, as K8's do. K6f and K7f run K1f's and K3f's
+#     persistent kernels (or their step forms) with both chains in each
+#     launch: bit-equal to two K1f / K3f calls, every form to the others.
 #     F32_ODD_SHAPE (B, N, C, H) lies off every tile of the bf16 kernels.
 #     The float32 Predictor's logits (10 cos + bias, |logit| about 10)
 #     against its plain path: only the order of f32 sums differs, which
@@ -5213,6 +5220,13 @@ K3F_LAUNCH_KERNELS = {"gh": "gru_seq_f32::gru_f32_gh_kernel",
                       "chain": "gru_seq_f32::gru_f32_bptt_kernel",
                       "duh": "fp32_tile::product_kernel",
                       "dbhn": "gru_f32::gru_f32_dbhn_kernel"}
+# The profiler name of K6f's launch and of K7f's four launches
+# (csrc/bigru_{fwd,bwd}_f32.cu), each taking both chains.
+K6F_KERNEL = "gru_seq_f32::gru_f32_seq_kernel"
+K7F_LAUNCH_KERNELS = {"gh": "gru_seq_f32::gru_f32_gh_kernel",
+                      "chain": "gru_seq_f32::gru_f32_bptt_kernel",
+                      "duh": "gru_seq_f32::gru_f32_duh_kernel",
+                      "dbhn": "gru_f32::gru_f32_dbhn_kernel"}
 # The profiler names of the float32 products on fp32_ring.cuh's loop.
 F32_SCORE_KERNEL = "attn_f32_score_ring_kernel"  # K4f's and K2f's score
 F32_DZ_KERNEL = "attn_f32_bwd_dz_ring_kernel"  # K8f's dz launch
@@ -5854,7 +5868,10 @@ def f32_gathered_checks(dev, gen) -> dict:
 def f32_bigru_checks(dev, gen) -> dict:
     """K6f and K7f at the stage-1 shape (B_TRAIN, T, H, lengths 1..T)
     against their plain float32 versions and bit-equal to two K1f / K3f
-    calls, K7f fed K6f's hseqs; two calls of each bit-equal."""
+    calls, K7f fed K6f's hseqs; the route there is the persistent form of
+    each on the plan's grid (the C side's too), with the plan's launches,
+    and every form (the route's, one launch a chain, the step form) gives
+    the same bits; two calls of each bit-equal."""
     import torch
     from vqa_transfer_externaldata_torch.ops import gru
 
@@ -5869,22 +5886,50 @@ def f32_bigru_checks(dev, gen) -> dict:
                          dtype=torch.int32)
     ghTf, ghTb = (torch.randn(B_TRAIN, H, generator=gen, device=dev)
                   for _ in "fb")
+    plans = {n: gru._f32_launch_config(n, B_TRAIN, H, dev)
+             for n in ("bigru_fwd_f32", "bigru_bwd_f32")}
+    for n, plan in plans.items():
+        check(gru._f32_route(n, B_TRAIN, H, dev) == "persistent"
+              and plan["grid"] == plan["c_grid"],
+              f"{n} at the stage-1 shape: route "
+              f"{gru._f32_route(n, B_TRAIN, H, dev)}, plan grid "
+              f"{plan['grid']}, C grid {plan['c_grid']}")
     args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    counts = (gru.bigru_fwd_f32.launches, gru.bigru_bwd_f32.launches)
     got6 = gru.bigru_fwd_f32(*args)
+    hsf, hsb = got6[2], got6[3]
+    bwd_args = (gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
+    got7 = gru.bigru_bwd_f32(*bwd_args)
+    launched = (gru.bigru_fwd_f32.launches - counts[0],
+                gru.bigru_bwd_f32.launches - counts[1])
     want6 = gru.bigru_reference(*args)
     hTf1, hsf1 = gru.gru_fwd_f32(gxf, lens, uhf, bhnf)
     hTb1, hsb1 = gru.gru_fwd_f32(gxb, lens, uhb, bhnb, reverse=True)
     one6 = (hTf1, hTb1, hsf1, hsb1)
-    hsf, hsb = got6[2], got6[3]
-    bwd_args = (gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
-    got7 = gru.bigru_bwd_f32(*bwd_args)
     want7 = gru.bigru_bwd_reference(*bwd_args)
     f3 = gru.gru_bwd_f32(gxf, hsf, lens, uhf, bhnf, ghTf)
     b3 = gru.gru_bwd_f32(gxb, hsb, lens, uhb, bhnb, ghTb, reverse=True)
     one7 = (f3[0], b3[0], f3[1], b3[1], f3[2], b3[2])
     again6 = gru.bigru_fwd_f32(*args)
     again7 = gru.bigru_bwd_f32(*bwd_args)
+    # The other forms on the same inputs, with their launches a call (K6f's
+    # 64-row tiling has no K7f twin: the route's K7f call stands there).
+    forms = {}
+    for form, want in (("per_chain", (2, 5)), ("persistent64", (1, 4)),
+                       ("step", (T, 2 * T + 1))):
+        counts = (gru.bigru_fwd_f32.launches, gru.bigru_bwd_f32.launches)
+        out = (gru.bigru_fwd_f32(*args, form=form),
+               gru.bigru_bwd_f32(*bwd_args, form=None if form ==
+                                 "persistent64" else form))
+        forms[form] = {"out": out, "want_launches": want, "launches": (
+            gru.bigru_fwd_f32.launches - counts[0],
+            gru.bigru_bwd_f32.launches - counts[1])}
     torch.cuda.synchronize()
+    check(launched == (plans["bigru_fwd_f32"]["launches"],
+                       plans["bigru_bwd_f32"]["launches"]),
+          f"K6f/K7f took {launched} launches a call, the plan "
+          f"{plans['bigru_fwd_f32']['launches']} and "
+          f"{plans['bigru_bwd_f32']['launches']}")
     n6, n7 = ("hTf", "hTb", "hseqf", "hseqb"), ("dgxf", "dgxb", "duhf",
                                                  "duhb", "dbhnf", "dbhnb")
     e6 = f32_errors(dict(zip(n6, got6)), dict(zip(n6, want6)),
@@ -5898,13 +5943,36 @@ def f32_bigru_checks(dev, gen) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got6 + got7,
                                                 again6 + again7)),
           "K6f or K7f: two calls differ")
+    diff_forms = {}
+    for form, f in forms.items():
+        check(f["launches"] == f["want_launches"],
+              f"K6f/K7f's {form} form took {f['launches']} launches a call, "
+              f"not {f['want_launches']}")
+        diff_forms[form] = max((a - b).abs().max().item() for a, b in zip(
+            f["out"][0] + f["out"][1], got6 + got7))
+        check(diff_forms[form] == 0.0, f"K6f/K7f's {form} form differs from "
+              f"the route's by {diff_forms[form]}")
     print("K6f: " + ", ".join(f"{k} {v['rel_err']:.3e}" for k, v in
                               e6.items())
           + f"; K7f: " + ", ".join(f"{k} {v['rel_err']:.3e}" for k, v in
                                    e7.items())
-          + f" (limit {TOL_F32_REL}); bit-equal to two K1f / K3f calls")
+          + f" (limit {TOL_F32_REL}); bit-equal to two K1f / K3f calls; "
+          f"grids {plans['bigru_fwd_f32']['grid']} "
+          f"({plans['bigru_fwd_f32']['rows']}-row b-tiles) and "
+          f"{plans['bigru_bwd_f32']['grid']} "
+          f"({plans['bigru_bwd_f32']['rows']}), {launched[0]} and "
+          f"{launched[1]} launches a call; the per-chain "
+          f"({forms['per_chain']['launches']}), K6f's 64-row and step "
+          f"({forms['step']['launches']}) forms bit-equal")
     return {"args": args, "bwd_args": bwd_args, "k6f": e6, "k7f": e7,
             "diff_vs_two_k1f": diff6, "diff_vs_two_k3f": diff7,
+            "diff_vs_other_forms": diff_forms,
+            "launches_a_call": {"persistent": launched, **{
+                f: v["launches"] for f, v in forms.items()}},
+            "plans": {n: {k: p[k] for k in ("grid", "c_grid", "rows",
+                                             "launches", "blocks_per_sm",
+                                             "smem_bytes")}
+                      for n, p in plans.items()},
             "err6": max(v["max_abs_err"] for v in e6.values()),
             "err7": max(v["max_abs_err"] for v in e7.values())}
 
@@ -5989,12 +6057,15 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
     x = torch.randn(T, Bt, D, device=dev, requires_grad=True)
     packed = torch.nn.utils.rnn.pack_padded_sequence(x, lens.cpu(),
                                                      enforce_sorted=False)
-    with torch.inference_mode():
-        lib_fwd = time_cuda(lambda: lib(packed), buf)
     _, h_n = lib(packed)
     wrt, g_n = [x, *lib.parameters()], torch.randn_like(h_n)
-    lib_bwd = time_cuda(
-        lambda: torch.autograd.grad(h_n, wrt, g_n, retain_graph=True), buf)
+
+    def lib_fwd():
+        with torch.inference_mode():
+            lib(packed)
+
+    def lib_bwd():
+        torch.autograd.grad(h_n, wrt, g_n, retain_graph=True)
 
     def two_k1f():
         gru.gru_fwd_f32(gxf, lens, uhf, bhnf)
@@ -6005,20 +6076,43 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
         gru.gru_bwd_f32(gxb, bwd_args[3], lens, uhb, bhnb, bwd_args[10],
                         reverse=True)
 
-    def k6f():
-        gru.bigru_fwd_f32(*k67["args"])
+    def k6f(form=None):
+        return lambda: gru.bigru_fwd_f32(*k67["args"], form=form)
 
-    def k7f():
-        gru.bigru_bwd_f32(*bwd_args)
+    def k7f(form=None):
+        return lambda: gru.bigru_bwd_f32(*bwd_args, form=form)
 
-    # In turns, in one call: the kernel, the pair, the pair, the kernel.
-    turns6 = [time_cuda(fn, buf) for fn in (k6f, two_k1f, two_k1f, k6f)]
-    turns7 = [time_cuda(fn, buf) for fn in (k7f, two_k3f, two_k3f, k7f)]
+    # In turns, in one call: the library, the kernel, the pair, the step
+    # form, the step form, the pair, the kernel, the library; K6f's 64-row
+    # tiling (both chains a launch) in the middle of its turns.
+    turns6 = [time_cuda(fn, buf) for fn in (
+        lib_fwd, k6f(), two_k1f, k6f("step"), k6f("persistent64"),
+        k6f("persistent64"), k6f("step"), two_k1f, k6f(), lib_fwd)]
+    turns7 = [time_cuda(fn, buf) for fn in (
+        lib_bwd, k7f(), two_k3f, k7f("step"), k7f("step"), two_k3f, k7f(),
+        lib_bwd)]
+    # K6f's two tilings on the device alone (its one launch, from a
+    # profile), in turns: 128-row, 64-row, 64-row, 128-row b-tiles.
+    k6_device_ms = [kernel_device_ms(k6f(form), K6F_KERNEL, buf) for form in (
+        None, "persistent64", "persistent64", None)]
+    print("K6f device ms a call on 128-row / 64-row b-tiles, in turns: "
+          + ", ".join(f"{t:.4f}" for t in k6_device_ms))
+    # K7f's four launches apart: device ms a call, from one profile.
+    k7_launch_ms = split_device_ms(k7f(), K7F_LAUNCH_KERNELS, buf)
+    print("K7f launches (ms a call, both chains each): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in k7_launch_ms.items()))
+    lib_fwd_ms, lib_bwd_ms = min(turns6[0], turns6[9]), min(turns7[0],
+                                                            turns7[7])
     times["bigru_fwd_f32"] = {
-        "kernel": min(turns6[0], turns6[3]),
-        "turns_ms": turns6, "two_k1f": min(turns6[1], turns6[2]),
+        "kernel": min(turns6[1], turns6[8]),
+        "turns_ms": turns6, "two_k1f": min(turns6[2], turns6[7]),
+        "step_form": min(turns6[3], turns6[6]),
+        "rows64": min(turns6[4], turns6[5]),
+        "device_ms": {"rows128": min(k6_device_ms[0], k6_device_ms[3]),
+                      "rows64": min(k6_device_ms[1], k6_device_ms[2]),
+                      "turns": k6_device_ms},
         "plain": time_cuda(lambda: gru.bigru_reference(*k67["args"]), buf),
-        "library": lib_fwd,
+        "library": lib_fwd_ms,
         "library_call": f"torch.nn.GRU({D}, {H}, bidirectional=True) in "
                         "float32 (TF32 off) over a packed sequence, input "
                         "projection included",
@@ -6029,10 +6123,12 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
                                 + T * Bt * H * 4 + Bt * H * 4) + Bt * 4,
                            2 * 2 * nc * H * 3 * H)}
     times["bigru_bwd_f32"] = {
-        "kernel": min(turns7[0], turns7[3]),
-        "turns_ms": turns7, "two_k3f": min(turns7[1], turns7[2]),
+        "kernel": min(turns7[1], turns7[6]),
+        "turns_ms": turns7, "two_k3f": min(turns7[2], turns7[5]),
+        "step_form": min(turns7[3], turns7[4]),
+        "launch_ms": k7_launch_ms,
         "plain": time_cuda(lambda: gru.bigru_bwd_reference(*bwd_args), buf),
-        "library": lib_bwd,
+        "library": lib_bwd_ms,
         "library_call": f"backward of torch.nn.GRU({D}, {H}, "
                         "bidirectional=True) in float32 (TF32 off) over a "
                         "packed sequence, input-projection gradients "
@@ -6053,9 +6149,14 @@ def f32_gathered_times(k28: dict, k67: dict, dev) -> dict:
           f"{t8['dz_ms']:.4f} ms ({t8['dz_tflops']:.1f} TFLOP/s), dW_v "
           f"launch {t8['dwv_ms']:.4f} ms ({t8['dwv_tflops']:.1f} TFLOP/s); "
           f"K6f {times['bigru_fwd_f32']['kernel']:.4f} ms vs two K1f "
-          f"{times['bigru_fwd_f32']['two_k1f']:.4f}; K7f "
+          f"{times['bigru_fwd_f32']['two_k1f']:.4f}, its step form "
+          f"{times['bigru_fwd_f32']['step_form']:.4f}, on 64-row b-tiles "
+          f"{times['bigru_fwd_f32']['rows64']:.4f}; K7f "
           f"{times['bigru_bwd_f32']['kernel']:.4f} ms vs two K3f "
-          f"{times['bigru_bwd_f32']['two_k3f']:.4f}")
+          f"{times['bigru_bwd_f32']['two_k3f']:.4f}, its step form "
+          f"{times['bigru_bwd_f32']['step_form']:.4f} (turns: library, "
+          "kernel, pair, step, [K6f: 64-row, 64-row,] step, pair, kernel, "
+          "library)")
     return times
 
 
@@ -6133,6 +6234,7 @@ def phase_float32_gathered(report: dict, dev, gen) -> dict:
     import torch
     from vqa_transfer_externaldata_torch.data.datasets import load_dataset
     from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.ops import gru
     from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
     from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
     from vqa_transfer_externaldata_torch.utils.checkpoint import save_params
@@ -6228,10 +6330,15 @@ def phase_float32_gathered(report: dict, dev, gen) -> dict:
         state = trainer.fit_resident(ds, state)
         torch.cuda.synchronize()
         s1["launches"] = read_counts()
-        # K6f: a launch a timestep for both chains; K7f 2T + 1.
-        check_launches(s1["launches"], {"bigru_fwd_f32": Td * steps,
-                                        "bigru_bwd_f32": (2 * Td + 1) * steps},
-                       f"float32 stage-1 training over {steps} steps")
+        # K6f and K7f: the plan's launches a call at the stage-1 batch and
+        # width (1 and 4: both chains in each launch).
+        per_call = {n: gru._f32_launch_config(
+            n, cfg.train.batch_size, cfg.model.rnn_dim, dev)["launches"]
+            for n in ("bigru_fwd_f32", "bigru_bwd_f32")}
+        check_launches(s1["launches"],
+                       {n: c * steps for n, c in per_call.items()},
+                       f"float32 stage-1 training over {steps} steps "
+                       f"(phrases of {Td} words)")
         s1.update(read_steps(tmp, steps, "float32 stage-1 training",
                              "regions", warmup=F32_WARMUP))
         trainer.close()
@@ -8356,13 +8463,26 @@ def main(argv=None) -> int:
              "float32_stage1", {
                  "tol_rel": TOL_F32_REL, "checks": k67["k6f"],
                  "diff_vs_two_k1f_calls": k67["diff_vs_two_k1f"],
+                 "diff_vs_other_forms": k67["diff_vs_other_forms"],
+                 "launches_a_call": {f: n[0] for f, n in
+                                     k67["launches_a_call"].items()},
+                 "plan": k67["plans"]["bigru_fwd_f32"],
                  "two_k1f_ms": f32gt["bigru_fwd_f32"]["two_k1f"],
+                 "step_form_ms": f32gt["bigru_fwd_f32"]["step_form"],
+                 "rows64_ms": f32gt["bigru_fwd_f32"]["rows64"],
+                 "device_ms": f32gt["bigru_fwd_f32"]["device_ms"],
                  "turns_ms": f32gt["bigru_fwd_f32"]["turns_ms"]}),
             ("bigru_bwd_f32", ref + "gru.py:561", k67["err7"],
              "float32_stage1", {
                  "tol_rel": TOL_F32_REL, "checks": k67["k7f"],
                  "diff_vs_two_k3f_calls": k67["diff_vs_two_k3f"],
+                 "diff_vs_other_forms": k67["diff_vs_other_forms"],
+                 "launches_a_call": {f: n[1] for f, n in
+                                     k67["launches_a_call"].items()},
+                 "plan": k67["plans"]["bigru_bwd_f32"],
                  "two_k3f_ms": f32gt["bigru_bwd_f32"]["two_k3f"],
+                 "step_form_ms": f32gt["bigru_bwd_f32"]["step_form"],
+                 "launch_ms": f32gt["bigru_bwd_f32"]["launch_ms"],
                  "turns_ms": f32gt["bigru_bwd_f32"]["turns_ms"]})):
         t = f32gt[name]
         kernels.append({

@@ -2193,37 +2193,77 @@ def _two_k1f(gxf, gxb, lens, uhf, uhb, bhnf, bhnb):
     return hTf, hTb, hsf, hsb
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 16), (7, 65, 100), (26, 256, 512)])
+# K6f/K7f's shapes: the two first from the 16-bit tests, a width off a unit
+# tile, the stage-1 shape, and the widths at each route boundary on an
+# H100 (K7f's chain persistent up to 1013 units, K6f up to 1024).
+BIGRU_F32_SHAPES = [(1, 1, 16), (7, 65, 100), (26, 256, 512),
+                    (26, 200, 600), (3, 64, 1013), (3, 64, 1014),
+                    (3, 64, 1024), (3, 64, 1025)]
+
+
+@pytest.mark.parametrize("shape", BIGRU_F32_SHAPES)
 def test_bigru_f32_kernels_match_plain_and_two_k1f_k3f(dev, shape):
     """K6f and K7f through the dispatch of bigru_fwd / bigru_bwd on float32
-    U_h: bit-equal to a K1f (K3f) call on each chain's inputs, within
-    TOL_F32 of their plain versions, T and 2T + 1 launches a call, and no
-    bf16 kernel; lengths hold 0 and T."""
+    U_h, in the route's form and then in every other (the persistent
+    kernels with both chains a launch on the plan's b-tiles, K6f's on
+    64-row b-tiles, with one chain a launch, the step form; a width whose
+    route is the step form takes only that): bit-equal to a K1f (K3f) call
+    on each chain's inputs and to every other form, within TOL_F32 of
+    their plain versions, with the plan's launches a call (persistent: K6f
+    1, K7f 4; one chain a launch: 2 and 5; the step form: T and 2T + 1),
+    the C side's grid and shared memory the plan's, and no bf16 kernel;
+    lengths hold 0, 1 and T."""
     T, B, H = shape
     gxf, lens, _, bhnf = _f32_gru_inputs(dev, T, B, H, seed=7)
     gxb, _, _, bhnb = _f32_gru_inputs(dev, T, B, H, seed=8)
+    if B > 2:
+        lens[2] = 1
     g = torch.Generator(device=dev).manual_seed(9)
     uhf = torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
     uhb = torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
+    ghTf = torch.randn(B, H, generator=g, device=dev)
+    ghTb = torch.randn(B, H, generator=g, device=dev)
     args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    routes, want_launches = {}, {}
+    for name, step in (("bigru_fwd_f32", T), ("bigru_bwd_f32", 2 * T + 1)):
+        routes[name] = gru._f32_route(name, B, H, dev)
+        if routes[name] == "persistent":
+            plan = gru._f32_launch_config(name, B, H, dev)
+            assert plan["c_grid"] == plan["grid"], (name, plan)
+            assert plan["c_smem_bytes"] == plan["smem_bytes"]
+            want_launches[name] = {"persistent": plan["launches"],
+                                   "per_chain": 5 if "bwd" in name else 2,
+                                   "persistent64": plan["launches"],
+                                   "step": step}
+            # K6f's 128-row b-tiles where a block would walk two of 64
+            # rows a step: the stage-1 shape, and (200, 600), whose 76
+            # blocks a row leave one row of blocks for 4 b-tiles.
+            assert plan["rows"] == (128 if name == "bigru_fwd_f32" and (
+                B, H) in ((256, 512), (200, 600)) else 64), plan
+        else:
+            want_launches[name] = {f: step for f in (
+                "persistent", "per_chain", "persistent64", "step")}
+    assert routes["bigru_fwd_f32"] == (
+        "persistent" if H <= 1024 else "step")
+    assert routes["bigru_bwd_f32"] == (
+        "persistent" if H <= 1013 else "step")
     c0 = {n: getattr(gru, n).launches for n in (
         "bigru_fwd_f32", "bigru_bwd_f32", "bigru_fwd", "bigru_bwd")}
     got = gru.bigru_fwd(*args)
-    want = gru.bigru_reference(*args)
-    ones = _two_k1f(*args)
-    ghTf = torch.randn(B, H, generator=g, device=dev)
-    ghTb = torch.randn(B, H, generator=g, device=dev)
     hsf, hsb = got[2], got[3]
-    got7 = gru.bigru_bwd(gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb,
-                         ghTf, ghTb)
-    want7 = gru.bigru_bwd_reference(gxf, gxb, hsf, hsb, lens, uhf, uhb,
-                                    bhnf, bhnb, ghTf, ghTb)
+    bwd = (gxf, gxb, hsf, hsb, lens, uhf, uhb, bhnf, bhnb, ghTf, ghTb)
+    got7 = gru.bigru_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert {n: getattr(gru, n).launches - c for n, c in c0.items()} == {
+        "bigru_fwd_f32": want_launches["bigru_fwd_f32"]["persistent"],
+        "bigru_bwd_f32": want_launches["bigru_bwd_f32"]["persistent"],
+        "bigru_fwd": 0, "bigru_bwd": 0}
+    want = gru.bigru_reference(*args)
+    want7 = gru.bigru_bwd_reference(*bwd)
+    ones = _two_k1f(*args)
     one_f = gru.gru_bwd_f32(gxf, hsf, lens, uhf, bhnf, ghTf)
     one_b = gru.gru_bwd_f32(gxb, hsb, lens, uhb, bhnb, ghTb, reverse=True)
     torch.cuda.synchronize()
-    assert {n: getattr(gru, n).launches - c for n, c in c0.items()} == {
-        "bigru_fwd_f32": T, "bigru_bwd_f32": 2 * T + 1, "bigru_fwd": 0,
-        "bigru_bwd": 0}
     for a, b, c in zip(got, want, ones):
         assert _rel(a, b) <= TOL_F32
         assert torch.equal(a, c)
@@ -2233,6 +2273,20 @@ def test_bigru_f32_kernels_match_plain_and_two_k1f_k3f(dev, shape):
         assert torch.isfinite(a).all(), name
         assert _rel(a, b) <= TOL_F32, (name, _rel(a, b))
         assert torch.equal(a, c), name
+    for form in ("persistent", "per_chain", "persistent64", "step"):
+        f6 = form if routes["bigru_fwd_f32"] == "persistent" else "step"
+        f7 = form if routes["bigru_bwd_f32"] == "persistent" else "step"
+        f7 = "persistent" if f7 == "persistent64" else f7
+        c1 = (gru.bigru_fwd_f32.launches, gru.bigru_bwd_f32.launches)
+        other = gru.bigru_fwd_f32(*args, form=f6)
+        other7 = gru.bigru_bwd_f32(*bwd, form=f7)
+        torch.cuda.synchronize()
+        assert (gru.bigru_fwd_f32.launches - c1[0],
+                gru.bigru_bwd_f32.launches - c1[1]) == (
+            want_launches["bigru_fwd_f32"][form],
+            want_launches["bigru_bwd_f32"][form]), form
+        for a, b in zip(other + other7, got + got7):
+            assert torch.equal(a, b), (form, (a - b).abs().max().item())
 
 
 def test_bigru_f32_kernels_are_deterministic(dev):
@@ -2251,11 +2305,47 @@ def test_bigru_f32_kernels_are_deterministic(dev):
         assert torch.equal(x, y)
 
 
+def test_bigru_f32_persistent_forms_capture_in_a_cuda_graph(dev):
+    """K6f's cooperative launch and K7f's four launches are accepted under
+    stream capture (1 and 4 counted at the capture), and the graph's
+    replay on new inputs equals an eager call on them bit for bit."""
+    T, B, H = 26, 256, 512
+    gxf, lens, uhf, bhnf, ghTf = _f32_seq_inputs(dev, T, B, H, seed=4)
+    gxb, _, uhb, bhnb, ghTb = _f32_seq_inputs(dev, T, B, H, seed=6)
+    args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        hs = gru.bigru_fwd_f32(*args)
+        gru.bigru_bwd_f32(gxf, gxb, hs[2], hs[3], lens, uhf, uhb, bhnf,
+                          bhnb, ghTf, ghTb)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    f0, b0 = gru.bigru_fwd_f32.launches, gru.bigru_bwd_f32.launches
+    with torch.cuda.graph(graph):
+        out = gru.bigru_fwd_f32(*args)
+        out7 = gru.bigru_bwd_f32(gxf, gxb, out[2], out[3], lens, uhf, uhb,
+                                 bhnf, bhnb, ghTf, ghTb)
+    assert gru.bigru_fwd_f32.launches == f0 + 1
+    assert gru.bigru_bwd_f32.launches == b0 + kernels.GRU_F32_BWD_LAUNCHES
+    for x, seed in ((gxf, 5), (gxb, 7)):
+        x.copy_(_f32_seq_inputs(dev, T, B, H, seed=seed)[0])
+    lens.copy_(_f32_seq_inputs(dev, T, B, H, seed=5)[1])
+    ghTf.copy_(_f32_seq_inputs(dev, T, B, H, seed=5)[4])
+    graph.replay()
+    want = gru.bigru_fwd_f32(*args)
+    want7 = gru.bigru_bwd_f32(gxf, gxb, want[2], want[3], lens, uhf, uhb,
+                              bhnf, bhnb, ghTf, ghTb)
+    torch.cuda.synchronize()
+    for a, b in zip(out + out7, want + want7):
+        assert torch.equal(a, b)
+
+
 def test_fused_bigru_encoder_float32_goes_through_k6f_k7f(dev):
     """The float32 BiGRU encoder on the card launches K6f forward and K7f
-    backward and no other GRU kernel, and its output and gradients equal
-    the per-direction encoders' (K1f/K3f) on the same weights bit for
-    bit."""
+    backward (1 and 4 launches, both chains in each) and no other GRU
+    kernel, and its output and gradients equal the per-direction
+    encoders' (K1f/K3f) on the same weights bit for bit."""
     g = torch.Generator().manual_seed(9)
     enc = gru.BiGRUEncoder(32, 64, dtype=torch.float32, generator=g).to(dev)
     x = torch.randn(6, 10, 32, generator=g).to(dev)
@@ -2269,7 +2359,8 @@ def test_fused_bigru_encoder_float32_goes_through_k6f_k7f(dev):
     names = ("bigru_fwd_f32", "bigru_bwd_f32", "gru_fwd_f32", "gru_bwd_f32",
              "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
     res = []
-    for fn, want in ((enc, [6, 13, 0, 0, 0, 0, 0, 0]),
+    for fn, want in ((enc, [1, kernels.GRU_F32_BWD_LAUNCHES, 0, 0, 0, 0, 0,
+                            0]),
                      (two_encoders, [0, 0, 2, 2 * kernels.GRU_F32_BWD_LAUNCHES,
                                      0, 0, 0, 0])):
         enc.zero_grad()

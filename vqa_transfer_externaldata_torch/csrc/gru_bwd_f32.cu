@@ -98,9 +98,9 @@ const char* cuda_error_string(int code) {
 // device, as gru_fwd_f32_config reports K1f's.
 int gru_bwd_f32_config(int B, int H, int* grid, int* per_sm,
                        long long* smem_bytes) {
-  return gru_seq_f32::persist_config(bwd_kernel(H), BwdTile::THREADS,
-                                     gru_seq_f32::bwd_smem(H), B, H, grid,
-                                     per_sm, smem_bytes);
+  return gru_seq_f32::persist_config<BwdTile>(
+      bwd_kernel(H), gru_seq_f32::bwd_smem(H), B, H, 1, grid, per_sm,
+      smem_bytes);
 }
 
 // gx [T, B, 3H], hseq [T, B, H] (K1f's), lens [B] i32, uh [H, 3H], bhn
@@ -129,25 +129,16 @@ int gru_bwd_f32(const float* gx, const float* hseq, const int* lens,
                                        (long long)H * 4, uh,
                                        3LL * H * 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = fp32_ring::by_plan(wa, wb, [&](auto fa, auto fb) {
-    auto* kernel = gru_seq_f32::gru_f32_gh_kernel<decltype(fa)::value,
-                                                   decltype(fb)::value>;
-    cudaError_t e = fp32_ring::opt_in(kernel, smem_gh);
-    if (e != cudaSuccess) return e;
-    const int tile = fp32_ring::TILE;
-    const dim3 grid((3 * H + tile - 1) / tile,
-                    std::max(1, (M + tile - 1) / tile));
-    kernel<<<grid, fp32_ring::THREADS, smem_gh, stream>>>(
-        rows_f32::GridCells{hp, 1, H}, uh, M, H, gh, wa, wb);
-    ++*launched;
-    return cudaGetLastError();
-  });
+  const gru_seq_f32::GhChain g{hp, uh, gh};
+  const cudaError_t err = gru_seq_f32::gh_launch(g, g, 1, M, H, wa, wb,
+                                                 smem_gh, stream, launched);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BwdArgs a{gx, gh, hseq, lens, uh, bhn, ghT, dpart, gq, dgx, T, B, H,
-                  reverse};
-  const int rc = gru_seq_f32::persist_launch(
-      bwd_kernel(H), BwdTile::THREADS, gru_seq_f32::bwd_smem(H), a, B, H,
-      stream, launched);
+  const gru_seq_f32::BwdChain c{gx, gh, hseq, uh, bhn, ghT, dpart, gq, dgx,
+                                reverse};
+  const BwdArgs a{{c, c}, lens, T, B, H};
+  const int rc = gru_seq_f32::persist_launch<BwdTile>(
+      bwd_kernel(H), gru_seq_f32::bwd_smem(H), a, B, H, 1, 1, stream,
+      launched);
   if (rc != 0) return rc;
   return static_cast<int>(
       duh_dbhn(hseq, gq, duh, dbhn, T, B, H, reverse, stream, launched));

@@ -61,9 +61,9 @@ const char* cuda_error_string(int code) {
 // dynamic shared memory. Returns the CUDA error of the queries.
 int gru_fwd_f32_config(int B, int H, int* grid, int* per_sm,
                        long long* smem_bytes) {
-  return gru_seq_f32::persist_config(fwd_kernel(H), FwdTile::THREADS,
-                                     gru_seq_f32::fwd_smem(H), B, H, grid,
-                                     per_sm, smem_bytes);
+  return gru_seq_f32::persist_config<FwdTile>(
+      fwd_kernel(H), gru_seq_f32::fwd_smem(H), B, H, 1, grid, per_sm,
+      smem_bytes);
 }
 
 // gx [T, B, 3H] f32, lens [B] i32, uh [H, 3H] f32, bhn [H] f32 -> hseq
@@ -76,10 +76,11 @@ int gru_fwd_f32(const float* gx, const int* lens, const float* uh,
                 const float* bhn, float* hseq, float* hT, int T, int B,
                 int H, int reverse, cudaStream_t stream, int* launched) {
   if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const FwdArgs a{gx, lens, uh, bhn, hseq, hT, T, B, H, reverse};
-  return gru_seq_f32::persist_launch(fwd_kernel(H), FwdTile::THREADS,
-                                     gru_seq_f32::fwd_smem(H), a, B, H,
-                                     stream, launched);
+  const gru_seq_f32::FwdChain c{gx, uh, bhn, hseq, hT, reverse};
+  const FwdArgs a{{c, c}, lens, T, B, H};
+  return gru_seq_f32::persist_launch<FwdTile>(
+      fwd_kernel(H), gru_seq_f32::fwd_smem(H), a, B, H, 1, 1, stream,
+      launched);
 }
 
 // The step form on the same arguments: one launch a step on `stream`; the

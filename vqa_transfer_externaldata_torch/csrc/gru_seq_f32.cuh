@@ -3,10 +3,12 @@
 // and the chain of K3f's BPTT (csrc/gru_bwd_f32.cu, gru_f32_bptt_kernel),
 // each one cooperative launch for all T steps, with one grid barrier a
 // step; and K3f's product of every step's gh ahead of the chain
-// (gru_f32_gh_kernel, on fp32_ring.cuh's tile loop). The gate math is
-// gru_step_f32.cuh's (gates, cell, cell_bwd), which the step form of K1f
-// and K3f (one launch a step, taken where these kernels do not fit) and
-// K6f/K7f run too.
+// (gru_f32_gh_kernel, on fp32_ring.cuh's tile loop). K6f and K7f
+// (csrc/bigru_{fwd,bwd}_f32.cu) run the same kernels on both chains of a
+// bidirectional GRU, the chain on blockIdx.z, and K7f's dU_h of both
+// chains on fp32_ring.cuh's loop (gru_f32_duh_kernel). The gate math is
+// gru_step_f32.cuh's (gates, cell, cell_bwd), which the step form of all
+// four (one launch a step, taken where these kernels do not fit) runs too.
 //
 // Every product is an FFMA chain with an f32 sum, one chain an output, k
 // ascending from zero, as fp32_tile.cuh's loop takes it: the float32 path
@@ -31,11 +33,11 @@
 // Design, after gru_fwd_step.cuh and gru_bwd_step.cuh (the 16-bit K1 and
 // K3):
 //  - A block owns UNITS = 16 hidden units (unit tile jx) for the whole
-//    call and walks ROWS = 64-row b-tiles by, by + gridDim.y, ... in every
-//    step. It keeps its slice of U_h in shared memory for the call, loaded
-//    once: forward, the 48 columns {u0, H+u0, 2H+u0} + 0..15 transposed to
-//    [48][H + pad] (96 KB at H = 512); the chain, U_h's rows u0 .. u0+15
-//    as they lie, [16][3H + pad] (96 KB).
+//    call and walks b-tiles of ROWS = 64 rows (FwdPairTile: 128) by, by +
+//    gridDim.y, ... in every step. It keeps its slice of U_h in shared
+//    memory for the call, loaded once: forward, the 48 columns {u0, H+u0,
+//    2H+u0} + 0..15 transposed to [48][H + pad] (96 KB at H = 512); the
+//    chain, U_h's rows u0 .. u0+15 as they lie, [16][3H + pad] (96 KB).
 //  - The step's other operand, rows of the state that every block wrote
 //    before the barrier (forward h_prev = hseq[t -/+ 1], chain g_{t +/- 1}),
 //    streams through a ring of cp.async.cg copies (L2 only), KC columns a
@@ -60,14 +62,17 @@
 //
 // The launch (ops/kernels.py::gru_f32_plan): H / 16 unit tiles (rounded
 // up) x as many rows of blocks as there are b-tiles, but no more than are
-// resident beside each other (the occupancy query's blocks per SM), one
-// block an SM at H = 512; persist_grid derives the same grid. Where a
-// block's slice and ring exceed its shared memory (past H = 1024 forward
-// and H = 1013 for the chain on an H100) or a row of unit tiles cannot be
-// resident at once, ops/kernels.py::gru_f32_route sends the wrappers to
-// the step form. Tail units and tail rows are masked, never returned
-// from: every block reaches every grid barrier. No atomics: two calls
-// give the same bits.
+// resident beside each other (the occupancy query's blocks per SM), x the
+// chains a launch (z: 1, or 2 for both chains of K6f/K7f), one block an SM
+// at H = 512; persist_grid derives the same grid. Where a row of both
+// chains' unit tiles cannot be resident at once but one chain's can, K6f
+// and K7f take one launch a chain (z 1). Where a block's slice and ring
+// exceed its shared memory (past H = 1024 forward and H = 1013 for the
+// chain on an H100) or a row of one chain's unit tiles cannot be resident
+// at once, ops/kernels.py::gru_f32_route sends the wrappers to the step
+// form. Tail units and tail rows are masked, never returned from: every
+// block reaches every grid barrier. No atomics: two calls give the same
+// bits.
 
 #pragma once
 
@@ -86,12 +91,13 @@ namespace cgrp = cooperative_groups;
 constexpr int UNITS = 16;  // hidden units a block owns
 constexpr int ROWS = 64;   // batch rows of a b-tile
 
-// A block's tiling: TR rows x TU units of sums a thread (rows ty + RG i,
-// units tx + UG e of the block's), KC columns a ring stage, S stages.
-template <int TR_, int TU_, int KC_, int S_>
+// A block's tiling: b-tiles of BR rows (ROWS, or two b-tiles' 128), TR rows
+// x TU units of sums a thread (rows ty + RG i, units tx + UG e of the
+// block's), KC columns a ring stage, S stages.
+template <int TR_, int TU_, int KC_, int S_, int BR_ = ROWS>
 struct Tile {
-  static constexpr int TR = TR_, TU = TU_, KC = KC_, S = S_;
-  static constexpr int RG = ROWS / TR;    // row groups
+  static constexpr int TR = TR_, TU = TU_, KC = KC_, S = S_, BR = BR_;
+  static constexpr int RG = BR / TR;      // row groups
   static constexpr int UG = UNITS / TU;   // unit lanes
   static constexpr int THREADS = RG * UG;
   static constexpr int P = KC + 4;        // floats a ring row
@@ -99,9 +105,15 @@ struct Tile {
 // K1f: 256 threads, 12 sums each (4 rows x one unit's 3 gates), 2 stages
 // of 64 columns; K3f's chain: 128 threads, 8 sums each (4 rows x 2
 // units), 4 stages of 32 columns. PERF.md (PR 28) has the tilings timed
-// against them.
+// against them. K6f, where a block would walk two 64-row b-tiles a step
+// (ops/kernels.py::gru_f32_plan), takes them as one of 128 rows: 256
+// threads of 8 rows x one unit's 3 gates, (8 + 3) / 24 = 0.46 shared
+// floats an FFMA against FwdTile's 0.58, the same sums in the same order.
+// The chain's 128-row tiling (8 x 2 sums) spilled at 255 registers and
+// lost (PERF.md).
 using FwdTile = Tile<4, 1, 64, 2>;
 using BwdTile = Tile<4, 2, 32, 4>;
+using FwdPairTile = Tile<8, 1, 64, 2, 128>;
 
 __host__ __device__ constexpr int round_up(int n, int m) {
   return (n + m - 1) / m * m;
@@ -118,15 +130,15 @@ __host__ __device__ constexpr int bwd_depth(int H) {
 }
 template <class Tl>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return static_cast<size_t>(Tl::S) * ROWS * Tl::P * 4;
+  return static_cast<size_t>(Tl::S) * Tl::BR * Tl::P * 4;
 }
-// Us [48][fwd_depth + 4] | ring [S][64][KC + 4], all f32.
+// Us [48][fwd_depth + 4] | ring [S][BR][KC + 4], all f32.
 template <class Tl = FwdTile>
 __host__ __device__ constexpr size_t fwd_smem(int H) {
   return static_cast<size_t>(3 * UNITS) * (fwd_depth<Tl>(H) + 4) * 4 +
          ring_bytes<Tl>();
 }
-// Ur [16][bwd_depth + 4] | ring [S][64][KC + 4], all f32.
+// Ur [16][bwd_depth + 4] | ring [S][BR][KC + 4], all f32.
 template <class Tl = BwdTile>
 __host__ __device__ constexpr size_t bwd_smem(int H) {
   return static_cast<size_t>(UNITS) * (bwd_depth<Tl>(H) + 4) * 4 +
@@ -137,8 +149,8 @@ __device__ __forceinline__ float lane(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// Columns kc .. kc + KC - 1 of rows b0 .. b0 + 63 of X [B, ld] f32 into a
-// ring stage [ROWS][KC + 4], zero at b >= B or k >= K. V16: 16-byte
+// Columns kc .. kc + KC - 1 of rows b0 .. b0 + BR - 1 of X [B, ld] f32 into a
+// ring stage [BR][KC + 4], zero at b >= B or k >= K. V16: 16-byte
 // cp.async.cg copies (L2 only: other blocks wrote X before the last grid
 // barrier), in the thread's current commit group. Else floats loaded
 // through L2 (ld.global.cg) and stored synchronously.
@@ -146,9 +158,9 @@ template <class Tl, bool V16>
 __device__ __forceinline__ void stage(float* st, const float* X, long long ld,
                                       int b0, int B, int kc, int K) {
   constexpr int Q = Tl::KC / 4;
-  static_assert(ROWS * Q % Tl::THREADS == 0, "whole copies a thread");
+  static_assert(Tl::BR * Q % Tl::THREADS == 0, "whole copies a thread");
 #pragma unroll
-  for (int i0 = 0; i0 < ROWS * Q; i0 += Tl::THREADS) {
+  for (int i0 = 0; i0 < Tl::BR * Q; i0 += Tl::THREADS) {
     const int i = i0 + threadIdx.x;
     const int r = i / Q, q = (i % Q) * 4;
     const int b = b0 + r, k = kc + q;
@@ -213,24 +225,33 @@ __device__ __forceinline__ void stage_products(const float* As,
   }
 }
 
-// One direction's recurrence (K1f).
-struct FwdArgs {
+// One chain's operands of the recurrence.
+struct FwdChain {
   const float* gx;   // [T, B, 3H]
-  const int* lens;   // [B]
   const float* uh;   // [H, 3H]
   const float* bhn;  // [H]
   float* hseq;       // [T, B, H]
   float* hT;         // [B, H]
-  int T, B, H, reverse;
+  int reverse;
+};
+
+// The recurrence of one chain (K1f: grid z 1, c[0]) or of both chains of
+// a bidirectional GRU (K6f: block (jx, by, z) takes chain c[z]), under
+// one set of lengths.
+struct FwdArgs {
+  FwdChain c[2];
+  const int* lens;  // [B]
+  int T, B, H;
 };
 
 template <class Tl, bool V16>
 __global__ void __launch_bounds__(Tl::THREADS, 1)
-    gru_f32_seq_kernel(FwdArgs p) {
+    gru_f32_seq_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float seq_smem[];
   constexpr int TR = Tl::TR, TU = Tl::TU, RG = Tl::RG, UG = Tl::UG;
   constexpr int KC = Tl::KC, S = Tl::S, NB = 3 * TU;
-  const int T = p.T, B = p.B, H = p.H;
+  const FwdChain p = blockIdx.z == 0 ? a.c[0] : a.c[1];
+  const int T = a.T, B = a.B, H = a.H;
   const int HK = fwd_depth<Tl>(H), UP = HK + 4;
   const long long H3 = 3LL * H, BH = static_cast<long long>(B) * H;
   float* Us = seq_smem;  // Us[g * 16 + uu][k] = U_h[k, g * H + u0 + uu]
@@ -257,7 +278,7 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
 #pragma unroll
     for (int g = 0; g < 3; ++g) b_rows[g * TU + e] = g * UNITS + tx + UG * e;
   }
-  const int ntiles = (B + ROWS - 1) / ROWS;
+  const int ntiles = (B + Tl::BR - 1) / Tl::BR;
   const int nchunk = HK / KC;
   cgrp::grid_group grid = cgrp::this_grid();
   for (int k = 0; k < T; ++k) {
@@ -269,12 +290,12 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
     float* ho = p.hseq + t * BH;
     float* hTo = k == T - 1 ? p.hT : nullptr;
     for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y) {
-      const int b0 = bt * ROWS;
+      const int b0 = bt * Tl::BR;
       if (hprev != nullptr) {
 #pragma unroll
         for (int s = 0; s < S - 1; ++s) {
           if (s < nchunk)
-            stage<Tl, V16>(ring + s * ROWS * Tl::P, hprev, H, b0, B, s * KC,
+            stage<Tl, V16>(ring + s * Tl::BR * Tl::P, hprev, H, b0, B, s * KC,
                            H);
           fp32_ring::cp_async_commit();
         }
@@ -285,7 +306,7 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
 #pragma unroll
       for (int i = 0; i < TR; ++i) {
         const int b = b0 + ty + RG * i;
-        live[i] = b < B && t < __ldg(p.lens + b);
+        live[i] = b < B && t < __ldg(a.lens + b);
 #pragma unroll
         for (int e = 0; e < TU; ++e) {
           const int u = u0 + tx + UG * e;
@@ -309,11 +330,11 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
           __syncthreads();
           const int nx = c + S - 1;
           if (nx < nchunk)
-            stage<Tl, V16>(ring + (nx % S) * ROWS * Tl::P, hprev, H, b0, B,
+            stage<Tl, V16>(ring + (nx % S) * Tl::BR * Tl::P, hprev, H, b0, B,
                            nx * KC, H);
           fp32_ring::cp_async_commit();
           stage_products<Tl, NB>(
-              ring + (c % S) * ROWS * Tl::P + ty * Tl::P, Us + c * KC, UP,
+              ring + (c % S) * Tl::BR * Tl::P + ty * Tl::P, Us + c * KC, UP,
               b_rows, acc);
         }
         fp32_ring::cp_async_wait<0>();
@@ -340,28 +361,36 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
   }
 }
 
-// The BPTT chain of one direction (K3f).
-struct BwdArgs {
+// One chain's operands of the BPTT.
+struct BwdChain {
   const float* gx;    // [T, B, 3H]
   const float* gh;    // [T - 1, B, 3H]: gh of each step but the first
   const float* hseq;  // [T, B, H], K1f's
-  const int* lens;    // [B]
   const float* uh;    // [H, 3H]
   const float* bhn;   // [H]
   const float* ghT;   // [B, H]: the cotangent of the final state
   float* dpart;       // [B, H] scratch
   float* gq;          // [T, B, 3H]: g_t
   float* dgx;         // [T, B, 3H]
-  int T, B, H, reverse;
+  int reverse;
+};
+
+// The BPTT chain of one direction (K3f: grid z 1, c[0]) or of both (K7f:
+// block (jx, by, z) takes chain c[z]), under one set of lengths.
+struct BwdArgs {
+  BwdChain c[2];
+  const int* lens;  // [B]
+  int T, B, H;
 };
 
 template <class Tl, bool V16>
 __global__ void __launch_bounds__(Tl::THREADS, 1)
-    gru_f32_bptt_kernel(BwdArgs p) {
+    gru_f32_bptt_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float seq_smem[];
   constexpr int TR = Tl::TR, TU = Tl::TU, RG = Tl::RG, UG = Tl::UG;
   constexpr int KC = Tl::KC, S = Tl::S;
-  const int T = p.T, B = p.B, H = p.H;
+  const BwdChain p = blockIdx.z == 0 ? a.c[0] : a.c[1];
+  const int T = a.T, B = a.B, H = a.H;
   const int K3 = 3 * H, KD = bwd_depth<Tl>(H), UP = KD + 4;
   const long long H3 = 3LL * H, BH = static_cast<long long>(B) * H,
                   BH3 = 3 * BH;
@@ -386,7 +415,7 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
     bh[e] = u < H ? __ldg(p.bhn + u) : 0.f;
     b_rows[e] = tx + UG * e;
   }
-  const int ntiles = (B + ROWS - 1) / ROWS;
+  const int ntiles = (B + Tl::BR - 1) / Tl::BR;
   const int nchunk = KD / KC;
   cgrp::grid_group grid = cgrp::this_grid();
   for (int k = 0; k < T; ++k) {
@@ -404,12 +433,12 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
     float* dgxt = p.dgx + t * BH3;
     float* gqt = p.gq + t * BH3;
     for (int bt = blockIdx.y; bt < ntiles; bt += gridDim.y) {
-      const int b0 = bt * ROWS;
+      const int b0 = bt * Tl::BR;
       if (gprev != nullptr) {
 #pragma unroll
         for (int s = 0; s < S - 1; ++s) {
           if (s < nchunk)
-            stage<Tl, V16>(ring + s * ROWS * Tl::P, gprev, H3, b0, B, s * KC,
+            stage<Tl, V16>(ring + s * Tl::BR * Tl::P, gprev, H3, b0, B, s * KC,
                            K3);
           fp32_ring::cp_async_commit();
         }
@@ -420,7 +449,7 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
 #pragma unroll
       for (int i = 0; i < TR; ++i) {
         const int b = b0 + ty + RG * i;
-        live[i] = b < B && t < __ldg(p.lens + b);
+        live[i] = b < B && t < __ldg(a.lens + b);
 #pragma unroll
         for (int e = 0; e < TU; ++e) {
           const int u = u0 + tx + UG * e;
@@ -449,11 +478,11 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
           __syncthreads();
           const int nx = c + S - 1;
           if (nx < nchunk)
-            stage<Tl, V16>(ring + (nx % S) * ROWS * Tl::P, gprev, H3, b0, B,
+            stage<Tl, V16>(ring + (nx % S) * Tl::BR * Tl::P, gprev, H3, b0, B,
                            nx * KC, K3);
           fp32_ring::cp_async_commit();
           stage_products<Tl, TU>(
-              ring + (c % S) * ROWS * Tl::P + ty * Tl::P, Ur + c * KC, UP,
+              ring + (c % S) * Tl::BR * Tl::P + ty * Tl::P, Ur + c * KC, UP,
               b_rows, acc);
         }
         fp32_ring::cp_async_wait<0>();
@@ -491,22 +520,31 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
     if (k + 1 < T) grid.sync();
   }
 }
-// gh [M, 3H] = hp [M, H] @ U_h [H, 3H] for the M = (T - 1) B rows of live
-// h_prev (hseq shifted by a step) on fp32_ring.cuh's loop: 128 x 128
-// tiles, A K-major (a state's units are k), each sum an FFMA chain over
-// k = 0 .. H - 1 as the step form's. A grid of at least one row of tiles:
-// at M = 0 (T = 1) it writes nothing.
+// One chain's gh product: gh [M, 3H] = hp [M, H] @ U_h [H, 3H] over the M
+// = (T - 1) B saved states of live h_prev (hseq shifted by a step).
+struct GhChain {
+  const float* hp;  // [M, H]
+  const float* uh;  // [H, 3H]
+  float* gh;        // [M, 3H]
+};
+
+// gh of one chain (K3f: grid z 1) or of both (K7f: blockIdx.z picks c0 or
+// c1) on fp32_ring.cuh's loop: 128 x 128 tiles, A K-major (a state's
+// units are k), each sum an FFMA chain over k = 0 .. H - 1 as the step
+// form's. A grid of at least one row of tiles: at M = 0 (T = 1) it writes
+// nothing.
 template <int WA, int WB>
 __global__ void __launch_bounds__(fp32_ring::THREADS, 2)
-    gru_f32_gh_kernel(rows_f32::GridCells hp, const float* __restrict__ uh,
-                      int M, int H, float* __restrict__ gh, int wa, int wb) {
+    gru_f32_gh_kernel(GhChain c0, GhChain c1, int M, int H, int wa, int wb) {
   extern __shared__ __align__(16) unsigned char smem_gh[];
+  const GhChain c = blockIdx.z == 0 ? c0 : c1;
   float acc[8][8] = {};
   const int m0 = blockIdx.y * fp32_ring::TILE;
   const int n0 = blockIdx.x * fp32_ring::TILE;
   const long long N = 3LL * H;
-  fp32_ring::mainloop<float, true, WA, WB>(hp, uh, N, M, 3 * H, m0, n0, 0,
-                                           H, wa, wb, acc, smem_gh);
+  fp32_ring::mainloop<float, true, WA, WB>(rows_f32::GridCells{c.hp, 1, H},
+                                           c.uh, N, M, 3 * H, m0, n0, 0, H,
+                                           wa, wb, acc, smem_gh);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -514,20 +552,80 @@ __global__ void __launch_bounds__(fp32_ring::THREADS, 2)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tx * 8 + j;
-      if (m < M && n < N) gh[m * N + n] = acc[i][j];
+      if (m < M && n < N) c.gh[m * N + n] = acc[i][j];
+    }
+  }
+}
+
+// The gh launch of `chains` chains (1: c0; 2: c0 and c1 on blockIdx.z) on
+// a ring plan that fp32_ring::plan_ok<float, true> has passed for each
+// chain's hp and U_h; adds one to *launched.
+inline cudaError_t gh_launch(GhChain c0, GhChain c1, int chains, int M,
+                             int H, int wa, int wb, int smem,
+                             cudaStream_t stream, int* launched) {
+  return fp32_ring::by_plan(wa, wb, [&](auto fa, auto fb) {
+    auto* kernel =
+        gru_f32_gh_kernel<decltype(fa)::value, decltype(fb)::value>;
+    cudaError_t e = fp32_ring::opt_in(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const int tile = fp32_ring::TILE;
+    const dim3 grid((3 * H + tile - 1) / tile,
+                    std::max(1, (M + tile - 1) / tile), chains);
+    kernel<<<grid, fp32_ring::THREADS, smem, stream>>>(c0, c1, M, H, wa, wb);
+    ++*launched;
+    return cudaGetLastError();
+  });
+}
+
+// One chain's dU_h: duh [H, 3H] = hp^T g over the K = (T - 1) B rows of
+// live h_prev, hp [K, H] and g [K, 3H] (gq shifted by a step).
+struct DuhChain {
+  const float* hp;  // [K, H]
+  const float* g;   // [K, 3H]
+  float* duh;       // [H, 3H]
+};
+
+// dU_h of both chains of K7f (blockIdx.z picks c0 or c1) on
+// fp32_ring.cuh's loop: 128 x 128 tiles of [H, 3H], A MN-major (the rows
+// of hp are k), each sum one FFMA chain over k = 0 .. K - 1 from zero, as
+// K3f's fp32_tile.cuh product takes it, so each chain's dU_h equals K3f's
+// bit for bit. At K = 0 (T = 1) it writes zeros.
+template <int WA, int WB>
+__global__ void __launch_bounds__(fp32_ring::THREADS, 2)
+    gru_f32_duh_kernel(DuhChain c0, DuhChain c1, int K, int H, int wa,
+                       int wb) {
+  extern __shared__ __align__(16) unsigned char smem_duh[];
+  const DuhChain c = blockIdx.z == 0 ? c0 : c1;
+  float acc[8][8] = {};
+  const int m0 = blockIdx.y * fp32_ring::TILE;
+  const int n0 = blockIdx.x * fp32_ring::TILE;
+  const long long N = 3LL * H;
+  fp32_ring::mainloop<float, false, WA, WB>(rows_f32::GridCells{c.hp, 1, H},
+                                            c.g, N, H, 3 * H, m0, n0, 0, K,
+                                            wa, wb, acc, smem_duh);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 8 + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tx * 8 + j;
+      if (m < H && n < N) c.duh[m * N + n] = acc[i][j];
     }
   }
 }
 
 // The persistent kernel's blocks resident per SM at its dynamic shared
 // memory `smem` (0 where that exceeds a block's), granting it that memory,
-// and its grid at batch B and width H: ceil(H / 16) unit tiles x
-// min(ceil(B / 64), resident rows) x 1; 0 x 0 x 0 where a row of unit
-// tiles cannot be resident at once. ops/kernels.py::gru_f32_plan computes
-// the same grid from the same blocks per SM.
-template <class Kernel>
-cudaError_t persist_grid(Kernel* kernel, int threads, size_t smem, int B,
-                         int H, dim3* grid, int* per_sm) {
+// and its grid at batch B and width H for `chains` chains (1 or 2):
+// ceil(H / 16) unit tiles x min(ceil(B / 64), resident rows) x z, z =
+// chains where a row of every chain's unit tiles is resident at once,
+// else 1 (one launch a chain) where one chain's is; 0 x 0 x 0 where not
+// even that. ops/kernels.py::gru_f32_plan computes the same grid from the
+// same blocks per SM.
+template <class Tl, class Kernel>
+cudaError_t persist_grid(Kernel* kernel, size_t smem, int B, int H,
+                         int chains, dim3* grid, int* per_sm) {
   *grid = dim3(0, 0, 0);
   *per_sm = 0;
   int dev = 0, optin = 0, sms = 0, coop = 0;
@@ -544,30 +642,37 @@ cudaError_t persist_grid(Kernel* kernel, int threads, size_t smem, int B,
                                   dev)) != cudaSuccess)
     return e;
   if (!coop) return cudaErrorNotSupported;
-  if (B < 1 || H < 1) return cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || chains < 1 || chains > 2)
+    return cudaErrorInvalidValue;
   if (smem > static_cast<size_t>(optin)) return cudaSuccess;
   if ((e = cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(smem))) != cudaSuccess)
     return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           per_sm, kernel, threads, smem)) != cudaSuccess)
+           per_sm, kernel, Tl::THREADS, smem)) != cudaSuccess)
     return e;
   const int jt = (H + UNITS - 1) / UNITS;
-  const int rows = *per_sm * sms / jt;
-  if (rows >= 1) *grid = dim3(jt, std::min((B + ROWS - 1) / ROWS, rows), 1);
+  for (int z = chains; z >= 1; --z) {
+    const int rows = *per_sm * sms / (z * jt);
+    if (rows >= 1) {
+      *grid = dim3(jt, std::min((B + Tl::BR - 1) / Tl::BR, rows), z);
+      break;
+    }
+  }
   return cudaSuccess;
 }
 
-// The persistent kernel's launch at (B, H) for the C entries' *_config:
-// grid[3] (0 x 0 x 0 where it cannot be resident), blocks per SM and
-// dynamic shared memory. Returns the queries' CUDA error, clearing it
-// from the runtime.
-template <class Kernel>
-int persist_config(Kernel* kernel, int threads, size_t smem, int B, int H,
+// The persistent kernel's launch at (B, H) for `chains` chains, for the C
+// entries' *_config: grid[3] (0 x 0 x 0 where it cannot be resident),
+// blocks per SM and dynamic shared memory. Returns the queries' CUDA
+// error, clearing it from the runtime.
+template <class Tl, class Kernel>
+int persist_config(Kernel* kernel, size_t smem, int B, int H, int chains,
                    int* grid, int* per_sm, long long* smem_bytes) {
   dim3 g;
-  const cudaError_t e = persist_grid(kernel, threads, smem, B, H, &g, per_sm);
+  const cudaError_t e =
+      persist_grid<Tl>(kernel, smem, B, H, chains, &g, per_sm);
   if (e != cudaSuccess) cudaGetLastError();
   grid[0] = static_cast<int>(g.x);
   grid[1] = static_cast<int>(g.y);
@@ -576,21 +681,32 @@ int persist_config(Kernel* kernel, int threads, size_t smem, int B, int H,
   return static_cast<int>(e);
 }
 
-// One cooperative launch of `kernel` on its grid (persist_grid) with the
-// arguments `a`, counted in *launched; returns the CUDA error, among them
-// cudaErrorCooperativeLaunchTooLarge where the grid cannot be resident,
-// clearing it from the runtime.
-template <class Kernel, class Args>
-int persist_launch(Kernel* kernel, int threads, size_t smem, Args a, int B,
-                   int H, cudaStream_t stream, int* launched) {
+// The cooperative launches of `kernel` for `chains` chains (a.c[0], and
+// a.c[1] where chains is 2), at most `z` of them a launch (1 <= z <=
+// chains), on its grid (persist_grid for z chains): one launch where the
+// grid takes every chain, else one a chain, each with the chain in c[0]
+// and c[1] (grid z 1). Each launch is counted in *launched; returns the
+// CUDA error, among them cudaErrorCooperativeLaunchTooLarge where the
+// grid cannot be resident, clearing it from the runtime.
+template <class Tl, class Kernel, class Args>
+int persist_launch(Kernel* kernel, size_t smem, Args a, int B, int H,
+                   int chains, int z, cudaStream_t stream, int* launched) {
   dim3 grid;
   int per_sm = 0;
-  cudaError_t e = persist_grid(kernel, threads, smem, B, H, &grid, &per_sm);
+  cudaError_t e = z < 1 || z > chains
+                      ? cudaErrorInvalidValue
+                      : persist_grid<Tl>(kernel, smem, B, H, z, &grid,
+                                         &per_sm);
   if (e == cudaSuccess && grid.y == 0) e = cudaErrorCooperativeLaunchTooLarge;
-  if (e == cudaSuccess) {
-    void* args[] = {&a};
+  const int launches = e == cudaSuccess ? chains / static_cast<int>(grid.z)
+                                        : 0;
+  for (int i = 0; e == cudaSuccess && i < launches; ++i) {
+    Args one = a;
+    if (launches > 1) one.c[0] = one.c[1] = a.c[i];
+    void* args[] = {&one};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    grid, dim3(threads), args, smem, stream);
+                                    grid, dim3(Tl::THREADS), args, smem,
+                                    stream);
     if (e == cudaSuccess) ++*launched;
   }
   if (e != cudaSuccess) cudaGetLastError();

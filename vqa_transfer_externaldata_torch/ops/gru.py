@@ -58,7 +58,15 @@ kernel, both chains in one launch) advances both chains and
 (on float16 U_h their float16 instances ``csrc/bigru_fwd_f16.cu`` and
 ``csrc/bigru_bwd_f16.cu``, K6h and K7h; on float32 U_h,
 ``csrc/bigru_fwd_f32.cu`` and ``csrc/bigru_bwd_f32.cu``, K6f and K7f: K1f's
-and K3f's steps with both chains in each launch);
+persistent kernel and K3f's four launches with both chains in each launch,
+the chain on ``blockIdx.z``, routed and planned by ``kernels.gru_f32_route``
+/ ``gru_f32_plan`` with two directions (K6f on 128-row b-tiles where a
+block would walk two of 64 rows a step); one cooperative launch a chain
+where a row of both chains' unit tiles cannot be resident at once, and the
+step form, K1f's and K3f's steps with both chains in each launch, past
+K1f's and K3f's shared memory; every form bit-equal to two K1f / K3f calls.
+``PERF.md`` has their times on an H100 80GB HBM3 at 700 W beside
+two K1f / K3f calls);
 on a CPU tensor their plain versions
 :func:`bigru_reference` and :func:`bigru_bwd_reference`. The JAX package
 keeps this fused path behind ``fuse_directions`` (off); its outputs and
@@ -951,44 +959,60 @@ gru_bwd_wide_f16.launches = 0
 
 
 # The float32 kernels' entries: (pointers, ints) ahead of the stream and
-# the launch count. K1f's and K3f's libraries export their persistent form
-# under their own name and the step form as "<name>_step".
+# the launch count. Each library (K1f "gru_fwd_f32", K3f "gru_bwd_f32", K6f
+# "bigru_fwd_f32", K7f "bigru_bwd_f32") exports its persistent form under
+# its own name, the step form as "<name>_step" and the persistent launch's
+# query as "<name>_config" (K6f's takes the b-tile's rows, 64 or 128).
 _F32_ARGS = {"gru_fwd_f32": (6, 4), "gru_fwd_f32_step": (6, 4),
              "gru_bwd_f32": (12, 8), "gru_bwd_f32_step": (11, 4),
-             "bigru_fwd_f32": (9, 3), "bigru_bwd_f32": (15, 3)}
-_F32_FORMS = {"persistent": "", "step": "_step"}
+             "bigru_fwd_f32": (9, 5), "bigru_fwd_f32_step": (9, 3),
+             "bigru_bwd_f32": (17, 11), "bigru_bwd_f32_step": (15, 3)}
+_F32_ROWS_ARG = "bigru_fwd_f32"  # the library whose query takes the rows
+# Each library's (backward, chains): K3f and K7f run the BPTT, K6f and K7f
+# both chains of a bidirectional GRU.
+_F32_KINDS = {"gru_fwd_f32": (False, 1), "gru_bwd_f32": (True, 1),
+              "bigru_fwd_f32": (False, 2), "bigru_bwd_f32": (True, 2)}
+# A call's forms: the route's persistent launch, the persistent kernels
+# with one chain a launch (K6f and K7f only), K6f's both chains a launch
+# on 64-row b-tiles where the plan takes 128, the step form.
+_F32_FORMS = {"persistent": "", "per_chain": "", "persistent64": "",
+              "step": "_step"}
 
 
 @functools.lru_cache(maxsize=None)
 def _f32_lib(name: str) -> ctypes.CDLL:
-    """The library of K1f (``name`` "gru_fwd_f32": entries
-    ``gru_fwd_f32``, the persistent form, ``gru_fwd_f32_step`` and
-    ``gru_fwd_f32_config``), K3f ("gru_bwd_f32", the same three), K6f
-    ("bigru_fwd_f32") or K7f ("bigru_bwd_f32")."""
+    """The library of K1f (``name`` "gru_fwd_f32"), K3f ("gru_bwd_f32"),
+    K6f ("bigru_fwd_f32") or K7f ("bigru_bwd_f32"), each with the entries
+    ``<name>`` (the persistent form), ``<name>_step`` and
+    ``<name>_config``."""
     lib = kernels.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    for entry, (pointers, ints) in _F32_ARGS.items():
-        if entry in (name, name + "_step"):
-            getattr(lib, entry).argtypes = [p] * pointers + [i] * ints + [p, p]
-            getattr(lib, entry).restype = i
-    if name in ("gru_fwd_f32", "gru_bwd_f32"):
-        getattr(lib, name + "_config").argtypes = [i, i, p, p, p]
-        getattr(lib, name + "_config").restype = i
+    for entry in (name, name + "_step"):
+        pointers, ints = _F32_ARGS[entry]
+        getattr(lib, entry).argtypes = [p] * pointers + [i] * ints + [p, p]
+        getattr(lib, entry).restype = i
+    rows = [i] if name == _F32_ROWS_ARG else []
+    getattr(lib, name + "_config").argtypes = [i, i, *rows, p, p, p]
+    getattr(lib, name + "_config").restype = i
     return lib
 
 
-def _f32_config(name: str, B: int, H: int, device: torch.device) -> dict:
-    """The C side's persistent launch of K1f (``name`` "gru_fwd_f32") or of
-    K3f's chain ("gru_bwd_f32") at (B, H) on CUDA ``device``: its grid
-    ([0, 0, 0] where a row of unit tiles cannot be resident at once or a
-    block's shared memory does not fit), blocks resident per SM (0 where
-    that memory does not fit) and dynamic shared memory in bytes."""
+def _f32_config(name: str, B: int, H: int, device: torch.device,
+                rows: int = kernels.GRU_F32_ROWS) -> dict:
+    """The C side's persistent launch of K1f (``name`` "gru_fwd_f32"), K3f's
+    chain ("gru_bwd_f32"), K6f ("bigru_fwd_f32", in the tiling of
+    ``rows``-row b-tiles) or K7f's chains ("bigru_bwd_f32") at (B, H) on
+    CUDA ``device``: its grid (z the chains a launch; [0, 0, 0] where a
+    row of one chain's unit tiles cannot be resident at once or a block's
+    shared memory does not fit), blocks resident per SM (0 where that
+    memory does not fit) and dynamic shared memory in bytes."""
     lib = _f32_lib(name)
     grid = (ctypes.c_int * 3)()
     per_sm, smem = ctypes.c_int(0), ctypes.c_longlong(0)
     with torch.cuda.device(device):
         rc = getattr(lib, name + "_config")(
-            B, H, ctypes.addressof(grid), ctypes.addressof(per_sm),
+            B, H, *([rows] if name == _F32_ROWS_ARG else []),
+            ctypes.addressof(grid), ctypes.addressof(per_sm),
             ctypes.addressof(smem))
     kernels.check(lib, rc, name)
     return {"grid": list(grid), "blocks_per_sm": per_sm.value,
@@ -996,37 +1020,57 @@ def _f32_config(name: str, B: int, H: int, device: torch.device) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def _f32_blocks_per_sm(name: str, index: int, H: int) -> int:
-    """K1f's or K3f's chain's persistent blocks resident per SM of card
-    ``index`` at width ``H``."""
-    return _f32_config(name, 1, H,
-                       torch.device("cuda", index))["blocks_per_sm"]
+def _f32_blocks_per_sm(name: str, index: int, H: int,
+                       rows: int = kernels.GRU_F32_ROWS) -> int:
+    """``name``'s persistent blocks resident per SM of card ``index`` at
+    width ``H`` (K6f's in the tiling of ``rows``-row b-tiles)."""
+    return _f32_config(name, 1, H, torch.device("cuda", index),
+                       rows)["blocks_per_sm"]
+
+
+def _f32_occupancy(name: str, H: int, device: torch.device
+                   ) -> Tuple[int, int]:
+    """(SMs, ``name``'s persistent blocks per SM) of CUDA ``device``."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return kernels.sm_count(device), _f32_blocks_per_sm(name, index, H)
+
+
+def _f32_plan(name: str, B: int, H: int, device: torch.device,
+              form: Optional[str] = None) -> dict:
+    """``kernels.gru_f32_plan`` for ``name``'s persistent launch at (B, H)
+    on CUDA ``device`` from the occupancy its library reports (K6f's also
+    of its 128-row tiling): ``form`` "per_chain", the plan of one chain,
+    whose launch K6f and K7f then take a chain at a time; "persistent64",
+    K6f's plan without the 128-row tiling."""
+    backward, directions = _F32_KINDS[name]
+    pair = 0
+    if name == _F32_ROWS_ARG and form not in ("per_chain", "persistent64"):
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        pair = _f32_blocks_per_sm(name, index, H, kernels.GRU_F32_PAIR_ROWS)
+    return kernels.gru_f32_plan(
+        B, H, *_f32_occupancy(name, H, device), backward,
+        1 if form == "per_chain" else directions, pair)
 
 
 def _f32_route(name: str, B: int, H: int, device: torch.device) -> str:
-    """``kernels.gru_f32_route`` for K1f (``name`` "gru_fwd_f32") or K3f
-    ("gru_bwd_f32") at (B, H) on CUDA ``device``, from the occupancy that
-    its own library reports."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    return kernels.gru_f32_route(B, H, kernels.sm_count(device),
-                                 _f32_blocks_per_sm(name, index, H),
-                                 name == "gru_bwd_f32")
+    """``kernels.gru_f32_route`` for K1f, K3f, K6f or K7f (``name`` as
+    :func:`_f32_lib`'s) at (B, H) on CUDA ``device``, from the occupancy
+    that its own library reports."""
+    return kernels.gru_f32_route(B, H, *_f32_occupancy(name, H, device),
+                                 *_F32_KINDS[name])
 
 
 def _f32_launch_config(name: str, B: int, H: int,
                        device: torch.device) -> dict:
-    """``kernels.gru_f32_plan`` for K1f (``name`` "gru_fwd_f32") or K3f's
-    chain ("gru_bwd_f32") at (B, H) on CUDA ``device``, beside the C
-    side's grid, blocks per SM and shared memory (``c_grid``,
+    """``kernels.gru_f32_plan`` for K1f, K3f's chain, K6f or K7f's chains
+    (``name`` as :func:`_f32_lib`'s) at (B, H) on CUDA ``device``, beside
+    the C side's grid, blocks per SM and shared memory (``c_grid``,
     ``blocks_per_sm``, ``c_smem_bytes``). Raises where the route takes the
     step form."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    plan = kernels.gru_f32_plan(B, H, kernels.sm_count(device),
-                                _f32_blocks_per_sm(name, index, H),
-                                name == "gru_bwd_f32")
-    cfg = _f32_config(name, B, H, device)
+    plan = _f32_plan(name, B, H, device)
+    cfg = _f32_config(name, B, H, device, plan["rows"])
     return {**plan, "c_grid": cfg["grid"],
             "blocks_per_sm": cfg["blocks_per_sm"],
             "c_smem_bytes": cfg["smem_bytes"]}
@@ -1035,13 +1079,26 @@ def _f32_launch_config(name: str, B: int, H: int,
 def _f32_form(name: str, form: Optional[str], B: int, H: int,
               device: torch.device) -> str:
     """The entry of ``name``'s library that a call launches: ``form``
-    "persistent" or "step", or None for ``kernels.gru_f32_route``'s
-    choice."""
+    "persistent", "per_chain" (K6f and K7f: the persistent kernels, one
+    launch a chain), "persistent64" (K6f: both chains a launch on 64-row
+    b-tiles) or "step", or None for ``kernels.gru_f32_route``'s choice."""
     form = form or _f32_route(name, B, H, device)
-    if form not in _F32_FORMS:
-        raise ValueError(f"{name}: form must be 'persistent' or 'step', got "
-                         f"{form!r}")
+    if form not in _F32_FORMS or (
+            form == "per_chain" and _F32_KINDS[name][1] == 1) or (
+            form == "persistent64" and name != _F32_ROWS_ARG):
+        raise ValueError(f"{name}: form must be 'persistent', 'step' or, "
+                         f"for two chains, 'per_chain' (K6f also "
+                         f"'persistent64'), got {form!r}")
     return name + _F32_FORMS[form]
+
+
+def _f32_launch_args(name: str, form: Optional[str], B: int, H: int,
+                     device: torch.device) -> Tuple[int, int]:
+    """(rows of a b-tile, chains a launch) of a persistent call of K6f or
+    K7f in ``form`` (:func:`_f32_plan`'s): the plan's rows and grid
+    depth."""
+    plan = _f32_plan(name, B, H, device, form)
+    return plan["rows"], plan["grid"][2]
 
 
 def _check_f32(what: str, gx_t: torch.Tensor, lens: torch.Tensor,
@@ -1741,30 +1798,44 @@ def _check_pair_f32(what: str, gxf: torch.Tensor, gxb: torch.Tensor,
 
 def bigru_fwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, lens: torch.Tensor,
                   uhf: torch.Tensor, uhb: torch.Tensor, bhnf: torch.Tensor,
-                  bhnb: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                  bhnb: torch.Tensor, *, form: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, ...]:
     """Launch kernel K6f (``csrc/bigru_fwd_f32.cu``) on CUDA tensors, all
     float32: gxf, gxb [T, B, 3H], lens [B] int32, uhf, uhb [H, 3H], bhnf,
     bhnb [H] -> (hTf, hTb [B, H], hseqf, hseqb [T, B, H]), each direction
-    bit-equal to a :func:`gru_fwd_f32` call on its inputs. Any B and H. One
-    launch a step advances both chains, on the current stream: T launches
-    a call, added to ``bigru_fwd_f32.launches``."""
+    bit-equal to a :func:`gru_fwd_f32` call on its inputs. Any B and H.
+    Where K1f's persistent kernel fits (``kernels.gru_f32_route`` with two
+    directions: up to H = 1024 on an H100), one cooperative launch of it
+    for both chains and all T steps, the chain on ``blockIdx.z``, on the
+    grid and b-tile rows of ``kernels.gru_f32_plan`` (128-row b-tiles where
+    a block would walk two of 64 rows a step, as at B = 256; one launch a
+    chain where a row of both chains' unit tiles cannot be resident at
+    once); elsewhere the step form, one launch a step for both chains (T
+    a call). On the current stream, added to ``bigru_fwd_f32.launches``.
+    ``form`` ("persistent"; "per_chain": one launch a chain on K1f's plan;
+    "persistent64": both chains a launch on 64-row b-tiles; "step"; None
+    for the route's) lets tests and ``chip_smoke.py`` hold the forms
+    against each other: all give the same bits; a launch that fails
+    raises."""
     what = "bigru_fwd_f32"
     T, B, H, dev = _check_pair_f32(what, gxf, gxb, lens, uhf, uhb, bhnf,
                                    bhnb)
+    entry = _f32_form(what, form, B, H, dev)
     hseq = torch.empty(2, T, B, H, dtype=torch.float32, device=dev)
     hT = torch.empty(2, B, H, dtype=torch.float32, device=dev)
     lib = _f32_lib(what)
     launched = ctypes.c_int(0)
+    args = [gxf.data_ptr(), gxb.data_ptr(), lens.data_ptr(),
+            uhf.data_ptr(), uhb.data_ptr(), bhnf.data_ptr(),
+            bhnb.data_ptr(), hseq.data_ptr(), hT.data_ptr(), T, B, H]
+    if entry == what:
+        args.extend(_f32_launch_args(what, form, B, H, dev))
     with torch.cuda.device(dev):
-        rc = lib.bigru_fwd_f32(gxf.data_ptr(), gxb.data_ptr(),
-                               lens.data_ptr(), uhf.data_ptr(),
-                               uhb.data_ptr(), bhnf.data_ptr(),
-                               bhnb.data_ptr(), hseq.data_ptr(),
-                               hT.data_ptr(), T, B, H,
-                               torch.cuda.current_stream(dev).cuda_stream,
-                               ctypes.addressof(launched))
+        rc = getattr(lib, entry)(
+            *args, torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.addressof(launched))
     bigru_fwd_f32.launches += launched.value
-    kernels.check(lib, rc, what)
+    kernels.check(lib, rc, entry)
     return hT[0], hT[1], hseq[0], hseq[1]
 
 
@@ -1774,26 +1845,29 @@ bigru_fwd_f32.launches = 0
 def bigru_bwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
                   hseqb: torch.Tensor, lens: torch.Tensor, uhf: torch.Tensor,
                   uhb: torch.Tensor, bhnf: torch.Tensor, bhnb: torch.Tensor,
-                  ghTf: torch.Tensor, ghTb: torch.Tensor
-                  ) -> Tuple[torch.Tensor, ...]:
+                  ghTf: torch.Tensor, ghTb: torch.Tensor, *,
+                  form: Optional[str] = None) -> Tuple[torch.Tensor, ...]:
     """Launch kernel K7f (``csrc/bigru_bwd_f32.cu``) on CUDA tensors, all
     float32: gxf, gxb [T, B, 3H], hseqf, hseqb [T, B, H] (K6f's residuals),
     lens [B] int32, uhf, uhb [H, 3H], bhnf, bhnb [H], ghTf, ghTb [B, H] ->
     (dgxf, dgxb [T, B, 3H], duhf, duhb [H, 3H], dbhnf, dbhnb [H]), each
     direction bit-equal to a :func:`gru_bwd_f32` call on its inputs. Any B
-    and H. Two launches a step for both chains (the gates' cotangents, then
-    the carried dh through U_h^T, which the last step skips), then both
-    chains' dU_h products and db_hn sums, one launch each, on the current
-    stream: 2T + 1 launches a call, added to ``bigru_bwd_f32.launches``."""
+    and H. Where K3f's chain fits (``kernels.gru_f32_route`` with two
+    directions: up to H = 1013 on an H100), K3f's four launches, each
+    taking both chains: every step's gh, the chains as one cooperative
+    launch (``kernels.gru_f32_plan``; one a chain where a row of both
+    chains' unit tiles cannot be resident at once: 5 launches), dU_h and
+    db_hn. Elsewhere the step form: two launches a step for both chains,
+    then dU_h and db_hn, 2T + 1 a call. On the current stream, added to
+    ``bigru_bwd_f32.launches``. ``form`` as :func:`bigru_fwd_f32`'s; all
+    forms give the same bits; a launch that fails raises."""
     what = "bigru_bwd_f32"
     T, B, H, dev = _check_pair_f32(what, gxf, gxb, lens, uhf, uhb, bhnf,
                                    bhnb)
     _expect_pair(T, B, H, dev, torch.float32, hseq=(hseqf, hseqb),
                  ghT=(ghTf, ghTb))
+    entry = _f32_form(what, form, B, H, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    dh = torch.empty(2, 2, B, H, **f32)  # each chain's carried cotangent
-    dh[0, 0].copy_(ghTf)
-    dh[1, 0].copy_(ghTb)
     dpart = torch.empty(2, B, H, **f32)
     gq = torch.empty(2, T, B, 3 * H, **f32)
     dgx = torch.empty(2, T, B, 3 * H, **f32)
@@ -1801,16 +1875,45 @@ def bigru_bwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     dbhn = torch.empty(2, H, **f32)
     lib = _f32_lib(what)
     launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ins = [gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
+           hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(), uhb.data_ptr(),
+           bhnf.data_ptr(), bhnb.data_ptr()]
     with torch.cuda.device(dev):
-        rc = lib.bigru_bwd_f32(
-            gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
-            hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(), uhb.data_ptr(),
-            bhnf.data_ptr(), bhnb.data_ptr(), dh.data_ptr(), dpart.data_ptr(),
-            gq.data_ptr(), dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(),
-            T, B, H, torch.cuda.current_stream(dev).cuda_stream,
-            ctypes.addressof(launched))
+        if entry == what:
+            # Every step's gh of both chains but each chain's first, over
+            # the saved states of live h_prev (forward hseqf[0 .. T-2],
+            # backward hseqb[1 .. T-1]; none at T = 1), against g of the
+            # steps they precede (forward g[1 ..], backward g[.. T-2]). One
+            # ring plan serves both chains: that of the OR of their
+            # addresses, aligned as the less aligned of the two.
+            gh = torch.empty(2, max(T - 1, 1), B, 3 * H, **f32)
+            step = 4 * B * H if T > 1 else 0
+            hp = hseqf.data_ptr() | (hseqb.data_ptr() + step)
+            gp = (gq[0].data_ptr() + 3 * step) | gq[1].data_ptr()
+            ring = kernels.f32_ring_plan(4, True, H * 4, hp, 3 * H * 4,
+                                         uhf.data_ptr() | uhb.data_ptr())
+            duh_ring = kernels.f32_ring_plan(4, False, H * 4, hp, 3 * H * 4,
+                                             gp)
+            rc = lib.bigru_bwd_f32(
+                *ins, ghTf.data_ptr(), ghTb.data_ptr(), dpart.data_ptr(),
+                gq.data_ptr(), gh.data_ptr(), dgx.data_ptr(), duh.data_ptr(),
+                dbhn.data_ptr(), T, B, H,
+                _f32_launch_args(what, form, B, H, dev)[1],
+                ring["a_width"], ring["b_width"], ring["stages"],
+                ring["smem_bytes"], duh_ring["a_width"],
+                duh_ring["b_width"], duh_ring["smem_bytes"], stream,
+                ctypes.addressof(launched))
+        else:
+            dh = torch.empty(2, 2, B, H, **f32)  # each chain's carried dh
+            dh[0, 0].copy_(ghTf)
+            dh[1, 0].copy_(ghTb)
+            rc = lib.bigru_bwd_f32_step(
+                *ins, dh.data_ptr(), dpart.data_ptr(), gq.data_ptr(),
+                dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(), T, B, H,
+                stream, ctypes.addressof(launched))
     bigru_bwd_f32.launches += launched.value
-    kernels.check(lib, rc, what)
+    kernels.check(lib, rc, entry)
     return dgx[0], dgx[1], duh[0], duh[1], dbhn[0], dbhn[1]
 
 

@@ -426,19 +426,21 @@ def gru_bwd_route(B: int, H: int, sms: int, per_sm: int,
 # ring of stages of the step's streamed operand (forward h_prev, chain g).
 GRU_F32_UNITS = 16  # hidden units a block owns (tail units masked)
 GRU_F32_ROWS = 64  # batch rows of a b-tile (tail rows masked)
+GRU_F32_PAIR_ROWS = 128  # K6f's b-tile where a block would walk two of 64
 GRU_F32_FWD_CHUNK, GRU_F32_FWD_STAGES = 64, 2  # h_prev columns a stage
 GRU_F32_BWD_CHUNK, GRU_F32_BWD_STAGES = 32, 4  # g columns a stage
 GRU_F32_FWD_THREADS, GRU_F32_BWD_THREADS = 256, 128  # a block
 GRU_F32_BWD_LAUNCHES = 4  # K3f a call: gh, the chain, dU_h, db_hn
 
 
-def gru_f32_smem(H: int, backward: bool = False) -> int:
+def gru_f32_smem(H: int, backward: bool = False,
+                 rows: int = GRU_F32_ROWS) -> int:
     """The dynamic shared memory of a block of the float32 GRU's persistent
-    kernel at width ``H`` (the C side's ``fwd_smem`` / ``bwd_smem``):
-    forward, U_h's 48 columns [48][H' + 4] with H' = H rounded up to a
-    stage; backward (K3f's chain), U_h's 16 rows [16][3H' + 4] with 3H'
-    = 3H rounded up to a stage; then the ring [stages][64][chunk + 4], all
-    f32."""
+    kernel at width ``H`` with b-tiles of ``rows`` rows (the C side's
+    ``fwd_smem`` / ``bwd_smem``): forward, U_h's 48 columns [48][H' + 4]
+    with H' = H rounded up to a stage; backward (K3f's chain), U_h's 16
+    rows [16][3H' + 4] with 3H' = 3H rounded up to a stage; then the ring
+    [stages][rows][chunk + 4], all f32."""
     if H < 1:
         raise ValueError(f"gru_f32_smem needs H >= 1, got H={H}")
     if backward:
@@ -447,55 +449,95 @@ def gru_f32_smem(H: int, backward: bool = False) -> int:
     else:
         cols, depth = 3 * GRU_F32_UNITS, round_up(H, GRU_F32_FWD_CHUNK)
         chunk, stages = GRU_F32_FWD_CHUNK, GRU_F32_FWD_STAGES
-    return 4 * (cols * (depth + 4) + stages * GRU_F32_ROWS * (chunk + 4))
+    return 4 * (cols * (depth + 4) + stages * rows * (chunk + 4))
 
 
 def gru_f32_route(B: int, H: int, sms: int, per_sm: int,
-                  backward: bool = False) -> str:
+                  backward: bool = False, directions: int = 1) -> str:
     """The form of K1f (``backward`` False) or K3f at batch ``B`` and any
-    width ``H`` on a card of ``sms`` SMs with ``per_sm`` persistent blocks
-    resident per SM (the occupancy query's; 0 where a block's shared
-    memory does not fit): "persistent" where :func:`gru_f32_plan` plans a
-    launch (the block's U_h slice and ring within ``SMEM_OPTIN``, a row of
-    ceil(H / 16) unit tiles resident at once), else "step", one launch a
-    timestep of ``csrc/gru_step_f32.cuh`` (two for K3f), which takes any
-    shape. A function of the shapes and the occupancy alone."""
-    if B < 1 or H < 1 or sms < 1 or per_sm < 0:
-        raise ValueError(f"gru_f32_route needs B, H, sms >= 1 and per_sm >= "
-                         f"0, got B={B}, H={H}, sms={sms}, per_sm={per_sm}")
-    fits = gru_f32_smem(H, backward) <= SMEM_OPTIN
+    width ``H`` with ``directions`` chains (2: K6f, K7f) on a card of
+    ``sms`` SMs with ``per_sm`` persistent blocks resident per SM (the
+    occupancy query's; 0 where a block's shared memory does not fit):
+    "persistent" where :func:`gru_f32_plan` plans a launch (the block's U_h
+    slice and ring within ``SMEM_OPTIN``, and a row of ceil(H / 16) unit
+    tiles of every chain resident at once, else of one chain, which then
+    takes a launch of its own), else "step", one launch a timestep of
+    ``csrc/gru_step_f32.cuh`` (two for K3f and K7f), which takes any shape.
+    A function of the shapes and the occupancy alone."""
+    if (B < 1 or H < 1 or sms < 1 or per_sm < 0
+            or directions not in (1, 2)):
+        raise ValueError(f"gru_f32_route needs B, H, sms >= 1, per_sm >= 0 "
+                         f"and 1 or 2 directions, got B={B}, H={H}, "
+                         f"sms={sms}, per_sm={per_sm}, "
+                         f"directions={directions}")
+    return ("persistent" if gru_f32_smem(H, backward) <= SMEM_OPTIN
+            and _gru_f32_chains(H, sms, per_sm, directions)
+            else "step")
+
+
+def _gru_f32_chains(H: int, sms: int, per_sm: int, directions: int) -> int:
+    """The chains one persistent launch takes: ``directions`` where a row of
+    every chain's ceil(H / 16) unit tiles is resident at once, else 1
+    where one chain's is, else 0."""
     jt = -(-H // GRU_F32_UNITS)
-    return "persistent" if fits and per_sm * sms // jt >= 1 else "step"
+    for z in range(directions, 0, -1):
+        if per_sm * sms // (z * jt) >= 1:
+            return z
+    return 0
 
 
 def gru_f32_plan(B: int, H: int, sms: int, per_sm: int,
-                 backward: bool = False) -> dict:
+                 backward: bool = False, directions: int = 1,
+                 per_sm_pair: int = 0) -> dict:
     """The persistent launch of K1f (``backward`` False) or of K3f's chain
-    at batch ``B`` and width ``H`` on a card of ``sms`` SMs, ``per_sm`` of
-    its blocks resident per SM: the ``rows`` of a b-tile, the ``b_tiles``,
-    the ``grid`` (ceil(H / 16) unit tiles, rows of blocks, 1), its
-    ``smem_bytes`` and ``threads`` a block and the ``launches`` a call
-    (K1f 1; K3f 4: gh, the chain, dU_h, db_hn). Each unit tile takes as
-    many rows of blocks as are resident beside each other, at most one per
-    b-tile; block (jx, by) walks b-tiles by, by + rows, ... in every
-    step. The grid is
-    cooperative, so it never exceeds sms x per_sm blocks; where
-    :func:`gru_f32_route` takes the step form it raises. The C side
-    (``persist_grid``) derives the same grid from its own occupancy
-    query."""
-    if gru_f32_route(B, H, sms, per_sm, backward) != "persistent":
+    with ``directions`` chains (2: K6f, K7f's chain) at batch ``B`` and
+    width ``H`` on a card of ``sms`` SMs, ``per_sm`` of its blocks resident
+    per SM: the ``rows`` of a b-tile, the ``b_tiles``, the ``grid``
+    (ceil(H / 16) unit tiles, rows of blocks, z chains a launch), its
+    ``smem_bytes`` and ``threads`` a block and the ``launches`` a call:
+    forward directions / z; backward 3 + directions / z (every step's gh
+    of all chains, the chains' cooperative launches, dU_h and db_hn of all
+    chains). z is ``directions`` where a row of every chain's unit tiles
+    is resident at once, else 1: one launch a chain. Each unit tile takes
+    as many rows of blocks as are resident beside each other, at most one
+    per b-tile; block (jx, by, d) walks b-tiles by, by + rows, ... of chain
+    d in every step. K6f (forward, two directions) takes b-tiles of
+    ``GRU_F32_PAIR_ROWS`` rows (``FwdPairTile``: 8 rows x one unit's 3
+    gates a thread, fewer shared loads an FFMA) where their block fits,
+    ``per_sm_pair`` of them resident per SM with the same z, and a block's
+    walk over them does no more than the 64-row walk's work (two 64-row
+    b-tiles a 128-row one): at B = 256, H = 512 on an H100 each block
+    takes one 128-row b-tile a step where it would take two of 64. The
+    grid is cooperative, so it never exceeds sms x per_sm (per_sm_pair)
+    blocks; where :func:`gru_f32_route` takes the step form it raises. The
+    C side (``persist_grid``) derives the same grid from its own occupancy
+    query for the rows it is given."""
+    if gru_f32_route(B, H, sms, per_sm, backward, directions) != "persistent":
         raise ValueError(
             f"gru_f32_plan: no persistent launch at B={B}, H={H} on {sms} "
             f"SMs with {per_sm} blocks per SM ({gru_f32_smem(H, backward)} "
             f"B of shared memory a block, {SMEM_OPTIN} B at most)")
     jt = -(-H // GRU_F32_UNITS)
-    tiles = -(-B // GRU_F32_ROWS)
-    return {"rows": GRU_F32_ROWS, "b_tiles": tiles,
-            "grid": [jt, min(tiles, per_sm * sms // jt), 1],
-            "smem_bytes": gru_f32_smem(H, backward),
+    z = _gru_f32_chains(H, sms, per_sm, directions)
+    rows, smem = GRU_F32_ROWS, gru_f32_smem(H, backward)
+    tiles = -(-B // rows)
+    grid_y = min(tiles, per_sm * sms // (z * jt))
+    pair_smem = gru_f32_smem(H, False, GRU_F32_PAIR_ROWS)
+    resident = per_sm_pair * sms // (z * jt)
+    if (not backward and directions == 2 and resident >= 1
+            and pair_smem <= SMEM_OPTIN):
+        pair_tiles = -(-B // GRU_F32_PAIR_ROWS)
+        pair_y = min(pair_tiles, resident)
+        if 2 * -(-pair_tiles // pair_y) <= -(-tiles // grid_y):
+            rows, smem = GRU_F32_PAIR_ROWS, pair_smem
+            tiles, grid_y = pair_tiles, pair_y
+    chain_launches = directions // z
+    return {"rows": rows, "b_tiles": tiles, "grid": [jt, grid_y, z],
+            "smem_bytes": smem,
             "threads": (GRU_F32_BWD_THREADS if backward
                         else GRU_F32_FWD_THREADS),
-            "launches": GRU_F32_BWD_LAUNCHES if backward else 1}
+            "launches": (GRU_F32_BWD_LAUNCHES - 1 + chain_launches
+                         if backward else chain_launches)}
 
 
 def gru_step_plan(T: int, B: int, H: int, backward: bool,
