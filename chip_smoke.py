@@ -344,7 +344,26 @@ Run from the repository root. Phases (any failure exits non-zero):
    val split), float16 at 2400, stage 1 at 1024 in bf16 (8 steps, first
    step) and at 2400 in bf16 and float16; ``tools/oov_claim.py``'s TINY
    config in bf16 through ``cli.train`` (stage 1, the transfer into stage
-   2), ``cli.eval`` and the ``Predictor`` (logits against the plain path).
+   2), ``cli.eval`` and the ``Predictor`` (logits against the plain path);
+31. the input modules (``--seed`` draws the store and fixtures), each part
+   where the machine has what it needs, found with
+   ``importlib.util.find_spec`` and printed first; what it lacks is printed
+   as ``{"input": {<module>: "not installed on this machine"}}``: (a) a
+   raw store of 1024 images in the COCO grid's layout (14x14x2048 f16,
+   822 MB, and f32 pool5), the native gathers (``data/native.py``, built
+   with g++; a failed build fails the phase) of a 256-row batch, widened
+   and not, and of pool5 bit-equal to numpy's fancy indexing, with their
+   median host ms on this machine's CPU beside numpy's; (b) where libjpeg's
+   headers exist, 32 seeded JPEGs (448 x 448 and 640 x 480) and a CMYK
+   file through ``ImageQuestionDataset.take``: each pixel within one
+   8-bit step of PIL's (equal at the file's own size), the CMYK file
+   PIL's; (c) stage-2 ``vqa_attention`` at full width through
+   ``cli.train`` on the store (a ``JoinedDataset``: the native gather
+   feeds every batch; K1, K2, K3, K8 at their exact counts), 8 steps with
+   a checkpoint every 4, fed by ``--data.input_pipeline grain`` where
+   grain and dm-tree import, and then stopped at 4 and resumed to 8, its
+   parameters bit-equal to the uninterrupted run's; otherwise by the
+   threads pipeline, once.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -768,6 +787,23 @@ WIDTHS_BUDGET_S = 120
 #     held to TOL_LOSS and the runs' parameter changes (every parameter as
 #     one vector) to cosine GRAD_COS; a batch trained on other questions
 #     moves them far apart.
+
+
+# Phase 31, the input modules: a raw feature store of INPUT_IMAGES rows in
+# the COCO grid's layout (14x14x2048 f16, 822 MB, and 2048 f32 pool5) and
+# INPUT_QUESTIONS questions over it, drawn from --seed; the native gathers
+# of an INPUT_GATHER-row batch against numpy (bit for bit), timed over
+# INPUT_RUNS on the host; INPUT_JPEGS seeded JPEGs (half at the model's
+# 448 pixels, half COCO's 640 x 480) and one CMYK file through
+# ImageQuestionDataset where libjpeg's headers exist; stage-2 training on
+# the store through cli.train for INPUT_STEPS steps with a checkpoint
+# every INPUT_CKPT_EVERY, fed by grain (and resumed from its checkpoint)
+# where grain imports.
+INPUT_IMAGES, INPUT_QUESTIONS, INPUT_GATHER, INPUT_RUNS = 1024, 4096, 256, 5
+INPUT_JPEGS, INPUT_STEPS, INPUT_CKPT_EVERY = 32, 8, 4
+# The native decoder against PIL after a resize: the same triangle filter,
+# in float against PIL's 8-bit fixed point (JAX's and the CPU tests' rule).
+INPUT_DECODE_STEP = 1
 
 
 class PhaseError(Exception):
@@ -3389,7 +3425,7 @@ def e2e_jpeg_steps(root: str, dev, flags: dict, device: list) -> dict:
         synthetic_vocabs)
     from vqa_transfer_externaldata_torch.data.features import FeatureStore
     from vqa_transfer_externaldata_torch.data.ingest import (
-        _decode_pil, coco_image_path)
+        _decode, _decode_pil, coco_image_path)
     from vqa_transfer_externaldata_torch.serving import Predictor
 
     out: dict = {}
@@ -3484,9 +3520,15 @@ def e2e_jpeg_steps(root: str, dev, flags: dict, device: list) -> dict:
     out["jpeg_predict_launches"] = launches = read_counts()
     check_launches(launches, {"gru_fwd": 1, "attention_fwd": 2},
                    "end2end cli.predict --image")
+    # cli.predict decodes as training does (ingest._decode: the native
+    # library where it is built, within one 8-bit step of PIL's pixels).
+    pixels = np.stack([_decode(p, E2E_SIZE) for p in paths])
+    step = int(np.abs(pixels.astype(np.int16) - np.stack(
+        [_decode_pil(p, E2E_SIZE) for p in paths])).max())
+    check(step <= INPUT_DECODE_STEP,
+          f"cli.predict's pixels {step} steps from PIL's")
     direct = Predictor(run_dir, batch_size=8, device=str(dev)).answer(
-        np.stack([_decode_pil(p, E2E_SIZE) for p in paths]),
-        ["w5 w6 w7"] * 3)
+        pixels, ["w5 w6 w7"] * 3)
     check(got == direct and len(got) == 3,
           f"cli.predict --image {got} vs Predictor {direct}")
     print(f"end2end cli.predict --image: {got}")
@@ -8017,10 +8059,225 @@ def phase_widths(report: dict, dev) -> dict:
     return out
 
 
+def input_modules() -> dict:
+    """What phase 31 can run here: whether ``grain`` and ``dm-tree``
+    (grain's tree library where JAX is not loaded) import and libjpeg's
+    headers exist, printed before the phase."""
+    import importlib.util
+    import shutil
+
+    found = {"grain": importlib.util.find_spec("grain") is not None,
+             "dm-tree": importlib.util.find_spec("tree") is not None,
+             "jpeglib.h": os.path.exists("/usr/include/jpeglib.h"),
+             "g++": shutil.which("g++") is not None,
+             "cpu_count": os.cpu_count()}
+    print(f"phase 31 finds: {json.dumps(found)}")
+    return found
+
+
+def input_gathers(root: str, seed: int) -> dict:
+    """(a) The native gathers on a raw store in the COCO grid's layout,
+    bit for bit against numpy's fancy indexing, and their host times on
+    this machine's CPU (the store was just written: warm in the page
+    cache)."""
+    import numpy as np
+    from vqa_transfer_externaldata_torch.data import native
+    from vqa_transfer_externaldata_torch.data.features import FeatureStore
+
+    path = os.path.join(root, "store")
+    t0 = time.perf_counter()
+    write_raw_store(path, np.arange(INPUT_IMAGES), GRID, C, seed)
+    out = {"store_write_s": time.perf_counter() - t0,
+           "store_mb": INPUT_IMAGES * (N + 2) * C * 2 / 1e6}
+    check(native.available(), "the native IO library did not build")
+    store = FeatureStore(path)
+    idx = np.random.default_rng(seed + 1).integers(
+        0, INPUT_IMAGES, INPUT_GATHER).astype(np.int32)
+    runs = {
+        "gather_f16_widen": lambda: native.gather_f16(store.grid, idx),
+        "gather_f16": lambda: native.gather_f16(store.grid, idx,
+                                                widen=False),
+        "gather_f32": lambda: native.gather_f32(store.pool5, idx),
+        "numpy_f16_widen": lambda: store.grid[idx].astype(np.float32),
+        "numpy_f32": lambda: store.pool5[idx]}
+    want = {"gather_f16_widen": runs["numpy_f16_widen"](),
+            "gather_f16": store.grid[idx], "gather_f32": store.pool5[idx]}
+    for name, ref in want.items():
+        got = runs[name]()
+        check(got.shape == ref.shape and got.dtype == ref.dtype
+              and np.array_equal(got.view(np.uint8), np.ascontiguousarray(
+                  ref).view(np.uint8)),
+              f"native {name} of {INPUT_GATHER} rows differs from numpy's")
+    ms = {}
+    for name, fn in runs.items():
+        times = []
+        for _ in range(INPUT_RUNS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+    out.update({"bit_equal": True, "rows": INPUT_GATHER,
+                "host_ms_median": ms, "threads": native._threads(),
+                "cpu_count": os.cpu_count()})
+    print(f"native gathers of {INPUT_GATHER} rows of {GRID}x{GRID}x{C} f16 "
+          f"(bit-equal to numpy), host ms on this machine's CPU "
+          f"({os.cpu_count()} cores, {native._threads()} threads): "
+          f"{json.dumps(ms)}")
+    return out
+
+
+def input_decode(root: str, seed: int) -> dict:
+    """(b) Seeded JPEGs (half at 448 x 448, half 640 x 480) and a CMYK
+    file through ``ImageQuestionDataset.take``: one native call a batch,
+    each pixel within INPUT_DECODE_STEP of PIL's (equal at the file's own
+    size), the CMYK file decoded by PIL; host times of the batch."""
+    import numpy as np
+    from PIL import Image
+    from vqa_transfer_externaldata_torch.data import ingest, native
+
+    check(native.jpeg_available(), "the native JPEG library did not build")
+    size, rng = 32 * GRID, np.random.default_rng(seed + 2)
+    paths = []
+    for i in range(INPUT_JPEGS):
+        h, w = (size, size) if i % 2 else (480, 640)
+        coarse = rng.integers(0, 256, (15, 20, 3)).astype(np.uint8)
+        paths.append(os.path.join(root, f"img{i}.jpg"))
+        Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(
+            paths[-1], quality=90)
+    paths.append(os.path.join(root, "cmyk.jpg"))
+    Image.open(paths[0]).convert("CMYK").save(paths[-1], quality=90)
+    rows = {"image_index": np.arange(len(paths), dtype=np.int32)}
+    ds = ingest.ImageQuestionDataset(rows, paths, image_size=size)
+    t0 = time.perf_counter()
+    images = ds.take(np.arange(len(paths)))["images"]
+    take_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pil = np.stack([ingest._decode_pil(p, size) for p in paths])
+    pil_ms = (time.perf_counter() - t0) * 1e3
+    ds.close()
+    diff = np.abs(images.astype(np.int16) - pil.astype(np.int16))
+    own = diff[1:-1:2].max()
+    resized = diff[0:-1:2].max()
+    check(own == 0 and resized <= INPUT_DECODE_STEP
+          and np.array_equal(images[-1], pil[-1]),
+          f"native decode: {own} at the file's size, {resized} resized "
+          f"(limit {INPUT_DECODE_STEP}), CMYK row equal to PIL's: "
+          f"{np.array_equal(images[-1], pil[-1])}")
+    out = {"images": len(paths), "max_step_own_size": int(own),
+           "max_step_resized": int(resized), "cmyk_equal_pil": True,
+           "take_host_ms": take_ms, "pil_one_thread_host_ms": pil_ms}
+    print(f"native decode of {len(paths)} JPEGs through "
+          f"ImageQuestionDataset.take: {json.dumps(out)}")
+    return out
+
+
+def input_training(root: str, grain: bool) -> dict:
+    """(c) Stage-2 ``vqa_attention`` at full width trained by ``cli.train``
+    on the raw store of (a) (a ``JoinedDataset``: each batch gathered by
+    the native library, K1/K2/K3/K8), INPUT_STEPS steps, a checkpoint
+    every INPUT_CKPT_EVERY. With ``grain``: ``--data.input_pipeline
+    grain``, and a second run stopped at INPUT_CKPT_EVERY and resumed to
+    INPUT_STEPS, whose parameters must equal the uninterrupted run's bit
+    for bit; otherwise the threads pipeline, once."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.ops import kernels
+    from vqa_transfer_externaldata_torch.serving import PARAMS_FILE
+    from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
+
+    data_dir = os.path.join(root, "pre")
+    os.makedirs(data_dir)
+    cfg = Config().replace_flat(MODEL_OVERRIDES)
+    rng = np.random.default_rng(71)
+    q_ids = rng.integers(4, cfg.data.vocab_size, (
+        INPUT_QUESTIONS, cfg.data.max_question_len)).astype(np.int32)
+    q_ids[:, 8:] = 0
+    np.savez(os.path.join(data_dir, "vqa_train.npz"), q_ids=q_ids,
+             image_index=rng.integers(0, INPUT_IMAGES,
+                                      INPUT_QUESTIONS).astype(np.int32),
+             answer_id=rng.integers(4, cfg.data.num_answers,
+                                    INPUT_QUESTIONS).astype(np.int32))
+    flags = {"data.synthetic": False, "data.dataset_dir": data_dir,
+             "data.feature_path": os.path.join(root, "store"),
+             "data.input_pipeline": "grain" if grain else "threads",
+             "train.batch_size": B_TRAIN, "train.log_every": 1,
+             "train.checkpoint_every": INPUT_CKPT_EVERY, **MODEL_OVERRIDES}
+
+    def run(tag: str, steps: int, first: int) -> tuple:
+        reset_counts()
+        t0 = time.perf_counter()
+        run_dir = train_cli.main(cli_argv(dict(flags, **{
+            "train.max_steps": steps})) + [
+            "--train.train_dir", os.path.join(root, tag)])
+        torch.cuda.synchronize()
+        n = steps - first
+        check_launches(read_counts(), {
+            "gru_fwd": n, "gru_bwd": 3 * n, "attention_fwd": 2 * n,
+            "attention_bwd": kernels.ATTENTION_BWD_LAUNCHES * n},
+            f"input phase cli.train ({tag}, steps {first}-{steps})")
+        res = read_steps(run_dir, n, f"input phase cli.train ({tag})",
+                         "questions", warmup=min(2, n - 2), first=first)
+        res["cli_s"] = time.perf_counter() - t0
+        return run_dir, res
+
+    pipeline = flags["data.input_pipeline"]
+    whole_dir, out = run("whole", INPUT_STEPS, 0)
+    out = {"pipeline": pipeline, "whole": out}
+    if grain:
+        part_dir, out["part"] = run("part", INPUT_CKPT_EVERY, 0)
+        check(os.path.exists(os.path.join(
+            part_dir, "ckpt", f"data_iter_{INPUT_CKPT_EVERY}.json")),
+            "grain run: no iterator state beside its checkpoint")
+        _, out["resumed"] = run("part", INPUT_STEPS, INPUT_CKPT_EVERY)
+        whole = load_params(os.path.join(whole_dir, PARAMS_FILE))
+        resumed = load_params(os.path.join(part_dir, PARAMS_FILE))
+        differ = sorted(k for k in whole
+                        if not torch.equal(whole[k], resumed[k]))
+        check(sorted(whole) == sorted(resumed) and not differ,
+              f"grain resume at step {INPUT_CKPT_EVERY}: parameters "
+              f"{differ[:5]} differ from the uninterrupted run's")
+        out["resume_bit_equal"] = True
+        print(f"grain: {INPUT_CKPT_EVERY} + {INPUT_STEPS - INPUT_CKPT_EVERY}"
+              f" resumed steps bit-equal to {INPUT_STEPS} uninterrupted")
+    return out
+
+
+def phase_input(report: dict, dev, seed: int) -> dict:
+    """Phase 31: the native IO library, the native decoder and the grain
+    pipeline, each part where this machine has what it needs; a part it
+    cannot run is printed as ``{"input": {<module>: "not installed on
+    this machine"}}``."""
+    found = input_modules()
+    out: dict = {"found": found}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_input_") as root:
+        out["gathers"] = input_gathers(root, seed)
+        if found["jpeglib.h"]:
+            out["decode"] = input_decode(root, seed)
+        else:
+            print(json.dumps({"input": {
+                "jpeglib.h": "not installed on this machine"}}))
+        grain = found["grain"] and found["dm-tree"]
+        for name in ("grain", "dm-tree"):
+            if not found[name]:
+                print(json.dumps({"input": {
+                    name: "not installed on this machine"}}))
+                break
+        if grain and "jax" not in sys.modules:
+            # grain imports JAX's tree utilities where JAX is installed;
+            # this script imports nothing of JAX, so grain takes dm-tree.
+            sys.modules["jax"] = None
+        out["training"] = input_training(root, grain)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON here")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 31's store and fixtures")
     args = ap.parse_args(argv)
 
     try:
@@ -8120,6 +8377,10 @@ def main(argv=None) -> int:
             "phase_s": time.perf_counter() - t0}
         print(f"phase 29 took {report['float16_gathered']['phase_s']:.1f} s")
         report["widths"] = widths = phase_widths(report, dev)
+        t0 = time.perf_counter()
+        report["input"] = phase_input(report, dev, args.seed)
+        report["input"]["phase_s"] = time.perf_counter() - t0
+        print(f"phase 31 took {report['input']['phase_s']:.1f} s")
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -108,11 +108,13 @@ def test_restore_picks_the_step_and_refuses_missing(tmp_path):
         assert torch.equal(snapshot[k], v), k
     with pytest.raises(FileNotFoundError, match="step 4"):
         tr.restore(state, step=4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tr.ckpt.save_data_iter(7, {})
+    tr.ckpt.save_data_iter(7, {"next_index": 7})
+    assert tr.ckpt.restore_data_iter() == {"next_index": 7}
+    assert tr.ckpt.restore_data_iter(3) is None  # saved without a state
     tr.close()
     _, empty = _trainer(tmp_path / "empty")
     with pytest.raises(FileNotFoundError):
         empty.restore(empty.init_state())
     empty.close()
     np.testing.assert_equal(empty.ckpt.latest_step(), None)
+    assert empty.ckpt.restore_data_iter() is None

@@ -40,7 +40,7 @@ from vqa_transfer_externaldata_torch.cli import train as train_cli
 from vqa_transfer_externaldata_torch.config import Config
 from vqa_transfer_externaldata_torch.data import datasets as tds
 from vqa_transfer_externaldata_torch.data.ingest import (
-    _decode_pil, coco_image_path)
+    _decode, coco_image_path)
 from vqa_transfer_externaldata_torch.models import zoo
 from vqa_transfer_externaldata_torch.models.end2end import (
     VQAEnd2EndModel, end2end_loss)
@@ -389,6 +389,7 @@ def test_cli_train_eval_predict_on_jpegs(tmp_path):
     answers = predict_cli.main(argv)
     pred = Predictor(train_dir, batch_size=8, device="cpu")
     assert pred.visual_key == "images"
-    direct = pred.answer(np.stack([_decode_pil(p, SIZE) for p in paths]),
+    # cli.predict decodes as training does (ingest._decode).
+    direct = pred.answer(np.stack([_decode(p, SIZE) for p in paths]),
                          ["w4 w5 w6"] * 3)
     assert answers == direct and len(answers) == 3

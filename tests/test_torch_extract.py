@@ -15,9 +15,9 @@ torchvision-format checkpoint for the CLIs. Tolerances:
   in the mean. Each of the 104 convolutions rounds its output to bf16
   (steps of 2^-8) after f32 sums in another order; over 33 blocks the
   flips add up (measured 1.3e-2 at most, 1.0e-2 in the mean).
-- pixels: the port decodes with PIL, bit-equal to JAX's PIL decoder, and
-  within one 8-bit step of JAX's native libjpeg decoder where that is
-  built (a deliberate departure: the port has no native decoder).
+- pixels: the port's PIL path is JAX's bit for bit, and its decoder
+  (native libjpeg where built, as JAX's) is JAX's bit for bit, within
+  one 8-bit step of PIL's.
 - the stores' layouts, image ids and region rows: exact.
 """
 
@@ -184,8 +184,9 @@ def test_image_id_and_coco_path_equal_jax():
 
 
 def test_decode_equals_jax_pil_and_native_within_one_step(fx):
-    """The port's decoder is JAX's PIL path bit for bit, and within one
-    8-bit step of JAX's decoder (native libjpeg where built)."""
+    """The port's PIL path is JAX's bit for bit and within one 8-bit step
+    of JAX's decoder (native libjpeg where built); the port's decoder
+    (native where built) is JAX's bit for bit."""
     paths = [ingest.coco_image_path(fx["image_dir"], "val2014", int(i))
              for i in fx["ids"]]
     for p in paths:
@@ -194,6 +195,7 @@ def test_decode_equals_jax_pil_and_native_within_one_step(fx):
         np.testing.assert_array_equal(ours, jingest._decode_pil(p, SIZE))
         theirs = jingest._decode(p, SIZE)
         assert np.abs(ours.astype(int) - theirs.astype(int)).max() <= 1
+        np.testing.assert_array_equal(ingest._decode(p, SIZE), theirs)
 
 
 @pytest.mark.parametrize("split", ["train", "val"])

@@ -163,3 +163,104 @@ def test_md_fault_check_imports_no_jax():
     """The fault check of chip_smoke's phase 24 imports no JAX either."""
     assert "ok" in _fresh(WORKER.replace('sys.path.insert(0, "tests")\n', "")
                           .format(name="md_fault_check"))
+
+
+@pytest.mark.parametrize("name", ["data.native", "data.grain_loader",
+                                  "data.ingest", "data.features"])
+def test_input_modules_import_no_jax_grain_or_pil(name):
+    """The native IO bindings and the grain pipeline import neither JAX,
+    grain, PIL nor torch: grain is imported where a pipeline is built,
+    PIL where a file is decoded."""
+    assert "ok" in _fresh(NEW_MODULE.format(
+        name=name, extra=repr(("grain", "PIL", "torch"))))
+
+
+BUILDS_NOTHING = """
+import importlib
+for name in ("data.native", "data.ingest", "data.features",
+             "data.grain_loader", "cli.predict", "cli.train"):
+    importlib.import_module("vqa_transfer_externaldata_torch." + name)
+from vqa_transfer_externaldata_torch.data import native
+assert native._loaded == {}, native._loaded
+print("ok")
+"""
+
+
+def test_importing_input_modules_builds_nothing():
+    """The native libraries are built at first use only: importing the
+    modules that use them loads and compiles nothing."""
+    assert "ok" in _fresh(BUILDS_NOTHING)
+
+
+def _imported_modules(path):
+    """Every module a Python file imports: its import statements and the
+    constant names it passes to ``importlib.import_module``,
+    ``__import__`` or ``importlib.util.find_spec``."""
+    import ast
+
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            func = node.func
+            name = getattr(func, "attr", getattr(func, "id", ""))
+            if name in ("import_module", "__import__", "find_spec"):
+                yield node.args[0].value
+
+
+def test_port_sources_name_no_jax_module():
+    """No Python file of the port, ``chip_smoke.py`` or
+    ``md_fault_check.py`` imports or looks up JAX, its libraries or the
+    JAX package, on any path, also those a fresh import does not take
+    (functions that import where they run)."""
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax",
+              "vqa_transfer_externaldata_tpu")
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "md_fault_check.py")]
+    for root, _, names in os.walk(os.path.join(
+            REPO, "vqa_transfer_externaldata_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    bad = sorted((os.path.relpath(f, REPO), m) for f in files
+                 for m in _imported_modules(f)
+                 if m.split(".")[0] in banned)
+    assert not bad, bad
+
+
+GRAIN_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None  # the card's machine: grain without JAX
+import numpy as np
+from vqa_transfer_externaldata_torch.data.datasets import ArrayDataset
+from vqa_transfer_externaldata_torch.data.grain_loader import (
+    GrainTrainIterator)
+ds = ArrayDataset({"answer_id": np.arange(10, dtype=np.int32),
+                   "q_ids": np.arange(30, dtype=np.int32).reshape(10, 3)})
+it = GrainTrainIterator(ds, batch_size=4, seed=0)
+a, b = next(it), next(it)
+assert a["q_ids"].shape == (4, 3) and b["answer_id"].shape == (4,)
+assert not set(a["answer_id"].tolist()) & set(b["answer_id"].tolist())
+assert it.get_state() == {"next_index": 2}, it.get_state()
+banned = ("jax", "jaxlib", "flax", "optax", "vqa_transfer_externaldata_tpu")
+bad = sorted(m for m, mod in sys.modules.items()
+             if m.split(".")[0] in banned and mod is not None)
+assert not bad, bad
+assert "grain" in sys.modules
+print("ok")
+"""
+
+
+def test_grain_pipeline_runs_with_jax_blocked():
+    """grain 0.2.15 imports JAX's tree utilities where JAX is installed
+    (``grain/_src/core/tree_lib.py``) and falls back to dm-tree where it
+    is not: with JAX blocked the port's iterator draws its batches, so
+    JAX is grain's optional import, never the port's. (grain also loads a
+    few pure-Python modules of orbax's checkpoint package; they need no
+    JAX.)"""
+    assert "ok" in _fresh(GRAIN_WITHOUT_JAX)

@@ -7,9 +7,11 @@ reference becomes a hand-written CUDA kernel for Hopper (``csrc/``) with a
 plain PyTorch version of the same math beside it. Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 
-Ported: serving, both training stages and the transfer, evaluation,
-checkpoints, every stage-2 family but the raw-image one, the int8 store,
-the H100 probes, and the real-data preprocessing (``cli.preprocess``);
+Every module of the reference has its counterpart: serving, both training
+stages and the transfer, evaluation, checkpoints, every stage-2 family,
+the int8 store, the H100 probes, the real-data preprocessing
+(``cli.preprocess``), the native host-IO libraries (``native/``,
+``data/native.py``) and the grain pipeline (``data/grain_loader.py``);
 ``ROADMAP.md`` lists what is left.
 """
 

@@ -57,10 +57,10 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     if predictor.visual_key == "images":
         if not args.image:
             p.error("the raw-image model needs --image")
-        from vqa_transfer_externaldata_torch.data.ingest import _decode_pil
+        from vqa_transfer_externaldata_torch.data.ingest import _decode
 
         size = predictor.cfg.data.image_size
-        visual = np.stack([_decode_pil(path, size)
+        visual = np.stack([_decode(path, size)
                            for path in per_question(args.image, "--image")])
     else:
         if not (args.feature_path and args.image_id):

@@ -31,9 +31,13 @@ checkpoint is resumed from its latest one unless ``--train.resume false``.
 ``vqa_end2end`` trains on raw images (``--data.image_dir`` with the
 artifacts, or synthetic pixels), its backbone converted from
 ``--model.resnet_checkpoint`` (a torchvision resnet101 state dict) when
-given. Runs on CUDA unless ``--device cpu``. Not ported yet, raising
-``NotImplementedError`` with its ROADMAP item: the grain input pipeline
-(item 14b).
+given. Runs on CUDA unless ``--device cpu``.
+
+``--data.input_pipeline grain`` streams every dataset through
+``data/grain_loader.GrainTrainIterator`` (``--data.grain_workers`` worker
+processes; ``train.device_data_cache`` is ignored, with a warning): its
+state is saved beside each checkpoint as ``ckpt/data_iter_<step>.json``,
+and a resumed run restores it, so it continues on the exact next sample.
 
 Multi-device (one process per card; ``--mesh.num_model`` and
 ``--mesh.shard_params`` for tensor-parallel tables):
@@ -83,9 +87,6 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     args, rest = p.parse_known_args(argv)
     cfg = Config.from_args(rest)
     t = cfg.train
-    if cfg.data.input_pipeline == "grain":
-        raise NotImplementedError("the grain input pipeline is not ported "
-                                  "yet (ROADMAP.md, section 1, item 14b)")
     started = initialize_distributed_from(
         cfg, backend="gloo" if args.device == "cpu" else None)
     mesh = create_mesh(cfg, rank_device(args.device))
@@ -125,26 +126,45 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         log.info("transfer init applied from %s", t.pretrained_param_path)
     state = trainer.init_state(params)
     # Resume after the transfer: a resumed run keeps its trained values.
-    if t.resume and trainer.ckpt.latest_step() is not None:
+    resumed = t.resume and trainer.ckpt.latest_step() is not None
+    if resumed:
         state = trainer.restore(state)
         log.info("resumed from step %d", state.step)
+    eval_fn = None if val_ds is None else \
+        lambda: padded_batches(val_ds, t.batch_size)[0]
     # A CandidateResampler's fresh negatives exist only as host batches.
     resident = isinstance(train_ds, JoinedDataset) or \
         type(train_ds) is ArrayDataset
-    if t.device_data_cache and not resident:
-        log.warning("device_data_cache requires an ArrayDataset or "
-                    "JoinedDataset (got %s); streaming batches instead",
-                    type(train_ds).__name__)
-    if t.device_data_cache and resident:
+    if cfg.data.input_pipeline == "grain":
+        from vqa_transfer_externaldata_torch.data.grain_loader import (
+            GrainTrainIterator)
+
+        if t.device_data_cache:
+            log.warning("input_pipeline=grain streams batches; "
+                        "device_data_cache is ignored")
+        train_iter = GrainTrainIterator(
+            train_ds, batch_size=t.batch_size, seed=t.seed,
+            workers=cfg.data.grain_workers,
+            shard=(mesh.data_index, mesh.num_data),
+            read_ahead=t.prefetch_batches)
+        it_state = trainer.ckpt.restore_data_iter() if resumed else None
+        if it_state is not None:
+            train_iter.set_state(it_state)
+            log.info("grain iterator state restored: %s", it_state)
+        state = trainer.fit(train_iter, state, eval_batches_fn=eval_fn)
+    elif t.device_data_cache and resident:
         state = trainer.fit_resident(train_ds, state, eval_ds=val_ds)
     else:
+        if t.device_data_cache:
+            log.warning("device_data_cache requires an ArrayDataset or "
+                        "JoinedDataset (got %s); streaming batches instead",
+                        type(train_ds).__name__)
         # Each data rank streams its shard of every global batch.
         shard = ((mesh.data_index, mesh.num_data) if mesh.num_data > 1
                  else None)
         state = trainer.fit(
             train_ds.batches(t.batch_size, seed=t.seed, shard=shard), state,
-            eval_batches_fn=None if val_ds is None else
-            lambda: padded_batches(val_ds, t.batch_size)[0])
+            eval_batches_fn=eval_fn)
     final = os.path.join(train_dir, PARAMS_FILE)
     params = trainer.full_state_dict()
     if mesh.is_writer:

@@ -6,7 +6,9 @@ region crops).
 ``FeatureStore`` reads the three layouts the extractor writes: an HDF5 file
 (``grid``/``pool5``/``image_ids`` datasets), an ``.npz`` with the same keys,
 or a raw directory (``meta.json`` + ``grid.f16.bin`` + ``pool5.f32.bin`` +
-``image_ids.npy``) read through ``np.memmap`` fancy indexing.
+``image_ids.npy``), memory-mapped and gathered by the multi-threaded
+native IO library (``data/native.py``; numpy fancy indexing where it is
+not built).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
+from vqa_transfer_externaldata_torch.data import native
 from vqa_transfer_externaldata_torch.data.datasets import ArrayDataset
 from vqa_transfer_externaldata_torch.utils.logging import log
 
@@ -32,7 +35,8 @@ class FeatureStore:
     def __init__(self, path: str) -> None:
         self.path = path
         self._file = None
-        if os.path.isdir(path):
+        self._raw = os.path.isdir(path)
+        if self._raw:
             with open(os.path.join(path, "meta.json")) as fh:
                 meta = json.load(fh)
             gshape = tuple(meta["grid_shape"])  # [M, g, g, C]
@@ -61,7 +65,10 @@ class FeatureStore:
         """Rows ``indices`` as float32 ``features`` ([n, g*g, C], or
         [n, g, g, C] unflattened) and ``pool5`` ([n, C])."""
         indices = np.asarray(indices)
-        if self._file is not None:
+        if self._raw:
+            grid = native.gather_f16(self.grid, indices, widen=True)
+            pool5 = native.gather_f32(self.pool5, indices)
+        elif self._file is not None:
             # h5py fancy indexing requires sorted unique indices.
             uniq, inverse = np.unique(indices, return_inverse=True)
             grid = np.asarray(self.grid[uniq])[inverse]
@@ -88,6 +95,7 @@ class InMemoryFeatureStore(FeatureStore):
                  image_ids: Optional[np.ndarray] = None) -> None:
         self.path = "<memory>"
         self._file = None
+        self._raw = False
         self.grid = grid
         self.pool5 = pool5
         self.image_ids = (image_ids if image_ids is not None

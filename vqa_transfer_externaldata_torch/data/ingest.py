@@ -3,10 +3,12 @@ question table -> uint8 image batches, decoded on host worker threads and
 resized to the model's static input; normalization runs on the device
 (``ops/resnet.py::preprocess_images``).
 
-The decoder is PIL (``PIL`` is imported only when a file is decoded). The
-JAX package decodes with its native libjpeg library where that is built
-(within one 8-bit step of PIL's pixels) and with PIL otherwise; the port
-has no native decoder (ROADMAP.md, section 1, item 14c).
+A batch decodes in one call of the native libjpeg library
+(``data/native.py``: parallel C++ threads, PIL's triangle resize, within
+one 8-bit step of PIL's pixels) where that is built; a file it rejects
+(missing, CMYK, ...) decodes with PIL, and where the library cannot be
+built every file does, on ``DECODE_WORKERS`` threads (``PIL`` is imported
+only when a file is decoded).
 """
 
 from __future__ import annotations
@@ -17,26 +19,39 @@ from typing import Dict, Sequence
 
 import numpy as np
 
+from vqa_transfer_externaldata_torch.data import native
 from vqa_transfer_externaldata_torch.data.datasets import ArrayDataset
 from vqa_transfer_externaldata_torch.data.features import (
     _load_image, _resize_host)
 
-DECODE_WORKERS = 8  # host threads decoding a batch's images
+DECODE_WORKERS = 8  # host threads decoding a batch's images with PIL
 
 
 def _decode_pil(path: str, size: int) -> np.ndarray:
     """One image file -> [size, size, 3] uint8 RGB (PIL bilinear resize
-    when its size differs): the decoder of training, evaluation, serving
-    and extraction, so served pixels are the training distribution's."""
+    when its size differs): extraction's decoder, and :func:`_decode`'s
+    for a file the native library rejects or where it is not built."""
     return _resize_host(_load_image(path), size)
+
+
+def _decode(path: str, size: int) -> np.ndarray:
+    """One image file -> [size, size, 3] uint8 RGB: the decoder of
+    training, evaluation and serving (the native library where it is built
+    and takes the file, PIL otherwise), so served pixels are the training
+    distribution's."""
+    decoded = native.decode_jpeg_batch([path], size)
+    if decoded is not None:
+        images, status = decoded
+        if status[0] == 0:
+            return images[0]
+    return _decode_pil(path, size)
 
 
 class ImageQuestionDataset(ArrayDataset):
     """Question table + on-the-fly JPEG decode, keyed by ``image_index``:
     row i of ``image_paths`` is the image of index i. Every batch that
     :meth:`take` makes (and so :meth:`batches` and the evaluator's padded
-    batches) gets ``images`` [B, S, S, 3] uint8, decoded by a pool of
-    ``DECODE_WORKERS`` threads."""
+    batches) gets ``images`` [B, S, S, 3] uint8 (:meth:`_decode_batch`)."""
 
     def __init__(self, arrays: Dict[str, np.ndarray],
                  image_paths: Sequence[str], *, image_size: int = 448
@@ -53,9 +68,17 @@ class ImageQuestionDataset(ArrayDataset):
         return batch
 
     def _decode_batch(self, paths: Sequence[str]) -> np.ndarray:
+        """One native call for the batch, PIL for each file it rejects;
+        without the library, PIL on the pool's threads."""
         size = self.image_size
-        return np.stack(list(self._pool.map(lambda p: _decode_pil(p, size),
-                                            paths)))
+        decoded = native.decode_jpeg_batch(paths, size)
+        if decoded is None:
+            return np.stack(list(self._pool.map(
+                lambda p: _decode_pil(p, size), paths)))
+        images, status = decoded
+        for i in np.flatnonzero(status):
+            images[i] = _decode_pil(paths[i], size)
+        return images
 
     def close(self) -> None:
         self._pool.shutdown(wait=False)

@@ -968,7 +968,11 @@ class Trainer:
         fire at the first call boundary at or past their multiples. Every
         ``eval_every`` steps the split of ``eval_batches_fn()`` is
         evaluated (:meth:`evaluate`); the checkpoint policy runs after
-        every call and the last step is always saved. The profiler window
+        every call and the last step is always saved. An input with
+        ``get_state`` (``data/grain_loader.GrainTrainIterator``) is not
+        prefetched, and its state, taken at the call boundary after the
+        call's k batches, is saved beside every checkpoint
+        (``CheckpointManager.save_data_iter``). The profiler window
         (``train.profile_steps``) is :class:`_ProfilerWindow`'s. On a data
         axis of n ranks ``train_batches`` are this rank's
         ``batch_size / n`` rows of each global batch
@@ -977,7 +981,11 @@ class Trainer:
         splits."""
         t = self.cfg.train
         max_steps = max_steps if max_steps is not None else t.max_steps
-        if t.prefetch_batches > 0:
+        # A checkpointable input (grain) saves its state beside each
+        # checkpoint; a prefetch thread would draw ahead of the steps and
+        # make that state overshoot, so such an input is not wrapped.
+        stateful = hasattr(train_batches, "get_state")
+        if t.prefetch_batches > 0 and not stateful:
             train_batches = PrefetchIterator(train_batches,
                                              depth=t.prefetch_batches)
         upload = self._uploader()
@@ -1016,10 +1024,14 @@ class Trainer:
                 next_eval = _next_multiple(step, t.eval_every)
                 eval_metrics, _ = self.evaluate(state, eval_batches_fn())
                 self._write_eval(step, eval_metrics)
-            self.ckpt.save(step, state)
+            if self.ckpt.save(step, state) and stateful:
+                self.ckpt.save_data_iter(step, train_batches.get_state())
         window.close_at(step, final=True)
         if self.ckpt.latest_step() != state.step:
             self.ckpt.save(state.step, state, force=True)
+            if stateful:
+                self.ckpt.save_data_iter(state.step,
+                                         train_batches.get_state())
         return state
 
     # -- the resident loop -----------------------------------------------------

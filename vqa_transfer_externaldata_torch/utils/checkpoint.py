@@ -14,6 +14,7 @@ then :func:`save_params`.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import re
 from typing import Callable, Dict, List, Optional
@@ -50,6 +51,7 @@ class CheckpointManager:
     the identity unless given."""
 
     _NAME = re.compile(r"ckpt_(\d+)\.pt")
+    _ITER = re.compile(r"data_iter_(\d+)\.json")
 
     def __init__(self, train_dir: str, *, keep: int = 5,
                  save_every: int = 1000, mesh=None,
@@ -148,14 +150,34 @@ class CheckpointManager:
         return dataclasses.replace(state, step=ck["step"], opt_state=opt)
 
     def save_data_iter(self, step: int, state: Dict) -> None:
-        raise NotImplementedError(
-            "input-iterator state (the grain pipeline) is not ported yet "
-            "(ROADMAP.md, section 1, item 14b)")
+        """Write an input iterator's JSON state (``GrainTrainIterator.
+        get_state()``) as ``data_iter_<step>.json`` beside the step's
+        checkpoint, atomically, so a resumed run continues on the exact
+        next sample; the states of checkpoints the keep-N policy removed
+        go too. Under a mesh rank 0 alone writes."""
+        if self.mesh is not None and not self.mesh.is_writer:
+            return
+        path = os.path.join(self.directory, f"data_iter_{step}.json")
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as fh:
+            json.dump(state, fh)
+        os.replace(tmp, path)
+        kept = set(self.all_steps()) | {step}
+        for name in os.listdir(self.directory):
+            m = self._ITER.fullmatch(name)
+            if m and int(m.group(1)) not in kept:
+                os.remove(os.path.join(self.directory, name))
 
     def restore_data_iter(self, step: Optional[int] = None) -> Optional[Dict]:
-        raise NotImplementedError(
-            "input-iterator state (the grain pipeline) is not ported yet "
-            "(ROADMAP.md, section 1, item 14b)")
+        """The iterator state saved at ``step`` (default: the latest
+        checkpoint's), or None where there is none; under a mesh the
+        latest step is rank 0's listing (collective)."""
+        step = self.latest_step() if step is None else step
+        path = os.path.join(self.directory, f"data_iter_{step}.json")
+        if step is None or not os.path.exists(path):
+            return None
+        with open(path) as fh:
+            return json.load(fh)
 
 
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
