@@ -353,17 +353,37 @@ Run from the repository root. Phases (any failure exits non-zero):
    822 MB, and f32 pool5), the native gathers (``data/native.py``, built
    with g++; a failed build fails the phase) of a 256-row batch, widened
    and not, and of pool5 bit-equal to numpy's fancy indexing, with their
-   median host ms on this machine's CPU beside numpy's; (b) where libjpeg's
-   headers exist, 32 seeded JPEGs (448 x 448 and 640 x 480) and a CMYK
-   file through ``ImageQuestionDataset.take``: each pixel within one
-   8-bit step of PIL's (equal at the file's own size), the CMYK file
-   PIL's; (c) stage-2 ``vqa_attention`` at full width through
+   median host ms on the host's CPU beside numpy's; (b) where the
+   native decoder can build (libjpeg's headers exist, or Pillow ships a
+   libjpeg and the port's header copies are there; it prints the route
+   that built it, and a failed build fails the phase), 32 seeded JPEGs
+   (448 x 448 and 640 x 480) and a CMYK file through
+   ``ImageQuestionDataset.take``: each pixel within one 8-bit step of
+   PIL's (equal at the file's own size), the CMYK file PIL's; (c)
+   stage-2 ``vqa_attention`` at full width through
    ``cli.train`` on the store (a ``JoinedDataset``: the native gather
    feeds every batch; K1, K2, K3, K8 at their exact counts), 8 steps with
    a checkpoint every 4, fed by ``--data.input_pipeline grain`` where
    grain and dm-tree import, and then stopped at 4 and resumed to 8, its
    parameters bit-equal to the uninterrupted run's; otherwise by the
-   threads pipeline, once.
+   threads pipeline, once;
+32. the ported paths no earlier phase ran, at full width, cut in depth
+   only, each checked three ways (its first step against the plain path
+   at its dtype's limits, graphed against eager bit-equal or within
+   SPC_PARAM_REL, exact launch counts): (f) the main path graphed at
+   k = 4 against eager in float32 (K1f, K3f, K4f, K5f), float16 and on
+   the int8 store, each replay's launches read from a profiler window;
+   (c) stage 2 at ``model.rnn_dim`` 2400 in bf16 graphed (the GRU's
+   step-form cluster launches captured), a float32 model at 2400 (stage
+   2 with its resident evaluator, stage 1: K1f, K3f, K6f and K7f in their
+   step forms), and K6/K7's bf16 step forms and the float32 step forms
+   at 2400 timed beside ``nn.GRU``; (b) the streamed loop through
+   ``cli.train`` in float32 (the uploader staging float32; K1f, K3f, K2f,
+   K8f); (a) ``vqa_end2end`` in float32 and float16 (the float16
+   backbone against float32, ``cli.train``, ``cli.eval``, the
+   ``Predictor``); (d) phase 24's one-rank NCCL runs in float32 and
+   float16 against no group, and its two gloo ranks on the replicated
+   store in float32 against one process.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -584,6 +604,31 @@ TRACE_KERNELS = {
                       "attn_dwv::"),
     "attention_resident_fwd": ("score_tile::kernel", "attn_res_wsum_kernel"),
     "attention_resident_bwd": ("attn_res_bwd_rows_kernel", "attn_dwv::"),
+    # Phase 32's graphed paths: the float16 builds and the int8 rows run
+    # the bf16 kernels' bodies under their names; the float32 main path's
+    # kernels of csrc/gru_seq_f32.cuh, fp32_tile.cuh, fp32_ring.cuh and
+    # attention_f32.cuh (K1f and K3f in their persistent forms).
+    "gru_fwd_f16": ("gru_seq_kernel",),
+    "gru_bwd_f16": ("gru_bptt_kernel", "gru_duh_pipe_kernel",
+                    "gru_dbhn_kernel"),
+    "attention_resident_fwd_f16": ("score_tile::kernel",
+                                   "attn_res_wsum_kernel"),
+    "attention_resident_bwd_f16": ("attn_res_bwd_rows_kernel", "attn_dwv::"),
+    "attention_resident_fwd[int8]": ("score_tile::kernel",
+                                     "attn_res_wsum_kernel"),
+    "attention_resident_bwd[int8]": ("attn_res_bwd_rows_kernel",
+                                     "attn_dwv::"),
+    "gru_fwd_f32": ("gru_seq_f32::gru_f32_seq_kernel",),
+    "gru_bwd_f32": ("gru_seq_f32::gru_f32_gh_kernel",
+                    "gru_seq_f32::gru_f32_bptt_kernel",
+                    "fp32_tile::product_kernel",
+                    "gru_f32::gru_f32_dbhn_kernel"),
+    "attention_resident_fwd_f32": ("attn_f32_score_ring_kernel",
+                                   "attn_f32_wsum_kernel",
+                                   "attn_f32_rnorm_kernel"),
+    "attention_resident_bwd_f32": ("attn_f32_bwd_rows_kernel",
+                                   "fp32_ring::product_kernel",
+                                   "attn_f32_bwd_reduce_kernel"),
 }
 # Phase 24, multi-device on the one card. (a) World 1 under NCCL against no
 # group: MD_STEPS steps eagerly and at k = MD_K, the wall time a step on
@@ -804,6 +849,46 @@ INPUT_JPEGS, INPUT_STEPS, INPUT_CKPT_EVERY = 32, 8, 4
 # The native decoder against PIL after a resize: the same triangle filter,
 # in float against PIL's 8-bit fixed point (JAX's and the CPU tests' rule).
 INPUT_DECODE_STEP = 1
+
+# Phase 32, the ported paths no earlier phase ran, at config.py's full
+# width, cut in depth only. (f) The main path (the gather-free store) at
+# train.steps_per_call UNRUN_K against eager from one initialization,
+# dropout 0, in float32, float16 and on the int8 store: UNRUN_STEPS steps,
+# wall ms between UNRUN_TIMED, a profiler window over the last
+# UNRUN_PROFILE (one replay). (c) The same at model.rnn_dim UNRUN_WIDE in
+# bf16 (the GRU's step forms); a float32 model at that width, stage 2
+# with its evaluator and stage 1, UNRUN_WIDE_STEPS steps each. (b) The
+# streamed loop in float32 for UNRUN_STREAM_STEPS steps on
+# STREAM_QUESTIONS questions of the flat layout. (a) vqa_end2end in
+# float32 and float16: cli.train for UNRUN_E2E_STEPS steps at E2E_BATCH on
+# UNRUN_E2E_IMAGES images, cli.eval, the Predictor at E2E_PREDICT. (d)
+# Phase 24's world-1 runs in float32 and float16, and its two gloo ranks
+# on the replicated store in float32. The phase's wall is printed beside
+# UNRUN_BUDGET_S.
+UNRUN_K = 4
+UNRUN_STEPS, UNRUN_TIMED, UNRUN_PROFILE = 12, (4, 8), 4
+UNRUN_WIDE, UNRUN_WIDE_STEPS = 2400, 4
+UNRUN_STREAM_STEPS = 6
+UNRUN_E2E_STEPS, UNRUN_E2E_IMAGES = 4, 128
+UNRUN_BUDGET_S = 180
+# The float16 backbone against float32 on the card: phase 22's bf16 limits
+#     scaled by float16's step (each convolution rounds its output to 11
+#     significant bits where bf16 keeps 8: 2^-3 of bf16's error), the
+#     cosine's distance from 1 the same.
+TOL_F16_BACKBONE_MEAN = TOL_BACKBONE_MEAN / 8
+TOL_F16_BACKBONE_MAX = TOL_BACKBONE_MAX / 8
+F16_BACKBONE_COS = 1 - (1 - BACKBONE_COS) / 8
+# Two gloo ranks against one process in float32 (phase 32 (d)): the ranks'
+#     halves of a batch are summed in another order than one process's
+#     sums, with no bf16 rounding after them, so the runs differ by f32
+#     summation order, which Adam turns into update differences only where
+#     a gradient entry is near zero. md_fault_check.py in float32 on the
+#     CPU read the sound runs at most 4.8e-7 (losses) and at least
+#     1 - 2.5e-11 (change cosine), the planted faults at least 0.315 and at
+#     most 0.839; on an H100 the sound float32 run read 1.43e-6 and a
+#     cosine that rounds to 1 at nine places (PERF.md §6). Each limit
+#     sits about 70x from the sound runs' worst and far from the faults.
+MD_TOL_LOSS_F32, MD_GRAD_COS_F32 = 1e-4, 0.9999
 
 
 class PhaseError(Exception):
@@ -3139,6 +3224,28 @@ def e2e_head_kernels(v, dev, buf) -> dict:
     return out
 
 
+def e2e_checkpoint(root: str) -> str:
+    """A seeded torchvision-format ResNet-101 checkpoint (E2E_STAGES,
+    E2E_WIDTH; BatchNorm statistics drawn too) written under ``root``:
+    its path."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import resnet
+
+    pth = os.path.join(root, "resnet101.pth")
+    stages = tuple(int(x) for x in E2E_STAGES.split(","))
+    src = resnet.ResNetV1(stages, E2E_WIDTH, dtype=torch.float32,
+                          stem="conv",
+                          generator=torch.Generator().manual_seed(41))
+    g = torch.Generator().manual_seed(43)
+    with torch.no_grad():
+        for m in src.modules():
+            if isinstance(m, resnet.BatchNorm):
+                m.mean.normal_(0.0, 0.5, generator=g)
+                m.var.uniform_(0.5, 1.5, generator=g)
+    torch.save(resnet.torchvision_state_dict(src), pth)
+    return pth
+
+
 def phase_end2end(report: dict, dev) -> dict:
     """The raw-image model at the full width of config.py (phase 22; see
     the module docstring)."""
@@ -3164,19 +3271,7 @@ def phase_end2end(report: dict, dev) -> dict:
                            "images": E2E_IMAGES, "stages": E2E_STAGES,
                            "width": E2E_WIDTH}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_e2e_") as root:
-        # --- a seeded torchvision-format checkpoint ------------------------
-        pth = os.path.join(root, "resnet101.pth")
-        src = resnet.ResNetV1(stages, E2E_WIDTH, dtype=torch.float32,
-                              stem="conv",
-                              generator=torch.Generator().manual_seed(41))
-        g = torch.Generator().manual_seed(43)
-        with torch.no_grad():
-            for m in src.modules():
-                if isinstance(m, resnet.BatchNorm):
-                    m.mean.normal_(0.0, 0.5, generator=g)
-                    m.var.uniform_(0.5, 1.5, generator=g)
-        torch.save(resnet.torchvision_state_dict(src), pth)
-        del src
+        pth = e2e_checkpoint(root)
         flags = {**MODEL_OVERRIDES, "model.model": "vqa_end2end",
                  "model.resnet_checkpoint": pth,
                  "model.resnet_stages": E2E_STAGES,
@@ -3689,18 +3784,21 @@ def phase_probes(report: dict, dev) -> dict:
             "launches": read_counts()}
 
 
-def trace_launches(res: dict, per_step: dict) -> dict:
+def trace_launches(res: dict, per_step: dict,
+                   trace: Optional[dict] = None) -> dict:
     """The device records, in a profiler window's summary (all its
     kernels: ``top=None``), of the kernels each wrapper of ``per_step``
-    launches (TRACE_KERNELS)."""
+    launches (TRACE_KERNELS, with ``trace``'s entries in their place)."""
+    names = {**TRACE_KERNELS, **(trace or {})}
     return {op: sum(c for name, c in res["kernel_records"].items()
-                    if name.startswith(TRACE_KERNELS[op]))
+                    if name.startswith(names[op]))
             for op in per_step}
 
 
 def spc_run(cfg, ds, what: str, per_step: dict, timed=None,
             ckpt: bool = False, restore_at: Optional[int] = None,
-            streamed: bool = False, build=None) -> dict:
+            streamed: bool = False, build=None,
+            trace: Optional[dict] = None) -> dict:
     """One run of ``cfg`` (``train.steps_per_call`` k) from its model's
     seeded initialization (``build(cfg)`` gives the spec; default
     ``build_model``): ``Trainer.fit_resident`` on ``ds``, or with
@@ -3721,16 +3819,18 @@ def spc_run(cfg, ds, what: str, per_step: dict, timed=None,
     between them (``step_peak_gb``: the dataset's upload and the first
     capture come before it), and the window's summary. ``ckpt`` keeps the
     checkpoint policy (else no checkpoint is written); ``restore_at``
-    restores that step's checkpoint of the run directory first."""
+    restores that step's checkpoint of the run directory first. ``trace``
+    names a wrapper's kernels where TRACE_KERNELS' prefixes would count
+    another wrapper's launches of the path (:func:`trace_launches`)."""
     for last_try in (False, True):
         out = spc_attempt(cfg, ds, what, per_step, timed, ckpt, restore_at,
-                          streamed, build, last_try)
+                          streamed, build, last_try, trace)
         if out is not None:
             return out
 
 
 def spc_attempt(cfg, ds, what, per_step, timed, ckpt, restore_at, streamed,
-                build, last_try) -> Optional[dict]:
+                build, last_try, trace=None) -> Optional[dict]:
     """One try of :func:`spc_run`; None when its window lost records."""
     import numpy as np
     import torch
@@ -3803,11 +3903,12 @@ def spc_attempt(cfg, ds, what, per_step, timed, ckpt, restore_at, streamed,
         out["kernels_ms"] = res["kernels_ms"]
         out["kernel_records"] = res["kernel_records"]
         out["profile_by_kind"] = res["device_ms_by_kind"]
-        records = trace_launches(res, per_step)
+        records = trace_launches(res, per_step, trace)
         want = {op: c * n for op, c in per_step.items()}
         port = {name: c for name, c in res["kernel_records"].items()
                 if name.startswith(tuple(
-                    p for ps in TRACE_KERNELS.values() for p in ps))}
+                    p for ps in {**TRACE_KERNELS, **(trace or {})}.values()
+                    for p in ps))}
         print(f"{what}, k={k}: the profiler window over {n} steps holds "
               f"{records} records of the path's kernels (expected {want})")
         check(records == want and n % k == 0,
@@ -4207,10 +4308,13 @@ def md_rank(rank: int, world: int, port: int, case: str, device: str,
         torch.distributed.destroy_process_group()
 
 
-def md_spawn(case: str, device: str, root: str) -> list:
+def md_spawn(case: str, device: str, root: str,
+             settings_over: Optional[dict] = None) -> list:
     """Run ``case`` on MD_WORLD ranks (``torch.multiprocessing``, spawn);
     a rank that exits non-zero or outlives MD_JOIN_S fails the phase, and
-    every rank still running is killed. Returns each rank's result."""
+    every rank still running is killed. ``settings_over`` replaces module
+    settings in the ranks (phase 32: a float32 MODEL_OVERRIDES). Returns
+    each rank's result."""
     import torch
     import torch.multiprocessing as mp
 
@@ -4219,6 +4323,7 @@ def md_spawn(case: str, device: str, root: str) -> list:
     settings = {name: globals()[name] for name in (
         "B_TRAIN", "TRAIN_QUESTIONS", "VAL_QUESTIONS", "MODEL_OVERRIDES",
         "MD_RANK_STEPS", "MD_RANK_TIMED")}
+    settings.update(settings_over or {})
     procs = [ctx.Process(target=md_rank, args=(
         r, MD_WORLD, port, case, device, root, settings))
         for r in range(MD_WORLD)]
@@ -4247,11 +4352,13 @@ def md_spawn(case: str, device: str, root: str) -> list:
             for r in range(MD_WORLD)]
 
 
-def md_agree(got: dict, want: dict, what: str) -> dict:
+def md_agree(got: dict, want: dict, what: str,
+             limits: tuple = (MD_TOL_LOSS, MD_GRAD_COS)) -> dict:
     """Two runs of one initialization on the same batches whose sums ran in
-    another order: their logged losses within MD_TOL_LOSS and their
-    parameter changes (all parameters as one vector) at cosine MD_GRAD_COS
-    or more."""
+    another order: their logged losses within ``limits``' loss (MD_TOL_LOSS)
+    and their parameter changes (all parameters as one vector) at its
+    cosine (MD_GRAD_COS) or more."""
+    tol_loss, grad_cos = limits
     import torch
 
     loss_diff = max(abs(got["losses"][s] - want["losses"][s])
@@ -4261,14 +4368,14 @@ def md_agree(got: dict, want: dict, what: str) -> dict:
     cos = torch.nn.functional.cosine_similarity(delta[0], delta[1], 0).item()
     diff = max((got["params"][n].float() - want["params"][n].float())
                .abs().max().item() for n in want["params"])
-    print(f"{what}: losses within {loss_diff:.3e} (limit {MD_TOL_LOSS}), "
-          f"parameter changes at cosine {cos:.6f} (bound {MD_GRAD_COS}), "
+    print(f"{what}: losses within {loss_diff:.3e} (limit {tol_loss}), "
+          f"parameter changes at cosine {cos:.9f} (bound {grad_cos}), "
           f"largest parameter difference {diff:.3e}")
     check(sorted(got["losses"]) == sorted(want["losses"])
-          and loss_diff <= MD_TOL_LOSS and cos >= MD_GRAD_COS,
+          and loss_diff <= tol_loss and cos >= grad_cos,
           f"{what}: the runs disagree")
     return {"loss_max_abs_diff": loss_diff, "change_cos": cos,
-            "param_max_abs_diff": diff}
+            "param_max_abs_diff": diff, "limits": list(limits)}
 
 
 def md_eval_reference(params: dict, val, root: str, tag: str,
@@ -4328,9 +4435,12 @@ MD_MAIN_STEP = {"gru_fwd": 1, "gru_bwd": 3, "attention_resident_fwd": 2,
                 "attention_resident_bwd": 3}
 
 
-def md_world1(tmp: str) -> dict:
+def md_world1(tmp: str, over: Optional[dict] = None,
+              per_step: dict = MD_MAIN_STEP) -> dict:
     """Phase 24 (a): the main path in a one-rank NCCL group against the
-    same runs without a group, eagerly and at k = MD_K."""
+    same runs without a group, eagerly and at k = MD_K; ``over`` changes
+    the config (phase 32: the model's dtype), whose path launches
+    ``per_step`` a step."""
     import torch
     import torch.distributed as dist
     from vqa_transfer_externaldata_torch.data.datasets import load_dataset
@@ -4341,7 +4451,7 @@ def md_world1(tmp: str) -> dict:
 
     def w1_cfg(tag, k):
         return stage2_config(os.path.join(tmp, tag), MD_STEPS, **{
-            "model.dropout": 0.0, "train.log_every": 4,
+            **(over or {}), "model.dropout": 0.0, "train.log_every": 4,
             "train.steps_per_call": k,
             "train.profile_start": MD_PROFILE[0],
             "train.profile_steps": MD_PROFILE[1] - MD_PROFILE[0]})
@@ -4356,7 +4466,7 @@ def md_world1(tmp: str) -> dict:
         for k in (1, MD_K):
             what = f"world 1, {'NCCL group' if group else 'no group'}"
             runs[group, k] = spc_run(w1_cfg(f"w1_{group}_{k}", k), ds,
-                                     what, MD_MAIN_STEP, timed=MD_TIMED)
+                                     what, per_step, timed=MD_TIMED)
     dist.destroy_process_group()
     for k in (1, MD_K):
         a, b = runs[False, k], runs[True, k]
@@ -7302,16 +7412,18 @@ def phase_float16_gathered(report: dict, dev, gen) -> dict:
     return out
 
 
-def gru_width_bounds(lens, Hh: int) -> tuple:
+def gru_width_bounds(lens, Hh: int, f32: bool = False) -> tuple:
     """K1's and K3's bounds (k1_bound's and k3_bound's counts) at width
     ``Hh`` and this run's lengths: the step form does the same work, so
-    its bound is the same."""
+    its bound is the same. With ``f32``, K1f's and K3f's: U_h in float32,
+    the products at the FFMA peak."""
     nl, nb, nc = int(lens.sum().item()), lens.shape[0], carried_steps(lens)
-    k1 = bound(nl * 3 * Hh * 4 + nb * 4 + Hh * 3 * Hh * 2 + Hh * 4
-               + T * nb * Hh * 4 + nb * Hh * 4, 2 * nc * Hh * 3 * Hh)
-    k3 = bound(nl * 4 * Hh * 4 + nb * 4 + Hh * 3 * Hh * 2 + Hh * 4
-               + nb * Hh * 4 + T * nb * 3 * Hh * 4 + Hh * 3 * Hh * 4
-               + Hh * 4, 3 * 2 * nc * Hh * 3 * Hh)
+    uh, at = (4, bound_f32) if f32 else (2, bound)
+    k1 = at(nl * 3 * Hh * 4 + nb * 4 + Hh * 3 * Hh * uh + Hh * 4
+            + T * nb * Hh * 4 + nb * Hh * 4, 2 * nc * Hh * 3 * Hh)
+    k3 = at(nl * 4 * Hh * 4 + nb * 4 + Hh * 3 * Hh * uh + Hh * 4
+            + nb * Hh * 4 + T * nb * 3 * Hh * 4 + Hh * 3 * Hh * 4
+            + Hh * 4, 3 * 2 * nc * Hh * 3 * Hh)
     return k1, k3
 
 
@@ -8061,14 +8173,20 @@ def phase_widths(report: dict, dev) -> dict:
 
 def input_modules() -> dict:
     """What phase 31 can run here: whether ``grain`` and ``dm-tree``
-    (grain's tree library where JAX is not loaded) import and libjpeg's
-    headers exist, printed before the phase."""
+    (grain's tree library where JAX is not loaded) import, whether
+    libjpeg's headers exist, which libjpeg Pillow ships and whether the
+    port's header copies are there (the decoder's second route), printed
+    before the phase."""
     import importlib.util
     import shutil
+
+    from vqa_transfer_externaldata_torch.data import native
 
     found = {"grain": importlib.util.find_spec("grain") is not None,
              "dm-tree": importlib.util.find_spec("tree") is not None,
              "jpeglib.h": os.path.exists("/usr/include/jpeglib.h"),
+             "pillow_libjpeg": native.pillow_libjpeg(),
+             "port_jpeg_headers": (native.INCLUDE_DIR / "jpeglib.h").exists(),
              "g++": shutil.which("g++") is not None,
              "cpu_count": os.cpu_count()}
     print(f"phase 31 finds: {json.dumps(found)}")
@@ -8135,7 +8253,10 @@ def input_decode(root: str, seed: int) -> dict:
     from PIL import Image
     from vqa_transfer_externaldata_torch.data import ingest, native
 
-    check(native.jpeg_available(), "the native JPEG library did not build")
+    check(native.jpeg_available(), "the native JPEG library did not build "
+          "by either route (the system's libjpeg, Pillow's)")
+    route = native.jpeg_route()
+    print(f"native JPEG decoder built by the {route} route")
     size, rng = 32 * GRID, np.random.default_rng(seed + 2)
     paths = []
     for i in range(INPUT_JPEGS):
@@ -8163,7 +8284,8 @@ def input_decode(root: str, seed: int) -> dict:
           f"native decode: {own} at the file's size, {resized} resized "
           f"(limit {INPUT_DECODE_STEP}), CMYK row equal to PIL's: "
           f"{np.array_equal(images[-1], pil[-1])}")
-    out = {"images": len(paths), "max_step_own_size": int(own),
+    out = {"route": route, "images": len(paths),
+           "max_step_own_size": int(own),
            "max_step_resized": int(resized), "cmyk_equal_pil": True,
            "take_host_ms": take_ms, "pil_one_thread_host_ms": pil_ms}
     print(f"native decode of {len(paths)} JPEGs through "
@@ -8253,11 +8375,16 @@ def phase_input(report: dict, dev, seed: int) -> dict:
     out: dict = {"found": found}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_input_") as root:
         out["gathers"] = input_gathers(root, seed)
-        if found["jpeglib.h"]:
+        # The decoder builds against the system's libjpeg, else against
+        # the port's header copies and the libjpeg Pillow ships: where
+        # either is there, a decoder that does not build fails the phase.
+        if found["jpeglib.h"] or (found["pillow_libjpeg"]
+                                  and found["port_jpeg_headers"]):
             out["decode"] = input_decode(root, seed)
         else:
             print(json.dumps({"input": {
-                "jpeglib.h": "not installed on this machine"}}))
+                "jpeglib.h": "not installed",
+                "pillow_libjpeg": "Pillow ships no libjpeg"}}))
         grain = found["grain"] and found["dm-tree"]
         for name in ("grain", "dm-tree"):
             if not found[name]:
@@ -8269,6 +8396,727 @@ def phase_input(report: dict, dev, seed: int) -> dict:
             # this script imports nothing of JAX, so grain takes dm-tree.
             sys.modules["jax"] = None
         out["training"] = input_training(root, grain)
+    return out
+
+
+UNRUN_F32_STEP = {"gru_fwd_f32": K1F_LAUNCHES, "gru_bwd_f32": K3F_LAUNCHES,
+                  "attention_resident_fwd_f32": 2,
+                  "attention_resident_bwd_f32": 3}
+UNRUN_MAIN_STEP = {
+    "float32": UNRUN_F32_STEP,
+    "float16": {"gru_fwd_f16": 1, "gru_bwd_f16": 3,
+                "attention_resident_fwd_f16": 2,
+                "attention_resident_bwd_f16": 3},
+    "int8": {"gru_fwd": 1, "gru_bwd": 3, "attention_resident_fwd[int8]": 2,
+             "attention_resident_bwd[int8]": 3}}
+UNRUN_OVER = {"float32": {"model.dtype": "float32"},
+              "float16": {"model.dtype": "float16"},
+              "int8": {"train.store_quantize": "int8"}}
+
+
+def unrun_limits(cfg, spec, state, batch, dev, gathered: bool = False
+                 ) -> dict:
+    """check_first_step's limits for ``cfg``'s dtype: float32's, float16's
+    (with f16_grad_bounds on this batch) or bf16's."""
+    dtype = cfg.model.dtype
+    if dtype == "float32":
+        return {"loss_tol": TOL_F32_LOSS, "grad_cos": F32_GRAD_COS}
+    if dtype == "float16":
+        return {"loss_tol": TOL_F16_LOSS, "grad_cos": F16_GRAD_COS,
+                "grad_cos_by_param": f16_grad_bounds(spec, state, batch, dev,
+                                                     gathered)}
+    return {}
+
+
+def unrun_first_step(cfg, ds, dev, what: str, build=None,
+                     streamed: bool = False) -> dict:
+    """The first step of ``cfg``'s model (``build(cfg)`` or its seeded
+    ``build_model``) on the run's first batch, with the kernels and with
+    their plain versions on the card, at the dtype's limits: the resident
+    batch, or with ``streamed`` the first host batch as the uploader
+    stages it."""
+    import torch
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    t = cfg.train
+    spec = (build(cfg) if build is not None else build_model(
+        cfg, generator=torch.Generator().manual_seed(t.seed)))
+    trainer = Trainer(cfg, spec, train_dir=t.train_dir)
+    state = trainer.init_state()
+    if streamed:
+        batch = trainer._uploader()(next(ds.batches(t.batch_size,
+                                                    seed=t.seed)))
+    else:
+        _, make_batch, _ = trainer._prepare_resident(ds)
+        idx0 = next(ds.index_batches(t.batch_size, seed=t.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+    gathered = streamed or cfg.model.model == "vqa_end2end"
+    out = check_first_step(spec, state, batch, dev, what,
+                           frozen=trainer.tx.frozen,
+                           **unrun_limits(cfg, spec, state, batch, dev,
+                                          gathered))
+    trainer.close()
+    return out
+
+
+def unrun_graphed(cfg_of, ds, dev, what: str, tag: str, per_step: dict,
+                  trace: Optional[dict] = None) -> dict:
+    """One path at ``train.steps_per_call`` UNRUN_K against eager from one
+    initialization (``cfg_of(tag, k)``, dropout 0): the first step against
+    the plain path, then UNRUN_STEPS steps each way through
+    :func:`spc_run` (the launches counted at warm-up and capture, each
+    replay's from the profiler window over the last UNRUN_PROFILE steps),
+    the parameters graphed against eager (:func:`spc_compare`)."""
+    out = {"first_step": unrun_first_step(cfg_of(tag, 1), ds, dev, what)}
+    runs = {k: spc_run(cfg_of(tag, k), ds, what, per_step,
+                       timed=UNRUN_TIMED, trace=trace)
+            for k in (1, UNRUN_K)}
+    out.update({
+        "launches": {k: r["launches"] for k, r in runs.items()},
+        "window_records": {k: r["window_records"] for k, r in runs.items()},
+        "wall_ms_per_step": {k: r["wall_ms_per_step"]
+                             for k, r in runs.items()},
+        "replays": {k: r["replays"] for k, r in runs.items()},
+        "profile": {k: r["profile"] for k, r in runs.items()},
+        "against_eager": spc_compare(runs[1], runs[UNRUN_K],
+                                     f"{what} k={UNRUN_K} against eager")})
+    return out
+
+
+def unrun_main_graphed(dev, tmp: str, ds) -> dict:
+    """(f) The main path (gather-free, the main corpus) graphed at k =
+    UNRUN_K against eager in float32, float16 and on the int8 store (a
+    bf16 model). The float32 GRU's launches a call are pinned against
+    ``kernels.gru_f32_plan`` at the main path's shape (its persistent
+    forms), the others as phases 23 and 28 count them."""
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+
+    for name, backward in (("gru_fwd_f32", False), ("gru_bwd_f32", True)):
+        route = gru._f32_route(name, B_TRAIN, H, dev)
+        plan = kernels.gru_f32_plan(B_TRAIN, H,
+                                    *gru._f32_occupancy(name, H, dev),
+                                    backward)
+        check(route == "persistent"
+              and plan["launches"] == UNRUN_F32_STEP[name],
+              f"{name} at B={B_TRAIN}, H={H}: route {route}, "
+              f"{plan['launches']} launches a call")
+
+    out = {}
+    for dtype, over in UNRUN_OVER.items():
+        def cfg_of(tag, k, over=over):
+            return stage2_config(os.path.join(tmp, f"{tag}_k{k}"),
+                                 UNRUN_STEPS, **{
+                                     **over, "model.dropout": 0.0,
+                                     "train.log_every": UNRUN_K,
+                                     "train.steps_per_call": k,
+                                     "train.profile_start":
+                                     UNRUN_STEPS - UNRUN_PROFILE,
+                                     "train.profile_steps": UNRUN_PROFILE})
+
+        out[dtype] = unrun_graphed(cfg_of, ds, dev,
+                                   f"main path graphed, {dtype}",
+                                   f"main_{dtype}", UNRUN_MAIN_STEP[dtype])
+    return out
+
+
+def unrun_wide_graphed(dev, tmp: str, ds) -> dict:
+    """(c) Stage 2 gather-free at ``model.rnn_dim`` UNRUN_WIDE in bf16,
+    graphed at k = UNRUN_K against eager: the GRU's step forms
+    (``csrc/gru_wide_step.cuh``, cluster launches) inside the captured
+    steps. Their dU_h product is attention_dwv.cuh's, as K5's is: the
+    window's records of each are told apart by the cells' type."""
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+
+    rnn, Tq = UNRUN_WIDE, stage2_config("", 1).data.max_question_len
+    fwd_form = gru._fwd_route("gru_fwd", B_TRAIN,
+                              kernels.round_up(rnn, kernels.GRU_FWD_PAD), dev)
+    bwd_form = gru._bwd_route("gru_bwd", B_TRAIN,
+                              kernels.round_up(rnn, kernels.GRU_BWD_PAD), dev,
+                              1)
+    check(fwd_form == bwd_form == "step",
+          f"rnn_dim {rnn}: GRU forms {fwd_form}, {bwd_form}")
+    Hs = kernels.round_up(rnn, kernels.GRU_STEP_PAD)
+    per_step = {
+        "gru_fwd_wide": kernels.gru_step_plan(Tq, B_TRAIN, Hs,
+                                              False)["launches"],
+        "gru_bwd_wide": kernels.gru_step_plan(Tq, B_TRAIN, Hs,
+                                              True)["launches"],
+        "attention_resident_fwd": 2, "attention_resident_bwd": 3}
+    trace = {"gru_fwd_wide": ("wide::gru_wide_fwd_kernel",),
+             "gru_bwd_wide": ("wide::gru_wide_round_kernel",
+                              "wide::gru_wide_gh_kernel",
+                              "wide::gru_wide_carry_kernel",
+                              "attn_dwv::dwv_kernel<attn_dwv::DenseCells",
+                              "gru_dbhn_kernel"),
+             "attention_resident_bwd": (
+                 "attn_res_bwd_rows_kernel",
+                 "attn_dwv::dwv_kernel<attn_dwv::StoreCells",
+                 "attn_dwv::reduce_kernel")}
+
+    def cfg_of(tag, k):
+        return stage2_config(os.path.join(tmp, f"{tag}_k{k}"), UNRUN_STEPS,
+                             **{"model.rnn_dim": rnn, "model.dropout": 0.0,
+                                "train.log_every": UNRUN_K,
+                                "train.steps_per_call": k,
+                                "train.profile_start":
+                                UNRUN_STEPS - UNRUN_PROFILE,
+                                "train.profile_steps": UNRUN_PROFILE})
+
+    out = unrun_graphed(cfg_of, ds, dev, f"stage 2 at rnn_dim {rnn}, "
+                        "graphed", "wide_bf16", per_step, trace)
+    out["per_step"] = per_step
+    return out
+
+
+def unrun_f32_launches(name: str, Tq: int, dev, what: str) -> int:
+    """Launches a call of K1f, K3f, K6f or K7f (``name``) over ``Tq``
+    steps at B_TRAIN x UNRUN_WIDE, from ``kernels.gru_f32_launches`` on
+    the card's occupancy; the route there is the step form."""
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+
+    route = gru._f32_route(name, B_TRAIN, UNRUN_WIDE, dev)
+    check(route == "step", f"{what}: {name} takes the {route} form at "
+          f"{UNRUN_WIDE} units")
+    return kernels.gru_f32_launches(
+        Tq, B_TRAIN, UNRUN_WIDE, *gru._f32_occupancy(name, UNRUN_WIDE, dev),
+        *gru._F32_KINDS[name])
+
+
+def unrun_f32_wide(dev, tmp: str, ds) -> dict:
+    """(c) A float32 model at ``model.rnn_dim`` UNRUN_WIDE: stage 2
+    gather-free for UNRUN_WIDE_STEPS steps (K1f and K3f in their step
+    forms, K4f, K5f), its first step against the plain path, then the
+    resident evaluator; stage 1 (``vlmap_description``, K6f and K7f in
+    their step forms) the same steps."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.zoo import build_model
+    from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
+
+    out = {}
+    steps, rnn = UNRUN_WIDE_STEPS, UNRUN_WIDE
+    over = {"model.rnn_dim": rnn, "model.dtype": "float32"}
+    for stage in ("stage2", "stage1"):
+        what = f"float32 {stage} at rnn_dim {rnn}"
+        run_dir = os.path.join(tmp, f"f32_wide_{stage}")
+        if stage == "stage2":
+            cfg = stage2_config(run_dir, steps, **over)
+            sds, Tq = ds, cfg.data.max_question_len
+            names = ("gru_fwd_f32", "gru_bwd_f32")
+        else:
+            cfg = stage1_config(run_dir, steps).replace_flat(over)
+            sds = load_dataset(cfg, "train", stage="vlmap_desc")
+            Tq = sds.arrays["desc_ids"].shape[1]
+            names = ("bigru_fwd_f32", "bigru_bwd_f32")
+        n = {name: unrun_f32_launches(name, Tq, dev, what) for name in names}
+        spec = build_model(cfg, generator=torch.Generator().manual_seed(
+            cfg.train.seed))
+        trainer = Trainer(cfg, spec, train_dir=run_dir)
+        state = trainer.init_state()
+        data, make_batch, _ = trainer._prepare_resident(sds)
+        idx0 = next(sds.index_batches(B_TRAIN, seed=cfg.train.seed))
+        batch = make_batch(torch.from_numpy(idx0).to(dev))
+        res = {"first_step": check_first_step(
+            spec, state, batch, dev, what, loss_tol=TOL_F32_LOSS,
+            grad_cos=F32_GRAD_COS), "launches_a_call": n}
+        del data, make_batch, batch
+        per_step = dict(n)
+        if stage == "stage2":
+            per_step.update({"attention_resident_fwd_f32": 2,
+                             "attention_resident_bwd_f32": 3})
+        reset_counts()
+        state = trainer.fit_resident(sds, state)
+        torch.cuda.synchronize()
+        res["launches"] = read_counts()
+        check_launches(res["launches"],
+                       {op: c * steps for op, c in per_step.items()},
+                       f"{what} over {steps} steps")
+        res.update(read_steps(run_dir, steps, what,
+                              "questions" if stage == "stage2"
+                              else "regions", warmup=1))
+        if stage == "stage2":
+            val = load_dataset(cfg.replace_flat(
+                {"data.synthetic_size": VAL_QUESTIONS}), "val")
+            reset_counts()
+            metrics, preds = trainer.evaluate_resident(state, val)
+            torch.cuda.synchronize()
+            nb = -(-VAL_QUESTIONS // B_TRAIN)
+            res["eval_launches"] = read_counts()
+            check_launches(res["eval_launches"], {
+                "gru_fwd_f32": n["gru_fwd_f32"] * nb,
+                "attention_resident_fwd_f32": 2 * nb},
+                f"{what}: the resident evaluator")
+            check(np.isfinite(metrics["loss"])
+                  and len(preds) == VAL_QUESTIONS,
+                  f"{what} evaluation: {metrics}, {len(preds)} predictions")
+            res["eval_metrics"] = {k: float(v) for k, v in metrics.items()}
+            print(f"{what} resident evaluation: {metrics}")
+        trainer.close()
+        out[stage] = res
+    return out
+
+
+def unrun_wide_times(dev) -> dict:
+    """The wide GRU kernels at B=256, T=26, UNRUN_WIDE units that phases 30
+    and 32 train but no phase timed there: K6's and K7's bf16 step forms
+    (``bigru_fwd_wide``, ``bigru_bwd_wide``) beside
+    ``nn.GRU(bidirectional=True)`` in bf16, and the float32 step forms of
+    K1f, K3f, K6f and K7f beside ``nn.GRU`` in float32 (TF32 off). Each
+    kernel's outputs on the inputs it is timed on are held against its
+    plain version (bf16: the states to TOL_GRU, the BPTT's outputs to
+    TOL_K3_REL of each one's largest |value|; float32: TOL_F32_REL of
+    each), its launches a call against its plan
+    (``kernels.gru_step_plan`` for the bf16 step forms,
+    ``kernels.gru_f32_launches`` for float32), and it is timed in turns
+    with its library call (library, kernel, kernel, library), with its
+    plain version's time and its bound (K6/K7's twice K1/K3's at the same
+    lengths; float32 at the FFMA peak)."""
+    import torch
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
+
+    buf = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    Hh, out = UNRUN_WIDE, {}
+    for dtype, names in ((torch.bfloat16, ("bigru_fwd_wide",
+                                           "bigru_bwd_wide")),
+                         (torch.float32, ("gru_fwd_f32", "gru_bwd_f32",
+                                          "bigru_fwd_f32", "bigru_bwd_f32"))):
+        f = widths_gru_inputs(dev, T, B_TRAIN, Hh, dtype, 8)
+        b = widths_gru_inputs(dev, T, B_TRAIN, Hh, dtype, 9)
+        lens = f[1]
+        _, _, hsf, hsb = gru.bigru_reference(f[0], b[0], lens, f[2], b[2],
+                                             f[3], b[3])
+        b1, b3 = gru_width_bounds(lens, Hh, f32=dtype == torch.float32)
+        one_f = (f[0], lens, f[2], f[3])
+        two_f = (f[0], b[0], lens, f[2], b[2], f[3], b[3])
+        two_b = (f[0], b[0], hsf, hsb, lens, f[2], b[2], f[3], b[3], f[4],
+                 b[4])
+        # name -> (kernel, plain version, output names)
+        n6, n7 = ("hTf", "hTb", "hseqf", "hseqb"), (
+            "dgxf", "dgxb", "duhf", "duhb", "dbhnf", "dbhnb")
+        calls = {
+            "gru_fwd_f32": (lambda: gru.gru_fwd_f32(*one_f),
+                            lambda: gru.gru_reference(*one_f),
+                            ("hT", "hseq")),
+            "gru_bwd_f32": (
+                lambda: gru.gru_bwd_f32(f[0], hsf, lens, f[2], f[3], f[4]),
+                lambda: gru.gru_bwd_reference(f[0], hsf, lens, f[2], f[3],
+                                              f[4]),
+                ("dgx", "duh", "dbhn")),
+            names[-2]: (lambda: getattr(gru, names[-2])(*two_f),
+                        lambda: gru.bigru_reference(*two_f), n6),
+            names[-1]: (lambda: getattr(gru, names[-1])(*two_b),
+                        lambda: gru.bigru_bwd_reference(*two_b), n7)}
+        bounds = {"gru_fwd_f32": b1, "gru_bwd_f32": b3,
+                  names[-2]: (2 * b1[0], b1[1]),
+                  names[-1]: (2 * b3[0], b3[1])}
+        Hs = kernels.round_up(Hh, kernels.GRU_STEP_PAD)
+        planned = {
+            name: (kernels.gru_f32_launches(
+                T, B_TRAIN, Hh, *gru._f32_occupancy(name, Hh, dev),
+                *gru._F32_KINDS[name]) if dtype == torch.float32
+                else kernels.gru_step_plan(T, B_TRAIN, Hs, "bwd" in name,
+                                           2)["launches"])
+            for name in names}
+        # The library calls: nn.GRU's packed forward and its backward, one
+        # and two directions, on the same lengths.
+        lib = {}
+        for two in (False, True):
+            net = torch.nn.GRU(D, Hh, bidirectional=two).to(dev, dtype)
+            net.flatten_parameters()
+            x = torch.randn(T, B_TRAIN, D, device=dev, dtype=dtype,
+                            requires_grad=True)
+            packed = torch.nn.utils.rnn.pack_padded_sequence(
+                x, lens.cpu(), enforce_sorted=False)
+            _, h_n = net(packed)
+            wrt, g_n = [x, *net.parameters()], torch.randn_like(h_n)
+
+            def lib_fwd(net=net, packed=packed):
+                with torch.inference_mode():
+                    net(packed)
+
+            def lib_bwd(h_n=h_n, wrt=wrt, g_n=g_n):
+                torch.autograd.grad(h_n, wrt, g_n, retain_graph=True)
+
+            lib[two] = (lib_fwd, lib_bwd)
+        for name in names:
+            kernel, plain, outs = calls[name]
+            two, back = name.startswith("bigru"), "bwd" in name
+            reset_counts()
+            got = kernel()
+            torch.cuda.synchronize()
+            launches = read_counts()[name]
+            check(launches == planned[name],
+                  f"{name} at H={Hh}: {launches} launches a call, its plan "
+                  f"{planned[name]}")
+            want = plain()
+            got, want = dict(zip(outs, got)), dict(zip(outs, want))
+            if dtype == torch.float32:
+                errors = f32_errors(got, want,
+                                    {k: TOL_F32_REL for k in outs})
+            else:
+                limits = {k: (TOL_K3_REL if back else TOL_GRU)
+                          for k in outs}
+                errors = {}
+                for k in outs:
+                    e = ((got[k].float() - want[k].float()).abs().max()
+                         .item())
+                    err = rel_err(got[k].float(), want[k].float()) \
+                        if back else e
+                    check(bool(torch.isfinite(got[k]).all())
+                          and err <= limits[k],
+                          f"{name} at H={Hh}: {k} error {err} over "
+                          f"{limits[k]}")
+                    errors[k] = {"err": err, "limit": limits[k],
+                                 "max_abs_err": e}
+            del got, want
+            lib_call = lib[two][back]
+            t = [time_cuda(lib_call, buf), time_cuda(kernel, buf),
+                 time_cuda(kernel, buf), time_cuda(lib_call, buf)]
+            out[name] = {
+                "ms": t[1], "turns_ms": t, "kernel_turns": [t[1], t[2]],
+                "library_turns": [t[0], t[3]],
+                "plain_ms": time_cuda(plain, buf, runs=5, warmup=1),
+                "launches_a_call": launches,
+                "planned_launches": planned[name], "errors": errors,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": t[0],
+                "library_call": ("backward of " if back else "")
+                + f"torch.nn.GRU({D}, {Hh}"
+                + (", bidirectional=True" if two else "")
+                + f") in {dtype} over a packed sequence"
+                + (", input-projection gradients included" if back
+                   else ", input projection included")
+                + (" (TF32 off)" if dtype == torch.float32 else "")}
+            r = out[name]
+            print(f"{name} at H={Hh}, B={B_TRAIN}: {t[1]:.4f} / "
+                  f"{t[2]:.4f} ms, library {t[0]:.4f} / {t[3]:.4f} ms, in "
+                  f"turns; {launches} launches a call (its plan's); plain "
+                  f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}; errors " + ", ".join(
+                      f"{k} {v.get('rel_err', v.get('err')):.3e}"
+                      for k, v in errors.items()))
+        del f, b, hsf, hsb, calls, lib
+    return out
+
+
+def unrun_streamed_f32(dev, tmp: str) -> dict:
+    """(b) The streamed loop (``Trainer.fit`` through ``cli.train``,
+    ``train.device_data_cache`` false) in float32 on STREAM_QUESTIONS
+    questions of the flat layout, UNRUN_STREAM_STEPS steps: the uploader
+    stages float32 grids (the compute dtype), the first step against the
+    plain path on the first batch as the uploader stages it, K1f, K3f, K2f
+    and K8f at their exact counts, finite losses, step times."""
+    import torch
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.parallel import trainer as tr
+
+    steps = UNRUN_STREAM_STEPS
+    flags = {"data.synthetic": True, "data.synthetic_layout": "flat",
+             "data.synthetic_size": STREAM_QUESTIONS,
+             "train.device_data_cache": False, "train.batch_size": B_TRAIN,
+             "train.max_steps": steps, "train.log_every": 1,
+             "model.dtype": "float32", **MODEL_OVERRIDES}
+    what = "float32 streamed stage-2 training"
+    cfg = Config().replace_flat({**flags, "train.train_dir":
+                                 os.path.join(tmp, "streamed_f32_first")})
+    staged = []
+    real_init = tr._Uploader.__init__
+
+    def uploader(self, device, dtype):
+        staged.append(dtype)
+        real_init(self, device, dtype)
+
+    tr._Uploader.__init__ = uploader
+    try:
+        out = {"first_step": unrun_first_step(
+            cfg, load_dataset(cfg, "train"), dev, what, streamed=True)}
+        run = os.path.join(tmp, "streamed_f32")
+        reset_counts()
+        t0 = time.perf_counter()
+        train_dir = train_cli.main(["--train.train_dir", run]
+                                   + cli_argv(flags))
+        torch.cuda.synchronize()
+    finally:
+        tr._Uploader.__init__ = real_init
+    out.update(cli_s=time.perf_counter() - t0, launches=read_counts(),
+               staged_dtypes=sorted({str(d) for d in staged}))
+    check(staged and all(d == torch.float32 for d in staged),
+          f"{what}: the uploader staged {staged}")
+    check_launches(out["launches"], {
+        "gru_fwd_f32": K1F_LAUNCHES * steps,
+        "gru_bwd_f32": K3F_LAUNCHES * steps,
+        "attention_fwd_f32": 3 * steps, "attention_bwd_f32": 3 * steps},
+        f"{what} over {steps} steps")
+    out.update(read_steps(train_dir, steps, what, "questions", warmup=2))
+    return out
+
+
+UNRUN_E2E_STEP = {
+    "float32": ({"gru_fwd_f32": K1F_LAUNCHES, "gru_bwd_f32": K3F_LAUNCHES,
+                 "attention_fwd_f32": 3, "attention_bwd_f32": 3},
+                {"gru_fwd_f32": K1F_LAUNCHES, "attention_fwd_f32": 3}),
+    "float16": ({"gru_fwd_f16": 1, "gru_bwd_f16": 3, "attention_fwd_f16": 2,
+                 "attention_bwd_f16": 4},
+                {"gru_fwd_f16": 1, "attention_fwd_f16": 2})}
+
+
+def unrun_end2end(dev, root: str, pth: str, dtype: str) -> dict:
+    """(a) ``vqa_end2end`` (ResNet-101 at E2E_SIZE, the seeded checkpoint
+    of :func:`e2e_checkpoint`) in ``dtype``: the backbone at E2E_BATCH
+    (float16 against float32 at TOL_F16_BACKBONE_*, every output finite),
+    the first step against the plain path, ``cli.train`` UNRUN_E2E_STEPS
+    steps at E2E_BATCH on UNRUN_E2E_IMAGES synthetic images held on the
+    card, ``cli.eval`` on the run, the ``Predictor`` at E2E_PREDICT (logits
+    against the plain path at the dtype's serving limit): launch counts of
+    each."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.cli import eval as eval_cli
+    from vqa_transfer_externaldata_torch.cli import train as train_cli
+    from vqa_transfer_externaldata_torch.cli.common import (
+        build_spec, load_resnet_backbone)
+    from vqa_transfer_externaldata_torch.config import Config
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+    from vqa_transfer_externaldata_torch.models.end2end import (
+        VQAEnd2EndModel)
+    from vqa_transfer_externaldata_torch.ops import resnet
+    from vqa_transfer_externaldata_torch.serving import Predictor
+
+    what, device = f"end2end in {dtype}", ["--device", str(dev)]
+    dt = getattr(torch, dtype)
+    stages = tuple(int(x) for x in E2E_STAGES.split(","))
+    flags = {**MODEL_OVERRIDES, "model.model": "vqa_end2end",
+             "model.dtype": dtype, "model.resnet_checkpoint": pth,
+             "model.resnet_stages": E2E_STAGES,
+             "model.resnet_width": E2E_WIDTH, "data.image_size": E2E_SIZE,
+             "data.synthetic": True, "data.synthetic_size": UNRUN_E2E_IMAGES,
+             "train.device_data_cache": True, "train.batch_size": E2E_BATCH,
+             "train.max_steps": UNRUN_E2E_STEPS, "train.log_every": 1,
+             "train.eval_every": 10 ** 6,
+             "train.checkpoint_every": UNRUN_E2E_STEPS}
+    cfg = Config().replace_flat({**flags, "train.train_dir":
+                                 os.path.join(root, f"{dtype}_first")})
+    backbone = load_resnet_backbone(cfg)
+    out = {}
+
+    # --- the backbone: every output finite; float16 against float32 -------
+    nets = {}
+    for d in {dt, torch.float32}:
+        with torch.device("meta"):
+            net = resnet.ResNetV1(stages, E2E_WIDTH, dtype=d,
+                                  stem=VQAEnd2EndModel.stem)
+        net.load_state_dict(backbone, assign=True)
+        nets[d] = net.to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(47)
+    images = torch.randint(0, 256, (E2E_BATCH, E2E_SIZE, E2E_SIZE, 3),
+                           generator=gen, device=dev, dtype=torch.uint8)
+    with torch.inference_mode():
+        x = resnet.preprocess_images(images, E2E_SIZE)
+        got = nets[dt](x)
+        ref = nets[torch.float32](x) if dt != torch.float32 else got
+    check(got["grid"].dtype == dt and all(
+        bool(torch.isfinite(got[k]).all()) for k in ("grid", "pool5")),
+        f"{what}: backbone grid {got['grid'].dtype}, finite "
+        f"{[bool(torch.isfinite(got[k]).all()) for k in ('grid', 'pool5')]}")
+    out["backbone_max_abs"] = got["grid"].float().abs().max().item()
+    if dt == torch.float16:
+        errs = {k: e2e_grid_errors(got[k], ref[k]) for k in ("grid", "pool5")}
+        out["backbone_vs_f32"] = errs
+        print(f"{what}: backbone at B={E2E_BATCH}, {E2E_SIZE}px against "
+              f"float32 on the card {errs} (limits: mean "
+              f"{TOL_F16_BACKBONE_MEAN}, max {TOL_F16_BACKBONE_MAX}, "
+              f"cosine {F16_BACKBONE_COS}); largest |grid| "
+              f"{out['backbone_max_abs']:.1f}")
+        for k, e in errs.items():
+            check(e["mean_rel"] <= TOL_F16_BACKBONE_MEAN
+                  and e["max_rel"] <= TOL_F16_BACKBONE_MAX
+                  and e["cos"] >= F16_BACKBONE_COS,
+                  f"{what}: backbone {k} against float32: {e}")
+    del nets, got, ref, x, images
+
+    # --- the first step against the plain path ----------------------------
+    def e2e_spec(c):
+        sp, _, _ = build_spec(c, generator=torch.Generator().manual_seed(
+            c.train.seed))
+        sp.module.resnet.load_state_dict(backbone)
+        return sp
+
+    ds = load_dataset(cfg, "train")
+    out["first_step"] = unrun_first_step(cfg, ds, dev, what, build=e2e_spec)
+    del ds
+
+    # --- cli.train, cli.eval, the Predictor -------------------------------
+    train_step, eval_step = UNRUN_E2E_STEP[dtype]
+    reset_counts()
+    run_dir = train_cli.main(device + cli_argv(flags) + [
+        "--train.train_dir", os.path.join(root, f"{dtype}_run")])
+    torch.cuda.synchronize()
+    out["train_launches"] = read_counts()
+    check_launches(out["train_launches"],
+                   {op: c * UNRUN_E2E_STEPS for op, c in train_step.items()},
+                   f"{what}: cli.train over {UNRUN_E2E_STEPS} steps")
+    out["train"] = read_steps(run_dir, UNRUN_E2E_STEPS, f"{what} cli.train",
+                              "images", warmup=1, batch=E2E_BATCH)
+    reset_counts()
+    metrics = eval_cli.main(device + ["--train.train_dir", run_dir])
+    torch.cuda.synchronize()
+    batches = -(-UNRUN_E2E_IMAGES // E2E_BATCH)
+    out["eval_launches"] = read_counts()
+    check_launches(out["eval_launches"],
+                   {op: c * batches for op, c in eval_step.items()},
+                   f"{what}: cli.eval over {batches} batches")
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"{what}: cli.eval metrics {metrics}")
+    out["eval_metrics"] = metrics
+
+    pred = Predictor(run_dir, batch_size=E2E_PREDICT, device=str(dev))
+    rng = np.random.default_rng(53)
+    pix = rng.integers(0, 256, (E2E_PREDICT, E2E_SIZE, E2E_SIZE, 3)
+                       ).astype(np.uint8)
+    words = len(pred.word_vocab) - 4
+    questions = [" ".join(f"w{w}" for w in rng.integers(0, words, n))
+                 for n in rng.integers(1, T + 1, E2E_PREDICT)]
+    reset_counts()
+    answers = pred.answer(pix, questions)
+    out["predict_launches"] = read_counts()
+    check_launches(out["predict_launches"], eval_step,
+                   f"{what}: Predictor at batch {E2E_PREDICT}")
+    v = torch.from_numpy(pix).to(dev)
+    q = torch.from_numpy(pred._encode_questions(questions)).to(dev)
+    with torch.inference_mode():
+        lk = pred.model(v, q)["logits"]
+        with plain_kernels():
+            lr = pred.model(v, q)["logits"]
+    tol = TOL_F32_LOGITS if dtype == "float32" else TOL_F16_LOGITS
+    err = (lk - lr).abs().max().item()
+    top2 = lr.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol
+    plain = [pred.answer_vocab.tokens[int(i)] for i in lr.argmax(-1)]
+    check(bool(torch.isfinite(lk).all()) and err <= tol and all(
+        a == p for a, p, d in zip(answers, plain, decided.tolist()) if d),
+        f"{what}: serving logits err {err} (tol {tol}), answers {answers} "
+        f"against plain {plain}")
+    out["predict_logits_err"] = err
+    print(f"{what}: Predictor at batch {E2E_PREDICT}: logits against the "
+          f"plain path {err:.3e} (tol {tol}); {answers}")
+    del pred
+    return out
+
+
+def unrun_multi_device(dev, tmp: str) -> dict:
+    """(d) Phase 24's world-1 runs in float32 and float16 (this process
+    in a one-rank NCCL group against no group, eagerly and at k = MD_K:
+    bit-equal), and two gloo ranks sharing the card on the replicated
+    store in float32 against one process, at MD_TOL_LOSS_F32 and
+    MD_GRAD_COS_F32."""
+    import numpy as np
+    import torch
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+
+    out = {}
+    for dtype in ("float32", "float16"):
+        over = UNRUN_OVER[dtype]
+        root = os.path.join(tmp, f"md_{dtype}")
+        os.makedirs(root)
+        out[f"world1_{dtype}"] = md_world1(root, over,
+                                           UNRUN_MAIN_STEP[dtype])
+    over = UNRUN_OVER["float32"]
+    root = os.path.join(tmp, "md_f32_world2")
+    os.makedirs(root)
+    device = str(torch.device(dev.type, 0) if dev.type == "cuda" else dev)
+    ranks = md_spawn("replicated", device, root, {
+        "MODEL_OVERRIDES": {**MODEL_OVERRIDES, **over}})
+    ref_cfg = md_config("ref_data", root, **over)
+    ds = md_dataset(ref_cfg, "replicated")
+    val = load_dataset(ref_cfg.replace_flat(
+        {"data.synthetic_size": VAL_QUESTIONS}), "val")
+    nb = -(-VAL_QUESTIONS // B_TRAIN)
+    for r, res in enumerate(ranks):
+        check_launches(res["launches"], {op: c * MD_RANK_STEPS for op, c in
+                                         UNRUN_F32_STEP.items()},
+                       f"float32 replicated, rank {r} of {MD_WORLD}")
+        check_launches(res["eval_launches"], {
+            "gru_fwd_f32": K1F_LAUNCHES * nb,
+            "attention_resident_fwd_f32": 2 * nb},
+            f"float32 replicated evaluation, rank {r}")
+        check(res["preds"] == ranks[0]["preds"],
+              "float32 replicated: the ranks' predictions differ")
+    one = md_fit(md_config("one", root, **over), ds, val, device=dev)
+    out["world2_float32_replicated"] = {
+        "launches": [res["launches"] for res in ranks],
+        "ms_per_step": [res["ms_per_step"] for res in ranks],
+        "losses": ranks[0]["losses"],
+        **md_agree(ranks[0], one, f"float32 replicated on {MD_WORLD} ranks "
+                   "against one process",
+                   (MD_TOL_LOSS_F32, MD_GRAD_COS_F32))}
+    check(np.isfinite(list(ranks[0]["losses"].values())).all(),
+          f"float32 replicated: losses {ranks[0]['losses']}")
+    return out
+
+
+def phase_unrun_paths(report: dict, dev) -> dict:
+    """Phase 32: the ported paths no earlier phase ran, each through its
+    entry points at config.py's full width, cut in depth only, each
+    checked three ways (its first step against the plain path at its
+    dtype's limits; graphed against eager bit-equal or within
+    SPC_PARAM_REL; its exact launch counts): (f) the main path graphed in
+    float32, float16 and on the int8 store; (c) stage 2 at rnn_dim
+    UNRUN_WIDE graphed in bf16, and a float32 model at that width (stage
+    2 with its evaluator, stage 1), with the wide kernels' times; (b) the
+    streamed loop in float32; (a) ``vqa_end2end`` in float32 and float16;
+    (d) multi-device in float32 and float16. Within UNRUN_BUDGET_S."""
+    from vqa_transfer_externaldata_torch.data.datasets import load_dataset
+
+    t0 = time.perf_counter()
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_unrun_") as tmp:
+        ds = load_dataset(stage2_config(os.path.join(tmp, "data"), 1),
+                          "train")
+        for key, fn in (
+                ("graphed", lambda: unrun_main_graphed(dev, tmp, ds)),
+                ("wide_graphed", lambda: unrun_wide_graphed(dev, tmp, ds)),
+                ("f32_wide", lambda: unrun_f32_wide(dev, tmp, ds)),
+                ("wide_times", lambda: unrun_wide_times(dev)),
+                ("streamed_f32", lambda: unrun_streamed_f32(dev, tmp)),
+                ("end2end", lambda: {
+                    dtype: unrun_end2end(dev, tmp, pth, dtype)
+                    for pth in [e2e_checkpoint(tmp)]
+                    for dtype in ("float32", "float16")}),
+                ("multi_device", lambda: unrun_multi_device(dev, tmp))):
+            t1 = time.perf_counter()
+            out[key] = fn()
+            seconds[key] = time.perf_counter() - t1
+            print(f"phase 32, {key}: {seconds[key]:.1f} s")
+    paths = {}
+    for dtype, r in out["graphed"].items():
+        for k, counts in r["launches"].items():
+            paths[f"unrun_graphed_{dtype}_k{k}"] = counts
+    for k, counts in out["wide_graphed"]["launches"].items():
+        paths[f"unrun_wide_bf16_k{k}"] = counts
+    for stage, r in out["f32_wide"].items():
+        paths[f"unrun_f32_wide_{stage}"] = r["launches"]
+    paths["unrun_f32_wide_stage2_eval"] = out["f32_wide"]["stage2"][
+        "eval_launches"]
+    paths["unrun_streamed_f32"] = out["streamed_f32"]["launches"]
+    for dtype, r in out["end2end"].items():
+        for part in ("train", "eval", "predict"):
+            paths[f"unrun_end2end_{dtype}_{part}"] = r[f"{part}_launches"]
+    md = out["multi_device"]
+    for dtype in ("float32", "float16"):
+        for k in (1, MD_K):
+            paths[f"unrun_md_world1_{dtype}_k{k}"] = md[
+                f"world1_{dtype}"][f"k{k}"]["launches"]
+    for r, counts in enumerate(md["world2_float32_replicated"]["launches"]):
+        paths[f"unrun_md_float32_replicated_rank{r}"] = counts
+    out["launches_by_path"] = paths
+    out["seconds"] = seconds
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 32 took {out['phase_s']:.1f} s (budget {UNRUN_BUDGET_S} "
+          f"s): {json.dumps(seconds)}")
     return out
 
 
@@ -8381,6 +9229,7 @@ def main(argv=None) -> int:
         report["input"] = phase_input(report, dev, args.seed)
         report["input"]["phase_s"] = time.perf_counter() - t0
         print(f"phase 31 took {report['input']['phase_s']:.1f} s")
+        report["unrun"] = unrun = phase_unrun_paths(report, dev)
         torch.cuda.synchronize()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
@@ -8581,6 +9430,8 @@ def main(argv=None) -> int:
     paths.update({f"widths_tiny_{k[:-len('_launches')]}": v
                   for k, v in widths["tiny"].items()
                   if k.endswith("_launches")})
+    # Phase 32: each path that had not run on the card, by dtype and k.
+    paths.update(unrun["launches_by_path"])
     main_path = {"attention_fwd": "serving", "bigru_fwd": "stage1",
                  "bigru_bwd": "stage1", "attention_bwd": "gathered",
                  "attention_resident_fwd": "glimpses2",

@@ -2,7 +2,8 @@
 sound one? Runs its two-rank comparisons as it does (``md_dataset``,
 ``md_spawn``, ``md_fit``), then again with one fault planted in the ranks,
 and prints what ``md_agree`` reads for each run against its sound
-reference (no pass or fail):
+reference, and whether it passes the bf16 limits (MD_TOL_LOSS,
+MD_GRAD_COS) and the float32 ones (MD_TOL_LOSS_F32, MD_GRAD_COS_F32):
 
 - ``global_rows``: the sharded store's K4/K5 handed each question's global
   store row (wrapped into the shard's block) instead of row // n;
@@ -106,7 +107,9 @@ def readings(got: dict, want: dict) -> dict:
                         for n in sorted(r["params"])]) for r in (got, want)]
     cos = torch.nn.functional.cosine_similarity(delta[0], delta[1], 0).item()
     return {"loss_max_abs_diff": loss_diff, "change_cos": cos,
-            "passes": loss_diff <= cs.MD_TOL_LOSS and cos >= cs.MD_GRAD_COS}
+            "passes": loss_diff <= cs.MD_TOL_LOSS and cos >= cs.MD_GRAD_COS,
+            "passes_float32": (loss_diff <= cs.MD_TOL_LOSS_F32
+                               and cos >= cs.MD_GRAD_COS_F32)}
 
 
 def run(device: str) -> dict:
@@ -125,7 +128,9 @@ def run(device: str) -> dict:
         cs.check(torch.cuda.is_available(), "no CUDA device")
         dev = torch.device("cuda", 0)
         cs.phase_build({})
-    out = {"limits": {"loss": cs.MD_TOL_LOSS, "cos": cs.MD_GRAD_COS}}
+    out = {"limits": {"loss": cs.MD_TOL_LOSS, "cos": cs.MD_GRAD_COS},
+           "limits_float32": {"loss": cs.MD_TOL_LOSS_F32,
+                              "cos": cs.MD_GRAD_COS_F32}}
     with tempfile.TemporaryDirectory(prefix="md_fault_check_") as tmp:
         ref_cfg = cs.md_config("ref_data", tmp)
         ds = cs.md_dataset(ref_cfg, "replicated")

@@ -45,7 +45,7 @@ from vqa_transfer_externaldata_torch.models import zoo
 from vqa_transfer_externaldata_torch.models.end2end import (
     VQAEnd2EndModel, end2end_loss)
 from vqa_transfer_externaldata_torch.ops.resnet import (
-    convert_torch_state_dict)
+    convert_torch_state_dict, preprocess_images)
 from vqa_transfer_externaldata_torch.parallel.trainer import Trainer
 from vqa_transfer_externaldata_torch.serving import PARAMS_FILE, Predictor
 from vqa_transfer_externaldata_torch.utils.checkpoint import load_params
@@ -184,6 +184,72 @@ def test_end2end_forward_and_gradients_match_jax(frozen):
             assert not want[k].any(), k
         else:
             assert rel(g.numpy(), want[k].numpy()) <= TOL_GRAD, k
+
+
+# float16 (model.dtype float16, the frozen backbone, the default): the
+# logits to 2^-10 of the largest |logit| (two float16 steps: activations
+# are rounded to float16 between layers, and a last-bit difference out of
+# a sum in another order flips a rounding; measured 3.3e-4); each gradient
+# leaf to 2^-8 of its largest |value| (the attention op's cotangents are
+# rounded to float16 ahead of its products, the port's K8h plain version
+# at dz r, JAX's explicit training backward at dz; measured 4.8e-3 of
+# att_wv's) plus F16_SUBNORMAL_STEPS steps of 2^-24 (float16's step below
+# 2^-14: the tiny head's attention cotangents lie there, where each
+# rounding keeps a few bits; measured 5 steps of att_ws).
+TOL_F16_LOGITS, TOL_F16_GRAD, F16_SUBNORMAL_STEPS = 2.0 ** -10, 2.0 ** -8, 8
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_end2end_float16_forward_and_gradients_match_jax(train):
+    """``model.dtype float16``: logits and the first step's gradients of
+    the frozen-backbone model against JAX's float16 model, in evaluation
+    (JAX's Pallas forward in interpret mode) and in training (JAX's XLA
+    forward), both with JAX's explicit training backward. The tiny
+    backbone's grid holds values past 256, whose float16 squares overflow
+    in K2h's (B5's) cell norms: in training the port scales the grid by a
+    power of two first, as JAX's XLA forward takes float32 squares; the
+    backward takes r from float32 squares as JAX's does; K8h's
+    float16(dz r) is scaled into float16's normal range."""
+    cfg = dict(TINY_E2E, **{"model.dtype": "float16"})
+    jm = jzoo.build_model(JaxConfig().replace_flat(cfg)).module
+    params, stats = jax_variables(jm)
+    images, q, labels = batch(size=80)
+
+    def loss_fn(p):
+        out = jm.apply({"params": p, "batch_stats": stats},
+                       jnp.asarray(images), jnp.asarray(q), train=train)
+        return jax_vqa_loss(out, {"answer_id": jnp.asarray(labels)})[0], out
+
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params)
+    model = VQAEnd2EndModel(
+        64, 16, word_dim=8, rnn_dim=8, fusion_dim=16, att_hidden=8,
+        answer_dim=8, dropout=0.0, dtype=torch.float16, image_size=SIZE,
+        stage_sizes=(1, 1, 1, 1), width=8)
+    model.load_state_dict({**params_from_flax(params),
+                           **batch_stats_from_flax(stats)})
+    out = model(torch.from_numpy(images), torch.from_numpy(q), train=train)
+    with torch.no_grad():
+        grid = model.resnet(preprocess_images(torch.from_numpy(images),
+                                              SIZE))["grid"]
+    assert grid.dtype == torch.float16 and grid.abs().max() > 256
+    assert rel(out["logits"].detach().float().numpy(),
+               np.asarray(jout["logits"], np.float32)) <= TOL_F16_LOGITS
+    loss, _ = end2end_loss(out, {"answer_id": torch.from_numpy(labels)})
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True)
+    want = params_from_flax(jax.device_get(jgrads))
+    for (k, _), g in zip(named.items(), grads):
+        if k.startswith("resnet."):
+            assert g is None and not want[k].float().any(), k
+            continue
+        got, ref = g.float().numpy(), want[k].float().numpy()
+        limit = (TOL_F16_GRAD * np.abs(ref).max()
+                 + F16_SUBNORMAL_STEPS * 2.0 ** -24)
+        assert np.abs(got - ref).max() <= limit, (k, np.abs(got - ref).max(),
+                                                  limit)
+        assert np.abs(got).max() > 0, k
 
 
 def test_full_width_state_dict_equals_jax_tree():

@@ -205,6 +205,71 @@ def test_k6h_k7h_plain_versions_match_b7_b8_in_float16():
     assert want[2].dtype == want[3].dtype == jnp.float16
 
 
+# The op's float16 backward scales ds so that K8h's float16(dz r) sits in
+# float16's normal range. An empty cell has r = 1e6 (rsqrt(0 + 1e-12)), 2^30
+# times a long cell's, but it draws little attention, so its |ds| r is
+# small: the scale must follow |ds_n| r_n of each cell, not max |ds| times
+# max r, which would push every long cell's dz r down to float16's
+# subnormals (measured here: dW_v 3.2e-3 off JAX's against 4.1e-4).
+# Against JAX's op with its Pallas forward (B5 interpreted, h in f32 as
+# K2h keeps it) and its explicit training backward (dz rounded to float16
+# ahead of the r of the normalized grid): one float16 rounding apart on
+# each term, each gradient to 2^-10 of its largest |value|.
+TOL_F16_EMPTY_CELL = 2.0 ** -10
+
+
+def _grid_with_an_empty_cell(seed=0, B=2, N=20, C=1024, H=16):
+    """A sparse post-ReLU float16 grid below 256 (no float16 square
+    overflows), its cell (0, 3) all zeros; W_v drawn about a small positive mean so
+    that most long cells score above the empty cell, whose h is relu(qh)
+    with qh <= 0; a cotangent g of v_att."""
+    rng = np.random.default_rng(seed)
+    v = np.maximum(rng.normal(size=(B, N, C)), 0.0) * 40.0
+    v[0, 3] = 0.0
+    qh = -np.abs(rng.normal(size=(B, H)) * 0.1).astype(np.float32)
+    wv = (rng.normal(size=(C, H)) * 0.3 + 0.03).astype(np.float16)
+    ws = (np.abs(rng.normal(size=(H,))) * 0.5).astype(np.float16).astype(
+        np.float32)
+    g = rng.normal(size=(B, C)).astype(np.float32)
+    return v.astype(np.float16), qh, wv, ws, g
+
+
+def test_f16_dzr_scale_follows_each_cells_ds_and_r():
+    """The scale puts the largest |ds_n ws_j r_n| (and, without r, the
+    largest |ds_n ws_j|) at 2^14..2^15, also where the cell with the
+    largest r has a small ds."""
+    rng = np.random.default_rng(3)
+    ds = torch.from_numpy(rng.normal(size=(2, 20)).astype(np.float32)) * 0.05
+    r = torch.full((2, 20), 2.0 ** -10)
+    ds[0, 3], r[0, 3] = 1e-9, 1e6
+    ws = torch.from_numpy(rng.normal(size=(16,)).astype(np.float32))
+    for rr in (r, None):
+        dzr = ds[:, :, None] * ws * (1.0 if rr is None else rr[:, :, None])
+        top = float(dzr.abs().amax() * ta._f16_dzr_scale(ds, ws, rr))
+        assert 2.0 ** 14 <= top < 2.0 ** 15, (rr is None, top)
+
+
+def test_float16_training_op_with_an_empty_cell_matches_jax():
+    """spatial_attention's training step on a float16 grid with an empty
+    cell (K2h's and K8h's plain versions on the CPU) against JAX's op:
+    finite, and dqh, dW_v and dws within TOL_F16_EMPTY_CELL."""
+    v, qh, wv, ws, g = _grid_with_an_empty_cell()
+    jv = jnp.asarray(v)
+    (jv_att, jalpha), vjp = jax.vjp(
+        lambda q, w, s: ja.spatial_attention(
+            jv, q, w, s, normalize=True, feature_grad=False, interpret=True),
+        *map(jnp.asarray, (qh, wv, ws)))
+    want = vjp((jnp.asarray(g), jnp.zeros_like(jalpha)))
+    assert float(jalpha[0, 3]) == float(jalpha[0].min())  # little attention
+    tq, tw, ts = (torch.from_numpy(a).requires_grad_() for a in (qh, wv, ws))
+    v_att, _ = ta.spatial_attention(torch.from_numpy(v), tq, tw, ts,
+                                    normalize=True, feature_grad=False,
+                                    train=True)
+    got = torch.autograd.grad(v_att, (tq, tw, ts), torch.from_numpy(g))
+    for name, a, b in zip(("dqh", "dwv", "dws"), got, want):
+        assert _rel(a, b, name) <= TOL_F16_EMPTY_CELL, (name, _rel(a, b))
+
+
 # -- training, evaluation and serving against JAX ----------------------------
 
 

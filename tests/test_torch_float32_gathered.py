@@ -156,6 +156,54 @@ def test_float32_gathered_fit_resident_matches_jax(tmp_path, monkeypatch):
                         tmp_path / "jax")
 
 
+def test_float32_streamed_first_step_matches_jax(tmp_path, monkeypatch):
+    """``Trainer.fit`` on streamed host batches of the flat layout in
+    float32: the uploader stages every grid in float32 (the compute dtype,
+    not bf16), spatial_attention gets a float32 grid and W_v (K2f and K8f
+    on the card, their plain versions here), and the first step's loss and
+    parameters equal JAX's streamed step from the same bridged
+    parameters (losses rtol 1e-5, parameters as PARAMS)."""
+    from vqa_transfer_externaldata_torch.parallel import trainer as ttr
+
+    flat = dict(GATHERED, **{"data.synthetic_layout": "flat",
+                             "train.device_data_cache": False,
+                             "train.log_every": 1})
+    jcfg = JaxConfig().replace_flat(flat)
+    jtr = JaxTrainer(jcfg, jax_build(jcfg), mesh=create_mesh(
+        jcfg, devices=jax.devices()[:1]), train_dir=str(tmp_path / "jax"))
+    jtrain = jds.load_dataset(jcfg, "train")
+    js = jtr.init_state(next(jtrain.batches(1, epochs=1, shuffle=False)))
+    init = params_from_flax(jax.device_get(js.params))
+    js = jtr.fit(jtrain.batches(16, seed=jcfg.train.seed), js, max_steps=1)
+    want = params_from_flax(jax.device_get(js.params))
+    jtr.close()
+    staged, seen = [], []
+    real_host = ttr._host_tensor
+    monkeypatch.setattr(ttr, "_host_tensor", lambda k, v, dt: (
+        lambda out: staged.append((k, out[1])) or out)(real_host(k, v, dt)))
+    real = tmodel.spatial_attention
+    monkeypatch.setattr(tmodel, "spatial_attention",
+                        lambda v, qh, wv, ws, **kw: seen.append(
+                            (v.dtype, wv.dtype)) or real(v, qh, wv, ws, **kw))
+    cfg = Config().replace_flat(flat)
+    tr = Trainer(cfg, build_model(cfg), train_dir=str(tmp_path / "torch"),
+                 device="cpu")
+    s = tr.fit(tds.load_dataset(cfg, "train").batches(16, seed=cfg.train.seed),
+               tr.init_state(init), max_steps=1)
+    tr.close()
+    assert s.step == 1
+    assert ("features", torch.float32) in staged
+    assert all(dt == torch.float32 for k, dt in staged if k == "features")
+    assert seen == [(torch.float32, torch.float32)]
+    got = tr.model.state_dict()
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   err_msg=k, **PARAMS)
+    lt, lj = _losses(tmp_path / "torch"), _losses(tmp_path / "jax")
+    assert sorted(lt) == sorted(lj) == [1]
+    np.testing.assert_allclose(lt[1], lj[1], rtol=1e-5)
+
+
 def test_float32_stage1_bidirectional_matches_jax(tmp_path, monkeypatch):
     """Stage-1 vlmap_description with the bidirectional phrase encoder in
     float32: every step hands float32 U_h to bigru_fused (K6f forward, K7f

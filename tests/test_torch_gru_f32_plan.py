@@ -337,6 +337,28 @@ def test_bigru_f32_plan_at_the_training_shape():
     assert (k6["launches"], k7["launches"]) == (2, 5)
 
 
+@pytest.mark.parametrize("directions", [1, 2])
+@pytest.mark.parametrize("backward", [False, True])
+def test_gru_f32_launches_follow_the_route(directions, backward):
+    """On an H100 (132 SMs, one block an SM) at B=256 and T=26: the
+    persistent form's launches at H = 512 (K1f and K6f 1, K3f and K7f 4),
+    the step form's past the widest persistent width, at 2400 too (T
+    forward, 2T + 1 backward); T = 0 raises."""
+    T, at = 26, (132, 1, backward, directions)
+    assert kernels.gru_f32_launches(T, 256, 512, *at) == (
+        kernels.gru_f32_plan(256, 512, *at)["launches"]) == (
+        4 if backward else 1)
+    widest = 1013 if backward else 1024
+    assert kernels.gru_f32_launches(T, 256, widest, *at) == (
+        4 if backward else 1)
+    for H in (widest + 1, 2400):
+        assert kernels.gru_f32_route(256, H, *at) == "step"
+        assert kernels.gru_f32_launches(T, 256, H, *at) == (
+            2 * T + 1 if backward else T)
+    with pytest.raises(ValueError):
+        kernels.gru_f32_launches(0, 256, 512, *at)
+
+
 @pytest.mark.parametrize("directions", [0, 3])
 @pytest.mark.parametrize("backward", [False, True])
 def test_gru_f32_plan_refuses_other_directions(directions, backward):

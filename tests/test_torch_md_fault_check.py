@@ -1,8 +1,9 @@
-"""``chip_smoke.py`` phase 24(b)'s limits (MD_TOL_LOSS, MD_GRAD_COS) tell
-a wrong multi-device run from a sound one: ``md_fault_check.py --device
-cpu`` runs the phase's two-rank comparisons at tiny widths in float32 on
-gloo ranks, sound and with each planted fault (``md_fault_check.FAULTS``),
-and every sound run must pass the limits while every fault fails them.
+"""``chip_smoke.py`` phase 24(b)'s limits (MD_TOL_LOSS, MD_GRAD_COS) and
+phase 32's float32 ones (MD_TOL_LOSS_F32, MD_GRAD_COS_F32) tell a wrong
+multi-device run from a sound one: ``md_fault_check.py --device cpu`` runs
+the phase's two-rank comparisons at tiny widths in float32 on gloo ranks,
+sound and with each planted fault (``md_fault_check.FAULTS``), and every
+sound run must pass both sets of limits while every fault fails them.
 """
 
 import json
@@ -41,3 +42,14 @@ def test_sound_runs_pass_the_limits(readings, case):
 @pytest.mark.parametrize("fault", sorted(md_fault_check.FAULTS))
 def test_planted_faults_fail_the_limits(readings, fault):
     assert not readings[fault]["passes"], readings[fault]
+
+
+@pytest.mark.parametrize("case", ["replicated", "sharded", "tp"])
+def test_sound_runs_pass_the_float32_limits(readings, case):
+    assert readings[f"sound_{case}"]["passes_float32"], \
+        readings[f"sound_{case}"]
+
+
+@pytest.mark.parametrize("fault", sorted(md_fault_check.FAULTS))
+def test_planted_faults_fail_the_float32_limits(readings, fault):
+    assert not readings[fault]["passes_float32"], readings[fault]

@@ -13,6 +13,7 @@ same triangle filter in 8-bit fixed point, the library's in float).
 
 import logging
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -288,3 +289,137 @@ def test_library_rebuilds_when_older_than_its_source(tmp_path, monkeypatch):
     os.utime(lib, (old, old))
     assert first_use() and builds == [lib, lib]
     assert [p.name for p in tmp_path.iterdir()] == ["libvqa_io.so"]
+
+
+def test_library_that_does_not_load_is_rebuilt_once(tmp_path, monkeypatch):
+    """A build newer than its source that does not load (a library it
+    links moved, a truncated file) is built again once and loads."""
+    builds = []
+    real = native._build
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(native, "_build",
+                        lambda *a: builds.append(a[1]) or real(*a))
+    lib = tmp_path / "libvqa_io.so"
+    lib.write_bytes(b"not a shared object")
+    assert not native._stale(lib, [native.SRC_DIR / "io_kernels.cc"])
+    assert native.available() and builds == [lib]
+
+
+def test_pillow_build_is_stale_when_a_link_input_is_newer(tmp_path,
+                                                          monkeypatch):
+    """The second route's build is built again when a header copy or the
+    libjpeg it links is newer than it, not only its source."""
+    inc = tmp_path / "include"
+    shutil.copytree(native.INCLUDE_DIR, inc)
+    pil = tmp_path / "libjpeg-0.so.62"
+    shutil.copy(native.pillow_libjpeg(), pil)
+    monkeypatch.setattr(native, "INCLUDE_DIR", inc)
+    monkeypatch.setattr(native, "pillow_libjpeg", lambda: str(pil))
+    route, name, link, inputs = native._routes_of("jpeg")[1]
+    assert route == "pillow" and str(pil) in link
+    assert set(inputs) == {*inc.glob("*.h"), pil}
+    out = tmp_path / name
+    out.write_bytes(b"")
+    src = native.SRC_DIR / "jpeg_decode.cc"
+    t = max(src.stat().st_mtime, *(p.stat().st_mtime for p in inputs)) + 10
+    os.utime(out, (t, t))
+    assert not native._stale(out, (src, *inputs))
+    for newer in (inc / "jpeglib.h", pil):
+        os.utime(newer, (t + 10, t + 10))
+        assert native._stale(out, (src, *inputs)), newer
+        os.utime(out, (t + 20, t + 20))
+        t += 20
+
+
+@pytest.fixture
+def pillow_route(tmp_path, monkeypatch):
+    """The decoder forced onto its second route, as on a machine without
+    libjpeg's headers: a fresh build directory, nothing loaded, and the
+    system build (``-ljpeg``) failing as g++ does there. Returns the
+    builds tried, in order."""
+    builds, real = [], native._build
+
+    def build(src, out, link):
+        builds.append(out.name)
+        if "-ljpeg" in link:
+            raise OSError("jpeglib.h: No such file or directory")
+        return real(src, out, link)
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(native, "_routes", {})
+    monkeypatch.setattr(native, "_build", build)
+    assert native.pillow_libjpeg() is not None, "Pillow ships libjpeg here"
+    yield builds
+
+
+@pytest.mark.parametrize("w,h,size,mode,quality", [
+    (96, 96, 96, "RGB", 95),
+    (128, 96, 64, "RGB", 75),
+    (40, 60, 96, "RGB", 50),
+    (500, 375, 448, "RGB", 90),
+    (33, 17, 24, "RGB", 10),
+    (50, 50, 50, "L", 95),
+    (70, 45, 32, "L", 60)])
+def test_pillow_route_decodes_as_jax_native(w, h, size, mode, quality,
+                                            tmp_path, pillow_route):
+    """Built by the second route (the port's header copies, Pillow's
+    libjpeg), the decoder gives JAX's native decoder's bits on PIL-written
+    JPEGs of several sizes and qualities, grayscale included."""
+    path = _jpeg(str(tmp_path / "a.jpg"), h, w, seed=w + h, mode=mode,
+                 quality=quality)
+    images, status = native.decode_jpeg_batch([path], size, threads=2)
+    assert native.jpeg_route() == "pillow"
+    assert pillow_route == ["libvqa_jpeg.so", "libvqa_jpeg_pillow.so"]
+    theirs, their_status = jnative.decode_jpeg_batch([path], size)
+    assert status.tolist() == their_status.tolist() == [0]
+    np.testing.assert_array_equal(images, theirs)
+    np.testing.assert_array_equal(ingest._decode(path, size), images[0])
+
+
+def test_pillow_route_leaves_cmyk_to_pil(tmp_path, pillow_route):
+    """On the second route a CMYK JPEG is flagged as on the first (zeros,
+    a nonzero status) and ``_decode`` gives PIL's pixels for it."""
+    good = _jpeg(str(tmp_path / "good.jpg"), 30, 40, seed=1)
+    cmyk = _jpeg(str(tmp_path / "cmyk.jpg"), 30, 40, seed=2, mode="CMYK")
+    images, status = native.decode_jpeg_batch([good, cmyk], 16)
+    assert native.jpeg_route() == "pillow"
+    assert status[0] == 0 and status[1] != 0 and not images[1].any()
+    theirs, _ = jnative.decode_jpeg_batch([good], 16)
+    np.testing.assert_array_equal(images[:1], theirs)
+    np.testing.assert_array_equal(ingest._decode(cmyk, 16),
+                                  ingest._decode_pil(cmyk, 16))
+
+
+def test_system_route_is_tried_first(tmp_path, monkeypatch):
+    """Where the system's libjpeg builds, the decoder takes it: one build,
+    of ``libvqa_jpeg.so`` with ``-ljpeg``, and no Pillow build."""
+    builds, real = [], native._build
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(native, "_routes", {})
+    monkeypatch.setattr(native, "_build", lambda src, out, link: builds.append(
+        (out.name, tuple(link))) or real(src, out, link))
+    assert native.jpeg_available() and native.jpeg_route() == "system"
+    assert builds == [("libvqa_jpeg.so", ("-ljpeg",))]
+    assert [p.name for p in tmp_path.iterdir()] == ["libvqa_jpeg.so"]
+
+
+def test_every_route_failing_falls_back_to_pil_once(failed_build, tmp_path,
+                                                    monkeypatch):
+    """Where neither route builds, both are tried, PIL decodes, the route
+    is None and one warning names both routes' errors."""
+    tried = []
+    monkeypatch.setattr(native, "_routes", {})
+    failing = native._build
+    monkeypatch.setattr(native, "_build", lambda src, out, link: tried.append(
+        out.name) or failing(src, out, link))
+    path = _jpeg(str(tmp_path / "a.jpg"), 20, 30, seed=5)
+    assert native.decode_jpeg_batch([path], 16) is None
+    assert native.jpeg_route() is None
+    assert tried == ["libvqa_jpeg.so", "libvqa_jpeg_pillow.so"]
+    np.testing.assert_array_equal(ingest._decode(path, 16),
+                                  ingest._decode_pil(path, 16))
+    assert len(failed_build) == 1
+    assert "system:" in failed_build[0] and "pillow:" in failed_build[0]

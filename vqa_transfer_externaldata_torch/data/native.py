@@ -4,20 +4,32 @@ and a batched libjpeg decoder with PIL's triangle resize
 (``native/jpeg_decode.cc``).
 
 Each library is compiled with ``g++`` at its first use (never at import)
-into ``<repo>/build/torch_native/``, and again whenever it is older than its
-source. Where a build fails (no compiler, no libjpeg) the gathers fall back
-to numpy fancy indexing and the decoder to PIL, with one logged warning:
-:func:`available` and :func:`jpeg_available` say which path is live.
+into ``<repo>/build/torch_native/``, and again whenever it is older than
+any of its inputs (its source; the header copies and the libjpeg it links
+on the "pillow" route) or an existing build fails to load. The decoder
+takes the first of two routes that builds: "system", against the
+machine's libjpeg (``-ljpeg``, as the JAX package builds it); then
+"pillow", against the port's copies of libjpeg-turbo's headers
+(``native/include/``, with its license) linked to the libjpeg that Pillow
+ships in the ``pillow.libs`` directory beside ``PIL``, with an rpath to it.
+Where the machine has no ``jpeglib.h``, each process that decodes first
+tries the system build, which stops at that missing header in a fraction
+of a second. Where every route fails (no compiler, no libjpeg) the gathers
+fall back to numpy fancy indexing and the decoder to PIL, with one logged
+warning: :func:`available`, :func:`jpeg_available` and :func:`jpeg_route`
+say which path is live.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import importlib.util
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -26,20 +38,86 @@ from vqa_transfer_externaldata_torch.utils.logging import log
 SRC_DIR = Path(__file__).resolve().parents[1] / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 
-# library -> (source, link flags, ABI entry, what runs without it). The
-# decoder is its own object (it needs -ljpeg), so the gathers build where
-# libjpeg is missing.
-_LIBS = {"io": ("io_kernels.cc", (), "vqa_io_abi_version", "numpy gathers"),
-         "jpeg": ("jpeg_decode.cc", ("-ljpeg",), "vqa_jpeg_abi_version",
-                  "PIL decode")}
+INCLUDE_DIR = SRC_DIR / "include"
+
+# library -> (source, ABI entry, what runs without it). The decoder is its
+# own object (it needs libjpeg), so the gathers build where libjpeg is
+# missing.
+_LIBS = {"io": ("io_kernels.cc", "vqa_io_abi_version", "numpy gathers"),
+         "jpeg": ("jpeg_decode.cc", "vqa_jpeg_abi_version", "PIL decode")}
 
 _lock = threading.Lock()
 _loaded: Dict[str, Optional[ctypes.CDLL]] = {}
+_routes: Dict[str, Optional[str]] = {}
 
 _u16p = ctypes.POINTER(ctypes.c_uint16)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _f32p = ctypes.POINTER(ctypes.c_float)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+
+
+def pillow_libjpeg() -> Optional[str]:
+    """The libjpeg shared object that Pillow ships (``libjpeg-*.so.62*`` in
+    the ``pillow.libs`` directory beside the ``PIL`` package), or None
+    where Pillow is not installed or ships none (a build against the
+    system's libjpeg)."""
+    try:
+        spec = importlib.util.find_spec("PIL")
+    except (ImportError, ValueError):
+        return None
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    pil = Path(list(spec.submodule_search_locations)[0])
+    found = sorted(glob.glob(str(pil.parent / "pillow.libs"
+                                 / "libjpeg-*.so.62*")))
+    return found[0] if found else None
+
+
+def _routes_of(name: str
+               ) -> List[Tuple[str, str, Tuple[str, ...], Tuple[Path, ...]]]:
+    """The builds of library ``name`` to try in order: (route, output file
+    name, compiler and link flags, the inputs besides the source that a
+    build is older than when stale). The gathers have one; the decoder the
+    system's libjpeg, then Pillow's through the port's header copies
+    (where Pillow ships one)."""
+    if name == "io":
+        return [("system", "libvqa_io.so", (), ())]
+    routes = [("system", "libvqa_jpeg.so", ("-ljpeg",), ())]
+    pil = pillow_libjpeg()
+    if pil is not None and (INCLUDE_DIR / "jpeglib.h").exists():
+        routes.append(("pillow", "libvqa_jpeg_pillow.so", (
+            f"-I{INCLUDE_DIR}", pil, f"-Wl,-rpath,{os.path.dirname(pil)}"),
+            (*sorted(INCLUDE_DIR.glob("*.h")), Path(pil))))
+    return routes
+
+
+def _stale(out: Path, inputs: Sequence[Path]) -> bool:
+    """Whether the build ``out`` is missing or older than any of its
+    ``inputs`` that exist (a prebuilt library without its source just
+    loads)."""
+    try:
+        built = out.stat().st_mtime
+    except OSError:
+        return True
+    for path in inputs:
+        try:
+            if path.stat().st_mtime > built:
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def _open(name: str, out: Path, abi: str) -> ctypes.CDLL:
+    """The built library ``out`` loaded, its ABI version checked and its
+    functions declared; raises OSError where it cannot."""
+    lib = ctypes.CDLL(str(out))
+    getattr(lib, abi).restype = ctypes.c_int
+    version = getattr(lib, abi)()
+    if version != 1:
+        raise OSError(f"{out}: {abi}() = {version}, expected 1")
+    _declare(name, lib)
+    return lib
 
 
 def _build(src: Path, out: Path, link: Sequence[str]) -> None:
@@ -74,33 +152,42 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
 
 
 def _load(name: str) -> Optional[ctypes.CDLL]:
-    """The library ``name`` ("io" or "jpeg"), built when missing or older
-    than its source; None (and one warning) when it cannot be built or
-    loaded. The outcome is kept for the process."""
+    """The library ``name`` ("io" or "jpeg") of the first route of
+    :func:`_routes_of` that builds and loads, built when missing or older
+    than any of its inputs, and built again once where an earlier build
+    does not load; None (and one warning naming every route's error) when
+    none does. The outcome is kept for the process."""
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        source, link, abi, fallback = _LIBS[name]
-        src, out = SRC_DIR / source, BUILD_DIR / f"libvqa_{name}.so"
-        try:  # a prebuilt library without its source just loads
-            stale = out.stat().st_mtime < src.stat().st_mtime
-        except OSError:
-            stale = not out.exists()
-        lib = None
-        try:
-            if stale:
-                _build(src, out, link)
-            lib = ctypes.CDLL(str(out))
-            getattr(lib, abi).restype = ctypes.c_int
-            version = getattr(lib, abi)()
-            if version != 1:
-                raise OSError(f"{out}: {abi}() = {version}, expected 1")
-            _declare(name, lib)
-        except (OSError, subprocess.SubprocessError) as e:
+        source, abi, fallback = _LIBS[name]
+        src = SRC_DIR / source
+        lib, route, errors = None, None, []
+        for route_name, file_name, link, inputs in _routes_of(name):
+            out = BUILD_DIR / file_name
+            built = _stale(out, (src, *inputs))
+            try:
+                if built:
+                    _build(src, out, link)
+                try:
+                    lib = _open(name, out, abi)
+                except OSError:
+                    if built:
+                        raise
+                    _build(src, out, link)  # e.g. a moved libjpeg
+                    lib = _open(name, out, abi)
+                route = route_name
+                break
+            except (OSError, subprocess.SubprocessError) as e:
+                errors.append(f"{route_name}: {e}")
+                lib = None
+        if lib is None:
             log.warning("native %s library unavailable (%s); using %s",
-                        name, e, fallback)
-            lib = None
-        _loaded[name] = lib
+                        name, "; ".join(errors), fallback)
+        elif name == "jpeg":
+            log.info("native jpeg library built by the %s route%s", route,
+                     f" (after {'; '.join(errors)})" if errors else "")
+        _loaded[name], _routes[name] = lib, route
         return lib
 
 
@@ -112,6 +199,14 @@ def available() -> bool:
 def jpeg_available() -> bool:
     """Whether :func:`decode_jpeg_batch` decodes (else it returns None)."""
     return _load("jpeg") is not None
+
+
+def jpeg_route() -> Optional[str]:
+    """The route the decoder was built by: "system" (``-ljpeg``), "pillow"
+    (the port's headers and Pillow's libjpeg), or None where neither built
+    and PIL decodes."""
+    _load("jpeg")
+    return _routes.get("jpeg")
 
 
 def _threads() -> int:

@@ -159,7 +159,8 @@ class VQAAttentionModel(nn.Module):
             # The per-cell L2 normalization of the grid is fused into the op.
             v_att, alpha = spatial_attention(
                 features.to(dt), qh, self.att_wv, self.att_ws, normalize=True,
-                feature_grad=self.feature_grad, use_kernels=self.use_pallas)
+                feature_grad=self.feature_grad, use_kernels=self.use_pallas,
+                train=train)
         fused = self.fuse_q(q) * self.fuse_v(v_att.to(dt))
         if train and self.dropout > 0.0:
             fused = dropout(fused, self.dropout, generator)

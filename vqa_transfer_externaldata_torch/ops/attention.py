@@ -212,6 +212,42 @@ def _score_dot(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.bmm(v, gc[:, :, None], out_dtype=torch.float32)[:, :, 0]
 
 
+def _f32_rnorm(v: torch.Tensor) -> torch.Tensor:
+    """rsqrt(|v_n|^2 + 1e-12) of every cell of v [B, N, C] from float32
+    squares -> [B, N] f32 (JAX's gathered backward's ``r``), summed
+    without an f32 copy of the grid."""
+    n = torch.linalg.vector_norm(v, dim=-1, dtype=torch.float32)
+    return torch.rsqrt(n.square() + 1e-12)
+
+
+def _f16_norm_scale(v: torch.Tensor) -> torch.Tensor:
+    """2^-k (a 0-d float16 device tensor, no host sync) with the least
+    k >= 0 that brings every |value| of the float16 grid ``v`` to 2^7 or
+    below, so that each value's float16 square (at most 2^14) is finite.
+    The largest |value| is one reduction over the grid, with no copy."""
+    m = torch.linalg.vector_norm(v, ord=float("inf")).float()
+    k = torch.ceil(torch.log2(m * 2.0 ** -7)).clamp_min(0.0)
+    return torch.exp2(-k).to(torch.float16)
+
+
+def _f16_dzr_scale(ds: torch.Tensor, ws: torch.Tensor,
+                   r: Optional[torch.Tensor]) -> torch.Tensor:
+    """A power of two (a 0-d f32 device tensor, no host sync) that puts
+    the bound max_n |ds_n| r_n * max |ws| of every |dz r| = |ds ws r| K8h
+    rounds to float16 at 2^14..2^15. K8h's dW_v takes float16(dz r) as B6
+    does, while JAX's training backward rounds dz before the r of its
+    normalized grid: where the grid's cells are long (r small) dz r falls
+    below float16's normal range and rounds to 0 or to a few bits. The
+    bound takes ds and r of the same cell, so a short cell (r large) that
+    draws little attention (ds small) does not push the others' dz r back
+    down. The op scales ds by this before K8h and divides dqh, dW_v and
+    dws by it after, which is exact in f32 and moves no float16 rounding
+    of a normal value."""
+    big = (ds.abs() if r is None else ds.abs() * r).amax() * ws.abs().amax()
+    e = torch.floor(torch.log2(big.clamp_min(2.0 ** -100)))
+    return torch.exp2((14.0 - e).clamp(-100.0, 100.0))
+
+
 class _GatheredAttention(torch.autograd.Function):
     """Forward K2 (K2h on a float16 grid, K2f on a float32 one; the plain
     version on the CPU), saving the per-cell norm r that it computed.
@@ -224,7 +260,7 @@ class _GatheredAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, v, qh, wv, ws, normalize, bwd_kernel, feature_grad,
-                kernel):
+                kernel, f32_r):
         wv_c = wv.to(v.dtype).contiguous()
         ws_c = ws.to(v.dtype).float().contiguous()
         qh_c = qh.float().contiguous()
@@ -241,14 +277,15 @@ class _GatheredAttention(torch.autograd.Function):
             v_att, alpha, r = attention_fwd_reference(v, qh_c, wv_c, ws_c,
                                                       normalize)
         ctx.save_for_backward(v, qh_c, wv_c, ws, ws_c, alpha, v_att, r)
-        ctx.meta = (normalize, bwd_kernel, feature_grad, qh.dtype, wv.dtype,
-                    ws.dtype)
+        ctx.meta = (normalize, bwd_kernel, feature_grad, f32_r, qh.dtype,
+                    wv.dtype, ws.dtype)
         return v_att, alpha
 
     @staticmethod
     def backward(ctx, g, ga):
         v, qh_c, wv_c, ws, ws_c, alpha, v_att, r = ctx.saved_tensors
-        normalize, bwd_kernel, feature_grad, qh_dt, wv_dt, ws_dt = ctx.meta
+        (normalize, bwd_kernel, feature_grad, f32_r, qh_dt, wv_dt,
+         ws_dt) = ctx.meta
         g = torch.zeros_like(v_att) if g is None else g.float()
         ga = torch.zeros_like(alpha) if ga is None else ga.float()
         dv = None
@@ -258,6 +295,11 @@ class _GatheredAttention(torch.autograd.Function):
                 feature_grad=feature_grad)
             dv = dv.to(v.dtype) if dv is not None else None
         else:
+            if f32_r:
+                # K2h squares each value in float16 (as B5 does), where a
+                # value past 256 overflows and its cell's r falls to 0;
+                # JAX's backward takes r from float32 squares.
+                r = _f32_rnorm(v)
             dalpha = _score_dot(v, g)
             if normalize:
                 dalpha = dalpha * r
@@ -265,15 +307,21 @@ class _GatheredAttention(torch.autograd.Function):
             ds = (alpha * (dalpha + ga - s[:, None])).contiguous()
             bwd = (attention_bwd if v.device.type == "cuda"
                    else attention_bwd_reference)
+            scale = None
+            if v.dtype == torch.float16:
+                scale = _f16_dzr_scale(ds, ws_c, r if normalize else None)
+                ds = ds * scale
             dqh, dwv, dws = bwd(v, qh_c, wv_c, ws_c, ds, r, normalize)
+            if scale is not None:
+                dqh, dwv, dws = dqh / scale, dwv / scale, dws / scale
         return (dv, dqh.to(qh_dt), dwv.to(wv_dt), dws.to(ws_dt), None, None,
-                None, None)
+                None, None, None)
 
 
 def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
                       w_score: torch.Tensor, *, normalize: bool = False,
                       bwd_kernel: bool = True, feature_grad: bool = True,
-                      use_kernels: bool = True
+                      use_kernels: bool = True, train: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention over a gathered grid: v [B, N, C] in the compute dtype, qh
     [B, H], wv [C, H], w_score [H] -> (v_att [B, C] f32, alpha [B, N] f32),
@@ -290,6 +338,17 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
     :func:`spatial_attention_reference` without ``normalize``) and the
     explicit backward, as JAX does with ``use_pallas`` off.
 
+    ``train`` (a training step's forward) with ``normalize`` on a float16
+    grid first scales it by a power of two (:func:`_f16_norm_scale`): K2h
+    squares each value in float16 for its cell norms, as B5 does and JAX's
+    evaluation and serving take it, so a value past 256 overflows and its
+    cell's norm falls to 0, while JAX trains through its XLA forward, whose
+    norms come from float32 squares. The scaled grid gives K2h's z, alpha
+    and v_att those norms (the scale cancels in z * r and in the weighted
+    sum), and K8h the forward's r; autograd takes dv through the scaling.
+    A float16 grid's backward without that scaling (``train`` off) takes r
+    from float32 squares of the grid, as JAX's backward does.
+
     One glimpse only, as in the JAX package: a 2-D ``w_score`` raises
     ``ValueError`` (:func:`spatial_attention_multi` takes G glimpses)."""
     if w_score.dim() != 1:
@@ -299,8 +358,12 @@ def spatial_attention(v: torch.Tensor, qh: torch.Tensor, wv: torch.Tensor,
             "glimpses")
     if v.device.type not in ("cuda", "cpu"):
         raise ValueError(f"spatial_attention: no path for device {v.device}")
+    f16_norm = normalize and use_kernels and v.dtype == torch.float16
+    if f16_norm and train:
+        v = v * _f16_norm_scale(v.detach())
     return _GatheredAttention.apply(v, qh, wv, w_score, normalize,
-                                    bwd_kernel, feature_grad, use_kernels)
+                                    bwd_kernel, feature_grad, use_kernels,
+                                    f16_norm and not train)
 
 
 def attention_pad(Cp: int, Hp: int, v: torch.Tensor, qh: torch.Tensor,

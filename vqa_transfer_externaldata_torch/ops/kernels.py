@@ -540,6 +540,25 @@ def gru_f32_plan(B: int, H: int, sms: int, per_sm: int,
                          if backward else chain_launches)}
 
 
+def gru_f32_launches(T: int, B: int, H: int, sms: int, per_sm: int,
+                     backward: bool = False, directions: int = 1,
+                     per_sm_pair: int = 0) -> int:
+    """The launches a call over ``T`` steps of K1f (``backward`` False) or
+    K3f, with ``directions`` 2 of K6f or K7f, at batch ``B`` and width
+    ``H`` on a card of ``sms`` SMs with ``per_sm`` (``per_sm_pair``) blocks
+    resident per SM: :func:`gru_f32_plan`'s where :func:`gru_f32_route`
+    takes the persistent form; in the step form (``csrc/gru_step_f32.cuh``,
+    every chain in each launch) T forward, and backward two a step (the
+    gates' cotangents, then the carried dh, which the last step skips),
+    then dU_h and db_hn: 2T + 1."""
+    if T < 1:
+        raise ValueError(f"gru_f32_launches needs T >= 1, got T={T}")
+    if gru_f32_route(B, H, sms, per_sm, backward, directions) == "step":
+        return 2 * T + 1 if backward else T
+    return gru_f32_plan(B, H, sms, per_sm, backward, directions,
+                        per_sm_pair)["launches"]
+
+
 def gru_step_plan(T: int, B: int, H: int, backward: bool,
                   directions: int = 1) -> dict:
     """The launches of the step form (``csrc/gru_wide_step.cuh``) over
