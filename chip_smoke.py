@@ -606,8 +606,8 @@ TRACE_KERNELS = {
     "attention_resident_bwd": ("attn_res_bwd_rows_kernel", "attn_dwv::"),
     # Phase 32's graphed paths: the float16 builds and the int8 rows run
     # the bf16 kernels' bodies under their names; the float32 main path's
-    # kernels of csrc/gru_seq_f32.cuh, fp32_tile.cuh, fp32_ring.cuh and
-    # attention_f32.cuh (K1f and K3f in their persistent forms).
+    # kernels of csrc/gru_seq_f32.cuh, fp32_ring.cuh and attention_f32.cuh
+    # (K1f and K3f in their persistent forms).
     "gru_fwd_f16": ("gru_seq_kernel",),
     "gru_bwd_f16": ("gru_bptt_kernel", "gru_duh_pipe_kernel",
                     "gru_dbhn_kernel"),
@@ -621,7 +621,7 @@ TRACE_KERNELS = {
     "gru_fwd_f32": ("gru_seq_f32::gru_f32_seq_kernel",),
     "gru_bwd_f32": ("gru_seq_f32::gru_f32_gh_kernel",
                     "gru_seq_f32::gru_f32_bptt_kernel",
-                    "fp32_tile::product_kernel",
+                    "gru_seq_f32::gru_f32_duh_kernel",
                     "gru_f32::gru_f32_dbhn_kernel"),
     "attention_resident_fwd_f32": ("attn_f32_score_ring_kernel",
                                    "attn_f32_wsum_kernel",
@@ -5370,13 +5370,21 @@ def bound_f32(nbytes: float, flops: float) -> tuple:
 # step's gh, the chain, dU_h and db_hn.
 K3F_LAUNCH_KERNELS = {"gh": "gru_seq_f32::gru_f32_gh_kernel",
                       "chain": "gru_seq_f32::gru_f32_bptt_kernel",
-                      "duh": "fp32_tile::product_kernel",
+                      "duh": "gru_seq_f32::gru_f32_duh_kernel",
                       "dbhn": "gru_f32::gru_f32_dbhn_kernel"}
 # The profiler name of K6f's launch and of K7f's four launches
 # (csrc/bigru_{fwd,bwd}_f32.cu), each taking both chains.
 K6F_KERNEL = "gru_seq_f32::gru_f32_seq_kernel"
 K7F_LAUNCH_KERNELS = {"gh": "gru_seq_f32::gru_f32_gh_kernel",
                       "chain": "gru_seq_f32::gru_f32_bptt_kernel",
+                      "duh": "gru_seq_f32::gru_f32_duh_kernel",
+                      "dbhn": "gru_f32::gru_f32_dbhn_kernel"}
+# The profiler names of the float32 BPTT's step form (K3f's and K7f's,
+# csrc/gru_bptt_f32.cuh): the lists, every live row-step's gh, the T fused
+# carries, dU_h and db_hn.
+F32_STEP_BWD_PARTS = {"lists": "gru_bptt_f32::gru_f32_lists_kernel",
+                      "gh": "gru_seq_f32::gru_f32_gh_kernel",
+                      "carry": "gru_bptt_f32::gru_f32_carry_kernel",
                       "duh": "gru_seq_f32::gru_f32_duh_kernel",
                       "dbhn": "gru_f32::gru_f32_dbhn_kernel"}
 # The profiler names of the float32 products on fp32_ring.cuh's loop.
@@ -6025,7 +6033,7 @@ def f32_bigru_checks(dev, gen) -> dict:
     and every form (the route's, one launch a chain, the step form) gives
     the same bits; two calls of each bit-equal."""
     import torch
-    from vqa_transfer_externaldata_torch.ops import gru
+    from vqa_transfer_externaldata_torch.ops import gru, kernels
 
     lim = (6.0 / (4 * H)) ** 0.5  # glorot scale of U_h [H, 3H]
     gxf, gxb = (torch.randn(T, B_TRAIN, 3 * H, generator=gen, device=dev)
@@ -6068,7 +6076,7 @@ def f32_bigru_checks(dev, gen) -> dict:
     # 64-row tiling has no K7f twin: the route's K7f call stands there).
     forms = {}
     for form, want in (("per_chain", (2, 5)), ("persistent64", (1, 4)),
-                       ("step", (T, 2 * T + 1))):
+                       ("step", (T, T + kernels.GRU_F32_STEP_BWD_LAUNCHES))):
         counts = (gru.bigru_fwd_f32.launches, gru.bigru_bwd_f32.launches)
         out = (gru.bigru_fwd_f32(*args, form=form),
                gru.bigru_bwd_f32(*bwd_args, form=None if form ==
@@ -8672,7 +8680,8 @@ def unrun_wide_times(dev) -> dict:
     ``kernels.gru_f32_launches`` for float32), and it is timed in turns
     with its library call (library, kernel, kernel, library), with its
     plain version's time and its bound (K6/K7's twice K1/K3's at the same
-    lengths; float32 at the FFMA peak)."""
+    lengths; float32 at the FFMA peak); the float32 BPTT step forms' (K3f,
+    K7f) launches apart, device ms a call of each (F32_STEP_BWD_PARTS)."""
     import torch
     from vqa_transfer_externaldata_torch.ops import gru, kernels
 
@@ -8774,6 +8783,10 @@ def unrun_wide_times(dev) -> dict:
             lib_call = lib[two][back]
             t = [time_cuda(lib_call, buf), time_cuda(kernel, buf),
                  time_cuda(kernel, buf), time_cuda(lib_call, buf)]
+            # The float32 BPTT step form's launches apart: device ms a call
+            # of each part, from one profile.
+            parts = (split_device_ms(kernel, F32_STEP_BWD_PARTS, buf)
+                     if dtype == torch.float32 and back else None)
             out[name] = {
                 "ms": t[1], "turns_ms": t, "kernel_turns": [t[1], t[2]],
                 "library_turns": [t[0], t[3]],
@@ -8789,6 +8802,11 @@ def unrun_wide_times(dev) -> dict:
                 + (", input-projection gradients included" if back
                    else ", input projection included")
                 + (" (TF32 off)" if dtype == torch.float32 else "")}
+            if parts is not None:
+                out[name]["parts_device_ms"] = parts
+                print(f"{name} at H={Hh}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts.items())
+                    + " device ms a call")
             r = out[name]
             print(f"{name} at H={Hh}, B={B_TRAIN}: {t[1]:.4f} / "
                   f"{t[2]:.4f} ms, library {t[0]:.4f} / {t[3]:.4f} ms, in "

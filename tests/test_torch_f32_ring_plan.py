@@ -146,6 +146,17 @@ def test_plan_shared_memory(elem, kmajor, wb):
     assert plan["smem_bytes"] == want
     assert plan["smem_bytes"] % 16 == 0
     assert 2 * (plan["smem_bytes"] + 1024) <= SM_SMEM
+    # B's rows through an index (the GRU's dU_h, MN-major only): a slot of
+    # B's row pointers a stage beside A's.
+    if kmajor:
+        with pytest.raises(ValueError, match="index"):
+            kernels.f32_ring_plan(elem, kmajor, 2048 * elem, 0, wb * 25, 0,
+                                  b_listed=True)
+    else:
+        listed = kernels.f32_ring_plan(elem, kmajor, 2048 * elem, 0,
+                                       wb * 25, 0, b_listed=True)
+        assert listed["smem_bytes"] == want + 8 * 4 * BK
+        assert 2 * (listed["smem_bytes"] + 1024) <= SM_SMEM
 
 
 def test_plan_refuses_a_misaligned_b_and_other_elements():
@@ -193,7 +204,8 @@ def test_the_c_side_states_the_same_layout():
     src = (kernels.CSRC / "fp32_ring.cuh").read_text()
     for line in ("constexpr int TILE = 128;", "constexpr int BK = 16;",
                  "constexpr int STAGES = 4;",
-                 "constexpr int WPITCH = TILE + 4;"):
+                 "constexpr int WPITCH = TILE + 4;",
+                 "kBP + (BLISTED ? 8 * STAGES * BK : 0)"):
         assert line in src
     assert kernels.F32_RING_CHUNK == BK and kernels.F32_RING_STAGES == 4
     assert kernels.F32_RING_WIDE_PITCH == TILE + 4

@@ -452,8 +452,9 @@ def test_wrappers_refuse_other_dtypes_naming_the_float16_item(wrapper,
     ("attention_bwd_f32", ["fp32_ring.cuh", "store_rows_f32.cuh"]),
     ("bigru_fwd_f32", ["gru_seq_f32.cuh", "fp32_ring.cuh", "gru_step_f32.cuh",
                        "store_rows_f32.cuh", "fp32_tile.cuh"]),
-    ("bigru_bwd_f32", ["gru_seq_f32.cuh", "fp32_ring.cuh", "gru_step_f32.cuh",
-                       "store_rows_f32.cuh", "fp32_tile.cuh"]),
+    ("bigru_bwd_f32", ["gru_seq_f32.cuh", "gru_bptt_f32.cuh", "fp32_ring.cuh",
+                       "gru_step_f32.cuh", "store_rows_f32.cuh",
+                       "fp32_tile.cuh"]),
     ("gru_fwd_f32", ["gru_seq_f32.cuh", "fp32_ring.cuh", "gru_step_f32.cuh",
                      "store_rows_f32.cuh", "fp32_tile.cuh"]),
     ("attention_resident_bwd_f32", ["fp32_ring.cuh", "store_rows_f32.cuh"]),
@@ -461,10 +462,11 @@ def test_wrappers_refuse_other_dtypes_naming_the_float16_item(wrapper,
 def test_float32_kernel_sources(name, headers):
     """K2f runs K4f's launches (attention_f32.cuh) over a dense row source;
     the attention products (K2f, K4f, K5f, K8f) run fp32_ring.cuh's tile
-    loop, the GRU kernels' step form fp32_tile.cuh's; K1f's persistent
+    loop, the GRU's forward step form fp32_tile.cuh's; K1f's persistent
     kernel (gru_seq_f32.cuh) holds its U_h slice beside a cp.async ring of
     fp32_ring.cuh's copies; K6f and K7f run K1f's and K3f's persistent
-    kernels (gru_seq_f32.cuh) and their step form (gru_step_f32.cuh), so
-    each library hashes the headers it shares."""
+    kernels (gru_seq_f32.cuh) and their step forms (gru_step_f32.cuh
+    forward, gru_bptt_f32.cuh for the BPTT), so each library hashes the
+    headers it shares."""
     assert [p.name for p in kernels.sources(name)] == [f"{name}.cu",
                                                        *headers]

@@ -340,21 +340,24 @@ def test_bigru_f32_plan_at_the_training_shape():
 @pytest.mark.parametrize("directions", [1, 2])
 @pytest.mark.parametrize("backward", [False, True])
 def test_gru_f32_launches_follow_the_route(directions, backward):
-    """On an H100 (132 SMs, one block an SM) at B=256 and T=26: the
-    persistent form's launches at H = 512 (K1f and K6f 1, K3f and K7f 4),
-    the step form's past the widest persistent width, at 2400 too (T
-    forward, 2T + 1 backward); T = 0 raises."""
-    T, at = 26, (132, 1, backward, directions)
-    assert kernels.gru_f32_launches(T, 256, 512, *at) == (
-        kernels.gru_f32_plan(256, 512, *at)["launches"]) == (
-        4 if backward else 1)
+    """On an H100 (132 SMs, one block an SM) at B=256 and T = 1, 2 and 26:
+    the persistent form's launches at H = 512 (K1f and K6f 1, K3f and K7f
+    4, at any T), the step form's past the widest persistent width, at
+    2400 too (T forward; backward T + 4: the lists, gh, T carries, dU_h
+    and db_hn, one chain or two); T = 0 raises."""
+    at = (132, 1, backward, directions)
     widest = 1013 if backward else 1024
-    assert kernels.gru_f32_launches(T, 256, widest, *at) == (
-        4 if backward else 1)
-    for H in (widest + 1, 2400):
-        assert kernels.gru_f32_route(256, H, *at) == "step"
-        assert kernels.gru_f32_launches(T, 256, H, *at) == (
-            2 * T + 1 if backward else T)
+    for T in (1, 2, 26):
+        assert kernels.gru_f32_launches(T, 256, 512, *at) == (
+            kernels.gru_f32_plan(256, 512, *at)["launches"]) == (
+            4 if backward else 1)
+        assert kernels.gru_f32_launches(T, 256, widest, *at) == (
+            4 if backward else 1)
+        for H in (widest + 1, 2400):
+            assert kernels.gru_f32_route(256, H, *at) == "step"
+            assert kernels.gru_f32_launches(T, 256, H, *at) == (
+                T + 4 if backward else T)
+    assert kernels.GRU_F32_STEP_BWD_LAUNCHES == 4
     with pytest.raises(ValueError):
         kernels.gru_f32_launches(0, 256, 512, *at)
 
@@ -414,9 +417,10 @@ def test_the_launcher_refuses_an_unknown_form():
 def test_k1f_and_k3f_include_the_shared_gate_math(name):
     """K1f's and K3f's sources include the persistent kernels'
     header and, through it, gru_step_f32.cuh, which holds the gate math
-    (gates, cell, cell_bwd) and the step form; both forms run that math,
-    K6f and K7f too. Each library exports its persistent entry, its step
-    form and its launch query."""
+    (gates, cell, cell_bwd) and the forward step form; the BPTT's step
+    form (gru_bptt_f32.cuh) runs cell_bwd in its carry's epilogue; both
+    forms run that math, K6f and K7f too. Each library exports its
+    persistent entry, its step form and its launch query."""
     names = [p.name for p in kernels.sources(name)]
     assert names[:2] == [f"{name}.cu", "gru_seq_f32.cuh"]
     assert "gru_step_f32.cuh" in names and "fp32_ring.cuh" in names
@@ -426,7 +430,9 @@ def test_k1f_and_k3f_include_the_shared_gate_math(name):
     assert "gru_f32::gates(" in HEADER and "gru_f32::cell(" in HEADER
     assert "gru_f32::cell_bwd(" in HEADER
     assert "cudaLaunchCooperativeKernel" in HEADER and "grid.sync()" in HEADER
-    assert "Cotangents c = cell_bwd(" in step and "cell(q, hp, live)" in step
+    bptt = (kernels.CSRC / "gru_bptt_f32.cuh").read_text()
+    assert "gru_f32::cell_bwd(q, hp, d, true)" in bptt
+    assert "cell(q, hp, live)" in step and "cell_bwd(q" not in step
     text = (kernels.CSRC / f"{name}.cu").read_text()
     for entry in (name, f"{name}_step", f"{name}_config"):
         assert re.search(rf"^int {entry}\(", text, re.MULTILINE), entry
@@ -455,5 +461,188 @@ def test_k6f_and_k7f_run_the_persistent_kernels_of_k1f_and_k3f(name):
     assert "persist_launch<" in text and "persist_config<" in text
     assert "blockIdx.z == 0 ? a.c[0] : a.c[1]" in HEADER
     if "bwd" in name:
-        assert "gh_launch(" in text and "gru_f32_duh_kernel" in text
-        assert "gru_f32_dbhn_kernel" in text
+        assert "gh_launch(" in text and "duh_launch(" in text
+        assert "dbhn_launch(" in text
+
+
+# The float32 BPTT's step form (csrc/gru_bptt_f32.cuh): its lists launch,
+# mirrored here round by round as the C kernel ranks its rows, and the
+# carry launch's tiling.
+BPTT = (kernels.CSRC / "gru_bptt_f32.cuh").read_text()
+
+
+def _bptt_const(name: str) -> int:
+    m = re.search(rf"constexpr int {name} = ([^;]+);", BPTT)
+    assert m, name
+    return int(eval(m.group(1), {}, {k: _bptt_const(k) for k in re.findall(
+        r"[A-Z][A-Z_]*", m.group(1))}))
+
+
+def _c_lists(lens: np.ndarray, T: int) -> dict:
+    """gru_f32_lists_kernel's writes, block t as the C side computes them:
+    the sums over clamped lengths, then ranks in rounds of LIST_THREADS
+    rows, warp ballots counted before each warp's lane."""
+    threads = _bptt_const("LIST_THREADS")
+    B = len(lens)
+    rows = np.full((T, B), -1)
+    steps = np.full(max(T - 1, 1) * B, -1)
+    cnt, m = np.zeros(T, int), 0
+    clamp = np.maximum(lens, 0)
+    for t in range(T):
+        p, n, n0 = np.minimum(clamp, t).sum(), (clamp > t).sum(), (
+            clamp > 0).sum()
+        cnt[t] = n
+        if t == T - 1:
+            m = np.minimum(clamp, T).sum() - n0
+        live_before = dead_before = 0
+        for b0 in range(0, B, threads):
+            chunk = np.arange(b0, min(b0 + threads, B))
+            live = lens[chunk] > t
+            ranks = np.cumsum(live) - live  # live rows of the round before b
+            for k, b in enumerate(chunk):
+                if live[k]:
+                    j = live_before + ranks[k]
+                    rows[t, j] = b
+                    if t >= 1:
+                        steps[p - n0 + j] = (t - 1) * B + b
+                else:
+                    rows[t, n + dead_before + k - ranks[k]] = b
+            live_before += live.sum()
+            dead_before += len(chunk) - live.sum()
+    return {"rows": rows, "cnt": cnt, "rowsteps": steps[:m], "m": m}
+
+
+@pytest.mark.parametrize("T", [1, 2, 5, 26])
+@pytest.mark.parametrize("B", [1, 2, 63, 256, 300, 513])
+@pytest.mark.parametrize("kind", ["uniform", "all", "one", "wild"])
+def test_gru_f32_step_lists_take_every_live_row_step_once(T, B, kind):
+    """The step form's lists (``kernels.gru_f32_step_lists``, the C
+    kernel's rounds mirrored in ``_c_lists``) on lengths from a seeded
+    generator: step t's rows are a permutation of the batch, its live rows
+    (t < lens[b]) first in ascending b, then its dead ones; the packed
+    list takes every live row-step whose h_prev is not zero exactly once
+    and no other, in ascending order, for either chain (forward: b live at
+    step t >= 1, h_prev hseq[t - 1]; reverse: b live at step t + 1, so at
+    t too, h_prev hseq[t + 1]); the buffer's size is the C side's."""
+    rng = np.random.default_rng(T * 1000 + B)
+    lens = {"uniform": rng.integers(1, T + 1, B),
+            "all": np.full(B, T),
+            "one": np.where(np.arange(B) == B // 2, T, 1),
+            "wild": rng.integers(-2, T + 3, B)}[kind]
+    got = kernels.gru_f32_step_lists(lens, T)
+    c = _c_lists(lens, T)
+    for key in ("rows", "cnt", "rowsteps", "m"):
+        assert np.array_equal(got[key], c[key]), key
+    live = np.arange(T)[:, None] < lens[None, :]
+    for t in range(T):
+        n = got["cnt"][t]
+        assert n == live[t].sum()
+        assert sorted(got["rows"][t]) == list(range(B))
+        assert list(got["rows"][t][:n]) == list(np.flatnonzero(live[t]))
+        assert list(got["rows"][t][n:]) == list(np.flatnonzero(~live[t]))
+    forward = [(t - 1) * B + b for t in range(1, T) for b in range(B)
+               if live[t, b]]
+    reverse = [t * B + b for t in range(T - 1) for b in range(B)
+               if live[t, b] and live[t + 1, b]]
+    assert list(got["rowsteps"]) == forward == reverse
+    assert got["m"] == len(forward) == got["cnt"][1:].sum()
+    assert kernels.gru_f32_lists_ints(T, B) == (
+        T * B + T + max(T - 1, 1) * B + 1)
+    assert "static_cast<long long>(T > 1 ? T - 1 : 1) * B;" in BPTT
+
+
+def test_the_bptt_header_is_the_carry_plan():
+    """The carry's tiling in gru_bptt_f32.cuh is the plan's constants: 128
+    threads of 4 unit lanes, passes of 32 row groups x 8 rows, 32-k
+    stages, 2 of a whole pass, rows padded to 36 floats, the units a thread
+    that its instances take, its shared memory formula (two blocks an SM)
+    and the ring's stages at each pass height."""
+    assert _bptt_const("THREADS") == kernels.GRU_F32_CARRY_THREADS
+    assert _bptt_const("UL") == kernels.GRU_F32_CARRY_LANES
+    assert _bptt_const("RB") == kernels.GRU_F32_CARRY_PASS
+    assert _bptt_const("TR") * _bptt_const("RG") == _bptt_const("RB")
+    assert _bptt_const("KC") == kernels.GRU_F32_CARRY_CHUNK
+    assert _bptt_const("S") == kernels.GRU_F32_CARRY_STAGES
+    assert _bptt_const("P") == kernels.GRU_F32_CARRY_CHUNK + 4
+    cases = [int(x) for x in re.findall(r"case (\d+):\s+return f\(",
+                                        BPTT)]
+    assert tuple(cases) == kernels.GRU_F32_CARRY_UNITS
+    assert _bptt_const("MAX_TU") == max(kernels.GRU_F32_CARRY_UNITS)
+    assert "__launch_bounds__(THREADS, 2)" in BPTT
+    assert "const int trn = V16 ? (nr + RG - 1) / RG : TR;" in BPTT
+    assert [kernels.gru_f32_carry_pass(n) for n in (1, 32, 33, 256)] == [
+        (32, 1), (32, 1), (32, 2), (32, 8)]
+    assert "RING = S * (RB + UL * MAX_TU) * P;" in BPTT
+    assert "return RB * 8 + RING * 4;" in BPTT
+    smem = kernels.gru_f32_carry_smem()
+    assert smem % 16 == 0
+    assert 2 * (smem + kernels.F32_RING_BLOCK_RESERVED) <= (
+        kernels.F32_RING_SMEM_PER_SM)
+    assert "return RING / ((rows + UL * MAX_TU) * P);" in BPTT
+    assert [kernels.gru_f32_carry_stages(32 * r) for r in range(1, 9)] == [
+        10, 6, 4, 3, 3, 2, 2, 2]
+    ring = _bptt_const("RING")
+    for rows in range(1, 257):  # the stages fit in the ring, 2 at least
+        n = kernels.gru_f32_carry_stages(rows)
+        assert n >= _bptt_const("S")
+        assert n * (rows + 20) * _bptt_const("P") <= ring
+    with pytest.raises(ValueError, match="rows"):
+        kernels.gru_f32_carry_stages(257)
+    with pytest.raises(ValueError, match="rows"):
+        kernels.gru_f32_carry_pass(0)
+
+
+@pytest.mark.parametrize("B", [1, 8, 63, 256, 300])
+@pytest.mark.parametrize("H", [1, 6, 100, 101, 512, 1100, 2400, 4000])
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("directions", [1, 2])
+def test_gru_f32_carry_plan_takes_every_live_sum_once(B, H, sms,
+                                                      directions):
+    """Each carry launch takes every (chain, live row, unit) of its step
+    exactly once, at every live count n of the step: block (jx, 0, d) owns
+    units 4 TU jx .. of chain d; its passes of 256 list positions give
+    thread (ty, tx) the rows ty + 32 i (i below the pass's rows a thread,
+    the fewest that cover it) and the units tx + 4 e; units past H and
+    positions past n are masked; every pass's staged rows have their
+    stages. TU is the plan's pick of the instances, the one whose busiest
+    SM takes the least time (the narrower on a tie)."""
+    plan = kernels.gru_f32_carry_plan(B, H, sms, directions)
+    tu, lanes = plan["units"], kernels.GRU_F32_CARRY_LANES
+    assert tu in kernels.GRU_F32_CARRY_UNITS
+    assert plan["grid"] == [-(-H // (lanes * tu)), 1, directions]
+    assert plan["smem_bytes"] == kernels.gru_f32_carry_smem()
+    assert plan["threads"] == kernels.GRU_F32_CARRY_THREADS
+
+    def cost(u):
+        blocks = directions * -(-H // (lanes * u))
+        return -(-blocks // sms) * u
+
+    best = min(cost(u) for u in kernels.GRU_F32_CARRY_UNITS)
+    assert cost(tu) == best and all(
+        u > tu for u in kernels.GRU_F32_CARRY_UNITS
+        if cost(u) == best and u != tu)
+    groups = plan["threads"] // lanes
+    for n in sorted({0, 1, min(B, groups), min(B, groups + 1), min(B, 129),
+                     B}):
+        seen = np.zeros((n, H), np.int64)
+        for jx in range(plan["grid"][0]):
+            for p0 in range(0, n, kernels.GRU_F32_CARRY_PASS):
+                nr = min(kernels.GRU_F32_CARRY_PASS, n - p0)
+                rg, trn = kernels.gru_f32_carry_pass(nr)
+                assert rg == groups and trn * rg >= nr > (trn - 1) * rg
+                assert trn * rg in plan["stages"]
+                for tid in range(plan["threads"]):
+                    ty, tx = divmod(tid, lanes)
+                    for i in range(trn):
+                        j = p0 + ty + rg * i
+                        if j >= n:
+                            continue
+                        for e in range(tu):
+                            u = jx * lanes * tu + tx + lanes * e
+                            if u < H:
+                                seen[j, u] += 1
+        assert (seen == 1).all(), (n, H)
+    assert kernels.gru_f32_carry_plan(256, 2400, 132, 2)["grid"] == [
+        120, 1, 2]
+    with pytest.raises(ValueError, match="gru_f32_carry_plan"):
+        kernels.gru_f32_carry_plan(B, H, sms, 3)

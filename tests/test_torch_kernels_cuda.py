@@ -1821,7 +1821,7 @@ def _f32_seq_inputs(dev, T, B, H, seed):
 def test_gru_f32_persistent_form_equals_step_form(dev, B, H, reverse):
     """K1f and K3f through their wrappers: the route takes the persistent
     form where it fits (1 and 4 launches a call) and the step form at
-    H = 1100 (T and 2T + 1); every output bit-equal to the step form's on
+    H = 1100 (T and T + 4); every output bit-equal to the step form's on
     the same inputs and within TOL_F32 of the plain versions, lengths
     1..T, both directions; two calls give the same bits."""
     T = 26
@@ -1836,7 +1836,8 @@ def test_gru_f32_persistent_form_equals_step_form(dev, B, H, reverse):
     torch.cuda.synchronize()
     assert gru.gru_fwd_f32.launches - f0 == (1 if persistent else T)
     assert gru.gru_bwd_f32.launches - b0 == (
-        kernels.GRU_F32_BWD_LAUNCHES if persistent else 2 * T + 1)
+        kernels.GRU_F32_BWD_LAUNCHES if persistent
+        else T + kernels.GRU_F32_STEP_BWD_LAUNCHES)
     step_fwd = gru._gru_fwd32(gx, lens, uh, bhn, reverse, "step")
     step_bwd = gru._gru_bwd32(gx, hseq, lens, uh, bhn, ghT, reverse, "step")
     again = (gru.gru_fwd_f32(gx, lens, uh, bhn, reverse=reverse)
@@ -1917,6 +1918,175 @@ def test_gru_f32_launch_config_matches_the_plan(dev):
         gru._gru_fwd32(gx, lens, uh, bhn, False, "persistent")
     with pytest.raises(RuntimeError, match="gru_bwd_f32"):
         gru._gru_bwd32(gx, hseq, lens, uh, bhn, ghT, False, "persistent")
+
+
+# The float32 BPTT's step form (csrc/gru_bptt_f32.cuh, K3f's and K7f's
+# form="step") on its own cases: the training width 2400 and 1100 (past the
+# persistent chain), and widths where the persistent form also runs; lengths
+# uniform in 1..T (row 0 at T, row 1 at 0), every row live, every row but
+# one dead after the first step, and T = 1.
+F32_STEP_CASES = [(26, 256, 2400, "uniform"), (26, 256, 1100, "uniform"),
+                  (26, 63, 1100, "uniform"), (26, 1, 1100, "uniform"),
+                  (26, 256, 1100, "all"), (26, 256, 1100, "one"),
+                  (1, 8, 1100, "uniform"), (26, 256, 512, "all"),
+                  (26, 256, 512, "one"), (1, 8, 512, "uniform"),
+                  (2, 5, 100, "uniform"), (26, 63, 101, "one")]
+
+
+def _f32_step_inputs(dev, T, B, H, kind, seed):
+    """Both chains' BPTT inputs, K1f's states of each, and lengths of
+    ``kind``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gx = [torch.randn(T, B, 3 * H, generator=g, device=dev) * 0.5
+          for _ in "fb"]
+    uh = [torch.randn(H, 3 * H, generator=g, device=dev) * H ** -0.5
+          for _ in "fb"]
+    bhn = [torch.randn(H, generator=g, device=dev) * 0.1 for _ in "fb"]
+    ghT = [torch.randn(B, H, generator=g, device=dev) for _ in "fb"]
+    if kind == "uniform":
+        lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        lens[0] = T
+        if B > 1:
+            lens[1] = 0
+    elif kind == "all":
+        lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    else:  # every row but one dead after the first step
+        lens = torch.ones(B, dtype=torch.int32, device=dev)
+        lens[B // 2] = T
+    hsf = gru.gru_fwd_f32(gx[0], lens, uh[0], bhn[0])[1]
+    hsb = gru.gru_fwd_f32(gx[1], lens, uh[1], bhn[1], reverse=True)[1]
+    return gx, uh, bhn, ghT, lens, hsf, hsb
+
+
+@pytest.mark.parametrize("case", F32_STEP_CASES)
+def test_gru_f32_step_forms_match_plain_persistent_and_each_other(dev,
+                                                                  case):
+    """K3f's step form in both directions and K7f's: within TOL_F32 of the
+    plain versions; bit-equal to the persistent form where the route
+    takes it (H <= 1013); K7f's chains bit-equal to a K3f step-form call
+    each (forward, and reverse on the backward chain); T + 4 launches a
+    call each (kernels.gru_f32_launches where the route is the step form);
+    two calls give the same bits."""
+    T, B, H, kind = case
+    gx, uh, bhn, ghT, lens, hsf, hsb = _f32_step_inputs(dev, T, B, H, kind,
+                                                        seed=T + B + H)
+    persistent = gru._f32_route("gru_bwd_f32", B, H, dev) == "persistent"
+    want_launches = T + kernels.GRU_F32_STEP_BWD_LAUNCHES
+    if not persistent:
+        assert kernels.gru_f32_launches(
+            T, B, H, *gru._f32_occupancy("gru_bwd_f32", H, dev),
+            True) == want_launches
+    k3 = {}
+    for chain, reverse, hs in ((0, False, hsf), (1, True, hsb)):
+        b0 = gru.gru_bwd_f32.launches
+        got = gru._gru_bwd32(gx[chain], hs, lens, uh[chain], bhn[chain],
+                             ghT[chain], reverse, "step")
+        torch.cuda.synchronize()
+        assert gru.gru_bwd_f32.launches - b0 == want_launches
+        again = gru._gru_bwd32(gx[chain], hs, lens, uh[chain], bhn[chain],
+                               ghT[chain], reverse, "step")
+        want = gru.gru_bwd_reference(gx[chain], hs, lens, uh[chain],
+                                     bhn[chain], ghT[chain], reverse=reverse)
+        for name, a, b, c in zip(("dgx", "duh", "dbhn"), got, want, again):
+            assert torch.isfinite(a).all(), name
+            assert torch.equal(a, c), name
+            assert _rel(a, b) <= TOL_F32, (name, reverse, _rel(a, b))
+        if persistent:
+            other = gru._gru_bwd32(gx[chain], hs, lens, uh[chain],
+                                   bhn[chain], ghT[chain], reverse,
+                                   "persistent")
+            for name, a, b in zip(("dgx", "duh", "dbhn"), got, other):
+                assert torch.equal(a, b), (name, reverse)
+        k3[chain] = got
+    b0 = gru.bigru_bwd_f32.launches
+    got7 = gru.bigru_bwd_f32(gx[0], gx[1], hsf, hsb, lens, uh[0], uh[1],
+                             bhn[0], bhn[1], ghT[0], ghT[1], form="step")
+    torch.cuda.synchronize()
+    assert gru.bigru_bwd_f32.launches - b0 == want_launches
+    pairs = zip(("dgxf", "dgxb", "duhf", "duhb", "dbhnf", "dbhnb"), got7,
+                (k3[0][0], k3[1][0], k3[0][1], k3[1][1], k3[0][2],
+                 k3[1][2]))
+    for name, a, b in pairs:
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_f32_step_form_captures_in_a_cuda_graph(dev, reverse):
+    """One K3f step-form call (its T + 4 launches, counted at the capture)
+    is accepted under stream capture, and the graph's replay on new inputs
+    (lengths too) equals an eager call on them bit for bit."""
+    T, B, H = 26, 64, 1100
+    gx, uh, bhn, ghT, lens, hsf, hsb = _f32_step_inputs(dev, T, B, H,
+                                                        "uniform", seed=13)
+    c = 1 if reverse else 0
+    hseq = hsb if reverse else hsf
+    args = [gx[c], hseq, lens, uh[c], bhn[c], ghT[c]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        gru._gru_bwd32(*args, reverse, "step")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    b0 = gru.gru_bwd_f32.launches
+    with torch.cuda.graph(graph):
+        out = gru._gru_bwd32(*args, reverse, "step")
+    assert gru.gru_bwd_f32.launches - b0 == (
+        T + kernels.GRU_F32_STEP_BWD_LAUNCHES)
+    new = _f32_step_inputs(dev, T, B, H, "one", seed=14)
+    fresh = [new[0][c], new[6] if reverse else new[5], new[4], new[1][c],
+             new[2][c], new[3][c]]
+    for dst, src in zip(args, fresh):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = gru._gru_bwd32(*fresh, reverse, "step")
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+
+
+# kernel_bits.f32_step_fingerprints(0) on the commit before the BPTT's step
+# form was redesigned (its K3f and K7f step forms, run on an H100 80GB HBM3
+# with the card machine's torch): the values the redesign must keep. The
+# inputs come from a seeded CUDA generator, so another torch build may draw
+# others.
+F32_STEP_PARENT_BITS = {
+    "K3f step reverse=False": {
+        "dgx": "aead1e144ff6c602c62b7d7b28d7aa61"
+               "b686406505796ff62a031c6867c62aa9",
+        "duh": "8fd45b941f263e311b3a03aad80bbda3"
+               "3d948e0aa474041800950f9a1434b4df",
+        "dbhn": "7480d4708dd268ce2ac045fb0a758705"
+                "7628aab5d6aebf24b4bde26050e06203"},
+    "K3f step reverse=True": {
+        "dgx": "0ca805bc201f9b436d58f9abed5b243d"
+               "cc050419674c55b6507d73f33e080525",
+        "duh": "dd4d84cbb14f825f00fe4cb648f69209"
+               "3389ef3b1f40068f8a7c0b2c3f29b4f9",
+        "dbhn": "bf560da4757abda09a9ff6c256244de0"
+                "d8df30e623560ec0a6ba8a4d4d861253"},
+    "K7f step": {
+        "dgxf": "aead1e144ff6c602c62b7d7b28d7aa61"
+                "b686406505796ff62a031c6867c62aa9",
+        "dgxb": "49e4ca28d49d64c57cb2de7e2c33cc9a"
+                "1f8261cacaa9a1d440e040e4e89e97ef",
+        "duhf": "8fd45b941f263e311b3a03aad80bbda3"
+                "3d948e0aa474041800950f9a1434b4df",
+        "duhb": "ef88fbf40e6ee6cbb4846904dd62b850"
+                "2f94f68c22cf17d379acafb70edeaf3b",
+        "dbhnf": "7480d4708dd268ce2ac045fb0a758705"
+                 "7628aab5d6aebf24b4bde26050e06203",
+        "dbhnb": "51dacc6f1ee93087a7dc7a51567627bc"
+                 "ec7f9058ab4f9ac2b08f8e4e15fe65c9"}}
+
+
+def test_gru_f32_step_forms_keep_the_parent_bits(dev):
+    """K3f's step form both ways and K7f's, at 1100 units, B = 256, T = 26,
+    lengths 1..T (``kernel_bits.f32_step_fingerprints``, -0 read as +0),
+    give the frozen values of the step form they replaced."""
+    from vqa_transfer_externaldata_torch.tools import kernel_bits
+
+    assert kernel_bits.f32_step_fingerprints(0) == F32_STEP_PARENT_BITS
 
 
 def _f32_resident_inputs(dev, M, n_valid, C, H, B, G, rows_dtype, seed=7):
@@ -2210,7 +2380,7 @@ def test_bigru_f32_kernels_match_plain_and_two_k1f_k3f(dev, shape):
     route is the step form takes only that): bit-equal to a K1f (K3f) call
     on each chain's inputs and to every other form, within TOL_F32 of
     their plain versions, with the plan's launches a call (persistent: K6f
-    1, K7f 4; one chain a launch: 2 and 5; the step form: T and 2T + 1),
+    1, K7f 4; one chain a launch: 2 and 5; the step form: T and T + 4),
     the C side's grid and shared memory the plan's, and no bf16 kernel;
     lengths hold 0, 1 and T."""
     T, B, H = shape
@@ -2225,7 +2395,9 @@ def test_bigru_f32_kernels_match_plain_and_two_k1f_k3f(dev, shape):
     ghTb = torch.randn(B, H, generator=g, device=dev)
     args = (gxf, gxb, lens, uhf, uhb, bhnf, bhnb)
     routes, want_launches = {}, {}
-    for name, step in (("bigru_fwd_f32", T), ("bigru_bwd_f32", 2 * T + 1)):
+    for name, step in (("bigru_fwd_f32", T),
+                       ("bigru_bwd_f32",
+                        T + kernels.GRU_F32_STEP_BWD_LAUNCHES)):
         routes[name] = gru._f32_route(name, B, H, dev)
         if routes[name] == "persistent":
             plan = gru._f32_launch_config(name, B, H, dev)

@@ -33,15 +33,14 @@
 //     a step for both (one launch a chain where a row of both chains' unit
 //     tiles cannot be resident at once but one chain's can);
 //  3. both chains' dU_h = h_prev^T g over the (T-1) B rows whose h_prev is
-//     not the zero start, in one launch (the chain on blockIdx.z);
+//     not the zero start, in one launch (gru_f32_duh_kernel, the chain on
+//     blockIdx.z);
 //  4. both chains' db_hn in one launch of gru_step_f32.cuh's sum.
 // 4 launches a call at any T (5 with one chain a launch). Where not even
 // one chain's row of unit tiles fits (past ~1013 units, or the block's
 // shared memory), the wrapper (ops/kernels.py::gru_f32_route) takes the
-// step form, bigru_bwd_f32_step: two launches a step for both chains (the
-// step kernel's BPTT form, which recomputes gh, then dh_prev = dpart +
-// g_t @ U_h^T on fp32_tile.cuh's pair_product_kernel, but after the last
-// step), then 3 on fp32_tile.cuh's loop and 4: 2T + 1 launches. Each
+// step form, bigru_bwd_f32_step: K3f's (gru_bptt_f32.cuh) with both chains
+// in each launch, the lists of live rows shared: T + 4 launches. Each
 // chain's sums are K3f's, one FFMA chain each, k ascending, so each
 // direction equals a K3f call bit for bit and both forms give the same
 // bits. No atomics: two calls give the same bits.
@@ -49,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "gru_seq_f32.cuh"
+#include "gru_bptt_f32.cuh"
 
 namespace {
 
@@ -61,47 +61,6 @@ using BwdKernel = void (*)(BwdArgs);
 BwdKernel bwd_kernel(int H) {
   return H % 4 == 0 ? gru_seq_f32::gru_f32_bptt_kernel<BwdTile, true>
                     : gru_seq_f32::gru_f32_bptt_kernel<BwdTile, false>;
-}
-
-// One chain's operands and scratch of the step form.
-struct Chain {
-  const float* gx;    // [T, B, 3H]
-  const float* hseq;  // [T, B, H], K6f's
-  const float* uh;    // [H, 3H]
-  const float* bhn;   // [H]
-  float* dh;          // [2, B, H] ping-pong, dh[0] the cotangent of hT
-  float* dpart;       // [B, H]
-  float* gq;          // [T, B, 3H]
-  float* dgx;         // [T, B, 3H]
-};
-
-// Step s of both chains' BPTT: blockIdx.z 0 the forward chain at
-// t = T-1-s, 1 the backward chain at t = s.
-__global__ void __launch_bounds__(fp32_tile::THREADS)
-    bigru_f32_bptt_kernel(Chain fwd, Chain bwd, const int* __restrict__ lens,
-                          int s, int T, int B, int H) {
-  __shared__ fp32_tile::Smem<gru_f32::BM, gru_f32::BN, gru_f32::BK> sm;
-  const bool rev = blockIdx.z == 1;
-  const Chain c = rev ? bwd : fwd;
-  const int t = rev ? s : T - 1 - s;
-  const bool first = rev ? t == T - 1 : t == 0;
-  const long long BH = (long long)B * H, BH3 = 3 * BH;
-  const float* hprev =
-      first ? nullptr : c.hseq + (rev ? t + 1 : t - 1) * BH;
-  gru_f32::step<true>(c.gx + t * BH3, hprev, lens, t, c.uh, c.bhn, B, H,
-                      nullptr, nullptr, c.dh + (s % 2) * BH, c.dgx + t * BH3,
-                      c.gq + t * BH3, c.dpart, sm);
-}
-
-// The db_hn sums of both chains, one launch: the column sums of each g's
-// n-gate block over its T B rows.
-cudaError_t dbhn_pair(const float* gqf, const float* gqb, float* dbhn,
-                      int rows, int H, cudaStream_t stream, int* launched) {
-  gru_f32::gru_f32_dbhn_kernel<<<dim3((H + 31) / 32, 2),
-                                 dim3(32, gru_f32::SUM_ROWS), 0, stream>>>(
-      gqf, dbhn, gqb, dbhn + H, rows, H);
-  ++*launched;
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -129,13 +88,14 @@ int bigru_bwd_f32_config(int B, int H, int* grid, int* per_sm,
 // stages, shared bytes) are the wrapper's ops/kernels.py::f32_ring_plan:
 // (wa, wb, stages, smem_gh) of the gh product over both chains' live
 // h_prev rows and U_h, (wa_duh, wb_duh, smem_duh) of the dU_h product over
-// those rows and g's; a plan that either chain's alignment does not allow
-// is refused with cudaErrorInvalidValue. The chains' cooperative launches
-// take at most z (1 or 2) chains each, as bigru_fwd_f32's. 4 launches on
-// `stream` (5 where the chains take a launch each), added to *launched;
-// the chains' launch returns cudaErrorCooperativeLaunchTooLarge where not
-// even one chain's grid can be resident (ops/kernels.py::gru_f32_route
-// sends such shapes to bigru_bwd_f32_step).
+// those rows and g's (rows through an index); a plan that either chain's
+// alignment does not allow is refused with cudaErrorInvalidValue. The
+// chains' cooperative launches take at most z (1 or 2) chains each, as
+// bigru_fwd_f32's. 4 launches on `stream` (5 where the chains take a
+// launch each), added to *launched; the chains' launch returns
+// cudaErrorCooperativeLaunchTooLarge where not even one chain's grid can
+// be resident (ops/kernels.py::gru_f32_route sends such shapes to
+// bigru_bwd_f32_step).
 int bigru_bwd_f32(const float* gxf, const float* gxb, const float* hseqf,
                   const float* hseqb, const int* lens, const float* uhf,
                   const float* uhb, const float* bhnf, const float* bhnb,
@@ -161,16 +121,17 @@ int bigru_bwd_f32(const float* gxf, const float* gxb, const float* hseqf,
     if (!fp32_ring::plan_ok<float, true>(wa, wb, stages, smem_gh, hp,
                                          (long long)H * 4, d ? uhb : uhf,
                                          H3 * 4) ||
-        !fp32_ring::plan_ok<float, false>(wa_duh, wb_duh, stages, smem_duh,
-                                          hp, (long long)H * 4,
-                                          d ? gpb : gpf, H3 * 4))
+        !fp32_ring::plan_ok<float, false, true>(wa_duh, wb_duh, stages,
+                                                smem_duh, hp,
+                                                (long long)H * 4,
+                                                d ? gpb : gpf, H3 * 4))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long ghs = static_cast<long long>(std::max(T - 1, 1)) * BH3;
   cudaError_t err = gru_seq_f32::gh_launch(
-      gru_seq_f32::GhChain{hpf, uhf, gh},
-      gru_seq_f32::GhChain{hpb, uhb, gh + ghs}, 2, M, H, wa, wb, smem_gh,
-      stream, launched);
+      gru_seq_f32::GhChain{hpf, uhf, gh, nullptr, nullptr},
+      gru_seq_f32::GhChain{hpb, uhb, gh + ghs, nullptr, nullptr}, 2, M, H,
+      wa, wb, smem_gh, stream, launched);
   if (err != cudaSuccess) return static_cast<int>(err);
   const BwdArgs a{{BwdChain{gxf, gh, hseqf, uhf, bhnf, ghTf, dpart, gqf, dgx,
                             0},
@@ -181,78 +142,40 @@ int bigru_bwd_f32(const float* gxf, const float* gxb, const float* hseqf,
       bwd_kernel(H), gru_seq_f32::bwd_smem(H), a, B, H, 2, z, stream,
       launched);
   if (rc != 0) return rc;
-  err = fp32_ring::by_plan(wa_duh, wb_duh, [&](auto fa, auto fb) {
-    auto* kernel = gru_seq_f32::gru_f32_duh_kernel<decltype(fa)::value,
-                                                    decltype(fb)::value>;
-    cudaError_t e = fp32_ring::opt_in(kernel, smem_duh);
-    if (e != cudaSuccess) return e;
-    const int tile = fp32_ring::TILE;
-    const dim3 grid((3 * H + tile - 1) / tile, (H + tile - 1) / tile, 2);
-    kernel<<<grid, fp32_ring::THREADS, smem_duh, stream>>>(
-        gru_seq_f32::DuhChain{hpf, gpf, duh},
-        gru_seq_f32::DuhChain{hpb, gpb, duh + H * H3}, M, H, wa_duh, wb_duh);
-    ++*launched;
-    return cudaGetLastError();
-  });
+  err = gru_seq_f32::duh_launch(
+      gru_seq_f32::DuhChain{hpf, gpf, duh, nullptr, nullptr},
+      gru_seq_f32::DuhChain{hpb, gpb, duh + H * H3, nullptr, nullptr}, 2, M,
+      H, wa_duh, wb_duh, smem_duh, stream, launched);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dbhn_pair(gqf, gqb, dbhn, T * B, H, stream,
-                                    launched));
+  return static_cast<int>(gru_f32::dbhn_launch(gqf, dbhn, gqb, dbhn + H, 2,
+                                               T * B, H, stream, launched));
 }
 
-// The step form: dh [2, 2, B, H] f32 with dh[d][0] = the cotangent of
-// chain d's hT (overwritten) in place of ghTf, ghTb and no gh scratch;
-// otherwise bigru_bwd_f32's arguments but z and the ring plans. 2T + 1
-// launches on `stream`, added to *launched.
+// The step form: dpart [2, B, H] holds the cotangents of hTf and hTb on
+// entry (in place of ghTf, ghTb); lists, gh [2, max(T-1, 1) B, 3H] and tu
+// as gru_bwd_f32_step's (the lists serve both chains); otherwise
+// bigru_bwd_f32's arguments but z. T + 4 launches on `stream`, added to
+// *launched.
 int bigru_bwd_f32_step(const float* gxf, const float* gxb, const float* hseqf,
                        const float* hseqb, const int* lens, const float* uhf,
                        const float* uhb, const float* bhnf, const float* bhnb,
-                       float* dh, float* dpart, float* gq, float* dgx,
-                       float* duh, float* dbhn, int T, int B, int H,
+                       float* dpart, int* lists, float* gh, float* gq,
+                       float* dgx, float* duh, float* dbhn, int T, int B,
+                       int H, int tu, int wa, int wb, int stages,
+                       int smem_gh, int wa_duh, int wb_duh, int smem_duh,
                        cudaStream_t stream, int* launched) {
-  using fp32_tile::Dense;
-  using fp32_tile::DenseT;
   const long long BH = (long long)B * H, H3 = 3LL * H, BH3 = 3 * BH;
-  const Chain fwd{gxf, hseqf, uhf, bhnf, dh, dpart, gq, dgx};
-  const Chain bwd{gxb, hseqb, uhb, bhnb, dh + 2 * BH, dpart + BH,
-                  gq + T * BH3, dgx + T * BH3};
-  const dim3 step_grid((H + gru_f32::UNITS - 1) / gru_f32::UNITS,
-                       (B + gru_f32::BM - 1) / gru_f32::BM, 2);
-  constexpr int DH_TILE = 32, DUH_TILE = 64;
-  const dim3 dh_grid((H + DH_TILE - 1) / DH_TILE,
-                     (B + DH_TILE - 1) / DH_TILE, 2);
-  cudaError_t err;
-  for (int s = 0; s < T; ++s) {
-    bigru_f32_bptt_kernel<<<step_grid, fp32_tile::THREADS, 0, stream>>>(
-        fwd, bwd, lens, s, T, B, H);
-    ++*launched;
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-    if (s == T - 1) break;  // the chains' starts: no dh_prev is read
-    const int tf = T - 1 - s, tb = s;
-    fp32_tile::pair_product_kernel<DH_TILE, DH_TILE, 32, true, true>
-        <<<dh_grid, fp32_tile::THREADS, 0, stream>>>(
-            Dense{fwd.gq + tf * BH3, H3}, DenseT{uhf, H3}, fwd.dpart,
-            fwd.dh + ((s + 1) % 2) * BH, Dense{bwd.gq + tb * BH3, H3},
-            DenseT{uhb, H3}, bwd.dpart, bwd.dh + ((s + 1) % 2) * BH, B, H,
-            int(H3), H);
-    ++*launched;
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-  }
-  // Rows of live h_prev: forward, hseqf[0 .. T-2] against g[1 .. T-1];
-  // backward, hseqb[1 .. T-1] against g[0 .. T-2].
-  const int K = (T - 1) * B;
-  const dim3 duh_grid((3 * H + DUH_TILE - 1) / DUH_TILE,
-                      (H + DUH_TILE - 1) / DUH_TILE, 2);
-  fp32_tile::pair_product_kernel<DUH_TILE, DUH_TILE, 16, false, false>
-      <<<duh_grid, fp32_tile::THREADS, 0, stream>>>(
-          DenseT{hseqf, H}, Dense{fwd.gq + BH3, H3}, nullptr, duh,
-          DenseT{hseqb + BH, H}, Dense{bwd.gq, H3}, nullptr, duh + H * H3, H,
-          3 * H, K, H3);
-  ++*launched;
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      dbhn_pair(fwd.gq, bwd.gq, dbhn, T * B, H, stream, launched));
+  const long long ghs = static_cast<long long>(std::max(T - 1, 1)) * BH3;
+  const gru_bptt_f32::Chain f{gxf, hseqf, uhf, bhnf, dpart, gh, gq, dgx,
+                              duh, dbhn, 0};
+  const gru_bptt_f32::Chain b{gxb,        hseqb,          uhb,
+                              bhnb,       dpart + BH,     gh + ghs,
+                              gq + T * BH3, dgx + T * BH3, duh + H * H3,
+                              dbhn + H,   1};
+  const gru_bptt_f32::Plans pl{tu, wa, wb, stages, smem_gh, wa_duh, wb_duh,
+                               smem_duh};
+  return static_cast<int>(gru_bptt_f32::launch_step_form(
+      f, b, 2, lens, lists, T, B, H, pl, stream, launched));
 }
 
 }  // extern "C"

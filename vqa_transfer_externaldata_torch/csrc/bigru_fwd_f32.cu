@@ -81,9 +81,8 @@ __global__ void __launch_bounds__(fp32_tile::THREADS)
   const long long BH = (long long)B * H;
   const float* hprev =
       s == 0 ? nullptr : c.hseq + (rev ? t + 1 : t - 1) * BH;
-  gru_f32::step<false>(c.gx + t * 3 * BH, hprev, lens, t, c.uh, c.bhn, B, H,
-                       c.hseq + t * BH, s == T - 1 ? c.hT : nullptr, nullptr,
-                       nullptr, nullptr, nullptr, sm);
+  gru_f32::step(c.gx + t * 3 * BH, hprev, lens, t, c.uh, c.bhn, B, H,
+                c.hseq + t * BH, s == T - 1 ? c.hT : nullptr, sm);
 }
 
 // Both chains' operands: hseq [2, T, B, H] and hT [2, B, H], the forward

@@ -3,8 +3,10 @@
 // score launch and K8f's dz launch (attention_f32.cuh, attention_bwd_f32.cu:
 // [cells, C] x [C, H] through each cell's row) and K5f's and K8f's dW_v
 // launch (attention_resident_bwd_f32.cu, attention_bwd_f32.cu:
-// [C, cells] x [cells, H]). The float32 GRU kernels keep fp32_tile.cuh's
-// loop.
+// [C, cells] x [cells, H]), and the float32 BPTT's (K3f, K7f) products of
+// every step's gh and of dU_h (gru_seq_f32.cuh), whose rows may come
+// through a list of the live row-steps. The float32 GRU's forward step form
+// keeps fp32_tile.cuh's loop.
 //
 // The float32 path exists to meet a float64 oracle, so every product is an
 // FFMA with an f32 sum: no TF32 or bf16 pass. A block of 256 threads
@@ -56,12 +58,13 @@
 //    products read (each value read by the 16 threads of a row) would cost
 //    8 of every 72 issue slots for f16 and three times that for int8 codes.
 //    The transposed stores of K-major rows meet at most two to a bank.
-//  - B is dense f32, MN-major [k][n] (W_v [C, H], dz * r [cells, H]),
-//    so 16-byte copies land in the [k][n] layout the products read, with
-//    16-byte group g of a k row at position g ^ ((g >> 3) & 1). A thread
-//    reads its 8 columns as the float4 groups 2tx and 2tx + 1: the 8
-//    threads of a quarter warp then read 8 distinct 4-bank groups, without
-//    conflicts. A's 8 rows are two float4s that every thread of a quarter
+//  - B is f32, MN-major [k][n] (W_v [C, H], dz * r [cells, H]; dU_h's g
+//    rows, each found once a chunk through its index where B is an
+//    IndexedB), so 16-byte copies land in the [k][n] layout the products
+//    read, with 16-byte group g of a k row at position g ^ ((g >> 3) & 1).
+//    A thread reads its 8 columns as the float4 groups 2tx and 2tx + 1:
+//    the 8 threads of a quarter warp then read 8 distinct 4-bank groups,
+//    without conflicts. A's 8 rows are two float4s that every thread of a quarter
 //    warp shares (one ty): broadcasts. So 64 FFMA take 4 LDS.128.
 //  - 256 threads, at most 128 registers, two blocks an SM; dynamic shared
 //    memory (Layout::kBytes, up to ~82 KB) opted into per instantiation.
@@ -87,10 +90,12 @@ constexpr int WPITCH = TILE + 4;  // floats a k row of the widened A
 
 // The dynamic shared memory of one instantiation: the A ring (rows in their
 // stored type T), the B ring (f32), the widened A (two slots, unless A is
-// f32 [k][m] already) and the row pointers (the tile's 128 cells, K-major;
-// a slot of 16 a stage, MN-major).
-template <typename T, bool KMAJOR>
+// f32 [k][m] already), the row pointers (the tile's 128 cells, K-major; a
+// slot of 16 a stage, MN-major) and, where B's rows come through an index
+// (BLISTED, MN-major only), B's row pointers in slots of their own.
+template <typename T, bool KMAJOR, bool BLISTED = false>
 struct Layout {
+  static_assert(!(KMAJOR && BLISTED), "an indexed B takes MN-major A");
   static constexpr bool kAInPlace = std::is_same<T, float>::value && !KMAJOR;
   static constexpr int kAStage = TILE * BK * static_cast<int>(sizeof(T));
   static constexpr int kBStage = BK * TILE * 4;
@@ -99,7 +104,8 @@ struct Layout {
   static constexpr int kB = STAGES * kAStage;
   static constexpr int kW = kB + STAGES * kBStage;
   static constexpr int kP = kW + kWide;
-  static constexpr int kBytes = kP + kPtrs;
+  static constexpr int kBP = kP + kPtrs;
+  static constexpr int kBytes = kBP + (BLISTED ? 8 * STAGES * BK : 0);
 };
 
 // Whether a copy of w bytes (16, 8, 4, or 0: element by element) may read
@@ -113,13 +119,37 @@ inline bool width_ok(int w, long long pitch, const void* base, bool a) {
 // The launch's plan as the wrapper made it: the copy widths that the rows'
 // alignment allows, STAGES stages, Layout's bytes. The C entries return
 // cudaErrorInvalidValue for another.
-template <typename T, bool KMAJOR>
+template <typename T, bool KMAJOR, bool BLISTED = false>
 bool plan_ok(int wa, int wb, int stages, int smem, const void* a_base,
              long long a_pitch, const void* b_base, long long b_pitch) {
   return width_ok(wa, a_pitch, a_base, true) &&
          width_ok(wb, b_pitch, b_base, false) && stages == STAGES &&
-         smem == Layout<T, KMAJOR>::kBytes;
+         smem == Layout<T, KMAJOR, BLISTED>::kBytes;
 }
+
+// B's rows: B(k, n) = row(k)[n]. DenseB reads B [K, ld] in place; IndexedB
+// reads row list[k] of b [*, ld] (row k itself where list is null), each
+// found once a chunk, beside A's (MN-major A only).
+struct DenseB {
+  static constexpr bool kListed = false;
+  const float* b;
+  long long ld;
+  __device__ __forceinline__ const float* row(int k) const {
+    return b + k * ld;
+  }
+  __host__ __device__ const float* base() const { return b; }
+};
+struct IndexedB {
+  static constexpr bool kListed = true;
+  const float* b;
+  const int* list;  // null: row k
+  long long ld;
+  __device__ __forceinline__ const float* row(int k) const {
+    return b + static_cast<long long>(list != nullptr ? __ldg(list + k) : k) *
+                   ld;
+  }
+  __host__ __device__ const float* base() const { return b; }
+};
 
 // Opt the kernel into `smem` bytes of dynamic shared memory and the largest
 // shared carveout (two blocks an SM).
@@ -276,23 +306,26 @@ cudaError_t by_plan(int wa, int wb, F&& f) {
 // n0+127 of sum over k in [k0, k1) of A(m, k) B(k, n), over M x N (rows and
 // columns past them, and k past k1, read as 0). A's rows come from `rows`
 // (row source, cell(i) -> const T*, null for none): K-major, rows.cell(m)
-// holds A(m, k) at k; else rows.cell(k) holds A(m, k) at m. B [K, ldb] f32,
-// B(k, n) = b[k * ldb + n]. wa, wb: the copy widths (WA, WB where the launch
-// fixed them, RUNTIME for wa, wb). smem: Layout's bytes, 16-byte aligned.
-template <typename T, bool KMAJOR, int WA, int WB, class Rows>
+// holds A(m, k) at k; else rows.cell(k) holds A(m, k) at m. B's f32 rows
+// from `brows` (DenseB: B [K, ldb], B(k, n) = b[k * ldb + n]; IndexedB).
+// wa, wb: the copy widths (WA, WB where the launch fixed them, RUNTIME for
+// wa, wb). smem: Layout's bytes, 16-byte aligned.
+template <typename T, bool KMAJOR, int WA, int WB, class Rows, class BRows>
 __device__ __forceinline__ void mainloop(const Rows& rows,
-                                         const float* __restrict__ b,
-                                         long long ldb, int M, int N,
+                                         const BRows& brows, int M, int N,
                                          int m0, int n0, int k0, int k1,
                                          int wa, int wb,
                                          float (&acc)[8][8],
                                          unsigned char* smem) {
-  using L = Layout<T, KMAJOR>;
+  constexpr bool BLISTED = BRows::kListed;
+  using L = Layout<T, KMAJOR, BLISTED>;
   using U = typename Bits<sizeof(T)>::type;
   T* const aring = reinterpret_cast<T*>(smem);
   float* const bring = reinterpret_cast<float*>(smem + L::kB);
   float* const wide = reinterpret_cast<float*>(smem + L::kW);
   const T** const ptrs = reinterpret_cast<const T**>(smem + L::kP);
+  const float** const bptrs = reinterpret_cast<const float**>(smem + L::kBP);
+  const float* const b = brows.base();
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   if (k1 <= k0) return;  // no k: the sums stay 0 (the whole block)
   const int nk = (k1 - k0 + BK - 1) / BK;
@@ -305,9 +338,13 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
   // keeps the row index's load from overlapping the products around it.
   auto find_rows = [&](int c) {
     const int kr = tid % BK, k = k0 + c * BK + kr;
+    const bool in = c < nk && k < k1;
     const T* p = rows.cell(min(k, k1 - 1));
-    if (tid < BK)
-      ptrs[(c % STAGES) * BK + kr] = c < nk && k < k1 ? p : nullptr;
+    if (tid < BK) ptrs[(c % STAGES) * BK + kr] = in ? p : nullptr;
+    if constexpr (BLISTED) {
+      const float* q = brows.row(min(k, k1 - 1));
+      if (tid < BK) bptrs[(c % STAGES) * BK + kr] = in ? q : nullptr;
+    }
   };
   if constexpr (KMAJOR) {
     for (int m = tid; m < TILE; m += THREADS)
@@ -370,9 +407,16 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
         for (int g0 = 0; g0 < NG; g0 += THREADS) {
           const int g = g0 + tid;
           const int kr = g / GPR, k = kc + kr, n = n0 + (g % GPR) * EPG;
-          const bool ok = k < k1 && n < N;
+          const float* src;
+          bool ok = k < k1 && n < N;
+          if constexpr (BLISTED) {
+            src = bptrs[st * BK + kr];
+            ok = ok && src != nullptr;
+          } else {
+            src = brows.row(k);
+          }
           cp_async<W>(bs + kr * TILE + bswz((g % GPR) * EPG),
-                      ok ? b + k * ldb + n : b, ok);
+                      ok ? src + n : b, ok);
         }
       }
     });
@@ -477,6 +521,19 @@ __device__ __forceinline__ void mainloop(const Rows& rows,
     __syncthreads();
   }
   cp_async_wait<0>();
+}
+
+// mainloop with B [K, ldb] f32 read in place (DenseB).
+template <typename T, bool KMAJOR, int WA, int WB, class Rows>
+__device__ __forceinline__ void mainloop(const Rows& rows,
+                                         const float* __restrict__ b,
+                                         long long ldb, int M, int N,
+                                         int m0, int n0, int k0, int k1,
+                                         int wa, int wb,
+                                         float (&acc)[8][8],
+                                         unsigned char* smem) {
+  mainloop<T, KMAJOR, WA, WB>(rows, DenseB{b, ldb}, M, N, m0, n0, k0, k1, wa,
+                              wb, acc, smem);
 }
 
 // out[m, n] = sum over k of A(m, k) B(k, n) over M x N, A MN-major from

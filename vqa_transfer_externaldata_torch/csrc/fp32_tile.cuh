@@ -1,16 +1,16 @@
-// fp32_tile.cuh: the float32 tile product of the float32 GRU kernels (K1f,
-// K3f, K6f, K7f: their step tiles, dU_h and the U_h^T product), on the
-// FP32 pipes (FFMA), for Hopper (sm_90a). The float32 attention products
-// (K2f, K4f, K5f, K8f) run fp32_ring.cuh's loop.
+// fp32_tile.cuh: the float32 tile loop of the float32 GRU's forward step
+// form (K1f's and K6f's step kernel, gru_step_f32.cuh), on the FP32 pipes
+// (FFMA), for Hopper (sm_90a). The float32 attention products (K2f, K4f,
+// K5f, K8f) and the BPTT's gh and dU_h products (K3f, K7f) run
+// fp32_ring.cuh's loop; the BPTT's step form, gru_bptt_f32.cuh's.
 //
 // The float32 path of the port exists to meet a float64 oracle to 1e-4
 // (the checkpoint-fidelity path), so its products take no TF32 or bf16
-// tensor-core pass: every product is an FFMA with an f32 sum. This header
-// is the one tile loop the GRU kernels share: a block of 256 threads
-// (16 x 16) owns a BM x BN tile of C = A x B and walks k in chunks of BK
-// (a template parameter: 8 to 32), staging the chunk's A [BM x BK] and B
-// [BK x BN] in shared memory while the next chunk's loads wait in
-// registers (issued before the chunk's products, so their latency
+// tensor-core pass: every product is an FFMA with an f32 sum. A block of
+// 256 threads (16 x 16) owns a BM x BN tile of C = A x B and walks k in
+// chunks of BK (a template parameter: 8 to 32), staging the chunk's A [BM x
+// BK] and B [BK x BN] in shared memory while the next chunk's loads wait
+// in registers (issued before the chunk's products, so their latency
 // overlaps the FFMAs); thread (ty, tx) keeps the TM x TN sums of rows
 // ty*TM .. and columns tx*TN .. in registers (TM = BM / 16, TN = BN / 16).
 // Each sum takes its k in increasing order from a zero start, so a
@@ -19,17 +19,14 @@
 //
 // Operands are read through functors, `A(m, k)` and `B(k, n)`, which
 // return a float, so a caller reads its operands where they lie: U_h with
-// its gate columns regrouped, a transposed weight. The loads put
-// neighbouring threads on neighbouring addresses along the operand's
-// contiguous index (A_ALONG_K / B_ALONG_K). Entries at m >= M or n >= N,
-// and k outside [k0, k1), read as 0, so no shape needs to be a multiple of
-// a tile.
+// its gate columns regrouped. The loads put neighbouring threads on
+// neighbouring addresses along the operand's contiguous index (A_ALONG_K /
+// B_ALONG_K). Entries at m >= M or n >= N, and k outside [k0, k1), read as
+// 0, so no shape needs to be a multiple of a tile.
 //
 // What bounds it: the FP32 pipes (67 TFLOP/s on an H100 SXM). A simple
 // loop, right first: one shared-memory buffer, scalar loads; its rate is
-// in PERF.md. The GRU kernels keep it: their tiles (64 rows x 48 gate
-// columns a step, 32- and 64-square dU_h and U_h^T products) are not the
-// ring's 128 x 128 with 8 x 8 sums a thread.
+// in PERF.md.
 
 #pragma once
 
@@ -120,89 +117,6 @@ __device__ __forceinline__ void mainloop(const ALoad& A, const BLoad& B,
     }
     __syncthreads();
   }
-}
-
-// A dense row-major operand: X(r, c) = p[r * ld + c].
-struct Dense {
-  const float* p;
-  long long ld;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return p[r * ld + c];
-  }
-};
-
-// The transpose of a dense row-major operand: X(r, c) = p[c * ld + r].
-struct DenseT {
-  const float* p;
-  long long ld;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return p[c * ld + r];
-  }
-};
-
-// The BM x BN tile of out at (blockIdx.y * BM, blockIdx.x * BN):
-// out[m, n] = (add[m, n] +) sum over k in [k0, k1) of A(m, k) B(k, n) over
-// M x N. `add` (null for none) is added after the sum, rounded apart.
-template <int BM, int BN, int BK, bool A_ALONG_K, bool B_ALONG_K,
-          class ALoad, class BLoad>
-__device__ __forceinline__ void product_tile(const ALoad& A, const BLoad& B,
-                                             int M, int N, int k0, int k1,
-                                             const float* add, float* out,
-                                             long long ldo,
-                                             Smem<BM, BN, BK>& s) {
-  float acc[BM / 16][BN / 16] = {};
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  mainloop<BM, BN, BK, A_ALONG_K, B_ALONG_K>(A, B, M, N, m0, n0, k0, k1,
-                                             acc, s);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < BM / 16; ++i) {
-    const int m = m0 + ty * (BM / 16) + i;
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const int n = n0 + tx * (BN / 16) + j;
-      if (m < M && n < N) {
-        const long long o = m * ldo + n;
-        out[o] = add != nullptr ? __fadd_rn(add[o], acc[i][j]) : acc[i][j];
-      }
-    }
-  }
-}
-
-// out[m, n] = (add[m, n] +) sum_k A(m, k) B(k, n) over M x N, on a grid of
-// (N / BN, M / BM, splits) blocks (edges rounded up): split z takes k in
-// [z * chunk, min(K, (z + 1) * chunk)) and writes its own M x N slice of
-// out (out + z * M * ldo), which a caller sums in a fixed order; with one
-// split, chunk = K.
-template <int BM, int BN, int BK, bool A_ALONG_K, bool B_ALONG_K,
-          class ALoad, class BLoad>
-__global__ void __launch_bounds__(THREADS)
-    product_kernel(ALoad A, BLoad B, int M, int N, int K, int chunk,
-                   const float* __restrict__ add, float* __restrict__ out,
-                   long long ldo) {
-  __shared__ Smem<BM, BN, BK> s;
-  const int k0 = blockIdx.z * chunk;
-  product_tile<BM, BN, BK, A_ALONG_K, B_ALONG_K>(
-      A, B, M, N, k0, min(K, k0 + chunk), add,
-      out + (long long)blockIdx.z * M * ldo, ldo, s);
-}
-
-// Two independent products of one shape in one launch, as product_kernel's
-// with one split each: blocks of blockIdx.z 0 compute out0 = (add0 +)
-// A0 B0, those of blockIdx.z 1 out1 = (add1 +) A1 B1 (the two chains of a
-// bidirectional recurrence). Each tile's sums are product_kernel's, so each
-// product equals a product_kernel launch on its operands bit for bit.
-template <int BM, int BN, int BK, bool A_ALONG_K, bool B_ALONG_K,
-          class ALoad, class BLoad>
-__global__ void __launch_bounds__(THREADS)
-    pair_product_kernel(ALoad A0, BLoad B0, const float* add0, float* out0,
-                        ALoad A1, BLoad B1, const float* add1, float* out1,
-                        int M, int N, int K, long long ldo) {
-  __shared__ Smem<BM, BN, BK> s;
-  const bool second = blockIdx.z == 1;
-  product_tile<BM, BN, BK, A_ALONG_K, B_ALONG_K>(
-      second ? A1 : A0, second ? B1 : B0, M, N, 0, K, second ? add1 : add0,
-      second ? out1 : out0, ldo, s);
 }
 
 }  // namespace fp32_tile

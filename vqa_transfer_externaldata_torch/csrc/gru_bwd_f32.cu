@@ -29,21 +29,23 @@
 //     cp.async ring, then the gate backward, writing dgx_t, g_t and dpart;
 //  3. dU_h = h_prev^T g over the (T-1) B rows whose h_prev is not the zero
 //     start: hseq and g read in place, shifted by one step, on
-//     fp32_tile.cuh's loop, 64 x 64 outputs a block, each sum over all rows
-//     in order;
+//     fp32_ring.cuh's loop (gru_f32_duh_kernel, K7f's), each sum over all
+//     rows in order;
 //  4. db_hn = the column sums of g's n-gate block over the T B rows, eight
 //     row strides a unit added in a fixed order (gru_step_f32.cuh).
 // 4 launches a call at any T. Where the chain does not fit, the wrapper
-// takes the step form, gru_bwd_f32_step: two launches a step (the step
-// kernel's BPTT form, which recomputes gh, then dh_prev = dpart + g_t @
-// U_h^T on fp32_tile.cuh's loop, 32 x 32 outputs a block, but after the
-// last step), then 3 and 4: 2T + 1 launches. Every sum of both forms is
-// one FFMA chain in the same order and the gate math is shared, so their
-// outputs are equal bit for bit. No atomics: two calls give the same bits.
+// takes the step form, gru_bwd_f32_step (gru_bptt_f32.cuh): the lists of
+// each step's live rows, every live row-step's gh in one product, one
+// launch a step that carries dh through U_h^T for the step's live rows and
+// runs their gate backward, then dU_h over the live row-steps and db_hn:
+// T + 4 launches. Every sum of both forms is one FFMA chain in the same
+// order and the gate math is shared, so their outputs are equal bit for
+// bit. No atomics: two calls give the same bits.
 
 #include <cuda_runtime.h>
 
 #include "gru_seq_f32.cuh"
+#include "gru_bptt_f32.cuh"
 
 namespace {
 
@@ -57,33 +59,6 @@ using BwdKernel = void (*)(BwdArgs);
 BwdKernel bwd_kernel(int H) {
   return H % 4 == 0 ? gru_seq_f32::gru_f32_bptt_kernel<BwdTile, true>
                     : gru_seq_f32::gru_f32_bptt_kernel<BwdTile, false>;
-}
-
-// Steps 3 and 4 of both forms: dU_h over the rows of live h_prev and db_hn.
-cudaError_t duh_dbhn(const float* hseq, const float* gq, float* duh,
-                     float* dbhn, int T, int B, int H, int reverse,
-                     cudaStream_t stream, int* launched) {
-  constexpr int DUH_TILE = 64;
-  const long long BH = (long long)B * H, H3 = 3LL * H;
-  // Rows of live h_prev: forward, hseq[0 .. T-2] against g[1 .. T-1];
-  // reverse, hseq[1 .. T-1] against g[0 .. T-2].
-  const float* hp = hseq + (reverse ? BH : 0);
-  const float* gp = gq + (reverse ? 0 : B * H3);
-  const int K = (T - 1) * B;
-  const dim3 duh_grid((3 * H + DUH_TILE - 1) / DUH_TILE,
-                      (H + DUH_TILE - 1) / DUH_TILE);
-  fp32_tile::product_kernel<DUH_TILE, DUH_TILE, 16, false, false>
-      <<<duh_grid, fp32_tile::THREADS, 0, stream>>>(
-          fp32_tile::DenseT{hp, H}, fp32_tile::Dense{gp, H3}, H, 3 * H, K, K,
-          nullptr, duh, H3);
-  ++*launched;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gru_f32::gru_f32_dbhn_kernel<<<(H + 31) / 32, dim3(32, gru_f32::SUM_ROWS),
-                                 0, stream>>>(gq, dbhn, nullptr, nullptr,
-                                              T * B, H);
-  ++*launched;
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -106,9 +81,10 @@ int gru_bwd_f32_config(int B, int H, int* grid, int* per_sm,
 // gx [T, B, 3H], hseq [T, B, H] (K1f's), lens [B] i32, uh [H, 3H], bhn
 // [H], ghT [B, H] (the cotangent of hT) f32; scratch dpart [B, H], gq
 // [T, B, 3H], gh [max(T-1, 1), B, 3H] -> dgx [T, B, 3H], duh [H, 3H], dbhn
-// [H], all f32. The gh product's ring plan (copy widths wa, wb in bytes,
-// stages, shared bytes smem_gh) is the wrapper's
-// ops/kernels.py::f32_ring_plan of hseq's rows and U_h, refused with
+// [H], all f32. The ring plans are the wrapper's
+// ops/kernels.py::f32_ring_plan: (wa, wb, stages, smem_gh) of the gh
+// product over hseq's rows of live h_prev and U_h, (wa_duh, wb_duh,
+// smem_duh) of the dU_h product over those rows and g's, refused with
 // cudaErrorInvalidValue where their alignment does not allow it. 4
 // launches on `stream`, added to *launched; the chain's cooperative launch
 // returns cudaErrorCooperativeLaunchTooLarge where its grid cannot be
@@ -118,20 +94,26 @@ int gru_bwd_f32(const float* gx, const float* hseq, const int* lens,
                 const float* uh, const float* bhn, const float* ghT,
                 float* dpart, float* gq, float* gh, float* dgx, float* duh,
                 float* dbhn, int T, int B, int H, int reverse, int wa,
-                int wb, int stages, int smem_gh, cudaStream_t stream,
-                int* launched) {
-  const long long BH = (long long)B * H;
+                int wb, int stages, int smem_gh, int wa_duh, int wb_duh,
+                int smem_duh, cudaStream_t stream, int* launched) {
+  const long long BH = (long long)B * H, BH3 = 3 * BH;
   const int M = (T - 1) * B;
-  // The saved states of live h_prev (hseq itself at T = 1: no rows).
+  // The saved states of live h_prev (hseq itself at T = 1: no rows) and g
+  // of the steps they precede: forward hseq[0 .. T-2] against g[1 .. T-1],
+  // reverse hseq[1 .. T-1] against g[0 .. T-2].
   const float* hp = hseq + (reverse && M > 0 ? BH : 0);
+  const float* gp = gq + (!reverse && M > 0 ? BH3 : 0);
   if (T < 1 || B < 1 || H < 1 ||
       !fp32_ring::plan_ok<float, true>(wa, wb, stages, smem_gh, hp,
                                        (long long)H * 4, uh,
-                                       3LL * H * 4))
+                                       3LL * H * 4) ||
+      !fp32_ring::plan_ok<float, false, true>(wa_duh, wb_duh, stages,
+                                              smem_duh, hp, (long long)H * 4,
+                                              gp, 3LL * H * 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const gru_seq_f32::GhChain g{hp, uh, gh};
-  const cudaError_t err = gru_seq_f32::gh_launch(g, g, 1, M, H, wa, wb,
-                                                 smem_gh, stream, launched);
+  const gru_seq_f32::GhChain g{hp, uh, gh, nullptr, nullptr};
+  cudaError_t err = gru_seq_f32::gh_launch(g, g, 1, M, H, wa, wb, smem_gh,
+                                           stream, launched);
   if (err != cudaSuccess) return static_cast<int>(err);
   const gru_seq_f32::BwdChain c{gx, gh, hseq, uh, bhn, ghT, dpart, gq, dgx,
                                 reverse};
@@ -140,49 +122,34 @@ int gru_bwd_f32(const float* gx, const float* hseq, const int* lens,
       bwd_kernel(H), gru_seq_f32::bwd_smem(H), a, B, H, 1, 1, stream,
       launched);
   if (rc != 0) return rc;
-  return static_cast<int>(
-      duh_dbhn(hseq, gq, duh, dbhn, T, B, H, reverse, stream, launched));
+  const gru_seq_f32::DuhChain d{hp, gp, duh, nullptr, nullptr};
+  err = gru_seq_f32::duh_launch(d, d, 1, M, H, wa_duh, wb_duh, smem_duh,
+                                stream, launched);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(gru_f32::dbhn_launch(
+      gq, dbhn, nullptr, nullptr, 1, T * B, H, stream, launched));
 }
 
-// The step form: dh [2, B, H] f32 with dh[0] = the cotangent of hT
-// (overwritten) in place of ghT and no gh scratch; otherwise gru_bwd_f32's
-// arguments. 2T + 1 launches on `stream`, added to *launched.
+// The step form (gru_bptt_f32.cuh): dpart [B, H] holds the cotangent of hT
+// on entry (in place of ghT); lists an int32 scratch of
+// gru_bptt_f32::StepLists<int>::ints(T, B) (ops/kernels.py::
+// gru_f32_lists_ints); gh [max(T-1, 1) B, 3H] takes the live row-steps'
+// gh, packed; tu the carry's units a thread (ops/kernels.py::
+// gru_f32_carry_plan); the ring plans as gru_bwd_f32's, the dU_h one over
+// rows through an index. T + 4 launches on `stream`, added to *launched.
 int gru_bwd_f32_step(const float* gx, const float* hseq, const int* lens,
-                     const float* uh, const float* bhn, float* dh,
-                     float* dpart, float* gq, float* dgx, float* duh,
-                     float* dbhn, int T, int B, int H, int reverse,
+                     const float* uh, const float* bhn, float* dpart,
+                     int* lists, float* gh, float* gq, float* dgx,
+                     float* duh, float* dbhn, int T, int B, int H,
+                     int reverse, int tu, int wa, int wb, int stages,
+                     int smem_gh, int wa_duh, int wb_duh, int smem_duh,
                      cudaStream_t stream, int* launched) {
-  const long long BH = (long long)B * H, H3 = 3LL * H;
-  const dim3 step_grid((H + gru_f32::UNITS - 1) / gru_f32::UNITS,
-                       (B + gru_f32::BM - 1) / gru_f32::BM);
-  constexpr int DH_TILE = 32;
-  const dim3 dh_grid((H + DH_TILE - 1) / DH_TILE, (B + DH_TILE - 1) / DH_TILE);
-  cudaError_t err;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? s : T - 1 - s;
-    const bool first = reverse ? t == T - 1 : t == 0;
-    const float* hprev =
-        first ? nullptr : hseq + (reverse ? t + 1 : t - 1) * BH;
-    float* dcur = dh + (s % 2) * BH;
-    gru_f32::gru_f32_step_kernel<true><<<step_grid, fp32_tile::THREADS, 0,
-                                         stream>>>(
-        gx + t * B * H3, hprev, lens, t, uh, bhn, B, H, nullptr, nullptr,
-        dcur, dgx + t * B * H3, gq + t * B * H3, dpart);
-    ++*launched;
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-    if (s == T - 1) break;  // the chain's start: no dh_prev is read
-    fp32_tile::product_kernel<DH_TILE, DH_TILE, 32, true, true>
-        <<<dh_grid, fp32_tile::THREADS, 0, stream>>>(
-            fp32_tile::Dense{gq + t * B * H3, H3},
-            fp32_tile::DenseT{uh, H3}, B, H, int(H3), int(H3), dpart,
-            dh + ((s + 1) % 2) * BH, H);
-    ++*launched;
-    if ((err = cudaGetLastError()) != cudaSuccess)
-      return static_cast<int>(err);
-  }
-  return static_cast<int>(
-      duh_dbhn(hseq, gq, duh, dbhn, T, B, H, reverse, stream, launched));
+  const gru_bptt_f32::Chain c{gx,  hseq, uh,  bhn,  dpart,  gh,
+                              gq,  dgx,  duh, dbhn, reverse};
+  const gru_bptt_f32::Plans pl{tu, wa, wb, stages, smem_gh, wa_duh, wb_duh,
+                               smem_duh};
+  return static_cast<int>(gru_bptt_f32::launch_step_form(
+      c, c, 1, lens, lists, T, B, H, pl, stream, launched));
 }
 
 }  // extern "C"

@@ -96,10 +96,9 @@ int gru_fwd_f32_step(const float* gx, const int* lens, const float* uh,
     const int t = reverse ? T - 1 - s : s;
     const float* hprev =
         s == 0 ? nullptr : hseq + (reverse ? t + 1 : t - 1) * BH;
-    gru_f32::gru_f32_step_kernel<false>
-        <<<grid, fp32_tile::THREADS, 0, stream>>>(
+    gru_f32::gru_f32_step_kernel<<<grid, fp32_tile::THREADS, 0, stream>>>(
         gx + t * 3 * BH, hprev, lens, t, uh, bhn, B, H, hseq + t * BH,
-        s == T - 1 ? hT : nullptr, nullptr, nullptr, nullptr, nullptr);
+        s == T - 1 ? hT : nullptr);
     ++*launched;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);

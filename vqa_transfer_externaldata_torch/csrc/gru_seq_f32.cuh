@@ -5,10 +5,12 @@
 // step; and K3f's product of every step's gh ahead of the chain
 // (gru_f32_gh_kernel, on fp32_ring.cuh's tile loop). K6f and K7f
 // (csrc/bigru_{fwd,bwd}_f32.cu) run the same kernels on both chains of a
-// bidirectional GRU, the chain on blockIdx.z, and K7f's dU_h of both
-// chains on fp32_ring.cuh's loop (gru_f32_duh_kernel). The gate math is
-// gru_step_f32.cuh's (gates, cell, cell_bwd), which the step form of all
-// four (one launch a step, taken where these kernels do not fit) runs too.
+// bidirectional GRU, the chain on blockIdx.z, and the dU_h of K3f and of
+// both chains of K7f on fp32_ring.cuh's loop (gru_f32_duh_kernel). The gh
+// and dU_h products also serve the BPTT's step form (gru_bptt_f32.cuh),
+// which reads only the live row-steps through its lists. The gate math is
+// gru_step_f32.cuh's (gates, cell, cell_bwd), which the step forms of all
+// four (taken where these kernels do not fit) run too.
 //
 // Every product is an FFMA chain with an f32 sum, one chain an output, k
 // ascending from zero, as fp32_tile.cuh's loop takes it: the float32 path
@@ -520,46 +522,69 @@ __global__ void __launch_bounds__(Tl::THREADS, 1)
     if (k + 1 < T) grid.sync();
   }
 }
-// One chain's gh product: gh [M, 3H] = hp [M, H] @ U_h [H, 3H] over the M
-// = (T - 1) B saved states of live h_prev (hseq shifted by a step).
+// Rows of the saved states: row i is base + list[i] * ld, or base + i * ld
+// where list is null (every row-step, the persistent form's). The step
+// form's list holds the live row-steps (csrc/gru_bptt_f32.cuh).
+struct StepRows {
+  using elem = float;
+  const float* rows;
+  const int* list;
+  int ld;
+  __device__ __forceinline__ const float* cell(int i) const {
+    return rows +
+           static_cast<long long>(list != nullptr ? __ldg(list + i) : i) * ld;
+  }
+  __host__ __device__ const float* base() const { return rows; }
+};
+
+// One chain's gh product: gh = hp @ U_h [H, 3H] over the rows of live
+// h_prev, hp [(T - 1) B, H] (hseq shifted by a step): all of them where
+// list is null, else the *count rows list[i], each written to its own row
+// of gh.
 struct GhChain {
-  const float* hp;  // [M, H]
-  const float* uh;  // [H, 3H]
-  float* gh;        // [M, 3H]
+  const float* hp;   // [(T - 1) B, H]
+  const float* uh;   // [H, 3H]
+  float* gh;         // [(T - 1) B, 3H]
+  const int* list;   // null, or [*count] row indices of hp
+  const int* count;  // null, or the rows of the list
 };
 
 // gh of one chain (K3f: grid z 1) or of both (K7f: blockIdx.z picks c0 or
 // c1) on fp32_ring.cuh's loop: 128 x 128 tiles, A K-major (a state's
 // units are k), each sum an FFMA chain over k = 0 .. H - 1 as the step
-// form's. A grid of at least one row of tiles: at M = 0 (T = 1) it writes
-// nothing.
+// form's. A grid of at least one row of tiles for M rows: at M = 0 (T =
+// 1) it writes nothing, and a block past a list's count returns at once.
 template <int WA, int WB>
 __global__ void __launch_bounds__(fp32_ring::THREADS, 2)
     gru_f32_gh_kernel(GhChain c0, GhChain c1, int M, int H, int wa, int wb) {
   extern __shared__ __align__(16) unsigned char smem_gh[];
   const GhChain c = blockIdx.z == 0 ? c0 : c1;
+  const int rows = c.count != nullptr ? __ldg(c.count) : M;
   float acc[8][8] = {};
   const int m0 = blockIdx.y * fp32_ring::TILE;
   const int n0 = blockIdx.x * fp32_ring::TILE;
+  if (m0 >= rows) return;  // the whole block: past the rows
   const long long N = 3LL * H;
-  fp32_ring::mainloop<float, true, WA, WB>(rows_f32::GridCells{c.hp, 1, H},
-                                           c.uh, N, M, 3 * H, m0, n0, 0, H,
-                                           wa, wb, acc, smem_gh);
+  fp32_ring::mainloop<float, true, WA, WB>(StepRows{c.hp, c.list, H}, c.uh,
+                                           N, rows, 3 * H, m0, n0, 0, H, wa,
+                                           wb, acc, smem_gh);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + ty * 8 + i;
+    if (m >= rows) continue;
+    float* out = c.gh + (c.list != nullptr ? __ldg(c.list + m) : m) * N;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + tx * 8 + j;
-      if (m < M && n < N) c.gh[m * N + n] = acc[i][j];
+      if (n < N) out[n] = acc[i][j];
     }
   }
 }
 
-// The gh launch of `chains` chains (1: c0; 2: c0 and c1 on blockIdx.z) on
-// a ring plan that fp32_ring::plan_ok<float, true> has passed for each
-// chain's hp and U_h; adds one to *launched.
+// The gh launch of `chains` chains (1: c0; 2: c0 and c1 on blockIdx.z) over
+// at most M rows each, on a ring plan that fp32_ring::plan_ok<float, true>
+// has passed for each chain's hp and U_h; adds one to *launched.
 inline cudaError_t gh_launch(GhChain c0, GhChain c1, int chains, int M,
                              int H, int wa, int wb, int smem,
                              cudaStream_t stream, int* launched) {
@@ -577,32 +602,40 @@ inline cudaError_t gh_launch(GhChain c0, GhChain c1, int chains, int M,
   });
 }
 
-// One chain's dU_h: duh [H, 3H] = hp^T g over the K = (T - 1) B rows of
-// live h_prev, hp [K, H] and g [K, 3H] (gq shifted by a step).
+// One chain's dU_h: duh [H, 3H] = hp^T g over the rows of live h_prev, hp
+// [K, H] and g [K, 3H] (gq shifted by a step): all K = (T - 1) B where
+// list is null, else the *count row-steps list[i] of both, in the list's
+// (ascending) order.
 struct DuhChain {
-  const float* hp;  // [K, H]
-  const float* g;   // [K, 3H]
-  float* duh;       // [H, 3H]
+  const float* hp;   // [(T - 1) B, H]
+  const float* g;    // [(T - 1) B, 3H]
+  float* duh;        // [H, 3H]
+  const int* list;   // null, or [*count] row indices of hp and g
+  const int* count;  // null, or the rows of the list
 };
 
-// dU_h of both chains of K7f (blockIdx.z picks c0 or c1) on
-// fp32_ring.cuh's loop: 128 x 128 tiles of [H, 3H], A MN-major (the rows
-// of hp are k), each sum one FFMA chain over k = 0 .. K - 1 from zero, as
-// K3f's fp32_tile.cuh product takes it, so each chain's dU_h equals K3f's
-// bit for bit. At K = 0 (T = 1) it writes zeros.
+// dU_h of K3f (grid z 1) or of both chains of K7f (blockIdx.z picks c0 or
+// c1) on fp32_ring.cuh's loop: 128 x 128 tiles of [H, 3H], A MN-major (the
+// rows of hp are k), B's rows through the same index (IndexedB), each sum
+// one FFMA chain over the rows in order from zero, as fp32_tile.cuh's
+// product took it over all (T - 1) B rows: a row-step the list leaves out
+// is one whose g row is +-0 or whose h_prev row is 0, which adds nothing to
+// a sum that is never -0, so every form's dU_h is the same bits. With no
+// rows (T = 1) it writes zeros.
 template <int WA, int WB>
 __global__ void __launch_bounds__(fp32_ring::THREADS, 2)
     gru_f32_duh_kernel(DuhChain c0, DuhChain c1, int K, int H, int wa,
                        int wb) {
   extern __shared__ __align__(16) unsigned char smem_duh[];
   const DuhChain c = blockIdx.z == 0 ? c0 : c1;
+  const int rows = c.count != nullptr ? __ldg(c.count) : K;
   float acc[8][8] = {};
   const int m0 = blockIdx.y * fp32_ring::TILE;
   const int n0 = blockIdx.x * fp32_ring::TILE;
   const long long N = 3LL * H;
-  fp32_ring::mainloop<float, false, WA, WB>(rows_f32::GridCells{c.hp, 1, H},
-                                            c.g, N, H, 3 * H, m0, n0, 0, K,
-                                            wa, wb, acc, smem_duh);
+  fp32_ring::mainloop<float, false, WA, WB>(
+      StepRows{c.hp, c.list, H}, fp32_ring::IndexedB{c.g, c.list, N}, H,
+      3 * H, m0, n0, 0, rows, wa, wb, acc, smem_duh);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -613,6 +646,26 @@ __global__ void __launch_bounds__(fp32_ring::THREADS, 2)
       if (m < H && n < N) c.duh[m * N + n] = acc[i][j];
     }
   }
+}
+
+// The dU_h launch of `chains` chains over at most K rows each, on a ring
+// plan that fp32_ring::plan_ok<float, false, true> has passed for each
+// chain's hp and g; adds one to *launched.
+inline cudaError_t duh_launch(DuhChain c0, DuhChain c1, int chains, int K,
+                              int H, int wa, int wb, int smem,
+                              cudaStream_t stream, int* launched) {
+  return fp32_ring::by_plan(wa, wb, [&](auto fa, auto fb) {
+    auto* kernel =
+        gru_f32_duh_kernel<decltype(fa)::value, decltype(fb)::value>;
+    cudaError_t e = fp32_ring::opt_in(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const int tile = fp32_ring::TILE;
+    const dim3 grid((3 * H + tile - 1) / tile, (H + tile - 1) / tile,
+                    chains);
+    kernel<<<grid, fp32_ring::THREADS, smem, stream>>>(c0, c1, K, H, wa, wb);
+    ++*launched;
+    return cudaGetLastError();
+  });
 }
 
 // The persistent kernel's blocks resident per SM at its dynamic shared

@@ -1,12 +1,11 @@
 // gru_step_f32.cuh: the float32 GRU's gate math (gates, cell, cell_bwd),
-// which every float32 GRU kernel runs, and one timestep of the recurrence
-// as a launch of its own: the step form of K1f (the forward,
-// csrc/gru_fwd_f32.cu) and of K3f (the BPTT, csrc/gru_bwd_f32.cu, which
-// recomputes the gates), taken where their persistent kernels
-// (gru_seq_f32.cuh) do not fit, and the step of K6f and K7f, which take
-// both chains of a bidirectional GRU in each launch
-// (csrc/bigru_fwd_f32.cu, csrc/bigru_bwd_f32.cu); and the db_hn sum of K3f
-// and K7f. For Hopper (sm_90a).
+// which every float32 GRU kernel runs, and one timestep of the forward
+// recurrence as a launch of its own: the step form of K1f
+// (csrc/gru_fwd_f32.cu), taken where its persistent kernel
+// (gru_seq_f32.cuh) does not fit, and the step of K6f, which takes both
+// chains of a bidirectional GRU in each launch (csrc/bigru_fwd_f32.cu); and
+// the db_hn sum of K3f and K7f. The BPTT's step form is gru_bptt_f32.cuh's.
+// For Hopper (sm_90a).
 //
 // A step block owns BM = 64 batch rows x UNITS = 16 hidden units and
 // computes the three gate columns of each of its units, gh = h_prev @ U_h,
@@ -19,10 +18,10 @@
 //   n = tanh(gx_n + r * (gh_n + b_hn)),  h' = (1 - z) * n + z * h
 //   h_t = t < lens[b] ? h' : h
 //
-// The BPTT epilogue forms the step's cotangents from the carried dh as
-// gru_bwd_reference does: dgx_t = (da_r, da_z, da_n), the gate cotangents
-// g_t = (da_r, da_z, dgh_n) for the U_h^T product and dU_h, and the part of
-// dh_prev that does not go through U_h, (1 - m) dh + m dh z.
+// The BPTT's gate backward (cell_bwd) forms a step's cotangents from the
+// carried dh as gru_bwd_reference does: dgx_t = (da_r, da_z, da_n), the
+// gate cotangents g_t = (da_r, da_z, dgh_n) for the U_h^T product and dU_h,
+// and the part of dh_prev that does not go through U_h, (1 - m) dh + m dh z.
 //
 // Full-precision expf and tanhf, products and sums rounded apart where the
 // plain version rounds them apart (__fmul_rn / __fadd_rn), no fast math.
@@ -107,22 +106,17 @@ __device__ __forceinline__ Cotangents cell_bwd(const Gates& q, float hp,
   return c;
 }
 
-// One step t over all rows, the block's 64 rows x 16 units at (blockIdx.y,
-// blockIdx.x). gx [B, 3H] is step t's hoisted x@W_x + b, hprev [B, H] the
-// state before it (null at the chain's first step: zeros). Forward (BWD
-// false): hout [B, H] = the state after step t (hseq[t]), and hT too when
-// not null. Backward: dh [B, H] the carried cotangent of the state after
-// step t -> dgx [B, 3H], gq [B, 3H] and dpart [B, H]. K1f's and K3f's step
-// kernel and K6f's and K7f's (both chains, the direction on blockIdx.z)
-// call it, so every chain runs the same arithmetic.
-template <bool BWD>
+// One step t of the recurrence over all rows, the block's 64 rows x 16
+// units at (blockIdx.y, blockIdx.x). gx [B, 3H] is step t's hoisted x@W_x
+// + b, hprev [B, H] the state before it (null at the chain's first step:
+// zeros); hout [B, H] = the state after step t (hseq[t]), and hT too when
+// not null. K1f's step kernel and K6f's (both chains, the direction on
+// blockIdx.z) call it, so every chain runs the same arithmetic.
 __device__ __forceinline__ void step(
     const float* __restrict__ gx, const float* __restrict__ hprev,
     const int* __restrict__ lens, int t, const float* __restrict__ uh,
     const float* __restrict__ bhn, int B, int H, float* __restrict__ hout,
-    float* __restrict__ hT, const float* __restrict__ dh,
-    float* __restrict__ dgx, float* __restrict__ gq,
-    float* __restrict__ dpart, fp32_tile::Smem<BM, BN, BK>& s) {
+    float* __restrict__ hT, fp32_tile::Smem<BM, BN, BK>& s) {
   float acc[BM / 16][BN / 16] = {};
   const int m0 = blockIdx.y * BM, u0 = blockIdx.x * UNITS;
   if (hprev != nullptr)
@@ -142,40 +136,22 @@ __device__ __forceinline__ void step(
                           acc[i][2], bhn[u]);
     const bool live = t < lens[b];
     const long long o = (long long)b * H + u;
-    if (!BWD) {
-      const float h = cell(q, hp, live);
-      hout[o] = h;
-      if (hT != nullptr) hT[o] = h;
-    } else {
-      const Cotangents c = cell_bwd(q, hp, dh[o], live);
-      float* dg = dgx + b * H3;
-      dg[u] = c.da_r;
-      dg[H + u] = c.da_z;
-      dg[2 * H + u] = c.da_n;
-      float* gqb = gq + b * H3;
-      gqb[u] = c.da_r;
-      gqb[H + u] = c.da_z;
-      gqb[2 * H + u] = c.dgh_n;
-      dpart[o] = c.dpart;
-    }
+    const float h = cell(q, hp, live);
+    hout[o] = h;
+    if (hT != nullptr) hT[o] = h;
   }
 }
 
-// K1f's and K3f's step kernel: step() on one chain.
-template <bool BWD>
+// K1f's step kernel: step() on one chain.
 __global__ void __launch_bounds__(fp32_tile::THREADS)
     gru_f32_step_kernel(const float* __restrict__ gx,
                         const float* __restrict__ hprev,
                         const int* __restrict__ lens, int t,
                         const float* __restrict__ uh,
                         const float* __restrict__ bhn, int B, int H,
-                        float* __restrict__ hout, float* __restrict__ hT,
-                        const float* __restrict__ dh,
-                        float* __restrict__ dgx, float* __restrict__ gq,
-                        float* __restrict__ dpart) {
+                        float* __restrict__ hout, float* __restrict__ hT) {
   __shared__ fp32_tile::Smem<BM, BN, BK> s;
-  step<BWD>(gx, hprev, lens, t, uh, bhn, B, H, hout, hT, dh, dgx, gq, dpart,
-            s);
+  step(gx, hprev, lens, t, uh, bhn, B, H, hout, hT, s);
 }
 
 constexpr int SUM_ROWS = 8;  // row strides a unit of the db_hn sum
@@ -215,6 +191,18 @@ __global__ void __launch_bounds__(32 * SUM_ROWS)
     for (int w = 0; w < SUM_ROWS; ++w) sum += part[w][threadIdx.x];
     dbhn[j] = sum;
   }
+}
+
+// The db_hn launch of `chains` chains (gq0 into dbhn0, and gq1 into dbhn1
+// for two), `rows` rows of g each; adds one to *launched.
+inline cudaError_t dbhn_launch(const float* gq0, float* dbhn0,
+                               const float* gq1, float* dbhn1, int chains,
+                               int rows, int H, cudaStream_t stream,
+                               int* launched) {
+  gru_f32_dbhn_kernel<<<dim3((H + 31) / 32, chains), dim3(32, SUM_ROWS), 0,
+                        stream>>>(gq0, dbhn0, gq1, dbhn1, rows, H);
+  ++*launched;
+  return cudaGetLastError();
 }
 
 }  // namespace gru_f32

@@ -27,10 +27,13 @@ float16 in place of bf16, float32 the float32 kernels
 sums: the persistent kernels of ``csrc/gru_seq_f32.cuh`` (K1f one
 cooperative launch for all timesteps, K3f every step's gh up front, then
 one for the chain) where U_h's slices fit in shared memory
-(``kernels.gru_f32_route``), else one launch a step of
-``csrc/gru_step_f32.cuh``, bit-equal. ``use_kernels=False`` (the model's
-``model.use_pallas`` off) runs the plain versions on CUDA too, as the JAX
-package runs its XLA scan.
+(``kernels.gru_f32_route``), else the step forms, bit-equal: K1f one
+launch a step of ``csrc/gru_step_f32.cuh``, K3f that of
+``csrc/gru_bptt_f32.cuh`` (the lists of each step's live rows, every live
+row-step's gh, one fused carry and gate backward a step over the live rows
+only, dU_h over the live row-steps, db_hn). ``use_kernels=False`` (the
+model's ``model.use_pallas`` off) runs the plain versions on CUDA too, as
+the JAX package runs its XLA scan.
 The input projection's gradients (dx, dW_x, db) are autograd matmuls.
 
 The 16-bit wrappers take any width, as the Pallas bodies do: H is
@@ -964,9 +967,9 @@ gru_bwd_wide_f16.launches = 0
 # its own name, the step form as "<name>_step" and the persistent launch's
 # query as "<name>_config" (K6f's takes the b-tile's rows, 64 or 128).
 _F32_ARGS = {"gru_fwd_f32": (6, 4), "gru_fwd_f32_step": (6, 4),
-             "gru_bwd_f32": (12, 8), "gru_bwd_f32_step": (11, 4),
+             "gru_bwd_f32": (12, 11), "gru_bwd_f32_step": (12, 12),
              "bigru_fwd_f32": (9, 5), "bigru_fwd_f32_step": (9, 3),
-             "bigru_bwd_f32": (17, 11), "bigru_bwd_f32_step": (15, 3)}
+             "bigru_bwd_f32": (17, 11), "bigru_bwd_f32_step": (16, 11)}
 _F32_ROWS_ARG = "bigru_fwd_f32"  # the library whose query takes the rows
 # Each library's (backward, chains): K3f and K7f run the BPTT, K6f and K7f
 # both chains of a bidirectional GRU.
@@ -1101,6 +1104,14 @@ def _f32_launch_args(name: str, form: Optional[str], B: int, H: int,
     return plan["rows"], plan["grid"][2]
 
 
+def _f32_carry_units(B: int, H: int, device: torch.device,
+                     directions: int) -> int:
+    """The units a thread of the BPTT step form's carry launch
+    (``kernels.gru_f32_carry_plan`` on CUDA ``device``'s SMs)."""
+    return kernels.gru_f32_carry_plan(B, H, kernels.sm_count(device),
+                                      directions)["units"]
+
+
 def _check_f32(what: str, gx_t: torch.Tensor, lens: torch.Tensor,
                uh: torch.Tensor, bhn: torch.Tensor
                ) -> Tuple[int, int, int, torch.device]:
@@ -1175,11 +1186,13 @@ def gru_bwd_f32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     once (``kernels.gru_f32_route``: up to H = 1013 on an H100), every
     step's gh in one product, the chain in one cooperative launch
     (``kernels.gru_f32_plan``), the dU_h product over the (T-1)*B rows and
-    the db_hn sum: 4 launches a call at any T. Elsewhere the step form: two
-    launches a step (the gates' cotangents, then the carried dh through
-    U_h^T, which the last step skips), then dU_h and db_hn, 2T + 1 a call.
-    On the current stream, added to ``gru_bwd_f32.launches``. Both forms
-    give the same bits; a launch that fails raises."""
+    the db_hn sum: 4 launches a call at any T. Elsewhere the step form
+    (``csrc/gru_bptt_f32.cuh``): the lists of each step's live rows, every
+    live row-step's gh in one product, one launch a step that carries dh
+    through U_h^T for the step's live rows and runs their gate backward,
+    then dU_h over the live row-steps and db_hn: T + 4 a call. On the
+    current stream, added to ``gru_bwd_f32.launches``. Both forms give
+    the same bits; a launch that fails raises."""
     return _gru_bwd32(gx_t, hseq, lens, uh, bhn, ghT, reverse)
 
 
@@ -1197,38 +1210,46 @@ def _gru_bwd32(gx_t: torch.Tensor, hseq: torch.Tensor, lens: torch.Tensor,
     kernels.expect("ghT", ghT, torch.float32, (B, H), dev)
     entry = _f32_form("gru_bwd_f32", form, B, H, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    dpart = torch.empty(B, H, **f32)
     gq = torch.empty(T, B, 3 * H, **f32)
     dgx = torch.empty(T, B, 3 * H, **f32)
     duh = torch.empty(H, 3 * H, **f32)
     dbhn = torch.empty(H, **f32)
+    # Every step's gh but the chain's first, over the saved states of live
+    # h_prev (hseq shifted by a step; none at T = 1), against g of the
+    # steps they precede.
+    gh = torch.empty(max(T - 1, 1), B, 3 * H, **f32)
+    step = T > 1
+    hp = hseq.data_ptr() + (B * H * 4 if reverse and step else 0)
+    gp = gq.data_ptr() + (3 * B * H * 4 if step and not reverse else 0)
+    ring = kernels.f32_ring_plan(4, True, H * 4, hp, 3 * H * 4,
+                                 uh.data_ptr())
+    duh_ring = kernels.f32_ring_plan(4, False, H * 4, hp, 3 * H * 4, gp,
+                                     b_listed=True)
+    plans = (ring["a_width"], ring["b_width"], ring["stages"],
+             ring["smem_bytes"], duh_ring["a_width"], duh_ring["b_width"],
+             duh_ring["smem_bytes"])
     lib = _f32_lib("gru_bwd_f32")
     launched = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if entry == "gru_bwd_f32":
-            # Every step's gh but the chain's first, over the saved states
-            # of live h_prev (hseq shifted by a step; none at T = 1).
-            gh = torch.empty(max(T - 1, 1), B, 3 * H, **f32)
-            hp = hseq.data_ptr() + (B * H * 4 if reverse and T > 1 else 0)
-            plan = kernels.f32_ring_plan(4, True, H * 4, hp, 3 * H * 4,
-                                         uh.data_ptr())
+            dpart = torch.empty(B, H, **f32)
             rc = lib.gru_bwd_f32(
                 gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
                 uh.data_ptr(), bhn.data_ptr(), ghT.data_ptr(),
                 dpart.data_ptr(), gq.data_ptr(), gh.data_ptr(),
                 dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(), T, B, H,
-                int(reverse), plan["a_width"], plan["b_width"],
-                plan["stages"], plan["smem_bytes"], stream,
-                ctypes.addressof(launched))
+                int(reverse), *plans, stream, ctypes.addressof(launched))
         else:
-            dh = torch.empty(2, B, H, **f32)  # the carried cotangent
-            dh[0].copy_(ghT)
+            dpart = ghT.clone()  # the carried cotangent's part, in place
+            lists = torch.empty(kernels.gru_f32_lists_ints(T, B),
+                                dtype=torch.int32, device=dev)
             rc = lib.gru_bwd_f32_step(
                 gx_t.data_ptr(), hseq.data_ptr(), lens.data_ptr(),
-                uh.data_ptr(), bhn.data_ptr(), dh.data_ptr(),
-                dpart.data_ptr(), gq.data_ptr(), dgx.data_ptr(),
-                duh.data_ptr(), dbhn.data_ptr(), T, B, H, int(reverse),
+                uh.data_ptr(), bhn.data_ptr(), dpart.data_ptr(),
+                lists.data_ptr(), gh.data_ptr(), gq.data_ptr(),
+                dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(), T, B, H,
+                int(reverse), _f32_carry_units(B, H, dev, 1), *plans,
                 stream, ctypes.addressof(launched))
     gru_bwd_f32.launches += launched.value
     kernels.check(lib, rc, entry)
@@ -1857,10 +1878,10 @@ def bigru_bwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     taking both chains: every step's gh, the chains as one cooperative
     launch (``kernels.gru_f32_plan``; one a chain where a row of both
     chains' unit tiles cannot be resident at once: 5 launches), dU_h and
-    db_hn. Elsewhere the step form: two launches a step for both chains,
-    then dU_h and db_hn, 2T + 1 a call. On the current stream, added to
-    ``bigru_bwd_f32.launches``. ``form`` as :func:`bigru_fwd_f32`'s; all
-    forms give the same bits; a launch that fails raises."""
+    db_hn. Elsewhere K3f's step form with both chains in each launch (the
+    lists of live rows shared): T + 4 a call. On the current stream, added
+    to ``bigru_bwd_f32.launches``. ``form`` as :func:`bigru_fwd_f32`'s;
+    all forms give the same bits; a launch that fails raises."""
     what = "bigru_bwd_f32"
     T, B, H, dev = _check_pair_f32(what, gxf, gxb, lens, uhf, uhb, bhnf,
                                    bhnb)
@@ -1879,39 +1900,41 @@ def bigru_bwd_f32(gxf: torch.Tensor, gxb: torch.Tensor, hseqf: torch.Tensor,
     ins = [gxf.data_ptr(), gxb.data_ptr(), hseqf.data_ptr(),
            hseqb.data_ptr(), lens.data_ptr(), uhf.data_ptr(), uhb.data_ptr(),
            bhnf.data_ptr(), bhnb.data_ptr()]
+    # Every step's gh of both chains but each chain's first, over the
+    # saved states of live h_prev (forward hseqf[0 .. T-2], backward
+    # hseqb[1 .. T-1]; none at T = 1), against g of the steps they precede
+    # (forward g[1 ..], backward g[.. T-2]). One ring plan serves both
+    # chains: that of the OR of their addresses, aligned as the less
+    # aligned of the two.
+    gh = torch.empty(2, max(T - 1, 1), B, 3 * H, **f32)
+    step = 4 * B * H if T > 1 else 0
+    hp = hseqf.data_ptr() | (hseqb.data_ptr() + step)
+    gp = (gq[0].data_ptr() + 3 * step) | gq[1].data_ptr()
+    ring = kernels.f32_ring_plan(4, True, H * 4, hp, 3 * H * 4,
+                                 uhf.data_ptr() | uhb.data_ptr())
+    duh_ring = kernels.f32_ring_plan(4, False, H * 4, hp, 3 * H * 4, gp,
+                                     b_listed=True)
+    plans = (ring["a_width"], ring["b_width"], ring["stages"],
+             ring["smem_bytes"], duh_ring["a_width"], duh_ring["b_width"],
+             duh_ring["smem_bytes"])
     with torch.cuda.device(dev):
         if entry == what:
-            # Every step's gh of both chains but each chain's first, over
-            # the saved states of live h_prev (forward hseqf[0 .. T-2],
-            # backward hseqb[1 .. T-1]; none at T = 1), against g of the
-            # steps they precede (forward g[1 ..], backward g[.. T-2]). One
-            # ring plan serves both chains: that of the OR of their
-            # addresses, aligned as the less aligned of the two.
-            gh = torch.empty(2, max(T - 1, 1), B, 3 * H, **f32)
-            step = 4 * B * H if T > 1 else 0
-            hp = hseqf.data_ptr() | (hseqb.data_ptr() + step)
-            gp = (gq[0].data_ptr() + 3 * step) | gq[1].data_ptr()
-            ring = kernels.f32_ring_plan(4, True, H * 4, hp, 3 * H * 4,
-                                         uhf.data_ptr() | uhb.data_ptr())
-            duh_ring = kernels.f32_ring_plan(4, False, H * 4, hp, 3 * H * 4,
-                                             gp)
             rc = lib.bigru_bwd_f32(
                 *ins, ghTf.data_ptr(), ghTb.data_ptr(), dpart.data_ptr(),
                 gq.data_ptr(), gh.data_ptr(), dgx.data_ptr(), duh.data_ptr(),
                 dbhn.data_ptr(), T, B, H,
-                _f32_launch_args(what, form, B, H, dev)[1],
-                ring["a_width"], ring["b_width"], ring["stages"],
-                ring["smem_bytes"], duh_ring["a_width"],
-                duh_ring["b_width"], duh_ring["smem_bytes"], stream,
+                _f32_launch_args(what, form, B, H, dev)[1], *plans, stream,
                 ctypes.addressof(launched))
         else:
-            dh = torch.empty(2, 2, B, H, **f32)  # each chain's carried dh
-            dh[0, 0].copy_(ghTf)
-            dh[1, 0].copy_(ghTb)
+            dpart[0].copy_(ghTf)  # each chain's carried cotangent's part
+            dpart[1].copy_(ghTb)
+            lists = torch.empty(kernels.gru_f32_lists_ints(T, B),
+                                dtype=torch.int32, device=dev)
             rc = lib.bigru_bwd_f32_step(
-                *ins, dh.data_ptr(), dpart.data_ptr(), gq.data_ptr(),
-                dgx.data_ptr(), duh.data_ptr(), dbhn.data_ptr(), T, B, H,
-                stream, ctypes.addressof(launched))
+                *ins, dpart.data_ptr(), lists.data_ptr(), gh.data_ptr(),
+                gq.data_ptr(), dgx.data_ptr(), duh.data_ptr(),
+                dbhn.data_ptr(), T, B, H, _f32_carry_units(B, H, dev, 2),
+                *plans, stream, ctypes.addressof(launched))
     bigru_bwd_f32.launches += launched.value
     kernels.check(lib, rc, entry)
     return dgx[0], dgx[1], duh[0], duh[1], dbhn[0], dbhn[1]

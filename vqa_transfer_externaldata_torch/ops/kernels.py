@@ -461,9 +461,11 @@ def gru_f32_route(B: int, H: int, sms: int, per_sm: int,
     "persistent" where :func:`gru_f32_plan` plans a launch (the block's U_h
     slice and ring within ``SMEM_OPTIN``, and a row of ceil(H / 16) unit
     tiles of every chain resident at once, else of one chain, which then
-    takes a launch of its own), else "step", one launch a timestep of
-    ``csrc/gru_step_f32.cuh`` (two for K3f and K7f), which takes any shape.
-    A function of the shapes and the occupancy alone."""
+    takes a launch of its own), else "step", which takes any shape: one
+    launch a timestep of ``csrc/gru_step_f32.cuh`` forward, the BPTT's
+    step form of ``csrc/gru_bptt_f32.cuh`` backward (T + 4 launches,
+    :func:`gru_f32_launches`). A function of the shapes and the occupancy
+    alone."""
     if (B < 1 or H < 1 or sms < 1 or per_sm < 0
             or directions not in (1, 2)):
         raise ValueError(f"gru_f32_route needs B, H, sms >= 1, per_sm >= 0 "
@@ -547,16 +549,133 @@ def gru_f32_launches(T: int, B: int, H: int, sms: int, per_sm: int,
     K3f, with ``directions`` 2 of K6f or K7f, at batch ``B`` and width
     ``H`` on a card of ``sms`` SMs with ``per_sm`` (``per_sm_pair``) blocks
     resident per SM: :func:`gru_f32_plan`'s where :func:`gru_f32_route`
-    takes the persistent form; in the step form (``csrc/gru_step_f32.cuh``,
-    every chain in each launch) T forward, and backward two a step (the
-    gates' cotangents, then the carried dh, which the last step skips),
-    then dU_h and db_hn: 2T + 1."""
+    takes the persistent form; in the step form (every chain in each
+    launch) T forward (``csrc/gru_step_f32.cuh``), and backward
+    (``csrc/gru_bptt_f32.cuh``) the step lists, every live row-step's gh,
+    one carry a step, dU_h and db_hn: T + 4."""
     if T < 1:
         raise ValueError(f"gru_f32_launches needs T >= 1, got T={T}")
     if gru_f32_route(B, H, sms, per_sm, backward, directions) == "step":
-        return 2 * T + 1 if backward else T
+        return T + GRU_F32_STEP_BWD_LAUNCHES if backward else T
     return gru_f32_plan(B, H, sms, per_sm, backward, directions,
                         per_sm_pair)["launches"]
+
+
+# The float32 BPTT's step form (csrc/gru_bptt_f32.cuh): the carry's block
+# of GRU_F32_CARRY_THREADS owns GRU_F32_CARRY_LANES x TU units of one chain
+# (TU from GRU_F32_CARRY_UNITS, :func:`gru_f32_carry_plan`) for every live
+# row of a step, in passes of GRU_F32_CARRY_PASS list positions
+# (:func:`gru_f32_carry_pass`: rows ty + 32 i of a pass, i below 1 .. 8,
+# the fewest that cover it), its operands on a ring of
+# GRU_F32_CARRY_STAGES stages of GRU_F32_CARRY_CHUNK k (more for a pass of
+# fewer rows); two blocks an SM.
+GRU_F32_STEP_BWD_LAUNCHES = 4  # besides the T carries: lists, gh, dU_h, db_hn
+GRU_F32_CARRY_THREADS = 128
+GRU_F32_CARRY_LANES = 4  # unit lanes: units tx + 4 e of the block's
+GRU_F32_CARRY_PASS = 256  # list positions a pass: 32 row groups x 8 rows
+GRU_F32_CARRY_CHUNK, GRU_F32_CARRY_STAGES = 32, 2
+GRU_F32_CARRY_UNITS = (3, 5)  # units a thread: the C side's instances
+
+
+def gru_f32_carry_pass(rows: int) -> Tuple[int, int]:
+    """(row groups, rows a thread) of a carry pass over ``rows`` list
+    positions (1 .. GRU_F32_CARRY_PASS): the threads / 4 row groups, each
+    thread the fewest rows that cover the pass."""
+    if not 1 <= rows <= GRU_F32_CARRY_PASS:
+        raise ValueError(f"gru_f32_carry_pass: 1 .. {GRU_F32_CARRY_PASS} "
+                         f"rows, got {rows}")
+    groups = GRU_F32_CARRY_THREADS // GRU_F32_CARRY_LANES
+    return groups, -(-rows // groups)
+
+
+def gru_f32_carry_smem() -> int:
+    """The carry block's dynamic shared memory (the C side's
+    ``carry_smem``): the pass's row pointers, then the ring's stages of
+    [pass rows + 4 x the most units a thread][chunk + 4] floats."""
+    rows = GRU_F32_CARRY_PASS + GRU_F32_CARRY_LANES * max(
+        GRU_F32_CARRY_UNITS)
+    return (8 * GRU_F32_CARRY_PASS
+            + 4 * GRU_F32_CARRY_STAGES * rows * (GRU_F32_CARRY_CHUNK + 4))
+
+
+def gru_f32_carry_stages(rows: int) -> int:
+    """The ring's stages in a pass of ``rows`` staged rows (the C side's
+    ``stages``): as many stages of [rows + 4 x the most units a
+    thread][chunk + 4] floats as the ring of :func:`gru_f32_carry_smem`
+    holds, so a pass of few rows keeps as many bytes in flight as a whole
+    one."""
+    if not 1 <= rows <= GRU_F32_CARRY_PASS:
+        raise ValueError(f"gru_f32_carry_stages: 1 .. {GRU_F32_CARRY_PASS}"
+                         f" rows, got {rows}")
+    pitch = GRU_F32_CARRY_CHUNK + 4
+    umax = GRU_F32_CARRY_LANES * max(GRU_F32_CARRY_UNITS)
+    ring = GRU_F32_CARRY_STAGES * (GRU_F32_CARRY_PASS + umax) * pitch
+    return ring // ((rows + umax) * pitch)
+
+
+def gru_f32_carry_plan(B: int, H: int, sms: int, directions: int = 1
+                       ) -> dict:
+    """The carry launch of the float32 BPTT's step form at batch ``B`` and
+    width ``H`` with ``directions`` chains on a card of ``sms`` SMs: the
+    ``units`` a thread (TU), the ``unit_tiles`` (ceil(H / 4 TU)), the
+    ``grid`` (unit tiles, 1, directions: a block a chain), ``threads``,
+    ``smem_bytes`` and the ring's ``stages`` at each pass height. A block
+    takes every live row of its step, so the blocks' work is even; TU is
+    the one of ``GRU_F32_CARRY_UNITS`` whose blocks take the least time on
+    the busiest SM, ceil(blocks / sms) x TU, the narrower on a tie (more
+    blocks to share an SM): at H = 2400 on 132 SMs 5 (120 blocks a chain),
+    at 1100 3 for one chain, 5 for two."""
+    if B < 1 or H < 1 or sms < 1 or directions not in (1, 2):
+        raise ValueError(f"gru_f32_carry_plan needs B, H, sms >= 1 and 1 or "
+                         f"2 directions, got B={B}, H={H}, sms={sms}, "
+                         f"directions={directions}")
+    lanes = GRU_F32_CARRY_LANES
+
+    def cost(tu: int) -> Tuple[int, int]:
+        blocks = directions * -(-H // (lanes * tu))
+        return (-(-blocks // sms) * tu, tu)
+
+    tu = min(GRU_F32_CARRY_UNITS, key=cost)
+    tiles = -(-H // (lanes * tu))
+    heights = {gru_f32_carry_pass(n)[1] * gru_f32_carry_pass(n)[0]
+               for n in range(1, GRU_F32_CARRY_PASS + 1)}
+    return {"units": tu, "unit_tiles": tiles, "grid": [tiles, 1, directions],
+            "threads": GRU_F32_CARRY_THREADS,
+            "smem_bytes": gru_f32_carry_smem(),
+            "stages": {h: gru_f32_carry_stages(h) for h in sorted(heights)}}
+
+
+def gru_f32_lists_ints(T: int, B: int) -> int:
+    """The int32 scratch of the step form's lists at ``T`` steps and batch
+    ``B`` (the C side's ``StepLists``): rows [T, B], the counts [T], the
+    packed row-steps [max(T - 1, 1) B] and their count."""
+    return T * B + T + max(T - 1, 1) * B + 1
+
+
+def gru_f32_step_lists(lens, T: int) -> dict:
+    """What the step form's lists launch (``gru_f32_lists_kernel``) writes
+    for lengths ``lens`` [B] over ``T`` steps, in numpy: ``rows`` [T, B]
+    (step t's live rows, t < lens[b], in ascending b, then its dead ones),
+    ``cnt`` [T], the packed ``rowsteps`` (t - 1) B + b of every b live at
+    step t = 1 .. T - 1 in that order, and their count ``m``. The forward chain reads entry
+    r B + b as its step r + 1 (h_prev hseq[r]), the reverse chain as its
+    step r (h_prev hseq[r + 1], not zero where b is live at step r + 1):
+    the row-steps whose h_prev is not zero."""
+    import numpy as np
+
+    lens = np.asarray(lens, dtype=np.int64)
+    B = lens.shape[0]
+    if T < 1 or B < 1:
+        raise ValueError(f"gru_f32_step_lists needs T, B >= 1, got T={T}, "
+                         f"B={B}")
+    live = np.arange(T)[:, None] < lens[None, :]  # [T, B]
+    cnt = live.sum(axis=1)
+    rows = np.stack([np.concatenate([np.flatnonzero(live[t]),
+                                     np.flatnonzero(~live[t])])
+                     for t in range(T)])
+    steps = [(t - 1) * B + np.flatnonzero(live[t]) for t in range(1, T)]
+    flat = np.concatenate(steps) if steps else np.zeros(0, np.int64)
+    return {"rows": rows, "cnt": cnt, "rowsteps": flat, "m": len(flat)}
 
 
 def gru_step_plan(T: int, B: int, H: int, backward: bool,
@@ -712,8 +831,8 @@ def f32_copy_width(pitch_bytes: int, address: int) -> int:
 
 
 def f32_ring_plan(elem_bytes: int, a_kmajor: bool, a_pitch_bytes: int,
-                  a_address: int, b_pitch_bytes: int, b_address: int
-                  ) -> dict:
+                  a_address: int, b_pitch_bytes: int, b_address: int,
+                  b_listed: bool = False) -> dict:
     """The launch plan of one product on ``csrc/fp32_ring.cuh``'s loop,
     from the shapes and the base addresses: A's rows of ``elem_bytes``
     elements (4 f32, 2 f16, 1 int8 codes) ``a_pitch_bytes`` apart from
@@ -724,11 +843,16 @@ def f32_ring_plan(elem_bytes: int, a_kmajor: bool, a_pitch_bytes: int,
     ``stages``, whether A is widened into its f32 slots (``a_widened``:
     all but f32 MN-major rows) and ``smem_bytes``, the block's dynamic
     shared memory (the C side's ``fp32_ring::Layout``, which refuses
-    another plan). ``ValueError`` where B is not 4-byte aligned or two
-    blocks would not fit on an SM."""
+    another plan): with ``b_listed`` (MN-major A only: the GRU's dU_h,
+    whose B rows come through an index) a slot of B's row pointers a
+    stage too. ``ValueError`` where B is not 4-byte aligned or two blocks
+    would not fit on an SM."""
     if elem_bytes not in (1, 2, 4):
         raise ValueError(f"f32_ring_plan: rows of {elem_bytes}-byte "
                          "elements (f32, f16 or int8 codes only)")
+    if b_listed and a_kmajor:
+        raise ValueError("f32_ring_plan: B's rows come through an index "
+                         "only beside MN-major A")
     wa = f32_copy_width(a_pitch_bytes, a_address)
     wb = f32_copy_width(b_pitch_bytes, b_address)
     if wb == 0:
@@ -738,7 +862,8 @@ def f32_ring_plan(elem_bytes: int, a_kmajor: bool, a_pitch_bytes: int,
     widened = not (elem_bytes == 4 and not a_kmajor)
     smem = (s * (t * k * elem_bytes + k * t * 4)
             + (2 * k * F32_RING_WIDE_PITCH * 4 if widened else 0)
-            + 8 * (t if a_kmajor else s * k))
+            + 8 * (t if a_kmajor else s * k)
+            + (8 * s * k if b_listed else 0))
     if 2 * (smem + F32_RING_BLOCK_RESERVED) > F32_RING_SMEM_PER_SM:
         raise ValueError(f"f32_ring_plan: {smem} B of shared memory a block "
                          "leave no room for two blocks an SM")

@@ -1,9 +1,12 @@
 """Fingerprints of the bf16 kernels' outputs (K1-K8, K4/K5 on int8 rows
 too) and of the float32 kernels' (K1f-K8f, K4f/K5f on f32, f16 and int8
 rows) at the main path's shapes on seeded inputs: a SHA-256 of each
-output's bytes. Two builds of the port that give the same fingerprints on
-one card compute the same bits, which is how a change to the kernels'
-shared sources is held to its parent commit.
+output's bytes; and of the float32 BPTT's step forms (K3f both ways, K7f)
+at STEP_H units, past the persistent kernels, where -0 and +0 count as
+one value (``torch.equal``'s: a dead row's cotangents are +0 in one form
+and +-0 in another). Two builds of the port that give the same
+fingerprints on one card compute the same bits, which is how a change to
+the kernels' shared sources is held to its parent commit.
 
 Run it from the root of the checkout whose kernels it should build and run
 (it imports ``vqa_transfer_externaldata_torch`` from the working
@@ -31,6 +34,7 @@ import torch
 
 B, T, H, N, C = 256, 26, 512, 196, 2048
 NP, IMAGES = 200, 512  # the store's padded cells a row, and its rows
+STEP_H = 1100  # the float32 GRU's step form: past its persistent kernels
 
 
 def _digest(x: torch.Tensor) -> str:
@@ -38,10 +42,16 @@ def _digest(x: torch.Tensor) -> str:
     return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
 
 
+def _digest_values(x: torch.Tensor) -> str:
+    """_digest with -0 read as +0 (x + 0 is x but for -0)."""
+    return _digest(x.detach() + 0.0)
+
+
 def fingerprints(seed: int) -> dict:
     """{kernel call: {output: sha256}} of every bf16 and float32 kernel at
-    the main path's shapes."""
-    return {**bf16_fingerprints(seed), **f32_fingerprints(seed)}
+    the main path's shapes, and of the float32 BPTT's step forms."""
+    return {**bf16_fingerprints(seed), **f32_fingerprints(seed),
+            **f32_step_fingerprints(seed)}
 
 
 def bf16_fingerprints(seed: int) -> dict:
@@ -207,6 +217,42 @@ def f32_fingerprints(seed: int) -> dict:
             put(f"K5f {tag}", ("dqh", "dwv", "dws"),
                 ar.attention_resident_bwd_f32(st, rows, h, wsg, al, gv, sga,
                                               **kw))
+    torch.cuda.synchronize()
+    return out
+
+
+def f32_step_fingerprints(seed: int) -> dict:
+    """{kernel call: {output: sha256 of its values}} of the float32 BPTT's
+    step forms at B x T x STEP_H with lengths 1 .. T: K3f both ways
+    (``gru._gru_bwd32(..., form="step")``) on K1f's states, K7f's step form
+    (``gru.bigru_bwd_f32(..., form="step")``) on K6f's."""
+    from vqa_transfer_externaldata_torch.ops import gru
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    Hs, out = STEP_H, {}
+    gx = [torch.randn(T, B, 3 * Hs, generator=g, device=dev) * 0.5
+          for _ in "fb"]
+    uh = [torch.randn(Hs, 3 * Hs, generator=g, device=dev) * Hs ** -0.5
+          for _ in "fb"]
+    bhn = [torch.randn(Hs, generator=g, device=dev) * 0.1 for _ in "fb"]
+    ghT = [torch.randn(B, Hs, generator=g, device=dev) * 0.05 for _ in "fb"]
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    for reverse in (False, True):
+        _, hseq = gru.gru_fwd_f32(gx[0], lens, uh[0], bhn[0],
+                                  reverse=reverse)
+        got = gru._gru_bwd32(gx[0], hseq, lens, uh[0], bhn[0], ghT[0],
+                             reverse, "step")
+        out[f"K3f step reverse={reverse}"] = {
+            n: _digest_values(t) for n, t in zip(("dgx", "duh", "dbhn"),
+                                                 got)}
+    k6 = gru.bigru_fwd_f32(gx[0], gx[1], lens, uh[0], uh[1], bhn[0],
+                           bhn[1])
+    got = gru.bigru_bwd_f32(gx[0], gx[1], k6[2], k6[3], lens, uh[0], uh[1],
+                            bhn[0], bhn[1], ghT[0], ghT[1], form="step")
+    out["K7f step"] = {n: _digest_values(t) for n, t in zip(
+        ("dgxf", "dgxb", "duhf", "duhb", "dbhnf", "dbhnb"), got)}
     torch.cuda.synchronize()
     return out
 
